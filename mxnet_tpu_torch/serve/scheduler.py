@@ -1,0 +1,243 @@
+"""Continuous-batching scheduler: admit/evict at every decode step.
+
+A copy of ``mxnet_tpu/serve/scheduler.py`` (pure Python), kept here so the
+port imports nothing of the JAX package.
+
+Pure host-side policy, no device state: the engine asks it *which*
+requests join the running batch each step (``admit``), tells it which
+finished (``finish``), and the scheduler keeps the bounded wait queue
+and the admission order.  Policy:
+
+* **FIFO** by default — deterministic, replayable.
+* **SLO-aware jump**: a queued request whose latency budget
+  (``slo_ms``, per-request or the scheduler default) is more than
+  ``slo_admit_frac`` consumed moves to the head, ordered by remaining
+  slack.  A request with no SLO never jumps.
+* **Bounded queue**: ``submit`` raises once ``max_queue`` requests
+  wait — backpressure belongs at the front door, not OOM at the pool.
+* Admission stops at the first request the engine cannot place
+  (``can_place`` — typically "enough free KV blocks"): no head-of-line
+  skipping, so a big request cannot starve behind a stream of small
+  ones admitted around it.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, List, Optional
+
+from ..base import MXNetError
+
+__all__ = ["Request", "Scheduler", "ServeError", "QUEUED", "ACTIVE",
+           "FINISHED", "CANCELLED", "FAILED"]
+
+QUEUED = "queued"
+ACTIVE = "active"
+FINISHED = "finished"
+CANCELLED = "cancelled"
+FAILED = "failed"
+
+_seq = itertools.count()
+
+
+class ServeError(MXNetError):
+    """A request finished unsuccessfully (timed out, shed, replica
+    error).  ``reason`` carries the finish reason — ``"timeout"``,
+    ``"shed"``, ``"error"`` — so callers can branch on it instead of
+    parsing a message; ``request_id`` names the request.  Raised by
+    ``Engine.result()``/``stream()`` and the router equivalents; a
+    failed request never surfaces as a bare KeyError/assert."""
+
+    def __init__(self, reason: str, request_id: int,
+                 message: Optional[str] = None):
+        self.reason = str(reason)
+        self.request_id = int(request_id)
+        super().__init__(
+            message or f"request {request_id} failed: {reason}")
+
+
+@dataclass
+class Request:
+    """One generation request and its full lifecycle state."""
+    prompt: List[int]
+    max_new_tokens: int = 32
+    temperature: float = 0.0          # 0 = greedy
+    top_k: int = 0                    # 0 = full distribution
+    slo_ms: Optional[float] = None    # per-token latency budget target
+    eos_id: Optional[int] = None
+    deadline_ms: Optional[float] = None  # hard wall from submit_t
+    # -- engine-managed state --
+    id: int = field(default_factory=lambda: next(_seq))
+    key: Any = None                   # per-request PRNG key (engine-set)
+    state: str = QUEUED
+    tokens: List[int] = field(default_factory=list)   # generated ids
+    blocks: List[int] = field(default_factory=list)   # physical kv slots
+    cached: int = 0                   # kv entries currently stored
+    # chunked-prefill progress (engine-managed): seed tokens ingested so
+    # far vs the total to ingest.  Whole-prompt prefill sets both at
+    # once; a preempted request resets both and re-chunks on re-admit.
+    prefilled: int = 0
+    prefill_target: int = 0
+    # prefix-cache state (engine-managed): blocks pinned from the
+    # prefix index at admission (consumed by _prefill_begin), tokens
+    # satisfied from cache this prefill, and how many leading full
+    # blocks of this request have been published to the index.
+    prefix_blocks: List[int] = field(default_factory=list)
+    prefix_hit: int = 0
+    published: int = 0
+    # speculative decode (engine-managed): drafts in play for this
+    # row's next verify step (0 = plain decode shape)
+    spec_live: int = 0
+    cancel_requested: bool = False
+    finish_reason: Optional[str] = None
+    submit_t: float = 0.0
+    admit_t: Optional[float] = None
+    first_token_t: Optional[float] = None
+    finish_t: Optional[float] = None
+    token_times: List[float] = field(default_factory=list)
+
+    @property
+    def seed_tokens(self) -> List[int]:
+        """Tokens to (re)prefill with: prompt + anything already
+        generated (preemption restarts mid-stream deterministically —
+        sampling keys are position-keyed, see engine)."""
+        return list(self.prompt) + list(self.tokens)
+
+    def done(self) -> bool:
+        return self.state in (FINISHED, CANCELLED, FAILED)
+
+
+class Scheduler:
+    def __init__(self, max_batch: int = 8, max_queue: int = 64,
+                 slo_ms: Optional[float] = None,
+                 slo_admit_frac: float = 0.5):
+        if max_batch < 1:
+            raise MXNetError(f"max_batch must be >= 1, got {max_batch}")
+        if max_queue < 1:
+            raise MXNetError(f"max_queue must be >= 1, got {max_queue}")
+        self.max_batch = int(max_batch)
+        self.max_queue = int(max_queue)
+        self.slo_ms = slo_ms
+        self.slo_admit_frac = float(slo_admit_frac)
+        self.queue: List[Request] = []     # waiting, submit order
+        self.running: List[Request] = []   # active decode slots
+        self._fifo = itertools.count()
+        self._order = {}                   # req id -> arrival tick
+
+    # -- front door ------------------------------------------------------
+
+    def submit(self, req: Request, now: Optional[float] = None) -> Request:
+        if len(self.queue) >= self.max_queue:
+            raise MXNetError(
+                f"serve queue full ({self.max_queue} waiting); retry later")
+        req.state = QUEUED
+        req.submit_t = time.monotonic() if now is None else now
+        self._order[req.id] = next(self._fifo)
+        self.queue.append(req)
+        return req
+
+    def requeue(self, req: Request) -> None:
+        """Preempted request back to the head of its arrival order (it
+        keeps its original FIFO tick, so it re-admits first)."""
+        req.state = QUEUED
+        if req in self.running:
+            self.running.remove(req)
+        self.queue.append(req)
+
+    def cancel(self, req: Request) -> None:
+        req.cancel_requested = True
+        if req in self.queue:
+            self.queue.remove(req)
+            req.state = CANCELLED
+            req.finish_reason = "cancelled"
+            req.finish_t = time.monotonic()
+
+    # -- policy ----------------------------------------------------------
+
+    def _slo(self, req: Request) -> Optional[float]:
+        return req.slo_ms if req.slo_ms is not None else self.slo_ms
+
+    def _at_risk(self, req: Request, now: float,
+                 backlog_ms: float = 0.0) -> bool:
+        """Whether a queued request has burned through
+        ``slo_admit_frac`` of its budget.  ``backlog_ms`` is wait the
+        request will *certainly* still absorb before its first token —
+        the engine passes the remaining prefill-chunk backlog of
+        already-active requests, so chunked prefill (which serializes
+        one chunk per step ahead of new admissions) cannot silently eat
+        an at-risk request's admission jump."""
+        slo = self._slo(req)
+        if slo is None:
+            return False
+        wait = (now - req.submit_t) * 1e3 + backlog_ms
+        return wait >= slo * self.slo_admit_frac
+
+    def admission_order(self, now: Optional[float] = None,
+                        prefill_backlog_ms: float = 0.0,
+                        decode_backlog_ms: float = 0.0) -> List[Request]:
+        """Queue in the order admission will consider it: SLO-at-risk
+        first (least remaining slack first), then FIFO.  Slack is
+        discounted by ``prefill_backlog_ms`` plus ``decode_backlog_ms``
+        (see :meth:`_at_risk`) — the decode term is the wait for a busy
+        slot to free, which the engine computes K-aware under
+        speculative decoding (a step emits 1..K+1 tokens, so slot
+        turnover is ``remaining / tokens_per_step`` steps, not
+        ``remaining``)."""
+        now = time.monotonic() if now is None else now
+        backlog = prefill_backlog_ms + decode_backlog_ms
+
+        def sort_key(req):
+            if self._at_risk(req, now, backlog):
+                slack = (self._slo(req)
+                         - (now - req.submit_t) * 1e3 - backlog)
+                return (0, slack, self._order[req.id])
+            return (1, 0.0, self._order[req.id])
+
+        return sorted(self.queue, key=sort_key)
+
+    def admit(self, can_place: Callable[[Request], bool],
+              now: Optional[float] = None,
+              prefill_backlog_ms: float = 0.0,
+              decode_backlog_ms: float = 0.0) -> List[Request]:
+        """Move requests from the queue into free decode slots.  Stops
+        at the first candidate ``can_place`` rejects (strict order —
+        no starvation by smaller latecomers)."""
+        now = time.monotonic() if now is None else now
+        admitted: List[Request] = []
+        for req in self.admission_order(now, prefill_backlog_ms,
+                                        decode_backlog_ms):
+            if len(self.running) >= self.max_batch:
+                break
+            if not can_place(req):
+                break
+            self.queue.remove(req)
+            req.state = ACTIVE
+            req.admit_t = now
+            self.running.append(req)
+            admitted.append(req)
+        return admitted
+
+    def finish(self, req: Request, reason: str,
+               state: str = FINISHED) -> None:
+        req.state = state
+        req.finish_reason = reason
+        req.finish_t = time.monotonic()
+        if req in self.running:
+            self.running.remove(req)
+        if req in self.queue:   # e.g. deadline expiry before admission
+            self.queue.remove(req)
+        self._order.pop(req.id, None)
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.queue)
+
+    @property
+    def active(self) -> int:
+        return len(self.running)
+
+    def idle(self) -> bool:
+        return not self.queue and not self.running

@@ -8,9 +8,12 @@ Run from the repository root on a machine with one NVIDIA H100::
 It imports torch and the port, never jax nor ``mxnet_tpu``, and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
-2. builds every kernel of ``mxnet_tpu_torch/csrc`` with nvcc (timed);
+2. builds every kernel of ``mxnet_tpu_torch/csrc`` with nvcc, one process
+   per source, all at once (timed);
 3. holds each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes and at edge cases, with stated tolerances;
+   the main paths' shapes and at edge cases: flash decode (K5) and the
+   row softmax (K1) within stated tolerances, the fused optimizer update
+   (K2) bitwise against the unfused per-parameter update;
 4. serves the transformer-LM at full width (6 layers, d_model 512, 8
    heads, 32k vocab, random weights from seed 0) through ``Engine``:
    warmup, then 16 requests; checks every request finished, that two of
@@ -18,10 +21,19 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    is the argmax of a teacher-forced forward over the same tokens, that
    the pool drains, and that the kernel launched ``num_layers`` times per
    decode step; prints tokens/s, p50 TTFT and the median decode-step time;
-5. times each kernel with CUDA events (median, L2 flushed between
+5. trains ResNet-50 at full width (depth 50, 3x224x224, 1000 classes,
+   batch 64, f32; parameters drawn with numpy from seed 0 by the default
+   initializer rule) through ``ShardedTrainer`` with SGD (lr 0.1,
+   momentum 0.9, wd 1e-4), the guard and clip 5.0: one warm-up and 5
+   timed steps on one fixed batch, then a step on a batch with a NaN;
+   checks finite falling losses, a bitwise no-op on the NaN step, one K1
+   launch and one K2 launch per bucket (25) per step, and a bitwise
+   fused-vs-unfused update from the same gradients; prints the median
+   step time and images/s;
+6. times each kernel with CUDA events (median, L2 flushed between
    launches) beside its plain version, a library yardstick and the
    card's bound for the same work;
-6. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+7. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
@@ -41,6 +53,9 @@ F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 
 TOL = {"float32": 2e-5,         # summation order only
        "bfloat16": 1e-2}        # summation order + one bf16 rounding of out
+# K1 against its plain version: the online rescale of the running sum
+# changes only the last bits of an f32 probability
+K1_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 
 # serving configuration: bench.py's transformer-LM default at full width
 VOCAB, LAYERS, D_MODEL, HEADS = 32000, 6, 512, 8
@@ -48,6 +63,13 @@ ENGINE_KW = dict(heads=HEADS, block_size=16, num_blocks=520, max_batch=8,
                  max_prompt_len=512, max_seq_len=1024)
 N_REQUESTS, NEW_TOKENS = 16, 64
 SAMPLED = {3: 0.8, 7: 1.0, 11: 0.7}      # request index -> temperature
+
+# training configuration: __graft_entry__.entry's ResNet-50
+DEPTH, CLASSES, IMAGE, BATCH = 50, 1000, (3, 224, 224), 64
+TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+CLIP, TIMED_STEPS, N_BUCKETS = 5.0, 5, 25
+K1_SHAPES = [(64, 1000), (8, 10), (3, 16384), (37, 1001)]
+K2_LEN = 1003 + 3 * 1048576               # three full buckets' worth + odd
 DEVICE = "cuda"
 
 
@@ -141,6 +163,166 @@ def phase_kernel_vs_plain(torch, np, fd):
               f"version: max_abs_err {err} > {tol}")
         errs[name] = err
     return errs
+
+
+def phase_k1_vs_plain(torch, np, nn_ops):
+    """K1 against its plain version, f32 and bf16, at the training shape
+    and at edges (few columns, the column limit, a ragged row length);
+    the last case has -inf logits, which must give probability 0."""
+    errs = {}
+    rng = np.random.RandomState(21)
+    for shape in K1_SHAPES + [(5, 300)]:
+        x = (4.0 * rng.randn(*shape)).astype(np.float32)
+        if shape == (5, 300):
+            x[:, ::7] = -np.inf
+        for dtype in (torch.float32, torch.bfloat16):
+            t = torch.from_numpy(x).to(DEVICE, dtype)
+            out = nn_ops.softmax_rows(t)
+            ref = nn_ops.softmax_rows_ref(t)
+            torch.cuda.synchronize()
+            dname = str(dtype).replace("torch.", "")
+            name = f"{'x'.join(map(str, shape))} {dname}"
+            check(out.dtype == dtype and out.shape == t.shape,
+                  f"K1 {name}: kernel gave {out.dtype}{tuple(out.shape)}")
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"K1 {name}: non-finite output")
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"  K1 vs plain [{name}]: max_abs_err {err:.3e} "
+                f"(tol {K1_TOL[dname]:g})")
+            check(err <= K1_TOL[dname], f"K1 {name}: kernel disagrees with "
+                  f"its plain version: max_abs_err {err}")
+            errs[name] = err
+    return errs
+
+
+# (kind, scalars (lr or lr_t, adamw's second), wd vector, mult, ok, clip)
+K2_CASES = [
+    ("sgd", False, False, None, None),
+    ("sgd_momentum", True, True, True, 0.05),
+    ("sgd_momentum", False, False, None, None),
+    ("sgd_momentum", True, True, False, 0.05),
+    ("adam", False, True, True, 0.05),
+    ("adamw", False, False, None, None),
+    ("adamw", True, True, True, 0.05),
+    ("adamw", True, False, False, None),
+]
+
+
+def k2_operands(torch, np, kind, n, seed):
+    """A random bucket: grads, weights, state, and a wd vector made of
+    segments (the parameters of the bucket), each with its own wd."""
+    rng = np.random.RandomState(seed)
+    dev = torch.device(DEVICE)
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    nst = {"sgd": 0, "sgd_momentum": 1, "adam": 2, "adamw": 2}[kind]
+    state = [torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+             for _ in range(nst)]
+    if nst == 2:
+        state[1] = state[1].abs()
+    cuts = sorted(rng.choice(np.arange(1, n), 6, replace=False).tolist())
+    bounds = list(zip([0] + cuts, cuts + [n]))
+    seg_wd = [float(v) for v in rng.choice([0.0, 1e-4, 5e-3], len(bounds))]
+    return g, w, state, bounds, seg_wd
+
+
+def k2_unfused(torch, optimizer, kind, g, w, state, bounds, seg_wd, lr, t,
+               mult, ok, clip, use_wdvec, base_wd, rescale):
+    """The trainer's unfused update over the bucket's segments: per
+    segment, ``g * mult``, ``_functional_step`` and ``where(ok, ...)``;
+    returns the concatenated ``(new_w, *new_state)``."""
+    kw = dict(rescale_grad=rescale, clip_gradient=clip, learning_rate=0.0)
+    if kind == "sgd":
+        opt = optimizer.SGD(**kw)
+    elif kind == "sgd_momentum":
+        opt = optimizer.SGD(momentum=0.9, **kw)
+    else:
+        opt = (optimizer.Adam if kind == "adam" else optimizer.AdamW)(**kw)
+    hyper = opt._hyper()
+    step = type(opt)._functional_step
+    outs = [[] for _ in range(1 + len(state))]
+    for (a, b), wdseg in zip(bounds, seg_wd):
+        gs, ws = g[a:b], w[a:b]
+        ss = [s[a:b] for s in state]
+        st = (None if kind == "sgd" else ss[0] if kind == "sgd_momentum"
+              else tuple(ss))
+        if mult is not None:
+            gs = gs * mult
+        w2, s2 = step(hyper, ws, gs, st, lr, wdseg if use_wdvec else base_wd,
+                      t, None)
+        s2 = () if s2 is None else (s2,) if kind == "sgd_momentum" else s2
+        if ok is not None:
+            w2 = torch.where(ok, w2, ws)
+            s2 = tuple(torch.where(ok, x, y) for x, y in zip(s2, ss))
+        for lst, v in zip(outs, (w2,) + tuple(s2)):
+            lst.append(v)
+    return tuple(torch.cat(lst) for lst in outs)
+
+
+def k2_kernel_args(torch, optimizer, kind, lr, t, use_wdvec, base_wd):
+    """The kind's scalar chain, as the trainer forms it."""
+    if kind in ("sgd", "sgd_momentum"):
+        return (lr,)
+    lr_t = optimizer.adam_lr_t(lr, 0.9, 0.999, t)
+    if kind == "adam":
+        return (lr_t,)
+    return (lr_t, lr if use_wdvec else lr * base_wd)
+
+
+def phase_k2_vs_unfused(torch, np, fu, optimizer):
+    """K2 on a bucket whose length is not a multiple of any block, for
+    every kind and the wd-vector, clip, mult and ok=False variants:
+    bitwise equal to the unfused per-parameter update and to the plain
+    version; ok=False leaves w and the state bitwise unchanged."""
+    dev = torch.device(DEVICE)
+    f32 = dict(dtype=torch.float32, device=dev)
+    rescale, base_wd = 1.0 / 64, 1e-4
+    for i, (kind, use_wdvec, use_mult, ok_v, clip) in enumerate(K2_CASES):
+        g, w, state, bounds, seg_wd = k2_operands(torch, np, kind, K2_LEN,
+                                                  seed=300 + i)
+        lr = torch.full((), 0.1 if kind.startswith("sgd") else 1e-3, **f32)
+        t = torch.full((), 3.0, **f32)
+        mult = torch.full((), 0.37, **f32) if use_mult else None
+        ok = None if ok_v is None else torch.tensor(ok_v, device=dev)
+        wdvec = None
+        if use_wdvec:
+            wdvec = torch.empty(K2_LEN, **f32)
+            for (a, b), v in zip(bounds, seg_wd):
+                wdvec[a:b] = v
+        want = k2_unfused(torch, optimizer, kind, g, w, state, bounds,
+                          seg_wd, lr, t, mult, ok, clip, use_wdvec, base_wd,
+                          rescale)
+        scalars = k2_kernel_args(torch, optimizer, kind, lr, t, use_wdvec,
+                                 base_wd)
+        hyper = dict(momentum=0.9, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                     wd=0.0 if use_wdvec else base_wd, rescale_grad=rescale,
+                     clip_gradient=clip)
+        plain = fu.reference_update(g, w, tuple(state), scalars, kind=kind,
+                                    mult=mult, ok=ok, wd_vec=wdvec, **hyper)
+        before = [x.clone() for x in [w] + state]
+        kw_, ks_ = w.clone(), [s.clone() for s in state]
+        fu.fused_update(g, kw_, tuple(ks_), scalars, kind=kind, mult=mult,
+                        ok=ok, wd_vec=wdvec, **hyper)
+        torch.cuda.synchronize()
+        name = (f"{kind}{' wd_vec' if use_wdvec else ''}"
+                f"{' mult' if use_mult else ''}"
+                f"{'' if ok_v is None else ' ok' if ok_v else ' ok=False'}"
+                f"{' clip' if clip else ''}")
+        for label, ref in (("unfused", want), ("plain", plain)):
+            for got, exp in zip([kw_] + ks_, ref):
+                check(torch.equal(got.view(torch.int32),
+                                  exp.view(torch.int32)),
+                      f"K2 {name}: kernel is not bitwise equal to the "
+                      f"{label} update (max_abs_err "
+                      f"{(got - exp).abs().max().item():.3e})")
+        if ok_v is False:
+            for got, old in zip([kw_] + ks_, before):
+                check(torch.equal(got.view(torch.int32),
+                                  old.view(torch.int32)),
+                      f"K2 {name}: ok=False changed the bucket")
+        log(f"  K2 vs unfused and plain [{name}], n={K2_LEN}: bitwise "
+            "equal")
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -252,17 +434,219 @@ def phase_serve(torch, np, fd):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: kernel timing
+# Phase 5: ResNet-50 training at full width
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, reps=50):
-    """Median per-launch time with CUDA events, L2 flushed before each."""
+def init_numpy(np, sym, shapes, aux_shapes, seed=0):
+    """Parameters and aux states drawn with numpy by the default
+    initializer rule: Uniform(0.07) weights, gamma 1, beta and bias 0,
+    moving mean 0, moving var 1."""
+    rng = np.random.RandomState(seed)
+    args = {}
+    for n, s in zip(sym.list_arguments(), shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("weight"):
+            args[n] = rng.uniform(-0.07, 0.07, s).astype(np.float32)
+        elif n.endswith("gamma"):
+            args[n] = np.ones(s, np.float32)
+        else:
+            args[n] = np.zeros(s, np.float32)
+    aux = {n: (np.ones if n.endswith("var") else np.zeros)(s, np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+def cross_entropy(torch, prob, label):
+    picked = prob[torch.arange(prob.shape[0], device=prob.device),
+                  label.long()]
+    return float(-torch.log(picked).mean())
+
+
+def bits(torch, t):
+    return t.detach().contiguous().view(torch.int32)
+
+
+def phase_train(torch, np, nn_ops, fu):
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    t0 = time.perf_counter()
+    sym = models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH)
+    shapes = dict(data=(BATCH,) + IMAGE, softmax_label=(BATCH,))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    n_params = sum(int(v.size) for v in args.values())
+
+    def trainer(fused, arg_params, aux_params):
+        tr = ShardedTrainer(sym, optimizer="sgd",
+                            optimizer_params=dict(TRAIN_OPT), guard=True,
+                            clip_global_norm=CLIP, fused_update=fused,
+                            device=DEVICE)
+        return tr.bind({"data": shapes["data"]},
+                       {"softmax_label": shapes["softmax_label"]},
+                       arg_params=arg_params, aux_params=aux_params)
+
+    tr = trainer(True, args, aux)
+    check(tr._fused and tr._flat_wd is not None,
+          "the trainer did not take the fused path with a wd vector")
+    n_buckets = len(tr._fused_plan.buckets)
+    check(n_buckets == N_BUCKETS or DEVICE != "cuda",
+          f"{n_buckets} buckets, expected {N_BUCKETS}")
+    rng = np.random.RandomState(2)
+    batch = tr.place_batch({
+        "data": rng.rand(*shapes["data"]).astype(np.float32),
+        "softmax_label": rng.randint(0, CLASSES, BATCH).astype(np.float32)})
+    label = batch["softmax_label"]
+    torch.cuda.synchronize()
+    log(f"  ResNet-{DEPTH}: {n_params} parameters in {n_buckets} buckets, "
+        f"bound in {time.perf_counter() - t0:.2f} s")
+
+    # the main path's run: every count starts at 0 here
+    nn_ops.softmax_rows.launches = 0
+    fu.fused_update.launches = 0
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        heads = tr.step(batch)
+        torch.cuda.synchronize()
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(cross_entropy(torch, heads[0], label))
+    check(int(tr._guard_state["skipped"]) == 0, "a clean step was skipped")
+    # one step on a batch with a NaN: a bitwise no-op on the whole state
+    bad = dict(batch)
+    bad["data"] = batch["data"].clone()
+    bad["data"][0, 0, 0, 0] = float("nan")
+    before = [bits(torch, t).clone() for t in
+              [tr._flat_w] + tr._flat_state + list(tr._aux.values())]
+    heads = tr.step(bad)
+    torch.cuda.synchronize()
+    after = [bits(torch, t) for t in
+             [tr._flat_w] + tr._flat_state + list(tr._aux.values())]
+    k1 = nn_ops.softmax_rows.launches
+    k2 = fu.fused_update.launches
+    steps = 2 + TIMED_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    log(f"  losses {['%.4f' % v for v in losses]}")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(int(tr._guard_state["skipped"]) == 1,
+          "the NaN step was not skipped")
+    check(all(torch.equal(a, b) for a, b in zip(before, after)),
+          "the NaN step changed parameters, optimizer state or moving "
+          "statistics")
+    check(k1 == steps, f"softmax_rows launched {k1} times in {steps} steps")
+    check(k2 == n_buckets * steps, f"fused_update launched {k2} times in "
+          f"{steps} steps of {n_buckets} buckets")
+    log(f"  NaN step: skipped, state bitwise unchanged; launches K1 {k1}, "
+        f"K2 {k2} over {steps} steps")
+    profile = profile_step(torch, tr, batch)
+
+    # fused vs unfused from the same gradients, bitwise: cuDNN's backward
+    # is not deterministic, so both updates consume one set of gradients
+    arg_now, aux_now = tr.get_params()
+    ref = trainer(False, arg_now, aux_now)
+    with torch.no_grad():
+        for n, st in tr.opt_state_by_param().items():
+            ref._opt_state[n].copy_(st[0])
+    ref._num_update = tr._num_update
+    _, grads, auxu = tr._forward_backward(batch)
+    for t in (tr, ref):
+        t._num_update += 1
+        t._apply_update(grads, auxu)
+    torch.cuda.synchronize()
+    fused_state = tr.opt_state_by_param()
+    for n in tr._param_names:
+        check(torch.equal(bits(torch, tr._params[n]),
+                          bits(torch, ref._params[n])),
+              f"fused and unfused updates differ on {n}")
+        check(torch.equal(bits(torch, fused_state[n][0]),
+                          bits(torch, ref._opt_state[n])),
+              f"fused and unfused momentum differ on {n}")
+    for n in tr._aux:
+        check(torch.equal(bits(torch, tr._aux[n]), bits(torch, ref._aux[n])),
+              f"fused and unfused aux states differ on {n}")
+    log("  fused vs unfused update from the same gradients: bitwise equal")
+
+    med = float(np.median(step_ms))
+    stats = {"params": n_params, "buckets": n_buckets, "batch": BATCH,
+             "median_step_ms": med, "step_ms": step_ms,
+             "images_per_s": BATCH / med * 1e3,
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "peak_gib": peak_gb, "profile": profile}
+    log("  train: " + json.dumps(stats))
+    return {"softmax_rows": k1, "fused_update": k2}, stats
+
+
+# kernel-name fragments -> the layer whose work the kernel does
+_KERNEL_GROUPS = (
+    ("K1 softmax_rows", ("softmax_rows_kernel",)),
+    ("K2 fused_update", ("fused_update_kernel",)),
+    ("convolution/matmul (cuDNN, cuBLAS)",
+     ("conv", "xmma", "cudnn", "implicit", "gemm", "wgrad", "dgrad",
+      "fprop", "winograd", "cutlass", "fft")),
+    ("pooling", ("pool",)),
+    ("reductions (BatchNorm statistics, grad norm)", ("reduce",)),
+    ("gradient bucket cat", ("CatArray", "cat_")),
+    ("elementwise (BatchNorm, ReLU, add, guard)", ("elementwise",)),
+)
+
+
+def profile_step(torch, tr, batch):
+    """One more training step under ``torch.profiler``: device time by
+    layer, the busiest kernels, and the share of the step's wall time in
+    which the card ran no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, kernels = {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.self_device_time_total
+        kernels.append((us, ev.key, ev.count))
+        group = next((g for g, frags in _KERNEL_GROUPS
+                      if any(f in ev.key for f in frags)), "other")
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+    busy_ms = sum(groups.values())
+    kernels.sort(reverse=True)
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+           "by_layer_ms": dict(sorted(groups.items(),
+                                      key=lambda kv: -kv[1])),
+           "top_kernels": [{"name": k[:80], "ms": us / 1e3, "count": c}
+                           for us, k, c in kernels[:8]]}
+    log("  profiled step: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: kernel timing
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, reps=50, hide_host=True):
+    """Median per-call device time with CUDA events, L2 flushed before
+    each call.  With ``hide_host`` a sleep kernel (about 0.5 ms) runs
+    between the flush and the start event, so the host has enqueued all
+    of ``fn``'s launches before the card reaches them: the events then
+    time the device work alone, not the Python launch overhead.  Without
+    it the time is per call as a caller sees it (host gaps included)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(1 << 20)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -272,6 +656,14 @@ def time_ms(torch, fn, reps=50):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def time_row(torch, kernel, plain, library):
+    """Device times of the kernel, its plain version and the library
+    call, plus the kernel's per-call time with host overhead."""
+    return {"ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, library),
+            "call_ms": time_ms(torch, kernel, hide_host=False)}
 
 
 def phase_timing(torch, np, fd):
@@ -297,11 +689,10 @@ def phase_timing(torch, np, fd):
     lib_err = (library() - out).abs().max().item()
     torch.cuda.synchronize()
     check(lib_err <= 1e-4, f"library yardstick disagrees: {lib_err}")
-    ms = time_ms(torch, lambda: fd.flash_decode_attention(
-        q, kp, vp, tables, lens))
-    plain_ms = time_ms(torch, lambda: fd.flash_decode_attention_ref(
-        q, kp, vp, tables, lens))
-    library_ms = time_ms(torch, library)
+    times = time_row(
+        torch, lambda: fd.flash_decode_attention(q, kp, vp, tables, lens),
+        lambda: fd.flash_decode_attention_ref(q, kp, vp, tables, lens),
+        library)
     # the least work: each valid K/V position read once, each used table
     # entry, q and lengths read once, the output written once
     esize = kp.element_size()
@@ -310,13 +701,78 @@ def phase_timing(torch, np, fd):
     nbytes = (2 * valid * H * hd * esize + used_cols * 4 + B * 4
               + 2 * B * H * hd * q.element_size())
     flops = 4 * valid * H * hd          # q.k and p.v, multiply + add
+    row = dict(bound(nbytes, flops), **times, library_max_abs_err=lib_err)
+    log("  timing K5: " + json.dumps(row))
+    return row
+
+
+def bound(nbytes, flops):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
-    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "flops": flops, "library_max_abs_err": lib_err}
-    log("  timing: " + json.dumps(row))
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_timing_k1(torch, np, nn_ops):
+    """K1 at the training shape [64, 1000] f32."""
+    n, c = BATCH, CLASSES
+    x = torch.from_numpy(np.random.RandomState(13).randn(n, c).astype(
+        np.float32)).to(DEVICE)
+    lib_err = (torch.softmax(x, -1) - nn_ops.softmax_rows(x)).abs().max()
+    check(lib_err.item() <= K1_TOL["float32"],
+          f"library yardstick disagrees: {lib_err.item()}")
+    # each element read once and written once; max, subtract, exp, add and
+    # divide per element
+    row = dict(bound(2 * n * c * 4, 5 * n * c),
+               **time_row(torch, lambda: nn_ops.softmax_rows(x),
+                          lambda: nn_ops.softmax_rows_ref(x),
+                          lambda: torch.softmax(x, -1)),
+               library_max_abs_err=lib_err.item())
+    log("  timing K1: " + json.dumps(row))
+    return row
+
+
+def phase_timing_k2(torch, np, fu):
+    """K2 over one full bucket (1,048,576 elements), sgd with momentum, a
+    wd vector, mult and ok: the configuration the training phase runs."""
+    n = 1 << 20
+    rng = np.random.RandomState(14)
+    dev = torch.device(DEVICE)
+    f32 = dict(dtype=torch.float32, device=dev)
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    mom = torch.zeros(n, **f32)
+    wdvec = torch.from_numpy(rng.choice([0.0, 1e-4], n).astype(
+        np.float32)).to(dev)
+    lr = torch.full((), 0.1, **f32)
+    mult = torch.full((), 0.5, **f32)
+    ok = torch.tensor(True, device=dev)
+    hyper = dict(momentum=0.9, rescale_grad=1.0 / BATCH)
+
+    def kernel():
+        fu.fused_update(g, w, (mom,), (lr,), kind="sgd_momentum",
+                        mult=mult, ok=ok, wd_vec=wdvec, **hyper)
+
+    def plain():
+        fu.reference_update(g, w, (mom,), (lr,), kind="sgd_momentum",
+                            mult=mult, ok=ok, wd_vec=wdvec, **hyper)
+
+    # torch's own fused SGD over the same flat bucket (its formula: a
+    # scalar weight decay, no mult or ok): a yardstick, never used by the
+    # port
+    p = torch.nn.Parameter(w.clone())
+    p.grad = g.clone()
+    sgd = torch.optim.SGD([p], lr=0.1, momentum=0.9, weight_decay=1e-4,
+                          fused=True)
+    sgd.step()
+    # g, w, mom and the wd vector read once; w and mom written once; about
+    # ten operations per element
+    row = dict(bound(6 * 4 * n, 10 * n),
+               **time_row(torch, kernel, plain, sgd.step))
+    log("  timing K2: " + json.dumps(row))
     return row
 
 
@@ -329,7 +785,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import numpy as np
-        from mxnet_tpu_torch import _build
+        from mxnet_tpu_torch import _build, optimizer
+        from mxnet_tpu_torch.ops import fused_update as fu
+        from mxnet_tpu_torch.ops import nn_ops
         from mxnet_tpu_torch.serve import flash_decode as fd
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})",
@@ -339,14 +797,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/6] device")
+    log("[1/7] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/6] build")
+    log("[2/7] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -355,29 +813,43 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/6] kernels against their plain versions")
+    log("[3/7] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
+    k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
+    k2_err = phase_k2_vs_unfused(torch, np, fu, optimizer)
 
-    log("[4/6] serving transformer-LM 6L d512 8 heads, 32k vocab")
-    launches, _ = phase_serve(torch, np, fd)
+    log("[4/7] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    k5_launches, _ = phase_serve(torch, np, fd)
 
-    log("[5/6] kernel timing")
-    timing = phase_timing(torch, np, fd)
+    log(f"[5/7] training ResNet-{DEPTH}, batch {BATCH}, "
+        f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
+    train_launches, _ = phase_train(torch, np, nn_ops, fu)
 
-    log("[6/6] result")
+    log("[6/7] kernel timing")
+    timing = {"flash_decode": phase_timing(torch, np, fd),
+              "softmax_rows": phase_timing_k1(torch, np, nn_ops),
+              "fused_update": phase_timing_k2(torch, np, fu)}
+
+    log("[7/7] result")
+    rows = [
+        ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
+         "mxnet_tpu/serve/flash_decode.py:60", k5_launches,
+         max(v for k, v in errs.items() if "bf16" not in k)),
+        ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",
+         "mxnet_tpu/ops/nn_ops.py:847", train_launches["softmax_rows"],
+         max(v for k, v in k1_errs.items() if "float32" in k)),
+        ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
+         "mxnet_tpu/ops/fused_update.py:216", train_launches["fused_update"],
+         k2_err),
+    ]
     kernels = [{
-        "name": "flash_decode",
-        "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_decode.cu",
-        "replaces": "mxnet_tpu/serve/flash_decode.py:60",
-        "launches": launches,
-        "max_abs_err": max(v for k, v in errs.items() if "bf16" not in k),
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err,
+        "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name]["library_ms"],
+    } for name, source, replaces, launches, err in rows]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

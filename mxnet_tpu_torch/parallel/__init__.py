@@ -1,5 +1,9 @@
-"""Attention building blocks of the port (single device)."""
-from . import ring_attention
+"""Parallel training and attention building blocks of the port (one
+device so far): ``ShardedTrainer``, the gradient bucket plan and the dense
+attention path."""
+from . import collectives, ring_attention, trainer
 from .ring_attention import local_attention
+from .trainer import ShardedTrainer
 
-__all__ = ["ring_attention", "local_attention"]
+__all__ = ["collectives", "ring_attention", "trainer", "local_attention",
+           "ShardedTrainer"]

@@ -6,14 +6,22 @@ not installed.  Run them on a machine with an NVIDIA H100 and nvcc::
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Elsewhere they skip.  Each kernel is held against its plain PyTorch
-version on the same CUDA tensors: f32 within atol 2e-5 (summation order),
-bf16 within 1e-2 (summation order and one bf16 rounding of the output).
+version on the same CUDA tensors: flash decode (K5) f32 within atol 2e-5
+(summation order), bf16 within 1e-2 (summation order and one bf16
+rounding of the output); the row softmax (K1) f32 within atol 1e-6 (the
+online rescale of the running sum), bf16 within 1e-2; the fused update
+(K2) BITWISE, against its plain version and against the unfused
+per-parameter update (``chip_smoke.k2_unfused``).
 """
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from mxnet_tpu_torch import optimizer
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import fused_update as tfu
+from mxnet_tpu_torch.ops import nn_ops as tnn
 from mxnet_tpu_torch.serve import flash_decode as tfd
 
 
@@ -69,3 +77,86 @@ def test_flash_decode_kernel_rejects_wide_heads(cuda):
                      lengths=[5, 9], dtype=torch.float32)
     with pytest.raises(MXNetError, match="head_dim"):
         tfd.flash_decode_attention(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 1000), (8, 10), (3, 16384),
+                                   (37, 1001), (1, 1), (300, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_rows_kernel_matches_plain(cuda, shape, dtype):
+    rng = np.random.RandomState(shape[1])
+    x = (4.0 * rng.randn(*shape)).astype(np.float32)
+    x[:, ::5] = -np.inf if shape[1] > 1 else x[:, ::5]
+    t = torch.from_numpy(x).to(cuda, dtype)
+    before = tnn.softmax_rows.launches
+    out = tnn.softmax_rows(t)
+    ref = tnn.softmax_rows_ref(t)
+    torch.cuda.synchronize()
+    assert tnn.softmax_rows.launches == before + 1
+    assert out.dtype == dtype and out.shape == t.shape
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    rows = out.float().sum(dim=-1)
+    assert (rows - 1).abs().max().item() <= (1e-5 if dtype == torch.float32
+                                              else 2e-2)
+
+
+@pytest.mark.cuda
+def test_softmax_rows_kernel_rejects_non_contiguous(cuda):
+    x = torch.randn(8, 20, device=cuda)[:, ::2]
+    with pytest.raises(MXNetError, match="contiguous"):
+        tnn.softmax_rows(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(chip_smoke.K2_CASES)))
+@pytest.mark.parametrize("n", [1, 255, 1003, (1 << 20) + 7])
+def test_fused_update_kernel_is_bitwise_unfused(cuda, case, n):
+    kind, use_wdvec, use_mult, ok_v, clip = chip_smoke.K2_CASES[case]
+    chip_smoke.DEVICE = str(cuda)
+    g, w, state, bounds, seg_wd = chip_smoke.k2_operands(
+        torch, np, kind, max(n, 8), seed=case)
+    g, w, state = g[:n], w[:n], [s[:n] for s in state]
+    bounds = [(a, min(b, n)) for a, b in bounds if a < n]
+    seg_wd = seg_wd[:len(bounds)]
+    f32 = dict(dtype=torch.float32, device=cuda)
+    lr = torch.full((), 0.1, **f32)
+    t = torch.full((), 2.0, **f32)
+    mult = torch.full((), 0.37, **f32) if use_mult else None
+    ok = None if ok_v is None else torch.tensor(ok_v, device=cuda)
+    wdvec = None
+    if use_wdvec:
+        wdvec = torch.empty(n, **f32)
+        for (a, b), v in zip(bounds, seg_wd):
+            wdvec[a:b] = v
+    want = chip_smoke.k2_unfused(torch, optimizer, kind, g, w, state,
+                                 bounds, seg_wd, lr, t, mult, ok, clip,
+                                 use_wdvec, 1e-4, 1.0 / 64)
+    scalars = chip_smoke.k2_kernel_args(torch, optimizer, kind, lr, t,
+                                        use_wdvec, 1e-4)
+    hyper = dict(momentum=0.9, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 wd=0.0 if use_wdvec else 1e-4, rescale_grad=1.0 / 64,
+                 clip_gradient=clip)
+    plain = tfu.reference_update(g, w, tuple(state), scalars, kind=kind,
+                                 mult=mult, ok=ok, wd_vec=wdvec, **hyper)
+    kw, ks = w.clone(), [s.clone() for s in state]
+    before = tfu.fused_update.launches
+    tfu.fused_update(g, kw, tuple(ks), scalars, kind=kind, mult=mult, ok=ok,
+                     wd_vec=wdvec, **hyper)
+    torch.cuda.synchronize()
+    assert tfu.fused_update.launches == before + 1
+    for got, a, b in zip([kw] + ks, want, plain):
+        assert torch.equal(got.view(torch.int32), a.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), b.view(torch.int32))
+    if ok_v is False:
+        for got, old in zip([kw] + ks, [w] + state):
+            assert torch.equal(got.view(torch.int32), old.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_update_kernel_rejects_non_contiguous(cuda):
+    g = torch.zeros(16, device=cuda)[::2]
+    lr = torch.full((), 0.1, device=cuda)
+    with pytest.raises(MXNetError, match="contiguous"):
+        tfu.fused_update(g, torch.zeros(8, device=cuda), (), (lr,),
+                         kind="sgd")

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` import torch, never jax and nothing of ``mxnet_tpu``.
 
 A subprocess blocks ``jax`` (``sys.modules['jax'] = None`` makes any
-import of it fail) and imports the port, its serve package and
+import of it fail) and imports the port, its serve package, the training
+modules (symbol, models.resnet, ops.fused_update, parallel.trainer) and
 ``chip_smoke``; a source scan checks every file of the port and the
 script for such imports.
 """
@@ -21,6 +22,14 @@ sys.path.insert(0, {root!r})
 import mxnet_tpu_torch
 import mxnet_tpu_torch.serve
 from mxnet_tpu_torch.serve import Engine, EngineConfig, ServeError, kvcache
+import mxnet_tpu_torch.symbol
+import mxnet_tpu_torch.models.resnet
+import mxnet_tpu_torch.ops.fused_update
+import mxnet_tpu_torch.ops.nn_ops
+import mxnet_tpu_torch.parallel.trainer
+from mxnet_tpu_torch.parallel import ShardedTrainer
+from mxnet_tpu_torch import (attribute, graph_eval, initializer, name,
+                             ndarray, optimizer, resilience)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")

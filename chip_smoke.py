@@ -11,9 +11,10 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
 2. builds every kernel of ``mxnet_tpu_torch/csrc`` with nvcc, one process
    per source, all at once (timed);
 3. holds each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and at edge cases: flash decode (K5) and the
-   row softmax (K1) within stated tolerances, the fused optimizer update
-   (K2) bitwise against the unfused per-parameter update;
+   the main paths' shapes and at edge cases: flash decode (K5), the
+   row softmax (K1) and flash attention forward (K3) and backward (K4)
+   within stated tolerances, the fused optimizer update (K2) bitwise
+   against the unfused per-parameter update;
 4. serves the transformer-LM at full width (6 layers, d_model 512, 8
    heads, 32k vocab, random weights from seed 0) through ``Engine``:
    warmup, then 16 requests; checks every request finished, that two of
@@ -32,8 +33,20 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    step time and images/s;
 6. times each kernel with CUDA events (median, L2 flushed between
    launches) beside its plain version, a library yardstick and the
-   card's bound for the same work;
-7. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+   card's bound for the same work; K3 and K4 at the LM's shapes in f32
+   and bf16 beside ``F.scaled_dot_product_attention`` (forward, and its
+   backward alone);
+7. trains the transformer-LM at ``bench.py``'s LM-row settings (6
+   layers, d_model 512, 8 heads, 32k vocab, batch 8, seq 2048, loss
+   head, Adam lr 1e-3, ``compute_dtype="bfloat16"``; parameters drawn
+   with numpy from seed 0) through ``ShardedTrainer``: one warm-up and 5
+   timed steps on one fixed batch of numpy tokens (labels are the next
+   tokens); checks a finite falling loss, K3 and K4 launched once per
+   layer per step, the dense and blockwise attention paths never run,
+   one K2 launch per bucket per step, and a bitwise fused-vs-unfused
+   Adam update from the same gradients; prints the median step,
+   tokens/s, the peak memory and one profiled step by layer;
+8. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
@@ -50,6 +63,7 @@ import time
 # ---------------------------------------------------------------------------
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # bf16 on the tensor cores
 
 TOL = {"float32": 2e-5,         # summation order only
        "bfloat16": 1e-2}        # summation order + one bf16 rounding of out
@@ -70,6 +84,27 @@ TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 CLIP, TIMED_STEPS, N_BUCKETS = 5.0, 5, 25
 K1_SHAPES = [(64, 1000), (8, 10), (3, 16384), (37, 1001)]
 K2_LEN = 1003 + 3 * 1048576               # three full buckets' worth + odd
+
+# LM training configuration: bench.py's LM row (bench_lm, batch 8, seq
+# 2048, loss head, Adam lr 1e-3, bf16 compute) at full width and depth
+LM_BATCH, LM_SEQ = 8, 2048
+LM_OPT = {"learning_rate": 1e-3}
+# K3/K4 against their plain versions: f32 as tests/test_flash_attention.py
+# (forward and lse 2e-5, gradients 2e-4: summation order); bf16 within
+# 2e-2 of 1 + |plain| (p and ds are rounded to bf16 inside, and a value on
+# a rounding boundary may round either way after an f32 summation-order
+# difference: up to two bf16 units in the last place of the result)
+K34_TOL = {"fwd": 2e-5, "bwd": 2e-4, "bf16_rel": 2e-2}
+# (name, layout, B, H, Lq, Lk, D, causal, external delta)
+K34_CASES = [
+    ("LM shape", "blhd", 8, 8, 2048, 2048, 64, True, False),
+    ("non-causal", "bhld", 2, 4, 512, 512, 64, False, False),
+    ("cross Lq 256 Lk 768", "blhd", 2, 4, 256, 768, 64, False, False),
+    ("D 128", "blhd", 2, 4, 512, 512, 128, True, False),
+    ("D 256", "blhd", 2, 2, 512, 512, 256, True, False),
+    ("D 100", "bhld", 1, 3, 256, 256, 100, False, False),
+    ("external delta", "bhld", 2, 4, 512, 512, 64, True, True),
+]
 DEVICE = "cuda"
 
 
@@ -323,6 +358,71 @@ def phase_k2_vs_unfused(torch, np, fu, optimizer):
         log(f"  K2 vs unfused and plain [{name}], n={K2_LEN}: bitwise "
             "equal")
     return 0.0
+
+
+def attn_operands(torch, np, seed, layout, B, H, Lq, Lk, D, dtype):
+    """q, k, v and an output gradient on the card in ``layout``."""
+    rng = np.random.RandomState(seed)
+    qs = (B, Lq, H, D) if layout == "blhd" else (B, H, Lq, D)
+    ks = (B, Lk, H, D) if layout == "blhd" else (B, H, Lk, D)
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        DEVICE, dtype) for s in (qs, ks, ks, qs)]
+
+
+def attn_err(torch, got, want, dtype):
+    """f32: max abs error; bf16: max of |got - want| / (1 + |want|)."""
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        diff = diff / (1.0 + want.float().abs())
+    return diff.max().item()
+
+
+def phase_k34_vs_plain(torch, np, fa):
+    """K3 and K4 against their plain versions, f32 and bf16, at the LM's
+    shape and at edges: K3's (out, lse) against ``flash_fwd_ref``; K4's
+    (dq, dk, dv) against ``flash_bwd_ref`` from the same out and lse."""
+    errs = {}
+    for i, (name, layout, B, H, Lq, Lk, D, causal, ext) in enumerate(
+            K34_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = attn_operands(torch, np, 400 + i, layout, B, H,
+                                        Lq, Lk, D, dtype)
+            kw = dict(causal=causal, scale=1.0 / D ** 0.5, layout=layout)
+            delta = None
+            if ext:
+                delta = torch.from_numpy(np.random.RandomState(500 + i).randn(
+                    B, H, Lq).astype(np.float32)).to(DEVICE)
+            out, lse = fa.flash_fwd(q, k, v, **kw)
+            ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, **kw)
+            grads = fa.flash_bwd(q, k, v, out, lse, do, delta=delta, **kw)
+            ref_grads = fa.flash_bwd_ref(q, k, v, out, lse, do, delta=delta,
+                                         **kw)
+            torch.cuda.synchronize()
+            dname = "bf16" if dtype == torch.bfloat16 else "f32"
+            label = f"{name} {layout} {dname}"
+            for what, got, want in (("out", out, ref_out),
+                                    ("dq", grads[0], ref_grads[0]),
+                                    ("dk", grads[1], ref_grads[1]),
+                                    ("dv", grads[2], ref_grads[2])):
+                check(got.dtype == dtype and got.shape == want.shape,
+                      f"K3/K4 {label} {what}: {got.dtype}"
+                      f"{tuple(got.shape)}")
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"K3/K4 {label} {what}: non-finite")
+            e_fwd = max(attn_err(torch, out, ref_out, dtype),
+                        (lse - ref_lse).abs().max().item())
+            e_bwd = max(attn_err(torch, g, r, dtype)
+                        for g, r in zip(grads, ref_grads))
+            tol_f = K34_TOL["fwd" if dname == "f32" else "bf16_rel"]
+            tol_b = K34_TOL["bwd" if dname == "f32" else "bf16_rel"]
+            log(f"  K3 vs plain [{label}]: {e_fwd:.3e} (tol {tol_f:g}); "
+                f"K4 vs plain: {e_bwd:.3e} (tol {tol_b:g})")
+            check(e_fwd <= tol_f, f"K3 {label}: kernel disagrees with its "
+                  f"plain version: {e_fwd}")
+            check(e_bwd <= tol_b, f"K4 {label}: kernel disagrees with its "
+                  f"plain version: {e_bwd}")
+            errs[label] = (e_fwd, e_bwd)
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -595,10 +695,33 @@ _KERNEL_GROUPS = (
 )
 
 
-def profile_step(torch, tr, batch):
+# kernel-name fragments of the LM step -> the layer whose work it does
+_LM_KERNEL_GROUPS = (
+    ("K3 flash attention forward", ("flash_fwd_",)),
+    ("K4 flash attention backward", ("flash_bwd_",)),
+    ("K2 fused update", ("fused_update_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas",
+                         "nvjet")),
+    ("gradient bucket cat", ("CatArray", "cat_")),
+    ("reductions (LayerNorm, logsumexp, softmax, grad norm)",
+     ("reduce", "softmax", "Softmax", "SoftMax", "norm")),
+    ("embedding gather/scatter", ("index", "embedding", "gather",
+                                  "scatter", "sort", "radix")),
+    ("elementwise (casts, LayerNorm, ReLU, residual, loss head)",
+     ("elementwise",)),
+)
+# CPU ops whose kernels are the loss head's (inclusive device time)
+_LOSS_HEAD_OPS = ("aten::logsumexp", "aten::gather",
+                  "_SoftmaxOutputFnBackward")
+
+
+def profile_step(torch, tr, batch, groups_spec=_KERNEL_GROUPS,
+                 loss_ops=()):
     """One more training step under ``torch.profiler``: device time by
     layer, the busiest kernels, and the share of the step's wall time in
-    which the card ran no kernel."""
+    which the card ran no kernel.  ``loss_ops`` names CPU ops whose
+    inclusive device time is reported as ``loss_head_ms`` (those kernels
+    also sit in the groups)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -607,15 +730,23 @@ def profile_step(torch, tr, batch):
         tr.step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels = {}, []
+    groups, kernels, other, loss_us = {}, [], [], {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            for op in loss_ops:
+                # the autograd wrapper event and the node share a name:
+                # keep the largest, so nothing counts twice
+                if op in ev.key:
+                    loss_us[op] = max(loss_us.get(op, 0.0),
+                                      ev.device_time_total)
             continue
         us = ev.self_device_time_total
         kernels.append((us, ev.key, ev.count))
-        group = next((g for g, frags in _KERNEL_GROUPS
+        group = next((g for g, frags in groups_spec
                       if any(f in ev.key for f in frags)), "other")
         groups[group] = groups.get(group, 0.0) + us / 1e3
+        if group == "other":
+            other.append((us, ev.key))
     busy_ms = sum(groups.values())
     kernels.sort(reverse=True)
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -623,7 +754,12 @@ def profile_step(torch, tr, batch):
            "by_layer_ms": dict(sorted(groups.items(),
                                       key=lambda kv: -kv[1])),
            "top_kernels": [{"name": k[:80], "ms": us / 1e3, "count": c}
-                           for us, k, c in kernels[:8]]}
+                           for us, k, c in kernels[:10]],
+           "top_other": [{"name": k[:80], "ms": us / 1e3}
+                         for us, k in sorted(other, reverse=True)[:4]]}
+    if loss_ops:
+        out["loss_head_ms"] = sum(loss_us.values()) / 1e3
+        out["loss_head_ops_ms"] = {k: v / 1e3 for k, v in loss_us.items()}
     log("  profiled step: " + json.dumps(out))
     return out
 
@@ -706,11 +842,12 @@ def phase_timing(torch, np, fd):
     return row
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
+    operations over the rate for their type (f32 by default), whichever
+    is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -776,6 +913,188 @@ def phase_timing_k2(torch, np, fu):
     return row
 
 
+def phase_timing_k34(torch, np, fa):
+    """K3 and K4 at the LM's shape (B 8, H 8, L 2048, D 64, causal,
+    blhd) in f32 and bf16, beside their plain versions and
+    ``F.scaled_dot_product_attention`` on the same inputs in [B, H, L, D]:
+    its forward for K3, its backward alone (from a retained graph) for
+    K4."""
+    import torch.nn.functional as F
+    B, H, L, D = LM_BATCH, HEADS, LM_SEQ, D_MODEL // HEADS
+    kw = dict(causal=True, scale=1.0 / D ** 0.5, layout="blhd")
+    rows = {}
+    for dtype, rate, dname in ((torch.float32, F32_FLOP_PER_S, "f32"),
+                               (torch.bfloat16, BF16_FLOP_PER_S, "bf16")):
+        q, k, v, do = attn_operands(torch, np, 600, "blhd", B, H, L, L, D,
+                                    dtype)
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        # the yardstick computes the same function (its own rounding)
+        lib_err = attn_err(torch, lib_out.transpose(1, 2), out,
+                           torch.bfloat16)
+        torch.cuda.synchronize()
+        check(lib_err <= K34_TOL["bf16_rel"],
+              f"SDPA yardstick disagrees with K3 ({dname}): {lib_err}")
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        def lib_bwd():
+            torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                retain_graph=True)
+
+        esize = q.element_size()
+        n = B * H * L * D
+        # causal: half the L x L score matrix
+        mm = 2 * B * H * D * L * L // 2
+        # K3: q, k, v read and out written once, lse written; two products
+        fwd = dict(bound(4 * n * esize + B * H * L * 4, 2 * mm, rate),
+                   **time_row(
+                       torch, lambda: fa.flash_fwd(q, k, v, **kw),
+                       lambda: fa.flash_fwd_ref(q, k, v, **kw), lib_fwd),
+                   library_max_rel_err=lib_err)
+        # K4: q, k, v, out, do and lse read, dq, dk, dv written once;
+        # five products (s, do v^T, ds k, ds^T q, p^T do)
+        bwd = dict(bound(8 * n * esize + B * H * L * 4, 5 * mm, rate),
+                   **time_row(
+                       torch, lambda: fa.flash_bwd(q, k, v, out, lse, do,
+                                                   **kw),
+                       lambda: fa.flash_bwd_ref(q, k, v, out, lse, do,
+                                                **kw),
+                       lib_bwd))
+        rows[dname] = {"flash_attn_fwd": fwd, "flash_attn_bwd": bwd}
+        log(f"  timing K3 {dname}: " + json.dumps(fwd))
+        log(f"  timing K4 {dname}: " + json.dumps(bwd))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: transformer-LM training at full width and depth
+# ---------------------------------------------------------------------------
+
+def lm_batch(np, seed=0):
+    """One fixed batch of numpy tokens; the labels are the next tokens."""
+    toks = np.random.RandomState(seed).randint(0, VOCAB,
+                                               (LM_BATCH, LM_SEQ + 1))
+    return {"data": toks[:, :-1].astype(np.float32),
+            "softmax_label": toks[:, 1:].astype(np.float32)}
+
+
+def phase_train_lm(torch, np, fa, fu):
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.parallel import ring_attention as ra
+
+    t0 = time.perf_counter()
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    n_params = sum(int(v.size) for v in args.values())
+
+    def trainer(fused, arg_params):
+        tr = ShardedTrainer(sym, optimizer="adam",
+                            optimizer_params=dict(LM_OPT),
+                            compute_dtype="bfloat16", fused_update=fused,
+                            device=DEVICE)
+        return tr.bind({"data": shapes["data"]},
+                       {"softmax_label": shapes["softmax_label"]},
+                       arg_params=arg_params)
+
+    tr = trainer(True, args)
+    check(tr._fused and tr._fused_kind == "adam",
+          "the LM trainer did not take the fused Adam path")
+    n_buckets = len(tr._fused_plan.buckets)
+    batch = tr.place_batch(lm_batch(np))
+    torch.cuda.synchronize()
+    log(f"  LM: {n_params} parameters in {n_buckets} buckets, bound in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the main path's run: every count starts at 0 here
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd.launches = 0
+    fu.fused_update.launches = 0
+    ra.local_attention.dense_calls = 0
+    ra.blockwise_attention.calls = 0
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        heads = tr.step(batch)
+        torch.cuda.synchronize()
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(heads[0].float().mean()))
+    k3, k4 = fa.flash_fwd.launches, fa.flash_bwd.launches
+    k2 = fu.fused_update.launches
+    dense, blockwise = ra.local_attention.dense_calls, \
+        ra.blockwise_attention.calls
+    steps = 1 + TIMED_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    log(f"  losses {['%.4f' % v for v in losses]}")
+    check(heads[0].shape == (LM_BATCH * LM_SEQ,)
+          and heads[0].dtype == torch.float32,
+          f"loss head gave {heads[0].dtype}{tuple(heads[0].shape)}")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(k3 == LAYERS * steps, f"K3 launched {k3} times in {steps} steps "
+          f"of {LAYERS} layers")
+    check(k4 == LAYERS * steps, f"K4 launched {k4} times in {steps} steps "
+          f"of {LAYERS} layers")
+    check(dense == 0 and blockwise == 0, f"attention left the flash path: "
+          f"dense {dense}, blockwise {blockwise} calls")
+    check(k2 == n_buckets * steps, f"fused_update launched {k2} times in "
+          f"{steps} steps of {n_buckets} buckets")
+    log(f"  launches over {steps} steps: K3 {k3}, K4 {k4}, K2 {k2}; dense "
+        f"and blockwise attention 0")
+    profile = profile_step(torch, tr, batch, _LM_KERNEL_GROUPS,
+                           _LOSS_HEAD_OPS)
+
+    # fused vs unfused Adam from the same gradients, bitwise (the
+    # embedding's scatter-add on the card need not be deterministic, so
+    # both updates consume one set of gradients)
+    arg_now, _ = tr.get_params()
+    ref = trainer(False, arg_now)
+    with torch.no_grad():
+        for n, st in tr.opt_state_by_param().items():
+            for dst, src in zip(ref._opt_state[n], st):
+                dst.copy_(src)
+    ref._num_update = tr._num_update
+    _, grads, auxu = tr._forward_backward(batch)
+    for t in (tr, ref):
+        t._num_update += 1
+        t._apply_update(grads, auxu)
+    torch.cuda.synchronize()
+    fused_state = tr.opt_state_by_param()
+    for n in tr._param_names:
+        check(torch.equal(bits(torch, tr._params[n]),
+                          bits(torch, ref._params[n])),
+              f"fused and unfused Adam updates differ on {n}")
+        for a, b in zip(fused_state[n], ref._opt_state[n]):
+            check(torch.equal(bits(torch, a), bits(torch, b)),
+                  f"fused and unfused Adam moments differ on {n}")
+    log("  fused vs unfused Adam update from the same gradients: bitwise "
+        "equal")
+
+    med = float(np.median(step_ms))
+    stats = {"params": n_params, "buckets": n_buckets, "batch": LM_BATCH,
+             "seq": LM_SEQ, "median_step_ms": med, "step_ms": step_ms,
+             "tokens_per_s": LM_BATCH * LM_SEQ / med * 1e3,
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "peak_gib": peak_gb, "profile": profile}
+    log("  train LM: " + json.dumps(stats))
+    return {"flash_attn_fwd": k3, "flash_attn_bwd": k4,
+            "fused_update": k2}, stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -788,6 +1107,7 @@ def main() -> int:
         from mxnet_tpu_torch import _build, optimizer
         from mxnet_tpu_torch.ops import fused_update as fu
         from mxnet_tpu_torch.ops import nn_ops
+        from mxnet_tpu_torch.parallel import flash_attention as fa
         from mxnet_tpu_torch.serve import flash_decode as fd
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})",
@@ -797,14 +1117,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/7] device")
+    log("[1/8] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/7] build")
+    log("[2/8] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -813,24 +1133,34 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/7] kernels against their plain versions")
+    log("[3/8] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
     k2_err = phase_k2_vs_unfused(torch, np, fu, optimizer)
+    k34_errs = phase_k34_vs_plain(torch, np, fa)
 
-    log("[4/7] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/8] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/7] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[5/8] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, _ = phase_train(torch, np, nn_ops, fu)
 
-    log("[6/7] kernel timing")
+    log("[6/8] kernel timing")
     timing = {"flash_decode": phase_timing(torch, np, fd),
               "softmax_rows": phase_timing_k1(torch, np, nn_ops),
               "fused_update": phase_timing_k2(torch, np, fu)}
+    k34_timing = phase_timing_k34(torch, np, fa)
+    # the LM's main path runs K3/K4 in bf16: those times go to the line
+    timing.update(k34_timing["bf16"])
 
-    log("[7/7] result")
+    log(f"[7/8] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+        f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
+        "Adam")
+    lm_launches, _ = phase_train_lm(torch, np, fa, fu)
+
+    log("[8/8] result")
+    f32_errs = [v for k, v in k34_errs.items() if k.endswith("f32")]
     rows = [
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
          "mxnet_tpu/serve/flash_decode.py:60", k5_launches,
@@ -838,9 +1168,17 @@ def main() -> int:
         ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",
          "mxnet_tpu/ops/nn_ops.py:847", train_launches["softmax_rows"],
          max(v for k, v in k1_errs.items() if "float32" in k)),
+        # K2 runs on both training paths: ResNet-50 (SGD) and the LM (Adam)
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
-         "mxnet_tpu/ops/fused_update.py:216", train_launches["fused_update"],
+         "mxnet_tpu/ops/fused_update.py:216",
+         train_launches["fused_update"] + lm_launches["fused_update"],
          k2_err),
+        ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+         "mxnet_tpu/parallel/flash_attention.py:77",
+         lm_launches["flash_attn_fwd"], max(e[0] for e in f32_errs)),
+        ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
+         "mxnet_tpu/parallel/flash_attention.py:264",
+         lm_launches["flash_attn_bwd"], max(e[1] for e in f32_errs)),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

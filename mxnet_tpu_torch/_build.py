@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` compiles on its own into a shared library with a plain
 C interface for ``sm_90a`` (Hopper).  The library's name carries a hash
-of its source and flags, so an edited source never loads a stale build.
+of its source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header never loads a stale build.
 Outputs go to ``_kernels/`` inside the package, which ``.gitignore``
 lists.  :func:`build_all` starts one ``nvcc`` per source, all at once, and
 waits for them; :func:`load` builds what is missing and returns the
@@ -54,6 +55,8 @@ def sources() -> Dict[str, Path]:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}.{h.hexdigest()[:16]}.so"
 

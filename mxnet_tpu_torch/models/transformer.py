@@ -1,12 +1,24 @@
-"""Decoder-only transformer LM: the functional twins the serve tier runs.
+"""Decoder-only transformer LM: the training symbol and the functional
+twins the serve tier runs.
 
-Counterpart of ``mxnet_tpu/models/transformer.py:136-373``.  The functions
-take the JAX package's own parameter dict (``embed_weight``,
-``layer{i}_q_weight``, ``final_ln_gamma``, ...) as tensors and keep its
-layouts at the public functions: ``[B, L, H, hd]`` states and
-``[out, in]`` FC weights.  Each op mirrors the registered symbol op:
-FullyConnected is ``x @ W.T + b``, LayerNorm takes f32 statistics with
-eps ``1e-5``, attention in prefill is the dense causal path.
+Counterpart of ``mxnet_tpu/models/transformer.py``.
+:func:`transformer_lm` builds the same Symbol as the JAX package (same
+node names, parameters and JSON): an Embedding, ``num_layers`` pre-norm
+blocks whose attention is ``RingAttention(layout="blhd")`` over
+``[B, L, H, hd]`` (the flash kernels K3/K4 from seq 1024 on, or with an
+explicit ``attn_block_size``), a final LayerNorm, the ``lm_head`` and a
+SoftmaxOutput head (probabilities, or per-token cross-entropy with
+``loss_head=True``).  ``quant`` resolves as the JAX package's
+``quant.resolve_quant`` does (``MXNET_TPU_QUANT`` included); fp8 linears
+and ``remat`` are not ported yet and raise.
+
+The functional twins take the JAX package's own parameter dict
+(``embed_weight``, ``layer{i}_q_weight``, ``final_ln_gamma``, ...) as
+tensors and keep its layouts at the public functions: ``[B, L, H, hd]``
+states and ``[out, in]`` FC weights.  Each op mirrors the registered
+symbol op: FullyConnected is ``x @ W.T + b``, LayerNorm takes f32
+statistics with eps ``1e-5``, attention in prefill is the dense causal
+path.
 
 :func:`init_params` makes the dict the JAX tests and ``bench.py`` make
 (same names, shapes, order and seeded values) without the symbol API, and
@@ -14,20 +26,121 @@ eps ``1e-5``, attention in prefill is the dense causal path.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from .. import symbol as sym
+from ..base import MXNetError, not_ported
 from ..context import DeviceLike, resolve_device
+from ..ops.nn_ops import layer_norm
 from ..parallel.ring_attention import NEG_INF, local_attention
 
-__all__ = ["lm_config_from_params", "param_shapes", "init_params",
-           "params_from_numpy", "transformer_lm_prefill",
-           "transformer_lm_decode", "transformer_lm_decode_dense"]
+__all__ = ["transformer_block", "transformer_lm", "lm_config_from_params",
+           "param_shapes", "init_params", "params_from_numpy",
+           "transformer_lm_prefill", "transformer_lm_decode",
+           "transformer_lm_decode_dense"]
 
 _LN_EPS = 1e-5   # LayerNorm op default of the JAX package
+
+
+# ---------------------------------------------------------------------------
+# The training symbol
+# ---------------------------------------------------------------------------
+
+def _resolve_quant(quant) -> bool:
+    """The JAX package's ``quant.resolve_quant`` reduced to its answer:
+    True when the spec (None consults ``MXNET_TPU_QUANT``) asks for fp8."""
+    if quant is None:
+        raw = os.environ.get("MXNET_TPU_QUANT", "").strip().lower()
+        if not raw or raw in ("0", "off", "false", "no"):
+            return False
+        quant = True
+    if quant is False:
+        return False
+    if quant is True or quant == "fp8":
+        return True
+    raise MXNetError(f"unknown quant spec {quant!r}: expected None, bool, "
+                     "'fp8', or a QuantConfig")
+
+
+def _linear(x, b, l, d_in, d_out, name, quant=""):
+    """Per-position linear: [B, L, d_in] -> [B, L, d_out], the batch dim
+    a -1 wildcard."""
+    h = sym.Reshape(data=x, shape=(-1, d_in))
+    h = sym.FullyConnected(data=h, num_hidden=d_out, name=name, quant=quant)
+    return sym.Reshape(data=h, shape=(-1, l, d_out))
+
+
+def _layernorm(x, name):
+    return sym.LayerNorm(data=x, name=name)
+
+
+def transformer_block(x, b, l, d, heads, name, causal=True,
+                      attn_block_size=0, quant=""):
+    """One pre-norm block; heads stay at dim 2 ([B, L, H, hd]) and
+    ``RingAttention(layout='blhd')`` reads them in place."""
+    hd = d // heads
+
+    def split_heads(t):
+        return sym.Reshape(data=t, shape=(-1, l, heads, hd))
+
+    h = _layernorm(x, f"{name}_ln1")
+    q = split_heads(_linear(h, b, l, d, d, f"{name}_q", quant=quant))
+    k = split_heads(_linear(h, b, l, d, d, f"{name}_k", quant=quant))
+    v = split_heads(_linear(h, b, l, d, d, f"{name}_v", quant=quant))
+    att = sym.RingAttention(query=q, key=k, value=v, causal=causal,
+                            block_size=attn_block_size, layout="blhd",
+                            name=f"{name}_attn")
+    att = sym.Reshape(data=att, shape=(-1, l, d))
+    att = _linear(att, b, l, d, d, f"{name}_proj", quant=quant)
+    x = x + att
+    h = _layernorm(x, f"{name}_ln2")
+    h = _linear(h, b, l, d, 4 * d, f"{name}_ffn1", quant=quant)
+    h = sym.Activation(data=h, act_type="relu")
+    h = _linear(h, b, l, 4 * d, d, f"{name}_ffn2", quant=quant)
+    return x + h
+
+
+def transformer_lm(vocab_size=256, num_layers=2, d_model=64, heads=4,
+                   batch_size=8, seq_len=64, causal=True, remat=False,
+                   head_same_dtype=False, loss_head=False,
+                   attn_block_size=0, ignore_label=None, quant=None):
+    """The LM symbol; inputs ``data``/``softmax_label`` are ``[batch,
+    seq]`` token ids.  ``loss_head=True`` emits the per-token
+    cross-entropy (``[batch * seq]`` f32) instead of the probabilities,
+    with the same gradients; ``ignore_label`` masks those positions out of
+    the loss and its gradient; ``head_same_dtype`` emits probabilities in
+    the activation type."""
+    if remat:
+        raise not_ported("transformer_lm(remat=True) (remat_scope)")
+    if _resolve_quant(quant):
+        raise not_ported("transformer_lm(quant='fp8') (quant.py)")
+    b, l, d = batch_size, seq_len, d_model
+    net = sym.Embedding(data=sym.Variable("data"), input_dim=vocab_size,
+                        output_dim=d, name="embed")
+    for i in range(num_layers):
+        net = transformer_block(net, b, l, d, heads, f"layer{i}",
+                                causal=causal,
+                                attn_block_size=attn_block_size, quant="")
+    net = _layernorm(net, "final_ln")
+    net = sym.Reshape(data=net, shape=(-1, d))
+    net = sym.FullyConnected(data=net, num_hidden=vocab_size, name="lm_head")
+    label = sym.Reshape(data=sym.Variable("softmax_label"), shape=(-1,))
+    head_kwargs = {}
+    if ignore_label is not None:
+        head_kwargs = dict(use_ignore=True, ignore_label=ignore_label)
+    return sym.SoftmaxOutput(data=net, label=label, name="softmax",
+                             out_dtype="same" if head_same_dtype else "",
+                             out_mode="loss" if loss_head else "",
+                             **head_kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Functional twins
+# ---------------------------------------------------------------------------
 
 
 def _fcm(x, weight, bias):
@@ -41,13 +154,8 @@ def _fcm(x, weight, bias):
 
 
 def _lnm(x, gamma, beta):
-    """Mirror of the LayerNorm op (f32 statistics under bf16/fp16)."""
-    x32 = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, keepdim=True, correction=0)
-    xhat = (x32 - mean) * torch.rsqrt(var + _LN_EPS)
-    out = xhat * gamma.to(x32.dtype) + beta.to(x32.dtype)
-    return out.to(x.dtype)
+    """The LayerNorm op at its default eps."""
+    return layer_norm(x, gamma, beta, _LN_EPS)
 
 
 def _param(params, name):

@@ -1,10 +1,11 @@
-"""Neural-network operators of the ResNet training path.
+"""Neural-network operators of the ResNet and transformer-LM training paths.
 
 Counterpart of ``mxnet_tpu/ops/nn_ops.py`` for the ops that
-``models.resnet``/``resnet_cifar`` reach: Activation, FullyConnected,
-Convolution, Pooling, BatchNorm, Flatten and SoftmaxOutput (with its
-deprecated alias Softmax).  The other ops of that module come with later
-slices (ROADMAP.md).
+``models.resnet``/``resnet_cifar`` and ``models.transformer_lm`` reach:
+Activation, FullyConnected, Convolution, Pooling, BatchNorm, Flatten,
+Reshape, Embedding, LayerNorm and SoftmaxOutput (with its deprecated
+alias Softmax), the latter also in its loss mode.  The other ops of that
+module come with later slices (ROADMAP.md).
 
 Layouts stay NCHW/OIHW as in the JAX package.  Convolutions go to cuDNN
 through ``F.conv2d`` and matrix products to cuBLAS through ``matmul``, as
@@ -22,10 +23,14 @@ written out:
 The ``SoftmaxOutput`` forward runs the row softmax through kernel K1
 (:func:`softmax_rows`, ``csrc/softmax_rows.cu``) on CUDA tensors and its
 plain version :func:`softmax_rows_ref` on CPU tensors; the wrapper counts
-its launches in ``softmax_rows.launches``.  Its backward reproduces the
-JAX ``_bwd`` rule (``(prob - onehot) * scale`` times the head cotangent),
-recomputing the softmax with ``torch.softmax`` exactly where the JAX
-package recomputes it with ``jax.nn.softmax``.
+its launches in ``softmax_rows.launches``.  With ``out_mode="loss"`` the
+forward emits the per-position cross-entropy instead, from an f32
+logsumexp, gathering the label's logit before the f32 cast, as the JAX
+package does; it launches no kernel.  The backward reproduces the JAX
+``_bwd`` rule (``(prob - onehot) * scale`` times the head cotangent,
+broadcast over the classes when it is label-shaped), recomputing the
+softmax with ``torch.softmax`` exactly where the JAX package recomputes
+it with ``jax.nn.softmax``.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ from .. import _build
 from ..base import MXNetError, not_ported
 from .registry import OpDef, OpParam, elemwise_shape, register_op
 
-__all__ = ["softmax_rows", "softmax_rows_ref", "SOFTMAX_MAX_COLS"]
+__all__ = ["softmax_rows", "softmax_rows_ref", "layer_norm",
+           "SOFTMAX_MAX_COLS"]
 
 SOFTMAX_MAX_COLS = 16384
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -344,6 +350,103 @@ register_op(OpDef(
 
 
 # ---------------------------------------------------------------------------
+# Reshape
+# ---------------------------------------------------------------------------
+
+def _reshape_target(params, in_shape):
+    tgt = params["target_shape"] if params["target_shape"] else params["shape"]
+    if not tgt:
+        raise MXNetError("Reshape needs `shape` (or legacy `target_shape`)")
+    tgt = list(tgt)
+    if 0 in tgt and -1 not in tgt:
+        # legacy target_shape: 0 means inferred batch dim
+        tgt = [-1 if t == 0 else t for t in tgt]
+    if in_shape is None:
+        return None
+    total = int(np.prod(in_shape))
+    if -1 in tgt:
+        rest = int(np.prod([t for t in tgt if t != -1]))
+        tgt = [total // rest if t == -1 else t for t in tgt]
+    return tuple(tgt)
+
+
+register_op(OpDef(
+    name="Reshape",
+    forward=lambda ctx, params, x: x.reshape(
+        _reshape_target(params, tuple(x.shape))),
+    arguments=("data",),
+    params={
+        "shape": OpParam("shape", "shape", default=()),
+        "target_shape": OpParam("target_shape", "shape", default=()),
+    },
+    infer_shape=lambda params, in_shapes: (
+        in_shapes, [_reshape_target(params, in_shapes[0])], []),
+    doc="Reshape with -1/0 wildcard support.",
+))
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def _embedding_shape(params, in_shapes):
+    shapes = list(in_shapes) + [None] * (2 - len(in_shapes))
+    d = shapes[0]
+    shapes[1] = (params["input_dim"], params["output_dim"])
+    out = None if d is None else tuple(d) + (params["output_dim"],)
+    return shapes, [out], []
+
+
+register_op(OpDef(
+    name="Embedding",
+    # ids arrive as float32, as every batch input does, and truncate to
+    # integers as the reference's astype(int32) does
+    forward=lambda ctx, params, data, weight: weight[data.long()],
+    arguments=("data", "weight"),
+    params={
+        "input_dim": OpParam("input_dim", "int", required=True),
+        "output_dim": OpParam("output_dim", "int", required=True),
+    },
+    infer_shape=_embedding_shape,
+    doc="Index into an embedding table; grad is a scatter-add.",
+))
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm
+# ---------------------------------------------------------------------------
+
+def layer_norm(x, gamma, beta, eps):
+    """Last-axis layer normalization; statistics in f32 under bf16/fp16,
+    the result in ``x``'s type."""
+    x32 = _amp_f32(x)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    xhat = (x32 - mean) * torch.rsqrt(var + eps)
+    out = xhat * gamma.to(x32.dtype) + beta.to(x32.dtype)
+    return out.to(x.dtype)
+
+
+def _layernorm_shape(params, in_shapes):
+    d = (list(in_shapes) + [None])[0]
+    if d is None:
+        return in_shapes, [None], []
+    feat = (d[-1],)
+    return [tuple(d), feat, feat], [tuple(d)], []
+
+
+register_op(OpDef(
+    name="LayerNorm",
+    forward=lambda ctx, params, x, gamma, beta: layer_norm(
+        x, gamma, beta, params["eps"]),
+    arguments=("data", "gamma", "beta"),
+    params={"eps": OpParam("eps", "float", default=1e-5)},
+    infer_shape=_layernorm_shape,
+    doc="Last-axis layer normalization with learnable scale/shift.",
+))
+
+
+# ---------------------------------------------------------------------------
 # K1: the row softmax
 # ---------------------------------------------------------------------------
 
@@ -421,13 +524,33 @@ def _softmax_rows(x):
 # SoftmaxOutput
 # ---------------------------------------------------------------------------
 
+def _nll(data, label, p):
+    """Loss mode: per-position ``logsumexp - logit[label]`` in f32, masked
+    at ``ignore_label`` when ``use_ignore``.  The label's logit is gathered
+    before the f32 cast (the same bits, without an f32 copy of the
+    logits)."""
+    axis = 1 if (p["multi_output"] and data.dim() > 2) else -1
+    lse = torch.logsumexp(_amp_f32(data), dim=axis)
+    picked = _amp_f32(torch.gather(data, axis,
+                                   label.long().unsqueeze(axis)))
+    nll = lse - picked.squeeze(axis)
+    if p["use_ignore"]:
+        nll = nll * (label != p["ignore_label"]).to(nll.dtype)
+    return nll
+
+
 class _SoftmaxOutputFn(torch.autograd.Function):
-    """Forward: probabilities.  Backward: the reference rule
-    ``(prob - onehot(label)) * grad_scale [/ denom] * head cotangent``,
-    with ``ignore_label`` masking; the label gets a zero gradient."""
+    """Forward: probabilities, or the per-position cross-entropy in loss
+    mode.  Backward: the reference rule ``(prob - onehot(label)) *
+    grad_scale [/ denom] * head cotangent``, with ``ignore_label``
+    masking; the label gets a zero gradient."""
 
     @staticmethod
     def forward(ctx, data, label, p):
+        ctx.save_for_backward(data, label)
+        ctx.p = p
+        if p["out_mode"] == "loss":
+            return _nll(data, label, p)
         in_dtype = data.dtype
         x = _amp_f32(data)
         if p["multi_output"] and x.dim() > 2:
@@ -436,8 +559,6 @@ class _SoftmaxOutputFn(torch.autograd.Function):
             prob = _softmax_rows(x)
         if p["out_dtype"] == "same":
             prob = prob.to(in_dtype)
-        ctx.save_for_backward(data, label)
-        ctx.p = p
         return prob
 
     @staticmethod
@@ -472,6 +593,9 @@ class _SoftmaxOutputFn(torch.autograd.Function):
             return None
 
         cot = cot.to(x.dtype)
+        if cot.dim() < x.dim():
+            # label-shaped cotangent (loss mode): broadcast over the classes
+            cot = cot.unsqueeze(1) if multi else cot.unsqueeze(-1)
         if multi:
             grad = (prob - oh) * p["grad_scale"]
             if p["use_ignore"]:
@@ -496,8 +620,6 @@ class _SoftmaxOutputFn(torch.autograd.Function):
 
 
 def _softmax_output_fwd(ctx, params, data, label):
-    if params["out_mode"]:
-        raise not_ported(f"SoftmaxOutput(out_mode={params['out_mode']!r})")
     return _SoftmaxOutputFn.apply(data, label, params)
 
 
@@ -533,6 +655,7 @@ for _name in ("SoftmaxOutput", "Softmax"):  # "Softmax" is the old alias
         arguments=("data", "label"),
         params=dict(_SOFTMAX_OUT_PARAMS),
         infer_shape=_softmax_output_shape,
-        doc="Softmax forward (kernel K1); backward = (prob - onehot(label)) "
-            "times the head cotangent.",
+        doc="Softmax forward (kernel K1) or per-position cross-entropy "
+            "(out_mode='loss'); backward = (prob - onehot(label)) times "
+            "the head cotangent.",
     ))

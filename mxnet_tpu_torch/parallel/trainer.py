@@ -17,6 +17,13 @@ trainer compiles one program per step; here each step runs eagerly:
    states (BatchNorm moving statistics) keep their old values on a bad
    step.
 
+With ``compute_dtype`` (the JAX trainer's AMP lever) every float32
+parameter is cast to that type at the forward's edge, so activations and
+matrix products run in it; the batch is not cast, norm statistics and
+loss heads stay f32 (the ops see to that), and autograd carries the
+gradients back through the cast to the f32 master parameters, so the
+flat buffers and the update are unchanged.
+
 The fused layout keeps each of the weights, the optimizer state and the
 per-element weight decay in ONE flat float32 buffer, in the bucket plan's
 order: each bucket is a slice of it and each parameter a view, so the
@@ -26,10 +33,9 @@ step scalars (learning rate, update count, ``ok``, ``mult``) stay on the
 card as 0-d tensors: a step never waits for the host.
 
 Not ported yet (they raise): ``mesh``, ``rules``, ``data_axis``,
-``matmul_precision``, ``shard_optimizer``, ``compute_dtype``,
-``grad_accum > 1``, ``grad_compression``, ``error_feedback``,
-``loss_scale``, checkpoints (``save_state``/``restore_state``) and
-``fit``.
+``matmul_precision``, ``shard_optimizer``, ``grad_accum > 1``,
+``grad_compression``, ``error_feedback``, ``loss_scale``, checkpoints
+(``save_state``/``restore_state``) and ``fit``.
 """
 from __future__ import annotations
 
@@ -67,6 +73,9 @@ class ShardedTrainer:
     initializer : Initializer, optional
         Default ``Uniform(0.07)``; draws from a ``torch.Generator`` seeded
         with ``seed``.
+    compute_dtype : str, optional
+        Activation type (e.g. ``"bfloat16"``): float32 parameters are cast
+        to it inside each forward; masters and the update stay float32.
     fused_update : bool, optional
         None = fused when eligible (``MXNET_TPU_FUSED_UPDATE=0`` opts
         out); True raises at ``bind`` when the configuration cannot fuse;
@@ -94,7 +103,6 @@ class ShardedTrainer:
         for what, val in (("mesh", mesh), ("rules", rules),
                           ("data_axis", data_axis),
                           ("matmul_precision", matmul_precision),
-                          ("compute_dtype", compute_dtype),
                           ("grad_compression", grad_compression),
                           ("error_feedback", error_feedback),
                           ("loss_scale", loss_scale)):
@@ -105,6 +113,7 @@ class ShardedTrainer:
         if int(grad_accum) != 1:
             raise not_ported("ShardedTrainer(grad_accum > 1)")
         self.device = resolve_device(device)
+        self.compute_dtype = _torch_dtype(compute_dtype)
         self.symbol = symbol
         self.initializer = initializer or Uniform(0.07)
         self.logger = logger or logging.getLogger(__name__)
@@ -321,12 +330,21 @@ class ShardedTrainer:
             out[n] = v.to(self.device)
         return out
 
+    def _cast_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters as the forward sees them: float32 ones cast to
+        ``compute_dtype`` (a differentiable cast), the rest as they are."""
+        cdt = self.compute_dtype
+        if cdt is None:
+            return dict(self._params)
+        return {n: (p.to(cdt) if p.dtype == torch.float32 else p)
+                for n, p in self._params.items()}
+
     def _forward_backward(self, placed):
         """Training forward and backward: ``(heads, grads, aux_updates)``
         with a ones cotangent on every head."""
         for p in self._params.values():
             p.grad = None
-        args = dict(self._params)
+        args = self._cast_params()
         args.update(placed)
         heads, auxu = eval_symbol(self.symbol, args, self._aux, None, True,
                                   topo=self._topo)
@@ -442,7 +460,7 @@ class ShardedTrainer:
             raise MXNetError("call bind() before forward()")
         placed = self.place_batch(batch)
         with torch.no_grad():
-            args = dict(self._params)
+            args = self._cast_params()
             args.update(placed)
             heads, _ = eval_symbol(self.symbol, args, self._aux, None, False,
                                    topo=self._topo)
@@ -499,6 +517,19 @@ class ShardedTrainer:
 
     def fit(self, *args, **kwargs):
         raise not_ported("ShardedTrainer.fit (io.py, metric.py)")
+
+
+def _torch_dtype(name) -> Optional[torch.dtype]:
+    """``compute_dtype`` as a torch dtype (None stays None)."""
+    if name is None:
+        return None
+    if isinstance(name, torch.dtype):
+        return name
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise MXNetError(f"compute_dtype {name!r} is not a floating-point "
+                         "dtype")
+    return dt
 
 
 def _gate(ok, new, old):

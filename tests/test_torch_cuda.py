@@ -11,7 +11,10 @@ version on the same CUDA tensors: flash decode (K5) f32 within atol 2e-5
 rounding of the output); the row softmax (K1) f32 within atol 1e-6 (the
 online rescale of the running sum), bf16 within 1e-2; the fused update
 (K2) BITWISE, against its plain version and against the unfused
-per-parameter update (``chip_smoke.k2_unfused``).
+per-parameter update (``chip_smoke.k2_unfused``); flash attention forward
+(K3) and backward (K4) with ``chip_smoke.K34_TOL``: f32 within 2e-5
+(forward, lse) and 2e-4 (gradients), summation order; bf16 within 2e-2
+of ``1 + |plain|`` (``p`` and ``ds`` are rounded to bf16 inside).
 """
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from mxnet_tpu_torch import optimizer
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import fused_update as tfu
 from mxnet_tpu_torch.ops import nn_ops as tnn
+from mxnet_tpu_torch.parallel import flash_attention as tfa
 from mxnet_tpu_torch.serve import flash_decode as tfd
 
 
@@ -160,3 +164,96 @@ def test_fused_update_kernel_rejects_non_contiguous(cuda):
     with pytest.raises(MXNetError, match="contiguous"):
         tfu.fused_update(g, torch.zeros(8, device=cuda), (), (lr,),
                          kind="sgd")
+
+
+# (layout, B, H, Lq, Lk, D, causal, external delta)
+K34_SHAPES = [
+    ("blhd", 2, 4, 256, 256, 64, True, False),
+    ("bhld", 1, 2, 192, 320, 32, False, False),
+    ("blhd", 1, 2, 100, 100, 16, True, False),     # ragged tiles
+    ("blhd", 1, 2, 128, 128, 256, True, False),
+    ("bhld", 1, 1, 64, 64, 8, False, False),
+    ("bhld", 2, 2, 256, 256, 100, True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(K34_SHAPES)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain(cuda, case, dtype):
+    layout, B, H, Lq, Lk, D, causal, ext = K34_SHAPES[case]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.DEVICE = str(cuda)
+    q, k, v, do = chip_smoke.attn_operands(torch, np, 40 + case, layout, B,
+                                           H, Lq, Lk, D, dtype)
+    kw = dict(causal=causal, scale=1.0 / D ** 0.5, layout=layout)
+    delta = (torch.randn(B, H, Lq, device=cuda) if ext else None)
+    before = tfa.flash_fwd.launches, tfa.flash_bwd.launches
+    out, lse = tfa.flash_fwd(q, k, v, **kw)
+    grads = tfa.flash_bwd(q, k, v, out, lse, do, delta=delta, **kw)
+    ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, **kw)
+    ref_grads = tfa.flash_bwd_ref(q, k, v, out, lse, do, delta=delta, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    f32 = dtype == torch.float32
+    tol = chip_smoke.K34_TOL
+    assert (lse - ref_lse).abs().max().item() <= (
+        tol["fwd"] if f32 else tol["bf16_rel"])
+    assert chip_smoke.attn_err(torch, out, ref_out, dtype) <= (
+        tol["fwd"] if f32 else tol["bf16_rel"])
+    for g, r in zip(grads, ref_grads):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert chip_smoke.attn_err(torch, g, r, dtype) <= (
+            tol["bwd"] if f32 else tol["bf16_rel"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_on_misaligned_operands(cuda, dtype):
+    """Contiguous operands whose address is not 16-byte aligned take the
+    element-wise tile loads."""
+    B, H, L, D = 1, 2, 128, 64
+    n = B * L * H * D
+    base = [torch.randn(n + 1, device=cuda).to(dtype) for _ in range(4)]
+    q, k, v, do = (t[1:].view(B, L, H, D) for t in base)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    kw = dict(causal=True, scale=0.125, layout="blhd")
+    out, lse = tfa.flash_fwd(q, k, v, **kw)
+    grads = tfa.flash_bwd(q, k, v, out, lse, do, **kw)
+    ref_out, _ = tfa.flash_fwd_ref(q, k, v, **kw)
+    ref_grads = tfa.flash_bwd_ref(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    tol = chip_smoke.K34_TOL
+    f32 = dtype == torch.float32
+    assert chip_smoke.attn_err(torch, out, ref_out, dtype) <= (
+        tol["fwd"] if f32 else tol["bf16_rel"])
+    for g, r in zip(grads, ref_grads):
+        assert chip_smoke.attn_err(torch, g, r, dtype) <= (
+            tol["bwd"] if f32 else tol["bf16_rel"])
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_runs_both_kernels(cuda):
+    rng = np.random.RandomState(3)
+    x = [rng.randn(2, 128, 2, 32).astype(np.float32) for _ in range(3)]
+    on_card = [torch.from_numpy(a).to(cuda).requires_grad_() for a in x]
+    on_cpu = [torch.from_numpy(a).requires_grad_() for a in x]
+    before = tfa.flash_fwd.launches, tfa.flash_bwd.launches
+    y = tfa.flash_attention(*on_card, causal=True, layout="blhd")
+    (y * y).sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    yc = tfa.flash_attention(*on_cpu, causal=True, layout="blhd")
+    (yc * yc).sum().backward()
+    assert (y.detach().cpu() - yc.detach()).abs().max().item() <= 2e-5
+    for a, b in zip(on_card, on_cpu):
+        assert (a.grad.cpu() - b.grad).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernels_reject_non_contiguous(cuda):
+    q = torch.randn(1, 64, 2, 16, device=cuda).transpose(1, 2)
+    with pytest.raises(MXNetError, match="contiguous"):
+        tfa.flash_fwd(q, q, q, causal=False, scale=0.25)

@@ -3,8 +3,9 @@
 
 A subprocess blocks ``jax`` (``sys.modules['jax'] = None`` makes any
 import of it fail) and imports the port, its serve package, the training
-modules (symbol, models.resnet, ops.fused_update, parallel.trainer) and
-``chip_smoke``; a source scan checks every file of the port and the
+modules (symbol, models.resnet, models.transformer_lm, ops.fused_update,
+ops.attention_ops, parallel.trainer, parallel.flash_attention,
+parallel.ring_attention, parallel.mesh) and ``chip_smoke``; a source scan checks every file of the port and the
 script for such imports.
 """
 import os
@@ -27,6 +28,11 @@ import mxnet_tpu_torch.models.resnet
 import mxnet_tpu_torch.ops.fused_update
 import mxnet_tpu_torch.ops.nn_ops
 import mxnet_tpu_torch.parallel.trainer
+import mxnet_tpu_torch.parallel.flash_attention
+import mxnet_tpu_torch.parallel.ring_attention
+import mxnet_tpu_torch.parallel.mesh
+import mxnet_tpu_torch.ops.attention_ops
+from mxnet_tpu_torch.models import transformer_lm
 from mxnet_tpu_torch.parallel import ShardedTrainer
 from mxnet_tpu_torch import (attribute, graph_eval, initializer, name,
                              ndarray, optimizer, resilience)

@@ -256,11 +256,12 @@ def test_k1_wrapper_rejects(bad, match):
 
 
 def test_unported_options_raise():
-    op = tget_op("SoftmaxOutput")
     x = torch.randn(2, 3, requires_grad=True)
+    moe = tget_op("MoEFFN")
     with pytest.raises(MXNetError, match="not ported"):
-        op.forward(TCtx(), op.parse_params({"out_mode": "loss"}), x,
-                   torch.zeros(2))
+        moe.forward(TCtx(), moe.parse_params({"num_experts": "2",
+                                              "hidden_size": "4"}),
+                    x, *[torch.zeros(1)] * 5)
     fc = tget_op("FullyConnected")
     with pytest.raises(MXNetError, match="not ported"):
         fc.forward(TCtx(), fc.parse_params({"num_hidden": "2",

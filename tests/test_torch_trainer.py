@@ -227,7 +227,8 @@ def test_set_params_writes_through_to_the_fused_buffer():
 def test_unported_options_and_device_resolution():
     s = _build(NETS["resnet_cifar_n1"][1])
     for kw in ({"grad_accum": 2}, {"shard_optimizer": True},
-               {"compute_dtype": "bfloat16"}, {"grad_compression": "int8"},
+               {"matmul_precision": "bfloat16"},
+               {"grad_compression": "int8"},
                {"loss_scale": "dynamic"}, {"mesh": object()},
                {"guard": True, "guard_params": {"window": 8}}):
         with pytest.raises(MXNetError, match="not ported"):

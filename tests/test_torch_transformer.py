@@ -128,9 +128,12 @@ def test_local_attention_matches_jax():
         got = local_attention(*(torch.from_numpy(a) for a in (q, k, v)),
                               causal=causal)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
-    with pytest.raises(MXNetError, match="not ported"):
-        local_attention(*(torch.from_numpy(a) for a in (q, k, v)),
-                        block_size=0)
+    # block_size=0 at a length with no flash block: the dense path too
+    want = np.asarray(jax_local_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=True, block_size=0))
+    got = local_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=True, block_size=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
 
 
 def test_bucket_policy_matches_jax():

@@ -11,10 +11,13 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
 2. builds every kernel of ``mxnet_tpu_torch/csrc`` with nvcc, one process
    per source, all at once (timed);
 3. holds each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and at edge cases: flash decode (K5), the
-   row softmax (K1) and flash attention forward (K3) and backward (K4)
-   within stated tolerances, the fused optimizer update (K2) bitwise
-   against the unfused per-parameter update;
+   the main paths' shapes and at edge cases: flash decode (K5) and its
+   fp8 instance (K5-fp8, on pools quantized by ``quant.rowwise_quantize``,
+   f32 and bf16 queries; the fp8 read also against the f32 read, and the
+   card's e4m3 cast against the CPU's, byte for byte), the row softmax
+   (K1) and flash attention forward (K3) and backward (K4) within stated
+   tolerances, the fused optimizer update (K2) bitwise against the
+   unfused per-parameter update;
 4. serves the transformer-LM at full width (6 layers, d_model 512, 8
    heads, 32k vocab, random weights from seed 0) through ``Engine``:
    warmup, then 16 requests; checks every request finished, that two of
@@ -22,7 +25,23 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    is the argmax of a teacher-forced forward over the same tokens, that
    the pool drains, and that the kernel launched ``num_layers`` times per
    decode step; prints tokens/s, p50 TTFT and the median decode-step time;
-5. trains ResNet-50 at full width (depth 50, 3x224x224, 1000 classes,
+5. serves the same model and requests in ``bench.py``'s round-12
+   configuration, chunked prefill (chunks of 64 tokens), twice: with f32
+   pools (greedy tokens pass the teacher-forced check, the chunk count is
+   the sum of ceil(prompt / 64), K5 launches ``num_layers`` times per
+   decode step) and with ``kv_quant="fp8"`` (every request finishes, the
+   pool drains, K5-fp8 launches ``num_layers`` times per decode step and
+   K5 never, a greedy and a sampled request served again alone repeat
+   their streams); prints tokens/s, p50 TTFT, the median decode-step
+   time and the pools' bytes for both, five profiled decode steps of a
+   full batch (device time by layer, idle share; phase 4 too), and how
+   many greedy tokens of the fp8 run equal the f32 run's;
+6. serves 8 requests sharing a 256-token prefix (32-token suffixes, 32
+   new tokens, greedy, chunks of 64, fp8 pools) with the prefix cache and
+   without: streams equal, at least 7 prefix hits, fewer chunks by the
+   shared prefix; a cached run with ``defrag()`` halfway moves blocks,
+   keeps the streams and passes ``check_tables()``; prints both p50 TTFTs;
+7. trains ResNet-50 at full width (depth 50, 3x224x224, 1000 classes,
    batch 64, f32; parameters drawn with numpy from seed 0 by the default
    initializer rule) through ``ShardedTrainer`` with SGD (lr 0.1,
    momentum 0.9, wd 1e-4), the guard and clip 5.0: one warm-up and 5
@@ -31,12 +50,14 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    launch and one K2 launch per bucket (25) per step, and a bitwise
    fused-vs-unfused update from the same gradients; prints the median
    step time and images/s;
-6. times each kernel with CUDA events (median, L2 flushed between
+8. times each kernel with CUDA events (median, L2 flushed between
    launches) beside its plain version, a library yardstick and the
-   card's bound for the same work; K3 and K4 at the LM's shapes in f32
-   and bf16 beside ``F.scaled_dot_product_attention`` (forward, and its
-   backward alone);
-7. trains the transformer-LM at ``bench.py``'s LM-row settings (6
+   card's bound for the same work; K5 and K5-fp8 at the served decode
+   shape beside a gather (and dequantization) plus
+   ``F.scaled_dot_product_attention``; K3 and K4 at the LM's shapes in
+   f32 and bf16 beside ``F.scaled_dot_product_attention`` (forward, and
+   its backward alone);
+9. trains the transformer-LM at ``bench.py``'s LM-row settings (6
    layers, d_model 512, 8 heads, 32k vocab, batch 8, seq 2048, loss
    head, Adam lr 1e-3, ``compute_dtype="bfloat16"``; parameters drawn
    with numpy from seed 0) through ``ShardedTrainer``: one warm-up and 5
@@ -46,8 +67,8 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    one K2 launch per bucket per step, and a bitwise fused-vs-unfused
    Adam update from the same gradients; prints the median step,
    tokens/s, the peak memory and one profiled step by layer;
-8. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
-   "device": {...}}`` line.
+10. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+    "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
 port is not beside it, and on any failed check.
@@ -77,6 +98,13 @@ ENGINE_KW = dict(heads=HEADS, block_size=16, num_blocks=520, max_batch=8,
                  max_prompt_len=512, max_seq_len=1024)
 N_REQUESTS, NEW_TOKENS = 16, 64
 SAMPLED = {3: 0.8, 7: 1.0, 11: 0.7}      # request index -> temperature
+# bench.py's round-12 serve row (prefill_chunk=16 at prompts of at most
+# 64): chunks of 64 keep a prompt of at most 512 to 8 chunks
+R12_CHUNK = 64
+# the fp8 read against the f32 read at the engine's decode shape
+FP8_READ_TOL = 0.05
+# prefix-cache phase: 8 requests share one prefix
+PREFIX_LEN, SUFFIX_LEN, PREFIX_REQUESTS, PREFIX_NEW = 256, 32, 8, 32
 
 # training configuration: __graft_entry__.entry's ResNet-50
 DEPTH, CLASSES, IMAGE, BATCH = 50, 1000, (3, 224, 224), 64
@@ -198,6 +226,72 @@ def phase_kernel_vs_plain(torch, np, fd):
               f"version: max_abs_err {err} > {tol}")
         errs[name] = err
     return errs
+
+
+def quantize_pool(quant, kv, pool):
+    """One fp8 ``QuantPool`` layer of a [NB, BS, H, hd] pool: an e4m3 row
+    and an f32 scale per cached position, as the engine writes them."""
+    nb, bs = pool.shape[:2]
+    pay, sc = quant.rowwise_quantize(
+        pool.reshape((nb * bs,) + tuple(pool.shape[2:])), "e4m3")
+    return kv.QuantPool(pay.reshape(pool.shape), sc.reshape(nb, bs))
+
+
+def phase_fp8_vs_plain(torch, np, fd, quant, kv):
+    """K5-fp8 against its plain version on K5's cases with the pools
+    quantized (f32 and bf16 ``q``, tolerance by ``q``'s type); the fp8
+    read against the f32 read on the same pools at the engine's shapes
+    (64 columns, lengths up to 1024: a short read averages the rounding
+    of few positions, a length-1 row is one position's rounding); the
+    card's e4m3 cast against the CPU's, byte for byte."""
+    errs, read_err = {}, 0.0
+    cases = [c for c in kernel_cases(torch, np) if c[2] == torch.float32]
+    for i, (name, kw, _, split_k) in enumerate(cases):
+        q, kp, vp, tables, lens = decode_inputs(
+            torch, np, seed=100 + i, dtype=torch.float32, **kw)
+        kq, vq = quantize_pool(quant, kv, kp), quantize_pool(quant, kv, vp)
+        outs = {}
+        for q_dtype in (torch.float32, torch.bfloat16):
+            qx = q.to(q_dtype)
+            out = fd.flash_decode_attention(qx, kq, vq, tables, lens,
+                                            split_k=split_k)
+            ref = fd.flash_decode_attention_ref(qx, kq, vq, tables, lens,
+                                                split_k=split_k)
+            torch.cuda.synchronize()
+            label = f"{name}, {str(q_dtype).replace('torch.', '')} q"
+            check(out.dtype == q_dtype and out.shape == ref.shape,
+                  f"K5-fp8 {label}: kernel gave {out.dtype}"
+                  f"{tuple(out.shape)}")
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"K5-fp8 {label}: non-finite kernel output")
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL[str(q_dtype).replace("torch.", "")]
+            log(f"  K5-fp8 vs plain [{label}]: max_abs_err {err:.3e} "
+                f"(tol {tol:g})")
+            check(err <= tol, f"K5-fp8 {label}: kernel disagrees with its "
+                  f"plain version: max_abs_err {err} > {tol}")
+            errs[label] = err
+            outs[q_dtype] = out
+        if kw["nblk"] == 64 and "trash_rows" not in kw:   # engine shapes
+            f32_read = fd.flash_decode_attention_ref(q, kp, vp, tables, lens,
+                                                     split_k=split_k)
+            e = (outs[torch.float32] - f32_read).abs().max().item()
+            read_err = max(read_err, e)
+            log(f"  fp8 read vs f32 read [{name}]: max_abs_err {e:.3e} "
+                f"(tol {FP8_READ_TOL:g})")
+            check(e <= FP8_READ_TOL, f"{name}: the fp8 read is {e} from the "
+                  f"f32 read (> {FP8_READ_TOL})")
+    rng = np.random.RandomState(8)
+    x = (rng.randn(4096, HEADS, D_MODEL // HEADS)
+         * rng.choice([0.01, 1.0, 30.0], (4096, 1, 1))).astype(np.float32)
+    qc, sc = quant.rowwise_quantize(torch.from_numpy(x), "e4m3")
+    qg, sg = quant.rowwise_quantize(torch.from_numpy(x).to(DEVICE), "e4m3")
+    check(torch.equal(qg.view(torch.uint8).cpu(), qc.view(torch.uint8))
+          and torch.equal(sg.cpu().view(torch.int32), sc.view(torch.int32)),
+          "the card's e4m3 quantization differs from the CPU's")
+    log("  e4m3 rowwise quantization of 4096 rows [8, 64]: payload and "
+        "scales bitwise equal to the CPU's")
+    return errs, read_err
 
 
 def phase_k1_vs_plain(torch, np, nn_ops):
@@ -426,7 +520,7 @@ def phase_k34_vs_plain(torch, np, fa):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: serving at full width
+# Phases 4-6: serving at full width (whole prompts; r12; prefix cache)
 # ---------------------------------------------------------------------------
 
 def request_set(np):
@@ -477,24 +571,9 @@ def phase_serve(torch, np, fd):
         f"{i['kind']}@{i['bucket']} {i['ms']:.1f} ms" for i in infos))
 
     reqs = request_set(np)
-    # the main path's run: every count starts at 0 here
-    fd.flash_decode_attention.launches = 0
-    eng.counters.clear()
-    t_start = time.perf_counter()
-    ids = [eng.submit(p, **kw) for p, kw in reqs]
-    decode_ms = []
-    while not eng.sched.idle():
-        prefills = eng.counters["prefills"]
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        if eng.counters["prefills"] == prefills:
-            decode_ms.append((time.perf_counter() - t0) * 1e3)
-    wall = time.perf_counter() - t_start
-    launches = fd.flash_decode_attention.launches
-    counters = dict(eng.counters)
-
-    done = [eng.requests[i] for i in ids]
+    # the main path's run: every count starts at 0 inside serve_run
+    done, wall, decode_ms, (launches, launches_fp8), counters = serve_run(
+        torch, np, eng, reqs, fd)
     check(all(r.state == FINISHED and len(r.tokens) == NEW_TOKENS
               for r in done), "not every request finished with "
           f"{NEW_TOKENS} tokens: {[(r.state, len(r.tokens)) for r in done]}")
@@ -502,19 +581,11 @@ def phase_serve(torch, np, fd):
           f"{eng.alloc.num_used} KV blocks still held after drain")
     check(launches > 0, "the flash-decode kernel never launched")
     check(launches == LAYERS * counters["decode_steps"]
-          == counters["kernel_launches"],
+          == counters["kernel_launches"] and launches_fp8 == 0,
           f"kernel launches {launches} != {LAYERS} x decode steps "
           f"{counters['decode_steps']} (engine counted "
-          f"{counters['kernel_launches']})")
-    n_tok = sum(len(r.tokens) for r in done)
-    ttft = sorted((r.first_token_t - r.submit_t) * 1e3 for r in done)
-    stats = {"requests": len(done), "tokens": n_tok,
-             "tokens_per_s": n_tok / wall, "wall_s": wall,
-             "p50_ttft_ms": float(np.median(ttft)),
-             "decode_steps": counters["decode_steps"],
-             "median_decode_step_ms": float(np.median(decode_ms)),
-             "prefills": counters["prefills"],
-             "preemptions": counters.get("preemptions", 0)}
+          f"{counters['kernel_launches']}; fp8 {launches_fp8})")
+    stats = serve_stats(np, done, wall, decode_ms, counters)
     log("  serve: " + json.dumps(stats))
 
     # correctness: greedy tokens against a cache-free dense forward
@@ -530,11 +601,207 @@ def phase_serve(torch, np, fd):
               f"request {i} served alone differs from its batched stream")
         log(f"  request {i} served alone: identical stream")
     check(eng.alloc.num_used == 0, "KV blocks leaked by the replays")
+    stats["profile"] = profile_decode(torch, eng, reqs)
     return launches, stats
 
 
+def serve_run(torch, np, eng, reqs, fd):
+    """Drive ``eng`` through ``reqs`` from counts of 0; every step ends in
+    a synchronise.  Returns the requests, the wall time, the host times of
+    steps that ran no prefill work, the flash-decode launches (plain,
+    fp8) and the engine's counters."""
+    fd.flash_decode_attention.launches = 0
+    fd.flash_decode_attention.launches_fp8 = 0
+    eng.counters.clear()
+    t_start = time.perf_counter()
+    ids = [eng.submit(p, **kw) for p, kw in reqs]
+    decode_ms = []
+    while not eng.sched.idle():
+        work = eng.counters["prefills"] + eng.counters["prefill_chunks"]
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if eng.counters["prefills"] + eng.counters["prefill_chunks"] == work:
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_start
+    launches = (fd.flash_decode_attention.launches,
+                fd.flash_decode_attention.launches_fp8)
+    return ([eng.requests[i] for i in ids], wall, decode_ms, launches,
+            dict(eng.counters))
+
+
+def serve_stats(np, done, wall, decode_ms, counters):
+    n_tok = sum(len(r.tokens) for r in done)
+    ttft = sorted((r.first_token_t - r.submit_t) * 1e3 for r in done)
+    return {"requests": len(done), "tokens": n_tok,
+            "tokens_per_s": n_tok / wall, "wall_s": wall,
+            "p50_ttft_ms": float(np.median(ttft)),
+            "decode_steps": counters.get("decode_steps", 0),
+            "median_decode_step_ms": float(np.median(decode_ms)),
+            "prefills": counters.get("prefills", 0),
+            "prefill_chunks": counters.get("prefill_chunks", 0),
+            "preemptions": counters.get("preemptions", 0)}
+
+
+def profile_decode(torch, eng, reqs, steps=5):
+    """``steps`` decode steps of a full batch under ``torch.profiler``:
+    the first ``max_batch`` requests of ``reqs`` are admitted and
+    prefilled first, then the profiled steps run no prefill work.  Per
+    step: wall and device-busy ms, idle share, device ms by layer."""
+    from mxnet_tpu_torch.serve.scheduler import FINISHED
+    ids = [eng.submit(p, **kw) for p, kw in reqs[:eng.config.max_batch]]
+    while any(r.prefilled < r.prefill_target or not r.tokens
+              for r in eng.sched.running) or eng.sched.queue:
+        eng.step()
+    out = profile_step(torch, lambda: [eng.step() for _ in range(steps)],
+                       _SERVE_KERNEL_GROUPS,
+                       label=f"profiled {steps} decode steps")
+    per_step = {"wall_ms": out["wall_ms"] / steps,
+                "device_busy_ms": out["device_busy_ms"] / steps,
+                "idle_share": out["idle_share"],
+                "by_layer_ms": {k: v / steps
+                                for k, v in out["by_layer_ms"].items()}}
+    eng.run()
+    check(all(eng.requests[i].state == FINISHED for i in ids)
+          and eng.alloc.num_used == 0, "the profiled requests did not drain")
+    return per_step
+
+
+def phase_serve_r12(torch, np, fd, kv):
+    """The round-12 configuration: chunked prefill, f32 pools then fp8
+    pools, the same model and requests as phase 4."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.serve import Engine, EngineConfig
+    from mxnet_tpu_torch.serve.scheduler import FINISHED
+
+    params = transformer.init_params(VOCAB, LAYERS, D_MODEL, seed=0)
+    reqs = request_set(np)
+    greedy = [i for i in range(N_REQUESTS) if i not in SAMPLED]
+    n_chunks = sum(-(-len(p) // R12_CHUNK) for p, _ in reqs)
+    out = {}
+    for kv_quant in (None, "fp8"):
+        name = kv_quant or "f32"
+        eng = Engine(params, EngineConfig(**ENGINE_KW,
+                                          prefill_chunk=R12_CHUNK,
+                                          kv_quant=kv_quant), device=DEVICE)
+        infos = eng.warmup()
+        torch.cuda.synchronize()
+        log(f"  [{name} pools] warmup: " + ", ".join(
+            f"{i['kind']}@{i['bucket']} {i['ms']:.1f} ms" for i in infos))
+        # the main path's run: every count starts at 0 inside serve_run
+        done, wall, decode_ms, (k5, k5_fp8), counters = serve_run(
+            torch, np, eng, reqs, fd)
+        check(all(r.state == FINISHED and len(r.tokens) == NEW_TOKENS
+                  for r in done), f"[{name}] not every request finished: "
+              f"{[(r.state, len(r.tokens)) for r in done]}")
+        check(eng.alloc.num_used == 0,
+              f"[{name}] {eng.alloc.num_used} KV blocks held after drain")
+        check(counters["prefill_chunks"] == n_chunks,
+              f"[{name}] {counters['prefill_chunks']} chunks, expected "
+              f"{n_chunks}")
+        steps = counters["decode_steps"]
+        want = (LAYERS * steps, 0) if kv_quant is None else (0, LAYERS * steps)
+        check(steps > 0 and (k5, k5_fp8) == want
+              and counters["kernel_launches"] == LAYERS * steps,
+              f"[{name}] launches K5 {k5}, K5-fp8 {k5_fp8}, expected {want} "
+              f"({LAYERS} x {steps} decode steps)")
+        stats = dict(serve_stats(np, done, wall, decode_ms, counters),
+                     kv_quant=name,
+                     pool_nbytes=kv.pool_nbytes(eng.kpool, eng.vpool),
+                     kv_bytes_per_token=eng.kv_bytes_per_token,
+                     launches_k5=k5, launches_k5_fp8=k5_fp8)
+        log(f"  serve r12 [{name} pools]: " + json.dumps(stats))
+        if kv_quant is None:
+            for i in greedy:
+                teacher_forced_check(torch, eng, reqs[i][0], done[i].tokens,
+                                     transformer)
+            log(f"  teacher-forced check of the {len(greedy)} greedy "
+                "requests: every token within 1e-5 of the argmax")
+        else:
+            for i in (greedy[1], sorted(SAMPLED)[0]):
+                again = eng.result(eng.submit(reqs[i][0], **reqs[i][1]))
+                check(again == done[i].tokens, f"[fp8] request {i} served "
+                      "alone differs from its batched stream")
+                log(f"  [fp8] request {i} served alone: identical stream")
+            check(eng.alloc.num_used == 0, "KV blocks leaked by the replays")
+        stats["profile"] = profile_decode(torch, eng, reqs)
+        out[name] = (stats, [r.tokens for r in done], k5_fp8)
+    same = sum(a == b for i in greedy
+               for a, b in zip(out["f32"][1][i], out["fp8"][1][i]))
+    first = [next((j for j, (a, b) in enumerate(zip(out["f32"][1][i],
+                                                     out["fp8"][1][i]))
+                   if a != b), None) for i in greedy]
+    log(f"  fp8 greedy tokens equal to the f32 run: {same} of "
+        f"{len(greedy) * NEW_TOKENS} ({same / (len(greedy) * NEW_TOKENS):.3f})"
+        f"; first divergence by request: {first}")
+    return out["fp8"][2], {k: v[0] for k, v in out.items()}
+
+
+def phase_prefix_cache(torch, np):
+    """8 requests over one shared prefix, fp8 pools, chunked prefill: the
+    prefix cache against a cache-cold engine, and a cached run with a
+    defrag halfway."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.serve import Engine, EngineConfig
+
+    params = transformer.init_params(VOCAB, LAYERS, D_MODEL, seed=0)
+    rng = np.random.RandomState(4)
+    prefix = rng.randint(0, VOCAB, PREFIX_LEN).tolist()
+    reqs = [(prefix + rng.randint(0, VOCAB, SUFFIX_LEN).tolist(),
+             dict(max_new_tokens=PREFIX_NEW)) for _ in range(PREFIX_REQUESTS)]
+
+    def run(prefix_cache, defrag_at=None):
+        eng = Engine(params, EngineConfig(**ENGINE_KW,
+                                          prefill_chunk=R12_CHUNK,
+                                          kv_quant="fp8",
+                                          prefix_cache=prefix_cache),
+                     device=DEVICE)
+        eng.warmup()
+        torch.cuda.synchronize()
+        eng.counters.clear()
+        ids = [eng.submit(p, **kw) for p, kw in reqs]
+        steps, moved = 0, 0
+        while not eng.sched.idle():
+            eng.step()
+            torch.cuda.synchronize()
+            steps += 1
+            if steps == defrag_at:
+                moved = eng.defrag()
+                eng.check_tables()
+        done = [eng.requests[i] for i in ids]
+        ttft = float(np.median([(r.first_token_t - r.submit_t) * 1e3
+                                for r in done]))
+        check(eng.alloc.num_used == 0, "KV blocks held after drain")
+        eng.check_tables()
+        return eng, [r.tokens for r in done], ttft, steps, moved
+
+    cold, cold_toks, cold_ttft, _, _ = run(False)
+    warm, warm_toks, warm_ttft, steps, _ = run(True)
+    hits = warm.stats()["prefix"]["hits"]
+    saved = cold.counters["prefill_chunks"] - warm.counters["prefill_chunks"]
+    check(warm_toks == cold_toks, "prefix-cache streams differ from the "
+          "cache-cold engine's")
+    check(hits >= PREFIX_REQUESTS - 1, f"{hits} prefix hits, expected "
+          f">= {PREFIX_REQUESTS - 1}")
+    check(saved == (PREFIX_REQUESTS - 1) * (PREFIX_LEN // R12_CHUNK),
+          f"the cache saved {saved} chunks, expected "
+          f"{(PREFIX_REQUESTS - 1) * (PREFIX_LEN // R12_CHUNK)}")
+    dfg, dfg_toks, _, _, moved = run(True, defrag_at=steps // 2)
+    check(moved > 0, "defrag halfway moved no block")
+    check(dfg_toks == cold_toks, "defrag changed the streams")
+    stats = {"requests": PREFIX_REQUESTS, "prefix_tokens": PREFIX_LEN,
+             "hits": hits, "hit_tokens": warm.stats()["prefix"]["hit_tokens"],
+             "chunks_cached": warm.counters["prefill_chunks"],
+             "chunks_cold": cold.counters["prefill_chunks"],
+             "p50_ttft_cached_ms": warm_ttft, "p50_ttft_cold_ms": cold_ttft,
+             "defrag_moved_blocks": moved, "steps": steps}
+    log("  prefix cache: streams equal the cache-cold engine's; defrag "
+        "halfway kept them; " + json.dumps(stats))
+    return stats
+
+
 # ---------------------------------------------------------------------------
-# Phase 5: ResNet-50 training at full width
+# Phase 7: ResNet-50 training at full width
 # ---------------------------------------------------------------------------
 
 def init_numpy(np, sym, shapes, aux_shapes, seed=0):
@@ -643,7 +910,7 @@ def phase_train(torch, np, nn_ops, fu):
           f"{steps} steps of {n_buckets} buckets")
     log(f"  NaN step: skipped, state bitwise unchanged; launches K1 {k1}, "
         f"K2 {k2} over {steps} steps")
-    profile = profile_step(torch, tr, batch)
+    profile = profile_step(torch, lambda: tr.step(batch))
 
     # fused vs unfused from the same gradients, bitwise: cuDNN's backward
     # is not deterministic, so both updates consume one set of gradients
@@ -715,19 +982,33 @@ _LOSS_HEAD_OPS = ("aten::logsumexp", "aten::gather",
                   "_SoftmaxOutputFnBackward")
 
 
-def profile_step(torch, tr, batch, groups_spec=_KERNEL_GROUPS,
-                 loss_ops=()):
-    """One more training step under ``torch.profiler``: device time by
-    layer, the busiest kernels, and the share of the step's wall time in
-    which the card ran no kernel.  ``loss_ops`` names CPU ops whose
-    inclusive device time is reported as ``loss_head_ms`` (those kernels
-    also sit in the groups)."""
+# kernel-name fragments of a serving decode step -> the layer
+_SERVE_KERNEL_GROUPS = (
+    ("K5 / K5-fp8 flash decode", ("decode_partial_kernel",
+                                  "combine_kernel")),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas",
+                         "nvjet")),
+    ("KV writes and gathers (index_put, index)", ("index", "scatter",
+                                                  "gather")),
+    ("reductions (LayerNorm, argmax, row absmax)", ("reduce", "norm")),
+    ("elementwise (LayerNorm, ReLU, residual, casts, quantize)",
+     ("elementwise",)),
+)
+
+
+def profile_step(torch, run, groups_spec=_KERNEL_GROUPS, loss_ops=(),
+                 label="profiled step"):
+    """``run()`` (a training step, or a few serving steps) under
+    ``torch.profiler``: device time by layer, the busiest kernels, and
+    the share of the wall time in which the card ran no kernel.
+    ``loss_ops`` names CPU ops whose inclusive device time is reported as
+    ``loss_head_ms`` (those kernels also sit in the groups)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.step(batch)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, kernels, other, loss_us = {}, [], [], {}
@@ -760,12 +1041,12 @@ def profile_step(torch, tr, batch, groups_spec=_KERNEL_GROUPS,
     if loss_ops:
         out["loss_head_ms"] = sum(loss_us.values()) / 1e3
         out["loss_head_ops_ms"] = {k: v / 1e3 for k, v in loss_us.items()}
-    log("  profiled step: " + json.dumps(out))
+    log(f"  {label}: " + json.dumps(out))
     return out
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: kernel timing
+# Phase 8: kernel timing
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps=50, hide_host=True):
@@ -839,6 +1120,56 @@ def phase_timing(torch, np, fd):
     flops = 4 * valid * H * hd          # q.k and p.v, multiply + add
     row = dict(bound(nbytes, flops), **times, library_max_abs_err=lib_err)
     log("  timing K5: " + json.dumps(row))
+    return row
+
+
+def phase_timing_fp8(torch, np, fd, quant, kv):
+    """K5-fp8 at K5's timing shape (B 8, H 8, hd 64, BS 16, 64 columns,
+    lengths of the served mix, f32 ``q``) on pools quantized by
+    ``rowwise_quantize``; the yardstick gathers, dequantizes and runs
+    ``F.scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    B, H, hd, BS, nblk = 8, 8, 64, 16, 64
+    rng = np.random.RandomState(11)
+    lengths = rng.randint(32 + 1, 512 + NEW_TOKENS + 1, size=B)
+    q, kp, vp, tables, lens = decode_inputs(
+        torch, np, seed=12, B=B, H=H, hd=hd, BS=BS, nblk=nblk, npool=520,
+        lengths=lengths, dtype=torch.float32)
+    kq, vq = quantize_pool(quant, kv, kp), quantize_pool(quant, kv, vp)
+
+    def dequant(pool, idx):
+        pay = pool.payload.view(torch.uint8)[idx].view(pool.payload.dtype)
+        return (pay.float() * pool.scale[idx][..., None, None]).reshape(
+            B, nblk * BS, H, hd).transpose(1, 2)
+
+    def library():
+        idx = tables.long()
+        k, v = dequant(kq, idx), dequant(vq, idx)
+        mask = (torch.arange(nblk * BS, device=DEVICE)[None, :]
+                < lens[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q[:, :, None, :], k, v,
+                                              attn_mask=mask)[:, :, 0]
+
+    out = fd.flash_decode_attention(q, kq, vq, tables, lens)
+    lib_err = (library() - out).abs().max().item()
+    torch.cuda.synchronize()
+    check(lib_err <= 1e-4, f"fp8 library yardstick disagrees: {lib_err}")
+    times = time_row(
+        torch, lambda: fd.flash_decode_attention(q, kq, vq, tables, lens),
+        lambda: fd.flash_decode_attention_ref(q, kq, vq, tables, lens),
+        library)
+    # the least work: each valid position's e4m3 K and V rows and their
+    # two f32 scales read once, each used table entry, q and lengths read
+    # once, the output written once
+    valid = int(lengths.sum())
+    used_cols = int(sum(-(-int(n) // BS) for n in lengths))
+    nbytes = (2 * valid * H * hd * 1 + 2 * valid * 4 + used_cols * 4 + B * 4
+              + 2 * B * H * hd * q.element_size())
+    # q.k and p.v (multiply + add) and one dequantizing multiply per K and
+    # V element
+    flops = 6 * valid * H * hd
+    row = dict(bound(nbytes, flops), **times, library_max_abs_err=lib_err)
+    log("  timing K5-fp8: " + json.dumps(row))
     return row
 
 
@@ -973,7 +1304,7 @@ def phase_timing_k34(torch, np, fa):
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: transformer-LM training at full width and depth
+# Phase 9: transformer-LM training at full width and depth
 # ---------------------------------------------------------------------------
 
 def lm_batch(np, seed=0):
@@ -1055,7 +1386,7 @@ def phase_train_lm(torch, np, fa, fu):
           f"{steps} steps of {n_buckets} buckets")
     log(f"  launches over {steps} steps: K3 {k3}, K4 {k4}, K2 {k2}; dense "
         f"and blockwise attention 0")
-    profile = profile_step(torch, tr, batch, _LM_KERNEL_GROUPS,
+    profile = profile_step(torch, lambda: tr.step(batch), _LM_KERNEL_GROUPS,
                            _LOSS_HEAD_OPS)
 
     # fused vs unfused Adam from the same gradients, bitwise (the
@@ -1104,11 +1435,12 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import numpy as np
-        from mxnet_tpu_torch import _build, optimizer
+        from mxnet_tpu_torch import _build, optimizer, quant
         from mxnet_tpu_torch.ops import fused_update as fu
         from mxnet_tpu_torch.ops import nn_ops
         from mxnet_tpu_torch.parallel import flash_attention as fa
         from mxnet_tpu_torch.serve import flash_decode as fd
+        from mxnet_tpu_torch.serve import kvcache as kv
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})",
               file=sys.stderr)
@@ -1117,14 +1449,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/8] device")
+    log("[1/10] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/8] build")
+    log("[2/10] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -1133,38 +1465,51 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/8] kernels against their plain versions")
+    log("[3/10] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
+    fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
     k2_err = phase_k2_vs_unfused(torch, np, fu, optimizer)
     k34_errs = phase_k34_vs_plain(torch, np, fa)
 
-    log("[4/8] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/10] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/8] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[5/10] serving the round-12 configuration: chunked prefill "
+        f"({R12_CHUNK}), f32 pools, then fp8 pools")
+    fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
+
+    log(f"[6/10] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+        f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
+    phase_prefix_cache(torch, np)
+
+    log(f"[7/10] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, _ = phase_train(torch, np, nn_ops, fu)
 
-    log("[6/8] kernel timing")
+    log("[8/10] kernel timing")
     timing = {"flash_decode": phase_timing(torch, np, fd),
+              "flash_decode_fp8": phase_timing_fp8(torch, np, fd, quant, kv),
               "softmax_rows": phase_timing_k1(torch, np, nn_ops),
               "fused_update": phase_timing_k2(torch, np, fu)}
     k34_timing = phase_timing_k34(torch, np, fa)
     # the LM's main path runs K3/K4 in bf16: those times go to the line
     timing.update(k34_timing["bf16"])
 
-    log(f"[7/8] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/10] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, _ = phase_train_lm(torch, np, fa, fu)
 
-    log("[8/8] result")
+    log("[10/10] result")
     f32_errs = [v for k, v in k34_errs.items() if k.endswith("f32")]
     rows = [
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
          "mxnet_tpu/serve/flash_decode.py:60", k5_launches,
          max(v for k, v in errs.items() if "bf16" not in k)),
+        ("flash_decode_fp8", "mxnet_tpu_torch/csrc/flash_decode.cu",
+         "mxnet_tpu/serve/flash_decode.py:60", fp8_launches,
+         max(v for k, v in fp8_errs.items() if k.endswith("float32 q"))),
         ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",
          "mxnet_tpu/ops/nn_ops.py:847", train_launches["softmax_rows"],
          max(v for k, v in k1_errs.items() if "float32" in k)),

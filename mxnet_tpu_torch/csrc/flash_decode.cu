@@ -2,7 +2,11 @@
 //
 // Replaces mxnet_tpu/serve/flash_decode.py:_decode_kernel (the Pallas TPU
 // kernel driven by flash_decode_attention) on the serving decode path: one
-// query token per request attends over its table-addressed KV blocks.
+// query token per request attends over its table-addressed KV blocks.  Two
+// entry points: mxt_flash_decode for plain f32/bf16 pools (K5), and
+// mxt_flash_decode_fp8 for fp8 pools (K5-fp8: the quantized=True branch of
+// the same TPU kernel), an e4m3 payload of 1 byte per element with one f32
+// scale per cached position.
 //
 // What bounds it: device-memory bytes.  Every valid K/V position of every
 // request is read once (2 * H * hd elements per position) for about four
@@ -19,20 +23,30 @@
 //     (the TPU version's trash-padded split tail), are never read.
 //   * each warp takes every 4th position of the split and keeps its own
 //     online-softmax partial (acc in registers, m and l as scalars); lanes
-//     split the head dimension, so a K or V row is one coalesced read.
+//     split the head dimension, so a K or V row is one coalesced read (for
+//     fp8 at hd 64: two 32-byte sectors, one byte a lane).
+//   * fp8 pools: the payload is read as one byte per element and widened
+//     to f32 in registers, and each position's K and V scales (indexed by
+//     the same table[j] * BS + offset as the payload row) are read once
+//     per warp.  Scale placement: every dequantized element is its payload
+//     times its position's scale BEFORE the dot and the p-weighted sum, as
+//     the JAX body does (k * kscale[:, None, None]); HBM traffic stays the
+//     1-byte payload plus 4 bytes of scale per position and pool.
 //   * the four warp partials merge in shared memory and the block writes
 //     one (acc[hd], m, l) partial, once.
-//   * a second small kernel combines the split partials exactly as the
-//     JAX package does outside Pallas: m* = max m, w = exp(m - m*),
-//     l* = max(sum l w, 1e-30), out = sum acc w / l*.
-// Scores and statistics are f32 (f32 or bf16 inputs), scaled by `scale`
-// after the dot product, masked with NEG_INF = -1e30.  An empty split keeps
-// (m = NEG_INF, l = 0, acc = 0); all rescales are exp(finite - finite), so
-// a fully masked split gives no NaN.  Simple and correct first: no wgmma,
-// no TMA, no cp.async pipelining.
+//   * a second small kernel, shared by both entry points, combines the
+//     split partials exactly as the JAX package does outside Pallas:
+//     m* = max m, w = exp(m - m*), l* = max(sum l w, 1e-30),
+//     out = sum acc w / l*.
+// Scores and statistics are f32 (f32, bf16 or fp8 inputs), scaled by
+// `scale` after the dot product, masked with NEG_INF = -1e30.  An empty
+// split keeps (m = NEG_INF, l = 0, acc = 0); all rescales are
+// exp(finite - finite), so a fully masked split gives no NaN.  Simple and
+// correct first: no vectorised loads, no wgmma, no TMA, no cp.async.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stddef.h>
 
 namespace {
@@ -46,6 +60,9 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -57,12 +74,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// q [B, H, hd]; k, v [NB, BS, H, hd]; tables [B, nblk]; lengths [B].
+// q [B, H, hd]; k, v [NB, BS, H, hd]; with kQuant, kscale and vscale
+// [NB, BS] (else unused); tables [B, nblk]; lengths [B].
 // Writes acc [B, S, H, hd], m [B, S, H], l [B, S, H] (f32), S = gridDim.y.
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool kQuant>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_partial_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                       const TKV* __restrict__ v,
+                      const float* __restrict__ kscale,
+                      const float* __restrict__ vscale,
                       const int* __restrict__ tables,
                       const int* __restrict__ lengths,
                       float* __restrict__ acc_out, float* __restrict__ m_out,
@@ -89,13 +109,23 @@ decode_partial_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int* table = tables + (size_t)b * nblk;
   for (int p = j0 * BS + warp; p < p_end; p += kWarps) {
     const int j = p / BS;
-    const size_t base =
-        (((size_t)table[j] * BS + (p - j * BS)) * H + h) * (size_t)hd;
+    const size_t row = (size_t)table[j] * BS + (p - j * BS);
+    const size_t base = (row * H + h) * (size_t)hd;
+    float ksc = 1.f, vsc = 1.f;
+    if constexpr (kQuant) {
+      ksc = kscale[row];
+      vsc = vscale[row];
+    }
     float dot = 0.f;
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) {
       const int d = lane + 32 * i;
-      if (d < hd) dot += qr[i] * to_f32(k[base + d]);
+      if (d < hd) {
+        if constexpr (kQuant)
+          dot += qr[i] * (to_f32(k[base + d]) * ksc);
+        else
+          dot += qr[i] * to_f32(k[base + d]);
+      }
     }
     const float score = warp_sum(dot) * scale;
     const float m_new = fmaxf(m, score);
@@ -105,7 +135,12 @@ decode_partial_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) {
       const int d = lane + 32 * i;
-      if (d < hd) acc[i] = acc[i] * alpha + pexp * to_f32(v[base + d]);
+      if (d < hd) {
+        if constexpr (kQuant)
+          acc[i] = acc[i] * alpha + pexp * (to_f32(v[base + d]) * vsc);
+        else
+          acc[i] = acc[i] * alpha + pexp * to_f32(v[base + d]);
+      }
     }
     m = m_new;
   }
@@ -171,23 +206,33 @@ __global__ void combine_kernel(const float* __restrict__ acc,
   }
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool kQuant = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* kscale, const float* vscale,
                    const int* tables, const int* lengths, float* acc,
                    float* m, float* l, void* out, int B, int H, int hd,
                    int BS, int nblk, int splits, int bps, float scale,
                    cudaStream_t stream) {
-  decode_partial_kernel<TQ, TKV><<<dim3(B, splits, H), kWarps * 32, 0,
-                                   stream>>>(
+  decode_partial_kernel<TQ, TKV, kQuant><<<dim3(B, splits, H), kWarps * 32,
+                                           0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), tables, lengths, acc, m, l, H, hd, BS,
-      nblk, bps, scale);
+      static_cast<const TKV*>(v), kscale, vscale, tables, lengths, acc, m,
+      l, H, hd, BS, nblk, bps, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = hd < 32 ? 32 : (hd > 256 ? 256 : hd);
   combine_kernel<TQ><<<dim3(B, H), threads, 0, stream>>>(
       acc, m, l, static_cast<TQ*>(out), splits, H, hd);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace {
+
+bool bad_shape(int B, int H, int hd, int BS, int nblk, int splits, int bps) {
+  return B < 1 || H < 1 || hd < 1 || hd > kMaxHeadDim || BS < 1 ||
+         nblk < 1 || splits < 1 || bps < 1 || splits > 65535 || H > 65535;
 }
 
 }  // namespace
@@ -201,29 +246,50 @@ int mxt_flash_decode(const void* q, int q_dtype, const void* k,
                      const int* lengths, float* acc, float* m, float* l,
                      void* out, int B, int H, int hd, int BS, int nblk,
                      int splits, int bps, float scale, void* stream) {
-  if (B < 1 || H < 1 || hd < 1 || hd > kMaxHeadDim || BS < 1 || nblk < 1 ||
-      splits < 1 || bps < 1 || splits > 65535 || H > 65535)
+  if (bad_shape(B, H, hd, BS, nblk, splits, bps))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  using bf16 = __nv_bfloat16;
   if (q_dtype == 0 && kv_dtype == 0)
-    err = launch<float, float>(q, k, v, tables, lengths, acc, m, l, out, B,
-                               H, hd, BS, nblk, splits, bps, scale, st);
-  else if (q_dtype == 0 && kv_dtype == 1)
-    err = launch<float, __nv_bfloat16>(q, k, v, tables, lengths, acc, m, l,
-                                       out, B, H, hd, BS, nblk, splits, bps,
-                                       scale, st);
-  else if (q_dtype == 1 && kv_dtype == 0)
-    err = launch<__nv_bfloat16, float>(q, k, v, tables, lengths, acc, m, l,
-                                       out, B, H, hd, BS, nblk, splits, bps,
-                                       scale, st);
-  else if (q_dtype == 1 && kv_dtype == 1)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, tables, lengths, acc,
-                                               m, l, out, B, H, hd, BS, nblk,
-                                               splits, bps, scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+    return (int)launch<float, float>(q, k, v, nullptr, nullptr, tables,
+                                     lengths, acc, m, l, out, B, H, hd, BS,
+                                     nblk, splits, bps, scale, st);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return (int)launch<float, bf16>(q, k, v, nullptr, nullptr, tables,
+                                    lengths, acc, m, l, out, B, H, hd, BS,
+                                    nblk, splits, bps, scale, st);
+  if (q_dtype == 1 && kv_dtype == 0)
+    return (int)launch<bf16, float>(q, k, v, nullptr, nullptr, tables,
+                                    lengths, acc, m, l, out, B, H, hd, BS,
+                                    nblk, splits, bps, scale, st);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return (int)launch<bf16, bf16>(q, k, v, nullptr, nullptr, tables,
+                                   lengths, acc, m, l, out, B, H, hd, BS,
+                                   nblk, splits, bps, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// fp8 pools: k, v [NB, BS, H, hd] e4m3 bytes; kscale, vscale [NB, BS] f32.
+// q_dtype as above; the output has q's dtype.  Returns a cudaError_t.
+int mxt_flash_decode_fp8(const void* q, int q_dtype, const void* k,
+                         const void* v, const float* kscale,
+                         const float* vscale, const int* tables,
+                         const int* lengths, float* acc, float* m, float* l,
+                         void* out, int B, int H, int hd, int BS, int nblk,
+                         int splits, int bps, float scale, void* stream) {
+  if (bad_shape(B, H, hd, BS, nblk, splits, bps))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using fp8 = __nv_fp8_e4m3;
+  if (q_dtype == 0)
+    return (int)launch<float, fp8, true>(q, k, v, kscale, vscale, tables,
+                                         lengths, acc, m, l, out, B, H, hd,
+                                         BS, nblk, splits, bps, scale, st);
+  if (q_dtype == 1)
+    return (int)launch<__nv_bfloat16, fp8, true>(
+        q, k, v, kscale, vscale, tables, lengths, acc, m, l, out, B, H, hd,
+        BS, nblk, splits, bps, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 int mxt_max_head_dim(void) { return kMaxHeadDim; }

@@ -40,8 +40,8 @@ from ..parallel.ring_attention import NEG_INF, local_attention
 
 __all__ = ["transformer_block", "transformer_lm", "lm_config_from_params",
            "param_shapes", "init_params", "params_from_numpy",
-           "transformer_lm_prefill", "transformer_lm_decode",
-           "transformer_lm_decode_dense"]
+           "transformer_lm_prefill", "transformer_lm_prefill_chunk",
+           "transformer_lm_decode", "transformer_lm_decode_dense"]
 
 _LN_EPS = 1e-5   # LayerNorm op default of the JAX package
 
@@ -279,6 +279,35 @@ def transformer_lm_prefill(params, tokens, *, heads):
     for i in range(num_layers):
         h = _block_step(params, i, h, attend)
     return _lm_head(params, h), ks, vs
+
+
+def transformer_lm_prefill_chunk(params, tokens, *, heads, attend):
+    """One chunk of a prompt's prefill over a caller-owned KV cache.
+
+    ``tokens``: a [B, C] slice of the prompt.  ``attend(layer, q, k, v)``
+    receives the chunk's per-head states ([B, C, H, hd] each), must
+    extend the cache with ``k``/``v`` and return each chunk position's
+    causal attention over the whole cached prefix (earlier chunks
+    included) as [B, C, H, hd].  Returns logits [B, C, V].  The model has
+    no positional embedding: the chunk's offset is the attend closure's
+    business.
+    """
+    vocab, num_layers, d = lm_config_from_params(params)
+    if d % heads:
+        raise MXNetError(f"d_model {d} not divisible by heads {heads}")
+    hd = d // heads
+    b, c = tokens.shape
+    h = _embed(params, tokens)
+
+    def make_attend(i):
+        def _attend(q, k, v):
+            q, k, v = (t.reshape(b, c, heads, hd) for t in (q, k, v))
+            return attend(i, q, k, v).reshape(b, c, d)
+        return _attend
+
+    for i in range(num_layers):
+        h = _block_step(params, i, h, make_attend(i))
+    return _lm_head(params, h)
 
 
 def transformer_lm_decode(params, tokens, *, heads, attend):

@@ -9,10 +9,19 @@ Counterpart of ``mxnet_tpu/serve/engine.py``: ``submit`` / ``stream`` /
    jump, :class:`~.scheduler.Scheduler`), never promising more blocks than
    the pool has,
 3. prefills each admitted prompt whole, padded to a rung of the prompt
-   ladder, and
+   ladder, or, with ``prefill_chunk > 0``, ingests prompts in chunks of
+   that many tokens (at most one chunk per step while any request can
+   decode), and
 4. runs ONE decode step for the whole running batch, padded to a decode
    bucket; on CUDA the paged attention of every layer is the flash-decode
-   kernel (:mod:`.flash_decode`).
+   kernel (:mod:`.flash_decode`), its fp8 instance for ``kv_quant="fp8"``
+   pools.
+
+With ``prefix_cache=True`` (chunked prefill only) full prompt blocks are
+published to a content-hashed :class:`~.kvcache.PrefixIndex`; a later
+request with the same prefix maps those blocks (reference-counted,
+copy-on-write) and prefills only its suffix.  ``defrag()`` compacts live
+blocks to the low end of the pools.
 
 PyTorch runs eagerly, so there are no programs to compile: ``warmup()``
 builds the kernel library and runs each prompt and decode bucket once so
@@ -42,7 +51,8 @@ from ..base import MXNetError, not_ported
 from ..context import DeviceLike, resolve_device
 from ..models.transformer import (lm_config_from_params, params_from_numpy,
                                   transformer_lm_decode,
-                                  transformer_lm_prefill)
+                                  transformer_lm_prefill,
+                                  transformer_lm_prefill_chunk)
 from . import kvcache
 from .flash_decode import flash_decode_attention
 from .scheduler import (CANCELLED, FAILED, FINISHED, Request, Scheduler,
@@ -70,9 +80,8 @@ def _mix(*vals: int) -> int:
 class EngineConfig:
     """Static engine geometry: the fields and defaults of the JAX
     package's ``EngineConfig``.  ``heads`` must come from the caller: it
-    is not recoverable from parameter shapes.  Options of later slices
-    (``prefill_chunk > 0``, ``kv_quant``, ``speculate``,
-    ``prefix_cache``) raise at engine construction."""
+    is not recoverable from parameter shapes.  ``speculate=True`` (a
+    later slice) raises at engine construction."""
     heads: int = 4
     block_size: int = 16          # kv entries per pool block
     num_blocks: int = 128         # physical pool blocks (slot 0 = trash)
@@ -88,8 +97,8 @@ class EngineConfig:
     deadline_ms: Optional[float] = None  # default per-request hard wall
     seed: int = 0
     dtype: Any = torch.float32           # KV pool dtype
-    prefill_chunk: int = 0
-    kv_quant: Optional[str] = None
+    prefill_chunk: int = 0        # > 0: chunked prefill, chunk budget
+    kv_quant: Optional[str] = None   # None (dtype pools) | "fp8"
     attn_impl: str = "auto"       # auto | scan | dense | flash
     speculate: bool = False
     spec_k: int = 4
@@ -130,22 +139,18 @@ class Engine:
                  device: DeviceLike = None, chaos: Any = None):
         if chaos is not None:
             raise not_ported("serve chaos injection")
-        if config.prefill_chunk < 0:
+        if config.speculate:
+            raise not_ported("speculative decoding")
+        self.prefill_chunk = int(config.prefill_chunk or 0)
+        if self.prefill_chunk < 0:
             raise MXNetError(f"prefill_chunk must be >= 0, "
-                             f"got {config.prefill_chunk}")
-        for on, what in ((config.prefill_chunk > 0,
-                          "chunked prefill (prefill_chunk > 0)"),
-                         (config.kv_quant is not None,
-                          f"kv_quant={config.kv_quant!r}"),
-                         (config.speculate, "speculative decoding"),
-                         (config.prefix_cache, "the prefix cache")):
-            if on:
-                raise not_ported(what)
+                             f"got {self.prefill_chunk}")
         if config.max_prompt_len > config.max_seq_len:
             raise MXNetError(
                 f"max_prompt_len {config.max_prompt_len} exceeds "
                 f"max_seq_len {config.max_seq_len}")
         self.config = config
+        self.kv_quant = config.kv_quant
         self.device = resolve_device(device)
         self._params = params_from_numpy(params, self.device)
         self.vocab, self.num_layers, self.d_model = (
@@ -159,22 +164,70 @@ class Engine:
         self.max_blocks = -(-config.max_seq_len // bs)
         self.attn_impl = config.resolved_attn_impl(self.device)
         self.alloc = kvcache.BlockAllocator(config.num_blocks, bs)
+        # -- the cross-request prefix cache --
+        self.prefix: Optional[kvcache.PrefixIndex] = None
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._prefix_hit_tokens = 0
+        self._prefix_evictions = 0
+        if config.prefix_cache:
+            if not self.prefill_chunk:
+                raise MXNetError(
+                    "prefix_cache requires chunked prefill "
+                    "(prefill_chunk > 0): cache hits skip whole chunks")
+            if not (0.0 < config.prefix_cap_frac <= 1.0):
+                raise MXNetError(
+                    f"prefix_cap_frac must be in (0, 1], "
+                    f"got {config.prefix_cap_frac}")
+            if config.prefix_min_blocks < 1:
+                raise MXNetError(
+                    f"prefix_min_blocks must be >= 1, "
+                    f"got {config.prefix_min_blocks}")
+            self.prefix = kvcache.PrefixIndex(bs)
+            # hits are floored to a multiple of lcm(block, chunk): a warm
+            # request's remaining chunks then land on the chunk grid a
+            # cold prefill uses, so its stream equals a cache-cold run's
+            self._hit_quantum = (bs * self.prefill_chunk
+                                 // np.gcd(bs, self.prefill_chunk))
+            self.alloc.cache_cap = max(
+                1, int(config.prefix_cap_frac * (config.num_blocks - 1)))
+            self.alloc.cache_filter = self.prefix.contains_block
+
+            def _on_evict(block: int) -> None:
+                self.prefix.drop_block(block)
+                self._prefix_evictions += 1
+
+            self.alloc.on_evict = _on_evict
         self.kpool, self.vpool = kvcache.make_pools(
             self.num_layers, config.num_blocks, bs, self.heads,
-            self.head_dim, dtype=config.dtype, device=self.device)
+            self.head_dim, dtype=config.dtype, quant=config.kv_quant,
+            device=self.device)
+        #: device bytes one cached position takes in both pools (fp8 pools
+        #: take a quarter of f32's payload plus one scale per position)
+        self.kv_bytes_per_token = kvcache.kv_bytes_per_token(
+            self.num_layers, self.heads, self.head_dim, config.kv_quant,
+            dtype=config.dtype)
         self.sched = Scheduler(config.max_batch, config.max_queue,
                                config.slo_ms, config.slo_admit_frac)
-        policy = cc.BucketPolicy(min_bucket=config.prompt_bucket_min,
-                                 factor=config.prompt_bucket_factor,
-                                 round_to=config.prompt_bucket_min)
-        # the ladder covers max_seq_len, not max_prompt_len: a preempted
-        # request re-prefills with prompt + already-generated tokens
-        self.prompt_buckets = tuple(policy._ladder(config.max_seq_len))
+        if self.prefill_chunk:
+            # one chunk shape replaces the prompt ladder: any prompt (or a
+            # preempted request's re-prefill) is ceil(len / chunk) chunks
+            self.prompt_buckets = tuple(
+                cc.BucketPolicy.fixed(self.prefill_chunk).buckets)
+        else:
+            policy = cc.BucketPolicy(min_bucket=config.prompt_bucket_min,
+                                     factor=config.prompt_bucket_factor,
+                                     round_to=config.prompt_bucket_min)
+            # the ladder covers max_seq_len, not max_prompt_len: a
+            # preempted request re-prefills with prompt + generated tokens
+            self.prompt_buckets = tuple(policy._ladder(config.max_seq_len))
         self.decode_buckets = config.resolved_decode_buckets()
         self.requests: Dict[int, Request] = {}
         self.step_idx = 0
-        #: prefills, decode_steps, kernel_launches (flash-decode launches
-        #: of decode steps), preemptions, tokens, nan_logits
+        self._chunk_ms = 0.0     # EWMA chunk-prefill latency (SLO backlog)
+        #: prefills (completed), prefill_chunks, decode_steps,
+        #: kernel_launches (flash-decode launches of decode steps, either
+        #: instance), preemptions, tokens, nan_logits
         self.counters: collections.Counter = collections.Counter()
 
     # -- unported entry points ---------------------------------------------
@@ -188,9 +241,6 @@ class Engine:
 
     def adopt(self, *args, **kwargs) -> int:
         raise not_ported("Engine.adopt (router failover)")
-
-    def defrag(self) -> int:
-        raise not_ported("Engine.defrag")
 
     # -- device work --------------------------------------------------------
 
@@ -236,6 +286,42 @@ class Engine:
             kvcache.write_prefill(self.kpool, i, ks[i][0], table_t, plen)
             kvcache.write_prefill(self.vpool, i, vs[i][0], table_t, plen)
         last = logits[0, plen - 1]
+        tok = self._sample(last[None], [temp], [topk], [key], [plen])[0]
+        ok = torch.isfinite(last.float()).all()
+        res = torch.stack([tok, ok.long()]).cpu()
+        return int(res[0]), bool(res[1])
+
+    @torch.no_grad()
+    def _run_prefill_chunk(self, toks: Sequence[int], start: int, plen: int,
+                           blocks: Sequence[int], temp: float, topk: int,
+                           key: int) -> Tuple[int, bool]:
+        """One prefill chunk: ``toks`` (at most ``prefill_chunk`` tokens)
+        at absolute positions from ``start`` of a ``plen``-token prompt.
+        Every layer writes the chunk's K/V into the request's blocks
+        first, then attends causally over the whole cached prefix.  The
+        first token is sampled at position ``plen`` from the row of the
+        prompt's last token (read only after the final chunk).  Returns
+        ``(token, logits_finite)``."""
+        cb = self.prefill_chunk
+        # one host buffer, one copy to the device: tokens | table
+        buf = np.zeros((cb + self.max_blocks,), np.int32)
+        buf[:len(toks)] = toks
+        buf[cb:cb + len(blocks)] = blocks
+        dev = torch.from_numpy(buf).to(self.device)
+        tokens, table_t = dev[:cb].view(1, cb), dev[cb:]
+        kpool, vpool = self.kpool, self.vpool
+
+        def attend(i, q, k, v):
+            kvcache.write_prefill(kpool, i, k[0], table_t, plen, start=start)
+            kvcache.write_prefill(vpool, i, v[0], table_t, plen, start=start)
+            out = kvcache.paged_prefill_attention(
+                q[0], kvcache.layer_view(kpool, i),
+                kvcache.layer_view(vpool, i), table_t, start, plen)
+            return out[None]
+
+        logits = transformer_lm_prefill_chunk(self._params, tokens,
+                                              heads=self.heads, attend=attend)
+        last = logits[0, min(max(plen - 1 - start, 0), cb - 1)]
         tok = self._sample(last[None], [temp], [topk], [key], [plen])[0]
         ok = torch.isfinite(last.float()).all()
         res = torch.stack([tok, ok.long()]).cpu()
@@ -288,17 +374,22 @@ class Engine:
 
     def warmup(self) -> List[Dict[str, Any]]:
         """Build the kernel library (flash on CUDA), then run every prompt
-        bucket and every decode bucket once against the trash block, so
-        first-use costs stay out of timed serving.  Counters are not
-        touched.  Returns ``[{"kind", "bucket", "ms"}, ...]``."""
+        bucket (the chunk, with chunked prefill) and every decode bucket
+        once against the trash block, so first-use costs stay out of
+        timed serving.  Counters are not touched.  Returns ``[{"kind",
+        "bucket", "ms"}, ...]``."""
         if self.attn_impl == "flash" and self.device.type == "cuda":
             from .flash_decode import _lib
             _lib()
         infos = []
+        kind = "prefill_chunk" if self.prefill_chunk else "prefill"
         for lb in self.prompt_buckets:
             t0 = time.perf_counter()
-            self._run_prefill([0], lb, [], 0.0, 0, 0)
-            infos.append({"kind": "prefill", "bucket": lb,
+            if self.prefill_chunk:
+                self._run_prefill_chunk([0], 0, 1, [], 0.0, 0, 0)
+            else:
+                self._run_prefill([0], lb, [], 0.0, 0, 0)
+            infos.append({"kind": kind, "bucket": lb,
                           "ms": (time.perf_counter() - t0) * 1e3})
         for bb in self.decode_buckets:
             t0 = time.perf_counter()
@@ -401,23 +492,109 @@ class Engine:
             if (req.deadline_ms is not None
                     and (now - req.submit_t) * 1e3 > req.deadline_ms):
                 self._finish(req, "timeout", FAILED)
-        for req in self.sched.admit(self._admission_gate(), now):
-            self._prefill(req)
+        admitted = self.sched.admit(
+            self._admission_gate(), now,
+            prefill_backlog_ms=self._prefill_backlog_ms())
+        if self.prefill_chunk:
+            for req in admitted:
+                self._prefill_begin(req)
+            self._prefill_pump()
+        else:
+            for req in admitted:
+                self._prefill(req)
         if self.sched.running:
             self._decode_step()
+
+    # -- prefix cache -------------------------------------------------------
+
+    def _probe(self, tokens: Sequence[int]) -> List[int]:
+        """Longest usable cached prefix of ``tokens``: blocks from the
+        index, floored to the hit quantum (chunk-grid alignment) and kept
+        strictly below ``len(tokens)``, so at least one suffix chunk runs
+        (the final chunk samples the first token)."""
+        if self.prefix is None:
+            return []
+        blocks = self.prefix.match(tokens)
+        bs = self.alloc.block_size
+        hit = min(len(blocks) * bs, len(tokens) - 1)
+        hit -= hit % self._hit_quantum
+        nblk = hit // bs
+        if nblk < self.config.prefix_min_blocks:
+            return []
+        return blocks[:nblk]
+
+    def prefix_probe(self, tokens: Sequence[int]) -> int:
+        """Tokens of ``tokens`` this engine could serve from its prefix
+        cache right now (0 when the cache is off).  Read-only."""
+        if self.prefix is None:
+            return 0
+        return len(self._probe([int(t) for t in tokens])) \
+            * self.alloc.block_size
+
+    def _count_prefix_hit(self, nblocks: int) -> None:
+        self._prefix_hits += 1
+        self._prefix_hit_tokens += nblocks * self.alloc.block_size
+
+    def _publish_prefix(self, req: Request) -> None:
+        """Publish every newly completed full prefill block of ``req``.
+        Called only after a chunk with finite logits, so indexed blocks
+        are clean; a full block is never written again (decode writes
+        land past the prefill target)."""
+        if self.prefix is None:
+            return
+        n_full = min(req.prefilled, req.prefill_target) \
+            // self.alloc.block_size
+        if n_full <= req.published:
+            return
+        toks = req.seed_tokens[:n_full * self.alloc.block_size]
+        hashes = self.prefix.chain_hashes(toks)
+        for j in range(req.published, n_full):
+            self.prefix.publish(hashes[j], req.blocks[j])
+        req.published = n_full
+
+    def _map_prefix_second_chance(self, req: Request) -> None:
+        """Re-probe just before a request's first chunk runs: requests
+        admitted in one step probed an index none of them had filled yet,
+        and by now an earlier one may have published the shared prefix.
+        Hit blocks replace the fresh (unwritten) leading blocks."""
+        hits = self._probe(req.seed_tokens)
+        if not hits:
+            self._prefix_misses += 1
+            return
+        n = len(hits)
+        for b in hits:
+            self.alloc.addref(b, req.id)
+        drop = req.blocks[:n]
+        req.blocks = hits + req.blocks[n:]
+        self.alloc.release(drop, req.id)
+        req.prefilled = req.cached = n * self.alloc.block_size
+        req.prefix_hit = n * self.alloc.block_size
+        req.published = n
+        self._count_prefix_hit(n)
+
+    # -- admission and prefill ----------------------------------------------
 
     def _admission_gate(self):
         """``can_place`` for one admit pass: blocks promised to earlier
         candidates of the pass are reserved, so requests admitted together
-        never claim more blocks than the pool has."""
+        never claim more blocks than the pool has.  With the prefix cache,
+        a candidate's longest cached prefix is pinned (addref) and costs
+        nothing; the budget counts evictable cached blocks as free."""
         reserved = 0
 
         def can_place(req: Request) -> bool:
             nonlocal reserved
-            need = self.alloc.blocks_for_tokens(len(req.seed_tokens))
+            toks = req.seed_tokens
+            hits = self._probe(toks)
+            for b in hits:
+                self.alloc.addref(b, req.id)
+            need = self.alloc.blocks_for_tokens(len(toks)) - len(hits)
             if reserved + need > self.alloc.num_available:
+                if hits:       # roll the pins back: admission stops
+                    self.alloc.release(hits, req.id)
                 return False
             reserved += need
+            req.prefix_blocks = hits
             return True
 
         return can_place
@@ -438,6 +615,77 @@ class Engine:
             return
         self._append_token(req, tok)
 
+    # -- chunked prefill ------------------------------------------------------
+
+    def _prefill_begin(self, req: Request) -> None:
+        """Admission half of chunked prefill: take the blocks the whole
+        prompt needs (the gate reserved them) and arm the chunk pump; no
+        device work yet.  Blocks the gate pinned from the prefix index
+        lead the table and count as prefilled."""
+        toks = req.seed_tokens
+        req.prefill_target = len(toks)
+        hits = req.prefix_blocks
+        req.prefix_blocks = []
+        fresh = self.alloc.alloc(
+            self.alloc.blocks_for_tokens(len(toks)) - len(hits), req.id)
+        req.blocks = hits + fresh
+        req.prefilled = req.cached = len(hits) * self.alloc.block_size
+        req.prefix_hit = req.prefilled
+        req.published = len(hits)
+        if hits:
+            self._count_prefix_hit(len(hits))
+
+    def _prefill_pump(self) -> None:
+        """Run prefill chunks of mid-prefill requests, oldest first.
+        While any request can decode, at most one chunk runs per step, so
+        the stall a prefill puts into running decodes is one chunk; when
+        nothing can decode yet, chunks run until one request can."""
+        while True:
+            pending = [r for r in self.sched.running
+                       if r.prefilled < r.prefill_target]
+            if not pending:
+                return
+            self._prefill_chunk_step(pending[0])
+            if any(r.prefilled >= r.prefill_target
+                   for r in self.sched.running):
+                return
+
+    def _prefill_chunk_step(self, req: Request) -> None:
+        cb = self.prefill_chunk
+        if self.prefix is not None and req.prefilled == 0:
+            self._map_prefix_second_chance(req)
+        start = req.prefilled
+        plen = req.prefill_target
+        t0 = time.perf_counter()
+        tok, ok = self._run_prefill_chunk(
+            req.seed_tokens[start:start + cb], start, plen, req.blocks,
+            req.temperature, req.top_k, req.key)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._chunk_ms = (ms if self._chunk_ms == 0.0
+                          else 0.8 * self._chunk_ms + 0.2 * ms)
+        req.prefilled = min(start + cb, plen)
+        req.cached = req.prefilled
+        self.counters["prefill_chunks"] += 1
+        if not ok:
+            # a mid-prompt NaN already reached this request's cached K/V
+            self._fail_nan(req)
+            return
+        self._publish_prefix(req)
+        if req.prefilled >= plen:
+            self.counters["prefills"] += 1
+            self._append_token(req, tok)
+
+    def _prefill_backlog_ms(self) -> float:
+        """Expected delay from the remaining prefill chunks of admitted
+        requests, credited to queued requests' SLO clocks."""
+        if not self.prefill_chunk or not self._chunk_ms:
+            return 0.0
+        remaining = sum(
+            -(-(r.prefill_target - r.prefilled) // self.prefill_chunk)
+            for r in self.sched.running
+            if r.prefilled < r.prefill_target)
+        return remaining * self._chunk_ms
+
     def _grow_blocks(self, req: Request) -> bool:
         """Ensure the request owns a block for cache index ``cached``.  On
         pool exhaustion, preempts the youngest-admitted request (blocks
@@ -456,27 +704,38 @@ class Engine:
 
     def _preempt(self, victim: Request) -> None:
         self.counters["preemptions"] += 1
+        # drop references, don't force-free: shared prefix blocks stay for
+        # their co-owners, and the victim's published blocks park in the
+        # cache for its re-prefill to find
         self.alloc.release(victim.blocks, victim.id)
         victim.blocks = []
         victim.cached = 0
         victim.prefilled = 0
         victim.prefill_target = 0
+        victim.prefix_blocks = []
+        victim.prefix_hit = 0
+        victim.published = 0
         self.sched.requeue(victim)
 
     def _decode_step(self) -> None:
         # growth pass first: a preemption mutates sched.running, so the
-        # batch roster is read only afterwards
+        # batch roster is read only afterwards.  Mid-prefill requests hold
+        # blocks for their whole prompt and have no token to feed yet:
+        # they stay off the roster until the pump finishes them.
         for req in list(self.sched.running):
-            if req in self.sched.running:
+            if (req in self.sched.running
+                    and req.prefilled >= req.prefill_target):
                 self._grow_blocks(req)
-        active = list(self.sched.running)
+        active = [r for r in self.sched.running
+                  if r.prefilled >= r.prefill_target]
         if not active:
             return
         bb = cc.bucket_for(len(active), self.decode_buckets)
-        launches = flash_decode_attention.launches
+        fd = flash_decode_attention
+        launches = fd.launches + fd.launches_fp8
         toks, oks = self._run_decode(active, bb)
         self.counters["decode_steps"] += 1
-        self.counters["kernel_launches"] += (flash_decode_attention.launches
+        self.counters["kernel_launches"] += (fd.launches + fd.launches_fp8
                                              - launches)
         for i, req in enumerate(active):
             req.cached += 1
@@ -488,9 +747,15 @@ class Engine:
     def _fail_nan(self, req: Request) -> None:
         """Non-finite logits: the request's cached K/V and the trash block
         may hold NaN, and masked attention lanes multiply by zero, so the
-        blocks are zeroed before they return to the pool."""
+        blocks are zeroed before they return to the pool.  Blocks another
+        request shares and blocks published to the prefix index are
+        spared: they were published after finite chunks and never written
+        again, and zeroing them would corrupt their co-owners."""
         self.counters["nan_logits"] += 1
-        scrub = [b for b in req.blocks if self.alloc.refcount(b) <= 1]
+        scrub = [b for b in req.blocks
+                 if self.alloc.refcount(b) <= 1
+                 and (self.prefix is None
+                      or not self.prefix.contains_block(b))]
         scrub.append(kvcache.TRASH_BLOCK)
         kvcache.scrub_blocks(self.kpool, scrub)
         kvcache.scrub_blocks(self.vpool, scrub)
@@ -512,5 +777,58 @@ class Engine:
                 state: str = FINISHED) -> None:
         self.sched.finish(req, reason, state)
         if req.blocks:
+            # a reference drop: shared prefix blocks stay for their
+            # co-owners, published blocks park in the LRU cache
             self.alloc.release(req.blocks, req.id)
             req.blocks = []
+        if req.prefix_blocks:
+            # pinned at admission, never consumed by _prefill_begin
+            self.alloc.release(req.prefix_blocks, req.id)
+            req.prefix_blocks = []
+
+    # -- maintenance and introspection ----------------------------------------
+
+    def defrag(self) -> int:
+        """Compact live KV blocks to the low end of the pools (K and V
+        move together, tables and the prefix index are rewritten).
+        Returns the number of relocated blocks; outputs are bitwise
+        unaffected."""
+        mapping = self.alloc.defrag()
+        if mapping:
+            kvcache.compact_pool(self.kpool, mapping)
+            kvcache.compact_pool(self.vpool, mapping)
+            for req in self.sched.running:
+                req.blocks = [mapping.get(b, b) for b in req.blocks]
+            if self.prefix is not None:
+                self.prefix.remap(mapping)
+        return len(mapping)
+
+    def check_tables(self) -> None:
+        """Allocator and table integrity audit (raises on a violation)."""
+        self.alloc.check({r.id: r.blocks for r in self.sched.running
+                          if r.blocks})
+
+    def stats(self) -> Dict[str, Any]:
+        hits, misses = self._prefix_hits, self._prefix_misses
+        return {
+            "blocks_used": self.alloc.num_used,
+            "blocks_free": self.alloc.num_free,
+            "active": self.sched.active,
+            "queued": self.sched.queue_depth,
+            "steps": self.step_idx,
+            "prompt_buckets": list(self.prompt_buckets),
+            "decode_buckets": list(self.decode_buckets),
+            "prefill_chunk": self.prefill_chunk,
+            "kv_quant": self.kv_quant,
+            "attn_impl": self.attn_impl,
+            "prefix": (None if self.prefix is None else {
+                "entries": len(self.prefix),
+                "version": self.prefix.version,
+                "cached_blocks": self.alloc.num_cached,
+                "hits": hits,
+                "misses": misses,
+                "hit_tokens": self._prefix_hit_tokens,
+                "evictions": self._prefix_evictions,
+                "hit_rate": hits / (hits + misses) if hits + misses else 0.0,
+            }),
+        }

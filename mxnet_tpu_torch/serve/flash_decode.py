@@ -11,8 +11,12 @@ repeats the same split and padding logic and the same combine; it is what
 the CPU tests hold against the JAX kernel, and what the kernel is held
 against on the card.
 
-The wrapper counts its kernel launches in
-``flash_decode_attention.launches``.
+fp8 pools (:class:`~.kvcache.QuantPool` pairs) run the kernel's fp8
+instance (K5-fp8, ``mxt_flash_decode_fp8``): the e4m3 payload is read as
+one byte per element and dequantized in registers against the
+per-position scales.  The wrapper counts plain-pool launches in
+``flash_decode_attention.launches`` and fp8 launches in
+``flash_decode_attention.launches_fp8``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from .. import _build
 from ..base import MXNetError
 from ..parallel.ring_attention import NEG_INF
+from .kvcache import _gather_blocks, is_quantized
 
 __all__ = ["flash_decode_attention", "flash_decode_attention_ref",
            "default_split_k", "split_plan"]
@@ -51,18 +56,24 @@ def split_plan(nblk: int, split_k: Optional[int] = None) -> Tuple[int, int]:
     return splits, -(-nblk // splits)
 
 
-def _check(q, k_pool, v_pool, tables, lengths):
+def _check(q, k_pool, v_pool, tables, lengths) -> bool:
+    """Validate the operands; returns whether the pools are fp8."""
+    quantized = is_quantized(k_pool)
+    if quantized != is_quantized(v_pool):
+        raise MXNetError("flash_decode: mixed quantized / plain K and V "
+                         "pools")
+    kp = k_pool.payload if quantized else k_pool
+    vp = v_pool.payload if quantized else v_pool
     if q.dim() != 3:
         raise MXNetError(f"flash_decode: q must be [B, H, hd], got "
                          f"{tuple(q.shape)}")
     b, h, hd = q.shape
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+    if kp.dim() != 4 or kp.shape != vp.shape:
         raise MXNetError(f"flash_decode: pools must both be [NB, BS, H, hd], "
-                         f"got {tuple(k_pool.shape)} and "
-                         f"{tuple(v_pool.shape)}")
-    if tuple(k_pool.shape[2:]) != (h, hd):
+                         f"got {tuple(kp.shape)} and {tuple(vp.shape)}")
+    if tuple(kp.shape[2:]) != (h, hd):
         raise MXNetError(f"flash_decode: pool heads/head_dim "
-                         f"{tuple(k_pool.shape[2:])} != q's {(h, hd)}")
+                         f"{tuple(kp.shape[2:])} != q's {(h, hd)}")
     if tables.dim() != 2 or tables.shape[0] != b or tables.shape[1] < 1:
         raise MXNetError(f"flash_decode: tables must be [B={b}, max_blocks], "
                          f"got {tuple(tables.shape)}")
@@ -72,14 +83,30 @@ def _check(q, k_pool, v_pool, tables, lengths):
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise MXNetError(f"flash_decode: tables and lengths must be int32, "
                          f"got {tables.dtype} and {lengths.dtype}")
-    if q.dtype not in _DTYPE_CODES or k_pool.dtype not in _DTYPE_CODES:
-        raise MXNetError(f"flash_decode: q and pools must be float32 or "
-                         f"bfloat16, got {q.dtype} and {k_pool.dtype}")
-    if v_pool.dtype != k_pool.dtype:
+    if q.dtype not in _DTYPE_CODES:
+        raise MXNetError(f"flash_decode: q must be float32 or bfloat16, "
+                         f"got {q.dtype}")
+    if quantized:
+        if kp.dtype != torch.float8_e4m3fn or vp.dtype != kp.dtype:
+            raise MXNetError(f"flash_decode: fp8 payloads must be "
+                             f"float8_e4m3fn, got {kp.dtype} and {vp.dtype}")
+        for sc in (k_pool.scale, v_pool.scale):
+            if tuple(sc.shape) != tuple(kp.shape[:2]) or \
+                    sc.dtype != torch.float32:
+                raise MXNetError(f"flash_decode: scales must be float32 "
+                                 f"{tuple(kp.shape[:2])}, got {sc.dtype}"
+                                 f"{tuple(sc.shape)}")
+    elif kp.dtype not in _DTYPE_CODES:
+        raise MXNetError(f"flash_decode: pools must be float32 or bfloat16, "
+                         f"got {kp.dtype}")
+    elif vp.dtype != kp.dtype:
         raise MXNetError("flash_decode: K and V pools differ in dtype")
-    devs = {t.device for t in (q, k_pool, v_pool, tables, lengths)}
+    leaves = (q, kp, vp, tables, lengths) + (
+        (k_pool.scale, v_pool.scale) if quantized else ())
+    devs = {t.device for t in leaves}
     if len(devs) != 1:
         raise MXNetError(f"flash_decode: inputs on several devices {devs}")
+    return quantized
 
 
 def _combine(acc, m, l):
@@ -98,22 +125,25 @@ def flash_decode_attention_ref(q, k_pool, v_pool, tables, lengths, *,
     """Plain PyTorch version of the kernel: the same split-K function.
 
     The table is padded with trash-slot entries to ``splits * bps``
-    columns; each split computes its partial ``(acc, m, l)`` with f32
-    scores scaled by ``scale`` and positions ``>= lengths`` masked with
-    ``NEG_INF``; partials combine as in the kernel.  Returns [B, H, hd]
-    in ``q.dtype``.
+    columns; the gathered blocks are widened to f32 (an fp8 payload is
+    then multiplied by its per-position scale); each split computes its
+    partial ``(acc, m, l)`` with f32 scores scaled by ``scale`` and
+    positions ``>= lengths`` masked with ``NEG_INF``; partials combine as
+    in the kernel.  Returns [B, H, hd] in ``q.dtype``.
     """
-    _check(q, k_pool, v_pool, tables, lengths)
+    quantized = _check(q, k_pool, v_pool, tables, lengths)
     b, h, hd = q.shape
-    bs = k_pool.shape[1]
+    bs = (k_pool.payload if quantized else k_pool).shape[1]
     nblk = tables.shape[1]
     scale_ = (1.0 / np.sqrt(hd)) if scale is None else scale
     splits, bps = split_plan(nblk, split_k)
     # pad with trash-slot entries: their positions are >= nblk*bs >= every
     # length, so the mask kills them
     idx = F.pad(tables, (0, splits * bps - nblk)).long()
-    k = k_pool[idx].float().reshape(b, splits, bps * bs, h, hd)
-    v = v_pool[idx].float().reshape(b, splits, bps * bs, h, hd)
+    k = _gather_blocks(k_pool, idx).float().reshape(b, splits, bps * bs, h,
+                                                     hd)
+    v = _gather_blocks(v_pool, idx).float().reshape(b, splits, bps * bs, h,
+                                                     hd)
     s = torch.einsum("bhd,bsphd->bshp", q.float(), k) * np.float32(scale_)
     pos = torch.arange(splits * bps * bs, device=q.device).reshape(splits, -1)
     valid = pos[None] < lengths.long()[:, None, None]     # [B, S, P]
@@ -132,6 +162,10 @@ def _lib() -> ctypes.CDLL:
             vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp,
             ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
         lib.mxt_flash_decode.restype = ci
+        lib.mxt_flash_decode_fp8.argtypes = [
+            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+            ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+        lib.mxt_flash_decode_fp8.restype = ci
         lib.mxt_max_head_dim.argtypes = []
         lib.mxt_max_head_dim.restype = ci
         lib.mxt_error_string.argtypes = [ci]
@@ -143,25 +177,32 @@ def _lib() -> ctypes.CDLL:
 def flash_decode_attention(q, k_pool, v_pool, tables, lengths, *,
                            scale: Optional[float] = None,
                            split_k: Optional[int] = None):
-    """Paged decode attention: ``q`` [B, H, hd]; one layer's pools
-    [NB, BS, H, hd] (float32 or bfloat16); ``tables`` [B, max_blocks]
-    int32; ``lengths`` [B] int32.  Returns [B, H, hd] in ``q.dtype``.
+    """Paged decode attention: ``q`` [B, H, hd] (float32 or bfloat16);
+    one layer's pools, [NB, BS, H, hd] float32 or bfloat16 tensors or
+    :class:`~.kvcache.QuantPool` pairs (e4m3 payload, [NB, BS] f32
+    scales); ``tables`` [B, max_blocks] int32; ``lengths`` [B] int32.
+    Returns [B, H, hd] in ``q.dtype``.
 
     CPU tensors go to :func:`flash_decode_attention_ref`.  CUDA tensors
     launch the kernel (and count the launch) or raise.
     """
-    _check(q, k_pool, v_pool, tables, lengths)
+    quantized = _check(q, k_pool, v_pool, tables, lengths)
     if q.device.type == "cpu":
         return flash_decode_attention_ref(q, k_pool, v_pool, tables, lengths,
                                           scale=scale, split_k=split_k)
     if q.device.type != "cuda":
         raise MXNetError(f"flash_decode: unsupported device {q.device}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables), ("lengths", lengths)):
+    kp = k_pool.payload if quantized else k_pool
+    vp = v_pool.payload if quantized else v_pool
+    named = [("q", q), ("k_pool", kp), ("v_pool", vp), ("tables", tables),
+             ("lengths", lengths)]
+    if quantized:
+        named += [("k scale", k_pool.scale), ("v scale", v_pool.scale)]
+    for name, t in named:
         if not t.is_contiguous():
             raise MXNetError(f"flash_decode: {name} must be contiguous")
     b, h, hd = q.shape
-    bs = k_pool.shape[1]
+    bs = kp.shape[1]
     nblk = tables.shape[1]
     lib = _lib()
     if hd > lib.mxt_max_head_dim():
@@ -174,18 +215,29 @@ def flash_decode_attention(q, k_pool, v_pool, tables, lengths, *,
     m = torch.empty((b, splits, h), **f32)
     l = torch.empty((b, splits, h), **f32)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = lib.mxt_flash_decode(
-            q.data_ptr(), _DTYPE_CODES[q.dtype], k_pool.data_ptr(),
-            v_pool.data_ptr(), _DTYPE_CODES[k_pool.dtype], tables.data_ptr(),
-            lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            out.data_ptr(), b, h, hd, bs, nblk, splits, bps, float(scale_),
+    tail = (tables.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), out.data_ptr(), b, h, hd, bs, nblk,
+            splits, bps, float(scale_),
             torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        if quantized:
+            rc = lib.mxt_flash_decode_fp8(
+                q.data_ptr(), _DTYPE_CODES[q.dtype], kp.data_ptr(),
+                vp.data_ptr(), k_pool.scale.data_ptr(),
+                v_pool.scale.data_ptr(), *tail)
+        else:
+            rc = lib.mxt_flash_decode(
+                q.data_ptr(), _DTYPE_CODES[q.dtype], kp.data_ptr(),
+                vp.data_ptr(), _DTYPE_CODES[kp.dtype], *tail)
     if rc != 0:
         raise MXNetError(f"flash_decode kernel launch failed: CUDA error "
                          f"{rc} ({lib.mxt_error_string(rc).decode()})")
-    flash_decode_attention.launches += 1
+    if quantized:
+        flash_decode_attention.launches_fp8 += 1
+    else:
+        flash_decode_attention.launches += 1
     return out
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.launches_fp8 = 0

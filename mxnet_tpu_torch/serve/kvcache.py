@@ -6,8 +6,10 @@ in preallocated pools of fixed-size blocks
 owns a host-side block table mapping its logical block ``j`` to physical
 slot ``table[j]``.
 
-* :class:`BlockAllocator` — the host-side free-list allocator, a copy of
-  the JAX package's class (pure Python).
+* :class:`BlockAllocator` — the host-side free-list allocator with
+  reference counts and an LRU side-cache, and :class:`PrefixIndex`, the
+  content-hashed prefix index: copies of the JAX package's classes (pure
+  Python; the chain hashes are the same bytes).
 * :func:`write_prefill` / :func:`write_decode` — scatter fresh K/V states
   into table-addressed slots.  The JAX package returns a new pool and
   donates the old one; here the pool is written in place with
@@ -16,54 +18,109 @@ slot ``table[j]``.
 * :func:`paged_attention` — one query token per request over its blocks:
   ``impl="scan"`` (the online-softmax block scan), ``"dense"`` (one
   gather, one masked softmax) or ``"flash"`` (the flash-decode kernel of
-  :mod:`.flash_decode`).
-
-fp8 pools (``QuantPool``) are not ported yet.
+  :mod:`.flash_decode`); :func:`paged_prefill_attention` — causal
+  attention of one prefill chunk over the request's cached prefix.
+* fp8 pools (:class:`QuantPool`): an e4m3 payload of 1 byte per element
+  plus one f32 scale per cached position, quantized with
+  :func:`~mxnet_tpu_torch.quant.rowwise_quantize`.  Every read path
+  dequantizes to f32 at the gather (the flash-decode kernel in
+  registers).  Payload bytes are written, gathered, zeroed and moved
+  through a ``uint8`` view: a 1-byte move that needs no float8 support
+  from the indexing ops.
 """
 from __future__ import annotations
 
+import hashlib
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from ..context import DeviceLike, resolve_device
 from ..parallel.ring_attention import NEG_INF
+from ..quant import FP8_DTYPES, rowwise_quantize
 
-__all__ = ["TRASH_BLOCK", "QuantPool", "BlockAllocator", "make_pools",
-           "layer_view", "kv_bytes_per_token", "paged_attention",
-           "dense_attention", "write_prefill", "write_decode",
-           "scrub_blocks"]
+__all__ = ["TRASH_BLOCK", "KV_QUANT_FORMATS", "KV_FP8_FORMAT", "QuantPool",
+           "BlockAllocator", "PrefixIndex", "make_pools", "is_quantized",
+           "layer_view", "pool_nbytes", "kv_bytes_per_token",
+           "paged_attention", "paged_prefill_attention", "dense_attention",
+           "write_prefill", "write_decode", "scrub_blocks", "compact_pool"]
 
 #: physical slot 0 is never handed out: padded prefill positions and
 #: inactive decode rows scatter their garbage there, keeping every
 #: device-side write unconditional.
 TRASH_BLOCK = 0
 
+#: quantized-pool storage formats ("fp8" = e4m3 payload + one f32 scale
+#: per cached position)
+KV_QUANT_FORMATS = ("fp8",)
 
-class QuantPool:
-    """fp8-e4m3 KV pool of the JAX package: not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise not_ported("QuantPool (fp8 KV cache)")
+#: the fp8 format of quantized pools: KV states are forward values, so
+#: e4m3's mantissa beats e5m2's range
+KV_FP8_FORMAT = "e4m3"
 
 
-def layer_view(pool: torch.Tensor, layer: int) -> torch.Tensor:
-    """One layer's slice of a pool: ``[num_blocks, BS, H, hd]`` (a view)."""
+class QuantPool(NamedTuple):
+    """A quantized KV pool: ``payload`` ``[num_layers, num_blocks,
+    block_size, heads, head_dim]`` in ``float8_e4m3fn`` and ``scale``
+    ``[num_layers, num_blocks, block_size]`` f32, one scale per cached
+    position (one layer's view drops the leading axis of both).  Every
+    pool-taking function here accepts a plain tensor or a ``QuantPool``."""
+    payload: torch.Tensor
+    scale: torch.Tensor
+
+
+Pool = Union[torch.Tensor, QuantPool]
+
+
+def is_quantized(pool) -> bool:
+    return isinstance(pool, QuantPool)
+
+
+def _leaves(pool: Pool) -> Tuple[torch.Tensor, ...]:
+    """The pool's tensors, payload as ``uint8`` bytes: what moves,
+    zeroes or relocates a pool acts on each leaf alike."""
+    if is_quantized(pool):
+        return pool.payload.view(torch.uint8), pool.scale
+    return (pool,)
+
+
+def layer_view(pool: Pool, layer: int) -> Pool:
+    """One layer's slice of a pool (views): ``[num_blocks, BS, H, hd]``,
+    or the matching ``QuantPool`` of ``(payload, scale[num_blocks, BS])``."""
+    if is_quantized(pool):
+        return QuantPool(pool.payload[layer], pool.scale[layer])
     return pool[layer]
+
+
+def pool_nbytes(*pools: Pool) -> int:
+    """Device bytes held by the given pools (payload and scales)."""
+    return sum(t.numel() * t.element_size()
+               for pool in pools for t in _leaves(pool))
+
+
+def _check_quant(quant: Optional[str]) -> None:
+    if quant is not None and quant not in KV_QUANT_FORMATS:
+        raise MXNetError(f"unknown kv quant format {quant!r}, expected one "
+                         f"of {KV_QUANT_FORMATS} or None")
 
 
 def kv_bytes_per_token(num_layers: int, heads: int, head_dim: int,
                        quant: Optional[str] = None,
                        dtype: torch.dtype = torch.float32) -> int:
     """Device bytes one cached position occupies across both pools (K and
-    V, all layers): what decode streams per token per request."""
-    if quant is not None:
-        raise not_ported(f"kv quant {quant!r}")
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return 2 * num_layers * heads * head_dim * itemsize
+    V, all layers): what decode streams per token per request.  fp8 pools
+    pay 1 byte per element plus one f32 scale per (layer, position,
+    pool)."""
+    _check_quant(quant)
+    per_pos = heads * head_dim
+    if quant is None:
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        return 2 * num_layers * per_pos * itemsize
+    return 2 * num_layers * (per_pos * 1 + 4)
 
 
 # ---------------------------------------------------------------------------
@@ -284,21 +341,149 @@ class BlockAllocator:
 
 
 # ---------------------------------------------------------------------------
+# Host side: content-hashed prefix index
+# ---------------------------------------------------------------------------
+
+class PrefixIndex:
+    """Content hash -> physical slot map for cross-request KV reuse.
+
+    Each *full* block of a token sequence gets a rolling chain hash:
+    ``h_j = blake2b(h_{j-1} | weights_version | tokens_of_block_j)``, the
+    tokens as little-endian int64 bytes (the JAX package's digests, byte
+    for byte).  Chaining makes the hash position- and prefix-dependent,
+    and folding the weights version in means ``invalidate`` makes every
+    stale entry unreachable at once.
+
+    The index stores only the hash -> slot map; residency and reference
+    counts live in :class:`BlockAllocator` (``cache_filter=
+    index.contains_block`` keeps indexed blocks resident at refcount 0,
+    ``on_evict=index.drop_block`` unpublishes them when LRU pressure
+    reclaims the slot).  Partial (tail) blocks are never published: only
+    full, prefill-written blocks are content-addressable, which is what
+    makes sharing copy-on-write-safe — every later write lands past the
+    last full prefix block.
+    """
+
+    def __init__(self, block_size: int):
+        if block_size < 1:
+            raise MXNetError(f"block_size must be >= 1, got {block_size}")
+        self.block_size = int(block_size)
+        self.version = 0
+        self._entries: Dict[bytes, int] = {}      # chain hash -> phys slot
+        self._block_hash: Dict[int, bytes] = {}   # phys slot -> chain hash
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def chain_hashes(self, tokens: Sequence[int]) -> List[bytes]:
+        """Rolling chain hash of every *full* block of ``tokens``
+        (``len(tokens) // block_size`` digests; the tail is never
+        hashed)."""
+        bs = self.block_size
+        ver = self.version.to_bytes(8, "little")
+        out: List[bytes] = []
+        prev = b"\x00" * 16
+        for j in range(len(tokens) // bs):
+            blk = np.asarray(tokens[j * bs:(j + 1) * bs], "<i8").tobytes()
+            prev = hashlib.blake2b(prev + ver + blk,
+                                   digest_size=16).digest()
+            out.append(prev)
+        return out
+
+    def match(self, tokens: Sequence[int]) -> List[int]:
+        """Longest indexed prefix: physical slots for the leading run of
+        full blocks whose chain hashes are all present (stops at the
+        first miss)."""
+        blocks: List[int] = []
+        for h in self.chain_hashes(tokens):
+            b = self._entries.get(h)
+            if b is None:
+                break
+            blocks.append(b)
+        return blocks
+
+    def publish(self, h: bytes, block: int) -> bool:
+        """Register ``block`` as the holder of chain hash ``h``.  First
+        publisher wins: a duplicate leaves the existing entry and the
+        late block stays private.  Returns whether it was inserted."""
+        if h in self._entries or block in self._block_hash:
+            return False
+        self._entries[h] = block
+        self._block_hash[block] = h
+        return True
+
+    def contains_block(self, block: int) -> bool:
+        return block in self._block_hash
+
+    def drop_block(self, block: int) -> None:
+        """Unpublish one slot (LRU eviction / force-free); a no-op for
+        unindexed slots."""
+        h = self._block_hash.pop(block, None)
+        if h is not None:
+            self._entries.pop(h, None)
+
+    def invalidate(self) -> List[int]:
+        """Drop every entry and bump the weights version.  Returns the
+        slots that were indexed, for the caller to ``uncache``."""
+        dropped = sorted(self._block_hash)
+        self.version += 1
+        self._entries.clear()
+        self._block_hash.clear()
+        return dropped
+
+    def remap(self, mapping: Dict[int, int]) -> None:
+        """Apply a :meth:`BlockAllocator.defrag` relocation map."""
+        if not mapping:
+            return
+        self._entries = {h: mapping.get(b, b)
+                         for h, b in self._entries.items()}
+        self._block_hash = {mapping.get(b, b): h
+                            for b, h in self._block_hash.items()}
+
+
+# ---------------------------------------------------------------------------
 # Device side: pools + paged reads/writes
 # ---------------------------------------------------------------------------
 
 def make_pools(num_layers: int, num_blocks: int, block_size: int,
                heads: int, head_dim: int, dtype: torch.dtype = torch.float32,
                quant: Optional[str] = None, device: DeviceLike = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               ) -> Tuple[Pool, Pool]:
     """Preallocate the K and V pools, zeroed:
-    ``[num_layers, num_blocks, block_size, heads, head_dim]``."""
-    if quant is not None:
-        raise not_ported(f"kv quant {quant!r}")
+    ``[num_layers, num_blocks, block_size, heads, head_dim]``.
+    ``quant="fp8"`` returns :class:`QuantPool` pairs (e4m3 payload plus
+    per-position f32 scales) instead."""
+    _check_quant(quant)
     shape = (num_layers, num_blocks, block_size, heads, head_dim)
     dev = resolve_device(device)
-    return (torch.zeros(shape, dtype=dtype, device=dev),
-            torch.zeros(shape, dtype=dtype, device=dev))
+    if quant is None:
+        return (torch.zeros(shape, dtype=dtype, device=dev),
+                torch.zeros(shape, dtype=dtype, device=dev))
+
+    def one():
+        # zero bytes are +0.0 in e4m3
+        return QuantPool(
+            torch.zeros(shape, dtype=torch.uint8, device=dev).view(
+                FP8_DTYPES[KV_FP8_FORMAT]),
+            torch.zeros(shape[:3], dtype=torch.float32, device=dev))
+
+    return one(), one()
+
+
+def _block_size_of(pool: Pool) -> int:
+    return (pool.payload if is_quantized(pool) else pool).shape[-3]
+
+
+def _gather_blocks(pool: Pool, idx):
+    """Gather one layer's physical blocks by slot index, dequantizing fp8
+    payloads to f32 against their per-position scales (payload widened to
+    f32, then multiplied by the scale).  The result is
+    ``idx.shape + [BS, H, hd]``."""
+    idx = idx.long()
+    if is_quantized(pool):
+        q = pool.payload.view(torch.uint8)[idx].view(pool.payload.dtype)
+        return q.float() * pool.scale[idx][..., None, None]
+    return pool[idx]
 
 
 def _attend_blocks(q, read_block, nblk: int, block_size: int, lengths,
@@ -313,7 +498,7 @@ def _attend_blocks(q, read_block, nblk: int, block_size: int, lengths,
     offs = torch.arange(block_size, device=dev)
     for j in range(nblk):
         k_blk, v_blk = read_block(j)
-        s = torch.einsum("bhd,bkhd->bhk", q, k_blk).float() * scale
+        s = _einsum("bhd,bkhd->bhk", q, k_blk).float() * scale
         valid = (j * block_size + offs)[None, :] < lengths[:, None]
         s = s.masked_fill(~valid[:, None, :], NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -328,19 +513,27 @@ def _attend_blocks(q, read_block, nblk: int, block_size: int, lengths,
     return (acc / l[..., None]).to(q.dtype)
 
 
+def _einsum(spec, a, b):
+    """``einsum`` with JAX's type promotion of its two operands (a bf16
+    query against a dequantized f32 cache computes in f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(spec, a.to(dt), b.to(dt))
+
+
 def paged_attention(q, k_pool, v_pool, tables, lengths, *,
                     scale: Optional[float] = None, impl: str = "scan"):
     """One-token-per-request attention over a paged cache.
 
-    ``q``: [B, H, hd]; ``k_pool``/``v_pool``: one layer's
-    [num_blocks, BS, H, hd] pool; ``tables``: [B, max_blocks] int32
-    physical slot per logical block; ``lengths``: [B] int32 valid entries
-    (the current token included, already written).  Returns [B, H, hd].
-    ``impl`` is ``"scan"``, ``"dense"`` or ``"flash"``.
+    ``q``: [B, H, hd]; ``k_pool``/``v_pool``: one layer's pool
+    [num_blocks, BS, H, hd], plain or :class:`QuantPool`; ``tables``:
+    [B, max_blocks] int32 physical slot per logical block; ``lengths``:
+    [B] int32 valid entries (the current token included, already
+    written).  Returns [B, H, hd].  ``impl`` is ``"scan"``, ``"dense"``
+    or ``"flash"``.
     """
     b, h, d = q.shape
     nblk = tables.shape[1]
-    bs = k_pool.shape[-3]
+    bs = _block_size_of(k_pool)
     scale_ = (1.0 / np.sqrt(d)) if scale is None else scale
 
     if impl == "flash":
@@ -349,10 +542,9 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
                                       scale=scale_)
 
     if impl == "dense":
-        idx = tables.long()
-        k = k_pool[idx].reshape(b, nblk * bs, h, d)
-        v = v_pool[idx].reshape(b, nblk * bs, h, d)
-        s = torch.einsum("bhd,blhd->bhl", q, k).float() * scale_
+        k = _gather_blocks(k_pool, tables).reshape(b, nblk * bs, h, d)
+        v = _gather_blocks(v_pool, tables).reshape(b, nblk * bs, h, d)
+        s = _einsum("bhd,blhd->bhl", q, k).float() * scale_
         valid = (torch.arange(nblk * bs, device=q.device)[None, :]
                  < lengths[:, None])
         s = s.masked_fill(~valid[:, None, :], NEG_INF)
@@ -367,10 +559,43 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
                          "'scan', 'dense' or 'flash'")
 
     def read_block(j):
-        slot = tables[:, j].long()
-        return k_pool[slot], v_pool[slot]
+        slot = tables[:, j]
+        return _gather_blocks(k_pool, slot), _gather_blocks(v_pool, slot)
 
     return _attend_blocks(q, read_block, nblk, bs, lengths, scale_)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, table_row, start, length, *,
+                            scale: Optional[float] = None):
+    """Causal attention for one prefill chunk over a paged cache.
+
+    ``q``: [C, H, hd], the chunk's query states at absolute positions
+    ``start .. start+C-1``; ``table_row``: [max_blocks] int32, one
+    request's block table; ``length``: total valid cache entries (the
+    chunk's own K/V already written, so chunk position ``p`` attends to
+    every cached position ``<= start+p``).  Returns [C, H, hd].
+
+    Materialises the [C, L_max] scores (L_max = table capacity x block
+    size: one request's cache), dequantizing fp8 pools at the gather.
+    Padded chunk positions (``start+p >= length``) give garbage rows; the
+    engine samples only the row of the prompt's last token.
+    """
+    c, h, d = q.shape
+    nblk = table_row.shape[0]
+    bs = _block_size_of(k_pool)
+    scale_ = (1.0 / np.sqrt(d)) if scale is None else scale
+    k = _gather_blocks(k_pool, table_row).reshape(nblk * bs, h, d)
+    v = _gather_blocks(v_pool, table_row).reshape(nblk * bs, h, d)
+    s = _einsum("chd,lhd->chl", q, k).float() * scale_
+    pos = torch.arange(nblk * bs, device=q.device)
+    qpos = start + torch.arange(c, device=q.device)
+    valid = (pos[None, :] <= qpos[:, None]) & (pos[None, :] < length)
+    s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]).masked_fill(~valid[:, None, :], 0.0)
+    l = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    out = torch.einsum("chl,lhd->chd", p, v.float())
+    return (out / l[..., None]).to(q.dtype)
 
 
 def dense_attention(q, k_buf, v_buf, lengths, *, block_size: int,
@@ -393,23 +618,40 @@ def dense_attention(q, k_buf, v_buf, lengths, *, block_size: int,
     return _attend_blocks(q, read_block, nblk, block_size, lengths, scale_)
 
 
-def write_prefill(pool, layer: int, states, table_row, length, start=0):
-    """Scatter a prompt's K or V states into its table's slots, in place.
+def _scatter(pool: Pool, layer: int, index, states) -> None:
+    """Write ``states`` (rows of [H, hd]) at ``pool[layer][index]`` in
+    place; a :class:`QuantPool` quantizes each row (fp8 payload and f32
+    scale) and scatters both with the same indices."""
+    if is_quantized(pool):
+        q, s = rowwise_quantize(states.reshape((-1,) + states.shape[-2:]),
+                                KV_FP8_FORMAT)
+        pool.payload.view(torch.uint8)[layer].index_put_(
+            index, q.view(torch.uint8).reshape(states.shape))
+        pool.scale[layer].index_put_(index, s.reshape(states.shape[:-2]))
+    else:
+        pool[layer].index_put_(index, states.to(pool.dtype))
 
-    ``pool``: [layers, nblocks, BS, H, hd]; ``states``: [L_pad, H, hd]
-    (bucket-padded); ``table_row``: [max_blocks] int32; ``length``: valid
-    positions; ``start``: absolute position of ``states[0]``.  Positions
-    ``>= length`` land in the trash block.  Returns ``pool``.
+
+def write_prefill(pool, layer: int, states, table_row, length, start=0):
+    """Scatter a prompt's (or prompt chunk's) K or V states into its
+    table's slots, in place.
+
+    ``pool``: [layers, nblocks, BS, H, hd], plain or :class:`QuantPool`;
+    ``states``: [L_pad, H, hd] (bucket- or chunk-padded); ``table_row``:
+    [max_blocks] int32; ``length``: valid positions; ``start``: absolute
+    position of ``states[0]``.  Positions ``>= length`` land in the trash
+    block.  Returns ``pool``.
     """
     lpad = states.shape[0]
-    bs = pool.shape[-3]
-    pos = start + torch.arange(lpad, device=pool.device)
+    bs = _block_size_of(pool)
+    dev = table_row.device
+    pos = start + torch.arange(lpad, device=dev)
     # a bucket may be longer than the table covers; those positions are
     # >= length anyway
     logical = torch.clamp_max(pos // bs, table_row.shape[0] - 1)
     slot = torch.where(pos < length, table_row.long()[logical],
                        TRASH_BLOCK)
-    pool[layer].index_put_((slot, pos % bs), states.to(pool.dtype))
+    _scatter(pool, layer, (slot, pos % bs), states)
     return pool
 
 
@@ -419,17 +661,37 @@ def write_decode(pool, layer: int, states, slots, offsets, active):
     block and in-block position; ``active``: [B] bool — inactive rows
     write to the trash block.  Returns ``pool``."""
     slot = torch.where(active, slots.long(), TRASH_BLOCK)
-    pool[layer].index_put_((slot, offsets.long()), states.to(pool.dtype))
+    _scatter(pool, layer, (slot, offsets.long()), states)
     return pool
 
 
 def scrub_blocks(pool, blocks):
-    """Zero the given physical blocks across every layer, in place.  The
-    engine calls it when a request's cached K/V may be non-finite:
-    attention masks invalid lanes by multiplying by zero, and
-    ``0 * NaN`` is NaN, so blocks must return to the pool finite."""
+    """Zero the given physical blocks (payload and scales) across every
+    layer, in place.  The engine calls it when a request's cached K/V may
+    be non-finite: attention masks invalid lanes by multiplying by zero,
+    and ``0 * NaN`` is NaN, so blocks must return to the pool finite."""
     if blocks:
+        leaves = _leaves(pool)
         idx = torch.as_tensor(sorted(set(int(b) for b in blocks)),
-                              dtype=torch.long, device=pool.device)
-        pool[:, idx] = 0
+                              dtype=torch.long, device=leaves[0].device)
+        for t in leaves:
+            t[:, idx] = 0
+    return pool
+
+
+def compact_pool(pool, mapping: Dict[int, int]):
+    """Apply a :meth:`BlockAllocator.defrag` relocation map in place:
+    copy each moved slot's contents (payload and scales alike) to its new
+    physical index.  Values are moved, never transformed, so attention
+    after a defrag is bitwise unchanged.  The sources are gathered before
+    any destination is written."""
+    if mapping:
+        leaves = _leaves(pool)
+        src = sorted(mapping)
+        dev = leaves[0].device
+        src_t = torch.as_tensor(src, dtype=torch.long, device=dev)
+        dst_t = torch.as_tensor([mapping[s] for s in src], dtype=torch.long,
+                                device=dev)
+        for t in leaves:
+            t[:, dst_t] = t[:, src_t]
     return pool

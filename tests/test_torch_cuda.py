@@ -8,8 +8,12 @@ not installed.  Run them on a machine with an NVIDIA H100 and nvcc::
 Elsewhere they skip.  Each kernel is held against its plain PyTorch
 version on the same CUDA tensors: flash decode (K5) f32 within atol 2e-5
 (summation order), bf16 within 1e-2 (summation order and one bf16
-rounding of the output); the row softmax (K1) f32 within atol 1e-6 (the
-online rescale of the running sum), bf16 within 1e-2; the fused update
+rounding of the output); its fp8 instance (K5-fp8) on pools quantized by
+``quant.rowwise_quantize`` with the same tolerances by the type of ``q``
+(the dequantized values are equal; only the summation order differs), and
+the cast to e4m3 on the card equal to the CPU's byte for byte; the row
+softmax (K1) f32 within atol 1e-6 (the online rescale of the running
+sum), bf16 within 1e-2; the fused update
 (K2) BITWISE, against its plain version and against the unfused
 per-parameter update (``chip_smoke.k2_unfused``); flash attention forward
 (K3) and backward (K4) with ``chip_smoke.K34_TOL``: f32 within 2e-5
@@ -22,11 +26,13 @@ import torch
 
 import chip_smoke
 from mxnet_tpu_torch import optimizer
+from mxnet_tpu_torch import quant as tquant
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import fused_update as tfu
 from mxnet_tpu_torch.ops import nn_ops as tnn
 from mxnet_tpu_torch.parallel import flash_attention as tfa
 from mxnet_tpu_torch.serve import flash_decode as tfd
+from mxnet_tpu_torch.serve import kvcache as tkv
 
 
 @pytest.fixture
@@ -81,6 +87,80 @@ def test_flash_decode_kernel_rejects_wide_heads(cuda):
                      lengths=[5, 9], dtype=torch.float32)
     with pytest.raises(MXNetError, match="head_dim"):
         tfd.flash_decode_attention(*args)
+
+
+def _quantize_pool(pool):
+    """An fp8 ``QuantPool`` layer of a [NB, BS, H, hd] pool: one e4m3 row
+    and one f32 scale per cached position."""
+    nb, bs = pool.shape[:2]
+    pay, sc = tquant.rowwise_quantize(pool.reshape((nb * bs,)
+                                                   + pool.shape[2:]), "e4m3")
+    return tkv.QuantPool(pay.reshape(pool.shape), sc.reshape(nb, bs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [8, 64, 100, 128, 256])
+@pytest.mark.parametrize("split_k", [None, 1, 3])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_fp8_kernel_matches_plain(cuda, hd, split_k, q_dtype):
+    q, kp, vp, tables, lens = _operands(
+        cuda, 7 * hd + (split_k or 0), B=5, H=3, hd=hd, BS=16, nblk=20,
+        lengths=[320, 1, 17, 200, 64], dtype=torch.float32, trash_rows=(3,))
+    q = q.to(q_dtype)
+    kq, vq = _quantize_pool(kp), _quantize_pool(vp)
+    fd = tfd.flash_decode_attention
+    before = (fd.launches, fd.launches_fp8)
+    out = fd(q, kq, vq, tables, lens, split_k=split_k)
+    ref = tfd.flash_decode_attention_ref(q, kq, vq, tables, lens,
+                                         split_k=split_k)
+    torch.cuda.synchronize()
+    assert (fd.launches, fd.launches_fp8) == (before[0], before[1] + 1)
+    tol = 2e-5 if q_dtype == torch.float32 else 1e-2
+    assert out.dtype == q_dtype
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_fp8_cast_and_pool_ops_on_card_equal_cpu(cuda):
+    """The e4m3 cast gives the CPU's bytes on the card, and the pool's
+    writes, gathers, scrub and compaction act on fp8 payloads there."""
+    rng = np.random.RandomState(3)
+    x = (rng.randn(512, 8, 64) * rng.choice([0.01, 1.0, 30.0],
+                                            (512, 1, 1))).astype(np.float32)
+    qc, sc = tquant.rowwise_quantize(torch.from_numpy(x), "e4m3")
+    qg, sg = tquant.rowwise_quantize(torch.from_numpy(x).to(cuda), "e4m3")
+    assert torch.equal(qg.view(torch.uint8).cpu(), qc.view(torch.uint8))
+    assert torch.equal(sg.cpu().view(torch.int32), sc.view(torch.int32))
+    pools = {d: tkv.make_pools(2, 8, 4, 8, 64, quant="fp8", device=d)[0]
+             for d in ("cpu", cuda)}
+    states = torch.from_numpy(x[:10])
+    table = torch.tensor([3, 5, 6], dtype=torch.int32)
+    for d, pool in pools.items():
+        tkv.write_prefill(pool, 1, states.to(d), table.to(d), 10)
+        tkv.write_decode(pool, 0, states[:2].to(d),
+                         torch.tensor([2, 7], dtype=torch.int32).to(d),
+                         torch.tensor([1, 3], dtype=torch.int32).to(d),
+                         torch.tensor([True, True]).to(d))
+        tkv.compact_pool(pool, {5: 1, 6: 4})
+        tkv.scrub_blocks(pool, [7])
+    for a, b in zip(pools["cpu"], pools[cuda]):
+        assert torch.equal(a.view(torch.uint8) if a.dtype != torch.float32
+                           else a, (b.view(torch.uint8)
+                                    if b.dtype != torch.float32 else b).cpu())
+    got = tkv._gather_blocks(tkv.layer_view(pools[cuda], 1),
+                             table.to(cuda))
+    want = tkv._gather_blocks(tkv.layer_view(pools["cpu"], 1), table)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_flash_decode_rejects_mixed_pools_on_card(cuda):
+    q, kp, vp, tables, lens = _operands(cuda, 1, B=2, H=2, hd=64, BS=16,
+                                        nblk=4, lengths=[20, 33],
+                                        dtype=torch.float32)
+    with pytest.raises(MXNetError, match="mixed"):
+        tfd.flash_decode_attention(q, _quantize_pool(kp), vp, tables, lens)
 
 
 @pytest.mark.cuda

@@ -7,9 +7,12 @@ kernel computes.  It is held against the JAX kernel run in interpret mode
 and against ``kvcache.paged_attention(impl="dense")`` at the serve tests'
 size (head_dim 8, 4 heads, block_size 4, 12 table columns), over ragged
 lengths, every split count and engine-style trash rows.  Tolerance:
-rtol 1e-5, atol 1e-6 (f32, summation order only).  The kernel itself is
-held against the plain version on the card (tests/test_torch_cuda.py and
-chip_smoke.py).
+rtol 1e-5, atol 1e-6 (f32, summation order only).  fp8 pools
+(``QuantPool``, quantized on each side by its own ``rowwise_quantize``,
+which agree bitwise) go through the same comparison with the same
+tolerance: the dequantized values are equal, only the summation order
+differs.  The kernels themselves are held against the plain version on
+the card (tests/test_torch_cuda.py and chip_smoke.py).
 """
 import numpy as np
 import pytest
@@ -21,7 +24,10 @@ from mxnet_tpu.serve import kvcache as jkv
 from mxnet_tpu.serve.flash_decode import default_split_k as jax_split_k
 from mxnet_tpu.serve.flash_decode import flash_decode_attention as jax_flash
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu.quant import rowwise_quantize as jax_quantize
+from mxnet_tpu_torch.quant import rowwise_quantize
 from mxnet_tpu_torch.serve import flash_decode as tfd
+from mxnet_tpu_torch.serve import kvcache as tkv
 
 H, HD, BS, NBLK = 4, 8, 4, 12
 
@@ -118,3 +124,68 @@ def test_bf16_pool_plain_version_tracks_f32():
                                     vp.bfloat16(), tables, lens)
     assert bf.dtype == torch.bfloat16
     assert (bf.float() - f32).abs().max().item() < 5e-2
+
+
+def _quant_pools(args):
+    """The JAX and the port's fp8 ``QuantPool`` layers of the K and V
+    pools of ``args``."""
+    q, kp, vp, tables, lens = args
+    out = {}
+    for name, quant, mod, arr in (
+            ("jax", jax_quantize, jkv, jnp.asarray),
+            ("torch", rowwise_quantize, tkv, torch.from_numpy)):
+        pools = []
+        for p in (kp, vp):
+            nb, bs = p.shape[:2]
+            pay, sc = quant(arr(p.reshape(nb * bs, H, HD)), "e4m3")
+            pools.append(mod.QuantPool(pay.reshape(p.shape),
+                                       sc.reshape(nb, bs)))
+        out[name] = pools
+    return out
+
+
+@pytest.mark.parametrize("case", ["ragged", "trash_rows", "full_tables"])
+@pytest.mark.parametrize("split_k", [None, 1, 3])
+def test_fp8_plain_version_matches_jax_kernel(case, split_k):
+    """K5-fp8's plain version against the JAX kernel's quantized branch
+    run in interpret mode and against ``paged_attention(impl="dense")`` on
+    the same fp8 pools; no kernel launches on the CPU."""
+    args = _setup(sum(map(ord, case)) + 1, **CASES[case])
+    pools = _quant_pools(args)
+    q, _, _, tables, lens = _jax(args)
+    want = np.asarray(jax_flash(q, *pools["jax"], tables, lens,
+                                split_k=split_k, interpret=True))
+    dense = np.asarray(jkv.paged_attention(q, *pools["jax"], tables, lens,
+                                           impl="dense"))
+    tq, _, _, ttab, tlen = _torch(args)
+    fd = tfd.flash_decode_attention
+    before = (fd.launches, fd.launches_fp8)
+    got = fd(tq, *pools["torch"], ttab, tlen, split_k=split_k)
+    assert (fd.launches, fd.launches_fp8) == before
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), dense, rtol=1e-5, atol=1e-6)
+    if case != "trash_rows":
+        # the fp8 read against the f32 read: attention averages rounding
+        # over many positions (a length-1 trash row reads one position,
+        # up to 2**-4 of its row maximum off)
+        f32 = tfd.flash_decode_attention_ref(*_torch(args), split_k=split_k)
+        assert (got - f32).abs().max().item() < 0.05
+
+
+def test_fp8_wrapper_rejects_mixed_and_bad_pools():
+    args = _setup(9, [9, 4])
+    kq, vq = _quant_pools(args)["torch"]
+    q, kp, vp, tables, lens = _torch(args)
+    with pytest.raises(MXNetError, match="mixed"):
+        tfd.flash_decode_attention(q, kq, vp, tables, lens)
+    with pytest.raises(MXNetError, match="mixed"):
+        tfd.flash_decode_attention_ref(q, kp, vq, tables, lens)
+    with pytest.raises(MXNetError, match="scales"):
+        tfd.flash_decode_attention(q, kq, tkv.QuantPool(vq.payload,
+                                                        vq.scale[:, :2]),
+                                   tables, lens)
+    with pytest.raises(MXNetError, match="float8_e4m3fn"):
+        tfd.flash_decode_attention(
+            q, kq, tkv.QuantPool(vq.payload.float().to(torch.float8_e5m2),
+                                 vq.scale), tables, lens)

@@ -8,7 +8,9 @@
   mid-flight admission and preemption, and every block comes home;
 * greedy tokens are the argmax of a cache-free forward over the same
   tokens;
-* options of later slices raise instead of being ignored.
+* options of later slices raise instead of being ignored (chunked
+  prefill, fp8 pools, the prefix cache and defrag have their own tests in
+  tests/test_torch_serve_r12.py).
 """
 import numpy as np
 import pytest
@@ -202,9 +204,7 @@ def test_nan_logits_fail_the_request_and_scrub():
     assert eng.counters["nan_logits"] == 1 and eng.alloc.num_used == 0
 
 
-@pytest.mark.parametrize("over", [
-    dict(prefill_chunk=8), dict(kv_quant="fp8"), dict(speculate=True),
-    dict(prefix_cache=True)])
+@pytest.mark.parametrize("over", [dict(speculate=True)])
 def test_unported_options_raise(over):
     with pytest.raises(MXNetError, match="not ported yet"):
         _engine(**over)
@@ -212,7 +212,7 @@ def test_unported_options_raise(over):
 
 def test_unported_entry_points_and_bad_config_raise():
     eng = _engine()
-    for call in (lambda: eng.swap_weights(PARAMS), eng.defrag,
+    for call in (lambda: eng.swap_weights(PARAMS),
                  lambda: eng.adopt([1], [2], seed=1),
                  lambda: Engine.from_checkpoint("x", EngineConfig()),
                  lambda: Engine(PARAMS, EngineConfig(**CFG), device="cpu",

@@ -148,3 +148,62 @@ def test_bucket_policy_matches_jax():
     assert tcc.bucket_for(5, (1, 4, 8)) == jax_bucket_for(5, (1, 4, 8)) == 8
     with pytest.raises(MXNetError):
         tcc.bucket_for(9, (1, 4, 8))
+
+
+def _chunked_prefill(mods, params, toks, chunk, quant=None):
+    """Prefill ``toks`` [1, L] chunk by chunk over a paged cache of block
+    size 4 with ``mods`` = (transformer module, kvcache module, array
+    maker); returns the logits of every position [L, V] as numpy."""
+    tm, kv, arr = mods
+    L = toks.shape[1]
+    table = arr(np.arange(1, 5, dtype=np.int32))
+    pools = list(kv.make_pools(NL, 8, 4, H, D // H, quant=quant,
+                               **({"device": "cpu"} if arr is torch.tensor
+                                  else {})))
+    rows = []
+    for start in range(0, L, chunk):
+        part = np.zeros((1, chunk), np.int32)
+        part[0, :min(chunk, L - start)] = toks[0, start:start + chunk]
+
+        def attend(i, q, k, v):
+            pools[0] = kv.write_prefill(pools[0], i, k[0], table, L,
+                                        start=start)
+            pools[1] = kv.write_prefill(pools[1], i, v[0], table, L,
+                                        start=start)
+            out = kv.paged_prefill_attention(
+                q[0], kv.layer_view(pools[0], i), kv.layer_view(pools[1], i),
+                table, start, L)
+            return out[None]
+
+        logits = tm.transformer_lm_prefill_chunk(params, arr(part), heads=H,
+                                                 attend=attend)
+        rows.append(np.asarray(logits[0])[:min(chunk, L - start)])
+    return np.concatenate(rows)
+
+
+@pytest.mark.parametrize("chunk", [3, 4, 10])
+@pytest.mark.parametrize("quant", [None, "fp8"])
+def test_prefill_chunk_matches_whole_prefill_and_jax(chunk, quant):
+    """Chunk by chunk (a mid-chunk tail for chunks 3 and 4) over a paged
+    cache: the port equals the JAX package's chunked prefill (atol 1e-5,
+    f32 summation order) and, on f32 pools, its own whole prefill (atol
+    2e-5: the paged softmax sums over other lengths)."""
+    from mxnet_tpu.models import transformer as jt
+    from mxnet_tpu.serve import kvcache as jkv
+    from mxnet_tpu_torch.serve import kvcache as tkv
+    params = _symbol_params()
+    toks = np.array([[7, 3, 11, 2, 9, 1, 30, 12, 5, 44]], np.int32)
+    with torch.no_grad():
+        got = _chunked_prefill((tt, tkv, torch.tensor),
+                               tt.params_from_numpy(params, "cpu"), toks,
+                               chunk, quant)
+        whole, _, _ = tt.transformer_lm_prefill(
+            tt.params_from_numpy(params, "cpu"), torch.from_numpy(toks),
+            heads=H)
+    want = _chunked_prefill(
+        (jt, jkv, lambda a: jnp.asarray(a, jnp.int32)),
+        {k: jnp.asarray(v) for k, v in params.items()}, toks, chunk, quant)
+    assert got.shape == (10, V)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    if quant is None:
+        np.testing.assert_allclose(got, whole[0].numpy(), atol=2e-5)

@@ -17,7 +17,14 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    card's e4m3 cast against the CPU's, byte for byte), the row softmax
    (K1) and flash attention forward (K3) and backward (K4) within stated
    tolerances, the fused optimizer update (K2) bitwise against the
-   unfused per-parameter update;
+   unfused per-parameter update; the runtime-kernel API (K6,
+   ``rtc.CudaKernel``) builds the user kernels of this script with nvcc
+   (the first build and a cached reload timed) and holds them against
+   their plain versions: (a) ``x * y + 1`` in f32 (also on a slice view)
+   and bf16, (b) ``2x`` through the functional form and its cache, (c)
+   the reference's rtc test (grid 1, block 10, shared memory), (d) the
+   row softmax and its cross-entropy backward; a broken source raises
+   with nvcc's message, a wrong signature before any build;
 4. serves the transformer-LM at full width (6 layers, d_model 512, 8
    heads, 32k vocab, random weights from seed 0) through ``Engine``:
    warmup, then 16 requests; checks every request finished, that two of
@@ -56,7 +63,9 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    shape beside a gather (and dequantization) plus
    ``F.scaled_dot_product_attention``; K3 and K4 at the LM's shapes in
    f32 and bf16 beside ``F.scaled_dot_product_attention`` (forward, and
-   its backward alone);
+   its backward alone); K6 (d) at the MLP's [100, 10] beside
+   ``torch.softmax`` and (a) at 64 M f32 elements beside
+   ``torch.addcmul``;
 9. trains the transformer-LM at ``bench.py``'s LM-row settings (6
    layers, d_model 512, 8 heads, 32k vocab, batch 8, seq 2048, loss
    head, Adam lr 1e-3, ``compute_dtype="bfloat16"``; parameters drawn
@@ -67,7 +76,19 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    one K2 launch per bucket per step, and a bitwise fused-vs-unfused
    Adam update from the same gradients; prints the median step,
    tokens/s, the peak memory and one profiled step by layer;
-10. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+10. runs the imperative API on the card (arithmetic and in-place ops with
+    the version bump, a slice view written through to its parent,
+    ``nd.dot``, a reduction, ``nd.save``/``nd.load`` byte for byte, seeded
+    ``random.uniform`` replays), then trains ``models.mnist.mlp``'s body
+    (784 -> 128 -> 64 -> 10, relu) with an ``NDArrayOp`` softmax loss head
+    whose forward and backward push K6 (d), through ``simple_bind`` and
+    ``optimizer.get_updater`` (SGD lr 0.1, momentum 0.9, rescale 1/100),
+    batch 100, 2 epochs of 6,000 synthetic samples (10 class centres plus
+    noise, numpy seed 0); checks the first batch against the same net
+    with ``SoftmaxOutput`` (K1) within 1e-5, a finite falling loss,
+    training accuracy > 0.9 and exactly one K6 forward and one K6
+    backward launch per step; prints the median step and samples/s;
+11. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
@@ -1426,6 +1447,506 @@ def phase_train_lm(torch, np, fa, fu):
             "fused_update": k2}, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: imperative + executor + rtc (K6)
+# ---------------------------------------------------------------------------
+
+# User kernels compiled at run time by ``mxnet_tpu_torch.rtc.CudaKernel``.
+# (a) and (b) are the JAX package's tests/test_rtc.py kernels, (c) the
+# reference's GPU rtc test, (d) the MLP's softmax loss head.
+RTC_AXPB = r"""
+extern "C" __global__ void axpb(const float* x, const float* y, float* o,
+                                long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) o[i] = x[i] * y[i] + 1.0f;
+}
+"""
+RTC_AXPB_BF16 = r"""
+#include <cuda_bf16.h>
+extern "C" __global__ void axpb_bf16(const __nv_bfloat16* x,
+                                     const __nv_bfloat16* y,
+                                     __nv_bfloat16* o, long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n)
+    o[i] = __float2bfloat16(__bfloat162float(x[i]) * __bfloat162float(y[i])
+                            + 1.0f);
+}
+"""
+RTC_DBL = r"""
+extern "C" __global__ void dbl(const float* x, float* o, long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) o[i] = x[i] * 2.0f;
+}
+"""
+RTC_REF_EXP = r"""
+extern "C" __global__ void ref_exp(const float* x, float* y, long long n) {
+  __shared__ float s_rec[10];
+  s_rec[threadIdx.x] = x[threadIdx.x];
+  y[threadIdx.x] = expf(s_rec[threadIdx.x] * 5.0f);
+}
+"""
+# (d) one block per row (gridDim.x rows of n / gridDim.x columns); the
+# row max and the row sum reduce through warp shuffles and a shared array
+# of one value per warp.  blockDim.x must be a multiple of 32.
+RTC_SOFTMAX_FWD = r"""
+__device__ __forceinline__ float rtc_block_reduce(float v, bool is_max,
+                                                  float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, w) : v + w;
+  }
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < nw ? red[lane] : (is_max ? __int_as_float(0xff800000) : 0.0f);
+  for (int o = 16; o > 0; o >>= 1) {
+    float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, w) : v + w;
+  }
+  __syncthreads();
+  return v;
+}
+
+extern "C" __global__ void rtc_softmax_fwd(const float* x, float* y,
+                                           long long n) {
+  __shared__ float red[32];
+  const long long cols = n / gridDim.x;
+  const float* xr = x + blockIdx.x * cols;
+  float* yr = y + blockIdx.x * cols;
+  float m = __int_as_float(0xff800000);
+  for (long long j = threadIdx.x; j < cols; j += blockDim.x)
+    m = fmaxf(m, xr[j]);
+  m = rtc_block_reduce(m, true, red);
+  float s = 0.0f;
+  for (long long j = threadIdx.x; j < cols; j += blockDim.x)
+    s += expf(xr[j] - m);
+  s = rtc_block_reduce(s, false, red);
+  for (long long j = threadIdx.x; j < cols; j += blockDim.x)
+    yr[j] = expf(xr[j] - m) / s;
+}
+"""
+# (d) backward of the softmax cross-entropy: dx = p - onehot(label)
+RTC_SOFTMAX_BWD = r"""
+extern "C" __global__ void rtc_softmax_ce_bwd(const float* p,
+                                              const float* label, float* dx,
+                                              long long n) {
+  const long long cols = n / gridDim.x;
+  const long long row = blockIdx.x;
+  const long long lab = (long long)label[row];
+  for (long long j = threadIdx.x; j < cols; j += blockDim.x)
+    dx[row * cols + j] = p[row * cols + j] - (j == lab ? 1.0f : 0.0f);
+}
+"""
+RTC_ROW_BLOCK = 128
+# K6 against its plain versions: f32 elementwise cases within 1e-6 of
+# max(1, |plain|) (the card may contract x * y + 1 into one FMA, the plain
+# version rounds twice; expf is within 2 ulp); the softmax within 1e-6
+# absolute (summation order); bf16 within 1e-2 absolute (inputs in
+# [-1, 1]: values below 2, where a bf16 unit in the last place is 2^-7)
+RTC_TOL = {"float32": 1e-6, "softmax": 1e-6, "bfloat16": 1e-2}
+# the MLP of models.mnist at its published widths, batch 100 as in the
+# reference's example/numpy-ops/custom_softmax.py; SGD as its README
+MLP_CLASSES, MLP_IN, MLP_BATCH = 10, 784, 100
+MLP_SAMPLES, MLP_EPOCHS = 6000, 2
+MLP_OPT = {"learning_rate": 0.1, "momentum": 0.9,
+           "rescale_grad": 1.0 / MLP_BATCH}
+RTC_AXPB_ELEMS = 64 << 20
+
+
+def softmax_plain(torch, x):
+    """(d)'s plain version: max, exp, sum, divide."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True),)
+
+
+def softmax_ce_bwd_plain(torch, p, label):
+    """(d)'s backward plain version: ``p - onehot(label)``."""
+    classes = torch.arange(p.shape[1], device=p.device)
+    return (p - (label.long()[:, None] == classes).to(p.dtype),)
+
+
+def rtc_kernels(torch, rtc):
+    """The K6 kernels of the smoke test, each with its plain version."""
+    return {
+        "axpb": rtc.CudaKernel("axpb", RTC_AXPB,
+                               reference=lambda x, y: (x * y + 1.0,)),
+        "axpb_bf16": rtc.CudaKernel(
+            "axpb_bf16", RTC_AXPB_BF16,
+            reference=lambda x, y: ((x.float() * y.float() + 1.0).to(
+                torch.bfloat16),)),
+        "dbl": rtc.CudaKernel("dbl", RTC_DBL, reference=lambda x: (x * 2.0,)),
+        "ref_exp": rtc.CudaKernel("ref_exp", RTC_REF_EXP, grid=(1, 1, 1),
+                                  block=(10, 1, 1),
+                                  reference=lambda x: (torch.exp(x * 5.0),)),
+        "softmax_fwd": rtc.CudaKernel(
+            "rtc_softmax_fwd", RTC_SOFTMAX_FWD,
+            reference=lambda x: softmax_plain(torch, x)),
+        "softmax_bwd": rtc.CudaKernel(
+            "rtc_softmax_ce_bwd", RTC_SOFTMAX_BWD,
+            reference=lambda p, lab: softmax_ce_bwd_plain(torch, p, lab)),
+    }
+
+
+def rtc_softmax_op(operator, fwd, bwd):
+    """``tests/test_custom_op.py``'s ``NumpySoftmax`` as an ``NDArrayOp``
+    whose bodies push K6 kernels: the forward ``fwd`` (row softmax), the
+    backward ``bwd`` (``p - onehot(label)``), one block per row."""
+
+    class RtcSoftmax(operator.NDArrayOp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], [in_shape[0][0]]], [in_shape[0]]
+
+        def forward(self, in_data, out_data):
+            fwd.push([in_data[0]], [out_data[0]],
+                     grid_dims=(in_data[0].shape[0],),
+                     block_dims=(RTC_ROW_BLOCK,))
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            bwd.push([out_data[0], in_data[1]], [in_grad[0]],
+                     grid_dims=(out_data[0].shape[0],),
+                     block_dims=(RTC_ROW_BLOCK,))
+
+    return RtcSoftmax()
+
+
+def rtc_err(torch, got, want, kind):
+    """Max error of a K6 result: absolute for the softmax and bf16,
+    relative to max(1, |plain|) for f32."""
+    d = (got.float() - want.float()).abs()
+    if kind == "float32":
+        d = d / want.float().abs().clamp_min(1.0)
+    return d.max().item()
+
+
+def phase_rtc_vs_plain(torch, np, rtc, kern):
+    """K6 cases (a)-(d) and (a) in bf16 against their plain versions on
+    the card; the build times; a broken source and a wrong signature
+    raise."""
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.context import as_context
+    ctx = as_context(DEVICE)
+    info = rtc.build([kern["axpb"]])["axpb"]
+    first = info["seconds"] + info["load_seconds"]
+    again = rtc.CudaKernel("axpb", RTC_AXPB)
+    again._load()
+    check(again.build_info["cached"], "the cached build was rebuilt")
+    builds = {"first_build_s": first,
+              "cached_reload_s": again.build_info["load_seconds"]}
+    t0 = time.perf_counter()
+    rtc.build(list(kern.values()))
+    builds["rest_parallel_s"] = time.perf_counter() - t0
+    log(f"  K6 builds: first user kernel {first:.2f} s (nvcc + load), "
+        f"cached reload {builds['cached_reload_s'] * 1e3:.2f} ms, the other "
+        f"{len(kern) - 1} in parallel {builds['rest_parallel_s']:.2f} s")
+    rng = np.random.RandomState(31)
+    errs = {}
+
+    def held(name, got, want, kind):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"K6 {name}: kernel gave {got.dtype}{tuple(got.shape)}, plain "
+              f"{want.dtype}{tuple(want.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"K6 {name}: non-finite output")
+        err = rtc_err(torch, got, want, kind)
+        log(f"  K6 vs plain [{name}]: max err {err:.3e} "
+            f"(tol {RTC_TOL[kind]:g})")
+        check(err <= RTC_TOL[kind], f"K6 {name}: kernel disagrees with its "
+              f"plain version: {err} > {RTC_TOL[kind]}")
+        errs[name] = err
+
+    u = lambda *s: rng.uniform(-1, 1, s).astype(np.float32)  # noqa: E731
+    x, y = u(8, 128), u(8, 128)
+    xs, ys = nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
+    out = nd.zeros((8, 128), ctx=ctx)
+    kern["axpb"].push([xs, ys], [out])
+    held("(a) axpb push [8, 128] f32", out.data,
+         kern["axpb"].reference(xs.data, ys.data)[0], "float32")
+    big = nd.array(u(64, 96), ctx=ctx)
+    view = big.slice(5, 37)                       # offset storage pointer
+    out = nd.zeros(view.shape, ctx=ctx)
+    kern["axpb"].push([view, view], [out])
+    held("(a) axpb on a slice view", out.data,
+         kern["axpb"].reference(view.data, view.data)[0], "float32")
+    xb = torch.from_numpy(u(1000, 333)).to(DEVICE, torch.bfloat16)
+    yb = torch.from_numpy(u(1000, 333)).to(DEVICE, torch.bfloat16)
+    (ob,) = kern["axpb_bf16"](xb, yb)
+    held("(a) axpb [1000, 333] bf16", ob,
+         kern["axpb_bf16"].reference(xb, yb)[0], "bfloat16")
+    xd = torch.from_numpy(np.arange(256, dtype=np.float32).reshape(
+        2, 128)).to(DEVICE)
+    n_before = len(kern["dbl"]._compiled)
+    (o1,) = kern["dbl"](xd)
+    (o2,) = kern["dbl"](xd)
+    check(len(kern["dbl"]._compiled) == n_before + 1,
+          "K6 dbl: the second call did not hit the cache")
+    check(torch.equal(o1, o2), "K6 dbl: two calls differ")
+    held("(b) dbl functional [2, 128]", o1, xd * 2.0, "float32")
+    xe = nd.array(u(10), ctx=ctx)
+    ye = nd.zeros((10,), ctx=ctx)
+    kern["ref_exp"].push([xe], [ye])
+    held("(c) reference test, grid 1, block 10, shared", ye.data,
+         torch.exp(xe.data * 5.0), "float32")
+    for shape in ((MLP_BATCH, MLP_CLASSES), (7, 1000), (3, 5)):
+        xs = torch.from_numpy((4.0 * rng.randn(*shape)).astype(
+            np.float32)).to(DEVICE)
+        (p,) = kern["softmax_fwd"](xs, grid=(shape[0],),
+                                   block=(RTC_ROW_BLOCK,))
+        held(f"(d) softmax fwd {list(shape)}", p,
+             softmax_plain(torch, xs)[0], "softmax")
+        lab = torch.from_numpy(rng.randint(0, shape[1], shape[0]).astype(
+            np.float32)).to(DEVICE)
+        (dx,) = kern["softmax_bwd"](p, lab, grid=(shape[0],),
+                                    block=(RTC_ROW_BLOCK,))
+        held(f"(d) softmax ce bwd {list(shape)}", dx,
+             softmax_ce_bwd_plain(torch, p, lab)[0], "softmax")
+    broken = rtc.CudaKernel(
+        "broken", 'extern "C" __global__ void broken(const float* x, '
+        'float* o, long long n) { o[0] = undefined_name; }')
+    try:
+        broken(torch.zeros(4, device=DEVICE))
+    except MXNetError as e:
+        check("undefined_name" in str(e) and "nvcc" in str(e),
+              f"the nvcc error lacks nvcc's message: {e}")
+        log("  broken source: MXNetError carrying nvcc's message")
+    else:
+        raise SmokeFailure("a broken source built and launched")
+    wrong = rtc.CudaKernel("wrongsig", RTC_AXPB.replace("axpb", "wrongsig"))
+    try:
+        wrong(torch.zeros(4, device=DEVICE))
+    except MXNetError as e:
+        check(wrong.build_info is None and "pointer parameters" in str(e),
+              f"the signature mismatch was not caught before a build: {e}")
+        log("  wrong parameter count: MXNetError before any build")
+    else:
+        raise SmokeFailure("a kernel with a wrong signature launched")
+    return errs, builds
+
+
+def phase_imperative(torch, np):
+    """NDArray arithmetic, in-place ops, views, dot, reductions, save/load
+    and seeded draws on the card, each against numpy."""
+    import tempfile
+    from mxnet_tpu_torch import ndarray as nd, random as mxrandom
+    from mxnet_tpu_torch.context import as_context
+    ctx = as_context(DEVICE)
+    on_card = lambda arr: arr.data.device.type == ctx.torch_device.type  # noqa: E731
+    rng = np.random.RandomState(32)
+    x = rng.rand(4, 5).astype(np.float32) + 0.5
+    y = rng.rand(4, 5).astype(np.float32) + 0.5
+    a, b = nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
+    check(on_card(a) and a.context == ctx, "nd.array is not on the card")
+    for name, got, want in (("a + b", a + b, x + y), ("a - 2", a - 2, x - 2),
+                            ("a * b", a * b, x * y), ("a / b", a / b, x / y),
+                            ("2 ** a", 2 ** a, 2 ** x),
+                            ("exp", nd.exp(a), np.exp(x))):
+        check(on_card(got), f"{name} left the card")
+        np.testing.assert_allclose(got.asnumpy(), want, rtol=1e-6,
+                                   err_msg=name)
+    v = a.version
+    a += b
+    a *= 2
+    check(a.version == v + 2, f"in-place ops bumped the version "
+          f"{a.version - v} times")
+    np.testing.assert_allclose(a.asnumpy(), (x + y) * 2, rtol=1e-6)
+    z = nd.zeros((4, 3), ctx=ctx)
+    s = z.slice(1, 3)
+    s[:] = 7.0
+    want = np.zeros((4, 3), np.float32)
+    want[1:3] = 7.0
+    check(np.array_equal(z.asnumpy(), want), "a slice view's write did not "
+          "reach its parent")
+    m = rng.rand(5, 6).astype(np.float32)
+    d = nd.dot(nd.array(x, ctx=ctx), nd.array(m, ctx=ctx))
+    np.testing.assert_allclose(d.asnumpy(), x @ m, rtol=1e-5)
+    np.testing.assert_allclose(nd.sum_axis(b, axis=(1,)).asnumpy(),
+                               y.sum(axis=1), rtol=1e-6)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params.nd")
+        nd.save(path, {"x": nd.array(x, ctx=ctx), "z": z})
+        back = nd.load(path, ctx=ctx)
+    check(sorted(back) == ["x", "z"] and on_card(back["x"]),
+          "nd.load lost names or the card")
+    check(back["x"].asnumpy().tobytes() == x.tobytes()
+          and back["z"].asnumpy().tobytes() == want.tobytes(),
+          "nd.save/load changed bytes")
+    draws = []
+    for _ in range(2):
+        mxrandom.seed(0)
+        draws.append(mxrandom.uniform(0, 1, (1000,), ctx=ctx).asnumpy())
+    check(np.array_equal(draws[0], draws[1]) and 0 <= draws[0].min()
+          and draws[0].max() < 1, "random.seed(0) did not replay uniform")
+    log("  imperative on the card: arithmetic, in-place (version +2), "
+        "slice write-through, dot, sum_axis, save/load byte-equal, seeded "
+        "uniform replay: all equal numpy")
+
+
+def mlp_data(np):
+    """Separable synthetic MNIST-shaped data (no dataset is downloaded):
+    10 class centres in 784-d plus unit noise, numpy seed 0."""
+    rng = np.random.RandomState(0)
+    centres = (0.2 * rng.randn(MLP_CLASSES, MLP_IN)).astype(np.float32)
+    labels = rng.randint(0, MLP_CLASSES, MLP_SAMPLES)
+    X = (centres[labels] + rng.randn(MLP_SAMPLES, MLP_IN)).astype(np.float32)
+    return X, labels.astype(np.float32)
+
+
+def mlp_params(np, ex):
+    """Weights uniform in +-1/sqrt(fan_in) from numpy seed 1, biases 0."""
+    rng = np.random.RandomState(1)
+    params = {}
+    for name in sorted(ex.arg_dict):
+        if name in ("data", "softmax_label"):
+            continue
+        shape = ex.arg_dict[name].shape
+        if name.endswith("_weight"):
+            lim = 1.0 / np.sqrt(shape[1])
+            params[name] = rng.uniform(-lim, lim, shape).astype(np.float32)
+        else:
+            params[name] = np.zeros(shape, np.float32)
+    return params
+
+
+def rtc_mlp(mx, head_op):
+    """``models.mnist.mlp``'s body (784 -> 128 -> 64 -> 10, relu) with
+    ``head_op`` (a PythonOp) as its loss head, under the JAX package's
+    layer names."""
+    with mx.name.NameManager():
+        body = mx.models.mlp(MLP_CLASSES).get_internals()["fc3_output"]
+        return head_op.get_symbol(body, mx.symbol.Variable("softmax_label"),
+                                  name="softmax")
+
+
+def phase_rtc_mlp(torch, np, mx, kern, nn_ops):
+    """The MLP trains on the card with the K6 softmax head through
+    ``simple_bind`` and ``get_updater``; its first batch against the same
+    net with ``SoftmaxOutput`` (K1)."""
+    ctx = mx.context.as_context(DEVICE)
+    fwd, bwd = kern["softmax_fwd"], kern["softmax_bwd"]
+    net = rtc_mlp(mx, rtc_softmax_op(mx.operator, fwd, bwd))
+    shapes = dict(data=(MLP_BATCH, MLP_IN), softmax_label=(MLP_BATCH,))
+    ex = net.simple_bind(ctx, **shapes)
+    params = mlp_params(np, ex)
+    ex.copy_params_from(params)
+    X, Y = mlp_data(np)
+    # the first batch against the built-in head (K1), same parameters
+    with mx.name.NameManager():
+        ref = mx.models.mlp(MLP_CLASSES).simple_bind(ctx, **shapes)
+    ref.copy_params_from(params)
+    batch = {"data": X[:MLP_BATCH], "softmax_label": Y[:MLP_BATCH]}
+    p6 = ex.forward(is_train=True, **batch)[0].asnumpy()
+    ex.backward()
+    p1 = ref.forward(is_train=True, **batch)[0].asnumpy()
+    ref.backward()
+    agree = {"probabilities": float(np.abs(p6 - p1).max() / np.abs(p1).max())}
+    for name in params:
+        g6, g1 = ex.grad_dict[name].asnumpy(), ref.grad_dict[name].asnumpy()
+        agree[name] = float(np.abs(g6 - g1).max()
+                            / max(np.abs(g1).max(), 1e-30))
+    worst = max(agree.values())
+    log(f"  first batch, K6 head vs SoftmaxOutput (K1): max error relative "
+        f"to the largest value {worst:.3e} (tol 1e-5)")
+    check(worst <= 1e-5, f"the K6 head disagrees with SoftmaxOutput: {agree}")
+    # the main path's run: the counts start at 0 here
+    updater = mx.optimizer.get_updater(
+        mx.optimizer.SGD(**MLP_OPT))
+    names = sorted(params)
+    fwd.launches = bwd.launches = 0
+    k1_before = nn_ops.softmax_rows.launches
+    losses, correct, times = [], [], []
+    steps = 0
+    for epoch in range(MLP_EPOCHS):
+        for i in range(0, MLP_SAMPLES, MLP_BATCH):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ex.forward(is_train=True, data=X[i:i + MLP_BATCH],
+                             softmax_label=Y[i:i + MLP_BATCH])[0]
+            ex.backward()
+            for k, n in enumerate(names):
+                updater(k, ex.grad_dict[n], ex.arg_dict[n])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            steps += 1
+            p = out.asnumpy()
+            lab = Y[i:i + MLP_BATCH].astype(int)
+            losses.append(float(-np.log(np.maximum(
+                p[np.arange(MLP_BATCH), lab], 1e-30)).mean()))
+            if epoch == MLP_EPOCHS - 1:
+                correct.append(float((p.argmax(1) == lab).mean()))
+    launches = {"rtc_softmax_fwd": fwd.launches,
+                "rtc_softmax_bwd": bwd.launches}
+    check(all(np.isfinite(losses)), "non-finite MLP loss")
+    head, tail = np.mean(losses[:10]), np.mean(losses[-10:])
+    check(tail < head, f"the MLP loss did not fall: {head} -> {tail}")
+    acc = float(np.mean(correct))
+    check(acc > 0.9, f"training accuracy {acc} <= 0.9")
+    check(launches == {"rtc_softmax_fwd": steps, "rtc_softmax_bwd": steps},
+          f"K6 launches {launches} != 1 forward + 1 backward per step "
+          f"({steps} steps)")
+    check(nn_ops.softmax_rows.launches == k1_before,
+          "K1 ran on the K6-head path")
+    step_ms = float(np.median(times) * 1e3)
+    stats = {"steps": steps, "loss_first10": head, "loss_last10": tail,
+             "train_accuracy": acc, "median_step_ms": step_ms,
+             "samples_per_s": MLP_BATCH / (step_ms / 1e3),
+             "first_batch_agreement": worst}
+    log("  MLP 784-128-64-10 with the K6 head: " + json.dumps(stats))
+    return launches, stats
+
+
+def phase_timing_rtc(torch, np, kern):
+    """K6 (d) at the MLP's [100, 10] beside ``torch.softmax`` (forward)
+    and (a) at 64 M f32 elements beside ``torch.addcmul``."""
+    rng = np.random.RandomState(14)
+    x = torch.from_numpy((4.0 * rng.randn(MLP_BATCH, MLP_CLASSES)).astype(
+        np.float32)).to(DEVICE)
+    lab = torch.from_numpy(rng.randint(0, MLP_CLASSES, MLP_BATCH).astype(
+        np.float32)).to(DEVICE)
+    fwd, bwd = kern["softmax_fwd"], kern["softmax_bwd"]
+    geo = dict(grid=(MLP_BATCH,), block=(RTC_ROW_BLOCK,))
+    nc = MLP_BATCH * MLP_CLASSES
+    p = softmax_plain(torch, x)[0]
+    rows = {}
+    # each element read once and written once; max, subtract, exp, add and
+    # divide per element
+    rows["rtc_softmax_fwd"] = dict(
+        bound(2 * nc * 4, 5 * nc),
+        **time_row(torch, lambda: fwd(x, **geo),
+                   lambda: softmax_plain(torch, x),
+                   lambda: torch.softmax(x, -1)))
+    # p and the labels read once, dx written once; one subtract per element
+    rows["rtc_softmax_bwd"] = dict(
+        bound(2 * nc * 4 + MLP_BATCH * 4, nc),
+        ms=time_ms(torch, lambda: bwd(p, lab, **geo)),
+        plain_ms=time_ms(torch, lambda: softmax_ce_bwd_plain(torch, p, lab)),
+        library_ms=None,
+        call_ms=time_ms(torch, lambda: bwd(p, lab, **geo), hide_host=False))
+    n = RTC_AXPB_ELEMS
+    xa = torch.rand(n, device=DEVICE)
+    ya = torch.rand(n, device=DEVICE)
+    one = torch.ones(1, device=DEVICE)
+    # x and y read once, o written once; a multiply and an add per element
+    rows["axpb_64M"] = dict(
+        bound(3 * n * 4, 2 * n),
+        **time_row(torch, lambda: kern["axpb"](xa, ya),
+                   lambda: kern["axpb"].reference(xa, ya),
+                   lambda: torch.addcmul(one, xa, ya)))
+    for name, r in rows.items():
+        log(f"  timing K6 {name}: " + json.dumps(r))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1435,7 +1956,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import numpy as np
-        from mxnet_tpu_torch import _build, optimizer, quant
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import _build, optimizer, quant, rtc
         from mxnet_tpu_torch.ops import fused_update as fu
         from mxnet_tpu_torch.ops import nn_ops
         from mxnet_tpu_torch.parallel import flash_attention as fa
@@ -1449,14 +1971,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/10] device")
+    log("[1/11] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/10] build")
+    log("[2/11] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -1465,29 +1987,31 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/10] kernels against their plain versions")
+    log("[3/11] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
     k2_err = phase_k2_vs_unfused(torch, np, fu, optimizer)
     k34_errs = phase_k34_vs_plain(torch, np, fa)
+    kern = rtc_kernels(torch, rtc)
+    rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/10] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/11] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/10] serving the round-12 configuration: chunked prefill "
+    log(f"[5/11] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/10] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/11] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np)
 
-    log(f"[7/10] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/11] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, _ = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/10] kernel timing")
+    log("[8/11] kernel timing")
     timing = {"flash_decode": phase_timing(torch, np, fd),
               "flash_decode_fp8": phase_timing_fp8(torch, np, fd, quant, kv),
               "softmax_rows": phase_timing_k1(torch, np, nn_ops),
@@ -1495,13 +2019,20 @@ def main() -> int:
     k34_timing = phase_timing_k34(torch, np, fa)
     # the LM's main path runs K3/K4 in bf16: those times go to the line
     timing.update(k34_timing["bf16"])
+    timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/10] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/11] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, _ = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/10] result")
+    log("[10/11] imperative + executor: NDArray on the card, the MLP "
+        f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
+        f"{MLP_BATCH}")
+    phase_imperative(torch, np)
+    rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
+
+    log("[11/11] result")
     f32_errs = [v for k, v in k34_errs.items() if k.endswith("f32")]
     rows = [
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
@@ -1524,6 +2055,14 @@ def main() -> int:
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
          lm_launches["flash_attn_bwd"], max(e[1] for e in f32_errs)),
+        # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
+        # sources, which live in this script
+        ("rtc_softmax_fwd", "chip_smoke.py", "mxnet_tpu/rtc.py:60",
+         rtc_launches["rtc_softmax_fwd"],
+         max(v for k, v in rtc_errs.items() if "softmax fwd" in k)),
+        ("rtc_softmax_bwd", "chip_smoke.py", "mxnet_tpu/rtc.py:60",
+         rtc_launches["rtc_softmax_bwd"],
+         max(v for k, v in rtc_errs.items() if "ce bwd" in k)),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

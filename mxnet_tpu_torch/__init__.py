@@ -6,24 +6,32 @@ the JAX package on a ported path becomes a CUDA kernel written by hand for
 Hopper (``csrc/``, built with nvcc at first use by :mod:`._build`).
 
 Ported so far: serving ``transformer_lm`` parameter dicts
-(:mod:`mxnet_tpu_torch.serve`) and training symbol graphs such as
+(:mod:`mxnet_tpu_torch.serve`), training symbol graphs such as
 ResNet-50 on one device (``symbol``, ``models.get_symbol``,
-``parallel.ShardedTrainer``).  Entry points run on the card unless the
-caller passes ``device="cpu"``.
+``parallel.ShardedTrainer``), and the imperative and executor API
+(``nd``, ``random``, ``Symbol.simple_bind``, ``optimizer.get_updater``,
+custom ops in ``operator`` and user CUDA kernels in ``rtc``).  Entry
+points run on the card unless the caller passes ``device="cpu"`` (or
+works under ``with mx.cpu():``).
 """
-from . import (attribute, base, compile_cache, context, graph_eval,
-               initializer, models, name, ndarray, ops, optimizer, parallel,
-               resilience, serve, symbol)
+from . import (attribute, base, compile_cache, context, executor,
+               graph_eval, initializer, models, name, ndarray, operator, ops,
+               optimizer, parallel, random, resilience, rtc, serve, stream,
+               symbol)
 from .base import MXNetError
-from .context import cpu, gpu, resolve_device
+from .context import Context, cpu, current_context, gpu, resolve_device
+from .executor import Executor
 from .parallel import ShardedTrainer
 from .serve import Engine, EngineConfig, ServeError, kvcache
+from .symbol import Group
 
 sym = symbol
 nd = ndarray
 
-__all__ = ["MXNetError", "cpu", "gpu", "resolve_device", "Engine",
-           "EngineConfig", "ServeError", "ShardedTrainer", "kvcache",
-           "attribute", "base", "compile_cache", "context", "graph_eval",
-           "initializer", "models", "name", "nd", "ndarray", "ops",
-           "optimizer", "parallel", "resilience", "serve", "sym", "symbol"]
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "resolve_device", "Engine", "EngineConfig", "Executor", "Group",
+           "ServeError", "ShardedTrainer", "kvcache", "attribute", "base",
+           "compile_cache", "context", "executor", "graph_eval",
+           "initializer", "models", "name", "nd", "ndarray", "operator",
+           "ops", "optimizer", "parallel", "random", "resilience", "rtc",
+           "serve", "stream", "sym", "symbol"]

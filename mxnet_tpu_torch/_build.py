@@ -7,7 +7,9 @@ edited source or header never loads a stale build.
 Outputs go to ``_kernels/`` inside the package, which ``.gitignore``
 lists.  :func:`build_all` starts one ``nvcc`` per source, all at once, and
 waits for them; :func:`load` builds what is missing and returns the
-``ctypes.CDLL``.
+``ctypes.CDLL``.  :func:`build_sources` builds sources given as text (the
+runtime kernels of :mod:`mxnet_tpu_torch.rtc`) into ``_kernels/rtc/``,
+with the same nvcc flags.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import Dict, Iterable, Optional
 from .base import MXNetError
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
-           "load"]
+           "build_source", "build_sources", "load"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
@@ -61,29 +63,22 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}.{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Build the named kernels (default: every source), one ``nvcc`` per
-    source, all started together.  Returns ``{name: {"path", "seconds",
-    "cached", "log"}}``; ``log`` holds ``ptxas -v`` (registers, shared
-    memory, spills).  Raises :class:`MXNetError` if a build fails."""
-    srcs = sources()
-    names = list(srcs) if names is None else list(names)
-    missing = [n for n in names if n not in srcs]
-    if missing:
-        raise MXNetError(f"no kernel source for {missing} in {CSRC_DIR}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _compile(jobs: Dict[str, tuple]) -> Dict[str, dict]:
+    """Run one ``nvcc`` per ``{name: (source path, output path)}``, all
+    started together; each output is written to a temp file and
+    ``os.replace``d into place.  An output that exists is reused."""
     info: Dict[str, dict] = {}
     procs = {}
     t0 = time.perf_counter()
-    for n in names:
-        out = _target(srcs[n])
+    for n, (src, out) in jobs.items():
         if out.exists():
             log = out.with_suffix(".log")
             info[n] = {"path": out, "seconds": 0.0, "cached": True,
                        "log": log.read_text() if log.exists() else ""}
             continue
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)
@@ -101,6 +96,47 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     if failed:
         raise MXNetError("kernel build failed:\n" + "\n".join(failed))
     return info
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Build the named kernels (default: every source), one ``nvcc`` per
+    source, all started together.  Returns ``{name: {"path", "seconds",
+    "cached", "log"}}``; ``log`` holds ``ptxas -v`` (registers, shared
+    memory, spills).  Raises :class:`MXNetError` if a build fails."""
+    srcs = sources()
+    names = list(srcs) if names is None else list(names)
+    missing = [n for n in names if n not in srcs]
+    if missing:
+        raise MXNetError(f"no kernel source for {missing} in {CSRC_DIR}")
+    return _compile({n: (srcs[n], _target(srcs[n])) for n in names})
+
+
+def build_sources(texts: Dict[str, str]) -> Dict[str, dict]:
+    """Build each CUDA source text of ``{name: text}`` into
+    ``_kernels/rtc/lib<name>.<hash>.so``, one ``nvcc`` per source, all
+    started together (the hash covers the text and the flags, so an edited
+    source never loads a stale build, and the same text only reloads).
+    Returns ``build_all``'s entries; raises :class:`MXNetError` carrying
+    nvcc's log if a build fails."""
+    jobs = {}
+    for name, text in texts.items():
+        h = hashlib.sha256(text.encode())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        stem = f"{name}.{h.hexdigest()[:16]}"
+        out = BUILD_DIR / "rtc" / f"lib{stem}.so"
+        src = out.with_name(f"{stem}.cu")
+        if not out.exists():
+            src.parent.mkdir(parents=True, exist_ok=True)
+            tmp = src.with_name(f"{src.name}.tmp{os.getpid()}")
+            tmp.write_text(text)
+            os.replace(tmp, src)
+        jobs[name] = (src, out)
+    return _compile(jobs)
+
+
+def build_source(name: str, text: str) -> dict:
+    """:func:`build_sources` for one source."""
+    return build_sources({name: text})[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -19,26 +19,32 @@ __all__ = ["eval_symbol"]
 
 def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
                 aux_vals: Dict[str, "torch.Tensor"], rng, is_train: bool,
-                topo=None):
+                want_internals: bool = False, topo=None):
     """Evaluate a Symbol graph.
 
     ``arg_vals`` holds a tensor for every variable node (params, data,
     labels); ``aux_vals`` the auxiliary states keyed
     ``{node_name}_{aux_name}``; ``rng`` is a ``torch.Generator`` or None
-    (no op of this slice draws from it); ``is_train`` selects batch
-    statistics and aux updates in BatchNorm.  ``topo`` may pass a
-    precomputed ``symbol._topo()``.
+    (the sampling ops draw from it); ``is_train`` selects batch
+    statistics and aux updates in BatchNorm.  ``want_internals`` also
+    returns every node output keyed ``{node_name}_{output_name}`` and
+    every variable by name (the executor's monitor hook).  ``topo`` may
+    pass a precomputed ``symbol._topo()``.
 
-    Returns ``(heads, aux_updates)``: a tuple of head tensors and
-    ``{aux_full_name: new value}``.
+    Returns ``(heads, aux_updates)``, or ``(heads, aux_updates,
+    internals)``: a tuple of head tensors and ``{aux_full_name: new
+    value}``.
     """
     if topo is None:
         topo = symbol._topo()
     vals = {}
     aux_updates = {}
+    internals = {}
     for node in topo:
         if node.is_variable:
             vals[(id(node), 0)] = arg_vals[node.name]
+            if want_internals:
+                internals[node.name] = arg_vals[node.name]
             continue
         anno = node.anno_attrs()
         if anno.get("remat_scope") or anno.get("force_mirroring") in (
@@ -58,8 +64,13 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
         outs = list(out) if isinstance(out, (tuple, list)) else [out]
         for i, o in enumerate(outs):
             vals[(id(node), i)] = o
+        if want_internals:
+            for oname, o in zip(op.list_outputs(params), outs):
+                internals[f"{node.name}_{oname}"] = o
         for sh, f in zip(short, aux_full):
             if sh in opctx.aux_updates:
                 aux_updates[f] = opctx.aux_updates[sh]
     heads = tuple(vals[(id(n), i)] for (n, i) in symbol._heads)
+    if want_internals:
+        return heads, aux_updates, internals
     return heads, aux_updates

@@ -148,6 +148,7 @@ class OpDef:
     infer_type: Optional[Callable[..., Any]] = None
     doc: str = ""
     func_name: Optional[str] = None
+    needs_rng: bool = False
 
     def list_arguments(self, params: Dict[str, Any]) -> List[str]:
         return _resolve(self.arguments, params)

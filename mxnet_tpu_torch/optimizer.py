@@ -10,20 +10,22 @@ with round-to-nearest intrinsics, is a bitwise twin of it.  ``lr`` and
 trainer fills them each step), so no step reads anything back to the
 host.
 
-The imperative ``update(index, weight, grad, state)`` API, the other
-optimizers (NAG, SGLD, AdaGrad, RMSProp, AdaDelta) and learning-rate
-schedulers are not ported yet (ROADMAP.md).
+The imperative API (``create_state``, ``update(index, weight, grad,
+state)`` on NDArrays, :func:`get_updater`) runs the same
+``_functional_step`` per parameter.  The other optimizers (NAG, SGLD,
+AdaGrad, RMSProp, AdaDelta) and learning-rate schedulers are not ported
+yet (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from .base import MXNetError, Registry, not_ported
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "create", "register",
-           "adam_lr_t"]
+           "adam_lr_t", "get_updater"]
 
 OPTIMIZER_REGISTRY: Registry = Registry("optimizer")
 
@@ -81,6 +83,14 @@ class Optimizer:
         self.lr_mult: Dict[str, float] = {}
         self.wd_mult: Dict[str, float] = {}
         self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count: Dict[Any, int] = {}
+        if param_idx2name is None:
+            param_idx2name = {}
+        if not isinstance(param_idx2name, dict):
+            raise MXNetError("param_idx2name should be a dict of param "
+                             "indexes to names")
+        self.idx2name = dict(param_idx2name)
         self.clip_gradient = clip_gradient
         if clip_global_norm is not None and not clip_global_norm > 0:
             raise MXNetError("clip_global_norm must be > 0, got "
@@ -118,6 +128,83 @@ class Optimizer:
     @staticmethod
     def _functional_step(hyper, w, g, state, lr, wd, t, rng):
         raise NotImplementedError
+
+    # --- the imperative API: one index at a time, on NDArrays ----------
+
+    def _update_count(self, index) -> None:
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    def _name(self, index):
+        return self.idx2name.get(index,
+                                 index if isinstance(index, str) else None)
+
+    def _get_lr(self, index) -> float:
+        lr = self.lr
+        name = self._name(index)
+        if name is not None and name in self.lr_mult:
+            lr *= self.lr_mult[name]
+        return lr
+
+    def _get_wd(self, index) -> float:
+        """``wd`` times the name's multiplier; names ending in ``_gamma``,
+        ``_beta`` or ``_bias`` default to no decay, as in the reference."""
+        wd = self.wd
+        name = self._name(index)
+        if name is not None:
+            if name in self.wd_mult:
+                wd *= self.wd_mult[name]
+            elif name.endswith(("_gamma", "_beta", "_bias")):
+                wd = 0.0
+        return wd
+
+    def create_state(self, index, weight):
+        """State for one weight NDArray: None, an NDArray or a tuple of
+        NDArrays on the weight's context."""
+        from .ndarray import NDArray
+        sval = self.state_zeros_like(weight.data)
+        if isinstance(sval, tuple):
+            return tuple(NDArray(s, ctx=weight.context) for s in sval)
+        return None if sval is None else NDArray(sval, ctx=weight.context)
+
+    def update(self, index, weight, grad, state) -> None:
+        """Update one weight NDArray in place from its gradient, through
+        the same ``_functional_step`` as the trainer's unfused update."""
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        t = self._index_update_count[index]
+        svals = (None if state is None else
+                 tuple(s.data for s in state) if isinstance(state, tuple)
+                 else state.data)
+        with torch.no_grad():
+            new_w, new_s = self._functional_step(
+                self._hyper(), weight.data, grad.data.to(weight.data.dtype),
+                svals, lr, wd, t, None)
+        weight._write(new_w)
+        if isinstance(state, tuple):
+            for s, v in zip(state, new_s):
+                s._write(v)
+        elif state is not None:
+            state._write(new_s)
+
+
+def get_updater(optimizer: Optimizer):
+    """``updater(index, grad, weight)``: creates each index's state on
+    first use and calls :meth:`Optimizer.update` (the reference's
+    ``get_updater``)."""
+    states: Dict[Any, Any] = {}
+
+    def updater(index, grad, weight):
+        if index not in states:
+            states[index] = optimizer.create_state(index, weight)
+        optimizer.update(index, weight, grad, states[index])
+
+    updater.states = states
+    return updater
 
 
 @register

@@ -10,9 +10,9 @@ and ``tojson``/``load_json`` read and write the same text as the JAX
 package.  Op constructors (``Convolution``, ``BatchNorm``, ...) are
 generated from the port's op registry.
 
-Graphs run through :func:`mxnet_tpu_torch.graph_eval.eval_symbol`;
-``bind``/``simple_bind`` (the executor) and file ``save``/``load`` are not
-ported yet (ROADMAP.md).
+Graphs run through :func:`mxnet_tpu_torch.graph_eval.eval_symbol`, in
+the trainer or in an executor from ``bind``/``simple_bind``.  File
+``save``/``load`` of symbols is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -356,13 +356,56 @@ class Symbol:
         }, indent=2)
 
     def save(self, fname: str) -> None:
-        raise not_ported("Symbol.save (stream.py URIs)")
+        raise not_ported("Symbol.save (the symbol file format)")
 
-    def bind(self, *args, **kwargs):
-        raise not_ported("Symbol.bind (executor.py)")
+    # ------------------------------------------------------------------
+    # Binding (executor.py)
+    # ------------------------------------------------------------------
 
-    def simple_bind(self, *args, **kwargs):
-        raise not_ported("Symbol.simple_bind (executor.py)")
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None):
+        """Bind arrays (lists in ``list_arguments`` order, or dicts) into
+        an :class:`~mxnet_tpu_torch.executor.Executor` on ``ctx``."""
+        from .executor import Executor
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
+        """Infer shapes from ``kwargs``, allocate zero arrays on ``ctx``
+        (gradient arrays for every argument whose ``grad_req`` is not
+        ``null``) and bind.  With ``shared_exec``, its arrays of the same
+        name and shape are reused."""
+        from . import ndarray as nd
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        arg_types, _, aux_types = self.infer_type(**dict(type_dict or {}))
+
+        def req_for(aname):
+            if isinstance(grad_req, str):
+                return grad_req
+            if isinstance(grad_req, dict):
+                return grad_req.get(aname, "null")
+            return "write"
+
+        def alloc(aname, shape, dtype, which):
+            if shared_exec is not None:
+                arr = getattr(shared_exec, which).get(aname)
+                if arr is not None and tuple(arr.shape) == tuple(shape):
+                    return arr
+            return nd.zeros(shape, ctx=ctx, dtype=dtype)
+
+        args, args_grad = {}, {}
+        for aname, shape, dtype in zip(self.list_arguments(), arg_shapes,
+                                       arg_types):
+            args[aname] = alloc(aname, shape, dtype, "arg_dict")
+            if req_for(aname) != "null":
+                args_grad[aname] = alloc(aname, shape, dtype, "grad_dict")
+        aux_states = {aname: alloc(aname, shape, dtype, "aux_dict")
+                      for aname, shape, dtype in zip(
+                          self.list_auxiliary_states(), aux_shapes,
+                          aux_types)}
+        return self.bind(ctx, args, args_grad or None, grad_req, aux_states,
+                         group2ctx=group2ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ sum), bf16 within 1e-2; the fused update
 per-parameter update (``chip_smoke.k2_unfused``); flash attention forward
 (K3) and backward (K4) with ``chip_smoke.K34_TOL``: f32 within 2e-5
 (forward, lse) and 2e-4 (gradients), summation order; bf16 within 2e-2
-of ``1 + |plain|`` (``p`` and ``ds`` are rounded to bf16 inside).
+of ``1 + |plain|`` (``p`` and ``ds`` are rounded to bf16 inside); user
+kernels compiled by ``rtc.CudaKernel`` (K6) with ``chip_smoke.RTC_TOL``.
 """
 import numpy as np
 import pytest
@@ -337,3 +338,116 @@ def test_flash_attention_kernels_reject_non_contiguous(cuda):
     q = torch.randn(1, 64, 2, 16, device=cuda).transpose(1, 2)
     with pytest.raises(MXNetError, match="contiguous"):
         tfa.flash_fwd(q, q, q, causal=False, scale=0.25)
+
+
+# ---------------------------------------------------------------------------
+# K6: user CUDA kernels through mxnet_tpu_torch.rtc.CudaKernel
+# (chip_smoke.RTC_TOL: f32 within 1e-6 of max(1, |plain|), the softmax
+# within 1e-6 absolute, bf16 within 1e-2 absolute on inputs in [-1, 1])
+# ---------------------------------------------------------------------------
+
+RTC_CASES = ["axpb", "axpb_view", "axpb_bf16", "dbl", "ref_exp",
+             "softmax_100x10", "softmax_7x1000", "softmax_3x5"]
+
+
+def _rtc_case(case, dev, kern):
+    rng = np.random.RandomState(len(case))
+    u = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.uniform(-1, 1, s).astype(np.float32)).to(dev)
+    if case == "axpb":
+        x, y = u(8, 128), u(8, 128)
+        return kern["axpb"](x, y)[0], kern["axpb"].reference(x, y)[0], \
+            "float32"
+    if case == "axpb_view":
+        big = u(64, 96)
+        v = big[5:37]
+        return kern["axpb"](v, v)[0], kern["axpb"].reference(v, v)[0], \
+            "float32"
+    if case == "axpb_bf16":
+        x, y = u(1000, 333).bfloat16(), u(1000, 333).bfloat16()
+        return kern["axpb_bf16"](x, y)[0], \
+            kern["axpb_bf16"].reference(x, y)[0], "bfloat16"
+    if case == "dbl":
+        x = u(2, 128)
+        return kern["dbl"](x)[0], x * 2.0, "float32"
+    if case == "ref_exp":
+        x = u(10)
+        return kern["ref_exp"](x)[0], torch.exp(x * 5.0), "float32"
+    n, c = (int(v) for v in case.split("_")[1].split("x"))
+    x = 4.0 * u(n, c)
+    geo = dict(grid=(n,), block=(chip_smoke.RTC_ROW_BLOCK,))
+    (p,) = kern["softmax_fwd"](x, **geo)
+    lab = torch.from_numpy(rng.randint(0, c, n).astype(np.float32)).to(dev)
+    (dx,) = kern["softmax_bwd"](p, lab, **geo)
+    got = torch.cat([p.flatten(), dx.flatten()])
+    want = torch.cat([chip_smoke.softmax_plain(torch, x)[0].flatten(),
+                      chip_smoke.softmax_ce_bwd_plain(torch, p, lab)[0]
+                      .flatten()])
+    return got, want, "softmax"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RTC_CASES)
+def test_rtc_kernels_match_plain(cuda, case):
+    from mxnet_tpu_torch import rtc
+    kern = chip_smoke.rtc_kernels(torch, rtc)
+    got, want, kind = _rtc_case(case, cuda, kern)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert chip_smoke.rtc_err(torch, got, want, kind) <= \
+        chip_smoke.RTC_TOL[kind]
+    assert sum(k.launches for k in kern.values()) >= 1
+
+
+@pytest.mark.cuda
+def test_rtc_cache_hits_without_a_rebuild(cuda):
+    from mxnet_tpu_torch import rtc
+    k1 = rtc.CudaKernel("dbl", chip_smoke.RTC_DBL)
+    x = torch.arange(512, dtype=torch.float32, device=cuda)
+    k1(x)
+    k1(x)
+    assert len(k1._compiled) == 1 and k1.launches == 2
+    k1(x[:100])                               # a new shape only reloads
+    assert len(k1._compiled) == 2
+    k2 = rtc.CudaKernel("dbl", chip_smoke.RTC_DBL)
+    k2(x)
+    assert k2.build_info["cached"] and k2.build_info["seconds"] == 0.0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_rtc_nvcc_error_is_an_mxnet_error(cuda):
+    from mxnet_tpu_torch import rtc
+    bad = rtc.CudaKernel("broken_t", 'extern "C" __global__ void broken_t('
+                         'const float* x, float* o, long long n) '
+                         '{ o[0] = undefined_name; }')
+    with pytest.raises(MXNetError, match="undefined_name"):
+        bad(torch.zeros(4, device=cuda))
+    assert bad.launches == 0
+
+
+@pytest.mark.cuda
+def test_rtc_softmax_head_equals_softmax_output_on_card(cuda):
+    import mxnet_tpu_torch as mxt
+    from mxnet_tpu_torch import rtc
+    kern = chip_smoke.rtc_kernels(torch, rtc)
+    op = chip_smoke.rtc_softmax_op(mxt.operator, kern["softmax_fwd"],
+                                   kern["softmax_bwd"])
+    shapes = dict(data=(16, chip_smoke.MLP_IN), softmax_label=(16,))
+    ex = chip_smoke.rtc_mlp(mxt, op).simple_bind(mxt.gpu(0), **shapes)
+    with mxt.name.NameManager():
+        ref = mxt.models.mlp().simple_bind(mxt.gpu(0), **shapes)
+    params = chip_smoke.mlp_params(np, ex)
+    X, Y = chip_smoke.mlp_data(np)
+    for e in (ex, ref):
+        e.copy_params_from(params)
+        e.forward(is_train=True, data=X[:16], softmax_label=Y[:16])
+        e.backward()
+    assert kern["softmax_fwd"].launches == kern["softmax_bwd"].launches == 1
+    np.testing.assert_allclose(ex.outputs[0].asnumpy(),
+                               ref.outputs[0].asnumpy(), rtol=1e-5,
+                               atol=1e-7)
+    for n in params:
+        g = ref.grad_dict[n].asnumpy()
+        np.testing.assert_allclose(ex.grad_dict[n].asnumpy(), g, rtol=0,
+                                   atol=1e-5 * np.abs(g).max())

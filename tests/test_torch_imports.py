@@ -5,9 +5,10 @@ A subprocess blocks ``jax`` (``sys.modules['jax'] = None`` makes any
 import of it fail) and imports the port, its serve package, the training
 modules (symbol, models.resnet, models.transformer_lm, ops.fused_update,
 ops.attention_ops, parallel.trainer, parallel.flash_attention,
-parallel.ring_attention, parallel.mesh, quant) and ``chip_smoke``; a source
-scan checks every file of the port and the
-script for such imports.
+parallel.ring_attention, parallel.mesh, quant), the imperative and
+executor modules (context, stream, ndarray, random, executor, operator,
+rtc, models.mnist) and ``chip_smoke``; a source scan checks every file of
+the port and the script for such imports.
 """
 import os
 import re
@@ -37,6 +38,9 @@ from mxnet_tpu_torch.models import transformer_lm
 from mxnet_tpu_torch.parallel import ShardedTrainer
 from mxnet_tpu_torch import (attribute, graph_eval, initializer, name,
                              ndarray, optimizer, quant, resilience)
+from mxnet_tpu_torch import (context, executor, operator, random, rtc,
+                             stream)
+from mxnet_tpu_torch.models import mnist
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")

@@ -128,6 +128,8 @@ def test_unported_entry_points_raise():
         tmodels.get_symbol("inception-bn")
     t = tmodels.resnet_cifar(n=1)
     with pytest.raises(MXNetError, match="not ported"):
-        t.simple_bind(None, data=(1, 3, 8, 8))
+        t.save("net.json")
+    with pytest.raises(MXNetError, match="not ported"):
+        t.simple_bind(mxt.cpu(), data=(1, 3, 8, 8)).warmup()
     with pytest.raises(ValueError, match="unknown network"):
         tmodels.get_symbol("no-such-net")

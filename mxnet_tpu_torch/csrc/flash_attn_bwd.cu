@@ -14,10 +14,26 @@
 // operands and results in bf16: 0.087 ms at the bf16 tensor-core rate.
 //
 // Design: the TPU's two kernels, kept as two, so neither needs atomics
-// and the gradients are deterministic.  Like K3, each comes twice: on the
-// tensor cores (mma.sync, bf16 with D <= 128, the LM's case) and on the
-// f32 FMA units (f32 at any D, bf16 with D > 128), with the same
-// arithmetic and rounding points.
+// and the gradients are deterministic.  Like K3, each comes in three
+// forms, named by the caller (flash_attention.kernel_form) and refused by
+// the C call when the operands do not allow them, with the same
+// arithmetic and rounding points:
+//   * "hopper" (bf16, D 64 or 128, 16-byte-aligned operands; the LM's
+//     case): TMA loads into 128-byte-swizzled shared memory fed by one
+//     producer warp through a 2-stage ring of full/empty mbarriers, two
+//     consumer warpgroups of 64 rows issuing wgmma with f32 accumulators,
+//     setmaxnreg moving registers to them.  Every product reads its
+//     shared-memory operand in the major order it is stored in: s and
+//     do v^T (and s^T, v do^T) K-major, ds k, p^T do and ds^T q MN-major
+//     through the transpose bit, so nothing is staged transposed and q,
+//     do are loaded once per query tile.  p and ds are rounded to bf16
+//     in registers, straight into the A operand of the next product.  The
+//     dq grid starts with the heaviest causal query tiles.
+//   * "mma" (bf16, D <= 128): mma.sync m16n8k16 on the tensor cores;
+//   * "fma" (f32 at any D, bf16 with D > 128): the f32 FMA units.
+// When the caller passes no delta, the same C call first launches
+// flash_bwd_delta_kernel, which writes rowsum(do * out) in f32 into the
+// scratch the caller gives, so the timed call holds no other work.
 //   * dq kernel: one block per (query tile, batch * head); q, do, lse and
 //     delta stay in shared memory and registers while the block walks the
 //     K/V tiles (causal: up to the diagonal), recomputes s and p, forms
@@ -33,7 +49,7 @@
 // Pallas bodies scale each tile's product; the sum differs only in f32
 // rounding).  Both kernels launch from one C call, on one stream.
 
-#include "flash_attn_common.cuh"
+#include "flash_attn_hopper.cuh"
 
 namespace {
 
@@ -498,6 +514,402 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// delta = rowsum(do * out) in f32, [B, H, Lq]: one warp a row, for every
+// form (the plain version is flash_attention._delta).
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
+                       float* __restrict__ delta, Layout lq, int rows) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int bh = row / lq.L, i = row % lq.L;
+  const size_t base = lq.row(bh / lq.H, bh % lq.H, i);
+  float acc = 0.f;
+  for (int c = lane; c < lq.D; c += 32)
+    acc = fmaf(to_f(dout[base + c]), to_f(out[base + c]), acc);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) delta[row] = acc;
+}
+
+template <typename T>
+int launch_delta(const void* dout, const void* out, float* delta, int B,
+                 int H, int Lq, int D, int blhd, cudaStream_t st) {
+  const int rows = B * H * Lq;
+  flash_bwd_delta_kernel<T><<<(rows + 7) / 8, 256, 0, st>>>(
+      static_cast<const T*>(dout), static_cast<const T*>(out), delta,
+      Layout{H, Lq, D, blhd}, rows);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The "hopper" form: bf16, D = 64 or 128, 384 threads a block: warpgroup
+// 0 produces (TMA), warpgroups 1 and 2 consume 64 rows each.  A tile is
+// 64 rows x D (flash_attn_hopper.cuh).
+// ---------------------------------------------------------------------------
+
+// dq: one block per (128-row query tile, batch * head).  Shared memory:
+// q [2][tile] and do [2][tile] (resident), the ring of k and v [kStages]
+// [tile], then the mbarriers (q/do full; full and empty per stage).
+template <int D>
+constexpr size_t hopper_dq_smem() {
+  return 1024 + (size_t)(4 + 2 * mxt_hopper::kStages) * 128 * D +
+         8 * (1 + 2 * mxt_hopper::kStages);
+}
+
+template <int D>
+__global__ void __launch_bounds__(mxt_hopper::kThreads, 1)
+flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dq, Layout lq, int Lk,
+                           int causal, float scale) {
+  using namespace mxt_hopper;
+  constexpr int TILE = 128 * D;
+  constexpr int S = kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sG = sQ + 2 * TILE;  // do
+  uint8_t* sK = sG + 2 * TILE;
+  uint8_t* sV = sK + S * TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + S * TILE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int bh = blockIdx.x, b = bh / lq.H, h = bh % lq.H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * 128;
+  const int k_end = causal ? min(Lk, q0 + 128) : Lk;
+  const int n_kt = (k_end + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    regs_dealloc();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(q_full, 4 * TILE);
+      tma_tile<D>(sQ, &tq, q0, h, b, q_full);
+      tma_tile<D>(sQ + TILE, &tq, q0 + 64, h, b, q_full);
+      tma_tile<D>(sG, &tdo, q0, h, b, q_full);
+      tma_tile<D>(sG + TILE, &tdo, q0 + 64, h, b, q_full);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % S;
+        mbar_wait(&empty[s], ((kt / S) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], 2 * TILE);
+        tma_tile<D>(sK + s * TILE, &tk, kt * 64, h, b, &full[s]);
+        tma_tile<D>(sV + s * TILE, &tv, kt * 64, h, b, &full[s]);
+      }
+    }
+  } else {
+    regs_alloc();
+    const int w = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r_lo = q0 + 64 * w;
+    const int qi[2] = {r_lo + 16 * warp + g, r_lo + 16 * warp + g + 8};
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = qi[r] < lq.L;
+      lse2[r] = in ? lse[(size_t)bh * lq.L + qi[r]] * kLog2e : 0.f;
+      dl[r] = in ? delta[(size_t)bh * lq.L + qi[r]] : 0.f;
+    }
+    const uint8_t* sQw = sQ + w * TILE;
+    const uint8_t* sGw = sG + w * TILE;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % S, k0 = kt * 64;
+      mbar_wait(&full[s], (kt / S) & 1);
+      if (!causal || k0 <= r_lo + 63) {
+        const uint8_t* sKs = sK + s * TILE;
+        const uint8_t* sVs = sV + s * TILE;
+        float sc[32], dp[32];
+        fence_acc(sc);
+        fence_acc(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<0>(sc, desc_k(sQw, kk), desc_k(sKs, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<0>(dp, desc_k(sGw, kk), desc_k(sVs, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(sc);
+        fence_acc(dp);
+
+        // ds = p (dp - delta), p = exp(s scale - lse), in place of s
+        const bool edge = (causal && k0 + 63 > r_lo) || k0 + 64 > Lk;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          float p = ex2(fmaf(sc[i] * scale, kLog2e, -lse2[r]));
+          if (edge) {
+            const int kj = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+            if (kj >= Lk || (causal && qi[r] < kj)) p = 0.f;
+          }
+          sc[i] = p * (dp[i] - dl[r]);
+        }
+        // acc += ds k: ds rounded to bf16 as A, k MN-major
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) to_a(da[kk], sc, kk);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(acc, da[kk], desc_mn(sKs, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+      }
+      mbar_arrive_warp(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qi[r] >= lq.L) continue;
+      bf16* row = dq + lq.row(b, h, qi[r]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
+                                  acc[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// dk/dv: one block per (128-row key tile, batch * head), causal tiles in
+// order (the first ones see the most queries, so they start first).
+// Shared memory: k [2][tile] and v [2][tile] (resident), the ring of q
+// and do [kStages][tile] with the query tile's lse * log2(e) and delta
+// [kStages][64] f32, then the mbarriers (k/v full; full and empty per
+// stage).  The producer warp's 32 lanes copy lse and delta and arrive on
+// the stage's full barrier with the TMA thread.
+template <int D>
+constexpr size_t hopper_dkv_smem() {
+  return 1024 + (size_t)(4 + 2 * mxt_hopper::kStages) * 128 * D +
+         (size_t)mxt_hopper::kStages * 2 * 64 * 4 +
+         8 * (1 + 2 * mxt_hopper::kStages);
+}
+
+template <int D>
+__global__ void __launch_bounds__(mxt_hopper::kThreads, 1)
+flash_bwd_dkv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            Layout lk, int Lq, int causal, float scale) {
+  using namespace mxt_hopper;
+  constexpr int TILE = 128 * D;
+  constexpr int S = kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);
+  uint8_t* sV = sK + 2 * TILE;
+  uint8_t* sQ = sV + 2 * TILE;
+  uint8_t* sG = sQ + S * TILE;  // do
+  float* sL = reinterpret_cast<float*>(sG + S * TILE);  // lse * log2(e)
+  float* sE = sL + S * 64;                             // delta
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sE + S * 64);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+
+  const int bh = blockIdx.x, b = bh / lk.H, h = bh % lk.H;
+  const int k0 = blockIdx.y * 128;
+  // causal: query tiles ending before this key tile are all masked
+  const int qt0 = causal ? k0 / 64 : 0;
+  const int n_qt = (Lq + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA thread, then every lane
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    regs_dealloc();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_tx(kv_full, 4 * TILE);
+        tma_tile<D>(sK, &tk, k0, h, b, kv_full);
+        tma_tile<D>(sK + TILE, &tk, k0 + 64, h, b, kv_full);
+        tma_tile<D>(sV, &tv, k0, h, b, kv_full);
+        tma_tile<D>(sV + TILE, &tv, k0 + 64, h, b, kv_full);
+      }
+      for (int qt = qt0; qt < n_qt; ++qt) {
+        const int n = qt - qt0, s = n % S, q0 = qt * 64;
+        mbar_wait(&empty[s], ((n / S) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_tx(&full[s], 2 * TILE);
+          tma_tile<D>(sQ + s * TILE, &tq, q0, h, b, &full[s]);
+          tma_tile<D>(sG + s * TILE, &tdo, q0, h, b, &full[s]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qi = q0 + lane + 32 * j;
+          const bool in = qi < Lq;
+          sL[s * 64 + lane + 32 * j] =
+              in ? lse[(size_t)bh * Lq + qi] * kLog2e : 0.f;
+          sE[s * 64 + lane + 32 * j] = in ? delta[(size_t)bh * Lq + qi] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    regs_alloc();
+    const int w = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r_lo = k0 + 64 * w;  // the warpgroup's keys
+    const int kj[2] = {r_lo + 16 * warp + g, r_lo + 16 * warp + g + 8};
+    const uint8_t* sKw = sK + w * TILE;
+    const uint8_t* sVw = sV + w * TILE;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int n = qt - qt0, s = n % S, q0 = qt * 64;
+      mbar_wait(&full[s], (n / S) & 1);
+      // causal: a query tile before the warpgroup's first key is masked
+      if (!causal || q0 + 63 >= r_lo) {
+        const uint8_t* sQs = sQ + s * TILE;
+        const uint8_t* sGs = sG + s * TILE;
+        const float* Ls = sL + s * 64;
+        const float* Es = sE + s * 64;
+        // rows: the warp's keys; columns: the tile's 64 queries
+        float st[32], dpt[32];
+        fence_acc(st);
+        fence_acc(dpt);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<0>(st, desc_k(sKw, kk), desc_k(sQs, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<0>(dpt, desc_k(sVw, kk), desc_k(sGs, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(st);
+        fence_acc(dpt);
+
+        // p^T in place of s^T, ds^T in place of dp^T
+        const bool edge = (causal && q0 < r_lo + 63) || q0 + 64 > Lq ||
+                          r_lo + 64 > lk.L;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1, ql = 8 * (i >> 2) + 2 * t + (i & 1);
+          float p = ex2(fmaf(st[i] * scale, kLog2e, -Ls[ql]));
+          if (edge) {
+            const int qi = q0 + ql;
+            if (qi >= Lq || kj[r] >= lk.L || (causal && qi < kj[r])) p = 0.f;
+          }
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - Es[ql]);
+        }
+        // dv += p^T do and dk += ds^T q: both rounded to bf16 as A; do
+        // and q MN-major
+        uint32_t pa[4][4], da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          to_a(pa[kk], st, kk);
+          to_a(da[kk], dpt, kk);
+        }
+        fence_acc(dv_acc);
+        fence_acc(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(dv_acc, pa[kk], desc_mn(sGs, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(dk_acc, da[kk], desc_mn(sQs, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dv_acc);
+        fence_acc(dk_acc);
+      }
+      mbar_arrive_warp(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kj[r] >= lk.L) continue;
+      const size_t off = lk.row(b, h, kj[r]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
+            __floats2bfloat162_rn(dk_acc[4 * j + 2 * r] * scale,
+                                  dk_acc[4 * j + 2 * r + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2 * r],
+                                  dv_acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_hopper(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,
+                  int blhd, int causal, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!mxt_hopper::make_map(&tq, q, B, H, Lq, D, blhd) ||
+      !mxt_hopper::make_map(&tk, k, B, H, Lk, D, blhd) ||
+      !mxt_hopper::make_map(&tv, v, B, H, Lk, D, blhd) ||
+      !mxt_hopper::make_map(&tdo, dout, B, H, Lq, D, blhd))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_dq = hopper_dq_smem<D>();
+  auto kdq = flash_bwd_dq_hopper_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  if (e != cudaSuccess) return (int)e;
+  kdq<<<dim3(B * H, (Lq + 127) / 128), mxt_hopper::kThreads, smem_dq, st>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq),
+      Layout{H, Lq, D, blhd}, Lk, causal, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const size_t smem_kv = hopper_dkv_smem<D>();
+  auto kkv = flash_bwd_dkv_hopper_kernel<D>;
+  e = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_kv);
+  if (e != cudaSuccess) return (int)e;
+  kkv<<<dim3(B * H, (Lk + 127) / 128), mxt_hopper::kThreads, smem_kv, st>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Layout{H, Lk, D, blhd}, Lq, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int DP>
 int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk,
@@ -591,29 +1003,56 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// q, do, dq [B, Lq, H, D] (blhd = 1) or [B, H, Lq, D] (blhd = 0); k, v, dk,
-// dv with Lk rows; all contiguous of `dtype` (0 = float32, 1 = bfloat16);
-// lse and delta [B, H, Lq] float32.  Launches the dq kernel, then the
-// dk/dv kernel, on `stream`.  Returns a cudaError_t (0 = launched).
+// q, out, do, dq [B, Lq, H, D] (blhd = 1) or [B, H, Lq, D] (blhd = 0); k,
+// v, dk, dv with Lk rows; all contiguous of `dtype` (0 = float32, 1 =
+// bfloat16); lse and delta [B, H, Lq] float32.  With has_delta = 0 the
+// call first writes rowsum(do * out) into `delta` (scratch of that shape).
+// `form` names the kernels (0 = fma, 1 = mma, 2 = hopper); a form the
+// operands do not allow is refused, never replaced.  Launches the dq
+// kernel, then the dk/dv kernel, on `stream`.  Returns a cudaError_t (0 =
+// launched).
 int mxt_flash_attn_bwd(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dq, void* dk, void* dv,
+                       const void* out, const void* dout, const float* lse,
+                       float* delta, void* dq, void* dk, void* dv,
                        int dtype, int B, int H, int Lq, int Lk, int D,
-                       int blhd, int causal, float scale, void* stream) {
+                       int blhd, int causal, int form, int has_delta,
+                       float scale, void* stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > 256 ||
-      (causal && Lq != Lk) || B * H > 65535)
+      (causal && Lq != Lk) || B * H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  using mxt_hopper::aligned16;
+  const bool ok =
+      form == 0 || (form == 1 && dtype == 1 && D <= 128) ||
+      (form == 2 && dtype == 1 && (D == 64 || D == 128) && aligned16(q) &&
+       aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dq) &&
+       aligned16(dk) && aligned16(dv));
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Lq,
-                           Lk, D, blhd, causal, scale, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (!has_delta) {
+    const int e = dtype == 0
+        ? launch_delta<float>(dout, out, delta, B, H, Lq, D, blhd, st)
+        : launch_delta<__nv_bfloat16>(dout, out, delta, B, H, Lq, D, blhd,
+                                      st);
+    if (e != 0) return e;
+  }
+  if (form == 2) {
+    if (D == 64)
+      return launch_hopper<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
+                               Lq, Lk, blhd, causal, scale, st);
+    return launch_hopper<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
+                              Lq, Lk, blhd, causal, scale, st);
+  }
+  if (form == 1) {
 #define MXT_BWD_MMA(DP)                                                   \
   if (D <= DP)                                                            \
     return launch_mma<DP>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Lq, \
                           Lk, D, blhd, causal, scale, st);
-  MXT_BWD_MMA(16) MXT_BWD_MMA(32) MXT_BWD_MMA(64) MXT_BWD_MMA(128)
+    MXT_BWD_MMA(16) MXT_BWD_MMA(32) MXT_BWD_MMA(64) MXT_BWD_MMA(128)
 #undef MXT_BWD_MMA
+  }
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Lq,
+                           Lk, D, blhd, causal, scale, st);
   return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
                                  Lq, Lk, D, blhd, causal, scale, st);
 }

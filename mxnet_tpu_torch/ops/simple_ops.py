@@ -95,8 +95,11 @@ def _binary_scalar(name, fn):
 
 
 def _scalar_like(s, x):
-    """``s`` as a 0-d tensor of ``x``'s type (a scalar base or bound)."""
-    return torch.tensor(s, dtype=x.dtype, device=x.device)
+    """``s`` as a 0-d tensor of the type ``x`` takes with a Python scalar
+    (a scalar base or bound): ``jnp``'s weak scalar, so an integer ``x``
+    with a fractional ``s`` promotes to float rather than truncating
+    ``s``."""
+    return torch.tensor(s, dtype=torch.result_type(x, s), device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +131,10 @@ _binary_scalar("_minimum_scalar",
 # Elementwise unary math
 # ---------------------------------------------------------------------------
 
-_unary("abs", torch.abs)
+# abs and clip as jnp writes them, so their gradients split ties as JAX's
+# do: abs has gradient 1 at 0, clip 0.5 at either bound (adding 0 turns
+# -0.0 into 0.0, as lax.abs gives)
+_unary("abs", lambda x: torch.where(x >= 0, x, -x) + 0)
 _unary("sign", torch.sign)
 _unary("round", torch.round)
 _unary("ceil", torch.ceil)
@@ -147,8 +153,9 @@ _unary("tanh", torch.tanh)
 
 register_op(OpDef(
     name="clip",
-    forward=lambda ctx, params, x: torch.clamp(x, params["a_min"],
-                                               params["a_max"]),
+    forward=lambda ctx, params, x: torch.minimum(
+        torch.maximum(x, _scalar_like(params["a_min"], x)),
+        _scalar_like(params["a_max"], x)),
     arguments=("data",),
     params={
         "a_min": OpParam("a_min", "float", required=True),

@@ -12,19 +12,27 @@ for the backward (``_dq_kernel``, ``_dkv_kernel``), joined by a
 * :func:`flash_bwd` (K4, ``csrc/flash_attn_bwd.cu``) returns ``(dq, dk,
   dv)`` from the saved ``lse`` and ``delta = rowsum(do * out)`` (f32), or
   from an external ``delta``; one call launches the dq kernel and the
-  dk/dv kernel;
+  dk/dv kernel, after a small kernel that writes ``delta`` into scratch
+  when the caller gives none;
 * :class:`_FlashAttnFn` is the ``torch.autograd.Function`` whose forward
   runs K3 and saves ``(q, k, v, out, lse)`` and whose backward runs K4.
 
-Each kernel has two forms, chosen in C by type and head dim: bf16 with
-``D <= 128`` (the LM's case) runs its products on the tensor cores
-(``mma.sync``), f32 (which must stay f32-exact) and bf16 with ``D > 128``
-on the f32 FMA units; both round at the same points.  Both wrappers take
-CUDA tensors to the kernel (counting the launch in
-``flash_fwd.launches`` / ``flash_bwd.launches``) or raise; CPU tensors go
-to the plain versions :func:`flash_fwd_ref` / :func:`flash_bwd_ref`,
-which repeat the kernels' arithmetic: f32 scores scaled after the dot,
-``NEG_INF`` masking with ``p`` zeroed after the ``exp``, ``p`` rounded
+Each kernel has three forms, all rounding at the same points, and
+:func:`kernel_form` picks one from the type, the head dim and the
+operands' alignment: ``"hopper"`` (bf16 with ``D`` 64 or 128 and
+16-byte-aligned operands, the LM's case: TMA, ``wgmma`` and warp
+specialisation), ``"mma"`` (the other bf16 cases with ``D <= 128``:
+``mma.sync`` on the tensor cores) and ``"fma"`` (f32, which must stay
+f32-exact, and bf16 with ``D > 128``: the f32 FMA units).  The wrappers
+pass the form to C as an int; ``form=`` names another one (for timing one
+beside the other), and a form the operands do not allow raises, in Python
+and again in C; no form stands in for another.  Both wrappers take CUDA
+tensors to the kernel (counting the launch in ``flash_fwd.launches`` /
+``flash_bwd.launches`` and by form in ``.launches_by_form``) or raise;
+CPU tensors go to the plain versions :func:`flash_fwd_ref` /
+:func:`flash_bwd_ref`, which repeat the kernels' arithmetic: f32 scores
+scaled after the dot, ``NEG_INF`` masking with ``p`` zeroed after the
+``exp``, ``p`` rounded
 to ``v``'s type before ``p @ v``, ``ds`` to ``k``'s/``q``'s type and
 ``p`` to ``do``'s type before the gradient products, ``l`` clamped at
 1e-30, ``lse = m + log(l)``, f32 accumulation throughout.  The forward's
@@ -57,7 +65,7 @@ from ..base import MXNetError
 __all__ = ["NEG_INF", "AUTO_SWITCH_LEN", "flash_attention",
            "flash_attention_stats", "flash_attention_block_bwd",
            "flash_fwd", "flash_fwd_ref", "flash_bwd", "flash_bwd_ref",
-           "kernel_tile"]
+           "kernel_tile", "kernel_form"]
 
 NEG_INF = -1e30
 
@@ -67,6 +75,7 @@ AUTO_SWITCH_LEN = 1024
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FORM_CODES = {"fma": 0, "mma": 1, "hopper": 2}
 
 
 def _pick_block(length: int, preferred: int = 512) -> Optional[int]:
@@ -99,6 +108,33 @@ def kernel_tile(d: int) -> int:
     """Query and key tile of the kernels for head dim ``d``: 64 rows up
     to ``d = 128``, 32 beyond (shared memory holds the tiles in f32)."""
     return 64 if d <= 128 else 32
+
+
+def kernel_form(dtype, d: int, *tensors) -> str:
+    """The kernel form for operands of ``dtype`` with head dim ``d``:
+    ``"hopper"`` for bf16 with ``d`` 64 or 128 when every tensor given
+    starts on a 16-byte boundary (TMA's rule; the rows of such a tile are
+    128 or 256 bytes), ``"mma"`` for the other bf16 cases with ``d <=
+    128``, ``"fma"`` otherwise (f32, and bf16 beyond 128)."""
+    if dtype == torch.bfloat16 and d <= 128:
+        if d in (64, 128) and all(t.data_ptr() % 16 == 0 for t in tensors):
+            return "hopper"
+        return "mma"
+    return "fma"
+
+
+def _resolve_form(what, form, dtype, d, tensors) -> str:
+    """``form``, or :func:`kernel_form`'s choice when it is None; raises
+    on a form the operands do not allow."""
+    best = kernel_form(dtype, d, *tensors)
+    if form is None:
+        return best
+    allowed = {"fma", best} | ({"mma"} if best == "hopper" else set())
+    if form not in allowed:
+        raise MXNetError(f"{what}: form {form!r} cannot take these operands "
+                         f"({dtype}, head_dim {d}; allowed: "
+                         f"{sorted(allowed)})")
+    return form
 
 
 def _dims(q, k, blhd: bool):
@@ -154,7 +190,9 @@ def flash_fwd_ref(q, k, v, *, causal: bool, scale: float,
 
 
 def _delta(do, out, blhd: bool):
-    """``rowsum(do * out)`` in f32, ``[B, H, Lq]``."""
+    """``rowsum(do * out)`` in f32, ``[B, H, Lq]``: the plain version of
+    the ``delta`` kernel that K4's call runs when it is given no
+    ``delta``."""
     return _to_bhld((do.float() * out.float()).sum(dim=-1, keepdim=True),
                     blhd)[..., 0]
 
@@ -205,15 +243,15 @@ def flash_bwd_ref(q, k, v, out, lse, do, *, causal: bool, scale: float,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib(name: str, fn: str, n_ptrs: int) -> ctypes.CDLL:
+def _lib(name: str, fn: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu`` with ``fn``'s argument types set:
-    ``n_ptrs`` pointers, then dtype, B, H, Lq, Lk, D, blhd, causal
-    (ints), scale (float) and the stream."""
+    ``n_ptrs`` pointers, ``n_ints`` ints (dtype, B, H, Lq, Lk, D, blhd,
+    causal, form, ...), scale (float) and the stream."""
     lib = _build.load(name)
     if not getattr(lib, "_mxt_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         f = getattr(lib, fn)
-        f.argtypes = [vp] * n_ptrs + [ci] * 8 + [ctypes.c_float, vp]
+        f.argtypes = [vp] * n_ptrs + [ci] * n_ints + [ctypes.c_float, vp]
         f.restype = ci
         lib.mxt_error_string.argtypes = [ci]
         lib.mxt_error_string.restype = ctypes.c_char_p
@@ -254,52 +292,60 @@ def _check_operands(what, tensors, q, k, layout):
     return blhd, (b, h, lq, lk, d)
 
 
-def _launch(lib, fn, what, ptrs, dtype, dims, blhd, causal, scale, dev):
+def _launch(lib, fn, what, ptrs, dtype, dims, blhd, causal, form, extra,
+            scale, dev):
     b, h, lq, lk, d = dims
     with torch.cuda.device(dev):
         rc = getattr(lib, fn)(
             *ptrs, _DTYPE_CODES[dtype], b, h, lq, lk, d, int(blhd),
-            int(bool(causal)), float(scale),
+            int(bool(causal)), _FORM_CODES[form], *extra, float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise MXNetError(f"{what} kernel launch failed: CUDA error {rc} "
-                         f"({lib.mxt_error_string(rc).decode()})")
+        raise MXNetError(f"{what} kernel launch failed ({form} form): CUDA "
+                         f"error {rc} ({lib.mxt_error_string(rc).decode()})")
 
 
 def flash_fwd(q, k, v, *, causal: bool, scale: float,
-              layout: str = "bhld") -> Tuple[torch.Tensor, torch.Tensor]:
+              layout: str = "bhld",
+              form: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention forward ``(out, lse)`` (K3).  CPU tensors go to
     :func:`flash_fwd_ref`; CUDA tensors launch the kernel of
-    ``csrc/flash_attn_fwd.cu`` (and count the launch) or raise."""
+    ``csrc/flash_attn_fwd.cu`` in ``form`` (default :func:`kernel_form`'s
+    choice; counted) or raise."""
     blhd, dims = _check_operands(
         "flash_fwd", [("q", q, q.shape, q.dtype),
                       ("k", k, k.shape, q.dtype),
                       ("v", v, k.shape, q.dtype)], q, k, layout)
     if causal and dims[2] != dims[3]:
         raise MXNetError("flash_fwd: causal attention needs Lq == Lk")
+    form = _resolve_form("flash_fwd", form, q.dtype, dims[4], (q, k, v))
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
                              layout=layout)
     b, h, lq, _, _ = dims
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    lib = _lib("flash_attn_fwd", "mxt_flash_attn_fwd", 5)
+    lib = _lib("flash_attn_fwd", "mxt_flash_attn_fwd", 5, 9)
     _launch(lib, "mxt_flash_attn_fwd", "flash_fwd",
             [t.data_ptr() for t in (q, k, v, out, lse)], q.dtype, dims,
-            blhd, causal, scale, q.device)
+            blhd, causal, form, (), scale, q.device)
     flash_fwd.launches += 1
+    flash_fwd.launches_by_form[form] += 1
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_form = dict.fromkeys(_FORM_CODES, 0)
 
 
 def flash_bwd(q, k, v, out, lse, do, *, causal: bool, scale: float,
-              layout: str = "bhld", delta=None):
+              layout: str = "bhld", delta=None, form: Optional[str] = None):
     """Attention backward ``(dq, dk, dv)`` (K4) from ``lse`` and
     ``delta`` (default ``rowsum(do * out)`` in f32).  CPU tensors go to
     :func:`flash_bwd_ref`; CUDA tensors launch the dq and dk/dv kernels
-    of ``csrc/flash_attn_bwd.cu`` in one call (counted once) or raise."""
+    of ``csrc/flash_attn_bwd.cu`` in ``form`` (default
+    :func:`kernel_form`'s choice), after the ``delta`` kernel when none
+    is given, in one call (counted once), or raise."""
     b, h = q.shape[0], (q.shape[2] if layout == "blhd" else q.shape[1])
     lq = q.shape[1] if layout == "blhd" else q.shape[2]
     rows = [("lse", lse, (b, h, lq), torch.float32)]
@@ -313,21 +359,29 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool, scale: float,
                       ("do", do, q.shape, q.dtype)] + rows, q, k, layout)
     if causal and dims[2] != dims[3]:
         raise MXNetError("flash_bwd: causal attention needs Lq == Lk")
+    form = _resolve_form("flash_bwd", form, q.dtype, dims[4],
+                         (q, k, v, out, do))
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, out, lse, do, causal=causal,
                              scale=scale, layout=layout, delta=delta)
-    if delta is None:
-        delta = _delta(do, out, blhd).contiguous()
+    has_delta = delta is not None
+    if not has_delta:
+        # written by the call's first kernel
+        delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lib = _lib("flash_attn_bwd", "mxt_flash_attn_bwd", 9)
+    lib = _lib("flash_attn_bwd", "mxt_flash_attn_bwd", 10, 10)
     _launch(lib, "mxt_flash_attn_bwd", "flash_bwd",
-            [t.data_ptr() for t in (q, k, v, do, lse, delta, dq, dk, dv)],
-            q.dtype, dims, blhd, causal, scale, q.device)
+            [t.data_ptr() for t in (q, k, v, out, do, lse, delta, dq, dk,
+                                    dv)],
+            q.dtype, dims, blhd, causal, form, (int(has_delta),), scale,
+            q.device)
     flash_bwd.launches += 1
+    flash_bwd.launches_by_form[form] += 1
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.launches_by_form = dict.fromkeys(_FORM_CODES, 0)
 
 
 class _FlashAttnFn(torch.autograd.Function):

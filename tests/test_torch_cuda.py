@@ -247,22 +247,40 @@ def test_fused_update_kernel_rejects_non_contiguous(cuda):
                          kind="sgd")
 
 
-# (layout, B, H, Lq, Lk, D, causal, external delta)
+# (layout, B, H, Lq, Lk, D, causal, external delta, the bf16 form)
 K34_SHAPES = [
-    ("blhd", 2, 4, 256, 256, 64, True, False),
-    ("bhld", 1, 2, 192, 320, 32, False, False),
-    ("blhd", 1, 2, 100, 100, 16, True, False),     # ragged tiles
-    ("blhd", 1, 2, 128, 128, 256, True, False),
-    ("bhld", 1, 1, 64, 64, 8, False, False),
-    ("bhld", 2, 2, 256, 256, 100, True, True),
+    ("blhd", 2, 4, 256, 256, 64, True, False, "hopper"),
+    ("bhld", 1, 2, 192, 320, 32, False, False, "mma"),
+    ("blhd", 1, 2, 100, 100, 16, True, False, "mma"),     # ragged tiles
+    ("blhd", 1, 2, 128, 128, 256, True, False, "fma"),
+    ("bhld", 1, 1, 64, 64, 8, False, False, "mma"),
+    ("bhld", 2, 2, 256, 256, 100, True, True, "mma"),
+    # the hopper form's edges: ragged 128-row tiles, cross lengths, D 128,
+    # a tile shorter than one block
+    ("blhd", 2, 2, 192, 192, 64, True, False, "hopper"),
+    ("bhld", 1, 2, 200, 328, 64, False, True, "hopper"),
+    ("blhd", 1, 2, 256, 256, 128, True, False, "hopper"),
+    ("bhld", 1, 2, 320, 200, 128, False, False, "hopper"),
+    ("blhd", 1, 1, 64, 64, 64, False, False, "hopper"),
 ]
+
+
+def _form_deltas(before):
+    return [{f: n - old[f] for f, n in fn.launches_by_form.items()
+             if n != old[f]}
+            for fn, old in zip((tfa.flash_fwd, tfa.flash_bwd), before)]
+
+
+def _forms_now():
+    return (dict(tfa.flash_fwd.launches_by_form),
+            dict(tfa.flash_bwd.launches_by_form))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", range(len(K34_SHAPES)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_match_plain(cuda, case, dtype):
-    layout, B, H, Lq, Lk, D, causal, ext = K34_SHAPES[case]
+    layout, B, H, Lq, Lk, D, causal, ext, form = K34_SHAPES[case]
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.DEVICE = str(cuda)
     q, k, v, do = chip_smoke.attn_operands(torch, np, 40 + case, layout, B,
@@ -270,6 +288,7 @@ def test_flash_attention_kernels_match_plain(cuda, case, dtype):
     kw = dict(causal=causal, scale=1.0 / D ** 0.5, layout=layout)
     delta = (torch.randn(B, H, Lq, device=cuda) if ext else None)
     before = tfa.flash_fwd.launches, tfa.flash_bwd.launches
+    forms = _forms_now()
     out, lse = tfa.flash_fwd(q, k, v, **kw)
     grads = tfa.flash_bwd(q, k, v, out, lse, do, delta=delta, **kw)
     ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, **kw)
@@ -278,6 +297,8 @@ def test_flash_attention_kernels_match_plain(cuda, case, dtype):
     assert (tfa.flash_fwd.launches, tfa.flash_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
     f32 = dtype == torch.float32
+    want = "fma" if f32 else form
+    assert _form_deltas(forms) == [{want: 1}, {want: 1}]
     tol = chip_smoke.K34_TOL
     assert (lse - ref_lse).abs().max().item() <= (
         tol["fwd"] if f32 else tol["bf16_rel"])
@@ -293,18 +314,24 @@ def test_flash_attention_kernels_match_plain(cuda, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_on_misaligned_operands(cuda, dtype):
     """Contiguous operands whose address is not 16-byte aligned take the
-    element-wise tile loads."""
+    element-wise tile loads: the mma form for bf16 (TMA needs 16-byte
+    alignment), fma for f32."""
     B, H, L, D = 1, 2, 128, 64
     n = B * L * H * D
     base = [torch.randn(n + 1, device=cuda).to(dtype) for _ in range(4)]
     q, k, v, do = (t[1:].view(B, L, H, D) for t in base)
     assert q.is_contiguous() and q.data_ptr() % 16 != 0
     kw = dict(causal=True, scale=0.125, layout="blhd")
+    forms = _forms_now()
     out, lse = tfa.flash_fwd(q, k, v, **kw)
     grads = tfa.flash_bwd(q, k, v, out, lse, do, **kw)
     ref_out, _ = tfa.flash_fwd_ref(q, k, v, **kw)
     ref_grads = tfa.flash_bwd_ref(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
+    want = "mma" if dtype == torch.bfloat16 else "fma"
+    assert _form_deltas(forms) == [{want: 1}, {want: 1}]
+    with pytest.raises(MXNetError, match="form 'hopper'"):
+        tfa.flash_fwd(q, k, v, form="hopper", **kw)
     tol = chip_smoke.K34_TOL
     f32 = dtype == torch.float32
     assert chip_smoke.attn_err(torch, out, ref_out, dtype) <= (
@@ -312,6 +339,51 @@ def test_flash_attention_kernels_on_misaligned_operands(cuda, dtype):
     for g, r in zip(grads, ref_grads):
         assert chip_smoke.attn_err(torch, g, r, dtype) <= (
             tol["bwd"] if f32 else tol["bf16_rel"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True], ids=["delta_kernel",
+                                                    "external_delta"])
+def test_flash_bwd_hopper_form_is_deterministic(cuda, ext):
+    """Two runs of K4's hopper form on the same inputs give bitwise equal
+    gradients (no atomics)."""
+    chip_smoke.DEVICE = str(cuda)
+    q, k, v, do = chip_smoke.attn_operands(torch, np, 77, "blhd", 2, 4, 512,
+                                           512, 64, torch.bfloat16)
+    kw = dict(causal=True, scale=0.125, layout="blhd")
+    out, lse = tfa.flash_fwd(q, k, v, **kw)
+    delta = torch.randn(2, 4, 512, device=cuda) if ext else None
+    forms = _forms_now()
+    first = tfa.flash_bwd(q, k, v, out, lse, do, delta=delta, **kw)
+    second = tfa.flash_bwd(q, k, v, out, lse, do, delta=delta, **kw)
+    torch.cuda.synchronize()
+    assert _form_deltas(forms)[1] == {"hopper": 2}
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_forced_mma_form_at_a_hopper_shape_matches_plain(cuda, causal):
+    """``form="mma"`` runs the mma.sync kernels where kernel_form would
+    pick the hopper form, and they still match the plain versions."""
+    chip_smoke.DEVICE = str(cuda)
+    q, k, v, do = chip_smoke.attn_operands(torch, np, 78, "blhd", 2, 4, 256,
+                                           256, 64, torch.bfloat16)
+    assert tfa.kernel_form(q.dtype, 64, q, k, v) == "hopper"
+    kw = dict(causal=causal, scale=0.125, layout="blhd")
+    forms = _forms_now()
+    out, lse = tfa.flash_fwd(q, k, v, form="mma", **kw)
+    grads = tfa.flash_bwd(q, k, v, out, lse, do, form="mma", **kw)
+    ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, **kw)
+    ref_grads = tfa.flash_bwd_ref(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert _form_deltas(forms) == [{"mma": 1}, {"mma": 1}]
+    tol = chip_smoke.K34_TOL["bf16_rel"]
+    assert (lse - ref_lse).abs().max().item() <= tol
+    assert chip_smoke.attn_err(torch, out, ref_out, torch.bfloat16) <= tol
+    for g, r in zip(grads, ref_grads):
+        assert chip_smoke.attn_err(torch, g, r, torch.bfloat16) <= tol
 
 
 @pytest.mark.cuda

@@ -14,6 +14,8 @@ cancels keeps only that summation-order noise).  grad_req
 AdamW; rtol 1e-6 after three updates, the same operation order) are held
 against the JAX executor and optimizer too.
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -185,6 +187,36 @@ def test_grad_req_matches_jax(req):
             "add": 7.0 + 2 * (2 * xv ** 2 * wv * head),
             "null": np.full(3, 7.0)}[req]
     np.testing.assert_allclose(tgw.asnumpy(), want, rtol=1e-6)
+
+
+TIES = {
+    "abs": (lambda S, x: S.abs(x), jnp.abs, [0.0, -0.0, 1.0, -2.0]),
+    "clip": (lambda S, x: S.clip(x, a_min=0.0, a_max=1.0),
+             lambda x: jnp.clip(x, 0.0, 1.0), [0.0, 1.0, 0.5, -1.0, 2.0]),
+}
+
+
+@pytest.mark.parametrize("op", sorted(TIES))
+def test_gradient_at_ties_matches_jax_grad(op):
+    """abs has gradient 1 at 0, clip 0.5 at a_min and at a_max, as
+    jax.grad gives them; the forward values are those of JAX too."""
+    make, jfn, xs = TIES[op]
+    xv = np.array(xs, np.float32)
+    want = np.asarray(jax.grad(lambda x: jnp.sum(jfn(x)))(jnp.asarray(xv)))
+    got = []
+    for S, nd, ctx in ((jsym, jnd, mx.cpu()), (tsym, tnd, mxt.cpu())):
+        g = nd.zeros(xv.shape)
+        ex = make(S, S.Variable("x")).bind(ctx, {"x": nd.array(xv)},
+                                           args_grad={"x": g})
+        y = ex.forward(is_train=True)[0]
+        ex.backward([nd.ones(xv.shape)])
+        got.append((y.asnumpy(), g.asnumpy()))
+    (jy, jg), (ty, tg) = got
+    np.testing.assert_array_equal(jg, want)
+    np.testing.assert_array_equal(tg, want)
+    np.testing.assert_array_equal(ty, jy)
+    if op == "abs":
+        assert not np.signbit(ty).any()     # abs(-0.0) is 0.0, as in JAX
 
 
 def test_arithmetic_sugar_and_list_bind():

@@ -276,6 +276,111 @@ def test_bwd_wrapper_checks_row_statistics():
                       scale=0.5, delta=torch.zeros(2, 64))
 
 
+def _aligned(shape, dtype, offset=0):
+    """A contiguous tensor ``offset`` elements into a fresh buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+# (dtype, head dim, element offset of k) -> the form kernel_form picks
+FORMS = [
+    (torch.bfloat16, 64, 0, "hopper"), (torch.bfloat16, 128, 0, "hopper"),
+    (torch.bfloat16, 64, 1, "mma"), (torch.bfloat16, 128, 3, "mma"),
+    (torch.bfloat16, 8, 0, "mma"), (torch.bfloat16, 32, 0, "mma"),
+    (torch.bfloat16, 100, 0, "mma"), (torch.bfloat16, 256, 0, "fma"),
+    (torch.bfloat16, 160, 0, "fma"), (torch.float32, 64, 0, "fma"),
+    (torch.float32, 128, 0, "fma"), (torch.float32, 16, 0, "fma"),
+]
+
+
+@pytest.mark.parametrize("dtype, d, offset, form", FORMS,
+                         ids=[f"{str(f[0])[6:]}-d{f[1]}-off{f[2]}"
+                              for f in FORMS])
+def test_kernel_form_picks_by_type_head_dim_and_alignment(dtype, d, offset,
+                                                          form):
+    """hopper only when every tensor given starts on a 16-byte boundary:
+    an aligned q beside a misaligned k does not qualify."""
+    q = _aligned((1, 2, 64, d), dtype)
+    k = _aligned((1, 2, 64, d), dtype, offset)
+    assert q.data_ptr() % 16 == 0 and (k.data_ptr() % 16 == 0) == (
+        offset == 0)
+    assert tfa.kernel_form(dtype, d, q, k) == form
+
+
+# (dtype, head dim, element offset, form) that the wrappers refuse
+REFUSED = [
+    (torch.float32, 64, 0, "hopper"), (torch.float32, 64, 0, "mma"),
+    (torch.bfloat16, 32, 0, "hopper"), (torch.bfloat16, 100, 0, "hopper"),
+    (torch.bfloat16, 64, 1, "hopper"), (torch.bfloat16, 256, 0, "mma"),
+    (torch.bfloat16, 256, 0, "hopper"), (torch.bfloat16, 64, 0, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("dtype, d, offset, form", REFUSED,
+                         ids=[f"{str(f[0])[6:]}-d{f[1]}-off{f[2]}-{f[3]}"
+                              for f in REFUSED])
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_kernel_wrappers_refuse_a_form_the_operands_do_not_allow(
+        which, dtype, d, offset, form):
+    q, k, v, out, do = (_aligned((1, 2, 64, d), dtype, offset)
+                        for _ in range(5))
+    lse = torch.zeros(1, 2, 64)
+    with pytest.raises(MXNetError, match=f"form {form!r}"):
+        if which == "fwd":
+            tfa.flash_fwd(q, k, v, causal=True, scale=0.5, form=form)
+        else:
+            tfa.flash_bwd(q, k, v, out, lse, do, causal=True, scale=0.5,
+                          form=form)
+
+
+@pytest.mark.parametrize("form", ["hopper", "mma", "fma"])
+def test_allowed_forms_run_the_plain_versions_on_cpu(form):
+    """A form the operands allow is accepted on CPU tensors, which run
+    the plain versions whatever the form (no launch is counted)."""
+    rng = np.random.RandomState(12)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 2, 64, 64).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    kw = dict(causal=True, scale=0.125)
+    counts = (dict(tfa.flash_fwd.launches_by_form),
+              dict(tfa.flash_bwd.launches_by_form))
+    out, lse = tfa.flash_fwd(q, k, v, form=form, **kw)
+    grads = tfa.flash_bwd(q, k, v, out, lse, do, form=form, **kw)
+    ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, **kw)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    for g, r in zip(grads, tfa.flash_bwd_ref(q, k, v, out, lse, do, **kw)):
+        assert torch.equal(g, r)
+    assert (tfa.flash_fwd.launches_by_form,
+            tfa.flash_bwd.launches_by_form) == counts
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_plain_versions_with_internal_delta_match_jax_kernels_bf16(causal):
+    """At a shape the hopper form takes (bf16, D 64, tiles of 64), the
+    plain versions, with ``delta`` computed inside, against the JAX
+    package's forward and backward Pallas kernels in interpret mode."""
+    rng = np.random.RandomState(13 + causal)
+    q, k, v, do = _arrays(rng, [(1, 2, 128, 64)] * 4)
+    scale = 0.125
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16)[0]
+                       for a in (q, k, v, do))
+    jout, jlse8 = jfa._flash_fwd_pallas(jq, jk, jv, causal, scale, 64, 64,
+                                        interpret=True)
+    jlse = jlse8[:, 0, :]
+    jgrads = jfa._flash_bwd_pallas(jq, jk, jv, jout, jlse, jdo, causal,
+                                   scale, 64, 64, interpret=True)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16)
+                       for a in (q, k, v, do))
+    tout, tlse = tfa.flash_fwd_ref(tq, tk, tv, causal=causal, scale=scale)
+    _close(_f32(tout[0]), _f32(jout), "bfloat16", 0, "out")
+    np.testing.assert_allclose(tlse[0].numpy(), np.asarray(jlse), rtol=2e-5,
+                               atol=2e-5)
+    tgrads = tfa.flash_bwd_ref(tq, tk, tv, tout, tlse, tdo, causal=causal,
+                               scale=scale)
+    for n, a, e in zip("qkv", tgrads, jgrads):
+        assert a.dtype == torch.bfloat16
+        _close(_f32(a[0]), _f32(e), "bfloat16", 0, f"d{n}")
+
+
 def test_mesh_is_not_ported():
     from mxnet_tpu_torch.parallel import default_mesh, make_mesh
     with pytest.raises(MXNetError, match="not ported"):

@@ -205,6 +205,28 @@ def test_broadcast_and_binary_extras():
               getattr(jnd, name)(jnd.array(a), scalar=0.5), rtol=1e-6)
 
 
+@pytest.mark.parametrize("name, scalar", [
+    ("_rpower_scalar", 2.5), ("_minimum_scalar", 1.5),
+    ("_maximum_scalar", 1.5), ("_maximum_scalar", -0.5)])
+def test_fractional_scalar_on_int32_array_matches_jax(name, scalar):
+    """The scalar is not cast to the array's integer type: it promotes as
+    jnp's weak Python scalar does.  Compared by value (under x64 the JAX
+    package widens to float64, the port stays float32)."""
+    a = np.array([-2, 1, 2], np.int32)
+    t = getattr(tnd, name)(tnd.array(a, dtype="int32"), scalar=scalar)
+    j = getattr(jnd, name)(jnd.array(a, dtype="int32"), scalar=scalar)
+    assert t.dtype == np.float32
+    np.testing.assert_allclose(t.asnumpy(), j.asnumpy(), rtol=1e-6)
+
+
+def test_scalar_to_the_power_of_int32_array_matches_jax():
+    a = np.array([-2, 1, 2], np.int32)
+    t = 2.5 ** tnd.array(a, dtype="int32")
+    j = 2.5 ** jnd.array(a, dtype="int32")
+    np.testing.assert_allclose(t.asnumpy(), j.asnumpy(), rtol=1e-6)
+    np.testing.assert_allclose(t.asnumpy(), [0.16, 2.5, 6.25], rtol=1e-6)
+
+
 def test_choose_onehot_fill_and_loss():
     rng = np.random.RandomState(6)
     x = rng.rand(4, 5).astype(np.float32)

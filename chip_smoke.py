@@ -14,9 +14,10 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    the main paths' shapes and at edge cases: flash decode (K5) and its
    fp8 instance (K5-fp8, on pools quantized by ``quant.rowwise_quantize``,
    f32 and bf16 queries; the fp8 read also against the f32 read, and the
-   card's e4m3 cast against the CPU's, byte for byte), the row softmax
-   (K1) and flash attention forward (K3) and backward (K4) within stated
-   tolerances (K3/K4 in f32 and bf16 at the LM's shape and at the hopper
+   card's e4m3 cast against the CPU's, byte for byte), each in its
+   "hopper" and "warp" forms, the row softmax (K1) in its "warp" and
+   "block" forms, and flash attention forward (K3) and backward (K4)
+   within stated tolerances (K3/K4 in f32 and bf16 at the LM's shape and at the hopper
    form's edges: D 128, ragged and cross lengths, external and internal
    delta; each case checks the form that ran: hopper, mma.sync for
    misaligned operands and D 100, fma for f32 and D 256; and the mma.sync
@@ -36,14 +37,16 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    them served again alone give the same streams, that every greedy token
    is the argmax of a teacher-forced forward over the same tokens, that
    the pool drains, and that the kernel launched ``num_layers`` times per
-   decode step; prints tokens/s, p50 TTFT and the median decode-step time;
+   decode step, every launch in the hopper form; prints tokens/s, p50
+   TTFT and the median decode-step time;
 5. serves the same model and requests in ``bench.py``'s round-12
    configuration, chunked prefill (chunks of 64 tokens), twice: with f32
    pools (greedy tokens pass the teacher-forced check, the chunk count is
    the sum of ceil(prompt / 64), K5 launches ``num_layers`` times per
    decode step) and with ``kv_quant="fp8"`` (every request finishes, the
    pool drains, K5-fp8 launches ``num_layers`` times per decode step and
-   K5 never, a greedy and a sampled request served again alone repeat
+   K5 never, all in the hopper form, a greedy and a sampled request
+   served again alone repeat
    their streams); prints tokens/s, p50 TTFT, the median decode-step
    time and the pools' bytes for both, five profiled decode steps of a
    full batch (device time by layer, idle share; phase 4 too), and how
@@ -52,21 +55,28 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    new tokens, greedy, chunks of 64, fp8 pools) with the prefix cache and
    without: streams equal, at least 7 prefix hits, fewer chunks by the
    shared prefix; a cached run with ``defrag()`` halfway moves blocks,
-   keeps the streams and passes ``check_tables()``; prints both p50 TTFTs;
+   keeps the streams and passes ``check_tables()``; every K5-fp8 launch
+   in the hopper form; prints both p50 TTFTs;
 7. trains ResNet-50 at full width (depth 50, 3x224x224, 1000 classes,
    batch 64, f32; parameters drawn with numpy from seed 0 by the default
    initializer rule) through ``ShardedTrainer`` with SGD (lr 0.1,
    momentum 0.9, wd 1e-4), the guard and clip 5.0: one warm-up and 5
    timed steps on one fixed batch, then a step on a batch with a NaN;
    checks finite falling losses, a bitwise no-op on the NaN step, one K1
-   launch and one K2 launch per bucket (25) per step, and a bitwise
+   launch (warp form) and one K2 launch per bucket (25) per step, and a
+   bitwise
    fused-vs-unfused update from the same gradients; prints the median
    step time and images/s;
 8. times each kernel with CUDA events (median, L2 flushed between
    launches) beside its plain version, a library yardstick and the
-   card's bound for the same work; K5 and K5-fp8 at the served decode
-   shape beside a gather (and dequantization) plus
-   ``F.scaled_dot_product_attention``; K3 and K4 at the LM's shapes in
+   card's bound for the same work, after the launch floor (an empty
+   kernel); K5 and K5-fp8 at the served decode shape, the hopper and warp
+   forms in turns and per call, beside a gather (and dequantization) plus
+   ``F.scaled_dot_product_attention``; K1 in its warp and block forms
+   and ``torch.softmax`` in turns, the block form at [8, 16384]; the
+   decode sweep: contexts of 512-32768 positions (B 8) on f32, bf16 and
+   fp8 pools, both forms in turns, GB/s and the share of the bytes
+   bound, the yardstick up to 8192; K3 and K4 at the LM's shapes in
    f32 and bf16 (the hopper and the mma.sync forms in turns; the hopper
    form must be at least twice as fast) beside
    ``F.scaled_dot_product_attention`` (forward, and its backward alone),
@@ -121,6 +131,10 @@ TOL = {"float32": 2e-5,         # summation order only
 # K1 against its plain version: the online rescale of the running sum
 # changes only the last bits of an f32 probability
 K1_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
+# K1's warp form takes rows of up to 1024 columns (one warp a row)
+K1_WARP_COLS = 1024
+# the two forms of flash decode (K5, K5-fp8), the main path's first
+DECODE_FORMS = ("hopper", "warp")
 
 # serving configuration: bench.py's transformer-LM default at full width
 VOCAB, LAYERS, D_MODEL, HEADS = 32000, 6, 512, 8
@@ -254,24 +268,31 @@ def kernel_cases(torch, np):
 
 
 def phase_kernel_vs_plain(torch, np, fd):
+    """K5 against its plain version on every case in both forms (every
+    case's operands are aligned, so kernel_form picks the hopper form)."""
     errs = {}
     for i, (name, kw, dtype, split_k) in enumerate(kernel_cases(torch, np)):
         args = decode_inputs(torch, np, seed=100 + i, dtype=dtype, **kw)
-        out = fd.flash_decode_attention(*args, split_k=split_k)
+        check(fd.kernel_form(args[1], args[2]) == "hopper",
+              f"{name}: kernel_form picked {fd.kernel_form(*args[1:3])}")
         ref = fd.flash_decode_attention_ref(*args, split_k=split_k)
-        torch.cuda.synchronize()
-        check(out.dtype == ref.dtype and out.shape == ref.shape,
-              f"{name}: kernel gave {out.dtype}{tuple(out.shape)}, plain "
-              f"{ref.dtype}{tuple(ref.shape)}")
-        check(bool(torch.isfinite(out.float()).all()),
-              f"{name}: non-finite kernel output")
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL[str(out.dtype).replace("torch.", "")]
-        log(f"  kernel vs plain [{name}]: max_abs_err {err:.3e} "
-            f"(tol {tol:g})")
-        check(err <= tol, f"{name}: kernel disagrees with its plain "
-              f"version: max_abs_err {err} > {tol}")
-        errs[name] = err
+        for form in DECODE_FORMS:
+            out = fd.flash_decode_attention(*args, split_k=split_k,
+                                            form=form)
+            torch.cuda.synchronize()
+            label = f"{name}, {form}"
+            check(out.dtype == ref.dtype and out.shape == ref.shape,
+                  f"{label}: kernel gave {out.dtype}{tuple(out.shape)}, "
+                  f"plain {ref.dtype}{tuple(ref.shape)}")
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"{label}: non-finite kernel output")
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL[str(out.dtype).replace("torch.", "")]
+            log(f"  kernel vs plain [{label}]: max_abs_err {err:.3e} "
+                f"(tol {tol:g})")
+            check(err <= tol, f"{label}: kernel disagrees with its plain "
+                  f"version: max_abs_err {err} > {tol}")
+            errs[(name, form)] = err
     return errs
 
 
@@ -286,7 +307,8 @@ def quantize_pool(quant, kv, pool):
 
 def phase_fp8_vs_plain(torch, np, fd, quant, kv):
     """K5-fp8 against its plain version on K5's cases with the pools
-    quantized (f32 and bf16 ``q``, tolerance by ``q``'s type); the fp8
+    quantized (f32 and bf16 ``q``, tolerance by ``q``'s type), in both
+    forms; the fp8
     read against the f32 read on the same pools at the engine's shapes
     (64 columns, lengths up to 1024: a short read averages the rounding
     of few positions, a length-1 row is one position's rounding); the
@@ -297,15 +319,19 @@ def phase_fp8_vs_plain(torch, np, fd, quant, kv):
         q, kp, vp, tables, lens = decode_inputs(
             torch, np, seed=100 + i, dtype=torch.float32, **kw)
         kq, vq = quantize_pool(quant, kv, kp), quantize_pool(quant, kv, vp)
+        check(fd.kernel_form(kq, vq) == "hopper",
+              f"K5-fp8 {name}: kernel_form picked {fd.kernel_form(kq, vq)}")
         outs = {}
-        for q_dtype in (torch.float32, torch.bfloat16):
+        for q_dtype, form in [(d, f) for d in (torch.float32, torch.bfloat16)
+                              for f in DECODE_FORMS]:
             qx = q.to(q_dtype)
             out = fd.flash_decode_attention(qx, kq, vq, tables, lens,
-                                            split_k=split_k)
+                                            split_k=split_k, form=form)
             ref = fd.flash_decode_attention_ref(qx, kq, vq, tables, lens,
                                                 split_k=split_k)
             torch.cuda.synchronize()
-            label = f"{name}, {str(q_dtype).replace('torch.', '')} q"
+            label = (f"{name}, {str(q_dtype).replace('torch.', '')} q, "
+                     f"{form}")
             check(out.dtype == q_dtype and out.shape == ref.shape,
                   f"K5-fp8 {label}: kernel gave {out.dtype}"
                   f"{tuple(out.shape)}")
@@ -318,11 +344,11 @@ def phase_fp8_vs_plain(torch, np, fd, quant, kv):
             check(err <= tol, f"K5-fp8 {label}: kernel disagrees with its "
                   f"plain version: max_abs_err {err} > {tol}")
             errs[label] = err
-            outs[q_dtype] = out
+            outs[q_dtype, form] = out
         if kw["nblk"] == 64 and "trash_rows" not in kw:   # engine shapes
             f32_read = fd.flash_decode_attention_ref(q, kp, vp, tables, lens,
                                                      split_k=split_k)
-            e = (outs[torch.float32] - f32_read).abs().max().item()
+            e = (outs[torch.float32, "hopper"] - f32_read).abs().max().item()
             read_err = max(read_err, e)
             log(f"  fp8 read vs f32 read [{name}]: max_abs_err {e:.3e} "
                 f"(tol {FP8_READ_TOL:g})")
@@ -343,21 +369,24 @@ def phase_fp8_vs_plain(torch, np, fd, quant, kv):
 
 def phase_k1_vs_plain(torch, np, nn_ops):
     """K1 against its plain version, f32 and bf16, at the training shape
-    and at edges (few columns, the column limit, a ragged row length);
-    the last case has -inf logits, which must give probability 0."""
+    and at edges (few columns, the column limit, a ragged row length),
+    in the warp form (rows up to 1024 columns) and the block form; the
+    last case has -inf logits, which must give probability 0."""
     errs = {}
     rng = np.random.RandomState(21)
     for shape in K1_SHAPES + [(5, 300)]:
         x = (4.0 * rng.randn(*shape)).astype(np.float32)
         if shape == (5, 300):
             x[:, ::7] = -np.inf
-        for dtype in (torch.float32, torch.bfloat16):
+        forms = ("warp", "block") if shape[1] <= K1_WARP_COLS else ("block",)
+        for dtype, form in [(d, f) for d in (torch.float32, torch.bfloat16)
+                            for f in forms]:
             t = torch.from_numpy(x).to(DEVICE, dtype)
-            out = nn_ops.softmax_rows(t)
+            out = nn_ops.softmax_rows(t, form=form)
             ref = nn_ops.softmax_rows_ref(t)
             torch.cuda.synchronize()
             dname = str(dtype).replace("torch.", "")
-            name = f"{'x'.join(map(str, shape))} {dname}"
+            name = f"{'x'.join(map(str, shape))} {dname} {form}"
             check(out.dtype == dtype and out.shape == t.shape,
                   f"K1 {name}: kernel gave {out.dtype}{tuple(out.shape)}")
             check(bool(torch.isfinite(out.float()).all()),
@@ -683,11 +712,11 @@ def phase_serve(torch, np, fd):
 
 def serve_run(torch, np, eng, reqs, fd):
     """Drive ``eng`` through ``reqs`` from counts of 0; every step ends in
-    a synchronise.  Returns the requests, the wall time, the host times of
-    steps that ran no prefill work, the flash-decode launches (plain,
-    fp8) and the engine's counters."""
-    fd.flash_decode_attention.launches = 0
-    fd.flash_decode_attention.launches_fp8 = 0
+    a synchronise; every flash-decode launch must have run the hopper
+    form.  Returns the requests, the wall time, the host times of steps
+    that ran no prefill work, the flash-decode launches (plain, fp8) and
+    the engine's counters."""
+    reset_decode_counts(fd)
     eng.counters.clear()
     t_start = time.perf_counter()
     ids = [eng.submit(p, **kw) for p, kw in reqs]
@@ -702,8 +731,27 @@ def serve_run(torch, np, eng, reqs, fd):
     wall = time.perf_counter() - t_start
     launches = (fd.flash_decode_attention.launches,
                 fd.flash_decode_attention.launches_fp8)
+    check_hopper_launches(fd, "served path")
     return ([eng.requests[i] for i in ids], wall, decode_ms, launches,
             dict(eng.counters))
+
+
+def reset_decode_counts(fd):
+    """Every flash-decode count to 0 (plain, fp8, by form)."""
+    f = fd.flash_decode_attention
+    f.launches = f.launches_fp8 = 0
+    f.launches_by_form = dict.fromkeys(f.launches_by_form, 0)
+
+
+def check_hopper_launches(fd, what):
+    """Every K5 and K5-fp8 launch since the reset ran the hopper form."""
+    f = fd.flash_decode_attention
+    total = f.launches + f.launches_fp8
+    check(total > 0 and f.launches_by_form == dict(
+        dict.fromkeys(f.launches_by_form, 0), hopper=total),
+          f"{what}: flash-decode launches by form {f.launches_by_form}, "
+          f"expected all {total} in the hopper form")
+    log(f"  {what}: all {total} flash-decode launches in the hopper form")
 
 
 def serve_stats(np, done, wall, decode_ms, counters):
@@ -813,7 +861,7 @@ def phase_serve_r12(torch, np, fd, kv):
     return out["fp8"][2], {k: v[0] for k, v in out.items()}
 
 
-def phase_prefix_cache(torch, np):
+def phase_prefix_cache(torch, np, fd):
     """8 requests over one shared prefix, fp8 pools, chunked prefill: the
     prefix cache against a cache-cold engine, and a cached run with a
     defrag halfway."""
@@ -835,6 +883,7 @@ def phase_prefix_cache(torch, np):
         eng.warmup()
         torch.cuda.synchronize()
         eng.counters.clear()
+        reset_decode_counts(fd)
         ids = [eng.submit(p, **kw) for p, kw in reqs]
         steps, moved = 0, 0
         while not eng.sched.idle():
@@ -849,6 +898,14 @@ def phase_prefix_cache(torch, np):
                                 for r in done]))
         check(eng.alloc.num_used == 0, "KV blocks held after drain")
         eng.check_tables()
+        f = fd.flash_decode_attention
+        check(f.launches == 0 and f.launches_fp8
+              == eng.counters["kernel_launches"]
+              == LAYERS * eng.counters["decode_steps"],
+              f"prefix-cache run: K5 {f.launches}, K5-fp8 {f.launches_fp8} "
+              f"launches, {eng.counters['decode_steps']} decode steps")
+        check_hopper_launches(fd, f"prefix-cache run (cache "
+                              f"{'on' if prefix_cache else 'off'})")
         return eng, [r.tokens for r in done], ttft, steps, moved
 
     cold, cold_toks, cold_ttft, _, _ = run(False)
@@ -947,6 +1004,8 @@ def phase_train(torch, np, nn_ops, fu):
 
     # the main path's run: every count starts at 0 here
     nn_ops.softmax_rows.launches = 0
+    nn_ops.softmax_rows.launches_by_form = dict.fromkeys(
+        nn_ops.softmax_rows.launches_by_form, 0)
     fu.fused_update.launches = 0
     losses, step_ms = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -969,6 +1028,7 @@ def phase_train(torch, np, nn_ops, fu):
     after = [bits(torch, t) for t in
              [tr._flat_w] + tr._flat_state + list(tr._aux.values())]
     k1 = nn_ops.softmax_rows.launches
+    k1_forms = dict(nn_ops.softmax_rows.launches_by_form)
     k2 = fu.fused_update.launches
     steps = 2 + TIMED_STEPS
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -982,10 +1042,12 @@ def phase_train(torch, np, nn_ops, fu):
           "the NaN step changed parameters, optimizer state or moving "
           "statistics")
     check(k1 == steps, f"softmax_rows launched {k1} times in {steps} steps")
+    check(k1_forms == {"warp": k1, "block": 0},
+          f"softmax_rows launches by form {k1_forms}, expected all warp")
     check(k2 == n_buckets * steps, f"fused_update launched {k2} times in "
           f"{steps} steps of {n_buckets} buckets")
-    log(f"  NaN step: skipped, state bitwise unchanged; launches K1 {k1}, "
-        f"K2 {k2} over {steps} steps")
+    log(f"  NaN step: skipped, state bitwise unchanged; launches K1 {k1} "
+        f"(all in the warp form), K2 {k2} over {steps} steps")
     profile = profile_step(torch, lambda: tr.step(batch))
 
     # fused vs unfused from the same gradients, bitwise: cuDNN's backward
@@ -1026,7 +1088,7 @@ def phase_train(torch, np, nn_ops, fu):
 
 # kernel-name fragments -> the layer whose work the kernel does
 _KERNEL_GROUPS = (
-    ("K1 softmax_rows", ("softmax_rows_kernel",)),
+    ("K1 softmax_rows", ("softmax_rows_",)),
     ("K2 fused_update", ("fused_update_kernel",)),
     ("convolution/matmul (cuDNN, cuBLAS)",
      ("conv", "xmma", "cudnn", "implicit", "gemm", "wgrad", "dgrad",
@@ -1060,7 +1122,8 @@ _LOSS_HEAD_OPS = ("aten::logsumexp", "aten::gather",
 
 # kernel-name fragments of a serving decode step -> the layer
 _SERVE_KERNEL_GROUPS = (
-    ("K5 / K5-fp8 flash decode", ("decode_partial_kernel",
+    ("K5 / K5-fp8 flash decode", ("decode_hopper_kernel",
+                                  "decode_partial_kernel",
                                   "combine_kernel")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas",
                          "nvjet")),
@@ -1159,8 +1222,62 @@ def time_row(torch, kernel, plain, library):
             "call_ms": time_ms(torch, kernel, hide_host=False)}
 
 
-def phase_timing(torch, np, fd):
+def turns(torch, fns, reps=50):
+    """Device ms of each callable of ``{name: fn}``, timed in turns (in
+    the order given, then reversed; the mean of the two)."""
+    got = {n: [] for n in fns}
+    for n in list(fns) + list(reversed(list(fns))):
+        got[n].append(time_ms(torch, fns[n], reps))
+    return {n: sum(t) / len(t) for n, t in got.items()}
+
+
+def decode_yardstick(torch, kv, q, k_pool, v_pool, tables, lens):
+    """One gather (dequantizing fp8 pools, widening to ``q``'s type) and
+    ``F.scaled_dot_product_attention`` over K5's inputs: the library
+    yardstick of K5 and K5-fp8, never used by the port."""
     import torch.nn.functional as F
+    B, nblk = tables.shape
+
+    def dense(pool, idx):
+        if kv.is_quantized(pool):
+            pay = pool.payload.view(torch.uint8)[idx].view(pool.payload.dtype)
+            x = pay.float() * pool.scale[idx][..., None, None]
+        else:
+            x = pool[idx].to(q.dtype)
+        bs, h, hd = x.shape[2:]
+        return x.reshape(B, nblk * bs, h, hd).transpose(1, 2)
+
+    def library():
+        idx = tables.long()
+        k, v = dense(k_pool, idx), dense(v_pool, idx)
+        mask = (torch.arange(k.shape[2], device=q.device)[None, :]
+                < lens[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q[:, :, None, :], k, v,
+                                              attn_mask=mask)[:, :, 0]
+
+    return library
+
+
+def decode_work(B, H, hd, BS, lengths, esize, quantized, q_esize=4):
+    """The least bytes and operations of one decode call: each valid K/V
+    position read once (for fp8 with its two f32 scales), each used table
+    entry, q and lengths read once, the output written once; q.k and p.v
+    (multiply + add), and for fp8 one dequantizing multiply per K and V
+    element."""
+    valid = int(sum(int(n) for n in lengths))
+    used_cols = int(sum(-(-int(n) // BS) for n in lengths))
+    nbytes = (2 * valid * H * hd * esize + (2 * valid * 4 if quantized
+                                            else 0)
+              + used_cols * 4 + B * 4 + 2 * B * H * hd * q_esize)
+    return nbytes, (6 if quantized else 4) * valid * H * hd
+
+
+def phase_timing_decode(torch, np, fd, quant, kv, quantized):
+    """K5 (f32 pools) or K5-fp8 (the same pools quantized by
+    ``rowwise_quantize``) at the served decode shape (B 8, H 8, hd 64, BS
+    16, 64 columns, decode-time lengths of the served mix, f32 ``q``):
+    the hopper and warp forms in turns and per call, beside the plain
+    version and a gather (+ dequantization) + SDPA yardstick."""
     B, H, hd, BS, nblk = 8, 8, 64, 16, 64
     rng = np.random.RandomState(11)
     # decode-time lengths of the served mix: prompts 32-512 + 64 new
@@ -1168,85 +1285,128 @@ def phase_timing(torch, np, fd):
     q, kp, vp, tables, lens = decode_inputs(
         torch, np, seed=12, B=B, H=H, hd=hd, BS=BS, nblk=nblk, npool=520,
         lengths=lengths, dtype=torch.float32)
+    if quantized:
+        kp, vp = quantize_pool(quant, kv, kp), quantize_pool(quant, kv, vp)
+    what = "K5-fp8" if quantized else "K5"
 
-    def library():
-        idx = tables.long()
-        k = kp[idx].reshape(B, nblk * BS, H, hd).transpose(1, 2)
-        v = vp[idx].reshape(B, nblk * BS, H, hd).transpose(1, 2)
-        mask = (torch.arange(nblk * BS, device=DEVICE)[None, :]
-                < lens[:, None])[:, None, None, :]
-        return F.scaled_dot_product_attention(q[:, :, None, :], k, v,
-                                              attn_mask=mask)[:, :, 0]
+    def run(form=None):
+        return fd.flash_decode_attention(q, kp, vp, tables, lens, form=form)
 
-    out = fd.flash_decode_attention(q, kp, vp, tables, lens)
-    lib_err = (library() - out).abs().max().item()
+    library = decode_yardstick(torch, kv, q, kp, vp, tables, lens)
+    check(fd.kernel_form(kp, vp) == "hopper",
+          f"{what}: kernel_form did not pick the hopper form")
+    lib_err = (library() - run()).abs().max().item()
     torch.cuda.synchronize()
-    check(lib_err <= 1e-4, f"library yardstick disagrees: {lib_err}")
-    times = time_row(
-        torch, lambda: fd.flash_decode_attention(q, kp, vp, tables, lens),
-        lambda: fd.flash_decode_attention_ref(q, kp, vp, tables, lens),
-        library)
-    # the least work: each valid K/V position read once, each used table
-    # entry, q and lengths read once, the output written once
-    esize = kp.element_size()
-    valid = int(lengths.sum())
-    used_cols = int(sum(-(-int(n) // BS) for n in lengths))
-    nbytes = (2 * valid * H * hd * esize + used_cols * 4 + B * 4
-              + 2 * B * H * hd * q.element_size())
-    flops = 4 * valid * H * hd          # q.k and p.v, multiply + add
-    row = dict(bound(nbytes, flops), **times, library_max_abs_err=lib_err)
-    log("  timing K5: " + json.dumps(row))
+    check(lib_err <= 1e-4, f"{what} library yardstick disagrees: {lib_err}")
+    t = turns(torch, {f: (lambda f=f: run(f)) for f in DECODE_FORMS})
+    nbytes, flops = decode_work(B, H, hd, BS, lengths, 1 if quantized else 4,
+                                quantized)
+    row = dict(bound(nbytes, flops), ms=t["hopper"], warp_ms=t["warp"],
+               plain_ms=time_ms(torch, lambda: fd.flash_decode_attention_ref(
+                   q, kp, vp, tables, lens)),
+               library_ms=time_ms(torch, library),
+               call_ms=time_ms(torch, run, hide_host=False),
+               warp_call_ms=time_ms(torch, lambda: run("warp"),
+                                    hide_host=False),
+               form="hopper", library_max_abs_err=lib_err)
+    row["hopper_speedup"] = row["warp_ms"] / row["ms"]
+    log(f"  timing {what}: " + json.dumps(row))
     return row
 
 
-def phase_timing_fp8(torch, np, fd, quant, kv):
-    """K5-fp8 at K5's timing shape (B 8, H 8, hd 64, BS 16, 64 columns,
-    lengths of the served mix, f32 ``q``) on pools quantized by
-    ``rowwise_quantize``; the yardstick gathers, dequantizes and runs
-    ``F.scaled_dot_product_attention``."""
-    import torch.nn.functional as F
-    B, H, hd, BS, nblk = 8, 8, 64, 16, 64
-    rng = np.random.RandomState(11)
-    lengths = rng.randint(32 + 1, 512 + NEW_TOKENS + 1, size=B)
-    q, kp, vp, tables, lens = decode_inputs(
-        torch, np, seed=12, B=B, H=H, hd=hd, BS=BS, nblk=nblk, npool=520,
-        lengths=lengths, dtype=torch.float32)
-    kq, vq = quantize_pool(quant, kv, kp), quantize_pool(quant, kv, vp)
+# phase 8's decode sweep: B 8, H 8, hd 64, BS 16, f32 q, every request
+# at the full context; the yardstick's gather materialises the whole
+# context (about 1 GiB a pool at 32768), so it stops at 8192
+DECODE_SWEEP = (512, 2048, 8192, 32768)
+DECODE_SWEEP_LIBRARY_MAX = 8192
 
-    def dequant(pool, idx):
-        pay = pool.payload.view(torch.uint8)[idx].view(pool.payload.dtype)
-        return (pay.float() * pool.scale[idx][..., None, None]).reshape(
-            B, nblk * BS, H, hd).transpose(1, 2)
 
-    def library():
-        idx = tables.long()
-        k, v = dequant(kq, idx), dequant(vq, idx)
-        mask = (torch.arange(nblk * BS, device=DEVICE)[None, :]
-                < lens[:, None])[:, None, None, :]
-        return F.scaled_dot_product_attention(q[:, :, None, :], k, v,
-                                              attn_mask=mask)[:, :, 0]
+def sweep_inputs(torch, seed, B, H, hd, BS, ctx):
+    """``B`` requests of ``ctx`` positions each over distinct random
+    blocks, made on the card from ``seed``: f32 q, K and V pools of
+    ``B * ctx / BS + 1`` blocks, tables and lengths."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    cols = ctx // BS
+    npool = B * cols + 1
+    f32 = dict(device=DEVICE, generator=g)
+    q = torch.randn(B, H, hd, **f32)
+    kp = torch.randn(npool, BS, H, hd, **f32)
+    vp = torch.randn(npool, BS, H, hd, **f32)
+    tables = (torch.randperm(npool - 1, **f32)[:B * cols] + 1).int()
+    lens = torch.full((B,), ctx, dtype=torch.int32, device=DEVICE)
+    return q, kp, vp, tables.view(B, cols), lens
 
-    out = fd.flash_decode_attention(q, kq, vq, tables, lens)
-    lib_err = (library() - out).abs().max().item()
-    torch.cuda.synchronize()
-    check(lib_err <= 1e-4, f"fp8 library yardstick disagrees: {lib_err}")
-    times = time_row(
-        torch, lambda: fd.flash_decode_attention(q, kq, vq, tables, lens),
-        lambda: fd.flash_decode_attention_ref(q, kq, vq, tables, lens),
-        library)
-    # the least work: each valid position's e4m3 K and V rows and their
-    # two f32 scales read once, each used table entry, q and lengths read
-    # once, the output written once
-    valid = int(lengths.sum())
-    used_cols = int(sum(-(-int(n) // BS) for n in lengths))
-    nbytes = (2 * valid * H * hd * 1 + 2 * valid * 4 + used_cols * 4 + B * 4
-              + 2 * B * H * hd * q.element_size())
-    # q.k and p.v (multiply + add) and one dequantizing multiply per K and
-    # V element
-    flops = 6 * valid * H * hd
-    row = dict(bound(nbytes, flops), **times, library_max_abs_err=lib_err)
-    log("  timing K5-fp8: " + json.dumps(row))
-    return row
+
+def phase_decode_sweep(torch, np, fd, quant, kv):
+    """K5 and K5-fp8 at contexts of ``DECODE_SWEEP`` positions with f32,
+    bf16 and fp8 pools: both forms in turns (checked against each other,
+    and up to 8192 against the plain version), ms, GB/s and the share of
+    the bytes bound, hopper over warp, fp8 over f32; the yardstick up to
+    ``DECODE_SWEEP_LIBRARY_MAX``."""
+    B, H, hd, BS = 8, HEADS, D_MODEL // HEADS, 16
+    rows = []
+    for ctx in DECODE_SWEEP:
+        q, k32, v32, tables, lens = sweep_inputs(torch, 900 + ctx, B, H, hd,
+                                                 BS, ctx)
+        f32_ms = None
+        for pool in ("float32", "bfloat16", "fp8"):
+            if pool == "fp8":
+                kp = quantize_pool(quant, kv, k32)
+                vp = quantize_pool(quant, kv, v32)
+            else:
+                kp = k32.to(getattr(torch, pool))
+                vp = v32.to(getattr(torch, pool))
+            check(fd.kernel_form(kp, vp) == "hopper",
+                  f"sweep {ctx} {pool}: kernel_form did not pick hopper")
+
+            def run(form, kp=kp, vp=vp):
+                return fd.flash_decode_attention(q, kp, vp, tables, lens,
+                                                 form=form)
+
+            outs = {f: run(f) for f in DECODE_FORMS}
+            torch.cuda.synchronize()
+            err = (outs["hopper"] - outs["warp"]).abs().max().item()
+            if ctx <= DECODE_SWEEP_LIBRARY_MAX:
+                ref = fd.flash_decode_attention_ref(q, kp, vp, tables, lens)
+                err = max(err, (outs["hopper"] - ref).abs().max().item())
+                del ref
+            check(err <= TOL["float32"], f"sweep {ctx} {pool}: the forms "
+                  f"disagree by {err} (tol {TOL['float32']})")
+            t = turns(torch, {f: (lambda f=f: run(f)) for f in DECODE_FORMS},
+                      reps=20)
+            esize = 1 if pool == "fp8" else kp.element_size()
+            nbytes, flops = decode_work(B, H, hd, BS, [ctx] * B, esize,
+                                        pool == "fp8")
+            b = bound(nbytes, flops)
+            row = {"context": ctx, "pool": pool, "max_abs_err": err,
+                   "bytes": nbytes, "bound_ms": b["bound_ms"]}
+            for f in DECODE_FORMS:
+                row[f + "_ms"] = t[f]
+                row[f + "_gb_per_s"] = nbytes / t[f] / 1e6
+                row[f + "_bound_share"] = b["bound_ms"] / t[f]
+            row["hopper_speedup"] = t["warp"] / t["hopper"]
+            if ctx <= DECODE_SWEEP_LIBRARY_MAX:
+                row["library_ms"] = time_ms(torch, decode_yardstick(
+                    torch, kv, q, kp, vp, tables, lens), 20)
+            if pool == "float32":
+                f32_ms = t["hopper"]
+            else:
+                row["f32_over_this"] = f32_ms / t["hopper"]
+            rows.append(row)
+            log("  decode sweep: " + json.dumps(row))
+            del kp, vp, outs
+        del k32, v32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_launch_floor(torch):
+    """The floor of one event-timed launch: an empty kernel
+    (``torch.cuda._sleep(0)``) timed as every kernel here is."""
+    floor = time_ms(torch, lambda: torch.cuda._sleep(0))
+    log(f"  launch floor (empty kernel, events): {floor:.6f} ms")
+    return floor
 
 
 def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
@@ -1261,20 +1421,37 @@ def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
 
 
 def phase_timing_k1(torch, np, nn_ops):
-    """K1 at the training shape [64, 1000] f32."""
+    """K1 at the training shape [64, 1000] f32: the warp and block forms
+    and ``torch.softmax`` in turns, beside the plain version; the block
+    form at [8, 16384] beside ``torch.softmax``."""
     n, c = BATCH, CLASSES
-    x = torch.from_numpy(np.random.RandomState(13).randn(n, c).astype(
-        np.float32)).to(DEVICE)
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(DEVICE)
     lib_err = (torch.softmax(x, -1) - nn_ops.softmax_rows(x)).abs().max()
     check(lib_err.item() <= K1_TOL["float32"],
           f"library yardstick disagrees: {lib_err.item()}")
+    check(nn_ops.softmax_rows_form(c) == "warp",
+          f"K1 at {c} columns picks {nn_ops.softmax_rows_form(c)}")
+    t = turns(torch, {
+        "warp": lambda: nn_ops.softmax_rows(x, form="warp"),
+        "block": lambda: nn_ops.softmax_rows(x, form="block"),
+        "library": lambda: torch.softmax(x, -1)})
     # each element read once and written once; max, subtract, exp, add and
     # divide per element
-    row = dict(bound(2 * n * c * 4, 5 * n * c),
-               **time_row(torch, lambda: nn_ops.softmax_rows(x),
-                          lambda: nn_ops.softmax_rows_ref(x),
-                          lambda: torch.softmax(x, -1)),
-               library_max_abs_err=lib_err.item())
+    row = dict(bound(2 * n * c * 4, 5 * n * c), ms=t["warp"],
+               block_ms=t["block"],
+               plain_ms=time_ms(torch, lambda: nn_ops.softmax_rows_ref(x)),
+               library_ms=t["library"],
+               call_ms=time_ms(torch, lambda: nn_ops.softmax_rows(x),
+                               hide_host=False),
+               form="warp", library_max_abs_err=lib_err.item())
+    wide = torch.from_numpy(rng.randn(8, 16384).astype(np.float32)).to(
+        DEVICE)
+    tw = turns(torch, {"block": lambda: nn_ops.softmax_rows(wide),
+                       "library": lambda: torch.softmax(wide, -1)})
+    row["block_8x16384"] = dict(bound(2 * wide.numel() * 4,
+                                      5 * wide.numel()),
+                                ms=tw["block"], library_ms=tw["library"])
     log("  timing K1: " + json.dumps(row))
     return row
 
@@ -1339,17 +1516,14 @@ def k34_bounds(B, H, L, D, esize, rate):
 
 def k34_times(torch, fa, q, k, v, out, lse, do, kw, forms, reps=50):
     """Device ms of K3 and K4 in each form of ``forms``, timed in turns
-    (each form twice, in the order given and then reversed; the mean of
-    the two)."""
-    got = {f: {"fwd": [], "bwd": []} for f in forms}
-    for f in list(forms) + list(reversed(forms)):
-        got[f]["fwd"].append(time_ms(
-            torch, lambda: fa.flash_fwd(q, k, v, form=f, **kw), reps))
-        got[f]["bwd"].append(time_ms(
-            torch, lambda: fa.flash_bwd(q, k, v, out, lse, do, form=f, **kw),
-            reps))
-    return {f: {d: sum(t) / len(t) for d, t in r.items()}
-            for f, r in got.items()}
+    (``turns``)."""
+    fns = {}
+    for f in forms:
+        fns[f, "fwd"] = lambda f=f: fa.flash_fwd(q, k, v, form=f, **kw)
+        fns[f, "bwd"] = lambda f=f: fa.flash_bwd(q, k, v, out, lse, do,
+                                                 form=f, **kw)
+    t = turns(torch, fns, reps)
+    return {f: {d: t[f, d] for d in ("fwd", "bwd")} for f in forms}
 
 
 def sdpa_fns(torch, q, k, v, do):
@@ -2171,17 +2345,24 @@ def main() -> int:
 
     log(f"[6/11] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
-    phase_prefix_cache(torch, np)
+    phase_prefix_cache(torch, np, fd)
 
     log(f"[7/11] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, _ = phase_train(torch, np, nn_ops, fu)
 
     log("[8/11] kernel timing")
-    timing = {"flash_decode": phase_timing(torch, np, fd),
-              "flash_decode_fp8": phase_timing_fp8(torch, np, fd, quant, kv),
+    floor = phase_launch_floor(torch)
+    timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
+                                                  False),
+              "flash_decode_fp8": phase_timing_decode(torch, np, fd, quant,
+                                                      kv, True),
               "softmax_rows": phase_timing_k1(torch, np, nn_ops),
               "fused_update": phase_timing_k2(torch, np, fu)}
+    for name in ("softmax_rows", "flash_decode", "flash_decode_fp8"):
+        log(f"  {name}: {timing[name]['ms']:.6f} ms, "
+            f"{timing[name]['ms'] - floor:.6f} ms above the launch floor")
+    phase_decode_sweep(torch, np, fd, quant, kv)
     k34_timing = phase_timing_k34(torch, np, fa)
     # the LM's main path runs K3/K4 in bf16: those times go to the line
     timing.update(k34_timing["bf16"])
@@ -2203,15 +2384,19 @@ def main() -> int:
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
     rows = [
+        # the main paths' forms: K5 and K5-fp8 hopper, K1 warp
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
          "mxnet_tpu/serve/flash_decode.py:60", k5_launches,
-         max(v for k, v in errs.items() if "bf16" not in k)),
+         max(v for (k, f), v in errs.items()
+             if "bf16" not in k and f == "hopper")),
         ("flash_decode_fp8", "mxnet_tpu_torch/csrc/flash_decode.cu",
          "mxnet_tpu/serve/flash_decode.py:60", fp8_launches,
-         max(v for k, v in fp8_errs.items() if k.endswith("float32 q"))),
+         max(v for k, v in fp8_errs.items()
+             if k.endswith("float32 q, hopper"))),
         ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",
          "mxnet_tpu/ops/nn_ops.py:847", train_launches["softmax_rows"],
-         max(v for k, v in k1_errs.items() if "float32" in k)),
+         max(v for k, v in k1_errs.items()
+             if "float32" in k and k.endswith("warp"))),
         # K2 runs on both training paths: ResNet-50 (SGD) and the LM (Adam)
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
          "mxnet_tpu/ops/fused_update.py:216",

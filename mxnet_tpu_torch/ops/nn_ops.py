@@ -23,10 +23,11 @@ written out:
 The ``SoftmaxOutput`` forward runs the row softmax through kernel K1
 (:func:`softmax_rows`, ``csrc/softmax_rows.cu``) on CUDA tensors and its
 plain version :func:`softmax_rows_ref` on CPU tensors; the wrapper counts
-its launches in ``softmax_rows.launches``.  With ``out_mode="loss"`` the
-forward emits the per-position cross-entropy instead, from an f32
-logsumexp, gathering the label's logit before the f32 cast, as the JAX
-package does; it launches no kernel.  The backward reproduces the JAX
+its launches in ``softmax_rows.launches`` and by kernel form ("warp" up to
+1024 columns, "block" beyond) in ``softmax_rows.launches_by_form``.  With
+``out_mode="loss"`` the forward emits the per-position cross-entropy
+instead, from an f32 logsumexp, gathering the label's logit before the
+f32 cast, as the JAX package does; it launches no kernel.  The backward reproduces the JAX
 ``_bwd`` rule (``(prob - onehot) * scale`` times the head cotangent,
 broadcast over the classes when it is label-shaped), recomputing the
 softmax with ``torch.softmax`` exactly where the JAX package recomputes
@@ -35,6 +36,7 @@ it with ``jax.nn.softmax``.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,11 +46,13 @@ from .. import _build
 from ..base import MXNetError, not_ported
 from .registry import OpDef, OpParam, elemwise_shape, register_op
 
-__all__ = ["softmax_rows", "softmax_rows_ref", "layer_norm",
-           "SOFTMAX_MAX_COLS"]
+__all__ = ["softmax_rows", "softmax_rows_ref", "softmax_rows_form",
+           "layer_norm", "SOFTMAX_MAX_COLS", "SOFTMAX_WARP_MAX_COLS"]
 
 SOFTMAX_MAX_COLS = 16384
+SOFTMAX_WARP_MAX_COLS = 1024     # K1's "warp" form holds a row in registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SOFTMAX_FORMS = {"block": 0, "warp": 1}
 
 
 def _amp_f32(x):
@@ -462,7 +466,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("softmax_rows")
     if not getattr(lib, "_mxt_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mxt_softmax_rows.argtypes = [vp, vp, ci, ci, ci, vp]
+        lib.mxt_softmax_rows.argtypes = [vp, vp, ci, ci, ci, ci, vp]
         lib.mxt_softmax_rows.restype = ci
         lib.mxt_error_string.argtypes = [ci]
         lib.mxt_error_string.restype = ctypes.c_char_p
@@ -470,12 +474,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def softmax_rows(x):
+def softmax_rows_form(ncols: int) -> str:
+    """K1's kernel form for rows of ``ncols`` columns: ``"warp"`` (one
+    warp per row, the row in registers) up to
+    :data:`SOFTMAX_WARP_MAX_COLS`, ``"block"`` (one block per row) beyond."""
+    return "warp" if ncols <= SOFTMAX_WARP_MAX_COLS else "block"
+
+
+def softmax_rows(x, form: Optional[str] = None):
     """Row softmax of a 2-D float32/bfloat16 ``x`` with at most
     :data:`SOFTMAX_MAX_COLS` columns; the result has ``x.dtype``.
+    ``form`` forces a kernel form (default :func:`softmax_rows_form`'s
+    choice); ``"block"`` takes every width, ``"warp"`` at most
+    :data:`SOFTMAX_WARP_MAX_COLS` columns, and a form that cannot take
+    ``x`` raises.
 
-    CPU tensors go to :func:`softmax_rows_ref`.  CUDA tensors launch the
-    kernel of ``csrc/softmax_rows.cu`` (and count the launch) or raise.
+    CPU tensors go to :func:`softmax_rows_ref` (the form is only
+    validated).  CUDA tensors launch the kernel of
+    ``csrc/softmax_rows.cu`` in its form (and count the launch) or raise.
     """
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise MXNetError(f"softmax_rows: x must be a non-empty [N, C] "
@@ -486,6 +502,14 @@ def softmax_rows(x):
     if x.shape[1] > SOFTMAX_MAX_COLS:
         raise MXNetError(f"softmax_rows: {x.shape[1]} columns > "
                          f"{SOFTMAX_MAX_COLS}")
+    n, c = x.shape
+    if form is None:
+        form = softmax_rows_form(c)
+    elif form not in _SOFTMAX_FORMS or (
+            form == "warp" and c > SOFTMAX_WARP_MAX_COLS):
+        raise MXNetError(f"softmax_rows: form {form!r} cannot take {c} "
+                         f"columns (allowed: "
+                         f"{sorted({'block', softmax_rows_form(c)})})")
     if x.device.type == "cpu":
         return softmax_rows_ref(x)
     if x.device.type != "cuda":
@@ -494,19 +518,22 @@ def softmax_rows(x):
         raise MXNetError("softmax_rows: x must be contiguous")
     lib = _lib()
     out = torch.empty_like(x)
-    n, c = x.shape
     with torch.cuda.device(x.device):
         rc = lib.mxt_softmax_rows(
             x.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], n, c,
+            _SOFTMAX_FORMS[form],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise MXNetError(f"softmax_rows kernel launch failed: CUDA error "
-                         f"{rc} ({lib.mxt_error_string(rc).decode()})")
+        raise MXNetError(f"softmax_rows kernel launch failed ({form} form): "
+                         f"CUDA error {rc} "
+                         f"({lib.mxt_error_string(rc).decode()})")
     softmax_rows.launches += 1
+    softmax_rows.launches_by_form[form] += 1
     return out
 
 
 softmax_rows.launches = 0
+softmax_rows.launches_by_form = dict.fromkeys(_SOFTMAX_FORMS, 0)
 
 
 def _softmax_rows(x):

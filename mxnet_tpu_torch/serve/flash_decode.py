@@ -11,17 +11,23 @@ repeats the same split and padding logic and the same combine; it is what
 the CPU tests hold against the JAX kernel, and what the kernel is held
 against on the card.
 
-fp8 pools (:class:`~.kvcache.QuantPool` pairs) run the kernel's fp8
-instance (K5-fp8, ``mxt_flash_decode_fp8``): the e4m3 payload is read as
-one byte per element and dequantized in registers against the
-per-position scales.  The wrapper counts plain-pool launches in
-``flash_decode_attention.launches`` and fp8 launches in
-``flash_decode_attention.launches_fp8``.
+The kernel has two forms (:func:`kernel_form` picks one; ``form=``
+forces an allowed one): ``"hopper"``, bulk-copy rings of table entries
+with the combine in the same launch (16-byte aligned pools and head
+slices, see :func:`hopper_plan`), and ``"warp"``, the first port's
+dependent chain per position, for any operands.  fp8 pools
+(:class:`~.kvcache.QuantPool` pairs) run the kernel's fp8 instance
+(K5-fp8): the e4m3 payload is read as one byte per element and
+dequantized in registers against the per-position scales.  The wrapper
+counts plain-pool launches in ``flash_decode_attention.launches``, fp8
+launches in ``flash_decode_attention.launches_fp8`` and both by form in
+``flash_decode_attention.launches_by_form``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +39,21 @@ from ..parallel.ring_attention import NEG_INF
 from .kvcache import _gather_blocks, is_quantized
 
 __all__ = ["flash_decode_attention", "flash_decode_attention_ref",
-           "default_split_k", "split_plan"]
+           "default_split_k", "split_plan", "kernel_form", "hopper_plan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+_FORM_CODES = {"warp": 0, "hopper": 1}
+MAX_HEAD_DIM = 256
+# the hopper form's plan: a ring stage holds one table entry's K and V rows
+# of a head group (and for fp8 their scale rows) and stays under
+# _MAX_STAGE_BYTES; the ring's stages share _RING_BYTES (at least 2
+# stages, at most 4); at most _MAX_GROUP consumer warps and _MAX_ENTRIES
+# table entries a block
+_MAX_STAGE_BYTES = 64 << 10
+_RING_BYTES = 100 << 10
+_MAX_GROUP = 8
+_MAX_ENTRIES = 2048
 
 
 def default_split_k(nblk: int) -> int:
@@ -109,6 +127,96 @@ def _check(q, k_pool, v_pool, tables, lengths) -> bool:
     return quantized
 
 
+def _stage_bytes(bs: int, group: int, hd: int, esize: int,
+                 quantized: bool) -> int:
+    return 2 * bs * group * hd * esize + (8 * bs if quantized else 0)
+
+
+def kernel_form(k_pool, v_pool) -> str:
+    """The kernel form for one layer's pools: ``"hopper"`` when the bulk
+    copies can read them (every pool and scale tensor starts on a 16-byte
+    boundary, a position's head slice ``hd * element size`` is a multiple
+    of 16 bytes, for fp8 pools the block size is a multiple of 4 so a
+    scale row is too, and one head's ring stage fits), else ``"warp"``."""
+    quantized = is_quantized(k_pool)
+    read = ((k_pool.payload, v_pool.payload, k_pool.scale, v_pool.scale)
+            if quantized else (k_pool, v_pool))
+    _, bs, _, hd = read[0].shape
+    esize = read[0].element_size()
+    if ((hd * esize) % 16 == 0 and hd <= MAX_HEAD_DIM
+            and (not quantized or bs % 4 == 0)
+            and _stage_bytes(bs, 1, hd, esize, quantized) <= _MAX_STAGE_BYTES
+            and all(t.data_ptr() % 16 == 0 for t in read)):
+        return "hopper"
+    return "warp"
+
+
+def _resolve_form(form, k_pool, v_pool) -> str:
+    """``form``, or :func:`kernel_form`'s choice when it is None; raises
+    on a form the operands do not allow."""
+    best = kernel_form(k_pool, v_pool)
+    if form is None:
+        return best
+    allowed = {"warp", best}
+    if form not in allowed:
+        raise MXNetError(f"flash_decode: form {form!r} cannot take these "
+                         f"operands (allowed: {sorted(allowed)})")
+    return form
+
+
+@functools.lru_cache(maxsize=256)
+def hopper_plan(b: int, h: int, hd: int, bs: int, esize: int,
+                quantized: bool, splits: int, bps: int,
+                num_sms: int = 132) -> Tuple[int, int, int, int]:
+    """``(group, parts, entries, stages)`` of the hopper form.  Blocks own
+    ``group`` heads: the largest divisor of ``h`` (at most 8) whose ring
+    stage fits 64 KB, so that at the served shapes a block takes all
+    heads and copies each table entry as one contiguous run.  The ring
+    has as many ``stages`` as fit 100 KB (2 to 4, never more than the
+    entries).  Each split's ``bps`` columns are cut into ``parts`` parts
+    of at most ``entries`` columns, as many as give every SM one block
+    (two where two rings fit its shared memory) in one wave (at least
+    one part, never finer than one column, at most 2048 columns a
+    part)."""
+    group = max(g for g in range(1, min(h, _MAX_GROUP) + 1)
+                if h % g == 0 and (g == 1 or _stage_bytes(
+                    bs, g, hd, esize, quantized) <= _MAX_STAGE_BYTES))
+    stage = _stage_bytes(bs, group, hd, esize, quantized)
+    stages = min(4, max(2, _RING_BYTES // stage))
+    per_sm = 2 if 2 * stages * stage <= (224 << 10) else 1
+    blocks = b * splits * (h // group)
+    parts = min(bps, max(num_sms * per_sm // blocks, 1,
+                         -(-bps // _MAX_ENTRIES)))
+    entries = -(-bps // parts)
+    parts = -(-bps // entries)
+    return group, parts, entries, min(stages, entries)
+
+
+def _scratch(b: int, nparts: int, h: int, hd: int, device):
+    """The partials ``(acc [B, NP, H, hd], m [B, NP, H], l [B, NP, H])``,
+    f32 views of one allocation."""
+    n = b * nparts * h
+    buf = torch.empty(n * (hd + 2), dtype=torch.float32, device=device)
+    return (buf[:n * hd].view(b, nparts, h, hd),
+            buf[n * hd:n * (hd + 1)].view(b, nparts, h),
+            buf[n * (hd + 1):].view(b, nparts, h))
+
+
+# the hopper form's tickets: int32 zeros per (device, stream), grown on
+# demand; each launch leaves them zero again
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+_num_sms: Dict[int, int] = {}
+
+
+def _ticket_buffer(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
 def _combine(acc, m, l):
     """Split-K combine: reweight each partition's partial by its distance
     to the global running max, then one normalised sum.  Empty partitions
@@ -159,15 +267,10 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_mxt_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.mxt_flash_decode.argtypes = [
-            vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp,
-            ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+            vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+            ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float,
+            vp]
         lib.mxt_flash_decode.restype = ci
-        lib.mxt_flash_decode_fp8.argtypes = [
-            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-            ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
-        lib.mxt_flash_decode_fp8.restype = ci
-        lib.mxt_max_head_dim.argtypes = []
-        lib.mxt_max_head_dim.restype = ci
         lib.mxt_error_string.argtypes = [ci]
         lib.mxt_error_string.restype = ctypes.c_char_p
         lib._mxt_typed = True
@@ -176,17 +279,22 @@ def _lib() -> ctypes.CDLL:
 
 def flash_decode_attention(q, k_pool, v_pool, tables, lengths, *,
                            scale: Optional[float] = None,
-                           split_k: Optional[int] = None):
+                           split_k: Optional[int] = None,
+                           form: Optional[str] = None):
     """Paged decode attention: ``q`` [B, H, hd] (float32 or bfloat16);
     one layer's pools, [NB, BS, H, hd] float32 or bfloat16 tensors or
     :class:`~.kvcache.QuantPool` pairs (e4m3 payload, [NB, BS] f32
     scales); ``tables`` [B, max_blocks] int32; ``lengths`` [B] int32.
-    Returns [B, H, hd] in ``q.dtype``.
+    Returns [B, H, hd] in ``q.dtype``.  ``form`` forces a kernel form
+    (default: :func:`kernel_form`'s choice); a form the operands do not
+    allow raises.
 
-    CPU tensors go to :func:`flash_decode_attention_ref`.  CUDA tensors
-    launch the kernel (and count the launch) or raise.
+    CPU tensors go to :func:`flash_decode_attention_ref` (the form is only
+    validated).  CUDA tensors launch the kernel in its form (and count
+    the launch) or raise.
     """
     quantized = _check(q, k_pool, v_pool, tables, lengths)
+    form = _resolve_form(form, k_pool, v_pool)
     if q.device.type == "cpu":
         return flash_decode_attention_ref(q, k_pool, v_pool, tables, lengths,
                                           scale=scale, split_k=split_k)
@@ -204,40 +312,50 @@ def flash_decode_attention(q, k_pool, v_pool, tables, lengths, *,
     b, h, hd = q.shape
     bs = kp.shape[1]
     nblk = tables.shape[1]
+    if hd > MAX_HEAD_DIM:
+        raise MXNetError(f"flash_decode: head_dim {hd} > {MAX_HEAD_DIM}")
     lib = _lib()
-    if hd > lib.mxt_max_head_dim():
-        raise MXNetError(f"flash_decode: head_dim {hd} > "
-                         f"{lib.mxt_max_head_dim()}")
     scale_ = (1.0 / np.sqrt(hd)) if scale is None else scale
     splits, bps = split_plan(nblk, split_k)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    acc = torch.empty((b, splits, h, hd), **f32)
-    m = torch.empty((b, splits, h), **f32)
-    l = torch.empty((b, splits, h), **f32)
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    group = parts = entries = stages = 1
+    tickets = None
+    if form == "hopper":
+        if dev.index not in _num_sms:
+            _num_sms[dev.index] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        group, parts, entries, stages = hopper_plan(
+            b, h, hd, bs, kp.element_size(), quantized, splits, bps,
+            _num_sms[dev.index])
+        tickets = _ticket_buffer(dev, stream, b * (h // group)).data_ptr()
+    acc, m, l = _scratch(b, splits * parts, h, hd, dev)
     out = torch.empty_like(q)
-    tail = (tables.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), out.data_ptr(), b, h, hd, bs, nblk,
-            splits, bps, float(scale_),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    with torch.cuda.device(q.device):
-        if quantized:
-            rc = lib.mxt_flash_decode_fp8(
-                q.data_ptr(), _DTYPE_CODES[q.dtype], kp.data_ptr(),
-                vp.data_ptr(), k_pool.scale.data_ptr(),
-                v_pool.scale.data_ptr(), *tail)
-        else:
-            rc = lib.mxt_flash_decode(
-                q.data_ptr(), _DTYPE_CODES[q.dtype], kp.data_ptr(),
-                vp.data_ptr(), _DTYPE_CODES[kp.dtype], *tail)
+    scales = ((k_pool.scale.data_ptr(), v_pool.scale.data_ptr())
+              if quantized else (None, None))
+    args = (q.data_ptr(), _DTYPE_CODES[q.dtype], kp.data_ptr(),
+            vp.data_ptr(), _KV_CODES[kp.dtype], *scales, tables.data_ptr(),
+            lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            out.data_ptr(), tickets, b, h, hd, bs, nblk, splits, bps,
+            _FORM_CODES[form], group, parts, entries, stages, float(scale_),
+            stream)
+    if dev.index == torch.cuda.current_device():
+        rc = lib.mxt_flash_decode(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.mxt_flash_decode(*args)
     if rc != 0:
-        raise MXNetError(f"flash_decode kernel launch failed: CUDA error "
-                         f"{rc} ({lib.mxt_error_string(rc).decode()})")
+        raise MXNetError(f"flash_decode kernel launch failed ({form} form): "
+                         f"CUDA error {rc} "
+                         f"({lib.mxt_error_string(rc).decode()})")
     if quantized:
         flash_decode_attention.launches_fp8 += 1
     else:
         flash_decode_attention.launches += 1
+    flash_decode_attention.launches_by_form[form] += 1
     return out
 
 
 flash_decode_attention.launches = 0
 flash_decode_attention.launches_fp8 = 0
+flash_decode_attention.launches_by_form = dict.fromkeys(_FORM_CODES, 0)

@@ -3,7 +3,7 @@
 These tests import torch and the port only, so they also run where JAX is
 not installed.  Run them on a machine with an NVIDIA H100 and nvcc::
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
 Elsewhere they skip.  Each kernel is held against its plain PyTorch
 version on the same CUDA tensors: flash decode (K5) f32 within atol 2e-5
@@ -11,9 +11,12 @@ version on the same CUDA tensors: flash decode (K5) f32 within atol 2e-5
 rounding of the output); its fp8 instance (K5-fp8) on pools quantized by
 ``quant.rowwise_quantize`` with the same tolerances by the type of ``q``
 (the dequantized values are equal; only the summation order differs), and
-the cast to e4m3 on the card equal to the CPU's byte for byte; the row
-softmax (K1) f32 within atol 1e-6 (the online rescale of the running
-sum), bf16 within 1e-2; the fused update
+the cast to e4m3 on the card equal to the CPU's byte for byte; both
+decode forms ("hopper" and "warp") over the same cases and at edges
+(8192 positions, wide heads, BS 32), the hopper form bitwise repeatable
+and leaving its tickets zero; the row softmax (K1) in both forms ("warp"
+and "block") f32 within atol 1e-6 (summation order), bf16 within 1e-2;
+the fused update
 (K2) BITWISE, against its plain version and against the unfused
 per-parameter update (``chip_smoke.k2_unfused``); flash attention forward
 (K3) and backward (K4) with ``chip_smoke.K34_TOL``: f32 within 2e-5
@@ -63,16 +66,37 @@ def _operands(dev, seed, *, B, H, hd, BS, nblk, lengths, dtype,
             torch.from_numpy(tables).to(dev), torch.from_numpy(lens).to(dev))
 
 
+def _decode_case(fn, args, form, split_k=None):
+    """Run ``fn`` in ``form`` (None: kernel_form's choice); returns the
+    output and the form that ran, or None after checking that a forced
+    form the operands do not allow raises."""
+    q, kp, vp = args[:3]
+    best = tfd.kernel_form(kp, vp)
+    if form == "hopper" and best != "hopper":
+        with pytest.raises(MXNetError, match="form 'hopper'"):
+            fn(*args, split_k=split_k, form=form)
+        return None, None
+    before = dict(fn.launches_by_form)
+    out = fn(*args, split_k=split_k, form=form)
+    ran = form or best
+    assert {f: n - before[f] for f, n in fn.launches_by_form.items()} == {
+        f: int(f == ran) for f in before}
+    return out, ran
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["warp", "hopper"])
 @pytest.mark.parametrize("hd", [8, 64, 100, 128, 256])
 @pytest.mark.parametrize("split_k", [None, 1, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_decode_kernel_matches_plain(cuda, hd, split_k, dtype):
+def test_flash_decode_kernel_matches_plain(cuda, hd, split_k, dtype, form):
     args = _operands(cuda, hd + (split_k or 0), B=5, H=3, hd=hd, BS=16,
                      nblk=20, lengths=[320, 1, 17, 200, 64], dtype=dtype,
                      trash_rows=(3,))
     before = tfd.flash_decode_attention.launches
-    out = tfd.flash_decode_attention(*args, split_k=split_k)
+    out, ran = _decode_case(tfd.flash_decode_attention, args, form, split_k)
+    if out is None:
+        return
     ref = tfd.flash_decode_attention_ref(*args, split_k=split_k)
     torch.cuda.synchronize()
     assert tfd.flash_decode_attention.launches == before + 1
@@ -80,6 +104,88 @@ def test_flash_decode_kernel_matches_plain(cuda, hd, split_k, dtype):
     assert out.dtype == dtype
     assert torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# (B, H, hd, BS, columns, lengths): 8192 positions, wide heads, BS 32,
+# length 1 and lengths exactly on a block boundary
+DECODE_EDGES = [
+    (2, 8, 64, 16, 512, [8192, 8191]),
+    (3, 4, 128, 16, 24, [1, 16, 384]),
+    (2, 2, 256, 16, 12, [32, 191]),
+    (3, 8, 64, 32, 20, [640, 1, 96]),
+    (2, 4, 128, 32, 9, [288, 33]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["warp", "hopper"])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "fp8"])
+@pytest.mark.parametrize("case", range(len(DECODE_EDGES)))
+def test_flash_decode_forms_at_edges(cuda, case, pool, form):
+    B, H, hd, BS, nblk, lengths = DECODE_EDGES[case]
+    dtype = torch.bfloat16 if pool == "bfloat16" else torch.float32
+    q, kp, vp, tables, lens = _operands(
+        cuda, 40 + case, B=B, H=H, hd=hd, BS=BS, nblk=nblk, lengths=lengths,
+        dtype=dtype, npool=B * nblk + 1)
+    if pool == "fp8":
+        kp, vp = _quantize_pool(kp), _quantize_pool(vp)
+    args = (q, kp, vp, tables, lens)
+    assert tfd.kernel_form(kp, vp) == "hopper"
+    out, _ = _decode_case(tfd.flash_decode_attention, args, form)
+    ref = tfd.flash_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# forced hopper plans (head group, parts, entries a part, stages) at the
+# served shape (8 splits of 8 columns): heads split across blocks (a copy
+# a position), one part a split, one column a part, a one-stage ring, a
+# three-stage ring that wraps
+HOPPER_PLANS = [(1, 2, 4, 2), (2, 4, 2, 2), (8, 1, 8, 1), (4, 8, 1, 1),
+                (4, 2, 4, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", HOPPER_PLANS)
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "fp8"])
+def test_flash_decode_hopper_plans(cuda, monkeypatch, plan, pool):
+    dtype = torch.bfloat16 if pool == "bfloat16" else torch.float32
+    q, kp, vp, tables, lens = _operands(
+        cuda, 91, B=8, H=8, hd=64, BS=16, nblk=64,
+        lengths=[1024, 700, 33, 1, 512, 999, 128, 257], dtype=dtype,
+        npool=520)
+    if pool == "fp8":
+        kp, vp = _quantize_pool(kp), _quantize_pool(vp)
+    monkeypatch.setattr(tfd, "hopper_plan", lambda *a, **kw: plan)
+    out = tfd.flash_decode_attention(q, kp, vp, tables, lens, form="hopper")
+    ref = tfd.flash_decode_attention_ref(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["float32", "fp8"])
+def test_flash_decode_hopper_form_is_repeatable(cuda, pool):
+    """Two calls of the hopper form with 8 splits give bitwise equal
+    outputs (the in-launch combine sums the partials in a fixed order),
+    and leave the ticket buffer zero."""
+    q, kp, vp, tables, lens = _operands(
+        cuda, 77, B=8, H=8, hd=64, BS=16, nblk=64,
+        lengths=[1024, 700, 33, 1, 512, 999, 128, 257], dtype=torch.float32,
+        npool=520)
+    if pool == "fp8":
+        kp, vp = _quantize_pool(kp), _quantize_pool(vp)
+    assert tfd.split_plan(64) == (8, 8)
+    outs = [tfd.flash_decode_attention(q, kp, vp, tables, lens,
+                                       form="hopper") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    for t in tfd._tickets.values():
+        assert int(t.abs().sum()) == 0
 
 
 @pytest.mark.cuda
@@ -100,10 +206,12 @@ def _quantize_pool(pool):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["warp", "hopper"])
 @pytest.mark.parametrize("hd", [8, 64, 100, 128, 256])
 @pytest.mark.parametrize("split_k", [None, 1, 3])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
-def test_flash_decode_fp8_kernel_matches_plain(cuda, hd, split_k, q_dtype):
+def test_flash_decode_fp8_kernel_matches_plain(cuda, hd, split_k, q_dtype,
+                                               form):
     q, kp, vp, tables, lens = _operands(
         cuda, 7 * hd + (split_k or 0), B=5, H=3, hd=hd, BS=16, nblk=20,
         lengths=[320, 1, 17, 200, 64], dtype=torch.float32, trash_rows=(3,))
@@ -111,7 +219,9 @@ def test_flash_decode_fp8_kernel_matches_plain(cuda, hd, split_k, q_dtype):
     kq, vq = _quantize_pool(kp), _quantize_pool(vp)
     fd = tfd.flash_decode_attention
     before = (fd.launches, fd.launches_fp8)
-    out = fd(q, kq, vq, tables, lens, split_k=split_k)
+    out, _ = _decode_case(fd, (q, kq, vq, tables, lens), form, split_k)
+    if out is None:
+        return
     ref = tfd.flash_decode_attention_ref(q, kq, vq, tables, lens,
                                          split_k=split_k)
     torch.cuda.synchronize()
@@ -165,25 +275,41 @@ def test_flash_decode_rejects_mixed_pools_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["warp", "block"])
 @pytest.mark.parametrize("shape", [(64, 1000), (8, 10), (3, 16384),
                                    (37, 1001), (1, 1), (300, 33)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_softmax_rows_kernel_matches_plain(cuda, shape, dtype):
+def test_softmax_rows_kernel_matches_plain(cuda, shape, dtype, form):
     rng = np.random.RandomState(shape[1])
     x = (4.0 * rng.randn(*shape)).astype(np.float32)
     x[:, ::5] = -np.inf if shape[1] > 1 else x[:, ::5]
     t = torch.from_numpy(x).to(cuda, dtype)
+    if form == "warp" and shape[1] > tnn.SOFTMAX_WARP_MAX_COLS:
+        with pytest.raises(MXNetError, match="form 'warp'"):
+            tnn.softmax_rows(t, form=form)
+        return
     before = tnn.softmax_rows.launches
-    out = tnn.softmax_rows(t)
+    by_form = dict(tnn.softmax_rows.launches_by_form)
+    out = tnn.softmax_rows(t, form=form)
     ref = tnn.softmax_rows_ref(t)
     torch.cuda.synchronize()
     assert tnn.softmax_rows.launches == before + 1
+    assert tnn.softmax_rows.launches_by_form[form] == by_form[form] + 1
     assert out.dtype == dtype and out.shape == t.shape
     tol = 1e-6 if dtype == torch.float32 else 1e-2
     assert (out.float() - ref.float()).abs().max().item() <= tol
     rows = out.float().sum(dim=-1)
     assert (rows - 1).abs().max().item() <= (1e-5 if dtype == torch.float32
                                               else 2e-2)
+
+
+@pytest.mark.cuda
+def test_softmax_rows_warp_form_on_a_misaligned_view(cuda):
+    """A row base off the 16-byte grid takes the warp form's scalar loads."""
+    x = torch.randn(65 * 1000 + 1, device=cuda)[1:].view(65, 1000)
+    assert x.data_ptr() % 16 != 0
+    out = tnn.softmax_rows(x, form="warp")
+    assert (out - tnn.softmax_rows_ref(x)).abs().max().item() <= 1e-6
 
 
 @pytest.mark.cuda

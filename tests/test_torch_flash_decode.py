@@ -189,3 +189,119 @@ def test_fp8_wrapper_rejects_mixed_and_bad_pools():
         tfd.flash_decode_attention(
             q, kq, tkv.QuantPool(vq.payload.float().to(torch.float8_e5m2),
                                  vq.scale), tables, lens)
+
+
+def _view16(t, offset_elems=0):
+    """A copy of ``t`` whose base lies ``offset_elems`` elements past a
+    64-byte boundary."""
+    flat = torch.empty(t.numel() + 64, dtype=t.dtype)
+    start = (-(flat.data_ptr() % 64) // t.element_size()) % 64 + offset_elems
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("hd,dtype,offset,want", [
+    (8, torch.float32, 0, "hopper"),        # 32-byte head slices
+    (64, torch.float32, 0, "hopper"),
+    (64, torch.bfloat16, 0, "hopper"),
+    (8, torch.bfloat16, 0, "hopper"),       # 16 bytes: the least slice
+    (100, torch.float32, 0, "hopper"),      # 400 bytes
+    (100, torch.bfloat16, 0, "warp"),       # 200 bytes
+    (6, torch.float32, 0, "warp"),          # 24 bytes
+    (64, torch.float32, 1, "warp"),         # base 4 bytes off the grid
+    (64, torch.bfloat16, 8, "hopper"),      # base 16 bytes off: aligned
+    (64, torch.bfloat16, 4, "warp"),        # base 8 bytes off
+])
+def test_kernel_form_by_alignment(hd, dtype, offset, want):
+    pool = _view16(torch.randn(6, BS, H, hd).to(dtype), offset)
+    other = _view16(torch.randn(6, BS, H, hd).to(dtype))
+    assert tfd.kernel_form(pool, other) == want
+    assert tfd.kernel_form(other, pool) == want
+    assert tfd.kernel_form(other, other) == (
+        "hopper" if (hd * pool.element_size()) % 16 == 0 else "warp")
+
+
+@pytest.mark.parametrize("hd,bs,offset,want", [
+    (64, 4, 0, "hopper"),
+    (16, 16, 0, "hopper"),
+    (8, 4, 0, "warp"),        # 8-byte e4m3 head slices
+    (100, 4, 0, "warp"),      # 100 bytes
+    (64, 6, 0, "warp"),       # scale rows of 24 bytes
+    (64, 4, 2, "warp"),       # a scale base 8 bytes off the grid
+])
+def test_kernel_form_fp8_pools(hd, bs, offset, want):
+    pay = torch.randn(6, bs, H, hd).to(torch.float8_e4m3fn)
+    scale = _view16(torch.rand(6, bs), offset)
+    kq = tkv.QuantPool(pay, scale)
+    vq = tkv.QuantPool(pay.clone(), _view16(torch.rand(6, bs)))
+    assert tfd.kernel_form(kq, vq) == want
+
+
+def test_kernel_form_refuses_a_stage_past_the_ring():
+    """One head's ring stage (K and V rows of one table entry) must fit
+    64 KB: a 256-wide f32 head with 64-position blocks takes 128 KB."""
+    pool = torch.randn(2, 64, 1, 256)
+    assert tfd.kernel_form(pool, pool) == "warp"
+    assert tfd.kernel_form(pool[:, :32].contiguous(),
+                           pool[:, :32].contiguous()) == "hopper"
+
+
+def test_form_argument_is_validated_on_cpu():
+    """``form=`` forces an allowed form (the CPU runs the plain version
+    either way) and refuses one the operands do not allow; no form
+    stands in for another, and nothing is counted on the CPU."""
+    q, kp, vp, tables, lens = _torch(_setup(3, [9, 4]))
+    fd = tfd.flash_decode_attention
+    before = (fd.launches, dict(fd.launches_by_form))
+    ref = tfd.flash_decode_attention_ref(q, kp, vp, tables, lens)
+    for form in (None, "warp", "hopper"):
+        assert torch.equal(fd(q, kp, vp, tables, lens, form=form), ref)
+    mis = _view16(kp, 1)
+    with pytest.raises(MXNetError, match="form 'hopper'"):
+        fd(q, mis, vp, tables, lens, form="hopper")
+    with pytest.raises(MXNetError, match="form 'fast'"):
+        fd(q, kp, vp, tables, lens, form="fast")
+    assert torch.equal(fd(q, mis, vp, tables, lens, form="warp"), ref)
+    assert (fd.launches, fd.launches_by_form) == before
+
+
+@pytest.mark.parametrize("args,want", [
+    # the served decode shape: every pool type takes all 8 heads a block
+    # (one contiguous copy an entry); f32's 64 KB stages leave one block
+    # an SM and 2 parts a split, bf16 and fp8 two blocks and 4 parts
+    ((8, 8, 64, 16, 4, False, 8, 8), (8, 2, 4, 2)),
+    ((8, 8, 64, 16, 2, False, 8, 8), (8, 4, 2, 2)),
+    ((8, 8, 64, 16, 1, True, 8, 8), (8, 4, 2, 2)),
+    # 8192 positions a request: longer parts, deeper rings
+    ((8, 8, 64, 16, 4, False, 8, 64), (8, 2, 32, 2)),
+    ((8, 8, 64, 16, 2, False, 8, 64), (8, 4, 16, 3)),
+    ((8, 8, 64, 16, 1, True, 8, 64), (8, 4, 16, 4)),
+    # a 256-wide f32 head: one head a block (32 KB stages)
+    ((5, 3, 256, 16, 4, False, 3, 7), (1, 4, 2, 2)),
+    # one request, one split: no more parts than columns
+    ((1, 8, 64, 16, 4, False, 1, 1), (8, 1, 1, 1)),
+    # a split of 5000 columns is cut to at most 2048 a block
+    ((64, 8, 64, 16, 4, False, 1, 5000), (8, 3, 1667, 2)),
+])
+def test_hopper_plan(args, want):
+    group, parts, entries, stages = got = tfd.hopper_plan(*args)
+    assert got == want
+    b, h, hd, bs, esize, quantized, splits, bps = args
+    assert h % group == 0 and 1 <= group <= 8
+    assert (parts - 1) * entries < bps <= parts * entries
+    assert entries <= 2048 and 1 <= stages <= 4
+    stage = 2 * bs * group * hd * esize + (8 * bs if quantized else 0)
+    assert stage <= 64 << 10 and stages * stage <= 128 << 10
+
+
+def test_scratch_is_one_allocation():
+    acc, m, l = tfd._scratch(3, 5, 4, 8, "cpu")
+    assert (acc.shape, m.shape, l.shape) == ((3, 5, 4, 8), (3, 5, 4),
+                                             (3, 5, 4))
+    assert acc.is_contiguous() and m.is_contiguous() and l.is_contiguous()
+    base = acc.untyped_storage().data_ptr()
+    assert m.untyped_storage().data_ptr() == base == \
+        l.untyped_storage().data_ptr()
+    assert m.data_ptr() == acc.data_ptr() + acc.numel() * 4
+    assert l.data_ptr() == m.data_ptr() + m.numel() * 4

@@ -255,6 +255,29 @@ def test_k1_wrapper_rejects(bad, match):
         tnn.softmax_rows(bad)
 
 
+@pytest.mark.parametrize("ncols,want", [
+    (1, "warp"), (1000, "warp"), (1024, "warp"), (1025, "block"),
+    (16384, "block"),
+])
+def test_k1_form_by_columns(ncols, want):
+    assert tnn.softmax_rows_form(ncols) == want
+    x = torch.randn(2, ncols)
+    k1 = tnn.softmax_rows
+    before = (k1.launches, dict(k1.launches_by_form))
+    # on the CPU every allowed form runs the plain version, uncounted
+    for form in (None, "block", want):
+        assert torch.equal(tnn.softmax_rows(x, form=form),
+                           tnn.softmax_rows_ref(x))
+    assert (k1.launches, k1.launches_by_form) == before
+
+
+@pytest.mark.parametrize("ncols,form", [(1025, "warp"), (16384, "warp"),
+                                        (10, "row"), (10, "hopper")])
+def test_k1_form_refusals(ncols, form):
+    with pytest.raises(MXNetError, match=f"form '{form}'"):
+        tnn.softmax_rows(torch.randn(3, ncols), form=form)
+
+
 def test_unported_options_raise():
     x = torch.randn(2, 3, requires_grad=True)
     moe = tget_op("MoEFFN")

@@ -22,7 +22,11 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    delta; each case checks the form that ran: hopper, mma.sync for
    misaligned operands and D 100, fma for f32 and D 256; and the mma.sync
    form forced at the LM's shape), the fused optimizer update (K2)
-   bitwise against the unfused per-parameter update; the runtime-kernel
+   bitwise against the unfused per-parameter update and its plain
+   version, in its "bucket" form and its "hopper" form (over one bucket,
+   over the bucket's parameters as separate gradients at misaligned
+   offsets and pointers, and over 300 of them: two pointer tables); the
+   runtime-kernel
    API (K6,
    ``rtc.CudaKernel``) builds the user kernels of this script with nvcc
    (the first build and a cached reload timed) and holds them against
@@ -63,10 +67,10 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    momentum 0.9, wd 1e-4), the guard and clip 5.0: one warm-up and 5
    timed steps on one fixed batch, then a step on a batch with a NaN;
    checks finite falling losses, a bitwise no-op on the NaN step, one K1
-   launch (warp form) and one K2 launch per bucket (25) per step, and a
-   bitwise
-   fused-vs-unfused update from the same gradients; prints the median
-   step time and images/s;
+   launch (warp form) and one K2 launch per step, in the hopper form (its
+   chunk plan: one table, every chunk on the 16-byte grid), and a
+   bitwise fused-vs-unfused update from the same gradients that calls
+   no ``torch.cat``; prints the median step time and images/s;
 8. times each kernel with CUDA events (median, L2 flushed between
    launches) beside its plain version, a library yardstick and the
    card's bound for the same work, after the launch floor (an empty
@@ -83,7 +87,10 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    then bf16 causal at lengths 512-8192 with 16384 tokens (both forms,
    SDPA, bounds); K6 (d) at the MLP's [100, 10] beside
    ``torch.softmax`` and (a) at 64 M f32 elements beside
-   ``torch.addcmul``;
+   ``torch.addcmul``; K2's hopper and bucket forms (the gather plus one
+   launch a bucket) in turns beside ``torch.optim``'s fused SGD/Adam over
+   the same tensors, at one bucket and at both training paths' updates
+   (ResNet-50's 161 tensors, the LM's 101), each beside its bytes bound;
 9. trains the transformer-LM at ``bench.py``'s LM-row settings (6
    layers, d_model 512, 8 heads, 32k vocab, batch 8, seq 2048, loss
    head, Adam lr 1e-3, ``compute_dtype="bfloat16"``; parameters drawn
@@ -92,8 +99,9 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
    tokens); checks a finite falling loss, K3 and K4 launched once per
    layer per step, all in the hopper form, the dense and blockwise
    attention paths never run,
-   one K2 launch per bucket per step, and a bitwise fused-vs-unfused
-   Adam update from the same gradients; prints the median step,
+   one K2 launch per step in the hopper form, and a bitwise
+   fused-vs-unfused Adam update from the same gradients that calls no
+   ``torch.cat``; prints the median step,
    tokens/s, the peak memory and one profiled step by layer;
 10. runs the imperative API on the card (arithmetic and in-place ops with
     the version bump, a slice view written through to its parent,
@@ -413,6 +421,33 @@ K2_CASES = [
 ]
 
 
+def k2_cuts(np, n, segments, seed):
+    """``segments`` random ``(start, stop)`` bounds tiling ``[0, n)``."""
+    rng = np.random.RandomState(seed)
+    cuts = sorted(rng.choice(np.arange(1, n), segments - 1,
+                             replace=False).tolist())
+    return list(zip([0] + cuts, cuts + [n]))
+
+
+def k2_segments(torch, g, bounds, layout):
+    """The gradient ``g`` cut at ``bounds`` into a list of tensors, as the
+    hopper form takes them: ``"views"`` slices of ``g`` (each pointer on
+    the 16-byte grid exactly when its flat offset is), ``"clones"``
+    separate allocations (pointers on the grid, offsets anywhere: a
+    misaligned offset takes the scalar path), ``"shifted"`` each copied one
+    element into a buffer of its own (pointers off the grid)."""
+    out = []
+    for a, b in bounds:
+        seg = g[a:b]
+        if layout == "clones":
+            seg = seg.clone()
+        elif layout == "shifted":
+            seg = torch.empty(b - a + 1, dtype=g.dtype,
+                              device=g.device)[1:].copy_(seg)
+        out.append(seg)
+    return out
+
+
 def k2_operands(torch, np, kind, n, seed):
     """A random bucket: grads, weights, state, and a wd vector made of
     segments (the parameters of the bucket), each with its own wd."""
@@ -425,8 +460,7 @@ def k2_operands(torch, np, kind, n, seed):
              for _ in range(nst)]
     if nst == 2:
         state[1] = state[1].abs()
-    cuts = sorted(rng.choice(np.arange(1, n), 6, replace=False).tolist())
-    bounds = list(zip([0] + cuts, cuts + [n]))
+    bounds = k2_cuts(np, n, 7, seed)
     seg_wd = [float(v) for v in rng.choice([0.0, 1e-4, 5e-3], len(bounds))]
     return g, w, state, bounds, seg_wd
 
@@ -474,11 +508,20 @@ def k2_kernel_args(torch, optimizer, kind, lr, t, use_wdvec, base_wd):
     return (lr_t, lr if use_wdvec else lr * base_wd)
 
 
+def k2_bitwise(torch, got, ref):
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, ref))
+
+
 def phase_k2_vs_unfused(torch, np, fu, optimizer):
     """K2 on a bucket whose length is not a multiple of any block, for
-    every kind and the wd-vector, clip, mult and ok=False variants:
-    bitwise equal to the unfused per-parameter update and to the plain
-    version; ok=False leaves w and the state bitwise unchanged."""
+    every kind and the wd-vector, clip, mult and ok=False variants: the
+    bucket API in both forms, and the hopper form over the bucket's 7
+    parameters as separate gradients (views, clones, shifted pointers:
+    the vector and the scalar paths) and over 300 (two pointer tables,
+    two launches); each bitwise equal to the unfused per-parameter update
+    and to the plain version; ok=False leaves w and the state bitwise
+    unchanged."""
     dev = torch.device(DEVICE)
     f32 = dict(dtype=torch.float32, device=dev)
     rescale, base_wd = 1.0 / 64, 1e-4
@@ -501,32 +544,48 @@ def phase_k2_vs_unfused(torch, np, fu, optimizer):
                                  base_wd)
         hyper = dict(momentum=0.9, beta1=0.9, beta2=0.999, epsilon=1e-8,
                      wd=0.0 if use_wdvec else base_wd, rescale_grad=rescale,
-                     clip_gradient=clip)
-        plain = fu.reference_update(g, w, tuple(state), scalars, kind=kind,
-                                    mult=mult, ok=ok, wd_vec=wdvec, **hyper)
-        before = [x.clone() for x in [w] + state]
-        kw_, ks_ = w.clone(), [s.clone() for s in state]
-        fu.fused_update(g, kw_, tuple(ks_), scalars, kind=kind, mult=mult,
-                        ok=ok, wd_vec=wdvec, **hyper)
-        torch.cuda.synchronize()
+                     clip_gradient=clip, kind=kind, mult=mult, ok=ok,
+                     wd_vec=wdvec)
+        plain = fu.reference_update(g, w, tuple(state), scalars, **hyper)
+        many = k2_cuts(np, K2_LEN, 300, seed=400 + i)
+        runs = [(f"bucket API, {form} form", form, 1,
+                 lambda kw_, ks_, form=form: fu.fused_update(
+                     g, kw_, tuple(ks_), scalars, form=form, **hyper))
+                for form in fu.KERNEL_FORMS]
+        runs += [(f"{len(cut)} {layout}", "hopper", -(-len(cut) //
+                                                     fu.TABLE_TENSORS),
+                  lambda kw_, ks_, cut=cut, layout=layout:
+                  fu.fused_update_params(
+                      k2_segments(torch, g, cut, layout), kw_, tuple(ks_),
+                      [a for a, _ in cut], scalars, **hyper))
+                 for cut, layout in ((bounds, "views"), (bounds, "clones"),
+                                     (bounds, "shifted"), (many, "clones"))]
         name = (f"{kind}{' wd_vec' if use_wdvec else ''}"
                 f"{' mult' if use_mult else ''}"
                 f"{'' if ok_v is None else ' ok' if ok_v else ' ok=False'}"
                 f"{' clip' if clip else ''}")
-        for label, ref in (("unfused", want), ("plain", plain)):
-            for got, exp in zip([kw_] + ks_, ref):
-                check(torch.equal(got.view(torch.int32),
-                                  exp.view(torch.int32)),
-                      f"K2 {name}: kernel is not bitwise equal to the "
-                      f"{label} update (max_abs_err "
-                      f"{(got - exp).abs().max().item():.3e})")
-        if ok_v is False:
-            for got, old in zip([kw_] + ks_, before):
-                check(torch.equal(got.view(torch.int32),
-                                  old.view(torch.int32)),
-                      f"K2 {name}: ok=False changed the bucket")
+        for label, form, launches, run in runs:
+            kw_, ks_ = w.clone(), [s.clone() for s in state]
+            before = dict(fu.fused_update.launches_by_form)
+            run(kw_, ks_)
+            torch.cuda.synchronize()
+            got = [kw_] + ks_
+            delta = {f: n - before[f]
+                     for f, n in fu.fused_update.launches_by_form.items()}
+            check(delta == {f: launches if f == form else 0
+                            for f in fu.KERNEL_FORMS},
+                  f"K2 {name} [{label}]: launches by form {delta}")
+            for ref_label, ref in (("unfused", want), ("plain", plain)):
+                err = max((a - b).abs().max().item()
+                          for a, b in zip(got, ref))
+                check(k2_bitwise(torch, got, ref),
+                      f"K2 {name} [{label}]: not bitwise equal to the "
+                      f"{ref_label} update (max_abs_err {err:.3e})")
+            if ok_v is False:
+                check(k2_bitwise(torch, got, [w] + state),
+                      f"K2 {name} [{label}]: ok=False changed the bucket")
         log(f"  K2 vs unfused and plain [{name}], n={K2_LEN}: bitwise "
-            "equal")
+            f"equal in {len(runs)} runs ({', '.join(r[0] for r in runs)})")
     return 0.0
 
 
@@ -967,6 +1026,37 @@ def bits(torch, t):
     return t.detach().contiguous().view(torch.int32)
 
 
+def k2_plan_check(tr):
+    """The trainer takes K2's hopper route with one pointer table and
+    every chunk's flat offset on the 16-byte grid (the vector path)."""
+    plan = tr._chunk_plan
+    check(tr._fused_route == "hopper",
+          f"the trainer's fused route is {tr._fused_route}, not hopper")
+    check(len(plan.tables) == 1 and bool(plan.chunks[:, 3].all()),
+          f"K2's chunk plan: {len(plan.tables)} tables, "
+          f"{int((plan.chunks[:, 3] == 0).sum())} chunks off the grid")
+    log(f"  K2 chunk plan: {len(plan.sizes)} tensors, {len(plan.chunks)} "
+        "chunks, one table, all on the 16-byte grid")
+
+
+def k2_update_runs_no_cat(torch, run):
+    """``run()`` (a fused update) with ``torch.cat`` counted: the hopper
+    route reads the gradients in place, so it gathers nothing."""
+    real, calls = torch.cat, []
+
+    def counting_cat(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    torch.cat = counting_cat
+    try:
+        run()
+    finally:
+        torch.cat = real
+    check(not calls, f"the fused update called torch.cat {len(calls)} "
+          "times")
+
+
 def phase_train(torch, np, nn_ops, fu):
     from mxnet_tpu_torch import models
     from mxnet_tpu_torch.parallel import ShardedTrainer
@@ -993,6 +1083,7 @@ def phase_train(torch, np, nn_ops, fu):
     n_buckets = len(tr._fused_plan.buckets)
     check(n_buckets == N_BUCKETS or DEVICE != "cuda",
           f"{n_buckets} buckets, expected {N_BUCKETS}")
+    k2_plan_check(tr)
     rng = np.random.RandomState(2)
     batch = tr.place_batch({
         "data": rng.rand(*shapes["data"]).astype(np.float32),
@@ -1007,6 +1098,8 @@ def phase_train(torch, np, nn_ops, fu):
     nn_ops.softmax_rows.launches_by_form = dict.fromkeys(
         nn_ops.softmax_rows.launches_by_form, 0)
     fu.fused_update.launches = 0
+    fu.fused_update.launches_by_form = dict.fromkeys(
+        fu.fused_update.launches_by_form, 0)
     losses, step_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(1 + TIMED_STEPS):
@@ -1030,6 +1123,7 @@ def phase_train(torch, np, nn_ops, fu):
     k1 = nn_ops.softmax_rows.launches
     k1_forms = dict(nn_ops.softmax_rows.launches_by_form)
     k2 = fu.fused_update.launches
+    k2_forms = dict(fu.fused_update.launches_by_form)
     steps = 2 + TIMED_STEPS
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -1044,10 +1138,12 @@ def phase_train(torch, np, nn_ops, fu):
     check(k1 == steps, f"softmax_rows launched {k1} times in {steps} steps")
     check(k1_forms == {"warp": k1, "block": 0},
           f"softmax_rows launches by form {k1_forms}, expected all warp")
-    check(k2 == n_buckets * steps, f"fused_update launched {k2} times in "
-          f"{steps} steps of {n_buckets} buckets")
+    check(k2 == steps and k2_forms == {"hopper": steps, "bucket": 0},
+          f"fused_update launched {k2} times in {steps} steps, by form "
+          f"{k2_forms}: expected one hopper launch a step")
     log(f"  NaN step: skipped, state bitwise unchanged; launches K1 {k1} "
-        f"(all in the warp form), K2 {k2} over {steps} steps")
+        f"(all in the warp form), K2 {k2} over {steps} steps (all in the "
+        "hopper form)")
     profile = profile_step(torch, lambda: tr.step(batch))
 
     # fused vs unfused from the same gradients, bitwise: cuDNN's backward
@@ -1059,9 +1155,10 @@ def phase_train(torch, np, nn_ops, fu):
             ref._opt_state[n].copy_(st[0])
     ref._num_update = tr._num_update
     _, grads, auxu = tr._forward_backward(batch)
-    for t in (tr, ref):
-        t._num_update += 1
-        t._apply_update(grads, auxu)
+    tr._num_update += 1
+    k2_update_runs_no_cat(torch, lambda: tr._apply_update(grads, auxu))
+    ref._num_update += 1
+    ref._apply_update(grads, auxu)
     torch.cuda.synchronize()
     fused_state = tr.opt_state_by_param()
     for n in tr._param_names:
@@ -1089,7 +1186,8 @@ def phase_train(torch, np, nn_ops, fu):
 # kernel-name fragments -> the layer whose work the kernel does
 _KERNEL_GROUPS = (
     ("K1 softmax_rows", ("softmax_rows_",)),
-    ("K2 fused_update", ("fused_update_kernel",)),
+    ("K2 fused_update", ("fused_update_kernel",
+                         "fused_update_params_kernel")),
     ("convolution/matmul (cuDNN, cuBLAS)",
      ("conv", "xmma", "cudnn", "implicit", "gemm", "wgrad", "dgrad",
       "fprop", "winograd", "cutlass", "fft")),
@@ -1104,7 +1202,8 @@ _KERNEL_GROUPS = (
 _LM_KERNEL_GROUPS = (
     ("K3 flash attention forward", ("flash_fwd_",)),
     ("K4 flash attention backward", ("flash_bwd_",)),
-    ("K2 fused update", ("fused_update_kernel",)),
+    ("K2 fused update", ("fused_update_kernel",
+                         "fused_update_params_kernel")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas",
                          "nvjet")),
     ("gradient bucket cat", ("CatArray", "cat_")),
@@ -1188,13 +1287,14 @@ def profile_step(torch, run, groups_spec=_KERNEL_GROUPS, loss_ops=(),
 # Phase 8: kernel timing
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, reps=50, hide_host=True):
+def time_ms(torch, fn, reps=50, hide_host=True, sleep=1 << 20):
     """Median per-call device time with CUDA events, L2 flushed before
-    each call.  With ``hide_host`` a sleep kernel (about 0.5 ms) runs
-    between the flush and the start event, so the host has enqueued all
-    of ``fn``'s launches before the card reaches them: the events then
-    time the device work alone, not the Python launch overhead.  Without
-    it the time is per call as a caller sees it (host gaps included)."""
+    each call.  With ``hide_host`` a sleep kernel (``sleep`` cycles,
+    about 0.5 ms by default) runs between the flush and the start event,
+    so the host has enqueued all of ``fn``'s launches before the card
+    reaches them: the events then time the device work alone, not the
+    Python launch overhead.  Without it the time is per call as a caller
+    sees it (host gaps included)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     for _ in range(3):
         fn()
@@ -1202,7 +1302,7 @@ def time_ms(torch, fn, reps=50, hide_host=True):
     for _ in range(reps):
         flush.zero_()
         if hide_host:
-            torch.cuda._sleep(1 << 20)
+            torch.cuda._sleep(sleep)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1222,12 +1322,12 @@ def time_row(torch, kernel, plain, library):
             "call_ms": time_ms(torch, kernel, hide_host=False)}
 
 
-def turns(torch, fns, reps=50):
+def turns(torch, fns, reps=50, sleep=1 << 20):
     """Device ms of each callable of ``{name: fn}``, timed in turns (in
     the order given, then reversed; the mean of the two)."""
     got = {n: [] for n in fns}
     for n in list(fns) + list(reversed(list(fns))):
-        got[n].append(time_ms(torch, fns[n], reps))
+        got[n].append(time_ms(torch, fns[n], reps, sleep=sleep))
     return {n: sum(t) / len(t) for n, t in got.items()}
 
 
@@ -1456,44 +1556,160 @@ def phase_timing_k1(torch, np, nn_ops):
     return row
 
 
-def phase_timing_k2(torch, np, fu):
-    """K2 over one full bucket (1,048,576 elements), sgd with momentum, a
-    wd vector, mult and ok: the configuration the training phase runs."""
-    n = 1 << 20
-    rng = np.random.RandomState(14)
-    dev = torch.device(DEVICE)
-    f32 = dict(dtype=torch.float32, device=dev)
-    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
-    w = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
-    mom = torch.zeros(n, **f32)
-    wdvec = torch.from_numpy(rng.choice([0.0, 1e-4], n).astype(
-        np.float32)).to(dev)
-    lr = torch.full((), 0.1, **f32)
-    mult = torch.full((), 0.5, **f32)
-    ok = torch.tensor(True, device=dev)
-    hyper = dict(momentum=0.9, rescale_grad=1.0 / BATCH)
+# K2's bytes per element: sgd with momentum and a wd vector reads g, w,
+# mom and wd and writes w and mom; adam with a scalar wd reads g, w, m and
+# v and writes w, m and v
+K2_BYTES = {"sgd_momentum": 6 * 4, "adam": 7 * 4}
+# operations per element (the rounded ops of the chain, mult to the store)
+K2_FLOPS = {"sgd_momentum": 8, "adam": 15}
+# the sleep before a timed step-shape update: long enough (about 4 ms)
+# for the host to enqueue the gather and 50 bucket launches
+K2_STEP_SLEEP = 1 << 23
 
-    def kernel():
-        fu.fused_update(g, w, (mom,), (lr,), kind="sgd_momentum",
-                        mult=mult, ok=ok, wd_vec=wdvec, **hyper)
+
+def k2_step_shapes(np, fu):
+    """``{label: (kind, sizes in plan order, bucket sizes)}`` of the two
+    training paths' updates: ResNet-50 (161 tensors, sgd with momentum,
+    wd vector, mult, ok) and the LM (101 tensors, adam, scalar wd 0),
+    from the symbols' ``infer_shape`` and the trainer's 4 MiB plan."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel.collectives import DEFAULT_BUCKET_BYTES
+    out = {}
+    for label, kind, sym, shapes in (
+            ("resnet50_step", "sgd_momentum",
+             models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH),
+             dict(data=(BATCH,) + IMAGE, softmax_label=(BATCH,))),
+            ("lm_step", "adam",
+             models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                               num_layers=LAYERS, d_model=D_MODEL,
+                               heads=HEADS, batch_size=LM_BATCH,
+                               seq_len=LM_SEQ, loss_head=True),
+             dict(data=(LM_BATCH, LM_SEQ),
+                  softmax_label=(LM_BATCH, LM_SEQ)))):
+        arg_shapes, _, _ = sym.infer_shape(**shapes)
+        shape_of = dict(zip(sym.list_arguments(), arg_shapes))
+        names = [n for n in sym.list_arguments() if n not in shapes]
+        plan = fu.build_plan(names, shape_of, DEFAULT_BUCKET_BYTES)
+        out[label] = (kind, [int(np.prod(plan.shapes[n]))
+                             for n in plan.order], plan.bucket_sizes)
+    return out
+
+
+def k2_timing_case(torch, np, fu, kind, sizes, bucket_sizes, seed):
+    """K2 over one update of ``sizes`` gradients (separate allocations,
+    as autograd leaves them) into flat buffers: the hopper form (one
+    launch a table), the bucket form (the trainer's gather into one flat
+    gradient, none for a single gradient, then one launch per bucket of
+    ``bucket_sizes``) and
+    ``torch.optim``'s fused ``SGD``/``Adam`` over the same tensors (a
+    multi-tensor kernel: the yardstick of the same design, never used by
+    the port; its formula has a scalar weight decay and no mult or ok), in
+    turns; the plain version (the gather and ``reference_update``); the
+    bytes bound; both forms per call."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = sum(sizes)
+    f32 = dict(dtype=torch.float32, device=dev)
+    g_all = torch.randn(n, generator=gen, **f32)
+    offsets = np.cumsum([0] + list(sizes[:-1])).tolist()
+    grads = [g_all[o:o + k].clone() for o, k in zip(offsets, sizes)]
+    del g_all
+    w = torch.randn(n, generator=gen, **f32)
+    lr = torch.full((), 0.1 if kind == "sgd_momentum" else 1e-3, **f32)
+    if kind == "sgd_momentum":
+        state = (torch.zeros(n, **f32),)
+        wdvec = torch.zeros(n, **f32)
+        for o, k in zip(offsets, sizes):
+            # weight decay on the large (weight) tensors, none on the
+            # small ones (biases, norm parameters), as ResNet-50's wd
+            # vector has it
+            if k > 4096:
+                wdvec[o:o + k] = 1e-4
+        hyper = dict(kind=kind, momentum=0.9, rescale_grad=1.0 / BATCH,
+                     mult=torch.full((), 0.5, **f32),
+                     ok=torch.tensor(True, device=dev), wd_vec=wdvec)
+        scalars = (lr,)
+    else:
+        state = (torch.zeros(n, **f32), torch.zeros(n, **f32))
+        hyper = dict(kind=kind, beta1=0.9, beta2=0.999, epsilon=1e-8)
+        scalars = (lr,)
+    plan = fu.plan_chunks(offsets, sizes)
+    bounds = np.cumsum([0] + list(bucket_sizes)).tolist()
+
+    def hopper():
+        fu.fused_update_params(grads, w, state, plan, scalars, **hyper)
+
+    def gather():
+        # one gradient already is the flat bucket
+        return torch.cat(grads) if len(grads) > 1 else grads[0]
+
+    def bucket():
+        g_flat = gather()
+        for b0, b1 in zip(bounds[:-1], bounds[1:]):
+            fu.fused_update(g_flat[b0:b1], w[b0:b1],
+                            tuple(s[b0:b1] for s in state), scalars,
+                            form="bucket",
+                            **dict(hyper, wd_vec=None if "wd_vec" not in
+                                   hyper else hyper["wd_vec"][b0:b1]))
 
     def plain():
-        fu.reference_update(g, w, (mom,), (lr,), kind="sgd_momentum",
-                            mult=mult, ok=ok, wd_vec=wdvec, **hyper)
+        fu.reference_update(gather(), w, state, scalars, **hyper)
 
-    # torch's own fused SGD over the same flat bucket (its formula: a
-    # scalar weight decay, no mult or ok): a yardstick, never used by the
-    # port
-    p = torch.nn.Parameter(w.clone())
-    p.grad = g.clone()
-    sgd = torch.optim.SGD([p], lr=0.1, momentum=0.9, weight_decay=1e-4,
-                          fused=True)
-    sgd.step()
-    # g, w, mom and the wd vector read once; w and mom written once; about
-    # ten operations per element
-    row = dict(bound(6 * 4 * n, 10 * n),
-               **time_row(torch, kernel, plain, sgd.step))
-    log("  timing K2: " + json.dumps(row))
+    params = [torch.nn.Parameter(w[o:o + k].clone())
+              for o, k in zip(offsets, sizes)]
+    for p, g in zip(params, grads):
+        p.grad = g
+    if kind == "sgd_momentum":
+        lib = torch.optim.SGD(params, lr=0.1, momentum=0.9,
+                              weight_decay=1e-4, fused=True)
+    else:
+        lib = torch.optim.Adam(params, lr=1e-3, fused=True)
+    lib.step()
+    before = fu.fused_update.launches_by_form["hopper"]
+    hopper()
+    torch.cuda.synchronize()
+    check(fu.fused_update.launches_by_form["hopper"] - before
+          == len(plan.tables), "K2 timing: hopper launches per call")
+    sleep = K2_STEP_SLEEP if len(sizes) > 1 else 1 << 20
+    t = turns(torch, {"hopper": hopper, "bucket": bucket,
+                      "library": lib.step}, sleep=sleep)
+    row = dict(bound(K2_BYTES[kind] * n, K2_FLOPS[kind] * n),
+               ms=t["hopper"], bucket_ms=t["bucket"],
+               plain_ms=time_ms(torch, plain, sleep=sleep),
+               library_ms=t["library"],
+               call_ms=time_ms(torch, hopper, hide_host=False),
+               bucket_call_ms=time_ms(torch, bucket, hide_host=False),
+               form="hopper", kind=kind, tensors=len(sizes), elements=n,
+               buckets=len(bucket_sizes), chunks=len(plan.chunks))
+    row["of_bound"] = row["bound_ms"] / row["ms"]
+    row["bucket_of_bound"] = row["bound_ms"] / row["bucket_ms"]
+    del params, lib, grads, w, state
+    torch.cuda.empty_cache()
+    return row
+
+
+# K2's extra keys in the kernels line: the bucket form in the same turns
+# and the other two shapes
+K2_LINE_KEYS = ("bucket_ms", "of_bound", "lm_step", "bucket_shape")
+
+
+def phase_timing_k2(torch, np, fu):
+    """K2 in both forms, in turns: over one full bucket (1,048,576
+    elements, sgd with momentum, a wd vector, mult and ok) and over the
+    two training paths' whole updates (ResNet-50's 161 tensors, the LM's
+    101).  The ResNet-50 update, the first main path's, is the row of
+    the kernels line; the other two ride in it."""
+    rows = {}
+    for label, (kind, sizes, buckets) in k2_step_shapes(np, fu).items():
+        rows[label] = k2_timing_case(torch, np, fu, kind, sizes, buckets,
+                                     seed=14)
+    rows["bucket_shape"] = k2_timing_case(
+        torch, np, fu, "sgd_momentum", [1 << 20], [1 << 20], seed=15)
+    for label, r in rows.items():
+        log(f"  timing K2 {label}: " + json.dumps(r))
+    row = dict(rows["resnet50_step"])
+    row["lm_step"] = rows["lm_step"]
+    row["bucket_shape"] = rows["bucket_shape"]
     return row
 
 
@@ -1667,6 +1883,7 @@ def phase_train_lm(torch, np, fa, fu):
     check(tr._fused and tr._fused_kind == "adam",
           "the LM trainer did not take the fused Adam path")
     n_buckets = len(tr._fused_plan.buckets)
+    k2_plan_check(tr)
     batch = tr.place_batch(lm_batch(np))
     torch.cuda.synchronize()
     log(f"  LM: {n_params} parameters in {n_buckets} buckets, bound in "
@@ -1680,6 +1897,8 @@ def phase_train_lm(torch, np, fa, fu):
     fa.flash_bwd.launches_by_form = dict.fromkeys(fa.flash_bwd.launches_by_form,
                                                   0)
     fu.fused_update.launches = 0
+    fu.fused_update.launches_by_form = dict.fromkeys(
+        fu.fused_update.launches_by_form, 0)
     ra.local_attention.dense_calls = 0
     ra.blockwise_attention.calls = 0
     losses, step_ms = [], []
@@ -1695,6 +1914,7 @@ def phase_train_lm(torch, np, fa, fu):
     k3_forms = dict(fa.flash_fwd.launches_by_form)
     k4_forms = dict(fa.flash_bwd.launches_by_form)
     k2 = fu.fused_update.launches
+    k2_forms = dict(fu.fused_update.launches_by_form)
     dense, blockwise = ra.local_attention.dense_calls, \
         ra.blockwise_attention.calls
     steps = 1 + TIMED_STEPS
@@ -1715,10 +1935,11 @@ def phase_train_lm(torch, np, fa, fu):
               "all in the hopper form")
     check(dense == 0 and blockwise == 0, f"attention left the flash path: "
           f"dense {dense}, blockwise {blockwise} calls")
-    check(k2 == n_buckets * steps, f"fused_update launched {k2} times in "
-          f"{steps} steps of {n_buckets} buckets")
-    log(f"  launches over {steps} steps: K3 {k3}, K4 {k4} (all in the "
-        f"hopper form), K2 {k2}; dense and blockwise attention 0")
+    check(k2 == steps and k2_forms == {"hopper": steps, "bucket": 0},
+          f"fused_update launched {k2} times in {steps} steps, by form "
+          f"{k2_forms}: expected one hopper launch a step")
+    log(f"  launches over {steps} steps: K3 {k3}, K4 {k4}, K2 {k2} (all in "
+        "the hopper form); dense and blockwise attention 0")
     profile = profile_step(torch, lambda: tr.step(batch), _LM_KERNEL_GROUPS,
                            _LOSS_HEAD_OPS)
 
@@ -1733,9 +1954,10 @@ def phase_train_lm(torch, np, fa, fu):
                 dst.copy_(src)
     ref._num_update = tr._num_update
     _, grads, auxu = tr._forward_backward(batch)
-    for t in (tr, ref):
-        t._num_update += 1
-        t._apply_update(grads, auxu)
+    tr._num_update += 1
+    k2_update_runs_no_cat(torch, lambda: tr._apply_update(grads, auxu))
+    ref._num_update += 1
+    ref._apply_update(grads, auxu)
     torch.cuda.synchronize()
     fused_state = tr.opt_state_by_param()
     for n in tr._param_names:
@@ -2425,6 +2647,8 @@ def main() -> int:
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"],
         **({"form": timing[name]["form"]} if "form" in timing[name] else {}),
+        **({k: timing[name][k] for k in K2_LINE_KEYS if k in timing[name]}
+           if name == "fused_update" else {}),
     } for name, source, replaces, launches, err in rows]
     log(smi)
     log(json.dumps({"kernels": kernels}))

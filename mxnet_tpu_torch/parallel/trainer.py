@@ -11,8 +11,10 @@ trainer compiles one program per step; here each step runs eagerly:
    guard, ``sq = tree_sq_sum(grads)``, ``ok = isfinite(sq)``, the
    effective norm ``sqrt(sq) * |rescale_grad|`` and the clip multiplier
    ``mult = min(1, clip / max(norm, 1e-12))``; then either the fused
-   update, one kernel launch per flat gradient bucket
-   (``ops/fused_update.py``), or the unfused per-parameter
+   update (``ops/fused_update.py``: in its hopper form one kernel launch
+   a step over the gradients where autograd left them, in its bucket
+   form a gather into one flat gradient and a launch per bucket), or the
+   unfused per-parameter
    ``optimizer._functional_step`` gated by ``where(ok, new, old)``; aux
    states (BatchNorm moving statistics) keep their old values on a bad
    step.
@@ -28,7 +30,9 @@ The fused layout keeps each of the weights, the optimizer state and the
 per-element weight decay in ONE flat float32 buffer, in the bucket plan's
 order: each bucket is a slice of it and each parameter a view, so the
 kernel updates the parameters in place and nothing is scattered back.
-Gradients are gathered into one flat buffer with ``torch.cat``.  All
+The hopper form reads each gradient where autograd left it, through a
+chunk plan over those views built once, at bind; the bucket form
+gathers the gradients into one flat buffer with ``torch.cat``.  All
 step scalars (learning rate, update count, ``ok``, ``mult``) stay on the
 card as 0-d tensors: a step never waits for the host.
 
@@ -291,6 +295,9 @@ class ShardedTrainer:
             bounds.append((off, off + size))
             off += size
         self._bucket_bounds = bounds
+        self._chunk_plan = fu.plan_chunks(
+            [offs[n] for n in plan.order],
+            [int(np.prod(plan.shapes[n])) for n in plan.order])
         self._flat_state = [torch.zeros(total, **f32)
                             for _ in range(fu._N_STATE[self._fused_kind])]
         self._opt_state = {}
@@ -302,6 +309,10 @@ class ShardedTrainer:
                 vec[offs[n]:offs[n] + size] = np.float32(
                     opt.wd * self._wd_mult[n])
             self._flat_wd = torch.from_numpy(vec).to(self.device)
+        # the kernel form of the update: "hopper" for these flat float32
+        # buffers; "bucket" gathers the gradients and launches per bucket
+        self._fused_route = fu.kernel_form(self._flat_w, self._flat_wd,
+                                           *self._flat_state)
 
     # ------------------------------------------------------------------
     # Steps
@@ -401,8 +412,10 @@ class ShardedTrainer:
                 self._aux.update(auxu)
 
     def _fused_apply(self, grads, mult, ok) -> None:
-        """One kernel launch per flat bucket; the scalar chain mirrors the
-        unfused step op for op, so the result is bitwise the same."""
+        """The hopper form: one kernel launch a step over the gradients
+        in plan order; the bucket form: a gather into one flat gradient
+        and one launch per bucket.  The scalar chain mirrors the unfused
+        step op for op, so the result is bitwise the same."""
         opt = self.optimizer
         kind = self._fused_kind
         lr_eff = self._lr_dev * float(next(iter(self._lr_mult.values())))
@@ -417,21 +430,27 @@ class ShardedTrainer:
             scalars = ((lr_t,) if kind == "adam"
                        else (lr_t, lr_eff * wd_common)
                        if self._fused_wd_uniform else (lr_t, lr_eff))
-        g_flat = torch.cat([grads[n].reshape(-1)
-                            for n in self._fused_plan.order])
-        hyper = opt._hyper()
+        common = dict(
+            kind=kind, mult=mult, ok=ok,
+            momentum=float(getattr(opt, "momentum", 0.0) or 0.0),
+            beta1=b1, beta2=b2,
+            epsilon=float(getattr(opt, "epsilon", 0.0) or 0.0),
+            wd=wd_common, rescale_grad=self._rescale_grad,
+            clip_gradient=opt._hyper().get("clip_gradient"))
+        order = self._fused_plan.order
+        if self._fused_route == "hopper":
+            fu.fused_update_params([grads[n] for n in order], self._flat_w,
+                                   self._flat_state, self._chunk_plan,
+                                   scalars, wd_vec=self._flat_wd, **common)
+            return
+        g_flat = torch.cat([grads[n].reshape(-1) for n in order])
         for b0, b1_ in self._bucket_bounds:
             fu.fused_update(
                 g_flat[b0:b1_], self._flat_w[b0:b1_],
                 tuple(s[b0:b1_] for s in self._flat_state), scalars,
-                kind=kind, mult=mult, ok=ok,
                 wd_vec=(None if self._flat_wd is None
                         else self._flat_wd[b0:b1_]),
-                momentum=float(getattr(opt, "momentum", 0.0) or 0.0),
-                beta1=b1, beta2=b2,
-                epsilon=float(getattr(opt, "epsilon", 0.0) or 0.0),
-                wd=wd_common, rescale_grad=self._rescale_grad,
-                clip_gradient=hyper.get("clip_gradient"))
+                form="bucket", **common)
 
     def _unfused_apply(self, grads, ok) -> None:
         """Per parameter: ``optimizer._functional_step``, gated by

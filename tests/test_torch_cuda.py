@@ -17,8 +17,10 @@ decode forms ("hopper" and "warp") over the same cases and at edges
 and leaving its tickets zero; the row softmax (K1) in both forms ("warp"
 and "block") f32 within atol 1e-6 (summation order), bf16 within 1e-2;
 the fused update
-(K2) BITWISE, against its plain version and against the unfused
-per-parameter update (``chip_smoke.k2_unfused``); flash attention forward
+(K2) BITWISE in both forms, against each other, its plain version and
+the unfused per-parameter update (``chip_smoke.k2_unfused``), the hopper
+form also over separate gradients at misaligned offsets and pointers
+and past one pointer table; flash attention forward
 (K3) and backward (K4) with ``chip_smoke.K34_TOL``: f32 within 2e-5
 (forward, lse) and 2e-4 (gradients), summation order; bf16 within 2e-2
 of ``1 + |plain|`` (``p`` and ``ds`` are rounded to bf16 inside); user
@@ -319,14 +321,14 @@ def test_softmax_rows_kernel_rejects_non_contiguous(cuda):
         tnn.softmax_rows(x)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", range(len(chip_smoke.K2_CASES)))
-@pytest.mark.parametrize("n", [1, 255, 1003, (1 << 20) + 7])
-def test_fused_update_kernel_is_bitwise_unfused(cuda, case, n):
+def _k2_case(cuda, case, n, seed):
+    """One ``chip_smoke.K2_CASES`` case over ``n`` elements on the card:
+    ``(g, w, state, bounds, unfused result, plain result, kernel args)``,
+    ``bounds`` cutting the bucket into 7 parameters (fewer when short)."""
     kind, use_wdvec, use_mult, ok_v, clip = chip_smoke.K2_CASES[case]
     chip_smoke.DEVICE = str(cuda)
     g, w, state, bounds, seg_wd = chip_smoke.k2_operands(
-        torch, np, kind, max(n, 8), seed=case)
+        torch, np, kind, max(n, 8), seed=seed)
     g, w, state = g[:n], w[:n], [s[:n] for s in state]
     bounds = [(a, min(b, n)) for a, b in bounds if a < n]
     seg_wd = seg_wd[:len(bounds)]
@@ -345,23 +347,85 @@ def test_fused_update_kernel_is_bitwise_unfused(cuda, case, n):
                                  use_wdvec, 1e-4, 1.0 / 64)
     scalars = chip_smoke.k2_kernel_args(torch, optimizer, kind, lr, t,
                                         use_wdvec, 1e-4)
-    hyper = dict(momentum=0.9, beta1=0.9, beta2=0.999, epsilon=1e-8,
-                 wd=0.0 if use_wdvec else 1e-4, rescale_grad=1.0 / 64,
-                 clip_gradient=clip)
-    plain = tfu.reference_update(g, w, tuple(state), scalars, kind=kind,
-                                 mult=mult, ok=ok, wd_vec=wdvec, **hyper)
-    kw, ks = w.clone(), [s.clone() for s in state]
+    kw = dict(momentum=0.9, beta1=0.9, beta2=0.999, epsilon=1e-8,
+              wd=0.0 if use_wdvec else 1e-4, rescale_grad=1.0 / 64,
+              clip_gradient=clip, kind=kind, mult=mult, ok=ok, wd_vec=wdvec)
+    plain = tfu.reference_update(g, w, tuple(state), scalars, **kw)
+    return g, w, state, bounds, want, plain, scalars, kw
+
+
+def _k2_bitwise(got, *refs):
+    for ref in refs:
+        for a, b in zip(got, ref):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _k2_form_deltas(before):
+    return {f: n - before[f]
+            for f, n in tfu.fused_update.launches_by_form.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(chip_smoke.K2_CASES)))
+@pytest.mark.parametrize("n", [1, 255, 1003, (1 << 20) + 7])
+def test_fused_update_kernel_is_bitwise_unfused(cuda, case, n):
+    g, w, state, _, want, plain, scalars, kw = _k2_case(cuda, case, n, case)
+    kw_, ks = w.clone(), [s.clone() for s in state]
     before = tfu.fused_update.launches
-    tfu.fused_update(g, kw, tuple(ks), scalars, kind=kind, mult=mult, ok=ok,
-                     wd_vec=wdvec, **hyper)
+    tfu.fused_update(g, kw_, tuple(ks), scalars, **kw)
     torch.cuda.synchronize()
     assert tfu.fused_update.launches == before + 1
-    for got, a, b in zip([kw] + ks, want, plain):
-        assert torch.equal(got.view(torch.int32), a.view(torch.int32))
-        assert torch.equal(got.view(torch.int32), b.view(torch.int32))
-    if ok_v is False:
-        for got, old in zip([kw] + ks, [w] + state):
-            assert torch.equal(got.view(torch.int32), old.view(torch.int32))
+    _k2_bitwise([kw_] + ks, want, plain)
+    if chip_smoke.K2_CASES[case][3] is False:
+        _k2_bitwise([kw_] + ks, [w] + state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(chip_smoke.K2_CASES)))
+@pytest.mark.parametrize("layout", ["views", "clones", "shifted"])
+def test_fused_update_forms_are_bitwise_twins(cuda, case, layout):
+    """The hopper form over the bucket's parameters as separate gradients
+    (``chip_smoke.k2_segments``: random cuts put chunks off the 16-byte
+    grid, "shifted" puts every pointer off it) equals the bucket form
+    over the whole bucket, the plain version and the unfused update;
+    ok=False leaves every buffer unchanged."""
+    n = (1 << 20) + 1003
+    g, w, state, bounds, want, plain, scalars, kw = _k2_case(
+        cuda, case, n, 50 + case)
+    grads = chip_smoke.k2_segments(torch, g, bounds, layout)
+    results = {}
+    for form in tfu.KERNEL_FORMS:
+        kw_, ks = w.clone(), [s.clone() for s in state]
+        before = dict(tfu.fused_update.launches_by_form)
+        if form == "hopper":
+            tfu.fused_update_params(grads, kw_, tuple(ks),
+                                    [a for a, _ in bounds], scalars, **kw)
+        else:
+            tfu.fused_update(g, kw_, tuple(ks), scalars, form=form, **kw)
+        torch.cuda.synchronize()
+        assert _k2_form_deltas(before) == {f: int(f == form)
+                                           for f in tfu.KERNEL_FORMS}
+        results[form] = [kw_] + ks
+    _k2_bitwise(results["hopper"], results["bucket"], want, plain)
+    if chip_smoke.K2_CASES[case][3] is False:
+        _k2_bitwise(results["hopper"], [w] + state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(chip_smoke.K2_CASES)))
+def test_fused_update_hopper_form_past_one_table(cuda, case):
+    n = 300 * 1000 + 17
+    g, w, state, _, want, plain, scalars, kw = _k2_case(cuda, case, n,
+                                                        80 + case)
+    cuts = chip_smoke.k2_cuts(np, n, 300, seed=case)
+    grads = chip_smoke.k2_segments(torch, g, cuts, "clones")
+    kw_, ks = w.clone(), [s.clone() for s in state]
+    before = dict(tfu.fused_update.launches_by_form)
+    tfu.fused_update_params(grads, kw_, tuple(ks), [a for a, _ in cuts],
+                            scalars, **kw)
+    torch.cuda.synchronize()
+    assert _k2_form_deltas(before) == {"hopper": 2, "bucket": 0}
+    _k2_bitwise([kw_] + ks, want, plain)
 
 
 @pytest.mark.cuda
@@ -371,6 +435,9 @@ def test_fused_update_kernel_rejects_non_contiguous(cuda):
     with pytest.raises(MXNetError, match="contiguous"):
         tfu.fused_update(g, torch.zeros(8, device=cuda), (), (lr,),
                          kind="sgd")
+    with pytest.raises(MXNetError, match="non-contiguous"):
+        tfu.fused_update_params([g], torch.zeros(8, device=cuda), (), [0],
+                                (lr,), kind="sgd")
 
 
 # (layout, B, H, Lq, Lk, D, causal, external delta, the bf16 form)

@@ -115,7 +115,26 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     with ``SoftmaxOutput`` (K1) within 1e-5, a finite falling loss,
     training accuracy > 0.9 and exactly one K6 forward and one K6
     backward launch per step; prints the median step and samples/s;
-11. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+11. serves the same model with speculative decoding in ``bench.py``'s
+    round-15 configuration (16 requests of 224 new tokens, prompts of
+    4-32 tokens by its ``serve_request_set`` recipe, k 8, chunks of 16,
+    256 blocks): (a) a greedy non-speculative baseline (K5, hopper form),
+    (b) greedy n-gram speculation (no flash-decode launch, no decode step,
+    the allocator audited after every step, every token within 1e-5 of
+    the teacher-forced argmax, streams equal (a)'s but for counted true
+    near-ties: both tokens within 1e-5 of the row's maximum logit; one
+    request served again alone), (c) temperature 0.9, top-k 40 (every
+    request finishes, one served again alone repeats its stream; the
+    accept rate is printed, not gated), (d) greedy on fp8 pools against a
+    non-speculative fp8 run (K5-fp8; the teacher-forced forward reads K
+    and V through the same e4m3 quantization), (e) the model drafter with
+    the target's own weights over a 256-token window (streams as in (b),
+    accept rate >= 0.9, a compatible ``swap_draft_weights`` counted and a
+    replay unchanged), (f) request 0 stopped after 40 tokens and adopted
+    by a new engine (its stream equals (b)'s); prints tokens/s, p50 TTFT,
+    the median step, tokens per step, the accept rate, the ratio to the
+    baseline's tokens/s and five profiled steps of a full batch by layer;
+12. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
@@ -157,6 +176,23 @@ R12_CHUNK = 64
 FP8_READ_TOL = 0.05
 # prefix-cache phase: 8 requests share one prefix
 PREFIX_LEN, SUFFIX_LEN, PREFIX_REQUESTS, PREFIX_NEW = 256, 32, 8, 32
+# speculative decoding (phase 11): bench.py's round-15 speculate row
+# (bench.py:1439-1445) at the serving model's full width: 16 requests of
+# 224 new tokens, prompts drawn by bench.py's serve_request_set recipe
+# (RandomState(1), lengths randint(4, 33), tokens randint(1, vocab)); a
+# 32-token prompt plus 224 new tokens fills max_seq_len 256 exactly
+SPEC_KW = dict(heads=HEADS, block_size=16, num_blocks=256, max_batch=8,
+               max_prompt_len=64, max_seq_len=256, prompt_bucket_min=16,
+               prefill_chunk=16)
+SPEC_K, SPEC_REQUESTS, SPEC_NEW = 8, 16, 224
+SPEC_TEMP, SPEC_TOPK = 0.9, 40
+# a greedy divergence between two engines is a true near-tie when both
+# tokens lie within this of the row's maximum teacher-forced logit
+SPEC_TIE = 1e-5
+# the model drafter: the target's own weights over the whole context
+SPEC_WINDOW, SPEC_MIN_ACCEPT = 256, 0.9
+# request 0 is stopped after this many tokens and adopted by a new engine
+SPEC_ADOPT_AT = 40
 
 # training configuration: __graft_entry__.entry's ResNet-50
 DEPTH, CLASSES, IMAGE, BATCH = 50, 1000, (3, 224, 224), 64
@@ -259,6 +295,10 @@ def kernel_cases(torch, np):
     rng = np.random.RandomState(7)
     eng = dict(B=8, H=8, hd=64, BS=16, nblk=64, npool=520)
     ragged = rng.randint(1, 64 * 16 + 1, size=8)
+    spec = dict(eng, nblk=SPEC_KW["max_seq_len"] // SPEC_KW["block_size"],
+                npool=SPEC_KW["num_blocks"])
+    spec_lens = rng.randint(4, SPEC_KW["max_seq_len"] + 1, size=8)
+    spec_lens[0] = SPEC_KW["max_seq_len"]          # a full table
     return [
         ("engine shapes, 8 splits", dict(eng, lengths=ragged),
          torch.float32, None),
@@ -272,6 +312,13 @@ def kernel_cases(torch, np):
         ("bf16 q and pool", dict(eng, lengths=ragged), torch.bfloat16, None),
         ("f32 q, bf16 pool", dict(eng, lengths=ragged, q_dtype=torch.float32),
          torch.bfloat16, None),
+        # phase 11's geometry: max_seq_len 256 of 16-position blocks, a
+        # 256-block pool, lengths 4-256, the automatic plan
+        ("phase 11 shapes", dict(spec, lengths=spec_lens), torch.float32,
+         None),
+        ("phase 11 shapes, length-1 trash rows",
+         dict(spec, lengths=spec_lens, trash_rows=(6, 7)), torch.float32,
+         None),
     ]
 
 
@@ -700,15 +747,44 @@ def request_set(np):
     return reqs
 
 
-def teacher_forced_check(torch, eng, prompt, tokens, transformer):
-    """Every greedy token must be the argmax, within 1e-5, of a dense
-    causal forward over prompt + generated tokens (no cache, no kernel)."""
-    seq = torch.tensor([prompt + tokens[:-1]], dtype=torch.int32,
-                       device=eng.device)
+def teacher_forced_rows(torch, eng, seq, transformer):
+    """Logits [len(seq), V] of a cache-free causal forward over ``seq``
+    with ``eng``'s weights (no kernel): the dense forward for f32 pools;
+    for fp8 pools each position's K and V first pass through the pools'
+    rowwise e4m3 quantization, as a chunked-prefill fp8 engine reads
+    them."""
+    from mxnet_tpu_torch import quant
+    from mxnet_tpu_torch.serve import kvcache
+    tokens = torch.tensor([seq], dtype=torch.int32, device=eng.device)
+
+    def fp8(x):          # [1, L, H, hd] -> quantized, then dequantized
+        q, scale = quant.rowwise_quantize(x[0], kvcache.KV_FP8_FORMAT)
+        return (q.float() * scale[:, None, None])[None]
+
+    def attend(i, q, k, v):
+        k, v = fp8(k), fp8(v)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / float(q.shape[-1]) ** 0.5
+        n = s.shape[-1]
+        causal = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
+        p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
     with torch.no_grad():
-        logits, _, _ = transformer.transformer_lm_prefill(
-            eng._params, seq, heads=eng.heads)
-    rows = logits[0, len(prompt) - 1:].float()
+        if eng.kv_quant is None:
+            logits, _, _ = transformer.transformer_lm_prefill(
+                eng._params, tokens, heads=eng.heads)
+        else:
+            logits = transformer.transformer_lm_prefill_chunk(
+                eng._params, tokens, heads=eng.heads, attend=attend)
+    return logits[0].float()
+
+
+def teacher_forced_check(torch, eng, prompt, tokens, transformer):
+    """Every greedy token must be the argmax, within 1e-5, of a cache-free
+    causal forward over prompt + generated tokens
+    (:func:`teacher_forced_rows`)."""
+    rows = teacher_forced_rows(torch, eng, prompt + tokens[:-1],
+                               transformer)[len(prompt) - 1:]
     chosen = rows[torch.arange(len(tokens), device=rows.device),
                   torch.tensor(tokens, device=rows.device)]
     gap = (rows.max(dim=-1).values - chosen).max().item()
@@ -771,10 +847,11 @@ def phase_serve(torch, np, fd):
 
 def serve_run(torch, np, eng, reqs, fd):
     """Drive ``eng`` through ``reqs`` from counts of 0; every step ends in
-    a synchronise; every flash-decode launch must have run the hopper
-    form.  Returns the requests, the wall time, the host times of steps
-    that ran no prefill work, the flash-decode launches (plain, fp8) and
-    the engine's counters."""
+    a synchronise; a plain engine's flash-decode launches must all have
+    run the hopper form; a speculating engine's allocator and tables are
+    audited after every step.  Returns the requests, the wall time, the
+    host times of steps that ran no prefill work, the flash-decode
+    launches (plain, fp8) and the engine's counters."""
     reset_decode_counts(fd)
     eng.counters.clear()
     t_start = time.perf_counter()
@@ -787,10 +864,13 @@ def serve_run(torch, np, eng, reqs, fd):
         torch.cuda.synchronize()
         if eng.counters["prefills"] + eng.counters["prefill_chunks"] == work:
             decode_ms.append((time.perf_counter() - t0) * 1e3)
+        if eng.spec is not None:
+            eng.check_tables()
     wall = time.perf_counter() - t_start
     launches = (fd.flash_decode_attention.launches,
                 fd.flash_decode_attention.launches_fp8)
-    check_hopper_launches(fd, "served path")
+    if eng.spec is None:
+        check_hopper_launches(fd, "served path")
     return ([eng.requests[i] for i in ids], wall, decode_ms, launches,
             dict(eng.counters))
 
@@ -826,27 +906,35 @@ def serve_stats(np, done, wall, decode_ms, counters):
             "preemptions": counters.get("preemptions", 0)}
 
 
-def profile_decode(torch, eng, reqs, steps=5):
-    """``steps`` decode steps of a full batch under ``torch.profiler``:
-    the first ``max_batch`` requests of ``reqs`` are admitted and
-    prefilled first, then the profiled steps run no prefill work.  Per
-    step: wall and device-busy ms, idle share, device ms by layer."""
-    from mxnet_tpu_torch.serve.scheduler import FINISHED
+def profile_decode(torch, eng, reqs, steps=5, drain=True):
+    """``steps`` decode steps (verify steps, when ``eng`` speculates) of a
+    full batch under ``torch.profiler``: the first ``max_batch`` requests
+    of ``reqs`` are admitted and prefilled first, then the profiled steps
+    run no prefill work; afterwards the requests run to their end, or
+    with ``drain=False`` are cancelled.  Per step: wall and device-busy
+    ms, idle share, device ms by layer."""
+    from mxnet_tpu_torch.serve.scheduler import CANCELLED, FINISHED
     ids = [eng.submit(p, **kw) for p, kw in reqs[:eng.config.max_batch]]
     while any(r.prefilled < r.prefill_target or not r.tokens
               for r in eng.sched.running) or eng.sched.queue:
         eng.step()
+    kind = "decode" if eng.spec is None else "verify"
     out = profile_step(torch, lambda: [eng.step() for _ in range(steps)],
-                       _SERVE_KERNEL_GROUPS,
-                       label=f"profiled {steps} decode steps")
+                       (_SERVE_KERNEL_GROUPS if eng.spec is None
+                        else _VERIFY_KERNEL_GROUPS),
+                       label=f"profiled {steps} {kind} steps")
     per_step = {"wall_ms": out["wall_ms"] / steps,
                 "device_busy_ms": out["device_busy_ms"] / steps,
                 "idle_share": out["idle_share"],
                 "by_layer_ms": {k: v / steps
                                 for k, v in out["by_layer_ms"].items()}}
+    if not drain:
+        for i in ids:
+            eng.cancel(i)
     eng.run()
-    check(all(eng.requests[i].state == FINISHED for i in ids)
-          and eng.alloc.num_used == 0, "the profiled requests did not drain")
+    check(all(eng.requests[i].state == (FINISHED if drain else CANCELLED)
+              for i in ids) and eng.alloc.num_used == 0,
+          "the profiled requests did not drain")
     return per_step
 
 
@@ -990,6 +1078,225 @@ def phase_prefix_cache(torch, np, fd):
     log("  prefix cache: streams equal the cache-cold engine's; defrag "
         "halfway kept them; " + json.dumps(stats))
     return stats
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+def spec_prompts(np):
+    """bench.py's serve_request_set recipe (seed 1, lengths 4-32)."""
+    rng = np.random.RandomState(1)
+    out = []
+    for _ in range(SPEC_REQUESTS):
+        n = int(rng.randint(4, 33))
+        out.append([int(t) for t in rng.randint(1, VOCAB, n)])
+    return out
+
+
+def spec_divergence(torch, eng, prompt, got, want, transformer):
+    """0 when the greedy streams ``got`` and ``want`` are equal, 1 when
+    they first differ at a true near-tie: both tokens within ``SPEC_TIE``
+    of the maximum teacher-forced logit of that row.  Any other
+    divergence fails."""
+    check(len(got) == len(want), f"stream lengths {len(got)} != {len(want)}")
+    if got == want:
+        return 0
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    row = teacher_forced_rows(torch, eng, prompt + got[:j], transformer)[-1]
+    top = row.max().item()
+    gaps = (top - row[got[j]].item(), top - row[want[j]].item())
+    check(max(gaps) <= SPEC_TIE, f"greedy streams diverge at token {j}: "
+          f"logit gaps {gaps} to the row maximum, not a near-tie "
+          f"(<= {SPEC_TIE})")
+    log(f"  near-tie at token {j}: {got[j]} against {want[j]}, logit gaps "
+        f"{gaps[0]:.2e} and {gaps[1]:.2e}")
+    return 1
+
+
+def spec_stats(np, eng, done, wall, step_ms, counters):
+    """serve_stats plus the speculative step's figures: tokens per step of
+    the batch (tokens after each request's first, over decode or verify
+    steps), the engine's tokens per row per step (EWMA) and the accept
+    rate."""
+    st = serve_stats(np, done, wall, step_ms, counters)
+    st["median_step_ms"] = st.pop("median_decode_step_ms")
+    steps = counters.get("verify_steps", 0) or counters.get("decode_steps",
+                                                            0)
+    st["steps"] = steps
+    st["tokens_per_step"] = (st["tokens"] - len(done)) / steps
+    if eng.spec is not None:
+        drafted = counters.get("spec_drafted", 0)
+        st.update(drafted=drafted, accepted=counters.get("spec_accepted", 0),
+                  accept_rate=counters.get("spec_accepted", 0) / drafted,
+                  tokens_per_row_step=eng.stats()["speculate"][
+                      "tokens_per_step"])
+    return st
+
+
+def phase_speculate(torch, np, fd):
+    """Speculative decoding on the served model: (a) the greedy
+    non-speculative baseline (K5), (b) greedy n-gram speculation, (c)
+    temperature 0.9, top-k 40, (d) greedy on fp8 pools against an fp8
+    baseline (K5-fp8), (e) the model drafter with the target's own
+    weights, (f) adoption of a stopped request by a new engine.  Returns
+    the K5 and K5-fp8 launches of the baselines and the stats."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.serve import Engine, EngineConfig
+    from mxnet_tpu_torch.serve.scheduler import FINISHED
+
+    params = transformer.init_params(VOCAB, LAYERS, D_MODEL, seed=0)
+    prompts = spec_prompts(np)
+    greedy = [(p, dict(max_new_tokens=SPEC_NEW, seed=i))
+              for i, p in enumerate(prompts)]
+    sampled = [(p, dict(max_new_tokens=SPEC_NEW, temperature=SPEC_TEMP,
+                        top_k=SPEC_TOPK, seed=i))
+               for i, p in enumerate(prompts)]
+
+    def engine(label, speculate, **over):
+        cfg = dict(SPEC_KW, speculate=speculate, spec_k=SPEC_K, **over)
+        extra = (dict(draft_params=params)
+                 if over.get("spec_draft") == "model" else {})
+        eng = Engine(params, EngineConfig(**cfg), device=DEVICE, **extra)
+        infos = eng.warmup()
+        torch.cuda.synchronize()
+        log(f"  [{label}] warmup: " + ", ".join(
+            f"{i['kind']}@{i['bucket']} {i['ms']:.1f} ms" for i in infos))
+        return eng
+
+    def run(label, eng, reqs):
+        # the main path's run: every count starts at 0 inside serve_run
+        spec = eng.spec is not None
+        done, wall, step_ms, launches, counters = serve_run(
+            torch, np, eng, reqs, fd)
+        check(all(r.state == FINISHED and len(r.tokens) == SPEC_NEW
+                  for r in done), f"[{label}] not every request finished "
+              f"with {SPEC_NEW} tokens: "
+              f"{[(r.state, len(r.tokens)) for r in done]}")
+        check(eng.alloc.num_used == 0,
+              f"[{label}] {eng.alloc.num_used} KV blocks held after drain")
+        if spec:
+            check(launches == (0, 0) and counters.get("decode_steps", 0)
+                  == counters.get("kernel_launches", 0) == 0
+                  and counters["verify_steps"] > 0,
+                  f"[{label}] flash-decode launches {launches}, counters "
+                  f"{counters}: a verify step must replace every decode "
+                  "step")
+        else:
+            steps = counters["decode_steps"]
+            want = ((LAYERS * steps, 0) if eng.kv_quant is None
+                    else (0, LAYERS * steps))
+            check(steps > 0 and launches == want
+                  and counters["kernel_launches"] == LAYERS * steps,
+                  f"[{label}] launches {launches}, expected {want}")
+        stats = spec_stats(np, eng, done, wall, step_ms, counters)
+        log(f"  [{label}] " + json.dumps(stats))
+        return done, stats, launches
+
+    def replay(label, eng, reqs, done, i):
+        again = eng.result(eng.submit(reqs[i][0], **reqs[i][1]))
+        check(again == done[i].tokens, f"[{label}] request {i} served alone "
+              "differs from its batched stream")
+        check(eng.alloc.num_used == 0, f"[{label}] blocks leaked by replay")
+        log(f"  [{label}] request {i} served alone: identical stream")
+
+    def streams_match(label, eng, done, ref):
+        ties = 0
+        for i, r in enumerate(done):
+            teacher_forced_check(torch, eng, prompts[i], r.tokens,
+                                 transformer)
+            ties += spec_divergence(torch, eng, prompts[i], r.tokens,
+                                    ref[i].tokens, transformer)
+        log(f"  [{label}] every greedy token within {SPEC_TIE} of the "
+            f"teacher-forced argmax; streams equal the baseline's but for "
+            f"{ties} near-tie(s)")
+        return ties
+
+    out = {}
+    # (a) the greedy non-speculative baseline: K5
+    eng = engine("a", False)
+    a_done, out["a"], (a_k5, _) = run("a: greedy, non-speculative, f32",
+                                      eng, greedy)
+    for i, r in enumerate(a_done):
+        teacher_forced_check(torch, eng, prompts[i], r.tokens, transformer)
+    out["a"]["profile"] = profile_decode(torch, eng, greedy, drain=False)
+    base_tps = out["a"]["tokens_per_s"]
+
+    # (b) greedy n-gram speculation
+    eng = engine("b", True)
+    b_done, out["b"], _ = run("b: greedy, speculative (n-gram)", eng, greedy)
+    out["b"]["near_ties"] = streams_match("b", eng, b_done, a_done)
+    replay("b", eng, greedy, b_done, 1)
+    out["b"]["profile"] = profile_decode(torch, eng, greedy, drain=False)
+
+    # (c) temperature 0.9, top-k 40: acceptance is about 1/V by design
+    eng = engine("c", True)
+    c_done, out["c"], _ = run(f"c: temperature {SPEC_TEMP}, top-k "
+                              f"{SPEC_TOPK}, speculative", eng, sampled)
+    replay("c", eng, sampled, c_done, 3)
+    out["c"]["profile"] = profile_decode(torch, eng, sampled, drain=False)
+
+    # (d) fp8 pools: speculation against the fp8 baseline (K5-fp8)
+    eng = engine("d base", False, kv_quant="fp8")
+    d0_done, out["d_base"], (_, d_k5_fp8) = run(
+        "d: greedy, non-speculative, fp8", eng, greedy)
+    for i, r in enumerate(d0_done):
+        teacher_forced_check(torch, eng, prompts[i], r.tokens, transformer)
+    eng = engine("d", True, kv_quant="fp8")
+    d_done, out["d"], _ = run("d: greedy, speculative, fp8", eng, greedy)
+    out["d"]["near_ties"] = streams_match("d", eng, d_done, d0_done)
+    replay("d", eng, greedy, d_done, 1)
+
+    # (e) the model drafter, the target's own weights over the whole
+    # context: every draft is the target's own argmax
+    eng = engine("e", True, spec_draft="model", spec_window=SPEC_WINDOW)
+    e_done, out["e"], _ = run("e: greedy, speculative (model drafter)",
+                              eng, greedy)
+    out["e"]["near_ties"] = streams_match("e", eng, e_done, a_done)
+    check(out["e"]["accept_rate"] >= SPEC_MIN_ACCEPT,
+          f"[e] accept rate {out['e']['accept_rate']} < {SPEC_MIN_ACCEPT} "
+          "with the target's own weights as the draft")
+    report = eng.swap_draft_weights(params)
+    check(report["compatible"]
+          and eng.stats()["speculate"]["draft_swaps"] == 1,
+          f"[e] compatible draft swap: {report}, counters {eng.counters}")
+    replay("e, after the draft swap", eng, greedy, e_done, 2)
+    out["e"]["profile"] = profile_decode(torch, eng, greedy, drain=False)
+
+    # (f) adoption: request 0 stopped after SPEC_ADOPT_AT tokens on one
+    # speculative engine, continued by a new one
+    first = engine("f, first", True)
+    rid = first.submit(prompts[0], **greedy[0][1])
+    while len(first.request(rid).tokens) < SPEC_ADOPT_AT:
+        first.step()
+    part = first.request(rid).tokens[:SPEC_ADOPT_AT]
+    first.cancel(rid)
+    first.step()
+    check(first.alloc.num_used == 0, "[f] the stopped request kept blocks")
+    second = engine("f, second", True)
+    got = second.result(second.adopt(prompts[0], part, **greedy[0][1]))
+    check(got[:SPEC_ADOPT_AT] == part, "[f] adoption changed the tokens "
+          "it was given")
+    ties = spec_divergence(torch, second, prompts[0], got, b_done[0].tokens,
+                           transformer)
+    check(second.alloc.num_used == 0, "[f] blocks held after adoption")
+    log(f"  [f] request 0 stopped after {SPEC_ADOPT_AT} tokens and adopted: "
+        f"its stream equals (b)'s but for {ties} near-tie(s)")
+    out["f_near_ties"] = ties
+
+    for key in ("b", "c", "e"):
+        out[key]["tokens_per_s_vs_a"] = out[key]["tokens_per_s"] / base_tps
+    out["d"]["tokens_per_s_vs_d_base"] = (out["d"]["tokens_per_s"]
+                                          / out["d_base"]["tokens_per_s"])
+    summary = {k: {m: v[m] for m in ("tokens_per_s", "p50_ttft_ms",
+                                     "median_step_ms", "tokens_per_step")
+                   + (("accept_rate", "tokens_per_row_step")
+                      if "accept_rate" in v else ())
+                   + tuple(x for x in v if x.startswith("tokens_per_s_vs")
+                           or x == "near_ties")}
+               for k, v in out.items() if isinstance(v, dict)}
+    log("  speculative decoding: " + json.dumps(summary))
+    return a_k5, d_k5_fp8, out
 
 
 # ---------------------------------------------------------------------------
@@ -1230,6 +1537,20 @@ _SERVE_KERNEL_GROUPS = (
                                                   "gather")),
     ("reductions (LayerNorm, argmax, row absmax)", ("reduce", "norm")),
     ("elementwise (LayerNorm, ReLU, residual, casts, quantize)",
+     ("elementwise",)),
+)
+# kernel-name fragments of a speculative verify step (and a model
+# drafter's unroll) -> the layer
+_VERIFY_KERNEL_GROUPS = (
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas",
+                         "nvjet")),
+    ("KV writes, gathers and scrubs (index_put, index)",
+     ("index", "scatter", "gather")),
+    ("sampling (top-k, random draws)", ("topk", "sort", "radix", "philox",
+                                        "distribution", "bitonic")),
+    ("reductions (LayerNorm, softmax, argmax, row absmax, scans)",
+     ("reduce", "norm", "softmax", "scan")),
+    ("elementwise (LayerNorm, ReLU, residual, masks, casts, quantize)",
      ("elementwise",)),
 )
 
@@ -2534,14 +2855,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/11] device")
+    log("[1/12] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/11] build")
+    log("[2/12] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -2549,7 +2870,7 @@ def main() -> int:
         for kernel, regs, spills in ptxas_summary(info["log"]):
             log(f"  {name}: {kernel}: {regs} registers, {spills}")
 
-    log("[3/11] kernels against their plain versions")
+    log("[3/12] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -2558,22 +2879,22 @@ def main() -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/11] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/12] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/11] serving the round-12 configuration: chunked prefill "
+    log(f"[5/12] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/11] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/12] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/11] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/12] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, _ = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/11] kernel timing")
+    log("[8/12] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -2590,29 +2911,38 @@ def main() -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/11] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/12] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, _ = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/11] imperative + executor: NDArray on the card, the MLP "
+    log("[10/12] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log("[11/11] result")
+    log(f"[11/12] speculative decoding: {SPEC_REQUESTS} requests x "
+        f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
+        f"{SPEC_KW['prefill_chunk']}")
+    t0 = time.perf_counter()
+    spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    log("[12/12] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
     rows = [
         # the main paths' forms: K5 and K5-fp8 hopper, K1 warp
+        # K5 and K5-fp8 launch on phases 4-6 and in phase 11's
+        # non-speculative baselines (never in its speculative runs)
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
-         "mxnet_tpu/serve/flash_decode.py:60", k5_launches,
+         "mxnet_tpu/serve/flash_decode.py:60", k5_launches + spec_k5,
          max(v for (k, f), v in errs.items()
              if "bf16" not in k and f == "hopper")),
         ("flash_decode_fp8", "mxnet_tpu_torch/csrc/flash_decode.cu",
-         "mxnet_tpu/serve/flash_decode.py:60", fp8_launches,
+         "mxnet_tpu/serve/flash_decode.py:60", fp8_launches + spec_k5_fp8,
          max(v for k, v in fp8_errs.items()
              if k.endswith("float32 q, hopper"))),
         ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",

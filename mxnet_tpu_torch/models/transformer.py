@@ -41,7 +41,8 @@ from ..parallel.ring_attention import NEG_INF, local_attention
 __all__ = ["transformer_block", "transformer_lm", "lm_config_from_params",
            "param_shapes", "init_params", "params_from_numpy",
            "transformer_lm_prefill", "transformer_lm_prefill_chunk",
-           "transformer_lm_decode", "transformer_lm_decode_dense"]
+           "transformer_lm_verify", "transformer_lm_decode",
+           "transformer_lm_decode_dense"]
 
 _LN_EPS = 1e-5   # LayerNorm op default of the JAX package
 
@@ -308,6 +309,26 @@ def transformer_lm_prefill_chunk(params, tokens, *, heads, attend):
     for i in range(num_layers):
         h = _block_step(params, i, h, make_attend(i))
     return _lm_head(params, h)
+
+
+def transformer_lm_verify(params, tokens, *, heads, attend):
+    """A speculative decoding verify window: C candidate positions per
+    request scored in one forward over a caller-owned KV cache.
+
+    ``tokens``: [B, C]; per request, position 0 is the current last token
+    and 1..C-1 a drafted continuation.  ``attend(layer, q, k, v)``
+    receives the window's per-head states ([B, C, H, hd] each), must
+    extend the cache with ``k``/``v`` and return each window position's
+    causal attention over the cached prefix (the window's earlier
+    positions included) as [B, C, H, hd].  Returns logits [B, C, V]: row
+    ``c`` scores the token after window position ``c``.  Structurally a
+    prefill chunk at each request's own offset (the model has no
+    positional embedding, so the offsets are the attend closure's
+    business), and it runs as one: an alias of
+    ``transformer_lm_prefill_chunk``, kept for the JAX package's API.
+    """
+    return transformer_lm_prefill_chunk(params, tokens, heads=heads,
+                                        attend=attend)
 
 
 def transformer_lm_decode(params, tokens, *, heads, attend):

@@ -17,6 +17,17 @@ Counterpart of ``mxnet_tpu/serve/engine.py``: ``submit`` / ``stream`` /
    kernel (:mod:`.flash_decode`), its fp8 instance for ``kv_quant="fp8"``
    pools.
 
+With ``speculate=True`` a verify step replaces the decode step: a drafter
+(:mod:`.speculate`, n-gram or a small model) proposes ``spec_k`` tokens per
+row, one forward scores the window of the last token and the drafts over
+the paged cache (:func:`~.kvcache.paged_verify_attention`, plain PyTorch,
+as the JAX package's verify program is plain ``jnp``), and a replay-exact
+acceptance rule emits 1 to ``spec_k + 1`` tokens per row.  The window's
+K/V is written before attention reads it; the rejected tail is zeroed in
+place afterwards (:func:`~.kvcache.scrub_positions`).  Greedy streams are
+the non-speculative engine's token for token; sampled streams keep its
+distribution, and a row with no live draft is its plain decode step.
+
 With ``prefix_cache=True`` (chunked prefill only) full prompt blocks are
 published to a content-hashed :class:`~.kvcache.PrefixIndex`; a later
 request with the same prefix maps those blocks (reference-counted,
@@ -39,6 +50,7 @@ bits; greedy streams match its engine token for token.
 from __future__ import annotations
 
 import collections
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -52,8 +64,10 @@ from ..context import DeviceLike, resolve_device
 from ..models.transformer import (lm_config_from_params, params_from_numpy,
                                   transformer_lm_decode,
                                   transformer_lm_prefill,
-                                  transformer_lm_prefill_chunk)
+                                  transformer_lm_prefill_chunk,
+                                  transformer_lm_verify)
 from . import kvcache
+from . import speculate as speculate_mod
 from .flash_decode import flash_decode_attention
 from .scheduler import (CANCELLED, FAILED, FINISHED, Request, Scheduler,
                         ServeError)
@@ -76,12 +90,197 @@ def _mix(*vals: int) -> int:
     return h
 
 
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "").strip()
+    return int(raw) if raw else default
+
+
+def _env_float(name: str, default: Optional[float]) -> Optional[float]:
+    raw = os.environ.get(name, "").strip()
+    return float(raw) if raw else default
+
+
+def _env_str(name: str, default: Optional[str]) -> Optional[str]:
+    return os.environ.get(name, "").strip().lower() or default
+
+
+# ---------------------------------------------------------------------------
+# Sampling and speculative acceptance
+# ---------------------------------------------------------------------------
+
+# salts of the acceptance uniform and the residual draw: each is its own
+# stream keyed by (request key, position, salt), apart from the plain draw
+# at the same position, which stays untouched, so a row with no live draft
+# is the plain decode step bit for bit
+_SALT_ACCEPT = 0x5ACC
+_SALT_RESID = 0x5E51
+
+
+def _generator(seed: int, device: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _masked_scaled(logits, temp: float, topk: int):
+    """The sampling distribution's logits of f32 rows ``[..., V]``: scaled
+    by the temperature, all but the top ``topk`` masked when ``topk > 0``."""
+    rows = logits / max(float(temp), 1e-6)
+    if topk > 0:
+        kth = torch.topk(rows, min(int(topk), rows.shape[-1]),
+                         dim=-1).values[..., -1:]
+        rows = rows.masked_fill(rows < kth, _NEG)
+    return rows
+
+
+def _gumbel_argmax(rows, seeds: Sequence[int]):
+    """A draw from ``softmax(rows[i])`` for each row of ``rows`` [n, V] by
+    the Gumbel-max trick, the noise of row ``i`` from a generator seeded
+    ``seeds[i]``: one uniform draw per row, then one batched argmax."""
+    u = torch.empty_like(rows)
+    for i, seed in enumerate(seeds):
+        torch.rand(rows.shape[-1], generator=_generator(seed, rows.device),
+                   device=rows.device, out=u[i])
+    return torch.argmax(rows - torch.log(-torch.log(u)), dim=-1)
+
+
+def _sample_batch(logits, temps: Sequence[float], topks: Sequence[int],
+                  keys: Sequence[int], positions: Sequence[int]):
+    """Greedy / temperature / top-k sampling of each row of ``logits``
+    [n, V].  Row ``i`` with ``temps[i] > 0`` draws from a generator seeded
+    by ``(keys[i], positions[i])``: the draw is a pure function of the
+    request key, its position and its logits, whatever else is in the
+    batch."""
+    logits = logits.float()
+    out = logits.argmax(dim=-1)
+    hot = [i for i, temp in enumerate(temps) if temp > 0]
+    if hot:
+        rows = torch.stack([_masked_scaled(logits[i], temps[i], topks[i])
+                            for i in hot])
+        drawn = _gumbel_argmax(rows, [_mix(keys[i], positions[i])
+                                      for i in hot])
+        for j, i in enumerate(hot):     # no index tensor to copy over
+            out[i] = drawn[j]
+    return out
+
+
+def _window_out(draft, a, final):
+    """``out[..., c]``: the accepted drafts below ``a``, ``final`` at ``a``,
+    0 after.  ``draft`` [..., K], ``a`` and ``final`` [...]."""
+    k = draft.shape[-1]
+    idx = torch.arange(k + 1, device=draft.device)
+    pad = torch.cat([draft, torch.zeros_like(draft[..., :1])], dim=-1)
+    a1, f1 = a[..., None], final[..., None]
+    return torch.where(idx == a1, f1, torch.where(idx < a1, pad, 0))
+
+
+def _leading_accepts(acc):
+    """Number of leading True entries along the last axis."""
+    return torch.cumprod(acc.long(), dim=-1).sum(dim=-1)
+
+
+def _spec_accept_row_greedy(logits, toks, live):
+    """Greedy acceptance over ``logits`` [..., C, V], ``toks`` [..., C] and
+    ``live`` [...] (any leading batch shape): draft ``c`` is accepted iff
+    it equals ``argmax(logits[c-1])`` and ``c <= live``, and the token
+    after the last accepted draft is the argmax at its row.  These are the
+    integers :func:`_spec_accept_row` gives at temperature 0: the emitted
+    stream is the non-speculative argmax stream.  Returns ``(out [..., C],
+    n_emit [...])``."""
+    greedy = logits.float().argmax(dim=-1)                  # [..., C]
+    k = greedy.shape[-1] - 1
+    draft = toks[..., 1:].long()
+    live = torch.as_tensor(live, device=greedy.device)
+    acc = ((greedy[..., :k] == draft)
+           & (torch.arange(k, device=greedy.device) < live[..., None]))
+    a = _leading_accepts(acc)
+    final = greedy.gather(-1, a[..., None])[..., 0]
+    return _window_out(draft, a, final), a + 1
+
+
+def _spec_accept_row(logits, toks, live, key: int, temp: float, topk: int,
+                     length: int):
+    """Replay-exact acceptance for one request's verify window.
+
+    ``logits``: [C, V] target scores (row ``c`` scores the token after
+    window position ``c``); ``toks``: [C], ``toks[0]`` the current last
+    token and ``toks[1:]`` the K drafts; ``live``: drafts in play (0..K,
+    an int or a 0-d tensor); ``length``: cache entries before this step,
+    so the token sampled from ``logits[c]`` sits at position
+    ``length + 1 + c``, the position plain decode keys it by.
+
+    Greedy (``temp <= 0``): :func:`_spec_accept_row_greedy`.  Temperature:
+    draft ``x`` at position ``p`` is accepted iff ``u < p(x)``, with ``p``
+    the temperature/top-k sampling distribution and ``u`` uniform from the
+    generator of ``_mix(key, p, _SALT_ACCEPT)``.  A rejected draft is
+    replaced by a draw from the residual, ``p`` with ``x``'s mass removed
+    and renormalised (its logit masked), from ``_mix(key, p,
+    _SALT_RESID)``; the emitted marginal is then exactly ``p`` for any
+    deterministic drafter: ``p(x) d_x + (1 - p(x)) (p - p(x) d_x) / (1 -
+    p(x)) = p``.  When every live draft is accepted, the bonus token is
+    the plain sampler's draw at its position (:func:`_sample_batch`'s
+    masked row and generator), so a row with ``live = 0`` is plain decode
+    bit for bit, temperature included.  Every candidate is drawn on the
+    device and the one at the accepted count picked there, so the row
+    costs no copy to the host.
+
+    Returns ``(out [C], n_emit)``: ``out[:n_emit]`` are the emitted tokens
+    (accepted drafts, then the correction or bonus token).
+    """
+    logits = logits.float()
+    if temp <= 0:
+        return _spec_accept_row_greedy(logits, toks, live)
+    dev = logits.device
+    c = logits.shape[0]
+    k = c - 1
+    draft = toks[1:].long()
+    live = torch.as_tensor(live, device=dev)
+    masked = _masked_scaled(logits, temp, topk)
+    probs = torch.softmax(masked, dim=-1)
+    pos = [length + 1 + j for j in range(c)]
+    us = torch.stack([torch.rand((), generator=_generator(
+        _mix(key, p, _SALT_ACCEPT), dev), device=dev) for p in pos[:k]])
+    p_draft = probs[:k].gather(1, draft[:, None])[:, 0]
+    acc = (us < p_draft) & (torch.arange(k, device=dev) < live)
+    a = _leading_accepts(acc)
+    # every candidate in one draw: the bonus at each window row (all live
+    # drafts accepted), the plain sampler's draw at its position (its
+    # masked row, its generator); the residual at each drafted position (a
+    # rejection), the draft's mass masked, from the salted generator
+    cand = _gumbel_argmax(
+        torch.cat([masked, masked[:k].scatter(1, draft[:, None], _NEG)]),
+        [_mix(key, p) for p in pos]
+        + [_mix(key, p, _SALT_RESID) for p in pos[:k]])
+    bonus, resid = cand[:c], cand[c:]
+    resid = torch.cat([resid, resid[-1:]])     # a == K only when a >= live
+    final = torch.where(a >= live, bonus[a], resid[a])
+    return _window_out(draft, a, final), a + 1
+
+
+def _spec_accept(logits, tokens, live, keys: Sequence[int],
+                 temps: Sequence[float], topks: Sequence[int],
+                 lengths: Sequence[int]):
+    """Batch acceptance: ``logits`` [B, C, V], ``tokens`` [B, C] and
+    ``live`` [B] on the device, one host entry of ``keys``/``temps``/
+    ``topks``/``lengths`` per real row.  Every row takes the greedy rule in
+    one batched pass; the rows with ``temperature > 0`` (chosen on the
+    host, where their temperatures are) then take the full rule.  Both
+    rules give the same integers at temperature 0, so the choice cannot
+    change a stream."""
+    out, n_emit = _spec_accept_row_greedy(logits, tokens, live)
+    for i, temp in enumerate(temps):
+        if temp > 0:
+            out[i], n_emit[i] = _spec_accept_row(
+                logits[i], tokens[i], live[i], keys[i], temp, topks[i],
+                lengths[i])
+    return out, n_emit
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     """Static engine geometry: the fields and defaults of the JAX
     package's ``EngineConfig``.  ``heads`` must come from the caller: it
-    is not recoverable from parameter shapes.  ``speculate=True`` (a
-    later slice) raises at engine construction."""
+    is not recoverable from parameter shapes."""
     heads: int = 4
     block_size: int = 16          # kv entries per pool block
     num_blocks: int = 128         # physical pool blocks (slot 0 = trash)
@@ -100,13 +299,40 @@ class EngineConfig:
     prefill_chunk: int = 0        # > 0: chunked prefill, chunk budget
     kv_quant: Optional[str] = None   # None (dtype pools) | "fp8"
     attn_impl: str = "auto"       # auto | scan | dense | flash
-    speculate: bool = False
-    spec_k: int = 4
-    spec_draft: str = "ngram"
-    spec_window: int = 16
+    speculate: bool = False       # draft-then-verify multi-token steps
+    spec_k: int = 4               # drafted tokens per verify window
+    spec_draft: str = "ngram"     # "ngram" (prompt lookup) | "model"
+    spec_window: int = 16         # the model drafter's context window
     prefix_cache: bool = False
     prefix_cap_frac: float = 0.5
     prefix_min_blocks: int = 1
+
+    @classmethod
+    def from_env(cls, **overrides) -> "EngineConfig":
+        """Defaults from the JAX package's ``MXNET_TPU_SERVE_*``
+        environment variables; explicit keyword arguments win."""
+        env = dict(
+            block_size=_env_int("MXNET_TPU_SERVE_BLOCK_SIZE", 16),
+            num_blocks=_env_int("MXNET_TPU_SERVE_BLOCKS", 128),
+            max_batch=_env_int("MXNET_TPU_SERVE_MAX_BATCH", 8),
+            max_queue=_env_int("MXNET_TPU_SERVE_MAX_QUEUE", 64),
+            max_seq_len=_env_int("MXNET_TPU_SERVE_MAX_SEQ", 256),
+            slo_ms=_env_float("MXNET_TPU_SERVE_SLO_MS", None),
+            deadline_ms=_env_float("MXNET_TPU_SERVE_DEADLINE_MS", None),
+            prefill_chunk=_env_int("MXNET_TPU_SERVE_PREFILL_CHUNK", 0),
+            kv_quant=_env_str("MXNET_TPU_SERVE_KV_QUANT", None),
+            attn_impl=_env_str("MXNET_TPU_SERVE_ATTN", "auto"),
+            speculate=bool(_env_int("MXNET_TPU_SERVE_SPECULATE", 0)),
+            spec_k=_env_int("MXNET_TPU_SERVE_SPEC_K", 4),
+            spec_draft=_env_str("MXNET_TPU_SERVE_SPEC_DRAFT", "ngram"),
+            prefix_cache=bool(_env_int("MXNET_TPU_SERVE_PREFIX_CACHE", 0)),
+            prefix_cap_frac=_env_float("MXNET_TPU_SERVE_PREFIX_CAP_FRAC",
+                                       0.5),
+            prefix_min_blocks=_env_int("MXNET_TPU_SERVE_PREFIX_MIN_BLOCKS",
+                                       1),
+        )
+        env.update(overrides)
+        return cls(**env)
 
     def resolved_decode_buckets(self) -> Tuple[int, ...]:
         if self.decode_buckets:
@@ -133,14 +359,16 @@ class EngineConfig:
 class Engine:
     """Continuous-batching autoregressive server for ``transformer_lm``
     parameter dicts (numpy arrays or tensors, the JAX package's names).
-    ``device=None`` is the card; pass ``device="cpu"`` for the CPU."""
+    ``device=None`` is the card; pass ``device="cpu"`` for the CPU.  A
+    ``spec_draft="model"`` engine takes the draft model's parameter dict
+    and heads (``draft_heads=None``: the target's)."""
 
     def __init__(self, params: Dict[str, Any], config: EngineConfig,
-                 device: DeviceLike = None, chaos: Any = None):
+                 device: DeviceLike = None, chaos: Any = None,
+                 draft_params: Optional[Dict[str, Any]] = None,
+                 draft_heads: Optional[int] = None):
         if chaos is not None:
             raise not_ported("serve chaos injection")
-        if config.speculate:
-            raise not_ported("speculative decoding")
         self.prefill_chunk = int(config.prefill_chunk or 0)
         if self.prefill_chunk < 0:
             raise MXNetError(f"prefill_chunk must be >= 0, "
@@ -227,10 +455,32 @@ class Engine:
         self._chunk_ms = 0.0     # EWMA chunk-prefill latency (SLO backlog)
         #: prefills (completed), prefill_chunks, decode_steps,
         #: kernel_launches (flash-decode launches of decode steps, either
-        #: instance), preemptions, tokens, nan_logits
+        #: instance), preemptions, tokens, nan_logits; with speculation:
+        #: verify_steps, spec_drafted, spec_accepted, draft_swaps (a verify
+        #: step replaces the decode step, so decode_steps and
+        #: kernel_launches stay 0)
         self.counters: collections.Counter = collections.Counter()
+        # -- speculative decoding --
+        self.spec: Optional[speculate_mod.Drafter] = None
+        self.spec_k = int(config.spec_k)
+        self._decode_ms = 0.0    # EWMA verify-step latency
+        self._tps = 1.0          # EWMA tokens emitted per row per step
+        if config.speculate:
+            if self.spec_k < 1:
+                raise MXNetError(f"spec_k must be >= 1, got {self.spec_k}")
+            if self.spec_k + 1 >= config.max_seq_len:
+                raise MXNetError(
+                    f"spec_k {self.spec_k} cannot exceed max_seq_len "
+                    f"{config.max_seq_len} - 2")
+            self.spec = speculate_mod.make_drafter(
+                config.spec_draft, draft_params=draft_params,
+                draft_heads=(draft_heads if draft_heads is not None
+                             else self.heads),
+                window=config.spec_window, device=self.device)
+            if self.spec.kind == "model":
+                self.spec.bind_runner(self._run_draft)
 
-    # -- unported entry points ---------------------------------------------
+    # -- weights ------------------------------------------------------------
 
     @classmethod
     def from_checkpoint(cls, *args, **kwargs) -> "Engine":
@@ -239,33 +489,27 @@ class Engine:
     def swap_weights(self, *args, **kwargs):
         raise not_ported("Engine.swap_weights")
 
-    def adopt(self, *args, **kwargs) -> int:
-        raise not_ported("Engine.adopt (router failover)")
+    def swap_draft_weights(self, params_or_source: Any,
+                           epoch: Optional[int] = None) -> Dict[str, Any]:
+        """Hot-swap the draft model's weights, independently of the
+        target.  Only acceptance rates move, never the emitted greedy
+        stream or the sampled streams' distribution.  Needs a ``"model"``
+        drafter and a parameter dict of the held weights' signature (an
+        incompatible one raises and changes nothing); a checkpoint path
+        waits for ``predictor.load_weights``.  Returns the compat report
+        as a dict."""
+        if self.spec is None or self.spec.kind != "model":
+            raise MXNetError(
+                "swap_draft_weights: engine has no model drafter "
+                "(speculate off, or spec_draft='ngram')")
+        if isinstance(params_or_source, str):
+            raise not_ported("swap_draft_weights from a checkpoint path "
+                             "(predictor.load_weights)")
+        report = self.spec.swap(params_or_source)
+        self.counters["draft_swaps"] += 1
+        return report
 
     # -- device work --------------------------------------------------------
-
-    def _sample(self, logits, temps: Sequence[float], topks: Sequence[int],
-                keys: Sequence[int], positions: Sequence[int]):
-        """Greedy / temperature / top-k sampling of each row of ``logits``
-        [n, V].  Row ``i`` with ``temps[i] > 0`` draws by the Gumbel-max
-        trick from a generator seeded by ``(keys[i], positions[i])``: the
-        draw is a pure function of the request key, its position and its
-        logits, whatever else is in the batch."""
-        logits = logits.float()
-        out = logits.argmax(dim=-1)
-        vocab = logits.shape[-1]
-        for i, temp in enumerate(temps):
-            if temp <= 0:
-                continue
-            row = logits[i] / max(float(temp), 1e-6)
-            if topks[i] > 0:
-                kth = torch.topk(row, min(int(topks[i]), vocab)).values[-1]
-                row = row.masked_fill(row < kth, _NEG)
-            gen = torch.Generator(device=row.device)
-            gen.manual_seed(_mix(keys[i], positions[i]))
-            u = torch.rand(row.shape, generator=gen, device=row.device)
-            out[i] = torch.argmax(row - torch.log(-torch.log(u)))
-        return out
 
     @torch.no_grad()
     def _run_prefill(self, toks: Sequence[int], lb: int, blocks: Sequence[int],
@@ -286,7 +530,7 @@ class Engine:
             kvcache.write_prefill(self.kpool, i, ks[i][0], table_t, plen)
             kvcache.write_prefill(self.vpool, i, vs[i][0], table_t, plen)
         last = logits[0, plen - 1]
-        tok = self._sample(last[None], [temp], [topk], [key], [plen])[0]
+        tok = _sample_batch(last[None], [temp], [topk], [key], [plen])[0]
         ok = torch.isfinite(last.float()).all()
         res = torch.stack([tok, ok.long()]).cpu()
         return int(res[0]), bool(res[1])
@@ -322,7 +566,7 @@ class Engine:
         logits = transformer_lm_prefill_chunk(self._params, tokens,
                                               heads=self.heads, attend=attend)
         last = logits[0, min(max(plen - 1 - start, 0), cb - 1)]
-        tok = self._sample(last[None], [temp], [topk], [key], [plen])[0]
+        tok = _sample_batch(last[None], [temp], [topk], [key], [plen])[0]
         ok = torch.isfinite(last.float()).all()
         res = torch.stack([tok, ok.long()]).cpu()
         return int(res[0]), bool(res[1])
@@ -367,35 +611,144 @@ class Engine:
 
         logits = transformer_lm_decode(self._params, tokens, heads=self.heads,
                                        attend=attend)
-        toks = self._sample(logits, temps, topks, keys, positions)
+        toks = _sample_batch(logits, temps, topks, keys, positions)
         oks = torch.isfinite(logits.float()).all(dim=-1)
         res = torch.stack([toks, oks.long()]).cpu().numpy()
         return res[0], res[1].astype(bool)
 
+    @torch.no_grad()
+    def _run_verify(self, rows: Sequence[Request], bb: int, drafts):
+        """One speculative verify step for ``rows`` padded to bucket
+        ``bb``: ``drafts`` [len(rows), K] follow each row's last token.
+        Every layer writes the window's K/V (positions past a row's live
+        drafts, and padded rows, go to the trash block), then attends over
+        the paged cache; acceptance runs on the device, then the rejected
+        tail is zeroed in place.  Returns host arrays ``(out [bb, K+1],
+        n_emit [bb], finite [bb])``, one copy to the host."""
+        c = self.spec_k + 1
+        bsz = self.alloc.block_size
+        mb = self.max_blocks
+        # one host buffer, one copy to the device: tokens | slots |
+        # offsets | write mask (each [bb, C]) | lengths | live | tables
+        n = 4 * bb * c
+        buf = np.zeros((n + 2 * bb + bb * mb,), np.int32)
+        tokens, slots, offs, wmask = buf[:n].reshape(4, bb, c)
+        lengths, live = buf[n:n + bb], buf[n + bb:n + 2 * bb]
+        tables = buf[n + 2 * bb:].reshape(bb, mb)
+        win = np.arange(c)
+        temps, topks, keys = [], [], []
+        for i, req in enumerate(rows):
+            tokens[i, 0] = req.tokens[-1]
+            tokens[i, 1:] = drafts[i]
+            tables[i, :len(req.blocks)] = req.blocks
+            lengths[i] = req.cached
+            live[i] = req.spec_live
+            pos = req.cached + win
+            slots[i] = tables[i, np.minimum(pos // bsz, mb - 1)]
+            offs[i] = pos % bsz
+            wmask[i] = win <= req.spec_live
+            temps.append(req.temperature)
+            topks.append(req.top_k)
+            keys.append(req.key)
+        dev = torch.from_numpy(buf).to(self.device)
+        tokens_t, slot_raw, offs_t, wmask_t = dev[:n].view(4, bb, c)
+        wmask_t = wmask_t.bool()
+        lengths_t, live_t = dev[n:n + bb], dev[n + bb:n + 2 * bb]
+        tables_t = dev[n + 2 * bb:].view(bb, mb)
+        write_slots = torch.where(wmask_t, slot_raw, kvcache.TRASH_BLOCK)
+        kpool, vpool = self.kpool, self.vpool
+
+        def attend(i, q, k, v):
+            kvcache.write_spec(kpool, i, k, write_slots, offs_t)
+            kvcache.write_spec(vpool, i, v, write_slots, offs_t)
+            return kvcache.paged_verify_attention(
+                q, kvcache.layer_view(kpool, i),
+                kvcache.layer_view(vpool, i), tables_t, lengths_t)
+
+        logits = transformer_lm_verify(self._params, tokens_t,
+                                       heads=self.heads, attend=attend)
+        out, n_emit = _spec_accept(logits, tokens_t, live_t, keys, temps,
+                                   topks, lengths)
+        # rollback: the cursor moves past the accepted drafts only, and
+        # the rejected tail's K/V is zeroed (kept entries aim at trash)
+        win_t = torch.arange(c, device=self.device)
+        scrub = wmask_t & (win_t[None, :] > (n_emit - 1)[:, None])
+        scrub_slots = torch.where(scrub, slot_raw, kvcache.TRASH_BLOCK)
+        kvcache.scrub_positions(kpool, scrub_slots, offs_t)
+        kvcache.scrub_positions(vpool, scrub_slots, offs_t)
+        # the finite guard reads the window rows acceptance may read (dead
+        # positions attend over unwritten entries by design)
+        read = (win_t[None, :] <= live_t[:, None])[:, :, None]
+        oks = (torch.isfinite(logits.float()) | ~read).flatten(1).all(dim=1)
+        res = torch.cat([out, n_emit[:, None], oks[:, None].long()],
+                        dim=1).cpu().numpy()
+        return res[:, :c], res[:, c], res[:, c + 1].astype(bool)
+
+    @torch.no_grad()
+    def _run_draft(self, win: np.ndarray, lens: np.ndarray,
+                   bb: Optional[int] = None) -> np.ndarray:
+        """The model drafter's K-step greedy unroll over right-aligned
+        windows ``win`` [n, W] with ``lens`` [n] valid tokens, padded to
+        decode bucket ``bb`` (the smallest that holds ``n`` by default):
+        the drafts of a row do not depend on its batch neighbours.
+        Returns host drafts [n, K]."""
+        n = win.shape[0]
+        bb = cc.bucket_for(n, self.decode_buckets) if bb is None else bb
+        w = self.spec.window
+        buf = np.ones((bb * (w + 1),), np.int32)
+        buf[:bb * w] = 0
+        buf[:n * w] = win.reshape(-1)
+        buf[bb * w:bb * w + n] = np.maximum(lens, 1)
+        dev = torch.from_numpy(buf).to(self.device)
+        toks, ln = dev[:bb * w].view(bb, w), dev[bb * w:]
+        outs = []
+        for _ in range(self.spec_k):
+            logits = speculate_mod.draft_window_logits(
+                self.spec.params, toks, ln, heads=self.spec.heads)
+            nxt = logits.float().argmax(dim=-1).to(torch.int32)
+            outs.append(nxt)
+            toks = torch.cat([toks[:, 1:], nxt[:, None]], dim=1)
+            ln = torch.clamp_max(ln + 1, w)
+        return torch.stack(outs, dim=1).cpu().numpy()[:n]
+
     def warmup(self) -> List[Dict[str, Any]]:
-        """Build the kernel library (flash on CUDA), then run every prompt
-        bucket (the chunk, with chunked prefill) and every decode bucket
-        once against the trash block, so first-use costs stay out of
-        timed serving.  Counters are not touched.  Returns ``[{"kind",
-        "bucket", "ms"}, ...]``."""
-        if self.attn_impl == "flash" and self.device.type == "cuda":
+        """Build the kernel library (flash decode on CUDA, when decode
+        steps run), then run every prompt bucket (the chunk, with chunked
+        prefill) and every decode bucket (the verify step, with
+        speculation; and a model drafter's unroll) once against the trash
+        block, so first-use costs stay out of timed serving.  Counters are
+        not touched.  Returns ``[{"kind", "bucket", "ms"}, ...]``."""
+        if (self.spec is None and self.attn_impl == "flash"
+                and self.device.type == "cuda"):
             from .flash_decode import _lib
             _lib()
         infos = []
-        kind = "prefill_chunk" if self.prefill_chunk else "prefill"
+
+        def timed(kind, bucket, run):
+            t0 = time.perf_counter()
+            run()
+            infos.append({"kind": kind, "bucket": bucket,
+                          "ms": (time.perf_counter() - t0) * 1e3})
+
         for lb in self.prompt_buckets:
-            t0 = time.perf_counter()
             if self.prefill_chunk:
-                self._run_prefill_chunk([0], 0, 1, [], 0.0, 0, 0)
+                timed("prefill_chunk", lb, lambda: self._run_prefill_chunk(
+                    [0], 0, 1, [], 0.0, 0, 0))
             else:
-                self._run_prefill([0], lb, [], 0.0, 0, 0)
-            infos.append({"kind": kind, "bucket": lb,
-                          "ms": (time.perf_counter() - t0) * 1e3})
+                timed("prefill", lb, lambda: self._run_prefill(
+                    [0], lb, [], 0.0, 0, 0))
         for bb in self.decode_buckets:
-            t0 = time.perf_counter()
-            self._run_decode([], bb)
-            infos.append({"kind": "decode", "bucket": bb,
-                          "ms": (time.perf_counter() - t0) * 1e3})
+            if self.spec is None:
+                timed("decode", bb, lambda: self._run_decode([], bb))
+            else:
+                timed("verify", bb, lambda: self._run_verify(
+                    [], bb, np.zeros((0, self.spec_k), np.int32)))
+        if self.spec is not None and self.spec.kind == "model":
+            w = self.spec.window
+            for bb in self.decode_buckets:
+                timed("draft", bb, lambda: self._run_draft(
+                    np.zeros((0, w), np.int32), np.zeros((0,), np.int32),
+                    bb))
         return infos
 
     # -- submit / stream / cancel -------------------------------------------
@@ -429,10 +782,55 @@ class Engine:
         self.requests[req.id] = req
         return req.id
 
+    def adopt(self, prompt: Sequence[int], tokens: Sequence[int], *,
+              max_new_tokens: int = 32, temperature: float = 0.0,
+              top_k: int = 0, slo_ms: Optional[float] = None,
+              eos_id: Optional[int] = None, seed: Optional[int] = None,
+              deadline_ms: Optional[float] = None,
+              submit_t: Optional[float] = None) -> int:
+        """Admit a request that already produced ``tokens`` on another
+        engine (a router's mid-stream failover).  It re-prefills ``prompt
+        + tokens`` as a preempted request does and, because draws are
+        keyed by (engine seed, request seed, position), continues the
+        exact stream the first engine would have produced, speculation on
+        or off.  ``seed`` is mandatory: an implicit one (this engine's
+        request id) could never match the original's.  ``submit_t`` keeps
+        the original submit time, so SLO and deadline clocks run on."""
+        prompt = [int(t) for t in prompt]
+        tokens = [int(t) for t in tokens]
+        if seed is None:
+            raise MXNetError("adopt() needs the original request seed")
+        if not prompt:
+            raise MXNetError("empty prompt")
+        if len(prompt) + max_new_tokens > self.config.max_seq_len:
+            raise MXNetError(
+                f"prompt {len(prompt)} + max_new_tokens {max_new_tokens} "
+                f"exceeds max_seq_len {self.config.max_seq_len}")
+        if len(tokens) >= max_new_tokens:
+            raise MXNetError(
+                f"nothing to adopt: {len(tokens)} tokens already meet "
+                f"max_new_tokens {max_new_tokens}")
+        req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
+                      temperature=float(temperature), top_k=int(top_k),
+                      slo_ms=slo_ms, eos_id=eos_id)
+        req.deadline_ms = (deadline_ms if deadline_ms is not None
+                           else self.config.deadline_ms)
+        req.tokens = list(tokens)
+        req.key = _mix(self.config.seed, seed)
+        self.sched.submit(req, now=submit_t)
+        if tokens:
+            # the first token was streamed elsewhere: no new TTFT
+            req.first_token_t = req.submit_t
+        self.requests[req.id] = req
+        return req.id
+
     def cancel(self, req_id: int) -> None:
         req = self._req(req_id)
         if not req.done():
             self.sched.cancel(req)
+
+    def request(self, req_id: int) -> Request:
+        return self._req(req_id)
 
     def _req(self, req_id: int) -> Request:
         try:
@@ -494,7 +892,8 @@ class Engine:
                 self._finish(req, "timeout", FAILED)
         admitted = self.sched.admit(
             self._admission_gate(), now,
-            prefill_backlog_ms=self._prefill_backlog_ms())
+            prefill_backlog_ms=self._prefill_backlog_ms(),
+            decode_backlog_ms=self._decode_backlog_ms())
         if self.prefill_chunk:
             for req in admitted:
                 self._prefill_begin(req)
@@ -557,7 +956,7 @@ class Engine:
         admitted in one step probed an index none of them had filled yet,
         and by now an earlier one may have published the shared prefix.
         Hit blocks replace the fresh (unwritten) leading blocks."""
-        hits = self._probe(req.seed_tokens)
+        hits = self._probe(self._prefill_tokens(req))
         if not hits:
             self._prefix_misses += 1
             return
@@ -584,7 +983,7 @@ class Engine:
 
         def can_place(req: Request) -> bool:
             nonlocal reserved
-            toks = req.seed_tokens
+            toks = self._prefill_tokens(req)
             hits = self._probe(toks)
             for b in hits:
                 self.alloc.addref(b, req.id)
@@ -599,8 +998,30 @@ class Engine:
 
         return can_place
 
-    def _prefill(self, req: Request) -> None:
+    def _resumes(self, req: Request) -> bool:
+        """Whether ``req`` resumes rather than starts: a speculating
+        engine re-ingests a request that already holds generated tokens
+        (preempted, or adopted from another engine) up to its last token,
+        draws nothing at prefill, and verifies on from that token.  Its
+        next verify window then starts where the interrupted run's next
+        window would have, with the same context, drafts and
+        position-keyed draws, so sampled streams continue bit for bit (a
+        token drawn at prefill would come from the plain sampler, where
+        the interrupted run's came from acceptance).  Greedy streams are
+        the argmax stream either way.  A plain engine re-ingests every
+        token and draws at prefill, as the JAX engine does: its streams
+        would be the same either way, but its prefill and chunk counts are
+        held to the JAX engine's."""
+        return self.spec is not None and bool(req.tokens)
+
+    def _prefill_tokens(self, req: Request) -> List[int]:
+        """The tokens a (re)prefill ingests: prompt and generated tokens,
+        less the last one when the request resumes."""
         toks = req.seed_tokens
+        return toks[:-1] if self._resumes(req) else toks
+
+    def _prefill(self, req: Request) -> None:
+        toks = self._prefill_tokens(req)
         plen = len(toks)
         req.blocks = self.alloc.alloc(self.alloc.blocks_for_tokens(plen),
                                       req.id)
@@ -613,7 +1034,8 @@ class Engine:
         if not ok:
             self._fail_nan(req)
             return
-        self._append_token(req, tok)
+        if not self._resumes(req):
+            self._append_token(req, tok)
 
     # -- chunked prefill ------------------------------------------------------
 
@@ -622,7 +1044,7 @@ class Engine:
         prompt needs (the gate reserved them) and arm the chunk pump; no
         device work yet.  Blocks the gate pinned from the prefix index
         lead the table and count as prefilled."""
-        toks = req.seed_tokens
+        toks = self._prefill_tokens(req)
         req.prefill_target = len(toks)
         hits = req.prefix_blocks
         req.prefix_blocks = []
@@ -658,7 +1080,8 @@ class Engine:
         plen = req.prefill_target
         t0 = time.perf_counter()
         tok, ok = self._run_prefill_chunk(
-            req.seed_tokens[start:start + cb], start, plen, req.blocks,
+            req.seed_tokens[start:min(start + cb, plen)], start, plen,
+            req.blocks,
             req.temperature, req.top_k, req.key)
         ms = (time.perf_counter() - t0) * 1e3
         self._chunk_ms = (ms if self._chunk_ms == 0.0
@@ -673,7 +1096,8 @@ class Engine:
         self._publish_prefix(req)
         if req.prefilled >= plen:
             self.counters["prefills"] += 1
-            self._append_token(req, tok)
+            if not self._resumes(req):
+                self._append_token(req, tok)
 
     def _prefill_backlog_ms(self) -> float:
         """Expected delay from the remaining prefill chunks of admitted
@@ -686,12 +1110,13 @@ class Engine:
             if r.prefilled < r.prefill_target)
         return remaining * self._chunk_ms
 
-    def _grow_blocks(self, req: Request) -> bool:
-        """Ensure the request owns a block for cache index ``cached``.  On
-        pool exhaustion, preempts the youngest-admitted request (blocks
-        freed, request requeued; its stream replays identically).  Returns
-        False if ``req`` itself was preempted."""
-        while len(req.blocks) * self.alloc.block_size < req.cached + 1:
+    def _grow_blocks(self, req: Request, extra: int = 1) -> bool:
+        """Ensure the request owns blocks through cache index ``cached +
+        extra - 1`` (a decode step writes one entry, a verify step up to
+        ``live + 1``).  On pool exhaustion, preempts the youngest-admitted
+        request (blocks freed, request requeued; its stream replays
+        identically).  Returns False if ``req`` itself was preempted."""
+        while len(req.blocks) * self.alloc.block_size < req.cached + extra:
             if self.alloc.can_alloc(1):
                 req.blocks += self.alloc.alloc(1, req.id)
                 continue
@@ -718,6 +1143,9 @@ class Engine:
         self.sched.requeue(victim)
 
     def _decode_step(self) -> None:
+        if self.spec is not None:
+            self._verify_step()
+            return
         # growth pass first: a preemption mutates sched.running, so the
         # batch roster is read only afterwards.  Mid-prefill requests hold
         # blocks for their whole prompt and have no token to feed yet:
@@ -743,6 +1171,77 @@ class Engine:
                 self._fail_nan(req)
                 continue
             self._append_token(req, int(toks[i]))
+
+    def _verify_step(self) -> None:
+        """The speculative replacement of :meth:`_decode_step`: draft K
+        tokens per row, verify them (and the bonus position) in one
+        forward, emit 1 to K+1 tokens per row.
+
+        A row's ``live`` (drafts in play) is clamped by its remaining
+        token budget and, under pool pressure, falls to 0 rather than
+        preempting a neighbour for speculative headroom: a live=0 row is
+        the decode step's math inside the verify window, so speculation
+        never changes what is emitted, only how many tokens a step
+        brings."""
+        k = self.spec_k
+        for req in list(self.sched.running):
+            if (req not in self.sched.running
+                    or req.prefilled < req.prefill_target):
+                continue
+            live = max(min(k, req.max_new_tokens - len(req.tokens) - 1), 0)
+            need = (self.alloc.blocks_for_tokens(req.cached + live + 1)
+                    - len(req.blocks))
+            if live > 0 and need > 0 and not self.alloc.can_alloc(need):
+                live = 0      # no preemption for speculative headroom
+            if not self._grow_blocks(req, extra=live + 1):
+                continue
+            req.spec_live = live
+        active = [r for r in self.sched.running
+                  if r.prefilled >= r.prefill_target]
+        if not active:
+            return
+        bb = cc.bucket_for(len(active), self.decode_buckets)
+        drafts = self.spec.propose([r.seed_tokens for r in active], k)
+        # a wrong draft wastes width; an out-of-range id would be an
+        # invalid embedding lookup
+        drafts = np.clip(np.asarray(drafts, np.int32), 0, self.vocab - 1)
+        t0 = time.perf_counter()
+        out, n_emit, oks = self._run_verify(active, bb, drafts)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        self._decode_ms = (step_ms if self._decode_ms == 0.0
+                           else 0.8 * self._decode_ms + 0.2 * step_ms)
+        drafted = sum(r.spec_live for r in active)
+        accepted = emitted = 0
+        for i, req in enumerate(active):
+            n = int(n_emit[i])
+            req.cached += n          # the cursor: accepted drafts + 1
+            if not oks[i]:
+                self._fail_nan(req)
+                continue
+            accepted += n - 1
+            for j in range(n):
+                emitted += 1
+                self._append_token(req, int(out[i, j]))
+                if req.done():
+                    break
+        self._tps = 0.8 * self._tps + 0.2 * (emitted / len(active))
+        self.counters["verify_steps"] += 1
+        self.counters["spec_drafted"] += drafted
+        self.counters["spec_accepted"] += accepted
+
+    def _decode_backlog_ms(self) -> float:
+        """Expected wait until a decode slot frees, credited to queued
+        requests' SLO clocks when every slot is busy.  With speculation a
+        step emits ``_tps`` tokens per row on average, so the soonest slot
+        frees after ``remaining / _tps`` steps.  0 without speculation, a
+        free slot or a verify step yet."""
+        if self.spec is None or not self._decode_ms:
+            return 0.0
+        running = self.sched.running
+        if not running or len(running) < self.sched.max_batch:
+            return 0.0
+        rem = min(r.max_new_tokens - len(r.tokens) for r in running)
+        return (rem / max(self._tps, 1.0)) * self._decode_ms
 
     def _fail_nan(self, req: Request) -> None:
         """Non-finite logits: the request's cached K/V and the trash block
@@ -810,6 +1309,8 @@ class Engine:
 
     def stats(self) -> Dict[str, Any]:
         hits, misses = self._prefix_hits, self._prefix_misses
+        drafted = self.counters["spec_drafted"]
+        accepted = self.counters["spec_accepted"]
         return {
             "blocks_used": self.alloc.num_used,
             "blocks_free": self.alloc.num_free,
@@ -830,5 +1331,16 @@ class Engine:
                 "hit_tokens": self._prefix_hit_tokens,
                 "evictions": self._prefix_evictions,
                 "hit_rate": hits / (hits + misses) if hits + misses else 0.0,
+            }),
+            # drafted, accepted and draft swaps since the counters were last
+            # cleared
+            "speculate": (None if self.spec is None else {
+                "draft": self.spec.kind,
+                "k": self.spec_k,
+                "drafted": drafted,
+                "accepted": accepted,
+                "accept_rate": accepted / drafted if drafted else 0.0,
+                "tokens_per_step": self._tps,
+                "draft_swaps": self.counters["draft_swaps"],
             }),
         }

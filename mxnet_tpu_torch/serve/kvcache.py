@@ -19,7 +19,13 @@ slot ``table[j]``.
   ``impl="scan"`` (the online-softmax block scan), ``"dense"`` (one
   gather, one masked softmax) or ``"flash"`` (the flash-decode kernel of
   :mod:`.flash_decode`); :func:`paged_prefill_attention` — causal
-  attention of one prefill chunk over the request's cached prefix.
+  attention of one prefill chunk over the request's cached prefix;
+  :func:`paged_verify_attention` — causal attention of a speculative
+  verify window (C positions per request) over each request's cache.
+* :func:`write_spec` / :func:`scrub_positions` — the verify window's
+  writes and the rollback of its rejected tail: the window's K/V is
+  written before attention reads it, and rejected positions are zeroed
+  in place (payload and scale) once acceptance has run.
 * fp8 pools (:class:`QuantPool`): an e4m3 payload of 1 byte per element
   plus one f32 scale per cached position, quantized with
   :func:`~mxnet_tpu_torch.quant.rowwise_quantize`.  Every read path
@@ -46,8 +52,10 @@ from ..quant import FP8_DTYPES, rowwise_quantize
 __all__ = ["TRASH_BLOCK", "KV_QUANT_FORMATS", "KV_FP8_FORMAT", "QuantPool",
            "BlockAllocator", "PrefixIndex", "make_pools", "is_quantized",
            "layer_view", "pool_nbytes", "kv_bytes_per_token",
-           "paged_attention", "paged_prefill_attention", "dense_attention",
-           "write_prefill", "write_decode", "scrub_blocks", "compact_pool"]
+           "paged_attention", "paged_prefill_attention",
+           "paged_verify_attention", "dense_attention", "write_prefill",
+           "write_decode", "write_spec", "scrub_positions", "scrub_blocks",
+           "compact_pool"]
 
 #: physical slot 0 is never handed out: padded prefill positions and
 #: inactive decode rows scatter their garbage there, keeping every
@@ -598,6 +606,41 @@ def paged_prefill_attention(q, k_pool, v_pool, table_row, start, length, *,
     return (out / l[..., None]).to(q.dtype)
 
 
+def paged_verify_attention(q, k_pool, v_pool, tables, lengths, *,
+                           scale: Optional[float] = None):
+    """Causal attention for one speculative verify step: C query
+    positions per request over a paged cache.
+
+    ``q``: [B, C, H, hd], query states at absolute positions
+    ``lengths[b] .. lengths[b]+C-1`` (window position 0 is the request's
+    current last token, 1..C-1 the drafted continuation); ``tables``:
+    [B, max_blocks]; ``lengths``: [B] cache entries valid before this
+    step.  The window's own K/V must already be written, so window
+    position ``c`` attends to every cached position ``<= lengths+c``.
+    Returns [B, C, H, hd].
+
+    One gather and one masked softmax over the [B, C, L_max] scores (the
+    ``"dense"`` decode strategy; C is K+1, small), dequantizing fp8 pools
+    at the gather.
+    """
+    b, c, h, d = q.shape
+    nblk = tables.shape[1]
+    bs = _block_size_of(k_pool)
+    scale_ = (1.0 / np.sqrt(d)) if scale is None else scale
+    k = _gather_blocks(k_pool, tables).reshape(b, nblk * bs, h, d)
+    v = _gather_blocks(v_pool, tables).reshape(b, nblk * bs, h, d)
+    s = _einsum("bchd,blhd->bchl", q, k).float() * scale_
+    pos = torch.arange(nblk * bs, device=q.device)
+    qpos = lengths[:, None] + torch.arange(c, device=q.device)[None, :]
+    valid = (pos[None, None, :] <= qpos[:, :, None])[:, :, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]).masked_fill(~valid, 0.0)
+    l = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    out = torch.einsum("bchl,blhd->bchd", p, v.float())
+    return (out / l[..., None]).to(q.dtype)
+
+
 def dense_attention(q, k_buf, v_buf, lengths, *, block_size: int,
                     scale: Optional[float] = None):
     """The contiguous-cache counterpart: the same block scan over
@@ -662,6 +705,32 @@ def write_decode(pool, layer: int, states, slots, offsets, active):
     write to the trash block.  Returns ``pool``."""
     slot = torch.where(active, slots.long(), TRASH_BLOCK)
     _scatter(pool, layer, (slot, offsets.long()), states)
+    return pool
+
+
+def write_spec(pool, layer: int, states, slots, offsets):
+    """Scatter one speculative verify window's K or V states, C positions
+    per row, in place.  ``states``: [B, C, H, hd]; ``slots``/``offsets``:
+    [B, C] physical block and in-block position of each window entry.
+    The caller points dead entries (inactive rows, positions past a row's
+    live drafts) at the trash block.  A :class:`QuantPool` quantizes the
+    window flattened to [B*C, H, hd], one position a row, so a position's
+    fp8 payload and scale are the bytes :func:`write_decode` would write
+    for the same states.  Returns ``pool``."""
+    _scatter(pool, layer, (slots.long(), offsets.long()), states)
+    return pool
+
+
+def scrub_positions(pool, slots, offsets):
+    """Zero single cache positions, payload and scale, across every layer,
+    in place: the rollback of a speculative step's rejected tail.
+    ``slots``/``offsets``: [B, C]; entries to keep point at the trash
+    block.  Until the next append overwrites them, masked attention lanes
+    still read rolled-back positions (multiplied by zero), so they must
+    hold no stale state.  Returns ``pool``."""
+    index = (slots.long(), offsets.long())
+    for t in _leaves(pool):
+        t[(slice(None),) + index] = 0
     return pool
 
 

@@ -24,7 +24,11 @@ and past one pointer table; flash attention forward
 (K3) and backward (K4) with ``chip_smoke.K34_TOL``: f32 within 2e-5
 (forward, lse) and 2e-4 (gradients), summation order; bf16 within 2e-2
 of ``1 + |plain|`` (``p`` and ``ds`` are rounded to bf16 inside); user
-kernels compiled by ``rtc.CudaKernel`` (K6) with ``chip_smoke.RTC_TOL``.
+kernels compiled by ``rtc.CudaKernel`` (K6) with ``chip_smoke.RTC_TOL``;
+speculative decoding at a small size: n-gram greedy streams equal the plain
+engine's on f32 and fp8 pools with no flash-decode launch, and
+``scrub_positions`` zeroes the rejected positions in both leaves, byte for
+byte as on the CPU.
 """
 import numpy as np
 import pytest
@@ -716,3 +720,98 @@ def test_rtc_softmax_head_equals_softmax_output_on_card(cuda):
         g = ref.grad_dict[n].asnumpy()
         np.testing.assert_allclose(ex.grad_dict[n].asnumpy(), g, rtol=0,
                                    atol=1e-5 * np.abs(g).max())
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding on the card
+# ---------------------------------------------------------------------------
+
+SPEC_CFG = dict(heads=4, block_size=4, num_blocks=64, max_batch=4,
+                max_prompt_len=16, max_seq_len=48, prompt_bucket_min=8)
+SPEC_PROMPTS = [[1, 2, 3], [10, 11, 12, 13, 14, 15], [20, 21],
+                [30, 31, 32, 33], [9, 9, 9], [5, 6, 7, 5, 6, 7, 5]]
+SPEC_NEW = [10, 8, 12, 6, 12, 9]
+
+
+def _spec_params():
+    """Small LM weights whose greedy streams vary from token to token with
+    wide argmax margins (``tests/test_torch_serve.py``'s recipe): identity
+    norms, an lm head mapping each token's embedding to a permuted
+    successor."""
+    from mxnet_tpu_torch.models.transformer import init_params
+    p = init_params(61, 2, 32, seed=0)
+    rng = np.random.RandomState(1)
+    perm = rng.permutation(61)
+    p = {k: (v * 2.6 if v.ndim == 2 else v) for k, v in p.items()}
+    for k in p:
+        if k.endswith("_gamma"):
+            p[k][:] = 1
+        elif k.endswith("_beta"):
+            p[k][:] = 0
+    p["embed_weight"] = rng.randn(61, 32).astype(np.float32)
+    p["lm_head_weight"] = p["embed_weight"][np.argsort(perm)].copy()
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "fp8"])
+def test_speculative_greedy_equals_plain_on_card(cuda, kv_quant):
+    """n-gram speculation on the card emits the plain engine's greedy
+    streams (K5 or K5-fp8 attention) through the verify step's dense
+    attention, and launches no flash-decode kernel."""
+    from mxnet_tpu_torch.serve import Engine, EngineConfig
+    params = _spec_params()
+    kws = [dict(max_new_tokens=n) for n in SPEC_NEW]
+    fd = tfd.flash_decode_attention
+
+    def serve(speculate):
+        eng = Engine(params, EngineConfig(speculate=speculate, spec_k=4,
+                                          kv_quant=kv_quant, **SPEC_CFG),
+                     device=cuda)
+        ids = [eng.submit(p, **kw) for p, kw in zip(SPEC_PROMPTS, kws)]
+        before = fd.launches + fd.launches_fp8
+        outs = [eng.result(i) for i in ids]
+        return eng, outs, fd.launches + fd.launches_fp8 - before
+
+    plain, want, plain_launches = serve(False)
+    assert plain_launches == 2 * plain.counters["decode_steps"] > 0
+    spec, got, spec_launches = serve(True)
+    assert got == want
+    assert spec_launches == 0
+    assert spec.counters["decode_steps"] == spec.counters[
+        "kernel_launches"] == 0
+    assert spec.counters["verify_steps"] > 0
+    assert spec.stats()["speculate"]["accepted"] > 0
+    assert spec.alloc.num_used == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "fp8"])
+def test_scrub_positions_zeroes_rejected_positions_on_card(cuda, kv_quant):
+    """``write_spec`` then ``scrub_positions`` on the card: the rejected
+    positions are zero in both leaves (payload bytes and scale) of every
+    layer, the kept ones hold their states, and the pools equal the CPU's
+    byte for byte."""
+    rng = np.random.RandomState(8)
+    states = torch.from_numpy(rng.randn(2, 2, 3, 2, 16).astype(np.float32))
+    slots = torch.tensor([[1, 1, 2], [3, 3, 3]], dtype=torch.int32)
+    offs = torch.tensor([[2, 3, 0], [0, 1, 2]], dtype=torch.int32)
+    scrub = torch.tensor([[False, True, True], [False, False, True]])
+    sslots = torch.where(scrub, slots, 0)
+    leaves = []
+    for dev in (torch.device("cpu"), cuda):
+        pools = tkv.make_pools(2, 6, 4, 2, 16, quant=kv_quant, device=dev)
+        for layer in range(2):
+            for j in range(2):
+                tkv.write_spec(pools[j], layer, states[layer, j].to(dev),
+                               slots.to(dev), offs.to(dev))
+        for pool in pools:
+            tkv.scrub_positions(pool, sslots.to(dev), offs.to(dev))
+        leaves.append([t.cpu() for pool in pools for t in tkv._leaves(pool)])
+    for cpu_leaf, card_leaf in zip(*leaves):
+        assert torch.equal(cpu_leaf.view(torch.uint8),
+                           card_leaf.view(torch.uint8))
+        for b in range(2):
+            for c in range(3):
+                entry = card_leaf[:, slots[b, c], offs[b, c]]
+                assert bool((entry == 0).all()) == bool(scrub[b, c])

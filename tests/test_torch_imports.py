@@ -2,7 +2,8 @@
 ``chip_smoke.py`` import torch, never jax and nothing of ``mxnet_tpu``.
 
 A subprocess blocks ``jax`` (``sys.modules['jax'] = None`` makes any
-import of it fail) and imports the port, its serve package, the training
+import of it fail) and imports the port, its serve package (speculate
+included) and ``online.compat``, the training
 modules (symbol, models.resnet, models.transformer_lm, ops.fused_update,
 ops.attention_ops, parallel.trainer, parallel.flash_attention,
 parallel.ring_attention, parallel.mesh, quant), the imperative and
@@ -25,6 +26,8 @@ sys.path.insert(0, {root!r})
 import mxnet_tpu_torch
 import mxnet_tpu_torch.serve
 from mxnet_tpu_torch.serve import Engine, EngineConfig, ServeError, kvcache
+import mxnet_tpu_torch.serve.speculate
+import mxnet_tpu_torch.online.compat
 import mxnet_tpu_torch.symbol
 import mxnet_tpu_torch.models.resnet
 import mxnet_tpu_torch.ops.fused_update

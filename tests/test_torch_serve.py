@@ -10,7 +10,8 @@
   tokens;
 * options of later slices raise instead of being ignored (chunked
   prefill, fp8 pools, the prefix cache and defrag have their own tests in
-  tests/test_torch_serve_r12.py).
+  tests/test_torch_serve_r12.py, speculative decoding and adoption in
+  tests/test_torch_speculate.py).
 """
 import numpy as np
 import pytest
@@ -204,16 +205,21 @@ def test_nan_logits_fail_the_request_and_scrub():
     assert eng.counters["nan_logits"] == 1 and eng.alloc.num_used == 0
 
 
-@pytest.mark.parametrize("over", [dict(speculate=True)])
+@pytest.mark.parametrize("over", [dict(speculate=True, spec_draft="model")])
 def test_unported_options_raise(over):
+    """Speculation is ported; loading draft weights from a checkpoint path
+    waits for ``predictor.load_weights``."""
+    eng = Engine(PARAMS, EngineConfig(**dict(CFG, **over)), device="cpu",
+                 draft_params=PARAMS)
     with pytest.raises(MXNetError, match="not ported yet"):
-        _engine(**over)
+        eng.swap_draft_weights("draft-checkpoint")
 
 
 def test_unported_entry_points_and_bad_config_raise():
     eng = _engine()
+    with pytest.raises(MXNetError, match="seed"):
+        eng.adopt([1], [2])                        # adopt needs the seed
     for call in (lambda: eng.swap_weights(PARAMS),
-                 lambda: eng.adopt([1], [2], seed=1),
                  lambda: Engine.from_checkpoint("x", EngineConfig()),
                  lambda: Engine(PARAMS, EngineConfig(**CFG), device="cpu",
                                 chaos={"serve_crash": {3}})):

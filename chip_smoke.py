@@ -134,11 +134,56 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     by a new engine (its stream equals (b)'s); prints tokens/s, p50 TTFT,
     the median step, tokens per step, the accept rate, the ratio to the
     baseline's tokens/s and five profiled steps of a full batch by layer;
-12. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+12. runs the serving control plane on the same model at ``bench.py``'s
+    control-plane geometry (256 blocks of 16, 4 slots, ``max_seq_len``
+    128): (a) two replicas serve ``serve_request_set(16, 32, vocab)``
+    clean, then with replica 0 crashing at step 16 (every request
+    finishes, 0 tokens lost, the streams equal the clean fleet's, at least
+    one failover, the allocators drain; median and maximum recovery ms)
+    and five profiled router steps of two full replicas; (b) replica 1
+    hangs at step 8 on a virtual clock (1 s a router step, heartbeat
+    timeout 5 s) and is declared dead by the heartbeat, its requests'
+    streams equal (a)'s; a lone engine poisons step 3: its victims finish
+    ``error``, the pools hold no NaN, and the next requests reusing the
+    scrubbed blocks decode as on a clean engine; (c) a hot
+    ``rolling_swap`` of fresh copies of the weights after 16 steps (mode
+    ``hot``, two swaps, streams unchanged; ``swap_ms`` and tokens/s
+    against the clean run), a forbidden rebuild that raises and leaves
+    the fleet as it was, and a rebuild (a changed key set) behind each
+    replica's drain; (d) the canonical 10-minute diurnal gameday trace
+    (seed 0) from one replica, autoscaling 1-3, clean, then with
+    ``{0: crash@260, 1: hang@120, 2: poison@40}``, then its replay:
+    scale-ups and scale-downs in both, failovers in the gameday, no KV
+    leak, the gameday's streams equal the clean run's, and the replay's
+    streams, scale schedule, shed set and failovers equal the gameday's
+    (SLO figures printed beside ``bench.py``'s bars); (e) two speculating
+    replicas with the model drafter (phase 11's geometry, 8 requests of 64
+    new tokens): a crash at step 6 and a mid-stream draft swap of the
+    same weights leave the streams the clean speculating fleet's, and
+    equal to the non-speculative fleet's but for counted true near-ties.
+    In every fleet the deaths are exactly the planted chaos points, by
+    replica and cause: a planted crash dies of the injected
+    ``ChaosError``, a planted hang through the heartbeat, each point is
+    counted once in ``serve.chaos_injected``, and a fleet with nothing
+    planted has no death and no failover (the router contains any
+    exception a step raises, so a fault on the card fails here instead of
+    passing for a crash).  Every flash-decode launch of the phase ran the
+    hopper form on every replica, and no kernel was built after warmup;
+13. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
 port is not beside it, and on any failed check.
+
+``python3 chip_smoke.py --serve-ab PARENT`` measures what a change to the
+port costs the serving loop: it runs phases 4 and 11 alone (after the
+build) over the port in ``PARENT``, a checkout of an earlier commit, and
+over this checkout's, in the turns parent, change, change, parent, and
+prints each turn's tokens/s and median step times as a JSON line between
+two card lines.  (``--serve-only ROOT`` is one such turn.)
+``python3 chip_smoke.py --telemetry-cost`` runs the same two phases once
+with every call into the telemetry plane timed, and prints the host
+seconds inside those calls against the seconds inside ``Engine.step``.
 """
 import json
 import os
@@ -193,6 +238,44 @@ SPEC_TIE = 1e-5
 SPEC_WINDOW, SPEC_MIN_ACCEPT = 256, 0.9
 # request 0 is stopped after this many tokens and adopted by a new engine
 SPEC_ADOPT_AT = 40
+
+# the serving control plane (phase 12): bench.py's control-plane rows
+# (failover bench.py:1291-1347, hot swap :1351-1420) on phase 4's model:
+# 2 replicas, serve_request_set(16, 32, vocab) with seed=i per request
+CP_KW = dict(heads=HEADS, block_size=16, num_blocks=256, max_batch=4,
+             max_queue=64, max_prompt_len=64, max_seq_len=128,
+             prompt_bucket_min=16)
+CP_REQUESTS, CP_NEW = 16, 32
+CP_CRASH_STEP = max(4, CP_NEW // 2)     # mid-decode, streams in flight
+CP_SWAP_STEPS = max(4, CP_NEW // 2)
+# (b): replica 1 hangs at this step, declared dead on a virtual clock
+# advanced 1 s a router step; a lone engine poisons one step
+CP_HANG_STEP, CP_HEARTBEAT_MS, CP_POISON_STEP = 8, 5000.0, 3
+# (d) the canonical 10-minute diurnal gameday (bench.py:903-1060): its
+# trace (:934-939) at vocab 32,000 and seed 0, one replica to start,
+# autoscaling 1-3 with :962-965's policy, 1.5 virtual s a router step,
+# chaos mid-ramp by engine step (:1003-1005)
+GAMEDAY_TRACE = dict(seed=0, duration_s=600.0, base_rate=0.3,
+                     diurnal_period_s=600.0, burst_hazard_per_s=1.0 / 240.0,
+                     burst_duration_s=45.0, burst_multiplier=2.0,
+                     vocab=VOCAB, sys_prompt_min=12, sys_prompt_max=20,
+                     max_turns=3, prompt_min=4, prompt_max=24, output_min=6,
+                     output_max=16, context_budget=60, think_min_s=2.0,
+                     think_max_s=20.0)
+GAMEDAY_POLICY = dict(min_replicas=1, max_replicas=3, interval_s=15.0,
+                      high_queue=3.0, low_queue=0.5, breach_polls=2,
+                      cooldown_up_s=45.0, cooldown_down_s=120.0)
+GAMEDAY_CHAOS = {0: {"serve_crash": {260}}, 1: {"serve_hang": {120}},
+                 2: {"serve_poison_logits": {40}}}
+GAMEDAY_STEP_S, GAMEDAY_SHED_QUEUE, GAMEDAY_HEARTBEAT_MS = 1.5, 20, 30e3
+# bench.py's SLO bars for the gameday rows (set on a CPU host): printed
+# beside the card's figures, not gated on
+GAMEDAY_BARS = {"clean": (4000.0, 150.0, 0.10),
+                "gameday": (6000.0, 200.0, 0.25)}
+# (e) speculation under the router: phase 11's geometry, 8 of its
+# requests with 64 new tokens, the model drafter with the target's own
+# weights, replica 0 crashing at this step
+CP_SPEC_REQUESTS, CP_SPEC_NEW, CP_SPEC_CRASH = 8, 64, 6
 
 # training configuration: __graft_entry__.entry's ResNet-50
 DEPTH, CLASSES, IMAGE, BATCH = 50, 1000, (3, 224, 224), 64
@@ -1297,6 +1380,556 @@ def phase_speculate(torch, np, fd):
                for k, v in out.items() if isinstance(v, dict)}
     log("  speculative decoding: " + json.dumps(summary))
     return a_k5, d_k5_fp8, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the serving control plane at full width
+# ---------------------------------------------------------------------------
+
+def cp_router(torch, params, n=2, chaos=None, ecfg=None, rcfg=None,
+              **router_kw):
+    """A warmed fleet of ``n`` replicas on the card, with a fresh telemetry
+    registry (so the fleet's checks read its own series).  ``rcfg``
+    overrides ``RouterConfig``; ``router_kw`` goes to ``Router`` (a clock,
+    a drafter's weights)."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.chaos import ChaosSpec
+    from mxnet_tpu_torch.serve import EngineConfig, Router, RouterConfig
+    telemetry.reset_for_tests()
+    router = Router(params, ecfg or EngineConfig(**CP_KW),
+                    RouterConfig(replicas=n, **(rcfg or {})),
+                    chaos={i: ChaosSpec(c) for i, c in (chaos or {}).items()},
+                    device=DEVICE, **router_kw)
+    router.warmup()
+    torch.cuda.synchronize()
+    return router
+
+
+def cp_run(torch, router, reqs, steps_before=0, between=None):
+    """Submit ``reqs``, step ``steps_before`` times, call ``between``, run
+    the fleet to its end.  Returns the requests' tokens and the wall s."""
+    t0 = time.perf_counter()
+    ids = [router.submit(p, **kw) for p, kw in reqs]
+    for _ in range(steps_before):
+        router.step()
+    out = between() if between is not None else None
+    router.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [list(router.request(i).tokens) for i in ids], wall, out
+
+
+# each serve chaos kind: the death it causes and its serve.chaos_injected
+# label
+CP_KINDS = {"serve_crash": ("crash", "crash"),
+            "serve_hang": ("heartbeat", "hang"),
+            "serve_poison_logits": (None, "poison")}
+
+
+def cp_check_deaths(router, label, chaos=None):
+    """The fleet's deaths are exactly its planted chaos points: each
+    planted crash killed its replica with the injected ChaosError, each
+    planted hang through the heartbeat, every planted point fired, and no
+    other replica died or failed a request over.  The router contains any
+    exception a replica's step raises, so without this a fault on the
+    card would pass for a crash."""
+    from collections import Counter
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serve.router import DEAD
+    want, fired = {}, Counter()
+    for idx, points in (chaos or {}).items():
+        for kind, steps in points.items():
+            cause, tag = CP_KINDS[kind]
+            fired[tag] += len(steps)
+            if cause is not None:
+                want[idx] = cause
+    dead = {rep.idx: (rep.death_cause, rep.death_error)
+            for rep in router.replicas if rep.state == DEAD}
+    check(dead == {i: (c, "ChaosError" if c == "crash" else None)
+                   for i, c in want.items()},
+          f"[{label}] deaths {dead}, planted {want}")
+    flat = telemetry.snapshot_flat()
+
+    def series(name):
+        return {k: v for k, v in flat.items()
+                if k == name or k.startswith(name + "{")}
+
+    deaths = series("serve.router.deaths")
+    check(deaths == {f"serve.router.deaths{{cause={c}}}": n
+                     for c, n in Counter(want.values()).items()},
+          f"[{label}] serve.router.deaths {deaths}, planted {want}")
+    injected = series("serve.chaos_injected")
+    check(injected == {f"serve.chaos_injected{{kind={t}}}": n
+                       for t, n in fired.items()},
+          f"[{label}] serve.chaos_injected {injected}, planted {dict(fired)}")
+    if not want:
+        check(router.stats()["failovers"] == 0
+              and not series("serve.router.failovers"),
+              f"[{label}] failovers in a fleet where nothing died: "
+              f"{router.stats()['failovers']}")
+
+
+def cp_check_fleet(router, ids_tokens, ref, label, chaos=None):
+    """Every request finished with the clean fleet's stream, no token
+    lost, every live replica's allocator drained, and the deaths are the
+    planted ``chaos`` points' and nothing else's."""
+    from mxnet_tpu_torch.serve.scheduler import FINISHED
+    states = [rr.state for rr in router._requests.values()]
+    check(all(st == FINISHED for st in states),
+          f"[{label}] not every request finished: {states}")
+    lost = sum(max(0, len(a) - len(b)) for a, b in zip(ref, ids_tokens))
+    check(lost == 0 and ids_tokens == ref,
+          f"[{label}] streams differ from the clean fleet's ({lost} tokens "
+          "lost)")
+    held = [rep.engine.alloc.num_used for rep in router.replicas
+            if rep.state != "dead"]
+    check(not any(held), f"[{label}] KV blocks held after the run: {held}")
+    cp_check_deaths(router, label, chaos)
+
+
+def cp_check_forms(fd, routers, label):
+    """Every flash-decode launch since the last reset ran the hopper form,
+    on every replica that decoded (each replica's own count of its decode
+    steps' launches, and its pools' form)."""
+    from mxnet_tpu_torch.serve import kvcache
+    check_hopper_launches(fd, label)
+    for router in routers:
+        for rep in router.replicas:
+            eng = rep.engine
+            form = fd.kernel_form(kvcache.layer_view(eng.kpool, 0),
+                                  kvcache.layer_view(eng.vpool, 0))
+            check(form == "hopper",
+                  f"[{label}] replica {rep.idx}'s pools allow {form}")
+            if eng.counters["decode_steps"]:
+                check(eng.counters["kernel_launches"]
+                      == LAYERS * eng.counters["decode_steps"],
+                      f"[{label}] replica {rep.idx}: K5 launches "
+                      f"{eng.counters['kernel_launches']} != {LAYERS} x "
+                      f"{eng.counters['decode_steps']} decode steps")
+
+
+def phase_control_plane(torch, np, fd, _build):
+    """The serving control plane on the card: (a) crash failover, (b) a
+    hung replica on a virtual clock and a poisoned step, (c) hot, rebuild
+    and forbidden rolling swaps, (d) the diurnal gameday with
+    autoscaling and chaos, and its replay, (e) failover and a draft swap
+    under speculation.  Returns the flash-decode launches of the phase
+    (all hopper form) and the stats."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.chaos import ChaosSpec
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.serve import (Engine, EngineConfig, TraceConfig,
+                                       generate_trace)
+    from mxnet_tpu_torch.serve.router import HEALTHY
+    from mxnet_tpu_torch.serve.scheduler import FAILED
+    from mxnet_tpu_torch.serve.traffic import VirtualClock
+
+    params = transformer.init_params(VOCAB, LAYERS, D_MODEL, seed=0)
+    prompts = spec_prompts(np)[:CP_REQUESTS]       # serve_request_set
+    reqs = [(p, dict(max_new_tokens=CP_NEW, seed=i))
+            for i, p in enumerate(prompts)]
+    out = {}
+    # no kernel is built after warmup: every library was loaded by the
+    # earlier phases, so any nvcc run from here on is a failure
+    loaded = set(_build._loaded)
+    built = []
+    compile_ = _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    _build._compile = counting
+    # the phase's own run: every flash-decode count starts at 0 here
+    reset_decode_counts(fd)
+    try:
+        # (a) failover: bench.py's chaos row
+        clean = cp_router(torch, params)
+        ref, clean_wall, _ = cp_run(torch, clean, reqs)
+        cp_check_fleet(clean, ref, ref, "a, clean")
+        chaos = {0: {"serve_crash": {CP_CRASH_STEP}}}
+        crash = cp_router(torch, params, chaos=chaos)
+        got, wall, _ = cp_run(torch, crash, reqs)
+        cp_check_fleet(crash, got, ref, "a, crash", chaos)
+        st = crash.stats()
+        check(st["failovers"] >= 1 and crash.recoveries_ms,
+              f"[a] no failover: {st}")
+        rec = crash.recoveries_ms
+        out["a"] = {"failovers": st["failovers"],
+                    "recovery_ms_median": float(np.median(rec)),
+                    "recovery_ms_max": float(max(rec)), "wall_s": wall,
+                    "clean_wall_s": clean_wall,
+                    "tokens_per_s": sum(map(len, got)) / wall,
+                    "clean_tokens_per_s": sum(map(len, ref)) / clean_wall}
+        log("  (a) crash failover: " + json.dumps(out["a"]))
+        out["a"]["profile"] = cp_profile(torch, params, reqs)
+        cp_check_forms(fd, (clean, crash), "(a)")
+        del clean, crash
+
+        # (b) a hung replica on the virtual clock, then a poisoned step
+        clock = VirtualClock()
+        chaos = {1: {"serve_hang": {CP_HANG_STEP}}}
+        hang = cp_router(torch, params, chaos=chaos, clock=clock,
+                         rcfg=dict(heartbeat_timeout_ms=CP_HEARTBEAT_MS))
+        ids = [hang.submit(p, **kw) for p, kw in reqs]
+        steps = 0
+        while not all(hang.request(i).done() for i in ids):
+            hang.step()
+            clock.advance(1.0)
+            steps += 1
+            check(steps < 10000, "[b] the hung fleet never finished")
+        torch.cuda.synchronize()
+        got = [list(hang.request(i).tokens) for i in ids]
+        cp_check_fleet(hang, got, ref, "b, hang", chaos)
+        check(hang.stats()["failovers"] >= 1,
+              f"[b] no failover: {hang.stats()['failovers']}")
+        out["b"] = {"router_steps": steps,
+                    "failovers": hang.stats()["failovers"],
+                    "recovery_virtual_ms": list(hang.recoveries_ms)}
+        del hang
+        cfg = EngineConfig(**CP_KW)
+        telemetry.reset_for_tests()
+        cleng = Engine(params, cfg, device=DEVICE,
+                       chaos=ChaosSpec({}))
+        poison = Engine(params, cfg, device=DEVICE,
+                        chaos=ChaosSpec({"serve_poison_logits":
+                                         {CP_POISON_STEP}}))
+        first, second = reqs[:CP_KW["max_batch"]], reqs[4:8]
+        vids = [poison.submit(p, **kw) for p, kw in first]
+        poison.run()
+        victims = [(poison.request(i).state, poison.request(i).finish_reason)
+                   for i in vids]
+        check(victims == [(FAILED, "error")] * len(vids)
+              and poison.counters["nan_logits"] == len(vids)
+              and poison.alloc.num_used == 0,
+              f"[b] poison victims {victims}, nan_logits "
+              f"{poison.counters['nan_logits']}")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in (poison.kpool, poison.vpool)),
+              "[b] NaN left in the pools after the scrub")
+        want = [cleng.result(cleng.submit(p, **kw)) for p, kw in second]
+        again = [poison.result(poison.submit(p, **kw)) for p, kw in second]
+        check(again == want, "[b] requests reusing the scrubbed blocks "
+              "differ from a clean engine's")
+        injected = {k: v for k, v in telemetry.snapshot_flat().items()
+                    if k.startswith("serve.chaos_injected")}
+        check(injected == {"serve.chaos_injected{kind=poison}": 1},
+              f"[b] poison injections {injected}")
+        out["b"]["poison_victims"] = len(vids)
+        log("  (b) hang + poison: " + json.dumps(out["b"]))
+        cp_check_forms(fd, (), "(b)")
+        del cleng, poison
+
+        # (c) rolling swaps: bench.py's hotswap row (a null update)
+        hot = cp_router(torch, params)
+        fresh = {k: np.array(v, copy=True) for k, v in params.items()}
+        got, wall, summary = cp_run(
+            torch, hot, reqs, steps_before=CP_SWAP_STEPS,
+            between=lambda: hot.rolling_swap(fresh))
+        cp_check_fleet(hot, got, ref, "c, hot")
+        check(summary["mode"] == "hot" and len(summary["swap_ms"]) == 2
+              and [r.engine.swap_count for r in hot.replicas] == [1, 1],
+              f"[c] hot swap: {summary['mode']}, {summary['swap_ms']}")
+        out["c"] = {"mode": summary["mode"], "swap_ms": summary["swap_ms"],
+                    "tokens_per_s": sum(map(len, got)) / wall,
+                    "throughput_frac": (sum(map(len, got)) / wall)
+                    / out["a"]["clean_tokens_per_s"]}
+        # an incompatible signature (one more tensor: the key set
+        # changed) rebuilds each replica behind its drain
+        changed = dict(fresh, extra_unused_weight=np.zeros(4, np.float32))
+        engines = [r.engine for r in hot.replicas]
+        try:
+            hot.rolling_swap(changed, allow_rebuild=False)
+            check(False, "[c] an incompatible swap with rebuild "
+                  "forbidden did not raise")
+        except SmokeFailure:
+            raise
+        except Exception as exc:   # noqa: BLE001 — the refusal under test
+            check("rebuild is disabled" in str(exc),
+                  f"[c] forbidden rebuild raised {exc!r}")
+        check([r.engine for r in hot.replicas] == engines
+              and all(r.state == HEALTHY and r.engine.swap_count == 1
+                      for r in hot.replicas),
+              "[c] the forbidden rebuild touched the fleet")
+        telemetry.reset_for_tests()
+        got, wall, summary = cp_run(
+            torch, hot, reqs, steps_before=CP_SWAP_STEPS,
+            between=lambda: hot.rolling_swap(changed, allow_rebuild=True))
+        cp_check_fleet(hot, got, ref, "c, rebuild")
+        check(summary["mode"] == "rebuild"
+              and not summary["report"]["compatible"]
+              and all(r.engine is not e
+                      for r, e in zip(hot.replicas, engines))
+              and telemetry.snapshot_flat().get("online.rebuilds") == 2,
+              f"[c] rebuild: {summary['mode']}, {summary['report']}")
+        out["c"]["rebuild_swap_ms"] = summary["swap_ms"]
+        out["c"]["rebuild_tokens_per_s"] = sum(map(len, got)) / wall
+        log("  (c) rolling swaps: " + json.dumps(out["c"]))
+        cp_check_forms(fd, (hot,), "(c)")
+        del hot
+
+        # (d) the gameday: clean, chaos, replay
+        t0 = time.perf_counter()
+        trace = generate_trace(TraceConfig(**GAMEDAY_TRACE))
+        runs = {label: cp_gameday(torch, params, trace, chaos)
+                for label, chaos in (("clean", {}),
+                                     ("gameday", GAMEDAY_CHAOS),
+                                     ("replay", GAMEDAY_CHAOS))}
+        game, clean_r, replay = (runs[k] for k in ("gameday", "clean",
+                                                   "replay"))
+        for label in ("clean", "gameday"):
+            r = runs[label]
+            check(r["scale"]["scale_ups"] >= 1
+                  and r["scale"]["scale_downs"] >= 1,
+                  f"[d {label}] scale events {r['scale_sched']}")
+            check(r["kv_leak"] == 0, f"[d {label}] KV leak {r['kv_leak']}")
+        check(game["failovers"] >= 1, "[d] the gameday had no failover")
+        common = sorted(set(clean_r["stream_keys"])
+                        & set(game["stream_keys"]))
+        check(common and all(clean_r["stream_keys"][k]
+                             == game["stream_keys"][k] for k in common),
+              "[d] the gameday's streams differ from the clean run's")
+        for key in ("stream_keys", "scale_sched", "shed_set", "failovers"):
+            check(replay[key] == game[key],
+                  f"[d] the replay's {key} differs from the gameday's")
+        out["d"] = {label: {k: runs[label][k] for k in (
+            "requests", "completed", "shed", "failed", "shed_rate",
+            "failovers", "tok_per_s", "p50_ttft_ms", "p99_ttft_ms",
+            "p50_itl_ms", "p99_itl_ms", "router_steps", "wall_s",
+            "scale_sched", "replica_states", "bench_bars")}
+            for label in ("clean", "gameday", "replay")}
+        out["d"]["shared_stream_keys"] = len(common)
+        out["d"]["seconds"] = time.perf_counter() - t0
+        log("  (d) gameday: " + json.dumps(out["d"]))
+        cp_check_forms(fd, (), "(d)")
+
+        # (e) speculation under the router
+        out["e"] = cp_speculate(torch, np, params, fd)
+        launches = (fd.flash_decode_attention.launches,
+                    fd.flash_decode_attention.launches_fp8)
+    finally:
+        _build._compile = compile_
+    check(launches[0] > 0 and launches[1] == 0,
+          f"phase 12 flash-decode launches {launches}")
+    check(built == [] and set(_build._loaded) == loaded,
+          f"kernels built after warmup: {built}, "
+          f"{sorted(set(_build._loaded) - loaded)}")
+    log(f"  phase 12: {launches[0]} K5 launches, all in the hopper form; "
+        "no kernel built")
+    return launches[0], out
+
+
+def cp_profile(torch, params, reqs, steps=5):
+    """Five router steps of two full replicas under ``torch.profiler``:
+    wall and device-busy ms a router step, host ms a replica step, idle
+    share, device ms by layer."""
+    router = cp_router(torch, params)
+    ids = [router.submit(p, **kw)
+           for p, kw in reqs[:2 * CP_KW["max_batch"]]]
+    while any(not rr.tokens for rr in router._requests.values()):
+        router.step()
+    prof = profile_step(torch, lambda: [router.step()
+                                        for _ in range(steps)],
+                        _SERVE_KERNEL_GROUPS,
+                        label=f"profiled {steps} router steps")
+    stepped = 2 * steps
+    out = {"router_step_ms": prof["wall_ms"] / steps,
+           "host_ms_per_replica_step": (prof["wall_ms"]
+                                        - prof["device_busy_ms"]) / stepped,
+           "device_busy_ms": prof["device_busy_ms"] / steps,
+           "idle_share": prof["idle_share"],
+           "by_layer_ms": {k: v / steps
+                           for k, v in prof["by_layer_ms"].items()}}
+    router.run()
+    check(all(router.request(i).done() for i in ids),
+          "the profiled requests did not finish")
+    cp_check_deaths(router, "a, profile")
+    return out
+
+
+def cp_gameday(torch, params, trace, chaos):
+    """One run of the gameday trace (bench.py's ``_trace_gameday``)."""
+    from mxnet_tpu_torch.serve import (AutoscaleConfig, Autoscaler,
+                                       EngineConfig, LoadGen)
+    from mxnet_tpu_torch.serve.traffic import VirtualClock
+    clock = VirtualClock()
+    router = cp_router(torch, params, n=1, chaos=chaos, clock=clock,
+                       ecfg=EngineConfig(**CP_KW, prefill_chunk=16),
+                       rcfg=dict(heartbeat_timeout_ms=GAMEDAY_HEARTBEAT_MS,
+                                 shed_queue_depth=GAMEDAY_SHED_QUEUE))
+    asc = Autoscaler(router, AutoscaleConfig(**GAMEDAY_POLICY), clock=clock)
+    res = LoadGen(router, trace, clock, step_virtual_s=GAMEDAY_STEP_S,
+                  autoscaler=asc).run()
+    for _ in range(3):
+        router.step()                   # retire finished drains
+    torch.cuda.synchronize()
+    cp_check_deaths(router, "d " + ("gameday" if chaos else "clean"), chaos)
+    res["kv_leak"] = sum(rep.engine.alloc.num_used
+                         for rep in router.replicas if rep.state != "dead")
+    res["scale"] = asc.summary()
+    res["scale_sched"] = [(e["direction"], round(e["t"], 3), e["target"])
+                          for e in asc.events]
+    res["shed_set"] = sorted((r["sid"], r["turn"]) for r in res["records"]
+                             if r["finish_reason"] == "shed")
+    res["replica_states"] = [(r.state, r.death_cause)
+                             for r in router.replicas]
+    label = "gameday" if chaos else "clean"
+    ttft_bar, itl_bar, shed_bar = GAMEDAY_BARS[label]
+    res["bench_bars"] = {
+        f"p99_ttft_ms <= {ttft_bar}": (res["p99_ttft_ms"] is not None
+                                       and res["p99_ttft_ms"] <= ttft_bar),
+        f"p99_itl_ms <= {itl_bar}": (res["p99_itl_ms"] is not None
+                                     and res["p99_itl_ms"] <= itl_bar),
+        f"shed_rate <= {shed_bar}": res["shed_rate"] <= shed_bar}
+    return res
+
+
+def cp_speculate(torch, np, params, fd):
+    """(e): two speculating replicas with the model drafter (the target's
+    own weights), phase 11's geometry; replica 0 crashes mid-stream, and
+    a draft swap of the same weights lands mid-stream.  Streams equal the
+    clean speculating fleet's and the non-speculative fleet's, but for
+    counted true near-ties."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.serve import EngineConfig
+    prompts = spec_prompts(np)[:CP_SPEC_REQUESTS]
+    reqs = [(p, dict(max_new_tokens=CP_SPEC_NEW, seed=i))
+            for i, p in enumerate(prompts)]
+    plain_cfg = EngineConfig(**SPEC_KW)
+    spec_cfg = EngineConfig(**SPEC_KW, speculate=True, spec_k=SPEC_K,
+                            spec_draft="model", spec_window=SPEC_WINDOW)
+
+    def fleet(chaos=None):
+        return cp_router(torch, params, chaos=chaos, ecfg=spec_cfg,
+                         draft_params=params, draft_heads=HEADS)
+
+    plain = cp_router(torch, params, ecfg=plain_cfg)
+    base, _, _ = cp_run(torch, plain, reqs)
+    cp_check_deaths(plain, "e, non-speculative")
+    cp_check_forms(fd, (plain,), "(e) non-speculative fleet")
+    clean = fleet()
+    ref, clean_wall, _ = cp_run(torch, clean, reqs)
+    cp_check_fleet(clean, ref, ref, "e, clean")
+    chaos = {0: {"serve_crash": {CP_SPEC_CRASH}}}
+    crash = fleet(chaos)
+    got, wall, _ = cp_run(torch, crash, reqs)
+    cp_check_fleet(crash, got, ref, "e, crash", chaos)
+    check(crash.stats()["failovers"] >= 1,
+          f"[e] no failover under speculation: {crash.stats()['failovers']}")
+    eng = crash.replicas[1].engine
+    ties = sum(spec_divergence(torch, eng, p, a, b, transformer)
+               for p, a, b in zip(prompts, got, base))
+    swap = fleet()
+    got_swap, _, res = cp_run(
+        torch, swap, reqs, steps_before=2,
+        between=lambda: swap.rolling_swap(
+            {k: np.array(v, copy=True) for k, v in params.items()},
+            target="draft"))
+    cp_check_fleet(swap, got_swap, ref, "e, draft swap")
+    check(res["mode"] == "draft"
+          and [r.engine.counters["draft_swaps"] for r in swap.replicas]
+          == [1, 1], f"[e] draft swaps: {res}")
+    out = {"failovers": crash.stats()["failovers"],
+           "near_ties_vs_non_speculative": ties,
+           "draft_swap_ms": res["swap_ms"],
+           "tokens_per_s": sum(map(len, got)) / wall,
+           "clean_tokens_per_s": sum(map(len, ref)) / clean_wall}
+    log("  (e) speculation under the router: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The serving A/B: phases 4 and 11 over two checkouts of the port, in turns
+# ---------------------------------------------------------------------------
+
+def serve_only(torch, np, fd):
+    """Phases 4 and 11 alone; returns their host-bound figures."""
+    t0 = time.perf_counter()
+    _, p4 = phase_serve(torch, np, fd)
+    p4_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, p11 = phase_speculate(torch, np, fd)
+    return {"p4": {k: p4[k] for k in ("tokens_per_s", "median_decode_step_ms",
+                                      "p50_ttft_ms")},
+            "p4_s": p4_s,
+            "p11": {k: {m: v[m] for m in ("tokens_per_s", "median_step_ms")}
+                    for k, v in p11.items() if isinstance(v, dict)},
+            "p11_s": time.perf_counter() - t0}
+
+
+def timed_calls(tally, owner, name, restore):
+    """Replace ``owner.name`` by a wrapper that adds each call and the
+    host seconds inside it to ``tally``; ``restore`` collects the undo."""
+    fn = getattr(owner, name)
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            tally["s"] += time.perf_counter() - t0
+            tally["calls"] += 1
+
+    restore.append((owner, name, fn))
+    setattr(owner, name, call)
+
+
+def telemetry_cost(torch, np, fd):
+    """``--telemetry-cost``: phases 4 and 11 with every call the port makes
+    into its telemetry plane timed (metric lookups and updates, spans,
+    flight records), beside the time inside ``Engine.step``: the share of
+    the serving loop's steps that telemetry costs, measured in place."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serve import Engine
+    from mxnet_tpu_torch.telemetry import flight, metrics
+    out = {}
+    for label, run in (("p4", phase_serve), ("p11", phase_speculate)):
+        tel, steps, restore = ({"calls": 0, "s": 0.0},
+                               {"calls": 0, "s": 0.0}, [])
+        for name in ("counter", "gauge", "histogram", "span",
+                     "flight_recorder"):
+            timed_calls(tel, telemetry, name, restore)
+        for name in ("inc", "set", "observe"):
+            timed_calls(tel, metrics.Metric, name, restore)
+        timed_calls(tel, flight.FlightRecorder, "record", restore)
+        timed_calls(steps, Engine, "step", restore)
+        try:
+            run(torch, np, fd)
+        finally:
+            for owner, name, fn in restore:
+                setattr(owner, name, fn)
+        out[label] = {"telemetry_calls": tel["calls"],
+                      "telemetry_s": tel["s"], "steps": steps["calls"],
+                      "step_s": steps["s"],
+                      "share_of_step_time": tel["s"] / steps["s"]}
+    return out
+
+
+def serve_ab(parent):
+    """``--serve-ab PARENT``: phases 4 and 11 over the port at ``PARENT`` (a
+    checkout of an earlier commit) and over this checkout's, in the turns
+    parent, change, change, parent, each turn a process of its own on the
+    same card.  Phases 4 and 11 must be the same code in both checkouts:
+    this script drives both, so only the package differs."""
+    roots = {"parent": os.path.abspath(parent),
+             "change": os.path.dirname(os.path.abspath(__file__))}
+    log(card_line())
+    rows = []
+    for turn in ("parent", "change", "change", "parent"):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--serve-only",
+             roots[turn]], cwd=roots[turn], capture_output=True, text=True,
+            timeout=900)
+        if proc.returncode:
+            log(proc.stdout[-4000:])
+            log(proc.stderr[-4000:])
+            log(f"chip_smoke: the {turn} turn failed ({proc.returncode})")
+            return 1
+        rows.append(dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                         turn=turn))
+        log(json.dumps(rows[-1]))
+    log(card_line())
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -2831,13 +3464,18 @@ def ptxas_summary(text):
     return rows
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if argv[:1] == ["--serve-ab"] and len(argv) == 2:
+        return serve_ab(argv[1])
+    serve_root = argv[1] if argv[:1] == ["--serve-only"] else None
+    cost = argv[:1] == ["--telemetry-cost"]
+    sys.path.insert(0, serve_root
+                    or os.path.dirname(os.path.abspath(__file__)))
     try:
         import numpy as np
         import mxnet_tpu_torch as mx
@@ -2855,22 +3493,29 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/12] device")
+    log("[1/13] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/12] build")
+    log("[2/13] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     for name, info in built.items():
         for kernel, regs, spills in ptxas_summary(info["log"]):
             log(f"  {name}: {kernel}: {regs} registers, {spills}")
+    if serve_root is not None:
+        log(json.dumps(serve_only(torch, np, fd)))
+        return 0
+    if cost:
+        log(json.dumps(telemetry_cost(torch, np, fd)))
+        log(smi)
+        return 0
 
-    log("[3/12] kernels against their plain versions")
+    log("[3/13] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -2879,22 +3524,22 @@ def main() -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/12] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/13] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/12] serving the round-12 configuration: chunked prefill "
+    log(f"[5/13] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/12] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/13] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/12] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/13] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, _ = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/12] kernel timing")
+    log("[8/13] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -2911,34 +3556,43 @@ def main() -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/12] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/13] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, _ = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/12] imperative + executor: NDArray on the card, the MLP "
+    log("[10/13] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/12] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/13] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/12] result")
+    log("[12/13] the serving control plane: crash failover, a hung and a "
+        "poisoned replica, rolling swaps, the diurnal gameday with "
+        "autoscaling, speculation under the router")
+    t0 = time.perf_counter()
+    cp_k5, _ = phase_control_plane(torch, np, fd, _build)
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    log("[13/13] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
     rows = [
         # the main paths' forms: K5 and K5-fp8 hopper, K1 warp
         # K5 and K5-fp8 launch on phases 4-6 and in phase 11's
-        # non-speculative baselines (never in its speculative runs)
+        # non-speculative baselines (never in its speculative runs); K5
+        # also on every replica of phase 12
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
-         "mxnet_tpu/serve/flash_decode.py:60", k5_launches + spec_k5,
+         "mxnet_tpu/serve/flash_decode.py:60",
+         k5_launches + spec_k5 + cp_k5,
          max(v for (k, f), v in errs.items()
              if "bf16" not in k and f == "hopper")),
         ("flash_decode_fp8", "mxnet_tpu_torch/csrc/flash_decode.cu",
@@ -2989,4 +3643,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,7 +6,9 @@ the JAX package on a ported path becomes a CUDA kernel written by hand for
 Hopper (``csrc/``, built with nvcc at first use by :mod:`._build`).
 
 Ported so far: serving ``transformer_lm`` parameter dicts
-(:mod:`mxnet_tpu_torch.serve`), training symbol graphs such as
+(:mod:`mxnet_tpu_torch.serve`, with its control plane: router, autoscaler,
+traffic simulator, serve chaos and the :mod:`~mxnet_tpu_torch.telemetry`
+plane), training symbol graphs such as
 ResNet-50 on one device (``symbol``, ``models.get_symbol``,
 ``parallel.ShardedTrainer``), and the imperative and executor API
 (``nd``, ``random``, ``Symbol.simple_bind``, ``optimizer.get_updater``,
@@ -14,10 +16,10 @@ custom ops in ``operator`` and user CUDA kernels in ``rtc``).  Entry
 points run on the card unless the caller passes ``device="cpu"`` (or
 works under ``with mx.cpu():``).
 """
-from . import (attribute, base, compile_cache, context, executor,
+from . import (attribute, base, chaos, compile_cache, context, executor,
                graph_eval, initializer, models, name, ndarray, operator, ops,
                optimizer, parallel, random, resilience, rtc, serve, stream,
-               symbol)
+               symbol, telemetry)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
 from .executor import Executor
@@ -31,7 +33,7 @@ nd = ndarray
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "resolve_device", "Engine", "EngineConfig", "Executor", "Group",
            "ServeError", "ShardedTrainer", "kvcache", "attribute", "base",
-           "compile_cache", "context", "executor", "graph_eval",
+           "chaos", "compile_cache", "context", "executor", "graph_eval",
            "initializer", "models", "name", "nd", "ndarray", "operator",
            "ops", "optimizer", "parallel", "random", "resilience", "rtc",
-           "serve", "stream", "sym", "symbol"]
+           "serve", "stream", "sym", "symbol", "telemetry"]

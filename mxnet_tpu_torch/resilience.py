@@ -9,20 +9,24 @@ sets the clip multiplier.  The guard's counters (:func:`init_state`,
 :func:`state_update`) live on the card as 0-d tensors, so no step waits
 for the host.
 
+:class:`Heartbeat` is the progress-based liveness tracker the serving
+router checks its replicas with.
+
 Loss scaling (``loss_scale``), the host-side divergence sentinel and the
 legacy Module/FeedForward guard are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from .base import not_ported
 
 __all__ = ["GuardConfig", "resolve", "init_state", "tree_sq_sum",
-           "state_update", "STATE_KEYS"]
+           "state_update", "STATE_KEYS", "Heartbeat"]
 
 STATE_KEYS = ("skipped", "norm_sum", "norm_cnt")
 
@@ -110,3 +114,55 @@ def state_update(state: Dict[str, torch.Tensor], ok: torch.Tensor,
         ok, norm, torch.zeros_like(norm)).to(torch.float32)
     new["norm_cnt"] = state["norm_cnt"] + oki
     return new
+
+
+class Heartbeat(object):
+    """Progress-based liveness tracking for a set of named peers.
+
+    A peer is healthy while its *progress counter advances*, stale once
+    ``timeout_ms`` passes without an advance.  Merely calling into a peer
+    and returning is not proof of life — a wedged replica's ``step()`` can
+    return at once having done nothing, which is exactly the failure this
+    must catch.
+
+    ``clock`` is injectable so timeout tests advance a fake clock instead
+    of sleeping."""
+
+    def __init__(self, timeout_ms: float, clock=time.monotonic):
+        self.timeout_ms = float(timeout_ms)
+        self._clock = clock
+        self._last: Dict[Any, float] = {}
+        self._progress: Dict[Any, Any] = {}
+
+    def beat(self, peer, progress=None, now: Optional[float] = None) -> bool:
+        """Record a liveness observation.  With ``progress`` given, the
+        beat only registers when the counter moved since the last
+        observation; without it, the call itself counts (use for peers
+        that are legitimately idle).  Returns whether the beat
+        registered."""
+        now = self._clock() if now is None else now
+        known = peer in self._last
+        if (known and progress is not None
+                and progress == self._progress.get(peer)):
+            return False
+        self._last[peer] = now
+        self._progress[peer] = progress
+        return True
+
+    def age_ms(self, peer, now: Optional[float] = None) -> float:
+        """Milliseconds since the peer's last registered beat (0 for a
+        never-seen peer: unknown is not the same as dead)."""
+        now = self._clock() if now is None else now
+        return (now - self._last.get(peer, now)) * 1e3
+
+    def stale(self, now: Optional[float] = None) -> List[Any]:
+        """Peers whose last registered beat is older than
+        ``timeout_ms``."""
+        now = self._clock() if now is None else now
+        return [p for p, t in sorted(self._last.items())
+                if (now - t) * 1e3 > self.timeout_ms]
+
+    def forget(self, peer) -> None:
+        """Stop tracking a peer (declared dead or drained)."""
+        self._last.pop(peer, None)
+        self._progress.pop(peer, None)

@@ -36,8 +36,18 @@ blocks to the low end of the pools.
 
 PyTorch runs eagerly, so there are no programs to compile: ``warmup()``
 builds the kernel library and runs each prompt and decode bucket once so
-that first-use costs fall outside timed work.  Plain counters on the
-engine (``counters``) take the place of the JAX package's telemetry.
+that first-use costs fall outside timed work.  The engine feeds the
+telemetry plane (:mod:`mxnet_tpu_torch.telemetry`) under the JAX
+engine's metric and span names; plain counters on the engine
+(``counters``) keep its per-engine tallies beside them.
+
+Control-plane hooks, for :mod:`.router`: ``beat`` advances once per
+completed step (a progress heartbeat); serve chaos points
+(:mod:`mxnet_tpu_torch.chaos`) fire at exact step indices —
+``serve_crash`` raises, ``serve_hang`` turns every later step into a
+no-op, ``serve_poison_logits`` runs one step on NaN-filled weights, which
+the finite check catches; :meth:`Engine.swap_weights` installs a
+compatible parameter dict between steps.
 
 Determinism: decode batches always have a bucket's shape (default one
 bucket at ``max_batch``) and rows are independent, so a request decodes
@@ -58,7 +68,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import chaos as chaos_mod
 from .. import compile_cache as cc
+from .. import telemetry
 from ..base import MXNetError, not_ported
 from ..context import DeviceLike, resolve_device
 from ..models.transformer import (lm_config_from_params, params_from_numpy,
@@ -66,6 +78,7 @@ from ..models.transformer import (lm_config_from_params, params_from_numpy,
                                   transformer_lm_prefill,
                                   transformer_lm_prefill_chunk,
                                   transformer_lm_verify)
+from ..online.compat import check_compat, signature_of_params
 from . import kvcache
 from . import speculate as speculate_mod
 from .flash_decode import flash_decode_attention
@@ -361,14 +374,22 @@ class Engine:
     parameter dicts (numpy arrays or tensors, the JAX package's names).
     ``device=None`` is the card; pass ``device="cpu"`` for the CPU.  A
     ``spec_draft="model"`` engine takes the draft model's parameter dict
-    and heads (``draft_heads=None``: the target's)."""
+    and heads (``draft_heads=None``: the target's).  ``chaos=None`` reads
+    ``MXNET_TPU_CHAOS`` (its serve kinds); an empty
+    :class:`~mxnet_tpu_torch.chaos.ChaosSpec` forces chaos off."""
 
     def __init__(self, params: Dict[str, Any], config: EngineConfig,
-                 device: DeviceLike = None, chaos: Any = None,
+                 device: DeviceLike = None,
+                 chaos: Optional[chaos_mod.ChaosSpec] = None,
                  draft_params: Optional[Dict[str, Any]] = None,
                  draft_heads: Optional[int] = None):
-        if chaos is not None:
-            raise not_ported("serve chaos injection")
+        if chaos is None:
+            chaos = chaos_mod.serve_from_env()
+        self.chaos = chaos if chaos else None
+        self.beat = 0            # liveness: +1 per completed step
+        self._hung = False       # chaos serve_hang: steps become no-ops
+        self._poison_step = False
+        self._poison_params = None
         self.prefill_chunk = int(config.prefill_chunk or 0)
         if self.prefill_chunk < 0:
             raise MXNetError(f"prefill_chunk must be >= 0, "
@@ -424,6 +445,7 @@ class Engine:
             def _on_evict(block: int) -> None:
                 self.prefix.drop_block(block)
                 self._prefix_evictions += 1
+                telemetry.counter("serve.prefix.evictions").inc()
 
             self.alloc.on_evict = _on_evict
         self.kpool, self.vpool = kvcache.make_pools(
@@ -452,6 +474,7 @@ class Engine:
         self.decode_buckets = config.resolved_decode_buckets()
         self.requests: Dict[int, Request] = {}
         self.step_idx = 0
+        self.swap_count = 0      # successful swap_weights installs
         self._chunk_ms = 0.0     # EWMA chunk-prefill latency (SLO backlog)
         #: prefills (completed), prefill_chunks, decode_steps,
         #: kernel_launches (flash-decode launches of decode steps, either
@@ -479,6 +502,7 @@ class Engine:
                 window=config.spec_window, device=self.device)
             if self.spec.kind == "model":
                 self.spec.bind_runner(self._run_draft)
+        telemetry.gauge("kv_bytes_per_token").set(self.kv_bytes_per_token)
 
     # -- weights ------------------------------------------------------------
 
@@ -486,8 +510,41 @@ class Engine:
     def from_checkpoint(cls, *args, **kwargs) -> "Engine":
         raise not_ported("Engine.from_checkpoint")
 
-    def swap_weights(self, *args, **kwargs):
-        raise not_ported("Engine.swap_weights")
+    def swap_weights(self, params_or_source: Any,
+                     epoch: Optional[int] = None) -> Dict[str, Any]:
+        """Install a new parameter dict into this running engine between
+        steps.  Its signature (key set, shapes, dtypes) must equal the held
+        weights' (:mod:`~mxnet_tpu_torch.online.compat`); an incompatible
+        one raises and leaves the engine untouched — the deployment path
+        rebuilds the replica instead (``Router.rolling_swap`` does).  KV
+        entries survive (in-flight streams see the new weights at their
+        next step; callers who need request-boundary semantics drain
+        first, as ``Router.rolling_swap`` does), the prefix index is
+        invalidated (its entries were computed under the old weights) and
+        the NaN-poison cache of ``serve_poison_logits`` is dropped.  A
+        checkpoint path waits for ``predictor.load_weights``.  Returns the
+        compat report as a dict."""
+        if isinstance(params_or_source, str):
+            raise not_ported("swap_weights from a checkpoint path "
+                             "(predictor.load_weights)")
+        report = check_compat(signature_of_params(self._params),
+                              signature_of_params(params_or_source))
+        if not report.compatible:
+            raise MXNetError(
+                "swap_weights: incompatible weights — "
+                f"{report.summary()} (added={report.added[:4]} "
+                f"removed={report.removed[:4]} "
+                f"changed={[c['name'] for c in report.changed[:4]]}); "
+                "rebuild the engine (Router.rolling_swap does)")
+        self._params = params_from_numpy(params_or_source, self.device)
+        self._poison_params = None
+        if self.prefix is not None:
+            # version bump: stale hashes become unreachable, and ref-0
+            # cached blocks go straight back to the free list
+            self.alloc.uncache(self.prefix.invalidate())
+        self.swap_count += 1
+        telemetry.counter("online.swaps").inc()
+        return report.to_dict()
 
     def swap_draft_weights(self, params_or_source: Any,
                            epoch: Optional[int] = None) -> Dict[str, Any]:
@@ -507,6 +564,7 @@ class Engine:
                              "(predictor.load_weights)")
         report = self.spec.swap(params_or_source)
         self.counters["draft_swaps"] += 1
+        telemetry.counter("serve.spec.draft_swaps").inc()
         return report
 
     # -- device work --------------------------------------------------------
@@ -524,7 +582,7 @@ class Engine:
         table_row[:len(blocks)] = blocks
         tokens = torch.from_numpy(padded).to(self.device)
         table_t = torch.from_numpy(table_row).to(self.device)
-        logits, ks, vs = transformer_lm_prefill(self._params, tokens,
+        logits, ks, vs = transformer_lm_prefill(self._step_params(), tokens,
                                                 heads=self.heads)
         for i in range(self.num_layers):
             kvcache.write_prefill(self.kpool, i, ks[i][0], table_t, plen)
@@ -563,7 +621,7 @@ class Engine:
                 kvcache.layer_view(vpool, i), table_t, start, plen)
             return out[None]
 
-        logits = transformer_lm_prefill_chunk(self._params, tokens,
+        logits = transformer_lm_prefill_chunk(self._step_params(), tokens,
                                               heads=self.heads, attend=attend)
         last = logits[0, min(max(plen - 1 - start, 0), cb - 1)]
         tok = _sample_batch(last[None], [temp], [topk], [key], [plen])[0]
@@ -609,8 +667,8 @@ class Engine:
                 q, kvcache.layer_view(kpool, i),
                 kvcache.layer_view(vpool, i), tables_t, lens1, impl=impl)
 
-        logits = transformer_lm_decode(self._params, tokens, heads=self.heads,
-                                       attend=attend)
+        logits = transformer_lm_decode(self._step_params(), tokens,
+                                       heads=self.heads, attend=attend)
         toks = _sample_batch(logits, temps, topks, keys, positions)
         oks = torch.isfinite(logits.float()).all(dim=-1)
         res = torch.stack([toks, oks.long()]).cpu().numpy()
@@ -665,7 +723,7 @@ class Engine:
                 q, kvcache.layer_view(kpool, i),
                 kvcache.layer_view(vpool, i), tables_t, lengths_t)
 
-        logits = transformer_lm_verify(self._params, tokens_t,
+        logits = transformer_lm_verify(self._step_params(), tokens_t,
                                        heads=self.heads, attend=attend)
         out, n_emit = _spec_accept(logits, tokens_t, live_t, keys, temps,
                                    topks, lengths)
@@ -730,25 +788,27 @@ class Engine:
             infos.append({"kind": kind, "bucket": bucket,
                           "ms": (time.perf_counter() - t0) * 1e3})
 
-        for lb in self.prompt_buckets:
-            if self.prefill_chunk:
-                timed("prefill_chunk", lb, lambda: self._run_prefill_chunk(
-                    [0], 0, 1, [], 0.0, 0, 0))
-            else:
-                timed("prefill", lb, lambda: self._run_prefill(
-                    [0], lb, [], 0.0, 0, 0))
-        for bb in self.decode_buckets:
-            if self.spec is None:
-                timed("decode", bb, lambda: self._run_decode([], bb))
-            else:
-                timed("verify", bb, lambda: self._run_verify(
-                    [], bb, np.zeros((0, self.spec_k), np.int32)))
-        if self.spec is not None and self.spec.kind == "model":
-            w = self.spec.window
+        with telemetry.span("serve.warmup"):
+            for lb in self.prompt_buckets:
+                if self.prefill_chunk:
+                    timed("prefill_chunk", lb,
+                          lambda: self._run_prefill_chunk(
+                              [0], 0, 1, [], 0.0, 0, 0))
+                else:
+                    timed("prefill", lb, lambda: self._run_prefill(
+                        [0], lb, [], 0.0, 0, 0))
             for bb in self.decode_buckets:
-                timed("draft", bb, lambda: self._run_draft(
-                    np.zeros((0, w), np.int32), np.zeros((0,), np.int32),
-                    bb))
+                if self.spec is None:
+                    timed("decode", bb, lambda: self._run_decode([], bb))
+                else:
+                    timed("verify", bb, lambda: self._run_verify(
+                        [], bb, np.zeros((0, self.spec_k), np.int32)))
+            if self.spec is not None and self.spec.kind == "model":
+                w = self.spec.window
+                for bb in self.decode_buckets:
+                    timed("draft", bb, lambda: self._run_draft(
+                        np.zeros((0, w), np.int32),
+                        np.zeros((0,), np.int32), bb))
         return infos
 
     # -- submit / stream / cancel -------------------------------------------
@@ -780,6 +840,7 @@ class Engine:
         req.key = _mix(self.config.seed, req.id if seed is None else seed)
         self.sched.submit(req)
         self.requests[req.id] = req
+        telemetry.counter("serve.submitted").inc()
         return req.id
 
     def adopt(self, prompt: Sequence[int], tokens: Sequence[int], *,
@@ -822,12 +883,14 @@ class Engine:
             # the first token was streamed elsewhere: no new TTFT
             req.first_token_t = req.submit_t
         self.requests[req.id] = req
+        telemetry.counter("serve.adopted").inc()
         return req.id
 
     def cancel(self, req_id: int) -> None:
         req = self._req(req_id)
         if not req.done():
             self.sched.cancel(req)
+            telemetry.counter("serve.cancelled").inc()
 
     def request(self, req_id: int) -> Request:
         return self._req(req_id)
@@ -880,8 +943,28 @@ class Engine:
 
     def step(self) -> None:
         """One continuous-batching iteration: evict, admit + prefill, one
-        batched decode step."""
+        batched decode step.  Any exception dumps the flight recorder
+        (``serve-error``) before propagating."""
+        try:
+            self._step_inner()
+        except Exception as exc:   # noqa: BLE001 — observe, then re-raise
+            telemetry.dump_flight("serve-error", extra={
+                "error": repr(exc), "step": self.step_idx,
+                "active": [r.id for r in self.sched.running],
+                "queued": [r.id for r in self.sched.queue]})
+            raise
+
+    def _step_inner(self) -> None:
+        if self._hung:
+            # a wedged step: returns, makes no progress and never advances
+            # `beat`; only a router's heartbeat timeout gets its requests out
+            return
         self.step_idx += 1
+        self._poison_step = False
+        if self.chaos is not None:
+            self._chaos_fire()
+            if self._hung:
+                return
         now = time.monotonic()
         for req in list(self.sched.running):
             if req.cancel_requested:
@@ -889,11 +972,14 @@ class Engine:
         for req in list(self.sched.running) + list(self.sched.queue):
             if (req.deadline_ms is not None
                     and (now - req.submit_t) * 1e3 > req.deadline_ms):
+                telemetry.counter("serve.timeouts").inc()
                 self._finish(req, "timeout", FAILED)
-        admitted = self.sched.admit(
-            self._admission_gate(), now,
-            prefill_backlog_ms=self._prefill_backlog_ms(),
-            decode_backlog_ms=self._decode_backlog_ms())
+        with telemetry.span("serve.admit", step=self.step_idx,
+                            queued=self.sched.queue_depth):
+            admitted = self.sched.admit(
+                self._admission_gate(), now,
+                prefill_backlog_ms=self._prefill_backlog_ms(),
+                decode_backlog_ms=self._decode_backlog_ms())
         if self.prefill_chunk:
             for req in admitted:
                 self._prefill_begin(req)
@@ -903,6 +989,54 @@ class Engine:
                 self._prefill(req)
         if self.sched.running:
             self._decode_step()
+        self.publish_load_gauges()
+        telemetry.flight_recorder().record({
+            "kind": "serve", "step": self.step_idx,
+            "active": self.sched.active, "queued": self.sched.queue_depth,
+            "blocks_used": self.alloc.num_used})
+        self.beat += 1
+
+    def publish_load_gauges(self) -> None:
+        """Refresh this engine's load gauges.  :meth:`step` calls it every
+        step; a router overwrites the shared names with fleet aggregates
+        every router step, so fleet readings never depend on which engine
+        stepped last, or whether any did."""
+        telemetry.gauge("serve.queue_depth").set(self.sched.queue_depth)
+        telemetry.gauge("serve.active_slots").set(self.sched.active)
+        telemetry.gauge("serve.kv_blocks_used").set(self.alloc.num_used)
+        if self.prefix is not None:
+            telemetry.gauge("serve.prefix.cached_frac").set(
+                self.alloc.num_cached / (self.config.num_blocks - 1))
+
+    def _chaos_fire(self) -> None:
+        """Serve chaos points, fired by exact step index (over the
+        engine's lifetime, so failures reproduce bit for bit)."""
+        i = self.step_idx
+        if self.chaos.at("serve_crash", i):
+            telemetry.counter("serve.chaos_injected").inc(kind="crash")
+            raise chaos_mod.ChaosError(
+                "chaos: injected replica crash at serve step %d" % i)
+        if self.chaos.at("serve_hang", i):
+            telemetry.counter("serve.chaos_injected").inc(kind="hang")
+            self._hung = True
+            return
+        if self.chaos.at("serve_poison_logits", i):
+            telemetry.counter("serve.chaos_injected").inc(kind="poison")
+            self._poison_step = True
+
+    def _step_params(self) -> Dict[str, torch.Tensor]:
+        """The weights of this step: NaN-filled copies of the floating
+        point ones at a ``serve_poison_logits`` point (same shapes and
+        types, so the same kernels run and the finite check must catch
+        it), cached until the next swap."""
+        if not self._poison_step:
+            return self._params
+        if self._poison_params is None:
+            self._poison_params = {
+                k: (torch.full_like(v, float("nan"))
+                    if v.is_floating_point() else v)
+                for k, v in self._params.items()}
+        return self._poison_params
 
     # -- prefix cache -------------------------------------------------------
 
@@ -931,15 +1065,19 @@ class Engine:
             * self.alloc.block_size
 
     def _count_prefix_hit(self, nblocks: int) -> None:
+        bs = self.alloc.block_size
         self._prefix_hits += 1
-        self._prefix_hit_tokens += nblocks * self.alloc.block_size
+        self._prefix_hit_tokens += nblocks * bs
+        telemetry.counter("serve.prefix.hits").inc()
+        telemetry.counter("serve.prefix.shared_blocks").inc(nblocks)
+        telemetry.counter("serve.prefix.hit_tokens").inc(nblocks * bs)
 
     def _publish_prefix(self, req: Request) -> None:
         """Publish every newly completed full prefill block of ``req``.
-        Called only after a chunk with finite logits, so indexed blocks
-        are clean; a full block is never written again (decode writes
-        land past the prefill target)."""
-        if self.prefix is None:
+        Called only after a chunk with finite logits and never on a poison
+        step, so indexed blocks are clean; a full block is never written
+        again (decode writes land past the prefill target)."""
+        if self.prefix is None or self._poison_step:
             return
         n_full = min(req.prefilled, req.prefill_target) \
             // self.alloc.block_size
@@ -959,6 +1097,7 @@ class Engine:
         hits = self._probe(self._prefill_tokens(req))
         if not hits:
             self._prefix_misses += 1
+            telemetry.counter("serve.prefix.misses").inc()
             return
         n = len(hits)
         for b in hits:
@@ -1026,11 +1165,17 @@ class Engine:
         req.blocks = self.alloc.alloc(self.alloc.blocks_for_tokens(plen),
                                       req.id)
         lb = cc.bucket_for(plen, self.prompt_buckets)
-        tok, ok = self._run_prefill(toks, lb, req.blocks, req.temperature,
-                                    req.top_k, req.key)
+        t0 = time.monotonic()
+        with telemetry.span("serve.prefill", req=req.id, bucket=lb,
+                            prompt=plen):
+            tok, ok = self._run_prefill(toks, lb, req.blocks,
+                                        req.temperature, req.top_k, req.key)
         req.cached = plen
         req.prefilled = req.prefill_target = plen
         self.counters["prefills"] += 1
+        telemetry.counter("serve.prefills").inc()
+        telemetry.histogram("serve.prefill_ms").observe(
+            (time.monotonic() - t0) * 1e3)
         if not ok:
             self._fail_nan(req)
             return
@@ -1079,16 +1224,20 @@ class Engine:
         start = req.prefilled
         plen = req.prefill_target
         t0 = time.perf_counter()
-        tok, ok = self._run_prefill_chunk(
-            req.seed_tokens[start:min(start + cb, plen)], start, plen,
-            req.blocks,
-            req.temperature, req.top_k, req.key)
+        with telemetry.span("serve.prefill", req=req.id, bucket=cb,
+                            prompt=plen, chunk_start=start,
+                            chunk_budget=cb):
+            tok, ok = self._run_prefill_chunk(
+                req.seed_tokens[start:min(start + cb, plen)], start, plen,
+                req.blocks, req.temperature, req.top_k, req.key)
         ms = (time.perf_counter() - t0) * 1e3
         self._chunk_ms = (ms if self._chunk_ms == 0.0
                           else 0.8 * self._chunk_ms + 0.2 * ms)
         req.prefilled = min(start + cb, plen)
         req.cached = req.prefilled
         self.counters["prefill_chunks"] += 1
+        telemetry.counter("serve.prefill_chunks").inc()
+        telemetry.histogram("serve.prefill_ms").observe(ms)
         if not ok:
             # a mid-prompt NaN already reached this request's cached K/V
             self._fail_nan(req)
@@ -1096,6 +1245,7 @@ class Engine:
         self._publish_prefix(req)
         if req.prefilled >= plen:
             self.counters["prefills"] += 1
+            telemetry.counter("serve.prefills").inc()
             if not self._resumes(req):
                 self._append_token(req, tok)
 
@@ -1129,6 +1279,7 @@ class Engine:
 
     def _preempt(self, victim: Request) -> None:
         self.counters["preemptions"] += 1
+        telemetry.counter("serve.preemptions").inc()
         # drop references, don't force-free: shared prefix blocks stay for
         # their co-owners, and the victim's published blocks park in the
         # cache for its re-prefill to find
@@ -1161,15 +1312,21 @@ class Engine:
         bb = cc.bucket_for(len(active), self.decode_buckets)
         fd = flash_decode_attention
         launches = fd.launches + fd.launches_fp8
-        toks, oks = self._run_decode(active, bb)
+        t0 = time.monotonic()
+        with telemetry.span("serve.decode", step=self.step_idx, bucket=bb,
+                            active=len(active)):
+            toks, oks = self._run_decode(active, bb)
+        step_ms = (time.monotonic() - t0) * 1e3
         self.counters["decode_steps"] += 1
         self.counters["kernel_launches"] += (fd.launches + fd.launches_fp8
                                              - launches)
+        hist = telemetry.histogram("serve.token_ms")
         for i, req in enumerate(active):
             req.cached += 1
             if not oks[i]:
                 self._fail_nan(req)
                 continue
+            hist.observe(step_ms)
             self._append_token(req, int(toks[i]))
 
     def _verify_step(self) -> None:
@@ -1206,10 +1363,13 @@ class Engine:
         # invalid embedding lookup
         drafts = np.clip(np.asarray(drafts, np.int32), 0, self.vocab - 1)
         t0 = time.perf_counter()
-        out, n_emit, oks = self._run_verify(active, bb, drafts)
+        with telemetry.span("serve.decode", step=self.step_idx, bucket=bb,
+                            active=len(active), spec_k=k):
+            out, n_emit, oks = self._run_verify(active, bb, drafts)
         step_ms = (time.perf_counter() - t0) * 1e3
         self._decode_ms = (step_ms if self._decode_ms == 0.0
                            else 0.8 * self._decode_ms + 0.2 * step_ms)
+        hist = telemetry.histogram("serve.token_ms")
         drafted = sum(r.spec_live for r in active)
         accepted = emitted = 0
         for i, req in enumerate(active):
@@ -1220,6 +1380,7 @@ class Engine:
                 continue
             accepted += n - 1
             for j in range(n):
+                hist.observe(step_ms if j == 0 else 0.0)
                 emitted += 1
                 self._append_token(req, int(out[i, j]))
                 if req.done():
@@ -1228,6 +1389,15 @@ class Engine:
         self.counters["verify_steps"] += 1
         self.counters["spec_drafted"] += drafted
         self.counters["spec_accepted"] += accepted
+        telemetry.counter("serve.spec.steps").inc()
+        if drafted:
+            telemetry.counter("serve.spec.drafted").inc(drafted)
+        if accepted:
+            telemetry.counter("serve.spec.accepted").inc(accepted)
+        if self.counters["spec_drafted"]:
+            telemetry.gauge("serve.spec.accept_rate").set(
+                self.counters["spec_accepted"]
+                / self.counters["spec_drafted"])
 
     def _decode_backlog_ms(self) -> float:
         """Expected wait until a decode slot frees, credited to queued
@@ -1251,6 +1421,10 @@ class Engine:
         spared: they were published after finite chunks and never written
         again, and zeroing them would corrupt their co-owners."""
         self.counters["nan_logits"] += 1
+        telemetry.counter("serve.nan_logits").inc()
+        telemetry.flight_recorder().record({
+            "kind": "serve.nan_logits", "req": req.id,
+            "step": self.step_idx})
         scrub = [b for b in req.blocks
                  if self.alloc.refcount(b) <= 1
                  and (self.prefix is None
@@ -1267,6 +1441,9 @@ class Engine:
         self.counters["tokens"] += 1
         if req.first_token_t is None:
             req.first_token_t = now
+            telemetry.histogram("serve.ttft_ms").observe(
+                (now - req.submit_t) * 1e3)
+        telemetry.counter("serve.tokens_total").inc()
         if req.eos_id is not None and tok == req.eos_id:
             self._finish(req, "eos")
         elif len(req.tokens) >= req.max_new_tokens:
@@ -1284,6 +1461,7 @@ class Engine:
             # pinned at admission, never consumed by _prefill_begin
             self.alloc.release(req.prefix_blocks, req.id)
             req.prefix_blocks = []
+        telemetry.counter("serve.evictions").inc(reason=reason)
 
     # -- maintenance and introspection ----------------------------------------
 
@@ -1317,6 +1495,10 @@ class Engine:
             "active": self.sched.active,
             "queued": self.sched.queue_depth,
             "steps": self.step_idx,
+            "beat": self.beat,
+            "weight_swaps": self.swap_count,
+            "hung": self._hung,
+            "chaos": bool(self.chaos),
             "prompt_buckets": list(self.prompt_buckets),
             "decode_buckets": list(self.decode_buckets),
             "prefill_chunk": self.prefill_chunk,

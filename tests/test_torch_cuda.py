@@ -28,7 +28,9 @@ kernels compiled by ``rtc.CudaKernel`` (K6) with ``chip_smoke.RTC_TOL``;
 speculative decoding at a small size: n-gram greedy streams equal the plain
 engine's on f32 and fp8 pools with no flash-decode launch, and
 ``scrub_positions`` zeroes the rejected positions in both leaves, byte for
-byte as on the CPU.
+byte as on the CPU; the serving control plane: a two-replica fleet's
+streams (greedy and sampled) survive a replica crash and a hot rolling
+swap unchanged, with every flash-decode launch in the hopper form.
 """
 import numpy as np
 import pytest
@@ -815,3 +817,77 @@ def test_scrub_positions_zeroes_rejected_positions_on_card(cuda, kv_quant):
             for c in range(3):
                 entry = card_leaf[:, slots[b, c], offs[b, c]]
                 assert bool((entry == 0).all()) == bool(scrub[b, c])
+
+
+# ---------------------------------------------------------------------------
+# The serving control plane on the card
+# ---------------------------------------------------------------------------
+
+ROUTER_KW = [dict(max_new_tokens=n, temperature=(0.8 if i % 2 else 0.0),
+                  top_k=(5 if i % 2 else 0), seed=100 + i)
+             for i, n in enumerate(SPEC_NEW)]
+
+
+def _card_fleet(cuda, params, chaos=None, swap_at=None):
+    """Two replicas on the card serve SPEC_PROMPTS (greedy and sampled
+    rows); with ``swap_at``, a hot rolling swap of fresh copies of the
+    same weights after that many router steps.  Returns the streams, the
+    router and the K5 launches by form over the run."""
+    from mxnet_tpu_torch.chaos import ChaosSpec
+    from mxnet_tpu_torch.serve import EngineConfig, Router, RouterConfig
+    fd = tfd.flash_decode_attention
+    router = Router(params, EngineConfig(**SPEC_CFG),
+                    RouterConfig(replicas=2),
+                    chaos={i: ChaosSpec(c) for i, c in (chaos or {}).items()},
+                    device=cuda)
+    router.warmup()
+    before = dict(fd.launches_by_form)
+    ids = [router.submit(p, **kw) for p, kw in zip(SPEC_PROMPTS, ROUTER_KW)]
+    summary = None
+    if swap_at is not None:
+        for _ in range(swap_at):
+            router.step()
+        summary = router.rolling_swap({k: np.array(v, copy=True)
+                                       for k, v in params.items()})
+    router.run()
+    forms = {f: fd.launches_by_form[f] - before[f] for f in before}
+    return ([list(router.request(i).tokens) for i in ids], router, forms,
+            summary)
+
+
+@pytest.mark.cuda
+def test_router_crash_failover_on_card(cuda):
+    """A replica crashes mid-stream on the card: every stream, greedy and
+    sampled, equals the clean fleet's, and every K5 launch ran the hopper
+    form on both replicas."""
+    params = _spec_params()
+    ref, clean, ref_forms, _ = _card_fleet(cuda, params)
+    assert [rep.state for rep in clean.replicas] == ["healthy"] * 2
+    assert clean.stats()["failovers"] == 0
+    got, router, forms, _ = _card_fleet(
+        cuda, params, chaos={0: {"serve_crash": {4}}})
+    assert got == ref
+    # the death is the injected one, not a fault the router contained
+    assert router.replicas[0].death_cause == "crash"
+    assert router.replicas[0].death_error == "ChaosError"
+    assert router.replicas[1].state == "healthy"
+    assert router.stats()["failovers"] >= 1
+    assert router.replicas[1].engine.alloc.num_used == 0
+    for f in (ref_forms, forms):
+        assert f["hopper"] > 0 and f["warp"] == 0
+
+
+@pytest.mark.cuda
+def test_router_hot_rolling_swap_on_card(cuda):
+    """A hot rolling swap of the same weights mid-stream on the card
+    leaves every stream unchanged, swaps both replicas, and K5 stays in
+    the hopper form."""
+    params = _spec_params()
+    ref, _, _, _ = _card_fleet(cuda, params)
+    got, router, forms, summary = _card_fleet(cuda, params, swap_at=3)
+    assert summary["mode"] == "hot" and len(summary["swap_ms"]) == 2
+    assert [rep.state for rep in router.replicas] == ["healthy"] * 2
+    assert router.stats()["failovers"] == 0
+    assert got == ref
+    assert [rep.engine.swap_count for rep in router.replicas] == [1, 1]
+    assert forms["hopper"] > 0 and forms["warp"] == 0

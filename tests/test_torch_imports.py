@@ -2,8 +2,9 @@
 ``chip_smoke.py`` import torch, never jax and nothing of ``mxnet_tpu``.
 
 A subprocess blocks ``jax`` (``sys.modules['jax'] = None`` makes any
-import of it fail) and imports the port, its serve package (speculate
-included) and ``online.compat``, the training
+import of it fail) and imports the port, its serve package (speculate,
+the router, the autoscaler and the traffic simulator included), the
+telemetry plane, ``chaos`` and ``online.compat``, the training
 modules (symbol, models.resnet, models.transformer_lm, ops.fused_update,
 ops.attention_ops, parallel.trainer, parallel.flash_attention,
 parallel.ring_attention, parallel.mesh, quant), the imperative and
@@ -27,6 +28,15 @@ import mxnet_tpu_torch
 import mxnet_tpu_torch.serve
 from mxnet_tpu_torch.serve import Engine, EngineConfig, ServeError, kvcache
 import mxnet_tpu_torch.serve.speculate
+import mxnet_tpu_torch.serve.router
+import mxnet_tpu_torch.serve.autoscale
+import mxnet_tpu_torch.serve.traffic
+from mxnet_tpu_torch.serve import (Router, RouterConfig, Autoscaler,
+                                   AutoscaleConfig, LoadGen, TraceConfig,
+                                   generate_trace)
+import mxnet_tpu_torch.telemetry
+import mxnet_tpu_torch.chaos
+from mxnet_tpu_torch.resilience import Heartbeat
 import mxnet_tpu_torch.online.compat
 import mxnet_tpu_torch.symbol
 import mxnet_tpu_torch.models.resnet

@@ -21,6 +21,7 @@ from mxnet_tpu import telemetry
 from mxnet_tpu.serve import Engine as JaxEngine
 from mxnet_tpu.serve import EngineConfig as JaxEngineConfig
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.chaos import ChaosSpec
 from mxnet_tpu_torch.models.transformer import (init_params,
                                                 transformer_lm_prefill)
 from mxnet_tpu_torch.serve import Engine, EngineConfig, ServeError
@@ -219,12 +220,15 @@ def test_unported_entry_points_and_bad_config_raise():
     eng = _engine()
     with pytest.raises(MXNetError, match="seed"):
         eng.adopt([1], [2])                        # adopt needs the seed
-    for call in (lambda: eng.swap_weights(PARAMS),
-                 lambda: Engine.from_checkpoint("x", EngineConfig()),
-                 lambda: Engine(PARAMS, EngineConfig(**CFG), device="cpu",
-                                chaos={"serve_crash": {3}})):
+    for call in (lambda: eng.swap_weights("checkpoint-prefix"),
+                 lambda: Engine.from_checkpoint("x", EngineConfig())):
         with pytest.raises(MXNetError, match="not ported yet"):
             call()
+    # the control plane's hooks are ported: a chaos spec and a dict swap
+    chaotic = Engine(PARAMS, EngineConfig(**CFG), device="cpu",
+                     chaos=ChaosSpec({"serve_crash": {3}}))
+    assert chaotic.chaos.at("serve_crash", 3)
+    assert eng.swap_weights(PARAMS)["compatible"] and eng.swap_count == 1
     with pytest.raises(MXNetError, match="attn_impl"):
         _engine(attn_impl="flash_interpret")
     with pytest.raises(MXNetError):

@@ -169,7 +169,31 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     exception a step raises, so a fault on the card fails here instead of
     passing for a crash).  Every flash-decode launch of the phase ran the
     hopper form on every replica, and no kernel was built after warmup;
-13. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+13. runs the training loop, ``ShardedTrainer.fit``: (a) ResNet-50 through
+    ``examples/train_model.py``'s flow at phase 7's width (``Xavier``,
+    SGD momentum 0.9, wd 1e-4, ``FactorScheduler(4, 0.5)``, the guard and
+    clip 5.0; 2 epochs of 8 batches of seeded images from an
+    ``NDArrayIter``, 2 eval batches, ``Speedometer(64, 4)``,
+    ``do_checkpoint``) under deterministic cuDNN: every step's placed
+    batch has the host batch's exact bit sums, before and after the step
+    (the check for a prefetch race), every step used the schedule's rate,
+    the state (weights, momentum, moving statistics, guard counters)
+    equals a bare ``step()`` loop's over the same batches bit for bit,
+    the fused accuracy equals a host recount, fit's second epoch makes no
+    more synchronizing calls outside its drains than 8 bare steps and
+    none on its prefetch worker, the checkpoints reload bitwise, K1 launches once a training and an eval
+    forward (warp form) and K2 once a step (hopper form); (b) the same
+    for one epoch with ``MXNET_TPU_CHAOS`` planting a NaN batch and a
+    pipeline crash: one skipped step, one prefetch retry, no batch lost,
+    the state a bare loop's over the same wrapped batches; (c) the LM at
+    phase 9's width, Adam under a warmup into a cosine decay, one epoch
+    of 6 batches with a metric on the buffered path: exact bit sums, the
+    metric equal to the host mean of fit's heads, the state bitwise a
+    bare loop's, K3, K4 and K2 in the hopper form; no kernel is built;
+    prints fit's ms a batch beside the bare loops' (both between events
+    recorded after each batch) and phases 7 and 9's (host wall time,
+    synced each step), the sync counts and the idle share of a profiled fit epoch;
+14. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
@@ -189,6 +213,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 # ---------------------------------------------------------------------------
@@ -288,6 +313,17 @@ K2_LEN = 1003 + 3 * 1048576               # three full buckets' worth + odd
 # 2048, loss head, Adam lr 1e-3, bf16 compute) at full width and depth
 LM_BATCH, LM_SEQ = 8, 2048
 LM_OPT = {"learning_rate": 1e-3}
+
+# the training loop (phase 13): examples/train_model.py's fit over phase
+# 7's model and batch: 8 train and 2 eval batches an epoch, 2 epochs, the
+# rate halving every 4 updates, Speedometer(64, 4); chaos plants a NaN
+# batch and a pipeline crash; the LM fits one epoch of 6 batches with a
+# 2-update warmup into a 6-update cosine decay
+LOOP_BATCHES, LOOP_EVAL_BATCHES, LOOP_EPOCHS = 8, 2, 2
+LOOP_SCHEDULE = dict(step=4, factor=0.5)
+LOOP_FREQUENT = 4
+LOOP_CHAOS = "nan:2|crash:5"
+LM_LOOP_BATCHES, LM_LOOP_WARMUP, LM_LOOP_COSINE = 6, 2, 6
 # K3/K4 against their plain versions: f32 as tests/test_flash_attention.py
 # (forward and lse 2e-5, gradients 2e-4: summation order); bf16 within
 # 2e-2 of 1 + |plain| (p and ds are rounded to bf16 inside, and a value on
@@ -2936,6 +2972,590 @@ def phase_train_lm(torch, np, fa, fu):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the training loop, ShardedTrainer.fit at full width
+# ---------------------------------------------------------------------------
+
+def loop_images(np, n, seed):
+    """``n`` seeded synthetic images (float32, drawn a batch at a time)
+    and their labels."""
+    rng = np.random.RandomState(seed)
+    x = np.empty((n,) + IMAGE, np.float32)
+    for i in range(0, n, BATCH):
+        x[i:i + BATCH] = rng.rand(min(BATCH, n - i), *IMAGE)
+    return x, rng.randint(0, CLASSES, n).astype(np.float32)
+
+
+def host_sums(np, *arrays):
+    """The exact int64 sum of each float32 array's bits."""
+    return [int(np.ascontiguousarray(a, np.float32).view(np.int32)
+                .astype(np.int64).sum()) for a in arrays]
+
+
+def watch_batches(torch, tr, record):
+    """Wrap ``tr.step`` and ``tr._step_acc`` as ``fit`` calls them: each
+    records, on the consumer stream and with no sync, the int64 sums of
+    the placed batch's data and label bits before and after the step, and
+    the learning rate the step used (``_lr_dev``)."""
+    names = tr._input_names
+
+    def sums(b):
+        return torch.stack([b[n].contiguous().view(torch.int32)
+                            .sum(dtype=torch.int64) for n in names])
+
+    def watched(real):
+        def run(batch, *args):
+            before = sums(batch)
+            out = real(batch, *args)
+            record.append((before, sums(batch), tr._lr_dev.clone()))
+            return out
+        return run
+
+    tr.step, tr._step_acc = watched(tr.step), watched(tr._step_acc)
+
+
+def read_watch(torch, record):
+    """``([[data, label] sums before, after] a step, lrs)`` of the watched
+    steps, in one copy to the host each."""
+    sums = torch.stack([torch.stack([b, a]) for b, a, _ in record])
+    return (sums.cpu().tolist(),
+            torch.stack([lr for _, _, lr in record]).cpu().tolist())
+
+
+def check_sums(sums, want, what):
+    check(len(sums) == len(want),
+          f"{what}: {len(sums)} steps, {len(want)} host batches")
+    for i, ((before, after), host) in enumerate(zip(sums, want)):
+        check(before == host and after == host,
+              f"{what}, step {i}: the placed batch's bit sums {before} "
+              f"(after the step {after}) are not the host batch's {host}")
+
+
+def record_event(torch):
+    """A timing event recorded on the current stream (no sync)."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def event_ms(torch, events, per_epoch):
+    """Milliseconds between consecutive events within each epoch of
+    ``per_epoch`` events."""
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b)
+            for i, (a, b) in enumerate(zip(events, events[1:]))
+            if (i + 1) % per_epoch]
+
+
+class SyncCounter:
+    """Counts synchronizing CUDA calls: under
+    ``torch.cuda.set_sync_debug_mode("warn")`` each one warns, and the
+    warnings are counted by where they were made: on the main thread
+    inside a drain (a method of ``drains``, wrapped while counting, or a
+    block under :meth:`drain`), on the main thread outside one, or on
+    any other thread (``fit``'s prefetch worker).  The drain depth is the
+    thread's own, so a worker's sync never hides in a main-thread
+    drain."""
+
+    def __init__(self, torch, drains=()):
+        self.torch, self.drains = torch, list(drains)
+        self.counts = {"outside": 0, "drains": 0, "other threads": 0}
+        self.sites = {}             # bucket -> {site: count}
+        self._local = threading.local()
+        self._saved, self._warn = [], None
+
+    def drain(self, fn, *args):
+        depth = getattr(self._local, "depth", 0)
+        self._local.depth = depth + 1
+        try:
+            return fn(*args)
+        finally:
+            self._local.depth = depth
+
+    def _wrap(self, owner, name):
+        real = getattr(owner, name)
+        had, old = name in vars(owner), vars(owner).get(name)
+
+        def drained(*args, **kwargs):
+            return self.drain(lambda: real(*args, **kwargs))
+
+        setattr(owner, name, drained)
+        self._saved.append((owner, name, had, old))
+
+    def start(self):
+        import traceback
+        import warnings
+        self.counts = dict.fromkeys(self.counts, 0)
+        for owner, name in self.drains:
+            self._wrap(owner, name)
+
+        def show(message, *args, **kwargs):
+            if "synchroniz" not in str(message):
+                return
+            thread = threading.current_thread()
+            if thread is not threading.main_thread():
+                where = "other threads"
+            elif getattr(self._local, "depth", 0):
+                where = "drains"
+            else:
+                where = "outside"
+            self.counts[where] += 1
+            # the thread and the three innermost Python frames that made
+            # the call
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")][-3:]
+            site = f"[{thread.name}] " + " < ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                for f in reversed(frames))
+            by = self.sites.setdefault(where, {})
+            by[site] = by.get(site, 0) + 1
+
+        self.sites = {}
+        # the mode switch first: it is not one of the calls counted
+        self.torch.cuda.set_sync_debug_mode("warn")
+        self._warn = (warnings.showwarning, list(warnings.filters))
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+
+    def stop(self):
+        import warnings
+        if self._warn is not None:
+            warnings.showwarning, warnings.filters[:] = self._warn
+            self._warn = None
+            self.torch.cuda.set_sync_debug_mode("default")
+        for owner, name, had, old in reversed(self._saved):
+            if had:
+                setattr(owner, name, old)
+            else:
+                delattr(owner, name)
+        self._saved = []
+        return dict(self.counts)
+
+
+def state_diff(torch, a, b):
+    """The parts of two fused trainers' state that are not bitwise equal:
+    weights, optimizer state, moving statistics, guard counters."""
+    pairs = [("weights", a._flat_w, b._flat_w)]
+    pairs += [(f"optimizer state {i}", u, v)
+              for i, (u, v) in enumerate(zip(a._flat_state, b._flat_state))]
+    pairs += [(n, a._aux[n], b._aux[n]) for n in a._aux]
+    pairs += [(f"guard {k}", a._guard_state[k], b._guard_state[k])
+              for k in a._guard_state or ()]
+    return [n for n, u, v in pairs
+            if not torch.equal(u.detach().reshape(-1).view(torch.uint8),
+                               v.detach().reshape(-1).view(torch.uint8))]
+
+
+def reset_train_counts(*kernels):
+    for k in kernels:
+        k.launches = 0
+        k.launches_by_form = dict.fromkeys(k.launches_by_form, 0)
+
+
+def phase_train_loop(torch, np, nn_ops, fu, fa, _build, r50_step_ms,
+                     lm_step_ms):
+    """Phase 13: ``fit`` on ResNet-50 through ``examples/train_model.py``'s
+    flow, again under chaos, then on the LM; returns the launches of its
+    fits and its numbers."""
+    import logging
+    import tempfile
+
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    t_phase = time.perf_counter()
+    root = logging.getLogger()
+    handler, old_level = Lines(logging.INFO), root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    built, compile_ = [], _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    # every kernel was built in phase 2: an nvcc run here is a failure
+    _build._compile = counting
+    launches = dict.fromkeys(("softmax_rows", "fused_update",
+                              "flash_attn_fwd", "flash_attn_bwd"), 0)
+    out = {}
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # (a) and (b) hold fit to a bare step loop bit for bit, and
+            # cuDNN's default backward is not deterministic
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+            try:
+                out["r50"] = loop_resnet(torch, np, nn_ops, fu, launches,
+                                         tmp, lines, r50_step_ms)
+            finally:
+                (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark) = det
+        out["lm"] = loop_lm(torch, np, fu, fa, launches, lm_step_ms)
+    finally:
+        _build._compile = compile_
+        root.removeHandler(handler)
+        root.setLevel(old_level)
+        for line in lines:
+            if line.startswith(("Epoch[", "Resilience", "chaos:",
+                                "prefetch")):
+                log("  | " + line)
+    check(not built, f"kernels built during the training loop: {built}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    log("  train loop: " + json.dumps(out))
+    return launches, out
+
+
+def loop_resnet(torch, np, nn_ops, fu, launches, tmp, lines, r50_step_ms):
+    """(a) ResNet-50's fit held to a bare step loop, (b) the same under
+    chaos; returns the numbers of both."""
+    from mxnet_tpu_torch import callback, chaos, io, lr_scheduler, model
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.context import cpu
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.parallel.trainer import _AsyncMetric
+
+    t0 = time.perf_counter()
+    sym = models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH)
+    n = LOOP_BATCHES * BATCH
+    x, y = loop_images(np, n, seed=3)
+    xe, ye = loop_images(np, LOOP_EVAL_BATCHES * BATCH, seed=4)
+    shapes = ({"data": (BATCH,) + IMAGE}, {"softmax_label": (BATCH,)})
+
+    def host_batch(i):
+        return {"data": x[i * BATCH:(i + 1) * BATCH],
+                "softmax_label": y[i * BATCH:(i + 1) * BATCH]}
+
+    def trainer(arg_params=None, aux_params=None):
+        opt = dict(TRAIN_OPT, lr_scheduler=lr_scheduler.FactorScheduler(
+            **LOOP_SCHEDULE))
+        tr = ShardedTrainer(sym, optimizer="sgd", optimizer_params=opt,
+                            initializer=Xavier(), guard=True,
+                            clip_global_norm=CLIP, device=DEVICE, seed=0)
+        return tr.bind(*shapes, arg_params=arg_params, aux_params=aux_params)
+
+    tr = trainer()
+    check(tr._fused and tr._fused_route == "hopper",
+          "the fit trainer did not take K2's hopper route")
+    arg0, aux0 = tr.get_params()        # Xavier's draw, for every twin
+    ref = trainer(arg0, aux0)
+    train_iter = io.NDArrayIter(x, y, batch_size=BATCH,
+                                last_batch_handle="pad")
+    eval_iter = io.NDArrayIter(xe, ye, batch_size=BATCH)
+    log(f"  (a) two ResNet-{DEPTH} trainers bound (Xavier), {n} train and "
+        f"{len(xe)} eval images ({x.nbytes} bytes) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (a) fit, examples/train_model.py's call
+    record, events, accs, seen = [], [], [], {}
+    watch_batches(torch, tr, record)
+    speed = callback.Speedometer(BATCH, LOOP_FREQUENT)
+    checkpoint = callback.do_checkpoint(os.path.join(tmp, "r50"))
+    counter = SyncCounter(torch, [
+        (_AsyncMetric, "_drain"), (tr, "resilience_stats"),
+        (tr, "get_params"), (tr, "score"), (tr, "_sentinel_poll")])
+
+    def batch_end(param):
+        speed(param)
+        events.append(record_event(torch))
+        seen["prefetch"] = param.locals["prefetch"]
+        if param.nbatch == LOOP_BATCHES:        # the meter drained it
+            inner = param.eval_metric.inner
+            accs.append((inner.sum_metric, inner.num_inst))
+
+    def epoch_end(epoch, symbol, arg, aux):
+        counter.drain(checkpoint, epoch, symbol, arg, aux)
+        if epoch == 0:
+            counter.start()             # count over fit's second epoch
+
+    reset_train_counts(nn_ops.softmax_rows, fu.fused_update)
+    t0 = time.perf_counter()
+    try:
+        tr.fit(train_iter, eval_data=eval_iter, eval_metric="acc",
+               num_epoch=LOOP_EPOCHS, batch_end_callback=batch_end,
+               epoch_end_callback=epoch_end)
+    finally:
+        fit_syncs = counter.stop()
+    fit_ms = event_ms(torch, events, LOOP_BATCHES)
+    fit_s = time.perf_counter() - t0
+    k1, k1_forms = (nn_ops.softmax_rows.launches,
+                    dict(nn_ops.softmax_rows.launches_by_form))
+    k2, k2_forms = (fu.fused_update.launches,
+                    dict(fu.fused_update.launches_by_form))
+    launches["softmax_rows"] += k1
+    launches["fused_update"] += k2
+    steps = LOOP_EPOCHS * LOOP_BATCHES
+    evals = LOOP_EPOCHS * LOOP_EVAL_BATCHES
+    check(k1 == steps + evals and k1_forms["warp"] == k1,
+          f"K1 launched {k1} times ({k1_forms}) over {steps} training and "
+          f"{evals} eval forwards")
+    check(k2 == steps and k2_forms == {"hopper": steps, "bucket": 0},
+          f"K2 launched {k2} times ({k2_forms}) in {steps} steps: expected "
+          "one hopper launch a step")
+    # every step read the batch the host gave it, in order, at the
+    # schedule's rate
+    sums, lrs = read_watch(torch, record)
+    check_sums(sums, [host_sums(np, *host_batch(i).values())
+                      for _ in range(LOOP_EPOCHS)
+                      for i in range(LOOP_BATCHES)], "(a)")
+    sched = lr_scheduler.FactorScheduler(**LOOP_SCHEDULE)
+    sched.base_lr = TRAIN_OPT["learning_rate"]
+    want_lr = [float(np.float32(sched(k))) for k in range(1, steps + 1)]
+    check(lrs == want_lr, f"learning rates {lrs}, the schedule's {want_lr}")
+    prefetch = seen["prefetch"]
+    check(prefetch.retry_count == 0, "the clean fit retried a batch")
+
+    # the bare step loop over the same batches, from host batches
+    ref_events, ref_heads = [], []
+    for _ in range(LOOP_EPOCHS):
+        for i in range(LOOP_BATCHES):
+            ref_heads.append(ref.step(host_batch(i))[0])
+            ref_events.append(record_event(torch))
+    bare_ms = event_ms(torch, ref_events, LOOP_BATCHES)
+    diff = state_diff(torch, tr, ref)
+    check(not diff, f"fit and the bare step loop differ in {diff}")
+    check(tr._num_update == ref._num_update == steps,
+          f"update counts {tr._num_update}, {ref._num_update}")
+    # the fused accuracy against a host recount of the bare loop's heads
+    check(len(accs) == LOOP_EPOCHS, f"accuracy read in {len(accs)} epochs")
+    for e, (got, num) in enumerate(accs):
+        heads = torch.stack(ref_heads[e * LOOP_BATCHES:
+                                      (e + 1) * LOOP_BATCHES]).cpu().numpy()
+        hits = int((heads.argmax(-1).reshape(-1).astype(np.int32)
+                    == y.astype(np.int32)).sum())
+        check((got, num) == (hits, n), f"epoch {e}: fit's accuracy "
+              f"{got}/{num}, a host recount {hits}/{n}")
+        line = "Epoch[%d] Mesh-Train-accuracy=%f" % (e, hits / n)
+        check(line in lines, f"no log line {line!r}")
+    for f in ("r50-symbol.json", "r50-0001.params", "r50-0002.params"):
+        check(os.path.exists(os.path.join(tmp, f)), f"{f} was not written")
+    with cpu():
+        _, ck_arg, ck_aux = model.load_checkpoint(os.path.join(tmp, "r50"),
+                                                  LOOP_EPOCHS)
+    now_arg, now_aux = tr.get_params()
+    for name, v in list(now_arg.items()) + list(now_aux.items()):
+        got = (ck_arg if name in now_arg else ck_aux)[name].asnumpy()
+        check(got.tobytes() == v.asnumpy().tobytes(),
+              f"checkpoint {name} differs from get_params()")
+    log(f"  (a) fit: {steps} steps and {evals} eval forwards; batch bit "
+        "sums and learning rates exact, state bitwise the bare loop's, "
+        f"accuracy {[a for a, _ in accs]} of {n} exact, checkpoints reload "
+        f"bitwise; K1 {k1} (warp), K2 {k2} (hopper)")
+
+    # synchronizing calls: fit's second epoch against 8 bare steps on
+    # pre-placed batches
+    placed = [ref.place_batch(host_batch(i)) for i in range(LOOP_BATCHES)]
+    torch.cuda.synchronize()
+    bare_counter = SyncCounter(torch)
+    bare_counter.start()
+    try:
+        for b in placed:
+            ref.step(b)
+    finally:
+        bare_syncs = bare_counter.stop()
+    check(fit_syncs["outside"] <= bare_syncs["outside"],
+          f"fit's second epoch made {fit_syncs['outside']} synchronizing "
+          f"calls outside its drains ({counter.sites.get('outside')}), "
+          f"{LOOP_BATCHES} bare steps {bare_syncs['outside']} "
+          f"({bare_counter.sites.get('outside')})")
+    # the prefetch worker's copies must never wait for the card
+    check(fit_syncs["other threads"] == 0,
+          f"fit's prefetch worker made {fit_syncs['other threads']} "
+          f"synchronizing calls ({counter.sites.get('other threads')})")
+    log(f"  (a) synchronizing calls: fit's second epoch "
+        f"{fit_syncs['outside']} outside its drains, "
+        f"{fit_syncs['drains']} in them (Speedometer reads, epoch end, "
+        f"eval) and {fit_syncs['other threads']} on the prefetch worker; "
+        f"{LOOP_BATCHES} bare steps on placed batches "
+        f"{bare_syncs['outside']}; where: fit {counter.sites}, bare steps "
+        f"{bare_counter.sites}")
+    del placed
+    profile = profile_step(
+        torch, lambda: ref.fit(train_iter, eval_metric="acc", num_epoch=1),
+        label="profiled fit epoch")
+    med_fit, med_bare = float(np.median(fit_ms)), float(np.median(bare_ms))
+    # fit and the bare loop: the gaps between events recorded after each
+    # batch (device time once the host runs ahead); phase 7: host wall
+    # time of a step with a sync after each
+    stats = {"fit_median_ms": med_fit, "fit_ms": fit_ms,
+             "bare_host_batches_median_ms": med_bare, "bare_ms": bare_ms,
+             "phase7_placed_synced_wall_median_ms": r50_step_ms,
+             "images_per_s": BATCH / med_fit * 1e3, "fit_s": fit_s,
+             "retry_count": prefetch.retry_count,
+             "syncs_fit_epoch2": fit_syncs, "syncs_bare8": bare_syncs,
+             "accuracy": [list(a) for a in accs],
+             "fit_epoch_idle_share": profile["idle_share"],
+             "fit_epoch_profile": profile}
+    del tr, ref, ref_heads
+
+    # (b) chaos through the same loop: a NaN batch and a pipeline crash
+    seq = []
+    wrapped = chaos.ChaosIter(io.NDArrayIter(x, y, batch_size=BATCH),
+                              chaos.ChaosSpec.parse(LOOP_CHAOS))
+    while True:
+        try:
+            seq.append(wrapped.next())
+        except chaos.ChaosError:
+            continue
+        except StopIteration:
+            break
+    tb, ref_b = trainer(arg0, aux0), trainer(arg0, aux0)
+    record, seen = [], {}
+    watch_batches(torch, tb, record)
+    old_env = os.environ.get("MXNET_TPU_CHAOS")
+    os.environ["MXNET_TPU_CHAOS"] = LOOP_CHAOS
+    reset_train_counts(nn_ops.softmax_rows, fu.fused_update)
+    try:
+        tb.fit(io.NDArrayIter(x, y, batch_size=BATCH), eval_metric="acc",
+               num_epoch=1, batch_end_callback=lambda p: seen.update(
+                   prefetch=p.locals["prefetch"]))
+    finally:
+        if old_env is None:
+            os.environ.pop("MXNET_TPU_CHAOS", None)
+        else:
+            os.environ["MXNET_TPU_CHAOS"] = old_env
+    k1, k2 = nn_ops.softmax_rows.launches, fu.fused_update.launches
+    launches["softmax_rows"] += k1
+    launches["fused_update"] += k2
+    check(k1 == LOOP_BATCHES and k2 == LOOP_BATCHES
+          and fu.fused_update.launches_by_form["hopper"] == LOOP_BATCHES,
+          f"under chaos K1 launched {k1} and K2 {k2} times "
+          f"({fu.fused_update.launches_by_form}) in {LOOP_BATCHES} steps")
+    for b in seq:
+        ref_b.step(b)
+    prefetch = seen["prefetch"]
+    injected = prefetch.data_iter.injected
+    check(isinstance(prefetch.data_iter, chaos.ChaosIter),
+          "fit did not wrap its iterator in a ChaosIter")
+    check(injected == {"nan": 1, "overflow": 0, "crash": 1},
+          f"chaos injected {injected}")
+    check(prefetch.retry_count == 1,
+          f"{prefetch.retry_count} prefetch retries, expected 1")
+    for who, t in (("fit", tb), ("the bare loop", ref_b)):
+        skipped = t.resilience_stats()["skipped_steps"]
+        check(skipped == 1, f"{who} under chaos skipped {skipped} steps")
+    sums, _ = read_watch(torch, record)
+    check_sums(sums, [host_sums(np, b.data[0].asnumpy(),
+                                b.label[0].asnumpy()) for b in seq], "(b)")
+    diff = state_diff(torch, tb, ref_b)
+    check(not diff, f"fit under chaos and its bare loop differ in {diff}")
+    log(f"  (b) chaos {LOOP_CHAOS}: 1 skipped step, 1 retry, injected "
+        f"{injected}, no batch lost, bit sums exact, state bitwise the "
+        "bare loop's")
+    stats["chaos"] = {"skipped_steps": 1,
+                      "retry_count": prefetch.retry_count,
+                      "injected": dict(injected)}
+    return stats
+
+
+def loop_lm(torch, np, fu, fa, launches, lm_step_ms):
+    """(c) the LM's fit at phase 9's width, with a metric that takes the
+    buffered path, held to a bare step loop bit for bit."""
+    from mxnet_tpu_torch import io, lr_scheduler, metric, models
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+
+    def schedule():
+        return lr_scheduler.WarmupScheduler(
+            LM_LOOP_WARMUP,
+            after=lr_scheduler.CosineScheduler(LM_LOOP_COSINE))
+
+    def trainer():
+        tr = ShardedTrainer(sym, optimizer="adam",
+                            optimizer_params=dict(LM_OPT,
+                                                  lr_scheduler=schedule()),
+                            compute_dtype="bfloat16", device=DEVICE)
+        return tr.bind({"data": shapes["data"]},
+                       {"softmax_label": shapes["softmax_label"]},
+                       arg_params=args)
+
+    toks = np.random.RandomState(5).randint(
+        0, VOCAB, (LM_LOOP_BATCHES * LM_BATCH, LM_SEQ + 1))
+    data = toks[:, :-1].astype(np.float32)
+    label = toks[:, 1:].astype(np.float32)
+    tr, ref = trainer(), trainer()
+    record, heads, events = [], [], []
+    watch_batches(torch, tr, record)
+
+    def loss_mean(lbl, pred):
+        return pred.mean()
+
+    m = metric.CustomMetric(loss_mean, name="loss")
+
+    def batch_end(param):
+        heads.append(param.locals["outs"][0])   # references: no sync
+        events.append(record_event(torch))
+
+    reset_train_counts(fu.fused_update, fa.flash_fwd, fa.flash_bwd)
+    tr.fit(io.NDArrayIter(data, label, batch_size=LM_BATCH), eval_metric=m,
+           num_epoch=1, batch_end_callback=batch_end)
+    fit_ms = event_ms(torch, events, LM_LOOP_BATCHES)
+    k3, k4, k2 = (fa.flash_fwd.launches, fa.flash_bwd.launches,
+                  fu.fused_update.launches)
+    forms = {"K3": dict(fa.flash_fwd.launches_by_form),
+             "K4": dict(fa.flash_bwd.launches_by_form),
+             "K2": dict(fu.fused_update.launches_by_form)}
+    launches["flash_attn_fwd"] += k3
+    launches["flash_attn_bwd"] += k4
+    launches["fused_update"] += k2
+    steps = LM_LOOP_BATCHES
+    check(k3 == k4 == LAYERS * steps and k2 == steps,
+          f"LM fit launched K3 {k3}, K4 {k4}, K2 {k2} times in {steps} steps "
+          f"of {LAYERS} layers")
+    for what, f in forms.items():
+        check(f["hopper"] == sum(f.values()),
+              f"{what} launches by form {f}: not all in the hopper form")
+    sums, lrs = read_watch(torch, record)
+    check_sums(sums, [host_sums(np, data[i * LM_BATCH:(i + 1) * LM_BATCH],
+                                label[i * LM_BATCH:(i + 1) * LM_BATCH])
+                      for i in range(steps)], "(c)")
+    losses = [h.double().mean().item() for h in heads]
+    check(all(np.isfinite(losses)), f"non-finite LM loss: {losses}")
+    got = float(m.sum_metric) / m.num_inst
+    want = float(np.mean(losses))
+    check(m.num_inst == steps and abs(got - want) <= 1e-6 * abs(want),
+          f"the buffered metric {got} over {m.num_inst} batches, the host "
+          f"mean of fit's heads {want}")
+    # the bare step loop over the same host batches, timed as fit was
+    ref_events = []
+    for i in range(steps):
+        ref.step({"data": data[i * LM_BATCH:(i + 1) * LM_BATCH],
+                  "softmax_label": label[i * LM_BATCH:(i + 1) * LM_BATCH]})
+        ref_events.append(record_event(torch))
+    bare_ms = event_ms(torch, ref_events, steps)
+    # every run so far measured no gap (the embedding's scatter-add is
+    # index_put with accumulate, which sorts its indices on the card), so
+    # the state is held to the bare loop's bit for bit, as in (a)
+    diff = state_diff(torch, tr, ref)
+    check(not diff, f"the LM's fit and its bare loop differ in {diff}")
+    med, med_bare = float(np.median(fit_ms)), float(np.median(bare_ms))
+    log(f"  (c) LM fit: {steps} steps, losses {['%.4f' % v for v in losses]}, "
+        f"bit sums exact, the buffered metric {got:.6f} = the host mean; "
+        f"state bitwise the bare loop's; K3 {k3}, K4 {k4}, K2 {k2} "
+        f"(hopper); between batch-end events {med:.2f} ms a batch in fit "
+        f"and {med_bare:.2f} ms a step in the bare loop (phase 9: "
+        f"{lm_step_ms:.2f} ms a step in host wall time, synced each step)")
+    return {"fit_median_ms": med, "fit_ms": fit_ms,
+            "bare_host_batches_median_ms": med_bare, "bare_ms": bare_ms,
+            "phase9_synced_wall_median_ms": lm_step_ms, "losses": losses,
+            "metric": got, "lrs": lrs,
+            "tokens_per_s": LM_BATCH * LM_SEQ / med * 1e3}
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: imperative + executor + rtc (K6)
 # ---------------------------------------------------------------------------
 
@@ -3493,14 +4113,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/13] device")
+    log("[1/14] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/13] build")
+    log("[2/14] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -3515,7 +4135,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/13] kernels against their plain versions")
+    log("[3/14] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -3524,22 +4144,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/13] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/14] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/13] serving the round-12 configuration: chunked prefill "
+    log(f"[5/14] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/13] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/14] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/13] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/14] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
-    train_launches, _ = phase_train(torch, np, nn_ops, fu)
+    train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/13] kernel timing")
+    log("[8/14] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -3556,32 +4176,41 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/13] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/14] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
-    lm_launches, _ = phase_train_lm(torch, np, fa, fu)
+    lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/13] imperative + executor: NDArray on the card, the MLP "
+    log("[10/14] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/13] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/14] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/13] the serving control plane: crash failover, a hung and a "
+    log("[12/14] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
     cp_k5, _ = phase_control_plane(torch, np, fd, _build)
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
-    log("[13/13] result")
+    t0 = time.perf_counter()
+    log(f"[13/14] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+        f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
+        f"and on the LM ({LM_LOOP_BATCHES} batches)")
+    loop_launches, _ = phase_train_loop(
+        torch, np, nn_ops, fu, fa, _build, train_stats["median_step_ms"],
+        lm_stats["median_step_ms"])
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    log("[14/14] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -3600,20 +4229,24 @@ def main(argv) -> int:
          max(v for k, v in fp8_errs.items()
              if k.endswith("float32 q, hopper"))),
         ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",
-         "mxnet_tpu/ops/nn_ops.py:847", train_launches["softmax_rows"],
+         "mxnet_tpu/ops/nn_ops.py:847",
+         train_launches["softmax_rows"] + loop_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
-        # K2 runs on both training paths: ResNet-50 (SGD) and the LM (Adam)
+        # K2 runs on both training paths: ResNet-50 (SGD) and the LM
+        # (Adam), stepped bare (phases 7, 9) and through fit (phase 13)
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
          "mxnet_tpu/ops/fused_update.py:216",
-         train_launches["fused_update"] + lm_launches["fused_update"],
-         k2_err),
+         train_launches["fused_update"] + lm_launches["fused_update"]
+         + loop_launches["fused_update"], k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
-         lm_launches["flash_attn_fwd"], max(e[2] for e in hopper_errs)),
+         lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"],
+         max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
-         lm_launches["flash_attn_bwd"], max(e[3] for e in hopper_errs)),
+         lm_launches["flash_attn_bwd"] + loop_launches["flash_attn_bwd"],
+         max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script
         ("rtc_softmax_fwd", "chip_smoke.py", "mxnet_tpu/rtc.py:60",

@@ -10,16 +10,18 @@ Ported so far: serving ``transformer_lm`` parameter dicts
 traffic simulator, serve chaos and the :mod:`~mxnet_tpu_torch.telemetry`
 plane), training symbol graphs such as
 ResNet-50 on one device (``symbol``, ``models.get_symbol``,
-``parallel.ShardedTrainer``), and the imperative and executor API
+``parallel.ShardedTrainer`` with its ``fit`` loop over ``io`` iterators,
+``metric``, ``lr_scheduler``, ``callback`` and ``model`` checkpoints), and the imperative and executor API
 (``nd``, ``random``, ``Symbol.simple_bind``, ``optimizer.get_updater``,
 custom ops in ``operator`` and user CUDA kernels in ``rtc``).  Entry
 points run on the card unless the caller passes ``device="cpu"`` (or
 works under ``with mx.cpu():``).
 """
-from . import (attribute, base, chaos, compile_cache, context, executor,
-               graph_eval, initializer, models, name, ndarray, operator, ops,
-               optimizer, parallel, random, resilience, rtc, serve, stream,
-               symbol, telemetry)
+from . import (attribute, base, callback, chaos, compile_cache, context,
+               executor, graph_eval, initializer, io, lr_scheduler, metric,
+               model, models, name, ndarray, operator, ops, optimizer,
+               parallel, random, resilience, rtc, serve, stream, symbol,
+               telemetry)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
 from .executor import Executor
@@ -33,7 +35,8 @@ nd = ndarray
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "resolve_device", "Engine", "EngineConfig", "Executor", "Group",
            "ServeError", "ShardedTrainer", "kvcache", "attribute", "base",
-           "chaos", "compile_cache", "context", "executor", "graph_eval",
-           "initializer", "models", "name", "nd", "ndarray", "operator",
-           "ops", "optimizer", "parallel", "random", "resilience", "rtc",
-           "serve", "stream", "sym", "symbol", "telemetry"]
+           "callback", "chaos", "compile_cache", "context", "executor",
+           "graph_eval", "initializer", "io", "lr_scheduler", "metric",
+           "model", "models", "name", "nd", "ndarray", "operator", "ops",
+           "optimizer", "parallel", "random", "resilience", "rtc", "serve",
+           "stream", "sym", "symbol", "telemetry"]

@@ -11,8 +11,12 @@ Spec syntax (``MXNET_TPU_CHAOS`` or :meth:`ChaosSpec.parse`)::
     kind:idx[,idx...][|kind:idx...]     e.g.  "serve_crash:4|serve_hang:7"
 
 Every kind of the JAX package parses.  Data kinds (``nan``,
-``overflow``, ``crash``) are consumed by the JAX package's ``ChaosIter``,
-which the port does not have yet.
+``overflow``, ``crash``) are consumed by :class:`ChaosIter`, which
+``ShardedTrainer.fit`` wraps around its training iterator (upstream of
+the prefetch thread) when ``MXNET_TPU_CHAOS`` is set
+(:func:`maybe_wrap`): ``nan``/``overflow`` poison a batch's data at a
+global batch index, ``crash`` raises :class:`ChaosError` before the inner
+``next()``, so a prefetch retry pulls the next batch and none is lost.
 
 Serve kinds, consumed by :class:`mxnet_tpu_torch.serve.engine.Engine` at
 exact step indices: ``serve_crash`` (the replica's step raises
@@ -30,12 +34,20 @@ slice.
 """
 from __future__ import annotations
 
+import copy
+import logging
 import os
 from typing import Dict, Optional, Set
 
+import numpy as np
+import torch
+
 __all__ = ["KINDS", "SERVE_KINDS", "ELASTIC_KINDS", "OVERFLOW_VALUE",
-           "ChaosError", "ChaosSpec", "from_env", "serve_from_env",
-           "elastic_from_env", "chaos_replica", "chaos_worker"]
+           "ChaosError", "ChaosSpec", "ChaosIter", "from_env",
+           "serve_from_env", "elastic_from_env", "chaos_replica",
+           "chaos_worker", "maybe_wrap"]
+
+_LOGGER = logging.getLogger(__name__)
 
 KINDS = ("nan", "overflow", "crash")
 SERVE_KINDS = ("serve_crash", "serve_hang", "serve_poison_logits")
@@ -121,3 +133,94 @@ def chaos_worker() -> int:
     the trainer, whose loss is a preemption, not a membership change)."""
     raw = os.environ.get("MXNET_TPU_CHAOS_WORKER", "").strip()
     return int(raw) if raw else 1
+
+
+def _poison_array(arr, value: float):
+    """A same-shape, same-dtype, same-device array filled with ``value``
+    (an NDArray, tensor or numpy array in, the same kind out)."""
+    from .ndarray import NDArray
+    if isinstance(arr, NDArray):
+        return NDArray(torch.full_like(arr.data, value), ctx=arr.context)
+    if isinstance(arr, torch.Tensor):
+        return torch.full_like(arr, value)
+    data = np.asarray(arr)
+    return np.full(data.shape, value, dtype=data.dtype)
+
+
+def _is_integral(v) -> bool:
+    from .ndarray import NDArray
+    if isinstance(v, NDArray):
+        v = v.data
+    if isinstance(v, torch.Tensor):
+        return not (v.dtype.is_floating_point or v.dtype.is_complex)
+    return np.asarray(v).dtype.kind in "iub"
+
+
+class ChaosIter(object):
+    """Iterator wrapper injecting faults at fixed global batch indices.
+
+    Poisoning replaces every array of ``batch.data`` (a ``DataBatch``) or
+    every float-typed value of a dict batch; labels are left alone
+    (integer and bool values of a dict batch are skipped) so the metric
+    code stays exercised.  ``injected`` counts firings per kind; the
+    global batch index is not reset by :meth:`reset`."""
+
+    def __init__(self, data_iter, spec: ChaosSpec, logger=None):
+        self._iter = data_iter
+        self.spec = spec
+        self.logger = logger or _LOGGER
+        self._count = 0  # global batch index; NOT reset by reset()
+        self.injected = {k: 0 for k in KINDS}
+
+    # -- the DataIter surface: delegate what is not intercepted --
+    def __getattr__(self, name):
+        return getattr(self._iter, name)
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self._iter.reset()
+
+    def _fire(self, kind: str, index: int):
+        self.injected[kind] += 1
+        self.logger.warning("chaos: injecting %s at global batch %d",
+                            kind, index)
+
+    def _poison_batch(self, batch, value: float):
+        if isinstance(batch, dict):
+            return {k: (v if _is_integral(v) else _poison_array(v, value))
+                    for k, v in batch.items()}
+        if hasattr(batch, "data"):  # DataBatch
+            out = copy.copy(batch)
+            out.data = [_poison_array(d, value) for d in batch.data]
+            return out
+        return _poison_array(batch, value)
+
+    def next(self):
+        i = self._count
+        self._count += 1
+        if self.spec.at("crash", i):
+            self._fire("crash", i)
+            raise ChaosError("chaos: injected pipeline crash at global "
+                             "batch %d" % i)
+        batch = self._iter.next()
+        if self.spec.at("nan", i):
+            self._fire("nan", i)
+            batch = self._poison_batch(batch, float("nan"))
+        elif self.spec.at("overflow", i):
+            self._fire("overflow", i)
+            batch = self._poison_batch(batch, OVERFLOW_VALUE)
+        return batch
+
+    def __next__(self):
+        return self.next()
+
+
+def maybe_wrap(data_iter, logger=None):
+    """Wrap ``data_iter`` in a :class:`ChaosIter` when ``MXNET_TPU_CHAOS``
+    sets any point; otherwise return it unchanged."""
+    spec = from_env()
+    if spec is None or isinstance(data_iter, ChaosIter):
+        return data_iter
+    return ChaosIter(data_iter, spec, logger=logger)

@@ -4,15 +4,18 @@ Counterpart of ``BucketPolicy`` and ``bucket_for`` in
 ``mxnet_tpu/compile_cache.py``.  PyTorch runs eagerly, so the port keeps no
 executable store; the serve engine still pads prompts to the geometric
 ladder and decode batches to fixed buckets, so every step has one of a
-few shapes.
+few shapes; :func:`pad_to_bucket` pads one host array to its bucket
+(``io.pad_batch_to_bucket``).
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
+
 from .base import MXNetError
 
-__all__ = ["BucketPolicy", "bucket_for"]
+__all__ = ["BucketPolicy", "bucket_for", "pad_to_bucket"]
 
 
 def _round_up(x: int, to: int) -> int:
@@ -59,3 +62,21 @@ def bucket_for(length: int, buckets: Sequence[int]) -> int:
             return int(b)
     raise MXNetError(
         f"length {length} exceeds the largest bucket {max(buckets)}")
+
+
+def pad_to_bucket(arr, bucket: int, axis: int = 1, pad_value=0):
+    """Pad one array along ``axis`` up to ``bucket`` (host numpy in,
+    host numpy out; no-op when already at the bucket size)."""
+    a = np.asarray(arr)
+    if axis >= a.ndim:
+        raise MXNetError(
+            f"pad_to_bucket: axis {axis} out of range for shape {a.shape}")
+    cur = a.shape[axis]
+    if cur > bucket:
+        raise MXNetError(
+            f"pad_to_bucket: length {cur} exceeds bucket {bucket}")
+    if cur == bucket:
+        return a
+    cfg = [(0, 0)] * a.ndim
+    cfg[axis] = (0, bucket - cur)
+    return np.pad(a, cfg, constant_values=pad_value)

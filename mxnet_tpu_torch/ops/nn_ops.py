@@ -609,14 +609,15 @@ class _SoftmaxOutputFn(torch.autograd.Function):
 
         def norm_denom():
             # counted in f32, as the reference does
+            # (0-d fills, not torch.tensor: a host copy would sync)
             if p["normalization"] == "batch":
-                return torch.tensor(float(label.shape[0]),
-                                    dtype=torch.float32, device=x.device)
+                return torch.full((), float(label.shape[0]),
+                                  dtype=torch.float32, device=x.device)
             if p["normalization"] == "valid":
                 if p["use_ignore"]:
                     return torch.clamp_min(mask.float().sum(), 1.0)
-                return torch.tensor(max(float(label.numel()), 1.0),
-                                    dtype=torch.float32, device=x.device)
+                return torch.full((), max(float(label.numel()), 1.0),
+                                  dtype=torch.float32, device=x.device)
             return None
 
         cot = cot.to(x.dtype)
@@ -636,8 +637,8 @@ class _SoftmaxOutputFn(torch.autograd.Function):
             if p["use_ignore"]:
                 g = g * mask.unsqueeze(-1)
             denom = norm_denom()
-            scale = torch.tensor(p["grad_scale"], dtype=x.dtype,
-                                 device=x.device)
+            scale = torch.full((), p["grad_scale"], dtype=x.dtype,
+                               device=x.device)
             if denom is not None:
                 scale = scale / denom.to(x.dtype)
             if denom is not None or p["grad_scale"] != 1.0:

@@ -1,4 +1,5 @@
-"""Optimizers: SGD (with momentum), Adam and AdamW.
+"""Optimizers: SGD (with momentum), NAG, SGLD, ccSGD, Adam, AdamW, AdaGrad,
+RMSProp, AdaDelta and Test.
 
 Counterpart of ``mxnet_tpu/optimizer.py``.  Each optimizer has a
 functional core ``_functional_step(hyper, w, g, state, lr, wd, t, rng) ->
@@ -12,9 +13,13 @@ host.
 
 The imperative API (``create_state``, ``update(index, weight, grad,
 state)`` on NDArrays, :func:`get_updater`) runs the same
-``_functional_step`` per parameter.  The other optimizers (NAG, SGLD,
-AdaGrad, RMSProp, AdaDelta) and learning-rate schedulers are not ported
-yet (ROADMAP.md).
+``_functional_step`` per parameter.  An ``lr_scheduler``
+(:mod:`.lr_scheduler`) sets the rate on the host from the update count,
+with the JAX package's base-rate hand-over between the optimizer's
+``learning_rate`` and the scheduler's ``base_lr``.  SGLD draws its noise
+from a ``torch.Generator`` on the weights' device (the trainer's, or the
+imperative API's per-device one), so its bits cannot equal the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -22,9 +27,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .base import MXNetError, Registry, not_ported
+from .base import MXNetError, Registry
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "create", "register",
+__all__ = ["Optimizer", "SGD", "NAG", "SGLD", "ccSGD", "Adam", "AdamW",
+           "AdaGrad", "RMSProp", "AdaDelta", "Test", "create", "register",
            "adam_lr_t", "sqrt_rn", "get_updater"]
 
 OPTIMIZER_REGISTRY: Registry = Registry("optimizer")
@@ -83,14 +89,29 @@ class Optimizer:
                  lr_scheduler=None, sym=None, begin_num_update: int = 0,
                  arg_names=None, clip_global_norm: Optional[float] = None,
                  skip_nonfinite: Optional[bool] = None, **kwargs):
-        if lr_scheduler is not None:
-            raise not_ported("learning-rate schedulers (lr_scheduler.py)")
         # None = "caller did not choose": ShardedTrainer.bind then rescales
         # by 1/batch
         self._rescale_set = rescale_grad is not None
         self.rescale_grad = 1.0 if rescale_grad is None else rescale_grad
         self.lr = (type(self)._default_lr if learning_rate is None
                    else learning_rate)
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            # an explicit optimizer learning_rate wins (and reaches the
+            # inner scheduler of a wrapper); otherwise a scheduler built
+            # with an explicit base_lr keeps it and backfills self.lr
+            if learning_rate is not None:
+                if hasattr(lr_scheduler, "_set_base_lr_explicit"):
+                    lr_scheduler._set_base_lr_explicit(self.lr)
+                else:
+                    lr_scheduler.base_lr = self.lr
+            else:
+                eff = getattr(lr_scheduler, "_effective_explicit_base_lr",
+                              lambda: None)()
+                if eff is None:
+                    lr_scheduler.base_lr = self.lr
+                else:
+                    self.lr = eff
         self.wd = wd
         self.lr_mult: Dict[str, float] = {}
         self.wd_mult: Dict[str, float] = {}
@@ -155,7 +176,8 @@ class Optimizer:
                                  index if isinstance(index, str) else None)
 
     def _get_lr(self, index) -> float:
-        lr = self.lr
+        lr = (self.lr_scheduler(self.num_update) if self.lr_scheduler
+              else self.lr)
         name = self._name(index)
         if name is not None and name in self.lr_mult:
             lr *= self.lr_mult[name]
@@ -192,10 +214,14 @@ class Optimizer:
         svals = (None if state is None else
                  tuple(s.data for s in state) if isinstance(state, tuple)
                  else state.data)
+        rng = None
+        if self._needs_rng:
+            from . import random as _random
+            rng = _random.generator(weight.context)
         with torch.no_grad():
             new_w, new_s = self._functional_step(
                 self._hyper(), weight.data, grad.data.to(weight.data.dtype),
-                svals, lr, wd, t, None)
+                svals, lr, wd, t, rng)
         weight._write(new_w)
         if isinstance(state, tuple):
             for s, v in zip(state, new_s):
@@ -247,6 +273,42 @@ class SGD(Optimizer):
 
 
 @register
+class NAG(SGD):
+    """Nesterov accelerated SGD."""
+
+    @staticmethod
+    def _functional_step(hyper, w, g, state, lr, wd, t, rng):
+        g = _prep_grad(g, hyper)
+        if state is not None:
+            gw = g + wd * w
+            mom = hyper["momentum"] * state - lr * gw
+            return w + hyper["momentum"] * mom - lr * gw, mom
+        return w - lr * (g + wd * w), None
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: a half step plus Gaussian
+    noise of variance ``lr``, drawn from ``rng`` (a ``torch.Generator``
+    on the weight's device)."""
+
+    _needs_rng = True
+
+    @staticmethod
+    def _functional_step(hyper, w, g, state, lr, wd, t, rng):
+        g = _prep_grad(g, hyper)
+        noise = torch.randn(w.shape, generator=rng, dtype=w.dtype,
+                            device=w.device) * torch.sqrt(_as_f32(lr, w))
+        return w - lr / 2 * (g + wd * w) + noise, None
+
+
+@register
+class ccSGD(SGD):
+    """SGD under the reference's name for its C++ flat-buffer SGD; the
+    fused update (K2) takes it as SGD."""
+
+
+@register
 class Adam(Optimizer):
     """Adam, with weight decay folded into the gradient."""
 
@@ -295,6 +357,104 @@ class AdamW(Adam):
         lr_t = adam_lr_t(lr, b1, b2, _as_f32(t, w))
         update = lr_t * m / (sqrt_rn(v) + hyper["epsilon"])
         return w - update - lr * wd * w, (m, v)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad."""
+
+    def __init__(self, eps: float = 1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def _hyper(self):
+        h = super()._hyper()
+        h["eps"] = self.float_stable_eps
+        return h
+
+    def state_zeros_like(self, weight):
+        return torch.zeros_like(weight)
+
+    @staticmethod
+    def _functional_step(hyper, w, g, state, lr, wd, t, rng):
+        g = _prep_grad(g, hyper)
+        history = state + g * g
+        return (w - lr * (g / sqrt_rn(history + hyper["eps"]) + wd * w),
+                history)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp with Graves-style momentum terms."""
+
+    _default_lr = 0.002
+
+    def __init__(self, learning_rate: Optional[float] = None,
+                 gamma1: float = 0.95, gamma2: float = 0.9, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+
+    def _hyper(self):
+        h = super()._hyper()
+        h.update(gamma1=self.gamma1, gamma2=self.gamma2)
+        return h
+
+    def state_zeros_like(self, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight),
+                torch.zeros_like(weight))           # n, g, delta
+
+    @staticmethod
+    def _functional_step(hyper, w, g_in, state, lr, wd, t, rng):
+        n, g_avg, delta = state
+        g1, g2 = hyper["gamma1"], hyper["gamma2"]
+        g = _prep_grad(g_in, hyper) + wd * w
+        n_new = (1 - g1) * g * g + g1 * n
+        g_new = (1 - g1) * g + g1 * g_avg
+        d = g2 * delta - lr * g / sqrt_rn(n_new - g_new * g_new + 1e-4)
+        return w + d, (n_new, g_new, d)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (the learning rate is not used)."""
+
+    def __init__(self, rho: float = 0.90, epsilon: float = 1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def _hyper(self):
+        h = super()._hyper()
+        h.update(rho=self.rho, epsilon=self.epsilon)
+        return h
+
+    def state_zeros_like(self, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    @staticmethod
+    def _functional_step(hyper, w, g, state, lr, wd, t, rng):
+        rho, eps = hyper["rho"], hyper["epsilon"]
+        g = _prep_grad(g, hyper)
+        acc_g, acc_delta = state
+        ag = rho * acc_g + (1.0 - rho) * g * g
+        current_delta = (sqrt_rn(acc_delta + eps) / sqrt_rn(ag + eps)) * g
+        ad = rho * acc_delta + (1.0 - rho) * current_delta * current_delta
+        return w - current_delta - wd * w, (ag, ad)
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: ``w += g * rescale_grad``, the new
+    weight kept as its state."""
+
+    def state_zeros_like(self, weight):
+        return torch.zeros_like(weight)
+
+    @staticmethod
+    def _functional_step(hyper, w, g, state, lr, wd, t, rng):
+        new_w = w + g * hyper["rescale_grad"]
+        return new_w, new_w
 
 
 def create(name: str, rescale_grad: Optional[float] = None,

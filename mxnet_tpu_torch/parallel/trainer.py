@@ -34,23 +34,36 @@ The hopper form reads each gradient where autograd left it, through a
 chunk plan over those views built once, at bind; the bucket form
 gathers the gradients into one flat buffer with ``torch.cat``.  All
 step scalars (learning rate, update count, ``ok``, ``mult``) stay on the
-card as 0-d tensors: a step never waits for the host.
+card as 0-d tensors: a step never waits for the host.  The learning
+rate is the optimizer's schedule at the update count (``lr_scheduler``),
+times the divergence sentinel's backoff, filled into its 0-d tensor each
+step (a fill launches a kernel; it does not copy or wait).
+
+:meth:`ShardedTrainer.fit` is the JAX trainer's loop: a
+``DevicePrefetchIter`` stages batch *k+1* on a side stream while step
+*k* runs (``place_batch`` copies from pinned host memory), ``Accuracy``
+folds into a 0-d int32 carry on the card inside each step
+(:meth:`_step_acc`) and any other metric buffers head references
+(:class:`_AsyncMetric`), so no batch waits for the host; the metric,
+the guard counters (every ``GuardConfig.check_every`` batches, into the
+divergence sentinel) and the epoch end are the only drains.
 
 Not ported yet (they raise): ``mesh``, ``rules``, ``data_axis``,
 ``matmul_precision``, ``shard_optimizer``, ``grad_accum > 1``,
 ``grad_compression``, ``error_feedback``, ``loss_scale``, checkpoints
-(``save_state``/``restore_state``) and ``fit``.
+(``save_state``/``restore_state``, ``fit(checkpoint_manager=...)``).
 """
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import optimizer as opt_mod
-from .. import resilience
+from .. import resilience, telemetry
 from ..base import MXNetError, not_ported
 from ..context import cpu, resolve_device
 from ..graph_eval import eval_symbol
@@ -64,6 +77,14 @@ __all__ = ["ShardedTrainer"]
 
 class _PlacedBatch(dict):
     """A batch already on the trainer's device (``place_batch``)."""
+
+
+def _host_to(v: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``v`` on ``device``; a host tensor goes to the card from pinned
+    memory with ``non_blocking=True`` on the current stream, so the copy
+    never waits for the card."""
+    pinned = device.type == "cuda" and v.device.type == "cpu"
+    return (v.pin_memory() if pinned else v).to(device, non_blocking=pinned)
 
 
 class ShardedTrainer:
@@ -141,6 +162,14 @@ class ShardedTrainer:
                                          clip_global_norm=clip_global_norm,
                                          **(guard_params or {}))
         self._guard_state: Optional[Dict[str, torch.Tensor]] = None
+        # the divergence sentinel's host state: the lr backoff factor, the
+        # counters folded off the card by past drains, the last drain
+        self._lr_scale = 1.0
+        self._rollbacks = 0
+        self._sentinel: Optional[resilience.DivergenceSentinel] = None
+        self._resil_base = {"skipped": 0, "overflows": 0, "norm_sum": 0.0,
+                            "norm_cnt": 0}
+        self._resil_drained: Dict[str, Any] = {}
         self._bound = False
 
     # ------------------------------------------------------------------
@@ -221,6 +250,10 @@ class ShardedTrainer:
         self._t_dev = torch.zeros((), **f32)
         self._c_one = torch.ones((), **f32)
         self._c_tiny = torch.full((), 1e-12, **f32)
+        # SGLD's noise: a generator on the trainer's device
+        self._step_rng = (torch.Generator(device=dev).manual_seed(
+            int(self._generator.initial_seed()))
+            if opt._needs_rng else None)
         if self._resil is not None:
             self._guard_state = resilience.init_state(dev)
             clip = self._resil.clip_global_norm
@@ -321,7 +354,13 @@ class ShardedTrainer:
     def place_batch(self, batch) -> Dict[str, torch.Tensor]:
         """Copy a batch (dict, DataBatch or list aligned with the input
         names; numpy arrays, tensors or NDArrays) onto the device once;
-        passing the result to :meth:`step` skips the copy."""
+        passing the result to :meth:`step` skips the copy.  Host tensors
+        go to the card from pinned memory with ``non_blocking=True``, on
+        the caller's current stream (``fit``'s prefetcher: its side
+        stream)."""
+        if not self._bound:
+            raise MXNetError("call bind() before placing or stepping a "
+                             "batch")
         if isinstance(batch, _PlacedBatch):
             return batch
         if hasattr(batch, "data"):  # DataBatch
@@ -338,7 +377,7 @@ class ShardedTrainer:
                 v = v.data
             if not isinstance(v, torch.Tensor):
                 v = torch.as_tensor(np.asarray(v))
-            out[n] = v.to(self.device)
+            out[n] = _host_to(v, self.device)
         return out
 
     def _cast_params(self) -> Dict[str, torch.Tensor]:
@@ -368,14 +407,31 @@ class ShardedTrainer:
                 {k: v.detach() for k, v in auxu.items()})
 
     def step(self, batch) -> List[torch.Tensor]:
-        """Run one training step; returns the head outputs."""
-        if not self._bound:
-            raise MXNetError("call bind() before step()")
+        """Run one training step; returns the head outputs.  ``batch`` may
+        be host data or the result of :meth:`place_batch`."""
+        return self._train(self.place_batch(batch))
+
+    def _train(self, placed) -> List[torch.Tensor]:
         self._num_update += 1
-        placed = self.place_batch(batch)
         heads, grads, auxu = self._forward_backward(placed)
         self._apply_update(grads, auxu)
         return list(heads)
+
+    def _step_acc(self, batch, carry: torch.Tensor):
+        """:meth:`step`, then the ``Accuracy`` fold of each labelled head
+        into ``carry`` (a 0-d int32 tensor on the device): ``fit``'s
+        metric path, with no read back to the host."""
+        placed = self.place_batch(batch)
+        heads = self._train(placed)
+        return heads, _acc_fold(carry, heads,
+                                [placed[ln] for ln in self._label_names])
+
+    def _lr_now(self) -> float:
+        """The rate of update number ``self._num_update``: the schedule's
+        (or the optimizer's) times the sentinel's backoff."""
+        opt = self.optimizer
+        return float(opt.lr_scheduler(self._num_update) if opt.lr_scheduler
+                     else opt.lr) * self._lr_scale
 
     def _apply_update(self, grads: Dict[str, torch.Tensor],
                       auxu: Dict[str, torch.Tensor]) -> None:
@@ -384,7 +440,7 @@ class ShardedTrainer:
         optimizer step, then the aux states."""
         resil = self._resil
         with torch.no_grad():
-            self._lr_dev.fill_(float(self.optimizer.lr))
+            self._lr_dev.fill_(self._lr_now())
             self._t_dev.fill_(float(self._num_update))
             ok = mult = eff_norm = None
             if resil is not None:
@@ -466,7 +522,8 @@ class ShardedTrainer:
             if m not in lrs:
                 lrs[m] = self._lr_dev * m
             w2, s2 = step_fn(hyper, p, grads[n], self._opt_state[n], lrs[m],
-                             opt.wd * self._wd_mult[n], self._t_dev, None)
+                             opt.wd * self._wd_mult[n], self._t_dev,
+                             self._step_rng)
             if ok is not None:
                 w2 = torch.where(ok, w2, p)
                 s2 = _gate(ok, s2, self._opt_state[n])
@@ -534,8 +591,236 @@ class ShardedTrainer:
     def restore_state(self, *args, **kwargs):
         raise not_ported("ShardedTrainer.restore_state (checkpoint/)")
 
-    def fit(self, *args, **kwargs):
-        raise not_ported("ShardedTrainer.fit (io.py, metric.py)")
+    # ------------------------------------------------------------------
+    # Resilience: counter drain + divergence sentinel
+    # ------------------------------------------------------------------
+
+    def resilience_stats(self) -> Dict[str, Any]:
+        """One-fetch snapshot of the guard counters (empty when the guard
+        is off): the host-side base folded off the card by past sentinel
+        drains plus the current on-card window, in one device-to-host
+        copy.  Reading never resets anything.  Without loss scaling
+        ``overflow_steps`` is 0 and ``loss_scale`` 1.0, as the JAX trainer
+        reports them."""
+        if self._guard_state is None:
+            return {}
+        keys = resilience.STATE_KEYS
+        with telemetry.span("guard.drain"):  # the one periodic device wait
+            vals = dict(zip(keys, torch.stack(
+                [self._guard_state[k].double() for k in keys]).cpu()
+                .tolist()))
+        base = self._resil_base
+        stats = {
+            "skipped_steps": base["skipped"] + int(vals["skipped"]),
+            "overflow_steps": base["overflows"],
+            "good_steps": 0,
+            "loss_scale": 1.0,
+            "norm_sum": base["norm_sum"] + vals["norm_sum"],
+            "norm_steps": base["norm_cnt"] + int(vals["norm_cnt"]),
+            "lr_scale": self._lr_scale,
+            "rollbacks": self._rollbacks,
+            "num_update": self._num_update,
+        }
+        g = telemetry.gauge
+        g("resilience.loss_scale").set(stats["loss_scale"])
+        g("resilience.lr_scale").set(stats["lr_scale"])
+        g("resilience.skipped_steps").set(stats["skipped_steps"])
+        g("resilience.overflow_steps").set(stats["overflow_steps"])
+        if stats["norm_steps"] > 0:
+            g("resilience.grad_norm_mean").set(
+                stats["norm_sum"] / stats["norm_steps"])
+        return stats
+
+    def _fold_guard_counters(self, stats: Dict[str, Any]) -> None:
+        """Fold the on-card window counters into the host-side base (the
+        snapshot ``stats`` already is base + window) and zero them on the
+        card, so the float32 ``norm_sum`` never holds more than one
+        window."""
+        self._resil_base = {"skipped": stats["skipped_steps"],
+                            "overflows": stats["overflow_steps"],
+                            "norm_sum": stats["norm_sum"],
+                            "norm_cnt": stats["norm_steps"]}
+        self._guard_state = resilience.init_state(self.device)
+
+    def _sentinel_poll(self) -> Optional[str]:
+        """Drain the guard counters and feed the divergence sentinel;
+        ``fit`` calls it every ``GuardConfig.check_every`` batches.  On an
+        anomaly the learning rate is backed off host-side.  A
+        ``"rollback"`` needs a checkpoint manager (not ported yet), so it
+        degrades to a backoff, as in the JAX trainer without one."""
+        stats = self.resilience_stats()
+        if not stats:
+            return None
+        self._fold_guard_counters(stats)
+        last, self._resil_drained = self._resil_drained, stats
+        if not last:
+            return None  # the first drain only baselines the counters
+        steps = stats["num_update"] - last["num_update"]
+        if steps <= 0:
+            return None
+        skipped = stats["skipped_steps"] - last["skipped_steps"]
+        cnt = stats["norm_steps"] - last["norm_steps"]
+        total = stats["norm_sum"] - last["norm_sum"]
+        norm_mean = (total / cnt) if cnt > 0 else None
+        if self._sentinel is None:
+            self._sentinel = resilience.DivergenceSentinel(
+                self._resil, logger=self.logger)
+        action = self._sentinel.observe(norm_mean, skipped, steps)
+        if action is None:
+            return None
+        self._lr_scale = max(self._lr_scale * self._resil.lr_backoff,
+                             self._resil.min_lr_scale)
+        telemetry.counter("resilience.backoffs").inc()
+        self.logger.warning(
+            "Resilience: LR backed off, lr-scale=%g", self._lr_scale)
+        return action
+
+    # ------------------------------------------------------------------
+    # Training loop
+    # ------------------------------------------------------------------
+
+    def score(self, eval_data, eval_metric):
+        """Run ``eval_data`` through :meth:`forward` into ``eval_metric``
+        (a name or an EvalMetric, reset first); returns the metric."""
+        from ..metric import create as metric_create
+        if isinstance(eval_metric, str):
+            eval_metric = metric_create(eval_metric)
+        eval_metric.reset()
+        eval_data.reset()
+        for batch in eval_data:
+            eval_metric.update(batch.label, self.forward(batch))
+        return eval_metric
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            num_epoch: int = 1, begin_epoch: int = 0,
+            batch_end_callback=None, epoch_end_callback=None,
+            checkpoint_manager=None) -> None:
+        """The JAX trainer's training loop: one step a batch, no host
+        sync a batch.
+
+        ``begin_epoch`` resumes the epoch numbering and advances the
+        update count (the schedule's clock) past the epochs done, by
+        ``train_data.steps_per_epoch`` (else ``ceil(num_data /
+        batch_size)``).  With ``MXNET_TPU_CHAOS`` set, a ``ChaosIter``
+        wraps ``train_data`` upstream of the prefetcher.  Each epoch logs
+        ``Epoch[%d] Mesh-Train-<metric>=%f``, ``Step-total``, with the
+        guard a ``Resilience:`` line, and with ``eval_data``
+        ``Mesh-Validation-<metric>``; ``epoch_end_callback(epoch, symbol,
+        arg_params, aux_params)`` gets host copies of the parameters.
+        ``checkpoint_manager`` is not ported yet."""
+        if checkpoint_manager is not None:
+            raise not_ported("ShardedTrainer.fit(checkpoint_manager=...) "
+                             "(checkpoint/)")
+        from .. import chaos as chaos_mod
+        from ..io import DevicePrefetchIter
+        from ..metric import create as metric_create
+        from ..model import BatchEndParam
+        if isinstance(eval_metric, str):
+            eval_metric = metric_create(eval_metric)
+        if begin_epoch and self._num_update == self.optimizer.begin_num_update:
+            # resume: advance the schedule's clock past the epochs done
+            batches = getattr(train_data, "steps_per_epoch", None)
+            if batches is None:
+                nd_ = getattr(train_data, "num_data", None)
+                bs = getattr(train_data, "batch_size", None)
+                if nd_ and bs:
+                    batches = -(-nd_ // bs)
+            if batches is not None:
+                self._num_update += begin_epoch * int(batches)
+            else:
+                self.logger.warning(
+                    "fit(begin_epoch=%d): train_data has no steps_per_epoch"
+                    " attribute, lr-schedule clock not advanced (set "
+                    "optimizer.begin_num_update for exact resume)",
+                    begin_epoch)
+        am = _AsyncMetric(eval_metric, self.device)
+        # chaos wraps upstream of the prefetch thread, so an injected
+        # crash goes through the real retry path
+        train_data = chaos_mod.maybe_wrap(train_data, logger=self.logger)
+        prefetch = DevicePrefetchIter(train_data, place_fn=self.place_batch,
+                                      device=self.device)
+        check_every = (self._resil.check_every if self._resil is not None
+                       else 0)
+        # host cadence between step returns, with no device fetch
+        t_last = time.perf_counter()
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                tic = time.time()
+                am.reset()
+                nbatch = 0
+                prefetch.reset()
+                fused = am.supports_fused and bool(self._label_names)
+                nheads = len(self.symbol.list_outputs())
+                ninst_names = self._label_names[:nheads]
+                for cur in prefetch:
+                    if fused:
+                        outs, carry = self._step_acc(cur, am.take_carry())
+                        am.put_carry(carry, sum(
+                            int(np.prod(cur[n].shape)) for n in ninst_names))
+                    else:
+                        outs = self.step(cur)
+                        lbls = ([cur[n] for n in self._label_names]
+                                if self._label_names
+                                else prefetch.current_source.label)
+                        am.update_async(lbls, outs)
+                    nbatch += 1
+                    t_now = time.perf_counter()
+                    drained = self._resil_drained
+                    telemetry.record_step({
+                        "step": self._num_update, "epoch": epoch,
+                        "nbatch": nbatch,
+                        "host_ms": (t_now - t_last) * 1e3,
+                        "lr_scale": self._lr_scale,
+                        "loss_scale": drained.get("loss_scale"),
+                        "skipped_steps": drained.get("skipped_steps"),
+                        "grad_norm_mean": (
+                            drained["norm_sum"] / drained["norm_steps"]
+                            if drained.get("norm_steps") else None),
+                        "rollbacks": self._rollbacks,
+                        # no captured step programs yet (CUDA graphs)
+                        "aot_hits": 0,
+                    })
+                    t_last = t_now
+                    if batch_end_callback is not None:
+                        batch_end_callback(BatchEndParam(
+                            epoch=epoch, nbatch=nbatch, eval_metric=am,
+                            locals=locals()))
+                    if check_every and nbatch % check_every == 0:
+                        self._sentinel_poll()
+                name, value = am.get()
+                names = name if isinstance(name, list) else [name]
+                values = value if isinstance(value, list) else [value]
+                for n_, v_ in zip(names, values):
+                    self.logger.info("Epoch[%d] Mesh-Train-%s=%f",
+                                     epoch, n_, v_)
+                self.logger.info("Epoch[%d] Step-total=%d Elapsed=%.3fs",
+                                 epoch, nbatch, time.time() - tic)
+                if self._resil is not None:
+                    rs = self.resilience_stats()
+                    # one line per epoch, grep-stable for tools/parse_log
+                    self.logger.info(
+                        "Epoch[%d] Resilience: skipped=%d overflows=%d "
+                        "rollbacks=%d loss-scale=%g lr-scale=%g",
+                        epoch, rs["skipped_steps"], rs["overflow_steps"],
+                        rs["rollbacks"], rs["loss_scale"], rs["lr_scale"])
+                    telemetry.emit("resilience", {"epoch": epoch, **rs})
+                telemetry.flush_metrics()
+                if epoch_end_callback is not None:
+                    arg_p, aux_p = self.get_params()
+                    epoch_end_callback(epoch, self.symbol, arg_p, aux_p)
+                if eval_data is not None:
+                    m = self.score(eval_data, eval_metric)
+                    for name, value in [m.get()]:
+                        self.logger.info("Epoch[%d] Mesh-Validation-%s=%s",
+                                         epoch, name, value)
+        except Exception:
+            # the ring holds the steps leading into the failure
+            telemetry.dump_flight("step-exception")
+            raise
+        finally:
+            # an abandoned epoch must not leave the prefetch thread alive
+            # holding staged device buffers
+            prefetch.close()
 
 
 def _torch_dtype(name) -> Optional[torch.dtype]:
@@ -558,3 +843,127 @@ def _gate(ok, new, old):
     if isinstance(new, torch.Tensor):
         return torch.where(ok, new, old)
     return type(new)(_gate(ok, a, b) for a, b in zip(new, old))
+
+
+# ---------------------------------------------------------------------------
+# Metric accumulation of fit()'s loop
+# ---------------------------------------------------------------------------
+
+def _acc_fold(carry: torch.Tensor, preds, labels) -> torch.Tensor:
+    """The JAX trainer's ``_fold_acc``: ``Accuracy.update`` for each
+    (pred, label) pair folded into the int32 correct-count carry on the
+    device (argmax over axis 1 of a pred with more than one dimension,
+    int32 casts, the count of matches)."""
+    with torch.no_grad():
+        for pred, label in zip(preds, labels):
+            if pred.ndim > 1:
+                pred = torch.argmax(pred, dim=1)
+            hit = (pred.to(torch.int32).reshape(-1)
+                   == label.to(torch.int32).reshape(-1))
+            carry = carry + hit.sum(dtype=torch.int32)
+    return carry
+
+
+class _AsyncMetric:
+    """Metric facade of ``fit`` that never syncs a batch.
+
+    ``Accuracy`` folds into a 0-d int32 carry on the device (inside
+    :meth:`ShardedTrainer._step_acc`, or through :func:`_acc_fold` over
+    the heads when the symbol has no labels); any other metric buffers head references
+    and replays them into the wrapped metric every ``period`` batches,
+    ``max(1, min(32, 64 MB // head bytes))``.  ``get``,
+    ``get_name_value`` and ``get_metric`` drain first, so a callback reads
+    exact values and the loop pays the sync only then.
+    """
+
+    _MAX_BUFFER_BYTES = 64 << 20
+
+    def __init__(self, inner, device):
+        from ..metric import Accuracy
+        self.inner = inner
+        self.device = device
+        self._on_device = type(inner) is Accuracy
+        self._dev_sum: Optional[torch.Tensor] = None   # the carry
+        self._dev_num = 0                              # instance count
+        self._buf: List[Tuple[Any, Any]] = []
+        self._period: Optional[int] = None
+
+    # -- fused path (the fold runs inside the train step) --------------
+
+    @property
+    def supports_fused(self):
+        return self._on_device
+
+    def take_carry(self) -> torch.Tensor:
+        c = self._dev_sum
+        if c is None:
+            c = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._dev_sum = None
+        return c
+
+    def put_carry(self, carry: torch.Tensor, ninst: int):
+        self._dev_sum = carry
+        self._dev_num += ninst
+
+    # -- EvalMetric surface ---------------------------------------------
+
+    @property
+    def name(self):
+        return self.inner.name
+
+    def reset(self):
+        self.inner.reset()
+        self._dev_sum = None
+        self._dev_num = 0
+        self._buf.clear()
+
+    def update(self, labels, preds):  # direct use falls through
+        self.inner.update(labels, preds)
+
+    def get(self):
+        self._drain()
+        return self.inner.get()
+
+    def get_name_value(self):
+        self._drain()
+        return self.inner.get_name_value()
+
+    def get_metric(self, index):
+        self._drain()
+        return self.inner.get_metric(index)
+
+    # -- deferred accumulation -------------------------------------------
+
+    def update_async(self, labels, outs):
+        labels = (list(labels) if isinstance(labels, (list, tuple))
+                  else [labels])
+        labels = [l.data if isinstance(l, NDArray) else l for l in labels]
+        if self._period is None:
+            nbytes = sum(o.numel() * o.element_size() for o in outs) or 1
+            self._period = max(1, min(32, self._MAX_BUFFER_BYTES // nbytes))
+        if self._on_device:
+            lvs = [_host_to(torch.as_tensor(label), pred.device)
+                   for label, pred in zip(labels, outs)]
+            self.put_carry(_acc_fold(self.take_carry(), outs, lvs),
+                           sum(lv.numel() for lv in lvs))
+            return
+        # keep references (a host copy here would sync every batch)
+        self._buf.append((labels, list(outs)))
+        if len(self._buf) >= self._period:
+            self._drain()
+
+    def _drain(self):
+        if self._on_device:
+            if self._dev_sum is not None:
+                with telemetry.span("metric.drain", fused=True):
+                    self.inner.sum_metric += int(self._dev_sum)
+                self.inner.num_inst += self._dev_num
+                self._dev_sum = None
+                self._dev_num = 0
+            return
+        if not self._buf:
+            return
+        with telemetry.span("metric.drain", batches=len(self._buf)):
+            for labels, outs in self._buf:
+                self.inner.update(labels, outs)
+            self._buf.clear()

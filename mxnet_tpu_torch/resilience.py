@@ -1,4 +1,5 @@
-"""Training guardrails: the non-finite step guard and global-norm clipping.
+"""Training guardrails: the non-finite step guard, global-norm clipping
+and the divergence sentinel.
 
 Counterpart of the in-step part of ``mxnet_tpu/resilience.py``.  The
 trainer reduces the gradients to one float32 statistic, their sum of
@@ -7,17 +8,23 @@ update (a bad step leaves parameters, optimizer state and aux states
 bitwise unchanged) and the effective norm ``sqrt(sq) * |rescale_grad|``
 sets the clip multiplier.  The guard's counters (:func:`init_state`,
 :func:`state_update`) live on the card as 0-d tensors, so no step waits
-for the host.
+for the host; ``ShardedTrainer.fit`` drains them every
+``GuardConfig.check_every`` batches into :class:`DivergenceSentinel`, a
+host-side detector that backs off the learning rate on a gradient-norm
+spike or an all-skipped window.
 
 :class:`Heartbeat` is the progress-based liveness tracker the serving
 router checks its replicas with.
 
-Loss scaling (``loss_scale``), the host-side divergence sentinel and the
-legacy Module/FeedForward guard are not ported yet (ROADMAP.md).
+Loss scaling (``loss_scale`` and its schedule knobs) and the legacy
+Module/FeedForward guard are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+import collections
+import logging
 import os
+import statistics
 import time
 from typing import Any, Dict, List, Optional
 
@@ -26,9 +33,15 @@ import torch
 from .base import not_ported
 
 __all__ = ["GuardConfig", "resolve", "init_state", "tree_sq_sum",
-           "state_update", "STATE_KEYS", "Heartbeat"]
+           "state_update", "STATE_KEYS", "DivergenceSentinel", "Heartbeat"]
+
+_LOGGER = logging.getLogger(__name__)
 
 STATE_KEYS = ("skipped", "norm_sum", "norm_cnt")
+
+# the loss-scale schedule's knobs, which raise until loss scaling is ported
+_LOSS_SCALE_KNOBS = ("init_scale", "growth_factor", "backoff_factor",
+                     "growth_interval", "min_scale", "max_scale")
 
 
 def _env_flag(name: str) -> Optional[bool]:
@@ -40,21 +53,43 @@ def _env_flag(name: str) -> Optional[bool]:
 
 class GuardConfig:
     """Static guard configuration: the non-finite skip is always on;
-    ``clip_global_norm`` adds the clip multiplier.  The JAX package's
-    loss-scale and sentinel knobs are not ported and raise."""
+    ``clip_global_norm`` adds the clip multiplier.  The sentinel knobs
+    (host side, read by :class:`DivergenceSentinel` and
+    ``ShardedTrainer.fit``) are the JAX package's, with its defaults; the
+    loss-scale knobs are not ported and raise."""
 
     def __init__(self, clip_global_norm: Optional[float] = None,
-                 loss_scale: Any = None, **knobs: Any):
+                 loss_scale: Any = None,
+                 check_every: int = 25,
+                 window: int = 16,
+                 min_history: int = 4,
+                 spike_factor: float = 8.0,
+                 lr_backoff: float = 0.5,
+                 min_lr_scale: float = 1.0 / 64.0,
+                 rollback_after: int = 2,
+                 cooldown: int = 2,
+                 **knobs: Any):
         if loss_scale is not None:
             raise not_ported("loss scaling (loss_scale)")
+        unknown = sorted(k for k in knobs if k not in _LOSS_SCALE_KNOBS)
+        if unknown:
+            raise TypeError(f"unknown guard knobs {unknown}")
         if knobs:
-            raise not_ported(f"guard knobs {sorted(knobs)} (loss-scale "
-                             "schedule, divergence sentinel)")
+            raise not_ported(f"guard knobs {sorted(knobs)} (the loss-scale "
+                             "schedule)")
         if clip_global_norm is not None:
             clip_global_norm = float(clip_global_norm)
             if clip_global_norm <= 0:
                 raise ValueError("clip_global_norm must be positive")
         self.clip_global_norm = clip_global_norm
+        self.check_every = int(check_every)
+        self.window = int(window)
+        self.min_history = int(min_history)
+        self.spike_factor = float(spike_factor)
+        self.lr_backoff = float(lr_backoff)
+        self.min_lr_scale = float(min_lr_scale)
+        self.rollback_after = int(rollback_after)
+        self.cooldown = int(cooldown)
 
 
 def resolve(guard: Optional[bool] = None,
@@ -114,6 +149,73 @@ def state_update(state: Dict[str, torch.Tensor], ok: torch.Tensor,
         ok, norm, torch.zeros_like(norm)).to(torch.float32)
     new["norm_cnt"] = state["norm_cnt"] + oki
     return new
+
+
+class DivergenceSentinel(object):
+    """Rolling anomaly detector over periodic guard-state drains.
+
+    ``observe`` gets the window's mean gradient norm (None when every
+    step in the window was skipped), the number of skipped steps and the
+    number of steps, and returns ``None``, ``"backoff"`` or
+    ``"rollback"``.  A spike is a window mean above ``spike_factor``
+    times the rolling median of healthy windows; an all-skipped window
+    is an anomaly too.  ``rollback_after`` anomalies in a row ask for a
+    rollback, after which ``cooldown`` windows pass unjudged while the
+    history refills."""
+
+    def __init__(self, cfg: GuardConfig, logger=None):
+        self.cfg = cfg
+        self.logger = logger or _LOGGER
+        self.history: "collections.deque" = collections.deque(
+            maxlen=cfg.window)
+        self.anomaly_streak = 0
+        self.cooldown = 0
+        self.backoffs = 0
+        self.rollbacks = 0
+
+    def observe(self, norm_mean: Optional[float], skipped: int,
+                steps: int) -> Optional[str]:
+        if steps <= 0:
+            return None
+        if self.cooldown > 0:
+            self.cooldown -= 1
+            if norm_mean is not None:
+                self.history.append(norm_mean)
+            return None
+        anomaly = False
+        reason = ""
+        if skipped >= steps:
+            anomaly = True
+            reason = "all %d steps in window skipped" % steps
+        if (norm_mean is not None and
+                len(self.history) >= self.cfg.min_history):
+            med = statistics.median(self.history)
+            if med > 0.0 and norm_mean > self.cfg.spike_factor * med:
+                anomaly = True
+                reason = ("grad-norm spike %.3g vs rolling median %.3g"
+                          % (norm_mean, med))
+        if not anomaly:
+            self.anomaly_streak = 0
+            if norm_mean is not None:
+                self.history.append(norm_mean)
+            return None
+        self.anomaly_streak += 1
+        from . import telemetry
+        telemetry.gauge("sentinel.anomaly_streak").set(self.anomaly_streak)
+        if self.anomaly_streak >= self.cfg.rollback_after:
+            self.anomaly_streak = 0
+            self.cooldown = self.cfg.cooldown
+            self.history.clear()
+            self.rollbacks += 1
+            telemetry.counter("sentinel.rollbacks").inc()
+            self.logger.warning("Resilience sentinel: %s -> rollback",
+                                reason)
+            return "rollback"
+        self.backoffs += 1
+        telemetry.counter("sentinel.backoffs").inc()
+        self.logger.warning("Resilience sentinel: %s -> LR backoff",
+                            reason)
+        return "backoff"
 
 
 class Heartbeat(object):

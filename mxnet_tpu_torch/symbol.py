@@ -22,10 +22,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from . import attribute, name as _name_mod
-from .base import MXNetError, not_ported
+from .base import MXNetError
 from .ops.registry import OP_REGISTRY, OpDef, get_op
 
-__all__ = ["Symbol", "Variable", "Group", "load_json", "var"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json", "var"]
 
 
 class _Node:
@@ -356,7 +356,11 @@ class Symbol:
         }, indent=2)
 
     def save(self, fname: str) -> None:
-        raise not_ported("Symbol.save (the symbol file format)")
+        """Write :meth:`tojson` to a path or ``scheme://`` URI; either
+        package's :func:`load` reads it back."""
+        from .stream import open_uri
+        with open_uri(fname, "w") as f:
+            f.write(self.tojson())
 
     # ------------------------------------------------------------------
     # Binding (executor.py)
@@ -545,11 +549,19 @@ def load_json(json_str: str) -> Symbol:
     return Symbol([(nodes[i], j) for (i, j) in data["heads"]])
 
 
+def load(fname: str) -> Symbol:
+    """A symbol from a file written by :meth:`Symbol.save` (either
+    package's)."""
+    from .stream import open_uri
+    with open_uri(fname, "r") as f:
+        return load_json(f.read())
+
+
 def _init_symbol_module():
     g = globals()
     for opname, op in OP_REGISTRY.items():
         fname = op.func_name or opname
-        if fname in ("Variable", "Group", "load_json"):
+        if fname in ("Variable", "Group", "load", "load_json"):
             continue
         g[fname] = _make_symbol_function(opname, fname)
         if opname != fname and opname not in g:

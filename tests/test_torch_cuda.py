@@ -891,3 +891,129 @@ def test_router_hot_rolling_swap_on_card(cuda):
     assert got == ref
     assert [rep.engine.swap_count for rep in router.replicas] == [1, 1]
     assert forms["hopper"] > 0 and forms["warp"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The training loop: device prefetch, the accuracy carry, fit
+# ---------------------------------------------------------------------------
+
+def _mlp_trainer(dev, batch=64):
+    from mxnet_tpu_torch import models, name
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    with name.NameManager():
+        sym = models.mlp()
+    tr = ShardedTrainer(sym, optimizer="sgd",
+                        optimizer_params={"learning_rate": 0.1,
+                                          "momentum": 0.9},
+                        guard=True, device=dev, seed=0)
+    return tr.bind({"data": (batch, 784)}, {"softmax_label": (batch,)})
+
+
+def _mlp_data(n, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(n, 784).astype(np.float32),
+            rng.randint(0, 10, n).astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_device_prefetch_batches_equal_a_synchronous_copy_under_load(cuda):
+    """``DevicePrefetchIter`` over ``place_batch`` stages each batch on its
+    side stream while a long kernel holds the consumer stream; every batch,
+    read on the consumer stream after that kernel, equals a synchronous
+    copy of the host batch bit for bit (no read before the copy landed, no
+    staged buffer reused while the consumer still reads it)."""
+    from mxnet_tpu_torch import io
+    tr = _mlp_trainer(cuda)
+    x, y = _mlp_data(64 * 12)
+    pf = io.DevicePrefetchIter(io.NDArrayIter(x, y, batch_size=64),
+                               place_fn=tr.place_batch, device=cuda,
+                               depth=3)
+    got = []
+    for b in pf:
+        torch.cuda._sleep(20_000_000)           # ~10 ms on the consumer
+        got.append({k: v.clone() for k, v in b.items()})
+        # churn the allocator while the copies are in flight
+        torch.empty(64 * 784 * 4, device=cuda).fill_(float("nan"))
+    torch.cuda.synchronize()
+    assert pf._stream is not None and len(got) == 12
+    for i, g in enumerate(got):
+        for k, host in (("data", x), ("softmax_label", y)):
+            want = torch.from_numpy(host[i * 64:(i + 1) * 64]).to(cuda)
+            assert torch.equal(g[k].view(torch.int32),
+                               want.view(torch.int32)), (i, k)
+    pf.close()
+
+
+@pytest.mark.cuda
+def test_step_acc_carry_equals_a_host_recount(cuda):
+    tr = _mlp_trainer(cuda)
+    x, y = _mlp_data(64 * 4, seed=1)
+    carry = torch.zeros((), dtype=torch.int32, device=cuda)
+    hits = 0
+    for i in range(4):
+        sl = slice(i * 64, (i + 1) * 64)
+        heads, carry = tr._step_acc({"data": x[sl], "softmax_label": y[sl]},
+                                    carry)
+        hits += int((heads[0].cpu().numpy().argmax(1)
+                     == y[sl].astype(np.int32)).sum())
+    assert carry.dtype == torch.int32 and carry.device.type == "cuda"
+    assert int(carry) == hits
+
+
+@pytest.mark.cuda
+def test_async_accuracy_of_host_labels_never_syncs(cuda):
+    """``fit``'s ``Accuracy`` facade on a symbol with no label names folds
+    host labels into its carry with no synchronizing call (the labels go
+    to the card from pinned memory, asynchronously); the drain equals a
+    host recount."""
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.parallel.trainer import _AsyncMetric
+    rng = np.random.RandomState(3)
+    preds = [rng.rand(64, 10).astype(np.float32) for _ in range(4)]
+    labels = [rng.randint(0, 10, 64).astype(np.float32) for _ in range(4)]
+    m = _AsyncMetric(metric.Accuracy(), cuda)
+    on_card = [torch.from_numpy(p).to(cuda) for p in preds]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for p, lbl in zip(on_card, labels):
+            m.update_async([lbl], [p])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = metric.Accuracy()
+    for p, lbl in zip(preds, labels):
+        host.update([lbl], [p])
+    assert m.get() == host.get()
+    assert (m.inner.sum_metric, m.inner.num_inst) == (host.sum_metric,
+                                                      host.num_inst)
+
+
+@pytest.mark.cuda
+def test_fit_on_card_equals_the_bare_step_loop(cuda):
+    """``fit`` (prefetch on a side stream, the accuracy fold, a
+    ``FactorScheduler``) leaves the state of a bare ``step`` loop over the
+    same batches, bit for bit, and its accuracy is the host recount."""
+    from mxnet_tpu_torch import io, lr_scheduler, metric
+    x, y = _mlp_data(64 * 6, seed=2)
+    fit_tr, bare = _mlp_trainer(cuda), _mlp_trainer(cuda)
+    for tr in (fit_tr, bare):
+        tr.optimizer.lr_scheduler = lr_scheduler.FactorScheduler(3, 0.5)
+        tr.optimizer.lr_scheduler.base_lr = 0.1
+    acc = metric.Accuracy()
+    fit_tr.fit(io.NDArrayIter(x, y, batch_size=64), eval_metric=acc,
+               num_epoch=2)
+    host = metric.Accuracy()
+    for _ in range(2):
+        host.reset()
+        for i in range(6):
+            sl = slice(i * 64, (i + 1) * 64)
+            heads = bare.step({"data": x[sl], "softmax_label": y[sl]})
+            host.update([y[sl]], heads)
+    assert (acc.sum_metric, acc.num_inst) == (host.sum_metric,
+                                              host.num_inst)
+    for a, b in ((fit_tr._flat_w, bare._flat_w),
+                 (fit_tr._flat_state[0], bare._flat_state[0])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # FactorScheduler(3, 0.5) has halved three times by update 12
+    assert float(fit_tr._lr_dev) == float(bare._lr_dev) == float(
+        np.float32(0.1 * 0.5 ** 3))

@@ -9,7 +9,8 @@ modules (symbol, models.resnet, models.transformer_lm, ops.fused_update,
 ops.attention_ops, parallel.trainer, parallel.flash_attention,
 parallel.ring_attention, parallel.mesh, quant), the imperative and
 executor modules (context, stream, ndarray, random, executor, operator,
-rtc, models.mnist) and ``chip_smoke``; a source scan checks every file of
+rtc, models.mnist), the training loop's modules (io, metric,
+lr_scheduler, callback, model) and ``chip_smoke``; a source scan checks every file of
 the port and the script for such imports.
 """
 import os
@@ -54,6 +55,10 @@ from mxnet_tpu_torch import (attribute, graph_eval, initializer, name,
 from mxnet_tpu_torch import (context, executor, operator, random, rtc,
                              stream)
 from mxnet_tpu_torch.models import mnist
+from mxnet_tpu_torch import callback, io, lr_scheduler, metric, model
+assert mxnet_tpu_torch.io is io and mxnet_tpu_torch.metric is metric
+assert mxnet_tpu_torch.lr_scheduler is lr_scheduler
+assert mxnet_tpu_torch.callback is callback
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")

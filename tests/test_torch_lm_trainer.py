@@ -39,6 +39,7 @@ import jax.numpy as jnp
 
 import mxnet_tpu as mx
 from mxnet_tpu import models as jmodels
+from mxnet_tpu import random as jrandom
 from mxnet_tpu.parallel import ShardedTrainer as JaxTrainer, make_mesh
 
 import mxnet_tpu_torch as mxt
@@ -49,6 +50,16 @@ from mxnet_tpu_torch.parallel import flash_attention as tfa
 from mxnet_tpu_torch.parallel import ring_attention as tra
 
 VOCAB, LAYERS, D, HEADS, BATCH = 61, 2, 32, 2, 2
+@pytest.fixture(autouse=True)
+def _keep_jax_random_state():
+    """Every JAX trainer draws its base key from the JAX package's global
+    PRNG: restore it, so the test files that run after this one in the
+    same process draw what they would draw without it."""
+    saved = dict(jrandom._state)
+    yield
+    jrandom._state.update(saved)
+
+
 SGD = ("sgd", {"learning_rate": 0.01, "momentum": 0.9})
 ADAM = ("adam", {"learning_rate": 1e-3})
 

@@ -123,12 +123,20 @@ def test_compose_and_group():
         tf(q=td)
 
 
-def test_unported_entry_points_raise():
+def test_unported_entry_points_raise(tmp_path):
     with pytest.raises(MXNetError, match="not ported"):
         tmodels.get_symbol("inception-bn")
     t = tmodels.resnet_cifar(n=1)
-    with pytest.raises(MXNetError, match="not ported"):
-        t.save("net.json")
+    # symbol files are ported: a file of either package loads in the other
+    # to the same graph
+    with mx.name.NameManager():
+        j = jmodels.resnet_cifar(n=1)
+    t.save(str(tmp_path / "t.json"))
+    j.save(str(tmp_path / "j.json"))
+    assert jsym.load(str(tmp_path / "t.json")).tojson() == t.tojson()
+    assert tsym.load(str(tmp_path / "j.json")).tojson() == j.tojson()
+    t.save("memory://net.json")
+    assert tsym.load("memory://net.json").tojson() == t.tojson()
     with pytest.raises(MXNetError, match="not ported"):
         t.simple_bind(mxt.cpu(), data=(1, 3, 8, 8)).warmup()
     with pytest.raises(ValueError, match="unknown network"):

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 
 import mxnet_tpu as mx
 from mxnet_tpu import models as jmodels
+from mxnet_tpu import random as jrandom
 from mxnet_tpu import symbol as jsym
 from mxnet_tpu.parallel import ShardedTrainer as JaxTrainer, make_mesh
 
@@ -42,6 +43,16 @@ from mxnet_tpu_torch.parallel import ShardedTrainer
 # the modules (each package's `models.resnet` attribute is the function)
 jresnet = sys.modules["mxnet_tpu.models.resnet"]
 tresnet = sys.modules["mxnet_tpu_torch.models.resnet"]
+
+@pytest.fixture(autouse=True)
+def _keep_jax_random_state():
+    """Every JAX trainer draws its base key from the JAX package's global
+    PRNG: restore it, so the test files that run after this one in the
+    same process draw what they would draw without it."""
+    saved = dict(jrandom._state)
+    yield
+    jrandom._state.update(saved)
+
 
 BATCH = 8
 OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
@@ -230,12 +241,15 @@ def test_unported_options_and_device_resolution():
                {"matmul_precision": "bfloat16"},
                {"grad_compression": "int8"},
                {"loss_scale": "dynamic"}, {"mesh": object()},
-               {"guard": True, "guard_params": {"window": 8}}):
+               {"guard": True, "guard_params": {"init_scale": 8.0}}):
         with pytest.raises(MXNetError, match="not ported"):
             ShardedTrainer(s, device="cpu", **kw)
-    tr = ShardedTrainer(s, device="cpu")
+    # the sentinel knobs are ported
+    tr = ShardedTrainer(s, device="cpu", guard=True,
+                        guard_params={"window": 8, "check_every": 5})
+    assert (tr._resil.window, tr._resil.check_every) == (8, 5)
     with pytest.raises(MXNetError, match="not ported"):
-        tr.fit(None)
+        tr.fit(None, checkpoint_manager=object())
     with pytest.raises(MXNetError, match="bind"):
         tr.step({})
     if not torch.cuda.is_available():

@@ -193,7 +193,38 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     prints fit's ms a batch beside the bare loops' (both between events
     recorded after each batch) and phases 7 and 9's (host wall time,
     synced each step), the sync counts and the idle share of a profiled fit epoch;
-14. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+14. runs the image-classification zoo and the legacy training API: (a)
+    ``examples/train_imagenet.py``'s trainer (``ShardedTrainer``, SGD
+    momentum 0.9, wd 1e-4, lr 0.01, ``compute_dtype="bfloat16"``,
+    ``Xavier``, the guard) on alexnet, VGG-16, googlenet and inception-bn
+    at phase 7's batch and image, 1000 classes, 8 steps each on one seeded
+    batch under deterministic cuDNN: finite falling losses, a second
+    trainer from the same seed bitwise equal (weights, momentum, moving
+    statistics; Dropout's masks included), each Dropout mask of the first
+    forward keeping 0.5 of its positions within 0.01, K1 once a forward
+    (warp form) and K2 once a step per pointer table (hopper form), no
+    synchronizing call in steps 2-8; prints each net's median ms a step
+    (CUDA events), images/s and peak memory, and Inception-BN's profiled
+    step by layer, its idle share and BatchNorm's share (the busy time
+    that goes when BatchNorm's forward is an identity); (b)
+    ``examples/train_cifar10.py --synthetic``'s flow
+    (``train_model.fit``'s one-device branch, ``FeedForward.fit``) on
+    inception-bn-28-small, batch 128, SGD lr 0.1 momentum 0.9 wd 1e-4,
+    ``Speedometer(128, 4)``, 2 epochs of 8 batches of ``synthetic_cifar``
+    images, 2 eval batches, ``do_checkpoint``, and ``Module.fit`` from
+    the same parameters: both bitwise equal to a bare loop of executor
+    ``forward``/``backward`` and ``get_updater``, the checkpoint reloads
+    bitwise, K1 once a forward; prints the ms a batch of the three and the
+    synchronizing calls a step (the LegacyGuard's one fetch); (c)
+    ``BucketingModule`` over ``examples/lstm_bucketing.py``'s LSTM at its
+    defaults, buckets 8 and 16 alternating over 6 batches: one array per
+    parameter in both buckets, the state bitwise a bare loop's, a finite
+    falling loss; (d) Deconvolution (groups, bias, a target needing an
+    adjustment of the stride), bilinear UpSampling (the bound weight and
+    the resize), LRN, L2Normalization, Crop, LeakyReLU and the
+    regression heads on the card against the CPU, forward and backward,
+    within ``TOL["float32"]``; no kernel is built;
+15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
@@ -357,6 +388,46 @@ K34_CASES = [dict(name=n, layout=lay, B=b, H=h, Lq=lq, Lk=lk, D=d,
     ("misaligned", "blhd", 1, 2, 256, 256, 64, True, "mma",
      dict(misaligned=True)),
 ]]
+# the zoo and the legacy API (phase 14): examples/train_imagenet.py's
+# trainer on the four ImageNet nets at phase 7's batch and image (bf16
+# compute, SGD momentum 0.9, wd 1e-4, the guard) for 8 steps at lr 0.01;
+# examples/train_cifar10.py --synthetic's FeedForward flow on
+# inception-bn-28-small (batch 128, 2 epochs of 8 batches, 2 eval
+# batches); examples/lstm_bucketing.py's BucketingModule at its defaults
+# over 6 batches alternating its buckets
+ZOO_NETS = ("alexnet", "vgg", "googlenet", "inception-bn")
+ZOO_STEPS = 8
+ZOO_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+ZOO_DROPOUT_TOL = 0.01           # a Dropout mask's kept share against 0.5
+CIFAR_IMAGE, CIFAR_BATCH = (3, 28, 28), 128
+CIFAR_BATCHES, CIFAR_EVAL_BATCHES, CIFAR_EPOCHS = 8, 2, 2
+CIFAR_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+CIFAR_FREQUENT = 4
+LSTM = dict(num_hidden=64, num_embed=32, vocab=16, batch=16)
+LSTM_BUCKETS, LSTM_BATCHES = (8, 16), 6
+LSTM_OPT = {"learning_rate": 0.5, "momentum": 0.9}
+# (d): the new ops on CUDA tensors against the same ops on CPU tensors;
+# the Deconvolution's target (34, 34) from 16x16 needs an adjustment of
+# 2, the stride
+ZOO_OP_CASES = [
+    ("Deconvolution", dict(kernel=(4, 4), stride=(2, 2), pad=(1, 1),
+                           num_filter=8, num_group=2, no_bias=False,
+                           target_shape=(34, 34)), {"data": (4, 6, 16, 16)}),
+    ("UpSampling", dict(scale=2, sample_type="bilinear", num_args=2,
+                        num_filter=6), {"data": (4, 6, 16, 16)}),
+    ("UpSampling", dict(scale=3, sample_type="bilinear"),
+     {"data": (4, 6, 16, 16)}),
+    ("LRN", dict(nsize=5, alpha=1e-4, beta=0.75, knorm=1),
+     {"data": (8, 96, 27, 27)}),
+    ("L2Normalization", dict(mode="channel"), {"data": (4, 8, 12, 12)}),
+    ("Crop", dict(offset=(2, 3), h_w=(9, 10)), {"data": (4, 6, 16, 16)}),
+    ("LeakyReLU", dict(act_type="prelu"), {"data": (4, 6, 16, 16)}),
+    ("LeakyReLU", dict(act_type="elu", slope=0.3), {"data": (4, 6, 16, 16)}),
+    ("LinearRegressionOutput", {}, {"data": (32, 10), "label": (32, 10)}),
+    ("LogisticRegressionOutput", {}, {"data": (32, 10), "label": (32, 10)}),
+    ("MAERegressionOutput", dict(grad_scale=2.0),
+     {"data": (32, 10), "label": (32, 10)}),
+]
 DEVICE = "cuda"
 
 
@@ -4055,6 +4126,553 @@ def phase_timing_rtc(torch, np, kern):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the zoo and the legacy API
+# ---------------------------------------------------------------------------
+
+def phase_zoo_legacy(torch, np, nn_ops, fu, _build):
+    """Phase 14: (a) the ImageNet nets through ShardedTrainer, (b)
+    FeedForward and Module on the CIFAR net against a bare executor loop,
+    (c) BucketingModule over the LSTM, (d) the new ops on the card against
+    the CPU; returns the launches of (a)-(c) and the phase's numbers."""
+    import tempfile
+    t_phase = time.perf_counter()
+    built, compile_ = [], _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    # every kernel was built in phase 2: an nvcc run here is a failure
+    _build._compile = counting
+    launches = {"softmax_rows": 0, "fused_update": 0}
+    out = {}
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    try:
+        # the replays and the bare loops are held bit for bit
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        out["imagenet"] = zoo_imagenet(torch, np, nn_ops, fu, launches)
+        with tempfile.TemporaryDirectory() as tmp:
+            out["cifar"] = zoo_cifar(torch, np, nn_ops, launches, tmp)
+        out["bucketing"] = zoo_bucketing(torch, np, nn_ops, launches)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+        _build._compile = compile_
+    out["ops"] = zoo_ops_vs_cpu(torch, np)
+    check(not built, f"kernels built during phase 14: {built}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    log("  zoo and legacy API: " + json.dumps(out))
+    return launches, out
+
+
+def zoo_imagenet(torch, np, nn_ops, fu, launches):
+    """(a) each ImageNet net: 8 steps, a replay from the same seed held
+    bit for bit, Dropout's kept share, K1/K2 launches, no sync in steps
+    2-8, no build; Inception-BN's profiled step and BatchNorm's share."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    rng = np.random.RandomState(5)
+    host = {"data": rng.rand(BATCH, *IMAGE).astype(np.float32),
+            "softmax_label": rng.randint(0, CLASSES, BATCH)
+            .astype(np.float32)}
+    stats = {}
+    for name in ZOO_NETS:
+        t0 = time.perf_counter()
+        sym = models.get_symbol(name, num_classes=CLASSES)
+        n_dropout = sum(1 for node in sym._topo() if not node.is_variable
+                        and node.op.name == "Dropout")
+
+        def trainer():
+            tr = ShardedTrainer(sym, optimizer="sgd",
+                                optimizer_params=dict(ZOO_OPT),
+                                initializer=Xavier(),
+                                compute_dtype="bfloat16", guard=True,
+                                device=DEVICE, seed=0)
+            return tr.bind({"data": (BATCH,) + IMAGE},
+                           {"softmax_label": (BATCH,)})
+
+        torch.cuda.reset_peak_memory_stats()
+        tr = trainer()
+        check(tr._fused and tr._fused_route == "hopper",
+              f"{name}: the trainer did not take K2's hopper route")
+        tables = len(tr._chunk_plan.tables)
+        batch = tr.place_batch(host)
+        torch.cuda.synchronize()
+        bind_s = time.perf_counter() - t0
+
+        def run(t, record_masks=False, counter=None):
+            real, shares = nn_ops.dropout_mask, []
+
+            def recording(x, keep, g):
+                m = real(x, keep, g)
+                shares.append(m.float().mean())
+                return m
+
+            heads, events = [], []
+            try:
+                for i in range(ZOO_STEPS):
+                    nn_ops.dropout_mask = (recording if record_masks
+                                           and i == 0 else real)
+                    if counter is not None and i == 1:
+                        counter.start()
+                    heads.append(t.step(batch)[0])
+                    events.append(record_event(torch))
+            finally:
+                nn_ops.dropout_mask = real
+                syncs = counter.stop() if counter is not None else None
+            return heads, events, shares, syncs
+
+        reset_train_counts(nn_ops.softmax_rows, fu.fused_update)
+        counter = SyncCounter(torch)
+        heads, events, shares, syncs = run(tr, True, counter)
+        step_ms = event_ms(torch, events, ZOO_STEPS)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        label = batch["softmax_label"]
+        losses = [cross_entropy(torch, h.float(), label) for h in heads]
+        shares = [float(v) for v in shares]
+        twin = trainer()
+        run(twin)
+        torch.cuda.synchronize()
+        diff = state_diff(torch, tr, twin)
+        k1, k1_forms = (nn_ops.softmax_rows.launches,
+                        dict(nn_ops.softmax_rows.launches_by_form))
+        k2, k2_forms = (fu.fused_update.launches,
+                        dict(fu.fused_update.launches_by_form))
+        steps = 2 * ZOO_STEPS
+        log(f"  (a) {name}: losses {['%.4f' % v for v in losses]}")
+        check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{name}: loss did not fall {losses}")
+        check(not diff, f"{name}: a second trainer from the same seed "
+              f"differs in {diff}")
+        check(len(shares) == n_dropout, f"{name}: {len(shares)} Dropout "
+              f"masks recorded, {n_dropout} Dropout nodes")
+        check(all(abs(v - 0.5) <= ZOO_DROPOUT_TOL for v in shares),
+              f"{name}: Dropout kept shares {shares}")
+        check(k1 == steps and k1_forms["warp"] == k1,
+              f"{name}: K1 launched {k1} times ({k1_forms}) in {steps} "
+              "training forwards")
+        check(k2 == steps * tables
+              and k2_forms == {"hopper": k2, "bucket": 0},
+              f"{name}: K2 launched {k2} times ({k2_forms}) in {steps} "
+              f"steps over {tables} pointer table(s)")
+        check(syncs["outside"] == 0 and syncs["other threads"] == 0,
+              f"{name}: synchronizing calls in steps 2-{ZOO_STEPS}: "
+              f"{syncs}")
+        med = float(np.median(step_ms))
+        row = {"median_step_ms": med, "step_ms": step_ms,
+               "images_per_s": BATCH / med * 1e3, "peak_gib": peak_gib,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "dropout_kept": shares, "k2_tables": tables,
+               "bind_s": bind_s, "syncs_steps_2_8": syncs}
+        if name == "inception-bn":
+            # BatchNorm's device time: the step's busy time less a step's
+            # with BatchNorm's forward an identity
+            prof = profile_step(torch, lambda: tr.step(batch),
+                                label=f"{name} profiled step")
+            bn = get_op("BatchNorm")
+            real_fwd = bn.forward
+            bn.forward = lambda ctx, params, data, gamma, beta: data
+            try:
+                prof_id = profile_step(
+                    torch, lambda: tr.step(batch),
+                    label=f"{name} step, BatchNorm an identity")
+            finally:
+                bn.forward = real_fwd
+            bn_ms = prof["device_busy_ms"] - prof_id["device_busy_ms"]
+            row.update(profile=prof, batchnorm_ms=bn_ms,
+                       batchnorm_share=bn_ms / prof["device_busy_ms"],
+                       idle_share=prof["idle_share"])
+        launches["softmax_rows"] += nn_ops.softmax_rows.launches
+        launches["fused_update"] += fu.fused_update.launches
+        log(f"  (a) {name}: {med:.3f} ms a step, "
+            f"{row['images_per_s']:.1f} images/s, peak {peak_gib:.2f} GiB; "
+            f"replay bitwise; Dropout kept {shares}; K1 {k1} (warp), K2 "
+            f"{k2} (hopper, {tables} table(s)); 0 syncs in steps 2-"
+            f"{ZOO_STEPS}")
+        stats[name] = row
+        del tr, twin, heads, batch
+        torch.cuda.empty_cache()
+    return stats
+
+
+def synthetic_cifar(np, n, seed=0):
+    """examples/train_cifar10.py's ``synthetic_cifar``: fixed class
+    prototypes plus seeded noise."""
+    protos = np.random.RandomState(0).rand(10, *CIFAR_IMAGE) \
+        .astype(np.float32)
+    rng = np.random.RandomState(seed + 100)
+    y = rng.randint(0, 10, n)
+    x = protos[y] + 0.2 * rng.randn(n, *CIFAR_IMAGE).astype(np.float32)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def legacy_bitwise(torch, got, want, what):
+    """Two {name: NDArray} dicts bit for bit."""
+    for n, v in want.items():
+        check(got[n].data.detach().reshape(-1).view(torch.uint8).equal(
+            v.data.detach().reshape(-1).view(torch.uint8).to(
+                got[n].data.device)), f"{what}: {n} differs")
+
+
+def zoo_cifar(torch, np, nn_ops, launches, tmp):
+    """(b) examples/train_cifar10.py --synthetic's FeedForward.fit, and
+    Module.fit, each held bit for bit to a bare executor loop."""
+    from mxnet_tpu_torch import (callback, initializer, io, metric, model,
+                                 models, ndarray, optimizer)
+    from mxnet_tpu_torch import module as mod_api
+    from mxnet_tpu_torch.context import cpu, gpu
+
+    sym = models.get_symbol("inception-bn-28-small")
+    n = CIFAR_BATCHES * CIFAR_BATCH
+    x, y = synthetic_cifar(np, n)
+    xe, ye = synthetic_cifar(np, CIFAR_EVAL_BATCHES * CIFAR_BATCH, seed=1)
+    inputs = {"data": (CIFAR_BATCH,) + CIFAR_IMAGE,
+              "softmax_label": (CIFAR_BATCH,)}
+    arg_shapes, _, aux_shapes = sym.infer_shape(**inputs)
+    names = [a for a in sym.list_arguments() if a not in inputs]
+    gen = torch.Generator().manual_seed(0)
+    with cpu():
+        args0, aux0 = {}, {}
+        for a, shape in zip(sym.list_arguments(), arg_shapes):
+            if a in names:
+                args0[a] = ndarray.zeros(shape)
+                initializer.Xavier()(a, args0[a], generator=gen)
+        for a, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+            aux0[a] = ndarray.zeros(shape)
+            initializer.Xavier()(a, aux0[a])
+    ctx = gpu(0) if DEVICE == "cuda" else cpu()
+    opt_kw = dict(CIFAR_OPT, skip_nonfinite=True)
+
+    def iters():
+        return (io.NDArrayIter(x, y, batch_size=CIFAR_BATCH),
+                io.NDArrayIter(xe, ye, batch_size=CIFAR_BATCH))
+
+    def timed(events):
+        speed = callback.Speedometer(CIFAR_BATCH, CIFAR_FREQUENT)
+        return [speed, lambda p: events.append(record_event(torch))]
+
+    res = {}
+    # FeedForward, as examples/train_model.py drives it on one device
+    reset_train_counts(nn_ops.softmax_rows)
+    ff_events, prefix = [], os.path.join(tmp, "cifar")
+    train, val = iters()
+    ff = model.FeedForward(sym, ctx=ctx, num_epoch=CIFAR_EPOCHS,
+                           optimizer="sgd",
+                           initializer=initializer.Xavier(),
+                           arg_params=args0, aux_params=aux0, **opt_kw)
+    # drains: copying the parameters in, the eval forwards, the metric's
+    # reads and the checkpoint; the steps should make one synchronizing
+    # call each, the LegacyGuard's fetch
+    counter = SyncCounter(torch, [
+        (model.FeedForward, "_init_params"), (model._TrainLoop, "_evaluate"),
+        (metric.AsyncMetric, "_drain")])
+    checkpoint = callback.do_checkpoint(prefix)
+    counter.start()
+    try:
+        ff.fit(X=train, eval_data=val, kvstore=None,
+               batch_end_callback=timed(ff_events),
+               epoch_end_callback=lambda *a: counter.drain(checkpoint, *a))
+    finally:
+        ff_syncs = counter.stop()
+    ff_sites = counter.sites
+    ff_k1 = nn_ops.softmax_rows.launches
+    res["feedforward_ms"] = event_ms(torch, ff_events, CIFAR_BATCHES)
+    res["feedforward_syncs"] = ff_syncs
+    res["feedforward_sync_sites"] = ff_sites
+
+    # Module.fit from the same parameters
+    reset_train_counts(nn_ops.softmax_rows)
+    mod_events = []
+    train, val = iters()
+    m = mod_api.Module(sym, context=ctx)
+    counter = SyncCounter(torch, [
+        (mod_api.Module, "init_params"), (mod_api.BaseModule, "score"),
+        (metric.AsyncMetric, "_drain")])
+    counter.start()
+    try:
+        m.fit(train, eval_data=val, eval_metric="acc",
+              num_epoch=CIFAR_EPOCHS, optimizer="sgd",
+              optimizer_params=opt_kw, arg_params=args0, aux_params=aux0,
+              batch_end_callback=timed(mod_events))
+    finally:
+        mod_syncs = counter.stop()
+    mod_k1 = nn_ops.softmax_rows.launches
+    res["module_ms"] = event_ms(torch, mod_events, CIFAR_BATCHES)
+    res["module_syncs"] = mod_syncs
+    res["module_sync_sites"] = counter.sites
+
+    # the bare loop: executor forward/backward and get_updater
+    reset_train_counts(nn_ops.softmax_rows)
+    ex = sym.simple_bind(ctx, grad_req={a: "write" for a in names},
+                         **inputs)
+    ex.copy_params_from(args0, aux0)
+    opt = optimizer.create("sgd", rescale_grad=1.0 / CIFAR_BATCH, sym=sym,
+                           param_idx2name=dict(enumerate(names)), **opt_kw)
+    updater = optimizer.get_updater(opt)
+    bare_events, losses = [], []
+    for _ in range(CIFAR_EPOCHS):
+        for i in range(CIFAR_BATCHES):
+            sl = slice(i * CIFAR_BATCH, (i + 1) * CIFAR_BATCH)
+            prob = ex.forward(is_train=True, data=x[sl],
+                              softmax_label=y[sl])[0]
+            losses.append(prob.data)
+            ex.backward()
+            for k, a in enumerate(names):
+                updater(k, ex.grad_dict[a], ex.arg_dict[a])
+            bare_events.append(record_event(torch))
+    bare_k1 = nn_ops.softmax_rows.launches
+    res["bare_ms"] = event_ms(torch, bare_events, CIFAR_BATCHES)
+    labels = torch.as_tensor(y).to(losses[0].device)
+    per_batch = [cross_entropy(torch, p, labels[(j % CIFAR_BATCHES)
+                                                * CIFAR_BATCH:
+                                                (j % CIFAR_BATCHES + 1)
+                                                * CIFAR_BATCH])
+                 for j, p in enumerate(losses)]
+    check(all(np.isfinite(per_batch)), f"bare loop losses {per_batch}")
+    check(per_batch[-1] < per_batch[0], f"loss did not fall: {per_batch}")
+
+    bare = {a: ex.arg_dict[a] for a in names}
+    legacy_bitwise(torch, ff.arg_params, bare, "FeedForward against the "
+                   "bare loop")
+    legacy_bitwise(torch, ff.aux_params, ex.aux_dict, "FeedForward against "
+                   "the bare loop (aux)")
+    m_arg, m_aux = m.get_params()
+    legacy_bitwise(torch, m_arg, bare, "Module against the bare loop")
+    legacy_bitwise(torch, m_aux, ex.aux_dict, "Module against the bare "
+                   "loop (aux)")
+    with cpu():
+        _, ck_arg, ck_aux = model.load_checkpoint(prefix, CIFAR_EPOCHS)
+    legacy_bitwise(torch, ck_arg, ff.arg_params, "the checkpoint")
+    legacy_bitwise(torch, ck_aux, ff.aux_params, "the checkpoint (aux)")
+    steps = CIFAR_EPOCHS * CIFAR_BATCHES
+    evals = CIFAR_EPOCHS * CIFAR_EVAL_BATCHES
+    for who, k1, fwd in (("FeedForward", ff_k1, steps + evals),
+                         ("Module", mod_k1, steps + evals),
+                         ("the bare loop", bare_k1, steps)):
+        check(k1 == fwd, f"{who}: K1 launched {k1} times in {fwd} "
+              "forwards")
+        launches["softmax_rows"] += k1
+    med = {k: float(np.median(res[k]))
+           for k in ("feedforward_ms", "module_ms", "bare_ms")}
+    res.update({f"{k}_median": v for k, v in med.items()})
+    for who, syncs, sites in (("FeedForward", ff_syncs, ff_sites),
+                              ("Module", mod_syncs,
+                               res["module_sync_sites"])):
+        check(syncs["outside"] == steps or DEVICE != "cuda",
+              f"{who} made {syncs['outside']} synchronizing calls outside "
+              f"its drains in {steps} steps, expected the LegacyGuard's "
+              f"one a step: {sites.get('outside')}")
+    res["syncs_per_step"] = {
+        "feedforward": ff_syncs["outside"] / steps,
+        "feedforward_worker": ff_syncs["other threads"] / steps,
+        "module": mod_syncs["outside"] / steps,
+        "module_worker": mod_syncs["other threads"] / steps}
+    res["loss_first"], res["loss_last"] = per_batch[0], per_batch[-1]
+    log(f"  (b) inception-bn-28-small: FeedForward "
+        f"{med['feedforward_ms']:.3f} ms a batch, Module "
+        f"{med['module_ms']:.3f}, the bare loop {med['bare_ms']:.3f}; both "
+        "bitwise the bare loop's, the checkpoint reloads bitwise; K1 "
+        f"{ff_k1} + {mod_k1} + {bare_k1}; synchronizing calls a step "
+        f"{res['syncs_per_step']}")
+    return res
+
+
+def lstm_unroll(S, num_hidden, seq_len, vocab, num_embed):
+    """examples/lstm_bucketing.py's unrolled LSTM symbol."""
+    weights = {k: S.Variable(k) for k in (
+        "embed_weight", "l0_i2h_weight", "l0_i2h_bias", "l0_h2h_weight",
+        "l0_h2h_bias", "cls_weight", "cls_bias")}
+    c, h = S.Variable("l0_init_c"), S.Variable("l0_init_h")
+    embed = S.Embedding(data=S.Variable("data"), input_dim=vocab,
+                        output_dim=num_embed,
+                        weight=weights["embed_weight"], name="embed")
+    steps = S.SliceChannel(data=embed, num_outputs=seq_len, axis=1,
+                           squeeze_axis=True, name="step_slice")
+    outs = []
+    for t in range(seq_len):
+        i2h = S.FullyConnected(data=steps[t], num_hidden=num_hidden * 4,
+                               weight=weights["l0_i2h_weight"],
+                               bias=weights["l0_i2h_bias"], name=f"t{t}_i2h")
+        h2h = S.FullyConnected(data=h, num_hidden=num_hidden * 4,
+                               weight=weights["l0_h2h_weight"],
+                               bias=weights["l0_h2h_bias"], name=f"t{t}_h2h")
+        gates = S.SliceChannel(data=i2h + h2h, num_outputs=4,
+                               name=f"t{t}_slice")
+        in_gate = S.Activation(data=gates[0], act_type="sigmoid")
+        in_trans = S.Activation(data=gates[1], act_type="tanh")
+        forget = S.Activation(data=gates[2], act_type="sigmoid")
+        out_gate = S.Activation(data=gates[3], act_type="sigmoid")
+        c = (forget * c) + (in_gate * in_trans)
+        h = out_gate * S.Activation(data=c, act_type="tanh")
+        fc = S.FullyConnected(data=h, num_hidden=vocab,
+                              weight=weights["cls_weight"],
+                              bias=weights["cls_bias"], name=f"t{t}_cls")
+        outs.append(S.expand_dims(fc, axis=1))
+    logits = S.Reshape(data=S.Concat(*outs, dim=1, name="concat"),
+                       shape=(-1, vocab))
+    label = S.Reshape(data=S.Variable("softmax_label"), shape=(-1,))
+    return S.SoftmaxOutput(data=logits, label=label, name="softmax")
+
+
+def zoo_bucketing(torch, np, nn_ops, launches):
+    """(c) BucketingModule over the LSTM, the buckets alternating: one
+    parameter array in both buckets, the state a bare loop's bit for bit,
+    a finite falling loss."""
+    from mxnet_tpu_torch import io, ndarray, optimizer
+    from mxnet_tpu_torch import module as mod_api
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.context import cpu, gpu
+
+    hid, vocab, bsz = LSTM["num_hidden"], LSTM["vocab"], LSTM["batch"]
+    data_names = ("data", "l0_init_c", "l0_init_h")
+
+    def sym_gen(key):
+        return (lstm_unroll(S, hid, key, vocab, LSTM["num_embed"]),
+                data_names, ("softmax_label",))
+
+    rng = np.random.RandomState(0)
+    batches = []
+    for i in range(LSTM_BATCHES):
+        key = LSTM_BUCKETS[i % 2]
+        seq = (rng.randint(0, vocab, (bsz, 1)) + np.arange(key + 1)) % vocab
+        batches.append((key, seq[:, :-1].astype(np.float32),
+                        seq[:, 1:].astype(np.float32)))
+    zeros = np.zeros((bsz, hid), np.float32)
+
+    def shapes(key):
+        return ([("data", (bsz, key)), ("l0_init_c", (bsz, hid)),
+                 ("l0_init_h", (bsz, hid))], [("softmax_label", (bsz, key))])
+
+    default = max(LSTM_BUCKETS)
+    net16 = sym_gen(default)[0]
+    arg_shapes, _, _ = net16.infer_shape(**dict(sum(shapes(default), [])))
+    names = [a for a, _ in zip(net16.list_arguments(), arg_shapes)
+             if a not in data_names and a != "softmax_label"]
+    prng = np.random.RandomState(1)
+    params = {a: prng.uniform(-0.1, 0.1, s).astype(np.float32)
+              for a, s in zip(net16.list_arguments(), arg_shapes)
+              if a in names}
+    ctx = gpu(0) if DEVICE == "cuda" else cpu()
+
+    def batch_of(key, xb, yb):
+        return io.DataBatch(
+            data=[ndarray.array(xb, ctx=cpu()), ndarray.array(zeros,
+                                                              ctx=cpu()),
+                  ndarray.array(zeros, ctx=cpu())],
+            label=[ndarray.array(yb, ctx=cpu())], bucket_key=key,
+            provide_data=shapes(key)[0], provide_label=shapes(key)[1])
+
+    def loss(prob, yb):
+        return cross_entropy(torch, prob, torch.as_tensor(
+            yb.reshape(-1)).to(prob.device))
+
+    reset_train_counts(nn_ops.softmax_rows)
+    mod = mod_api.BucketingModule(sym_gen, default_bucket_key=default,
+                                  context=ctx)
+    mod.bind(*shapes(default))
+    with cpu():
+        mod.init_params(arg_params={a: ndarray.array(v)
+                                    for a, v in params.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(LSTM_OPT))
+    losses = []
+    for key, xb, yb in batches:
+        mod.forward(batch_of(key, xb, yb), is_train=True)
+        losses.append(loss(mod.get_outputs()[0].data, yb))
+        mod.backward()
+        mod.update()
+    key0, x0, y0 = batches[0]
+    mod.forward(batch_of(key0, x0, y0), is_train=False)
+    after = loss(mod.get_outputs()[0].data, y0)
+    mod_k1 = nn_ops.softmax_rows.launches
+
+    # the bare loop: one executor a bucket, the second sharing the
+    # first's arrays, and the updater
+    reset_train_counts(nn_ops.softmax_rows)
+    req = {a: "write" for a in names}
+    ex = {default: net16.simple_bind(ctx, grad_req=req,
+                                     **dict(sum(shapes(default), [])))}
+    for k in LSTM_BUCKETS:
+        if k != default:
+            ex[k] = sym_gen(k)[0].simple_bind(
+                ctx, grad_req=req, shared_exec=ex[default],
+                **dict(sum(shapes(k), [])))
+    ex[default].copy_params_from(params)
+    opt = optimizer.create("sgd", rescale_grad=1.0 / bsz,
+                           param_idx2name=dict(enumerate(names)),
+                           **LSTM_OPT)
+    updater = optimizer.get_updater(opt)
+    for key, xb, yb in batches:
+        e = ex[key]
+        e.forward(is_train=True, data=xb, l0_init_c=zeros, l0_init_h=zeros,
+                  softmax_label=yb)
+        e.backward()
+        for k, a in enumerate(names):
+            updater(k, e.grad_dict[a], e.arg_dict[a])
+    bare_k1 = nn_ops.softmax_rows.launches
+    shared = {a: {id(b._exec_group.execs[0].arg_dict[a])
+                  for b in mod._buckets.values()} for a in names}
+    check(sorted(mod._buckets) == sorted(LSTM_BUCKETS),
+          f"buckets bound: {sorted(mod._buckets)}")
+    check(all(len(v) == 1 for v in shared.values()),
+          f"parameters not shared between the buckets: {shared}")
+    got = mod.get_params()[0]
+    legacy_bitwise(torch, got, {a: ex[default].arg_dict[a] for a in names},
+                   "BucketingModule against the bare loop")
+    check(all(np.isfinite(losses)) and np.isfinite(after),
+          f"losses {losses}, {after}")
+    check(after < losses[0], f"batch 0's loss {losses[0]} -> {after}")
+    check(mod_k1 == LSTM_BATCHES + 1 and bare_k1 == LSTM_BATCHES,
+          f"K1 launched {mod_k1} and {bare_k1} times")
+    launches["softmax_rows"] += mod_k1 + bare_k1
+    log(f"  (c) BucketingModule, buckets {LSTM_BUCKETS}: losses "
+        f"{['%.4f' % v for v in losses]}, batch 0 after {after:.4f}; one "
+        "array per parameter in both buckets, state bitwise the bare "
+        f"loop's; K1 {mod_k1} + {bare_k1}")
+    return {"losses": losses, "batch0_after": after,
+            "switches": mod.cache_report()}
+
+
+def zoo_ops_vs_cpu(torch, np):
+    """(d) each new op on CUDA tensors against the same op on CPU tensors,
+    forward and backward, within ``TOL["float32"]`` of 1 + |CPU value|."""
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.context import cpu, gpu
+
+    errs = {}
+    for i, (op, params, inputs) in enumerate(ZOO_OP_CASES):
+        net = getattr(S, op)(name="op", **{k: S.Variable(k) for k in inputs},
+                             **params)
+        arg_shapes, _, _ = net.infer_shape(**inputs)
+        rng = np.random.RandomState(i)
+        vals = {a: rng.uniform(-1, 1, s).astype(np.float32)
+                for a, s in zip(net.list_arguments(), arg_shapes)}
+        res = []
+        for ctx in (cpu(), gpu(0) if DEVICE == "cuda" else cpu()):
+            ex = net.simple_bind(ctx, **inputs)
+            outs = ex.forward(is_train=True, **vals)
+            heads = [np.random.RandomState(100 + i).uniform(
+                -1, 1, o.shape).astype(np.float32) for o in outs]
+            ex.backward(heads)
+            res.append([o.asnumpy() for o in outs]
+                       + [ex.grad_dict[a].asnumpy() for a in sorted(vals)])
+        err = max(float(np.max(np.abs(g - w) / (1.0 + np.abs(w))))
+                  for g, w in zip(*res))
+        key = f"{op} {params}"
+        errs[key] = err
+        check(err <= TOL["float32"], f"(d) {key}: card against CPU {err}")
+    log(f"  (d) {len(errs)} op cases, card against CPU, forward and "
+        f"backward: max error {max(errs.values()):.3g} (tolerance "
+        f"{TOL['float32']})")
+    return errs
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -4113,14 +4731,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/14] device")
+    log("[1/15] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/14] build")
+    log("[2/15] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -4135,7 +4753,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/14] kernels against their plain versions")
+    log("[3/15] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -4144,22 +4762,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/14] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/15] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/14] serving the round-12 configuration: chunked prefill "
+    log(f"[5/15] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/14] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/15] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/14] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/15] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/14] kernel timing")
+    log("[8/15] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -4176,25 +4794,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/14] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/15] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/14] imperative + executor: NDArray on the card, the MLP "
+    log("[10/15] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/14] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/15] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/14] the serving control plane: crash failover, a hung and a "
+    log("[12/15] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -4202,7 +4820,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/14] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/15] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -4210,7 +4828,15 @@ def main(argv) -> int:
         lm_stats["median_step_ms"])
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
-    log("[14/14] result")
+    t0 = time.perf_counter()
+    log(f"[14/15] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+        f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
+        "FeedForward and Module on inception-bn-28-small, BucketingModule "
+        "over the LSTM, the new ops on the card")
+    zoo_launches, _ = phase_zoo_legacy(torch, np, nn_ops, fu, _build)
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    log("[15/15] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -4230,15 +4856,18 @@ def main(argv) -> int:
              if k.endswith("float32 q, hopper"))),
         ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",
          "mxnet_tpu/ops/nn_ops.py:847",
-         train_launches["softmax_rows"] + loop_launches["softmax_rows"],
+         train_launches["softmax_rows"] + loop_launches["softmax_rows"]
+         + zoo_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
-        # K2 runs on both training paths: ResNet-50 (SGD) and the LM
-        # (Adam), stepped bare (phases 7, 9) and through fit (phase 13)
+        # K2 runs on the training paths: ResNet-50 (SGD) and the LM
+        # (Adam), stepped bare (phases 7, 9) and through fit (phase 13),
+        # and the four ImageNet nets (phase 14)
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
          "mxnet_tpu/ops/fused_update.py:216",
          train_launches["fused_update"] + lm_launches["fused_update"]
-         + loop_launches["fused_update"], k2_err),
+         + loop_launches["fused_update"] + zoo_launches["fused_update"],
+         k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
          lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"],

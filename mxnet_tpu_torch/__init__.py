@@ -11,32 +11,41 @@ traffic simulator, serve chaos and the :mod:`~mxnet_tpu_torch.telemetry`
 plane), training symbol graphs such as
 ResNet-50 on one device (``symbol``, ``models.get_symbol``,
 ``parallel.ShardedTrainer`` with its ``fit`` loop over ``io`` iterators,
-``metric``, ``lr_scheduler``, ``callback`` and ``model`` checkpoints), and the imperative and executor API
+``metric``, ``lr_scheduler``, ``callback`` and ``model`` checkpoints),
+the whole model zoo and the legacy training API (``FeedForward``,
+``mod.Module`` and its relatives, ``Monitor``), and the imperative and
+executor API
 (``nd``, ``random``, ``Symbol.simple_bind``, ``optimizer.get_updater``,
 custom ops in ``operator`` and user CUDA kernels in ``rtc``).  Entry
 points run on the card unless the caller passes ``device="cpu"`` (or
 works under ``with mx.cpu():``).
 """
 from . import (attribute, base, callback, chaos, compile_cache, context,
-               executor, graph_eval, initializer, io, lr_scheduler, metric,
-               model, models, name, ndarray, operator, ops, optimizer,
-               parallel, random, resilience, rtc, serve, stream, symbol,
-               telemetry)
+               executor, executor_manager, graph_eval, initializer, io,
+               lr_scheduler, metric, model, models, module, monitor, name,
+               ndarray, operator, ops, optimizer, parallel, random,
+               resilience, rtc, serve, stream, symbol, telemetry)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
 from .executor import Executor
+from .model import FeedForward, load_checkpoint, save_checkpoint
+from .monitor import Monitor
 from .parallel import ShardedTrainer
 from .serve import Engine, EngineConfig, ServeError, kvcache
 from .symbol import Group
 
 sym = symbol
 nd = ndarray
+mod = module
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "resolve_device", "Engine", "EngineConfig", "Executor", "Group",
-           "ServeError", "ShardedTrainer", "kvcache", "attribute", "base",
-           "callback", "chaos", "compile_cache", "context", "executor",
-           "graph_eval", "initializer", "io", "lr_scheduler", "metric",
-           "model", "models", "name", "nd", "ndarray", "operator", "ops",
-           "optimizer", "parallel", "random", "resilience", "rtc", "serve",
-           "stream", "sym", "symbol", "telemetry"]
+           "resolve_device", "Engine", "EngineConfig", "Executor",
+           "FeedForward", "Group", "Monitor", "ServeError", "ShardedTrainer",
+           "kvcache", "attribute", "base", "callback", "chaos",
+           "compile_cache", "context", "executor", "executor_manager",
+           "graph_eval", "initializer", "io", "load_checkpoint",
+           "lr_scheduler", "metric", "mod", "model", "models", "module",
+           "monitor", "name", "nd", "ndarray", "operator", "ops",
+           "optimizer", "parallel", "random", "resilience", "rtc",
+           "save_checkpoint", "serve", "stream", "sym", "symbol",
+           "telemetry"]

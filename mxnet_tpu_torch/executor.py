@@ -13,7 +13,10 @@ symbol into jitted programs; here the graph runs eagerly through
   gradient arrays under ``grad_req`` ``write`` (overwrite), ``add``
   (accumulate) or ``null`` (untouched).  Without a recorded graph (the
   last forward was not a training one) it first runs the training
-  forward on the bound values and the aux states of that forward.
+  forward on the bound values, the aux states and the random key of that
+  forward (:func:`~mxnet_tpu_torch.random.next_key`, drawn once per
+  ``forward``), as the JAX executor's ``_frozen_rng`` does: the gradient
+  comes from the same Dropout masks as the outputs returned.
 * Auxiliary states (BatchNorm's moving statistics) are updated in place
   after a training forward, the reference's mutate-in-forward semantics.
 
@@ -33,6 +36,7 @@ import torch
 from .base import MXNetError, not_ported
 from .context import Context, as_context, resolve_device
 from .graph_eval import eval_symbol
+from . import random as _random
 from .ndarray import NDArray
 
 __all__ = ["Executor"]
@@ -50,10 +54,13 @@ def _as_req_dict(grad_req, arg_names: List[str]) -> Dict[str, str]:
 
 class Executor:
     """One Symbol bound to argument, gradient and aux arrays on one
-    context."""
+    context.  ``shared_exec`` is taken for the JAX signature, whose
+    executors share their compiled programs there; an eager graph has
+    none (``Symbol.simple_bind(shared_exec=...)`` shares the arrays)."""
 
     def __init__(self, symbol, ctx: Context, args, args_grad=None,
-                 grad_req="write", aux_states=None, group2ctx=None):
+                 grad_req="write", aux_states=None, group2ctx=None,
+                 shared_exec=None):
         if group2ctx:
             raise not_ported("Executor(group2ctx=...) (model-parallel "
                              "placement)")
@@ -110,15 +117,12 @@ class Executor:
         self._graph = None          # (heads, leaves) of a training forward
         self._forwarded = False
         self._frozen_aux: Dict[str, torch.Tensor] = {}
+        self._frozen_key = None
         self._monitor_cb: Optional[Callable[[str, NDArray], None]] = None
 
     # ------------------------------------------------------------------
     # Running the graph
     # ------------------------------------------------------------------
-
-    def _rng(self):
-        from . import random as _random
-        return _random.generator(self._ctx)
 
     def _run(self, is_train: bool, aux_vals: Dict[str, torch.Tensor],
              want_internals: bool = False):
@@ -134,8 +138,8 @@ class Executor:
                 leaves[n] = t
             arg_vals[n] = t
         with torch.set_grad_enabled(record):
-            res = eval_symbol(self._symbol, arg_vals, aux_vals, self._rng(),
-                              is_train, want_internals=want_internals,
+            res = eval_symbol(self._symbol, arg_vals, aux_vals,
+                              self._frozen_key, is_train, want_internals=want_internals,
                               topo=self._topo)
         self._graph = (res[0], leaves) if record else None
         if is_train:
@@ -154,10 +158,12 @@ class Executor:
         self._forwarded = True
         self._frozen_aux = {n: a.data.clone()
                             for n, a in self._aux_dict.items()}
+        self._frozen_key = _random.next_key(self._ctx)
         res = self._run(bool(is_train), self._frozen_aux,
                         want_internals=self._monitor_cb is not None)
         if self._monitor_cb is not None:
-            for name_, arr in res[2].items():
+            # in name order, as the JAX executor calls its hook
+            for name_, arr in sorted(res[2].items()):
                 self._monitor_cb(name_, NDArray(arr.detach(), ctx=self._ctx))
         return self.outputs
 

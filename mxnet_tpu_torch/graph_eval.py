@@ -24,9 +24,13 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
 
     ``arg_vals`` holds a tensor for every variable node (params, data,
     labels); ``aux_vals`` the auxiliary states keyed
-    ``{node_name}_{aux_name}``; ``rng`` is a ``torch.Generator`` or None
-    (the sampling ops draw from it); ``is_train`` selects batch
-    statistics and aux updates in BatchNorm.  ``want_internals`` also
+    ``{node_name}_{aux_name}``; ``rng`` is a
+    :class:`~mxnet_tpu_torch.random.GraphKey` or None: each node whose op
+    samples (``OpDef.needs_rng``) draws from the key's generator for the
+    node's topological index, as the JAX package folds that index into
+    its key (without a key the op gets None: Dropout is then identity);
+    ``is_train`` selects Dropout, batch statistics and aux updates in
+    BatchNorm.  ``want_internals`` also
     returns every node output keyed ``{node_name}_{output_name}`` and
     every variable by name (the executor's monitor hook).  ``topo`` may
     pass a precomputed ``symbol._topo()``.
@@ -40,7 +44,7 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
     vals = {}
     aux_updates = {}
     internals = {}
-    for node in topo:
+    for index, node in enumerate(topo):
         if node.is_variable:
             vals[(id(node), 0)] = arg_vals[node.name]
             if want_internals:
@@ -55,7 +59,9 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
         params = node.parsed_params()
         aux_full = node.aux_full_names()
         short = op.list_aux_states(params)
-        opctx = OpContext(is_train=is_train, rng=rng,
+        node_rng = (rng.generator(index)
+                    if rng is not None and op.needs_rng else None)
+        opctx = OpContext(is_train=is_train, rng=node_rng,
                           aux={sh: aux_vals[f]
                                for sh, f in zip(short, aux_full)},
                           name=node.name)

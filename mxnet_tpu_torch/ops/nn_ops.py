@@ -1,11 +1,14 @@
-"""Neural-network operators of the ResNet and transformer-LM training paths.
+"""Neural-network operators.
 
-Counterpart of ``mxnet_tpu/ops/nn_ops.py`` for the ops that
-``models.resnet``/``resnet_cifar`` and ``models.transformer_lm`` reach:
-Activation, FullyConnected, Convolution, Pooling, BatchNorm, Flatten,
-Reshape, Embedding, LayerNorm and SoftmaxOutput (with its deprecated
-alias Softmax), the latter also in its loss mode.  The other ops of that
-module come with later slices (ROADMAP.md).
+Counterpart of ``mxnet_tpu/ops/nn_ops.py``: Activation, FullyConnected,
+Convolution, Pooling, BatchNorm, Flatten, Reshape, Embedding, LayerNorm
+and SoftmaxOutput (with its deprecated alias Softmax, also in its loss
+mode); the image-classification zoo's LeakyReLU, Deconvolution, Dropout,
+Concat, SliceChannel, SwapAxis, Cast, ElementWiseSum, BlockGrad, Crop,
+L2Normalization, LRN, SoftmaxActivation and UpSampling; the legacy heads
+Linear/Logistic/MAERegressionOutput, MakeLoss and
+IdentityAttachKLSparseReg.  ROIPooling waits for the detection ops
+(ROADMAP.md).
 
 Layouts stay NCHW/OIHW as in the JAX package.  Convolutions go to cuDNN
 through ``F.conv2d`` and matrix products to cuBLAS through ``matmul``, as
@@ -19,6 +22,10 @@ written out:
 * BatchNorm's training statistics are single-pass ``E[x^2] - E[x]^2``
   clamped at 0; the moving averages take the biased variance.  Autograd
   differentiates the same expression, as JAX's does.
+* Deconvolution is cuDNN's transposed convolution without padding,
+  cropped from ``pad`` and zero-extended to the adjusted size
+  (``_deconv_fwd``); Dropout keeps ``uniform < 1 - p`` from the node's
+  generator (:func:`dropout_mask`) and scales by ``1 / (1 - p)``.
 
 The ``SoftmaxOutput`` forward runs the row softmax through kernel K1
 (:func:`softmax_rows`, ``csrc/softmax_rows.cu``) on CUDA tensors and its
@@ -683,7 +690,633 @@ for _name in ("SoftmaxOutput", "Softmax"):  # "Softmax" is the old alias
         arguments=("data", "label"),
         params=dict(_SOFTMAX_OUT_PARAMS),
         infer_shape=_softmax_output_shape,
+        is_loss=True,
         doc="Softmax forward (kernel K1) or per-position cross-entropy "
             "(out_mode='loss'); backward = (prob - onehot(label)) times "
             "the head cotangent.",
     ))
+
+
+# ---------------------------------------------------------------------------
+# The image-classification zoo's ops and the legacy heads.  Plain torch
+# expressions of the JAX package's jnp/lax definitions; Deconvolution goes
+# to cuDNN through F.conv_transpose2d.
+# ---------------------------------------------------------------------------
+
+def _num_args_list(prefix="arg"):
+    return lambda params: [f"{prefix}{i}" for i in range(params["num_args"])]
+
+
+# -- LeakyReLU ---------------------------------------------------------------
+
+def _leaky_relu_fwd(ctx, params, *inputs):
+    act = params["act_type"]
+    x = inputs[0]
+    if act == "leaky":
+        return torch.where(x > 0, x, params["slope"] * x)
+    if act == "elu":
+        return torch.where(x > 0, x, params["slope"] * (torch.exp(x) - 1.0))
+    if act == "prelu":
+        gamma = inputs[1]
+        g = (gamma.reshape((1, -1) + (1,) * (x.dim() - 2)) if x.dim() > 1
+             else gamma)
+        return torch.where(x > 0, x, g * x)
+    if act == "rrelu":
+        lo, hi = params["lower_bound"], params["upper_bound"]
+        if ctx.is_train and ctx.rng is not None:
+            slope = lo + (hi - lo) * torch.rand(
+                x.shape, generator=ctx.rng, device=x.device, dtype=x.dtype)
+        else:
+            slope = (lo + hi) / 2.0
+        return torch.where(x > 0, x, slope * x)
+    raise MXNetError(f"unknown LeakyReLU act_type {act}")
+
+
+def _leaky_relu_shape(params, in_shapes):
+    if params["act_type"] != "prelu":
+        return elemwise_shape(params, in_shapes)
+    d, g = (list(in_shapes) + [None])[:2]
+    if d is not None and g is None:
+        g = (d[1],)
+    return [d, g], [d], []
+
+
+register_op(OpDef(
+    name="LeakyReLU",
+    forward=_leaky_relu_fwd,
+    arguments=lambda p: (["data", "gamma"] if p["act_type"] == "prelu"
+                         else ["data"]),
+    params={
+        "act_type": OpParam("act_type", "str", default="leaky",
+                            enum=("leaky", "prelu", "rrelu", "elu")),
+        "slope": OpParam("slope", "float", default=0.25),
+        "lower_bound": OpParam("lower_bound", "float", default=0.125),
+        "upper_bound": OpParam("upper_bound", "float", default=0.334),
+    },
+    infer_shape=_leaky_relu_shape,
+    needs_rng=True,
+    doc="Leaky/parametric/randomized/exponential rectified unit.",
+))
+
+
+# -- Deconvolution -----------------------------------------------------------
+
+def _deconv_adj(params, in_hw):
+    """Output-size adjustment: ``adj``, or what ``target_shape`` needs
+    (which may be negative or reach the stride)."""
+    ah, aw = _pair(params["adj"])
+    tgt = params["target_shape"]
+    if tgt and in_hw is not None:
+        th, tw = _pair(tgt)
+        kh, kw = _pair(params["kernel"])
+        sh, sw = _pair(params["stride"])
+        ph, pw = _pair(params["pad"])
+        h, w = in_hw
+        ah = th - (sh * (h - 1) + kh - 2 * ph)
+        aw = tw - (sw * (w - 1) + kw - 2 * pw)
+    return ah, aw
+
+
+def _deconv_fwd(ctx, params, data, weight, bias=None):
+    """The JAX package's input-dilated convolution equals the unpadded
+    transposed convolution (cuDNN) read from ``pad`` on, with zero rows
+    beyond its end: computed so, since ``output_padding`` rejects an
+    adjustment that is negative or reaches the stride."""
+    sh, sw = _pair(params["stride"])
+    ph, pw = _pair(params["pad"])
+    kh, kw = _pair(params["kernel"])
+    h, w = data.shape[2], data.shape[3]
+    ah, aw = _deconv_adj(params, (h, w))
+    oh = sh * (h - 1) + kh - 2 * ph + ah
+    ow = sw * (w - 1) + kw - 2 * pw + aw
+    if data.dtype != weight.dtype:
+        data = data.to(weight.dtype)
+    # weight (C_in, F/g, kh, kw): torch's transposed-convolution layout
+    full = F.conv_transpose2d(data, weight, stride=(sh, sw),
+                              groups=params["num_group"])
+    out = full[:, :, ph:ph + oh, pw:pw + ow]
+    if out.shape[2] < oh or out.shape[3] < ow:
+        out = F.pad(out, (0, ow - out.shape[3], 0, oh - out.shape[2]))
+    if bias is not None:
+        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
+    return out
+
+
+def _deconv_shape(params, in_shapes):
+    n_in = 2 if params["no_bias"] else 3
+    shapes = list(in_shapes) + [None] * (n_in - len(in_shapes))
+    d = shapes[0]
+    kh, kw = _pair(params["kernel"])
+    sh, sw = _pair(params["stride"])
+    ph, pw = _pair(params["pad"])
+    f = params["num_filter"]
+    g = params["num_group"]
+    if d is not None:
+        n, c, h, w = d
+        ah, aw = _deconv_adj(params, (h, w))
+        shapes[1] = (c, f // g, kh, kw)
+        out = (n, f, sh * (h - 1) + kh - 2 * ph + ah,
+               sw * (w - 1) + kw - 2 * pw + aw)
+    else:
+        out = None
+    if not params["no_bias"]:
+        shapes[2] = (f,)
+    return shapes, [out], []
+
+
+register_op(OpDef(
+    name="Deconvolution",
+    forward=_deconv_fwd,
+    arguments=lambda p: (["data", "weight"] if p["no_bias"]
+                         else ["data", "weight", "bias"]),
+    params={
+        "kernel": OpParam("kernel", "shape", required=True),
+        "stride": OpParam("stride", "shape", default=(1, 1)),
+        "pad": OpParam("pad", "shape", default=(0, 0)),
+        "adj": OpParam("adj", "shape", default=(0, 0)),
+        "target_shape": OpParam("target_shape", "shape", default=()),
+        "num_filter": OpParam("num_filter", "int", required=True),
+        "num_group": OpParam("num_group", "int", default=1),
+        # the reference's DeconvolutionParam defaults no_bias to true
+        "no_bias": OpParam("no_bias", "bool", default=True),
+        "workspace": OpParam("workspace", "int", default=512),
+    },
+    infer_shape=_deconv_shape,
+    doc="2D transposed convolution (cuDNN), cropped to pad/adj/target.",
+))
+
+
+# -- Dropout -----------------------------------------------------------------
+
+def dropout_mask(x, keep: float, generator):
+    """The kept positions: ``uniform[0, 1) < keep`` of ``x``'s shape, drawn
+    from ``generator`` on ``x``'s device."""
+    return torch.rand(x.shape, generator=generator, device=x.device) < keep
+
+
+def _dropout_fwd(ctx, params, x):
+    p = params["p"]
+    if not ctx.is_train or p <= 0.0 or ctx.rng is None:
+        return x
+    keep = 1.0 - p
+    mask = dropout_mask(x, keep, ctx.rng)
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+register_op(OpDef(
+    name="Dropout",
+    forward=_dropout_fwd,
+    arguments=("data",),
+    params={"p": OpParam("p", "float", default=0.5)},
+    infer_shape=elemwise_shape,
+    needs_rng=True,
+    doc="Inverted dropout; identity at inference.",
+))
+
+
+# -- Concat, SliceChannel, SwapAxis, Cast, ElementWiseSum, BlockGrad, Crop ---
+
+def _concat_shape(params, in_shapes):
+    dim = params["dim"]
+    if not in_shapes or any(s is None for s in in_shapes):
+        return in_shapes, [None], []
+    base = list(in_shapes[0])
+    base[dim] = sum(s[dim] for s in in_shapes)
+    return [tuple(s) for s in in_shapes], [tuple(base)], []
+
+
+register_op(OpDef(
+    name="Concat",
+    forward=lambda ctx, params, *xs: torch.cat(xs, dim=params["dim"]),
+    arguments=_num_args_list(),
+    params={
+        "num_args": OpParam("num_args", "int", required=True),
+        "dim": OpParam("dim", "int", default=1),
+    },
+    infer_shape=_concat_shape,
+    doc="Concatenate along an axis.",
+))
+
+
+def _slice_channel_fwd(ctx, params, x):
+    n = params["num_outputs"]
+    ax = params["axis"] % x.dim()
+    parts = torch.split(x, x.shape[ax] // n, dim=ax)
+    if params["squeeze_axis"]:
+        parts = [q.squeeze(ax) for q in parts]
+    return tuple(parts)
+
+
+def _slice_channel_shape(params, in_shapes):
+    (d,) = in_shapes
+    n = params["num_outputs"]
+    if d is None:
+        return in_shapes, [None] * n, []
+    ax = params["axis"] % len(d)
+    if d[ax] % n:
+        raise MXNetError(f"SliceChannel: axis {ax} size {d[ax]} not "
+                         f"divisible by {n}")
+    out = list(d)
+    out[ax] = d[ax] // n
+    if params["squeeze_axis"]:
+        if out[ax] != 1:
+            raise MXNetError("SliceChannel: squeeze_axis requires size-1 "
+                             "result axis")
+        out = out[:ax] + out[ax + 1:]
+    return [tuple(d)], [tuple(out)] * n, []
+
+
+register_op(OpDef(
+    name="SliceChannel",
+    forward=_slice_channel_fwd,
+    arguments=("data",),
+    outputs=lambda p: [f"output{i}" for i in range(p["num_outputs"])],
+    params={
+        "num_outputs": OpParam("num_outputs", "int", required=True),
+        "axis": OpParam("axis", "int", default=1),
+        "squeeze_axis": OpParam("squeeze_axis", "bool", default=False),
+    },
+    infer_shape=_slice_channel_shape,
+    doc="Split along an axis into equal parts (inverse of Concat).",
+))
+
+
+def _swapaxis_shape(params, in_shapes):
+    (d,) = in_shapes
+    if d is None:
+        return in_shapes, [None], []
+    a, b = params["dim1"], params["dim2"]
+    out = list(d)
+    out[a], out[b] = out[b], out[a]
+    return [tuple(d)], [tuple(out)], []
+
+
+register_op(OpDef(
+    name="SwapAxis",
+    forward=lambda ctx, params, x: x.transpose(params["dim1"],
+                                               params["dim2"]),
+    arguments=("data",),
+    params={
+        "dim1": OpParam("dim1", "int", default=0),
+        "dim2": OpParam("dim2", "int", default=0),
+    },
+    infer_shape=_swapaxis_shape,
+    doc="Swap two axes.",
+))
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a numpy dtype name (``"float32"``, ``"uint8"``,
+    ``"float"``, ...) or of ``"bfloat16"``."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    canon = np.dtype(name).name
+    return torch.bool if canon == "bool" else getattr(torch, canon)
+
+
+register_op(OpDef(
+    name="Cast",
+    forward=lambda ctx, params, x: x.to(torch_dtype(params["dtype"])),
+    arguments=("data",),
+    params={"dtype": OpParam("dtype", "str", required=True)},
+    infer_shape=elemwise_shape,
+    infer_type=lambda params, in_types: (
+        in_types, [np.dtype(params["dtype"])], []),
+    doc="Elementwise dtype cast.",
+))
+
+register_op(OpDef(
+    name="ElementWiseSum",
+    forward=lambda ctx, params, *xs: sum(xs[1:], xs[0]),
+    arguments=_num_args_list(),
+    params={"num_args": OpParam("num_args", "int", required=True)},
+    infer_shape=elemwise_shape,
+    func_name="_element_wise_sum",
+    doc="Sum of N arrays.",
+))
+
+register_op(OpDef(
+    name="BlockGrad",
+    forward=lambda ctx, params, x: x.detach(),
+    arguments=("data",),
+    infer_shape=elemwise_shape,
+    doc="Identity forward, zero backward.",
+))
+
+
+def _crop_hw(params, like_shape):
+    if params["num_args"] == 2:
+        return like_shape[2], like_shape[3]
+    return _pair(params["h_w"])
+
+
+def _crop_fwd(ctx, params, *inputs):
+    x = inputs[0]
+    th, tw = _crop_hw(params, inputs[-1].shape)
+    if params["center_crop"]:
+        oy = (x.shape[2] - th) // 2
+        ox = (x.shape[3] - tw) // 2
+    else:
+        oy, ox = _pair(params["offset"])
+    if oy < 0 or ox < 0 or oy + th > x.shape[2] or ox + tw > x.shape[3]:
+        raise MXNetError(f"Crop: window ({oy}, {ox}) + ({th}, {tw}) "
+                         f"outside {tuple(x.shape)}")
+    return x[:, :, oy:oy + th, ox:ox + tw]
+
+
+def _crop_shape(params, in_shapes):
+    d = in_shapes[0]
+    if d is None or (params["num_args"] == 2 and in_shapes[1] is None):
+        return in_shapes, [None], []
+    th, tw = _crop_hw(params, in_shapes[-1])
+    return ([tuple(s) if s else s for s in in_shapes],
+            [(d[0], d[1], th, tw)], [])
+
+
+register_op(OpDef(
+    name="Crop",
+    forward=_crop_fwd,
+    arguments=lambda p: (["data", "crop_like"] if p["num_args"] == 2
+                         else ["data"]),
+    params={
+        "num_args": OpParam("num_args", "int", default=1),
+        "offset": OpParam("offset", "shape", default=(0, 0)),
+        "h_w": OpParam("h_w", "shape", default=(0, 0)),
+        "center_crop": OpParam("center_crop", "bool", default=False),
+    },
+    infer_shape=_crop_shape,
+    doc="Spatial crop to a target size or to a like-array's.",
+))
+
+
+# -- L2Normalization, LRN ----------------------------------------------------
+
+def _l2norm_fwd(ctx, params, x):
+    mode = params["mode"]
+    if mode == "instance":
+        axes = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:  # spatial
+        axes = tuple(range(2, x.dim()))
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=axes, keepdim=True)
+                      + params["eps"])
+    return x / norm
+
+
+register_op(OpDef(
+    name="L2Normalization",
+    forward=_l2norm_fwd,
+    arguments=("data",),
+    params={
+        "eps": OpParam("eps", "float", default=1e-10),
+        "mode": OpParam("mode", "str", default="instance",
+                        enum=("instance", "channel", "spatial")),
+    },
+    infer_shape=elemwise_shape,
+    doc="x / ||x||_2 over instance/channel/spatial axes.",
+))
+
+
+def _lrn_fwd(ctx, params, x):
+    """The JAX package's expression, written out: the squares padded by
+    ``nsize // 2`` channels on both sides, summed over ``nsize``
+    channel-shifted slices (for an even ``nsize`` the window is
+    ``[c - n/2, c + n/2 - 1]``, the one ``F.local_response_norm`` takes
+    too; that function divides by n before scaling, so its last bits
+    differ)."""
+    n = params["nsize"]
+    alpha, beta, k = params["alpha"], params["beta"], params["knorm"]
+    half = n // 2
+    padded = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    window = sum(padded[:, i:i + c] for i in range(n))
+    return x * torch.pow(k + (alpha / n) * window, -beta)
+
+
+register_op(OpDef(
+    name="LRN",
+    forward=_lrn_fwd,
+    arguments=("data",),
+    params={
+        "alpha": OpParam("alpha", "float", default=1e-4),
+        "beta": OpParam("beta", "float", default=0.75),
+        "knorm": OpParam("knorm", "float", default=2.0),
+        "nsize": OpParam("nsize", "int", required=True),
+    },
+    infer_shape=elemwise_shape,
+    doc="Cross-channel local response normalization.",
+))
+
+
+# -- SoftmaxActivation -------------------------------------------------------
+
+register_op(OpDef(
+    name="SoftmaxActivation",
+    # the JAX package uses jax.nn.softmax here, not kernel K1
+    forward=lambda ctx, params, x: torch.softmax(
+        x, dim=1 if (params["mode"] == "channel" and x.dim() > 2) else -1),
+    arguments=("data",),
+    params={"mode": OpParam("mode", "str", default="instance",
+                            enum=("instance", "channel"))},
+    infer_shape=elemwise_shape,
+    doc="Softmax with its autograd backward.",
+))
+
+
+# -- Regression heads, MakeLoss, IdentityAttachKLSparseReg -------------------
+
+class _RegressionFn(torch.autograd.Function):
+    """Forward ``transform(data)``; backward ``grad_fn(out, label) *
+    grad_scale / n`` times the head cotangent (n: the label's elements
+    per sample), recomputing ``transform`` as the JAX rule does; the
+    label gets a zero gradient.  ``data`` arrives in f32 (``_amp_f32``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, transform, grad_fn, grad_scale):
+        ctx.save_for_backward(data, label)
+        ctx.rule = (transform, grad_fn, grad_scale)
+        return transform(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        transform, grad_fn, grad_scale = ctx.rule
+        out = transform(data)
+        n = max(1, int(np.prod(label.shape[1:])) if label.dim() > 1 else 1)
+        grad = grad_fn(out, label.reshape(out.shape)) * (grad_scale / n)
+        grad = grad * g.to(grad.dtype)
+        return grad, torch.zeros_like(label), None, None, None
+
+
+def _regression_head(transform, grad_fn):
+    def fwd(ctx, params, data, label):
+        return _RegressionFn.apply(_amp_f32(data), label, transform, grad_fn,
+                                   params["grad_scale"])
+    return fwd
+
+
+def _regression_shape(params, in_shapes):
+    shapes = list(in_shapes) + [None] * (2 - len(in_shapes))
+    d = shapes[0]
+    if d is None:
+        return shapes, [None], []
+    shapes[1] = tuple(d)
+    return shapes, [tuple(d)], []
+
+
+for _name, _transform, _grad, _doc in (
+        ("LinearRegressionOutput", lambda x: x, lambda o, l: o - l,
+         "Identity forward; grad = out - label."),
+        ("LogisticRegressionOutput", torch.sigmoid, lambda o, l: o - l,
+         "Sigmoid forward; grad = sigmoid(out) - label."),
+        ("MAERegressionOutput", lambda x: x,
+         lambda o, l: torch.sign(o - l),
+         "Identity forward; grad = sign(out - label).")):
+    register_op(OpDef(
+        name=_name,
+        forward=_regression_head(_transform, _grad),
+        arguments=("data", "label"),
+        params={"grad_scale": OpParam("grad_scale", "float", default=1.0)},
+        infer_shape=_regression_shape,
+        is_loss=True,
+        doc=_doc,
+    ))
+
+
+class _ScaledIdentityFn(torch.autograd.Function):
+    """Identity forward; backward ``cotangent * grad_scale`` (the scale in
+    the cotangent's type) plus ``extra`` (a tensor broadcast to it, or
+    None)."""
+
+    @staticmethod
+    def forward(ctx, x, grad_scale, extra):
+        ctx.grad_scale = grad_scale
+        ctx.extra = extra
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_scale is not None:
+            g = g * torch.full((), ctx.grad_scale, dtype=g.dtype,
+                               device=g.device)
+        if ctx.extra is not None:
+            g = g + ctx.extra.expand_as(g)
+        return g, None, None
+
+
+register_op(OpDef(
+    name="MakeLoss",
+    forward=lambda ctx, params, x: _ScaledIdentityFn.apply(
+        x, params["grad_scale"], None),
+    arguments=("data",),
+    params={"grad_scale": OpParam("grad_scale", "float", default=1.0)},
+    infer_shape=elemwise_shape,
+    is_loss=True,
+    doc="Treat any symbol as a loss: backward is grad_scale everywhere.",
+))
+
+
+def _kl_sparse_fwd(ctx, params, x):
+    """Identity whose backward adds the KL sparseness penalty's gradient
+    at the moving average of the batch means (``x`` is expected to be a
+    sigmoid's output, as in the reference)."""
+    target = params["sparseness_target"]
+    momentum = params["momentum"]
+    batch_mean = torch.mean(x, dim=0).detach()
+    if "avg" in ctx.aux:
+        avg = momentum * ctx.aux["avg"] + (1 - momentum) * batch_mean
+        ctx.aux_updates["avg"] = avg
+    else:
+        avg = batch_mean
+    rho_hat = torch.clamp(avg, 1e-6, 1.0 - 1e-6)
+    kl_grad = params["penalty"] * (-target / rho_hat
+                                   + (1.0 - target) / (1.0 - rho_hat))
+    return _ScaledIdentityFn.apply(x, None, kl_grad)
+
+
+register_op(OpDef(
+    name="IdentityAttachKLSparseReg",
+    forward=_kl_sparse_fwd,
+    arguments=("data",),
+    aux_states=("avg",),
+    params={
+        "sparseness_target": OpParam("sparseness_target", "float",
+                                     default=0.1),
+        "penalty": OpParam("penalty", "float", default=0.001),
+        "momentum": OpParam("momentum", "float", default=0.9),
+    },
+    infer_shape=lambda params, in_shapes: (
+        in_shapes, [in_shapes[0]],
+        [None if in_shapes[0] is None else (in_shapes[0][1],)]),
+    doc="Identity with KL sparseness penalty added to the gradient.",
+))
+
+
+# -- UpSampling --------------------------------------------------------------
+
+def _upsample_fwd(ctx, params, *inputs):
+    scale = params["scale"]
+    if params["sample_type"] == "nearest":
+        target_h = inputs[0].shape[2] * scale
+        target_w = inputs[0].shape[3] * scale
+        outs = [x.repeat_interleave(target_h // x.shape[2], dim=2)
+                 .repeat_interleave(target_w // x.shape[3], dim=3)
+                for x in inputs]
+        return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    x = inputs[0]
+    n, c, h, w = x.shape
+    if len(inputs) < 2:
+        # no weight bound: a plain bilinear resize with half-pixel
+        # centres, as jax.image.resize computes it (at the borders its
+        # renormalised triangle kernel equals the clamped coordinate)
+        return F.interpolate(x, size=(h * scale, w * scale),
+                             mode="bilinear", align_corners=False)
+    # the bound (C, 1, k, k) weight as a depthwise transposed convolution
+    # (k = 2s - s % 2, stride s, pad ceil((s - 1) / 2))
+    p = -(-(scale - 1) // 2)
+    return F.conv_transpose2d(x, inputs[1].to(x.dtype), stride=scale,
+                              padding=p, groups=c)
+
+
+def _upsample_args(p):
+    if p["sample_type"] == "bilinear":
+        return ["data", "weight"] if p["num_args"] > 1 else ["data"]
+    return [f"arg{i}" for i in range(p["num_args"])]
+
+
+def _upsample_shape(params, in_shapes):
+    d = in_shapes[0]
+    scale = params["scale"]
+    if d is None:
+        return in_shapes, [None], []
+    if params["sample_type"] == "nearest":
+        if any(s is None for s in in_shapes):
+            return in_shapes, [None], []
+        c = sum(s[1] for s in in_shapes)
+        out = (d[0], c, d[2] * scale, d[3] * scale)
+        return [tuple(s) for s in in_shapes], [out], []
+    out = (d[0], d[1], d[2] * scale, d[3] * scale)
+    shapes = [tuple(d)]
+    if len(in_shapes) > 1:
+        k = 2 * scale - scale % 2
+        shapes.append((d[1], 1, k, k))
+    return shapes, [out], []
+
+
+register_op(OpDef(
+    name="UpSampling",
+    forward=_upsample_fwd,
+    arguments=_upsample_args,
+    params={
+        "scale": OpParam("scale", "int", required=True),
+        "num_filter": OpParam("num_filter", "int", default=0),
+        "sample_type": OpParam("sample_type", "str", default="nearest",
+                               enum=("nearest", "bilinear")),
+        "num_args": OpParam("num_args", "int", default=1),
+        "workspace": OpParam("workspace", "int", default=512),
+    },
+    infer_shape=_upsample_shape,
+    doc="Nearest/bilinear spatial upsampling; multi-input concat on "
+        "channels.",
+))

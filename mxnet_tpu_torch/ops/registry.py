@@ -19,7 +19,7 @@ import numpy as np
 from ..base import MXNetError, Registry
 
 __all__ = ["OpParam", "OpDef", "OpContext", "register_op", "get_op",
-           "OP_REGISTRY", "elemwise_shape"]
+           "list_ops", "OP_REGISTRY", "elemwise_shape"]
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +148,9 @@ class OpDef:
     infer_type: Optional[Callable[..., Any]] = None
     doc: str = ""
     func_name: Optional[str] = None
+    # True for loss-style heads whose backward ignores out_grad
+    is_loss: bool = False
+    # True if the op draws random numbers (ctx.rng: Dropout, sampling)
     needs_rng: bool = False
 
     def list_arguments(self, params: Dict[str, Any]) -> List[str]:
@@ -221,3 +224,7 @@ def get_op(name: str) -> OpDef:
         return OP_REGISTRY.get(name)
     except KeyError as e:
         raise MXNetError(str(e)) from e
+
+
+def list_ops() -> List[str]:
+    return OP_REGISTRY.list()

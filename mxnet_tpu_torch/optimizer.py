@@ -31,7 +31,8 @@ from .base import MXNetError, Registry
 
 __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "ccSGD", "Adam", "AdamW",
            "AdaGrad", "RMSProp", "AdaDelta", "Test", "create", "register",
-           "adam_lr_t", "sqrt_rn", "get_updater"]
+           "adam_lr_t", "sqrt_rn", "get_updater", "states_to_host",
+           "states_from_host"]
 
 OPTIMIZER_REGISTRY: Registry = Registry("optimizer")
 
@@ -228,6 +229,39 @@ class Optimizer:
                 s._write(v)
         elif state is not None:
             state._write(new_s)
+
+
+def states_to_host(states: Dict[Any, Any]) -> Dict[Any, Any]:
+    """An updater's per-index states in host (numpy) form, pickleable and
+    equal to the JAX package's."""
+    from .ndarray import NDArray
+
+    def conv(v):
+        if isinstance(v, NDArray):
+            return ("__nd__", v.asnumpy())
+        if isinstance(v, (list, tuple)):
+            return type(v)(conv(x) for x in v)
+        return v
+
+    return {k: conv(v) for k, v in states.items()}
+
+
+def states_from_host(blob: Dict[Any, Any], ctx_for_key=None
+                     ) -> Dict[Any, Any]:
+    """Updater states from :func:`states_to_host`'s form;
+    ``ctx_for_key(key)`` may name the context of that key's arrays (a
+    weight's states live with it)."""
+    from .ndarray import array as nd_array
+
+    def conv(v, ctx):
+        if isinstance(v, tuple) and len(v) == 2 and v[0] == "__nd__":
+            return nd_array(v[1], ctx=ctx, dtype=v[1].dtype)
+        if isinstance(v, (list, tuple)):
+            return type(v)(conv(x, ctx) for x in v)
+        return v
+
+    return {k: conv(v, ctx_for_key(k) if ctx_for_key is not None else None)
+            for k, v in blob.items()}
 
 
 def get_updater(optimizer: Optimizer):

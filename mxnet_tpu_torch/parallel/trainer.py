@@ -19,6 +19,15 @@ trainer compiles one program per step; here each step runs eagerly:
    states (BatchNorm moving statistics) keep their old values on a bad
    step.
 
+The graph's sampling ops (Dropout, ``_sample_*``) draw from a
+:class:`~mxnet_tpu_torch.random.GraphKey` on the trainer's device keyed
+by ``(seed, update count)`` for a training step and by ``(seed, 0x5EED,
+eval count)`` for an inference forward, as the JAX trainer folds ``t``
+into its base key (and its eval stream into a salted one): a step's
+masks depend on its number only, so a skipped step, a replay or a
+resumed ``fit`` draws the same masks, and two trainers of one seed draw
+alike.
+
 With ``compute_dtype`` (the JAX trainer's AMP lever) every float32
 parameter is cast to that type at the forward's edge, so activations and
 matrix products run in it; the batch is not cast, norm statistics and
@@ -64,6 +73,7 @@ import torch
 
 from .. import optimizer as opt_mod
 from .. import resilience, telemetry
+from ..random import GraphKey, mix
 from ..base import MXNetError, not_ported
 from ..context import cpu, resolve_device
 from ..graph_eval import eval_symbol
@@ -97,7 +107,7 @@ class ShardedTrainer:
     optimizer : str or Optimizer
     initializer : Initializer, optional
         Default ``Uniform(0.07)``; draws from a ``torch.Generator`` seeded
-        with ``seed``.
+        with ``seed``, which also keys the graph's sampling ops.
     compute_dtype : str, optional
         Activation type (e.g. ``"bfloat16"``): float32 parameters are cast
         to it inside each forward; masters and the update stay float32.
@@ -148,6 +158,9 @@ class ShardedTrainer:
         self.grad_bucket_bytes = (int(grad_bucket_bytes) if grad_bucket_bytes
                                   else DEFAULT_BUCKET_BYTES)
         self._generator = torch.Generator().manual_seed(int(seed))
+        self._seed = int(seed)
+        self._node_generators: Dict[int, torch.Generator] = {}
+        self._eval_count = 0
         self._fused_req = fused_update
         self._fused = False
         self._fused_kind: Optional[str] = None
@@ -396,7 +409,9 @@ class ShardedTrainer:
             p.grad = None
         args = self._cast_params()
         args.update(placed)
-        heads, auxu = eval_symbol(self.symbol, args, self._aux, None, True,
+        key = GraphKey(mix(self._seed, self._num_update), self.device,
+                       self._node_generators)
+        heads, auxu = eval_symbol(self.symbol, args, self._aux, key, True,
                                   topo=self._topo)
         live = [h for h in heads if h.requires_grad]
         torch.autograd.backward(live, [torch.ones_like(h) for h in live])
@@ -535,10 +550,13 @@ class ShardedTrainer:
         if not self._bound:
             raise MXNetError("call bind() before forward()")
         placed = self.place_batch(batch)
+        self._eval_count += 1
+        key = GraphKey(mix(self._seed, 0x5EED, self._eval_count),
+                       self.device, self._node_generators)
         with torch.no_grad():
             args = self._cast_params()
             args.update(placed)
-            heads, _ = eval_symbol(self.symbol, args, self._aux, None, False,
+            heads, _ = eval_symbol(self.symbol, args, self._aux, key, False,
                                    topo=self._topo)
         return list(heads)
 

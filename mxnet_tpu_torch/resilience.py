@@ -16,8 +16,12 @@ spike or an all-skipped window.
 :class:`Heartbeat` is the progress-based liveness tracker the serving
 router checks its replicas with.
 
-Loss scaling (``loss_scale`` and its schedule knobs) and the legacy
-Module/FeedForward guard are not ported yet (ROADMAP.md).
+:class:`LegacyGuard` is the skip/clip guard of the legacy loops
+(``FeedForward``, ``Module``): one sum of squares per device and one
+fetch a step, which those loops make anyway.
+
+Loss scaling (``loss_scale`` and its schedule knobs) is not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,14 +30,16 @@ import logging
 import os
 import statistics
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .base import not_ported
 
 __all__ = ["GuardConfig", "resolve", "init_state", "tree_sq_sum",
-           "state_update", "STATE_KEYS", "DivergenceSentinel", "Heartbeat"]
+           "state_update", "STATE_KEYS", "DivergenceSentinel", "Heartbeat",
+           "LegacyGuard", "legacy_guard_for"]
 
 _LOGGER = logging.getLogger(__name__)
 
@@ -216,6 +222,84 @@ class DivergenceSentinel(object):
         self.logger.warning("Resilience sentinel: %s -> LR backoff",
                             reason)
         return "backoff"
+
+
+class LegacyGuard(object):
+    """Skip/clip guard for the legacy per-device updater path.
+
+    ``prepare(per_device_grads)`` computes one float32 sum of squares per
+    device (:func:`tree_sq_sum`) and fetches them to the host together,
+    one transfer a step.  It returns False when the step must be skipped
+    (a non-finite gradient anywhere); otherwise per-device clip
+    coefficients are staged and ``grad_for(grad, dev)`` rescales, an
+    identity when no clip is needed.
+    """
+
+    def __init__(self, clip_global_norm: Optional[float] = None,
+                 skip_nonfinite: bool = True,
+                 rescale_grad: float = 1.0, logger=None):
+        self.clip_global_norm = (None if clip_global_norm is None
+                                 else float(clip_global_norm))
+        self.skip_nonfinite = bool(skip_nonfinite)
+        self.rescale_grad = abs(float(rescale_grad)) or 1.0
+        self.logger = logger or _LOGGER
+        self.skipped_steps = 0
+        self.clipped_steps = 0
+        self._coefs: List[float] = []
+        self._warned = False
+
+    def prepare(self, per_device_grads: Sequence[Sequence[torch.Tensor]],
+                allow_clip: bool = True) -> bool:
+        """``per_device_grads[k]``: every gradient tensor on device k.
+        Returns whether the update should proceed."""
+        sqs = [tree_sq_sum(dict(enumerate(gs))) for gs in per_device_grads]
+        # one fetch: the devices' sums stacked where they lie (one device
+        # in the port; slice E brings several)
+        vals = torch.stack(sqs).to("cpu").numpy().astype(np.float64)
+        finite = bool(np.isfinite(vals).all())
+        if self.skip_nonfinite and not finite:
+            self.skipped_steps += 1
+            if not self._warned:
+                self.logger.warning(
+                    "non-finite gradient detected; skipping update "
+                    "(further skips counted on .skipped_steps)")
+                self._warned = True
+            return False
+        self._coefs = [1.0] * len(vals)
+        if self.clip_global_norm is not None and allow_clip and finite:
+            clipped = False
+            for k, v in enumerate(vals):
+                norm = float(np.sqrt(v)) * self.rescale_grad
+                if norm > self.clip_global_norm:
+                    self._coefs[k] = self.clip_global_norm / max(norm,
+                                                                 1e-12)
+                    clipped = True
+            if clipped:
+                self.clipped_steps += 1
+        return True
+
+    def grad_for(self, grad, dev: int):
+        """Clip-rescaled gradient for device ``dev`` (NDArray in, NDArray
+        out; the same array unless this step clips)."""
+        coef = self._coefs[dev] if dev < len(self._coefs) else 1.0
+        if coef >= 1.0:
+            return grad
+        from .ndarray import NDArray
+        return NDArray(grad.data * float(np.float32(coef)), ctx=grad.context)
+
+
+def legacy_guard_for(optimizer, logger=None) -> Optional[LegacyGuard]:
+    """The legacy guard an optimizer asks for, or None: on with
+    ``clip_global_norm``, ``skip_nonfinite=True`` or ``MXNET_TPU_GUARD=1``."""
+    clip = getattr(optimizer, "clip_global_norm", None)
+    skip = getattr(optimizer, "skip_nonfinite", None)
+    if skip is None:
+        skip = bool(_env_flag("MXNET_TPU_GUARD"))
+    if clip is None and not skip:
+        return None
+    return LegacyGuard(clip_global_norm=clip, skip_nonfinite=skip,
+                       rescale_grad=getattr(optimizer, "rescale_grad", 1.0),
+                       logger=logger)
 
 
 class Heartbeat(object):

@@ -79,6 +79,7 @@ from ..models.transformer import (lm_config_from_params, params_from_numpy,
                                   transformer_lm_prefill_chunk,
                                   transformer_lm_verify)
 from ..online.compat import check_compat, signature_of_params
+from ..random import mix as _mix
 from . import kvcache
 from . import speculate as speculate_mod
 from .flash_decode import flash_decode_attention
@@ -88,19 +89,6 @@ from .scheduler import (CANCELLED, FAILED, FINISHED, Request, Scheduler,
 __all__ = ["EngineConfig", "Engine", "ServeError"]
 
 _NEG = -1e30
-_MASK64 = (1 << 64) - 1
-
-
-def _mix(*vals: int) -> int:
-    """splitmix64 chained over integers: the 64-bit seed of the sampling
-    generator for (engine seed, request seed, position)."""
-    h = 0
-    for v in vals:
-        z = ((h ^ (int(v) & _MASK64)) + 0x9E3779B97F4A7C15) & _MASK64
-        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-        h = z ^ (z >> 31)
-    return h
 
 
 def _env_int(name: str, default: int) -> int:

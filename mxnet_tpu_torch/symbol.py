@@ -162,6 +162,23 @@ class Symbol:
     # Attributes
     # ------------------------------------------------------------------
 
+    def attr(self, key: str) -> Optional[str]:
+        """The first head node's attribute ``key``: an annotation
+        (``__key__``) first, else an op parameter; None when absent."""
+        node = self._heads[0][0]
+        return node.attrs.get(f"__{key}__", node.attrs.get(key))
+
+    def _set_attr(self, **kwargs) -> None:
+        node = self._heads[0][0]
+        for k, v in kwargs.items():
+            if not isinstance(v, str):
+                raise MXNetError("attr values must be strings")
+            node.attrs[f"__{k}__"] = v
+
+    def list_attr(self) -> Dict[str, str]:
+        """The first head node's annotations, without their underscores."""
+        return self._heads[0][0].anno_attrs()
+
     def attr_dict(self) -> Dict[str, Dict[str, str]]:
         ret: Dict[str, Dict[str, str]] = {}
         for n in self._topo():
@@ -367,12 +384,12 @@ class Symbol:
     # ------------------------------------------------------------------
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None, group2ctx=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
         """Bind arrays (lists in ``list_arguments`` order, or dicts) into
         an :class:`~mxnet_tpu_torch.executor.Executor` on ``ctx``."""
         from .executor import Executor
         return Executor(self, ctx, args, args_grad, grad_req, aux_states,
-                        group2ctx=group2ctx)
+                        group2ctx=group2ctx, shared_exec=shared_exec)
 
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
                     group2ctx=None, shared_exec=None, **kwargs):
@@ -409,7 +426,7 @@ class Symbol:
                           self.list_auxiliary_states(), aux_shapes,
                           aux_types)}
         return self.bind(ctx, args, args_grad or None, grad_req, aux_states,
-                         group2ctx=group2ctx)
+                         group2ctx=group2ctx, shared_exec=shared_exec)
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,12 @@ engine's on f32 and fp8 pools with no flash-decode launch, and
 ``scrub_positions`` zeroes the rejected positions in both leaves, byte for
 byte as on the CPU; the serving control plane: a two-replica fleet's
 streams (greedy and sampled) survive a replica crash and a hot rolling
-swap unchanged, with every flash-decode launch in the hopper form.
+swap unchanged, with every flash-decode launch in the hopper form;
+Deconvolution (cuDNN's transposed convolution, groups, bias, a target
+that needs an adjustment of the stride) against the same op on the CPU
+within ``chip_smoke.TOL["float32"]`` of ``1 + |CPU value|``; Dropout's
+keyed masks on the card: two trainers of one seed draw the same masks
+step for step, and an executor's backward uses its forward's mask.
 """
 import numpy as np
 import pytest
@@ -1017,3 +1022,72 @@ def test_fit_on_card_equals_the_bare_step_loop(cuda):
     # FactorScheduler(3, 0.5) has halved three times by update 12
     assert float(fit_tr._lr_dev) == float(bare._lr_dev) == float(
         np.float32(0.1 * 0.5 ** 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params,shape", [
+    (dict(kernel=(4, 4), stride=(2, 2), pad=(1, 1), num_filter=8,
+          num_group=2, no_bias=False, target_shape=(34, 34)), (4, 6, 16, 16)),
+    (dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), adj=(1, 1),
+          num_filter=4), (2, 3, 9, 7)),
+])
+def test_deconvolution_on_card_equals_cpu(cuda, params, shape):
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.context import cpu, gpu
+    net = S.Deconvolution(S.Variable("data"), name="op", **params)
+    arg_shapes, out_shapes, _ = net.infer_shape(data=shape)
+    rng = np.random.RandomState(0)
+    vals = {a: rng.uniform(-1, 1, s).astype(np.float32)
+            for a, s in zip(net.list_arguments(), arg_shapes)}
+    head = rng.uniform(-1, 1, out_shapes[0]).astype(np.float32)
+    res = []
+    for ctx in (cpu(), gpu(0)):
+        ex = net.simple_bind(ctx, data=shape)
+        out = ex.forward(is_train=True, **vals)[0].asnumpy()
+        ex.backward([head])
+        res.append([out] + [ex.grad_dict[a].asnumpy() for a in sorted(vals)])
+    for got, want in zip(res[1], res[0]):
+        assert got.shape == want.shape
+        err = float(np.max(np.abs(got - want) / (1.0 + np.abs(want))))
+        assert err <= chip_smoke.TOL["float32"], err
+
+
+@pytest.mark.cuda
+def test_dropout_keyed_replay_on_card(cuda):
+    from mxnet_tpu_torch import name as tname, random as trandom
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.context import gpu
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    def trainer():
+        with tname.NameManager():
+            net = S.FullyConnected(S.Dropout(S.Variable("data"), p=0.5),
+                                   num_hidden=10, name="fc")
+            net = S.SoftmaxOutput(net, name="softmax")
+        tr = ShardedTrainer(net, "sgd", {"learning_rate": 0.1,
+                                         "momentum": 0.9}, guard=True,
+                            device="cuda", seed=3)
+        rng = np.random.RandomState(0)
+        return tr.bind({"data": (64, 512)}, {"softmax_label": (64,)},
+                       arg_params={"fc_weight": (0.05 * rng.randn(10, 512))
+                                   .astype(np.float32),
+                                   "fc_bias": np.zeros(10, np.float32)})
+
+    rng = np.random.RandomState(1)
+    batch = {"data": rng.rand(64, 512).astype(np.float32),
+             "softmax_label": rng.randint(0, 10, 64).astype(np.float32)}
+    a, b = trainer(), trainer()
+    for _ in range(4):
+        ha, hb = a.step(batch)[0], b.step(batch)[0]
+        assert torch.equal(ha, hb)
+    assert torch.equal(a._params["fc_weight"], b._params["fc_weight"])
+    # the executor's backward draws the forward's mask
+    with tname.NameManager():
+        drop = S.Dropout(S.Variable("data"), p=0.5)
+    ex = drop.simple_bind(gpu(0), data=(256, 256))
+    ones = np.ones((256, 256), np.float32)
+    trandom.seed(5)
+    out = ex.forward(is_train=True, data=ones)[0].asnumpy()
+    ex.backward([np.ones((256, 256), np.float32)])
+    np.testing.assert_array_equal(ex.grad_dict["data"].asnumpy(), out)
+    assert abs((out != 0).mean() - 0.5) < 0.01

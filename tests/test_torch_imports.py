@@ -10,7 +10,9 @@ ops.attention_ops, parallel.trainer, parallel.flash_attention,
 parallel.ring_attention, parallel.mesh, quant), the imperative and
 executor modules (context, stream, ndarray, random, executor, operator,
 rtc, models.mnist), the training loop's modules (io, metric,
-lr_scheduler, callback, model) and ``chip_smoke``; a source scan checks every file of
+lr_scheduler, callback, model), the zoo and the legacy API
+(models.classic, models.inception, executor_manager, module, monitor)
+and ``chip_smoke``; a source scan checks every file of
 the port and the script for such imports.
 """
 import os
@@ -56,6 +58,10 @@ from mxnet_tpu_torch import (context, executor, operator, random, rtc,
                              stream)
 from mxnet_tpu_torch.models import mnist
 from mxnet_tpu_torch import callback, io, lr_scheduler, metric, model
+from mxnet_tpu_torch import executor_manager, module, monitor
+from mxnet_tpu_torch.models import classic, inception
+from mxnet_tpu_torch.module import (BucketingModule, Module,
+                                    PythonLossModule, SequentialModule)
 assert mxnet_tpu_torch.io is io and mxnet_tpu_torch.metric is metric
 assert mxnet_tpu_torch.lr_scheduler is lr_scheduler
 assert mxnet_tpu_torch.callback is callback

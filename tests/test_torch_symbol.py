@@ -125,7 +125,7 @@ def test_compose_and_group():
 
 def test_unported_entry_points_raise(tmp_path):
     with pytest.raises(MXNetError, match="not ported"):
-        tmodels.get_symbol("inception-bn")
+        tmodels.get_symbol("transformer-lm", remat=True)
     t = tmodels.resnet_cifar(n=1)
     # symbol files are ported: a file of either package loads in the other
     # to the same graph

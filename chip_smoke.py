@@ -224,6 +224,41 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     the resize), LRN, L2Normalization, Crop, LeakyReLU and the
     regression heads on the card against the CPU, forward and backward,
     within ``TOL["float32"]``; no kernel is built;
+16. runs long training on the card (after phase 14, before 15): (a)
+    phase 9's LM with fp8 linears (``quant="fp8"``: cuBLAS's fp8 GEMM
+    through ``quant.block_dot``), a recompute scope a block
+    (``remat=True``), 2 microbatches a step (``grad_accum``) and dynamic
+    loss scaling (fp8's default), 8 steps on one batch: a finite falling
+    loss, each step K3 launched 24 times (6 layers, 2 microbatches,
+    forward and recompute), K4 12, K2 once, all in the hopper form, the
+    fp8 GEMMs the shapes call for and no upcast product; a batch poisoned
+    through ``MXNET_TPU_CHAOS`` (overflow) is a bitwise no-op that halves
+    the scale and counts one overflow; two steps make no synchronizing
+    call; the first loss within 0.25 of the
+    same net's without fp8 (the JAX package's bound); a step's peak
+    memory lower with the scopes than without; ``block_quantize`` on the
+    card byte for byte the CPU's and ``block_dot`` against its plain
+    version at the LM's shapes, a ragged one and the e5m2 x e5m2 pair
+    (the upcast route); ``grad_accum`` 2 against 1 in f32 within the JAX
+    package's bound; one profiled step by layer; (b) ``fit`` over 2
+    epochs of 4 batches with a ``CheckpointManager`` (keep 2) saving each
+    epoch in the background: launches as in (a), a new trainer resumed
+    from epoch 1 by ``restore_or_initialize`` bitwise equal to the
+    uninterrupted run (weights, Adam moments, loss scale and good streak,
+    counters, update count), a save making one synchronizing call
+    (its snapshot) and retention keeping two steps, a forced sentinel
+    rollback restoring the checkpoint bitwise, a SIGTERM mid-epoch that
+    saves and stops ``fit`` and a resume that finishes the epoch bitwise,
+    and a flipped byte caught by its checksum with the shard's name;
+    (c) the trained weights published with ``save_model`` and served by
+    ``Engine.from_checkpoint`` (phase 4's configuration): greedy streams
+    equal an engine's from the parameter dict, K5 in the hopper form; a
+    2-replica ``Router.rolling_swap`` from the path is hot and keeps the
+    streams; (d) ``OnlineLoop`` over 2 rounds at phase 12's geometry:
+    rollouts, selection, trainer steps, a publish and a hot swap a round,
+    the fleet serving the trainer's weights after; no kernel is built;
+    prints the median step ms, tokens/s, peak memory, the snapshot, write
+    and restore ms and the checkpoint's bytes;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -253,6 +288,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12        # bf16 on the tensor cores
+FP8_FLOP_PER_S = 1979e12        # fp8 on the tensor cores
 
 TOL = {"float32": 2e-5,         # summation order only
        "bfloat16": 1e-2}        # summation order + one bf16 rounding of out
@@ -428,6 +464,34 @@ ZOO_OP_CASES = [
     ("MAERegressionOutput", dict(grad_scale=2.0),
      {"data": (32, 10), "label": (32, 10)}),
 ]
+# long training runs (phase 16): phase 9's LM with fp8 linears, a
+# recompute scope a block and 2 microbatches a step (dynamic loss scaling
+# is fp8's default), 8 steps on one batch; the JAX package holds its fp8
+# LM's mean loss within 0.25 of the f32 one's (tests/test_quant.py:214)
+LONG_ACCUM, LONG_STEPS, LONG_OVERFLOW_AT = 2, 8, 4
+FP8_LOSS_TOL = 0.25
+# block_dot's fp8 GEMM against its plain version on the same payloads:
+# each product of two fp8 values is exact in f32, but Hopper's tensor
+# cores sum fp8 products in an accumulator that keeps about 14 bits
+# (DeepSeek-V3's report, section 3.3.2; measured on an H100: up to
+# 9.95e-05, 1.6 x 2^-14, of the terms' magnitude with
+# use_fast_accum=False): 4 x 2^-14 of the magnitude, the sum over the
+# block's terms of |a| |b| times the scales; the blocks add in f32
+FP8_DOT_TOL = 2.0 ** -12
+FP8_DOT_CASES = [  # name, a [M, K], b [N, K], formats
+    ("q/k/v/proj forward", (8192, 512), (512, 512), ("e4m3", "e4m3")),
+    ("ffn1 forward", (8192, 512), (2048, 512), ("e4m3", "e4m3")),
+    ("ffn2 forward", (8192, 2048), (512, 2048), ("e4m3", "e4m3")),
+    ("ffn1 dx", (8192, 2048), (512, 2048), ("e5m2", "e4m3")),
+    ("ffn1 dw", (2048, 8192), (512, 8192), ("e5m2", "e4m3")),
+    ("ragged M 100 N 72 K 300", (100, 300), (72, 300), ("e4m3", "e5m2")),
+    ("backward-only e5m2 x e5m2", (256, 512), (384, 512), ("e5m2", "e5m2")),
+]
+# (b): fit over 2 epochs of 4 batches, a save each epoch, 2 kept; (d):
+# the online loop at phase 12's geometry, 2 rounds of 8 rollouts
+LONG_EPOCHS, LONG_BATCHES, LONG_KEEP = 2, 4, 2
+ONLINE_ROUNDS, ONLINE_ROLLOUTS, ONLINE_NEW, ONLINE_SEQ = 2, 8, 16, 64
+ONLINE_STEPS = 2
 DEVICE = "cuda"
 
 
@@ -2296,12 +2360,13 @@ _VERIFY_KERNEL_GROUPS = (
 
 
 def profile_step(torch, run, groups_spec=_KERNEL_GROUPS, loss_ops=(),
-                 label="profiled step"):
+                 label="profiled step", named_ops=()):
     """``run()`` (a training step, or a few serving steps) under
     ``torch.profiler``: device time by layer, the busiest kernels, and
     the share of the wall time in which the card ran no kernel.
     ``loss_ops`` names CPU ops whose inclusive device time is reported as
-    ``loss_head_ms`` (those kernels also sit in the groups)."""
+    ``loss_head_ms`` (those kernels also sit in the groups);
+    ``named_ops`` others, each reported alone in ``named_ops_ms``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2310,15 +2375,22 @@ def profile_step(torch, run, groups_spec=_KERNEL_GROUPS, loss_ops=(),
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels, other, loss_us = {}, [], [], {}
+    groups, kernels, other, loss_us, named_us = {}, [], [], {}, {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            for op in named_ops:
+                if op == ev.key:
+                    named_us[op] = max(named_us.get(op, 0.0),
+                                       ev.device_time_total)
             for op in loss_ops:
                 # the autograd wrapper event and the node share a name:
                 # keep the largest, so nothing counts twice
                 if op in ev.key:
                     loss_us[op] = max(loss_us.get(op, 0.0),
                                       ev.device_time_total)
+            continue
+        if ev.key in named_ops:
+            # a marked range's span on the card, not a kernel
             continue
         us = ev.self_device_time_total
         kernels.append((us, ev.key, ev.count))
@@ -2337,6 +2409,8 @@ def profile_step(torch, run, groups_spec=_KERNEL_GROUPS, loss_ops=(),
                            for us, k, c in kernels[:10]],
            "top_other": [{"name": k[:80], "ms": us / 1e3}
                          for us, k in sorted(other, reverse=True)[:4]]}
+    if named_ops:
+        out["named_ops_ms"] = {k: v / 1e3 for k, v in named_us.items()}
     if loss_ops:
         out["loss_head_ms"] = sum(loss_us.values()) / 1e3
         out["loss_head_ops_ms"] = {k: v / 1e3 for k, v in loss_us.items()}
@@ -4673,6 +4747,898 @@ def zoo_ops_vs_cpu(torch, np):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: long training runs -- fp8 linears, recompute scopes, loss
+# scaling and gradient accumulation; checkpoints with resume, preemption
+# and rollback; serving and post-training from a checkpoint
+# ---------------------------------------------------------------------------
+
+# kernel-name fragments of a step of the fp8 LM -> the layer
+_LONG_KERNEL_GROUPS = (
+    ("K3 flash attention forward", ("flash_fwd_",)),
+    ("K4 flash attention backward", ("flash_bwd_",)),
+    ("K2 fused update", ("fused_update_kernel",
+                         "fused_update_params_kernel")),
+    # cuBLAS names its fp8 GEMMs nvjet_q* (e4m3 A) and nvjet_r* (e5m2 A)
+    ("fp8 GEMMs (cuBLAS)", ("nvjet_q", "nvjet_r", "e4m3", "e5m2", "f8")),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas",
+                         "nvjet")),
+    ("reductions (block absmax, LayerNorm, logsumexp, grad norm)",
+     ("reduce", "softmax", "Softmax", "SoftMax", "norm")),
+    ("embedding gather/scatter", ("index", "embedding", "gather",
+                                  "scatter", "sort", "radix")),
+    ("elementwise (quantize, rescale, casts, residual, loss head)",
+     ("elementwise",)),
+)
+# CPU ops of the fp8 product whose kernels' device time is reported
+# inclusive: the quantize passes, the block products with their rescale
+_FP8_OPS = ("quant.block_quantize", "quant.block_dot")
+
+
+def fp8_gemms_per_step(tokens, d, layers, accum, block, remat):
+    """The block products (cuBLAS fp8 GEMMs) of one step of the fp8 LM:
+    per layer and microbatch, the forward's (q, k, v, proj and ffn1
+    contract d, ffn2 4d; again in the recompute), dx's (each linear's
+    output: d for q, k, v, proj and ffn2, 4d for ffn1) and dw's (the
+    microbatch's tokens, for all six)."""
+    def nb(k):
+        return -(-k // block)
+    fwd = 5 * nb(d) + nb(4 * d)
+    dx = 5 * nb(d) + nb(4 * d)
+    dw = 6 * nb(tokens)
+    return layers * accum * ((2 if remat else 1) * fwd + dx + dw)
+
+
+def long_counts(fa, fu, quant):
+    """The launch counts phase 16 checks, as one dict."""
+    return {"K3": fa.flash_fwd.launches,
+            "K3 hopper": fa.flash_fwd.launches_by_form["hopper"],
+            "K4": fa.flash_bwd.launches,
+            "K4 hopper": fa.flash_bwd.launches_by_form["hopper"],
+            "K2": fu.fused_update.launches,
+            "K2 hopper": fu.fused_update.launches_by_form["hopper"],
+            "fp8": quant.block_dot.launches_by_route["fp8"],
+            "upcast": quant.block_dot.launches_by_route["upcast"]}
+
+
+def long_reset(fa, fu, quant):
+    reset_train_counts(fa.flash_fwd, fa.flash_bwd, fu.fused_update)
+    quant.block_dot.launches_by_route = dict.fromkeys(
+        quant.block_dot.launches_by_route, 0)
+
+
+def long_step_counts(expect_fp8, steps):
+    """The counts ``steps`` steps of the fp8 LM make: K3 twice a layer
+    and microbatch (forward and recompute), K4 once, K2 once a step, all
+    in the hopper form; the fp8 GEMMs by shape and no upcast product."""
+    k3 = 2 * LAYERS * LONG_ACCUM * steps
+    k4 = LAYERS * LONG_ACCUM * steps
+    return {"K3": k3, "K3 hopper": k3, "K4": k4, "K4 hopper": k4,
+            "K2": steps, "K2 hopper": steps, "fp8": expect_fp8 * steps,
+            "upcast": 0}
+
+
+def long_lm_symbol(quant_spec, remat, batch=None):
+    from mxnet_tpu_torch import models
+    return models.get_symbol(
+        "transformer-lm", vocab_size=VOCAB, num_layers=LAYERS,
+        d_model=D_MODEL, heads=HEADS,
+        batch_size=batch or LM_BATCH // LONG_ACCUM, seq_len=LM_SEQ,
+        loss_head=True, quant=quant_spec, remat=remat)
+
+
+def long_trainer(sym, args, accum=LONG_ACCUM, **kw):
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    kw.setdefault("optimizer", "adam")
+    kw.setdefault("optimizer_params", dict(LM_OPT))
+    kw.setdefault("compute_dtype", "bfloat16")
+    tr = ShardedTrainer(sym, grad_accum=accum, device=DEVICE, **kw)
+    return tr.bind({"data": (LM_BATCH, LM_SEQ)},
+                   {"softmax_label": (LM_BATCH, LM_SEQ)}, arg_params=args)
+
+
+def long_state(torch, tr):
+    """A trainer's state for a bitwise comparison: weights, Adam moments
+    and aux states by name, the update count, and the guard's loss scale
+    and good streak (0-d tensors on the card) with its cumulative
+    counters."""
+    out = {f"param:{n}": p.detach().clone() for n, p in tr._params.items()}
+    for n, st in tr.opt_state_by_param().items():
+        for i, t in enumerate(st):
+            out[f"opt:{n}:{i}"] = t.detach().clone()
+    out.update({f"aux:{n}": v.clone() for n, v in tr._aux.items()})
+    for k in ("scale", "good"):
+        out[f"guard {k}"] = tr._guard_state[k].clone()
+    rs = tr.resilience_stats()
+    counters = {k: rs[k] for k in ("skipped_steps", "overflow_steps",
+                                   "norm_steps", "num_update")}
+    return out, counters, rs["norm_sum"]
+
+
+def long_same(torch, a, b, what):
+    """Two :func:`long_state` results agree: every tensor bit for bit,
+    the integer counters exactly, and the summed gradient norm to 1e-6
+    relative (the uninterrupted run sums it in one float32 window, the
+    resumed one adds its window to the saved float64 total)."""
+    (ta, ca, na), (tb, cb, nb_) = a, b
+    diff = [n for n in ta if not torch.equal(
+        ta[n].reshape(-1).view(torch.uint8),
+        tb[n].reshape(-1).view(torch.uint8))]
+    check(sorted(ta) == sorted(tb) and not diff,
+          f"{what}: not bitwise equal in {diff[:6]}")
+    check(ca == cb, f"{what}: guard counters {ca} against {cb}")
+    check(abs(na - nb_) <= 1e-6 * max(abs(na), 1e-30),
+          f"{what}: summed gradient norm {na} against {nb_}")
+
+
+def sigterm_inside_update(tr, update, after_weights):
+    """Patch trainer ``tr`` to raise SIGTERM inside update ``update``:
+    just after the fused kernel has written the weights and moments in
+    place (the guard state and aux have not moved yet), or before the
+    update starts (the count has moved, nothing else has).  A save the
+    signal asks for there must wait for the step's end."""
+    import signal
+    name = "_fused_apply" if after_weights else "_apply_update"
+    orig = getattr(tr, name)
+
+    def patched(*args):
+        if not after_weights and tr._num_update == update:
+            signal.raise_signal(signal.SIGTERM)
+        out = orig(*args)
+        if after_weights and tr._num_update == update:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    setattr(tr, name, patched)
+    return lambda: delattr(tr, name)
+
+
+def long_fp8_dot(torch, np, quant):
+    """block_quantize on the card byte for byte the CPU's; block_dot's
+    route on the card against its plain version on the same payloads,
+    with the route each case must take and one count a block; the
+    per-call times at the LM's largest forward and weight-gradient
+    shapes."""
+    rng = np.random.RandomState(16)
+    out, block = {}, quant.default_block_size()
+    for name, (m, k), (n, _), (fmt_a, fmt_b) in FP8_DOT_CASES:
+        host = [(rng.randn(*shape) * rng.choice(
+            [0.01, 1.0, 30.0], (shape[0], 1))).astype(np.float32)
+                for shape in ((m, k), (n, k))]
+        q = []
+        for x, fmt in zip(host, (fmt_a, fmt_b)):
+            qc, sc = quant.block_quantize(torch.from_numpy(x), fmt, block)
+            qg, sg = quant.block_quantize(torch.from_numpy(x).to(DEVICE),
+                                          fmt, block)
+            check(torch.equal(qg.view(torch.uint8).cpu(),
+                              qc.view(torch.uint8))
+                  and torch.equal(sg.cpu().view(torch.int32),
+                                  sc.view(torch.int32)),
+                  f"block_quantize {name} {fmt}: the card's bytes differ "
+                  "from the CPU's")
+            q.append((qg, sg))
+        (qa, sa), (qb, sb) = q
+        route = quant.block_dot_route(qa, qb)
+        want_route = ("upcast" if (fmt_a, fmt_b) == ("e5m2", "e5m2")
+                      else "fp8")
+        check(route == want_route, f"{name}: route {route}, expected "
+              f"{want_route}")
+        before = dict(quant.block_dot.launches_by_route)
+        got = quant.block_dot(qa, sa, qb, sb)
+        torch.cuda.synchronize()
+        moved = {r: quant.block_dot.launches_by_route[r] - before[r]
+                 for r in before}
+        check(moved == dict(dict.fromkeys(before, 0),
+                            **{route: qa.shape[0]}),
+              f"{name}: route counts moved by {moved}, expected "
+              f"{qa.shape[0]} {route}")
+        ref = quant.block_dot_ref(qa, sa, qb, sb)
+        mag = sum(torch.matmul(qa[i].float().abs(), qb[i].float().abs().t())
+                  * sa[i] * sb[i].t() for i in range(qa.shape[0]))
+        err = (got - ref).abs()
+        worst = float((err / mag.clamp_min(1e-30)).max())
+        check(got.shape == (m, n) and bool((err <= FP8_DOT_TOL * mag).all()),
+              f"{name}: block_dot against its plain version: worst error "
+              f"{worst:.3g} of the terms' magnitude > {FP8_DOT_TOL}")
+        out[name] = {"route": route, "blocks": qa.shape[0],
+                     "max_abs_err": float(err.max()),
+                     "worst_rel_to_magnitude": worst}
+        log(f"  block_dot {name}: {route} route, {qa.shape[0]} blocks, "
+            f"max abs err {float(err.max()):.3g} ({worst:.3g} of the "
+            "terms' magnitude)")
+        if name in ("ffn1 forward", "ffn1 dw"):
+            a16 = torch.from_numpy(host[0]).to(DEVICE, torch.bfloat16)
+            b16 = torch.from_numpy(host[1]).to(DEVICE, torch.bfloat16)
+            flops = 2.0 * m * n * k
+            nbytes = qa.numel() + qb.numel() + 4 * (sa.numel() + sb.numel()
+                                                    + m * n)
+            # host launches of a multi-block call: a longer sleep hides
+            # them; "per_call_ms" keeps them
+            hide = dict(reps=20, sleep=1 << 23)
+            t = {"ms": time_ms(torch, lambda: quant.block_dot(qa, sa, qb,
+                                                              sb), **hide),
+                 "per_call_ms": time_ms(torch, lambda: quant.block_dot(
+                     qa, sa, qb, sb), reps=20, hide_host=False),
+                 "plain_ms": time_ms(torch, lambda: quant.block_dot_ref(
+                     qa, sa, qb, sb), **hide),
+                 "quantize_a_ms": time_ms(torch, lambda: quant.block_quantize(
+                     a16, fmt_a, block), **hide),
+                 "bf16_matmul_ms": time_ms(torch, lambda: torch.matmul(
+                     a16, b16.t()), **hide)}
+            t.update(bound(nbytes, flops, FP8_FLOP_PER_S))
+            out[name].update(t)
+            log(f"  block_dot {name} per call: " + json.dumps(t))
+    return out
+
+
+def long_profile(torch, quant, run):
+    """One step under the profiler, the fp8 product's quantize passes and
+    block products marked as CPU ops (their kernels' inclusive device
+    time reported by name)."""
+    real_q, real_d = quant.block_quantize, quant.block_dot
+
+    def marked(name, fn):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        # block_dot counts through its module name: the same dict
+        wrapper.__dict__.update(fn.__dict__)
+        return wrapper
+
+    quant.block_quantize = marked(_FP8_OPS[0], real_q)
+    quant.block_dot = marked(_FP8_OPS[1], real_d)
+    try:
+        return profile_step(torch, run, _LONG_KERNEL_GROUPS,
+                            _LOSS_HEAD_OPS, label="profiled fp8 LM step",
+                            named_ops=_FP8_OPS)
+    finally:
+        quant.block_quantize, quant.block_dot = real_q, real_d
+
+
+def long_lm(torch, np, fa, fu, quant, launches):
+    """(a) the fp8 LM: 8 steps on one batch with every count checked a
+    step, a planted overflow through ``MXNET_TPU_CHAOS``, no synchronizing
+    call in a step, the first loss against the same net without fp8, the
+    peak memory of a step with and without recompute scopes, one
+    profiled step."""
+    from mxnet_tpu_torch import chaos, io
+    t0 = time.perf_counter()
+    sym = long_lm_symbol("fp8", True)
+    micro = dict(data=(LM_BATCH // LONG_ACCUM, LM_SEQ),
+                 softmax_label=(LM_BATCH // LONG_ACCUM, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**micro)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    tr = long_trainer(sym, args)
+    check(tr._fused and tr._fused_route == "hopper",
+          "the fp8 LM did not take the fused update's hopper route")
+    check(tr._resil is not None and tr._resil.dynamic,
+          "fp8 linears did not turn dynamic loss scaling on")
+    host = lm_batch(np)
+    batch = tr.place_batch(host)
+    torch.cuda.synchronize()
+    expect_fp8 = fp8_gemms_per_step(LM_BATCH // LONG_ACCUM * LM_SEQ,
+                                    D_MODEL, LAYERS, LONG_ACCUM,
+                                    quant.default_block_size(), True)
+    log(f"  fp8 LM bound in {time.perf_counter() - t0:.2f} s; "
+        f"{expect_fp8} fp8 GEMMs a step by its shapes")
+
+    # the main path's run: every count starts at 0 here
+    long_reset(fa, fu, quant)
+    losses, step_ms, scales = [], [], []
+    for i in range(LONG_STEPS):
+        before = long_counts(fa, fu, quant)
+        t1 = time.perf_counter()
+        heads = tr.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(heads[0].float().mean()))
+        now = long_counts(fa, fu, quant)
+        moved = {k: now[k] - before[k] for k in now}
+        check(moved == long_step_counts(expect_fp8, 1),
+              f"step {i}: launches {moved}, expected "
+              f"{long_step_counts(expect_fp8, 1)}")
+    counts = long_counts(fa, fu, quant)
+    for key, name in (("K3", "flash_attn_fwd"), ("K4", "flash_attn_bwd"),
+                      ("K2", "fused_update")):
+        launches[name] += counts[key]
+    log(f"  losses {['%.4f' % v for v in losses]}")
+    check(heads[0].shape == (LM_BATCH * LM_SEQ,),
+          f"loss head gave {tuple(heads[0].shape)}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the fp8 LM's loss is not finite and falling: {losses}")
+    log(f"  launches a step: K3 {2 * LAYERS * LONG_ACCUM}, K4 "
+        f"{LAYERS * LONG_ACCUM}, K2 1 (all hopper), fp8 GEMMs {expect_fp8}, "
+        "upcast products 0")
+
+    # a planted overflow: the data of a batch through MXNET_TPU_CHAOS
+    # (NaN ids are token 0 in both packages, as XLA converts them; 1e30
+    # is out of range, so its embedding rows are NaN)
+    os.environ["MXNET_TPU_CHAOS"] = "overflow:0"
+    try:
+        it = chaos.maybe_wrap(io.NDArrayIter(
+            host["data"], host["softmax_label"], batch_size=LM_BATCH))
+    finally:
+        del os.environ["MXNET_TPU_CHAOS"]
+    poisoned = tr.place_batch(next(iter(it)))
+    check(bool((poisoned["data"] == 1e30).all()),
+          "the chaos iterator did not poison the batch")
+    st0 = tr.resilience_stats()
+    saved = [t.clone() for t in [tr._flat_w] + list(tr._flat_state)]
+    tr.step(poisoned)
+    torch.cuda.synchronize()
+    st1 = tr.resilience_stats()
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(saved, [tr._flat_w] + list(tr._flat_state)))
+    check(same, "the overflow step changed the weights or Adam moments")
+    check(st1["loss_scale"] == st0["loss_scale"] * 0.5
+          and st1["overflow_steps"] == st0["overflow_steps"] + 1
+          and st1["skipped_steps"] == st0["skipped_steps"] + 1
+          and st1["good_steps"] == 0,
+          f"the overflow step: guard {st0} -> {st1}")
+    log(f"  planted overflow: a bitwise no-op, loss scale "
+        f"{st0['loss_scale']:g} -> {st1['loss_scale']:g}, one overflow")
+
+    # a step waits for nothing: no synchronizing call in two steps
+    counter = SyncCounter(torch)
+    counter.start()
+    try:
+        for _ in range(2):
+            tr.step(batch)
+    finally:
+        syncs = counter.stop()
+    torch.cuda.synchronize()
+    check(syncs == {"outside": 0, "drains": 0, "other threads": 0},
+          f"two steps of the fp8 LM made synchronizing calls {syncs} "
+          f"({counter.sites})")
+    log("  two fp8 LM steps: no synchronizing call")
+
+    # the first loss against the same net without fp8 (same weights)
+    f32 = long_trainer(long_lm_symbol(None, True), args)
+    first = float(f32.step(batch)[0].float().mean())
+    del f32
+    check(abs(losses[0] - first) < FP8_LOSS_TOL,
+          f"first loss {losses[0]:.4f} with fp8, {first:.4f} without: more "
+          f"than {FP8_LOSS_TOL} apart")
+    log(f"  first loss {losses[0]:.4f} with fp8 linears, {first:.4f} "
+        f"without (tolerance {FP8_LOSS_TOL})")
+
+    # peak memory of one step, net of what is allocated before it
+    def step_peak(trainer):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    peak_remat = step_peak(tr)
+    plain = long_trainer(long_lm_symbol("fp8", False), args)
+    peak_plain = step_peak(plain)
+    del plain
+    torch.cuda.empty_cache()
+    check(peak_remat < peak_plain, f"a step's peak memory with recompute "
+          f"scopes {peak_remat:.3f} GiB, without {peak_plain:.3f} GiB")
+    profile = long_profile(torch, quant, lambda: tr.step(batch))
+    med = float(np.median(step_ms))
+    stats = {"median_step_ms": med, "step_ms": step_ms,
+             "tokens_per_s": LM_BATCH * LM_SEQ / med * 1e3,
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "loss_first_without_fp8": first,
+             "fp8_gemms_per_step": expect_fp8,
+             "step_peak_gib_remat": peak_remat,
+             "step_peak_gib_no_remat": peak_plain,
+             "loss_scale": tr.resilience_stats()["loss_scale"],
+             "profile": profile}
+    log("  fp8 LM: " + json.dumps({k: v for k, v in stats.items()
+                                   if k != "profile"}))
+    del tr
+    torch.cuda.empty_cache()
+    return stats, args
+
+
+def long_accum(torch, np):
+    """grad_accum 2 against 1 on the LM in float32, SGD with momentum, one
+    step: heads and parameters within the JAX package's own bound
+    (tests/test_parallel.py: heads rtol 2e-5 atol 2e-6, parameters rtol
+    5e-5 atol 5e-6; summation order), and the inference forward mapped
+    over the microbatches."""
+    sym = long_lm_symbol(None, False)
+    micro = dict(data=(LM_BATCH // 2, LM_SEQ),
+                 softmax_label=(LM_BATCH // 2, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**micro)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=1)
+    opt = dict(optimizer="sgd", compute_dtype=None,
+               optimizer_params={"learning_rate": 0.01, "momentum": 0.9})
+    batch = lm_batch(np, seed=3)
+    heads, params = [], []
+    for accum in (1, 2):
+        tr = long_trainer(sym, args, accum=accum, **opt)
+        heads.append(tr.step(batch)[0])
+        heads.append(tr.forward(batch)[0])
+        params.append({n: p.detach().clone() for n, p in tr._params.items()})
+        del tr
+    torch.cuda.synchronize()
+    for i, what in enumerate(("training heads", "inference heads")):
+        a, b = heads[i], heads[2 + i]
+        err = float((a - b).abs().max())
+        check(bool(((a - b).abs() <= 2e-6 + 2e-5 * b.abs()).all()),
+              f"grad_accum 2 against 1: {what} differ by {err}")
+    worst = 0.0
+    for n in params[0]:
+        a, b = params[0][n], params[1][n]
+        worst = max(worst, float((a - b).abs().max()))
+        check(bool(((a - b).abs() <= 5e-6 + 5e-5 * a.abs()).all()),
+              f"grad_accum 2 against 1: {n} differs")
+    log(f"  grad_accum 2 against 1 (f32): parameters within {worst:.3g}")
+    torch.cuda.empty_cache()
+    return {"max_param_diff": worst}
+
+
+def long_precision(torch, np):
+    """What each ``matmul_precision`` name gives a float32 product on the
+    card: the full float32 product, the TF32 one, or neither (then its
+    largest error against the full product, relative to the terms'
+    magnitude)."""
+    from mxnet_tpu_torch.parallel.trainer import (_MATMUL_PRECISION,
+                                                  matmul_precision_scope)
+    rng = np.random.RandomState(7)
+    a = torch.from_numpy(rng.randn(1024, 512).astype(np.float32)).to(DEVICE)
+    b = torch.from_numpy(rng.randn(512, 1024).astype(np.float32)).to(DEVICE)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    full = a @ b
+    torch.set_float32_matmul_precision("high")
+    tf32 = a @ b
+    torch.set_float32_matmul_precision(prev)
+    mag = a.abs() @ b.abs()
+    out = {}
+    for name in sorted(_MATMUL_PRECISION):
+        with matmul_precision_scope(name):
+            got = a @ b
+        check(torch.get_float32_matmul_precision() == prev,
+              f"matmul_precision {name}: the global setting was not "
+              "restored")
+        out[name] = ("float32" if torch.equal(got, full) else "tf32"
+                     if torch.equal(got, tf32) else
+                     "other, %.3g of the magnitude" % float(
+                         ((got - full).abs() / mag).max()))
+    log("  matmul_precision on the card: " + json.dumps(out))
+    return out
+
+
+def long_durability(torch, np, fa, fu, quant, args, launches, tmp):
+    """(b) fit over 2 epochs of 4 batches with a CheckpointManager saving
+    each epoch in the background; a new trainer resumed from epoch 1 by
+    ``restore_or_initialize`` ends bitwise equal to the uninterrupted
+    run; a SIGTERM inside a step (after the fused kernel wrote the
+    weights) saves the whole step at fit's batch boundary, stops fit and
+    resumes bitwise, and one inside a bare ``step`` loop saves when that
+    step ends; a flipped byte is caught with the file's name; retention
+    keeps two steps; a forced rollback restores the checkpoint bitwise; a
+    save makes one synchronizing call, alone and inside a ``fit`` epoch
+    with the fused accuracy carry.  Returns the numbers and the trained
+    parameters."""
+    import shutil
+    from mxnet_tpu_torch import io, metric
+    from mxnet_tpu_torch.checkpoint import (CheckpointManager,
+                                            verify_checkpoint, writer)
+    from mxnet_tpu_torch.parallel.trainer import _AsyncMetric
+    sym = long_lm_symbol("fp8", True)
+    toks = np.random.RandomState(6).randint(
+        0, VOCAB, (LONG_BATCHES * LM_BATCH, LM_SEQ + 1))
+    data = toks[:, :-1].astype(np.float32)
+    label = toks[:, 1:].astype(np.float32)
+
+    def batches():
+        return io.NDArrayIter(data, label, batch_size=LM_BATCH)
+
+    def loss_metric():
+        return metric.CustomMetric(lambda lbl, pred: pred.mean(),
+                                   name="loss")
+
+    write_ms, real_write = [], writer.write_checkpoint
+
+    def timed_write(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_write(*a, **kw)
+        finally:
+            write_ms.append((time.perf_counter() - t0) * 1e3)
+
+    writer.write_checkpoint = timed_write
+    try:
+        # the uninterrupted run: a save at the end of each epoch, written
+        # while the next epoch trains
+        root_a = os.path.join(tmp, "run")
+        mgr = CheckpointManager(root_a, keep_last=LONG_KEEP,
+                                save_interval_steps=LONG_BATCHES)
+        tra = long_trainer(sym, args)
+        long_reset(fa, fu, quant)
+        t0 = time.perf_counter()
+        tra.fit(batches(), eval_metric=loss_metric(),
+                num_epoch=LONG_EPOCHS, checkpoint_manager=mgr)
+        mgr.wait_until_finished()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        steps = LONG_EPOCHS * LONG_BATCHES
+        counts = long_counts(fa, fu, quant)
+        for key, name in (("K3", "flash_attn_fwd"),
+                          ("K4", "flash_attn_bwd"), ("K2", "fused_update")):
+            launches[name] += counts[key]
+        per_step = fp8_gemms_per_step(LM_BATCH // LONG_ACCUM * LM_SEQ,
+                                      D_MODEL, LAYERS, LONG_ACCUM,
+                                      quant.default_block_size(), True)
+        check(counts == long_step_counts(per_step, steps),
+              f"fit's launches {counts}, expected "
+              f"{long_step_counts(per_step, steps)}")
+        check(mgr.all_steps() == [LONG_BATCHES, steps],
+              f"fit saved steps {mgr.all_steps()}, expected "
+              f"{[LONG_BATCHES, steps]}")
+        ref = long_state(torch, tra)
+        nbytes = verify_checkpoint(mgr.step_path(steps))["bytes"]
+
+        # the run killed after epoch 1: its directory holds that step
+        # alone (hard links of the saved files)
+        root_b = os.path.join(tmp, "resumed")
+        os.makedirs(root_b)
+        name = os.path.basename(mgr.step_path(LONG_BATCHES))
+        shutil.copytree(mgr.step_path(LONG_BATCHES),
+                        os.path.join(root_b, name), copy_function=os.link)
+        mgr_b = CheckpointManager(root_b, keep_last=LONG_KEEP,
+                                  save_interval_steps=LONG_BATCHES)
+        trb = long_trainer(sym, args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = trb.restore_or_initialize(mgr_b)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(got == LONG_BATCHES, f"restore_or_initialize gave {got}")
+        trb.fit(batches(), eval_metric=loss_metric(), begin_epoch=1,
+                num_epoch=LONG_EPOCHS, checkpoint_manager=mgr_b)
+        mgr_b.close()
+        long_same(torch, ref, long_state(torch, trb),
+                  "resumed from epoch 1 against the uninterrupted run")
+        log(f"  resumed from epoch 1: bitwise the uninterrupted run "
+            f"(update {trb._num_update}, loss scale "
+            f"{trb.resilience_stats()['loss_scale']:g})")
+        del trb
+
+        # one synchronizing call a save: the snapshot's
+        counter = SyncCounter(torch)
+        counter.start()
+        try:
+            t0 = time.perf_counter()
+            tra.save_state(mgr, step=steps + 1)
+            snapshot_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            syncs = counter.stop()
+        mgr.wait_until_finished()
+        check(syncs == {"outside": 1, "drains": 0, "other threads": 0},
+              f"a save made synchronizing calls {syncs} "
+              f"({counter.sites}), expected the snapshot's one")
+        check(mgr.all_steps() == [steps, steps + 1],
+              f"retention kept {mgr.all_steps()}, expected the last "
+              f"{LONG_KEEP}")
+        log(f"  a save: one synchronizing call, snapshot "
+            f"{snapshot_ms:.1f} ms; retention keeps {mgr.all_steps()}")
+
+        # a forced rollback restores the newest checkpoint bitwise
+        saved = long_state(torch, tra)
+        tra.step(tra.place_batch({"data": data[:LM_BATCH],
+                                  "softmax_label": label[:LM_BATCH]}))
+        hooked = []
+        tra._rollback_hook = lambda: hooked.append(True)
+        tra._sentinel_poll(mgr)                # the first drain baselines
+
+        class Forced:
+            def observe(self, *args):
+                return "rollback"
+
+        tra._sentinel = Forced()
+        tra._num_update += 1                   # a window to judge
+        action = tra._sentinel_poll(mgr)
+        check(action == "rollback" and hooked and tra._rollbacks == 1,
+              f"forced rollback: action {action}, hook {hooked}")
+        long_same(torch, saved, long_state(torch, tra),
+                  "rolled back against the checkpoint")
+        log("  forced rollback: the checkpoint's state, bitwise")
+        mgr.close()
+        params = {n: p.detach().float().cpu().numpy()
+                  for n, p in tra._params.items()}
+
+        # a save inside fit adds one synchronizing call: a fit epoch with
+        # the fused accuracy carry, without a manager and with one whose
+        # policy fires once in the epoch's 4 consecutive updates
+        def fit_epoch_syncs(manager):
+            counter = SyncCounter(torch, [
+                (_AsyncMetric, "_drain"), (tra, "resilience_stats"),
+                (tra, "_sentinel_poll"), (tra, "get_params"),
+                (tra, "score")])
+            torch.cuda.synchronize()
+            counter.start()
+            try:
+                tra.fit(batches(), eval_metric="acc", num_epoch=1,
+                        checkpoint_manager=manager)
+            finally:
+                syncs = counter.stop()
+            return syncs, counter.sites
+
+        tra._sentinel = None            # the forced one above is done
+        plain_syncs, _ = fit_epoch_syncs(None)
+        mgr_s = CheckpointManager(os.path.join(tmp, "syncs"),
+                                  save_interval_steps=LONG_BATCHES)
+        save_syncs, sites = fit_epoch_syncs(mgr_s)
+        _, smeta, _ = mgr_s.restore()
+        mgr_s.close()
+        check(len(mgr_s.all_steps()) == 1 and "metric_sum" in smeta,
+              f"the saving fit epoch saved {mgr_s.all_steps()} "
+              f"(meta keys {sorted(smeta)})")
+        check(save_syncs["outside"] == plain_syncs["outside"] + 1
+              and save_syncs["other threads"] == 0
+              and plain_syncs["other threads"] == 0,
+              f"a fit epoch made synchronizing calls {plain_syncs} without "
+              f"a save and {save_syncs} with one ({sites}): expected the "
+              "snapshot's one more")
+        log(f"  a save inside fit (acc carry): one synchronizing call more "
+            f"than the epoch without it ({plain_syncs['outside']} -> "
+            f"{save_syncs['outside']})")
+        del tra
+
+        # SIGTERM inside a step, after the fused kernel wrote the weights:
+        # the hook's save waits, fit saves the whole step at its batch
+        # boundary and stops, a new trainer resumes bitwise
+        root_c = os.path.join(tmp, "preempted")
+        mgr_c = CheckpointManager(root_c, keep_last=LONG_KEEP,
+                                  save_interval_steps=LONG_BATCHES)
+        trc = long_trainer(sym, args)
+        mgr_c.install_preemption_hook(
+            lambda: trc.save_state(mgr_c, blocking=True))
+        at = LONG_BATCHES // 2
+        unpatch = sigterm_inside_update(trc, at, after_weights=True)
+        try:
+            trc.fit(batches(), eval_metric=loss_metric(),
+                    num_epoch=LONG_EPOCHS, checkpoint_manager=mgr_c)
+        finally:
+            unpatch()
+        check(mgr_c.preempted and trc._num_update == at
+              and mgr_c.all_steps() == [at],
+              f"SIGTERM: preempted {mgr_c.preempted}, stopped at update "
+              f"{trc._num_update}, saved {mgr_c.all_steps()}")
+        stopped = long_state(torch, trc)
+        mgr_c.close()
+        del trc
+        trd = long_trainer(sym, args)
+        mgr_d = CheckpointManager(root_c)
+        check(trd.restore_or_initialize(mgr_d) == at,
+              "the preempted run did not resume from its save")
+        long_same(torch, stopped, long_state(torch, trd),
+                  "resumed after SIGTERM against the stopped run")
+        # the rest of the epoch in a bare step loop, with a SIGTERM before
+        # the last update: its save lands when that step ends
+        mgr_e = CheckpointManager(os.path.join(tmp, "preempted-loop"))
+        mgr_e.install_preemption_hook(
+            lambda: trd.save_state(mgr_e, blocking=True))
+        unpatch = sigterm_inside_update(trd, LONG_BATCHES,
+                                        after_weights=False)
+        try:
+            for i in range(at, LONG_BATCHES):
+                trd.step({"data": data[i * LM_BATCH:(i + 1) * LM_BATCH],
+                          "softmax_label":
+                              label[i * LM_BATCH:(i + 1) * LM_BATCH]})
+        finally:
+            unpatch()
+            mgr_e.uninstall_preemption_hook()
+        check(mgr_e.preempted and mgr_e.all_steps() == [LONG_BATCHES],
+              f"SIGTERM in a step loop: saved {mgr_e.all_steps()}")
+        chk = CheckpointManager(root_b)
+        want = long_trainer(sym, args)
+        want.restore_state(chk, step=LONG_BATCHES)
+        long_same(torch, long_state(torch, want), long_state(torch, trd),
+                  "the preempted run finished its epoch against epoch 1's "
+                  "checkpoint")
+        want.restore_state(mgr_e)
+        long_same(torch, long_state(torch, want), long_state(torch, trd),
+                  "the save a SIGTERM asked for inside the last step "
+                  "against the finished step")
+        log(f"  SIGTERM inside update {at} (weights written, guard not): "
+            "fit saved the whole step, stopped, resumed and finished the "
+            f"epoch bitwise; SIGTERM inside update {LONG_BATCHES} of a "
+            "step loop: saved at the step's end, bitwise")
+        mgr_e.close()
+        del trd, want
+
+        # a flipped byte: the checksum names the file
+        path = mgr_d.step_path(at)
+        shard = sorted(f for f in os.listdir(path) if f.endswith(".bin"))[0]
+        with open(os.path.join(path, shard), "r+b") as f:
+            f.seek(7)
+            byte = f.read(1)
+            f.seek(7)
+            f.write(bytes([byte[0] ^ 0x40]))
+        try:
+            verify_checkpoint(path)
+            caught = None
+        except Exception as exc:        # the check below names it
+            caught = str(exc)
+        check(caught is not None and shard in caught
+              and "checksum" in caught,
+              f"a flipped byte in {shard}: {caught}")
+        log(f"  a flipped byte in {shard}: {caught[:100]}")
+        mgr_d.close()
+        chk.close()
+    finally:
+        writer.write_checkpoint = real_write
+    torch.cuda.empty_cache()
+    return {"fit_s": fit_s, "snapshot_ms": snapshot_ms,
+            "write_ms": write_ms, "restore_ms": restore_ms,
+            "checkpoint_bytes": nbytes}, params
+
+
+def long_serve(torch, np, fd, params, step, launches, tmp):
+    """(c) the trained weights published with ``save_model`` (as the
+    online loop publishes) and served from the checkpoint directory: the
+    greedy streams of ``Engine.from_checkpoint`` equal an engine's built
+    from the parameter dict, every K5 launch in the hopper form; a
+    2-replica ``Router.rolling_swap`` from the same path is hot and
+    leaves the streams as they were."""
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.serve import Engine, EngineConfig
+    root = os.path.join(tmp, "publish")
+    pub = CheckpointManager(root)
+    pub.save_model(step, None, params, {}, blocking=True)
+    pub.close()
+    reqs = [r for i, r in enumerate(request_set(np)) if i not in SAMPLED][:8]
+    ecfg = EngineConfig(**ENGINE_KW)
+    streams = {}
+    for what, make in (
+            ("from_checkpoint",
+             lambda: Engine.from_checkpoint(root, ecfg, device=DEVICE)),
+            ("params dict", lambda: Engine(params, ecfg, device=DEVICE))):
+        eng = make()
+        eng.warmup()
+        done, wall, _, (k5, k5_fp8), counters = serve_run(
+            torch, np, eng, reqs, fd)
+        check(k5 == LAYERS * counters["decode_steps"] and k5_fp8 == 0,
+              f"{what}: K5 launched {k5} times in "
+              f"{counters['decode_steps']} decode steps")
+        launches["flash_decode"] += k5
+        streams[what] = [list(r.tokens) for r in done]
+        streams[what + " params"] = eng._params
+        del eng
+    check(all(torch.equal(streams["from_checkpoint params"][n], v)
+              for n, v in streams["params dict params"].items()),
+          "the engine's weights from the checkpoint differ from the dict")
+    check(streams["from_checkpoint"] == streams["params dict"],
+          "greedy streams from the checkpoint differ from the dict's")
+    log(f"  Engine.from_checkpoint: {len(reqs)} greedy streams equal to "
+        "the params dict's")
+    router = cp_router(torch, params, ecfg=ecfg)
+    reset_decode_counts(fd)
+    before, _, _ = cp_run(torch, router, reqs)
+    swap = router.rolling_swap(root)
+    after, _, _ = cp_run(torch, router, reqs)
+    check_hopper_launches(fd, "the router around the swap")
+    launches["flash_decode"] += fd.flash_decode_attention.launches
+    check(swap["mode"] == "hot" and len(swap["swap_ms"]) == 2
+          and all(r.engine.swap_count == 1 for r in router.replicas),
+          f"rolling_swap from the checkpoint: {swap}")
+    check(before == after == streams["params dict"],
+          "the router's streams changed across the hot swap")
+    log(f"  Router.rolling_swap from the checkpoint: hot, swap_ms "
+        f"{[round(v, 3) for v in swap['swap_ms']]}, streams unchanged")
+    del router
+    torch.cuda.empty_cache()
+    return {"swap_ms": swap["swap_ms"]}
+
+
+def long_online(torch, np, fd, launches, tmp):
+    """(d) ``OnlineLoop`` over 2 rounds at phase 12's geometry: rollouts
+    through a 2-replica router, a rejection-sampling batch, trainer
+    steps, a ``save_model`` publish with its compat stamp and a hot
+    rolling swap from the checkpoint path each round; the fleet then
+    serves exactly the trainer's weights."""
+    from mxnet_tpu_torch.checkpoint import CheckpointManager, read_manifest
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.online import (OnlineConfig, OnlineLoop,
+                                        make_rollout_trainer)
+    params = transformer.init_params(VOCAB, LAYERS, D_MODEL, seed=0)
+    router = cp_router(torch, params)
+    trainer = make_rollout_trainer(params, heads=HEADS,
+                                   batch=ONLINE_ROLLOUTS,
+                                   seq_len=ONLINE_SEQ, device=DEVICE)
+    mgr = CheckpointManager(os.path.join(tmp, "online"), keep_last=2)
+
+    def prompts(round_idx, n):
+        rng = np.random.RandomState(100 + round_idx)
+        return [rng.randint(1, VOCAB, size=int(rng.randint(8, 25))).tolist()
+                for _ in range(n)]
+
+    loop = OnlineLoop(router, trainer, mgr, prompt_fn=prompts,
+                      reward_fn=lambda p, toks: float(sum(
+                          t % 2 == 0 for t in toks)),
+                      config=OnlineConfig(
+                          rounds=ONLINE_ROUNDS, rollouts=ONLINE_ROLLOUTS,
+                          max_new_tokens=ONLINE_NEW,
+                          train_steps=ONLINE_STEPS),
+                      base_seed=0)
+    reset_decode_counts(fd)
+    t0 = time.perf_counter()
+    rounds = loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_hopper_launches(fd, "the online loop's rollouts")
+    launches["flash_decode"] += fd.flash_decode_attention.launches
+    check(len(rounds) == ONLINE_ROUNDS
+          and all(r["swap"]["mode"] == "hot" for r in rounds)
+          and [r["step"] for r in rounds] == [
+              ONLINE_STEPS * (i + 1) for i in range(ONLINE_ROUNDS)],
+          f"online rounds: {[(r['step'], r['swap']['mode']) for r in rounds]}")
+    check(all(rep.engine.swap_count == ONLINE_ROUNDS
+              for rep in router.replicas),
+          f"swaps by replica {[r.engine.swap_count for r in router.replicas]}")
+    check(all(sum(r["kept"]) == ONLINE_ROLLOUTS // 2 for r in rounds),
+          f"kept rollouts {[sum(r['kept']) for r in rounds]}")
+    stamp = read_manifest(mgr.step_path(rounds[-1]["step"]))["meta"][
+        "compat"]
+    check(stamp["arch"] == {"vocab": VOCAB, "num_layers": LAYERS,
+                            "d_model": D_MODEL, "heads": HEADS},
+          f"compat stamp {stamp}")
+    served = router.replicas[0].engine._params
+    check(all(torch.equal(served[n], p.detach().float())
+              for n, p in trainer._params.items()),
+          "the fleet does not serve the trainer's weights")
+    mgr.close()
+    log(f"  OnlineLoop: {ONLINE_ROUNDS} rounds in {wall:.2f} s, "
+        f"{sum(r['rollout_tokens'] for r in rounds)} rollout tokens, "
+        f"{sum(rep.engine.swap_count for rep in router.replicas)} hot swaps, "
+        "the fleet serves the trainer's weights")
+    del router, trainer
+    torch.cuda.empty_cache()
+    return {"wall_s": wall,
+            "rollout_tokens": [r["rollout_tokens"] for r in rounds],
+            "swap_ms": [r["swap"]["swap_ms"] for r in rounds]}
+
+
+def phase_long_runs(torch, np, fa, fu, fd, quant, _build):
+    """Phase 16: (a) the fp8 LM with recompute scopes, 2 microbatches and
+    dynamic loss scaling, with the fp8 product against its plain version;
+    (b) checkpoints: fit with saves, resume, SIGTERM, corruption,
+    retention, rollback; (c) serving from the checkpoint; (d) the online
+    loop.  Returns the launches of K2, K3, K4 and K5 and the numbers."""
+    import tempfile
+    t_phase = time.perf_counter()
+    built, compile_ = [], _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    # every kernel was built in phase 2: an nvcc run here is a failure
+    _build._compile = counting
+    launches = dict.fromkeys(("fused_update", "flash_attn_fwd",
+                              "flash_attn_bwd", "flash_decode"), 0)
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["fp8_dot"] = long_fp8_dot(torch, np, quant)
+            out["lm"], args = long_lm(torch, np, fa, fu, quant, launches)
+            out["accum"] = long_accum(torch, np)
+            out["matmul_precision"] = long_precision(torch, np)
+            out["durability"], params = long_durability(
+                torch, np, fa, fu, quant, args, launches, tmp)
+            out["serve"] = long_serve(torch, np, fd, params,
+                                      LONG_EPOCHS * LONG_BATCHES, launches,
+                                      tmp)
+            out["online"] = long_online(torch, np, fd, launches, tmp)
+    finally:
+        _build._compile = compile_
+    check(not built, f"kernels built during phase 16: {built}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    log("  long runs: " + json.dumps(out))
+    return launches, out
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -4731,14 +5697,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/15] device")
+    log("[1/16] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/15] build")
+    log("[2/16] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -4753,7 +5719,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/15] kernels against their plain versions")
+    log("[3/16] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -4762,22 +5728,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/15] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/16] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/15] serving the round-12 configuration: chunked prefill "
+    log(f"[5/16] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/15] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/16] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/15] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/16] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/15] kernel timing")
+    log("[8/16] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -4794,25 +5760,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/15] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/16] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/15] imperative + executor: NDArray on the card, the MLP "
+    log("[10/16] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/15] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/16] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/15] the serving control plane: crash failover, a hung and a "
+    log("[12/16] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -4820,7 +5786,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/15] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/16] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -4829,14 +5795,23 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/15] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/16] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
     zoo_launches, _ = phase_zoo_legacy(torch, np, nn_ops, fu, _build)
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
-    log("[15/15] result")
+    t0 = time.perf_counter()
+    log(f"[16/16] long training runs: the LM with fp8 linears, recompute "
+        f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
+        "with checkpoints, resume, SIGTERM, rollback; serving and the "
+        "online loop from the checkpoint")
+    long_launches, _ = phase_long_runs(torch, np, fa, fu, fd, quant, _build)
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 16
+    log("[15/16] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -4847,7 +5822,7 @@ def main(argv) -> int:
         # also on every replica of phase 12
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
          "mxnet_tpu/serve/flash_decode.py:60",
-         k5_launches + spec_k5 + cp_k5,
+         k5_launches + spec_k5 + cp_k5 + long_launches["flash_decode"],
          max(v for (k, f), v in errs.items()
              if "bf16" not in k and f == "hopper")),
         ("flash_decode_fp8", "mxnet_tpu_torch/csrc/flash_decode.cu",
@@ -4866,15 +5841,18 @@ def main(argv) -> int:
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
          "mxnet_tpu/ops/fused_update.py:216",
          train_launches["fused_update"] + lm_launches["fused_update"]
-         + loop_launches["fused_update"] + zoo_launches["fused_update"],
+         + loop_launches["fused_update"] + zoo_launches["fused_update"]
+         + long_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
-         lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"],
+         lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"]
+         + long_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
-         lm_launches["flash_attn_bwd"] + loop_launches["flash_attn_bwd"],
+         lm_launches["flash_attn_bwd"] + loop_launches["flash_attn_bwd"]
+         + long_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

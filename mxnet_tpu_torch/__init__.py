@@ -16,15 +16,19 @@ the whole model zoo and the legacy training API (``FeedForward``,
 ``mod.Module`` and its relatives, ``Monitor``), and the imperative and
 executor API
 (``nd``, ``random``, ``Symbol.simple_bind``, ``optimizer.get_updater``,
-custom ops in ``operator`` and user CUDA kernels in ``rtc``).  Entry
+custom ops in ``operator`` and user CUDA kernels in ``rtc``), long
+training runs (fp8 linears in ``quant``, recompute scopes, loss scaling,
+gradient accumulation) with durable ``checkpoint``s, and serving or
+post-training from them (``predictor.load_weights``, ``online``).  Entry
 points run on the card unless the caller passes ``device="cpu"`` (or
 works under ``with mx.cpu():``).
 """
-from . import (attribute, base, callback, chaos, compile_cache, context,
-               executor, executor_manager, graph_eval, initializer, io,
-               lr_scheduler, metric, model, models, module, monitor, name,
-               ndarray, operator, ops, optimizer, parallel, random,
-               resilience, rtc, serve, stream, symbol, telemetry)
+from . import (attribute, base, callback, chaos, checkpoint, compile_cache,
+               context, executor, executor_manager, graph_eval, initializer,
+               io, lr_scheduler, metric, model, models, module, monitor,
+               name, ndarray, online, operator, ops, optimizer, parallel,
+               predictor, quant, random, resilience, rtc, serve, stream,
+               symbol, telemetry)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
 from .executor import Executor
@@ -45,7 +49,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "compile_cache", "context", "executor", "executor_manager",
            "graph_eval", "initializer", "io", "load_checkpoint",
            "lr_scheduler", "metric", "mod", "model", "models", "module",
-           "monitor", "name", "nd", "ndarray", "operator", "ops",
-           "optimizer", "parallel", "random", "resilience", "rtc",
+           "monitor", "name", "nd", "ndarray", "online", "operator", "ops",
+           "optimizer", "parallel", "predictor", "quant", "random",
+           "resilience", "rtc",
            "save_checkpoint", "serve", "stream", "sym", "symbol",
            "telemetry"]

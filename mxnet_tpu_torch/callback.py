@@ -14,7 +14,6 @@ import logging
 import sys
 import time
 
-from .base import not_ported
 
 __all__ = ["do_checkpoint", "log_train_metric", "Speedometer", "ProgressBar"]
 
@@ -22,12 +21,15 @@ __all__ = ["do_checkpoint", "log_train_metric", "Speedometer", "ProgressBar"]
 def do_checkpoint(prefix: str, manager=None):
     """Epoch-end callback writing ``prefix-symbol.json`` and
     ``prefix-%04d.params`` (``model.save_checkpoint``) for epoch
-    ``iter_no + 1``.  ``manager=`` (the checkpoint subsystem) is not
-    ported yet."""
-    if manager is not None:
-        raise not_ported("do_checkpoint(manager=...) (checkpoint/)")
+    ``iter_no + 1``; with ``manager=`` (a
+    :class:`~mxnet_tpu_torch.checkpoint.CheckpointManager`) the save goes
+    through the manager instead (``save_model``: the snapshot in the
+    callback, the writes on the manager's thread, retention GC)."""
 
     def _callback(iter_no, sym, arg, aux):
+        if manager is not None:
+            manager.save_model(iter_no + 1, sym, arg, aux)
+            return
         from .model import save_checkpoint
         save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
 

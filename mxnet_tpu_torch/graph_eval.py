@@ -6,15 +6,35 @@ package the walk happens under tracing and XLA owns the buffers; here it
 runs eagerly, and autograd records the graph when the inputs require
 gradients, so ``torch.autograd.backward`` over the heads is the vjp the
 JAX trainer takes.
+
+Recompute scopes, as in the JAX package: a maximal run of nodes that
+share one ``remat_scope`` annotation becomes one
+``torch.utils.checkpoint.checkpoint`` (non-reentrant) over the run, so
+the backward keeps only the values that enter the scope and recomputes
+the rest; only the values that escape the scope (a consumer outside it,
+or a head) leave it.  A node annotated ``force_mirroring`` without aux
+states is checkpointed alone.  The monitor mode (``want_internals``)
+needs every internal value, so it evaluates without scopes.
+
+A scope's sampling ops ask the :class:`~mxnet_tpu_torch.random.GraphKey`
+for their generator inside the recomputed function: the key reseeds it
+from ``(key, node index)`` on every call, so the recompute draws the same
+Dropout mask as the forward (``torch.utils.checkpoint`` restores only
+torch's default generators).  Aux updates (BatchNorm's moving
+statistics) come from the forward only; the recompute's are dropped, so
+a scope updates them once.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List
 
-from .base import not_ported
 from .ops.registry import OpContext
 
 __all__ = ["eval_symbol"]
+
+
+def _mirrored(anno) -> bool:
+    return anno.get("force_mirroring") in ("True", "true", "1")
 
 
 def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
@@ -44,38 +64,136 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
     vals = {}
     aux_updates = {}
     internals = {}
-    for index, node in enumerate(topo):
-        if node.is_variable:
-            vals[(id(node), 0)] = arg_vals[node.name]
-            if want_internals:
-                internals[node.name] = arg_vals[node.name]
-            continue
-        anno = node.anno_attrs()
-        if anno.get("remat_scope") or anno.get("force_mirroring") in (
-                "True", "true", "1"):
-            raise not_ported("recompute scopes (remat_scope / "
-                             "force_mirroring) in eval_symbol")
+    index_of = {id(n): i for i, n in enumerate(topo)}
+    head_set = {(id(n), i) for (n, i) in symbol._heads}
+
+    def eval_node(node, in_vals):
+        """One op node: ``(outputs, {aux_full_name: update})``."""
         op = node.op
         params = node.parsed_params()
         aux_full = node.aux_full_names()
         short = op.list_aux_states(params)
-        node_rng = (rng.generator(index)
-                    if rng is not None and op.needs_rng else None)
-        opctx = OpContext(is_train=is_train, rng=node_rng,
-                          aux={sh: aux_vals[f]
-                               for sh, f in zip(short, aux_full)},
-                          name=node.name)
-        out = op.forward(opctx, params,
-                         *[vals[(id(s), k)] for (s, k) in node.inputs])
+        opctx = OpContext(
+            is_train=is_train,
+            rng=(rng.generator(index_of[id(node)])
+                 if rng is not None and op.needs_rng else None),
+            aux={sh: aux_vals[f] for sh, f in zip(short, aux_full)},
+            name=node.name)
+        out = op.forward(opctx, params, *in_vals)
         outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        return outs, {f: opctx.aux_updates[sh]
+                      for sh, f in zip(short, aux_full)
+                      if sh in opctx.aux_updates}
+
+    def record(node, outs):
         for i, o in enumerate(outs):
             vals[(id(node), i)] = o
         if want_internals:
-            for oname, o in zip(op.list_outputs(params), outs):
+            for oname, o in zip(node.op.list_outputs(node.parsed_params()),
+                                outs):
                 internals[f"{node.name}_{oname}"] = o
-        for sh, f in zip(short, aux_full):
-            if sh in opctx.aux_updates:
-                aux_updates[f] = opctx.aux_updates[sh]
+
+    use_remat = not want_internals and any(
+        not n.is_variable and (n.anno_attrs().get("remat_scope")
+                               or _mirrored(n.anno_attrs()))
+        for n in topo)
+    consumers: Dict[tuple, List[int]] = {}
+    if use_remat:
+        for n in topo:
+            if n.is_variable:
+                continue
+            for (src, k) in n.inputs:
+                if not src.is_variable:
+                    consumers.setdefault((id(src), k), []).append(id(n))
+
+    i = 0
+    while i < len(topo):
+        node = topo[i]
+        if node.is_variable:
+            vals[(id(node), 0)] = arg_vals[node.name]
+            if want_internals:
+                internals[node.name] = arg_vals[node.name]
+            i += 1
+            continue
+        anno = node.anno_attrs() if use_remat else {}
+        scope = anno.get("remat_scope")
+        if scope is None:
+            in_vals = [vals[(id(s), k)] for (s, k) in node.inputs]
+            if _mirrored(anno) and not node.aux_full_names():
+                # recompute-in-backward of one node (the reference's
+                # gradient mirroring)
+                from torch.utils.checkpoint import (
+                    checkpoint, set_checkpoint_early_stop)
+                with set_checkpoint_early_stop(False):
+                    outs = list(checkpoint(
+                        lambda *xs, _n=node: tuple(eval_node(_n, xs)[0]),
+                        *in_vals, use_reentrant=False))
+                node_aux = {}
+            else:
+                outs, node_aux = eval_node(node, in_vals)
+            record(node, outs)
+            aux_updates.update(node_aux)
+            i += 1
+            continue
+
+        # ---- a remat scope: one checkpoint over the whole run ----------
+        run: List[Any] = []
+        j = i
+        while j < len(topo):
+            nj = topo[j]
+            if nj.is_variable:
+                vals[(id(nj), 0)] = arg_vals[nj.name]
+                j += 1
+                continue
+            if nj.anno_attrs().get("remat_scope") != scope:
+                break
+            run.append(nj)
+            j += 1
+        run_ids = {id(n) for n in run}
+        ext_keys: List[tuple] = []
+        for n_ in run:
+            for (src, k) in n_.inputs:
+                if src.is_variable or id(src) in run_ids:
+                    continue
+                if (id(src), k) not in ext_keys:
+                    ext_keys.append((id(src), k))
+        out_keys: List[tuple] = []
+        for n_ in run:
+            for k in range(len(n_.op.list_outputs(n_.parsed_params()))):
+                key = (id(n_), k)
+                if key in head_set or any(
+                        c not in run_ids for c in consumers.get(key, [])):
+                    out_keys.append(key)
+        scope_aux: Dict[str, Any] = {}
+
+        def scope_fn(*ext_vals, _run=run, _ext=ext_keys, _out=out_keys,
+                     _aux=scope_aux):
+            local = dict(zip(_ext, ext_vals))
+            # the first call (the forward) keeps its aux updates; the
+            # recompute's find them already there and are dropped
+            keep = not _aux
+            for n_ in _run:
+                ins = [arg_vals[src.name] if src.is_variable
+                       else local[(id(src), k)] for (src, k) in n_.inputs]
+                outs, n_aux = eval_node(n_, ins)
+                for k, o in enumerate(outs):
+                    local[(id(n_), k)] = o
+                if keep:
+                    _aux.update({f: v.detach() for f, v in n_aux.items()})
+            return tuple(local[k] for k in _out)
+
+        from torch.utils.checkpoint import (checkpoint,
+                                            set_checkpoint_early_stop)
+        # the recompute runs the whole scope, as jax.checkpoint does (an
+        # early stop would skip what follows the last saved tensor)
+        with set_checkpoint_early_stop(False):
+            outs = checkpoint(scope_fn, *[vals[k] for k in ext_keys],
+                              use_reentrant=False)
+        for key, o in zip(out_keys, outs):
+            vals[key] = o
+        aux_updates.update(scope_aux)
+        i = j
+
     heads = tuple(vals[(id(n), i)] for (n, i) in symbol._heads)
     if want_internals:
         return heads, aux_updates, internals

@@ -505,12 +505,25 @@ class FeedForward:
 
     def save_to_manager(self, manager, epoch: Optional[int] = None,
                         blocking: Optional[bool] = None) -> str:
-        raise not_ported("FeedForward.save_to_manager (checkpoint/)")
+        """Checkpoint this model through a
+        :class:`~mxnet_tpu_torch.checkpoint.CheckpointManager` (atomic
+        commit, async write, retention GC) instead of the legacy
+        ``prefix-*.params`` file."""
+        if epoch is None:
+            epoch = self.num_epoch
+        assert epoch is not None
+        return manager.save_model(epoch, self.symbol, self.arg_params,
+                                  self.aux_params, blocking=blocking)
 
     @staticmethod
     def load_from_manager(manager, step: Optional[int] = None, ctx=None,
                           **kwargs) -> "FeedForward":
-        raise not_ported("FeedForward.load_from_manager (checkpoint/)")
+        """A model from a CheckpointManager checkpoint (default: the
+        newest committed step), as :meth:`load` makes one."""
+        symbol, arg_params, aux_params, step = manager.load_model(step)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
+                           aux_params=aux_params or None, begin_epoch=step,
+                           **kwargs)
 
     @staticmethod
     def create(symbol, X, y=None, ctx=None, num_epoch=None, epoch_size=None,

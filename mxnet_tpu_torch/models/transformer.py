@@ -8,9 +8,9 @@ blocks whose attention is ``RingAttention(layout="blhd")`` over
 ``[B, L, H, hd]`` (the flash kernels K3/K4 from seq 1024 on, or with an
 explicit ``attn_block_size``), a final LayerNorm, the ``lm_head`` and a
 SoftmaxOutput head (probabilities, or per-token cross-entropy with
-``loss_head=True``).  ``quant`` resolves as the JAX package's
-``quant.resolve_quant`` does (``MXNET_TPU_QUANT`` included); fp8 linears
-and ``remat`` are not ported yet and raise.
+``loss_head=True``); ``quant`` puts the block projections on the fp8
+product and ``remat`` each block in a recompute scope, as in the JAX
+package.
 
 The functional twins take the JAX package's own parameter dict
 (``embed_weight``, ``layer{i}_q_weight``, ``final_ln_gamma``, ...) as
@@ -26,17 +26,19 @@ path.
 """
 from __future__ import annotations
 
-import os
+import contextlib
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from .. import symbol as sym
-from ..base import MXNetError, not_ported
+from ..attribute import AttrScope
+from ..base import MXNetError
 from ..context import DeviceLike, resolve_device
 from ..ops.nn_ops import layer_norm
 from ..parallel.ring_attention import NEG_INF, local_attention
+from ..quant import resolve_quant
 
 __all__ = ["transformer_block", "transformer_lm", "lm_config_from_params",
            "param_shapes", "init_params", "params_from_numpy",
@@ -50,22 +52,6 @@ _LN_EPS = 1e-5   # LayerNorm op default of the JAX package
 # ---------------------------------------------------------------------------
 # The training symbol
 # ---------------------------------------------------------------------------
-
-def _resolve_quant(quant) -> bool:
-    """The JAX package's ``quant.resolve_quant`` reduced to its answer:
-    True when the spec (None consults ``MXNET_TPU_QUANT``) asks for fp8."""
-    if quant is None:
-        raw = os.environ.get("MXNET_TPU_QUANT", "").strip().lower()
-        if not raw or raw in ("0", "off", "false", "no"):
-            return False
-        quant = True
-    if quant is False:
-        return False
-    if quant is True or quant == "fp8":
-        return True
-    raise MXNetError(f"unknown quant spec {quant!r}: expected None, bool, "
-                     "'fp8', or a QuantConfig")
-
 
 def _linear(x, b, l, d_in, d_out, name, quant=""):
     """Per-position linear: [B, L, d_in] -> [B, L, d_out], the batch dim
@@ -114,18 +100,23 @@ def transformer_lm(vocab_size=256, num_layers=2, d_model=64, heads=4,
     cross-entropy (``[batch * seq]`` f32) instead of the probabilities,
     with the same gradients; ``ignore_label`` masks those positions out of
     the loss and its gradient; ``head_same_dtype`` emits probabilities in
-    the activation type."""
-    if remat:
-        raise not_ported("transformer_lm(remat=True) (remat_scope)")
-    if _resolve_quant(quant):
-        raise not_ported("transformer_lm(quant='fp8') (quant.py)")
+    the activation type.  ``remat=True`` puts each block in a
+    ``remat_scope`` (the backward recomputes the block from its input);
+    ``quant`` (None reads ``MXNET_TPU_QUANT``) routes the q/k/v/proj/ffn1/
+    ffn2 projections through the block-scaled fp8 product, ``lm_head``
+    staying at full precision."""
+    qstr = "fp8" if resolve_quant(quant) is not None else ""
     b, l, d = batch_size, seq_len, d_model
     net = sym.Embedding(data=sym.Variable("data"), input_dim=vocab_size,
                         output_dim=d, name="embed")
     for i in range(num_layers):
-        net = transformer_block(net, b, l, d, heads, f"layer{i}",
-                                causal=causal,
-                                attn_block_size=attn_block_size, quant="")
+        scope = (AttrScope(remat_scope=f"layer{i}") if remat
+                 else contextlib.nullcontext())
+        with scope:
+            net = transformer_block(net, b, l, d, heads, f"layer{i}",
+                                    causal=causal,
+                                    attn_block_size=attn_block_size,
+                                    quant=qstr)
     net = _layernorm(net, "final_ln")
     net = sym.Reshape(data=net, shape=(-1, d))
     net = sym.FullyConnected(data=net, num_hidden=vocab_size, name="lm_head")

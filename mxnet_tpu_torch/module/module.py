@@ -3,18 +3,21 @@
 Counterpart of ``mxnet_tpu/module/module.py``: bind, init_params,
 init_optimizer, forward, backward and update over a
 :class:`DataParallelExecutorGroup`, the updater (``optimizer.get_updater``)
-behind the :class:`~mxnet_tpu_torch.resilience.LegacyGuard`.  A kvstore
-and the ``checkpoint/`` paths (``save_to_manager``, ``load_from_manager``)
-raise until their slices.
+behind the :class:`~mxnet_tpu_torch.resilience.LegacyGuard`, and the
+checkpoint files, in the legacy layout or through a CheckpointManager
+(``save_to_manager``, ``load_from_manager``).  A kvstore raises until
+its slice.
 """
 from __future__ import annotations
 
 import logging
 from typing import Optional
 
+import numpy as np
+
 from .. import optimizer as opt_mod
 from .. import resilience
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import Uniform
 from ..model import _create_kvstore, _update_params
@@ -63,6 +66,7 @@ class Module(BaseModule):
         self._grad_guard = None
         self._exec_group: Optional[DataParallelExecutorGroup] = None
         self._preload_opt_states = None
+        self._preload_opt_blob = None
 
     @staticmethod
     def load(prefix: str, epoch: int, load_optimizer_states: bool = False,
@@ -91,13 +95,40 @@ class Module(BaseModule):
     def save_to_manager(self, manager, epoch: int,
                         save_optimizer_states: bool = False,
                         blocking: Optional[bool] = None) -> str:
-        raise not_ported("Module.save_to_manager (checkpoint/)")
+        """:meth:`save_checkpoint` through a CheckpointManager: the
+        symbol, the parameters and, with ``save_optimizer_states``, the
+        updater's states (the ``.states`` pickle as a uint8 array named
+        ``opt_states``) in one atomic checkpoint directory."""
+        arrays = None
+        if save_optimizer_states:
+            assert self.optimizer_initialized
+            import pickle
+            from ..optimizer import states_to_host
+            blob = pickle.dumps(states_to_host(self._updater.states))
+            arrays = {"opt_states": np.frombuffer(blob, np.uint8)}
+        arg_params, aux_params = self.get_params()
+        return manager.save_model(epoch, self.symbol, arg_params,
+                                  aux_params, extra_arrays=arrays,
+                                  blocking=blocking)
 
     @staticmethod
     def load_from_manager(manager, step: Optional[int] = None,
                           load_optimizer_states: bool = False,
                           **kwargs) -> "Module":
-        raise not_ported("Module.load_from_manager (checkpoint/)")
+        """:meth:`load` from a CheckpointManager checkpoint (default: the
+        newest committed step); saved optimizer states apply at
+        ``init_optimizer``, as the ``.states`` file does."""
+        sym, args, auxs, step = manager.load_model(step)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            from ..checkpoint import load_arrays
+            loaded = load_arrays(manager.step_path(step),
+                                 names=["opt_states"])
+            mod._preload_opt_blob = loaded["opt_states"].tobytes()
+        return mod
 
     # ------------------------------------------------------------------
 
@@ -259,6 +290,10 @@ class Module(BaseModule):
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+        if self._preload_opt_blob is not None:
+            import pickle
+            self._apply_host_states(pickle.loads(self._preload_opt_blob))
+            self._preload_opt_blob = None
 
     def borrow_optimizer(self, shared_module: "Module") -> None:
         assert shared_module.optimizer_initialized

@@ -1,11 +1,18 @@
 """The train-to-serve deployment loop of the PyTorch port.
 
-Counterpart of ``mxnet_tpu/online``.  This slice carries the structural
-weight-compatibility predicate (:mod:`.compat`) that a hot swap of draft
-weights needs; the compat stamp of checkpoint manifests and the online
-post-training loop come with the checkpoint slice (ROADMAP.md).
+Counterpart of ``mxnet_tpu/online``: :mod:`.compat`, the one structural
+weight-compatibility predicate of the hot swaps (with the manifest
+signature and the compat stamp a publisher writes), and :mod:`.loop`,
+the online post-training harness (rollouts off the live fleet, a
+rejection-sampling objective, a checkpoint publish and a rolling swap
+from it).
 """
-from . import compat
-from .compat import CompatReport, check_compat, signature_of_params
+from . import compat, loop
+from .compat import (CompatReport, check_compat, compat_stamp,
+                     signature_of_manifest, signature_of_params)
+from .loop import OnlineConfig, OnlineLoop, make_rollout_trainer
 
-__all__ = ["CompatReport", "check_compat", "signature_of_params", "compat"]
+__all__ = ["CompatReport", "check_compat", "compat_stamp",
+           "signature_of_manifest", "signature_of_params",
+           "OnlineConfig", "OnlineLoop", "make_rollout_trainer",
+           "compat", "loop"]

@@ -12,7 +12,8 @@ IdentityAttachKLSparseReg.  ROIPooling waits for the detection ops
 
 Layouts stay NCHW/OIHW as in the JAX package.  Convolutions go to cuDNN
 through ``F.conv2d`` and matrix products to cuBLAS through ``matmul``, as
-the JAX package leaves them to XLA.  Where torch's own ops would
+the JAX package leaves them to XLA; ``FullyConnected(quant="fp8")`` takes
+the block-scaled fp8 product of ``quant.fp8_linear`` (cuBLAS's fp8 GEMM).  Where torch's own ops would
 compute something else than the reference, the reference's expression is
 written out:
 
@@ -50,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from .registry import OpDef, OpParam, elemwise_shape, register_op
 
 __all__ = ["softmax_rows", "softmax_rows_ref", "softmax_rows_form",
@@ -104,12 +105,17 @@ register_op(OpDef(
 # ---------------------------------------------------------------------------
 
 def _fc_fwd(ctx, params, data, weight, bias=None):
-    if params["quant"]:
-        raise not_ported("FullyConnected(quant='fp8')")
     x = data.reshape(data.shape[0], -1)
-    if x.dtype != weight.dtype:
-        x = x.to(weight.dtype)
-    out = x @ weight.t()
+    if params["quant"] == "fp8":
+        # the block-scaled fp8 product (quant.fp8_linear: e4m3 forward,
+        # e5m2 gradients, f32 accumulation); `weight` stays the master
+        from .. import quant
+        out = quant.fp8_linear(x, weight,
+                               quant.resolve_quant("fp8")).to(weight.dtype)
+    else:
+        if x.dtype != weight.dtype:
+            x = x.to(weight.dtype)
+        out = x @ weight.t()
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
@@ -408,11 +414,31 @@ def _embedding_shape(params, in_shapes):
     return shapes, [out], []
 
 
+def _embedding_fwd(ctx, params, data, weight):
+    """``jnp.take(weight, data.astype(int32), axis=0)``, the JAX package's
+    lookup: float ids truncate to int32 as XLA converts them (NaN to 0,
+    saturating), ids in ``[-n, n)`` pick their row (negatives wrap), and
+    any other id gives a row of NaN (``take``'s fill mode) and no
+    gradient.  An out-of-range id must not index: on the card that is a
+    device-side fault."""
+    ids = data
+    if ids.is_floating_point():
+        ids = torch.nan_to_num(ids.double(), nan=0.0, posinf=2.0 ** 31 - 1,
+                               neginf=-2.0 ** 31).clamp(-2.0 ** 31,
+                                                        2.0 ** 31 - 1)
+    ids = ids.long()
+    n = weight.shape[0]
+    valid = (ids >= -n) & (ids < n)
+    rows = weight[torch.where(valid, torch.remainder(ids, n),
+                              torch.zeros_like(ids))]
+    return torch.where(valid.unsqueeze(-1), rows,
+                       torch.full((), float("nan"), dtype=rows.dtype,
+                                  device=rows.device))
+
+
 register_op(OpDef(
     name="Embedding",
-    # ids arrive as float32, as every batch input does, and truncate to
-    # integers as the reference's astype(int32) does
-    forward=lambda ctx, params, data, weight: weight[data.long()],
+    forward=_embedding_fwd,
     arguments=("data", "weight"),
     params={
         "input_dim": OpParam("input_dim", "int", required=True),

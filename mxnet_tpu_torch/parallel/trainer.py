@@ -6,18 +6,33 @@ trainer compiles one program per step; here each step runs eagerly:
 1. ``eval_symbol`` runs the forward in training mode over parameters that
    are autograd leaves;
 2. the heads are back-propagated with a ones cotangent (the JAX
-   ``_grads_and_heads``: loss heads define their own backward);
+   ``_grads_and_heads``: loss heads define their own backward), or with
+   the guard's loss scale under ``loss_scale``, so the whole backward
+   runs at ``scale`` times the magnitude; with ``grad_accum = k`` the
+   batch is cut into ``k`` microbatches run in order (each one's aux
+   updates feed the next, each keyed ``mix(mix(seed, t), 0xACC, i)``,
+   as the JAX trainer folds ``0xACC`` and ``i`` into the step's key),
+   their gradients summed by autograd into the same ``.grad`` and their
+   heads concatenated back to ``[B, ...]``;
 3. the update follows the JAX ``train_step`` line for line: under the
    guard, ``sq = tree_sq_sum(grads)``, ``ok = isfinite(sq)``, the
-   effective norm ``sqrt(sq) * |rescale_grad|`` and the clip multiplier
-   ``mult = min(1, clip / max(norm, 1e-12))``; then either the fused
+   effective norm ``sqrt(sq) * |rescale_grad| / scale`` and ONE combined
+   multiplier, ``1 / scale`` times the clip coefficient
+   ``min(1, clip / max(norm, 1e-12))``; then either the fused
    update (``ops/fused_update.py``: in its hopper form one kernel launch
    a step over the gradients where autograd left them, in its bucket
-   form a gather into one flat gradient and a launch per bucket), or the
-   unfused per-parameter
-   ``optimizer._functional_step`` gated by ``where(ok, new, old)``; aux
-   states (BatchNorm moving statistics) keep their old values on a bad
-   step.
+   form a gather into one flat gradient and a launch per bucket; the
+   multiplier rides into the kernel), or the unfused per-parameter
+   ``optimizer._functional_step`` after one multiply, gated by
+   ``where(ok, new, old)``; aux states (BatchNorm moving statistics)
+   keep their old values on a bad step.  Under ``"dynamic"`` scaling the
+   guard state runs the scale's schedule (``resilience.state_update``);
+   a symbol with fp8 linears turns dynamic scaling on by default.
+
+``matmul_precision`` takes the JAX package's names and sets PyTorch's
+float32 matmul precision (and cuDNN's TF32 switch) around each step and
+inference forward, restoring the global setting after it
+(:func:`matmul_precision_scope`).
 
 The graph's sampling ops (Dropout, ``_sample_*``) draw from a
 :class:`~mxnet_tpu_torch.random.GraphKey` on the trainer's device keyed
@@ -57,13 +72,23 @@ folds into a 0-d int32 carry on the card inside each step
 the guard counters (every ``GuardConfig.check_every`` batches, into the
 divergence sentinel) and the epoch end are the only drains.
 
+Checkpoints (:meth:`ShardedTrainer.save_state`, :meth:`restore_state`,
+:meth:`restore_or_initialize`, ``fit(checkpoint_manager=...)``) hold the
+full state under the JAX package's array names (``param:<n>``,
+``aux:<n>``, ``opt:<key>:<i>`` with ``<key>`` a parameter name, or
+``fused:<i>`` for bucket ``i`` of the fused layout) and its meta (the
+update count, the guard's six counters cumulative), so a checkpoint of
+either package restores into the other when both trainers are fused or
+both unfused.  The divergence sentinel's ``"rollback"`` restores the
+manager's newest checkpoint.
+
 Not ported yet (they raise): ``mesh``, ``rules``, ``data_axis``,
-``matmul_precision``, ``shard_optimizer``, ``grad_accum > 1``,
-``grad_compression``, ``error_feedback``, ``loss_scale``, checkpoints
-(``save_state``/``restore_state``, ``fit(checkpoint_manager=...)``).
+``shard_optimizer``, ``grad_compression`` and ``error_feedback`` (the
+multi-GPU slice).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -72,6 +97,7 @@ import numpy as np
 import torch
 
 from .. import optimizer as opt_mod
+from .. import quant as quant_mod
 from .. import resilience, telemetry
 from ..random import GraphKey, mix
 from ..base import MXNetError, not_ported
@@ -82,7 +108,36 @@ from ..ndarray import NDArray, array as nd_array, zeros as nd_zeros
 from ..ops import fused_update as fu
 from .collectives import DEFAULT_BUCKET_BYTES
 
-__all__ = ["ShardedTrainer"]
+__all__ = ["ShardedTrainer", "matmul_precision_scope"]
+
+
+# the JAX package's precision names -> torch's float32 matmul precision.
+# "medium" lets a float32 product use bfloat16 inputs where the backend
+# has such a kernel; cuBLAS has none, so on the card it runs as TF32
+# ("high") does (PERF.md).
+_MATMUL_PRECISION = {"bfloat16": "medium", "default": "medium",
+                     "tensorfloat32": "high", "high": "high",
+                     "float32": "highest", "highest": "highest"}
+
+
+@contextlib.contextmanager
+def matmul_precision_scope(name: Optional[str]):
+    """Run the body under the JAX precision ``name``: torch's float32
+    matmul precision and cuDNN's TF32 switch (on for every name but
+    ``float32``/``highest``); both are restored on exit.  None changes
+    nothing."""
+    if name is None:
+        yield
+        return
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision(_MATMUL_PRECISION[name])
+    torch.backends.cudnn.allow_tf32 = _MATMUL_PRECISION[name] != "highest"
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
 
 
 class _PlacedBatch(dict):
@@ -115,8 +170,16 @@ class ShardedTrainer:
         None = fused when eligible (``MXNET_TPU_FUSED_UPDATE=0`` opts
         out); True raises at ``bind`` when the configuration cannot fuse;
         False forces the unfused update.
-    guard, clip_global_norm : the non-finite step guard and global-norm
-        clipping (``resilience.py``).
+    matmul_precision : str, optional
+        A JAX precision name (``bfloat16``, ``tensorfloat32``,
+        ``float32``, ``default``, ``high``, ``highest``) set around each
+        step and inference forward (:func:`matmul_precision_scope`).
+    grad_accum : int
+        Microbatches a step: gradients summed, one update.  The symbol
+        is built for the microbatch (``batch / grad_accum``).
+    guard, clip_global_norm, loss_scale : the non-finite step guard,
+        global-norm clipping and loss scaling (None, a float or
+        ``"dynamic"``; ``resilience.py``).
     device : the card unless the caller asks for the CPU
         (``device="cpu"``); raises when CUDA is asked for and absent.
     """
@@ -137,16 +200,21 @@ class ShardedTrainer:
                  logger=None, device=None, seed: int = 0):
         for what, val in (("mesh", mesh), ("rules", rules),
                           ("data_axis", data_axis),
-                          ("matmul_precision", matmul_precision),
                           ("grad_compression", grad_compression),
-                          ("error_feedback", error_feedback),
-                          ("loss_scale", loss_scale)):
+                          ("error_feedback", error_feedback)):
             if val is not None:
                 raise not_ported(f"ShardedTrainer({what}=...)")
         if shard_optimizer:
             raise not_ported("ShardedTrainer(shard_optimizer=True)")
-        if int(grad_accum) != 1:
-            raise not_ported("ShardedTrainer(grad_accum > 1)")
+        if matmul_precision is not None \
+                and matmul_precision not in _MATMUL_PRECISION:
+            raise MXNetError(
+                f"matmul_precision {matmul_precision!r}: expected one of "
+                f"{sorted(_MATMUL_PRECISION)}")
+        self.matmul_precision = matmul_precision
+        self.grad_accum = int(grad_accum)
+        if self.grad_accum < 1:
+            raise MXNetError("grad_accum must be >= 1")
         self.device = resolve_device(device)
         self.compute_dtype = _torch_dtype(compute_dtype)
         self.symbol = symbol
@@ -168,11 +236,17 @@ class ShardedTrainer:
         if clip_global_norm is None:
             clip_global_norm = getattr(self.optimizer, "clip_global_norm",
                                        None)
+        # fp8 narrows the backward's range from both ends (e5m2
+        # gradients underflow early): dynamic loss scaling by default
+        if loss_scale is None and guard is not False \
+                and quant_mod.symbol_uses_fp8(symbol):
+            loss_scale = "dynamic"
         if guard is None and getattr(self.optimizer, "skip_nonfinite",
                                      None):
             guard = True
         self._resil = resilience.resolve(guard=guard,
                                          clip_global_norm=clip_global_norm,
+                                         loss_scale=loss_scale,
                                          **(guard_params or {}))
         self._guard_state: Optional[Dict[str, torch.Tensor]] = None
         # the divergence sentinel's host state: the lr backoff factor, the
@@ -183,6 +257,12 @@ class ShardedTrainer:
         self._resil_base = {"skipped": 0, "overflows": 0, "norm_sum": 0.0,
                             "norm_cnt": 0}
         self._resil_drained: Dict[str, Any] = {}
+        self._rollback_hook = None  # runs before a sentinel rollback
+        # a save asked for mid-step (a signal handler) waits for the step's
+        # end; fit's own manager saves at its batch boundary
+        self._in_step = False
+        self._deferred_save: Optional[Tuple] = None
+        self._fit_manager = None
         self._bound = False
 
     # ------------------------------------------------------------------
@@ -201,13 +281,22 @@ class ShardedTrainer:
         sym = self.symbol
         input_shapes = dict(data_shapes)
         input_shapes.update(label_shapes or {})
+        for name, shape in input_shapes.items():
+            if shape[0] % self.grad_accum:
+                raise MXNetError(
+                    f"global batch {shape[0]} for {name!r} not divisible by "
+                    f"data-axis size 1 x grad_accum {self.grad_accum}")
         arg_names = sym.list_arguments()
         self._input_names = [n for n in arg_names if n in input_shapes]
         self._label_names = [n for n in arg_names
                              if n in (label_shapes or {})]
         self._param_names = [n for n in arg_names if n not in input_shapes]
         self._aux_names = sym.list_auxiliary_states()
-        arg_shapes, _, aux_shapes = sym.infer_shape(**input_shapes)
+        # the graph runs a microbatch at a time: a symbol that bakes the
+        # batch into its Reshapes is built for the microbatch
+        arg_shapes, _, aux_shapes = sym.infer_shape(**{
+            n: (s[0] // self.grad_accum,) + tuple(s[1:])
+            for n, s in input_shapes.items()})
         shape_of = dict(zip(arg_names, arg_shapes))
         self._input_shapes = {n: tuple(input_shapes[n])
                               for n in self._input_names}
@@ -268,7 +357,7 @@ class ShardedTrainer:
             int(self._generator.initial_seed()))
             if opt._needs_rng else None)
         if self._resil is not None:
-            self._guard_state = resilience.init_state(dev)
+            self._guard_state = resilience.init_state(self._resil, dev)
             clip = self._resil.clip_global_norm
             self._c_clip = (None if clip is None
                             else torch.full((), clip, **f32))
@@ -403,23 +492,52 @@ class ShardedTrainer:
                 for n, p in self._params.items()}
 
     def _forward_backward(self, placed):
-        """Training forward and backward: ``(heads, grads, aux_updates)``
-        with a ones cotangent on every head."""
+        """Training forward and backward: ``(heads, grads, aux_updates)``.
+        Each head's cotangent is ones, or the loss scale; under
+        ``grad_accum`` the microbatches run in order and autograd sums
+        their gradients into the same ``.grad``."""
         for p in self._params.values():
             p.grad = None
-        args = self._cast_params()
-        args.update(placed)
-        key = GraphKey(mix(self._seed, self._num_update), self.device,
-                       self._node_generators)
-        heads, auxu = eval_symbol(self.symbol, args, self._aux, key, True,
-                                  topo=self._topo)
-        live = [h for h in heads if h.requires_grad]
-        torch.autograd.backward(live, [torch.ones_like(h) for h in live])
+        k = self.grad_accum
+        scale = (self._guard_state["scale"]
+                 if self._resil is not None and self._resil.scaling
+                 else None)
+        step_key = mix(self._seed, self._num_update)
+        if k == 1:
+            heads, auxu = self._micro(placed, self._aux, GraphKey(
+                step_key, self.device, self._node_generators), scale)
+        else:
+            aux = dict(self._aux)
+            auxu, heads_k = {}, []
+            for i in range(k):
+                mb = {n: v.reshape((k, v.shape[0] // k) + v.shape[1:])[i]
+                      for n, v in placed.items()}
+                heads_i, aux_i = self._micro(mb, aux, GraphKey(
+                    mix(step_key, 0xACC, i), self.device,
+                    self._node_generators), scale)
+                aux.update(aux_i)
+                auxu.update(aux_i)
+                heads_k.append(heads_i)
+            heads = tuple(torch.cat(hs) for hs in zip(*heads_k))
         grads = {n: (p.grad if p.grad is not None
                      else torch.zeros_like(p, requires_grad=False))
                  for n, p in self._params.items()}
-        return (tuple(h.detach() for h in heads), grads,
-                {k: v.detach() for k, v in auxu.items()})
+        return heads, grads, auxu
+
+    def _micro(self, placed, aux, key, scale):
+        """One forward and backward over ``placed`` with aux states
+        ``aux``; the gradients land in the parameters' ``.grad``.
+        Returns the detached heads and aux updates."""
+        args = self._cast_params()
+        args.update(placed)
+        heads, auxu = eval_symbol(self.symbol, args, aux, key, True,
+                                  topo=self._topo)
+        live = [h for h in heads if h.requires_grad]
+        cots = [torch.ones_like(h) if scale is None
+                else scale.to(h.dtype).expand(h.shape) for h in live]
+        torch.autograd.backward(live, cots)
+        return (tuple(h.detach() for h in heads),
+                {k_: v.detach() for k_, v in auxu.items()})
 
     def step(self, batch) -> List[torch.Tensor]:
         """Run one training step; returns the head outputs.  ``batch`` may
@@ -427,10 +545,29 @@ class ShardedTrainer:
         return self._train(self.place_batch(batch))
 
     def _train(self, placed) -> List[torch.Tensor]:
-        self._num_update += 1
-        heads, grads, auxu = self._forward_backward(placed)
-        self._apply_update(grads, auxu)
+        self._in_step = True
+        try:
+            self._num_update += 1
+            with matmul_precision_scope(self.matmul_precision):
+                heads, grads, auxu = self._forward_backward(placed)
+                self._apply_update(grads, auxu)
+        finally:
+            self._in_step = False
+        if self._deferred_save is not None:
+            self._run_deferred_save()
         return list(heads)
+
+    def _run_deferred_save(self) -> None:
+        """The save a signal asked for mid-step, now that the step is
+        whole.  Under ``fit`` with the same (preempted) manager the batch
+        boundary's forced save takes it instead, with the metric's
+        carry."""
+        args, self._deferred_save = self._deferred_save, None
+        manager = args[0]
+        if manager is self._fit_manager and manager.preempted:
+            return
+        self.save_state(*args)
+        manager.deferred_save_done()
 
     def _step_acc(self, batch, carry: torch.Tensor):
         """:meth:`step`, then the ``Accuracy`` fold of each labelled head
@@ -463,11 +600,17 @@ class ShardedTrainer:
                 ok = torch.isfinite(sq)
                 eff_norm = torch.sqrt(sq) * float(
                     abs(self._rescale_grad) or 1.0)
+                if resil.scaling:
+                    # the unscale folds into the one combined multiplier
+                    inv_scale = self._c_one / self._guard_state["scale"]
+                    eff_norm = eff_norm * inv_scale
+                    mult = inv_scale
                 if resil.clip_global_norm is not None:
-                    mult = torch.minimum(
+                    coef = torch.minimum(
                         self._c_one,
                         self._c_clip / torch.maximum(eff_norm,
                                                      self._c_tiny))
+                    mult = coef if mult is None else mult * coef
                 if mult is not None and not self._fused:
                     grads = {n: g * mult for n, g in grads.items()}
             if self._fused:
@@ -478,7 +621,7 @@ class ShardedTrainer:
                 for k, v in auxu.items():
                     self._aux[k] = torch.where(ok, v, self._aux[k])
                 self._guard_state = resilience.state_update(
-                    self._guard_state, ok, eff_norm)
+                    self._guard_state, ok, eff_norm, resil)
             else:
                 self._aux.update(auxu)
 
@@ -553,12 +696,21 @@ class ShardedTrainer:
         self._eval_count += 1
         key = GraphKey(mix(self._seed, 0x5EED, self._eval_count),
                        self.device, self._node_generators)
-        with torch.no_grad():
+        k = self.grad_accum
+        # a symbol built for the microbatch evaluates a microbatch at a
+        # time, every one with the eval's key
+        micro = ([placed] if k == 1 else
+                 [{n: v.reshape((k, v.shape[0] // k) + v.shape[1:])[i]
+                   for n, v in placed.items()} for i in range(k)])
+        outs = []
+        with torch.no_grad(), matmul_precision_scope(self.matmul_precision):
             args = self._cast_params()
-            args.update(placed)
-            heads, _ = eval_symbol(self.symbol, args, self._aux, key, False,
-                                   topo=self._topo)
-        return list(heads)
+            for mb in micro:
+                args.update(mb)
+                heads, _ = eval_symbol(self.symbol, args, self._aux, key,
+                                       False, topo=self._topo)
+                outs.append(heads)
+        return [torch.cat(hs) if k > 1 else hs[0] for hs in zip(*outs)]
 
     # ------------------------------------------------------------------
     # Param access
@@ -603,11 +755,178 @@ class ShardedTrainer:
                          .view(plan.shapes[n]) for s in self._flat_state)
                 for n in self._param_names}
 
-    def save_state(self, *args, **kwargs):
-        raise not_ported("ShardedTrainer.save_state (checkpoint/)")
+    # ------------------------------------------------------------------
+    # Checkpoints: params, aux, optimizer state, update count, guard
+    # ------------------------------------------------------------------
 
-    def restore_state(self, *args, **kwargs):
-        raise not_ported("ShardedTrainer.restore_state (checkpoint/)")
+    def _opt_arrays(self) -> Dict[str, torch.Tensor]:
+        """The optimizer state under the JAX trainer's names: unfused,
+        ``opt:<param>:<leaf>``; fused, ``opt:fused:<bucket>:<leaf>``, each
+        bucket a slice of the flat state buffers (the per-element weight
+        decay vector is bind-time configuration, never saved)."""
+        if not self._fused:
+            return {f"opt:{n}:{i}": leaf
+                    for n, leaves in self.opt_state_by_param().items()
+                    for i, leaf in enumerate(leaves)}
+        return {f"opt:fused:{b}:{i}": flat[b0:b1]
+                for b, (b0, b1) in enumerate(self._bucket_bounds)
+                for i, flat in enumerate(self._flat_state)}
+
+    def _state_arrays(self) -> Dict[str, torch.Tensor]:
+        """The full trainer state as ``{name: tensor}``: ``param:<n>``,
+        ``aux:<n>`` and the optimizer's ``opt:`` arrays (views of the live
+        buffers: :meth:`save_state` snapshots them at once)."""
+        if not self._bound:
+            raise MXNetError("call bind() before save_state/restore_state")
+        arrays = {f"param:{n}": self._params[n].detach()
+                  for n in self._param_names}
+        arrays.update({f"aux:{n}": self._aux[n] for n in self._aux_names})
+        arrays.update(self._opt_arrays())
+        return arrays
+
+    def _state_meta(self, extra_meta=None, device_meta=None):
+        """The checkpoint's meta, as a zero-argument function: the update
+        count, the optimizer, the port's sampling seed (``torch_seed``:
+        the JAX package's threefry ``rng_key`` has no use here), with the
+        guard its six counters (windowed ones cumulative: host base plus
+        the card's window), and ``device_meta``'s integer scalars.  The
+        scalars on the card are queued for the host here in one copy,
+        without waiting; the snapshot's one synchronize lands them before
+        the manager calls the function."""
+        meta = {"state": "sharded_trainer",
+                "num_update": int(self._num_update),
+                "optimizer": type(self.optimizer).__name__,
+                "torch_seed": int(self._seed),
+                "data_axis_size": 1}
+        if extra_meta:
+            meta.update(extra_meta)
+        keys, vals = [], []
+        guarded = self._guard_state is not None
+        if guarded:
+            keys = list(resilience.STATE_KEYS)
+            vals = [self._guard_state[k] for k in keys]
+        for k, v in (device_meta or {}).items():
+            keys.append(k)
+            vals.append(v)
+        if not vals:
+            return lambda: meta
+        vals = torch.stack([v.double().reshape(()) for v in vals])
+        if vals.device.type == "cuda":
+            host = torch.empty(vals.shape, dtype=vals.dtype,
+                               pin_memory=True)
+            host.copy_(vals, non_blocking=True)
+        else:
+            host = vals.clone()
+        base = dict(self._resil_base)
+
+        def finish():
+            got = dict(zip(keys, host.tolist()))
+            if guarded:
+                meta["resilience"] = {
+                    k: (int(got[k]) if k in resilience._INT_KEYS
+                        else float(got[k])) + base.get(k, 0)
+                    for k in resilience.STATE_KEYS}
+            for k in (device_meta or {}):
+                meta[k] = int(got[k])
+            return meta
+
+        return finish
+
+    def save_state(self, manager, step: Optional[int] = None,
+                   blocking: Optional[bool] = None,
+                   extra_meta: Optional[Dict[str, Any]] = None) -> str:
+        """Checkpoint the full trainer state (params, aux, optimizer
+        state, update count, sampling seed, guard state) through a
+        :class:`~mxnet_tpu_torch.checkpoint.CheckpointManager`.  The copy
+        from the card completes before this returns (the fused update
+        writes its buffers in place, so the next step could overwrite
+        them); the files are written on the manager's thread unless
+        ``blocking``.
+
+        Called mid-step (from a preemption hook: a signal handler runs
+        between any two bytecodes), it saves nothing yet: the update
+        count has moved and the weights may be half updated.  The save
+        runs when the step ends, at the same update count."""
+        if self._in_step:
+            self._deferred_save = (manager, step, blocking, extra_meta)
+            defer = getattr(manager, "defer_save", None)
+            if defer is not None:
+                defer()
+            self.logger.warning(
+                "save_state: asked for inside update %d; deferred to the "
+                "step's end", self._num_update)
+            return manager.step_path(self._num_update if step is None
+                                     else int(step))
+        step = self._num_update if step is None else int(step)
+        return manager.save(step, self._state_arrays(),
+                            meta=self._state_meta(extra_meta),
+                            blocking=blocking)
+
+    def restore_state(self, manager, step: Optional[int] = None
+                      ) -> Tuple[Dict[str, Any], int]:
+        """Restore the trainer state from ``manager`` (default: its newest
+        step).  Returns ``(meta, step)``; the next :meth:`step` continues
+        the saved run bitwise.  Every array this trainer holds must be in
+        the checkpoint with its shape: a missing name (a fused checkpoint
+        into an unfused trainer, another optimizer, another model) raises
+        naming them, before anything is changed."""
+        if not self._bound:
+            raise MXNetError("call bind() before restore_state")
+        from ..checkpoint import layout
+        mine = self._state_arrays()
+        manager.wait_until_finished()
+        if step is None:
+            step = manager.latest_step()
+            if step is None:
+                raise MXNetError(f"no committed checkpoint under "
+                                 f"{manager.directory!r}")
+        saved = layout.read_manifest(manager.step_path(step))["arrays"]
+        missing = sorted(n for n in mine if n not in saved)
+        if missing:
+            raise MXNetError(
+                f"restore_state: checkpoint step {step} lacks "
+                f"{len(missing)} of this trainer's arrays: {missing[:8]} "
+                "(a fused and an unfused trainer, another optimizer or "
+                "another model do not share a layout)")
+        arrays, meta, step = manager.restore(
+            step=step, names=list(mine),
+            target_shapes={n: tuple(v.shape) for n, v in mine.items()})
+        with torch.no_grad():
+            for n, dst in mine.items():
+                dst.copy_(torch.from_numpy(np.ascontiguousarray(arrays[n])))
+        self._num_update = int(meta.get("num_update", step))
+        if "torch_seed" in meta:
+            self._seed = int(meta["torch_seed"])
+        else:
+            self.logger.warning(
+                "restore_state: the checkpoint holds no torch_seed (it was "
+                "written by the JAX package); sampling ops draw from this "
+                "trainer's seed %d: their streams do not carry across "
+                "packages", self._seed)
+        if self._resil is not None and "resilience" in meta:
+            # cumulative counters land in the host base; the card's
+            # windows restart at zero, the scale and streak stay live
+            base = resilience.init_state(self._resil, self.device)
+            rs = meta["resilience"]
+            self._resil_base = {k: 0 for k in resilience.WINDOW_KEYS}
+            for k in resilience.STATE_KEYS:
+                if k not in rs:
+                    continue
+                if k in resilience.WINDOW_KEYS:
+                    self._resil_base[k] = (float(rs[k]) if k == "norm_sum"
+                                           else int(rs[k]))
+                else:
+                    base[k].fill_(rs[k])
+            self._guard_state = base
+        self.logger.info("restore_state: resumed at update %d from %s",
+                         self._num_update, manager.step_path(step))
+        return meta, step
+
+    def restore_or_initialize(self, manager) -> Optional[int]:
+        """Restore the manager's newest checkpoint if it has one (returning
+        its step), else leave the bound state as it is and return None."""
+        return manager.restore_or_initialize(
+            lambda step: self.restore_state(manager, step=step)[1])
 
     # ------------------------------------------------------------------
     # Resilience: counter drain + divergence sentinel
@@ -617,9 +936,7 @@ class ShardedTrainer:
         """One-fetch snapshot of the guard counters (empty when the guard
         is off): the host-side base folded off the card by past sentinel
         drains plus the current on-card window, in one device-to-host
-        copy.  Reading never resets anything.  Without loss scaling
-        ``overflow_steps`` is 0 and ``loss_scale`` 1.0, as the JAX trainer
-        reports them."""
+        copy.  Reading never resets anything."""
         if self._guard_state is None:
             return {}
         keys = resilience.STATE_KEYS
@@ -630,9 +947,9 @@ class ShardedTrainer:
         base = self._resil_base
         stats = {
             "skipped_steps": base["skipped"] + int(vals["skipped"]),
-            "overflow_steps": base["overflows"],
-            "good_steps": 0,
-            "loss_scale": 1.0,
+            "overflow_steps": base["overflows"] + int(vals["overflows"]),
+            "good_steps": int(vals["good"]),
+            "loss_scale": float(vals["scale"]),
             "norm_sum": base["norm_sum"] + vals["norm_sum"],
             "norm_steps": base["norm_cnt"] + int(vals["norm_cnt"]),
             "lr_scale": self._lr_scale,
@@ -658,14 +975,16 @@ class ShardedTrainer:
                             "overflows": stats["overflow_steps"],
                             "norm_sum": stats["norm_sum"],
                             "norm_cnt": stats["norm_steps"]}
-        self._guard_state = resilience.init_state(self.device)
+        for k in resilience.WINDOW_KEYS:
+            self._guard_state[k] = torch.zeros_like(self._guard_state[k])
 
-    def _sentinel_poll(self) -> Optional[str]:
+    def _sentinel_poll(self, manager=None) -> Optional[str]:
         """Drain the guard counters and feed the divergence sentinel;
         ``fit`` calls it every ``GuardConfig.check_every`` batches.  On an
-        anomaly the learning rate is backed off host-side.  A
-        ``"rollback"`` needs a checkpoint manager (not ported yet), so it
-        degrades to a backoff, as in the JAX trainer without one."""
+        anomaly the learning rate is backed off host-side; on a
+        ``"rollback"`` with a checkpoint manager that holds a step, the
+        trainer restores that step (without one it stays a backoff, as
+        in the JAX trainer)."""
         stats = self.resilience_stats()
         if not stats:
             return None
@@ -688,9 +1007,29 @@ class ShardedTrainer:
             return None
         self._lr_scale = max(self._lr_scale * self._resil.lr_backoff,
                              self._resil.min_lr_scale)
-        telemetry.counter("resilience.backoffs").inc()
-        self.logger.warning(
-            "Resilience: LR backed off, lr-scale=%g", self._lr_scale)
+        if action == "rollback" and manager is not None \
+                and manager.latest_step() is not None:
+            if self._rollback_hook is not None:
+                self._rollback_hook()
+            restoring = getattr(manager, "restoring", None)
+            with (restoring() if restoring is not None
+                  else contextlib.nullcontext()):
+                _, step = self.restore_state(manager)
+            self._rollbacks += 1
+            telemetry.counter("resilience.rollbacks").inc()
+            telemetry.dump_flight(
+                "divergence-rollback",
+                extra={"restored_step": step, "lr_scale": self._lr_scale,
+                       "norm_mean": norm_mean})
+            # the guard counters rolled back with the state
+            self._resil_drained = self.resilience_stats()
+            self.logger.warning(
+                "Resilience: rolled back to checkpoint at update %d, "
+                "lr-scale=%g", step, self._lr_scale)
+        else:
+            telemetry.counter("resilience.backoffs").inc()
+            self.logger.warning(
+                "Resilience: LR backed off, lr-scale=%g", self._lr_scale)
         return action
 
     # ------------------------------------------------------------------
@@ -709,6 +1048,25 @@ class ShardedTrainer:
             eval_metric.update(batch.label, self.forward(batch))
         return eval_metric
 
+    def _fit_checkpoint(self, manager, am, epoch: int, nbatch: int) -> None:
+        """:meth:`fit`'s per-batch checkpoint hook: a policy-gated (or
+        preemption-forced) :meth:`save_state`, with the fused metric's
+        carry in the meta so a resumed epoch's running metric is not
+        zero."""
+
+        def state_fn():
+            extra = {"epoch": epoch, "nbatch": nbatch}
+            carry = None
+            if am._dev_sum is not None:
+                # the carry rides the guard counters' copy to the host
+                extra["metric_num"] = int(am._dev_num)
+                carry = {"metric_sum": am._dev_sum}
+            return self._state_arrays(), self._state_meta(extra, carry)
+
+        manager.maybe_save(self._num_update, state_fn)
+        if manager.preempted:
+            manager.deferred_save_done()
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             num_epoch: int = 1, begin_epoch: int = 0,
             batch_end_callback=None, epoch_end_callback=None,
@@ -725,10 +1083,13 @@ class ShardedTrainer:
         guard a ``Resilience:`` line, and with ``eval_data``
         ``Mesh-Validation-<metric>``; ``epoch_end_callback(epoch, symbol,
         arg_params, aux_params)`` gets host copies of the parameters.
-        ``checkpoint_manager`` is not ported yet."""
-        if checkpoint_manager is not None:
-            raise not_ported("ShardedTrainer.fit(checkpoint_manager=...) "
-                             "(checkpoint/)")
+
+        ``checkpoint_manager`` checkpoints inside the loop: after each
+        step the manager's save policy may trigger a full
+        :meth:`save_state` (the snapshot on this thread, the writes on the
+        manager's), and a preemption (``manager.preempted``, set by its
+        SIGTERM hook) forces a blocking save and stops the loop at the
+        batch boundary; the sentinel's rollbacks restore from it."""
         from .. import chaos as chaos_mod
         from ..io import DevicePrefetchIter
         from ..metric import create as metric_create
@@ -761,6 +1122,7 @@ class ShardedTrainer:
                        else 0)
         # host cadence between step returns, with no device fetch
         t_last = time.perf_counter()
+        self._fit_manager = checkpoint_manager
         try:
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
@@ -803,8 +1165,19 @@ class ShardedTrainer:
                         batch_end_callback(BatchEndParam(
                             epoch=epoch, nbatch=nbatch, eval_metric=am,
                             locals=locals()))
+                    if checkpoint_manager is not None:
+                        self._fit_checkpoint(checkpoint_manager, am, epoch,
+                                             nbatch)
+                        if checkpoint_manager.preempted:
+                            self.logger.warning(
+                                "fit: preemption signal received; state "
+                                "saved at update %d, stopping "
+                                "(restore_or_initialize resumes on "
+                                "restart)", self._num_update)
+                            checkpoint_manager.wait_until_finished()
+                            return
                     if check_every and nbatch % check_every == 0:
-                        self._sentinel_poll()
+                        self._sentinel_poll(checkpoint_manager)
                 name, value = am.get()
                 names = name if isinstance(name, list) else [name]
                 values = value if isinstance(value, list) else [value]
@@ -836,6 +1209,7 @@ class ShardedTrainer:
             telemetry.dump_flight("step-exception")
             raise
         finally:
+            self._fit_manager = None
             # an abandoned epoch must not leave the prefetch thread alive
             # holding staged device buffers
             prefetch.close()

@@ -1,17 +1,28 @@
-"""Training guardrails: the non-finite step guard, global-norm clipping
-and the divergence sentinel.
+"""Training guardrails: the non-finite step guard, dynamic loss scaling,
+global-norm clipping and the divergence sentinel.
 
-Counterpart of the in-step part of ``mxnet_tpu/resilience.py``.  The
-trainer reduces the gradients to one float32 statistic, their sum of
-squares (:func:`tree_sq_sum`); ``ok = isfinite(sq)`` gates the whole
-update (a bad step leaves parameters, optimizer state and aux states
-bitwise unchanged) and the effective norm ``sqrt(sq) * |rescale_grad|``
-sets the clip multiplier.  The guard's counters (:func:`init_state`,
-:func:`state_update`) live on the card as 0-d tensors, so no step waits
-for the host; ``ShardedTrainer.fit`` drains them every
+Counterpart of ``mxnet_tpu/resilience.py``.  The trainer reduces the
+gradients to one float32 statistic, their sum of squares
+(:func:`tree_sq_sum`); ``ok = isfinite(sq)`` gates the whole update (a
+bad step leaves parameters, optimizer state and aux states bitwise
+unchanged) and the effective norm ``sqrt(sq) * |rescale_grad| / scale``
+sets the clip multiplier.  With ``loss_scale`` the heads' cotangents are
+the scale instead of ones, so the backward runs at ``scale`` times the
+magnitude, and ``1 / scale`` folds into the one combined multiplier with
+the clip coefficient.  The guard's six counters (:data:`STATE_KEYS`:
+the loss scale, the good-step streak, and the windowed skipped, overflow
+and norm counters; :func:`init_state`, :func:`state_update`) live on
+the card as 0-d tensors, so no step waits for the host; under
+``"dynamic"`` scaling the scale grows by ``growth_factor`` after
+``growth_interval`` good steps in a row and backs off by
+``backoff_factor`` on an overflow, clamped to ``[min_scale,
+max_scale]``.  ``ShardedTrainer.fit`` drains the counters every
 ``GuardConfig.check_every`` batches into :class:`DivergenceSentinel`, a
 host-side detector that backs off the learning rate on a gradient-norm
-spike or an all-skipped window.
+spike or an all-skipped window and, after ``rollback_after`` anomalies in
+a row, rolls back to the last checkpoint; each drain folds the windowed
+counters (:data:`WINDOW_KEYS`) into a host-side base and zeroes them on
+the card.
 
 :class:`Heartbeat` is the progress-based liveness tracker the serving
 router checks its replicas with.
@@ -19,9 +30,6 @@ router checks its replicas with.
 :class:`LegacyGuard` is the skip/clip guard of the legacy loops
 (``FeedForward``, ``Module``): one sum of squares per device and one
 fetch a step, which those loops make anyway.
-
-Loss scaling (``loss_scale`` and its schedule knobs) is not ported yet
-(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,19 +43,21 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .base import not_ported
-
 __all__ = ["GuardConfig", "resolve", "init_state", "tree_sq_sum",
-           "state_update", "STATE_KEYS", "DivergenceSentinel", "Heartbeat",
-           "LegacyGuard", "legacy_guard_for"]
+           "state_update", "STATE_KEYS", "WINDOW_KEYS",
+           "DivergenceSentinel", "Heartbeat", "LegacyGuard",
+           "legacy_guard_for"]
 
 _LOGGER = logging.getLogger(__name__)
 
-STATE_KEYS = ("skipped", "norm_sum", "norm_cnt")
+# the device-side guard state, in a fixed order (checkpoints read it so)
+STATE_KEYS = ("scale", "good", "skipped", "overflows", "norm_sum", "norm_cnt")
 
-# the loss-scale schedule's knobs, which raise until loss scaling is ported
-_LOSS_SCALE_KNOBS = ("init_scale", "growth_factor", "backoff_factor",
-                     "growth_interval", "min_scale", "max_scale")
+_INT_KEYS = frozenset(("good", "skipped", "overflows", "norm_cnt"))
+
+# windowed counters: folded into the host-side base and zeroed on the
+# card at each drain; "scale" and "good" carry the live schedule
+WINDOW_KEYS = ("skipped", "overflows", "norm_sum", "norm_cnt")
 
 
 def _env_flag(name: str) -> Optional[bool]:
@@ -57,15 +67,32 @@ def _env_flag(name: str) -> Optional[bool]:
     return raw.strip().lower() not in ("0", "false", "off", "no")
 
 
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError("%s must be a float, got %r" % (name, raw))
+
+
 class GuardConfig:
     """Static guard configuration: the non-finite skip is always on;
-    ``clip_global_norm`` adds the clip multiplier.  The sentinel knobs
-    (host side, read by :class:`DivergenceSentinel` and
-    ``ShardedTrainer.fit``) are the JAX package's, with its defaults; the
-    loss-scale knobs are not ported and raise."""
+    ``clip_global_norm`` adds the clip multiplier and ``loss_scale``
+    (None, a fixed float or ``"dynamic"``) the scaled backward.  The
+    schedule knobs and the sentinel knobs (host side, read by
+    :class:`DivergenceSentinel` and ``ShardedTrainer.fit``) are the JAX
+    package's, with its defaults."""
 
     def __init__(self, clip_global_norm: Optional[float] = None,
                  loss_scale: Any = None,
+                 init_scale: float = 2.0 ** 15,
+                 growth_factor: float = 2.0,
+                 backoff_factor: float = 0.5,
+                 growth_interval: int = 200,
+                 min_scale: float = 2.0 ** -14,
+                 max_scale: float = 2.0 ** 24,
                  check_every: int = 25,
                  window: int = 16,
                  min_history: int = 4,
@@ -73,21 +100,23 @@ class GuardConfig:
                  lr_backoff: float = 0.5,
                  min_lr_scale: float = 1.0 / 64.0,
                  rollback_after: int = 2,
-                 cooldown: int = 2,
-                 **knobs: Any):
-        if loss_scale is not None:
-            raise not_ported("loss scaling (loss_scale)")
-        unknown = sorted(k for k in knobs if k not in _LOSS_SCALE_KNOBS)
-        if unknown:
-            raise TypeError(f"unknown guard knobs {unknown}")
-        if knobs:
-            raise not_ported(f"guard knobs {sorted(knobs)} (the loss-scale "
-                             "schedule)")
+                 cooldown: int = 2):
         if clip_global_norm is not None:
             clip_global_norm = float(clip_global_norm)
             if clip_global_norm <= 0:
                 raise ValueError("clip_global_norm must be positive")
+        if loss_scale is not None and loss_scale != "dynamic":
+            loss_scale = float(loss_scale)
+            if loss_scale <= 0:
+                raise ValueError("loss_scale must be positive or 'dynamic'")
         self.clip_global_norm = clip_global_norm
+        self.loss_scale = loss_scale
+        self.init_scale = float(init_scale)
+        self.growth_factor = float(growth_factor)
+        self.backoff_factor = float(backoff_factor)
+        self.growth_interval = int(growth_interval)
+        self.min_scale = float(min_scale)
+        self.max_scale = float(max_scale)
         self.check_every = int(check_every)
         self.window = int(window)
         self.min_history = int(min_history)
@@ -97,20 +126,52 @@ class GuardConfig:
         self.rollback_after = int(rollback_after)
         self.cooldown = int(cooldown)
 
+    @property
+    def scaling(self) -> bool:
+        return self.loss_scale is not None
+
+    @property
+    def dynamic(self) -> bool:
+        return self.loss_scale == "dynamic"
+
+    def describe(self) -> Dict[str, Any]:
+        """The fields that change the step's arithmetic (the JAX package
+        keys its compiled program with them)."""
+        return {
+            "clip_global_norm": self.clip_global_norm,
+            "loss_scale": ("dynamic" if self.dynamic
+                           else self.loss_scale),
+            "dynamic": (self.growth_factor, self.backoff_factor,
+                        self.growth_interval, self.min_scale,
+                        self.max_scale) if self.dynamic else None,
+        }
+
+
+def _loss_scale_from_env() -> Any:
+    raw = os.environ.get("MXNET_TPU_LOSS_SCALE")
+    if raw is None:
+        return None
+    raw = raw.strip().lower()
+    if raw in ("", "0", "off", "none"):
+        return None
+    if raw == "dynamic":
+        return "dynamic"
+    return float(raw)
+
 
 def resolve(guard: Optional[bool] = None,
             clip_global_norm: Optional[float] = None,
             loss_scale: Any = None,
             **overrides: Any) -> Optional[GuardConfig]:
     """The effective :class:`GuardConfig`, or None when every defense is
-    off.  An unset ``guard`` reads ``MXNET_TPU_GUARD``; clipping turns the
+    off.  Unset arguments read ``MXNET_TPU_GUARD`` and
+    ``MXNET_TPU_LOSS_SCALE`` (with ``_INIT``, ``_GROWTH``, ``_BACKOFF``
+    and ``_INTERVAL`` for the schedule); clipping or scaling turns the
     guard on, as in the JAX package."""
     if guard is None:
         guard = _env_flag("MXNET_TPU_GUARD")
-    if loss_scale is None and os.environ.get(
-            "MXNET_TPU_LOSS_SCALE", "").strip().lower() not in (
-                "", "0", "off", "none"):
-        raise not_ported("loss scaling (MXNET_TPU_LOSS_SCALE)")
+    if loss_scale is None:
+        loss_scale = _loss_scale_from_env()
     if guard is False:
         if clip_global_norm is not None or loss_scale is not None:
             raise ValueError("guard=False conflicts with "
@@ -119,17 +180,34 @@ def resolve(guard: Optional[bool] = None,
         return None
     if not guard and clip_global_norm is None and loss_scale is None:
         return None
-    return GuardConfig(clip_global_norm=clip_global_norm,
-                       loss_scale=loss_scale, **overrides)
+    kwargs: Dict[str, Any] = dict(
+        clip_global_norm=clip_global_norm,
+        loss_scale=loss_scale,
+        init_scale=_env_float("MXNET_TPU_LOSS_SCALE_INIT", 2.0 ** 15),
+        growth_factor=_env_float("MXNET_TPU_LOSS_SCALE_GROWTH", 2.0),
+        backoff_factor=_env_float("MXNET_TPU_LOSS_SCALE_BACKOFF", 0.5),
+        growth_interval=int(_env_float("MXNET_TPU_LOSS_SCALE_INTERVAL",
+                                       200)),
+    )
+    kwargs.update(overrides)
+    return GuardConfig(**kwargs)
 
 
-def init_state(device) -> Dict[str, torch.Tensor]:
-    """Initial guard state: 0-d tensors on ``device`` -- the skipped-step
-    and taken-step counters (int32) and the sum of the taken steps'
-    norms (float32)."""
-    return {k: torch.zeros((), device=device,
-                           dtype=torch.float32 if k == "norm_sum"
-                           else torch.int32) for k in STATE_KEYS}
+def init_state(cfg: GuardConfig, device) -> Dict[str, torch.Tensor]:
+    """Initial guard state: 0-d tensors on ``device`` keyed
+    :data:`STATE_KEYS` -- the scale (``init_scale`` under dynamic
+    scaling, the fixed scale, else 1.0) and the float32 ``norm_sum``,
+    int32 counters otherwise."""
+    scale = cfg.init_scale if cfg.dynamic else (
+        float(cfg.loss_scale) if cfg.scaling else 1.0)
+    out = {}
+    for k in STATE_KEYS:
+        if k in _INT_KEYS:
+            out[k] = torch.zeros((), dtype=torch.int32, device=device)
+        else:
+            out[k] = torch.full((), scale if k == "scale" else 0.0,
+                                dtype=torch.float32, device=device)
+    return out
 
 
 def tree_sq_sum(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -145,15 +223,28 @@ def tree_sq_sum(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def state_update(state: Dict[str, torch.Tensor], ok: torch.Tensor,
-                 norm: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Guard-state transition: count skipped steps, and sum the norm of
-    the steps taken."""
+                 norm: torch.Tensor,
+                 cfg: GuardConfig) -> Dict[str, torch.Tensor]:
+    """Guard-state transition: count skipped steps, sum the norm of the
+    steps taken, and under dynamic scaling run the schedule (a step that
+    is not finite is an overflow: it backs the scale off)."""
     oki = ok.to(torch.int32)
     new = dict(state)
     new["skipped"] = state["skipped"] + (1 - oki)
     new["norm_sum"] = state["norm_sum"] + torch.where(
         ok, norm, torch.zeros_like(norm)).to(torch.float32)
     new["norm_cnt"] = state["norm_cnt"] + oki
+    if cfg.dynamic:
+        scale = state["scale"]
+        good = torch.where(ok, state["good"] + 1,
+                           torch.zeros_like(state["good"]))
+        grow = good >= cfg.growth_interval
+        grown = torch.clamp_max(scale * cfg.growth_factor, cfg.max_scale)
+        shrunk = torch.clamp_min(scale * cfg.backoff_factor, cfg.min_scale)
+        new["scale"] = torch.where(ok, torch.where(grow, grown, scale),
+                                   shrunk).to(torch.float32)
+        new["good"] = torch.where(grow, torch.zeros_like(good), good)
+        new["overflows"] = state["overflows"] + (1 - oki)
     return new
 
 

@@ -71,7 +71,7 @@ import torch
 from .. import chaos as chaos_mod
 from .. import compile_cache as cc
 from .. import telemetry
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from ..context import DeviceLike, resolve_device
 from ..models.transformer import (lm_config_from_params, params_from_numpy,
                                   transformer_lm_decode,
@@ -495,8 +495,16 @@ class Engine:
     # -- weights ------------------------------------------------------------
 
     @classmethod
-    def from_checkpoint(cls, *args, **kwargs) -> "Engine":
-        raise not_ported("Engine.from_checkpoint")
+    def from_checkpoint(cls, source: str, config: EngineConfig,
+                        epoch: Optional[int] = None,
+                        **kwargs) -> "Engine":
+        """Build from a CheckpointManager directory, a legacy ``prefix``
+        (``prefix-symbol.json`` + ``prefix-%04d.params``) or a ``.params``
+        file (:func:`mxnet_tpu_torch.predictor.load_weights`); ``kwargs``
+        go to the constructor (``device="cpu"``, ``chaos``, ...)."""
+        from ..predictor import load_weights
+        _, arg_params, _, _meta = load_weights(source, epoch)
+        return cls(arg_params, config, **kwargs)
 
     def swap_weights(self, params_or_source: Any,
                      epoch: Optional[int] = None) -> Dict[str, Any]:
@@ -509,12 +517,14 @@ class Engine:
         next step; callers who need request-boundary semantics drain
         first, as ``Router.rolling_swap`` does), the prefix index is
         invalidated (its entries were computed under the old weights) and
-        the NaN-poison cache of ``serve_poison_logits`` is dropped.  A
-        checkpoint path waits for ``predictor.load_weights``.  Returns the
-        compat report as a dict."""
+        the NaN-poison cache of ``serve_poison_logits`` is dropped.
+        ``params_or_source`` may also be anything
+        :func:`~mxnet_tpu_torch.predictor.load_weights` reads.  Returns
+        the compat report as a dict."""
         if isinstance(params_or_source, str):
-            raise not_ported("swap_weights from a checkpoint path "
-                             "(predictor.load_weights)")
+            from ..predictor import load_weights
+            _, params_or_source, _, _ = load_weights(params_or_source,
+                                                     epoch)
         report = check_compat(signature_of_params(self._params),
                               signature_of_params(params_or_source))
         if not report.compatible:
@@ -540,16 +550,17 @@ class Engine:
         target.  Only acceptance rates move, never the emitted greedy
         stream or the sampled streams' distribution.  Needs a ``"model"``
         drafter and a parameter dict of the held weights' signature (an
-        incompatible one raises and changes nothing); a checkpoint path
-        waits for ``predictor.load_weights``.  Returns the compat report
-        as a dict."""
+        incompatible one raises and changes nothing), or anything
+        :func:`~mxnet_tpu_torch.predictor.load_weights` reads.  Returns the
+        compat report as a dict."""
         if self.spec is None or self.spec.kind != "model":
             raise MXNetError(
                 "swap_draft_weights: engine has no model drafter "
                 "(speculate off, or spec_draft='ngram')")
         if isinstance(params_or_source, str):
-            raise not_ported("swap_draft_weights from a checkpoint path "
-                             "(predictor.load_weights)")
+            from ..predictor import load_weights
+            _, params_or_source, _, _ = load_weights(params_or_source,
+                                                     epoch)
         report = self.spec.swap(params_or_source)
         self.counters["draft_swaps"] += 1
         telemetry.counter("serve.spec.draft_swaps").inc()

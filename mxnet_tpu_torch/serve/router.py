@@ -69,7 +69,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from .. import chaos as chaos_mod
 from .. import telemetry
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from ..context import DeviceLike, resolve_device
 from ..online.compat import check_compat, signature_of_params
 from ..resilience import Heartbeat
@@ -644,8 +644,8 @@ class Router:
         standard drain machinery), and the rest of the fleet keeps
         serving while one replica swaps.
 
-        ``params_or_source`` is a parameter dict (a checkpoint source
-        waits for ``predictor.load_weights`` and raises).  The compat
+        ``params_or_source`` is a parameter dict or a checkpoint source
+        for :func:`~mxnet_tpu_torch.predictor.load_weights`.  The compat
         predicate (:mod:`mxnet_tpu_torch.online.compat`) is evaluated
         up front: a **compatible** signature hot-swaps each engine's
         weights in place (``Engine.swap_weights``: KV pools survive);
@@ -670,8 +670,9 @@ class Router:
         if allow_rebuild is None:
             allow_rebuild = bool(_env_int("MXNET_TPU_ONLINE_REBUILD", 1))
         if isinstance(params_or_source, str):
-            raise not_ported("rolling_swap from a checkpoint path "
-                             "(predictor.load_weights)")
+            from ..predictor import load_weights
+            _, params_or_source, _, _ = load_weights(params_or_source,
+                                                     epoch)
         if target == "draft":
             return self._rolling_swap_draft(params_or_source, max_steps)
         new_sig = signature_of_params(params_or_source)

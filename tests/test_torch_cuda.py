@@ -35,7 +35,13 @@ Deconvolution (cuDNN's transposed convolution, groups, bias, a target
 that needs an adjustment of the stride) against the same op on the CPU
 within ``chip_smoke.TOL["float32"]`` of ``1 + |CPU value|``; Dropout's
 keyed masks on the card: two trainers of one seed draw the same masks
-step for step, and an executor's backward uses its forward's mask.
+step for step, and an executor's backward uses its forward's mask; the
+fp8 block product (``quant.block_dot``) through cuBLAS's fp8 GEMM, and
+the e5m2 x e5m2 pair through its upcast route, against its plain version
+within ``chip_smoke.FP8_DOT_TOL`` of the terms' magnitude (summation
+order), with ``block_quantize`` byte for byte the CPU's; a checkpoint
+snapshot that holds its bytes while the in-place update runs on; the
+trainer's ``matmul_precision`` names on the card.
 """
 import numpy as np
 import pytest
@@ -1091,3 +1097,123 @@ def test_dropout_keyed_replay_on_card(cuda):
     ex.backward([np.ones((256, 256), np.float32)])
     np.testing.assert_array_equal(ex.grad_dict["data"].asnumpy(), out)
     assert abs((out != 0).mean() - 0.5) < 0.01
+
+
+# ---------------------------------------------------------------------------
+# Long training runs: the fp8 block product, the snapshot, matmul precision
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(chip_smoke.FP8_DOT_CASES)))
+def test_block_dot_routes_match_plain(cuda, case):
+    """Each block through cuBLAS's fp8 GEMM (or, for e5m2 x e5m2, the
+    upcast f32 product) within ``chip_smoke.FP8_DOT_TOL`` of the terms'
+    magnitude (summation order) of the plain version on the same
+    payloads, one route count a block; ``block_quantize`` on the card
+    byte for byte the CPU's."""
+    name, (m, k), (n, _), (fa_, fb_) = chip_smoke.FP8_DOT_CASES[case]
+    rng = np.random.RandomState(case)
+    host = [(rng.randn(*s) * rng.choice([0.01, 1.0, 30.0], (s[0], 1)))
+            .astype(np.float32) for s in ((m, k), (n, k))]
+    qs = []
+    for x, fmt in zip(host, (fa_, fb_)):
+        qc, sc = tquant.block_quantize(torch.from_numpy(x), fmt, 128)
+        qg, sg = tquant.block_quantize(torch.from_numpy(x).to(cuda), fmt,
+                                       128)
+        assert torch.equal(qg.view(torch.uint8).cpu(), qc.view(torch.uint8))
+        assert torch.equal(sg.cpu().view(torch.int32), sc.view(torch.int32))
+        qs.append((qg, sg))
+    (qa, sa), (qb, sb) = qs
+    route = "upcast" if (fa_, fb_) == ("e5m2", "e5m2") else "fp8"
+    assert tquant.block_dot_route(qa, qb) == route
+    before = dict(tquant.block_dot.launches_by_route)
+    got = tquant.block_dot(qa, sa, qb, sb)
+    torch.cuda.synchronize()
+    assert (tquant.block_dot.launches_by_route[route] - before[route]
+            == qa.shape[0])
+    ref = tquant.block_dot_ref(qa, sa, qb, sb)
+    mag = sum(torch.matmul(qa[i].float().abs(), qb[i].float().abs().t())
+              * sa[i] * sb[i].t() for i in range(qa.shape[0]))
+    assert got.shape == (m, n)
+    assert bool(((got - ref).abs() <= chip_smoke.FP8_DOT_TOL * mag).all())
+
+
+@pytest.mark.cuda
+def test_snapshot_survives_the_next_in_place_update(cuda, tmp_path):
+    """The fused update writes weights and moments in place: a save's
+    snapshot must hold the bytes of the moment it was taken even when the
+    next steps run before the background write lands."""
+    from mxnet_tpu_torch import name as tname
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.checkpoint import CheckpointManager, load_arrays
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    with tname.NameManager():
+        net = S.FullyConnected(S.Variable("data"), num_hidden=4096,
+                               name="fc")
+        net = S.SoftmaxOutput(net, name="softmax")
+    tr = ShardedTrainer(net, "adam", {"learning_rate": 0.1},
+                        device="cuda").bind({"data": (64, 4096)},
+                                            {"softmax_label": (64,)})
+    assert tr._fused_route == "hopper"
+    rng = np.random.RandomState(0)
+    batch = tr.place_batch({"data": rng.rand(64, 4096).astype(np.float32),
+                            "softmax_label": rng.randint(0, 10, 64)
+                            .astype(np.float32)})
+    tr.step(batch)
+    want = {k: v.detach().cpu().numpy().copy()
+            for k, v in tr._state_arrays().items()}
+    mgr = CheckpointManager(str(tmp_path))
+    real = mgr._writer.submit
+
+    def late(fn):                      # the write starts after 5 steps
+        for _ in range(5):
+            tr.step(batch)
+        torch.cuda.synchronize()
+        real(fn)
+
+    mgr._writer.submit = late
+    tr.save_state(mgr)
+    mgr.close()
+    got = load_arrays(mgr.step_path(1))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].tobytes() == want[k].tobytes(), k
+    assert not np.array_equal(want["param:fc_weight"],
+                              tr._params["fc_weight"].detach().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_matmul_precision_scope_on_card(cuda):
+    """Each JAX precision name inside the scope, and the global setting
+    restored after: "float32"/"highest" give the full float32 product,
+    "tensorfloat32"/"high" the TF32 product; "bfloat16"/"default" give
+    what torch's "medium" gives on this card (``chip_smoke``'s phase 16
+    prints which), within bf16's precision of the full product."""
+    from mxnet_tpu_torch.parallel.trainer import matmul_precision_scope
+    rng = np.random.RandomState(0)
+    a = torch.from_numpy(rng.randn(256, 512).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(512, 256).astype(np.float32)).to(cuda)
+    prev = (torch.get_float32_matmul_precision(),
+            torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("highest")
+    full = a @ b
+    torch.set_float32_matmul_precision("high")
+    tf32 = a @ b
+    torch.set_float32_matmul_precision("highest")
+    mag = a.abs() @ b.abs()
+    try:
+        assert not torch.equal(full, tf32)
+        for name, want in (("float32", full), ("highest", full),
+                           ("tensorfloat32", tf32), ("high", tf32),
+                           ("bfloat16", None), ("default", None)):
+            with matmul_precision_scope(name):
+                got = a @ b
+                assert torch.backends.cudnn.allow_tf32 == (want is not full)
+            if want is None:
+                assert bool(((got - full).abs() <= 2 ** -7 * mag).all())
+            else:
+                assert torch.equal(got, want), name
+            assert torch.get_float32_matmul_precision() == "highest"
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cudnn.allow_tf32 = prev[1]

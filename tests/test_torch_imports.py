@@ -11,8 +11,10 @@ parallel.ring_attention, parallel.mesh, quant), the imperative and
 executor modules (context, stream, ndarray, random, executor, operator,
 rtc, models.mnist), the training loop's modules (io, metric,
 lr_scheduler, callback, model), the zoo and the legacy API
-(models.classic, models.inception, executor_manager, module, monitor)
-and ``chip_smoke``; a source scan checks every file of
+(models.classic, models.inception, executor_manager, module, monitor),
+the long-run and durability modules (checkpoint and its layout, reader,
+writer and manager, predictor, online.loop, quant's fp8 product) and
+``chip_smoke``; a source scan checks every file of
 the port and the script for such imports.
 """
 import os
@@ -62,6 +64,13 @@ from mxnet_tpu_torch import executor_manager, module, monitor
 from mxnet_tpu_torch.models import classic, inception
 from mxnet_tpu_torch.module import (BucketingModule, Module,
                                     PythonLossModule, SequentialModule)
+import mxnet_tpu_torch.checkpoint
+from mxnet_tpu_torch.checkpoint import (CheckpointManager, layout, reader,
+                                        writer)
+import mxnet_tpu_torch.predictor
+import mxnet_tpu_torch.online.loop
+from mxnet_tpu_torch.online import OnlineLoop, compat_stamp
+from mxnet_tpu_torch.quant import block_dot, fp8_linear
 assert mxnet_tpu_torch.io is io and mxnet_tpu_torch.metric is metric
 assert mxnet_tpu_torch.lr_scheduler is lr_scheduler
 assert mxnet_tpu_torch.callback is callback

@@ -172,8 +172,22 @@ def test_feedforward_checkpoint_roundtrip_matches_jax(tmp_path):
     np.testing.assert_allclose(jl.predict(X[:40]), tp, rtol=0, atol=1e-6)
     np.testing.assert_allclose(tp, models["j"].predict(X[:40]), rtol=0,
                                atol=OUT_ATOL)
-    with pytest.raises(MXNetError, match="not ported"):
-        models["t"].save_to_manager(object())
+    # the CheckpointManager round trip, across packages both ways
+    from mxnet_tpu.checkpoint import CheckpointManager as JMgr
+    from mxnet_tpu_torch.checkpoint import CheckpointManager as TMgr
+    for tag, Mgr, Other, other_ctx in (("t", TMgr, JMgr, mx.cpu()),
+                                       ("j", JMgr, TMgr, mxt.cpu())):
+        mgr = Mgr(str(tmp_path / f"mgr-{tag}"))
+        models[tag].save_to_manager(mgr, blocking=True)
+        mgr.close()
+        other = Other(str(tmp_path / f"mgr-{tag}"))
+        pkg = mx if Other is JMgr else mxt
+        loaded = pkg.FeedForward.load_from_manager(other, ctx=other_ctx)
+        other.close()
+        assert loaded.begin_epoch == 3
+        np.testing.assert_allclose(loaded.predict(X[:40]),
+                                   models[tag].predict(X[:40]), rtol=0,
+                                   atol=1e-6)
 
 
 def test_feedforward_refuses_what_needs_a_kvstore_or_devices():
@@ -290,8 +304,33 @@ def test_module_checkpoint_and_optimizer_states_cross_load(tmp_path):
     for k, v in mods["t"]._updater.states.items():
         np.testing.assert_array_equal(jm2._updater.states[k].asnumpy(),
                                       v.asnumpy())
-    with pytest.raises(MXNetError, match="not ported"):
-        mods["t"].save_to_manager(object(), 2)
+    # the CheckpointManager round trip with optimizer states, across
+    # packages both ways
+    from mxnet_tpu.checkpoint import CheckpointManager as JMgr
+    from mxnet_tpu_torch.checkpoint import CheckpointManager as TMgr
+    for tag, Mgr, Other in (("t", TMgr, JMgr), ("j", JMgr, TMgr)):
+        mgr = Mgr(str(tmp_path / f"mgr-{tag}"))
+        mods[tag].save_to_manager(mgr, 2, save_optimizer_states=True,
+                                  blocking=True)
+        mgr.close()
+        other = Other(str(tmp_path / f"mgr-{tag}"))
+        pkg, ctx = (mx, mx.cpu()) if Other is JMgr else (mxt, mxt.cpu())
+        m2 = pkg.mod.Module.load_from_manager(
+            other, load_optimizer_states=True, context=ctx)
+        other.close()
+        m2.bind(data_shapes=[("data", (20, 10))],
+                label_shapes=[("softmax_label", (20,))])
+        m2.init_optimizer(optimizer="sgd",
+                          optimizer_params={"learning_rate": 0.1,
+                                            "momentum": 0.9})
+        src = mods[tag]._updater.states
+        assert sorted(m2._updater.states) == sorted(src)
+        for k, v in src.items():
+            np.testing.assert_array_equal(m2._updater.states[k].asnumpy(),
+                                          v.asnumpy())
+        for n, v in mods[tag].get_params()[0].items():
+            np.testing.assert_array_equal(m2.get_params()[0][n].asnumpy(),
+                                          v.asnumpy())
 
 
 def test_bucketing_module_shares_parameters_and_matches_jax():

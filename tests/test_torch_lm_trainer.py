@@ -99,19 +99,22 @@ def test_transformer_lm_symbol_matches_jax(case):
 
 
 def test_transformer_lm_unported_options(monkeypatch):
-    with pytest.raises(MXNetError, match="not ported"):
-        tmodels.transformer_lm(remat=True)
-    for quant in (True, "fp8"):
-        with pytest.raises(MXNetError, match="not ported"):
-            tmodels.transformer_lm(quant=quant)
+    """``remat`` and ``quant`` were the last options to raise; they now
+    build the JAX package's symbol (scopes and fp8 attributes in the
+    JSON), and the quant spec resolves as the JAX package's does."""
+    for kw in (dict(remat=True), dict(quant=True), dict(quant="fp8"),
+               dict(remat=True, quant="fp8")):
+        js, ts = _both(64, **kw)
+        assert ts.tojson() == js.tojson(), kw
+    assert '"__remat_scope__": "layer1"' in _both(64, remat=True)[1].tojson()
     with pytest.raises(MXNetError, match="unknown quant"):
         tmodels.transformer_lm(quant="int4")
     monkeypatch.setenv("MXNET_TPU_QUANT", "1")
-    with pytest.raises(MXNetError, match="not ported"):
-        tmodels.transformer_lm()
+    assert '"quant": "fp8"' in tmodels.transformer_lm().tojson()
     monkeypatch.setenv("MXNET_TPU_QUANT", "off")
-    tmodels.transformer_lm(quant=None)       # the variable says no
-    tmodels.transformer_lm(quant=False)
+    assert '"quant": "fp8"' not in tmodels.transformer_lm(quant=None).tojson()
+    assert '"quant": "fp8"' not in tmodels.transformer_lm(
+        quant=False).tojson()
 
 
 def _params(sym, seq, seed=0):

@@ -285,8 +285,14 @@ def test_unported_options_raise():
         moe.forward(TCtx(), moe.parse_params({"num_experts": "2",
                                               "hidden_size": "4"}),
                     x, *[torch.zeros(1)] * 5)
+    # FullyConnected(quant='fp8') is ported: the block-scaled fp8 product
+    # (tests/test_torch_quant.py holds it against the JAX package)
     fc = tget_op("FullyConnected")
-    with pytest.raises(MXNetError, match="not ported"):
-        fc.forward(TCtx(), fc.parse_params({"num_hidden": "2",
-                                            "quant": "fp8"}),
-                   x, torch.randn(2, 3), torch.zeros(2))
+    w = torch.randn(2, 3)
+    out = fc.forward(TCtx(), fc.parse_params({"num_hidden": "2",
+                                              "quant": "fp8"}),
+                     x, w, torch.zeros(2))
+    from mxnet_tpu_torch import quant
+    assert out.shape == (2, 2) and out.dtype == torch.float32
+    assert torch.equal(out, quant.fp8_linear(x, w,
+                                             quant.resolve_quant("fp8")))

@@ -831,13 +831,14 @@ def test_rolling_swap_rebuild_forbidden_fleet_untouched():
     router.run()
     assert _tokens(router, ids) == want
     # an engine refuses an incompatible dict without touching anything,
-    # and a checkpoint path waits for predictor.load_weights
+    # and a checkpoint path goes through predictor.load_weights (which
+    # names what it could not find)
     with pytest.raises(MXNetError, match="incompatible"):
         engines[0].swap_weights(BIG)
     assert engines[0].swap_count == 0
     for call in (lambda: engines[0].swap_weights("ckpt-prefix"),
                  lambda: router.rolling_swap("ckpt-prefix")):
-        with pytest.raises(MXNetError, match="not ported yet"):
+        with pytest.raises(MXNetError, match="ckpt-prefix-0000.params"):
             call()
     with pytest.raises(MXNetError, match="target"):
         router.rolling_swap(A, target="bogus")

@@ -208,11 +208,12 @@ def test_nan_logits_fail_the_request_and_scrub():
 
 @pytest.mark.parametrize("over", [dict(speculate=True, spec_draft="model")])
 def test_unported_options_raise(over):
-    """Speculation is ported; loading draft weights from a checkpoint path
-    waits for ``predictor.load_weights``."""
+    """Speculation is ported, and draft weights load from a checkpoint
+    path through ``predictor.load_weights`` (which names what it could
+    not find)."""
     eng = Engine(PARAMS, EngineConfig(**dict(CFG, **over)), device="cpu",
                  draft_params=PARAMS)
-    with pytest.raises(MXNetError, match="not ported yet"):
+    with pytest.raises(MXNetError, match="draft-checkpoint-0000.params"):
         eng.swap_draft_weights("draft-checkpoint")
 
 
@@ -222,7 +223,7 @@ def test_unported_entry_points_and_bad_config_raise():
         eng.adopt([1], [2])                        # adopt needs the seed
     for call in (lambda: eng.swap_weights("checkpoint-prefix"),
                  lambda: Engine.from_checkpoint("x", EngineConfig())):
-        with pytest.raises(MXNetError, match="not ported yet"):
+        with pytest.raises(MXNetError, match="neither a checkpoint"):
             call()
     # the control plane's hooks are ported: a chaos spec and a dict swap
     chaotic = Engine(PARAMS, EngineConfig(**CFG), device="cpu",

@@ -694,7 +694,7 @@ def test_model_drafter_swap_keeps_streams():
         with pytest.raises(MXNetError, match="incompatible"):
             again.swap_draft_weights(swap)
     assert again.counters["draft_swaps"] == 0
-    with pytest.raises(MXNetError, match="not ported yet"):
+    with pytest.raises(MXNetError, match="neither a checkpoint"):
         again.swap_draft_weights("some/checkpoint")
 
 

@@ -237,19 +237,25 @@ def test_set_params_writes_through_to_the_fused_buffer():
 
 def test_unported_options_and_device_resolution():
     s = _build(NETS["resnet_cifar_n1"][1])
-    for kw in ({"grad_accum": 2}, {"shard_optimizer": True},
-               {"matmul_precision": "bfloat16"},
-               {"grad_compression": "int8"},
-               {"loss_scale": "dynamic"}, {"mesh": object()},
-               {"guard": True, "guard_params": {"init_scale": 8.0}}):
+    # the multi-GPU slice's options still raise
+    for kw in ({"shard_optimizer": True}, {"grad_compression": "int8"},
+               {"mesh": object()}):
         with pytest.raises(MXNetError, match="not ported"):
             ShardedTrainer(s, device="cpu", **kw)
+    # accumulation, precision, loss scaling and its knobs are ported
+    tr = ShardedTrainer(s, device="cpu", grad_accum=2,
+                        matmul_precision="bfloat16", loss_scale="dynamic",
+                        guard_params={"init_scale": 8.0})
+    assert (tr.grad_accum, tr.matmul_precision) == (2, "bfloat16")
+    assert tr._resil.dynamic and tr._resil.init_scale == 8.0
+    with pytest.raises(MXNetError, match="matmul_precision"):
+        ShardedTrainer(s, device="cpu", matmul_precision="fp4")
     # the sentinel knobs are ported
     tr = ShardedTrainer(s, device="cpu", guard=True,
                         guard_params={"window": 8, "check_every": 5})
     assert (tr._resil.window, tr._resil.check_every) == (8, 5)
-    with pytest.raises(MXNetError, match="not ported"):
-        tr.fit(None, checkpoint_manager=object())
+    with pytest.raises(MXNetError, match="bind"):
+        tr.restore_state(object())
     with pytest.raises(MXNetError, match="bind"):
         tr.step({})
     if not torch.cuda.is_available():

@@ -259,6 +259,27 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     the fleet serving the trainer's weights after; no kernel is built;
     prints the median step ms, tokens/s, peak memory, the snapshot, write
     and restore ms and the checkpoint's bytes;
+17. runs the program layer (after phase 16, before 15): (a) phase 4's
+    model through an eager engine and a captured one (``warmup``: every
+    bucket a captured CUDA graph, a second ``warmup`` all memory hits):
+    phase 4's requests give the same greedy streams, every step of the
+    captured engine replays a program and none is captured after
+    warmup, K5 launches ``num_layers`` times a decode step in the hopper
+    form, and a ``profiler.trace`` around two replayed decode steps lists
+    K5's kernel ``num_layers`` times a step; a hot swap keeps the
+    programs and gives an engine's streams built from the new weights; a
+    poisoned step runs eagerly and is caught; then phase 5's fp8 pools
+    and phase 11's n-gram speculation the same way; (b) phase 9's LM and
+    phase 7's ResNet-50 (deterministic cuDNN), each an eager and a
+    compiled trainer: ``compile()`` leaves the state bitwise, 8 (4)
+    replayed steps equal the eager ones bit for bit with equal launch
+    counts, step 1's heads survive, ``profile_step`` of both; ``fit``
+    over 4 batches replays fit's accuracy step each batch; a Dropout
+    net's program runs eagerly with its reason; (c) ``Module.compile()``
+    on inception-bn-28-small and ``BucketingModule.compile([8, 16])``
+    over phase 14's LSTM, bitwise their eager twins; (a)-(c) build no
+    kernel; (d) two processes with one fresh ``MXNET_TPU_CACHE_DIR``:
+    the second builds no kernel and lists the first one's program key;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -1062,7 +1083,8 @@ def phase_serve(torch, np, fd):
     infos = eng.warmup()
     torch.cuda.synchronize()
     log(f"  warmup {time.perf_counter() - t0:.2f} s: " + ", ".join(
-        f"{i['kind']}@{i['bucket']} {i['ms']:.1f} ms" for i in infos))
+        f"{i['kind']}@{i['bucket']} {i['source']} "
+        f"{i['seconds'] * 1e3:.1f} ms" for i in infos))
 
     reqs = request_set(np)
     # the main path's run: every count starts at 0 inside serve_run
@@ -1212,7 +1234,8 @@ def phase_serve_r12(torch, np, fd, kv):
         infos = eng.warmup()
         torch.cuda.synchronize()
         log(f"  [{name} pools] warmup: " + ", ".join(
-            f"{i['kind']}@{i['bucket']} {i['ms']:.1f} ms" for i in infos))
+            f"{i['kind']}@{i['bucket']} {i['source']} "
+            f"{i['seconds'] * 1e3:.1f} ms" for i in infos))
         # the main path's run: every count starts at 0 inside serve_run
         done, wall, decode_ms, (k5, k5_fp8), counters = serve_run(
             torch, np, eng, reqs, fd)
@@ -1415,7 +1438,8 @@ def phase_speculate(torch, np, fd):
         infos = eng.warmup()
         torch.cuda.synchronize()
         log(f"  [{label}] warmup: " + ", ".join(
-            f"{i['kind']}@{i['bucket']} {i['ms']:.1f} ms" for i in infos))
+            f"{i['kind']}@{i['bucket']} {i['source']} "
+            f"{i['seconds'] * 1e3:.1f} ms" for i in infos))
         return eng
 
     def run(label, eng, reqs):
@@ -2266,9 +2290,13 @@ def phase_train(torch, np, nn_ops, fu):
             ref._opt_state[n].copy_(st[0])
     ref._num_update = tr._num_update
     _, grads, auxu = tr._forward_backward(batch)
+    # the step's rate and count into their 0-d tensors, as a step fills
+    # them before its device work
     tr._num_update += 1
+    tr._fill_step_scalars()
     k2_update_runs_no_cat(torch, lambda: tr._apply_update(grads, auxu))
     ref._num_update += 1
+    ref._fill_step_scalars()
     ref._apply_update(grads, auxu)
     torch.cuda.synchronize()
     fused_state = tr.opt_state_by_param()
@@ -3089,9 +3117,13 @@ def phase_train_lm(torch, np, fa, fu):
                 dst.copy_(src)
     ref._num_update = tr._num_update
     _, grads, auxu = tr._forward_backward(batch)
+    # the step's rate and count into their 0-d tensors, as a step fills
+    # them before its device work
     tr._num_update += 1
+    tr._fill_step_scalars()
     k2_update_runs_no_cat(torch, lambda: tr._apply_update(grads, auxu))
     ref._num_update += 1
+    ref._fill_step_scalars()
     ref._apply_update(grads, auxu)
     torch.cuda.synchronize()
     fused_state = tr.opt_state_by_param()
@@ -5639,6 +5671,667 @@ def phase_long_runs(torch, np, fa, fu, fd, quant, _build):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: programs (captured CUDA graphs) and the profiler on the card
+# ---------------------------------------------------------------------------
+
+# (a) phase 4's model and requests, then phase 5's fp8 pools and phase
+# 11's n-gram speculation with fewer requests; a hot swap and a poisoned
+# step; (b) phase 9's LM for 8 steps and phase 7's ResNet-50 for 4, fit
+# over 4 batches; (c) Module over inception-bn-28-small for 3 batches,
+# BucketingModule over phase 14's LSTM; (d) two processes sharing a fresh
+# MXNET_TPU_CACHE_DIR
+P17_FP8_REQUESTS, P17_SPEC_REQUESTS, P17_SPEC_NEW = 6, 4, 64
+P17_SWAP_REQUESTS, P17_POISON_STEP = 4, 3
+P17_LM_STEPS, P17_RESNET_STEPS, P17_FIT_BATCHES = 8, 4, 4
+P17_MODULE_BATCHES, P17_TRACE_STEPS, P17_PROFILE = 3, 2, dict(steps=3,
+                                                               repeats=2)
+# K5's kernel symbol (both pools)
+P17_DECODE_KERNEL = "decode_hopper_kernel"
+P17_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from mxnet_tpu_torch import _build, compile_cache as cc, symbol as S
+from mxnet_tpu_torch.parallel import ShardedTrainer
+built = _build.build_all()
+net = S.FullyConnected(data=S.Variable("data"), num_hidden=64, name="fc1")
+sym = S.SoftmaxOutput(data=net, name="softmax")
+tr = ShardedTrainer(sym, "sgd", {"learning_rate": 0.1}, device="cuda")
+tr.bind({"data": (32, 16)}, {"softmax_label": (32,)})
+info = tr.compile()[0]
+heads = tr.step({"data": np.ones((32, 16), np.float32),
+                 "softmax_label": np.zeros(32, np.float32)})
+finite = bool(torch.isfinite(heads[0]).all())
+print(json.dumps({
+    "built": sorted(n for n, i in built.items() if not i["cached"]),
+    "cached": sorted(n for n, i in built.items() if i["cached"]),
+    "source": info["source"], "digest": info["digest"], "finite": finite,
+    "hits": tr.aot_stats["hits"], "build_dir": str(_build.build_dir()),
+    "disk_hits": cc.get_cache().stats["disk_hits"],
+    "seen": sorted(e["digest"] for e in cc.get_cache().entries())}))
+"""
+
+
+def p17_misses():
+    """Programs built (captured or eager) so far in this process."""
+    from mxnet_tpu_torch import compile_cache
+    return compile_cache.get_cache().stats["misses"]
+
+
+def p17_take(counts, fd):
+    """Add the flash-decode launches since the last reset to ``counts``
+    and reset them (``serve_run`` resets them as it starts)."""
+    f = fd.flash_decode_attention
+    counts["flash_decode"] += f.launches
+    counts["flash_decode_fp8"] += f.launches_fp8
+    reset_decode_counts(fd)
+
+
+def p17_trace_kernels(torch, run, tmp, fragment):
+    """``run()`` under ``profiler.trace``: the kernel events of the
+    written Chrome trace whose name holds ``fragment``, and all kernel
+    events."""
+    import glob
+    import tempfile
+    from mxnet_tpu_torch import profiler
+    d = tempfile.mkdtemp(dir=tmp)
+    torch.cuda.synchronize()
+    with profiler.trace(d):
+        run()
+        torch.cuda.synchronize()
+    (path,) = glob.glob(os.path.join(d, "trace.*.json"))
+    with open(path) as f:
+        kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    return sum(fragment in k for k in kernels), len(kernels)
+
+
+def p17_engines(torch, params, kw, **extra):
+    """An eager engine and a captured one (``warmup``: every program a
+    capture; a second ``warmup`` all memory hits)."""
+    from mxnet_tpu_torch.serve import Engine, EngineConfig
+    eager = Engine(params, EngineConfig(**kw), device=DEVICE, **extra)
+    eng = Engine(params, EngineConfig(**kw), device=DEVICE, **extra)
+    t0 = time.perf_counter()
+    infos = eng.warmup()
+    seconds = time.perf_counter() - t0
+    check(infos and all(i["source"] == "capture" for i in infos),
+          "warmup: " + str([(i["kind"], i["bucket"], i["source"])
+                            for i in infos]))
+    again = eng.warmup()
+    check(all(i["source"] == "memory" for i in again),
+          f"second warmup: {[i['source'] for i in again]}")
+    return eager, eng, {"programs": len(infos), "warmup_s": seconds,
+                        "capture_s": sum(p.capture_seconds
+                                         for p in eng._programs.values()),
+                        "pool_bytes": sum(p.pool_bytes
+                                          for p in eng._programs.values())}
+
+
+def p17_serve(torch, np, fd, label, eager, eng, reqs, counts, fp8=False):
+    """Serve ``reqs`` on both engines: greedy streams equal, every step
+    of the captured engine a replay, no capture after warmup, the
+    captured run's flash-decode launches the eager run's, ``num_layers``
+    a decode step.  Returns both runs' stats."""
+    p17_take(counts, fd)
+    e_done, e_wall, e_ms, e_l, e_c = serve_run(torch, np, eager, reqs, fd)
+    p17_take(counts, fd)
+    misses, replays = p17_misses(), eng.aot_stats["replays"]
+    c_done, c_wall, c_ms, c_l, c_c = serve_run(torch, np, eng, reqs, fd)
+    p17_take(counts, fd)
+    greedy = [i for i, (_, kw) in enumerate(reqs)
+              if not kw.get("temperature")]
+    check(all(c_done[i].tokens == e_done[i].tokens for i in greedy),
+          f"{label}: captured greedy streams differ from eager: "
+          f"{[i for i in greedy if c_done[i].tokens != e_done[i].tokens]}")
+    check(eng.aot_stats["eager_steps"] == 0 and p17_misses() == misses,
+          f"{label}: {eng.aot_stats['eager_steps']} eager steps, "
+          f"{p17_misses() - misses} programs built after warmup")
+    steps = c_c.get("decode_steps", 0) + c_c.get("verify_steps", 0)
+    work = steps + c_c.get("prefill_chunks", 0) + (
+        0 if eng.prefill_chunk else c_c.get("prefills", 0))
+    check(eng.aot_stats["replays"] - replays == work,
+          f"{label}: {eng.aot_stats['replays'] - replays} replays for "
+          f"{work} steps of device work")
+    if eng.spec is None:
+        k5 = c_l[1] if fp8 else c_l[0]
+        check(c_l == e_l and k5 == LAYERS * c_c["decode_steps"]
+              == c_c["kernel_launches"],
+              f"{label}: K5 launches {c_l} captured, {e_l} eager, "
+              f"{c_c['decode_steps']} decode steps")
+    same = sum(c_done[i].tokens == e_done[i].tokens
+               for i in range(len(reqs)) if i not in greedy)
+    out = {"captured": serve_stats(np, c_done, c_wall, c_ms, c_c),
+           "eager": serve_stats(np, e_done, e_wall, e_ms, e_c),
+           "sampled_streams_equal": f"{same}/{len(reqs) - len(greedy)}"}
+    log(f"  (a) {label}: greedy streams equal, {work} steps replayed, "
+        f"none captured after warmup: " + json.dumps(out))
+    return out
+
+
+def p17_trace_decode(torch, eng, reqs, tmp):
+    """A full batch admitted and prefilled, then ``P17_TRACE_STEPS``
+    replayed decode steps under ``profiler.trace``: K5's kernel appears
+    ``num_layers`` times a step."""
+    ids = [eng.submit(p, **kw) for p, kw in reqs[:eng.config.max_batch]]
+    while any(r.prefilled < r.prefill_target or not r.tokens
+              for r in eng.sched.running) or eng.sched.queue:
+        eng.step()
+    before = eng.counters["decode_steps"]
+    n, total = p17_trace_kernels(
+        torch, lambda: [eng.step() for _ in range(P17_TRACE_STEPS)], tmp,
+        P17_DECODE_KERNEL)
+    steps = eng.counters["decode_steps"] - before
+    check(steps == P17_TRACE_STEPS and n == LAYERS * steps,
+          f"the trace of {steps} replayed decode steps lists "
+          f"{P17_DECODE_KERNEL} {n} times ({total} kernels)")
+    for i in ids:
+        eng.cancel(i)
+    eng.run()
+    log(f"  (a) profiler.trace of {steps} replayed decode steps: "
+        f"{P17_DECODE_KERNEL} {n} times, {total} kernels")
+    return {"k5_in_trace": n, "kernels_in_trace": total}
+
+
+def p17_serving(torch, np, fd, tmp, counts):
+    from mxnet_tpu_torch import chaos as chaos_mod
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.serve.engine import EngineConfig
+
+    params = transformer.init_params(VOCAB, LAYERS, D_MODEL, seed=0)
+    reqs = request_set(np)
+    res = {}
+    eager, eng, res["programs"] = p17_engines(torch, params, ENGINE_KW)
+    res["phase4"] = p17_serve(torch, np, fd, "phase 4's requests", eager,
+                              eng, reqs, counts)
+    res["phase4"].update(p17_trace_decode(torch, eng, reqs, tmp))
+    res["phase4"]["profile_captured"] = profile_decode(torch, eng, reqs)
+    res["phase4"]["profile_eager"] = profile_decode(torch, eager, reqs)
+    p17_take(counts, fd)
+
+    # a hot swap between steps: new weights copied into the captured
+    # storage; the streams are an engine's built from them
+    new = transformer.init_params(VOCAB, LAYERS, D_MODEL, seed=1)
+    misses = p17_misses()
+    eng.swap_weights(new)
+    fresh = type(eng)(new, EngineConfig(**ENGINE_KW), device=DEVICE)
+    few = [(p, dict(max_new_tokens=16)) for p, _ in
+           reqs[:P17_SWAP_REQUESTS]]
+    got = [eng.result(eng.submit(p, **kw)) for p, kw in few]
+    want = [fresh.result(fresh.submit(p, **kw)) for p, kw in few]
+    check(got == want and p17_misses() == misses
+          and eng.aot_stats["eager_steps"] == 0,
+          "after swap_weights the captured engine's streams differ from "
+          "an engine built from the new weights, or it captured again")
+    log(f"  (a) swap_weights: {len(few)} streams equal an engine's built "
+        "from the new weights, no capture")
+    del fresh, eager
+
+    # a serve_poison_logits point: that step runs eagerly on NaN copies
+    # and the finite check fails its requests; the other steps replay
+    spec = chaos_mod.ChaosSpec({"serve_poison_logits": {P17_POISON_STEP}})
+    _, peng, _ = p17_engines(torch, params, ENGINE_KW, chaos=spec)
+    uncaptured = telemetry.registry().get_value("compile_cache.uncaptured") \
+        or 0
+    ids = [peng.submit(p, **kw) for p, kw in few]
+    peng.run()
+    failed = [i for i in ids if peng.requests[i].state != "finished"]
+    eager_steps = peng.aot_stats["eager_steps"]
+    check(peng.counters["nan_logits"] > 0 and failed and eager_steps >= 1
+          and peng.aot_stats["replays"] > 0
+          and (telemetry.registry().get_value("compile_cache.uncaptured")
+               or 0) == uncaptured + eager_steps,
+          f"poisoned step: nan_logits {peng.counters['nan_logits']}, "
+          f"failed {failed}, aot {dict(peng.aot_stats)}")
+    res["poison_eager_steps"] = eager_steps
+    log(f"  (a) serve_poison_logits at step {P17_POISON_STEP}: caught "
+        f"({peng.counters['nan_logits']} rows, {len(failed)} requests "
+        f"failed), its {eager_steps} device runs eager, the other "
+        f"{peng.aot_stats['replays']} replayed")
+    del peng
+    p17_take(counts, fd)
+
+    # phase 5's fp8 pools, then phase 11's n-gram speculation
+    kw5 = dict(ENGINE_KW, prefill_chunk=R12_CHUNK, kv_quant="fp8")
+    eager, eng, progs = p17_engines(torch, params, kw5)
+    res["fp8"] = p17_serve(torch, np, fd, "fp8 pools, chunks of "
+                           f"{R12_CHUNK}", eager, eng,
+                           reqs[:P17_FP8_REQUESTS], counts, fp8=True)
+    res["fp8"]["programs"] = progs
+    del eager, eng
+    kw11 = dict(SPEC_KW, speculate=True, spec_k=SPEC_K, spec_draft="ngram")
+    sreqs = [(p, dict(max_new_tokens=P17_SPEC_NEW))
+             for p in spec_prompts(np)[:P17_SPEC_REQUESTS]]
+    eager, eng, progs = p17_engines(torch, params, kw11)
+    res["speculate"] = p17_serve(torch, np, fd, "n-gram speculation", eager,
+                                 eng, sreqs, counts)
+    res["speculate"]["programs"] = progs
+    p17_take(counts, fd)
+    return res
+
+
+def p17_state(torch, tr):
+    """A copy of a trainer's whole state and its update count."""
+    return ([t.detach().clone() for t in tr._state_tensors()],
+            tr._num_update)
+
+
+def p17_same(torch, a, b):
+    return a[1] == b[1] and all(
+        torch.equal(u.reshape(-1).view(torch.uint8),
+                    v.reshape(-1).view(torch.uint8))
+        for u, v in zip(a[0], b[0]))
+
+
+def p17_counts(kernels):
+    return {k.__name__: (k.launches, dict(k.launches_by_form))
+            for k in kernels}
+
+
+def p17_train_pair(torch, np, label, trainer, batches, kernels, host_feeds,
+                   groups):
+    """An eager and a compiled trainer from the same state: ``compile()``
+    changes nothing, the replayed steps equal the eager ones bit for bit
+    (state, update count), the launch counts are equal, the heads of step
+    1 survive the later steps; the step-phase profiles and a profiled
+    step of each.  Returns the stats and the launches of both runs."""
+    from mxnet_tpu_torch import profiler
+    eager, comp = trainer(), trainer()
+    before = p17_state(torch, comp)
+    info = comp.compile(programs=("train",))[0]
+    prog = comp._aot["train"][0]
+    check(info["source"] == "capture",
+          f"{label}: compile() resolved {info}")
+    check(p17_same(torch, p17_state(torch, comp), before),
+          f"{label}: compile() changed the trainer's state")
+    placed = [comp.place_batch(b) for b in batches]
+    reset_train_counts(*kernels)
+    for b in placed:
+        eager.step(b)
+    torch.cuda.synchronize()
+    eager_counts = p17_counts(kernels)
+    reset_train_counts(*kernels)
+    first = kept = None
+    for i, b in enumerate(placed):
+        heads = comp.step(b)
+        if i == 0:
+            first, kept = heads, [h.clone() for h in heads]
+    torch.cuda.synchronize()
+    comp_counts = p17_counts(kernels)
+    check(comp_counts == eager_counts,
+          f"{label}: launches {comp_counts} replayed, {eager_counts} eager")
+    diff = state_diff(torch, eager, comp)
+    check(not diff and eager._num_update == comp._num_update,
+          f"{label}: replayed steps differ from eager in {diff}")
+    check(all(torch.equal(a, b) for a, b in zip(first, kept)),
+          f"{label}: the heads of step 1 changed under later replays")
+    check(comp.aot_stats == {"hits": len(batches), "fallbacks": 0},
+          f"{label}: {comp.aot_stats}")
+    profiles = {}
+    for name, tr in (("eager", eager), ("compiled", comp)):
+        prof = profiler.profile_step(tr, host_feeds, **P17_PROFILE)
+        log("  " + profiler.format_step_profile(
+            prof, f"{label}, {name}").replace("\n", "\n  "))
+        prof["profiled_step"] = profile_step(
+            torch, lambda: tr.step(placed[0]), groups,
+            label=f"{label}, {name}, profiled step")
+        profiles[name] = prof
+    out = {"capture_s": prog.capture_seconds, "pool_bytes": prog.pool_bytes,
+           "launches_per_run": {k: v[0] for k, v in comp_counts.items()},
+           "profiles": profiles}
+    log(f"  (b) {label}: compile() left the state bitwise, "
+        f"{len(batches)} replayed steps equal eager bit for bit (weights, "
+        "optimizer state, aux, guard, update count), launches equal, "
+        f"step 1's heads intact; capture {prog.capture_seconds:.3f} s, "
+        f"graph pool {prog.pool_bytes} bytes")
+    return out, comp, comp_counts, eager_counts
+
+
+def p17_add(counts, *runs):
+    for run in runs:
+        for name, (n, _) in run.items():
+            key = {"flash_fwd": "flash_attn_fwd",
+                   "flash_bwd": "flash_attn_bwd"}.get(name, name)
+            counts[key] += n
+
+
+def p17_training(torch, np, nn_ops, fu, fa, counts):
+    from mxnet_tpu_torch import io, models, symbol as S
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    res = {}
+
+    # phase 9's LM (K3, K4, K2), with the guard and a clip
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+
+    def lm_trainer():
+        tr = ShardedTrainer(sym, optimizer="adam",
+                            optimizer_params=dict(LM_OPT),
+                            compute_dtype="bfloat16", guard=True,
+                            clip_global_norm=CLIP, device=DEVICE)
+        return tr.bind({"data": shapes["data"]},
+                       {"softmax_label": shapes["softmax_label"]},
+                       arg_params=args)
+
+    feeds = [lm_batch(np, seed=i) for i in range(2)]
+    res["lm"], _, c, e = p17_train_pair(
+        torch, np, "the LM", lm_trainer,
+        [lm_batch(np, seed=i) for i in range(P17_LM_STEPS)],
+        (fa.flash_fwd, fa.flash_bwd, fu.fused_update), feeds,
+        _LM_KERNEL_GROUPS)
+    p17_add(counts, c, e)
+
+    # phase 7's ResNet-50 (K1, K2) under deterministic cuDNN
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        sym = models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH)
+        shapes = dict(data=(BATCH,) + IMAGE, softmax_label=(BATCH,))
+        arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+        args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+
+        def r50_trainer():
+            tr = ShardedTrainer(sym, optimizer="sgd",
+                                optimizer_params=dict(TRAIN_OPT),
+                                guard=True, clip_global_norm=CLIP,
+                                device=DEVICE)
+            return tr.bind({"data": shapes["data"]},
+                           {"softmax_label": shapes["softmax_label"]},
+                           arg_params=args, aux_params=aux)
+
+        x, y = loop_images(np, max(P17_RESNET_STEPS, P17_FIT_BATCHES)
+                           * BATCH, seed=5)
+        batches = [{"data": x[i * BATCH:(i + 1) * BATCH],
+                    "softmax_label": y[i * BATCH:(i + 1) * BATCH]}
+                   for i in range(P17_RESNET_STEPS)]
+        res["resnet50"], comp, c, e = p17_train_pair(
+            torch, np, "ResNet-50", r50_trainer, batches,
+            (nn_ops.softmax_rows, fu.fused_update), batches[:2],
+            _KERNEL_GROUPS)
+        p17_add(counts, c, e)
+
+        # fit over one epoch: fit's accuracy step replayed each batch
+        info = comp.compile(programs=("train_acc",))[0]
+        check(info["source"] == "capture", f"train_acc: {info}")
+        hits = comp.aot_stats["hits"]
+        reset_train_counts(nn_ops.softmax_rows, fu.fused_update)
+        comp.fit(io.NDArrayIter(x[:P17_FIT_BATCHES * BATCH],
+                                y[:P17_FIT_BATCHES * BATCH],
+                                batch_size=BATCH), eval_metric="acc",
+                 num_epoch=1)
+        torch.cuda.synchronize()
+        p17_add(counts, p17_counts((nn_ops.softmax_rows, fu.fused_update)))
+        check(comp.aot_stats["hits"] - hits == P17_FIT_BATCHES,
+              f"fit: {comp.aot_stats['hits'] - hits} program hits over "
+              f"{P17_FIT_BATCHES} batches")
+        log(f"  (b) fit over {P17_FIT_BATCHES} batches: aot_hits "
+            f"{comp.aot_stats['hits'] - hits}, one replay a batch")
+        del comp
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+
+    # a Dropout net: its masks come from generators seeded per step on
+    # the host, so its program runs eagerly and says why
+    with_dropout = S.SoftmaxOutput(data=S.FullyConnected(
+        data=S.Dropout(data=S.FullyConnected(
+            data=S.Variable("data"), num_hidden=256, name="d_fc1"), p=0.5),
+        num_hidden=10, name="d_fc2"), name="softmax")
+    tr = ShardedTrainer(with_dropout, "sgd", {"learning_rate": 0.1},
+                        device=DEVICE)
+    tr.bind({"data": (BATCH, 784)}, {"softmax_label": (BATCH,)})
+    info = tr.compile()[0]
+    check(info["source"] == "eager" and "Dropout" in info.get("reason", ""),
+          f"the Dropout net's program: {info}")
+    reset_train_counts(fu.fused_update)
+    tr.step({"data": np.ones((BATCH, 784), np.float32),
+             "softmax_label": np.zeros(BATCH, np.float32)})
+    p17_add(counts, p17_counts((fu.fused_update,)))
+    res["dropout"] = {"source": info["source"], "reason": info["reason"]}
+    log(f"  (b) a Dropout net's program runs eagerly: {info['reason']}")
+    return res
+
+
+def p17_legacy(torch, np, nn_ops, counts):
+    from mxnet_tpu_torch import initializer, io, models, ndarray
+    from mxnet_tpu_torch import module as mod_api
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.context import cpu, gpu
+    res = {}
+    ctx = gpu(0) if DEVICE == "cuda" else cpu()
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # Module over inception-bn-28-small: compiled against eager
+        sym = models.get_symbol("inception-bn-28-small")
+        inputs = {"data": (CIFAR_BATCH,) + CIFAR_IMAGE,
+                  "softmax_label": (CIFAR_BATCH,)}
+        arg_shapes, _, aux_shapes = sym.infer_shape(**inputs)
+        gen = torch.Generator().manual_seed(0)
+        with cpu():
+            args0 = {}
+            for a, shape in zip(sym.list_arguments(), arg_shapes):
+                if a not in inputs:
+                    args0[a] = ndarray.zeros(shape)
+                    initializer.Xavier()(a, args0[a], generator=gen)
+            aux0 = {}
+            for a, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+                aux0[a] = ndarray.zeros(shape)
+                initializer.Xavier()(a, aux0[a])
+        x, y = synthetic_cifar(np, P17_MODULE_BATCHES * CIFAR_BATCH)
+
+        def module():
+            m = mod_api.Module(sym, context=ctx)
+            m.bind(data_shapes=[("data", inputs["data"])],
+                   label_shapes=[("softmax_label", inputs["softmax_label"])])
+            m.init_params(arg_params=args0, aux_params=aux0)
+            m.init_optimizer(optimizer="sgd",
+                             optimizer_params=dict(CIFAR_OPT))
+            return m
+
+        mods = {"eager": module(), "compiled": module()}
+        infos = mods["compiled"].compile()
+        check([i["source"] for i in infos] == ["capture"] * 3,
+              f"Module.compile(): {[(i['kind'], i['source']) for i in infos]}")
+        k1 = {}
+        for name, m in mods.items():
+            reset_train_counts(nn_ops.softmax_rows)
+            for it in io.NDArrayIter(x, y, batch_size=CIFAR_BATCH):
+                m.forward(it, is_train=True)
+                m.backward()
+                m.update()
+            torch.cuda.synchronize()
+            k1[name] = nn_ops.softmax_rows.launches
+            counts["softmax_rows"] += k1[name]
+        legacy_bitwise(torch, mods["compiled"].get_params()[0],
+                       mods["eager"].get_params()[0],
+                       "Module.compile() against the eager Module")
+        legacy_bitwise(torch, mods["compiled"].get_params()[1],
+                       mods["eager"].get_params()[1],
+                       "Module.compile() against the eager Module (aux)")
+        res["module"] = {"programs": len(infos), "k1": k1,
+                         "capture_s": [i["seconds"] for i in infos]}
+        log(f"  (c) Module.compile() on inception-bn-28-small: "
+            f"{P17_MODULE_BATCHES} batches bitwise the eager Module's; K1 "
+            f"{k1} (fb recomputes the forward, as the JAX program does)")
+        del mods
+
+        # BucketingModule over the LSTM: compile([8, 16]) against eager
+        hid, vocab, bsz = LSTM["num_hidden"], LSTM["vocab"], LSTM["batch"]
+        data_names = ("data", "l0_init_c", "l0_init_h")
+
+        def sym_gen(key):
+            return (lstm_unroll(S, hid, key, vocab, LSTM["num_embed"]),
+                    data_names, ("softmax_label",))
+
+        def shapes(key):
+            return ([("data", (bsz, key)), ("l0_init_c", (bsz, hid)),
+                     ("l0_init_h", (bsz, hid))],
+                    [("softmax_label", (bsz, key))])
+
+        default = max(LSTM_BUCKETS)
+        net = sym_gen(default)[0]
+        arg_shapes, _, _ = net.infer_shape(**dict(sum(shapes(default), [])))
+        prng = np.random.RandomState(1)
+        params = {a: prng.uniform(-0.1, 0.1, s).astype(np.float32)
+                  for a, s in zip(net.list_arguments(), arg_shapes)
+                  if a not in data_names and a != "softmax_label"}
+        rng = np.random.RandomState(0)
+        zeros = np.zeros((bsz, hid), np.float32)
+        batches = []
+        for i in range(LSTM_BATCHES):
+            key = LSTM_BUCKETS[i % 2]
+            seq = (rng.randint(0, vocab, (bsz, 1))
+                   + np.arange(key + 1)) % vocab
+            batches.append(io.DataBatch(
+                data=[ndarray.array(seq[:, :-1].astype(np.float32),
+                                    ctx=cpu()),
+                      ndarray.array(zeros, ctx=cpu()),
+                      ndarray.array(zeros, ctx=cpu())],
+                label=[ndarray.array(seq[:, 1:].astype(np.float32),
+                                     ctx=cpu())], bucket_key=key,
+                provide_data=shapes(key)[0], provide_label=shapes(key)[1]))
+
+        def bucketing():
+            m = mod_api.BucketingModule(sym_gen, default_bucket_key=default,
+                                        context=ctx)
+            m.bind(*shapes(default))
+            with cpu():
+                m.init_params(arg_params={a: ndarray.array(v)
+                                          for a, v in params.items()})
+            m.init_optimizer(optimizer="sgd",
+                             optimizer_params=dict(LSTM_OPT))
+            return m
+
+        mods = {"eager": bucketing(), "compiled": bucketing()}
+        infos = mods["compiled"].compile(list(LSTM_BUCKETS))
+        check({i["source"] for i in infos} == {"capture"},
+              f"BucketingModule.compile: {[i['source'] for i in infos]}")
+        for name, m in mods.items():
+            reset_train_counts(nn_ops.softmax_rows)
+            for b in batches:
+                m.forward(b, is_train=True)
+                m.backward()
+                m.update()
+            torch.cuda.synchronize()
+            counts["softmax_rows"] += nn_ops.softmax_rows.launches
+        legacy_bitwise(torch, mods["compiled"].get_params()[0],
+                       mods["eager"].get_params()[0],
+                       "BucketingModule.compile() against eager")
+        report = mods["compiled"].cache_report()
+        check(report["programs"] == 3 * len(LSTM_BUCKETS)
+              and mods["eager"].cache_report()["programs"] == 0,
+              f"cache_report: {report}")
+        res["bucketing"] = report
+        log(f"  (c) BucketingModule.compile({list(LSTM_BUCKETS)}): "
+            f"cache_report {report}; {LSTM_BATCHES} batches bitwise the "
+            "eager module's")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+    return res
+
+
+def p17_persistent(tmp):
+    """(d) two processes with one fresh ``MXNET_TPU_CACHE_DIR``: the first
+    builds every kernel, the second builds none (its libraries come from
+    the directory) and lists the first one's program sidecars."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MXNET_TPU_CACHE_DIR=tempfile.mkdtemp(dir=tmp))
+
+    def child():
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", P17_CHILD, root],
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        check(out.returncode == 0,
+              f"persistent-cache child failed: {out.stderr[-2000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        got["wall_s"] = time.perf_counter() - t0
+        return got
+
+    cold, warm = child(), child()
+    names = sorted(cold["built"])
+    check(names and not cold["cached"] and cold["source"] == "capture"
+          and cold["finite"] and cold["hits"] == 1
+          and cold["build_dir"].endswith("/cuda"),
+          f"first process: {cold}")
+    check(not warm["built"] and warm["cached"] == names
+          and warm["disk_hits"] == len(names)
+          and cold["digest"] in warm["seen"] and warm["source"] == "capture",
+          f"second process: {warm}")
+    log(f"  (d) MXNET_TPU_CACHE_DIR: the first process built {names} "
+        f"({cold['wall_s']:.1f} s), the second none ({warm['wall_s']:.1f} s, "
+        f"{warm['disk_hits']} libraries from disk) and lists the first "
+        "one's program key")
+    return {"cold_s": cold["wall_s"], "warm_s": warm["wall_s"],
+            "disk_hits": warm["disk_hits"]}
+
+
+def phase_programs(torch, np, nn_ops, fu, fa, fd, _build):
+    """Phase 17: (a)-(c) build no kernel; every program of the main paths
+    is captured (none eager but the Dropout net's and the poisoned
+    step)."""
+    import tempfile
+    from mxnet_tpu_torch import telemetry
+    counts = dict.fromkeys(("flash_decode", "flash_decode_fp8",
+                            "softmax_rows", "fused_update", "flash_attn_fwd",
+                            "flash_attn_bwd"), 0)
+    built, compile_ = [], _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    _build._compile = counting
+    tmp = tempfile.mkdtemp(prefix="p17")
+    res = {}
+
+    def uncaptured():
+        return telemetry.registry().get_value(
+            "compile_cache.uncaptured") or 0
+
+    before = uncaptured()
+    try:
+        t0 = time.perf_counter()
+        res["serving"] = p17_serving(torch, np, fd, tmp, counts)
+        res["serving_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["training"] = p17_training(torch, np, nn_ops, fu, fa, counts)
+        res["training_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["legacy"] = p17_legacy(torch, np, nn_ops, counts)
+        res["legacy_s"] = time.perf_counter() - t0
+    finally:
+        _build._compile = compile_
+    check(not built, f"phase 17 built kernels: {built}")
+    # eager: the Dropout net's program and the poisoned step's runs only
+    eager = uncaptured() - before
+    check(eager == 1 + res["serving"]["poison_eager_steps"],
+          f"{eager} programs or steps ran eagerly in phase 17")
+    log(f"  eager in phase 17: {eager} (the Dropout net's program and the "
+        "poisoned step's runs); every other program captured")
+    t0 = time.perf_counter()
+    res["persistent"] = p17_persistent(tmp)
+    res["persistent_s"] = time.perf_counter() - t0
+    res["launches"] = counts
+    log("  phase 17: " + json.dumps(res))
+    return counts, res
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -5697,14 +6390,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/16] device")
+    log("[1/17] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/16] build")
+    log("[2/17] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -5719,7 +6412,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/16] kernels against their plain versions")
+    log("[3/17] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -5728,22 +6421,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/16] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/17] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/16] serving the round-12 configuration: chunked prefill "
+    log(f"[5/17] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/16] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/17] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/16] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/17] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/16] kernel timing")
+    log("[8/17] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -5760,25 +6453,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/16] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/17] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/16] imperative + executor: NDArray on the card, the MLP "
+    log("[10/17] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/16] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/17] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/16] the serving control plane: crash failover, a hung and a "
+    log("[12/17] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -5786,7 +6479,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/16] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/17] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -5795,7 +6488,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/16] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/17] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -5803,15 +6496,23 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/16] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/17] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
     long_launches, _ = phase_long_runs(torch, np, fa, fu, fd, quant, _build)
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 16
-    log("[15/16] result")
+    t0 = time.perf_counter()
+    log("[17/17] programs and the profiler: serve and train steps "
+        "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
+        "compile, Module and BucketingModule compile), replays against "
+        "eager, profiler.trace and profile_step, the persistent cache")
+    p17_launches, _ = phase_programs(torch, np, nn_ops, fu, fa, fd, _build)
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 17
+    log("[15/17] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -5822,17 +6523,19 @@ def main(argv) -> int:
         # also on every replica of phase 12
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
          "mxnet_tpu/serve/flash_decode.py:60",
-         k5_launches + spec_k5 + cp_k5 + long_launches["flash_decode"],
+         k5_launches + spec_k5 + cp_k5 + long_launches["flash_decode"]
+         + p17_launches["flash_decode"],
          max(v for (k, f), v in errs.items()
              if "bf16" not in k and f == "hopper")),
         ("flash_decode_fp8", "mxnet_tpu_torch/csrc/flash_decode.cu",
-         "mxnet_tpu/serve/flash_decode.py:60", fp8_launches + spec_k5_fp8,
+         "mxnet_tpu/serve/flash_decode.py:60",
+         fp8_launches + spec_k5_fp8 + p17_launches["flash_decode_fp8"],
          max(v for k, v in fp8_errs.items()
              if k.endswith("float32 q, hopper"))),
         ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",
          "mxnet_tpu/ops/nn_ops.py:847",
          train_launches["softmax_rows"] + loop_launches["softmax_rows"]
-         + zoo_launches["softmax_rows"],
+         + zoo_launches["softmax_rows"] + p17_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
@@ -5842,17 +6545,17 @@ def main(argv) -> int:
          "mxnet_tpu/ops/fused_update.py:216",
          train_launches["fused_update"] + lm_launches["fused_update"]
          + loop_launches["fused_update"] + zoo_launches["fused_update"]
-         + long_launches["fused_update"],
+         + long_launches["fused_update"] + p17_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
          lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"]
-         + long_launches["flash_attn_fwd"],
+         + long_launches["flash_attn_fwd"] + p17_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
          lm_launches["flash_attn_bwd"] + loop_launches["flash_attn_bwd"]
-         + long_launches["flash_attn_bwd"],
+         + long_launches["flash_attn_bwd"] + p17_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

@@ -27,8 +27,8 @@ from . import (attribute, base, callback, chaos, checkpoint, compile_cache,
                context, executor, executor_manager, graph_eval, initializer,
                io, lr_scheduler, metric, model, models, module, monitor,
                name, ndarray, online, operator, ops, optimizer, parallel,
-               predictor, quant, random, resilience, rtc, serve, stream,
-               symbol, telemetry)
+               predictor, profiler, quant, random, resilience, rtc, serve,
+               stream, symbol, telemetry)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
 from .executor import Executor
@@ -50,7 +50,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "graph_eval", "initializer", "io", "load_checkpoint",
            "lr_scheduler", "metric", "mod", "model", "models", "module",
            "monitor", "name", "nd", "ndarray", "online", "operator", "ops",
-           "optimizer", "parallel", "predictor", "quant", "random",
+           "optimizer", "parallel", "predictor", "profiler", "quant", "random",
            "resilience", "rtc",
            "save_checkpoint", "serve", "stream", "sym", "symbol",
            "telemetry"]

@@ -5,10 +5,13 @@ C interface for ``sm_90a`` (Hopper).  The library's name carries a hash
 of its source, the shared ``csrc/*.cuh`` headers and the flags, so an
 edited source or header never loads a stale build.
 Outputs go to ``_kernels/`` inside the package, which ``.gitignore``
-lists.  :func:`build_all` starts one ``nvcc`` per source, all at once, and
+lists, or under ``<dir>/cuda`` with a persistent program cache
+(``MXNET_TPU_CACHE_DIR``, :func:`mxnet_tpu_torch.compile_cache.
+enable_persistent_cache`), where a restarted process finds them.
+:func:`build_all` starts one ``nvcc`` per source, all at once, and
 waits for them; :func:`load` builds what is missing and returns the
 ``ctypes.CDLL``.  :func:`build_sources` builds sources given as text (the
-runtime kernels of :mod:`mxnet_tpu_torch.rtc`) into ``_kernels/rtc/``,
+runtime kernels of :mod:`mxnet_tpu_torch.rtc`) into ``rtc/`` there,
 with the same nvcc flags.
 """
 from __future__ import annotations
@@ -26,7 +29,8 @@ from typing import Dict, Iterable, Optional
 from .base import MXNetError
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
-           "build_source", "build_sources", "load"]
+           "build_source", "build_sources", "load", "build_dir",
+           "set_build_dir"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
@@ -36,6 +40,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_dir_override: Optional[Path] = None
+# libraries this process built or already counted as loaded from disk
+_known: set = set()
+
+
+def set_build_dir(path) -> None:
+    """Build into (and load from) ``path`` from now on."""
+    global _dir_override
+    _dir_override = Path(path)
+
+
+def _persistent_dir() -> Optional[Path]:
+    if _dir_override is not None:
+        return _dir_override
+    root = os.environ.get("MXNET_TPU_CACHE_DIR")
+    if root and os.environ.get("MXNET_TPU_CACHE", "1") != "0":
+        return Path(root) / "cuda"
+    return None
+
+
+def build_dir() -> Path:
+    """Where kernel libraries go: the persistent cache's ``cuda/`` when
+    one is set, else ``_kernels/`` in the package."""
+    return _persistent_dir() or BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -60,7 +88,7 @@ def _target(src: Path) -> Path:
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}.{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{src.stem}.{h.hexdigest()[:16]}.so"
 
 
 def _compile(jobs: Dict[str, tuple]) -> Dict[str, dict]:
@@ -70,11 +98,18 @@ def _compile(jobs: Dict[str, tuple]) -> Dict[str, dict]:
     info: Dict[str, dict] = {}
     procs = {}
     t0 = time.perf_counter()
+    persistent = _persistent_dir()
     for n, (src, out) in jobs.items():
         if out.exists():
             log = out.with_suffix(".log")
             info[n] = {"path": out, "seconds": 0.0, "cached": True,
                        "log": log.read_text() if log.exists() else ""}
+            if (persistent is not None and persistent in out.parents
+                    and out not in _known):
+                # a library an earlier process built, counted once
+                _known.add(out)
+                from . import compile_cache
+                compile_cache.get_cache().note_disk_hit()
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
@@ -91,6 +126,7 @@ def _compile(jobs: Dict[str, tuple]) -> Dict[str, dict]:
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
+        _known.add(out)
         info[n] = {"path": out, "seconds": time.perf_counter() - t0,
                    "cached": False, "log": log}
     if failed:
@@ -113,7 +149,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 def build_sources(texts: Dict[str, str]) -> Dict[str, dict]:
     """Build each CUDA source text of ``{name: text}`` into
-    ``_kernels/rtc/lib<name>.<hash>.so``, one ``nvcc`` per source, all
+    ``<build_dir()>/rtc/lib<name>.<hash>.so``, one ``nvcc`` per source, all
     started together (the hash covers the text and the flags, so an edited
     source never loads a stale build, and the same text only reloads).
     Returns ``build_all``'s entries; raises :class:`MXNetError` carrying
@@ -123,7 +159,7 @@ def build_sources(texts: Dict[str, str]) -> Dict[str, dict]:
         h = hashlib.sha256(text.encode())
         h.update(" ".join(NVCC_FLAGS).encode())
         stem = f"{name}.{h.hexdigest()[:16]}"
-        out = BUILD_DIR / "rtc" / f"lib{stem}.so"
+        out = build_dir() / "rtc" / f"lib{stem}.so"
         src = out.with_name(f"{stem}.cu")
         if not out.exists():
             src.parent.mkdir(parents=True, exist_ok=True)

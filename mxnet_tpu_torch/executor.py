@@ -22,17 +22,32 @@ symbol into jitted programs; here the graph runs eagerly through
 
 The bound arrays are read in place, not copied: write them before
 ``forward``, not between ``forward`` and ``backward`` (autograd then
-raises, as the saved values would be stale).  The JAX executor's
-ahead-of-time program cache (``warmup``, ``program_cache_size``) waits
-for the port of ``compile_cache`` and raises.
+raises, as the saved values would be stale).
+
+Programs (:meth:`Executor.warmup`), as in the JAX executor: ``fwd_False``
+and ``fwd_True`` (the inference and training forwards) and
+``fb_<grads>`` (forward and backward in one), each the step's device
+work over the bound arrays, captured as a CUDA graph on the card
+(:class:`~mxnet_tpu_torch.compile_cache.CapturedProgram`).  After
+``warmup`` a forward replays its program (the outputs are cloned from
+its static buffers, the aux updates land in the bound arrays), and
+``backward()`` after a training forward replays ``fb``, which recomputes
+the forward from the aux states that forward saw, as the JAX executor's
+``fb`` program does.  A graph with a Python custom op or a sampling op
+is not captured (the program runs eagerly and says why), nor is a
+forward with a monitor hook installed (it needs every internal value).
+Executors bound with ``shared_exec`` share one program table
+(:meth:`Executor.program_cache_size` counts it), each program bound to
+its own executor's arrays.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from . import compile_cache as cc
 from .base import MXNetError, not_ported
 from .context import Context, as_context, resolve_device
 from .graph_eval import eval_symbol
@@ -40,6 +55,13 @@ from . import random as _random
 from .ndarray import NDArray
 
 __all__ = ["Executor"]
+
+
+def _touch(arrays) -> None:
+    """Mark NDArrays written by a replayed program (their version counts
+    writes, as an eager in-place write does)."""
+    for a in arrays:
+        a._chunk.version += 1
 
 
 def _as_req_dict(grad_req, arg_names: List[str]) -> Dict[str, str]:
@@ -119,6 +141,14 @@ class Executor:
         self._frozen_aux: Dict[str, torch.Tensor] = {}
         self._frozen_key = None
         self._monitor_cb: Optional[Callable[[str, NDArray], None]] = None
+        # captured programs, shared with the executors bound over this
+        # one's arrays: {(owner token, program name): CapturedProgram}
+        self._programs: Dict[Any, cc.CapturedProgram] = (
+            shared_exec._programs if shared_exec is not None else {})
+        self._frozen_static: Optional[Dict[str, torch.Tensor]] = None
+        self._cot_static: Optional[List[torch.Tensor]] = None
+        self._last_train = False
+        self._graph_pool = None
 
     # ------------------------------------------------------------------
     # Running the graph
@@ -156,9 +186,20 @@ class Executor:
                 raise MXNetError(f"forward: no argument named {k}")
             self._arg_dict[k]._write(v)
         self._forwarded = True
+        self._last_train = bool(is_train)
+        self._frozen_key = _random.next_key(self._ctx)
+        prog = (self._program(f"fwd_{bool(is_train)}")
+                if self._monitor_cb is None else None)
+        if prog is not None:
+            outs = prog()
+            self._graph = None
+            self._frozen_aux = self._frozen_static
+            if is_train:
+                _touch(self._aux_dict.values())
+            self._outputs = [NDArray(h.clone(), ctx=self._ctx) for h in outs]
+            return self.outputs
         self._frozen_aux = {n: a.data.clone()
                             for n, a in self._aux_dict.items()}
-        self._frozen_key = _random.next_key(self._ctx)
         res = self._run(bool(is_train), self._frozen_aux,
                         want_internals=self._monitor_cb is not None)
         if self._monitor_cb is not None:
@@ -181,6 +222,13 @@ class Executor:
         if not self._grad_names:
             raise MXNetError("backward called on an executor bound without "
                              "gradient arrays (grad_req=null)")
+        prog = (self._program("fb_" + ",".join(self._grad_names))
+                if self._last_train and self._graph is None else None)
+        if prog is not None:
+            self._stage_cotangents(out_grads)
+            prog()
+            _touch(self._grad_dict[n] for n in self._grad_names)
+            return
         if self._graph is None:
             self._run(True, self._frozen_aux)
         heads, leaves = self._graph
@@ -223,16 +271,152 @@ class Executor:
         return g.to(device=head.device, dtype=head.dtype)
 
     # ------------------------------------------------------------------
-    # The JAX executor's compiled-program cache: not ported
+    # Programs (the JAX executor's AOT warmup)
     # ------------------------------------------------------------------
 
-    def warmup(self, fb=None):
-        raise not_ported("Executor.warmup (the AOT program cache, "
-                         "compile_cache.py)")
+    def _program(self, name: str) -> Optional[cc.CapturedProgram]:
+        return self._programs.get((cc.owner_token(self), name))
 
     def program_cache_size(self) -> int:
-        raise not_ported("Executor.program_cache_size (the AOT program "
-                         "cache, compile_cache.py)")
+        """Programs in this executor's (possibly shared) table: the
+        bucketing reuse gauge."""
+        return len(self._programs)
+
+    def _fingerprint(self) -> str:
+        if getattr(self, "_graph_fp", None) is None:
+            from .graph_eval import graph_fingerprint
+            self._graph_fp = graph_fingerprint(self._symbol, topo=self._topo)
+        return self._graph_fp
+
+    def _body_fwd(self, is_train: bool):
+        """The forward's device work: save the aux states it sees, run
+        the graph, write the aux updates (training) in place."""
+        frozen = self._frozen_static
+
+        def body():
+            with torch.no_grad():
+                for n, a in self._aux_dict.items():
+                    frozen[n].copy_(a.data)
+                heads, auxu = eval_symbol(
+                    self._symbol, {n: a.data for n, a in
+                                   self._arg_dict.items()},
+                    frozen, None, is_train, topo=self._topo)
+                if is_train:
+                    for n, v in auxu.items():
+                        self._aux_dict[n].data.copy_(v)
+            return tuple(heads)
+        return body
+
+    def _body_fb(self):
+        """Forward and backward in one, from the aux states the last
+        training forward saw, with the staged cotangents: the gradients
+        land in the bound arrays per ``grad_req``."""
+        frozen, cots = self._frozen_static, self._cot_static
+
+        def body():
+            arg_vals, leaves = {}, {}
+            for n, arr in self._arg_dict.items():
+                t = arr.data
+                if n in self._grad_names and t.is_floating_point():
+                    t = t.detach().requires_grad_(True)
+                    leaves[n] = t
+                arg_vals[n] = t
+            with torch.enable_grad():
+                heads, _ = eval_symbol(self._symbol, arg_vals, frozen, None,
+                                       True, topo=self._topo)
+                live = [(h, g) for h, g in zip(heads, cots)
+                        if h.requires_grad]
+                names = list(leaves)
+                grads = [None] * len(names)
+                if live and names:
+                    grads = torch.autograd.grad(
+                        [h for h, _ in live], [leaves[n] for n in names],
+                        [g for _, g in live], allow_unused=True)
+            got = dict(zip(names, grads))
+            with torch.no_grad():
+                for name_ in self._grad_names:
+                    dst = self._grad_dict[name_].data
+                    g = got.get(name_)
+                    if self._req[name_] == "add":
+                        if g is not None:
+                            dst.add_(g.to(dst.dtype))
+                    elif g is None:
+                        dst.zero_()
+                    else:
+                        dst.copy_(g)
+            return ()
+        return body
+
+    def _stage_cotangents(self, out_grads) -> None:
+        heads = self._cot_static
+        if out_grads is None:
+            for c in heads:
+                c.fill_(1)
+            return
+        if isinstance(out_grads, (NDArray, torch.Tensor, np.ndarray)):
+            out_grads = [out_grads]
+        if len(out_grads) != len(heads):
+            raise MXNetError(f"backward: need {len(heads)} head grads, "
+                             f"got {len(out_grads)}")
+        for c, g in zip(heads, out_grads):
+            c.copy_(self._cotangent(g, c))
+
+    def warmup(self, fb: Optional[bool] = None) -> List[Dict[str, Any]]:
+        """Resolve this executor's programs through the global
+        :class:`~mxnet_tpu_torch.compile_cache.ProgramCache` now instead
+        of running the first batch eagerly: ``fwd_False``, and (when
+        gradients are bound, or ``fb=True``) ``fwd_True`` and the fused
+        forward and backward ``fb_<grads>``.  Later ``forward`` /
+        ``backward`` calls replay them.  Returns the per-program infos
+        (``kind``, ``source``, ``seconds``, ``digest``; ``reason`` for a
+        program that runs eagerly).  The bound arrays are left as they
+        were."""
+        want_fb = fb or (fb is None and self._grad_names)
+        if want_fb and not self._grad_names:
+            raise MXNetError("warmup(fb=True) on an executor bound without "
+                             "gradient arrays")
+        dev = resolve_device(self._ctx)
+        if self._frozen_static is None:
+            self._frozen_static = {n: torch.empty_like(a.data)
+                                   for n, a in self._aux_dict.items()}
+        if want_fb and self._cot_static is None:
+            with torch.no_grad():
+                heads, _ = eval_symbol(
+                    self._symbol, {n: a.data for n, a in
+                                   self._arg_dict.items()},
+                    {n: a.data for n, a in self._aux_dict.items()}, None,
+                    False, topo=self._topo)
+            self._cot_static = [torch.ones_like(h) for h in heads]
+        if self._graph_pool is None and dev.type == "cuda":
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        reason = cc.graph_uncapturable(self._topo)
+        arrays = {"args": {n: a.data for n, a in self._arg_dict.items()},
+                  "aux": {n: a.data for n, a in self._aux_dict.items()}}
+        written = ([a.data for a in self._aux_dict.values()]
+                   + [self._grad_dict[n].data for n in self._grad_names])
+        infos: List[Dict[str, Any]] = []
+
+        def warm(name: str, body, extra):
+            key = cc.program_key(
+                self._fingerprint(), arrays, backend=cc.backend_of(dev),
+                extra=dict(extra, owner=cc.owner_token(self)))
+            prog, info = cc.get_cache().get_or_compile(
+                key, lambda: cc.CapturedProgram(
+                    f"executor.{name}", body, dev,
+                    preserve=lambda: cc.snapshot_state(written),
+                    pool=self._graph_pool, reason=reason).build(),
+                label=f"executor.{name}")
+            self._programs[(cc.owner_token(self), name)] = prog
+            infos.append(dict(info, kind=name))
+
+        warm("fwd_False", self._body_fwd(False), {"kind": "fwd_False"})
+        if want_fb:
+            warm("fwd_True", self._body_fwd(True), {"kind": "fwd_True"})
+            grads = ",".join(self._grad_names)
+            warm("fb_" + grads, self._body_fb(),
+                 {"kind": "fb", "grads": grads,
+                  "req": [self._req[n] for n in self._grad_names]})
+        return infos
 
     # ------------------------------------------------------------------
     # Accessors

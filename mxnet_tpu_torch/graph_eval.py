@@ -26,11 +26,40 @@ a scope updates them once.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, List
 
 from .ops.registry import OpContext
 
-__all__ = ["eval_symbol"]
+__all__ = ["eval_symbol", "graph_fingerprint"]
+
+
+def graph_fingerprint(symbol, topo=None) -> str:
+    """Structural identity of a symbol graph, for program keys
+    (:func:`mxnet_tpu_torch.compile_cache.program_key`); the JAX
+    package's algorithm, so a graph whose nodes parse to the same
+    parameters and attrs has the same digest in both packages.
+
+    Hashes, in topological order, each node's op name, its parsed
+    parameters, its annotation attrs (``remat_scope`` changes the
+    program) and its input wiring as topological indices, then the head
+    entries.  Node names are left out: renamed but identical graphs
+    share a fingerprint."""
+    if topo is None:
+        topo = symbol._topo()
+    gidx = {id(n): i for i, n in enumerate(topo)}
+    h = hashlib.sha256()
+    for n in topo:
+        if n.is_variable:
+            h.update(b"var\x00")
+            continue
+        h.update(n.op.name.encode())
+        h.update(repr(sorted(n.parsed_params().items())).encode())
+        h.update(repr(sorted(n.anno_attrs().items())).encode())
+        h.update(repr([(gidx[id(s)], k) for (s, k) in n.inputs]).encode())
+        h.update(b"\x00")
+    h.update(repr([(gidx[id(n)], i) for (n, i) in symbol._heads]).encode())
+    return h.hexdigest()
 
 
 def _mirrored(anno) -> bool:

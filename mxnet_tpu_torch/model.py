@@ -374,6 +374,19 @@ class FeedForward:
             return self._init_iter(eval_data[0], eval_data[1], is_train=True)
         return eval_data
 
+    def compile(self, input_shapes: Dict[str, Tuple[int, ...]]):
+        """Warm the prediction path: bind the predictor executor for
+        ``input_shapes`` (e.g. ``{"data": (batch, dims...)}``) and resolve
+        its forward program through the global program cache now rather
+        than at the first :meth:`predict`.  Needs parameters (train first
+        or pass ``arg_params``).  Returns the per-program infos
+        (``source``, ``seconds``)."""
+        if self.arg_params is None:
+            raise MXNetError("compile() needs initialized params: fit "
+                             "first or pass arg_params to FeedForward")
+        self._init_predictor(dict(input_shapes))
+        return self._pred_exec.warmup()
+
     def predict(self, X, num_batch: Optional[int] = None,
                 return_data: bool = False, reset: bool = True):
         """The outputs over ``X`` (a DataIter or a numpy array), as numpy

@@ -358,8 +358,8 @@ def transformer_lm_decode_dense(params, tokens, lengths, k_cache, v_cache,
     rows = torch.arange(b, device=tokens.device)
     lengths = lengths.long()
     d = _param(params, "embed_weight").shape[1]
-    scale = 1.0 / torch.sqrt(torch.tensor(float(d // heads),
-                                          device=tokens.device))
+    scale = 1.0 / torch.sqrt(torch.full((), float(d // heads),
+                                        device=tokens.device))
 
     def attend(i, q, k, v):
         k_cache[i, rows, lengths] = k

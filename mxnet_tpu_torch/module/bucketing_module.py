@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ..base import not_ported
+from ..base import MXNetError
 from ..initializer import Uniform
 from .base_module import BaseModule
 from .module import Module
@@ -210,18 +210,72 @@ class BucketingModule(BaseModule):
         self._curr_module = self._buckets[bucket_key]
 
     def cache_report(self) -> Dict[str, int]:
-        """``buckets`` (bound modules), ``switches`` and ``switch_hits``
-        (switch_bucket calls, and those that found a bound bucket).  The
-        JAX package's ``programs`` count has no counterpart: an eager
-        graph compiles nothing."""
+        """Program-reuse counters: ``buckets`` (bound modules),
+        ``programs`` (entries in the executors' shared program table,
+        filled by :meth:`compile`), ``switches`` and ``switch_hits``
+        (switch_bucket calls, and those that found a bound bucket)."""
         assert self.binded
+        default = self._buckets[self._default_bucket_key]
         return {"buckets": len(self._buckets),
+                "programs": default._exec_group.program_cache_size(),
                 "switches": self._switch_count,
                 "switch_hits": self._switch_hits}
 
+    def _shapes_for_key(self, key, descs):
+        """An unbound bucket's shape descs from the default bucket's: the
+        bucketed dim (the policy's axis, else any non-batch dim equal to
+        the default key) becomes ``key``.  Integer keys only."""
+        if descs is None:
+            return None
+        default = int(self._default_bucket_key)
+        axis = (self._bucket_policy.axis if self._bucket_policy is not None
+                else None)
+        out = []
+        for desc in descs:
+            name, shape = desc[0], list(desc[1])
+            if axis is not None:
+                if axis < len(shape) and shape[axis] == default:
+                    shape[axis] = int(key)
+            else:
+                shape = [int(key) if (i > 0 and s == default) else s
+                         for i, s in enumerate(shape)]
+            out.append((name, tuple(shape)) + tuple(desc[2:]))
+        return out
+
     def compile(self, buckets: Optional[List[Any]] = None, fb=None):
-        raise not_ported("BucketingModule.compile (the AOT program cache, "
-                         "compile_cache.py)")
+        """Resolve the programs of ``buckets`` (default: every bound
+        bucket) through the global program cache: each key is bound (by
+        :meth:`switch_bucket`, sharing the default bucket's arrays) and
+        its executor programs are captured
+        (:meth:`~mxnet_tpu_torch.executor.Executor.warmup`).  Unbound
+        integer keys derive their shapes from the default bucket's.  The
+        current module is restored afterwards.  Returns the per-program
+        infos, each with its ``bucket``."""
+        assert self.binded, "call bind before compile"
+        prev = self._curr_module
+        keys = list(buckets) if buckets is not None \
+            else list(self._buckets.keys())
+        infos = []
+        try:
+            for key in keys:
+                ckey = self._canonical_key(key)
+                if ckey in self._buckets:
+                    self._curr_module = self._buckets[ckey]
+                elif isinstance(key, (int, np.integer)):
+                    default = self._buckets[self._default_bucket_key]
+                    self.switch_bucket(
+                        key, self._shapes_for_key(ckey, default.data_shapes),
+                        self._shapes_for_key(ckey, default.label_shapes))
+                else:
+                    raise MXNetError(
+                        f"compile: bucket {key!r} is not bound and its "
+                        "shapes cannot be derived (non-integer key): "
+                        "switch_bucket it first")
+                for info in self._curr_module.compile(fb=fb):
+                    infos.append(dict(info, bucket=ckey))
+        finally:
+            self._curr_module = prev
+        return infos
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),

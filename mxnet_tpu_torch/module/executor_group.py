@@ -11,7 +11,7 @@ from __future__ import annotations
 import logging
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from ..context import Context
 from ..executor import Executor
 from ..ndarray import NDArray, concatenate as nd_concat
@@ -146,8 +146,19 @@ class DataParallelExecutorGroup:
     # ------------------------------------------------------------------
 
     def warmup(self, fb: Optional[bool] = None) -> List[Dict[str, Any]]:
-        raise not_ported("DataParallelExecutorGroup.warmup (the AOT "
-                         "program cache, compile_cache.py)")
+        """Resolve every executor's programs through the global program
+        cache (:meth:`mxnet_tpu_torch.executor.Executor.warmup`); returns
+        the infos, each with its ``device``."""
+        infos: List[Dict[str, Any]] = []
+        for i, exec_ in enumerate(self.execs):
+            for info in exec_.warmup(fb=fb):
+                infos.append(dict(info, device=str(self.contexts[i])))
+        return infos
+
+    def program_cache_size(self) -> int:
+        """Programs in the (bucketing-shared) table of the first
+        executor: the cross-bucket reuse gauge."""
+        return self.execs[0].program_cache_size() if self.execs else 0
 
     def set_params(self, arg_params, aux_params) -> None:
         for exec_ in self.execs:

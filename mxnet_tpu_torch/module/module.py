@@ -311,6 +311,10 @@ class Module(BaseModule):
         return self._exec_group.stage_data_batch(data_batch)
 
     def compile(self, fb=None):
+        """Resolve this module's executor programs through the global
+        program cache now instead of running the first batch eagerly
+        (:meth:`mxnet_tpu_torch.executor.Executor.warmup`).  Returns the
+        per-program infos (``source``, ``seconds``)."""
         assert self.binded, "call bind() before compile()"
         return self._exec_group.warmup(fb=fb)
 

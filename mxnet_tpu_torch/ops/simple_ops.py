@@ -99,7 +99,8 @@ def _scalar_like(s, x):
     (a scalar base or bound): ``jnp``'s weak scalar, so an integer ``x``
     with a fractional ``s`` promotes to float rather than truncating
     ``s``."""
-    return torch.tensor(s, dtype=torch.result_type(x, s), device=x.device)
+    # a fill, not a copy from the host: capturable in a CUDA graph
+    return torch.full((), s, dtype=torch.result_type(x, s), device=x.device)
 
 
 # ---------------------------------------------------------------------------

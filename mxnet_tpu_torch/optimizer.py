@@ -74,7 +74,8 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
 def _as_f32(v, like: torch.Tensor) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(dtype=like.dtype)
-    return torch.tensor(float(v), dtype=like.dtype, device=like.device)
+    # a fill, not a copy from the host: capturable in a CUDA graph
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
 
 
 class Optimizer:

@@ -49,8 +49,9 @@ def local_attention(q, k, v, *, causal=False, scale=None, q_offset=0,
                                    neg_inf=neg_inf)
     local_attention.dense_calls += 1
     if scale is None:
-        scale = 1.0 / torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype,
-                                   device=q.device)
+        # a fill, not a copy from the host: capturable in a CUDA graph
+        scale = 1.0 / torch.full((), math.sqrt(q.shape[-1]), dtype=q.dtype,
+                                 device=q.device)
     scores = (torch.einsum("bhqd,bhkd->bhqk", q, k) * scale).float()
     if causal:
         qpos = q_offset + torch.arange(q.shape[2], device=q.device)

@@ -82,6 +82,26 @@ either package restores into the other when both trainers are fused or
 both unfused.  The divergence sentinel's ``"rollback"`` restores the
 manager's newest checkpoint.
 
+Programs (:meth:`ShardedTrainer.compile`): the JAX trainer compiles its
+step ahead of time; here ``compile`` captures the step's device work
+(forward, backward, guard, update, with ``train_acc`` the accuracy fold,
+or the inference forward for ``eval``) as a CUDA graph
+(:class:`~mxnet_tpu_torch.compile_cache.CapturedProgram`) over static
+batch buffers, resolved through the program cache.  :meth:`step`,
+``fit``'s accuracy step and :meth:`forward` replay it when the placed
+batch's shapes and types match the program's, copying the batch into the
+static buffers first and cloning the heads after (the next replay
+overwrites them); otherwise they run eagerly, as the JAX trainer falls
+back to jit.  A graph reads the storage it captured, so every piece of
+state a step writes is written in place (``copy_``), never rebound, and
+every host scalar a step needs (learning rate, update count) is filled
+into its 0-d tensor before the replay.  ``compile()`` leaves the state
+bitwise as it found it: the warm-up steps before the capture are undone.
+A graph with a sampling op, or an optimizer that draws noise (SGLD),
+is not captured: its generators are seeded per step on the host, and a
+replay would repeat the captured draws; such a program runs eagerly and
+says why (``compile_info``'s ``reason``).
+
 Not ported yet (they raise): ``mesh``, ``rules``, ``data_axis``,
 ``shard_optimizer``, ``grad_compression`` and ``error_feedback`` (the
 multi-GPU slice).
@@ -90,12 +110,14 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import compile_cache as cc
 from .. import optimizer as opt_mod
 from .. import quant as quant_mod
 from .. import resilience, telemetry
@@ -264,6 +286,15 @@ class ShardedTrainer:
         self._deferred_save: Optional[Tuple] = None
         self._fit_manager = None
         self._bound = False
+        # captured step programs by kind: (program, batch signature)
+        self._aot: Dict[str, Tuple[cc.CapturedProgram, Tuple]] = {}
+        self.aot_stats: Dict[str, int] = {"hits": 0, "fallbacks": 0}
+        self.compile_info: List[Dict[str, Any]] = []
+        self._graph_pool = None
+        self._graph_fp: Optional[str] = None
+        # a step and a program's warm-up and capture never overlap (a
+        # background compile restores the state its warm-up changed)
+        self._step_lock = threading.RLock()
 
     # ------------------------------------------------------------------
     # Bind: infer shapes, initialize and place params, lay out the state
@@ -361,6 +392,7 @@ class ShardedTrainer:
             clip = self._resil.clip_global_norm
             self._c_clip = (None if clip is None
                             else torch.full((), clip, **f32))
+        self._aot.clear()
         self._bound = True
         return self
 
@@ -478,7 +510,12 @@ class ShardedTrainer:
             if isinstance(v, NDArray):
                 v = v.data
             if not isinstance(v, torch.Tensor):
-                v = torch.as_tensor(np.asarray(v))
+                # on the CPU a copy into torch's (64-byte aligned)
+                # memory: a CPU convolution's rounding follows its input's
+                # alignment, and a program's static buffers are aligned
+                v = (torch.as_tensor(np.asarray(v))
+                     if self.device.type == "cuda"
+                     else torch.tensor(np.asarray(v)))
             out[n] = _host_to(v, self.device)
         return out
 
@@ -544,18 +581,46 @@ class ShardedTrainer:
         be host data or the result of :meth:`place_batch`."""
         return self._train(self.place_batch(batch))
 
-    def _train(self, placed) -> List[torch.Tensor]:
-        self._in_step = True
-        try:
-            self._num_update += 1
-            with matmul_precision_scope(self.matmul_precision):
-                heads, grads, auxu = self._forward_backward(placed)
-                self._apply_update(grads, auxu)
-        finally:
-            self._in_step = False
+    def _device_step(self, placed) -> Tuple[torch.Tensor, ...]:
+        """The device work of one training step (a program's body):
+        forward, backward and update for the update number and rate
+        already in ``_t_dev``/``_lr_dev``; returns the heads."""
+        with matmul_precision_scope(self.matmul_precision):
+            heads, grads, auxu = self._forward_backward(placed)
+            self._apply_update(grads, auxu)
+        return heads
+
+    def _train(self, placed, carry=None):
+        """One step, replayed or eager; with ``carry`` (``fit``'s accuracy
+        fold) returns ``(heads, new carry)``."""
+        kind = "train" if carry is None else "train_acc"
+        with self._step_lock:
+            self._in_step = True
+            try:
+                self._num_update += 1
+                self._fill_step_scalars()
+                prog = self._program_for(kind, placed)
+                if prog is not None:
+                    outs = self._replay(prog, placed, carry)
+                    heads = outs if carry is None else outs[0]
+                    carry = None if carry is None else outs[1]
+                else:
+                    heads = self._device_step(placed)
+                    if carry is not None:
+                        carry = _acc_fold(
+                            carry, heads,
+                            [placed[ln] for ln in self._label_names])
+            finally:
+                self._in_step = False
         if self._deferred_save is not None:
             self._run_deferred_save()
-        return list(heads)
+        return list(heads) if carry is None else (list(heads), carry)
+
+    def _fill_step_scalars(self) -> None:
+        """The step's host scalars into their 0-d tensors (a fill kernel
+        each: no copy, no wait), outside any program."""
+        self._lr_dev.fill_(self._lr_now())
+        self._t_dev.fill_(float(self._num_update))
 
     def _run_deferred_save(self) -> None:
         """The save a signal asked for mid-step, now that the step is
@@ -573,10 +638,7 @@ class ShardedTrainer:
         """:meth:`step`, then the ``Accuracy`` fold of each labelled head
         into ``carry`` (a 0-d int32 tensor on the device): ``fit``'s
         metric path, with no read back to the host."""
-        placed = self.place_batch(batch)
-        heads = self._train(placed)
-        return heads, _acc_fold(carry, heads,
-                                [placed[ln] for ln in self._label_names])
+        return self._train(self.place_batch(batch), carry)
 
     def _lr_now(self) -> float:
         """The rate of update number ``self._num_update``: the schedule's
@@ -592,8 +654,6 @@ class ShardedTrainer:
         optimizer step, then the aux states."""
         resil = self._resil
         with torch.no_grad():
-            self._lr_dev.fill_(self._lr_now())
-            self._t_dev.fill_(float(self._num_update))
             ok = mult = eff_norm = None
             if resil is not None:
                 sq = resilience.tree_sq_sum(grads)
@@ -617,13 +677,16 @@ class ShardedTrainer:
                 self._fused_apply(grads, mult, ok)
             else:
                 self._unfused_apply(grads, ok)
+            # state is written in place: a captured step reads and
+            # writes the storage it was captured over
             if resil is not None:
                 for k, v in auxu.items():
-                    self._aux[k] = torch.where(ok, v, self._aux[k])
-                self._guard_state = resilience.state_update(
-                    self._guard_state, ok, eff_norm, resil)
+                    self._aux[k].copy_(torch.where(ok, v, self._aux[k]))
+                _copy_tree(self._guard_state, resilience.state_update(
+                    self._guard_state, ok, eff_norm, resil))
             else:
-                self._aux.update(auxu)
+                for k, v in auxu.items():
+                    self._aux[k].copy_(v)
 
     def _fused_apply(self, grads, mult, ok) -> None:
         """The hopper form: one kernel launch a step over the gradients
@@ -686,14 +749,22 @@ class ShardedTrainer:
                 w2 = torch.where(ok, w2, p)
                 s2 = _gate(ok, s2, self._opt_state[n])
             p.copy_(w2)
-            self._opt_state[n] = s2
+            _copy_tree(self._opt_state[n], s2)
 
     def forward(self, batch) -> List[torch.Tensor]:
         """Inference forward (moving statistics, no aux update)."""
         if not self._bound:
             raise MXNetError("call bind() before forward()")
         placed = self.place_batch(batch)
-        self._eval_count += 1
+        with self._step_lock:
+            self._eval_count += 1
+            prog = self._program_for("eval", placed)
+            if prog is not None:
+                return list(self._replay(prog, placed))
+            return self._eval_forward(placed)
+
+    def _eval_forward(self, placed) -> List[torch.Tensor]:
+        """The device work of an inference forward (a program's body)."""
         key = GraphKey(mix(self._seed, 0x5EED, self._eval_count),
                        self.device, self._node_generators)
         k = self.grad_accum
@@ -711,6 +782,207 @@ class ShardedTrainer:
                                        False, topo=self._topo)
                 outs.append(heads)
         return [torch.cat(hs) if k > 1 else hs[0] for hs in zip(*outs)]
+
+    # ------------------------------------------------------------------
+    # Programs: captured steps (the JAX trainer's ahead-of-time compile)
+    # ------------------------------------------------------------------
+
+    def _batch_signature(self, batch) -> Tuple:
+        return tuple((n, tuple(batch[n].shape), batch[n].dtype)
+                     for n in self._input_names)
+
+    def _program_for(self, kind: str, placed):
+        """The installed program of ``kind`` when ``placed`` has its batch
+        signature; a mismatch drops it (once) and the step runs eagerly,
+        as the JAX trainer falls back to jit."""
+        ent = self._aot.get(kind)
+        if ent is None:
+            return None
+        prog, sig = ent
+        if self._batch_signature(placed) == sig:
+            return prog
+        self._aot.pop(kind, None)
+        self.aot_stats["fallbacks"] += 1
+        telemetry.counter("trainer.aot_fallbacks").inc()
+        self.logger.warning(
+            "program %r does not match this batch (%s against %s); "
+            "running eagerly", kind, self._batch_signature(placed), sig)
+        return None
+
+    def _replay(self, prog, placed, carry=None):
+        """Stage the batch (and the carry) into the program's static
+        buffers, run it, and clone what it returns: the next replay
+        overwrites the static outputs."""
+        prog.stage({n: placed[n] for n in self._input_names})
+        if carry is not None:
+            prog.stage({"_carry": carry})
+        outs = prog()
+        self.aot_stats["hits"] += 1
+        telemetry.counter("trainer.aot_hits").inc()
+        return _clone_tree(outs)
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step writes: weights, optimizer state, aux,
+        guard state, the step scalars."""
+        if self._fused:
+            ts = [self._flat_w, *self._flat_state]
+        else:
+            ts = [p.detach() for p in self._params.values()]
+            for leaves in self.opt_state_by_param().values():
+                ts += list(leaves)
+        ts += list(self._aux.values())
+        if self._guard_state is not None:
+            ts += list(self._guard_state.values())
+        return ts + [self._lr_dev, self._t_dev]
+
+    def _uncapturable(self) -> Optional[str]:
+        why = cc.graph_uncapturable(self._topo)
+        if why is None and self.optimizer._needs_rng:
+            why = (f"optimizer {type(self.optimizer).__name__} draws noise "
+                   "from a generator each step; a replay would repeat it")
+        return why
+
+    def _program_key(self, kind: str, batch_avals) -> cc.CacheKey:
+        """Key of one step program: graph fingerprint, the state's and the
+        batch's avals, every trainer setting that changes the step, and
+        this trainer's token (a graph reads this trainer's storage)."""
+        from ..graph_eval import graph_fingerprint
+        if self._graph_fp is None:
+            self._graph_fp = graph_fingerprint(self.symbol, topo=self._topo)
+        extra = {
+            "kind": kind,
+            "owner": cc.owner_token(self),
+            "optimizer": type(self.optimizer).__name__,
+            "hyper": sorted(self.optimizer._hyper().items()),
+            "rescale_grad": self._rescale_grad,
+            "lr_mult": sorted(self._lr_mult.items()),
+            "wd_mult": sorted(self._wd_mult.items()),
+            "grad_accum": self.grad_accum,
+            "compute_dtype": str(self.compute_dtype),
+            "matmul_precision": self.matmul_precision,
+            "grad_bucket_bytes": self.grad_bucket_bytes,
+            "fused": self._fused_kind if self._fused else None,
+            "fused_wd_vec": bool(self._fused and not self._fused_wd_uniform),
+            "fused_route": self._fused_route if self._fused else None,
+            "resilience": (self._resil.describe()
+                           if self._resil is not None else None),
+        }
+        avals = {"state": self._state_tensors(), "batch": batch_avals}
+        donate = () if kind == "eval" else (0, 1, 2)
+        return cc.program_key(self._graph_fp, avals, donate=donate,
+                              backend=cc.backend_of(self.device),
+                              extra=extra)
+
+    def _norm_batch_spec(self, spec) -> Dict[str, Tuple[Tuple, Any]]:
+        """One batch spec -> ``{input: (shape, torch dtype)}``: each value
+        a shape, ``(shape, dtype)`` or an example array (float32 when no
+        dtype is given)."""
+        out = {}
+        for n in self._input_names:
+            if n not in spec:
+                raise MXNetError(f"batch_spec missing input {n!r}")
+            v = spec[n]
+            if isinstance(v, tuple) and len(v) == 2 \
+                    and isinstance(v[0], (tuple, list)):
+                shape, dtype = tuple(v[0]), v[1]
+            elif hasattr(v, "shape") and hasattr(v, "dtype"):
+                shape, dtype = tuple(v.shape), v.dtype
+            else:
+                shape, dtype = tuple(v), torch.float32
+            if not isinstance(dtype, torch.dtype):
+                dtype = torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+            out[n] = (shape, dtype)
+        return out
+
+    def compile(self, batch_spec=None, programs=("train",),
+                background: bool = False):
+        """Capture the step programs for known batch shapes, each resolved
+        through the global :class:`~mxnet_tpu_torch.compile_cache.
+        ProgramCache`.
+
+        ``batch_spec``: ``{input name: shape | (shape, dtype) | example
+        array}`` (default: the bound shapes at float32), or a list of
+        such dicts.  ``programs`` from ``train``, ``train_acc`` (``fit``'s
+        accuracy fold) and ``eval``.  The last program resolved per kind
+        is installed: :meth:`step`, ``fit`` and :meth:`forward` replay
+        it for batches of its signature.  Returns the per-program infos
+        (``kind``, ``source``, ``seconds``, ``digest``, and ``reason``
+        for an eager program), also kept in ``compile_info``; with
+        ``background=True`` the captures run on a daemon thread (steps
+        wait while it captures) and the started thread is returned.  The state is left
+        bitwise as it was."""
+        if not self._bound:
+            raise MXNetError("call bind() before compile()")
+        specs = batch_spec if batch_spec is not None else self._input_shapes
+        if isinstance(specs, dict):
+            specs = [specs]
+        work = []
+        for spec in specs:
+            b_spec = self._norm_batch_spec(spec)
+            for kind in programs:
+                if kind not in ("train", "train_acc", "eval"):
+                    raise MXNetError(f"unknown program kind {kind!r} "
+                                     "(train/train_acc/eval)")
+                work.append((kind, b_spec))
+
+        def compile_one(kind, b_spec):
+            dev = self.device
+            key = self._program_key(kind, {
+                n: torch.empty(s, dtype=dt, device="meta")
+                for n, (s, dt) in b_spec.items()})
+
+            def build():
+                static = {n: torch.zeros(s, dtype=dt, device=dev)
+                          for n, (s, dt) in b_spec.items()}
+                batch = dict(static)
+                if kind == "train":
+                    def body():
+                        return self._device_step(batch)
+                elif kind == "train_acc":
+                    static["_carry"] = torch.zeros((), dtype=torch.int32,
+                                                   device=dev)
+
+                    def body():
+                        heads = self._device_step(batch)
+                        return heads, _acc_fold(
+                            static["_carry"], heads,
+                            [batch[ln] for ln in self._label_names])
+                else:
+                    def body():
+                        return tuple(self._eval_forward(batch))
+                if self._graph_pool is None and dev.type == "cuda":
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                prog = cc.CapturedProgram(
+                    f"trainer.{kind}", body, dev,
+                    preserve=lambda: cc.snapshot_state(
+                        self._state_tensors()),
+                    pool=self._graph_pool, reason=self._uncapturable(),
+                    inputs=static)
+                with self._step_lock:
+                    return prog.build()
+
+            prog, info = cc.get_cache().get_or_compile(
+                key, build, label=f"trainer.{kind}")
+            self._aot[kind] = (prog, tuple(
+                (n, tuple(b_spec[n][0]), b_spec[n][1])
+                for n in self._input_names))
+            info = dict(info, kind=kind)
+            self.compile_info.append(info)
+            return info
+
+        if background:
+            def run():
+                for kind, b_spec in work:
+                    try:
+                        compile_one(kind, b_spec)
+                    except Exception:
+                        self.logger.exception(
+                            "background compile of %r failed", kind)
+            th = threading.Thread(target=run, daemon=True,
+                                  name="mxnet-tpu-torch-compile")
+            th.start()
+            return th
+        return [compile_one(kind, b_spec) for kind, b_spec in work]
 
     # ------------------------------------------------------------------
     # Param access
@@ -917,7 +1189,7 @@ class ShardedTrainer:
                                            else int(rs[k]))
                 else:
                     base[k].fill_(rs[k])
-            self._guard_state = base
+            _copy_tree(self._guard_state, base)
         self.logger.info("restore_state: resumed at update %d from %s",
                          self._num_update, manager.step_path(step))
         return meta, step
@@ -976,7 +1248,7 @@ class ShardedTrainer:
                             "norm_sum": stats["norm_sum"],
                             "norm_cnt": stats["norm_steps"]}
         for k in resilience.WINDOW_KEYS:
-            self._guard_state[k] = torch.zeros_like(self._guard_state[k])
+            self._guard_state[k].zero_()
 
     def _sentinel_poll(self, manager=None) -> Optional[str]:
         """Drain the guard counters and feed the divergence sentinel;
@@ -1157,8 +1429,7 @@ class ShardedTrainer:
                             drained["norm_sum"] / drained["norm_steps"]
                             if drained.get("norm_steps") else None),
                         "rollbacks": self._rollbacks,
-                        # no captured step programs yet (CUDA graphs)
-                        "aot_hits": 0,
+                        "aot_hits": self.aot_stats["hits"],
                     })
                     t_last = t_now
                     if batch_end_callback is not None:
@@ -1226,6 +1497,29 @@ def _torch_dtype(name) -> Optional[torch.dtype]:
         raise MXNetError(f"compute_dtype {name!r} is not a floating-point "
                          "dtype")
     return dt
+
+
+def _clone_tree(t):
+    """A tensor tree with every tensor cloned."""
+    if isinstance(t, torch.Tensor):
+        return t.clone()
+    return type(t)(_clone_tree(x) for x in t)
+
+
+def _copy_tree(dst, src) -> None:
+    """Copy a state tree (a tensor, a dict or sequence of them, or None)
+    into the storage of ``dst``, leaf by leaf."""
+    if dst is None:
+        return
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            if dst[k] is not src[k]:
+                dst[k].copy_(src[k])
+    else:
+        for a, b in zip(dst, src):
+            _copy_tree(a, b)
 
 
 def _gate(ok, new, old):

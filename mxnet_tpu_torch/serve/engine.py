@@ -34,10 +34,17 @@ request with the same prefix maps those blocks (reference-counted,
 copy-on-write) and prefills only its suffix.  ``defrag()`` compacts live
 blocks to the low end of the pools.
 
-PyTorch runs eagerly, so there are no programs to compile: ``warmup()``
-builds the kernel library and runs each prompt and decode bucket once so
-that first-use costs fall outside timed work.  The engine feeds the
-telemetry plane (:mod:`mxnet_tpu_torch.telemetry`) under the JAX
+Programs: ``warmup()`` resolves one program per prompt bucket and per
+decode bucket through :mod:`~mxnet_tpu_torch.compile_cache`, as the JAX
+engine does; on the card each is the step's device work captured as a
+CUDA graph over a static input buffer, and every later step of that kind
+and bucket stages its host inputs into the buffer and replays the graph
+(``aot_stats["replays"]``).  The graph ends at the logits and the greedy
+result; sampled rows draw after the replay from their own generators.
+Weights are copied into the captured storage by :meth:`Engine.
+swap_weights`, so programs survive a hot swap; the poison step of
+``serve_poison_logits`` runs eagerly on its NaN copies.  The engine
+feeds the telemetry plane (:mod:`mxnet_tpu_torch.telemetry`) under the JAX
 engine's metric and span names; plain counters on the engine
 (``counters``) keep its per-engine tallies beside them.
 
@@ -277,6 +284,25 @@ def _spec_accept(logits, tokens, live, keys: Sequence[int],
     return out, n_emit
 
 
+def _first_token(last):
+    """A prefill's device result from the logits row of the prompt's
+    last token ([1, V]): the row, and ``[argmax, finite]``."""
+    lf = last.float()
+    return last, torch.stack([lf.argmax(dim=-1)[0],
+                              torch.isfinite(lf).all().long()])
+
+
+def _first_token_host(last, res, temp: float, topk: int, key: int,
+                      position: int) -> Tuple[int, bool]:
+    """The first token (sampled from ``last`` when ``temp > 0``) and
+    whether its logits were finite, in one copy to the host."""
+    if temp > 0:
+        res = torch.stack([_sample_batch(last, [temp], [topk], [key],
+                                         [position])[0], res[1]])
+    res = res.cpu()
+    return int(res[0]), bool(res[1])
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     """Static engine geometry: the fields and defaults of the JAX
@@ -460,6 +486,18 @@ class Engine:
             # preempted request re-prefills with prompt + generated tokens
             self.prompt_buckets = tuple(policy._ladder(config.max_seq_len))
         self.decode_buckets = config.resolved_decode_buckets()
+        # captured programs by (kind, bucket), after warmup()
+        self._programs: Dict[Tuple[str, int], cc.CapturedProgram] = {}
+        self._bodies = {"prefill": self._body_prefill,
+                        "prefill_chunk": self._body_prefill_chunk,
+                        "decode": self._body_decode,
+                        "verify": self._body_verify,
+                        "draft": self._body_draft}
+        self._graph_pool = None
+        self._weights_owned = False
+        #: program resolutions by source; ``replays``, and
+        #: ``eager_steps`` (steps run eagerly once programs exist)
+        self.aot_stats: collections.Counter = collections.Counter()
         self.requests: Dict[int, Request] = {}
         self.step_idx = 0
         self.swap_count = 0      # successful swap_weights installs
@@ -534,7 +572,14 @@ class Engine:
                 f"removed={report.removed[:4]} "
                 f"changed={[c['name'] for c in report.changed[:4]]}); "
                 "rebuild the engine (Router.rolling_swap does)")
-        self._params = params_from_numpy(params_or_source, self.device)
+        new = params_from_numpy(params_or_source, self.device)
+        if self._weights_owned:
+            # into the storage the programs captured: they stay valid
+            with torch.no_grad():
+                for k, v in new.items():
+                    self._params[k].copy_(v)
+        else:
+            self._params = new
         self._poison_params = None
         if self.prefix is not None:
             # version bump: stale hashes become unreachable, and ref-0
@@ -567,6 +612,53 @@ class Engine:
         return report
 
     # -- device work --------------------------------------------------------
+    #
+    # Each step kind stages its host inputs (token ids, tables, lengths,
+    # slot maps, the prompt length and chunk start) into ONE int32 host
+    # buffer and runs its device body over that buffer on the device:
+    # copied to a fresh tensor when it runs eagerly, or into the static
+    # buffer of the bucket's program, which is then replayed.  The bodies
+    # end at the logits and the greedy result (argmax, acceptance); rows
+    # with a temperature are sampled after, with their per-row
+    # generators, from the same logits, so a replayed step and an eager
+    # one emit the same tokens.
+
+    def _exec(self, kind: str, bucket: int, buf: np.ndarray):
+        """Run step ``kind`` at ``bucket`` over host buffer ``buf``.
+        Returns ``(body outputs, device buffer)``."""
+        prog = self._programs.get((kind, bucket))
+        if prog is not None and self._poison_step:
+            telemetry.counter("compile_cache.uncaptured").inc()
+            prog = None      # NaN copies of the weights: an eager step
+        if prog is None:
+            if self._programs:
+                self.aot_stats["eager_steps"] += 1
+            dev = torch.from_numpy(buf).to(self.device)
+            return self._bodies[kind](dev, bucket), dev
+        prog.stage({"buf": torch.from_numpy(buf)})
+        self.aot_stats["replays"] += 1
+        return prog(), prog.inputs["buf"]
+
+    def _stage_prefill(self, toks, lb: int, blocks) -> np.ndarray:
+        """tokens [lb] | table [max_blocks] | prompt length."""
+        mb = self.max_blocks
+        buf = np.zeros((lb + mb + 1,), np.int32)
+        buf[:len(toks)] = toks
+        buf[lb:lb + len(blocks)] = blocks
+        buf[lb + mb] = len(toks)
+        return buf
+
+    def _body_prefill(self, dev: torch.Tensor, lb: int):
+        mb = self.max_blocks
+        tokens, table_t = dev[:lb].view(1, lb), dev[lb:lb + mb]
+        plen = dev[lb + mb]
+        logits, ks, vs = transformer_lm_prefill(self._step_params(), tokens,
+                                                heads=self.heads)
+        for i in range(self.num_layers):
+            kvcache.write_prefill(self.kpool, i, ks[i][0], table_t, plen)
+            kvcache.write_prefill(self.vpool, i, vs[i][0], table_t, plen)
+        row = torch.clamp_min(plen.long() - 1, 0).reshape(1)
+        return _first_token(logits[0].index_select(0, row))
 
     @torch.no_grad()
     def _run_prefill(self, toks: Sequence[int], lb: int, blocks: Sequence[int],
@@ -574,42 +666,24 @@ class Engine:
         """Whole-prompt prefill at bucket ``lb``: forward, scatter every
         layer's K/V into the request's blocks, sample the first token.
         Returns ``(token, logits_finite)``."""
-        plen = len(toks)
-        padded = np.zeros((1, lb), np.int32)
-        padded[0, :plen] = toks
-        table_row = np.zeros((self.max_blocks,), np.int32)
-        table_row[:len(blocks)] = blocks
-        tokens = torch.from_numpy(padded).to(self.device)
-        table_t = torch.from_numpy(table_row).to(self.device)
-        logits, ks, vs = transformer_lm_prefill(self._step_params(), tokens,
-                                                heads=self.heads)
-        for i in range(self.num_layers):
-            kvcache.write_prefill(self.kpool, i, ks[i][0], table_t, plen)
-            kvcache.write_prefill(self.vpool, i, vs[i][0], table_t, plen)
-        last = logits[0, plen - 1]
-        tok = _sample_batch(last[None], [temp], [topk], [key], [plen])[0]
-        ok = torch.isfinite(last.float()).all()
-        res = torch.stack([tok, ok.long()]).cpu()
-        return int(res[0]), bool(res[1])
+        (last, res), _ = self._exec("prefill", lb,
+                                    self._stage_prefill(toks, lb, blocks))
+        return _first_token_host(last, res, temp, topk, key, len(toks))
 
-    @torch.no_grad()
-    def _run_prefill_chunk(self, toks: Sequence[int], start: int, plen: int,
-                           blocks: Sequence[int], temp: float, topk: int,
-                           key: int) -> Tuple[int, bool]:
-        """One prefill chunk: ``toks`` (at most ``prefill_chunk`` tokens)
-        at absolute positions from ``start`` of a ``plen``-token prompt.
-        Every layer writes the chunk's K/V into the request's blocks
-        first, then attends causally over the whole cached prefix.  The
-        first token is sampled at position ``plen`` from the row of the
-        prompt's last token (read only after the final chunk).  Returns
-        ``(token, logits_finite)``."""
-        cb = self.prefill_chunk
-        # one host buffer, one copy to the device: tokens | table
-        buf = np.zeros((cb + self.max_blocks,), np.int32)
+    def _stage_prefill_chunk(self, toks, start: int, plen: int,
+                             blocks) -> np.ndarray:
+        """tokens [chunk] | table [max_blocks] | start | prompt length."""
+        cb, mb = self.prefill_chunk, self.max_blocks
+        buf = np.zeros((cb + mb + 2,), np.int32)
         buf[:len(toks)] = toks
         buf[cb:cb + len(blocks)] = blocks
-        dev = torch.from_numpy(buf).to(self.device)
-        tokens, table_t = dev[:cb].view(1, cb), dev[cb:]
+        buf[cb + mb], buf[cb + mb + 1] = start, plen
+        return buf
+
+    def _body_prefill_chunk(self, dev: torch.Tensor, cb: int):
+        mb = self.max_blocks
+        tokens, table_t = dev[:cb].view(1, cb), dev[cb:cb + mb]
+        start, plen = dev[cb + mb], dev[cb + mb + 1]
         kpool, vpool = self.kpool, self.vpool
 
         def attend(i, q, k, v):
@@ -622,21 +696,30 @@ class Engine:
 
         logits = transformer_lm_prefill_chunk(self._step_params(), tokens,
                                               heads=self.heads, attend=attend)
-        last = logits[0, min(max(plen - 1 - start, 0), cb - 1)]
-        tok = _sample_batch(last[None], [temp], [topk], [key], [plen])[0]
-        ok = torch.isfinite(last.float()).all()
-        res = torch.stack([tok, ok.long()]).cpu()
-        return int(res[0]), bool(res[1])
+        row = torch.clamp(plen.long() - 1 - start.long(), 0, cb - 1)
+        return _first_token(logits[0].index_select(0, row.reshape(1)))
 
     @torch.no_grad()
-    def _run_decode(self, rows: Sequence[Request], bb: int):
-        """One decode step for ``rows`` padded to bucket ``bb``.  Padded
-        rows read and write the trash block.  Returns host arrays
-        ``(tokens [bb], finite [bb])``."""
+    def _run_prefill_chunk(self, toks: Sequence[int], start: int, plen: int,
+                           blocks: Sequence[int], temp: float, topk: int,
+                           key: int) -> Tuple[int, bool]:
+        """One prefill chunk: ``toks`` (at most ``prefill_chunk`` tokens)
+        at absolute positions from ``start`` of a ``plen``-token prompt.
+        Every layer writes the chunk's K/V into the request's blocks
+        first, then attends causally over the whole cached prefix.  The
+        first token is sampled at position ``plen`` from the row of the
+        prompt's last token (read only after the final chunk).  Returns
+        ``(token, logits_finite)``."""
+        (last, res), _ = self._exec(
+            "prefill_chunk", self.prefill_chunk,
+            self._stage_prefill_chunk(toks, start, plen, blocks))
+        return _first_token_host(last, res, temp, topk, key, plen)
+
+    def _stage_decode(self, rows: Sequence[Request], bb: int):
+        """tokens | lengths | slots | offsets | active (each [bb]) |
+        tables [bb, max_blocks]; and the rows' sampling settings."""
         bsz = self.alloc.block_size
         mb = self.max_blocks
-        # one host buffer, one copy to the device:
-        # tokens | lengths | slots | offsets | active | tables
         buf = np.zeros((5 * bb + bb * mb,), np.int32)
         tables = buf[5 * bb:].reshape(bb, mb)
         temps, topks, keys, positions = [], [], [], []
@@ -651,7 +734,10 @@ class Engine:
             topks.append(req.top_k)
             keys.append(req.key)
             positions.append(req.cached + 1)
-        dev = torch.from_numpy(buf).to(self.device)
+        return buf, (temps, topks, keys, positions)
+
+    def _body_decode(self, dev: torch.Tensor, bb: int):
+        mb = self.max_blocks
         tokens, lengths, slots, offsets, active = (
             dev[j * bb:(j + 1) * bb] for j in range(5))
         active = active.bool()
@@ -668,25 +754,29 @@ class Engine:
 
         logits = transformer_lm_decode(self._step_params(), tokens,
                                        heads=self.heads, attend=attend)
-        toks = _sample_batch(logits, temps, topks, keys, positions)
-        oks = torch.isfinite(logits.float()).all(dim=-1)
-        res = torch.stack([toks, oks.long()]).cpu().numpy()
-        return res[0], res[1].astype(bool)
+        lf = logits.float()
+        return logits, torch.stack([lf.argmax(dim=-1),
+                                    torch.isfinite(lf).all(dim=-1).long()])
 
     @torch.no_grad()
-    def _run_verify(self, rows: Sequence[Request], bb: int, drafts):
-        """One speculative verify step for ``rows`` padded to bucket
-        ``bb``: ``drafts`` [len(rows), K] follow each row's last token.
-        Every layer writes the window's K/V (positions past a row's live
-        drafts, and padded rows, go to the trash block), then attends over
-        the paged cache; acceptance runs on the device, then the rejected
-        tail is zeroed in place.  Returns host arrays ``(out [bb, K+1],
-        n_emit [bb], finite [bb])``, one copy to the host."""
+    def _run_decode(self, rows: Sequence[Request], bb: int):
+        """One decode step for ``rows`` padded to bucket ``bb``.  Padded
+        rows read and write the trash block.  Returns host arrays
+        ``(tokens [bb], finite [bb])``."""
+        buf, (temps, topks, keys, positions) = self._stage_decode(rows, bb)
+        (logits, res), _ = self._exec("decode", bb, buf)
+        if any(t > 0 for t in temps):
+            res = torch.stack([_sample_batch(logits, temps, topks, keys,
+                                             positions), res[1]])
+        res = res.cpu().numpy()
+        return res[0], res[1].astype(bool)
+
+    def _stage_verify(self, rows: Sequence[Request], bb: int, drafts):
+        """tokens | slots | offsets | write mask (each [bb, C]) | lengths |
+        live | tables; and the rows' sampling settings."""
         c = self.spec_k + 1
         bsz = self.alloc.block_size
         mb = self.max_blocks
-        # one host buffer, one copy to the device: tokens | slots |
-        # offsets | write mask (each [bb, C]) | lengths | live | tables
         n = 4 * bb * c
         buf = np.zeros((n + 2 * bb + bb * mb,), np.int32)
         tokens, slots, offs, wmask = buf[:n].reshape(4, bb, c)
@@ -707,11 +797,19 @@ class Engine:
             temps.append(req.temperature)
             topks.append(req.top_k)
             keys.append(req.key)
-        dev = torch.from_numpy(buf).to(self.device)
+        return buf, (temps, topks, keys, lengths.copy())
+
+    def _verify_views(self, dev: torch.Tensor, bb: int):
+        c = self.spec_k + 1
+        n = 4 * bb * c
         tokens_t, slot_raw, offs_t, wmask_t = dev[:n].view(4, bb, c)
-        wmask_t = wmask_t.bool()
-        lengths_t, live_t = dev[n:n + bb], dev[n + bb:n + 2 * bb]
-        tables_t = dev[n + 2 * bb:].view(bb, mb)
+        return (tokens_t, slot_raw, offs_t, wmask_t.bool(), dev[n:n + bb],
+                dev[n + bb:n + 2 * bb],
+                dev[n + 2 * bb:].view(bb, self.max_blocks))
+
+    def _body_verify(self, dev: torch.Tensor, bb: int):
+        (tokens_t, slot_raw, offs_t, wmask_t, lengths_t, live_t,
+         tables_t) = self._verify_views(dev, bb)
         write_slots = torch.where(wmask_t, slot_raw, kvcache.TRASH_BLOCK)
         kpool, vpool = self.kpool, self.vpool
 
@@ -724,15 +822,39 @@ class Engine:
 
         logits = transformer_lm_verify(self._step_params(), tokens_t,
                                        heads=self.heads, attend=attend)
-        out, n_emit = _spec_accept(logits, tokens_t, live_t, keys, temps,
-                                   topks, lengths)
+        out, n_emit = _spec_accept_row_greedy(logits, tokens_t, live_t)
+        return logits, out, n_emit
+
+    @torch.no_grad()
+    def _run_verify(self, rows: Sequence[Request], bb: int, drafts):
+        """One speculative verify step for ``rows`` padded to bucket
+        ``bb``: ``drafts`` [len(rows), K] follow each row's last token.
+        Every layer writes the window's K/V (positions past a row's live
+        drafts, and padded rows, go to the trash block), then attends over
+        the paged cache; acceptance runs on the device (greedy for every
+        row, then the full rule for rows with a temperature), then the
+        rejected tail is zeroed in place.  Returns host arrays ``(out [bb,
+        K+1], n_emit [bb], finite [bb])``, one copy to the host."""
+        c = self.spec_k + 1
+        buf, (temps, topks, keys, lengths) = self._stage_verify(
+            rows, bb, drafts)
+        (logits, out, n_emit), dev = self._exec("verify", bb, buf)
+        (tokens_t, slot_raw, offs_t, wmask_t, _, live_t,
+         _) = self._verify_views(dev, bb)
+        if any(t > 0 for t in temps):
+            out, n_emit = out.clone(), n_emit.clone()
+            for i, temp in enumerate(temps):
+                if temp > 0:
+                    out[i], n_emit[i] = _spec_accept_row(
+                        logits[i], tokens_t[i], live_t[i], keys[i], temp,
+                        topks[i], lengths[i])
         # rollback: the cursor moves past the accepted drafts only, and
         # the rejected tail's K/V is zeroed (kept entries aim at trash)
         win_t = torch.arange(c, device=self.device)
         scrub = wmask_t & (win_t[None, :] > (n_emit - 1)[:, None])
         scrub_slots = torch.where(scrub, slot_raw, kvcache.TRASH_BLOCK)
-        kvcache.scrub_positions(kpool, scrub_slots, offs_t)
-        kvcache.scrub_positions(vpool, scrub_slots, offs_t)
+        kvcache.scrub_positions(self.kpool, scrub_slots, offs_t)
+        kvcache.scrub_positions(self.vpool, scrub_slots, offs_t)
         # the finite guard reads the window rows acceptance may read (dead
         # positions attend over unwritten entries by design)
         read = (win_t[None, :] <= live_t[:, None])[:, :, None]
@@ -740,6 +862,30 @@ class Engine:
         res = torch.cat([out, n_emit[:, None], oks[:, None].long()],
                         dim=1).cpu().numpy()
         return res[:, :c], res[:, c], res[:, c + 1].astype(bool)
+
+    def _stage_draft(self, win: np.ndarray, lens: np.ndarray,
+                     bb: int) -> np.ndarray:
+        """windows [bb, W] | valid lengths [bb] (at least 1)."""
+        n = win.shape[0]
+        w = self.spec.window
+        buf = np.ones((bb * (w + 1),), np.int32)
+        buf[:bb * w] = 0
+        buf[:n * w] = win.reshape(-1)
+        buf[bb * w:bb * w + n] = np.maximum(lens, 1)
+        return buf
+
+    def _body_draft(self, dev: torch.Tensor, bb: int):
+        w = self.spec.window
+        toks, ln = dev[:bb * w].view(bb, w), dev[bb * w:]
+        outs = []
+        for _ in range(self.spec_k):
+            logits = speculate_mod.draft_window_logits(
+                self.spec.params, toks, ln, heads=self.spec.heads)
+            nxt = logits.float().argmax(dim=-1).to(torch.int32)
+            outs.append(nxt)
+            toks = torch.cat([toks[:, 1:], nxt[:, None]], dim=1)
+            ln = torch.clamp_max(ln + 1, w)
+        return torch.stack(outs, dim=1)
 
     @torch.no_grad()
     def _run_draft(self, win: np.ndarray, lens: np.ndarray,
@@ -751,63 +897,105 @@ class Engine:
         Returns host drafts [n, K]."""
         n = win.shape[0]
         bb = cc.bucket_for(n, self.decode_buckets) if bb is None else bb
-        w = self.spec.window
-        buf = np.ones((bb * (w + 1),), np.int32)
-        buf[:bb * w] = 0
-        buf[:n * w] = win.reshape(-1)
-        buf[bb * w:bb * w + n] = np.maximum(lens, 1)
-        dev = torch.from_numpy(buf).to(self.device)
-        toks, ln = dev[:bb * w].view(bb, w), dev[bb * w:]
-        outs = []
-        for _ in range(self.spec_k):
-            logits = speculate_mod.draft_window_logits(
-                self.spec.params, toks, ln, heads=self.spec.heads)
-            nxt = logits.float().argmax(dim=-1).to(torch.int32)
-            outs.append(nxt)
-            toks = torch.cat([toks[:, 1:], nxt[:, None]], dim=1)
-            ln = torch.clamp_max(ln + 1, w)
-        return torch.stack(outs, dim=1).cpu().numpy()[:n]
+        out, _ = self._exec("draft", bb, self._stage_draft(win, lens, bb))
+        return out.cpu().numpy()[:n]
+
+    # -- programs -------------------------------------------------------------
+
+    def _blank(self, kind: str, bucket: int) -> np.ndarray:
+        """The host buffer of a step with no rows: every write lands in the
+        trash block (a program's warm-up and capture run on it)."""
+        if kind == "prefill":
+            return self._stage_prefill([], bucket, [])
+        if kind == "prefill_chunk":
+            return self._stage_prefill_chunk([], 0, 0, [])
+        if kind == "decode":
+            return self._stage_decode([], bucket)[0]
+        if kind == "verify":
+            return self._stage_verify(
+                [], bucket, np.zeros((0, self.spec_k), np.int32))[0]
+        return self._stage_draft(np.zeros((0, self.spec.window), np.int32),
+                                 np.zeros((0,), np.int32), bucket)
+
+    def _fingerprint(self) -> str:
+        """The served model's identity for program keys."""
+        spec = self.spec.signature() if self.spec is not None else None
+        return (f"transformer_lm:v{self.vocab}:l{self.num_layers}:"
+                f"d{self.d_model}:h{self.heads}:bs{self.alloc.block_size}:"
+                f"mb{self.max_blocks}:{self.attn_impl}:{self.kv_quant}:"
+                f"{self.config.dtype}:k{self.spec_k}:{spec}")
+
+    def _own_weights(self) -> None:
+        """Give the engine storage of its own for its weights (and a model
+        drafter's) before a capture: a hot swap then copies into the
+        captured storage instead of rebinding it, and never writes a
+        caller's arrays."""
+        if not self._weights_owned:
+            self._params = {k: v.clone() for k, v in self._params.items()}
+            self._weights_owned = True
+        if self.spec is not None and self.spec.kind == "model":
+            self.spec.own_params()
+
+    def _ensure_program(self, kind: str, bucket: int) -> Dict[str, Any]:
+        """Resolve the program of ``(kind, bucket)`` through the program
+        cache and install it; returns its info (``source``, ``seconds``,
+        ``digest``, ``kind``, ``bucket``)."""
+        pkey = (kind, bucket)
+        self._own_weights()
+        blank = self._blank(kind, bucket)
+        params = self.spec.params if kind == "draft" else self._params
+        avals = {"params": params,
+                 "pools": kvcache._leaves(self.kpool)
+                 + kvcache._leaves(self.vpool),
+                 "buf": torch.empty(blank.shape, dtype=torch.int32,
+                                    device="meta")}
+        ckey = cc.program_key(self._fingerprint(), avals, donate=(0, 1),
+                              backend=cc.backend_of(self.device),
+                              extra={"serve": kind, "bucket": bucket,
+                                     "owner": cc.owner_token(self)})
+
+        def build():
+            if pkey in self._programs:
+                return self._programs[pkey]
+            static = torch.from_numpy(blank).to(self.device)
+            if self._graph_pool is None and self.device.type == "cuda":
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            body = self._bodies[kind]
+
+            def run():
+                with torch.no_grad():
+                    return body(static, bucket)
+            return cc.CapturedProgram(
+                f"serve.{kind}.{bucket}", run, self.device,
+                pool=self._graph_pool, inputs={"buf": static}).build()
+
+        prog, info = cc.get_cache().get_or_compile(
+            ckey, build, label=f"serve.{kind}.{bucket}")
+        self.aot_stats[info["source"]] += 1
+        self._programs[pkey] = prog
+        return dict(info, kind=kind, bucket=bucket)
 
     def warmup(self) -> List[Dict[str, Any]]:
-        """Build the kernel library (flash decode on CUDA, when decode
-        steps run), then run every prompt bucket (the chunk, with chunked
-        prefill) and every decode bucket (the verify step, with
-        speculation; and a model drafter's unroll) once against the trash
-        block, so first-use costs stay out of timed serving.  Counters are
-        not touched.  Returns ``[{"kind", "bucket", "ms"}, ...]``."""
-        if (self.spec is None and self.attn_impl == "flash"
-                and self.device.type == "cuda"):
-            from .flash_decode import _lib
-            _lib()
-        infos = []
-
-        def timed(kind, bucket, run):
-            t0 = time.perf_counter()
-            run()
-            infos.append({"kind": kind, "bucket": bucket,
-                          "ms": (time.perf_counter() - t0) * 1e3})
-
+        """Resolve every program the engine serves with through the
+        program cache: each prompt bucket (the chunk, with chunked
+        prefill) and each decode bucket (the verify step, with
+        speculation; and a model drafter's unroll).  On the card each is
+        a captured graph (``"capture"``; a second ``warmup`` is all
+        ``"memory"`` hits), built over the trash block, so live blocks
+        stay untouched; afterwards every step of those kinds replays its
+        bucket's program, and steady-state serving captures nothing.  On
+        the CPU the programs run eagerly (``"eager"``).  Counters are not
+        touched.  Returns the JAX engine's infos."""
         with telemetry.span("serve.warmup"):
-            for lb in self.prompt_buckets:
-                if self.prefill_chunk:
-                    timed("prefill_chunk", lb,
-                          lambda: self._run_prefill_chunk(
-                              [0], 0, 1, [], 0.0, 0, 0))
-                else:
-                    timed("prefill", lb, lambda: self._run_prefill(
-                        [0], lb, [], 0.0, 0, 0))
-            for bb in self.decode_buckets:
-                if self.spec is None:
-                    timed("decode", bb, lambda: self._run_decode([], bb))
-                else:
-                    timed("verify", bb, lambda: self._run_verify(
-                        [], bb, np.zeros((0, self.spec_k), np.int32)))
+            pkind = "prefill_chunk" if self.prefill_chunk else "prefill"
+            infos = [self._ensure_program(pkind, lb)
+                     for lb in self.prompt_buckets]
+            dkind = "verify" if self.spec is not None else "decode"
+            infos += [self._ensure_program(dkind, bb)
+                      for bb in self.decode_buckets]
             if self.spec is not None and self.spec.kind == "model":
-                w = self.spec.window
-                for bb in self.decode_buckets:
-                    timed("draft", bb, lambda: self._run_draft(
-                        np.zeros((0, w), np.int32),
-                        np.zeros((0,), np.int32), bb))
+                infos += [self._ensure_program("draft", bb)
+                          for bb in self.decode_buckets]
         return infos
 
     # -- submit / stream / cancel -------------------------------------------

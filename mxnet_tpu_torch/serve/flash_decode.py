@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -203,8 +203,10 @@ def _scratch(b: int, nparts: int, h: int, hd: int, device):
 
 
 # the hopper form's tickets: int32 zeros per (device, stream), grown on
-# demand; each launch leaves them zero again
+# demand; each launch leaves them zero again.  A buffer outgrown is kept,
+# never freed: a captured graph may hold its address
 _tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+_retired_tickets: List[torch.Tensor] = []
 _num_sms: Dict[int, int] = {}
 
 
@@ -212,6 +214,8 @@ def _ticket_buffer(device, stream: int, n: int) -> torch.Tensor:
     key = (device.index, stream)
     t = _tickets.get(key)
     if t is None or t.numel() < n:
+        if t is not None:
+            _retired_tickets.append(t)
         t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                         device=device)
     return t

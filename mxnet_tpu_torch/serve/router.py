@@ -238,8 +238,12 @@ class Router:
     # -- warmup ------------------------------------------------------------
 
     def warmup(self) -> List[List[Dict[str, Any]]]:
-        """Warm every replica's buckets (the kernel library is built once,
-        by the first replica)."""
+        """Resolve every replica's programs (:meth:`Engine.warmup`: one
+        captured graph per bucket on the card; the kernel library is built
+        once, by the first replica).  Returns each replica's infos, with
+        their ``source``.  A hot swap copies weights into the captured
+        storage, and failover or drain moves requests between engines
+        that already hold their programs: none of them captures again."""
         return [rep.engine.warmup() for rep in self.replicas]
 
     # -- front door --------------------------------------------------------

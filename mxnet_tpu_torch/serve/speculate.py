@@ -171,6 +171,7 @@ class ModelDrafter(Drafter):
             raise MXNetError(f"draft d_model {self.d_model} not divisible "
                              f"by heads {self.heads}")
         self._runner = None     # engine-bound: (window, ctx_len) -> [N, k]
+        self._owned = False     # params in storage of its own
 
     def signature(self) -> str:
         return (f"model:{self.vocab}:{self.num_layers}:{self.d_model}:"
@@ -209,8 +210,22 @@ class ModelDrafter(Drafter):
             raise MXNetError(
                 "swap (draft): incompatible draft weights — "
                 f"{report.summary()}; rebuild the replica instead")
-        self.params = params_from_numpy(params, self.device)
+        new = params_from_numpy(params, self.device)
+        if self._owned:
+            # into the storage a captured draft program reads
+            with torch.no_grad():
+                for k, v in new.items():
+                    self.params[k].copy_(v)
+        else:
+            self.params = new
         return report.to_dict()
+
+    def own_params(self) -> None:
+        """Copy the weights into storage of the drafter's own (before its
+        program is captured); later swaps copy into it."""
+        if not self._owned:
+            self.params = {k: v.clone() for k, v in self.params.items()}
+            self._owned = True
 
 
 def make_drafter(kind: str, *, draft_params: Optional[Dict[str, Any]] = None,

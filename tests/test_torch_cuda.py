@@ -1217,3 +1217,166 @@ def test_matmul_precision_scope_on_card(cuda):
     finally:
         torch.set_float32_matmul_precision(prev[0])
         torch.backends.cudnn.allow_tf32 = prev[1]
+
+
+# ---------------------------------------------------------------------------
+# Programs: steps captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _graph_trainer(cuda, **kw):
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    net = S.FullyConnected(data=S.Variable("data"), num_hidden=256,
+                           name="fc1")
+    net = S.Activation(data=net, act_type="relu")
+    net = S.FullyConnected(data=net, num_hidden=10, name="fc2")
+    sym = S.SoftmaxOutput(data=net, name="softmax")
+    tr = ShardedTrainer(sym, "sgd", {"learning_rate": 0.1, "momentum": 0.9},
+                        guard=True, clip_global_norm=1.0, device=cuda, **kw)
+    return tr.bind({"data": (64, 128)}, {"softmax_label": (64,)})
+
+
+def _graph_batches(n):
+    rng = np.random.RandomState(0)
+    return [{"data": rng.rand(64, 128).astype(np.float32),
+             "softmax_label": rng.randint(0, 10, 64).astype(np.float32)}
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_captured_trainer_steps_bitwise_eager(cuda):
+    """A captured step (K1, K2 inside the graph) equals the eager step
+    bit for bit, its launches are counted on every replay, and compile()
+    leaves the state as it found it."""
+    eager, comp = _graph_trainer(cuda), _graph_trainer(cuda)
+    before = [t.clone() for t in comp._state_tensors()]
+    info = comp.compile(programs=("train",))[0]
+    assert info["source"] == "capture"
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, comp._state_tensors()))
+    counts = []
+    for tr in (eager, comp):
+        chip_smoke.reset_train_counts(tnn.softmax_rows, tfu.fused_update)
+        heads = [tr.step(b)[0] for b in _graph_batches(3)]
+        torch.cuda.synchronize()
+        counts.append((tnn.softmax_rows.launches,
+                       tfu.fused_update.launches))
+    assert counts[0] == counts[1] == (3, 3)
+    assert comp.aot_stats == {"hits": 3, "fallbacks": 0}
+    for a, b in zip(eager._state_tensors(), comp._state_tensors()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises_naming_the_program(cuda):
+    from mxnet_tpu_torch import compile_cache as cc
+    x = torch.ones(4, device=cuda)
+
+    def syncing():
+        return x * float(x.sum().item())   # a device-to-host read
+    with pytest.raises(MXNetError, match="capture of program 'syncs'"):
+        cc.CapturedProgram("syncs", syncing, cuda).build()
+
+
+@pytest.mark.cuda
+def test_engine_replays_and_trace_lists_the_decode_kernel(cuda, tmp_path):
+    """After warmup every decode step replays its graph: K5's launches
+    are ``num_layers`` a step, and a profiler trace of the replays lists
+    the hand-written kernel itself."""
+    import glob
+    import json
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.models.transformer import init_params
+    from mxnet_tpu_torch.serve import Engine, EngineConfig
+    cfg = EngineConfig(heads=4, block_size=16, num_blocks=64, max_batch=4,
+                       max_seq_len=128, max_prompt_len=64)
+    params = init_params(97, 2, 128, seed=0)
+    eager, eng = (Engine(params, cfg, device=cuda) for _ in range(2))
+    assert {i["source"] for i in eng.warmup()} == {"capture"}
+    prompts = [[(5 * i + j) % 96 + 1 for j in range(9 + 7 * i)]
+               for i in range(4)]
+    streams = []
+    for e in (eager, eng):
+        ids = [e.submit(p, max_new_tokens=12) for p in prompts]
+        streams.append([e.result(i) for i in ids])
+    assert streams[0] == streams[1]
+    assert eng.aot_stats["eager_steps"] == 0
+    ids = [eng.submit(p, max_new_tokens=12) for p in prompts]
+    while any(r.prefilled < r.prefill_target or not r.tokens
+              for r in eng.sched.running) or eng.sched.queue:
+        eng.step()
+    fd = tfd.flash_decode_attention
+    before, steps = fd.launches, eng.counters["decode_steps"]
+    with profiler.trace(str(tmp_path)):
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+    steps = eng.counters["decode_steps"] - steps
+    assert steps == 2 and fd.launches - before == 2 * steps
+    (path,) = glob.glob(str(tmp_path / "trace.*.json"))
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    assert sum("decode_hopper_kernel" in n for n in names) == 2 * steps
+    for i in ids:
+        eng.cancel(i)
+
+
+@pytest.mark.cuda
+def test_background_capture_equals_foreground(cuda):
+    """``compile(background=True)`` captures on a daemon thread the
+    program a foreground compile captures: the same steps, bit for
+    bit."""
+    fg, bg = _graph_trainer(cuda), _graph_trainer(cuda)
+    assert fg.compile()[0]["source"] == "capture"
+    th = bg.compile(background=True)
+    th.join(timeout=300)
+    assert not th.is_alive() and bg.compile_info[0]["source"] == "capture"
+    for b in _graph_batches(2):
+        assert torch.equal(fg.step(b)[0], bg.step(b)[0])
+    for a, b in zip(fg._state_tensors(), bg._state_tensors()):
+        assert torch.equal(a, b)
+    assert bg.aot_stats["hits"] == 2
+
+
+@pytest.mark.cuda
+def test_executor_programs_on_card_equal_eager(cuda):
+    """``Executor.warmup`` captures fwd_False, fwd_True and fb; a
+    training forward and backward replayed equal the eager executor's
+    outputs, gradients and moving statistics bit for bit."""
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.context import gpu
+    net = S.FullyConnected(data=S.Variable("data"), num_hidden=64,
+                           name="fc1")
+    net = S.BatchNorm(data=net, name="bn1")
+    net = S.FullyConnected(data=S.Activation(data=net, act_type="relu"),
+                           num_hidden=10, name="fc2")
+    sym = S.SoftmaxOutput(data=net, name="softmax")
+    rng = np.random.RandomState(0)
+    init = {n: (0.1 * rng.randn(*s)).astype(np.float32)
+            for n, s in zip(sym.list_arguments(),
+                            sym.infer_shape(data=(32, 16))[0])}
+    exes = []
+    for warm in (False, True):
+        ex = sym.simple_bind(gpu(0), data=(32, 16))
+        for n, v in init.items():
+            ex.arg_dict[n][:] = v
+        if warm:
+            assert {i["source"] for i in ex.warmup()} == {"capture"}
+            assert ex.program_cache_size() == 3
+        exes.append(ex)
+    for step in range(2):
+        x = rng.rand(32, 16).astype(np.float32)
+        y = rng.randint(0, 10, 32).astype(np.float32)
+        outs = []
+        for ex in exes:
+            o = ex.forward(is_train=True, data=x, softmax_label=y)[0]
+            ex.backward()
+            outs.append(o.data.clone())
+        assert torch.equal(outs[0], outs[1])
+        for n in exes[0].grad_dict:
+            assert torch.equal(exes[0].grad_dict[n].data,
+                               exes[1].grad_dict[n].data), n
+        for n in exes[0].aux_dict:
+            assert torch.equal(exes[0].aux_dict[n].data,
+                               exes[1].aux_dict[n].data), n

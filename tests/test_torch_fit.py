@@ -174,6 +174,10 @@ def _assert_params_match(jt, tt):
 def test_fit_matches_jax(net, fused):
     jt, tt = _pair(net, fused)
     assert tt._fused == fused
+    # fit's accuracy step as a program in both packages: every batch is a
+    # program hit (aot_hits), and the state stays the JAX trainer's
+    for t in (jt, tt):
+        t.compile(programs=("train_acc",))
     jtrain, ttrain = _iters(net)
     jeval, teval = _iters(net, seed=2, n=N_EVAL)
     jl, tl = _fit_both(jt, tt, jtrain, ttrain, jeval, teval, num_epoch=2,
@@ -192,6 +196,9 @@ def test_fit_matches_jax(net, fused):
         for k in ("step", "epoch", "nbatch", "lr_scale", "rollbacks",
                   "aot_hits", "skipped_steps", "loss_scale"):
             assert a[k] == b[k], k
+    # one replayed program a batch: 2 epochs of 4 batches
+    assert [r["aot_hits"] for r in trec] == list(range(1, 9))
+    assert tt.aot_stats == {"hits": 8, "fallbacks": 0}
     # the schedule: FactorScheduler(3, 0.5) at update 8 has halved twice
     assert tt.optimizer.lr_scheduler.base_lr == 0.1 * 0.25
     assert float(tt._lr_dev) == np.float32(0.025)

@@ -71,6 +71,9 @@ import mxnet_tpu_torch.predictor
 import mxnet_tpu_torch.online.loop
 from mxnet_tpu_torch.online import OnlineLoop, compat_stamp
 from mxnet_tpu_torch.quant import block_dot, fp8_linear
+from mxnet_tpu_torch import compile_cache, profiler
+from mxnet_tpu_torch.compile_cache import CapturedProgram, ProgramCache
+assert mxnet_tpu_torch.profiler is profiler
 assert mxnet_tpu_torch.io is io and mxnet_tpu_torch.metric is metric
 assert mxnet_tpu_torch.lr_scheduler is lr_scheduler
 assert mxnet_tpu_torch.callback is callback

@@ -280,6 +280,30 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     over phase 14's LSTM, bitwise their eager twins; (a)-(c) build no
     kernel; (d) two processes with one fresh ``MXNET_TPU_CACHE_DIR``:
     the second builds no kernel and lists the first one's program key;
+18. runs data parallelism in one process (after phase 17, before 15),
+    under deterministic cuDNN: (a) phase 7's ResNet-50 (batch 64,
+    224x224, f32, SGD momentum 0.9, wd 1e-4, the guard, clip 5.0)
+    through ``ShardedTrainer(mesh=data_parallel_mesh())`` for 4 steps,
+    bitwise phase 7's plain trainer over the same batches (weights,
+    momentum, moving statistics, guard state), K2 once a step in the
+    hopper form; (b) the same net with ``grad_compression="int8"``
+    (error feedback on by default): the fused update runs K2's bucket
+    form over the reduced buckets (one launch a bucket a step) and the
+    state (residuals included) is bitwise the same run's unfused; (c)
+    ``shard_optimizer=True`` (ZeRO), bitwise (a); steps 2-4 of (a)-(c)
+    make no synchronizing call; prints each run's ms a step (CUDA
+    events); (d) phase 14's CIFAR net through ``FeedForward`` and
+    ``Module`` over ``[gpu(0), gpu(0)]`` with the ``device`` kvstore,
+    each bitwise a bare loop of two executors whose gradients are summed
+    by hand and stepped by the same updater (each executor keeps its own
+    BatchNorm statistics; fit averages them at the epoch's end); (e)
+    ResNet-50's 161 gradients pushed and pulled over two members on the
+    card with each compression (161 co-resident reductions a flush,
+    exact) and ``psum_compressed`` over the two: exact on integer-valued
+    data for None and bf16, within the analytic bound for int8 and fp8;
+    (f) where two cards exist, (a) and (b) over ``data_parallel_mesh(2)``
+    (NCCL between the cards) against the one-card run; with one card it
+    prints that (f) did not run and why; no kernel is built;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -2289,7 +2313,7 @@ def phase_train(torch, np, nn_ops, fu):
         for n, st in tr.opt_state_by_param().items():
             ref._opt_state[n].copy_(st[0])
     ref._num_update = tr._num_update
-    _, grads, auxu = tr._forward_backward(batch)
+    _, grads, auxu, _, _ = tr._forward_backward(batch)
     # the step's rate and count into their 0-d tensors, as a step fills
     # them before its device work
     tr._num_update += 1
@@ -3116,7 +3140,7 @@ def phase_train_lm(torch, np, fa, fu):
             for dst, src in zip(ref._opt_state[n], st):
                 dst.copy_(src)
     ref._num_update = tr._num_update
-    _, grads, auxu = tr._forward_backward(batch)
+    _, grads, auxu, _, _ = tr._forward_backward(batch)
     # the step's rate and count into their 0-d tensors, as a step fills
     # them before its device work
     tr._num_update += 1
@@ -6332,6 +6356,593 @@ def phase_programs(torch, np, nn_ops, fu, fa, fd, _build):
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: data parallelism in one process
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 4
+DP_LEGACY_BATCHES = 4
+
+
+def dp_mesh(torch):
+    """The data mesh over every local device of the platform: one member
+    on a one-card machine.  With more cards (a)-(c) keep to the first
+    (their checks are bitwise against one card); (f) spans two."""
+    from mxnet_tpu_torch.parallel import data_parallel_mesh
+    several = DEVICE == "cuda" and torch.cuda.device_count() > 1
+    return data_parallel_mesh(1 if several else None,
+                              device_type="gpu" if DEVICE == "cuda"
+                              else "cpu")
+
+
+def dp_state(torch, tr):
+    """A trainer's whole state as {name: int32 bits}: weights, optimizer
+    state by parameter, aux states, guard state, residuals."""
+    out = {f"param:{n}": bits(torch, p) for n, p in tr._params.items()}
+    for n, st in tr.opt_state_by_param().items():
+        out.update({f"opt:{n}:{i}": bits(torch, t) for i, t in
+                    enumerate(st)})
+    out.update({f"aux:{n}": bits(torch, v) for n, v in tr._aux.items()})
+    out.update({f"guard:{n}": v.detach().reshape(-1).view(torch.uint8)
+                for n, v in (tr._guard_state or {}).items()})
+    for i, res in enumerate(tr._ef_res):
+        out.update({f"efres:{i}:{b}": bits(torch, r)
+                    for b, r in enumerate(res)})
+    return out
+
+
+def dp_same(torch, a, b, what, keys=None):
+    keys = sorted(a) if keys is None else keys
+    for k in keys:
+        check(torch.equal(a[k], b[k].to(a[k].device)),
+              f"{what}: {k} differs")
+
+
+def dp_params(torch, tr):
+    """A copy of a trainer's parameters, float32 on the host."""
+    return {n: p.detach().to("cpu", torch.float32, copy=True)
+            for n, p in tr._params.items()}
+
+
+def dp_max_diff(a, b):
+    """The largest elementwise distance between two parameter sets."""
+    return max(float((a[n] - b[n]).abs().max()) for n in a)
+
+
+def dp_run(torch, tr, batches, label, counts, no_sync=True):
+    """``DP_STEPS`` steps over pre-placed batches; steps 2.. are counted
+    for synchronizing calls (none allowed with ``no_sync``) and timed by
+    CUDA events.  Returns the ms a step, the launches of K1/K2 (by form)
+    in the run, the first step's heads and the parameters after it."""
+    from mxnet_tpu_torch.ops import fused_update as fu
+    from mxnet_tpu_torch.ops import nn_ops
+    placed = [tr.place_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    reset_train_counts(nn_ops.softmax_rows, fu.fused_update)
+    first = tr.step(placed[0])[0]
+    # read before the counted steps (a copy to the host waits)
+    state1 = dp_params(torch, tr)
+    counter = SyncCounter(torch)
+    events = [record_event(torch)]
+    counter.start()
+    try:
+        for b in placed[1:]:
+            tr.step(b)
+            events.append(record_event(torch))
+    finally:
+        syncs = counter.stop()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    check(syncs["outside"] == 0 and syncs["other threads"] == 0
+          or DEVICE != "cuda" or not no_sync,
+          f"{label}: synchronizing calls in steps 2-{DP_STEPS}: {syncs} "
+          f"{counter.sites}")
+    run = {"k1": nn_ops.softmax_rows.launches,
+           "k2": fu.fused_update.launches,
+           "k2_forms": dict(fu.fused_update.launches_by_form),
+           "median_step_ms": float(sorted(ms)[len(ms) // 2]) if ms
+           else None,
+           "syncs": syncs, "first_heads": first, "state1": state1}
+    counts["softmax_rows"] += run["k1"]
+    counts["fused_update"] += run["k2"]
+    # one forward a member a step
+    check(run["k1"] == DP_STEPS * tr.mesh.size,
+          f"{label}: K1 launched {run['k1']} times in {DP_STEPS} steps over "
+          f"{tr.mesh.size} member(s)")
+    return run
+
+
+def dp_trainers(torch, np, counts):
+    """(a) the default data mesh against the trainer placed by ``device``,
+    with the summation-order witness; (b) int8 with error feedback fused
+    against unfused, and captured as a CUDA graph; (c) ZeRO against (a),
+    and captured: ResNet-50 at phase 7's width, ``DP_STEPS`` steps each on
+    the same batches, bitwise."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    sym = models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH)
+    shapes = dict(data=(BATCH,) + IMAGE, softmax_label=(BATCH,))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    rng = np.random.RandomState(18)
+    batches = [{"data": rng.rand(*shapes["data"]).astype(np.float32),
+                "softmax_label": rng.randint(0, CLASSES, BATCH)
+                .astype(np.float32)} for _ in range(DP_STEPS)]
+    mesh = dp_mesh(torch)
+
+    def trainer(**kw):
+        tr = ShardedTrainer(sym, optimizer="sgd",
+                            optimizer_params=dict(TRAIN_OPT), guard=True,
+                            clip_global_norm=CLIP, **kw)
+        return tr.bind({"data": shapes["data"]},
+                       {"softmax_label": shapes["softmax_label"]},
+                       arg_params=args, aux_params=aux)
+
+    res = {"members": [str(m) for m in mesh.members]}
+    states1 = {}
+
+    def run(tr, label, data=batches):
+        out = dp_run(torch, tr, data, label, counts)
+        heads = out.pop("first_heads")
+        states1[label] = out.pop("state1")
+        return out, heads
+
+    def captured(label, want, **kw):
+        """The trainer of ``kw`` with its step captured as a CUDA graph
+        (one member: the one step path, whatever the mode), its replays
+        bitwise the eager run's state ``want``."""
+        tr = trainer(mesh=mesh, **kw)
+        info = tr.compile(programs=("train",))[0]
+        check(info["source"] == ("capture" if DEVICE == "cuda" else "eager"),
+              f"{label}: the step was not captured: {info}")
+        out, _ = run(tr, label)
+        dp_same(torch, dp_state(torch, tr), want, f"{label} against eager")
+        check(tr.aot_stats["hits"] == DP_STEPS,
+              f"{label}: {tr.aot_stats} replays")
+        return out
+
+    check(mesh.size == 1, f"(a)-(c)'s mesh has {mesh.size} members")
+    # (a) the trainer placed by device (phase 7's; "cuda" alone would be
+    # a mesh over every card of a machine with several) and the default
+    # data mesh: one member, both through the one step path
+    plain = trainer(device=("cuda:0" if DEVICE == "cuda" else DEVICE))
+    res["plain"], heads_a = run(plain, "(a) plain")
+    want = dp_state(torch, plain)
+    want_params = dp_params(torch, plain)
+    del plain
+    tr = trainer(mesh=mesh)
+    check(tr._fused and tr._fused_route == "hopper" or DEVICE != "cuda",
+          "(a): the mesh trainer did not take K2's hopper form")
+    res["implicit"], _ = run(tr, "(a) mesh")
+    a_state = dp_state(torch, tr)
+    dp_same(torch, a_state, want, "(a) the default mesh against device=")
+    check(res["implicit"]["k2_forms"]["hopper"] == DP_STEPS,
+          f"(a): K2 launches {res['implicit']['k2_forms']}")
+    del tr
+    # the witness of float32 summation order: each batch with its two
+    # halves swapped (the same function of the rows, summed in another
+    # order, as two cards sum it)
+    half = BATCH // 2
+    swapped = [{k: np.concatenate([v[half:], v[:half]]) for k, v in b.items()}
+               for b in batches]
+    tr = trainer(mesh=mesh)
+    res["swapped"], heads_s = run(tr, "(a) halves swapped", swapped)
+    heads_s = torch.cat([heads_s[half:], heads_s[:half]])
+    res["order_witness"] = {
+        "first_heads_max_diff": float((heads_s - heads_a).abs().max()),
+        "step1_max_param_diff": dp_max_diff(states1["(a) halves swapped"],
+                                            states1["(a) plain"]),
+        "max_param_diff": dp_max_diff(dp_params(torch, tr), want_params)}
+    check(all(np.isfinite(v) for v in res["order_witness"].values()),
+          f"(a): the witness is not finite: {res['order_witness']}")
+    del tr
+    log(f"  (a) the default mesh {res['members']}: bitwise the trainer "
+        f"placed by device= after {DP_STEPS} steps (one member: both take "
+        f"the one step path); {res['implicit']['median_step_ms']:.3f} ms a "
+        f"step against {res['plain']['median_step_ms']:.3f}; the batch's "
+        "halves swapped (summation order only): "
+        + json.dumps(res["order_witness"]))
+    # (b) int8 with error feedback: the fused update (K2's bucket form
+    # over the reduced buckets) against the unfused one
+    tr = trainer(mesh=mesh, grad_compression="int8")
+    check(tr.error_feedback and tr._fused,
+          "(b): error feedback or the fused update is off")
+    n_buckets = len(tr._fused_plan.buckets)
+    res["int8_fused"], _ = run(tr, "(b) int8 fused")
+    check(res["int8_fused"]["k2_forms"] == {"hopper": 0,
+                                            "bucket": DP_STEPS * n_buckets},
+          f"(b): K2 launches {res['int8_fused']['k2_forms']}, expected "
+          f"{n_buckets} bucket-form launches a step")
+    fused_state = dp_state(torch, tr)
+    check(any(bool(r.any()) for r in tr._ef_res[0]),
+          "(b): the error-feedback residuals stayed zero")
+    del tr
+    tr = trainer(mesh=mesh, grad_compression="int8", fused_update=False)
+    res["int8_unfused"], _ = run(tr, "(b) int8 unfused")
+    dp_same(torch, fused_state, dp_state(torch, tr),
+            "(b) int8 fused against unfused")
+    del tr
+    res["int8_captured"] = captured("(b) int8 captured", fused_state,
+                                    grad_compression="int8")
+    log(f"  (b) int8 + error feedback: fused bitwise unfused, and captured "
+        f"bitwise eager; K2 {res['int8_fused']['k2']} bucket-form launches "
+        f"({n_buckets} a step); {res['int8_fused']['median_step_ms']:.3f} "
+        f"ms a step fused, {res['int8_unfused']['median_step_ms']:.3f} "
+        f"unfused, {res['int8_captured']['median_step_ms']:.3f} captured, "
+        f"against (a)'s {res['implicit']['median_step_ms']:.3f}")
+    # (c) ZeRO against (a)
+    tr = trainer(mesh=mesh, shard_optimizer=True)
+    check(not tr._fused, "(c): ZeRO took the fused update")
+    res["zero"], _ = run(tr, "(c) ZeRO")
+    dp_same(torch, dp_state(torch, tr), a_state, "(c) ZeRO against (a)")
+    del tr
+    res["zero_captured"] = captured("(c) ZeRO captured", a_state,
+                                    shard_optimizer=True)
+    log(f"  (c) ZeRO: bitwise (a), and captured bitwise (a); "
+        f"{res['zero']['median_step_ms']:.3f} ms a step, "
+        f"{res['zero_captured']['median_step_ms']:.3f} captured")
+    return res
+
+
+def dp_legacy(torch, np, counts):
+    """(d) phase 14's CIFAR net through FeedForward and Module over
+    ``[gpu(0), gpu(0)]`` with the ``device`` kvstore (the update on the
+    kvstore), each bitwise a bare loop of two executors whose gradients
+    are summed by hand and stepped by the same updater."""
+    from mxnet_tpu_torch import initializer, io, model, models, ndarray
+    from mxnet_tpu_torch import module as mod_api
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.context import cpu, gpu
+    from mxnet_tpu_torch.ops import nn_ops
+    sym = models.get_symbol("inception-bn-28-small")
+    n = DP_LEGACY_BATCHES * CIFAR_BATCH
+    x, y = synthetic_cifar(np, n, seed=18)
+    half = CIFAR_BATCH // 2
+    inputs = {"data": (CIFAR_BATCH,) + CIFAR_IMAGE,
+              "softmax_label": (CIFAR_BATCH,)}
+    arg_shapes, _, aux_shapes = sym.infer_shape(**inputs)
+    names = [a for a in sym.list_arguments() if a not in inputs]
+    gen = torch.Generator().manual_seed(0)
+    with cpu():
+        args0, aux0 = {}, {}
+        for a, shape in zip(sym.list_arguments(), arg_shapes):
+            if a in names:
+                args0[a] = ndarray.zeros(shape)
+                initializer.Xavier()(a, args0[a], generator=gen)
+        for a, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+            aux0[a] = ndarray.zeros(shape)
+            initializer.Xavier()(a, aux0[a])
+    dev = gpu(0) if DEVICE == "cuda" else cpu()
+    ctxs = [dev, dev]
+    opt_kw = dict(CIFAR_OPT)
+    reset_train_counts(nn_ops.softmax_rows)
+    ff = model.FeedForward(sym, ctx=ctxs, num_epoch=1, optimizer="sgd",
+                           initializer=initializer.Xavier(),
+                           arg_params=args0, aux_params=aux0, **opt_kw)
+    ff.fit(X=io.NDArrayIter(x, y, batch_size=CIFAR_BATCH), kvstore="device")
+    m = mod_api.Module(sym, context=ctxs)
+    m.fit(io.NDArrayIter(x, y, batch_size=CIFAR_BATCH), num_epoch=1,
+          optimizer="sgd", optimizer_params=opt_kw, kvstore="device",
+          arg_params=args0, aux_params=aux0)
+    check(m._update_on_kvstore and m._kvstore.type == "device",
+          "(d): Module did not update on the device kvstore")
+    legacy_k1 = nn_ops.softmax_rows.launches
+    # the bare loop: two executors, gradients summed by hand, the
+    # updater FeedForward's kvstore runs, keyed by parameter index
+    execs = []
+    for _ in ctxs:
+        ex = sym.simple_bind(dev, grad_req={a: "write" for a in names},
+                             data=(half,) + CIFAR_IMAGE,
+                             softmax_label=(half,))
+        ex.copy_params_from(args0, aux0)
+        execs.append(ex)
+    opt = optimizer.create("sgd", rescale_grad=1.0 / CIFAR_BATCH, sym=sym,
+                           param_idx2name=dict(enumerate(names)), **opt_kw)
+    updater = optimizer.get_updater(opt)
+    with dev:
+        store = {k: ndarray.array(args0[a].asnumpy())
+                 for k, a in enumerate(names)}
+    for i in range(DP_LEGACY_BATCHES):
+        for j, ex in enumerate(execs):
+            sl = slice(i * CIFAR_BATCH + j * half,
+                       i * CIFAR_BATCH + (j + 1) * half)
+            ex.forward(is_train=True, data=x[sl], softmax_label=y[sl])
+            ex.backward()
+        for k, a in enumerate(names):
+            g = (execs[0].grad_dict[a].data
+                 + execs[1].grad_dict[a].data)
+            updater(k, ndarray.NDArray(g, ctx=dev), store[k])
+            for ex in execs:
+                ex.arg_dict[a][:] = store[k]
+    bare_k1 = nn_ops.softmax_rows.launches - legacy_k1
+    bare = {a: execs[0].arg_dict[a] for a in names}
+    with dev:
+        bare_aux = {a: ndarray.NDArray((execs[0].aux_dict[a].data
+                                        + execs[1].aux_dict[a].data) / 2,
+                                       ctx=dev)
+                    for a in execs[0].aux_dict}
+    legacy_bitwise(torch, ff.arg_params, bare, "(d) FeedForward against "
+                   "the two-executor bare loop")
+    legacy_bitwise(torch, ff.aux_params, bare_aux, "(d) FeedForward "
+                   "against the bare loop (aux, the mean of the two)")
+    m_arg, m_aux = m.get_params()
+    legacy_bitwise(torch, m_arg, bare, "(d) Module against the bare loop")
+    legacy_bitwise(torch, m_aux, bare_aux, "(d) Module against the bare "
+                   "loop (aux)")
+    # the executors kept their own statistics (fit averages them at the
+    # epoch's end, as MXNet does), and the trained copies match the mean
+    check(any(not execs[0].aux_dict[a].data.equal(execs[1].aux_dict[a].data)
+              for a in execs[0].aux_dict),
+          "(d): the two executors' BatchNorm statistics are the same")
+    forwards = 2 * DP_LEGACY_BATCHES
+    check(legacy_k1 == 2 * forwards and bare_k1 == forwards,
+          f"(d): K1 launched {legacy_k1} + {bare_k1} times")
+    counts["softmax_rows"] += legacy_k1 + bare_k1
+    log(f"  (d) FeedForward and Module over [{dev}, {dev}] with the device "
+        "kvstore: bitwise a bare loop of two executors (gradients summed "
+        "by hand, the same updater); each executor keeps its own "
+        f"BatchNorm statistics; K1 {legacy_k1} + {bare_k1}")
+    return {"k1": legacy_k1 + bare_k1}
+
+
+def dp_kvstore(torch, np, ctxs=(0, 0)):
+    """(e) ResNet-50's 161 gradients pushed and pulled over two members
+    with each compression, and ``psum_compressed`` over the two: exact on
+    integer-valued data (None, bf16), within the analytic bound (int8:
+    n * absmax / 127 / 2; fp8: n * absmax * 2^-4).  Two members on one
+    card (``ctxs`` (0, 0)) reduce by the co-resident tree sum, one
+    reduction a gradient; on two cards ((0, 1), (f)) by buckets through
+    NCCL, compressed."""
+    from mxnet_tpu_torch import kvstore, models, ndarray
+    from mxnet_tpu_torch.context import cpu, gpu
+    from mxnet_tpu_torch.parallel.collectives import (count_collectives,
+                                                      psum_compressed)
+    sym = models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH)
+    shapes, _, _ = sym.infer_shape(data=(BATCH,) + IMAGE,
+                                   softmax_label=(BATCH,))
+    grads = [s for n, s in zip(sym.list_arguments(), shapes)
+             if n not in ("data", "softmax_label")]
+    check(len(grads) == 161, f"ResNet-50 has {len(grads)} parameters")
+    make = gpu if DEVICE == "cuda" else cpu
+    devs = [make(c) for c in ctxs]
+    distinct = devs[0] != devs[1]
+    gens = [torch.Generator(device=d.torch_device).manual_seed(18 + j)
+            for j, d in enumerate(devs)]
+    res = {}
+    for comp in (None, "bf16", "int8", "fp8"):
+        integer = comp in (None, "bf16")
+        vals = [[(torch.randint(-8, 9, s, generator=g,
+                                device=d.torch_device).float()
+                  if integer else
+                  torch.randn(s, generator=g, device=d.torch_device))
+                 for g, d in zip(gens, devs)] for s in grads]
+        flat = [torch.cat([p[j].reshape(-1) for p in vals])
+                for j in range(2)]
+        exact = flat[0] + flat[1].to(flat[0].device)
+        absmax = float(torch.maximum(flat[0].abs().max(),
+                                     flat[1].abs().max().to(
+                                         flat[0].device)))
+        bound = {None: 0.0, "bf16": 0.0, "int8": 2 * absmax / 127 / 2,
+                 "fp8": 2 * absmax * 2 ** -4}[comp]
+        kv = kvstore.create("device", compression=comp)
+        with devs[0]:
+            for k, s in enumerate(grads):
+                kv.init(k, ndarray.zeros(s))
+            outs = [ndarray.zeros(s) for s in grads]
+        with count_collectives() as stats:
+            for k, pair in enumerate(vals):
+                kv.push(k, [ndarray.NDArray(v, ctx=d)
+                            for v, d in zip(pair, devs)], priority=-k)
+            for k in range(len(grads)):
+                kv.pull(k, out=outs[k], priority=-k)
+        kinds = {r["kind"] for r in stats.records}
+        total = sum(int(np.prod(s)) for s in grads) * 4
+        # distinct members: fused buckets, each pushed 4 MiB flushing
+        # what is pending; co-resident: one tree sum a gradient
+        want = ({"bucket"} if distinct else {"tree"})
+        check(kinds == want and stats.total_bytes == total
+              and (distinct or stats.count == len(grads)),
+              f"(e) {comp}: {stats.count} reductions of kinds {kinds} over "
+              f"{stats.total_bytes} bytes")
+        pulled = torch.cat([o.data.reshape(-1) for o in outs])
+        kv_err = float((pulled - exact).abs().max())
+        # co-resident members reduce uncompressed: exact
+        check(kv_err <= (bound if distinct else 0.0) + 1e-6,
+              f"(e) {comp}: the pulled sums are {kv_err} from the sums")
+        red = psum_compressed(flat, comp)
+        err = float((red[0] - exact).abs().max())
+        check(err <= bound + 1e-6,
+              f"(e) psum_compressed {comp}: max error {err} over the bound "
+              f"{bound}")
+        check(torch.equal(red[0], red[1].to(red[0].device)),
+              f"(e) psum_compressed {comp}: the members' sums differ")
+        res[str(comp)] = {"reductions": stats.count, "kinds": sorted(kinds),
+                          "kvstore_max_err": kv_err, "psum_max_err": err,
+                          "bound": bound, "bytes": stats.total_bytes,
+                          "wire_bytes": stats.total_wire_bytes}
+        del vals, flat, red, exact, outs, kv, pulled
+    how = ("in fused buckets" if distinct
+           else "in 161 co-resident (tree) reductions, exact for every "
+           "compression")
+    log(f"  (e) the device kvstore over {devs}: 161 gradients a flush "
+        f"{how}; psum_compressed over the two within its bound: "
+        + json.dumps({k: v["psum_max_err"] for k, v in res.items()}))
+    return res
+
+
+# (f)'s limit on the parameters after one update, two cards against one
+# in the implicit mode: float32 summation order only, as (a)'s witness
+# (each batch's halves swapped on one card), ten times the witness's
+# reading on an H100 (3.09e-4, PERF.md, PR 15's run D); at this random
+# init the backward through 53 BatchNorms moves the first convolution's
+# gradient ~1 % with the summation order
+DP_STEP1_LIMIT = 3e-3
+
+
+def dp_reduction(torch, np, tr, batch, label):
+    """The trainer's reduction of one step's gradients over its members
+    (:meth:`_forward_backward`, before any update: zero residuals) against
+    the members' own gradients, recomputed (deterministic cuDNN) and
+    summed in float64 on the lead's card.  Implicit mode: bitwise their
+    float32 sum (two members: one addition, NCCL's ring too).  int8: within
+    the JAX test's bound n * absmax / 127 / 2 (each member's rounding to
+    its block's shared scale), plus the dequantize multiply's rounding.
+    A member left out or a wrong scale breaks either.  Returns the
+    largest error and its bound."""
+    from mxnet_tpu_torch.random import mix
+    placed = tr.place_batch(batch)
+    n = len(tr._devices)
+    explicit = tr.grad_compression is not None
+    _, grads, _, _, _ = tr._forward_backward(placed)
+    auxs = [dict(tr._member_aux(i)) for i in range(n)]
+    _, _, member = tr._run_members(placed.shards, auxs,
+                                   mix(tr._seed, tr._num_update), None,
+                                   local=explicit)
+    lead = tr.device
+    if explicit and tr._bucket_out():
+        flat = torch.cat(list(grads))
+        plan = tr._fused_plan
+        grads = {nm: flat[plan.offsets[nm]:plan.offsets[nm]
+                          + int(np.prod(plan.shapes[nm]))]
+                 .view(plan.shapes[nm]) for nm in plan.order}
+    worst = bound = 0.0
+    absmax = max(float(g[nm].abs().max()) for g in member for nm in g)
+    for nm, got in grads.items():
+        parts = [g[nm].to(lead) for g in member]
+        if not explicit:
+            check(torch.equal(got, parts[0] + parts[1]),
+                  f"{label}: the reduced gradient of {nm} is not the sum "
+                  "of the members'")
+            continue
+        exact = sum(p.double() for p in parts)
+        err = float((got.double() - exact).abs().max())
+        lim = (n * absmax / 127 / 2
+               + float(exact.abs().max()) * 2.0 ** -23)
+        check(err <= lim, f"{label}: {nm}'s reduced gradient is {err} from "
+              f"the members' sum, over the int8 bound {lim}")
+        worst, bound = max(worst, err), max(bound, lim)
+    return {"max_err": worst, "bound": bound, "absmax": absmax}
+
+
+def dp_distinct_cards(torch, np, counts, a_res):
+    """(f) where two cards exist: (a) and (b) over ``data_parallel_mesh(2)``
+    (NCCL between the cards).  The reductions of one step against the
+    members' gradients (:func:`dp_reduction`); the implicit mode's first
+    heads and first update against the one-card trainer's (its later
+    drift is recorded beside (a)'s witness); int8 fused bitwise unfused
+    on two cards."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import ShardedTrainer, data_parallel_mesh
+    if DEVICE == "cuda" and torch.cuda.device_count() < 2:
+        log(f"  (f) not run: {torch.cuda.device_count()} CUDA device(s); "
+            "the distinct-card branch (NCCL between two cards) needs two")
+        return {"run": False, "devices": torch.cuda.device_count()}
+    kind = "gpu" if DEVICE == "cuda" else "cpu"      # cpu: a rehearsal
+    sym = models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH)
+    shapes = dict(data=(BATCH,) + IMAGE, softmax_label=(BATCH,))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    rng = np.random.RandomState(18)
+    batches = [{"data": rng.rand(*shapes["data"]).astype(np.float32),
+                "softmax_label": rng.randint(0, CLASSES, BATCH)
+                .astype(np.float32)} for _ in range(DP_STEPS)]
+    out = {"run": True}
+    states, states1, heads, int8_bits = {}, {}, {}, {}
+    one = data_parallel_mesh(1, device_type=kind)
+    two = data_parallel_mesh(2, device_type=kind)
+    for label, kw in (("one card", {"mesh": one}),
+                      ("two cards", {"mesh": two}),
+                      ("two cards int8", {"mesh": two,
+                                          "grad_compression": "int8"}),
+                      ("two cards int8 unfused", {
+                          "mesh": two, "grad_compression": "int8",
+                          "fused_update": False})):
+        tr = ShardedTrainer(sym, optimizer="sgd",
+                            optimizer_params=dict(TRAIN_OPT), guard=True,
+                            clip_global_norm=CLIP, **kw)
+        tr.bind({"data": shapes["data"]},
+                {"softmax_label": shapes["softmax_label"]},
+                arg_params=args, aux_params=aux)
+        if label in ("two cards", "two cards int8"):
+            out[label + " reduction"] = dp_reduction(
+                torch, np, tr, batches[0], f"(f) {label}")
+        out[label] = dp_run(torch, tr, batches, f"(f) {label}", counts,
+                            no_sync=False)
+        heads[label] = out[label].pop("first_heads").float().cpu()
+        states1[label] = out[label].pop("state1")
+        states[label] = dp_params(torch, tr)
+        if "int8" in label:
+            int8_bits[label] = dp_state(torch, tr)
+        del tr
+    dp_same(torch, int8_bits["two cards int8"],
+            int8_bits["two cards int8 unfused"],
+            "(f) two cards int8 fused against unfused")
+    del int8_bits
+    out["kvstore"] = dp_kvstore(torch, np, ctxs=(0, 1))
+    # the first step's heads: global BatchNorm statistics over the two
+    # cards give the one card's forward to float32 summation order
+    # (the explicit mode's are per card)
+    diff = float((heads["two cards"] - heads["one card"]).abs().max())
+    out["two cards"]["first_heads_max_diff"] = diff
+    check(diff <= 1e-3, f"(f) two cards: the first step's heads are {diff} "
+          "from the one card's")
+    step1 = dp_max_diff(states1["two cards"], states1["one card"])
+    out["two cards"]["step1_max_param_diff"] = step1
+    check(step1 <= DP_STEP1_LIMIT, f"(f) two cards: the first update is "
+          f"{step1} from the one card's, over {DP_STEP1_LIMIT}")
+    # after the first update: recorded beside (a)'s witness (the explicit
+    # mode's per-card BatchNorm is another function of the batch)
+    out["two cards int8"]["step1_max_param_diff"] = dp_max_diff(
+        states1["two cards int8"], states1["one card"])
+    for label in ("two cards", "two cards int8"):
+        worst = dp_max_diff(states[label], states["one card"])
+        out[label]["max_param_diff"] = worst
+        check(np.isfinite(worst), f"(f) {label}: non-finite parameters")
+    out["order_witness"] = a_res.get("order_witness")
+    log("  (f) distinct cards: " + json.dumps(out))
+    return out
+
+
+def phase_data_parallel(torch, np, _build):
+    """Phase 18: (a)-(c) the trainer's modes over a one-card mesh on
+    ResNet-50 (the default mesh's placement, int8 with error feedback,
+    ZeRO; the last two also captured) and the summation-order witness,
+    (d) the legacy API over two contexts of one card, (e) the kvstore over
+    CUDA members, (f) distinct cards where there are two; builds no
+    kernel."""
+    t_phase = time.perf_counter()
+    built, compile_ = [], _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    _build._compile = counting
+    counts = {"softmax_rows": 0, "fused_update": 0}
+    out = {}
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    try:
+        # two trainers' runs are held bit for bit
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        out["trainers"] = dp_trainers(torch, np, counts)
+        out["legacy"] = dp_legacy(torch, np, counts)
+        out["kvstore"] = dp_kvstore(torch, np)
+        out["distinct_cards"] = dp_distinct_cards(torch, np, counts,
+                                                  out["trainers"])
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+        _build._compile = compile_
+    check(not built, f"phase 18 built kernels: {built}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    log("  data parallelism: " + json.dumps(out))
+    return counts, out
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -6390,14 +7001,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/17] device")
+    log("[1/18] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/17] build")
+    log("[2/18] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -6412,7 +7023,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/17] kernels against their plain versions")
+    log("[3/18] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -6421,22 +7032,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/17] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/18] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/17] serving the round-12 configuration: chunked prefill "
+    log(f"[5/18] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/17] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/18] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/17] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/18] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/17] kernel timing")
+    log("[8/18] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -6453,25 +7064,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/17] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/18] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/17] imperative + executor: NDArray on the card, the MLP "
+    log("[10/18] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/17] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/18] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/17] the serving control plane: crash failover, a hung and a "
+    log("[12/18] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -6479,7 +7090,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/17] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/18] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -6488,7 +7099,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/17] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/18] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -6496,7 +7107,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/17] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/18] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -6504,15 +7115,24 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/17] programs and the profiler: serve and train steps "
+    log("[17/18] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
     p17_launches, _ = phase_programs(torch, np, nn_ops, fu, fa, fd, _build)
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 17
-    log("[15/17] result")
+    t0 = time.perf_counter()
+    log(f"[18/18] data parallelism in one process: ResNet-{DEPTH} through "
+        "ShardedTrainer over the data mesh (implicit, int8 with error "
+        "feedback fused and unfused, ZeRO), FeedForward and Module over two "
+        "contexts of one card with the device kvstore, the kvstore over "
+        "CUDA members, distinct cards where there are two")
+    p18_launches, _ = phase_data_parallel(torch, np, _build)
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 18
+    log("[15/18] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -6535,7 +7155,8 @@ def main(argv) -> int:
         ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",
          "mxnet_tpu/ops/nn_ops.py:847",
          train_launches["softmax_rows"] + loop_launches["softmax_rows"]
-         + zoo_launches["softmax_rows"] + p17_launches["softmax_rows"],
+         + zoo_launches["softmax_rows"] + p17_launches["softmax_rows"]
+         + p18_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
@@ -6545,7 +7166,8 @@ def main(argv) -> int:
          "mxnet_tpu/ops/fused_update.py:216",
          train_launches["fused_update"] + lm_launches["fused_update"]
          + loop_launches["fused_update"] + zoo_launches["fused_update"]
-         + long_launches["fused_update"] + p17_launches["fused_update"],
+         + long_launches["fused_update"] + p17_launches["fused_update"]
+         + p18_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",

@@ -19,13 +19,17 @@ executor API
 custom ops in ``operator`` and user CUDA kernels in ``rtc``), long
 training runs (fp8 linears in ``quant``, recompute scopes, loss scaling,
 gradient accumulation) with durable ``checkpoint``s, and serving or
-post-training from them (``predictor.load_weights``, ``online``).  Entry
+post-training from them (``predictor.load_weights``, ``online``), and
+data parallelism in one process (``parallel`` meshes and collectives,
+``kvstore``, ``ShardedTrainer`` over a mesh, the legacy API over several
+contexts).  Entry
 points run on the card unless the caller passes ``device="cpu"`` (or
 works under ``with mx.cpu():``).
 """
 from . import (attribute, base, callback, chaos, checkpoint, compile_cache,
                context, executor, executor_manager, graph_eval, initializer,
-               io, lr_scheduler, metric, model, models, module, monitor,
+               io, kvstore, lr_scheduler, metric, model, models, module,
+               monitor,
                name, ndarray, online, operator, ops, optimizer, parallel,
                predictor, profiler, quant, random, resilience, rtc, serve,
                stream, symbol, telemetry)
@@ -47,7 +51,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "FeedForward", "Group", "Monitor", "ServeError", "ShardedTrainer",
            "kvcache", "attribute", "base", "callback", "chaos",
            "compile_cache", "context", "executor", "executor_manager",
-           "graph_eval", "initializer", "io", "load_checkpoint",
+           "graph_eval", "initializer", "io", "kvstore", "load_checkpoint",
            "lr_scheduler", "metric", "mod", "model", "models", "module",
            "monitor", "name", "nd", "ndarray", "online", "operator", "ops",
            "optimizer", "parallel", "predictor", "profiler", "quant", "random",

@@ -21,8 +21,8 @@ checkpoint root directory and provides:
 params (the ``FeedForward``/``Module`` surface; ``load_model`` gives
 host NDArrays); trainer state goes through ``ShardedTrainer.save_state``
 / ``restore_state``, built on :meth:`save` / :meth:`restore`.
-:meth:`restore` gives host numpy arrays: one device holds every array
-whole, and restoring onto a mesh is the multi-GPU slice's.
+:meth:`restore` gives host numpy arrays, or each mesh member's piece
+for the arrays it is given a sharding for (any saving mesh).
 """
 from __future__ import annotations
 
@@ -166,15 +166,15 @@ class CheckpointManager:
                 target_shapes: Optional[Dict[str, Sequence[int]]] = None,
                 names: Optional[Sequence[str]] = None
                 ) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
-        """Load checkpoint ``step`` (default: newest) as host numpy
-        arrays: ``(arrays, meta, step)``.  ``target_shapes`` overrides
-        per-name shapes for the ZeRO flat-pad case; ``names`` picks the
-        arrays (default: all).  Raises MXNetError if no committed
-        checkpoint exists or verification fails."""
-        if shardings:
-            from ..base import not_ported
-            raise not_ported("CheckpointManager.restore onto shardings "
-                             "(meshes)")
+        """Load checkpoint ``step`` (default: newest): ``(arrays, meta,
+        step)``, each array host numpy, or with a sharding in
+        ``shardings`` (name -> ``NamedSharding`` of the current mesh) each
+        member's piece on its device, whatever mesh saved it.
+        ``target_shapes`` overrides per-name shapes for the ZeRO flat-pad
+        case; ``names`` picks the arrays (default: all).  Raises
+        MXNetError if no committed checkpoint exists or verification
+        fails."""
+        shardings = shardings or {}
         self.wait_until_finished()
         if step is None:
             step = self.latest_step()
@@ -193,6 +193,7 @@ class CheckpointManager:
                     f"checkpoint step {step} has no array {name!r}")
             out[name] = reader.restore_array(
                 dirpath, name, entries[name],
+                sharding=shardings.get(name),
                 target_shape=target_shapes.get(name),
                 verify=self.verify_on_restore)
         return out, manifest.get("meta", {}), step

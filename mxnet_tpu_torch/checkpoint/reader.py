@@ -1,14 +1,15 @@
 """Checkpoint restore: verify and assemble host arrays.
 
-Counterpart of ``mxnet_tpu/checkpoint/reader.py`` on one device: every
-array is assembled on the host from the saved shards that cover it (a
-checkpoint the JAX package wrote on a mesh, with several shards an
-array, reads too), each shard file read once and checked against its
-manifest size and ``crc32`` checksum; an error names the checkpoint, the
-array and the shard file.  The caller copies the arrays onto its device.
-Restoring onto another mesh is the multi-GPU slice's; only the JAX
-package's ZeRO flatten-and-pad case changes a shape (:func:`_adapt_shape`,
-1-D, zero tail), anything else raises.
+Counterpart of ``mxnet_tpu/checkpoint/reader.py``: every array is
+assembled on the host from the saved shards that cover it (a checkpoint
+the JAX package wrote on a mesh, with several shards an array, reads
+too), each shard file read once and checked against its manifest size
+and ``crc32`` checksum; an error names the checkpoint, the array and the
+shard file.  The caller copies the arrays onto its device, or a
+``NamedSharding`` of its mesh cuts them into the members' pieces, so a
+checkpoint of one mesh restores onto another (8 members onto 4).  Only
+the JAX package's ZeRO flatten-and-pad case changes a shape
+(:func:`_adapt_shape`, 1-D, zero tail), anything else raises.
 
 :func:`load_legacy_params` reads the reference-format
 ``prefix-%04d.params`` files (``nd.load``).
@@ -131,19 +132,18 @@ def _adapt_shape(name: str, full: np.ndarray,
 
 def restore_array(dirpath: str, name: str, entry: Dict[str, Any],
                   sharding=None, target_shape=None, verify: bool = True):
-    """Restore one array as a host numpy array.  ``target_shape``
-    (default: the saved shape) lets a ZeRO flat-pad state change its
-    padded length; other shape changes raise.  A ``sharding`` (restoring
-    onto a mesh) belongs to the multi-GPU slice."""
-    if sharding is not None:
-        from ..base import not_ported
-        raise not_ported("restore_array onto a sharding (meshes)")
+    """Restore one array as a host numpy array, or with ``sharding`` (a
+    :class:`~mxnet_tpu_torch.parallel.mesh.NamedSharding` of the current
+    mesh) as each member's piece on its device (``sharding.place``): the
+    saving run's mesh does not have to match.  ``target_shape`` (default:
+    the saved shape) lets a ZeRO flat-pad state change its padded length;
+    other shape changes raise."""
     saved_shape = tuple(int(d) for d in entry["shape"])
     full = _assemble_region(name, entry, [(0, d) for d in saved_shape],
                             _ShardFileCache(dirpath, verify))
     if target_shape is not None:
         full = _adapt_shape(name, full, target_shape)
-    return full
+    return full if sharding is None else sharding.place(full)
 
 
 def load_arrays(dirpath: str, names: Optional[Sequence[str]] = None,

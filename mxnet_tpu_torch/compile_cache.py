@@ -81,7 +81,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .base import MXNetError, not_ported
+from .base import MXNetError
 
 __all__ = ["ProgramCache", "CacheKey", "CapturedProgram", "program_key",
            "describe_avals", "mesh_fingerprint", "backend_of",
@@ -145,11 +145,23 @@ def describe_avals(tree) -> str:
 
 
 def mesh_fingerprint(mesh) -> str:
-    """Mesh identity for the key; the port runs on one device, so only
-    ``None`` is accepted (meshes come with the multi-GPU slice)."""
+    """Mesh identity for the key, the JAX package's string: axis names
+    and sizes, device kinds (``cpu``, or the CUDA device's name) and
+    context ids.  Two meshes of one shape over other devices key
+    different programs."""
     if mesh is None:
         return "mesh=None"
-    raise not_ported("mesh_fingerprint over a device mesh (multi-GPU)")
+    from .parallel.mesh import Mesh
+    if not isinstance(mesh, Mesh):
+        raise MXNetError(f"mesh_fingerprint: expected a parallel.Mesh, got "
+                         f"{type(mesh).__name__}")
+    members = list(mesh.members)
+    kinds = sorted({"cpu" if m.device_type == "cpu"
+                    else torch.cuda.get_device_name(m.device_id)
+                    for m in members})
+    ids = tuple(m.device_id for m in members)
+    return (f"axes={tuple(mesh.axis_names)};shape={tuple(mesh.devices.shape)};"
+            f"kinds={kinds};ids={ids}")
 
 
 def backend_of(device=None) -> str:

@@ -1,6 +1,6 @@
 """Data-parallel executor management for the legacy ``FeedForward`` loop.
 
-Counterpart of ``mxnet_tpu/executor_manager.py`` on one device:
+Counterpart of ``mxnet_tpu/executor_manager.py``:
 :func:`_split_input_slice` (a batch into per-device slices by workload),
 :func:`_check_arguments`, :class:`DataParallelExecutorGroup` (the
 executors of one symbol, one per context, sharing arrays with another
@@ -8,8 +8,9 @@ group's when bucketing) and :class:`DataParallelExecutorManager` (the
 bucketing-aware wrapper).  A batch can be staged ahead of its step
 (:meth:`DataParallelExecutorManager.stage_data_batch`, the prefetch
 thread's hook): its slices are copied to their devices there, and
-loading it copies device to device.  More than one context raises until
-the multi-GPU slice (ROADMAP.md).
+loading it copies device to device.  Several contexts may name one
+device (two executors on ``gpu(0)``), as in the JAX package;
+``copy_to`` writes the mean of the devices' copies.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .base import MXNetError, not_ported
+from .base import MXNetError
 from .context import Context
 from .executor import Executor
 from .io import DataBatch
@@ -77,12 +78,6 @@ def _check_arguments(symbol) -> None:
         raise MXNetError(f"Find duplicated auxiliary param name: {aux_names}")
 
 
-def _one_device(ctx) -> None:
-    if len(ctx) > 1:
-        raise not_ported("data parallelism over several contexts "
-                         "(executor groups with more than one device)")
-
-
 def _device_mean(block, dst) -> None:
     """The mean of one array's per-device copies, written into ``dst``."""
     dev = dst.data.device
@@ -110,7 +105,6 @@ class DataParallelExecutorGroup:
                  ctx: List[Context], slices: List[slice], train_data,
                  shared_group: Optional["DataParallelExecutorGroup"] = None):
         _check_arguments(sym)
-        _one_device(ctx)
         self.sym = sym
         self.arg_names = arg_names
         self.param_names = param_names
@@ -224,7 +218,6 @@ class DataParallelExecutorManager:
             work_load_list = [1] * num_device
         if len(work_load_list) != num_device:
             raise MXNetError("Invalid settings for work load.")
-        _one_device(ctx)
         self.slices = _split_input_slice(train_data.batch_size, work_load_list)
         self.arg_names = arg_names if arg_names is not None else symbol.list_arguments()
         self.aux_names = aux_names if aux_names is not None else symbol.list_auxiliary_states()

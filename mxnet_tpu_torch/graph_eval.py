@@ -68,7 +68,7 @@ def _mirrored(anno) -> bool:
 
 def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
                 aux_vals: Dict[str, "torch.Tensor"], rng, is_train: bool,
-                want_internals: bool = False, topo=None):
+                want_internals: bool = False, topo=None, sync=None):
     """Evaluate a Symbol graph.
 
     ``arg_vals`` holds a tensor for every variable node (params, data,
@@ -82,7 +82,10 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
     BatchNorm.  ``want_internals`` also
     returns every node output keyed ``{node_name}_{output_name}`` and
     every variable by name (the executor's monitor hook).  ``topo`` may
-    pass a precomputed ``symbol._topo()``.
+    pass a precomputed ``symbol._topo()``.  ``sync`` (a mesh member's
+    handle, or None) reaches every op as ``OpContext.sync``: BatchNorm's
+    batch statistics and SoftmaxOutput's normalization then count the
+    batch of every member.
 
     Returns ``(heads, aux_updates)``, or ``(heads, aux_updates,
     internals)``: a tuple of head tensors and ``{aux_full_name: new
@@ -107,7 +110,7 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
             rng=(rng.generator(index_of[id(node)])
                  if rng is not None and op.needs_rng else None),
             aux={sh: aux_vals[f] for sh, f in zip(short, aux_full)},
-            name=node.name)
+            name=node.name, sync=sync)
         out = op.forward(opctx, params, *in_vals)
         outs = list(out) if isinstance(out, (tuple, list)) else [out]
         return outs, {f: opctx.aux_updates[sh]

@@ -8,10 +8,14 @@ package's), :func:`load_checkpoint` reads either package's files, and
 
 :class:`FeedForward` is the legacy estimator: its ``fit`` stages each
 batch on a prefetch thread (``io.DevicePrefetchIter``), runs the
-executor's forward and backward, applies ``optimizer.get_updater`` to
-every parameter behind the :class:`~mxnet_tpu_torch.resilience.LegacyGuard`
-(when the optimizer asks for one) and buffers the train metric
-(``metric.AsyncMetric``).
+executors' forward and backward (one a context, the batch split over
+them), and updates behind the
+:class:`~mxnet_tpu_torch.resilience.LegacyGuard` (when the optimizer asks
+for one): on several contexts through a kvstore (:func:`_create_kvstore`
+picks it as the JAX package does), either the kvstore's own optimizer
+over the reduced gradients (``update_on_kvstore``) or the reduction
+pulled into each device's gradients and ``optimizer.get_updater`` on
+every copy; then it buffers the train metric (``metric.AsyncMetric``).
 """
 from __future__ import annotations
 
@@ -23,12 +27,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from . import io as mx_io
+from . import kvstore as kvs_mod
 from . import metric as metric_mod
 from . import ndarray as nd
 from . import optimizer as opt_mod
 from . import resilience
 from . import symbol as sym_mod
-from .base import MXNetError, not_ported
+from .base import MXNetError
 from .context import Context, current_context
 from .executor_manager import DataParallelExecutorManager, _check_arguments
 from .initializer import Initializer, Uniform
@@ -41,38 +46,101 @@ BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
 
 
-def _create_kvstore(kvstore, num_device: int) -> None:
-    """None, and a kvstore name without ``dist`` on one device, mean no
-    kvstore, as in the JAX package (the updater runs locally); anything
-    that needs a real kvstore raises until the multi-GPU slice."""
-    if kvstore is None or (isinstance(kvstore, str) and num_device == 1
-                           and "dist" not in kvstore):
-        return
-    if not isinstance(kvstore, str):
+def _create_kvstore(kvstore, num_device: int, arg_params):
+    """``(kvstore, update_on_kvstore)`` as the JAX package decides them:
+    None, or a name without ``dist`` on one device, is no kvstore (the
+    updater runs locally); ``"local"`` picks ``local_update_cpu`` below
+    16M elements in the largest parameter, else ``local_allreduce_cpu``;
+    the ``local_allreduce`` kinds update locally after the reduction, the
+    others on the kvstore."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs_mod.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            if kvstore == "local":
+                max_size = max(int(np.prod(p.shape))
+                               for p in arg_params.values())
+                kvstore = ("local_update_cpu" if max_size < 1024 * 1024 * 16
+                           else "local_allreduce_cpu")
+                logging.info("Auto-select kvstore type = %s", kvstore)
+            kv = kvs_mod.create(kvstore)
+    else:
         raise MXNetError("kvstore must be KVStore, str or None")
-    raise not_ported(f"kvstore {kvstore!r} (the multi-GPU slice)")
+    if kv is None or "local_allreduce" in kv.type:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
 
 
-def _guarded(live, guard, allow_clip):
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Each parameter into the kvstore under its index; with the update
+    on the kvstore, every device's copy pulled from it."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        kvstore.init(idx, arg_params[param_names[idx]])
+        if update_on_kvstore:
+            kvstore.pull(idx, param_on_devs, priority=-idx)
+
+
+def _guarded(live, guard, allow_clip, shared=False):
     """Run ``guard.prepare`` over the live gradient set; returns whether
-    the update should proceed (False = skip this step entirely)."""
+    the update should proceed (False = skip this step entirely).
+    ``shared``: the gradients are the same on every device (after a
+    kvstore pull): device 0's statistics stand for all and its clip
+    coefficient is shared."""
     if guard is None or not live:
         return True
     num_device = len(live[0][2])
+    if shared:
+        ok = guard.prepare([[grad_list[0].data for _, _, grad_list in live]],
+                           allow_clip=allow_clip)
+        if ok:
+            guard.share_coef(num_device)
+        return ok
     per_device = [[grad_list[k].data for _, _, grad_list in live]
                   for k in range(num_device)]
     return guard.prepare(per_device, allow_clip=allow_clip)
 
 
-def _update_params(param_arrays, grad_arrays, updater, num_device,
-                   guard=None):
-    """The updater over every parameter with a gradient, each device's
-    copy keyed ``index * num_device + k``, behind the guard's veto and
-    clip."""
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              guard=None):
+    """Every gradient pushed (priority ``-index``), then every parameter
+    pulled: the kvstore's updater runs on the reduced gradients.  The
+    guard may veto the step; it does not clip here (the optimizer lives
+    on the kvstore: a clipping caller updates locally instead)."""
     live = [(i, arg, grad) for i, (arg, grad) in
             enumerate(zip(param_arrays, grad_arrays))
             if grad[0] is not None]
-    if not _guarded(live, guard, allow_clip=True):
+    if not _guarded(live, guard, allow_clip=False):
+        return
+    for index, _, grad_list in live:
+        kvstore.push(index, grad_list, priority=-index)
+    for index, arg_list, _ in live:
+        kvstore.pull(index, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None, guard=None):
+    """The updater over every parameter with a gradient, each device's
+    copy keyed ``index * num_device + k``, behind the guard's veto and
+    clip.  With a kvstore the gradients are first reduced through it
+    (push, then pull into each device's gradient) and the guard reads
+    the reduced gradients, sharing one clip coefficient."""
+    live = [(i, arg, grad) for i, (arg, grad) in
+            enumerate(zip(param_arrays, grad_arrays))
+            if grad[0] is not None]
+    if kvstore:
+        for index, _, grad_list in live:
+            kvstore.push(index, grad_list, priority=-index)
+        for index, _, grad_list in live:
+            kvstore.pull(index, grad_list, priority=-index)
+        if not _guarded(live, guard, allow_clip=True, shared=True):
+            return
+    elif not _guarded(live, guard, allow_clip=True):
         return
     for index, arg_list, grad_list in live:
         for k, (w, g) in enumerate(zip(arg_list, grad_list)):
@@ -86,18 +154,30 @@ class _TrainLoop:
     updater, the guard and the callbacks are fixed at construction;
     :meth:`run` plays epochs."""
 
-    def __init__(self, manager, optimizer, arg_params, aux_params, logger,
-                 monitor=None):
+    def __init__(self, manager, optimizer, kvstore, update_on_kvstore,
+                 arg_params, aux_params, logger, monitor=None):
         self.manager = manager
+        self.kvstore = kvstore
+        self.update_on_kvstore = update_on_kvstore
         self.arg_params = arg_params
         self.aux_params = aux_params
         self.logger = logger or logging
         self.monitor = monitor
+        self.updater = None
         # step-level guard (skip non-finite / clip global norm) from the
         # optimizer's clip_global_norm / skip_nonfinite or MXNET_TPU_GUARD
         self.grad_guard = resilience.legacy_guard_for(optimizer,
                                                       logger=self.logger)
-        self.updater = opt_mod.get_updater(optimizer)
+        if update_on_kvstore:
+            kvstore.set_optimizer(optimizer)
+        else:
+            self.updater = opt_mod.get_updater(optimizer)
+        if kvstore:
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=manager.param_arrays,
+                                arg_params=arg_params,
+                                param_names=manager.param_names,
+                                update_on_kvstore=update_on_kvstore)
 
     # -- one optimizer step over all devices ----------------------------
     def _step(self, data_batch, metric):
@@ -107,8 +187,13 @@ class _TrainLoop:
             self.monitor.tic()
         m.forward(is_train=True)
         m.backward()
-        _update_params(m.param_arrays, m.grad_arrays, updater=self.updater,
-                       num_device=len(m.ctx), guard=self.grad_guard)
+        if self.update_on_kvstore:
+            _update_params_on_kvstore(m.param_arrays, m.grad_arrays,
+                                      self.kvstore, guard=self.grad_guard)
+        else:
+            _update_params(m.param_arrays, m.grad_arrays,
+                           updater=self.updater, num_device=len(m.ctx),
+                           kvstore=self.kvstore, guard=self.grad_guard)
         if self.monitor is not None:
             self.monitor.toc_print()
         m.update_metric(metric, data_batch.label)
@@ -180,7 +265,8 @@ class _TrainLoop:
 
 def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
                         arg_params, aux_params, begin_epoch, end_epoch,
-                        epoch_size, optimizer, train_data, eval_data=None, eval_metric=None,
+                        epoch_size, optimizer, kvstore, update_on_kvstore,
+                        train_data, eval_data=None, eval_metric=None,
                         epoch_end_callback=None, batch_end_callback=None,
                         logger=None, work_load_list=None, monitor=None,
                         eval_batch_end_callback=None, sym_gen=None):
@@ -193,8 +279,8 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
     if monitor:
         manager.install_monitor(monitor)
     manager.set_params(arg_params, aux_params)
-    loop = _TrainLoop(manager, optimizer, arg_params, aux_params, logger,
-                      monitor=monitor)
+    loop = _TrainLoop(manager, optimizer, kvstore, update_on_kvstore,
+                      arg_params, aux_params, logger, monitor=monitor)
     loop.run(symbol, train_data, eval_data, eval_metric, begin_epoch,
              end_epoch, epoch_size, batch_end_callback, epoch_end_callback,
              eval_batch_end_callback)
@@ -249,9 +335,9 @@ def load_checkpoint(prefix: str, epoch: int):
 
 class FeedForward:
     """The model estimator: ``fit``, ``predict``, ``score``, ``save``,
-    ``load`` and ``create`` over one context (several raise until the
-    multi-GPU slice); ``kvstore=None`` or ``"local"`` on one device uses
-    no kvstore, as in the JAX package."""
+    ``load`` and ``create`` over one context or several
+    (``ctx=[gpu(0), gpu(1)]``); ``kvstore=None`` or ``"local"`` on one
+    device uses no kvstore, as in the JAX package."""
 
     def __init__(self, symbol, ctx=None, num_epoch: Optional[int] = None,
                  epoch_size: Optional[int] = None, optimizer="sgd",
@@ -473,13 +559,29 @@ class FeedForward:
         arg_names, param_names, aux_names = self._init_params(input_shapes)
         if eval_metric is not None:
             eval_metric = metric_mod.create(eval_metric)
-        _create_kvstore(kvstore, len(self.ctx))
-        self.kwargs["param_idx2name"] = {
-            i * len(self.ctx) + k: n for i, n in enumerate(param_names)
-            for k in range(len(self.ctx))}
+        (kvstore, update_on_kvstore) = _create_kvstore(
+            kvstore, len(self.ctx), self.arg_params)
+        clip_gn = (getattr(self.optimizer, "clip_global_norm", None)
+                   if isinstance(self.optimizer, opt_mod.Optimizer)
+                   else self.kwargs.get("clip_global_norm"))
+        if update_on_kvstore and clip_gn is not None:
+            # clipping rescales gradients before the update: a kvstore's
+            # optimizer would never see them clipped, so update locally
+            update_on_kvstore = False
+        param_idx2name = {}
+        if update_on_kvstore:
+            param_idx2name.update(enumerate(param_names))
+        else:
+            for i, n in enumerate(param_names):
+                for k in range(len(self.ctx)):
+                    param_idx2name[i * len(self.ctx) + k] = n
+        self.kwargs["param_idx2name"] = param_idx2name
         if isinstance(self.optimizer, str):
+            batch_size = data.batch_size
+            if kvstore and "dist" in kvstore.type:
+                batch_size *= kvstore.num_workers
             optimizer = opt_mod.create(self.optimizer,
-                                       rescale_grad=(1.0 / data.batch_size),
+                                       rescale_grad=(1.0 / batch_size),
                                        **self.kwargs)
         elif isinstance(self.optimizer, opt_mod.Optimizer):
             optimizer = self.optimizer
@@ -490,7 +592,8 @@ class FeedForward:
                             begin_epoch=self.begin_epoch,
                             end_epoch=self.num_epoch,
                             epoch_size=self.epoch_size,
-                            optimizer=optimizer,
+                            optimizer=optimizer, kvstore=kvstore,
+                            update_on_kvstore=update_on_kvstore,
                             train_data=data, eval_data=eval_data,
                             eval_metric=eval_metric,
                             epoch_end_callback=epoch_end_callback,

@@ -1,8 +1,8 @@
 """The executor group of the Module API.
 
 Counterpart of ``mxnet_tpu/module/executor_group.py``: one executor per
-context over one symbol (one context in the port: several raise until
-the multi-GPU slice), the batch split by workload, and binding against a
+context over one symbol, the batch split over the contexts by workload,
+outputs merged along the batch, and binding against a
 shared group's arrays for bucketing (``simple_bind(shared_exec=...)``:
 the buckets' executors hold the same parameter and gradient NDArrays).
 """
@@ -37,8 +37,6 @@ class DataParallelExecutorGroup:
                  shared_group: Optional["DataParallelExecutorGroup"] = None,
                  logger=logging, fixed_param_names=None,
                  grad_req: str = "write"):
-        from ..executor_manager import _one_device
-        _one_device(contexts)
         self.param_names = list(param_names)
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()

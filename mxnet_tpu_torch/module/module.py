@@ -2,11 +2,13 @@
 
 Counterpart of ``mxnet_tpu/module/module.py``: bind, init_params,
 init_optimizer, forward, backward and update over a
-:class:`DataParallelExecutorGroup`, the updater (``optimizer.get_updater``)
-behind the :class:`~mxnet_tpu_torch.resilience.LegacyGuard`, and the
-checkpoint files, in the legacy layout or through a CheckpointManager
-(``save_to_manager``, ``load_from_manager``).  A kvstore raises until
-its slice.
+:class:`DataParallelExecutorGroup` (one executor a context), the update
+(a kvstore's optimizer over the reduced gradients, or the reduction
+pulled into each device's gradients and ``optimizer.get_updater`` on
+every copy, as ``model._create_kvstore`` decides) behind the
+:class:`~mxnet_tpu_torch.resilience.LegacyGuard`, and the checkpoint
+files, in the legacy layout or through a CheckpointManager
+(``save_to_manager``, ``load_from_manager``).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from .. import resilience
 from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import Uniform
-from ..model import _create_kvstore, _update_params
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore)
 from ..ndarray import zeros
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
@@ -64,6 +67,8 @@ class Module(BaseModule):
         self._optimizer = None
         self._updater = None
         self._grad_guard = None
+        self._kvstore = None
+        self._update_on_kvstore = None
         self._exec_group: Optional[DataParallelExecutorGroup] = None
         self._preload_opt_states = None
         self._preload_opt_blob = None
@@ -258,22 +263,36 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
         """The optimizer (a name with ``optimizer_params``, or an
-        Optimizer), its updater and the guard it asks for."""
+        Optimizer), the kvstore and whether it updates, the updater and
+        the guard the optimizer asks for."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        _create_kvstore(kvstore, len(self._context))
+        (kvstore, update_on_kvstore) = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        clip_gn = (dict(optimizer_params).get("clip_global_norm")
+                   if isinstance(optimizer, str)
+                   else getattr(optimizer, "clip_global_norm", None))
+        if update_on_kvstore and clip_gn is not None:
+            # clipping rescales gradients before the update: a kvstore's
+            # optimizer would never see them clipped
+            update_on_kvstore = False
         if isinstance(optimizer, str):
+            batch_size = self._exec_group.batch_size
+            if kvstore and "dist" in kvstore.type:
+                batch_size *= kvstore.num_workers
             idx2name = {}
-            for k in range(len(self._context)):
-                idx2name.update({i * len(self._context) + k: n
-                                 for i, n in
-                                 enumerate(self._exec_group.param_names)})
+            if update_on_kvstore:
+                idx2name.update(enumerate(self._exec_group.param_names))
+            else:
+                for k in range(len(self._context)):
+                    idx2name.update({i * len(self._context) + k: n
+                                     for i, n in
+                                     enumerate(self._exec_group.param_names)})
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
-                optimizer_params["rescale_grad"] = (
-                    1.0 / self._exec_group.batch_size)
+                optimizer_params["rescale_grad"] = 1.0 / batch_size
             optimizer = opt_mod.create(optimizer, sym=self.symbol,
                                        param_idx2name=idx2name,
                                        **optimizer_params)
@@ -281,7 +300,19 @@ class Module(BaseModule):
             assert isinstance(optimizer, opt_mod.Optimizer)
 
         self._optimizer = optimizer
-        self._updater = opt_mod.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=self._exec_group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._exec_group.param_names,
+                                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt_mod.get_updater(optimizer)
         # step-level guard (skip non-finite / clip global norm) from the
         # optimizer's clip_global_norm / skip_nonfinite or MXNET_TPU_GUARD
         self._grad_guard = resilience.legacy_guard_for(self._optimizer,
@@ -298,6 +329,8 @@ class Module(BaseModule):
     def borrow_optimizer(self, shared_module: "Module") -> None:
         assert shared_module.optimizer_initialized
         self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self._grad_guard = getattr(shared_module, "_grad_guard", None)
         self.optimizer_initialized = True
@@ -331,9 +364,16 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         self._params_dirty = True
-        _update_params(self._exec_group.param_arrays,
-                       self._exec_group.grad_arrays, updater=self._updater,
-                       num_device=len(self._context), guard=self._grad_guard)
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(self._exec_group.param_arrays,
+                                      self._exec_group.grad_arrays,
+                                      self._kvstore, guard=self._grad_guard)
+        else:
+            _update_params(self._exec_group.param_arrays,
+                           self._exec_group.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore, guard=self._grad_guard)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -353,6 +393,9 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname: str) -> None:
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         import pickle
         from ..optimizer import states_to_host
         with open(fname, "wb") as f:
@@ -360,6 +403,9 @@ class Module(BaseModule):
 
     def load_optimizer_states(self, fname: str) -> None:
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         import pickle
         with open(fname, "rb") as f:
             self._apply_host_states(pickle.loads(f.read()))

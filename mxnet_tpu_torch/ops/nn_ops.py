@@ -301,9 +301,19 @@ def _bn_fwd(ctx, params, data, gamma, beta):
         gamma = torch.ones_like(gamma).detach()
     x32 = _amp_f32(data)
     if ctx.is_train and not params["use_global_stats"]:
-        mean = x32.mean(dim=axes)
-        var = torch.clamp_min(
-            torch.square(x32).mean(dim=axes) - torch.square(mean), 0.0)
+        if ctx.sync is None:
+            mean = x32.mean(dim=axes)
+            var = torch.clamp_min(
+                torch.square(x32).mean(dim=axes) - torch.square(mean), 0.0)
+        else:
+            # the batch is split over mesh members: the same moments over
+            # every member's rows (a differentiable sum of the members'
+            # partial sums, so the backward sees the global statistics)
+            count = float(ctx.sync.host_sum(x32.numel() // x32.shape[1]))
+            tot = ctx.sync.allreduce(torch.stack(
+                [x32.sum(dim=axes), torch.square(x32).sum(dim=axes)]))
+            mean = tot[0] / count
+            var = torch.clamp_min(tot[1] / count - torch.square(mean), 0.0)
         ctx.aux_updates["moving_mean"] = (
             momentum * ctx.aux["moving_mean"]
             + (1.0 - momentum) * mean.detach())
@@ -606,9 +616,13 @@ class _SoftmaxOutputFn(torch.autograd.Function):
     masking; the label gets a zero gradient."""
 
     @staticmethod
-    def forward(ctx, data, label, p):
+    def forward(ctx, data, label, p, sync=None):
         ctx.save_for_backward(data, label)
         ctx.p = p
+        # a batch split over mesh members normalizes by every member's
+        # count: the denominator is taken here, where the members meet
+        ctx.denom = (None if sync is None or p["normalization"] == "null"
+                     else _global_denom(sync, label, p))
         if p["out_mode"] == "loss":
             return _nll(data, label, p)
         in_dtype = data.dtype
@@ -641,6 +655,8 @@ class _SoftmaxOutputFn(torch.autograd.Function):
         mask = (label != p["ignore_label"]).to(x.dtype)
 
         def norm_denom():
+            if ctx.denom is not None:
+                return ctx.denom
             # counted in f32, as the reference does
             # (0-d fills, not torch.tensor: a host copy would sync)
             if p["normalization"] == "batch":
@@ -677,11 +693,24 @@ class _SoftmaxOutputFn(torch.autograd.Function):
             if denom is not None or p["grad_scale"] != 1.0:
                 g = g * scale
             grad = g * cot
-        return grad.to(in_dtype), None, None
+        return grad.to(in_dtype), None, None, None
+
+
+def _global_denom(sync, label, p) -> torch.Tensor:
+    """SoftmaxOutput's ``batch``/``valid`` denominator over the labels of
+    every mesh member (f32, as ``norm_denom`` counts one member's)."""
+    f32 = dict(dtype=torch.float32, device=label.device)
+    if p["normalization"] == "batch":
+        return torch.full((), float(sync.host_sum(label.shape[0])), **f32)
+    if p["use_ignore"]:
+        valid = (label != p["ignore_label"]).to(torch.float32).sum()
+        return torch.clamp_min(sync.allreduce(valid), 1.0)
+    return torch.full((), max(float(sync.host_sum(label.numel())), 1.0),
+                      **f32)
 
 
 def _softmax_output_fwd(ctx, params, data, label):
-    return _SoftmaxOutputFn.apply(data, label, params)
+    return _SoftmaxOutputFn.apply(data, label, params, ctx.sync)
 
 
 def _softmax_output_shape(params, in_shapes):
@@ -1249,7 +1278,14 @@ def _kl_sparse_fwd(ctx, params, x):
     sigmoid's output, as in the reference)."""
     target = params["sparseness_target"]
     momentum = params["momentum"]
-    batch_mean = torch.mean(x, dim=0).detach()
+    if ctx.sync is None:
+        batch_mean = torch.mean(x, dim=0).detach()
+    else:
+        # the batch is split over mesh members: the mean over every
+        # member's rows, as BatchNorm's moments
+        count = float(ctx.sync.host_sum(x.shape[0]))
+        batch_mean = ctx.sync.allreduce(
+            torch.sum(x.detach(), dim=0)) / count
     if "avg" in ctx.aux:
         avg = momentum * ctx.aux["avg"] + (1 - momentum) * batch_mean
         ctx.aux_updates["avg"] = avg

@@ -101,17 +101,22 @@ class OpParam:
 class OpContext:
     """Per-invocation state handed to op forward functions: the training
     flag, the random source (a ``torch.Generator`` or None), the node's
-    current aux states and the aux updates it writes."""
+    current aux states and the aux updates it writes, and ``sync``: None,
+    or the mesh member's handle whose ``allreduce``/``host_sum`` give the
+    batch statistics of the global batch when one step's batch is split
+    over several members (``parallel.trainer``)."""
 
-    __slots__ = ("is_train", "rng", "aux", "aux_updates", "name")
+    __slots__ = ("is_train", "rng", "aux", "aux_updates", "name", "sync")
 
     def __init__(self, is_train: bool = False, rng=None,
-                 aux: Optional[Dict[str, Any]] = None, name: str = ""):
+                 aux: Optional[Dict[str, Any]] = None, name: str = "",
+                 sync=None):
         self.is_train = is_train
         self.rng = rng
         self.aux = aux or {}
         self.aux_updates: Dict[str, Any] = {}
         self.name = name
+        self.sync = sync
 
 
 # ---------------------------------------------------------------------------

@@ -102,9 +102,48 @@ is not captured: its generators are seeded per step on the host, and a
 replay would repeat the captured draws; such a program runs eagerly and
 says why (``compile_info``'s ``reason``).
 
-Not ported yet (they raise): ``mesh``, ``rules``, ``data_axis``,
-``shard_optimizer``, ``grad_compression`` and ``error_feedback`` (the
-multi-GPU slice).
+Data parallelism over a mesh (``mesh=``, ``data_axis=``; default: a
+data mesh over every local device of the trainer's platform, one member
+on the CPU), as the JAX trainer has it.  The batch is split over the
+members (``place_batch``: rows ``[k, N, B/(kN)]`` so that each of the
+``grad_accum`` microbatches is split as the JAX trainer splits it), each
+member runs the forward and backward on its rows over its own replica of
+the parameters, the gradients are summed over the members, the lead
+member (the first) applies the update and the others copy the new
+parameters and aux states:
+
+* **Implicit mode** (no ``grad_compression``): the JAX trainer's one
+  program over the global batch.  Members run in threads that meet at
+  every cross-row statistic (``OpContext.sync``): BatchNorm's batch
+  moments and SoftmaxOutput's ``batch``/``valid`` denominators count
+  every member's rows, through a differentiable sum, so one backward
+  over all members' heads gives the global batch's gradients.  The
+  per-tensor gradients are summed with :func:`~.collectives.psum`.
+* **Explicit mode** (``grad_compression``): the JAX trainer's manual
+  region.  Each member is local (its own BatchNorm statistics, the aux
+  updates averaged over members, its sampling key folded with its
+  index); gradients are reduced over flat buckets in
+  ``reversed(param_names)`` order by :func:`~.collectives.
+  psum_compressed`, the guard's square sum is taken over the reduced
+  buckets, and with the fused update and ``grad_accum == 1`` the reduced
+  buckets go straight to K2's ``"bucket"`` form.  ``error_feedback``
+  (default on for int8/fp8, ``MXNET_TPU_QUANT_EF``) keeps one f32
+  residual a bucket a member (``opt:efres:<i>:0`` in checkpoints, the
+  members' residuals end to end).
+* ``shard_optimizer=True`` (ZeRO): each parameter's optimizer state is
+  cut over the members along its first dimension the member count
+  divides, else flattened and padded to a multiple of it
+  (``_zero_specs``, ``_zero_flat``); each member updates its slice and
+  the slices are gathered into the parameter.  The fused update refuses
+  it, as in the JAX package.
+
+Inference forwards run on the lead member over the whole batch (no
+statistic crosses rows at inference).  One step path serves every
+member count and mode; :meth:`ShardedTrainer.compile` captures it for
+one member and runs it eagerly, with its reason, over several.  Over
+several members the implicit mode refuses an op that combines rows of
+the batch other than the synced statistics (:func:`_rows_combined`).
+``rules`` (tensor parallelism) is not ported yet.
 """
 from __future__ import annotations
 
@@ -123,12 +162,15 @@ from .. import quant as quant_mod
 from .. import resilience, telemetry
 from ..random import GraphKey, mix
 from ..base import MXNetError, not_ported
-from ..context import cpu, resolve_device
+from ..context import Context, as_context, cpu, resolve_device
 from ..graph_eval import eval_symbol
 from ..initializer import Uniform
 from ..ndarray import NDArray, array as nd_array, zeros as nd_zeros
 from ..ops import fused_update as fu
-from .collectives import DEFAULT_BUCKET_BYTES
+from .collectives import (DEFAULT_BUCKET_BYTES, check_compression,
+                          plan_buckets, psum, psum_compressed)
+from .mesh import (DATA_AXIS, Mesh, PartitionSpec, data_parallel_mesh,
+                   make_mesh)
 
 __all__ = ["ShardedTrainer", "matmul_precision_scope"]
 
@@ -163,7 +205,10 @@ def matmul_precision_scope(name: Optional[str]):
 
 
 class _PlacedBatch(dict):
-    """A batch already on the trainer's device (``place_batch``)."""
+    """A batch already on the trainer's device (``place_batch``); over
+    several members ``shards`` holds each member's rows on its device."""
+
+    shards = None
 
 
 def _host_to(v: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -175,13 +220,31 @@ def _host_to(v: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 class ShardedTrainer:
-    """Trainer for a Symbol on one device.
+    """Trainer for a Symbol, data parallel over a mesh of devices.
 
     Parameters
     ----------
     symbol : Symbol
         Network whose heads are loss outputs (SoftmaxOutput etc.).
     optimizer : str or Optimizer
+    mesh : parallel.Mesh, optional
+        Default: a data mesh over every local device of ``device``'s
+        platform (one member on the CPU), or ``device`` alone when it
+        names an index.  Only the data axis may have more than one member.
+    data_axis : str, optional
+        The mesh axis the batch is split over (default ``"data"`` when
+        the mesh has it).
+    grad_compression : None, "int8", "bf16" or "fp8"
+        The explicit mode: gradients reduced over flat buckets through
+        that wire format (``collectives.psum_compressed``).
+    error_feedback : bool, optional
+        Carry each member's quantization error into the next step (default
+        on for int8/fp8 with ``grad_accum == 1``).
+    shard_optimizer : bool
+        ZeRO: each member holds and updates a slice of the optimizer state.
+    grad_bucket_bytes : int, optional
+        Bucket size of the fused update's layout and of the explicit
+        reduction (default 4 MiB).
     initializer : Initializer, optional
         Default ``Uniform(0.07)``; draws from a ``torch.Generator`` seeded
         with ``seed``, which also keys the graph's sampling ops.
@@ -204,6 +267,7 @@ class ShardedTrainer:
         ``"dynamic"``; ``resilience.py``).
     device : the card unless the caller asks for the CPU
         (``device="cpu"``); raises when CUDA is asked for and absent.
+        With a mesh, its first member's device.
     """
 
     def __init__(self, symbol, optimizer="sgd", optimizer_params=None,
@@ -220,14 +284,9 @@ class ShardedTrainer:
                  loss_scale=None,
                  guard_params: Optional[Dict[str, Any]] = None,
                  logger=None, device=None, seed: int = 0):
-        for what, val in (("mesh", mesh), ("rules", rules),
-                          ("data_axis", data_axis),
-                          ("grad_compression", grad_compression),
-                          ("error_feedback", error_feedback)):
-            if val is not None:
-                raise not_ported(f"ShardedTrainer({what}=...)")
-        if shard_optimizer:
-            raise not_ported("ShardedTrainer(shard_optimizer=True)")
+        if rules is not None:
+            raise not_ported("ShardedTrainer(rules=...) (tensor "
+                             "parallelism)")
         if matmul_precision is not None \
                 and matmul_precision not in _MATMUL_PRECISION:
             raise MXNetError(
@@ -237,7 +296,7 @@ class ShardedTrainer:
         self.grad_accum = int(grad_accum)
         if self.grad_accum < 1:
             raise MXNetError("grad_accum must be >= 1")
-        self.device = resolve_device(device)
+        self._set_mesh(mesh, data_axis, device)
         self.compute_dtype = _torch_dtype(compute_dtype)
         self.symbol = symbol
         self.initializer = initializer or Uniform(0.07)
@@ -247,6 +306,30 @@ class ShardedTrainer:
         self.optimizer = optimizer
         self.grad_bucket_bytes = (int(grad_bucket_bytes) if grad_bucket_bytes
                                   else DEFAULT_BUCKET_BYTES)
+        self.shard_optimizer = bool(shard_optimizer)
+        self.grad_compression = check_compression(grad_compression)
+        if grad_compression is not None and self.data_axis is None:
+            raise MXNetError("grad_compression needs a data axis to "
+                             "reduce over; this mesh has none")
+        # error feedback: one residual a bucket a member, on by default
+        # for the lossy formats; grad_accum > 1 reduces once a
+        # microbatch, where a step's residual has no home
+        if error_feedback is None:
+            self.error_feedback = (
+                self.grad_compression is not None and self.grad_accum == 1
+                and quant_mod.error_feedback_default(self.grad_compression))
+        else:
+            if error_feedback and self.grad_compression is None:
+                raise MXNetError("error_feedback=True needs a lossy "
+                                 "grad_compression to feed back from")
+            if error_feedback and self.grad_accum > 1:
+                logging.getLogger(__name__).warning(
+                    "error_feedback=True does not compose with "
+                    "grad_accum=%d (reduction runs inside the "
+                    "microbatch scan); disabling error feedback for "
+                    "this trainer", self.grad_accum)
+                error_feedback = False
+            self.error_feedback = bool(error_feedback)
         self._generator = torch.Generator().manual_seed(int(seed))
         self._seed = int(seed)
         self._node_generators: Dict[int, torch.Generator] = {}
@@ -296,6 +379,46 @@ class ShardedTrainer:
         # background compile restores the state its warm-up changed)
         self._step_lock = threading.RLock()
 
+    def _set_mesh(self, mesh, data_axis, device) -> None:
+        """The mesh, its data axis and the members' devices.  Without a
+        mesh: a data mesh over every local device of ``device``'s
+        platform (one member on the CPU), or over ``device`` alone when
+        it names an index."""
+        if mesh is None:
+            dev = resolve_device(device)
+            named = (isinstance(device, Context)
+                     or (isinstance(device, torch.device)
+                         and device.index is not None)
+                     or (isinstance(device, str) and ":" in device))
+            mesh = (make_mesh({DATA_AXIS: 1}, [as_context(dev)]) if named
+                    else data_parallel_mesh(device_type=(
+                        "cpu" if dev.type == "cpu" else "gpu")))
+        elif not isinstance(mesh, Mesh):
+            raise MXNetError(f"mesh must be a parallel.Mesh, got "
+                             f"{type(mesh).__name__}")
+        self.mesh = mesh
+        if data_axis is None:
+            # a mesh without a data axis replicates the batch
+            self.data_axis = (DATA_AXIS if DATA_AXIS in mesh.axis_names
+                              else None)
+        else:
+            if data_axis not in mesh.axis_names:
+                raise MXNetError(f"mesh has no axis {data_axis!r}; "
+                                 f"axes: {mesh.axis_names}")
+            self.data_axis = data_axis
+        ndata = mesh.shape[self.data_axis] if self.data_axis else 1
+        if mesh.size != ndata:
+            raise not_ported("ShardedTrainer over mesh axes other than the "
+                             "data axis (model parallelism)")
+        self._members = mesh.members
+        # resolve_device raises for a CUDA member without CUDA: a member
+        # never falls back to the CPU
+        self._devices = [resolve_device(m) for m in self._members]
+        self.device = self._devices[0]
+        if device is not None and resolve_device(device) != self.device:
+            raise MXNetError(f"device {device} is not the mesh's first "
+                             f"member {self._members[0]}")
+
     # ------------------------------------------------------------------
     # Bind: infer shapes, initialize and place params, lay out the state
     # ------------------------------------------------------------------
@@ -312,11 +435,12 @@ class ShardedTrainer:
         sym = self.symbol
         input_shapes = dict(data_shapes)
         input_shapes.update(label_shapes or {})
+        ndata = len(self._members)
         for name, shape in input_shapes.items():
-            if shape[0] % self.grad_accum:
+            if shape[0] % (ndata * self.grad_accum):
                 raise MXNetError(
                     f"global batch {shape[0]} for {name!r} not divisible by "
-                    f"data-axis size 1 x grad_accum {self.grad_accum}")
+                    f"data-axis size {ndata} x grad_accum {self.grad_accum}")
         arg_names = sym.list_arguments()
         self._input_names = [n for n in arg_names if n in input_shapes]
         self._label_names = [n for n in arg_names
@@ -332,6 +456,18 @@ class ShardedTrainer:
         self._input_shapes = {n: tuple(input_shapes[n])
                               for n in self._input_names}
         self._topo = sym._topo()
+        # a cross-row statistic in the graph: implicit-mode members meet
+        # in threads to count every member's rows
+        self._sync_nodes = any(_synced_statistic(n) for n in self._topo
+                               if not n.is_variable)
+        if ndata > 1 and self.grad_compression is None:
+            why = _rows_combined(sym, self._topo, input_shapes)
+            if why is not None:
+                raise not_ported(
+                    f"ShardedTrainer over {ndata} members in the implicit "
+                    f"mode: {why}, which the members' split batch would "
+                    "compute per member (the JAX trainer computes it over "
+                    "the global batch)")
 
         def host_value(name, shape, given):
             nd = nd_zeros(shape, ctx=cpu())
@@ -366,15 +502,25 @@ class ShardedTrainer:
                 self._wd_mult[n] = 0.0
             else:
                 self._wd_mult[n] = 1.0
+        plans = {n: self._zero_plan(shape_of[n]) for n in self._param_names}
+        self._zero_specs = {n: p[0] for n, p in plans.items()}
+        self._zero_flat = {n: p[1] for n, p in plans.items()}
+        if self.shard_optimizer:
+            flat = [n for n, (_, fl) in plans.items() if fl is not None]
+            self.logger.info(
+                "ZeRO: %d params dim-sharded, %d flatten-pad-sharded, "
+                "0 TP-rule-sharded, 0 replicated",
+                len(self._param_names) - len(flat), len(flat))
         self._setup_fused(shape_of)
         if self._fused:
             self._layout_fused(host)
         else:
             self._params = {n: host[n].to(self.device).requires_grad_(True)
                             for n in self._param_names}
-            self._opt_state = {
+            self._opt_state = ({} if self.shard_optimizer else {
                 n: opt.state_zeros_like(self._params[n].detach())
-                for n in self._param_names}
+                for n in self._param_names})
+        self._layout_members(host)
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
         # step scalars, refilled in place each step (a fill launches a
@@ -413,6 +559,8 @@ class ShardedTrainer:
         if kind is None:
             why.append(f"optimizer {type(self.optimizer).__name__} has no "
                        "fused twin")
+        if self.shard_optimizer:
+            why.append("shard_optimizer (ZeRO state layout)")
         if any(int(np.prod(shape_of[n], dtype=np.int64)) == 0
                for n in self._param_names):
             why.append("zero-size params")
@@ -481,6 +629,126 @@ class ShardedTrainer:
         self._fused_route = fu.kernel_form(self._flat_w, self._flat_wd,
                                            *self._flat_state)
 
+    def _zero_plan(self, shape: Tuple[int, ...]
+                   ) -> Tuple[PartitionSpec, Optional[int]]:
+        """The JAX trainer's ZeRO placement of one parameter's optimizer
+        state: ``(spec, flat_padded_len)``.  Without ZeRO, replicated.
+        With it, the first dimension the member count divides is cut over
+        the data axis; a parameter with none (biases, BN scales) keeps its
+        state flattened and padded to a multiple of the member count."""
+        if not self.shard_optimizer or self.data_axis is None:
+            return PartitionSpec(), None
+        n = len(self._members)
+        for dim, size in enumerate(shape):
+            if size % n == 0 and size > 0:
+                spec = [None] * len(shape)
+                spec[dim] = self.data_axis
+                return PartitionSpec(*spec), None
+        numel = int(np.prod(shape)) if shape else 1
+        return PartitionSpec(self.data_axis), -(-numel // n) * n
+
+    def _zero_dim(self, name: str) -> int:
+        """The dimension a parameter's ZeRO state is cut along (0 for
+        the flattened layout)."""
+        spec = self._zero_specs[name]
+        return 0 if self._zero_flat[name] is not None \
+            else list(spec).index(self.data_axis)
+
+    def _zero_view(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (parameter-shaped) in the layout its ZeRO state is cut
+        in: as it is, or flattened and zero-padded."""
+        flat_len = self._zero_flat[name]
+        if flat_len is None:
+            return t
+        flat = t.reshape(-1)
+        return torch.nn.functional.pad(flat, (0, flat_len - flat.numel()))
+
+    def _layout_members(self, host: Dict[str, torch.Tensor]) -> None:
+        """The other members' replicas of the parameters and aux states
+        (the lead's are ``_params``/``_aux``), the ZeRO state slices and
+        the error-feedback residuals, each on its member's device."""
+        self._replicas: List[Dict[str, Any]] = []
+        for dev in self._devices[1:]:
+            rep: Dict[str, Any] = {"aux": {n: v.to(dev, copy=True)
+                                           for n, v in self._aux.items()}}
+            if self._fused:
+                flat = self._flat_w.detach().to(dev, copy=True)
+                offs, plan = self._fused_plan.offsets, self._fused_plan
+                rep["flat_w"] = flat
+                rep["params"] = {n: flat[offs[n]:offs[n] + int(
+                    np.prod(plan.shapes[n]))].view(plan.shapes[n])
+                    .requires_grad_(True) for n in self._param_names}
+            else:
+                rep["params"] = {n: host[n].detach().to(dev, copy=True)
+                                 .requires_grad_(True)
+                                 for n in self._param_names}
+            self._replicas.append(rep)
+        self._zero_state: List[Dict[str, Any]] = []
+        if self.shard_optimizer:
+            opt = self.optimizer
+            for i, dev in enumerate(self._devices):
+                states = {}
+                for n in self._param_names:
+                    full = self._zero_view(n, host[n].detach())
+                    piece = full.chunk(len(self._devices),
+                                       self._zero_dim(n))[i]
+                    states[n] = opt.state_zeros_like(
+                        torch.zeros(piece.shape, dtype=piece.dtype,
+                                    device=dev))
+                self._zero_state.append(states)
+        self._ef_res: List[List[torch.Tensor]] = []
+        if self.error_feedback:
+            lens = self._grad_bucket_lens()
+            self._ef_res = [[torch.zeros(n, dtype=torch.float32, device=dev)
+                             for n in lens] for dev in self._devices]
+
+    def _grad_bucket_lens(self) -> List[int]:
+        """Element count of every gradient bucket of the explicit
+        reduction, in its order (reversed parameters, greedy fill): the
+        error-feedback residuals' sizes."""
+        counts = [int(np.prod(self._params[n].shape))
+                  for n in reversed(self._param_names)]
+        counts = [c for c in counts if c > 0]
+        plan = plan_buckets(counts, 4, self.grad_bucket_bytes)
+        return [sum(s1 - s0 for _, s0, s1 in b) for b in plan]
+
+    def _member_params(self, i: int) -> Dict[str, torch.Tensor]:
+        return self._params if i == 0 else self._replicas[i - 1]["params"]
+
+    def _member_aux(self, i: int) -> Dict[str, torch.Tensor]:
+        return self._aux if i == 0 else self._replicas[i - 1]["aux"]
+
+    def _broadcast(self) -> None:
+        """The lead's parameters and aux states into every other member's
+        replica, in place."""
+        with torch.no_grad():
+            for rep in self._replicas:
+                if self._fused:
+                    rep["flat_w"].copy_(self._flat_w)
+                else:
+                    for n, p in rep["params"].items():
+                        p.copy_(self._params[n])
+                for n, v in rep["aux"].items():
+                    v.copy_(self._aux[n])
+
+    def optimizer_state_bytes_per_device(self) -> int:
+        """Bytes of optimizer state the lead member holds (the ZeRO
+        savings gauge): its state slices under ZeRO, else the whole
+        state, with the weight-decay vector and its error-feedback
+        residuals."""
+        if self.shard_optimizer:
+            trees = list(self._zero_state[0].values())
+        elif self._fused:
+            trees = list(self._flat_state) + (
+                [self._flat_wd] if self._flat_wd is not None else [])
+        else:
+            trees = list(self._opt_state.values())
+        trees += self._ef_res[0] if self._ef_res else []
+        total = 0
+        for t in _leaves(trees):
+            total += t.numel() * t.element_size()
+        return total
+
     # ------------------------------------------------------------------
     # Steps
     # ------------------------------------------------------------------
@@ -491,7 +759,13 @@ class ShardedTrainer:
         passing the result to :meth:`step` skips the copy.  Host tensors
         go to the card from pinned memory with ``non_blocking=True``, on
         the caller's current stream (``fit``'s prefetcher: its side
-        stream)."""
+        stream).  Over several members the result also holds each
+        member's rows on its device (``shards``, :meth:`_shard_batch`)."""
+        return self._place(batch, split=len(self._devices) > 1)
+
+    def _place(self, batch, split: bool) -> Dict[str, torch.Tensor]:
+        """:meth:`place_batch`, with each member's rows (``shards``) when
+        ``split``."""
         if not self._bound:
             raise MXNetError("call bind() before placing or stepping a "
                              "batch")
@@ -517,64 +791,40 @@ class ShardedTrainer:
                      if self.device.type == "cuda"
                      else torch.tensor(np.asarray(v)))
             out[n] = _host_to(v, self.device)
+        if split:
+            out.shards = self._shard_batch(out)
         return out
 
-    def _cast_params(self) -> Dict[str, torch.Tensor]:
-        """The parameters as the forward sees them: float32 ones cast to
-        ``compute_dtype`` (a differentiable cast), the rest as they are."""
+    def _shard_batch(self, batch) -> List[Dict[str, torch.Tensor]]:
+        """Each member's rows of a placed batch, on its device: the batch
+        viewed as ``[grad_accum, members, rows, ...]``, member ``i``
+        taking ``[:, i]``, so that every microbatch is split over the
+        members as the JAX trainer splits it."""
+        n, k = len(self._devices), self.grad_accum
+        if n == 1:
+            return [dict(batch)]
+        shards: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+        for name, v in batch.items():
+            rest = tuple(v.shape[1:])
+            b = v.shape[0] // (k * n)
+            parts = v.reshape((k, n, b) + rest)
+            for i, dev in enumerate(self._devices):
+                piece = parts[:, i].reshape((k * b,) + rest)
+                shards[i][name] = (piece.to(dev, copy=True)
+                                   if dev.type == "cpu"
+                                   else piece.to(dev, non_blocking=True))
+        return shards
+
+    def _cast_params(self, params=None) -> Dict[str, torch.Tensor]:
+        """The parameters (default the lead's) as the forward sees them:
+        float32 ones cast to ``compute_dtype`` (a differentiable cast),
+        the rest as they are."""
+        params = self._params if params is None else params
         cdt = self.compute_dtype
         if cdt is None:
-            return dict(self._params)
+            return dict(params)
         return {n: (p.to(cdt) if p.dtype == torch.float32 else p)
-                for n, p in self._params.items()}
-
-    def _forward_backward(self, placed):
-        """Training forward and backward: ``(heads, grads, aux_updates)``.
-        Each head's cotangent is ones, or the loss scale; under
-        ``grad_accum`` the microbatches run in order and autograd sums
-        their gradients into the same ``.grad``."""
-        for p in self._params.values():
-            p.grad = None
-        k = self.grad_accum
-        scale = (self._guard_state["scale"]
-                 if self._resil is not None and self._resil.scaling
-                 else None)
-        step_key = mix(self._seed, self._num_update)
-        if k == 1:
-            heads, auxu = self._micro(placed, self._aux, GraphKey(
-                step_key, self.device, self._node_generators), scale)
-        else:
-            aux = dict(self._aux)
-            auxu, heads_k = {}, []
-            for i in range(k):
-                mb = {n: v.reshape((k, v.shape[0] // k) + v.shape[1:])[i]
-                      for n, v in placed.items()}
-                heads_i, aux_i = self._micro(mb, aux, GraphKey(
-                    mix(step_key, 0xACC, i), self.device,
-                    self._node_generators), scale)
-                aux.update(aux_i)
-                auxu.update(aux_i)
-                heads_k.append(heads_i)
-            heads = tuple(torch.cat(hs) for hs in zip(*heads_k))
-        grads = {n: (p.grad if p.grad is not None
-                     else torch.zeros_like(p, requires_grad=False))
-                 for n, p in self._params.items()}
-        return heads, grads, auxu
-
-    def _micro(self, placed, aux, key, scale):
-        """One forward and backward over ``placed`` with aux states
-        ``aux``; the gradients land in the parameters' ``.grad``.
-        Returns the detached heads and aux updates."""
-        args = self._cast_params()
-        args.update(placed)
-        heads, auxu = eval_symbol(self.symbol, args, aux, key, True,
-                                  topo=self._topo)
-        live = [h for h in heads if h.requires_grad]
-        cots = [torch.ones_like(h) if scale is None
-                else scale.to(h.dtype).expand(h.shape) for h in live]
-        torch.autograd.backward(live, cots)
-        return (tuple(h.detach() for h in heads),
-                {k_: v.detach() for k_, v in auxu.items()})
+                for n, p in params.items()}
 
     def step(self, batch) -> List[torch.Tensor]:
         """Run one training step; returns the head outputs.  ``batch`` may
@@ -586,8 +836,8 @@ class ShardedTrainer:
         forward, backward and update for the update number and rate
         already in ``_t_dev``/``_lr_dev``; returns the heads."""
         with matmul_precision_scope(self.matmul_precision):
-            heads, grads, auxu = self._forward_backward(placed)
-            self._apply_update(grads, auxu)
+            heads, grads, auxu, sq, new_ef = self._forward_backward(placed)
+            self._finish_step(grads, auxu, sq, new_ef)
         return heads
 
     def _train(self, placed, carry=None):
@@ -647,16 +897,22 @@ class ShardedTrainer:
         return float(opt.lr_scheduler(self._num_update) if opt.lr_scheduler
                      else opt.lr) * self._lr_scale
 
-    def _apply_update(self, grads: Dict[str, torch.Tensor],
-                      auxu: Dict[str, torch.Tensor]) -> None:
+    def _apply_update(self, grads: Optional[Dict[str, torch.Tensor]],
+                      auxu: Dict[str, torch.Tensor], sq=None,
+                      buckets=None):
         """The update half of the JAX ``train_step`` for update number
-        ``self._num_update``: guard scalars, then the fused or unfused
-        optimizer step, then the aux states."""
+        ``self._num_update``: guard scalars, then the fused, unfused or
+        ZeRO optimizer step, then the aux states.  The explicit mode
+        passes the guard's square sum ``sq`` taken over its reduced
+        buckets, and with the fused update the buckets themselves
+        (``grads`` None).  Returns the guard's verdict (None without
+        the guard)."""
         resil = self._resil
         with torch.no_grad():
             ok = mult = eff_norm = None
             if resil is not None:
-                sq = resilience.tree_sq_sum(grads)
+                if sq is None:
+                    sq = resilience.tree_sq_sum(grads)
                 ok = torch.isfinite(sq)
                 eff_norm = torch.sqrt(sq) * float(
                     abs(self._rescale_grad) or 1.0)
@@ -674,7 +930,9 @@ class ShardedTrainer:
                 if mult is not None and not self._fused:
                     grads = {n: g * mult for n, g in grads.items()}
             if self._fused:
-                self._fused_apply(grads, mult, ok)
+                self._fused_apply(grads, mult, ok, buckets)
+            elif self.shard_optimizer:
+                self._zero_apply(grads, ok)
             else:
                 self._unfused_apply(grads, ok)
             # state is written in place: a captured step reads and
@@ -687,12 +945,15 @@ class ShardedTrainer:
             else:
                 for k, v in auxu.items():
                     self._aux[k].copy_(v)
+        return ok
 
-    def _fused_apply(self, grads, mult, ok) -> None:
+    def _fused_apply(self, grads, mult, ok, buckets=None) -> None:
         """The hopper form: one kernel launch a step over the gradients
         in plan order; the bucket form: a gather into one flat gradient
-        and one launch per bucket.  The scalar chain mirrors the unfused
-        step op for op, so the result is bitwise the same."""
+        and one launch per bucket, or with ``buckets`` (the explicit
+        mode's reduced flat buckets, in plan order) a launch per bucket
+        over them as they are.  The scalar chain mirrors the unfused step
+        op for op, so the result is bitwise the same."""
         opt = self.optimizer
         kind = self._fused_kind
         lr_eff = self._lr_dev * float(next(iter(self._lr_mult.values())))
@@ -715,15 +976,17 @@ class ShardedTrainer:
             wd=wd_common, rescale_grad=self._rescale_grad,
             clip_gradient=opt._hyper().get("clip_gradient"))
         order = self._fused_plan.order
-        if self._fused_route == "hopper":
+        if buckets is None and self._fused_route == "hopper":
             fu.fused_update_params([grads[n] for n in order], self._flat_w,
                                    self._flat_state, self._chunk_plan,
                                    scalars, wd_vec=self._flat_wd, **common)
             return
-        g_flat = torch.cat([grads[n].reshape(-1) for n in order])
-        for b0, b1_ in self._bucket_bounds:
+        if buckets is None:
+            g_flat = torch.cat([grads[n].reshape(-1) for n in order])
+            buckets = [g_flat[b0:b1_] for b0, b1_ in self._bucket_bounds]
+        for g, (b0, b1_) in zip(buckets, self._bucket_bounds):
             fu.fused_update(
-                g_flat[b0:b1_], self._flat_w[b0:b1_],
+                g, self._flat_w[b0:b1_],
                 tuple(s[b0:b1_] for s in self._flat_state), scalars,
                 wd_vec=(None if self._flat_wd is None
                         else self._flat_wd[b0:b1_]),
@@ -751,11 +1014,258 @@ class ShardedTrainer:
             p.copy_(w2)
             _copy_tree(self._opt_state[n], s2)
 
+    # ------------------------------------------------------------------
+    # The step over the mesh members: forward, backward, reductions, ZeRO
+    # ------------------------------------------------------------------
+
+    def _forward_backward(self, placed):
+        """Training forward and backward over the mesh members (the JAX
+        ``train_step``, with its manual region in explicit mode): per
+        microbatch, every member's forward and backward on its rows, the
+        gradients reduced over the members and summed over microbatches.
+        Each head's cotangent is ones, or the loss scale.  Returns
+        ``(heads, grads, aux updates, square sum, new residuals)``: the
+        heads in the batch's row order on the lead's device; ``grads``
+        per parameter, or with :meth:`_bucket_out` the reduced flat
+        buckets in plan order; the guard's square sum over the reduced
+        buckets (explicit mode without ``grad_accum``, else None); the
+        members' new error-feedback residuals (or None).  One member runs
+        in this thread, and its step can be captured as a graph."""
+        shards = placed.shards if getattr(placed, "shards", None) \
+            else self._shard_batch(placed)
+        n, k = len(self._devices), self.grad_accum
+        explicit = self.grad_compression is not None
+        ef = bool(self._ef_res)
+        bucket_out = self._bucket_out()
+        scale = (self._guard_state["scale"]
+                 if self._resil is not None and self._resil.scaling
+                 else None)
+        step_key = mix(self._seed, self._num_update)
+        auxs = [dict(self._member_aux(i)) for i in range(n)]
+        heads_k: List[List[Tuple[torch.Tensor, ...]]] = []
+        grads = sq = new_ef = None
+        auxu: Dict[str, torch.Tensor] = {}
+        for j in range(k):
+            if k == 1:
+                mbs, key = shards, step_key
+            else:
+                mbs = [{nm: v.reshape((k, v.shape[0] // k) + v.shape[1:])[j]
+                        for nm, v in sh.items()} for sh in shards]
+                key = mix(step_key, 0xACC, j)
+            heads_j, aux_j, member_grads = self._run_members(
+                mbs, auxs, key, scale, local=explicit)
+            heads_k.append(heads_j)
+            if explicit:
+                red, sq_j, new_ef = self._reduce_explicit(
+                    member_grads, self._ef_res if ef else None, bucket_out)
+                if k == 1:
+                    sq = sq_j
+            else:
+                red = {nm: psum([g[nm] for g in member_grads])[0]
+                       for nm in self._param_names}
+            if grads is None:
+                grads = red
+            else:
+                grads = {nm: grads[nm] + red[nm] for nm in grads}
+            # the next microbatch sees this one's aux updates
+            auxu.update(aux_j)
+            for i in range(n):
+                auxs[i].update({nm: v.to(self._devices[i])
+                                for nm, v in aux_j.items()})
+        pieces = [hs[i] for hs in heads_k for i in range(n)]
+        heads = pieces[0] if len(pieces) == 1 else tuple(
+            torch.cat([p[q].to(self.device) for p in pieces])
+            for q in range(len(pieces[0])))
+        return heads, grads, auxu, sq, new_ef
+
+    def _bucket_out(self) -> bool:
+        """Whether the explicit reduction hands its flat buckets straight
+        to the fused update (K2's bucket form, no scatter back)."""
+        return (self.grad_compression is not None and self._fused
+                and self.grad_accum == 1)
+
+    def _finish_step(self, grads, auxu, sq=None, new_ef=None) -> None:
+        """The update from :meth:`_forward_backward`'s results: the lead's
+        optimizer step and aux states, the error-feedback residuals, and
+        the new state copied to the other members."""
+        bucket_out = self._bucket_out()
+        with torch.no_grad():
+            ok = self._apply_update(None if bucket_out else grads, auxu,
+                                    sq, grads if bucket_out else None)
+            if new_ef is not None and self._ef_res:
+                # a bad step keeps the old residual: the new one came from
+                # non-finite gradients
+                for i, (old, new) in enumerate(zip(self._ef_res, new_ef)):
+                    okd = None if ok is None else ok.to(self._devices[i])
+                    for o, nw in zip(old, new):
+                        o.copy_(nw if okd is None else torch.where(okd, nw, o))
+            self._broadcast()
+
+    def _run_members(self, mbs, auxs, key, scale, local: bool):
+        """Forward and backward of every member on its rows ``mbs[i]``
+        with aux states ``auxs[i]``.  ``local`` (explicit mode): each
+        member's statistics are its own and its key is folded with its
+        index; else (implicit mode) members whose graph has a cross-row
+        statistic run in threads that meet there.  One backward over all
+        members' heads.  Returns the heads per member, the aux updates
+        (implicit: the lead's, which every member computed alike;
+        explicit: their mean over members) and each member's gradients."""
+        n = len(self._devices)
+        for i in range(n):
+            for p in self._member_params(i).values():
+                p.grad = None
+        fold = local or n > 1
+        keys = [GraphKey(mix(key, i) if fold else key, dev,
+                         self._member_generators(i))
+                for i, dev in enumerate(self._devices)]
+
+        def forward(i, sync):
+            args = self._cast_params(self._member_params(i))
+            args.update(mbs[i])
+            return eval_symbol(self.symbol, args, auxs[i], keys[i], True,
+                               topo=self._topo, sync=sync)
+
+        if local or n == 1 or not self._sync_nodes:
+            outs = [forward(i, None) for i in range(n)]
+        else:
+            outs = _run_synced(forward, self._devices)
+        live, cots = [], []
+        for i, (heads, _) in enumerate(outs):
+            sc = None if scale is None else scale.to(self._devices[i])
+            for h in heads:
+                if h.requires_grad:
+                    live.append(h)
+                    cots.append(torch.ones_like(h) if sc is None
+                                else sc.to(h.dtype).expand(h.shape))
+        torch.autograd.backward(live, cots)
+        member_grads = []
+        for i in range(n):
+            g = {}
+            for nm, p in self._member_params(i).items():
+                g[nm] = (p.grad if p.grad is not None
+                         else torch.zeros_like(p, requires_grad=False))
+                p.grad = None
+            member_grads.append(g)
+        heads = [tuple(h.detach() for h in o[0]) for o in outs]
+        if local and n > 1:
+            # pmean of the aux updates, in member order
+            auxu = {nm: psum([o[1][nm].detach() for o in outs])[0] / n
+                    for nm in outs[0][1]}
+        else:
+            auxu = {nm: v.detach() for nm, v in outs[0][1].items()}
+        return heads, auxu, member_grads
+
+    def _member_generators(self, i: int) -> Dict[int, torch.Generator]:
+        """Member ``i``'s cache of sampling generators (one a node)."""
+        if i == 0:
+            return self._node_generators
+        gens = getattr(self, "_member_gens", None)
+        if gens is None:
+            gens = self._member_gens = {}
+        return gens.setdefault(i, {})
+
+    def _reduce_explicit(self, member_grads, ef_res, bucket_out: bool):
+        """The JAX trainer's ``reduce_grads``: gradients in
+        ``reversed(param_names)`` order, grouped by dtype, cut into flat
+        buckets, each reduced by ``psum_compressed`` (with the members'
+        residuals under error feedback); the guard's square sum over the
+        reduced buckets.  Returns ``(per-parameter gradients or, with
+        bucket_out, the reduced flat buckets in plan order, square sum,
+        new residuals per member)``."""
+        comp = self.grad_compression
+        grads0 = member_grads[0]
+        order = [nm for nm in reversed(self._param_names) if nm in grads0]
+        by_dtype: Dict[Any, List[str]] = {}
+        for nm in order:
+            by_dtype.setdefault(grads0[nm].dtype, []).append(nm)
+        out = dict(grads0)
+        flat_buckets: List[torch.Tensor] = []
+        new_ef: List[List[torch.Tensor]] = [[] for _ in member_grads]
+        bidx = 0
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for dtype, names in by_dtype.items():
+            names = [nm for nm in names if grads0[nm].numel() > 0]
+            if not names:
+                continue
+            counts = [grads0[nm].numel() for nm in names]
+            plan = plan_buckets(counts, grads0[names[0]].element_size(),
+                                self.grad_bucket_bytes)
+            pieces: Dict[str, List[torch.Tensor]] = {nm: [] for nm in names}
+            for bucket in plan:
+                flats = []
+                for g in member_grads:
+                    segs = [g[names[pi]].reshape(-1)[s0:s1]
+                            for pi, s0, s1 in bucket]
+                    flats.append(segs[0] if len(segs) == 1
+                                 else torch.cat(segs))
+                if ef_res is not None:
+                    reds, nres = psum_compressed(
+                        flats, comp, residuals=[r[bidx] for r in ef_res])
+                    for i, r in enumerate(nres):
+                        new_ef[i].append(r)
+                else:
+                    reds = psum_compressed(flats, comp)
+                bidx += 1
+                red = reds[0]
+                if self._resil is not None:
+                    sq = sq + torch.sum(torch.square(red.to(torch.float32)))
+                if bucket_out:
+                    flat_buckets.append(red)
+                    continue
+                off = 0
+                for pi, s0, s1 in bucket:
+                    pieces[names[pi]].append(red[off:off + (s1 - s0)])
+                    off += s1 - s0
+            if bucket_out:
+                continue
+            for nm in names:
+                ps = pieces[nm]
+                flat = ps[0] if len(ps) == 1 else torch.cat(ps)
+                out[nm] = flat.reshape(grads0[nm].shape)
+        return (flat_buckets if bucket_out else out), \
+            (sq if self._resil is not None else None), new_ef
+
+    def _zero_apply(self, grads, ok) -> None:
+        """ZeRO: each member runs ``optimizer._functional_step`` on its
+        slice of every parameter (flattened and padded where no dimension
+        divides), with its state slice, gated by ``ok``; the updated
+        slices are gathered into the lead's parameter."""
+        opt = self.optimizer
+        hyper = opt._hyper()
+        hyper["rescale_grad"] = self._rescale_grad
+        step_fn = type(opt)._functional_step
+        n = len(self._devices)
+        per_dev = [(self._lr_dev.to(d), self._t_dev.to(d),
+                    None if ok is None else ok.to(d)) for d in self._devices]
+        for nm in self._param_names:
+            p = self._params[nm]
+            dim = self._zero_dim(nm)
+            ws = self._zero_view(nm, p.detach()).chunk(n, dim)
+            gs = self._zero_view(nm, grads[nm]).chunk(n, dim)
+            new = []
+            for i, dev in enumerate(self._devices):
+                lr, t, okd = per_dev[i]
+                w, g = ws[i].to(dev), gs[i].to(dev)
+                state = self._zero_state[i][nm]
+                w2, s2 = step_fn(hyper, w, g, state,
+                                 lr * float(self._lr_mult[nm]),
+                                 opt.wd * self._wd_mult[nm], t,
+                                 self._step_rng)
+                if okd is not None:
+                    w2 = torch.where(okd, w2, w)
+                    s2 = _gate(okd, s2, state)
+                _copy_tree(state, s2)
+                new.append(w2.to(self.device))
+            full = torch.cat(new, dim)
+            if self._zero_flat[nm] is not None:
+                full = full[:p.numel()].reshape(p.shape)
+            p.copy_(full)
+
     def forward(self, batch) -> List[torch.Tensor]:
         """Inference forward (moving statistics, no aux update)."""
         if not self._bound:
             raise MXNetError("call bind() before forward()")
-        placed = self.place_batch(batch)
+        placed = self._place(batch, split=False)
         with self._step_lock:
             self._eval_count += 1
             prog = self._program_for("eval", placed)
@@ -822,20 +1332,26 @@ class ShardedTrainer:
         return _clone_tree(outs)
 
     def _state_tensors(self) -> List[torch.Tensor]:
-        """Every tensor a step writes: weights, optimizer state, aux,
-        guard state, the step scalars."""
+        """Every tensor a step writes: weights, optimizer state (ZeRO's
+        slices), error-feedback residuals, aux, guard state, the step
+        scalars."""
         if self._fused:
             ts = [self._flat_w, *self._flat_state]
         else:
             ts = [p.detach() for p in self._params.values()]
-            for leaves in self.opt_state_by_param().values():
-                ts += list(leaves)
+            ts += _leaves(self._zero_state if self.shard_optimizer
+                          else self._opt_state)
+        ts += _leaves(self._ef_res)
         ts += list(self._aux.values())
         if self._guard_state is not None:
             ts += list(self._guard_state.values())
         return ts + [self._lr_dev, self._t_dev]
 
     def _uncapturable(self) -> Optional[str]:
+        if len(self._devices) > 1:
+            return ("a mesh path over several members runs eagerly (a CUDA "
+                    "graph holds one device's work; the members' threads "
+                    "meet on the host)")
         why = cc.graph_uncapturable(self._topo)
         if why is None and self.optimizer._needs_rng:
             why = (f"optimizer {type(self.optimizer).__name__} draws noise "
@@ -864,6 +1380,10 @@ class ShardedTrainer:
             "fused": self._fused_kind if self._fused else None,
             "fused_wd_vec": bool(self._fused and not self._fused_wd_uniform),
             "fused_route": self._fused_route if self._fused else None,
+            "data_axis": self.data_axis,
+            "shard_optimizer": self.shard_optimizer,
+            "grad_compression": self.grad_compression,
+            "error_feedback": self.error_feedback,
             "resilience": (self._resil.describe()
                            if self._resil is not None else None),
         }
@@ -871,7 +1391,7 @@ class ShardedTrainer:
         donate = () if kind == "eval" else (0, 1, 2)
         return cc.program_key(self._graph_fp, avals, donate=donate,
                               backend=cc.backend_of(self.device),
-                              extra=extra)
+                              mesh=self.mesh, extra=extra)
 
     def _norm_batch_spec(self, spec) -> Dict[str, Tuple[Tuple, Any]]:
         """One batch spec -> ``{input: (shape, torch dtype)}``: each value
@@ -1006,11 +1526,16 @@ class ShardedTrainer:
             for n, v in (aux_params or {}).items():
                 if n in self._aux:
                     NDArray(self._aux[n])[:] = v
+        self._broadcast()
 
     def opt_state_by_param(self) -> Dict[str, Tuple[torch.Tensor, ...]]:
         """Optimizer state per parameter name, as a tuple of tensors in
         the optimizer's state order, whatever the layout (flat buckets on
         the fused path)."""
+        if self.shard_optimizer:
+            return {n: tuple(self._zero_gather(n, li) for li in range(
+                len(_leaves(self._zero_state[0][n]))))
+                for n in self._param_names}
         if not self._fused:
             out = {}
             for n, s in self._opt_state.items():
@@ -1027,6 +1552,18 @@ class ShardedTrainer:
                          .view(plan.shapes[n]) for s in self._flat_state)
                 for n in self._param_names}
 
+    def _zero_gather(self, name: str, leaf: int,
+                     padded: bool = False) -> torch.Tensor:
+        """Leaf ``leaf`` of a parameter's ZeRO state, the members' slices
+        end to end on the lead's device: parameter-shaped, or with
+        ``padded`` in its cut layout (flat and padded where it is)."""
+        full = torch.cat([_leaves(st[name])[leaf].to(self.device)
+                          for st in self._zero_state], self._zero_dim(name))
+        if padded or self._zero_flat[name] is None:
+            return full
+        shape = self._params[name].shape
+        return full[:int(np.prod(shape))].reshape(shape)
+
     # ------------------------------------------------------------------
     # Checkpoints: params, aux, optimizer state, update count, guard
     # ------------------------------------------------------------------
@@ -1036,13 +1573,45 @@ class ShardedTrainer:
         ``opt:<param>:<leaf>``; fused, ``opt:fused:<bucket>:<leaf>``, each
         bucket a slice of the flat state buffers (the per-element weight
         decay vector is bind-time configuration, never saved)."""
-        if not self._fused:
-            return {f"opt:{n}:{i}": leaf
-                    for n, leaves in self.opt_state_by_param().items()
-                    for i, leaf in enumerate(leaves)}
-        return {f"opt:fused:{b}:{i}": flat[b0:b1]
-                for b, (b0, b1) in enumerate(self._bucket_bounds)
-                for i, flat in enumerate(self._flat_state)}
+        if self.shard_optimizer:
+            # the JAX package's global arrays: the slices end to end
+            out = {f"opt:{n}:{i}": self._zero_gather(n, i, padded=True)
+                   for n in self._param_names
+                   for i in range(len(_leaves(self._zero_state[0][n])))}
+        elif not self._fused:
+            out = {f"opt:{n}:{i}": leaf
+                   for n, leaves in self.opt_state_by_param().items()
+                   for i, leaf in enumerate(leaves)}
+        else:
+            out = {f"opt:fused:{b}:{i}": flat[b0:b1]
+                   for b, (b0, b1) in enumerate(self._bucket_bounds)
+                   for i, flat in enumerate(self._flat_state)}
+        # each member's error-feedback residual of bucket b, end to end
+        for b in range(len(self._ef_res[0]) if self._ef_res else 0):
+            out[f"opt:efres:{b}:0"] = torch.cat(
+                [r[b].to(self.device) for r in self._ef_res])
+        return out
+
+    def _scatter_opt_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Write restored ZeRO slices and residuals back to their
+        members (the other optimizer arrays are views of live state)."""
+        n = len(self._devices)
+        with torch.no_grad():
+            for name in self._param_names if self.shard_optimizer else ():
+                dim = self._zero_dim(name)
+                for li in range(len(_leaves(self._zero_state[0][name]))):
+                    full = torch.from_numpy(np.ascontiguousarray(
+                        arrays[f"opt:{name}:{li}"]))
+                    for st, piece in zip(self._zero_state,
+                                         full.chunk(n, dim)):
+                        _leaves(st[name])[li].copy_(piece)
+            for b in range(len(self._ef_res[0]) if self._ef_res else 0):
+                key = f"opt:efres:{b}:0"
+                if key not in arrays:
+                    continue
+                full = torch.from_numpy(np.ascontiguousarray(arrays[key]))
+                for res, piece in zip(self._ef_res, full.chunk(n)):
+                    res[b].copy_(piece)
 
     def _state_arrays(self) -> Dict[str, torch.Tensor]:
         """The full trainer state as ``{name: tensor}``: ``param:<n>``,
@@ -1069,7 +1638,7 @@ class ShardedTrainer:
                 "num_update": int(self._num_update),
                 "optimizer": type(self.optimizer).__name__,
                 "torch_seed": int(self._seed),
-                "data_axis_size": 1}
+                "data_axis_size": len(self._members)}
         if extra_meta:
             meta.update(extra_meta)
         keys, vals = [], []
@@ -1154,6 +1723,14 @@ class ShardedTrainer:
                                  f"{manager.directory!r}")
         saved = layout.read_manifest(manager.step_path(step))["arrays"]
         missing = sorted(n for n in mine if n not in saved)
+        if missing and all(n.startswith("opt:efres:") for n in missing):
+            # a checkpoint from before error feedback: the residuals
+            # stay at their bind-time zeros
+            self.logger.warning(
+                "restore_state: checkpoint has no error-feedback "
+                "residuals; starting them at zero")
+            mine = {n: v for n, v in mine.items() if n not in missing}
+            missing = []
         if missing:
             raise MXNetError(
                 f"restore_state: checkpoint step {step} lacks "
@@ -1166,6 +1743,8 @@ class ShardedTrainer:
         with torch.no_grad():
             for n, dst in mine.items():
                 dst.copy_(torch.from_numpy(np.ascontiguousarray(arrays[n])))
+        self._scatter_opt_arrays(arrays)
+        self._broadcast()
         self._num_update = int(meta.get("num_update", step))
         if "torch_seed" in meta:
             self._seed = int(meta["torch_seed"])
@@ -1486,6 +2065,86 @@ class ShardedTrainer:
             prefetch.close()
 
 
+def _synced_statistic(node) -> bool:
+    """Whether an op node takes a statistic over the batch's rows that
+    the implicit mode's members meet to compute (``OpContext.sync``):
+    BatchNorm's moments, a normalized softmax loss's count, the KL
+    sparseness penalty's batch mean."""
+    name = node.op.name
+    if name == "BatchNorm":
+        return not node.parsed_params()["use_global_stats"]
+    if name in ("SoftmaxOutput", "Softmax"):
+        return node.parsed_params()["normalization"] != "null"
+    return name == "IdentityAttachKLSparseReg"
+
+
+# whole-array results: every row of the batch goes into one value
+_WHOLE_ARRAY_OPS = ("sum", "max", "min", "norm", "softmax_cross_entropy")
+# user code, whose rows the trainer cannot see
+_OPAQUE_OPS = ("Custom", "_PythonOp")
+
+
+def _rows_combined(sym, topo, input_shapes) -> Optional[str]:
+    """The first op of ``topo`` that combines or moves rows of the batch
+    (axis 0 of the tensors that depend on the inputs, shaped
+    ``input_shapes``), described, or None.  The implicit mode evaluates
+    each member's rows apart and meets only at the synced statistics
+    (:func:`_synced_statistic`), so such an op would compute another
+    function over several members.  Tensors that do not depend on the
+    batch (parameters) are the same on every member."""
+    internals = sym.get_internals()
+    _, outs, _ = internals.infer_shape_partial(**input_shapes)
+    shape_of = {(id(n), i): s for (n, i), s in zip(internals._heads, outs)}
+    batch = {id(n) for n in topo if n.is_variable and n.name in input_shapes}
+
+    def leading(axes, node) -> bool:
+        """Whether ``axes`` (an int or a tuple, negative from the end)
+        name axis 0 of the node's first input (any negative axis when its
+        rank is unknown)."""
+        axes = (axes,) if isinstance(axes, int) else tuple(axes)
+        shape = shape_of.get((id(node.inputs[0][0]), node.inputs[0][1]))
+        return any(a == 0 or (a < 0 and (shape is None or a == -len(shape)))
+                   for a in axes)
+
+    for node in topo:
+        if node.is_variable:
+            continue
+        deps = [id(src) in batch for src, _ in node.inputs]
+        if not any(deps):
+            continue
+        batch.add(id(node))
+        name = node.op.name
+        p = node.parsed_params()
+        what = None
+        if name in _WHOLE_ARRAY_OPS:
+            what = "reduces the whole array"
+        elif name in _OPAQUE_OPS:
+            what = "is user code over the whole batch"
+        elif name in ("sum_axis", "max_axis", "min_axis") \
+                and leading(p["axis"], node):
+            what = f"reduces over axis {p['axis']}"
+        elif name == "Concat" and leading(p["dim"], node):
+            what = f"concatenates along dim {p['dim']}"
+        elif name in ("slice_axis", "SliceChannel", "flip", "broadcast_axis") \
+                and leading(p["axis"], node):
+            what = f"works along axis {p['axis']}"
+        elif name == "expand_dims" and p["axis"] == 0:
+            what = "puts a new axis before the rows"
+        elif name == "SwapAxis" and p["dim1"] != p["dim2"] \
+                and leading((p["dim1"], p["dim2"]), node):
+            what = f"swaps axes {p['dim1']} and {p['dim2']}"
+        elif name == "transpose" and (not p["axes"] or p["axes"][0] != 0):
+            what = f"moves axis 0 (axes {p['axes'] or 'reversed'})"
+        elif name == "Reshape":
+            tgt = p["target_shape"] or p["shape"]
+            if tgt and tgt[0] not in (0, -1):
+                what = f"fixes the leading dimension ({tuple(tgt)})"
+        elif name == "dot" and deps[1]:
+            what = "contracts over a batch-dependent right operand"
+        if what is not None:
+            return f"op {name} ({node.name}) {what}"
+    return None
+
 def _torch_dtype(name) -> Optional[torch.dtype]:
     """``compute_dtype`` as a torch dtype (None stays None)."""
     if name is None:
@@ -1497,6 +2156,105 @@ def _torch_dtype(name) -> Optional[torch.dtype]:
         raise MXNetError(f"compute_dtype {name!r} is not a floating-point "
                          "dtype")
     return dt
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a state tree (tensors, None, sequences, dicts)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [leaf for t in tree for leaf in _leaves(t)]
+
+
+class _MemberSync:
+    """Where the threads of one step's members meet: call number ``k`` of
+    every member's handle waits for all members' values of that call.
+    Once the forward is done the meeting point closes, so a statistic
+    asked for again (a recompute scope replayed in the backward, on one
+    thread) raises instead of waiting forever."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.closed = False
+        self._barrier = threading.Barrier(n)
+        self._slots: Dict[int, list] = {}
+        self._lock = threading.Lock()
+
+    def exchange(self, i: int, k: int, value) -> list:
+        if self.closed:
+            raise MXNetError(
+                "a batch statistic over mesh members was asked for after "
+                "the forward (a recompute scope with BatchNorm or a "
+                "normalized loss is not supported over several members)")
+        with self._lock:
+            slot = self._slots.setdefault(k, [None] * self.n)
+        slot[i] = value
+        self._barrier.wait()
+        return slot
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
+class _MemberHandle:
+    """One member's side of a :class:`_MemberSync` (``OpContext.sync``):
+    ``allreduce`` sums a tensor over the members in member order on this
+    member's device, differentiably (the sum's gradient reaches every
+    member's input); ``host_sum`` sums a host number."""
+
+    def __init__(self, sync: _MemberSync, i: int):
+        self._sync, self._i, self._calls = sync, i, 0
+
+    def _meet(self, value) -> list:
+        k, self._calls = self._calls, self._calls + 1
+        return self._sync.exchange(self._i, k, value)
+
+    def allreduce(self, t: torch.Tensor) -> torch.Tensor:
+        parts = self._meet(t)
+        acc = parts[0].to(t.device)
+        for p in parts[1:]:
+            acc = acc + p.to(t.device)
+        return acc
+
+    def host_sum(self, x):
+        return sum(self._meet(x))
+
+
+def _run_synced(forward, devices) -> list:
+    """``forward(i, handle)`` for every member in its own thread (on its
+    CUDA device), the members meeting at each cross-row statistic; the
+    first failure aborts the others and is raised."""
+    sync = _MemberSync(len(devices))
+    outs: list = [None] * len(devices)
+    errors: list = []
+
+    def run(i):
+        dev = devices[i]
+        try:
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                outs[i] = forward(i, _MemberHandle(sync, i))
+        except BaseException as exc:
+            errors.append(exc)
+            sync.abort()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True,
+                                name=f"mesh-member-{i}")
+               for i in range(len(devices))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    sync.closed = True
+    if errors:
+        first = next((e for e in errors
+                      if not isinstance(e, threading.BrokenBarrierError)),
+                     errors[0])
+        raise first
+    return outs
 
 
 def _clone_tree(t):

@@ -344,9 +344,9 @@ class LegacyGuard(object):
         """``per_device_grads[k]``: every gradient tensor on device k.
         Returns whether the update should proceed."""
         sqs = [tree_sq_sum(dict(enumerate(gs))) for gs in per_device_grads]
-        # one fetch: the devices' sums stacked where they lie (one device
-        # in the port; slice E brings several)
-        vals = torch.stack(sqs).to("cpu").numpy().astype(np.float64)
+        # one fetch: the devices' sums stacked on the first device
+        vals = torch.stack([s.to(sqs[0].device) for s in sqs]).to(
+            "cpu").numpy().astype(np.float64)
         finite = bool(np.isfinite(vals).all())
         if self.skip_nonfinite and not finite:
             self.skipped_steps += 1
@@ -368,6 +368,13 @@ class LegacyGuard(object):
             if clipped:
                 self.clipped_steps += 1
         return True
+
+    def share_coef(self, num_device: int) -> None:
+        """Device 0's clip coefficient for every device: after a kvstore
+        pull the gradients are the same on every device, and one
+        coefficient keeps the parameter copies the same."""
+        coef = self._coefs[0] if self._coefs else 1.0
+        self._coefs = [coef] * num_device
 
     def grad_for(self, grad, dev: int):
         """Clip-rescaled gradient for device ``dev`` (NDArray in, NDArray

@@ -20,6 +20,12 @@ fused into fused and unfused into unfused, BITWISE), and 3 steps after
 such a restore equal the other package's own continuation within the
 trainer tolerance (rtol 1e-4, atol 1e-6: summation order); a layout the
 trainer does not share raises naming the missing arrays.
+
+Resharding (the JAX package's reshard cases): a ZeRO checkpoint of 8
+mesh members restores onto 4 (the flat-pad state's length follows the
+member count; parameters BITWISE, the next step within rtol 1e-5, atol
+1e-6), across packages both ways, onto a mesh's shardings through
+``CheckpointManager.restore``; a real shape change raises.
 """
 import os
 import signal
@@ -562,3 +568,134 @@ def test_mismatched_layout_raises_naming_the_missing_arrays(tmp_path):
     with pytest.raises(MXNetError, match="lacks"):
         adam.restore_state(reader)
     reader.close()
+
+
+# ---------------------------------------------------------------------------
+# Resharding: a checkpoint of one mesh restores onto another
+# (tests/test_checkpoint.py, the reshard cases)
+# ---------------------------------------------------------------------------
+
+def _cpus(n):
+    return [mxt.cpu(i) for i in range(n)]
+
+
+def _port_mesh(n, shard_optimizer=True, seed=3):
+    with mxt.name.NameManager():
+        sym = _mlp(tsym)
+    tr = ShardedTrainer(sym, SGD[0], dict(SGD[1]),
+                        mesh=mxt.parallel.make_mesh({"data": n}, _cpus(n)),
+                        shard_optimizer=shard_optimizer, seed=seed)
+    return tr.bind(*SHAPES, arg_params={
+        k: np.asarray(v, np.float32) for k, v in _args(seed).items()})
+
+
+def _jax_mesh(n, shard_optimizer=True, seed=3):
+    with mx.name.NameManager():
+        sym = _mlp(mx.symbol)
+    tr = JaxTrainer(sym, optimizer=SGD[0], optimizer_params=dict(SGD[1]),
+                    mesh=make_mesh({"data": n}, jax.devices()[:n]),
+                    shard_optimizer=shard_optimizer)
+    tr.bind(*SHAPES, arg_params={k: jnp.asarray(np.asarray(v, np.float32))
+                                 for k, v in _args(seed).items()})
+    return tr
+
+
+def test_reshard_8_to_4(tmp_path):
+    """A checkpoint of an 8-member ZeRO trainer restores onto 4 members:
+    the flatten-and-pad state's padded length changes with the member
+    count.  Parameters and the state's unpadded values are BITWISE the
+    checkpoint's; the next step matches the 8-member run within rtol
+    1e-5, atol 1e-6 (the member sum's order differs)."""
+    batches = _batches(4, seed=2)
+    tr8 = _port_mesh(8)
+    for b in batches[:3]:
+        tr8.step(b)
+    mgr = CheckpointManager(str(tmp_path))
+    path = tr8.save_state(mgr, blocking=True)
+    ref = tr8.step(batches[3])[0].numpy()
+    tr4 = _port_mesh(4, seed=31)
+    assert tr4._zero_flat != tr8._zero_flat   # the padded lengths differ
+    meta, step = tr4.restore_state(mgr)
+    assert meta["data_axis_size"] == 8 and step == 3
+    host = load_arrays(path)
+    for n in tr4._param_names:
+        np.testing.assert_array_equal(tr4._params[n].detach().numpy(),
+                                      host[f"param:{n}"])
+        for i in range(1, 4):      # every member holds the restored copy
+            assert torch.equal(tr4._member_params(i)[n], tr4._params[n])
+    for n in tr4._param_names:
+        saved = host[f"opt:{n}:0"].ravel()
+        mine = tr4._state_arrays()[f"opt:{n}:0"].numpy().ravel()
+        k = min(saved.size, mine.size)
+        np.testing.assert_array_equal(mine[:k], saved[:k])
+    got = tr4.step(batches[3])[0].numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    mgr.close()
+
+
+@pytest.mark.parametrize("direction", ["jax8-to-port4", "port8-to-jax4"])
+def test_reshard_across_packages(tmp_path, direction):
+    """An 8-device ZeRO checkpoint of one package restores onto 4
+    members of the other: parameters BITWISE, and three more steps follow
+    the source's own run within rtol 1e-4, atol 1e-6."""
+    batches = _batches(5, seed=4)
+    if direction == "jax8-to-port4":
+        src, Mgr, dst, Reader = (_jax_mesh(8), JMgr, _port_mesh(4, seed=5),
+                                 CheckpointManager)
+    else:
+        src, Mgr, dst, Reader = (_port_mesh(8), CheckpointManager,
+                                 _jax_mesh(4), JMgr)
+    for b in batches[:2]:
+        src.step(b)
+    mgr = Mgr(str(tmp_path))
+    src.save_state(mgr, blocking=True)
+    mgr.close()
+    reader = Reader(str(tmp_path))
+    meta, step = dst.restore_state(reader)
+    reader.close()
+    assert step == 2 and meta["data_axis_size"] == 8
+    sp, dp = src.get_params()[0], dst.get_params()[0]
+    for n in sp:
+        assert dp[n].asnumpy().tobytes() == sp[n].asnumpy().tobytes(), n
+    for b in batches[2:]:
+        src.step(b)
+        dst.step(b)
+    sp, dp = src.get_params()[0], dst.get_params()[0]
+    for n in sp:
+        np.testing.assert_allclose(dp[n].asnumpy(), sp[n].asnumpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=n)
+
+
+def test_reshard_refuses_real_shape_change(tmp_path):
+    """Only the ZeRO flat-pad 1-D case reshapes; another model raises,
+    and restoring onto a mesh's shardings cuts each array into the
+    members' pieces."""
+    with pytest.raises(MXNetError, match="shape"):
+        _adapt_shape("w", np.zeros((4, 4), np.float32), (8, 2))
+    with pytest.raises(MXNetError, match="non-zero"):
+        _adapt_shape("s", np.ones((16,), np.float32), (10,))
+    tr = _port_mesh(8, shard_optimizer=False)
+    tr.step(_batches(1)[0])
+    mgr = CheckpointManager(str(tmp_path))
+    tr.save_state(mgr, blocking=True)
+    mesh = mxt.parallel.make_mesh({"data": 4}, _cpus(4))
+    arrays, _, _ = mgr.restore(
+        names=["param:fc1_weight", "param:fc2_bias"],
+        shardings={"param:fc1_weight": mxt.parallel.batch_sharding(mesh),
+                   "param:fc2_bias": mxt.parallel.replicated(mesh)})
+    w = tr._params["fc1_weight"].detach()
+    assert [tuple(p.shape) for p in arrays["param:fc1_weight"]] == \
+        [(8, 8)] * 4
+    assert torch.equal(torch.cat(arrays["param:fc1_weight"]), w)
+    assert all(torch.equal(p, tr._params["fc2_bias"].detach())
+               for p in arrays["param:fc2_bias"])
+    with mxt.name.NameManager():
+        wide = tsym.SoftmaxOutput(data=tsym.FullyConnected(
+            data=tsym.Variable("data"), num_hidden=12, name="fc2"),
+            name="softmax")
+    other = ShardedTrainer(wide, "sgd", {"learning_rate": 0.1,
+                                         "momentum": 0.9},
+                           mesh=mesh).bind(*SHAPES)
+    with pytest.raises(MXNetError):
+        other.restore_state(mgr)
+    mgr.close()

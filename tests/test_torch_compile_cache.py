@@ -136,7 +136,13 @@ def test_program_key_stable_and_readable():
         cc.program_key("fp", [_t((4, 8))])
     assert cc.program_key("fp", extra={"owner": "a"}) != \
         cc.program_key("fp", extra={"owner": "b"})
-    with pytest.raises(MXNetError, match="not ported"):
+    # a mesh is part of the key (the JAX package's fingerprint string);
+    # anything else in its place is refused
+    mesh = mxt.parallel.make_mesh({"data": 2}, [mxt.cpu(0), mxt.cpu(1)])
+    assert cc.program_key("fp", mesh=mesh) != cc.program_key("fp")
+    assert cc.program_key("fp", mesh=mesh).describe()["mesh"] == \
+        cc.mesh_fingerprint(mesh)
+    with pytest.raises(MXNetError, match="Mesh"):
         cc.program_key("fp", mesh=object())
 
 

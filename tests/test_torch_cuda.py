@@ -41,7 +41,12 @@ the e5m2 x e5m2 pair through its upcast route, against its plain version
 within ``chip_smoke.FP8_DOT_TOL`` of the terms' magnitude (summation
 order), with ``block_quantize`` byte for byte the CPU's; a checkpoint
 snapshot that holds its bytes while the in-place update runs on; the
-trainer's ``matmul_precision`` names on the card.
+trainer's ``matmul_precision`` names on the card; data parallelism on
+the card: ``ShardedTrainer(mesh=data_parallel_mesh())`` bitwise the plain
+trainer, int8 with error feedback fused (K2's bucket form over the
+reduced buckets) bitwise unfused, and the kvstore and ``psum_compressed``
+over two members on the card (exact; the compressed sums and residuals
+bitwise the CPU's).
 """
 import numpy as np
 import pytest
@@ -1380,3 +1385,160 @@ def test_executor_programs_on_card_equal_eager(cuda):
         for n in exes[0].aux_dict:
             assert torch.equal(exes[0].aux_dict[n].data,
                                exes[1].aux_dict[n].data), n
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism in one process: the mesh trainer and the collectives
+# ---------------------------------------------------------------------------
+
+def _bn_mlp():
+    from mxnet_tpu_torch import name, sym as S
+    with name.NameManager():
+        net = S.BatchNorm(data=S.Variable("data"), name="bn1",
+                          fix_gamma=False)
+        net = S.FullyConnected(data=net, num_hidden=64, name="fc1")
+        net = S.Activation(data=net, act_type="relu")
+        net = S.FullyConnected(data=net, num_hidden=10, name="fc2")
+        return S.SoftmaxOutput(data=net, name="softmax")
+
+
+def _dp_trainer(sym, **kw):
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    tr = ShardedTrainer(sym, optimizer="sgd",
+                        optimizer_params={"learning_rate": 0.1,
+                                          "momentum": 0.9, "wd": 1e-4},
+                        guard=True, clip_global_norm=5.0, seed=0, **kw)
+    return tr.bind({"data": (64, 784)}, {"softmax_label": (64,)})
+
+
+def _dp_state(tr):
+    out = {f"p:{n}": p.detach().clone() for n, p in tr._params.items()}
+    for n, st in tr.opt_state_by_param().items():
+        out.update({f"o:{n}:{i}": t.clone() for i, t in enumerate(st)})
+    out.update({f"a:{n}": v.clone() for n, v in tr._aux.items()})
+    for i, res in enumerate(tr._ef_res):
+        out.update({f"e:{i}:{b}": r.clone() for b, r in enumerate(res)})
+    return out
+
+
+@pytest.mark.cuda
+def test_mesh_trainer_on_card_bitwise_the_plain_trainer(cuda):
+    """The default data mesh spans every card; over one card (the whole
+    default mesh on a one-card machine) ``ShardedTrainer(mesh=...)``
+    steps bitwise like the trainer placed by ``device``: weights,
+    momentum, moving statistics; K2 once a step in the hopper form.
+    Both take the one step path: this holds the mesh's placement, not
+    another step."""
+    from mxnet_tpu_torch.parallel import data_parallel_mesh
+    assert data_parallel_mesh().size == torch.cuda.device_count()
+    sym = _bn_mlp()
+    x, y = _mlp_data(64 * 3, seed=4)
+    states = []
+    first = torch.device("cuda", 0)
+    for kw in ({"device": first}, {"mesh": data_parallel_mesh(1)}):
+        tr = _dp_trainer(sym, **kw)
+        assert tr.mesh.size == 1 and tr.device == first
+        tfu.fused_update.launches_by_form["hopper"] = 0
+        for i in range(3):
+            tr.step({"data": x[i * 64:(i + 1) * 64],
+                     "softmax_label": y[i * 64:(i + 1) * 64]})
+        torch.cuda.synchronize()
+        assert tfu.fused_update.launches_by_form["hopper"] == 3
+        states.append(_dp_state(tr))
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k
+
+
+@pytest.mark.cuda
+def test_int8_explicit_fused_bitwise_unfused_on_card(cuda):
+    """int8 with error feedback on the card: the fused update launches
+    K2's bucket form once a reduced bucket a step, and the state
+    (residuals included) is bitwise the unfused update's."""
+    from mxnet_tpu_torch.parallel import data_parallel_mesh
+    sym = _bn_mlp()
+    x, y = _mlp_data(64 * 3, seed=5)
+    states = []
+    for fused in (True, False):
+        tr = _dp_trainer(sym, mesh=data_parallel_mesh(1),
+                         grad_compression="int8", fused_update=fused,
+                         grad_bucket_bytes=64 << 10)
+        assert tr.error_feedback and tr._fused == fused
+        tfu.fused_update.launches_by_form["bucket"] = 0
+        for i in range(3):
+            tr.step({"data": x[i * 64:(i + 1) * 64],
+                     "softmax_label": y[i * 64:(i + 1) * 64]})
+        torch.cuda.synchronize()
+        if fused:
+            assert tfu.fused_update.launches_by_form["bucket"] == \
+                3 * len(tr._fused_plan.buckets) > 3
+        states.append(_dp_state(tr))
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int8_unfused", "zero"])
+def test_one_member_mesh_modes_captured_bitwise_eager(cuda, mode):
+    """One member's step is captured as a CUDA graph in every mode: int8
+    with error feedback (fused: K2's bucket form over the reduced
+    buckets; unfused) and ZeRO.  Replays leave the state (residuals and
+    ZeRO slices included) bitwise an eager twin's, and the capture's
+    warm-up leaves no trace in it."""
+    from mxnet_tpu_torch.parallel import data_parallel_mesh
+    kw = ({"shard_optimizer": True} if mode == "zero" else
+          {"grad_compression": "int8", "grad_bucket_bytes": 64 << 10,
+           "fused_update": mode == "int8"})
+    sym = _bn_mlp()
+    x, y = _mlp_data(64 * 3, seed=6)
+    states = []
+    for capture in (True, False):
+        tr = _dp_trainer(sym, mesh=data_parallel_mesh(1), **kw)
+        if capture:
+            info = tr.compile(programs=("train",))[0]
+            assert info["source"] == "capture", info
+        for i in range(3):
+            tr.step({"data": x[i * 64:(i + 1) * 64],
+                     "softmax_label": y[i * 64:(i + 1) * 64]})
+        torch.cuda.synchronize()
+        assert tr.aot_stats["hits"] == (3 if capture else 0)
+        states.append(_dp_state(tr))
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compression", [None, "bf16", "int8", "fp8"])
+def test_kvstore_and_psum_compressed_over_card_members(cuda, compression):
+    """Two members on the card: the kvstore's push and pull reduce them
+    exactly (a co-resident tree sum); ``psum_compressed`` over the two is
+    bitwise the same reduction on the CPU (int8 and fp8 residuals
+    included), exact on integer-valued data for None and bf16."""
+    from mxnet_tpu_torch import kvstore, ndarray
+    from mxnet_tpu_torch.context import gpu
+    from mxnet_tpu_torch.parallel.collectives import psum_compressed
+    rng = np.random.RandomState(6)
+    integer = compression in (None, "bf16")
+    host = [(rng.randint(-8, 9, 5000) if integer else rng.randn(5000))
+            .astype(np.float32) for _ in range(2)]
+    res = [(0.01 * rng.randn(5000)).astype(np.float32) for _ in range(2)]
+    kv = kvstore.create("device", compression=compression)
+    with gpu(0):
+        kv.init(0, ndarray.zeros((5000,)))
+        kv.push(0, [ndarray.array(h) for h in host])
+        out = ndarray.zeros((5000,))
+        kv.pull(0, out=out)
+    assert torch.equal(out.data.cpu(), torch.from_numpy(host[0] + host[1]))
+    on_card = psum_compressed([torch.from_numpy(h).to(cuda) for h in host],
+                              compression, residuals=[
+                                  torch.from_numpy(r).to(cuda) for r in res])
+    on_cpu = psum_compressed([torch.from_numpy(h) for h in host],
+                             compression, residuals=[
+                                 torch.from_numpy(r) for r in res])
+    for card, cpu in zip(on_card, on_cpu):
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+    if integer:
+        plain = psum_compressed([torch.from_numpy(h).to(cuda)
+                                 for h in host], compression)
+        assert torch.equal(plain[0].cpu(),
+                           torch.from_numpy(host[0] + host[1]))

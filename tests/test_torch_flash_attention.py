@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import mxnet_tpu  # noqa: F401  (x64 on, as in every parity test)
 from mxnet_tpu.parallel import flash_attention as jfa
 
+import mxnet_tpu_torch as mxt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import flash_attention as tfa
 from mxnet_tpu_torch.parallel import ring_attention as tra
@@ -382,10 +383,16 @@ def test_plain_versions_with_internal_delta_match_jax_kernels_bf16(causal):
 
 
 def test_mesh_is_not_ported():
-    from mxnet_tpu_torch.parallel import default_mesh, make_mesh
-    with pytest.raises(MXNetError, match="not ported"):
-        make_mesh({"seq": 2})
-    with pytest.raises(MXNetError, match="not ported"):
-        default_mesh(None)
-    with pytest.raises(MXNetError, match="not ported"):
-        tra.ring_self_attention(None, None, None, None)
+    """A sequence mesh can now be made and scoped (the data-parallel
+    slice); ring attention under it is model parallelism and still
+    raises."""
+    from mxnet_tpu_torch.parallel import current_mesh, default_mesh, \
+        make_mesh
+    mesh = make_mesh({"seq": 2}, [mxt.cpu(0), mxt.cpu(1)])
+    assert mesh.shape == {"seq": 2}
+    with default_mesh(mesh):
+        assert current_mesh() is mesh
+        with pytest.raises(MXNetError, match="not ported"):
+            tra.ring_self_attention(None, None, None, None)
+        with pytest.raises(MXNetError, match="not ported"):
+            tra.ring_attention(None, None, None, None)

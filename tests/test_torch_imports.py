@@ -13,8 +13,9 @@ rtc, models.mnist), the training loop's modules (io, metric,
 lr_scheduler, callback, model), the zoo and the legacy API
 (models.classic, models.inception, executor_manager, module, monitor),
 the long-run and durability modules (checkpoint and its layout, reader,
-writer and manager, predictor, online.loop, quant's fp8 product) and
-``chip_smoke``; a source scan checks every file of
+writer and manager, predictor, online.loop, quant's fp8 product), the
+data-parallel modules (kvstore, parallel.mesh and parallel.collectives)
+and ``chip_smoke``; a source scan checks every file of
 the port and the script for such imports.
 """
 import os
@@ -72,6 +73,13 @@ import mxnet_tpu_torch.online.loop
 from mxnet_tpu_torch.online import OnlineLoop, compat_stamp
 from mxnet_tpu_torch.quant import block_dot, fp8_linear
 from mxnet_tpu_torch import compile_cache, profiler
+from mxnet_tpu_torch import kvstore
+from mxnet_tpu_torch.parallel import (Mesh, NamedSharding, PartitionSpec,
+                                      allreduce_sum, collectives,
+                                      data_parallel_mesh, make_mesh)
+from mxnet_tpu_torch.parallel.collectives import (count_collectives,
+                                                  psum_compressed)
+assert mxnet_tpu_torch.kvstore is kvstore
 from mxnet_tpu_torch.compile_cache import CapturedProgram, ProgramCache
 assert mxnet_tpu_torch.profiler is profiler
 assert mxnet_tpu_torch.io is io and mxnet_tpu_torch.metric is metric

@@ -54,6 +54,23 @@ def on_cpu():
         yield
 
 
+@pytest.fixture
+def keep_port_random_state():
+    """Restore the port's global key sequence and device generators after
+    the test, so the test files that run after this one in the same
+    process draw what they would draw without it."""
+    from mxnet_tpu_torch import random as port_random
+    saved = dict(port_random._state)
+    gens = {d: g.get_state() for d, g in port_random._generators.items()}
+    yield
+    port_random._state.update(saved)
+    for d in list(port_random._generators):
+        if d in gens:
+            port_random._generators[d].set_state(gens[d])
+        else:
+            del port_random._generators[d]
+
+
 def make_blobs(n=200, num_classes=4, dim=10, seed=0):
     rs = np.random.RandomState(seed)
     centers = rs.randn(num_classes, dim) * 3
@@ -190,16 +207,276 @@ def test_feedforward_checkpoint_roundtrip_matches_jax(tmp_path):
                                    atol=1e-6)
 
 
-def test_feedforward_refuses_what_needs_a_kvstore_or_devices():
+def test_feedforward_refuses_what_needs_a_kvstore_or_devices(
+        keep_port_random_state):
     X, y = make_blobs(n=40)
     with mxt.name.NameManager():
         sym = mlp_symbol(tsym)
     with pytest.raises(MXNetError, match="not ported"):
         mxt.FeedForward(sym, ctx=mxt.cpu(), num_epoch=1).fit(
             TIter(X, y, batch_size=20), kvstore="dist_sync")
-    with pytest.raises(MXNetError, match="not ported"):
-        mxt.FeedForward(sym, ctx=[mxt.cpu(0), mxt.cpu(1)],
-                        num_epoch=1).fit(TIter(X, y, batch_size=20))
+    # two contexts train now (the data-parallel slice); the multi-process
+    # kvstore still raises
+    model = mxt.FeedForward(sym, ctx=[mxt.cpu(0), mxt.cpu(1)], num_epoch=1,
+                            learning_rate=0.5)
+    model.fit(TIter(X, y, batch_size=20))
+    assert all(np.isfinite(v.asnumpy()).all()
+               for v in model.arg_params.values())
+
+
+# ---------------------------------------------------------------------------
+# several contexts and a kvstore (tests/test_training.py, the
+# reference's ctx=[gpu(0), gpu(1)]: here two CPU contexts in each package)
+# ---------------------------------------------------------------------------
+
+KVSTORES = ("local", "device", "local_allreduce_cpu")
+
+
+def _two(pkg):
+    return [pkg["mx"].cpu(0), pkg["mx"].cpu(1)]
+
+
+@pytest.mark.parametrize("kvstore", KVSTORES)
+def test_feedforward_over_two_contexts_matches_jax(kvstore,
+                                                  keep_port_random_state):
+    """``FeedForward(ctx=[cpu(0), cpu(1)])`` with each local kvstore kind
+    (the update on the kvstore for ``local``, auto-selected to
+    ``local_update_cpu``, and ``device``; locally after the reduction for
+    ``local_allreduce_cpu``): parameters rtol 1e-4 / atol 1e-6, the epoch
+    lines and the score equal to the JAX package's; the gradients meet in
+    one bucketed reduction a flush (the contexts are distinct)."""
+    X, y = make_blobs(n=200)
+    jsym_, tsym_ = both(lambda p: mlp_symbol(p["sym"]))
+    args = init_params(tsym_, (50, 10))
+    res = []
+    for pkg, sym in ((J, jsym_), (T, tsym_)):
+        log = Lines(f"legacy-ff2-{kvstore}-{id(pkg)}")
+        model = pkg["mx"].FeedForward(
+            sym, ctx=_two(pkg), num_epoch=3, optimizer="sgd",
+            learning_rate=0.5, momentum=0.9, arg_params=nds(pkg, args),
+            initializer=pkg["mx"].initializer.Uniform(0.1))
+        with pkg["mx"].parallel.collectives.count_collectives() as stats:
+            model.fit(pkg["Iter"](X, y, batch_size=50), kvstore=kvstore,
+                      logger=log.logger)
+        kinds = {r["kind"] for r in stats.records}
+        res.append((model, log.lines, model.score(
+            pkg["Iter"](X, y, batch_size=50)), kinds))
+    (jm, jlines, jacc, jkinds), (tm, tlines, tacc, tkinds) = res
+    close_params(tm.arg_params, jm.arg_params)
+    assert tlines == jlines
+    assert tacc == jacc and tacc > 0.9
+    assert tkinds == jkinds == {"bucket"}
+
+
+def test_create_kvstore_selects_as_jax():
+    """``model._create_kvstore``: no kvstore on one device without
+    ``dist``; ``local`` picks ``local_update_cpu`` below 16M elements in
+    the largest parameter and ``local_allreduce_cpu`` from there (the
+    update then stays local); a kvstore object passes through; the kind
+    and ``update_on_kvstore`` equal the JAX package's."""
+    from types import SimpleNamespace
+    from mxnet_tpu import model as jmodel
+    from mxnet_tpu_torch import model as tmodel
+    small = {"w": SimpleNamespace(shape=(1024, 1024))}
+    large = {"w": SimpleNamespace(shape=(4096, 4096))}
+    for kv, ndev, params in (("local", 1, small), ("local", 2, small),
+                             ("local", 2, large), ("device", 2, small),
+                             ("local_allreduce_device", 2, small),
+                             (None, 2, small)):
+        jkv, jup = jmodel._create_kvstore(kv, ndev, params)
+        tkv, tup = tmodel._create_kvstore(kv, ndev, params)
+        assert (tkv is None) == (jkv is None), kv
+        assert tup == jup, (kv, ndev)
+        if tkv is not None:
+            assert tkv.type == jkv.type
+    store = mxt.kvstore.create("device")
+    assert tmodel._create_kvstore(store, 2, small) == (store, True)
+
+
+def test_feedforward_work_load_list_matches_jax(keep_port_random_state):
+    """``work_load_list=[1, 3]`` over two contexts: the batch of 50 split
+    12 / 38 in both packages, parameters rtol 1e-4 / atol 1e-6."""
+    X, y = make_blobs(n=200)
+    jsym_, tsym_ = both(lambda p: mlp_symbol(p["sym"]))
+    args = init_params(tsym_, (50, 10))
+    models = []
+    for pkg, sym in ((J, jsym_), (T, tsym_)):
+        model = pkg["mx"].FeedForward(
+            sym, ctx=_two(pkg), num_epoch=2, optimizer="sgd",
+            learning_rate=0.5, arg_params=nds(pkg, args),
+            initializer=pkg["mx"].initializer.Uniform(0.1))
+        model.fit(pkg["Iter"](X, y, batch_size=50), kvstore="device",
+                  work_load_list=[1, 3])
+        models.append(model)
+    close_params(models[1].arg_params, models[0].arg_params)
+    from mxnet_tpu_torch.executor_manager import _split_input_slice
+    assert _split_input_slice(50, [1, 3]) == [slice(0, 12), slice(12, 50)]
+
+
+def _module_two(pkg, sym, args, X, y, kvstore, num_epoch=3):
+    mod = pkg["mx"].mod.Module(sym, context=_two(pkg))
+    mod.fit(pkg["Iter"](X, y, batch_size=50), num_epoch=num_epoch,
+            optimizer="sgd", kvstore=kvstore,
+            optimizer_params={"learning_rate": 0.5, "momentum": 0.9},
+            arg_params=nds(pkg, args))
+    return mod
+
+
+@pytest.mark.parametrize("kvstore", KVSTORES)
+def test_module_over_two_contexts_matches_jax(kvstore,
+                                              keep_port_random_state):
+    """``Module(context=[cpu(0), cpu(1)])`` with each local kvstore kind:
+    parameters rtol 1e-4 / atol 1e-6 and the score equal to the JAX
+    package's; the two executors' parameter copies stay equal."""
+    X, y = make_blobs(n=200)
+    jsym_, tsym_ = both(lambda p: mlp_symbol(p["sym"]))
+    args = init_params(tsym_, (50, 10))
+    jm = _module_two(J, jsym_, args, X, y, kvstore)
+    tm = _module_two(T, tsym_, args, X, y, kvstore)
+    assert tm._update_on_kvstore == jm._update_on_kvstore
+    assert tm._kvstore.type == jm._kvstore.type
+    close_params(tm.get_params()[0], jm.get_params()[0])
+    assert (tm.score(TIter(X, y, batch_size=50), "acc")
+            == jm.score(JIter(X, y, batch_size=50), "acc"))
+    for block in tm._exec_group.param_arrays:
+        np.testing.assert_array_equal(block[0].asnumpy(), block[1].asnumpy())
+
+
+def test_bucketing_module_over_two_contexts_matches_jax(
+        keep_port_random_state):
+    """``BucketingModule`` over two contexts with a ``device`` kvstore
+    (the update on the kvstore), buckets of 3, 2 and 4 steps sharing one
+    step layer (a kvstore key is one shape in every bucket): the outputs
+    match the JAX package's (atol 1e-5), the shared layer stays one array
+    a context in every bucket, equal to the JAX package's (rtol 1e-4 /
+    atol 1e-6)."""
+    def sym_gen(S):
+        def gen(seq_len):
+            w, b = S.Variable("step_weight"), S.Variable("step_bias")
+            steps = S.SliceChannel(data=S.Variable("data"),
+                                   num_outputs=seq_len, axis=1,
+                                   squeeze_axis=True)
+            hs = [S.Activation(data=S.FullyConnected(
+                data=steps[t], weight=w, bias=b, num_hidden=8,
+                name=f"step{t}"), act_type="tanh") for t in range(seq_len)]
+            net = S.FullyConnected(data=S.ElementWiseSum(*hs), num_hidden=2,
+                                   name="out")
+            net = S.SoftmaxOutput(data=net, name="softmax")
+            return net, ("data",), ("softmax_label",)
+        return gen
+
+    rng = np.random.RandomState(3)
+    seq = [(n, rng.rand(4, n, 3).astype(np.float32),
+            rng.randint(0, 2, 4).astype(np.float32)) for n in (3, 2, 4, 3,
+                                                             2)]
+    mods = []
+    for pkg in (J, T):
+        with mx.name.NameManager(), mxt.name.NameManager():
+            gen = sym_gen(pkg["sym"])
+        mod = pkg["mx"].mod.BucketingModule(gen, default_bucket_key=3,
+                                            context=_two(pkg))
+        mod.bind(data_shapes=[("data", (4, 3, 3))],
+                 label_shapes=[("softmax_label", (4,))])
+        mod.init_params(pkg["mx"].initializer.Uniform(0.1),
+                        arg_params={"step_weight": pkg["nd"].array(
+                            np.linspace(-0.3, 0.3, 24, dtype=np.float32)
+                            .reshape(8, 3)),
+                            "step_bias": pkg["nd"].zeros((8,)),
+                            "out_weight": pkg["nd"].array(
+                                np.linspace(-0.1, 0.1, 16, dtype=np.float32)
+                                .reshape(2, 8)),
+                            "out_bias": pkg["nd"].zeros((2,))})
+        mod.init_optimizer(kvstore="device", optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+        outs = []
+        for n, x, lab in seq:
+            batch = pkg["Batch"](data=[pkg["nd"].array(x)],
+                                 label=[pkg["nd"].array(lab)], bucket_key=n,
+                                 provide_data=[("data", (4, n, 3))],
+                                 provide_label=[("softmax_label", (4,))])
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+            # per context (the JAX package cannot concatenate arrays of
+            # two devices in one call)
+            outs.append(np.concatenate([
+                o.asnumpy() for o in
+                mod.get_outputs(merge_multi_context=False)[0]]))
+        mods.append((mod, outs))
+    (jm, jouts), (tm, touts) = mods
+    assert set(tm._buckets) == set(jm._buckets) == {2, 3, 4}
+    for a, b in zip(touts, jouts):
+        assert a.shape == (4, 2)
+        np.testing.assert_allclose(a, b, rtol=0, atol=OUT_ATOL)
+    for k in range(2):
+        arrays = {id(m._exec_group.execs[k].arg_dict["step_weight"])
+                  for m in tm._buckets.values()}
+        assert len(arrays) == 1
+        np.testing.assert_allclose(
+            tm._buckets[2]._exec_group.execs[k].arg_dict["step_weight"]
+            .asnumpy(),
+            jm._buckets[2]._exec_group.execs[k].arg_dict["step_weight"]
+            .asnumpy(), **PARAM_TOL)
+
+
+def test_kvstore_optimizer_state_files_cross_load(
+        tmp_path, keep_port_random_state):
+    """A kvstore's ``save_optimizer_states`` file (the optimizer pickled
+    under the JAX package's class path, and the updater's states) loads
+    in the other package, both ways: the same optimizer settings and
+    bitwise the same momentum states."""
+    shapes = {0: (4, 3), 1: (5,)}
+    rs = np.random.RandomState(1)
+    grads = {k: [rs.randn(*s).astype(np.float32) for _ in range(2)]
+             for k, s in shapes.items()}
+    stores = {}
+    for tag, pkg in (("j", J), ("t", T)):
+        kv = pkg["mx"].kvstore.create("device")
+        kv.set_optimizer(pkg["mx"].optimizer.SGD(learning_rate=0.1,
+                                                 momentum=0.9, wd=1e-3))
+        for k, s in shapes.items():
+            kv.init(k, pkg["nd"].zeros(s))
+        for _ in range(2):
+            for k in shapes:
+                kv.push(k, [pkg["nd"].array(g, ctx=c) for g, c
+                            in zip(grads[k], _two(pkg))])
+            kv.barrier()
+        kv.save_optimizer_states(str(tmp_path / f"{tag}.states"))
+        stores[tag] = kv
+    for src, pkg in (("j", T), ("t", J)):
+        kv = pkg["mx"].kvstore.create("device")
+        for k, s in shapes.items():
+            kv.init(k, pkg["nd"].zeros(s))
+        kv.load_optimizer_states(str(tmp_path / f"{src}.states"))
+        opt = kv._updater.states
+        ref = stores[src]._updater.states
+        assert sorted(opt) == sorted(ref)
+        for k in ref:
+            np.testing.assert_array_equal(opt[k].asnumpy(),
+                                          ref[k].asnumpy())
+        loaded = pickle_optimizer(kv)
+        assert (loaded["lr"], loaded["momentum"], loaded["wd"]) == \
+            (0.1, 0.9, 1e-3)
+    # the two packages wrote the same states
+    for k in shapes:
+        np.testing.assert_allclose(stores["t"]._updater.states[k].asnumpy(),
+                                   stores["j"]._updater.states[k].asnumpy(),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def pickle_optimizer(kv):
+    """The loaded optimizer's settings (the updater holds the optimizer
+    object; its class is the loading package's)."""
+    import pickle
+    blob = kv._optimizer_blob
+    if type(kv).__module__.startswith("mxnet_tpu_torch"):
+        from mxnet_tpu_torch.kvstore import loads_optimizer
+        opt = loads_optimizer(blob)
+        assert type(opt).__module__ == "mxnet_tpu_torch.optimizer"
+    else:
+        opt = pickle.loads(blob)
+        assert type(opt).__module__ == "mxnet_tpu.optimizer"
+    return vars(opt)
 
 
 # ---------------------------------------------------------------------------

@@ -237,11 +237,15 @@ def test_set_params_writes_through_to_the_fused_buffer():
 
 def test_unported_options_and_device_resolution():
     s = _build(NETS["resnet_cifar_n1"][1])
-    # the multi-GPU slice's options still raise
-    for kw in ({"shard_optimizer": True}, {"grad_compression": "int8"},
-               {"mesh": object()}):
-        with pytest.raises(MXNetError, match="not ported"):
-            ShardedTrainer(s, device="cpu", **kw)
+    # tensor parallelism's option still raises; the data-parallel
+    # options are ported, and a mesh must be a mesh
+    with pytest.raises(MXNetError, match="not ported"):
+        ShardedTrainer(s, device="cpu", rules=object())
+    with pytest.raises(MXNetError, match="Mesh"):
+        ShardedTrainer(s, mesh=object())
+    for kw in ({"shard_optimizer": True}, {"grad_compression": "int8"}):
+        tr = ShardedTrainer(s, device="cpu", **kw)
+        assert tr.mesh.members == [mxt.cpu(0)] and tr.data_axis == "data"
     # accumulation, precision, loss scaling and its knobs are ported
     tr = ShardedTrainer(s, device="cpu", grad_accum=2,
                         matmul_precision="bfloat16", loss_scale="dynamic",

@@ -304,6 +304,41 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     (f) where two cards exist, (a) and (b) over ``data_parallel_mesh(2)``
     (NCCL between the cards) against the one-card run; with one card it
     prints that (f) did not run and why; no kernel is built;
+19. runs input records, the deployment predictor and the last three ops
+    (after phase 18, before 15), under deterministic cuDNN; it first
+    prints whether cv2 imports (without it the ``.jpg`` runs are left
+    out and it says so): (a) packs 512 seeded 256x256 images with an
+    ``.idx`` as ``.raw`` and ``.jpg`` and at 224x224 as ``.raw``; times
+    ``ImageRecordIter`` alone (shuffle, random crop, mirror, 8 decode
+    threads) over each 256 form; runs phase 7's ResNet-50 trainer's
+    ``fit`` over the 224 ``.raw`` records (8 batches through
+    ``DevicePrefetchIter``), bitwise a twin's ``fit`` over an
+    ``NDArrayIter`` of the same arrays (weights, momentum, moving
+    statistics, guard), then over the ``.jpg`` records with
+    augmentation; steps 2-8 make no more synchronizing calls outside
+    fit's drains than bare steps, none on the prefetch worker; K1 and K2
+    once a step (warp, hopper); prints ms a batch, images/s and the
+    share of each epoch spent waiting on the prefetcher; (b) saves the
+    weights as a legacy prefix and a ``CheckpointManager`` directory:
+    ``predictor.create`` from each gives outputs bitwise an executor's
+    forward, one K1 launch (warp) a forward, replayed from a captured
+    program with no kernel built; prints the median forward ms of the
+    Predictor and the executor; ``export_model`` of the same net is
+    served on the card by a process that imports torch and not the port,
+    within 1e-4 (relative), 1e-5 of the Predictor (K1's plain version
+    against K1); prints the artifact's bytes and its forward ms; (c) trains
+    ``examples/lstm_ocr.py``'s net at its sizes (20 columns of 16, 4
+    labels, 11 classes, 64 hidden, batch 32, Adam) for 20 steps on the
+    card and on the CPU from the same weights and batches (losses within
+    1e-6 relative), holds WarpCTC's forward and gradient on the card to
+    the CPU's, and times the recursion beside ``F.ctc_loss`` (a
+    yardstick); (d) runs ``examples/rcnn_detection.py``'s detector
+    (RPN, ``Proposal``, ``ROIPooling``, head; batch 8) forward and
+    backward on the card against the CPU, and ``Proposal`` alone: the
+    CPU's selection on the same inputs, with no synchronizing call; and
+    ``ROIPooling`` at a Fast R-CNN head's size (256 rois x 512 channels x
+    7x7 bins over 38x63), forward and backward within 12 GiB, its first
+    rois against the CPU;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -6943,6 +6978,826 @@ def phase_data_parallel(torch, np, _build):
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: input records into fit, the deployment predictor, WarpCTC and
+# the detector (after phase 18, before the result)
+# ---------------------------------------------------------------------------
+
+# (a) 512 synthetic images (32x32 noise blown up 8x, so a JPEG codec has
+# structure to keep), packed at 256x256 as .raw and .jpg and at 224x224 as
+# .raw; phase 7's trainer; pixels scaled by 1/256 (a power of two: the
+# iterator's f32 multiply and the host's are the same bits)
+REC_IMAGES, REC_PACKED, REC_THREADS = 512, 256, 8
+REC_SCALE = 1.0 / 256
+# (c) examples/lstm_ocr.py's sizes and optimizer (Adam, lr 0.01)
+OCR_SEQ, OCR_HEIGHT, OCR_LABELS, OCR_CLASSES = 20, 16, 4, 11
+OCR_HIDDEN, OCR_BATCH, OCR_STEPS = 64, 32, 20
+OCR_OPT = {"learning_rate": 0.01}
+# the card's and the CPU's losses a step: 8.79e-08 to 1.69e-07 apart on
+# an H100 (f32 summation order through 20 Adam steps), while the card's
+# Adam with epsilon doubled or beta2 0.9991 moves them by 2.9e-04 and
+# 2.9e-05 (PERF.md)
+OCR_LOSS_RTOL = 1e-6
+# (d) examples/rcnn_detection.py's sizes
+DET_IMG, DET_STRIDE, DET_FEAT, DET_K, DET_BATCH = 64, 4, 16, 8, 8
+DET_SCALES, DET_RATIOS = (3.0, 5.0), (1.0,)
+# the card against the CPU: corners carry the convolutions' summation
+# order through exp (up to 63 px); pooled features and heads within 1e-4
+DET_TOL = {"rois": (1e-4, 1e-3), "values": (1e-4, 1e-5)}
+# (d) ROIPooling at a Fast R-CNN head's size: VGG-16's conv5 map of a
+# 600x1000 image (512 x 38 x 63, stride 16), 256 rois, 7x7 bins; the
+# one-pass windows alone would be 62 GB
+ROI_HEAD = dict(channels=512, height=38, width=63, stride=16, rois=256,
+                pooled=7)
+ROI_HEAD_PEAK_GIB = 12      # forward and backward, inputs excluded
+ROI_HEAD_CHECKED = 4        # rois held against the CPU
+# the exported program (K1's plain version, another process's cuDNN
+# choices) against the Predictor's K1 path
+EXPORT_TOL = (1e-4, 1e-5)
+
+
+def p19_images(np):
+    """``(images [n, 256, 256, 3] uint8, labels)`` from seed 19."""
+    rng = np.random.RandomState(19)
+    side = REC_PACKED // 8
+    small = rng.randint(0, 256, (REC_IMAGES, side, side, 3)).astype(np.uint8)
+    imgs = np.repeat(np.repeat(small, 8, axis=1), 8, axis=2)
+    return imgs, rng.randint(0, CLASSES, REC_IMAGES).astype(np.float32)
+
+
+def p19_pack(np, recordio, root, imgs, labels, forms):
+    """Pack ``imgs`` with an ``.idx`` in each form of ``{name: (fmt,
+    crop)}``; returns ``{name: (rec, idx, seconds, bytes)}``."""
+    out = {}
+    for name, (fmt, crop) in forms.items():
+        rec, idx = (os.path.join(root, f"{name}.rec"),
+                    os.path.join(root, f"{name}.idx"))
+        t0 = time.perf_counter()
+        w = recordio.MXIndexedRecordIO(idx, rec, "w")
+        for i, img in enumerate(imgs):
+            if crop:
+                img = img[crop:crop + IMAGE[1], crop:crop + IMAGE[2]]
+            w.write_idx(i, recordio.pack_img((0, float(labels[i]), i, 0),
+                                             img, quality=90, img_fmt=fmt))
+        w.close()
+        out[name] = (rec, idx, time.perf_counter() - t0,
+                     os.path.getsize(rec))
+    return out
+
+
+def p19_iter_rate(image_io, rec, idx):
+    """Images/s of ``ImageRecordIter`` alone over one epoch: shuffle, a
+    random 224 crop, mirror, ``REC_THREADS`` decode threads."""
+    it = image_io.ImageRecordIter(
+        rec, IMAGE, BATCH, path_imgidx=idx, shuffle=True, rand_crop=True,
+        rand_mirror=True, scale=REC_SCALE, preprocess_threads=REC_THREADS)
+    t0 = time.perf_counter()
+    n = sum(b.data[0].shape[0] - b.pad for b in it)
+    check(n == REC_IMAGES, f"the iterator yielded {n} images")
+    return n / (time.perf_counter() - t0)
+
+
+class PrefetchWaits:
+    """Times every ``DevicePrefetchIter.next`` (the host's wait for the
+    next placed batch) while installed."""
+
+    def __init__(self, io):
+        self.io, self.waits, self._real = io, [], None
+
+    def __enter__(self):
+        real = self._real = self.io.DevicePrefetchIter.next
+        waits = self.waits
+
+        def timed(it):
+            t0 = time.perf_counter()
+            try:
+                return real(it)
+            finally:
+                waits.append(time.perf_counter() - t0)
+
+        self.io.DevicePrefetchIter.next = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.io.DevicePrefetchIter.next = self._real
+
+
+def p19_fit(torch, np, io, tr, data_iter, label, counter=None):
+    """One epoch of ``tr.fit`` over ``data_iter``: ms a batch (CUDA events
+    after each batch), images/s, the share of the epoch the host waited on
+    the prefetcher (all batches, and from the second on); with
+    ``counter`` the synchronizing calls of the steps after the first."""
+    events = []
+
+    def batch_end(param):
+        events.append(record_event(torch))
+        if counter is not None and param.nbatch == 1:
+            counter.start()
+
+    with PrefetchWaits(io) as pw:
+        t0 = time.perf_counter()
+        try:
+            tr.fit(data_iter, num_epoch=1, batch_end_callback=batch_end)
+        finally:
+            syncs = counter.stop() if counter is not None else None
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms = event_ms(torch, events, len(events) + 1)
+    med = float(np.median(ms)) if ms else float("nan")
+    waits = pw.waits[:len(events)]
+    return {"label": label, "batches": len(events), "ms": ms,
+            "median_ms": med, "images_per_s": BATCH / med * 1e3,
+            "epoch_s": wall, "epoch_images_per_s": len(events) * BATCH / wall,
+            "prefetch_wait_share": sum(waits) / wall,
+            "prefetch_wait_share_after_first": sum(waits[1:]) / wall,
+            "first_wait_s": waits[0] if waits else None,
+            "syncs": syncs, "sync_sites": (counter.sites if counter
+                                           else None)}
+
+
+def p19_records(torch, np, nn_ops, fu, tmp, cv2_ok, launches):
+    """(a) records into ResNet-50's fit; returns the trainer, its symbol
+    and the numbers."""
+    from mxnet_tpu_torch import image_io, io, models, recordio
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.parallel.trainer import _AsyncMetric
+
+    out = {"cv2": cv2_ok}
+    imgs, labels = p19_images(np)
+    forms = {"raw": (".raw", 0), "raw224": (".raw", 16)}
+    if cv2_ok:
+        forms["jpg"] = (".jpg", 0)
+    packed = p19_pack(np, recordio, tmp, imgs, labels, forms)
+    out["packed"] = {k: {"seconds": v[2], "bytes": v[3]}
+                     for k, v in packed.items()}
+    out["iterator_images_per_s"] = {
+        k: p19_iter_rate(image_io, *packed[k][:2])
+        for k in ("raw", "jpg") if k in packed}
+    log(f"  (a) packed {REC_IMAGES} images: "
+        + ", ".join(f"{k} {v['bytes']} bytes in {v['seconds']:.2f} s"
+                    for k, v in out["packed"].items())
+        + "; the iterator alone (shuffle, crop, mirror, "
+        f"{REC_THREADS} threads): "
+        + ", ".join(f"{k} {v:.1f} images/s"
+                    for k, v in out["iterator_images_per_s"].items()))
+
+    sym = models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH)
+    shapes = dict(data=(BATCH,) + IMAGE, softmax_label=(BATCH,))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=19)
+
+    def trainer():
+        tr = ShardedTrainer(sym, optimizer="sgd",
+                            optimizer_params=dict(TRAIN_OPT), guard=True,
+                            clip_global_norm=CLIP, device=DEVICE)
+        return tr.bind({"data": shapes["data"]},
+                       {"softmax_label": shapes["softmax_label"]},
+                       arg_params=args, aux_params=aux)
+
+    tr_rec, tr_nd = trainer(), trainer()
+    check(tr_rec._fused_route == "hopper", "the trainer did not take K2's "
+          f"hopper route ({tr_rec._fused_route})")
+    # the same images as host arrays, as the iterator makes them (NCHW in
+    # memory: a channels-last array would take other convolution kernels)
+    x = np.ascontiguousarray(imgs[:, 16:16 + IMAGE[1], 16:16 + IMAGE[2]]
+                             .transpose(0, 3, 1, 2), np.float32)
+    x *= REC_SCALE
+    counter = SyncCounter(torch, [
+        (_AsyncMetric, "_drain"), (tr_rec, "resilience_stats"),
+        (tr_rec, "get_params"), (tr_rec, "score"),
+        (tr_rec, "_sentinel_poll")])
+    reset_train_counts(nn_ops.softmax_rows, fu.fused_update)
+    raw_iter = image_io.ImageRecordIter(
+        packed["raw224"][0], IMAGE, BATCH, path_imgidx=packed["raw224"][1],
+        scale=REC_SCALE, preprocess_threads=REC_THREADS)
+    runs = [p19_fit(torch, np, io, tr_rec, raw_iter, "raw records",
+                    counter)]
+    runs.append(p19_fit(torch, np, io, tr_nd, io.NDArrayIter(
+        x, labels, batch_size=BATCH), "NDArrayIter"))
+    diff = state_diff(torch, tr_rec, tr_nd)
+    check(not diff, f"fit over raw records and over an NDArrayIter of the "
+          f"same arrays differ in {diff}")
+    check(runs[0]["syncs"]["other threads"] == 0,
+          f"the prefetch worker made {runs[0]['syncs']['other threads']} "
+          f"synchronizing calls ({counter.sites.get('other threads')})")
+    # steps 2-8 against 7 bare steps on placed batches, as phase 13
+    placed = [tr_nd.place_batch({"data": x[i * BATCH:(i + 1) * BATCH],
+                                 "softmax_label": labels[i * BATCH:
+                                                         (i + 1) * BATCH]})
+              for i in range(1, REC_IMAGES // BATCH)]
+    torch.cuda.synchronize()
+    bare = SyncCounter(torch)
+    # the bare steps are not the main path's: their launches leave the
+    # counts
+    saved = [(k, k.launches, dict(k.launches_by_form))
+             for k in (nn_ops.softmax_rows, fu.fused_update)]
+    bare.start()
+    try:
+        for b in placed:
+            tr_nd.step(b)
+    finally:
+        bare_syncs = bare.stop()
+    for k, n, forms in saved:
+        k.launches, k.launches_by_form = n, forms
+    del placed
+    check(runs[0]["syncs"]["outside"] <= bare_syncs["outside"],
+          f"steps 2-8 of the record fit made {runs[0]['syncs']['outside']} "
+          f"synchronizing calls outside fit's drains "
+          f"({counter.sites.get('outside')}); bare steps "
+          f"{bare_syncs['outside']}")
+    out["bare_syncs"] = bare_syncs
+    del tr_nd
+    if cv2_ok:
+        jpg_iter = image_io.ImageRecordIter(
+            packed["jpg"][0], IMAGE, BATCH, path_imgidx=packed["jpg"][1],
+            shuffle=True, rand_crop=True, rand_mirror=True, scale=REC_SCALE,
+            preprocess_threads=REC_THREADS)
+        runs.append(p19_fit(torch, np, io, tr_rec, jpg_iter,
+                            "jpg records, augmented"))
+    else:
+        log("  (a) cv2 does not import here: the .jpg iterator and its fit "
+            "did not run (.raw records only)")
+    steps = sum(r["batches"] for r in runs)
+    k1, k1_forms = (nn_ops.softmax_rows.launches,
+                    dict(nn_ops.softmax_rows.launches_by_form))
+    k2, k2_forms = (fu.fused_update.launches,
+                    dict(fu.fused_update.launches_by_form))
+    check(k1 == steps and k1_forms["warp"] == k1,
+          f"K1 launched {k1} times ({k1_forms}) in {steps} steps")
+    check(k2 == steps and k2_forms["hopper"] == k2,
+          f"K2 launched {k2} times ({k2_forms}) in {steps} steps")
+    launches["softmax_rows"] += k1
+    launches["fused_update"] += k2
+    for r in runs:
+        log(f"  (a) fit over {r['label']}: {r['median_ms']:.2f} ms a batch, "
+            f"{r['images_per_s']:.1f} images/s (events), "
+            f"{r['epoch_images_per_s']:.1f} images/s over the epoch "
+            f"({r['epoch_s']:.2f} s), prefetch wait "
+            f"{100 * r['prefetch_wait_share']:.1f} % of the epoch "
+            f"({100 * r['prefetch_wait_share_after_first']:.1f} % after the "
+            "first batch)")
+    log(f"  (a) raw-record fit bitwise the NDArrayIter fit (weights, "
+        f"momentum, moving statistics, guard); K1 {k1} (warp), K2 {k2} "
+        f"(hopper); steps 2-8 synchronizing calls {runs[0]['syncs']} "
+        f"(bare steps {bare_syncs})")
+    out["fits"] = runs
+    out["launches"] = {"softmax_rows": k1, "fused_update": k2}
+    return tr_rec, sym, x, out
+
+
+def p19_predictor(torch, np, nn_ops, _build, tr, sym, x, tmp, launches):
+    """(b) the trained weights through ``predictor.create`` (legacy prefix
+    and manifest directory), an executor, and an exported artifact served
+    by a process without the port."""
+    from mxnet_tpu_torch import checkpoint, model, predictor
+    from mxnet_tpu_torch.context import cpu, gpu
+
+    out = {}
+    ctx = gpu(0) if DEVICE == "cuda" else cpu()
+    # create's default context is the card
+    where = {} if DEVICE == "cuda" else {"ctx": ctx}
+    arg, aux = tr.get_params()
+    prefix = os.path.join(tmp, "r50")
+    model.save_checkpoint(prefix, 1, sym, arg, aux)
+    mgr = checkpoint.CheckpointManager(os.path.join(tmp, "r50-manager"))
+    mgr.save_model(1, sym, arg, aux)
+    mgr.close()
+    shapes = {"data": (BATCH,) + IMAGE}
+    batch = x[:BATCH]
+    ex = sym.simple_bind(ctx, grad_req="null", **shapes,
+                         softmax_label=(BATCH,))
+    ex.copy_params_from(arg, aux)
+    reset_train_counts(nn_ops.softmax_rows)
+    ref = ex.forward(is_train=False, data=batch)[0].asnumpy()
+    check(nn_ops.softmax_rows.launches == 1,
+          f"the executor's forward launched K1 "
+          f"{nn_ops.softmax_rows.launches} times")
+    launches["softmax_rows"] += 1
+    preds = {"legacy": predictor.create(prefix, 1, shapes, **where),
+             "manifest": predictor.create(os.path.join(tmp, "r50-manager"),
+                                          None, shapes, **where)}
+    built, compile_ = [], _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    _build._compile = counting
+    try:
+        for kind, p in preds.items():
+            check([i["source"] for i in p.aot_info] == ["capture"],
+                  f"{kind} predictor's warmup: {p.aot_info}")
+            reset_train_counts(nn_ops.softmax_rows)
+            got = p.predict(data=batch)[0]
+            k1 = dict(nn_ops.softmax_rows.launches_by_form)
+            check(nn_ops.softmax_rows.launches == 1 and k1["warp"] == 1,
+                  f"{kind} predictor's forward launched K1 {k1}")
+            check(got.tobytes() == ref.tobytes(),
+                  f"the {kind} predictor's outputs are not bitwise the "
+                  f"executor's (max abs diff {np.abs(got - ref).max()})")
+            launches["softmax_rows"] += 1
+        pred = preds["legacy"]
+
+        def fwd_ms(run, reps=10):
+            ms = []
+            for _ in range(reps):
+                a = record_event(torch)
+                run()
+                b = record_event(torch)
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+            return float(np.median(ms)), ms
+
+        reset_train_counts(nn_ops.softmax_rows)
+        out["predictor_forward_ms"], out["predictor_ms"] = fwd_ms(
+            pred.forward)
+        out["executor_forward_ms"], out["executor_ms"] = fwd_ms(
+            lambda: ex.forward(is_train=False))
+        check(nn_ops.softmax_rows.launches == 20,
+              f"20 timed forwards launched K1 "
+              f"{nn_ops.softmax_rows.launches} times")
+        launches["softmax_rows"] += 20
+    finally:
+        _build._compile = compile_
+    check(not built, f"the predictors built kernels after warmup: {built}")
+    log(f"  (b) create from a legacy prefix and a manifest directory: "
+        "outputs bitwise the executor's, one K1 launch (warp) a forward, "
+        "captured programs; forward median "
+        f"{out['predictor_forward_ms']:.3f} ms (Predictor, replayed) and "
+        f"{out['executor_forward_ms']:.3f} ms (executor, eager)")
+
+    # the exported artifact, served by a process that cannot import the
+    # port
+    art = os.path.join(tmp, "r50.mxtpt")
+    t0 = time.perf_counter()
+    predictor.export_model(sym, arg, aux, shapes, art)
+    out["export_s"] = time.perf_counter() - t0
+    out["artifact_bytes"] = os.path.getsize(art)
+    xp, yp, mp = (os.path.join(tmp, f) for f in ("x.npy", "y.npy",
+                                                  "ms.json"))
+    np.save(xp, batch)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", P19_SERVE.format(
+        art=art, x=xp, y=yp, ms=mp)], capture_output=True, text=True,
+        timeout=300, cwd=tmp, env=env)
+    check(proc.returncode == 0,
+          f"serving the artifact without the port failed: {proc.stderr}")
+    served = np.load(yp)
+    with open(mp) as f:
+        out["exported"] = json.load(f)
+    err = float(np.abs(served - ref).max())
+    check(np.allclose(served, ref, rtol=EXPORT_TOL[0], atol=EXPORT_TOL[1]),
+          f"the exported program's outputs differ from the Predictor's by "
+          f"{err}")
+    out["exported_max_abs_err"] = err
+    log(f"  (b) export_model: {out['artifact_bytes']} bytes in "
+        f"{out['export_s']:.2f} s (traced on the CPU); served by a process "
+        f"without the port on {out['exported']['device']}: forward median "
+        f"{out['exported']['median_ms']:.3f} ms, max abs diff {err:.3g} "
+        f"from the Predictor; tensors held {out['exported']['tensor_bytes']}")
+    return out
+
+
+# a process that imports torch and not the port serves the artifact on
+# the card, with the script's numerics settings (no TF32, deterministic
+# cuDNN)
+P19_SERVE = """
+import sys
+sys.modules["mxnet_tpu_torch"] = None
+import io, json, struct
+import numpy as np
+import torch
+from torch.export.passes import move_to_device_pass
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+with open({art!r}, "rb") as f:
+    assert f.read(9) == b"MXTPTEXP1"
+    (hlen,) = struct.unpack("<i", f.read(4))
+    meta = json.loads(f.read(hlen).decode())
+    program = torch.export.load(io.BytesIO(f.read()))
+held = {{kind: sum(t.numel() * t.element_size() for t in table.values())
+        for kind, table in (("state_dict", program.state_dict),
+                            ("constants", program.constants))}}
+module = move_to_device_pass(program, "cuda").module()
+x = torch.from_numpy(np.load({x!r})).cuda()
+ms = []
+with torch.no_grad():
+    for _ in range(11):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        (y,) = module(x)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+np.save({y!r}, y.cpu().numpy())
+with open({ms!r}, "w") as f:
+    json.dump({{"device": torch.cuda.get_device_name(0), "ms": ms,
+               "median_ms": sorted(ms[1:])[5], "meta": meta,
+               "tensor_bytes": held}}, f)
+"""
+
+
+def ocr_net(S):
+    """``examples/lstm_ocr.py``'s ``lstm_ctc_unroll``."""
+    i2h_w, i2h_b = S.Variable("i2h_weight"), S.Variable("i2h_bias")
+    h2h_w, h2h_b = S.Variable("h2h_weight"), S.Variable("h2h_bias")
+    cls_w, cls_b = S.Variable("cls_weight"), S.Variable("cls_bias")
+    c, h = S.Variable("init_c"), S.Variable("init_h")
+    cols = S.SliceChannel(data=S.Variable("data"), num_outputs=OCR_SEQ,
+                          axis=1, squeeze_axis=True, name="cols")
+    outs = []
+    for t in range(OCR_SEQ):
+        i2h = S.FullyConnected(data=cols[t], num_hidden=OCR_HIDDEN * 4,
+                               weight=i2h_w, bias=i2h_b, name=f"t{t}_i2h")
+        h2h = S.FullyConnected(data=h, num_hidden=OCR_HIDDEN * 4,
+                               weight=h2h_w, bias=h2h_b, name=f"t{t}_h2h")
+        gates = S.SliceChannel(data=i2h + h2h, num_outputs=4,
+                               name=f"t{t}_gates")
+        in_g = S.Activation(data=gates[0], act_type="sigmoid")
+        in_t = S.Activation(data=gates[1], act_type="tanh")
+        f_g = S.Activation(data=gates[2], act_type="sigmoid")
+        o_g = S.Activation(data=gates[3], act_type="sigmoid")
+        c = (f_g * c) + (in_g * in_t)
+        h = o_g * S.Activation(data=c, act_type="tanh")
+        fc = S.FullyConnected(data=h, num_hidden=OCR_CLASSES, weight=cls_w,
+                              bias=cls_b, name=f"t{t}_cls")
+        outs.append(S.expand_dims(fc, axis=0))
+    logits = S.Reshape(data=S.Concat(*outs, dim=0, name="tconcat"),
+                       shape=(-1, OCR_CLASSES))
+    return S.WarpCTC(data=logits, label=S.Variable("label"),
+                     input_length=OCR_SEQ, label_length=OCR_LABELS,
+                     name="ctc")
+
+
+def ocr_batches(np, n):
+    """``examples/lstm_ocr.py``'s ``gen_captcha`` batches from seed 0."""
+    glyphs = np.zeros((10, OCR_HEIGHT, 4), np.float32)
+    for d in range(10):
+        glyphs[d, d:d + 3, :] = 1.0
+        glyphs[d, (3 * d + 1) % OCR_HEIGHT, 1:3] = 1.0
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        digits = rng.randint(0, 10, (OCR_BATCH, OCR_LABELS))
+        img = np.zeros((OCR_BATCH, OCR_SEQ, OCR_HEIGHT), np.float32)
+        for b in range(OCR_BATCH):
+            for i, d in enumerate(digits[b]):
+                img[b, 1 + i * 5:5 + i * 5] += glyphs[d].T
+        img += rng.rand(OCR_BATCH, OCR_SEQ, OCR_HEIGHT).astype(
+            np.float32) * 0.2
+        out.append((img, (digits + 1).astype(np.float32)))
+    return out
+
+
+def p19_ctc(torch, np, fu, launches):
+    """(c) the OCR net trained on the card and on the CPU from the same
+    weights and batches; the op's gradient on the card against the CPU;
+    ``F.ctc_loss`` timed beside the recursion."""
+    from mxnet_tpu_torch import name as name_mod, symbol as S
+    from mxnet_tpu_torch.ops import ctc, registry
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    with name_mod.NameManager():
+        net = ocr_net(S)
+    data_shapes = {"data": (OCR_BATCH, OCR_SEQ, OCR_HEIGHT),
+                   "init_c": (OCR_BATCH, OCR_HIDDEN),
+                   "init_h": (OCR_BATCH, OCR_HIDDEN)}
+    label_shapes = {"label": (OCR_BATCH * OCR_LABELS,)}
+    shapes, _, aux_shapes = net.infer_shape(**data_shapes, **label_shapes)
+    args = {n: v for n, v in init_numpy(np, net, shapes, aux_shapes,
+                                        seed=0)[0].items()
+            if n not in data_shapes and n not in label_shapes}
+    trainers = {}
+    for dev in (DEVICE, "cpu"):
+        tr = ShardedTrainer(net, optimizer="adam",
+                            optimizer_params=dict(OCR_OPT), device=dev)
+        trainers[dev] = tr.bind(data_shapes=data_shapes,
+                                label_shapes=label_shapes, arg_params=args)
+    zeros = np.zeros((OCR_BATCH, OCR_HIDDEN), np.float32)
+    losses = {dev: [] for dev in trainers}
+    reset_train_counts(fu.fused_update)
+    t0 = time.perf_counter()
+    for img, lab in ocr_batches(np, OCR_STEPS):
+        batch = {"data": img, "init_c": zeros, "init_h": zeros,
+                 "label": lab.reshape(-1)}
+        labels = torch.from_numpy(lab).long()
+        for dev, tr in trainers.items():
+            prob = tr.step(batch)[0].detach().float().cpu()
+            logp = torch.log(prob).reshape(OCR_SEQ, OCR_BATCH, OCR_CLASSES)
+            losses[dev].append(float(ctc.ctc_loss(logp, labels).mean()))
+    seconds = time.perf_counter() - t0
+    k2 = fu.fused_update.launches
+    check(k2 == OCR_STEPS, f"K2 launched {k2} times in {OCR_STEPS} OCR steps")
+    launches["fused_update"] += k2
+    card, host = np.asarray(losses[DEVICE]), np.asarray(losses["cpu"])
+    rel = float(np.max(np.abs(card - host) / np.abs(host)))
+    check(rel <= OCR_LOSS_RTOL, f"OCR losses on the card {card.tolist()} "
+          f"and on the CPU {host.tolist()} differ by {rel} (relative)")
+    check(card[-1] < card[0], f"the OCR loss did not fall: {card.tolist()}")
+
+    # the op's forward and gradient at the net's shapes, card against CPU
+    rng = np.random.RandomState(1)
+    tb = OCR_SEQ * OCR_BATCH
+    data = torch.from_numpy(rng.randn(tb, OCR_CLASSES).astype(np.float32))
+    label = torch.from_numpy(ocr_batches(np, 1)[0][1].reshape(-1))
+    op = registry.get_op("WarpCTC")
+    params = op.parse_params({"input_length": OCR_SEQ,
+                              "label_length": OCR_LABELS})
+    got = []
+    for dev in ("cpu", DEVICE):
+        d = data.to(dev, copy=True).requires_grad_()
+        out = op.forward(registry.OpContext(), params, d, label.to(dev))
+        out.backward(torch.ones_like(out))
+        got.append((out.detach().cpu(), d.grad.cpu()))
+    grad_err = float((got[1][1] - got[0][1]).abs().max())
+    prob_err = float((got[1][0] - got[0][0]).abs().max())
+    check(grad_err <= 1e-5 * float(got[0][1].abs().max())
+          and prob_err <= TOL["float32"],
+          f"WarpCTC on the card: softmax off by {prob_err}, gradient by "
+          f"{grad_err} from the CPU")
+
+    # the recursion (forward and backward) beside F.ctc_loss: a yardstick
+    logits = torch.from_numpy(rng.randn(OCR_SEQ, OCR_BATCH, OCR_CLASSES)
+                              .astype(np.float32)).to(DEVICE)
+    lab = label.reshape(OCR_BATCH, OCR_LABELS).to(DEVICE).long()
+    lens_in = torch.full((OCR_BATCH,), OCR_SEQ, dtype=torch.long,
+                         device=DEVICE)
+    lens_lab = (lab != 0).sum(1)
+
+    def recursion():
+        lg = logits.detach().requires_grad_()
+        ctc.ctc_loss(lg, lab).sum().backward()
+
+    def library():
+        lg = logits.detach().requires_grad_()
+        torch.nn.functional.ctc_loss(
+            torch.log_softmax(lg, -1), lab, lens_in, lens_lab,
+            reduction="sum", zero_infinity=False).backward()
+
+    times = {"recursion_ms": time_ms(torch, recursion, reps=20,
+                                     hide_host=False),
+             "f_ctc_loss_ms": time_ms(torch, library, reps=20,
+                                      hide_host=False)}
+    log(f"  (c) OCR net ({OCR_SEQ} columns of {OCR_HEIGHT}, {OCR_LABELS} "
+        f"labels, {OCR_CLASSES} classes, {OCR_HIDDEN} hidden, batch "
+        f"{OCR_BATCH}): {OCR_STEPS} Adam steps on the card and the CPU in "
+        f"{seconds:.1f} s, losses {card[0]:.4f} -> {card[-1]:.4f}, max "
+        f"relative difference {rel:.3g}; WarpCTC's softmax {prob_err:.3g} "
+        f"and gradient {grad_err:.3g} from the CPU; K2 {k2}; loss and "
+        f"gradient {times['recursion_ms']:.3f} ms (recursion) against "
+        f"{times['f_ctc_loss_ms']:.3f} ms (F.ctc_loss, a yardstick)")
+    return {"losses_card": card.tolist(), "losses_cpu": host.tolist(),
+            "loss_max_rel_diff": rel, "softmax_err": prob_err,
+            "grad_err": grad_err, "seconds": seconds, **times}
+
+
+def detector_net(S, b):
+    """``examples/rcnn_detection.py``'s ``build_detector`` (its pooled
+    features added to the outputs)."""
+    a = len(DET_SCALES) * len(DET_RATIOS)
+    f = S.Variable("data")
+    for name, nf, k, s, p in (("c1", 16, 3, 2, 1), ("c2", 32, 3, 2, 1),
+                              ("c3", 32, 3, 1, 1)):
+        f = S.Activation(data=S.Convolution(
+            data=f, num_filter=nf, kernel=(k, k), stride=(s, s),
+            pad=(p, p), name=name), act_type="relu")
+    feat = f
+    r = S.Activation(data=S.Convolution(
+        data=feat, num_filter=32, kernel=(5, 5), stride=(1, 1), pad=(2, 2),
+        name="rpn_conv"), act_type="relu")
+    cls = S.Convolution(data=r, num_filter=2 * a, kernel=(1, 1),
+                        name="rpn_cls")
+    bbox = S.Convolution(data=r, num_filter=4 * a, kernel=(1, 1),
+                         name="rpn_bbox")
+    cls_prob = S.Reshape(
+        data=S.SoftmaxActivation(data=S.Reshape(
+            data=cls, shape=(b, 2, a * DET_FEAT * DET_FEAT)),
+            mode="channel"),
+        shape=(b, 2 * a, DET_FEAT, DET_FEAT))
+    rois = S.Proposal(cls_prob=cls_prob, bbox_pred=bbox,
+                      im_info=S.Variable("im_info"),
+                      feature_stride=DET_STRIDE, scales=DET_SCALES,
+                      ratios=DET_RATIOS, rpn_pre_nms_top_n=128,
+                      rpn_post_nms_top_n=DET_K, threshold=0.7,
+                      rpn_min_size=4, name="proposal")
+    pooled = S.ROIPooling(data=feat, rois=rois, pooled_size=(4, 4),
+                          spatial_scale=1.0 / DET_STRIDE, name="roi_pool")
+    fc = S.Activation(data=S.FullyConnected(
+        data=S.Flatten(data=pooled), num_hidden=32, name="rcls_fc"),
+        act_type="relu")
+    head = S.FullyConnected(data=fc, num_hidden=2, name="rcls")
+    out = S.SoftmaxOutput(data=head, label=S.Variable("roi_label"),
+                          name="rcnn_cls")
+    return S.Group([out, rois, pooled])
+
+
+def p19_detection(torch, np, nn_ops, launches):
+    """(d) the detector's forward and backward on the card against the
+    CPU, and ``Proposal`` alone: the CPU's selection, no synchronizing
+    call."""
+    from mxnet_tpu_torch import name as name_mod, symbol as S
+    from mxnet_tpu_torch.context import cpu, gpu
+    from mxnet_tpu_torch.ops import registry
+
+    with name_mod.NameManager():
+        net = detector_net(S, DET_BATCH)
+    shapes = {"data": (DET_BATCH, 1, DET_IMG, DET_IMG),
+              "im_info": (DET_BATCH, 3), "roi_label": (DET_BATCH * DET_K,)}
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    rng = np.random.RandomState(4)
+    args = {n: (0.2 * rng.randn(*s)).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in shapes}
+    x = rng.rand(*shapes["data"]).astype(np.float32)
+    info = np.array([[DET_IMG, DET_IMG, 1.0]] * DET_BATCH, np.float32)
+    roi_label = (np.arange(DET_BATCH * DET_K) % 2).astype(np.float32)
+    res = {}
+    reset_train_counts(nn_ops.softmax_rows)
+    for dev, ctx in ((DEVICE, gpu(0) if DEVICE == "cuda" else cpu()),
+                     ("cpu", cpu())):
+        ex = net.simple_bind(ctx, grad_req="write", **shapes)
+        ex.copy_params_from(args)
+        ex.forward(is_train=True, data=x, im_info=info, roi_label=roi_label)
+        ex.backward()
+        res[dev] = [o.asnumpy() for o in ex.outputs] + [
+            ex.grad_dict[n].asnumpy() for n in ("rcls_fc_weight",
+                                                "c3_weight")]
+    k1 = nn_ops.softmax_rows.launches
+    check(k1 == 1, f"the detector's forward launched K1 {k1} times")
+    launches["softmax_rows"] += k1
+    names = ("head", "rois", "pooled", "rcls_fc grad", "c3 grad")
+    errs = {}
+    for name, card, host in zip(names, res[DEVICE], res["cpu"]):
+        rtol, atol = DET_TOL["rois" if name == "rois" else "values"]
+        if name.endswith("grad"):
+            atol = atol * float(np.abs(host).max())
+        errs[name] = float(np.abs(card - host).max())
+        check(np.allclose(card, host, rtol=rtol, atol=atol),
+              f"detector {name} on the card differs from the CPU by "
+              f"{errs[name]}")
+    check(np.abs(res[DEVICE][4]).max() > 0, "no gradient reached the "
+          "backbone through ROIPooling")
+
+    # Proposal alone on the card's RPN output: the CPU's selection on the
+    # same inputs, and no synchronizing call once its anchors are placed
+    a = len(DET_SCALES) * len(DET_RATIOS)
+    cls_prob = torch.softmax(torch.from_numpy(rng.randn(
+        DET_BATCH, 2, a * DET_FEAT * DET_FEAT).astype(np.float32)), 1)
+    inputs = [cls_prob.reshape(DET_BATCH, 2 * a, DET_FEAT, DET_FEAT),
+              torch.from_numpy((0.5 * rng.randn(
+                  DET_BATCH, 4 * a, DET_FEAT, DET_FEAT)).astype(np.float32)),
+              torch.from_numpy(info)]
+    op = registry.get_op("Proposal")
+    params = op.parse_params(dict(
+        feature_stride=DET_STRIDE, scales=DET_SCALES, ratios=DET_RATIOS,
+        rpn_pre_nms_top_n=128, rpn_post_nms_top_n=DET_K, threshold=0.7,
+        rpn_min_size=4, output_score=True))
+    want = op.forward(registry.OpContext(), params, *inputs)
+    on_card = [t.to(DEVICE) for t in inputs]
+    op.forward(registry.OpContext(), params, *on_card)
+    torch.cuda.synchronize()
+    counter = SyncCounter(torch)
+    counter.start()
+    try:
+        got = op.forward(registry.OpContext(), params, *on_card)
+    finally:
+        syncs = counter.stop()
+    check(sum(syncs.values()) == 0,
+          f"Proposal made synchronizing calls: {counter.sites}")
+    check(torch.equal(got[1].cpu(), want[1]),
+          "Proposal's scores on the card are not the CPU's selection")
+    box_err = float((got[0].cpu() - want[0]).abs().max())
+    check(box_err <= 1e-5 * max(1.0, float(want[0].abs().max())),
+          f"Proposal's boxes on the card differ from the CPU's by {box_err}")
+    log(f"  (d) detector ({DET_IMG}x{DET_IMG}, stride {DET_STRIDE}, "
+        f"{DET_K} proposals an image, batch {DET_BATCH}) on the card "
+        f"against the CPU, max abs diff: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; K1 {k1}; Proposal alone: the CPU's selection, boxes within "
+        f"{box_err:.3g}, no synchronizing call")
+    return {"max_abs_diff": errs, "proposal_box_err": box_err}
+
+
+def p19_roi_head(torch, np):
+    """(d) ``ROIPooling`` forward and backward on the card at a Fast R-CNN
+    head's size: the peak memory above the inputs, ms, and the first rois'
+    values and gradient against the CPU."""
+    from mxnet_tpu_torch.ops import nn_ops, registry
+
+    c, h, w = ROI_HEAD["channels"], ROI_HEAD["height"], ROI_HEAD["width"]
+    n, ph, st = ROI_HEAD["rois"], ROI_HEAD["pooled"], ROI_HEAD["stride"]
+    rng = np.random.RandomState(16)
+    data = rng.rand(1, c, h, w).astype(np.float32)
+    # proposals anywhere in the image, 16 to 400 pixels a side
+    lo = rng.uniform(0, 1, (n, 2)) * [w * st, h * st]
+    hi = np.minimum(lo + rng.uniform(16, 400, (n, 2)),
+                    [w * st - 1, h * st - 1])
+    rois = np.concatenate([np.zeros((n, 1)), lo, hi], 1).astype(np.float32)
+    g = rng.rand(n, c, ph, ph).astype(np.float32)
+    op = registry.get_op("ROIPooling")
+    params = op.parse_params({"pooled_size": (ph, ph),
+                              "spatial_scale": 1.0 / st})
+    ctx = registry.OpContext()
+    d = torch.from_numpy(data).to(DEVICE).requires_grad_()
+    r, gd = torch.from_numpy(rois).to(DEVICE), torch.from_numpy(g).to(DEVICE)
+
+    def forward():
+        with torch.no_grad():
+            return op.forward(ctx, params, d, r)
+
+    def forward_backward():
+        d.grad = None
+        op.forward(ctx, params, d, r).backward(gd)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    forward_backward()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    check(peak <= ROI_HEAD_PEAK_GIB,
+          f"ROIPooling at the head's size took {peak:.2f} GiB on the card")
+    got = forward().cpu()
+    k = ROI_HEAD_CHECKED
+    dc = torch.from_numpy(data).requires_grad_()
+    want = op.forward(ctx, params, dc, torch.from_numpy(rois[:k]))
+    want.backward(torch.from_numpy(g[:k]))
+    check(torch.equal(got[:k], want.detach()),
+          f"ROIPooling's first {k} rois on the card are not the CPU's")
+    dk = d.detach().clone().requires_grad_()
+    op.forward(ctx, params, dk, r[:k]).backward(gd[:k])
+    # the card adds overlapping rois' shares by atomics, in another order
+    grad_err = float((dk.grad.cpu() - dc.grad).abs().max())
+    check(grad_err <= 1e-6 * float(dc.grad.abs().max()),
+          f"ROIPooling's gradient over {k} rois on the card is "
+          f"{grad_err} from the CPU's")
+    one_pass = n * c * ph * ph * h * w * 4
+    step = max(1, nn_ops.ROI_POOL_CHUNK_ELEMS // (c * ph * ph * h * w))
+    out = {"peak_gib": peak, "one_pass_window_bytes": one_pass,
+           "rois_a_chunk": step, "grad_err": grad_err,
+           "forward_ms": time_ms(torch, forward, reps=5, hide_host=False),
+           "forward_backward_ms": time_ms(torch, forward_backward, reps=5,
+                                          hide_host=False)}
+    log(f"  (d) ROIPooling at a Fast R-CNN head ({n} rois x {c} channels "
+        f"x {ph}x{ph} bins over {h}x{w}; one-pass windows {one_pass} "
+        f"bytes): {step} rois a chunk, peak {peak:.2f} GiB above the "
+        f"inputs, forward {out['forward_ms']:.3f} ms, forward and backward "
+        f"{out['forward_backward_ms']:.3f} ms; the first {k} rois the CPU's "
+        f"bits, gradient within {grad_err:.3g}; {card_line()}")
+    return out
+
+
+def phase_records_predictor(torch, np, nn_ops, fu, _build):
+    """Phase 19: (a) records into ResNet-50's fit, (b) the predictor and
+    the exported artifact, (c) WarpCTC at the OCR example's sizes, (d) the
+    detector; returns the K1 and K2 launches of the phase and its
+    numbers."""
+    import tempfile
+    t_phase = time.perf_counter()
+    try:
+        import cv2  # noqa: F401
+        cv2_ok = True
+    except ImportError:
+        cv2_ok = False
+    log(f"  cv2 {'imports' if cv2_ok else 'does not import'} here")
+    launches = {"softmax_rows": 0, "fused_update": 0}
+    out = {}
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    try:
+        # two fits are held bit for bit, and cuDNN's default backward is
+        # not deterministic
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            tr, sym, x, out["records"] = p19_records(
+                torch, np, nn_ops, fu, tmp, cv2_ok, launches)
+            out["records"]["seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["predictor"] = p19_predictor(torch, np, nn_ops, _build, tr,
+                                             sym, x, tmp, launches)
+            out["predictor"]["seconds"] = time.perf_counter() - t0
+            del tr, x
+        out["ctc"] = p19_ctc(torch, np, fu, launches)
+        t0 = time.perf_counter()
+        out["detection"] = p19_detection(torch, np, nn_ops, launches)
+        out["detection"]["roi_head"] = p19_roi_head(torch, np)
+        out["detection"]["seconds"] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    log("  records, predictor, ctc, detection: " + json.dumps(out))
+    return launches, out
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -7001,14 +7856,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/18] device")
+    log("[1/19] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/18] build")
+    log("[2/19] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -7023,7 +7878,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/18] kernels against their plain versions")
+    log("[3/19] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -7032,22 +7887,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/18] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/19] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/18] serving the round-12 configuration: chunked prefill "
+    log(f"[5/19] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/18] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/19] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/18] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/19] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/18] kernel timing")
+    log("[8/19] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -7064,25 +7919,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/18] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/19] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/18] imperative + executor: NDArray on the card, the MLP "
+    log("[10/19] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/18] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/19] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/18] the serving control plane: crash failover, a hung and a "
+    log("[12/19] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -7090,7 +7945,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/18] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/19] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -7099,7 +7954,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/18] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/19] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -7107,7 +7962,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/18] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/19] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -7115,7 +7970,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/18] programs and the profiler: serve and train steps "
+    log("[17/19] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -7123,7 +7978,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/18] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/19] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -7131,8 +7986,17 @@ def main(argv) -> int:
     p18_launches, _ = phase_data_parallel(torch, np, _build)
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 18
-    log("[15/18] result")
+    t0 = time.perf_counter()
+    log(f"[19/19] input records, the deployment predictor and the last ops: "
+        f"{REC_IMAGES} packed images through ImageRecordIter into "
+        f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
+        f"served without the port, WarpCTC at the OCR example's sizes, the "
+        "detector (Proposal, ROIPooling)")
+    p19_launches, _ = phase_records_predictor(torch, np, nn_ops, fu, _build)
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 19
+    log("[15/19] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -7156,18 +8020,18 @@ def main(argv) -> int:
          "mxnet_tpu/ops/nn_ops.py:847",
          train_launches["softmax_rows"] + loop_launches["softmax_rows"]
          + zoo_launches["softmax_rows"] + p17_launches["softmax_rows"]
-         + p18_launches["softmax_rows"],
+         + p18_launches["softmax_rows"] + p19_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
-        # (Adam), stepped bare (phases 7, 9) and through fit (phase 13),
-        # and the four ImageNet nets (phase 14)
+        # (Adam), stepped bare (phases 7, 9) and through fit (phases 13,
+        # 19), the four ImageNet nets (phase 14) and the OCR net (19)
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
          "mxnet_tpu/ops/fused_update.py:216",
          train_launches["fused_update"] + lm_launches["fused_update"]
          + loop_launches["fused_update"] + zoo_launches["fused_update"]
          + long_launches["fused_update"] + p17_launches["fused_update"]
-         + p18_launches["fused_update"],
+         + p18_launches["fused_update"] + p19_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",

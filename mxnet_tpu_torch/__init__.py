@@ -22,20 +22,22 @@ gradient accumulation) with durable ``checkpoint``s, and serving or
 post-training from them (``predictor.load_weights``, ``online``), and
 data parallelism in one process (``parallel`` meshes and collectives,
 ``kvstore``, ``ShardedTrainer`` over a mesh, the legacy API over several
-contexts).  Entry
+contexts), input records (``recordio``, ``image_io``'s
+``ImageRecordIter``) and the deployment predictor (``predictor.create``,
+``Predictor``, ``export_model``).  Entry
 points run on the card unless the caller passes ``device="cpu"`` (or
 works under ``with mx.cpu():``).
 """
 from . import (attribute, base, callback, chaos, checkpoint, compile_cache,
-               context, executor, executor_manager, graph_eval, initializer,
-               io, kvstore, lr_scheduler, metric, model, models, module,
-               monitor,
-               name, ndarray, online, operator, ops, optimizer, parallel,
-               predictor, profiler, quant, random, resilience, rtc, serve,
-               stream, symbol, telemetry)
+               context, executor, executor_manager, graph_eval, image_io,
+               initializer, io, kvstore, lr_scheduler, metric, model, models,
+               module, monitor, name, ndarray, online, operator, ops,
+               optimizer, parallel, predictor, profiler, quant, random,
+               recordio, resilience, rtc, serve, stream, symbol, telemetry)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
 from .executor import Executor
+from .image_io import ImageRecordIter
 from .model import FeedForward, load_checkpoint, save_checkpoint
 from .monitor import Monitor
 from .parallel import ShardedTrainer
@@ -48,13 +50,13 @@ mod = module
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "resolve_device", "Engine", "EngineConfig", "Executor",
-           "FeedForward", "Group", "Monitor", "ServeError", "ShardedTrainer",
-           "kvcache", "attribute", "base", "callback", "chaos",
-           "compile_cache", "context", "executor", "executor_manager",
-           "graph_eval", "initializer", "io", "kvstore", "load_checkpoint",
-           "lr_scheduler", "metric", "mod", "model", "models", "module",
-           "monitor", "name", "nd", "ndarray", "online", "operator", "ops",
-           "optimizer", "parallel", "predictor", "profiler", "quant", "random",
-           "resilience", "rtc",
+           "FeedForward", "Group", "ImageRecordIter", "Monitor", "ServeError",
+           "ShardedTrainer", "kvcache", "attribute", "base", "callback",
+           "chaos", "compile_cache", "context", "executor",
+           "executor_manager", "graph_eval", "image_io", "initializer", "io",
+           "kvstore", "load_checkpoint", "lr_scheduler", "metric", "mod",
+           "model", "models", "module", "monitor", "name", "nd", "ndarray",
+           "online", "operator", "ops", "optimizer", "parallel", "predictor",
+           "profiler", "quant", "random", "recordio", "resilience", "rtc",
            "save_checkpoint", "serve", "stream", "sym", "symbol",
            "telemetry"]

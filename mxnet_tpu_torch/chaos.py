@@ -31,12 +31,16 @@ Elastic-training kinds (``worker_kill``, ``partition``) parse and filter
 (:func:`elastic_from_env`, ``MXNET_TPU_CHAOS_WORKER``); their consumer,
 the multi-process membership harness, belongs to the port's multi-GPU
 slice.
+
+On-disk corruption helpers for the tolerant RecordIO reader's tests:
+:func:`flip_byte`, :func:`record_offsets` and :func:`corrupt_record`.
 """
 from __future__ import annotations
 
 import copy
 import logging
 import os
+import struct
 from typing import Dict, Optional, Set
 
 import numpy as np
@@ -45,7 +49,8 @@ import torch
 __all__ = ["KINDS", "SERVE_KINDS", "ELASTIC_KINDS", "OVERFLOW_VALUE",
            "ChaosError", "ChaosSpec", "ChaosIter", "from_env",
            "serve_from_env", "elastic_from_env", "chaos_replica",
-           "chaos_worker", "maybe_wrap"]
+           "chaos_worker", "maybe_wrap", "flip_byte", "record_offsets",
+           "corrupt_record"]
 
 _LOGGER = logging.getLogger(__name__)
 
@@ -224,3 +229,52 @@ def maybe_wrap(data_iter, logger=None):
     if spec is None or isinstance(data_iter, ChaosIter):
         return data_iter
     return ChaosIter(data_iter, spec, logger=logger)
+
+
+# --------------------------------------------------------------------
+# On-disk corruption helpers (RecordIO tolerant-reader tests)
+# --------------------------------------------------------------------
+
+def flip_byte(path: str, offset: int, mask: int = 0xFF) -> int:
+    """XOR the byte at ``offset`` with ``mask``; returns the old value."""
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        old = f.read(1)
+        if len(old) != 1:
+            raise ValueError("offset %d past end of %s" % (offset, path))
+        f.seek(offset)
+        f.write(bytes([old[0] ^ (mask & 0xFF)]))
+    return old[0]
+
+
+def record_offsets(path: str):
+    """Byte offsets of every top-level record header in a RecordIO
+    pack file (walks the framing without decoding payloads)."""
+    from .recordio import _MAGIC, _LEN_MASK
+    offsets = []
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        pos = 0
+        in_multi = False
+        while pos + 8 <= size:
+            f.seek(pos)
+            header = f.read(8)
+            magic, lrec = struct.unpack("<II", header)
+            if magic != _MAGIC:
+                raise ValueError("%s: bad magic at %d (already corrupt?)"
+                                 % (path, pos))
+            cflag = lrec >> 29
+            length = lrec & _LEN_MASK
+            if not in_multi:
+                offsets.append(pos)
+            in_multi = cflag in (1, 2)
+            pos += 8 + length + ((-length) % 4)
+    return offsets
+
+
+def corrupt_record(path: str, record_index: int) -> int:
+    """Bit-flip the magic of the ``record_index``-th record so a reader
+    hits a framing error there; returns the corrupted byte offset."""
+    off = record_offsets(path)[record_index]
+    flip_byte(path, off, 0x01)
+    return off

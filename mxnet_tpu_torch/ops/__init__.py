@@ -10,7 +10,10 @@ from .registry import (OP_REGISTRY, OpContext, OpDef, OpParam, get_op,
 from . import simple_ops  # noqa: F401  (registers the binary ops)
 from . import nn_ops  # noqa: F401  (registers the NN ops)
 from . import attention_ops  # noqa: F401  (registers RingAttention, MoEFFN)
+from . import ctc  # noqa: F401  (registers WarpCTC)
+from . import detection_ops  # noqa: F401  (registers Proposal)
 from . import fused_update  # noqa: F401
 
 __all__ = ["OP_REGISTRY", "OpContext", "OpDef", "OpParam", "get_op",
-           "register_op", "fused_update", "nn_ops", "attention_ops"]
+           "register_op", "fused_update", "nn_ops", "attention_ops", "ctc",
+           "detection_ops"]

@@ -7,8 +7,7 @@ mode); the image-classification zoo's LeakyReLU, Deconvolution, Dropout,
 Concat, SliceChannel, SwapAxis, Cast, ElementWiseSum, BlockGrad, Crop,
 L2Normalization, LRN, SoftmaxActivation and UpSampling; the legacy heads
 Linear/Logistic/MAERegressionOutput, MakeLoss and
-IdentityAttachKLSparseReg.  ROIPooling waits for the detection ops
-(ROADMAP.md).
+IdentityAttachKLSparseReg; and the detector's ROIPooling.
 
 Layouts stay NCHW/OIHW as in the JAX package.  Convolutions go to cuDNN
 through ``F.conv2d`` and matrix products to cuBLAS through ``matmul``, as
@@ -27,6 +26,14 @@ written out:
   cropped from ``pad`` and zero-extended to the adjusted size
   (``_deconv_fwd``); Dropout keeps ``uniform < 1 - p`` from the node's
   generator (:func:`dropout_mask`) and scales by ``1 / (1 - p)``.
+* ROIPooling rounds the scaled corners half to even (``torch.round``,
+  as ``jnp.round``), truncates the batch index, takes each bin's
+  ``[start, end)`` rows and columns with ceil ends, and maxes over the
+  bin's whole window at once (``amax`` over both axes), so the gradient
+  splits equally among every tied maximum of the window, as JAX's
+  ``reduce_max`` does; an empty bin gives 0.  The windows are made a
+  chunk of rois at a time (``ROI_POOL_CHUNK_ELEMS``), recomputed in the
+  backward, so memory stays bounded at a Fast R-CNN head's size.
 
 The ``SoftmaxOutput`` forward runs the row softmax through kernel K1
 (:func:`softmax_rows`, ``csrc/softmax_rows.cu``) on CUDA tensors and its
@@ -49,6 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import _build
 from ..base import MXNetError
@@ -1312,6 +1320,91 @@ register_op(OpDef(
         in_shapes, [in_shapes[0]],
         [None if in_shapes[0] is None else (in_shapes[0][1],)]),
     doc="Identity with KL sparseness penalty added to the gradient.",
+))
+
+
+# -- ROIPooling (src/operator/roi_pooling-inl.h) ------------------------------
+
+# The bins' masked windows [rois, C, ph, pw, H, W] are made at most this
+# many elements at a time (512 MiB of f32): a Fast R-CNN head, 256 rois x
+# 512 channels x 7x7 bins over a 38x63 map, would need 62 GB in one pass
+ROI_POOL_CHUNK_ELEMS = 1 << 27
+
+def _roi_pool_fwd(ctx, params, data, rois):
+    ph, pw = _pair(params["pooled_size"])
+    scale = params["spatial_scale"]
+    n, c, h, w = data.shape
+    dev = data.device
+    rois = rois.detach()
+    bi = rois[:, 0].to(torch.int64)
+    # an index past either end is taken as JAX's gather takes it
+    bi = torch.clamp(torch.where(bi < 0, bi + n, bi), 0, n - 1)
+    x1, y1, x2, y2 = (torch.round(rois[:, i] * scale).to(torch.int64)
+                      for i in range(1, 5))
+    rh = torch.clamp_min(y2 - y1 + 1, 1)
+    rw = torch.clamp_min(x2 - x1 + 1, 1)
+    iy = torch.arange(ph, device=dev)
+    ix = torch.arange(pw, device=dev)
+    hstart = y1[:, None] + torch.div(iy * rh[:, None], ph,
+                                     rounding_mode="floor")
+    hend = y1[:, None] + torch.div((iy + 1) * rh[:, None] + ph - 1, ph,
+                                   rounding_mode="floor")
+    wstart = x1[:, None] + torch.div(ix * rw[:, None], pw,
+                                     rounding_mode="floor")
+    wend = x1[:, None] + torch.div((ix + 1) * rw[:, None] + pw - 1, pw,
+                                   rounding_mode="floor")
+    ys = torch.arange(h, device=dev)
+    xs = torch.arange(w, device=dev)
+    ymask = (ys >= hstart[..., None]) & (ys < hend[..., None])   # [R,ph,H]
+    xmask = (xs >= wstart[..., None]) & (xs < wend[..., None])   # [R,pw,W]
+    img = data.index_select(0, bi)                               # [R,C,H,W]
+    step = max(1, ROI_POOL_CHUNK_ELEMS // max(1, c * ph * pw * h * w))
+    if rois.shape[0] <= step:
+        val = _roi_bins_max(img, ymask, xmask)
+    else:
+        # a chunk of rois at a time; under autograd each chunk keeps only
+        # its inputs and remakes its windows in the backward.  Rows are
+        # independent and the split's backward concatenates, so values
+        # and gradients are the bits of the one-pass form
+        keep = torch.is_grad_enabled() and img.requires_grad
+        val = torch.cat([
+            checkpoint(_roi_bins_max, *chunk, use_reentrant=False,
+                       preserve_rng_state=False)
+            if keep else _roi_bins_max(*chunk)
+            for chunk in zip(img.split(step), ymask.split(step),
+                             xmask.split(step))])
+    return torch.where(torch.isfinite(val), val, torch.zeros_like(val))
+
+
+def _roi_bins_max(img, ymask, xmask):
+    """``[R, C, ph, pw]``: the max of ``img [R, C, H, W]`` over each bin's
+    window, its rows ``ymask [R, ph, H]`` by its columns ``xmask [R, pw,
+    W]``; -inf for an empty bin."""
+    mask = ymask[:, :, None, :, None] & xmask[:, None, :, None, :]
+    masked = torch.where(mask[:, None], img[:, :, None, None],
+                         torch.full((), -torch.inf, dtype=img.dtype,
+                                    device=img.device))
+    return torch.amax(masked, dim=(-2, -1))
+
+
+def _roi_pool_shape(params, in_shapes):
+    d, r = in_shapes
+    ph, pw = _pair(params["pooled_size"])
+    if d is None or r is None:
+        return in_shapes, [None], []
+    return [tuple(d), tuple(r)], [(r[0], d[1], ph, pw)], []
+
+
+register_op(OpDef(
+    name="ROIPooling",
+    forward=_roi_pool_fwd,
+    arguments=("data", "rois"),
+    params={
+        "pooled_size": OpParam("pooled_size", "shape", required=True),
+        "spatial_scale": OpParam("spatial_scale", "float", required=True),
+    },
+    infer_shape=_roi_pool_shape,
+    doc="Max-pool regions of interest to a fixed spatial size.",
 ))
 
 

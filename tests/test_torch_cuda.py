@@ -46,7 +46,10 @@ the card: ``ShardedTrainer(mesh=data_parallel_mesh())`` bitwise the plain
 trainer, int8 with error feedback fused (K2's bucket form over the
 reduced buckets) bitwise unfused, and the kvstore and ``psum_compressed``
 over two members on the card (exact; the compressed sums and residuals
-bitwise the CPU's).
+bitwise the CPU's); the last three ops on the card against the CPU
+(``Proposal`` with no synchronizing call, ``ROIPooling`` and its tied
+gradient, ``WarpCTC``), and an artifact exported on the CPU served on
+the card.
 """
 import numpy as np
 import pytest
@@ -1542,3 +1545,97 @@ def test_kvstore_and_psum_compressed_over_card_members(cuda, compression):
                                  for h in host], compression)
         assert torch.equal(plain[0].cpu(),
                            torch.from_numpy(host[0] + host[1]))
+
+
+def _op(name, raw, *inputs):
+    from mxnet_tpu_torch.ops import registry
+    op = registry.get_op(name)
+    return op.forward(registry.OpContext(), op.parse_params(raw), *inputs)
+
+
+@pytest.mark.cuda
+def test_detection_ops_on_card_match_cpu(cuda):
+    """``Proposal`` on the card selects what it selects on the CPU (scores
+    with ties and boxes the size filter drops: the same scores bitwise,
+    the boxes within rtol 1e-6, atol 1e-5 of ``exp``'s last bit) and
+    makes no synchronizing call; ``ROIPooling``'s forward is bitwise the
+    CPU's and its gradient over tied maxima equal within 1e-6."""
+    rng = np.random.RandomState(0)
+    a = 2
+    cls = torch.from_numpy((np.round(rng.rand(4, 2 * a, 16, 16) * 4) / 4)
+                           .astype(np.float32))
+    bbox = torch.from_numpy((rng.randn(4, 4 * a, 16, 16) * 0.5)
+                            .astype(np.float32))
+    bbox[:, 2::4, :3] = -6.0
+    info = torch.tensor([[64.0, 64.0, 1.0]] * 4)
+    raw = dict(feature_stride=4, scales=(3.0, 5.0), ratios=(1.0,),
+               rpn_pre_nms_top_n=128, rpn_post_nms_top_n=8, threshold=0.7,
+               rpn_min_size=4, output_score=True)
+    want = _op("Proposal", raw, cls, bbox, info)
+    args = [t.to(cuda) for t in (cls, bbox, info)]
+    _op("Proposal", raw, *args)                 # anchors copied once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _op("Proposal", raw, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=1e-5)
+    data = torch.from_numpy(np.round(rng.rand(4, 8, 16, 16) * 3)
+                            .astype(np.float32))
+    rois = got[0].cpu()
+    g = torch.from_numpy(rng.rand(32, 8, 4, 4).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        d = data.to(dev, copy=True).requires_grad_()
+        out = _op("ROIPooling", dict(pooled_size=(4, 4), spatial_scale=0.25),
+                  d, rois.to(dev))
+        out.backward(g.to(dev))
+        outs.append((out.detach().cpu(), d.grad.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_warpctc_on_card_matches_cpu(cuda):
+    """``WarpCTC``'s forward (softmax) and backward (the CTC gradient
+    through the recursion) on the card against the CPU, f32 within 1e-5
+    of each array's largest magnitude (summation order)."""
+    rng = np.random.RandomState(1)
+    data = torch.from_numpy(rng.randn(20 * 8, 11).astype(np.float32))
+    label = torch.from_numpy(rng.randint(0, 11, 8 * 4).astype(np.float32))
+    g = torch.from_numpy(rng.rand(20 * 8, 11).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        d = data.to(dev, copy=True).requires_grad_()
+        out = _op("WarpCTC", dict(input_length=20, label_length=4), d,
+                  label.to(dev))
+        out.backward(g.to(dev))
+        outs.append((out.detach().cpu(), d.grad.cpu()))
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_export_traced_on_cpu_serves_on_card(cuda, tmp_path):
+    """An artifact ``export_model`` traced on the CPU serves on the card,
+    within 2e-5 of the ``Predictor``'s K1 path on the card."""
+    from mxnet_tpu_torch import predictor, symbol as S
+    from mxnet_tpu_torch.context import gpu
+    net = S.SoftmaxOutput(data=S.FullyConnected(
+        data=S.Variable("data"), num_hidden=10, name="fc"), name="softmax")
+    rng = np.random.RandomState(2)
+    arg = {"fc_weight": rng.randn(10, 7).astype(np.float32),
+           "fc_bias": rng.randn(10).astype(np.float32)}
+    out = str(tmp_path / "m.mxtpt")
+    predictor.export_model(net, arg, {}, {"data": (4, 7)}, out)
+    x = rng.rand(4, 7).astype(np.float32)
+    exp = predictor.load_exported(out)
+    assert exp.device.type == "cuda"
+    ref = predictor.Predictor(net.tojson(),
+                              {f"arg:{k}": v for k, v in arg.items()},
+                              {"data": (4, 7)}, ctx=gpu(0)).predict(data=x)
+    np.testing.assert_allclose(exp.predict(data=x)[0], ref[0], rtol=0,
+                               atol=2e-5)

@@ -14,9 +14,11 @@ lr_scheduler, callback, model), the zoo and the legacy API
 (models.classic, models.inception, executor_manager, module, monitor),
 the long-run and durability modules (checkpoint and its layout, reader,
 writer and manager, predictor, online.loop, quant's fp8 product), the
-data-parallel modules (kvstore, parallel.mesh and parallel.collectives)
-and ``chip_smoke``; a source scan checks every file of
-the port and the script for such imports.
+data-parallel modules (kvstore, parallel.mesh and parallel.collectives),
+the input records, the last three ops and the deployment predictor
+(recordio, image_io, ops.ctc, ops.detection_ops, predictor's Predictor
+and export) and ``chip_smoke``; a source scan checks every file of the
+port and the script for such imports.
 """
 import os
 import re
@@ -80,6 +82,13 @@ from mxnet_tpu_torch.parallel import (Mesh, NamedSharding, PartitionSpec,
 from mxnet_tpu_torch.parallel.collectives import (count_collectives,
                                                   psum_compressed)
 assert mxnet_tpu_torch.kvstore is kvstore
+from mxnet_tpu_torch import image_io, recordio
+from mxnet_tpu_torch.ops import ctc, detection_ops
+from mxnet_tpu_torch.predictor import (ExportedPredictor, Predictor, create,
+                                       export_model, load_exported,
+                                       load_ndarray_file)
+assert mxnet_tpu_torch.recordio is recordio
+assert mxnet_tpu_torch.ImageRecordIter is image_io.ImageRecordIter
 from mxnet_tpu_torch.compile_cache import CapturedProgram, ProgramCache
 assert mxnet_tpu_torch.profiler is profiler
 assert mxnet_tpu_torch.io is io and mxnet_tpu_torch.metric is metric

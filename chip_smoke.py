@@ -339,6 +339,24 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     ``ROIPooling`` at a Fast R-CNN head's size (256 rois x 512 channels x
     7x7 bins over 38x63), forward and backward within 12 GiB, its first
     rois against the CPU;
+20. runs tensor and model parallelism in one process (after phase 19,
+    before 15): (a) phase 9's LM (f32) bound through ``simple_bind``
+    with ``group2ctx``, the embedding on the host (``cpu(0)``) and the
+    blocks and head on the card, one forward and backward a step against
+    the same executor wholly on the card (outputs within 1e-5, gradients
+    within 1e-5 of the step's largest gradient magnitude: the
+    embedding's scatter-add sums on the host), one crossing forward and
+    one back a step; prints ms a step beside the one-device executor's;
+    (b) phase 9's trainer (bf16, Adam, unfused) over a ``{"data": 1,
+    "model": 1}`` mesh with ``megatron_rules()``: the recorded plan is
+    split for every Megatron parameter, K3 and K4 launch once a layer a
+    step in the hopper form, and 2 steps' heads and parameters are
+    bitwise those of the trainer without rules (deterministic
+    algorithms); (c) where two cards exist, the split plan over
+    ``{"data": 1, "model": 2}`` (4 heads a member) against one card's
+    first heads and update, and ``MakeLoss(sum(...))`` over
+    ``data_parallel_mesh(2)`` against one card; with one card it prints
+    that (c) did not run and why; no kernel is built;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -7798,6 +7816,335 @@ def phase_records_predictor(torch, np, nn_ops, fu, _build):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: tensor and model parallelism in one process (after phase 19,
+# before the result)
+# ---------------------------------------------------------------------------
+
+# (a) group2ctx: outputs within float32 summation order (the blocks and
+# head run the same kernels on the same inputs), gradients within this
+# share of each gradient's largest magnitude (the embedding's scatter-add
+# sums on the host in another order than on the card)
+P20_OUT_TOL = 1e-5
+P20_GRAD_TOL = 1e-5
+P20_STEPS = 3
+# (c) two cards: the LM's first heads (bf16 products cut over two cards
+# sum their partials in another order) and its first Adam update (a step
+# moves a weight by about lr; a gradient near zero whose sign flips moves
+# it by 2 lr); the MakeLoss(sum) net's heads and parameters (f32)
+P20_TP_HEAD_TOL = 5e-2
+P20_TP_STEP1_LIMIT = 2.5 * LM_OPT["learning_rate"]
+P20_SUM_TOL = (1e-4, 1e-5)
+
+
+def p20_sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def p20_kernel_counts(fa):
+    return {"flash_attn_fwd": fa.flash_fwd.launches,
+            "flash_attn_bwd": fa.flash_bwd.launches}
+
+
+def p20_add(launches, fa, before):
+    for k, v in p20_kernel_counts(fa).items():
+        launches[k] += v - before[k]
+
+
+def p20_lm_groups(mx):
+    """Phase 9's LM (``transformer_lm``'s nodes and names, the loss head)
+    with the embedding in the ``embed`` group and the blocks and head in
+    ``blocks``."""
+    from mxnet_tpu_torch.models.transformer import transformer_block
+    S = mx.symbol
+    with mx.AttrScope(ctx_group="embed"):
+        net = S.Embedding(data=S.Variable("data"), input_dim=VOCAB,
+                          output_dim=D_MODEL, name="embed")
+    with mx.AttrScope(ctx_group="blocks"):
+        for i in range(LAYERS):
+            net = transformer_block(net, LM_BATCH, LM_SEQ, D_MODEL, HEADS,
+                                    f"layer{i}")
+        net = S.LayerNorm(data=net, name="final_ln")
+        net = S.Reshape(data=net, shape=(-1, D_MODEL))
+        net = S.FullyConnected(data=net, num_hidden=VOCAB, name="lm_head")
+        label = S.Reshape(data=S.Variable("softmax_label"), shape=(-1,))
+        return S.SoftmaxOutput(data=net, label=label, name="softmax",
+                               out_mode="loss")
+
+
+def p20_group2ctx(torch, np, mx, fa, nn_ops, launches):
+    """(a) The LM through ``simple_bind`` with the embedding on the host
+    and the blocks and head on the card, against the same executor wholly
+    on the card: outputs, gradients, crossings, ms a step."""
+    sym = p20_lm_groups(mx)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    batch = lm_batch(np, seed=20)
+    card = mx.gpu(0) if DEVICE == "cuda" else mx.cpu(0)
+    host = mx.cpu(0) if DEVICE == "cuda" else mx.cpu(1)
+    out = {}
+    results = {}
+    for label, g2c in (("group2ctx", {"embed": host, "blocks": card}),
+                       ("one device", None)):
+        ex = sym.simple_bind(ctx=card, group2ctx=g2c, **shapes)
+        ex.copy_params_from(args)
+        if g2c is not None:
+            check(ex.arg_dict["embed_weight"].context == host
+                  and ex.grad_dict["embed_weight"].context == host
+                  and ex.arg_dict["lm_head_weight"].context == card,
+                  "(a) the weights are not on their groups' contexts")
+        c0 = nn_ops.cross_device_copy.crossings
+        g0 = nn_ops.cross_device_copy.grad_crossings
+        times = []
+        for step in range(1 + P20_STEPS):
+            before = p20_kernel_counts(fa)
+            t0 = time.perf_counter()
+            ex.forward(is_train=True, **batch)
+            ex.backward()
+            p20_sync(torch)
+            if step:
+                times.append((time.perf_counter() - t0) * 1e3)
+            if step == 0 and g2c is not None:
+                # the main path's run: this executor's first step
+                p20_add(launches, fa, before)
+        steps = 1 + P20_STEPS
+        out[label] = {
+            "ms_per_step": float(np.median(times)),
+            "crossings_per_step": (nn_ops.cross_device_copy.crossings
+                                   - c0) / steps,
+            "grad_crossings_per_step": (nn_ops.cross_device_copy
+                                        .grad_crossings - g0) / steps}
+        results[label] = (ex.outputs[0].data.float().cpu(),
+                          {n: g.data.float().cpu()
+                           for n, g in ex.grad_dict.items()
+                           if n not in ("data", "softmax_label")})
+        del ex
+    check(out["group2ctx"]["crossings_per_step"] == 1
+          and out["group2ctx"]["grad_crossings_per_step"] == 1,
+          f"(a) crossings {out['group2ctx']}: expected the embedding's "
+          "output once forward and its gradient once back")
+    (ho, hg), (ro, rg) = results["group2ctx"], results["one device"]
+    check(ho.shape == (LM_BATCH * LM_SEQ,) and torch.isfinite(ho).all(),
+          f"(a) heads {tuple(ho.shape)}, finite {bool(torch.isfinite(ho).all())}")
+    out_err = float((ho - ro).abs().max())
+    scale = max(float(g.abs().max()) for g in rg.values())
+    grad_err = max(float((hg[n] - rg[n]).abs().max()) for n in rg) / scale
+    out["max_abs_err_outputs"] = out_err
+    out["max_err_grads_of_largest"] = grad_err
+    check(out_err <= P20_OUT_TOL, f"(a) outputs {out_err} from the one-"
+          f"device executor's, over {P20_OUT_TOL}")
+    check(grad_err <= P20_GRAD_TOL, f"(a) gradients {grad_err} of the "
+          f"step's largest gradient from the one-device executor's, over "
+          f"{P20_GRAD_TOL}")
+    log(f"  (a) group2ctx: {json.dumps(out)}")
+    return out
+
+
+def p20_trainer(torch, np, sym, args, mesh, rules=None):
+    """Phase 9's trainer (bf16, Adam), unfused, over ``mesh``."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    tr = ShardedTrainer(sym, optimizer="adam", optimizer_params=dict(LM_OPT),
+                        compute_dtype="bfloat16", fused_update=False,
+                        rules=rules, mesh=mesh)
+    return tr.bind({"data": (LM_BATCH, LM_SEQ)},
+                   {"softmax_label": (LM_BATCH, LM_SEQ)}, arg_params=args)
+
+
+def p20_split_tp1(torch, np, mx, fa, launches):
+    """(b) Phase 9's trainer over a ``{"data": 1, "model": 1}`` mesh with
+    ``megatron_rules()``: the split plan for every Megatron parameter,
+    and 2 steps bitwise those of the trainer without rules."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import make_mesh, megatron_rules
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    card = mx.gpu(0) if DEVICE == "cuda" else mx.cpu(0)
+    rules = megatron_rules()
+    tp = p20_trainer(torch, np, sym, args,
+                     make_mesh({"data": 1, "model": 1}, [card]), rules)
+    # one card, as the trainer with rules (the default mesh spans every
+    # card)
+    plain = p20_trainer(torch, np, sym, args, make_mesh({"data": 1}, [card]))
+    want = sorted(n for n in tp._param_names
+                  if any(ax is not None for ax in rules.spec_for(n)))
+    info = [i for i in tp.compile_info if i["kind"] == "tensor_parallel"][-1]
+    check(info["plan"] == "split" and sorted(info["params"]) == want
+          and set(info["params"].values()) == {"split"},
+          f"(b) plan {info['plan']} for {len(info['params'])} params "
+          f"({info['reason']}), expected split for {len(want)}")
+    check(not tp._fused and not plain._fused, "(b) a trainer fused")
+    out = {"split_params": len(want)}
+    det = torch.are_deterministic_algorithms_enabled()
+    try:
+        # the embedding's scatter-add on the card is deterministic only
+        # in this mode, and the two trainers are held bit for bit
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for step in range(2):
+            batch = lm_batch(np, seed=200 + step)
+            before = p20_kernel_counts(fa)
+            forms = (dict(fa.flash_fwd.launches_by_form),
+                     dict(fa.flash_bwd.launches_by_form))
+            h_tp = tp.step(batch)[0]
+            p20_sync(torch)
+            p20_add(launches, fa, before)
+            n3 = fa.flash_fwd.launches - before["flash_attn_fwd"]
+            n4 = fa.flash_bwd.launches - before["flash_attn_bwd"]
+            check(n3 == LAYERS and n4 == LAYERS, f"(b) step {step}: K3 "
+                  f"{n3}, K4 {n4} launches, expected {LAYERS} each")
+            if DEVICE == "cuda":
+                h3 = (fa.flash_fwd.launches_by_form["hopper"]
+                      - forms[0]["hopper"])
+                h4 = (fa.flash_bwd.launches_by_form["hopper"]
+                      - forms[1]["hopper"])
+                check(h3 == n3 and h4 == n4, f"(b) K3/K4 forms: {h3}/{n3} "
+                      f"and {h4}/{n4} hopper")
+            h_plain = plain.step(batch)[0]
+            p20_sync(torch)
+            check(torch.equal(bits(torch, h_tp), bits(torch, h_plain)),
+                  f"(b) step {step}: the heads differ from the trainer "
+                  "without rules")
+    finally:
+        torch.use_deterministic_algorithms(det)
+    pa, pb = tp.get_params()[0], plain.get_params()[0]
+    for n in pb:
+        check(np.array_equal(pa[n].asnumpy().view(np.int32),
+                             pb[n].asnumpy().view(np.int32)),
+              f"(b) {n} differs from the trainer without rules")
+    out["bitwise_steps"] = 2
+    log(f"  (b) split at tp 1: {json.dumps(out)}")
+    return out
+
+
+def p20_sum_net(mx):
+    S = mx.symbol
+    with mx.name.NameManager():
+        x = S.FullyConnected(data=S.Variable("data"), num_hidden=1024,
+                             name="fc1")
+        x = S.Activation(data=x, act_type="tanh")
+        return S.MakeLoss(data=S.sum(x), name="loss")
+
+
+def p20_two_cards(torch, np, mx, fa, launches):
+    """(c) where two cards exist: the split plan over ``{"data": 1,
+    "model": 2}`` (4 heads a member) against the one-card trainer's first
+    heads and update, and item 13's ``MakeLoss(sum(...))`` net over
+    ``data_parallel_mesh(2)`` against one card."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import (ShardedTrainer, data_parallel_mesh,
+                                          make_mesh, megatron_rules)
+    if DEVICE == "cuda" and torch.cuda.device_count() < 2:
+        log(f"  (c) not run: {torch.cuda.device_count()} CUDA device(s); "
+            "tensor parallelism over distinct cards needs two")
+        return {"run": False, "devices": torch.cuda.device_count()}
+    kind = "gpu" if DEVICE == "cuda" else "cpu"
+    ctx = mx.gpu if kind == "gpu" else mx.cpu
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    out = {"run": True}
+    batch = lm_batch(np, seed=300)
+    one = p20_trainer(torch, np, sym, args,
+                      make_mesh({"data": 1}, [ctx(0)]))
+    h1 = one.step(batch)[0].float().cpu()
+    p1 = one.get_params()[0]
+    del one
+    two = p20_trainer(torch, np, sym, args,
+                      make_mesh({"data": 1, "model": 2}, [ctx(0), ctx(1)]),
+                      megatron_rules())
+    check(two._tp_plan.plan == "split", f"(c) plan {two._tp_plan.plan}: "
+          f"{two._tp_plan.reason}")
+    before = p20_kernel_counts(fa)
+    h2 = two.step(batch)[0].float().cpu()
+    p20_sync(torch)
+    p20_add(launches, fa, before)
+    p2 = two.get_params()[0]
+    head_diff = float((h2 - h1).abs().max())
+    step1 = max(float(np.abs(p2[n].asnumpy() - p1[n].asnumpy()).max())
+                for n in p1)
+    out["tp"] = {"first_heads_max_diff": head_diff,
+                 "step1_max_param_diff": step1,
+                 "heads_per_member": HEADS // 2}
+    check(head_diff <= P20_TP_HEAD_TOL, f"(c) TP heads {head_diff} from "
+          f"one card's, over {P20_TP_HEAD_TOL}")
+    check(step1 <= P20_TP_STEP1_LIMIT, f"(c) TP first update {step1} from "
+          f"one card's, over {P20_TP_STEP1_LIMIT}")
+    del two
+    sym = p20_sum_net(mx)
+    rng = np.random.RandomState(21)
+    x = [rng.randn(256, 512).astype(np.float32) for _ in range(2)]
+    res = {}
+    for label, mesh in (("one card", data_parallel_mesh(1, device_type=kind)),
+                        ("two cards", data_parallel_mesh(2,
+                                                         device_type=kind))):
+        tr = ShardedTrainer(sym, "sgd", {"learning_rate": 1e-3}, mesh=mesh,
+                            seed=3)
+        tr.bind({"data": (256, 512)})
+        heads = [tr.step({"data": xi})[0].cpu() for xi in x]
+        res[label] = (heads, tr.get_params()[0])
+    (ha, pa), (hb, pb) = res["two cards"], res["one card"]
+    rtol, atol = P20_SUM_TOL
+    for a, b in zip(ha, hb):
+        check(torch.allclose(a, b, rtol=rtol, atol=atol), f"(c) sum heads "
+              f"{a.tolist()} against one card's {b.tolist()}")
+    worst = max(float(np.abs(pa[n].asnumpy() - pb[n].asnumpy()).max())
+                for n in pb)
+    check(worst <= atol + rtol * max(float(np.abs(pb[n].asnumpy()).max())
+                                     for n in pb),
+          f"(c) sum net parameters {worst} from one card's")
+    out["sum"] = {"heads": [float(h[0]) for h in ha],
+                  "max_param_diff": worst}
+    log(f"  (c) two cards: {json.dumps(out)}")
+    return out
+
+
+def phase_tensor_model_parallel(torch, np, mx, fa, nn_ops, _build):
+    """Phase 20: (a) group2ctx across the host and the card at full
+    width, (b) the split rewrite at a model-axis size of 1, (c) tensor
+    parallelism and the implicit mode's reductions over two cards where
+    there are two; builds no kernel.  Returns the K3/K4 launches of its
+    main runs and its numbers."""
+    t_phase = time.perf_counter()
+    built, compile_ = [], _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    _build._compile = counting
+    launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0}
+    out = {"card": card_line()}
+    try:
+        t0 = time.perf_counter()
+        out["group2ctx"] = p20_group2ctx(torch, np, mx, fa, nn_ops, launches)
+        out["group2ctx"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["split_tp1"] = p20_split_tp1(torch, np, mx, fa, launches)
+        out["split_tp1"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["two_cards"] = p20_two_cards(torch, np, mx, fa, launches)
+        out["two_cards"]["seconds"] = time.perf_counter() - t0
+    finally:
+        _build._compile = compile_
+    check(not built, f"phase 20 built kernels: {built}")
+    check(launches["flash_attn_fwd"] > 0 and launches["flash_attn_bwd"] > 0,
+          f"phase 20 launched no flash attention: {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log("  tensor and model parallelism: " + json.dumps(out))
+    return launches, out
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -7856,14 +8203,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/19] device")
+    log("[1/20] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/19] build")
+    log("[2/20] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -7878,7 +8225,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/19] kernels against their plain versions")
+    log("[3/20] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -7887,22 +8234,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/19] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/20] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/19] serving the round-12 configuration: chunked prefill "
+    log(f"[5/20] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/19] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/20] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/19] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/20] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/19] kernel timing")
+    log("[8/20] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -7919,25 +8266,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/19] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/20] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/19] imperative + executor: NDArray on the card, the MLP "
+    log("[10/20] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/19] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/20] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/19] the serving control plane: crash failover, a hung and a "
+    log("[12/20] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -7945,7 +8292,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/19] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/20] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -7954,7 +8301,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/19] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/20] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -7962,7 +8309,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/19] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/20] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -7970,7 +8317,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/19] programs and the profiler: serve and train steps "
+    log("[17/20] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -7978,7 +8325,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/19] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/20] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -7987,7 +8334,7 @@ def main(argv) -> int:
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[19/19] input records, the deployment predictor and the last ops: "
+    log(f"[19/20] input records, the deployment predictor and the last ops: "
         f"{REC_IMAGES} packed images through ImageRecordIter into "
         f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
         f"served without the port, WarpCTC at the OCR example's sizes, the "
@@ -7995,8 +8342,17 @@ def main(argv) -> int:
     p19_launches, _ = phase_records_predictor(torch, np, nn_ops, fu, _build)
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 19
-    log("[15/19] result")
+    t0 = time.perf_counter()
+    log(f"[20/20] tensor and model parallelism: the LM with its embedding "
+        f"on the host through group2ctx, the split rewrite of "
+        f"megatron_rules() at a model axis of 1, two cards where there "
+        f"are two")
+    p20_launches, _ = phase_tensor_model_parallel(torch, np, mx, fa, nn_ops,
+                                                  _build)
+    log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 20
+    log("[15/20] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -8036,12 +8392,14 @@ def main(argv) -> int:
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
          lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"]
-         + long_launches["flash_attn_fwd"] + p17_launches["flash_attn_fwd"],
+         + long_launches["flash_attn_fwd"] + p17_launches["flash_attn_fwd"]
+         + p20_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
          lm_launches["flash_attn_bwd"] + loop_launches["flash_attn_bwd"]
-         + long_launches["flash_attn_bwd"] + p17_launches["flash_attn_bwd"],
+         + long_launches["flash_attn_bwd"] + p17_launches["flash_attn_bwd"]
+         + p20_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

@@ -34,6 +34,7 @@ from . import (attribute, base, callback, chaos, checkpoint, compile_cache,
                module, monitor, name, ndarray, online, operator, ops,
                optimizer, parallel, predictor, profiler, quant, random,
                recordio, resilience, rtc, serve, stream, symbol, telemetry)
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
 from .executor import Executor
@@ -48,7 +49,7 @@ sym = symbol
 nd = ndarray
 mod = module
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+__all__ = ["AttrScope", "MXNetError", "Context", "cpu", "gpu", "current_context",
            "resolve_device", "Engine", "EngineConfig", "Executor",
            "FeedForward", "Group", "ImageRecordIter", "Monitor", "ServeError",
            "ShardedTrainer", "kvcache", "attribute", "base", "callback",

@@ -19,6 +19,16 @@ symbol into jitted programs; here the graph runs eagerly through
   comes from the same Dropout masks as the outputs returned.
 * Auxiliary states (BatchNorm's moving statistics) are updated in place
   after a training forward, the reference's mutate-in-forward semantics.
+* ``group2ctx`` (model parallelism, the reference's ``AssignContext``):
+  each node whose ``ctx_group`` attribute names a group runs on that
+  group's context, the others on the executor's; every variable, its
+  gradient array and a node's aux states live on the context of their
+  first consumer; each value that crosses between two contexts goes
+  through :func:`~mxnet_tpu_torch.ops.nn_ops.cross_device_copy` (counted,
+  and the gradient crosses back through it), and each output lives on
+  its node's context.  Contexts of different device types mix
+  (``{"embed": cpu(0), "blocks": gpu(0)}``).  Such a graph runs eagerly,
+  without recompute scopes, as in the JAX package.
 
 The bound arrays are read in place, not copied: write them before
 ``forward``, not between ``forward`` and ``backward`` (autograd then
@@ -48,7 +58,7 @@ import numpy as np
 import torch
 
 from . import compile_cache as cc
-from .base import MXNetError, not_ported
+from .base import MXNetError
 from .context import Context, as_context, resolve_device
 from .graph_eval import eval_symbol
 from . import random as _random
@@ -83,9 +93,6 @@ class Executor:
     def __init__(self, symbol, ctx: Context, args, args_grad=None,
                  grad_req="write", aux_states=None, group2ctx=None,
                  shared_exec=None):
-        if group2ctx:
-            raise not_ported("Executor(group2ctx=...) (model-parallel "
-                             "placement)")
         self._symbol = symbol
         self._ctx = as_context(ctx)
         resolve_device(self._ctx)           # raises without the card
@@ -135,6 +142,7 @@ class Executor:
         self._arg_names = arg_names
         self._aux_names = aux_names
         self._topo = symbol._topo()
+        self._placement = (self._place(group2ctx) if group2ctx else None)
         self._outputs: Optional[List[NDArray]] = None
         self._graph = None          # (heads, leaves) of a training forward
         self._forwarded = False
@@ -149,6 +157,44 @@ class Executor:
         self._cot_static: Optional[List[torch.Tensor]] = None
         self._last_train = False
         self._graph_pool = None
+
+    def _place(self, group2ctx) -> Dict[str, Context]:
+        """The context of every node and variable under ``group2ctx``
+        (the JAX executor's placement), with the bound arrays moved
+        there."""
+        g2c = {g: as_context(c) for g, c in group2ctx.items()}
+        for c in g2c.values():
+            resolve_device(c)                 # raises without the card
+        placement: Dict[str, Context] = {}
+        for node in self._topo:
+            if node.is_variable:
+                continue
+            group = node.anno_attrs().get("ctx_group")
+            placement[node.name] = g2c.get(group, self._ctx) if group \
+                else self._ctx
+        for node in self._topo:
+            if node.is_variable:
+                continue
+            for src, _ in node.inputs:
+                if src.is_variable and src.name not in placement:
+                    placement[src.name] = placement[node.name]
+            for aux in node.aux_full_names():
+                if aux in self._aux_dict:
+                    self._aux_dict[aux]._migrate(placement[node.name])
+        for node in self._topo:
+            if node.is_variable and node.name not in placement:
+                placement[node.name] = self._ctx
+        for arrays in (self._arg_dict, self._grad_dict):
+            for name_, arr in arrays.items():
+                if name_ in placement and arr.context != placement[name_]:
+                    arr._migrate(placement[name_])
+        return placement
+
+    def _out_ctx(self, i: int) -> Context:
+        """The context of head ``i``: its node's under a placement."""
+        if self._placement is None:
+            return self._ctx
+        return self._placement[self._symbol._heads[i][0].name]
 
     # ------------------------------------------------------------------
     # Running the graph
@@ -169,13 +215,15 @@ class Executor:
             arg_vals[n] = t
         with torch.set_grad_enabled(record):
             res = eval_symbol(self._symbol, arg_vals, aux_vals,
-                              self._frozen_key, is_train, want_internals=want_internals,
-                              topo=self._topo)
+                              self._frozen_key, is_train,
+                              want_internals=want_internals,
+                              topo=self._topo, placement=self._placement)
         self._graph = (res[0], leaves) if record else None
         if is_train:
             for name_, val in res[1].items():
                 self._aux_dict[name_]._write(val.detach())
-        self._outputs = [NDArray(h.detach(), ctx=self._ctx) for h in res[0]]
+        self._outputs = [NDArray(h.detach(), ctx=self._out_ctx(i))
+                         for i, h in enumerate(res[0])]
         return res
 
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
@@ -196,7 +244,8 @@ class Executor:
             self._frozen_aux = self._frozen_static
             if is_train:
                 _touch(self._aux_dict.values())
-            self._outputs = [NDArray(h.clone(), ctx=self._ctx) for h in outs]
+            self._outputs = [NDArray(h.clone(), ctx=self._out_ctx(i))
+                             for i, h in enumerate(outs)]
             return self.outputs
         self._frozen_aux = {n: a.data.clone()
                             for n, a in self._aux_dict.items()}
@@ -300,7 +349,8 @@ class Executor:
                 heads, auxu = eval_symbol(
                     self._symbol, {n: a.data for n, a in
                                    self._arg_dict.items()},
-                    frozen, None, is_train, topo=self._topo)
+                    frozen, None, is_train, topo=self._topo,
+                    placement=self._placement)
                 if is_train:
                     for n, v in auxu.items():
                         self._aux_dict[n].data.copy_(v)
@@ -323,7 +373,8 @@ class Executor:
                 arg_vals[n] = t
             with torch.enable_grad():
                 heads, _ = eval_symbol(self._symbol, arg_vals, frozen, None,
-                                       True, topo=self._topo)
+                                       True, topo=self._topo,
+                                       placement=self._placement)
                 live = [(h, g) for h, g in zip(heads, cots)
                         if h.requires_grad]
                 names = list(leaves)
@@ -385,11 +436,14 @@ class Executor:
                     self._symbol, {n: a.data for n, a in
                                    self._arg_dict.items()},
                     {n: a.data for n, a in self._aux_dict.items()}, None,
-                    False, topo=self._topo)
+                    False, topo=self._topo, placement=self._placement)
             self._cot_static = [torch.ones_like(h) for h in heads]
         if self._graph_pool is None and dev.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
         reason = cc.graph_uncapturable(self._topo)
+        if reason is None and self._placement is not None:
+            reason = ("a group2ctx placement runs eagerly (a CUDA graph "
+                      "holds one device's work)")
         arrays = {"args": {n: a.data for n, a in self._arg_dict.items()},
                   "aux": {n: a.data for n, a in self._aux_dict.items()}}
         written = ([a.data for a in self._aux_dict.values()]

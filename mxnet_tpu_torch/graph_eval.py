@@ -23,6 +23,17 @@ Dropout mask as the forward (``torch.utils.checkpoint`` restores only
 torch's default generators).  Aux updates (BatchNorm's moving
 statistics) come from the forward only; the recompute's are dropped, so
 a scope updates them once.
+
+Over a mesh, ``sync`` is a member's meeting handle: each op call sees
+``sync.at(node name)`` as ``OpContext.sync``, so a recompute replays the
+values its forward met with.  ``local`` is a tensor-parallel split
+plan's member graph (:class:`~mxnet_tpu_torch.parallel.tensor_parallel.
+TPPlan`): its rewritten nodes run at the member's width.  ``placement``
+(the executor's ``group2ctx``) names each node's and variable's context;
+every value that crosses between two contexts goes through
+:func:`~mxnet_tpu_torch.ops.nn_ops.cross_device_copy`, once for each
+context that reads it, and the graph
+runs without recompute scopes, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -68,7 +79,8 @@ def _mirrored(anno) -> bool:
 
 def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
                 aux_vals: Dict[str, "torch.Tensor"], rng, is_train: bool,
-                want_internals: bool = False, topo=None, sync=None):
+                want_internals: bool = False, topo=None, sync=None,
+                local=None, placement=None):
     """Evaluate a Symbol graph.
 
     ``arg_vals`` holds a tensor for every variable node (params, data,
@@ -85,7 +97,9 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
     pass a precomputed ``symbol._topo()``.  ``sync`` (a mesh member's
     handle, or None) reaches every op as ``OpContext.sync``: BatchNorm's
     batch statistics and SoftmaxOutput's normalization then count the
-    batch of every member.
+    batch of every member.  ``local`` (a tensor-parallel plan) rewrites
+    nodes to the member's width; ``placement`` maps node and variable
+    names to contexts (model-parallel placement).
 
     Returns ``(heads, aux_updates)``, or ``(heads, aux_updates,
     internals)``: a tuple of head tensors and ``{aux_full_name: new
@@ -99,10 +113,14 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
     index_of = {id(n): i for i, n in enumerate(topo)}
     head_set = {(id(n), i) for (n, i) in symbol._heads}
 
+    rewrites = local.rewrites if local is not None else {}
+
     def eval_node(node, in_vals):
         """One op node: ``(outputs, {aux_full_name: update})``."""
         op = node.op
-        params = node.parsed_params()
+        rw = rewrites.get(id(node))
+        params = (node.parsed_params() if rw is None or rw.params is None
+                  else rw.params)
         aux_full = node.aux_full_names()
         short = op.list_aux_states(params)
         opctx = OpContext(
@@ -110,8 +128,10 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
             rng=(rng.generator(index_of[id(node)])
                  if rng is not None and op.needs_rng else None),
             aux={sh: aux_vals[f] for sh, f in zip(short, aux_full)},
-            name=node.name, sync=sync)
-        out = op.forward(opctx, params, *in_vals)
+            name=node.name,
+            sync=None if sync is None else sync.at(node.name))
+        out = (op.forward(opctx, params, *in_vals) if rw is None
+               else local.run(rw, op, opctx, params, in_vals))
         outs = list(out) if isinstance(out, (tuple, list)) else [out]
         return outs, {f: opctx.aux_updates[sh]
                       for sh, f in zip(short, aux_full)
@@ -125,7 +145,12 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
                                 outs):
                 internals[f"{node.name}_{oname}"] = o
 
-    use_remat = not want_internals and any(
+    where: Dict[tuple, Any] = {}
+    moved: Dict[tuple, Any] = {}
+    if placement is not None:
+        from .ops.nn_ops import cross_device_copy
+
+    use_remat = not want_internals and placement is None and any(
         not n.is_variable and (n.anno_attrs().get("remat_scope")
                                or _mirrored(n.anno_attrs()))
         for n in topo)
@@ -143,6 +168,8 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
         node = topo[i]
         if node.is_variable:
             vals[(id(node), 0)] = arg_vals[node.name]
+            if placement is not None:
+                where[(id(node), 0)] = placement[node.name]
             if want_internals:
                 internals[node.name] = arg_vals[node.name]
             i += 1
@@ -151,6 +178,18 @@ def eval_symbol(symbol, arg_vals: Dict[str, "torch.Tensor"],
         scope = anno.get("remat_scope")
         if scope is None:
             in_vals = [vals[(id(s), k)] for (s, k) in node.inputs]
+            if placement is not None:
+                dst = placement[node.name]
+                for j, (s, k) in enumerate(node.inputs):
+                    if where[(id(s), k)] != dst:
+                        # a value crosses to each context once
+                        if (id(s), k, dst) not in moved:
+                            moved[(id(s), k, dst)] = cross_device_copy(
+                                in_vals[j], dst)
+                        in_vals[j] = moved[(id(s), k, dst)]
+                for k in range(len(node.op.list_outputs(
+                        node.parsed_params()))):
+                    where[(id(node), k)] = dst
             if _mirrored(anno) and not node.aux_full_names():
                 # recompute-in-backward of one node (the reference's
                 # gradient mirroring)

@@ -177,6 +177,15 @@ class NDArray:
             value = torch.as_tensor(np.asarray(value))
         return value.to(device=self._data.device, dtype=self._data.dtype)
 
+    def _migrate(self, ctx) -> None:
+        """Move this array's storage to context ``ctx`` in place (an
+        executor's ``group2ctx`` placement of a freshly bound array)."""
+        ctx = as_context(ctx)
+        data = self._data.to(resolve_device(ctx), copy=True)
+        self._chunk.data = data
+        self._data = data
+        self._ctx = ctx
+
     def _write(self, value) -> None:
         """Write ``value`` (broadcast to this array's shape) in place."""
         if not self.writable:

@@ -11,8 +11,8 @@ pads a ragged sequence to the next block multiple and slices the output
 back, as the reference does.
 
 The JAX op turns into ring attention over an active mesh's ``seq`` axis;
-the port has no mesh (``parallel.mesh`` raises), so the op always runs
-single-device.  ``MoEFFN`` is registered with the reference's arguments,
+the port's ring functions are not ported yet, so the op runs on each
+device's own tensors (a tensor-parallel member's heads included).  ``MoEFFN`` is registered with the reference's arguments,
 parameters and shapes, so symbols that hold it build and serialise; its
 forward raises until the multi-GPU slice.
 """

@@ -7,7 +7,10 @@ mode); the image-classification zoo's LeakyReLU, Deconvolution, Dropout,
 Concat, SliceChannel, SwapAxis, Cast, ElementWiseSum, BlockGrad, Crop,
 L2Normalization, LRN, SoftmaxActivation and UpSampling; the legacy heads
 Linear/Logistic/MAERegressionOutput, MakeLoss and
-IdentityAttachKLSparseReg; and the detector's ROIPooling.
+IdentityAttachKLSparseReg; the detector's ROIPooling; and
+``_CrossDeviceCopy``, the marker of a crossing between two contexts of a
+model-parallel graph (identity in a graph, as in the JAX package; the
+executor moves the values with :func:`cross_device_copy`).
 
 Layouts stay NCHW/OIHW as in the JAX package.  Convolutions go to cuDNN
 through ``F.conv2d`` and matrix products to cuBLAS through ``matmul``, as
@@ -439,19 +442,25 @@ def _embedding_fwd(ctx, params, data, weight):
     any other id gives a row of NaN (``take``'s fill mode) and no
     gradient.  An out-of-range id must not index: on the card that is a
     device-side fault."""
+    idx, valid = embedding_index(data, weight.shape[0])
+    rows = weight[idx]
+    return torch.where(valid.unsqueeze(-1), rows,
+                       torch.full((), float("nan"), dtype=rows.dtype,
+                                  device=rows.device))
+
+
+def embedding_index(data: torch.Tensor, n: int):
+    """The Embedding op's row of each id over an ``n``-row table:
+    ``(row, valid)``, the row 0 where the id is out of range."""
     ids = data
     if ids.is_floating_point():
         ids = torch.nan_to_num(ids.double(), nan=0.0, posinf=2.0 ** 31 - 1,
                                neginf=-2.0 ** 31).clamp(-2.0 ** 31,
                                                         2.0 ** 31 - 1)
     ids = ids.long()
-    n = weight.shape[0]
     valid = (ids >= -n) & (ids < n)
-    rows = weight[torch.where(valid, torch.remainder(ids, n),
-                              torch.zeros_like(ids))]
-    return torch.where(valid.unsqueeze(-1), rows,
-                       torch.full((), float("nan"), dtype=rows.dtype,
-                                  device=rows.device))
+    return torch.where(valid, torch.remainder(ids, n),
+                       torch.zeros_like(ids)), valid
 
 
 register_op(OpDef(
@@ -464,6 +473,47 @@ register_op(OpDef(
     },
     infer_shape=_embedding_shape,
     doc="Index into an embedding table; grad is a scatter-add.",
+))
+
+
+# ---------------------------------------------------------------------------
+# _CrossDeviceCopy and the crossings of a model-parallel graph
+# ---------------------------------------------------------------------------
+
+class _CrossDeviceCopyFn(torch.autograd.Function):
+    """A value moved to another context; its gradient moves back."""
+
+    @staticmethod
+    def forward(ctx, x, device):
+        ctx.src = x.device
+        return x.to(device, copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        cross_device_copy.grad_crossings += 1
+        return g.to(ctx.src), None
+
+
+def cross_device_copy(x: torch.Tensor, ctx) -> torch.Tensor:
+    """``x`` copied onto context ``ctx`` (a crossing between two groups
+    of a ``group2ctx`` placement), differentiably: the gradient crosses
+    back.  ``cross_device_copy.crossings`` counts the forward crossings
+    and ``.grad_crossings`` the backward ones."""
+    from ..context import resolve_device
+    cross_device_copy.crossings += 1
+    return _CrossDeviceCopyFn.apply(x, resolve_device(ctx))
+
+
+cross_device_copy.crossings = 0
+cross_device_copy.grad_crossings = 0
+
+register_op(OpDef(
+    name="_CrossDeviceCopy",
+    forward=lambda ctx, params, x: x,
+    arguments=("data",),
+    infer_shape=elemwise_shape,
+    doc="Device-boundary copy marker; the executor's placement realizes "
+        "the transfer.",
 ))
 
 

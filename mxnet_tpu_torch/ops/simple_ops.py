@@ -171,12 +171,89 @@ register_op(OpDef(
 # Reductions
 # ---------------------------------------------------------------------------
 
-_unary("norm", lambda x: torch.sqrt(torch.sum(torch.square(x))).reshape(1))
+# Over a mesh's data axis (the trainer's implicit mode), a reduction over
+# the rows of the batch meets the other members (``OpContext.sync``,
+# ``reduces_rows``): sums from the members' partial sums (differentiable
+# into every member's rows), a norm from their summed squares, a max or
+# min from their extremes with the gradient split over every tied winner
+# of the global batch, as ``jax.grad`` of the global reduction splits it.
+
+def _rows_sync(ctx):
+    sync = ctx.sync
+    return sync if sync is not None and sync.reduces_rows else None
+
+
+class _GlobalExtremeFn(torch.autograd.Function):
+    """The members' common extreme ``m`` (keepdim layout) of their
+    inputs ``xs`` (one a member, each on its device); the gradient of
+    each element equal to ``m`` is ``g / count`` (``count``: the equal
+    elements of every member), the others' zero."""
+
+    @staticmethod
+    def forward(ctx, m, count, *xs):
+        ctx.save_for_backward(m, count, *xs)
+        return m.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        m, count, *xs = ctx.saved_tensors
+        share = g / count
+        grads = [torch.where(x == m.to(x.device), share.to(x.device, x.dtype),
+                             torch.zeros((), dtype=x.dtype, device=x.device))
+                 for x in xs]
+        return (None, None, *grads)
+
+
+def _global_extreme(sync, x, dims, is_max):
+    """The max (or min) over ``dims`` of every member's ``x``, keepdim."""
+    pick = torch.amax if is_max else torch.amin
+    with torch.no_grad():
+        m = pick(x, dim=dims, keepdim=True)
+    parts = sync.parts(m)
+    both = torch.maximum if is_max else torch.minimum
+    with torch.no_grad():
+        top = parts[0].to(x.device)
+        for p in parts[1:]:
+            top = both(top, p.to(x.device))
+    xs = sync.parts(x)
+    with torch.no_grad():
+        count = sum((xj == top.to(xj.device)).sum(dim=dims, keepdim=True)
+                    .to(x.device, x.dtype) for xj in xs)
+    return _GlobalExtremeFn.apply(top, count, *xs)
+
+
+def _whole_fwd(name, fn):
+    def fwd(ctx, params, x):
+        sync = _rows_sync(ctx)
+        if sync is None:
+            return fn(x).reshape(1)
+        if name == "sum":
+            return sync.allreduce(torch.sum(x).reshape(1))
+        dims = tuple(range(x.dim()))
+        return _global_extreme(sync, x, dims, name == "max").reshape(1)
+    return fwd
+
+
+def _norm_fwd(ctx, params, x):
+    sync = _rows_sync(ctx)
+    sq = torch.sum(torch.square(x))
+    if sync is not None:
+        sq = sync.allreduce(sq)
+    return torch.sqrt(sq).reshape(1)
+
+
+register_op(OpDef(
+    name="norm",
+    forward=_norm_fwd,
+    arguments=("data",),
+    infer_shape=elemwise_shape,
+    func_name="norm",
+))
 for _rname, _rfn in (("sum", torch.sum), ("max", torch.amax),
                      ("min", torch.amin)):
     register_op(OpDef(
         name=_rname,
-        forward=lambda ctx, params, x, _fn=_rfn: _fn(x).reshape(1),
+        forward=_whole_fwd(_rname, _rfn),
         arguments=("data",),
         infer_shape=_reduce_all_shape,
         func_name=_rname,
@@ -207,8 +284,18 @@ def _axis_reduce_shape(params, in_shapes):
 
 def _make_axis_reduce(name, fn):
     def fwd(ctx, params, x, _fn=fn):
-        out = _fn(x, dim=_axes(params, x.dim()),
-                  keepdim=bool(params["keepdims"]))
+        dims = _axes(params, x.dim())
+        keep = bool(params["keepdims"])
+        sync = _rows_sync(ctx)
+        if sync is None:
+            out = _fn(x, dim=dims, keepdim=keep)
+        elif name == "sum_axis":
+            out = sync.allreduce(_fn(x, dim=dims, keepdim=keep))
+        else:
+            out = _global_extreme(sync, x, dims, name == "max_axis")
+            if not keep:
+                out = out.reshape([d for i, d in enumerate(out.shape)
+                                   if i not in dims])
         if out.dim() == 0:
             out = out.reshape(1)
         return out
@@ -420,7 +507,9 @@ register_op(OpDef(
 def _softmax_cross_entropy(ctx, params, data, label):
     logp = torch.log_softmax(data, dim=-1)
     picked = torch.gather(logp, -1, label.long()[:, None])[:, 0]
-    return -torch.sum(picked).reshape(1)
+    out = -torch.sum(picked).reshape(1)
+    sync = _rows_sync(ctx)
+    return out if sync is None else sync.allreduce(out)
 
 
 register_op(OpDef(

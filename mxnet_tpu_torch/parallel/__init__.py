@@ -5,18 +5,20 @@ Counterpart of ``mxnet_tpu/parallel/__init__.py``, with the same names:
 * :mod:`.mesh` / :mod:`.collectives` -- named meshes of contexts and the
   bucketed, optionally compressed reductions over their members (NCCL
   between distinct cards);
-* :mod:`.trainer` -- :class:`ShardedTrainer`: data parallelism over a
-  mesh in one process (implicit and compressed modes, error feedback,
-  ZeRO), the fused update (K2) and flash attention (K3, K4).
+* :mod:`.trainer` -- :class:`ShardedTrainer`: data and tensor
+  parallelism over a mesh in one process (implicit and compressed modes,
+  error feedback, ZeRO, :class:`ShardingRules` and :func:`megatron_rules`
+  over a ``model`` axis, computed by the plans of
+  :mod:`.tensor_parallel`), the fused update (K2) and flash attention
+  (K3, K4).
 
-Model parallelism (``ShardingRules``, ``megatron_rules``, the ring
-functions, MoE, pipelines) and the multi-process tier (``ElasticTrainer``
-and its helpers) are not ported yet: those names raise when called
-(ROADMAP.md).
+The ring functions, MoE, pipelines and the multi-process tier
+(``ElasticTrainer`` and its helpers) are not ported yet: those names
+raise when called (ROADMAP.md).
 """
 from ..base import not_ported
 from . import (collectives, flash_attention, mesh, ring_attention,
-               trainer)
+               tensor_parallel, trainer)
 from .collectives import allreduce_mean, allreduce_sum
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
                    Mesh, NamedSharding, PartitionSpec, batch_sharding,
@@ -25,7 +27,7 @@ from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
 # ``parallel.ring_attention`` stays the module (its ring functions raise)
 from .ring_attention import (blockwise_attention, local_attention,
                              ring_self_attention)
-from .trainer import ShardedTrainer
+from .trainer import ShardedTrainer, ShardingRules, megatron_rules
 
 
 def _unported(name: str, what: str):
@@ -38,8 +40,6 @@ def _unported(name: str, what: str):
 
 _MODEL = "model parallelism"
 _MULTIPROC = "the multi-process tier"
-ShardingRules = _unported("ShardingRules", _MODEL)
-megatron_rules = _unported("megatron_rules", _MODEL)
 switch_ffn = _unported("switch_ffn", _MODEL)
 moe_ffn = _unported("moe_ffn", _MODEL)
 moe_ffn_ep = _unported("moe_ffn_ep", _MODEL)
@@ -64,5 +64,6 @@ __all__ = [
     "switch_ffn", "moe_ffn", "moe_ffn_ep", "load_balance_loss",
     "pipeline_apply", "PipelineTrainer", "SpmdPipelineTrainer",
     "collectives", "flash_attention", "mesh", "ring_attention", "trainer",
+    "tensor_parallel",
     "blockwise_attention",
 ]

@@ -18,6 +18,14 @@ member:
 * members that are **not distinct** (two arrays on one context) take the
   JAX package's co-resident tree sum: no buckets, no compression.
 
+Along one axis of a 2-D mesh (the members that share every other
+coordinate: ``mesh.axis_groups``), :func:`psum`, :func:`pmax`,
+:func:`all_gather` and :func:`reduce_scatter` run over each group
+(:func:`over_axis`); given ``axis=`` a call is counted by
+:func:`count_collectives` under that axis (``CollectiveStats.by_axis``).
+Between distinct cards each group reduces through NCCL on a communicator
+of its own devices (``torch.cuda.nccl`` keeps one per device set).
+
 Gradient fusion: :func:`allreduce_sum`/:func:`allreduce_mean` take a list
 of gradient groups (one tensor a member each), lay them end to end in
 priority order (higher ``priority`` first, ties in submission order),
@@ -51,7 +59,8 @@ from .. import quant
 __all__ = ["allreduce_sum", "allreduce_mean", "distinct_devices",
            "psum_compressed", "count_collectives", "CollectiveStats",
            "DEFAULT_BUCKET_BYTES", "COMPRESSIONS", "plan_buckets",
-           "check_compression", "member_of", "psum", "pmax"]
+           "check_compression", "member_of", "psum", "pmax", "all_gather",
+           "reduce_scatter", "over_axis"]
 
 DEFAULT_BUCKET_BYTES = 4 << 20  # ~4 MiB, the classic DDP default
 COMPRESSIONS = (None, "int8", "bf16", "fp8")
@@ -114,6 +123,15 @@ class CollectiveStats:
     def total_bytes(self) -> int:
         return sum(r["nbytes"] for r in self.records)
 
+    def by_axis(self) -> dict:
+        """``{axis: reductions}`` over the records of calls made along a
+        named mesh axis (:func:`over_axis` and the trainer's meetings)."""
+        out: dict = {}
+        for r in self.records:
+            if r.get("axis") is not None:
+                out[r["axis"]] = out.get(r["axis"], 0) + 1
+        return out
+
     @property
     def total_wire_bytes(self) -> int:
         """Bytes that cross between members (compressed width)."""
@@ -169,11 +187,26 @@ def _nccl(parts: Sequence[torch.Tensor], op: int) -> List[torch.Tensor]:
     return outs
 
 
-def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def record_axis_call(kind: str, axis: str, t: torch.Tensor,
+                     members: int) -> None:
+    """Count one call of ``kind`` over a group of ``members`` along mesh
+    ``axis`` (``CollectiveStats.by_axis``)."""
+    nbytes = t.numel() * t.element_size()
+    _emit({"nbytes": nbytes, "wire_nbytes": nbytes, "num_pieces": members,
+           "tensor_indices": [], "dtype": _dtype_name(t.dtype),
+           "compression": None, "mean": False, "kind": kind, "axis": axis})
+
+
+def psum(parts: Sequence[torch.Tensor],
+         axis: Optional[str] = None) -> List[torch.Tensor]:
     """The sum of one tensor a member, one result a member on its
     member's device.  Distinct cards reduce through NCCL; otherwise the
-    parts are summed in member order on the first part's device."""
+    parts are summed in member order on the first part's device.  With
+    ``axis`` (the mesh axis the members differ along) the call is
+    counted by :func:`count_collectives`."""
     parts = list(parts)
+    if axis is not None:
+        record_axis_call("psum", axis, parts[0], len(parts))
     if len(parts) == 1:
         return parts
     if _on_distinct_cards(parts):
@@ -190,9 +223,13 @@ def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
             for p in parts]
 
 
-def pmax(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The elementwise max of one tensor a member, one result a member."""
+def pmax(parts: Sequence[torch.Tensor],
+         axis: Optional[str] = None) -> List[torch.Tensor]:
+    """The elementwise max of one tensor a member, one result a member
+    (counted along ``axis`` as :func:`psum`)."""
     parts = list(parts)
+    if axis is not None:
+        record_axis_call("pmax", axis, parts[0], len(parts))
     if len(parts) == 1:
         return parts
     if _on_distinct_cards(parts):
@@ -202,6 +239,73 @@ def pmax(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         acc = torch.maximum(acc, p.to(acc.device))
     return [acc if acc.device == p.device else acc.to(p.device)
             for p in parts]
+
+
+def all_gather(parts: Sequence[torch.Tensor], dim: int = 0,
+               axis: Optional[str] = None) -> List[torch.Tensor]:
+    """The members' tensors end to end along ``dim``, one copy a member
+    on its member's device.  Distinct cards gather through NCCL (along a
+    leading axis, moved to ``dim``); otherwise the pieces are copied to
+    the first member's device and concatenated."""
+    parts = list(parts)
+    if axis is not None:
+        record_axis_call("all_gather", axis, parts[0], len(parts))
+    if len(parts) == 1:
+        return parts
+    dim = dim % parts[0].dim()
+    if _on_distinct_cards(parts):
+        from torch.cuda import nccl
+        ins = [p.movedim(dim, 0).contiguous() for p in parts]
+        outs = [torch.empty((len(parts),) + tuple(t.shape), dtype=t.dtype,
+                            device=t.device) for t in ins]
+        nccl.all_gather(ins, outs)
+        return [o.reshape((-1,) + tuple(o.shape[2:])).movedim(0, dim)
+                .contiguous() for o in outs]
+    full = torch.cat([p.to(parts[0].device) for p in parts], dim)
+    return [full if full.device == p.device else full.to(p.device)
+            for p in parts]
+
+
+def reduce_scatter(parts: Sequence[torch.Tensor], dim: int = 0,
+                   axis: Optional[str] = None) -> List[torch.Tensor]:
+    """The sum of the members' tensors cut into as many pieces along
+    ``dim`` as there are members: member ``i`` gets piece ``i`` on its
+    device.  Distinct cards reduce-scatter through NCCL; otherwise the
+    sum is taken as :func:`psum` takes it and cut."""
+    parts = list(parts)
+    n = len(parts)
+    if axis is not None:
+        record_axis_call("reduce_scatter", axis, parts[0], n)
+    dim = dim % parts[0].dim()
+    if parts[0].shape[dim] % n:
+        raise MXNetError(f"reduce_scatter: dimension {dim} of size "
+                         f"{parts[0].shape[dim]} does not split into {n}")
+    if n == 1:
+        return parts
+    if _on_distinct_cards(parts):
+        from torch.cuda import nccl
+        ins = [p.movedim(dim, 0).contiguous() for p in parts]
+        outs = [torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
+                            dtype=t.dtype, device=t.device) for t in ins]
+        nccl.reduce_scatter(ins, outs)
+        return [o.movedim(0, dim).contiguous() for o in outs]
+    total = psum(parts)[0]
+    return [piece.to(p.device) for piece, p in
+            zip(total.chunk(n, dim), parts)]
+
+
+def over_axis(groups: Sequence[Sequence[int]], fn, parts, axis: str,
+              **kw) -> List[torch.Tensor]:
+    """``fn`` (:func:`psum`, :func:`pmax`, :func:`all_gather`,
+    :func:`reduce_scatter`) over each group of members of a mesh axis
+    (``mesh.axis_groups(mesh, axis)``): ``parts`` holds one tensor a
+    member in row-major member order, and so does the result."""
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    for group in groups:
+        res = fn([parts[i] for i in group], axis=axis, **kw)
+        for i, r in zip(group, res):
+            out[i] = r
+    return out  # type: ignore[return-value]
 
 
 # ---------------------------------------------------------------------------

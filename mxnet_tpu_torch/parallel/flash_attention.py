@@ -49,8 +49,11 @@ The public functions keep the JAX dispatch: the ``kernel_ok`` conditions
 (block picks that divide the lengths and are at least 64, causal only for
 ``Lq == Lk``, ``D <= 256``, f32/bf16 of one type) decide which shapes take
 the flash family; the others take the blockwise or dense path of
-``ring_attention`` exactly as the reference does.  The port has no mesh
-yet (``parallel.mesh`` raises), so ``_wrap_for_mesh`` has no counterpart.
+``ring_attention`` exactly as the reference does.  ``_wrap_for_mesh``
+has no counterpart: under a tensor-parallel trainer's split plan each
+mesh member calls these functions on its own rows and heads
+(``[B / data, L, H / model, hd]``), the shapes JAX's wrapper hands each
+device.
 """
 from __future__ import annotations
 

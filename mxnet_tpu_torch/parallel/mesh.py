@@ -16,9 +16,11 @@ Canonical axis names, as in the JAX package:
 * ``pipe``   -- pipeline stages
 * ``expert`` -- MoE expert parallelism
 
-Only the data axis carries work in the port so far; model parallelism
-(``ShardingRules``, ring attention, pipelines, MoE) comes later
-(ROADMAP.md).  :func:`replicated`, :func:`batch_sharding` and
+The trainer splits the batch over the data axis and rule-sharded
+parameters over the model axis; the sequence, pipeline and expert axes
+carry no work in the port yet (ROADMAP.md).  :func:`axis_groups` lists
+the members that share every coordinate but one axis's: the groups a
+collective along that axis runs over.  :func:`replicated`, :func:`batch_sharding` and
 :func:`param_sharding` return :class:`NamedSharding` placement records
 that the trainer and the checkpoint reader read: ``place(value)`` cuts a
 host value into each member's piece on the member's device.
@@ -37,7 +39,7 @@ from ..context import Context, as_context, cpu, gpu, num_devices
 __all__ = ["Mesh", "PartitionSpec", "NamedSharding", "make_mesh",
            "data_parallel_mesh", "current_mesh", "default_mesh",
            "local_contexts", "replicated", "batch_sharding",
-           "param_sharding", "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS",
+           "param_sharding", "axis_groups", "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS",
            "PIPE_AXIS", "EXPERT_AXIS"]
 
 DATA_AXIS = "data"
@@ -176,6 +178,18 @@ class NamedSharding:
 
     def __repr__(self):
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def axis_groups(mesh: Mesh, axis: Optional[str]) -> List[Tuple[int, ...]]:
+    """The groups of members (row-major indices) that share every mesh
+    coordinate but ``axis``'s, each in order along ``axis``; with
+    ``axis`` None every member is a group of its own."""
+    if axis is None:
+        return [(i,) for i in range(mesh.size)]
+    idx = np.arange(mesh.size).reshape(mesh.devices.shape)
+    ax = mesh.axis_names.index(axis)
+    rows = np.moveaxis(idx, ax, -1).reshape(-1, mesh.devices.shape[ax])
+    return [tuple(int(i) for i in row) for row in rows]
 
 
 _mesh_stack: List[Mesh] = []

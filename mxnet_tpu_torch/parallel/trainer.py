@@ -114,11 +114,17 @@ parameters and aux states:
 
 * **Implicit mode** (no ``grad_compression``): the JAX trainer's one
   program over the global batch.  Members run in threads that meet at
-  every cross-row statistic (``OpContext.sync``): BatchNorm's batch
-  moments and SoftmaxOutput's ``batch``/``valid`` denominators count
-  every member's rows, through a differentiable sum, so one backward
-  over all members' heads gives the global batch's gradients.  The
-  per-tensor gradients are summed with :func:`~.collectives.psum`.
+  every cross-row statistic (``OpContext.sync``, :class:`_NodeSync`):
+  BatchNorm's batch moments and SoftmaxOutput's ``batch``/``valid``
+  denominators count every member's rows, through a differentiable sum,
+  so one backward over all members' heads gives the global batch's
+  gradients; a reduction over the rows (``sum``, ``max``, ``min``,
+  ``norm``, ``softmax_cross_entropy``, ``sum_axis`` and its kin over axis
+  0) is the global batch's on every member, and a head made of such
+  values only is differentiated once a data group (:func:`_batch_layout`).
+  A recompute scope replayed in the backward reuses what its forward met
+  with.  The per-tensor gradients are summed with
+  :func:`~.collectives.psum`.
 * **Explicit mode** (``grad_compression``): the JAX trainer's manual
   region.  Each member is local (its own BatchNorm statistics, the aux
   updates averaged over members, its sampling key folded with its
@@ -137,21 +143,34 @@ parameters and aux states:
   the slices are gathered into the parameter.  The fused update refuses
   it, as in the JAX package.
 
+Tensor parallelism (``rules=`` a :class:`ShardingRules`, e.g.
+:func:`megatron_rules`, over a mesh with a ``model`` axis beside
+``data``): the batch is split over the data axis and every member of a
+model group (the members that share a data coordinate) gets the same
+rows.  Each member holds only its piece of every rule-sharded parameter;
+the data-lead of each model coordinate holds that piece's optimizer
+state and updates it (``_tp_apply``), and the pieces are gathered for
+``get_params``, checkpoints and inference.  The plan that computes the
+pieces (gather or split, :mod:`.tensor_parallel`) is recorded in
+``compile_info``; the fused update is off under it (the JAX trainer's
+reason, recorded too), ``grad_compression`` refuses it, and ZeRO cuts
+only the replicated parameters' state.
+
 Inference forwards run on the lead member over the whole batch (no
 statistic crosses rows at inference).  One step path serves every
 member count and mode; :meth:`ShardedTrainer.compile` captures it for
 one member and runs it eagerly, with its reason, over several.  Over
-several members the implicit mode refuses an op that combines rows of
-the batch other than the synced statistics (:func:`_rows_combined`).
-``rules`` (tensor parallelism) is not ported yet.
+several members the implicit mode refuses an op that moves rows of the
+batch (:func:`_batch_layout`).
 """
 from __future__ import annotations
 
 import contextlib
 import logging
+import re
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -167,12 +186,59 @@ from ..graph_eval import eval_symbol
 from ..initializer import Uniform
 from ..ndarray import NDArray, array as nd_array, zeros as nd_zeros
 from ..ops import fused_update as fu
+from . import collectives
+from . import tensor_parallel as tp_mod
 from .collectives import (DEFAULT_BUCKET_BYTES, check_compression,
                           plan_buckets, psum, psum_compressed)
-from .mesh import (DATA_AXIS, Mesh, PartitionSpec, data_parallel_mesh,
-                   make_mesh)
+from .mesh import (DATA_AXIS, MODEL_AXIS, Mesh, NamedSharding, PartitionSpec,
+                   axis_groups, data_parallel_mesh, make_mesh)
 
-__all__ = ["ShardedTrainer", "matmul_precision_scope"]
+__all__ = ["ShardingRules", "ShardedTrainer", "megatron_rules",
+           "matmul_precision_scope"]
+
+
+class ShardingRules:
+    """Regex -> PartitionSpec placement rules for parameters.
+
+    The counterpart of the JAX package's rules: instead of pinning a
+    layer to one device (``group2ctx``), a rule shards a weight over mesh
+    axes, e.g. ``ShardingRules([("fc\\d+_weight", PartitionSpec("model",
+    None))])``.  The first pattern that ``re.search``-matches a name
+    gives its spec; unmatched parameters are replicated."""
+
+    def __init__(self, rules: Optional[Sequence[Tuple[str,
+                                                      PartitionSpec]]] = None):
+        self._rules = [(re.compile(pat), spec) for pat, spec in (rules or [])]
+
+    def spec_for(self, name: str) -> PartitionSpec:
+        for pat, spec in self._rules:
+            if pat.search(name):
+                return spec
+        return PartitionSpec()
+
+
+def megatron_rules(model_axis: str = MODEL_AXIS) -> ShardingRules:
+    """Megatron-style tensor-parallel placement for ``transformer-lm``
+    (FullyConnected weights are ``(out, in)``):
+
+    * q, k, v and ffn1 are column-parallel: the output dimension and the
+      bias are cut over ``model_axis``;
+    * proj and ffn2 are row-parallel: the input dimension is cut, the
+      bias stays replicated;
+    * the embedding and ``lm_head`` cut the vocabulary, and so does
+      ``lm_head``'s bias.
+
+    LayerNorm scales and offsets are replicated.  Compose with a
+    ``{"data": N // tp, "model": tp}`` mesh; the batch is still split
+    over ``data``."""
+    m = model_axis
+    return ShardingRules([
+        (r"(^|_)(embed|lm_head)_weight$", PartitionSpec(m, None)),
+        (r"(^|_)lm_head_bias$", PartitionSpec(m)),
+        (r"_(q|k|v|ffn1)_weight$", PartitionSpec(m, None)),
+        (r"_(q|k|v|ffn1)_bias$", PartitionSpec(m)),
+        (r"_(proj|ffn2)_weight$", PartitionSpec(None, m)),
+    ])
 
 
 # the JAX package's precision names -> torch's float32 matmul precision.
@@ -230,7 +296,11 @@ class ShardedTrainer:
     mesh : parallel.Mesh, optional
         Default: a data mesh over every local device of ``device``'s
         platform (one member on the CPU), or ``device`` alone when it
-        names an index.  Only the data axis may have more than one member.
+        names an index.  Only the data and model axes may have more than
+        one member.
+    rules : ShardingRules, optional
+        Parameter placement over the mesh's model axis (tensor
+        parallelism); default replicated.
     data_axis : str, optional
         The mesh axis the batch is split over (default ``"data"`` when
         the mesh has it).
@@ -284,9 +354,10 @@ class ShardedTrainer:
                  loss_scale=None,
                  guard_params: Optional[Dict[str, Any]] = None,
                  logger=None, device=None, seed: int = 0):
-        if rules is not None:
-            raise not_ported("ShardedTrainer(rules=...) (tensor "
-                             "parallelism)")
+        if rules is not None and not isinstance(rules, ShardingRules):
+            raise MXNetError(f"rules must be a parallel.ShardingRules, got "
+                             f"{type(rules).__name__}")
+        self.rules = rules or ShardingRules()
         if matmul_precision is not None \
                 and matmul_precision not in _MATMUL_PRECISION:
             raise MXNetError(
@@ -406,14 +477,37 @@ class ShardedTrainer:
                 raise MXNetError(f"mesh has no axis {data_axis!r}; "
                                  f"axes: {mesh.axis_names}")
             self.data_axis = data_axis
-        ndata = mesh.shape[self.data_axis] if self.data_axis else 1
-        if mesh.size != ndata:
+        others = [a for a in mesh.axis_names
+                  if a != self.data_axis and mesh.shape[a] > 1]
+        if any(a != MODEL_AXIS for a in others):
             raise not_ported("ShardedTrainer over mesh axes other than the "
-                             "data axis (model parallelism)")
+                             "data and model axes (sequence, pipeline and "
+                             "expert parallelism)")
+        self.model_axis = (MODEL_AXIS if MODEL_AXIS in mesh.axis_names
+                           and MODEL_AXIS != self.data_axis else None)
+        self._ndata = mesh.shape[self.data_axis] if self.data_axis else 1
+        self._ntp = mesh.shape[self.model_axis] if self.model_axis else 1
+        # the members that meet along each axis: a data group shares the
+        # model coordinate (and splits the batch), a model group shares
+        # the rows
+        self._groups = {DATA_AXIS: axis_groups(mesh, self.data_axis),
+                        MODEL_AXIS: axis_groups(mesh, self.model_axis)}
+        rank = {ax: {i: g.index(i) for g in gs for i in g}
+                for ax, gs in self._groups.items()}
+        self._dcoord = [rank[DATA_AXIS][i] for i in range(mesh.size)]
+        self._mcoord = [rank[MODEL_AXIS][i] for i in range(mesh.size)]
+        group_of = {i: g for g in self._groups[MODEL_AXIS] for i in g}
+        # model coordinate t's data-lead, and each model coordinate's
+        # data group (column 0 is the lead's)
+        self._col_lead = list(group_of[0])
+        data_of = {i: g for g in self._groups[DATA_AXIS] for i in g}
+        self._col_groups = [data_of[j] for j in self._col_lead]
+        self._col0 = self._col_groups[0]
         self._members = mesh.members
         # resolve_device raises for a CUDA member without CUDA: a member
         # never falls back to the CPU
         self._devices = [resolve_device(m) for m in self._members]
+        self._data_devices = [self._devices[i] for i in self._col0]
         self.device = self._devices[0]
         if device is not None and resolve_device(device) != self.device:
             raise MXNetError(f"device {device} is not the mesh's first "
@@ -435,7 +529,7 @@ class ShardedTrainer:
         sym = self.symbol
         input_shapes = dict(data_shapes)
         input_shapes.update(label_shapes or {})
-        ndata = len(self._members)
+        ndata = self._ndata
         for name, shape in input_shapes.items():
             if shape[0] % (ndata * self.grad_accum):
                 raise MXNetError(
@@ -460,14 +554,21 @@ class ShardedTrainer:
         # in threads to count every member's rows
         self._sync_nodes = any(_synced_statistic(n) for n in self._topo
                                if not n.is_variable)
+        self._row_reductions: frozenset = frozenset()
+        self._global_heads: frozenset = frozenset()
         if ndata > 1 and self.grad_compression is None:
-            why = _rows_combined(sym, self._topo, input_shapes)
+            why, reds, glob = _batch_layout(sym, self._topo, input_shapes)
             if why is not None:
                 raise not_ported(
                     f"ShardedTrainer over {ndata} members in the implicit "
                     f"mode: {why}, which the members' split batch would "
                     "compute per member (the JAX trainer computes it over "
                     "the global batch)")
+            self._row_reductions, self._global_heads = reds, glob
+        self._setup_tp(shape_of, {n: (s[0] // self.grad_accum,) + tuple(s[1:])
+                                  for n, s in input_shapes.items()})
+        self._threaded = (self._sync_nodes or bool(self._row_reductions)
+                          or (self._ntp > 1 and bool(self._tp_dims)))
 
         def host_value(name, shape, given):
             nd = nd_zeros(shape, ctx=cpu())
@@ -480,6 +581,7 @@ class ShardedTrainer:
 
         host = {n: host_value(n, shape_of[n], arg_params)
                 for n in self._param_names}
+        self._shapes = {n: tuple(shape_of[n]) for n in self._param_names}
         self._aux = {n: host_value(n, s, aux_params).to(self.device)
                      for n, s in zip(self._aux_names, aux_shapes)}
 
@@ -502,24 +604,26 @@ class ShardedTrainer:
                 self._wd_mult[n] = 0.0
             else:
                 self._wd_mult[n] = 1.0
-        plans = {n: self._zero_plan(shape_of[n]) for n in self._param_names}
+        plans = {n: self._zero_plan(shape_of[n], n)
+                 for n in self._param_names}
         self._zero_specs = {n: p[0] for n, p in plans.items()}
         self._zero_flat = {n: p[1] for n, p in plans.items()}
         if self.shard_optimizer:
             flat = [n for n, (_, fl) in plans.items() if fl is not None]
             self.logger.info(
                 "ZeRO: %d params dim-sharded, %d flatten-pad-sharded, "
-                "0 TP-rule-sharded, 0 replicated",
-                len(self._param_names) - len(flat), len(flat))
+                "%d TP-rule-sharded, 0 replicated",
+                len(self._param_names) - len(flat) - len(self._tp_dims),
+                len(flat), len(self._tp_dims))
         self._setup_fused(shape_of)
         if self._fused:
             self._layout_fused(host)
         else:
-            self._params = {n: host[n].to(self.device).requires_grad_(True)
-                            for n in self._param_names}
+            self._params = {n: self._piece(host[n], n, 0).to(self.device)
+                            .requires_grad_(True) for n in self._param_names}
             self._opt_state = ({} if self.shard_optimizer else {
                 n: opt.state_zeros_like(self._params[n].detach())
-                for n in self._param_names})
+                for n in self._param_names if n not in self._tp_dims})
         self._layout_members(host)
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
@@ -542,6 +646,57 @@ class ShardedTrainer:
         self._bound = True
         return self
 
+    def _setup_tp(self, shape_of, micro_shapes) -> None:
+        """The rule-sharded parameters (``_tp_dims``: the dimension each
+        is cut along over the model axis) and the plan that computes them
+        (``_tp_plan``: split where the graph has Megatron's partition,
+        else gather), recorded in ``compile_info``.  The JAX package's
+        gates: ``grad_compression`` refuses sharded parameters."""
+        self._tp_dims: Dict[str, int] = {}
+        self._tp_plan: Optional[tp_mod.TPPlan] = None
+        specs = {}
+        for n in self._param_names:
+            spec = self.rules.spec_for(n)
+            named = [ax for ax in spec if ax is not None]
+            if not named:
+                continue
+            if any(ax != MODEL_AXIS for ax in named) or len(named) > 1:
+                raise not_ported(f"ShardedTrainer: spec {spec} for {n} (a "
+                                 "parameter cut other than over one "
+                                 "dimension by the model axis)")
+            if self.model_axis is None:
+                raise MXNetError(f"rules shard {n} over {MODEL_AXIS!r}, "
+                                 f"which the mesh {self.mesh.shape} lacks")
+            NamedSharding(self.mesh, spec).shard_shape(shape_of[n])
+            specs[n] = spec
+            self._tp_dims[n] = tp_mod.sharded_dim(spec, MODEL_AXIS)
+        if not self._tp_dims:
+            return
+        if self.grad_compression is not None:
+            sharded = list(self._tp_dims)
+            raise MXNetError(
+                "grad_compression runs the backward in a manual region with "
+                f"replicated params; tensor-parallel rules shard "
+                f"{sharded[:3]}... — use the implicit path for TP models")
+        rewrites, why = tp_mod.split_pass(self.symbol, self._topo,
+                                          self._tp_dims, specs, MODEL_AXIS,
+                                          self._ntp, micro_shapes)
+        self._tp_plan = tp_mod.TPPlan(
+            "split" if rewrites is not None else "gather", MODEL_AXIS,
+            self._ntp, dict(self._tp_dims), rewrites, why)
+        self.compile_info.append(self._tp_plan.info())
+        self.logger.info("tensor parallelism over %d: %s plan for %d "
+                         "params%s", self._ntp, self._tp_plan.plan,
+                         len(self._tp_dims), f" ({why})" if why else "")
+
+    def _piece(self, value: torch.Tensor, name: str, member: int):
+        """Member ``member``'s piece of parameter ``name``'s full value:
+        the value itself unless the rules shard it."""
+        if name not in self._tp_dims:
+            return value
+        sh = NamedSharding(self.mesh, self.rules.spec_for(name))
+        return value[sh.index(member, tuple(value.shape))]
+
     def _setup_fused(self, shape_of) -> None:
         """The JAX trainer's eligibility gate: any configuration the
         kernel cannot express bitwise falls back to the unfused update,
@@ -561,6 +716,8 @@ class ShardedTrainer:
                        "fused twin")
         if self.shard_optimizer:
             why.append("shard_optimizer (ZeRO state layout)")
+        if self._tp_dims:
+            why.append("tensor-parallel param sharding")
         if any(int(np.prod(shape_of[n], dtype=np.int64)) == 0
                for n in self._param_names):
             why.append("zero-size params")
@@ -584,6 +741,10 @@ class ShardedTrainer:
                 raise MXNetError("fused_update=True but this configuration "
                                  "cannot fuse: " + "; ".join(why))
             self.logger.debug("fused update off: %s", "; ".join(why))
+            if self._tp_dims:
+                self.compile_info.append({"kind": "fused_update",
+                                          "fused": False,
+                                          "reason": "; ".join(why)})
             return
         self._fused_kind = kind
         self._fused_plan = fu.build_plan(self._param_names, shape_of,
@@ -629,16 +790,20 @@ class ShardedTrainer:
         self._fused_route = fu.kernel_form(self._flat_w, self._flat_wd,
                                            *self._flat_state)
 
-    def _zero_plan(self, shape: Tuple[int, ...]
+    def _zero_plan(self, shape: Tuple[int, ...], name: str = ""
                    ) -> Tuple[PartitionSpec, Optional[int]]:
         """The JAX trainer's ZeRO placement of one parameter's optimizer
-        state: ``(spec, flat_padded_len)``.  Without ZeRO, replicated.
-        With it, the first dimension the member count divides is cut over
-        the data axis; a parameter with none (biases, BN scales) keeps its
-        state flattened and padded to a multiple of the member count."""
+        state: ``(spec, flat_padded_len)``.  Without ZeRO, the rule's
+        spec.  With it, a rule-sharded parameter keeps its rule's spec
+        (its state is already cut over the model axis); for the others
+        the first dimension the data-axis size divides is cut over the
+        data axis, and a parameter with none (biases, BN scales) keeps its
+        state flattened and padded to a multiple of that size."""
+        if name in self._tp_dims:
+            return self.rules.spec_for(name), None
         if not self.shard_optimizer or self.data_axis is None:
             return PartitionSpec(), None
-        n = len(self._members)
+        n = self._ndata
         for dim, size in enumerate(shape):
             if size % n == 0 and size > 0:
                 spec = [None] * len(shape)
@@ -671,6 +836,7 @@ class ShardedTrainer:
         for dev in self._devices[1:]:
             rep: Dict[str, Any] = {"aux": {n: v.to(dev, copy=True)
                                            for n, v in self._aux.items()}}
+            i = len(self._replicas) + 1
             if self._fused:
                 flat = self._flat_w.detach().to(dev, copy=True)
                 offs, plan = self._fused_plan.offsets, self._fused_plan
@@ -679,19 +845,26 @@ class ShardedTrainer:
                     np.prod(plan.shapes[n]))].view(plan.shapes[n])
                     .requires_grad_(True) for n in self._param_names}
             else:
-                rep["params"] = {n: host[n].detach().to(dev, copy=True)
-                                 .requires_grad_(True)
+                rep["params"] = {n: self._piece(host[n], n, i).detach()
+                                 .to(dev, copy=True).requires_grad_(True)
                                  for n in self._param_names}
             self._replicas.append(rep)
+        opt = self.optimizer
+        # each model coordinate's data-lead holds the optimizer state of
+        # its piece of every rule-sharded parameter
+        self._piece_state: Dict[str, List[Any]] = {
+            n: [opt.state_zeros_like(self._member_params(j)[n].detach())
+                for j in self._col_lead] for n in self._tp_dims}
         self._zero_state: List[Dict[str, Any]] = []
         if self.shard_optimizer:
-            opt = self.optimizer
-            for i, dev in enumerate(self._devices):
+            ndata = len(self._data_devices)
+            for i, dev in enumerate(self._data_devices):
                 states = {}
                 for n in self._param_names:
+                    if n in self._tp_dims:
+                        continue
                     full = self._zero_view(n, host[n].detach())
-                    piece = full.chunk(len(self._devices),
-                                       self._zero_dim(n))[i]
+                    piece = full.chunk(ndata, self._zero_dim(n))[i]
                     states[n] = opt.state_zeros_like(
                         torch.zeros(piece.shape, dtype=piece.dtype,
                                     device=dev))
@@ -700,7 +873,7 @@ class ShardedTrainer:
         if self.error_feedback:
             lens = self._grad_bucket_lens()
             self._ef_res = [[torch.zeros(n, dtype=torch.float32, device=dev)
-                             for n in lens] for dev in self._devices]
+                             for n in lens] for dev in self._data_devices]
 
     def _grad_bucket_lens(self) -> List[int]:
         """Element count of every gradient bucket of the explicit
@@ -720,14 +893,20 @@ class ShardedTrainer:
 
     def _broadcast(self) -> None:
         """The lead's parameters and aux states into every other member's
-        replica, in place."""
+        replica, in place; a rule-sharded parameter's piece from its
+        model coordinate's data-lead."""
+        leads = set(self._col_lead)
         with torch.no_grad():
-            for rep in self._replicas:
+            for i, rep in enumerate(self._replicas, 1):
                 if self._fused:
                     rep["flat_w"].copy_(self._flat_w)
                 else:
                     for n, p in rep["params"].items():
-                        p.copy_(self._params[n])
+                        if n not in self._tp_dims:
+                            p.copy_(self._params[n])
+                        elif i not in leads:
+                            p.copy_(self._member_params(
+                                self._col_lead[self._mcoord[i]])[n])
                 for n, v in rep["aux"].items():
                     v.copy_(self._aux[n])
 
@@ -738,11 +917,13 @@ class ShardedTrainer:
         residuals."""
         if self.shard_optimizer:
             trees = list(self._zero_state[0].values())
+            trees += [st[0] for st in self._piece_state.values()]
         elif self._fused:
             trees = list(self._flat_state) + (
                 [self._flat_wd] if self._flat_wd is not None else [])
         else:
             trees = list(self._opt_state.values())
+            trees += [st[0] for st in self._piece_state.values()]
         trees += self._ef_res[0] if self._ef_res else []
         total = 0
         for t in _leaves(trees):
@@ -797,19 +978,20 @@ class ShardedTrainer:
 
     def _shard_batch(self, batch) -> List[Dict[str, torch.Tensor]]:
         """Each member's rows of a placed batch, on its device: the batch
-        viewed as ``[grad_accum, members, rows, ...]``, member ``i``
-        taking ``[:, i]``, so that every microbatch is split over the
-        members as the JAX trainer splits it."""
-        n, k = len(self._devices), self.grad_accum
-        if n == 1:
+        viewed as ``[grad_accum, data members, rows, ...]``, member ``i``
+        taking ``[:, d]`` for its data coordinate ``d``, so that every
+        microbatch is split over the data axis as the JAX trainer splits
+        it and the members of a model group hold the same rows."""
+        n, k = self._ndata, self.grad_accum
+        if len(self._devices) == 1:
             return [dict(batch)]
-        shards: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+        shards: List[Dict[str, torch.Tensor]] = [{} for _ in self._devices]
         for name, v in batch.items():
             rest = tuple(v.shape[1:])
             b = v.shape[0] // (k * n)
             parts = v.reshape((k, n, b) + rest)
             for i, dev in enumerate(self._devices):
-                piece = parts[:, i].reshape((k * b,) + rest)
+                piece = parts[:, self._dcoord[i]].reshape((k * b,) + rest)
                 shards[i][name] = (piece.to(dev, copy=True)
                                    if dev.type == "cpu"
                                    else piece.to(dev, non_blocking=True))
@@ -912,7 +1094,7 @@ class ShardedTrainer:
             ok = mult = eff_norm = None
             if resil is not None:
                 if sq is None:
-                    sq = resilience.tree_sq_sum(grads)
+                    sq = resilience.tree_sq_sum(self._whole_grads(grads))
                 ok = torch.isfinite(sq)
                 eff_norm = torch.sqrt(sq) * float(
                     abs(self._rescale_grad) or 1.0)
@@ -928,7 +1110,8 @@ class ShardedTrainer:
                                                      self._c_tiny))
                     mult = coef if mult is None else mult * coef
                 if mult is not None and not self._fused:
-                    grads = {n: g * mult for n, g in grads.items()}
+                    grads = {n: _tree_scale(g, mult)
+                             for n, g in grads.items()}
             if self._fused:
                 self._fused_apply(grads, mult, ok, buckets)
             elif self.shard_optimizer:
@@ -992,6 +1175,41 @@ class ShardedTrainer:
                         else self._flat_wd[b0:b1_]),
                 form="bucket", **common)
 
+    def _whole_grads(self, grads) -> Dict[str, torch.Tensor]:
+        """``grads`` with each rule-sharded parameter's pieces end to end
+        on the lead's device (the guard's square sum is the whole
+        gradient's)."""
+        return {n: g if isinstance(g, torch.Tensor) else self._whole(n, g)
+                for n, g in grads.items()}
+
+    def _tp_apply(self, grads, ok) -> None:
+        """The rule-sharded parameters' update: each model coordinate's
+        data-lead runs ``optimizer._functional_step`` on its piece with
+        its piece of the state (elementwise: the pieces of the whole
+        update), gated by ``ok``."""
+        if not self._tp_dims:
+            return
+        opt = self.optimizer
+        hyper = opt._hyper()
+        hyper["rescale_grad"] = self._rescale_grad
+        step_fn = type(opt)._functional_step
+        for t, j in enumerate(self._col_lead):
+            dev = self._devices[j]
+            lr, tt = self._lr_dev.to(dev), self._t_dev.to(dev)
+            okd = None if ok is None else ok.to(dev)
+            params = self._member_params(j)
+            for n in self._tp_dims:
+                p, state = params[n], self._piece_state[n][t]
+                w2, s2 = step_fn(hyper, p, grads[n][t].to(dev), state,
+                                 lr * float(self._lr_mult[n]),
+                                 opt.wd * self._wd_mult[n], tt,
+                                 self._step_rng)
+                if okd is not None:
+                    w2 = torch.where(okd, w2, p)
+                    s2 = _gate(okd, s2, state)
+                p.copy_(w2)
+                _copy_tree(state, s2)
+
     def _unfused_apply(self, grads, ok) -> None:
         """Per parameter: ``optimizer._functional_step``, gated by
         ``where(ok, new, old)``, written back in place."""
@@ -1000,7 +1218,10 @@ class ShardedTrainer:
         hyper["rescale_grad"] = self._rescale_grad
         step_fn = type(opt)._functional_step
         lrs: Dict[float, torch.Tensor] = {}
+        self._tp_apply(grads, ok)
         for n in self._param_names:
+            if n in self._tp_dims:
+                continue
             p = self._params[n]
             m = float(self._lr_mult[n])
             if m not in lrs:
@@ -1057,26 +1278,46 @@ class ShardedTrainer:
             heads_k.append(heads_j)
             if explicit:
                 red, sq_j, new_ef = self._reduce_explicit(
-                    member_grads, self._ef_res if ef else None, bucket_out)
+                    [member_grads[i] for i in self._col0],
+                    self._ef_res if ef else None, bucket_out)
                 if k == 1:
                     sq = sq_j
             else:
-                red = {nm: psum([g[nm] for g in member_grads])[0]
-                       for nm in self._param_names}
+                red = self._reduce_implicit(member_grads)
             if grads is None:
                 grads = red
             else:
-                grads = {nm: grads[nm] + red[nm] for nm in grads}
+                grads = {nm: _tree_add(grads[nm], red[nm]) for nm in grads}
             # the next microbatch sees this one's aux updates
             auxu.update(aux_j)
             for i in range(n):
                 auxs[i].update({nm: v.to(self._devices[i])
                                 for nm, v in aux_j.items()})
-        pieces = [hs[i] for hs in heads_k for i in range(n)]
-        heads = pieces[0] if len(pieces) == 1 else tuple(
-            torch.cat([p[q].to(self.device) for p in pieces])
-            for q in range(len(pieces[0])))
-        return heads, grads, auxu, sq, new_ef
+        heads = []
+        for q in range(len(heads_k[0][0])):
+            # a head of the global batch (a reduction over its rows) is
+            # the same on every data member: the lead's
+            rows = ([self._col0[0]] if q in self._global_heads and not explicit
+                    else self._col0)
+            pieces = [hs[i][q] for hs in heads_k for i in rows]
+            heads.append(pieces[0] if len(pieces) == 1 else
+                         torch.cat([p.to(self.device) for p in pieces]))
+        return tuple(heads), grads, auxu, sq, new_ef
+
+    def _reduce_implicit(self, member_grads):
+        """The members' gradients summed over the data axis: a replicated
+        parameter's over the lead's model coordinate (every model
+        coordinate computed the same sum), a rule-sharded parameter's
+        piece by piece, each on its model coordinate's data-lead."""
+        red: Dict[str, Any] = {}
+        for nm in self._param_names:
+            if nm in self._tp_dims:
+                red[nm] = [psum([member_grads[i][nm] for i in grp])[0]
+                           for grp in self._col_groups]
+            else:
+                red[nm] = psum([member_grads[i][nm]
+                                for i in self._col0])[0]
+        return red
 
     def _bucket_out(self) -> bool:
         """Whether the explicit reduction hands its flat buckets straight
@@ -1096,7 +1337,8 @@ class ShardedTrainer:
                 # a bad step keeps the old residual: the new one came from
                 # non-finite gradients
                 for i, (old, new) in enumerate(zip(self._ef_res, new_ef)):
-                    okd = None if ok is None else ok.to(self._devices[i])
+                    okd = None if ok is None else ok.to(
+                        self._data_devices[i])
                     for o, nw in zip(old, new):
                         o.copy_(nw if okd is None else torch.where(okd, nw, o))
             self._broadcast()
@@ -1114,25 +1356,37 @@ class ShardedTrainer:
         for i in range(n):
             for p in self._member_params(i).values():
                 p.grad = None
-        fold = local or n > 1
-        keys = [GraphKey(mix(key, i) if fold else key, dev,
+        # the members of a model group hold the same rows and draw alike
+        fold = local or self._ndata > 1
+        keys = [GraphKey(mix(key, self._dcoord[i]) if fold else key, dev,
                          self._member_generators(i))
                 for i, dev in enumerate(self._devices)]
+        plan = self._tp_plan
 
         def forward(i, sync):
             args = self._cast_params(self._member_params(i))
+            if plan is not None and plan.plan == "gather":
+                tp_mod.gather_params(args, self._tp_dims, sync, MODEL_AXIS)
             args.update(mbs[i])
-            return eval_symbol(self.symbol, args, auxs[i], keys[i], True,
-                               topo=self._topo, sync=sync)
+            return eval_symbol(
+                self.symbol, args, auxs[i], keys[i], True, topo=self._topo,
+                sync=sync, local=(plan if plan is not None
+                                  and plan.plan == "split" else None))
 
-        if local or n == 1 or not self._sync_nodes:
+        if local or n == 1 or not self._threaded:
             outs = [forward(i, None) for i in range(n)]
         else:
-            outs = _run_synced(forward, self._devices)
+            outs = _run_synced(forward, self._devices, self._groups,
+                               self._row_reductions)
         live, cots = [], []
         for i, (heads, _) in enumerate(outs):
             sc = None if scale is None else scale.to(self._devices[i])
-            for h in heads:
+            for q, h in enumerate(heads):
+                # a head of the global batch is differentiated once a
+                # data group: its value depends on every member's rows
+                if not local and q in self._global_heads \
+                        and self._dcoord[i] != 0:
+                    continue
                 if h.requires_grad:
                     live.append(h)
                     cots.append(torch.ones_like(h) if sc is None
@@ -1148,8 +1402,9 @@ class ShardedTrainer:
             member_grads.append(g)
         heads = [tuple(h.detach() for h in o[0]) for o in outs]
         if local and n > 1:
-            # pmean of the aux updates, in member order
-            auxu = {nm: psum([o[1][nm].detach() for o in outs])[0] / n
+            # pmean of the aux updates over the data members, in order
+            col = [outs[i] for i in self._col0]
+            auxu = {nm: psum([o[1][nm].detach() for o in col])[0] / len(col)
                     for nm in outs[0][1]}
         else:
             auxu = {nm: v.detach() for nm, v in outs[0][1].items()}
@@ -1234,16 +1489,20 @@ class ShardedTrainer:
         hyper = opt._hyper()
         hyper["rescale_grad"] = self._rescale_grad
         step_fn = type(opt)._functional_step
-        n = len(self._devices)
+        n = len(self._data_devices)
         per_dev = [(self._lr_dev.to(d), self._t_dev.to(d),
-                    None if ok is None else ok.to(d)) for d in self._devices]
+                    None if ok is None else ok.to(d))
+                   for d in self._data_devices]
+        self._tp_apply(grads, ok)
         for nm in self._param_names:
+            if nm in self._tp_dims:
+                continue
             p = self._params[nm]
             dim = self._zero_dim(nm)
             ws = self._zero_view(nm, p.detach()).chunk(n, dim)
             gs = self._zero_view(nm, grads[nm]).chunk(n, dim)
             new = []
-            for i, dev in enumerate(self._devices):
+            for i, dev in enumerate(self._data_devices):
                 lr, t, okd = per_dev[i]
                 w, g = ws[i].to(dev), gs[i].to(dev)
                 state = self._zero_state[i][nm]
@@ -1285,7 +1544,7 @@ class ShardedTrainer:
                    for n, v in placed.items()} for i in range(k)])
         outs = []
         with torch.no_grad(), matmul_precision_scope(self.matmul_precision):
-            args = self._cast_params()
+            args = self._cast_params(self._whole_params())
             for mb in micro:
                 args.update(mb)
                 heads, _ = eval_symbol(self.symbol, args, self._aux, key,
@@ -1341,6 +1600,7 @@ class ShardedTrainer:
             ts = [p.detach() for p in self._params.values()]
             ts += _leaves(self._zero_state if self.shard_optimizer
                           else self._opt_state)
+        ts += _leaves(self._piece_state)
         ts += _leaves(self._ef_res)
         ts += list(self._aux.values())
         if self._guard_state is not None:
@@ -1384,6 +1644,10 @@ class ShardedTrainer:
             "shard_optimizer": self.shard_optimizer,
             "grad_compression": self.grad_compression,
             "error_feedback": self.error_feedback,
+            "rules": sorted((n, str(self.rules.spec_for(n)))
+                            for n in self._param_names),
+            "tp_plan": (self._tp_plan.plan if self._tp_plan is not None
+                        else None),
             "resilience": (self._resil.describe()
                            if self._resil is not None else None),
         }
@@ -1508,11 +1772,27 @@ class ShardedTrainer:
     # Param access
     # ------------------------------------------------------------------
 
+    def _whole(self, name: str, pieces) -> torch.Tensor:
+        """A rule-sharded parameter's (or state leaf's) pieces, one a
+        model coordinate, end to end on the lead's device."""
+        if len(pieces) == 1:
+            return pieces[0]
+        return torch.cat([p.to(self.device) for p in pieces],
+                         self._tp_dims[name])
+
+    def _whole_params(self) -> Dict[str, torch.Tensor]:
+        """The lead's parameters with every rule-sharded one whole."""
+        out = dict(self._params)
+        for n in self._tp_dims:
+            out[n] = self._whole(n, [self._member_params(j)[n]
+                                     for j in self._col_lead])
+        return out
+
     def get_params(self) -> Tuple[Dict[str, NDArray], Dict[str, NDArray]]:
         """Host copies (NDArrays on the CPU) of parameters and aux
-        states."""
+        states, rule-sharded parameters gathered whole."""
         arg = {n: nd_array(v.detach(), ctx=cpu())
-               for n, v in self._params.items()}
+               for n, v in self._whole_params().items()}
         aux = {n: nd_array(v, ctx=cpu()) for n, v in self._aux.items()}
         return arg, aux
 
@@ -1521,7 +1801,12 @@ class ShardedTrainer:
         and aux states of the same names, in place."""
         with torch.no_grad():
             for n, v in (arg_params or {}).items():
-                if n in self._params:
+                if n in self._tp_dims:
+                    full = torch.from_numpy(np.ascontiguousarray(
+                        v.asnumpy() if isinstance(v, NDArray)
+                        else np.asarray(v)))
+                    self._scatter_param(n, full)
+                elif n in self._params:
                     NDArray(self._params[n].detach())[:] = v
             for n, v in (aux_params or {}).items():
                 if n in self._aux:
@@ -1532,12 +1817,15 @@ class ShardedTrainer:
         """Optimizer state per parameter name, as a tuple of tensors in
         the optimizer's state order, whatever the layout (flat buckets on
         the fused path)."""
+        out = {n: tuple(self._whole(n, [_leaves(st)[li] for st in states])
+                        for li in range(len(_leaves(states[0]))))
+               for n, states in self._piece_state.items()}
         if self.shard_optimizer:
-            return {n: tuple(self._zero_gather(n, li) for li in range(
+            out.update({n: tuple(self._zero_gather(n, li) for li in range(
                 len(_leaves(self._zero_state[0][n]))))
-                for n in self._param_names}
+                for n in self._param_names if n not in self._tp_dims})
+            return {n: out[n] for n in self._param_names}
         if not self._fused:
-            out = {}
             for n, s in self._opt_state.items():
                 if s is None:
                     out[n] = ()
@@ -1545,7 +1833,7 @@ class ShardedTrainer:
                     out[n] = (s,)
                 else:
                     out[n] = tuple(s)
-            return out
+            return {n: out[n] for n in self._param_names}
         plan = self._fused_plan
         offs = plan.offsets
         return {n: tuple(s[offs[n]:offs[n] + int(np.prod(plan.shapes[n]))]
@@ -1576,8 +1864,12 @@ class ShardedTrainer:
         if self.shard_optimizer:
             # the JAX package's global arrays: the slices end to end
             out = {f"opt:{n}:{i}": self._zero_gather(n, i, padded=True)
-                   for n in self._param_names
+                   for n in self._param_names if n not in self._tp_dims
                    for i in range(len(_leaves(self._zero_state[0][n])))}
+            out.update({f"opt:{n}:{i}": leaf
+                        for n, leaves in self.opt_state_by_param().items()
+                        if n in self._tp_dims
+                        for i, leaf in enumerate(leaves)})
         elif not self._fused:
             out = {f"opt:{n}:{i}": leaf
                    for n, leaves in self.opt_state_by_param().items()
@@ -1595,9 +1887,20 @@ class ShardedTrainer:
     def _scatter_opt_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
         """Write restored ZeRO slices and residuals back to their
         members (the other optimizer arrays are views of live state)."""
-        n = len(self._devices)
+        n = len(self._data_devices)
         with torch.no_grad():
+            for name in self._tp_dims:
+                self._scatter_param(name, torch.from_numpy(
+                    np.ascontiguousarray(arrays[f"param:{name}"])))
+                for li in range(len(_leaves(self._piece_state[name][0]))):
+                    full = torch.from_numpy(np.ascontiguousarray(
+                        arrays[f"opt:{name}:{li}"]))
+                    for t, st in enumerate(self._piece_state[name]):
+                        _leaves(st)[li].copy_(self._piece(
+                            full, name, self._col_lead[t]))
             for name in self._param_names if self.shard_optimizer else ():
+                if name in self._tp_dims:
+                    continue
                 dim = self._zero_dim(name)
                 for li in range(len(_leaves(self._zero_state[0][name]))):
                     full = torch.from_numpy(np.ascontiguousarray(
@@ -1613,13 +1916,21 @@ class ShardedTrainer:
                 for res, piece in zip(self._ef_res, full.chunk(n)):
                     res[b].copy_(piece)
 
+    def _scatter_param(self, name: str, full: torch.Tensor) -> None:
+        """Write a rule-sharded parameter's whole value into the pieces
+        of its model coordinates' data-leads."""
+        for j in self._col_lead:
+            self._member_params(j)[name].detach().copy_(
+                self._piece(full, name, j))
+
     def _state_arrays(self) -> Dict[str, torch.Tensor]:
         """The full trainer state as ``{name: tensor}``: ``param:<n>``,
         ``aux:<n>`` and the optimizer's ``opt:`` arrays (views of the live
         buffers: :meth:`save_state` snapshots them at once)."""
         if not self._bound:
             raise MXNetError("call bind() before save_state/restore_state")
-        arrays = {f"param:{n}": self._params[n].detach()
+        whole = self._whole_params()
+        arrays = {f"param:{n}": whole[n].detach()
                   for n in self._param_names}
         arrays.update({f"aux:{n}": self._aux[n] for n in self._aux_names})
         arrays.update(self._opt_arrays())
@@ -1638,7 +1949,7 @@ class ShardedTrainer:
                 "num_update": int(self._num_update),
                 "optimizer": type(self.optimizer).__name__,
                 "torch_seed": int(self._seed),
-                "data_axis_size": len(self._members)}
+                "data_axis_size": self._ndata}
         if extra_meta:
             meta.update(extra_meta)
         keys, vals = [], []
@@ -2080,22 +2391,33 @@ def _synced_statistic(node) -> bool:
 
 # whole-array results: every row of the batch goes into one value
 _WHOLE_ARRAY_OPS = ("sum", "max", "min", "norm", "softmax_cross_entropy")
+# reductions over the axes named by their ``axis`` parameter
+_AXIS_REDUCE_OPS = ("sum_axis", "max_axis", "min_axis")
 # user code, whose rows the trainer cannot see
 _OPAQUE_OPS = ("Custom", "_PythonOp")
 
 
-def _rows_combined(sym, topo, input_shapes) -> Optional[str]:
-    """The first op of ``topo`` that combines or moves rows of the batch
-    (axis 0 of the tensors that depend on the inputs, shaped
-    ``input_shapes``), described, or None.  The implicit mode evaluates
-    each member's rows apart and meets only at the synced statistics
-    (:func:`_synced_statistic`), so such an op would compute another
-    function over several members.  Tensors that do not depend on the
-    batch (parameters) are the same on every member."""
+def _batch_layout(sym, topo, input_shapes):
+    """How the implicit mode evaluates ``topo`` over members that split
+    the batch's rows (axis 0 of the tensors that depend on the inputs,
+    shaped ``input_shapes``): ``(refusal, reductions, global heads)``.
+
+    A whole-array reduction, or a reduction over the rows (``sum_axis``
+    and its kin over axis 0), of a row-split value meets the other
+    members (``reductions``: those nodes' names) and gives the global
+    batch's value on every member; a head computed from such values only
+    is one of the ``global heads`` (indices).  An op that moves rows (a
+    transpose or reshape of them, a concat or slice along them, a product
+    contracting over them) or user code over them has no member-by-member
+    form: ``refusal`` describes the first, else it is None.  Tensors that
+    do not depend on the batch (parameters) are the same on every
+    member."""
     internals = sym.get_internals()
     _, outs, _ = internals.infer_shape_partial(**input_shapes)
     shape_of = {(id(n), i): s for (n, i), s in zip(internals._heads, outs)}
-    batch = {id(n) for n in topo if n.is_variable and n.name in input_shapes}
+    rows = {id(n) for n in topo if n.is_variable and n.name in input_shapes}
+    whole: set = set()
+    reductions = set()
 
     def leading(axes, node) -> bool:
         """Whether ``axes`` (an int or a tuple, negative from the end)
@@ -2109,20 +2431,21 @@ def _rows_combined(sym, topo, input_shapes) -> Optional[str]:
     for node in topo:
         if node.is_variable:
             continue
-        deps = [id(src) in batch for src, _ in node.inputs]
+        deps = [id(src) in rows for src, _ in node.inputs]
         if not any(deps):
+            if any(id(src) in whole for src, _ in node.inputs):
+                whole.add(id(node))
             continue
-        batch.add(id(node))
         name = node.op.name
         p = node.parsed_params()
         what = None
-        if name in _WHOLE_ARRAY_OPS:
-            what = "reduces the whole array"
-        elif name in _OPAQUE_OPS:
+        if name in _WHOLE_ARRAY_OPS or (name in _AXIS_REDUCE_OPS
+                                        and leading(p["axis"], node)):
+            whole.add(id(node))
+            reductions.add(node.name)
+            continue
+        if name in _OPAQUE_OPS:
             what = "is user code over the whole batch"
-        elif name in ("sum_axis", "max_axis", "min_axis") \
-                and leading(p["axis"], node):
-            what = f"reduces over axis {p['axis']}"
         elif name == "Concat" and leading(p["dim"], node):
             what = f"concatenates along dim {p['dim']}"
         elif name in ("slice_axis", "SliceChannel", "flip", "broadcast_axis") \
@@ -2142,8 +2465,12 @@ def _rows_combined(sym, topo, input_shapes) -> Optional[str]:
         elif name == "dot" and deps[1]:
             what = "contracts over a batch-dependent right operand"
         if what is not None:
-            return f"op {name} ({node.name}) {what}"
-    return None
+            return f"op {name} ({node.name}) {what}", None, None
+        rows.add(id(node))
+    heads = frozenset(q for q, (n, _) in enumerate(sym._heads)
+                      if id(n) in whole)
+    return None, frozenset(reductions), heads
+
 
 def _torch_dtype(name) -> Optional[torch.dtype]:
     """``compute_dtype`` as a torch dtype (None stays None)."""
@@ -2170,64 +2497,166 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 
 class _MemberSync:
-    """Where the threads of one step's members meet: call number ``k`` of
-    every member's handle waits for all members' values of that call.
-    Once the forward is done the meeting point closes, so a statistic
-    asked for again (a recompute scope replayed in the backward, on one
-    thread) raises instead of waiting forever."""
+    """Where the threads of one step's members meet: call number ``k``
+    along ``axis`` of each member waits for the values of that call from
+    every member of its group along the axis (the members that share
+    every other coordinate), and gets them in the group's order.  Once
+    the forward is done the meeting point closes: a recompute scope
+    replayed in the backward (one thread) reads the values its forward
+    exchanged instead (:class:`_NodeSync`)."""
 
-    def __init__(self, n: int):
-        self.n = n
+    def __init__(self, groups: Dict[str, List[Tuple[int, ...]]]):
+        self.group_of = {axis: {i: g for g in gs for i in g}
+                         for axis, gs in groups.items()}
         self.closed = False
-        self._barrier = threading.Barrier(n)
-        self._slots: Dict[int, list] = {}
-        self._lock = threading.Lock()
+        self._aborted = False
+        self._cond = threading.Condition()
+        self._slots: Dict[Tuple, Dict[int, Any]] = {}
 
-    def exchange(self, i: int, k: int, value) -> list:
-        if self.closed:
-            raise MXNetError(
-                "a batch statistic over mesh members was asked for after "
-                "the forward (a recompute scope with BatchNorm or a "
-                "normalized loss is not supported over several members)")
-        with self._lock:
-            slot = self._slots.setdefault(k, [None] * self.n)
-        slot[i] = value
-        self._barrier.wait()
-        return slot
+    def exchange(self, i: int, axis: str, k: int, value) -> list:
+        group = self.group_of[axis][i]
+        key = (axis, group, k)
+        with self._cond:
+            slot = self._slots.setdefault(key, {})
+            slot[i] = value
+            self._cond.notify_all()
+            while len(slot) < len(group) and not self._aborted:
+                self._cond.wait()
+            if self._aborted:
+                raise threading.BrokenBarrierError
+            return [slot[j] for j in group]
 
     def abort(self) -> None:
-        self._barrier.abort()
+        with self._cond:
+            self._aborted = True
+            self._cond.notify_all()
 
 
 class _MemberHandle:
-    """One member's side of a :class:`_MemberSync` (``OpContext.sync``):
-    ``allreduce`` sums a tensor over the members in member order on this
-    member's device, differentiably (the sum's gradient reaches every
-    member's input); ``host_sum`` sums a host number."""
+    """One member's side of a :class:`_MemberSync`.  ``at(name)`` gives
+    the handle an op of that node sees as ``OpContext.sync``
+    (:class:`_NodeSync`); the handle numbers each member's calls along
+    each axis and keeps what every call exchanged, by node and call, for
+    a recompute's replay.  ``row_reductions`` names the nodes whose op
+    reduces over the rows of the batch (their result is the global
+    batch's, through the meeting)."""
 
-    def __init__(self, sync: _MemberSync, i: int):
-        self._sync, self._i, self._calls = sync, i, 0
+    def __init__(self, sync: _MemberSync, i: int, row_reductions=()):
+        self.sync, self.i = sync, i
+        self.row_reductions = frozenset(row_reductions)
+        self._calls: Dict[str, int] = {}
+        self._seen: Dict[Tuple[str, int], list] = {}
 
-    def _meet(self, value) -> list:
-        k, self._calls = self._calls, self._calls + 1
-        return self._sync.exchange(self._i, k, value)
+    def at(self, name: str) -> "_NodeSync":
+        return _NodeSync(self, name)
 
-    def allreduce(self, t: torch.Tensor) -> torch.Tensor:
-        parts = self._meet(t)
+    def size(self, axis: str) -> int:
+        return len(self.sync.group_of[axis][self.i])
+
+    def rank(self, axis: str) -> int:
+        return self.sync.group_of[axis][self.i].index(self.i)
+
+    def meet(self, key: Tuple[str, int], axis: str, value) -> list:
+        """Every group member's ``value`` of this call, in group order.
+        After the forward, the values the call met with in the forward,
+        this member's own replaced by ``value`` (a recompute's)."""
+        if self.sync.closed:
+            if key not in self._seen:
+                raise MXNetError(
+                    f"node {key[0]!r} asked the mesh members for a value "
+                    "after the forward that it did not ask for in the "
+                    "forward")
+            parts = list(self._seen[key])
+            parts[self.rank(axis)] = value
+            return parts
+        k = self._calls.get(axis, 0)
+        self._calls[axis] = k + 1
+        parts = self.sync.exchange(self.i, axis, k, value)
+        self._seen[key] = parts
+        if self.rank(axis) == 0 and isinstance(value, torch.Tensor):
+            collectives.record_axis_call("meet", axis, value, len(parts))
+        return parts
+
+
+class _NodeSync:
+    """``OpContext.sync`` of one op call on a mesh member: the member's
+    meetings, keyed by node and call number.  ``axis`` defaults to the
+    data axis (the batch statistics); tensor parallelism meets along the
+    model axis.
+
+    * ``allreduce``: the sum in group order, differentiable into every
+      member's input (every member's output depends on every input);
+    * ``host_sum``: the sum of a host number;
+    * ``psum_local``: the sum whose gradient reaches only this member's
+      input (a row-parallel product's partial sums, whose consumers are
+      the same on every member);
+    * ``span``: this member's value, whose gradient collects the
+      gradients of every member's copy (the input of a column-parallel
+      product: identity forward, sum in the backward);
+    * ``gather``: the members' pieces end to end, this member's piece
+      differentiable and the others' not;
+    * ``parts``: the group's tensors (for an op that combines them)."""
+
+    __slots__ = ("handle", "name", "calls")
+
+    def __init__(self, handle: _MemberHandle, name: str):
+        self.handle, self.name, self.calls = handle, name, 0
+
+    @property
+    def reduces_rows(self) -> bool:
+        return self.name in self.handle.row_reductions
+
+    def size(self, axis: str = DATA_AXIS) -> int:
+        return self.handle.size(axis)
+
+    def rank(self, axis: str = DATA_AXIS) -> int:
+        return self.handle.rank(axis)
+
+    def parts(self, value, axis: str = DATA_AXIS) -> list:
+        key, self.calls = (self.name, self.calls), self.calls + 1
+        return self.handle.meet(key, axis, value)
+
+    def allreduce(self, t: torch.Tensor, axis: str = DATA_AXIS):
+        parts = self.parts(t, axis)
         acc = parts[0].to(t.device)
         for p in parts[1:]:
             acc = acc + p.to(t.device)
         return acc
 
-    def host_sum(self, x):
-        return sum(self._meet(x))
+    def host_sum(self, x, axis: str = DATA_AXIS):
+        return sum(self.parts(x, axis))
+
+    def psum_local(self, t: torch.Tensor, axis: str):
+        parts = self.parts(t, axis)
+        me = self.rank(axis)
+        acc = None
+        for j, p in enumerate(parts):
+            p = t if j == me else p.detach().to(t.device)
+            acc = p if acc is None else acc + p
+        return acc
+
+    def span(self, t: torch.Tensor, axis: str):
+        parts = self.parts(t, axis)
+        me = self.rank(axis)
+        out = t
+        for j, p in enumerate(parts):
+            if j != me:
+                p = p.to(t.device)
+                out = out + (p - p.detach())
+        return out
+
+    def gather(self, t: torch.Tensor, dim: int, axis: str):
+        parts = self.parts(t, axis)
+        me = self.rank(axis)
+        return torch.cat([t if j == me else p.detach().to(t.device)
+                          for j, p in enumerate(parts)], dim)
 
 
-def _run_synced(forward, devices) -> list:
+def _run_synced(forward, devices, groups, row_reductions=()) -> list:
     """``forward(i, handle)`` for every member in its own thread (on its
-    CUDA device), the members meeting at each cross-row statistic; the
+    CUDA device), the members meeting along the axes of ``groups``; the
     first failure aborts the others and is raised."""
-    sync = _MemberSync(len(devices))
+    sync = _MemberSync(groups)
     outs: list = [None] * len(devices)
     errors: list = []
 
@@ -2236,7 +2665,7 @@ def _run_synced(forward, devices) -> list:
         try:
             with (torch.cuda.device(dev) if dev.type == "cuda"
                   else contextlib.nullcontext()):
-                outs[i] = forward(i, _MemberHandle(sync, i))
+                outs[i] = forward(i, _MemberHandle(sync, i, row_reductions))
         except BaseException as exc:
             errors.append(exc)
             sync.abort()
@@ -2255,6 +2684,20 @@ def _run_synced(forward, devices) -> list:
                      errors[0])
         raise first
     return outs
+
+
+def _tree_add(a, b):
+    """``a + b`` over a gradient or a list of pieces."""
+    if isinstance(a, torch.Tensor):
+        return a + b
+    return [x + y for x, y in zip(a, b)]
+
+
+def _tree_scale(g, mult):
+    """``g * mult`` over a gradient or a list of pieces."""
+    if isinstance(g, torch.Tensor):
+        return g * mult
+    return [p * mult.to(p.device) for p in g]
 
 
 def _clone_tree(t):

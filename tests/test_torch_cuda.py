@@ -49,7 +49,10 @@ over two members on the card (exact; the compressed sums and residuals
 bitwise the CPU's); the last three ops on the card against the CPU
 (``Proposal`` with no synchronizing call, ``ROIPooling`` and its tied
 gradient, ``WarpCTC``), and an artifact exported on the CPU served on
-the card.
+the card; tensor and model parallelism: ``group2ctx`` across the host
+and the card against one card, the split plan of ``megatron_rules()`` at
+a model axis of 1 bitwise the trainer without rules, and (with two
+cards) the split plan and the implicit mode's ``sum`` over two cards.
 """
 import numpy as np
 import pytest
@@ -1639,3 +1642,160 @@ def test_export_traced_on_cpu_serves_on_card(cuda, tmp_path):
                               {"data": (4, 7)}, ctx=gpu(0)).predict(data=x)
     np.testing.assert_allclose(exp.predict(data=x)[0], ref[0], rtol=0,
                                atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# Tensor and model parallelism on the card (chip_smoke.py phase 20)
+# ---------------------------------------------------------------------------
+
+def _group_mlp(mx):
+    S = mx.symbol
+    with mx.name.NameManager():
+        with mx.AttrScope(ctx_group="host"):
+            net = S.FullyConnected(data=S.Variable("data"), num_hidden=64,
+                                   name="fc1")
+            net = S.Activation(data=net, act_type="relu", name="relu1")
+        with mx.AttrScope(ctx_group="card"):
+            net = S.FullyConnected(data=net, num_hidden=10, name="fc2")
+            return S.SoftmaxOutput(data=net, name="softmax")
+
+
+@pytest.mark.cuda
+def test_group2ctx_host_and_card_match_one_card(cuda):
+    """``group2ctx`` across the host and the card: fc1's weight and
+    gradient on the host, fc2's on the card, one crossing each way, and
+    outputs and gradients equal to the executor wholly on the card within
+    ``chip_smoke.TOL["float32"]`` (one product runs on the host)."""
+    import mxnet_tpu_torch as mx
+    sym = _group_mlp(mx)
+    rng = np.random.RandomState(20)
+    args = {"fc1_weight": rng.randn(64, 32), "fc1_bias": rng.randn(64),
+            "fc2_weight": rng.randn(10, 64), "fc2_bias": rng.randn(10)}
+    x = rng.randn(16, 32).astype(np.float32)
+    y = rng.randint(0, 10, 16).astype(np.float32)
+    res = []
+    for g2c in ({"host": mx.cpu(0), "card": mx.gpu(0)}, None):
+        ex = sym.simple_bind(ctx=mx.gpu(0), group2ctx=g2c, data=(16, 32),
+                             softmax_label=(16,))
+        ex.copy_params_from({k: v.astype(np.float32)
+                             for k, v in args.items()})
+        c0 = tnn.cross_device_copy.crossings
+        g0 = tnn.cross_device_copy.grad_crossings
+        ex.forward(is_train=True, data=x, softmax_label=y)
+        ex.backward()
+        if g2c is not None:
+            assert ex.arg_dict["fc1_weight"].data.device.type == "cpu"
+            assert ex.grad_dict["fc1_weight"].data.device.type == "cpu"
+            assert ex.arg_dict["fc2_weight"].data.device.type == "cuda"
+            assert tnn.cross_device_copy.crossings - c0 == 1
+            assert tnn.cross_device_copy.grad_crossings - g0 == 1
+        res.append((ex.outputs[0].asnumpy(),
+                    {k: ex.grad_dict[k].asnumpy() for k in args}))
+    tol = chip_smoke.TOL["float32"]
+    np.testing.assert_allclose(res[0][0], res[1][0], rtol=tol, atol=tol)
+    for k in args:
+        np.testing.assert_allclose(res[0][1][k], res[1][1][k], rtol=tol,
+                                   atol=tol, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_split_plan_at_tp1_bitwise_plain_trainer_on_card(cuda):
+    """A small LM (vocab 256, 2 layers, d 128, 2 heads, seq 1024: the
+    flash path, K3/K4 in the hopper form) over a ``{"data": 1, "model":
+    1}`` mesh with ``megatron_rules()``: the split plan, and 2 bf16 Adam
+    steps bitwise the trainer without rules (deterministic
+    algorithms)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import (ShardedTrainer, make_mesh,
+                                          megatron_rules)
+    b, l = 2, 1024
+    sym = models.get_symbol("transformer-lm", vocab_size=256, num_layers=2,
+                            d_model=128, heads=2, batch_size=b, seq_len=l,
+                            loss_head=True)
+    arg_shapes, _, _ = sym.infer_shape(data=(b, l), softmax_label=(b, l))
+    rng = np.random.RandomState(2)
+    args = {n: rng.uniform(-0.07, 0.07, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    trainers = []
+    for rules in (megatron_rules(), None):
+        kw = ({"mesh": make_mesh({"data": 1, "model": 1}, [mx.gpu(0)])}
+              if rules is not None else {"device": "cuda:0"})
+        tr = ShardedTrainer(sym, "adam", {"learning_rate": 1e-3},
+                            compute_dtype="bfloat16", fused_update=False,
+                            rules=rules, **kw)
+        tr.bind({"data": (b, l)}, {"softmax_label": (b, l)},
+                arg_params=args)
+        trainers.append(tr)
+    assert trainers[0]._tp_plan.plan == "split"
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for step in range(2):
+            toks = rng.randint(0, 256, (b, l + 1))
+            batch = {"data": toks[:, :-1].astype(np.float32),
+                     "softmax_label": toks[:, 1:].astype(np.float32)}
+            h0 = tfa.flash_fwd.launches_by_form["hopper"]
+            ha = trainers[0].step(batch)[0]
+            torch.cuda.synchronize()
+            assert tfa.flash_fwd.launches_by_form["hopper"] - h0 == 2
+            hb = trainers[1].step(batch)[0]
+            assert torch.equal(ha.view(torch.int32), hb.view(torch.int32))
+    finally:
+        torch.use_deterministic_algorithms(det)
+    pa, pb = trainers[0].get_params()[0], trainers[1].get_params()[0]
+    for n in pb:
+        np.testing.assert_array_equal(pa[n].asnumpy().view(np.int32),
+                                      pb[n].asnumpy().view(np.int32), n)
+
+
+@pytest.mark.cuda
+def test_tp_and_implicit_sum_over_two_cards(cuda):
+    """Where two cards exist: the split plan over ``{"data": 1, "model":
+    2}`` against one card (heads within 2e-2: bf16 partial sums in
+    another order), and ``MakeLoss(sum(...))`` over
+    ``data_parallel_mesh(2)`` against one card (rtol 1e-4, atol 1e-5)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import (ShardedTrainer, data_parallel_mesh,
+                                          make_mesh, megatron_rules)
+    b, l = 2, 1024
+    sym = models.get_symbol("transformer-lm", vocab_size=256, num_layers=2,
+                            d_model=128, heads=4, batch_size=b, seq_len=l,
+                            loss_head=True)
+    arg_shapes, _, _ = sym.infer_shape(data=(b, l), softmax_label=(b, l))
+    rng = np.random.RandomState(3)
+    args = {n: rng.uniform(-0.07, 0.07, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    toks = rng.randint(0, 256, (b, l + 1))
+    batch = {"data": toks[:, :-1].astype(np.float32),
+             "softmax_label": toks[:, 1:].astype(np.float32)}
+    heads = []
+    for mesh, rules in ((make_mesh({"data": 1}, [mx.gpu(0)]), None),
+                        (make_mesh({"data": 1, "model": 2},
+                                   [mx.gpu(0), mx.gpu(1)]), megatron_rules())):
+        tr = ShardedTrainer(sym, "sgd", {"learning_rate": 0.1},
+                            compute_dtype="bfloat16", mesh=mesh, rules=rules)
+        tr.bind({"data": (b, l)}, {"softmax_label": (b, l)},
+                arg_params=args)
+        heads.append(tr.step(batch)[0].float().cpu())
+    assert tr._tp_plan.plan == "split"
+    np.testing.assert_allclose(heads[1].numpy(), heads[0].numpy(),
+                               atol=2e-2)
+    sym = chip_smoke.p20_sum_net(mx)
+    x = rng.randn(64, 512).astype(np.float32)
+    out = []
+    for n in (1, 2):
+        tr = ShardedTrainer(sym, "sgd", {"learning_rate": 1e-3},
+                            mesh=data_parallel_mesh(n))
+        tr.bind({"data": (64, 512)})
+        out.append((tr.step({"data": x})[0].cpu().numpy(),
+                    {k: v.asnumpy() for k, v in tr.get_params()[0].items()}))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-4, atol=1e-5)
+    for k in out[0][1]:
+        np.testing.assert_allclose(out[1][1][k], out[0][1][k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)

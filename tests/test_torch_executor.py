@@ -311,9 +311,14 @@ def test_unported_executor_parts_raise():
     assert [i["kind"] for i in infos][:2] == ["fwd_False", "fwd_True"]
     assert {i["source"] for i in infos} == {"eager"}
     assert ex.program_cache_size() == 3
-    # model-parallel placement stays with the multi-GPU slice
-    with pytest.raises(MXNetError, match="not ported"):
-        net.simple_bind(mxt.cpu(), data=(4, 6), group2ctx={"a": mxt.cpu()})
+    # model-parallel placement is ported: a group absent from the graph
+    # leaves every array on the executor's context
+    # (tests/test_torch_model_parallel.py holds placements to JAX's)
+    ex2 = net.simple_bind(mxt.cpu(), data=(4, 6), group2ctx={"a": mxt.cpu(1)})
+    assert {a.context for a in ex2.arg_dict.values()} == {mxt.cpu()}
+    ex2.forward(is_train=True, data=np.ones((4, 6), np.float32))
+    ex2.backward()
+    assert ex2.outputs[0].context == mxt.cpu()
 
 
 @pytest.mark.parametrize("kind,kw", [

@@ -17,7 +17,9 @@ writer and manager, predictor, online.loop, quant's fp8 product), the
 data-parallel modules (kvstore, parallel.mesh and parallel.collectives),
 the input records, the last three ops and the deployment predictor
 (recordio, image_io, ops.ctc, ops.detection_ops, predictor's Predictor
-and export) and ``chip_smoke``; a source scan checks every file of the
+and export), tensor and model parallelism (parallel.tensor_parallel,
+ShardingRules, megatron_rules, the axis collectives, the executor's
+cross-device copy) and ``chip_smoke``; a source scan checks every file of the
 port and the script for such imports.
 """
 import os
@@ -82,6 +84,14 @@ from mxnet_tpu_torch.parallel import (Mesh, NamedSharding, PartitionSpec,
 from mxnet_tpu_torch.parallel.collectives import (count_collectives,
                                                   psum_compressed)
 assert mxnet_tpu_torch.kvstore is kvstore
+import mxnet_tpu_torch.parallel.tensor_parallel
+from mxnet_tpu_torch.parallel import (ShardingRules, megatron_rules,
+                                      tensor_parallel)
+from mxnet_tpu_torch.parallel.collectives import (all_gather, over_axis,
+                                                  reduce_scatter)
+from mxnet_tpu_torch.parallel.mesh import axis_groups
+from mxnet_tpu_torch.ops.nn_ops import cross_device_copy
+from mxnet_tpu_torch import AttrScope
 from mxnet_tpu_torch import image_io, recordio
 from mxnet_tpu_torch.ops import ctc, detection_ops
 from mxnet_tpu_torch.predictor import (ExportedPredictor, Predictor, create,

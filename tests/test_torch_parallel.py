@@ -18,8 +18,8 @@ Tolerances, as stated in each test:
   moving statistics rtol 1e-4, atol 1e-6 (f32 summation order differs
   between XLA and ATen, carried through a few updates).
 
-The tensor-parallel test of ``tests/test_parallel.py`` belongs to model
-parallelism, which the port does not carry yet: ``rules=`` still raises.
+The tensor-parallel test of ``tests/test_parallel.py`` is in
+``tests/test_torch_tensor_parallel.py``.
 """
 import logging
 
@@ -402,12 +402,18 @@ def _combining_net(S, case):
     """A small net whose op ``case`` combines or moves rows of the
     batch."""
     x = S.FullyConnected(data=S.Variable("data"), name="fc1", num_hidden=8)
-    if case == "max":
-        return S.MakeLoss(data=S.max(x), name="loss")
-    if case == "norm":
-        return S.MakeLoss(data=S.norm(x), name="loss")
-    if case == "sum_axis":
-        return S.MakeLoss(data=S.sum_axis(x, axis=0), name="loss")
+    if case in ("sum", "max", "min", "norm"):
+        return S.MakeLoss(data=getattr(S, case)(x), name="loss")
+    if case in ("sum_axis", "max_axis", "min_axis"):
+        return S.MakeLoss(data=getattr(S, case)(x, axis=0), name="loss")
+    if case == "softmax_cross_entropy":
+        return S.MakeLoss(data=S.softmax_cross_entropy(
+            x, S.Variable("label")), name="loss")
+    if case == "scaled":
+        # rows divided by the global batch's max: a row-split head over
+        # a global reduction
+        x = S.Activation(data=x, act_type="sigmoid")
+        return S.MakeLoss(data=S.broadcast_div(x, S.max(x)), name="loss")
     if case == "transpose":
         x = S.transpose(x)
     elif case == "reshape":
@@ -419,15 +425,16 @@ def _combining_net(S, case):
     return S.MakeLoss(data=x, name="loss")
 
 
-@pytest.mark.parametrize("case", ["max", "norm", "sum_axis", "transpose",
-                                  "reshape", "concat", "slice_axis"])
+@pytest.mark.parametrize("case", ["transpose", "reshape", "concat",
+                                  "slice_axis"])
 def test_implicit_refuses_ops_that_combine_rows(case):
-    """An op that combines or moves rows of the batch (a whole-array or
-    axis-0 reduction, a transpose or reshape of the rows, a concat or
-    slice along them) has no member-by-member form: the implicit mode
-    refuses it over several members (the JAX trainer computes it over
-    the global batch), binds it over one, and the explicit mode, whose
-    shards are local in the JAX package too, binds it over two."""
+    """An op that moves rows of the batch (a transpose or reshape of the
+    rows, a concat or slice along them) has no member-by-member form: the
+    implicit mode refuses it over several members (the JAX trainer
+    computes it over the global batch), binds it over one, and the
+    explicit mode, whose shards are local in the JAX package too, binds
+    it over two.  Reductions over the rows are computed:
+    :func:`test_implicit_reductions_match_jax`."""
     with mxt.name.NameManager():
         sym = _combining_net(mxt.sym, case)
     shapes = {"data": (8, 6)}
@@ -438,6 +445,52 @@ def test_implicit_refuses_ops_that_combine_rows(case):
     ShardedTrainer(sym, "sgd", mesh=tmesh(1)).bind(shapes)
     ShardedTrainer(sym, "sgd", mesh=tmesh(2),
                    grad_compression="int8").bind(shapes)
+
+
+REDUCTIONS = ["sum", "max", "min", "norm", "softmax_cross_entropy",
+              "sum_axis", "max_axis", "min_axis", "scaled"]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("case", REDUCTIONS)
+def test_implicit_reductions_match_jax(case, n):
+    """A reduction over the rows of the batch (whole-array, or over axis
+    0) in the implicit mode over n members against the JAX trainer over
+    n virtual devices: sums from partial sums, a norm from summed
+    squares, a max or min from the members' extremes with the gradient
+    split over the global batch's tied winners (the batch's first rows
+    repeat its last, so the maxima tie across members), and a head of
+    rows scaled by the global max.  Three SGD steps: heads rtol 1e-5 /
+    atol 1e-5, parameters rtol 1e-4 / atol 1e-6."""
+    with mx.name.NameManager(), mxt.name.NameManager():
+        jsym, tsym = _combining_net(mx.sym, case), _combining_net(mxt.sym,
+                                                                  case)
+    shapes = {"data": (8, 6)}
+    labels = ({"label": (8,)} if case == "softmax_cross_entropy" else None)
+    arg_shapes, _, _ = tsym.infer_shape(**shapes, **(labels or {}))
+    rs = np.random.RandomState(1)
+    args = {k: (0.3 * rs.randn(*s)).astype(np.float32)
+            for k, s in zip(tsym.list_arguments(), arg_shapes)
+            if k not in ("data", "label")}
+    opt = {"learning_rate": 0.05, "momentum": 0.9}
+    jt = JaxTrainer(jsym, optimizer="sgd", optimizer_params=dict(opt),
+                    mesh=jmesh(n))
+    jt.bind(shapes, labels,
+            arg_params={k: jnp.asarray(v) for k, v in args.items()})
+    tt = ShardedTrainer(tsym, "sgd", dict(opt), mesh=tmesh(n))
+    tt.bind(shapes, labels, arg_params=args)
+    for step in range(3):
+        x = rs.randn(8, 6).astype(np.float32)
+        x[:2] = x[-2:]
+        batch = {"data": x}
+        if labels:
+            batch["label"] = rs.randint(0, 8, 8).astype(np.float32)
+        jh = np.asarray(jt.step(batch)[0])
+        th = tt.step(batch)[0].numpy()
+        assert th.shape == jh.shape
+        np.testing.assert_allclose(th, jh, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"step {step}")
+    _assert_pair(jt, tt, case)
 
 
 def test_fit_over_mesh_matches_jax(caplog):
@@ -508,13 +561,12 @@ def test_mesh_fingerprint_matches_jax(n):
 
 def test_unported_parts_still_raise():
     sym = _build(mxt.sym)
+    # tensor parallelism is ported (tests/test_torch_tensor_parallel.py);
+    # a sequence axis still raises
     with pytest.raises(MXNetError, match="not ported"):
-        ShardedTrainer(sym, mesh=tmesh(2), rules=object())
-    with pytest.raises(MXNetError, match="not ported"):
-        ShardedTrainer(sym, mesh=make_mesh({"data": 2, "model": 2},
-                                           cpus(4)))
-    for name in ("ShardingRules", "megatron_rules", "ElasticTrainer",
-                 "moe_ffn", "pipeline_apply", "SpmdPipelineTrainer"):
+        ShardedTrainer(sym, mesh=make_mesh({"data": 2, "seq": 2}, cpus(4)))
+    for name in ("ElasticTrainer", "moe_ffn", "pipeline_apply",
+                 "SpmdPipelineTrainer"):
         with pytest.raises(MXNetError, match="not ported"):
             getattr(tpar, name)()
     with pytest.raises(MXNetError, match="not ported"):
@@ -584,25 +636,42 @@ def test_compile_over_several_members_runs_eagerly():
 
 def test_recompute_scope_with_a_batch_statistic_refuses_over_members():
     """The implicit mode's members meet at a cross-row statistic in the
-    forward only: a recompute scope holding a BatchNorm, replayed in the
-    backward on one thread, raises (not a hang) over several members,
-    and trains over one."""
+    forward; a recompute scope holding a BatchNorm (and a normalized
+    loss), replayed in the backward on one thread, reuses the global
+    statistics its forward met with instead of meeting again: over 2 and
+    4 members its steps equal the same steps without the scope, bit for
+    bit (heads, parameters, moving statistics), and the one-member
+    trainer's within the dp tolerance (rtol 2e-5, atol 2e-6)."""
     from mxnet_tpu_torch.attribute import AttrScope
     S = mxt.sym
-    with mxt.name.NameManager():
-        net = S.Variable("data")
-        with AttrScope(remat_scope="block0"):
-            net = S.FullyConnected(data=net, num_hidden=16, name="fc1")
-            net = S.BatchNorm(data=net, name="bn1", fix_gamma=False)
-            net = S.Activation(data=net, act_type="relu")
-        net = S.FullyConnected(data=net, num_hidden=4, name="fc2")
-        sym = S.SoftmaxOutput(data=net, name="softmax")
+
+    def build(remat):
+        with mxt.name.NameManager():
+            net = S.Variable("data")
+            with AttrScope(remat_scope="block0") if remat \
+                    else AttrScope():
+                net = S.FullyConnected(data=net, num_hidden=16, name="fc1")
+                net = S.BatchNorm(data=net, name="bn1", fix_gamma=False)
+                net = S.Activation(data=net, act_type="relu")
+            net = S.FullyConnected(data=net, num_hidden=4, name="fc2")
+            return S.SoftmaxOutput(data=net, name="softmax",
+                                   normalization="batch")
+
     x, y = _toy_batch(8, seed=3)
-    for n, raises in ((2, True), (1, False)):
-        tr = _port_trainer(sym, n, batch=8)
-        if raises:
-            with pytest.raises(MXNetError, match="recompute scope"):
-                tr.step({"data": x, "softmax_label": y})
-        else:
-            heads = tr.step({"data": x, "softmax_label": y})[0]
-            assert torch.isfinite(heads).all()
+    runs = {}
+    for n in (1, 2, 4):
+        for remat in (True, False):
+            tr = _port_trainer(build(remat), n, batch=8)
+            heads = [tr.step({"data": x, "softmax_label": y})[0]
+                     for _ in range(2)]
+            runs[n, remat] = (heads, tr.get_params())
+    for n in (2, 4):
+        (ha, (pa, aa)), (hb, (pb, ab)) = runs[n, True], runs[n, False]
+        assert all(torch.equal(a, b) for a, b in zip(ha, hb))
+        for k in pa:
+            np.testing.assert_array_equal(pa[k].asnumpy(), pb[k].asnumpy())
+        for k in aa:
+            np.testing.assert_array_equal(aa[k].asnumpy(), ab[k].asnumpy())
+        for k, v in runs[1, True][1][0].items():
+            np.testing.assert_allclose(pa[k].asnumpy(), v.asnumpy(),
+                                       rtol=SELF_RTOL, atol=SELF_ATOL)

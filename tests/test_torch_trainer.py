@@ -237,9 +237,10 @@ def test_set_params_writes_through_to_the_fused_buffer():
 
 def test_unported_options_and_device_resolution():
     s = _build(NETS["resnet_cifar_n1"][1])
-    # tensor parallelism's option still raises; the data-parallel
-    # options are ported, and a mesh must be a mesh
-    with pytest.raises(MXNetError, match="not ported"):
+    # rules must be ShardingRules (tensor parallelism is ported:
+    # tests/test_torch_tensor_parallel.py); the data-parallel options are
+    # ported, and a mesh must be a mesh
+    with pytest.raises(MXNetError, match="ShardingRules"):
         ShardedTrainer(s, device="cpu", rules=object())
     with pytest.raises(MXNetError, match="Mesh"):
         ShardedTrainer(s, mesh=object())

@@ -10,8 +10,8 @@ JAX test's ``atol=0``: elementwise optimizers give the same bits on a
 slice); the port against the JAX trainer, parameters rtol 1e-4, atol
 1e-6 (f32 summation order of the gradients); the checkpoint's state
 arrays have the JAX trainer's names and global shapes.  The test that
-composes ZeRO with Megatron tensor parallelism belongs to model
-parallelism, not ported yet.
+composes ZeRO with Megatron tensor parallelism is in
+``tests/test_torch_tensor_parallel.py``.
 """
 import numpy as np
 import pytest

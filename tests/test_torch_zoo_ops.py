@@ -31,7 +31,7 @@ from mxnet_tpu_torch.ops import registry as treg
 
 RTOL, ATOL = 1e-5, 1e-6
 GRAD_TOL = 1e-5          # of each gradient's largest magnitude
-DEFERRED = {"_CrossDeviceCopy"}
+DEFERRED = set()
 
 
 @pytest.fixture(autouse=True)

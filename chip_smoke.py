@@ -357,6 +357,29 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     first heads and update, and ``MakeLoss(sum(...))`` over
     ``data_parallel_mesh(2)`` against one card; with one card it prints
     that (c) did not run and why; no kernel is built;
+21. runs mixture of experts and ring attention (after phase 20, before
+    15): (a) ``MoEFFN`` (8 experts of hidden 2048, top-2 at capacity
+    factor 1.5, the aux head) over ``[2, 2048, 512]`` (4096 tokens at
+    the LM's width) with a ``LinearRegressionOutput`` head, 3 SGD steps
+    in f32 (TF32 off) through ``ShardedTrainer`` on the card and on the
+    host from the same weights and batches: every token's experts equal
+    (a flip prints its margin), heads within 1e-4 of their largest
+    magnitude, each parameter's update within 5e-2 of its largest
+    magnitude and at most 1 % of its elements beyond 1e-4 of it (a
+    pre-activation at ReLU's kink may fall on the other side); then
+    top-1 (Switch); prints ms a step and
+    the peak memory; (b) ``ring_self_attention`` over a ``{"seq": 1}``
+    mesh of the card at the LM's attention shape (B 8, H 8, L 2048, d
+    64, bf16), causal and not: the forward bitwise the same K3 call of
+    ``flash_attention_stats`` (one ring step merges with an empty
+    carry), held against ``flash_attention`` (prints whether bitwise),
+    gradients within 1e-2 of their largest magnitude of
+    ``flash_attention``'s, K3 and K4 one launch a call each in the
+    hopper form (K4 with the ring's ``delta``), no dense attention;
+    prints forward-and-backward ms beside ``flash_attention``'s; (c)
+    where two cards exist, phase 9's LM trainer over ``{"seq": 2}`` and
+    (a)'s MoE over ``{"expert": 2}`` against one card; with one card it
+    prints that (c) did not run and why; no kernel is built;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -373,6 +396,7 @@ two card lines.  (``--serve-only ROOT`` is one such turn.)
 with every call into the telemetry plane timed, and prints the host
 seconds inside those calls against the seconds inside ``Engine.step``.
 """
+import importlib
 import json
 import os
 import subprocess
@@ -3098,7 +3122,8 @@ def lm_batch(np, seed=0):
 def phase_train_lm(torch, np, fa, fu):
     from mxnet_tpu_torch import models
     from mxnet_tpu_torch.parallel import ShardedTrainer
-    from mxnet_tpu_torch.parallel import ring_attention as ra
+    # parallel.ring_attention is the function; the module is imported
+    ra = importlib.import_module("mxnet_tpu_torch.parallel.ring_attention")
 
     t0 = time.perf_counter()
     sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
@@ -8145,6 +8170,408 @@ def phase_tensor_model_parallel(torch, np, mx, fa, nn_ops, _build):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: mixture of experts and ring attention
+# ---------------------------------------------------------------------------
+
+# (a) MoEFFN at the LM's width: 8 experts of hidden 2048, top-2 at
+# capacity factor 1.5 with the aux head, over [2, 2048, 512] (4096
+# tokens); then top-1 (Switch).  SGD in f32 with TF32 off, on the card
+# and on the host from the same weights and batches.
+P21_MOE = dict(num_experts=8, hidden_size=2048, capacity_factor=1.5,
+               aux_loss=True)
+P21_TOKENS = (2, 2048, D_MODEL)
+P21_STEPS = 3
+# a rate at which 3 steps move the router by ~8 % and the biases from 0
+# to ~1e-3 (LinearRegressionOutput's gradient is small at this width)
+P21_OPT = {"learning_rate": 1.0}
+# against the host's: heads as a share of their largest magnitude (f32
+# products summed in another order by cuBLAS than by the host's BLAS);
+# each parameter's 3-step update as a share of the update's largest
+# magnitude.  ~25 of the 25 M expert pre-activations lie within 1e-6 of
+# ReLU's kink; one that falls on the other side on the card moves its
+# slot's whole term of the gradient, for expert1's weight a column of
+# 512 (measured on the card: 1.22e-2 of expert1's weight update, 6.6e-4
+# of its bias's, 2.7e-5 of expert2's weight's).  So every update is held
+# within 5e-2, and at most 1 % of each update's elements may lie
+# farther than 1e-4 from the host's
+P21_HEAD_TOL = 1e-4
+P21_UPDATE_TOL = 5e-2
+P21_UPDATE_NEAR = 1e-4
+P21_UPDATE_OFF_SHARE = 1e-2
+# (b) the ring's gradients against flash_attention's: the ring takes
+# delta = rowsum(do * out) in f32 on its own, K4 in flash_attention's
+# backward writes its own (another summation order), and every
+# gradient is rounded to bf16; as a share of each gradient's largest
+# magnitude
+P21_RING_GRAD_TOL = 1e-2
+
+
+def p21_record_routes(moe):
+    """Record the routing decisions of the MoE programs (each call's
+    router probabilities and chosen experts); returns the record and the
+    function that restores the programs."""
+    seen = []
+    topk, top1 = moe._topk, moe._top1
+
+    def rec_topk(probs, k):
+        v, i = topk(probs, k)
+        seen.append((probs.detach().float().cpu(), i.detach().cpu()))
+        return v, i
+
+    def rec_top1(probs):
+        g, i = top1(probs)
+        seen.append((probs.detach().float().cpu(), i.detach().cpu()))
+        return g, i
+
+    moe._topk, moe._top1 = rec_topk, rec_top1
+
+    def restore():
+        moe._topk, moe._top1 = topk, top1
+    return seen, restore
+
+
+def p21_margin(torch, probs, k):
+    """Each token's margin between its k-th and its next probability,
+    and between its chosen ones (the order decides rank-major slots)."""
+    top = torch.sort(probs, dim=-1, descending=True)[0]
+    gaps = top[:, :k] - top[:, 1:k + 1]
+    return gaps.min(dim=-1)[0]
+
+
+def p21_moe_symbol(mx, top_k, cf=None):
+    S = mx.symbol
+    kw = dict(P21_MOE, top_k=top_k)
+    if cf is not None:
+        kw["capacity_factor"] = cf
+    moe = S.MoEFFN(data=S.Variable("data"), name="moe", **kw)
+    return S.Group([S.LinearRegressionOutput(data=moe[0], name="lro"),
+                    moe[1]])
+
+
+def p21_moe_args(np, sym, seed=0):
+    """Uniform(0.07) weights, zero biases; the batches from a seed."""
+    shapes = {"data": P21_TOKENS, "lro_label": P21_TOKENS}
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    rng = np.random.RandomState(seed)
+    args = {n: (rng.uniform(-0.07, 0.07, s) if n.endswith("weight")
+                else np.zeros(s)).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in shapes}
+    batches = [{"data": rng.randn(*P21_TOKENS).astype(np.float32),
+                "lro_label": rng.randn(*P21_TOKENS).astype(np.float32)}
+               for _ in range(P21_STEPS)]
+    return args, batches
+
+
+def p21_moe_run(torch, np, sym, args, batches, mesh=None, device=None):
+    """``P21_STEPS`` SGD steps (the fused update, K2 on the card) over
+    ``mesh`` or on ``device`` alone; returns the heads of each step on
+    the host, the parameters after, the routes each step took and the
+    host-clock ms of each step (synchronized)."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer, moe
+    tr = ShardedTrainer(sym, "sgd", dict(P21_OPT), mesh=mesh, device=device)
+    tr.bind({"data": P21_TOKENS}, {"lro_label": P21_TOKENS},
+            arg_params=args)
+    routes, restore = p21_record_routes(moe)
+    heads, ms = [], []
+    try:
+        for b in batches:
+            placed = tr.place_batch(b)
+            p20_sync(torch)
+            t0 = time.perf_counter()
+            out = tr.step(placed)
+            p20_sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            heads.append([h.detach().float().cpu() for h in out])
+    finally:
+        restore()
+    params = {n: torch.from_numpy(v.asnumpy())
+              for n, v in tr.get_params()[0].items()}
+    return heads, params, routes, ms
+
+
+def p21_compare(torch, a, b, init, label, top_k, routes=True):
+    """Routes token for token (a flip prints its margin; ``routes``
+    False when ``a`` routed each member's block in a thread of its own),
+    heads and each parameter's update from ``init`` within the stated
+    shares of their largest magnitude."""
+    (ha, pa, ra, _), (hb, pb, rb, _) = a, b
+    if not routes:
+        ra = rb = []
+    else:
+        check(len(ra) == len(rb) == P21_STEPS, f"{label}: {len(ra)} and "
+              f"{len(rb)} routing calls in {P21_STEPS} steps")
+    margin = float("inf")
+    for step, ((probs, ia), (_, ib)) in enumerate(zip(ra, rb)):
+        m = p21_margin(torch, probs, top_k)
+        margin = min(margin, float(m.min()))
+        bad = (ia != ib).any(dim=-1)
+        if bool(bad.any()):
+            raise SmokeFailure(
+                f"{label}: step {step + 1}: {int(bad.sum())} tokens routed "
+                f"otherwise than on the host; their margins "
+                f"{m[bad][:8].tolist()} (a near tie flipped)")
+    worst_head = 0.0
+    for sa, sb in zip(ha, hb):
+        for x, y in zip(sa, sb):
+            scale = max(float(y.abs().max()), 1e-30)
+            worst_head = max(worst_head, float((x - y).abs().max()) / scale)
+    updates, off = {}, {}
+    for n in pb:
+        base = torch.from_numpy(init[n])
+        ub = pb[n] - base
+        scale = max(float(ub.abs().max()), 1e-30)
+        diff = ((pa[n] - base) - ub).abs()
+        updates[n] = float(diff.max()) / scale
+        off[n] = float((diff > P21_UPDATE_NEAR * scale).float().mean())
+    check(worst_head <= P21_HEAD_TOL, f"{label}: heads {worst_head} of "
+          f"their largest magnitude from the host's, over {P21_HEAD_TOL}")
+    check(max(updates.values()) <= P21_UPDATE_TOL
+          and max(off.values()) <= P21_UPDATE_OFF_SHARE,
+          f"{label}: parameter updates {updates} of their largest "
+          f"magnitude from the host's (over {P21_UPDATE_TOL}?), shares of "
+          f"elements beyond {P21_UPDATE_NEAR} of it {off} (over "
+          f"{P21_UPDATE_OFF_SHARE}?)")
+    return {"routes_equal": routes or None,
+            "min_margin": margin if routes else None,
+            "head_rel_diff": worst_head, "update_rel_diff": updates,
+            "update_off_share": off}
+
+
+def p21_moe(torch, np, mx, fu, launches):
+    """(a) MoEFFN top-2 then top-1 through ShardedTrainer on the card
+    against the host; adds the card's K2 launches to ``launches``."""
+    out = {}
+    card_ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu(0)
+    for top_k in (2, 1):
+        with mx.name.NameManager():
+            sym = p21_moe_symbol(mx, top_k)
+        args, batches = p21_moe_args(np, sym)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        k2 = fu.fused_update.launches
+        card = p21_moe_run(torch, np, sym, args, batches, device=card_ctx)
+        launches["fused_update"] += fu.fused_update.launches - k2
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if DEVICE == "cuda" else None)
+        host = p21_moe_run(torch, np, sym, args, batches, device="cpu")
+        label = f"(a) top-{top_k}"
+        res = p21_compare(torch, card, host, args, label, top_k)
+        aux = [float(h[1]) for h in card[0]]
+        check(all(np.isfinite(aux)) and all(
+            bool(torch.isfinite(h[0]).all()) for h in card[0]),
+            f"{label}: non-finite heads")
+        res.update({"step_ms": card[3], "host_step_ms": host[3],
+                    "peak_gib": peak, "aux_loss": aux,
+                    "tokens": int(np.prod(P21_TOKENS[:-1]))})
+        log(f"  {label}: " + json.dumps(res))
+        out[f"top{top_k}"] = res
+    return out
+
+
+def p21_ring(torch, np, mx, fa, ra):
+    """(b) ring_self_attention over a ``{"seq": 1}`` mesh of the card at
+    the LM's attention shape, causal and not: the forward bitwise the K3
+    call of ``flash_attention_stats``, held against ``flash_attention``;
+    gradients against ``flash_attention``'s; K3 and K4 one launch a call
+    each in the hopper form, K4 with the ring's ``delta``; no dense
+    attention."""
+    from mxnet_tpu_torch.parallel import make_mesh, ring_self_attention
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu(0)
+    mesh = make_mesh({"seq": 1}, [ctx])
+    B, H, L, D = LM_BATCH, HEADS, LM_SEQ, D_MODEL // HEADS
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    q, k, v, do = (torch.randn(B, H, L, D, device=DEVICE, generator=gen,
+                               dtype=torch.float32).to(torch.bfloat16)
+                   for _ in range(4))
+    out, launches = {}, {"flash_attn_fwd": 0, "flash_attn_bwd": 0}
+    # the ring's backward reaches K4 through flash_attention_block_bwd;
+    # the kernel wrappers count through their module names, so the
+    # record wraps the caller
+    block_bwd = fa.flash_attention_block_bwd
+    for causal in (False, True):
+        deltas = []
+
+        def recording_bwd(*a, **kw):
+            deltas.append(kw.get("delta") is not None)
+            return block_bwd(*a, **kw)
+
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        dense0 = (ra.local_attention.dense_calls,
+                  ra.blockwise_attention.calls)
+        before = p20_kernel_counts(fa)
+        forms0 = (dict(fa.flash_fwd.launches_by_form),
+                  dict(fa.flash_bwd.launches_by_form))
+        fa.flash_attention_block_bwd = recording_bwd
+        try:
+            ring = ring_self_attention(qs, ks, vs, mesh, causal=causal)
+            grads = torch.autograd.grad(ring, (qs, ks, vs), do)
+            p20_sync(torch)
+        finally:
+            fa.flash_attention_block_bwd = block_bwd
+        after = p20_kernel_counts(fa)
+        p20_add(launches, fa, before)
+        fwd_forms = {f: fa.flash_fwd.launches_by_form[f] - forms0[0][f]
+                     for f in forms0[0]}
+        bwd_forms = {f: fa.flash_bwd.launches_by_form[f] - forms0[1][f]
+                     for f in forms0[1]}
+        label = f"(b) {'causal' if causal else 'full'}"
+        n3 = after["flash_attn_fwd"] - before["flash_attn_fwd"]
+        n4 = after["flash_attn_bwd"] - before["flash_attn_bwd"]
+        if DEVICE == "cuda":
+            check(n3 == 1 and n4 == 1, f"{label}: K3 {n3}, K4 {n4} launches "
+                  "(one each)")
+            check(fwd_forms["hopper"] == 1 and bwd_forms["hopper"] == 1,
+                  f"{label}: forms {fwd_forms}, {bwd_forms}: not hopper")
+        check(deltas == [True], f"{label}: K4 calls with an external delta: "
+              f"{deltas}")
+        check((ra.local_attention.dense_calls,
+               ra.blockwise_attention.calls) == dense0,
+              f"{label}: the ring left the flash path")
+        stats_out, _ = fa.flash_attention_stats(q, k, v, causal=causal)
+        check(torch.equal(ring.detach(), stats_out),
+              f"{label}: the ring's forward is not bitwise "
+              "flash_attention_stats's")
+        qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+        flash = fa.flash_attention(qf, kf, vf, causal=causal)
+        fgrads = torch.autograd.grad(flash, (qf, kf, vf), do)
+        worst = max(float((a.float() - b.float()).abs().max())
+                    / max(float(b.float().abs().max()), 1e-30)
+                    for a, b in zip(grads, fgrads))
+        check(worst <= P21_RING_GRAD_TOL, f"{label}: gradients {worst} of "
+              f"their largest magnitude from flash_attention's, over "
+              f"{P21_RING_GRAD_TOL}")
+        res = {"forward_bitwise_stats": True,
+               "forward_bitwise_flash_attention": bool(torch.equal(
+                   ring.detach(), flash.detach())),
+               "max_abs_err_vs_flash_attention": float(
+                   (ring.detach().float() - flash.detach().float()).abs()
+                   .max()),
+               "grad_rel_diff": worst, "k3": n3, "k4": n4,
+               "k4_external_delta": True}
+        if DEVICE == "cuda":
+            def ring_step():
+                o = ring_self_attention(qs, ks, vs, mesh, causal=causal)
+                torch.autograd.grad(o, (qs, ks, vs), do)
+
+            def flash_step():
+                o = fa.flash_attention(qf, kf, vf, causal=causal)
+                torch.autograd.grad(o, (qf, kf, vf), do)
+            # a sleep of ~4 ms ahead of each call: the ring's host work
+            # (a member thread, the merge's PyTorch ops) is enqueued
+            # before the card reaches it, so the events time the device
+            times = turns(torch, {"ring": ring_step, "flash": flash_step},
+                          reps=20, sleep=1 << 23)
+            calls = {n: time_ms(torch, f, reps=20, hide_host=False)
+                     for n, f in (("ring", ring_step),
+                                  ("flash", flash_step))}
+            res.update({"ring_fwd_bwd_ms": times["ring"],
+                        "flash_fwd_bwd_ms": times["flash"],
+                        "ring_per_call_ms": calls["ring"],
+                        "flash_per_call_ms": calls["flash"]})
+        log(f"  {label}: " + json.dumps(res))
+        out["causal" if causal else "full"] = res
+    return out, launches
+
+
+def p21_two_cards(torch, np, mx, fa, launches):
+    """(c) where two cards exist: phase 9's LM trainer over ``{"seq":
+    2}`` against one card (first heads and update), and (a)'s MoE over
+    ``{"expert": 2}`` at a capacity factor that drops nothing (a member
+    routes its own tokens) against one card."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import make_mesh
+    if DEVICE == "cuda" and torch.cuda.device_count() < 2:
+        log(f"  (c) not run: {torch.cuda.device_count()} CUDA device(s); "
+            "sequence and expert parallelism over distinct cards need two")
+        return {"run": False, "devices": torch.cuda.device_count()}
+    ctx = mx.gpu if DEVICE == "cuda" else mx.cpu
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    batch = lm_batch(np, seed=301)
+    one = p20_trainer(torch, np, sym, args, make_mesh({"data": 1}, [ctx(0)]))
+    h1 = one.step(batch)[0].float().cpu()
+    p1 = one.get_params()[0]
+    del one
+    two = p20_trainer(torch, np, sym, args,
+                      make_mesh({"seq": 2}, [ctx(0), ctx(1)]))
+    before = p20_kernel_counts(fa)
+    h2 = two.step(batch)[0].float().cpu()
+    p20_sync(torch)
+    p20_add(launches, fa, before)
+    p2 = two.get_params()[0]
+    del two
+    head_diff = float((h2 - h1).abs().max())
+    step1 = max(float(np.abs(p2[n].asnumpy() - p1[n].asnumpy()).max())
+                for n in p1)
+    check(head_diff <= P20_TP_HEAD_TOL, f"(c) seq heads {head_diff} from "
+          f"one card's, over {P20_TP_HEAD_TOL}")
+    check(step1 <= P20_TP_STEP1_LIMIT, f"(c) seq first update {step1} from "
+          f"one card's, over {P20_TP_STEP1_LIMIT}")
+    out = {"run": True, "seq": {"first_heads_max_diff": head_diff,
+                                "step1_max_param_diff": step1}}
+    # capacity factor E / k: a member's capacity is its token count
+    with mx.name.NameManager():
+        msym = p21_moe_symbol(mx, 2, cf=P21_MOE["num_experts"] / 2)
+    margs, batches = p21_moe_args(np, msym, seed=1)
+    a = p21_moe_run(torch, np, msym, margs, batches,
+                    mesh=make_mesh({"data": 1}, [ctx(0)]))
+    b = p21_moe_run(torch, np, msym, margs, batches,
+                    mesh=make_mesh({"expert": 2}, [ctx(0), ctx(1)]))
+    res = p21_compare(torch, b, a, margs, "(c) expert mesh", 2,
+                      routes=False)
+    out["expert"] = dict(res, step_ms=b[3], one_card_step_ms=a[3])
+    log(f"  (c) two cards: {json.dumps(out)}")
+    return out
+
+
+def phase_moe_ring(torch, np, mx, fa, fu, _build):
+    """Phase 21: (a) MoEFFN through ShardedTrainer on the card against
+    the host, (b) ring attention over a one-member seq mesh of the card
+    (K3/K4 as the ring's steps), (c) the seq and expert meshes over two
+    cards where there are two; builds no kernel.  Returns the K3/K4
+    launches of (b) and (c), K2's of (a), and the phase's numbers."""
+    ra = importlib.import_module("mxnet_tpu_torch.parallel.ring_attention")
+    t_phase = time.perf_counter()
+    built, compile_ = [], _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    _build._compile = counting
+    out = {"card": card_line()}
+    try:
+        t0 = time.perf_counter()
+        k2 = {"fused_update": 0}
+        out["moe"] = p21_moe(torch, np, mx, fu, k2)
+        out["moe"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["ring"], launches = p21_ring(torch, np, mx, fa, ra)
+        launches.update(k2)
+        out["ring"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["two_cards"] = p21_two_cards(torch, np, mx, fa, launches)
+        out["two_cards"]["seconds"] = time.perf_counter() - t0
+    finally:
+        _build._compile = compile_
+    check(not built, f"phase 21 built kernels: {built}")
+    if DEVICE == "cuda":
+        check(launches["flash_attn_fwd"] >= 2
+              and launches["flash_attn_bwd"] >= 2,
+              f"phase 21's ring launched K3/K4 {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log("  mixture of experts and ring attention: " + json.dumps(out))
+    return launches, out
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -8203,14 +8630,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/20] device")
+    log("[1/21] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/20] build")
+    log("[2/21] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -8225,7 +8652,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/20] kernels against their plain versions")
+    log("[3/21] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -8234,22 +8661,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/20] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/21] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/20] serving the round-12 configuration: chunked prefill "
+    log(f"[5/21] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/20] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/21] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/20] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/21] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/20] kernel timing")
+    log("[8/21] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -8266,25 +8693,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/20] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/21] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/20] imperative + executor: NDArray on the card, the MLP "
+    log("[10/21] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/20] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/21] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/20] the serving control plane: crash failover, a hung and a "
+    log("[12/21] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -8292,7 +8719,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/20] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/21] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -8301,7 +8728,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/20] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/21] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -8309,7 +8736,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/20] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/21] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -8317,7 +8744,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/20] programs and the profiler: serve and train steps "
+    log("[17/21] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -8325,7 +8752,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/20] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/21] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -8334,7 +8761,7 @@ def main(argv) -> int:
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[19/20] input records, the deployment predictor and the last ops: "
+    log(f"[19/21] input records, the deployment predictor and the last ops: "
         f"{REC_IMAGES} packed images through ImageRecordIter into "
         f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
         f"served without the port, WarpCTC at the OCR example's sizes, the "
@@ -8343,7 +8770,7 @@ def main(argv) -> int:
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[20/20] tensor and model parallelism: the LM with its embedding "
+    log(f"[20/21] tensor and model parallelism: the LM with its embedding "
         f"on the host through group2ctx, the split rewrite of "
         f"megatron_rules() at a model axis of 1, two cards where there "
         f"are two")
@@ -8351,8 +8778,17 @@ def main(argv) -> int:
                                                   _build)
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 20
-    log("[15/20] result")
+    t0 = time.perf_counter()
+    log(f"[21/21] mixture of experts and ring attention: MoEFFN (8 experts "
+        f"of {P21_MOE['hidden_size']}, top-2 then top-1, aux head) over "
+        f"{P21_TOKENS[0] * P21_TOKENS[1]} tokens at d {D_MODEL} on the card "
+        f"against the host, ring_self_attention over a one-card seq mesh at "
+        f"the LM's attention shape, two cards where there are two")
+    p21_launches, _ = phase_moe_ring(torch, np, mx, fa, fu, _build)
+    log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 21
+    log("[15/21] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -8381,25 +8817,27 @@ def main(argv) -> int:
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
         # (Adam), stepped bare (phases 7, 9) and through fit (phases 13,
-        # 19), the four ImageNet nets (phase 14) and the OCR net (19)
+        # 19), the four ImageNet nets (phase 14), the OCR net (19) and
+        # the MoE trainers (21)
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
          "mxnet_tpu/ops/fused_update.py:216",
          train_launches["fused_update"] + lm_launches["fused_update"]
          + loop_launches["fused_update"] + zoo_launches["fused_update"]
          + long_launches["fused_update"] + p17_launches["fused_update"]
-         + p18_launches["fused_update"] + p19_launches["fused_update"],
+         + p18_launches["fused_update"] + p19_launches["fused_update"]
+         + p21_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
          lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"]
          + long_launches["flash_attn_fwd"] + p17_launches["flash_attn_fwd"]
-         + p20_launches["flash_attn_fwd"],
+         + p20_launches["flash_attn_fwd"] + p21_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
          lm_launches["flash_attn_bwd"] + loop_launches["flash_attn_bwd"]
          + long_launches["flash_attn_bwd"] + p17_launches["flash_attn_bwd"]
-         + p20_launches["flash_attn_bwd"],
+         + p20_launches["flash_attn_bwd"] + p21_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

@@ -1,4 +1,4 @@
-"""Attention operators for the symbol layer, on one device.
+"""Attention and mixture-of-experts operators for the symbol layer.
 
 Counterpart of ``mxnet_tpu/ops/attention_ops.py``.  ``RingAttention``
 computes exact attention: dense below ``AUTO_SWITCH_LEN`` (or with
@@ -10,11 +10,27 @@ read by the kernels in place).  A causal call with an explicit block
 pads a ragged sequence to the next block multiple and slices the output
 back, as the reference does.
 
-The JAX op turns into ring attention over an active mesh's ``seq`` axis;
-the port's ring functions are not ported yet, so the op runs on each
-device's own tensors (a tensor-parallel member's heads included).  ``MoEFFN`` is registered with the reference's arguments,
-parameters and shapes, so symbols that hold it build and serialise; its
-forward raises until the multi-GPU slice.
+Both ops switch on the active mesh (``parallel.default_mesh``; the
+trainer scopes its own around each step), as the JAX ops do:
+
+* ``RingAttention`` under a mesh whose ``seq_axis`` has more than one
+  member runs ring attention (``blhd`` inputs transposed to ``[B, H, L,
+  D]`` around it).  Inside a trainer member's step (``OpContext.sync``)
+  every member of a seq group holds the same rows: it takes its shard
+  of the sequence, runs ``ring_attention`` with the group, and gathers
+  the group's output shards (each differentiable into its owner);
+  outside one, ``ring_self_attention`` runs the mesh's members itself.
+* ``MoEFFN`` flattens its input to ``[-1, d]`` and takes the
+  expert-parallel program (``moe_ffn_ep``) under a mesh whose
+  ``expert_axis`` has more than one member, else Switch for ``top_k <=
+  1``, else top-k; with ``aux_loss`` it returns ``load_balance_loss`` as
+  a second head.  In a member's step the expert group's members hold the
+  same rows: each runs its token block through ``ep_member`` (its own
+  experts: a piece the trainer's rules gave it, or its slice of a whole
+  weight) and gathers the group's outputs.  Where the trainer marks the
+  node as a reduction over the data group's rows (the implicit mode over
+  several data members), the dense programs route that group's global
+  batch and the aux loss averages over it.
 """
 from __future__ import annotations
 
@@ -22,18 +38,55 @@ import logging
 
 import torch.nn.functional as F
 
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from .registry import OpDef, OpParam, register_op
 
 __all__ = []  # ops land in the registry
 
 
+def _active_axis(axis: str):
+    """The active mesh when it has ``axis`` with more than one member."""
+    from ..parallel.mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is not None and axis in mesh.axis_names and mesh.shape[axis] > 1:
+        return mesh
+    return None
+
+
+def _ring_member(sync, q, k, v, axis, causal):
+    """A trainer member's ring attention: its shard of the sequence
+    (``[B, H, L, D]``) through ``ring_attention`` with its seq group, the
+    group's output shards gathered end to end."""
+    from ..parallel.ring_attention import ring_attention
+    n, r = sync.size(axis), sync.rank(axis)
+    length = q.shape[2]
+    if length % n:
+        raise MXNetError(f"RingAttention: sequence length {length} does not "
+                         f"split over the {n} members of axis {axis!r}")
+    sl = slice(r * (length // n), (r + 1) * (length // n))
+    out = ring_attention(q[:, :, sl], k[:, :, sl], v[:, :, sl], axis,
+                         causal=causal, sync=sync)
+    return sync.all_gather(out, 2, axis)
+
+
 def _attention_fwd(ctx, params, q, k, v):
     from ..parallel.flash_attention import (AUTO_SWITCH_LEN, _pick_block,
                                             flash_attention)
-    from ..parallel.ring_attention import local_attention
+    from ..parallel.ring_attention import local_attention, ring_self_attention
     causal = params["causal"]
     blhd = params["layout"] == "blhd"
+    axis = params["seq_axis"]
+    mesh = _active_axis(axis)
+    if mesh is not None:
+        # the ring cuts dim 2: blhd inputs go to [B, H, L, D] around it
+        if blhd:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        if ctx.sync is not None:
+            out = _ring_member(ctx.sync, q, k, v, axis, causal)
+        else:
+            out = ring_self_attention(q, k, v, mesh, seq_axis=axis,
+                                      causal=causal)
+        return out.transpose(1, 2) if blhd else out
     block = params["block_size"]
     if block < 0:
         # -1 forces the dense path
@@ -88,8 +141,55 @@ def _attention_shape(params, in_shapes):
     return [tuple(known)] * 3, [tuple(q or known)], []
 
 
-def _moe_ffn_fwd(ctx, params, *inputs):
-    raise not_ported("MoEFFN (mixture of experts, multi-GPU slice)")
+def _moe_ep_member(sync, x, gate_w, w1, b1, w2, b2, params, axis):
+    """A trainer member's expert-parallel program: token block ``r`` of
+    its rows (``r`` its rank along ``axis``), its own experts, and the
+    group's outputs and router probabilities gathered end to end."""
+    from ..parallel.moe import ep_member
+    ep, r = sync.size(axis), sync.rank(axis)
+    e = params["num_experts"]
+    if e % ep or x.shape[0] % ep:
+        raise MXNetError(f"MoEFFN: {e} experts and {x.shape[0]} tokens must "
+                         f"both split over the {ep} members of axis {axis!r}")
+    n_l = x.shape[0] // ep
+    w = [t if t.shape[0] == e // ep else t.chunk(ep)[r]
+         for t in (w1, b1, w2, b2)]
+    y, probs = ep_member(x[r * n_l:(r + 1) * n_l], gate_w, *w,
+                         max(1, params["top_k"]), params["capacity_factor"],
+                         sync, axis)
+    return sync.all_gather(y, 0, axis), sync.all_gather(probs, 0, axis)
+
+
+def _moe_ffn_fwd(ctx, params, x, gate_w, w1, b1, w2, b2):
+    from ..parallel.mesh import DATA_AXIS
+    from ..parallel.moe import (load_balance_loss, moe_ffn, moe_ffn_ep,
+                                switch_ffn)
+    orig = x.shape
+    x = x.reshape(-1, orig[-1])
+    eax = params["expert_axis"]
+    sync = ctx.sync
+    # the node reduces over the data group's rows: route its global batch
+    glob = (sync if sync is not None and sync.reduces_rows
+            and sync.size(DATA_AXIS) > 1 else None)
+    mesh = _active_axis(eax)
+    cf = params["capacity_factor"]
+    if mesh is not None and sync is not None:
+        y, probs = _moe_ep_member(sync, x, gate_w, w1, b1, w2, b2, params,
+                                  eax)
+    elif mesh is not None:
+        y, probs = moe_ffn_ep(x, gate_w, w1, b1, w2, b2, mesh,
+                              k=max(1, params["top_k"]), capacity_factor=cf,
+                              expert_axis=eax, data_axis=params["data_axis"])
+    elif params["top_k"] <= 1:
+        y, probs = switch_ffn(x, gate_w, w1, b1, w2, b2, capacity_factor=cf,
+                              sync=glob)
+    else:
+        y, probs = moe_ffn(x, gate_w, w1, b1, w2, b2, k=params["top_k"],
+                           capacity_factor=cf, sync=glob)
+    y = y.reshape(orig)
+    if params["aux_loss"]:
+        return y, load_balance_loss(probs, sync=glob)
+    return y
 
 
 def _moe_ffn_shape(params, in_shapes):
@@ -119,10 +219,16 @@ register_op(OpDef(
         "top_k": OpParam("top_k", "int", default=1),
         "expert_axis": OpParam("expert_axis", "str", default="expert"),
         "data_axis": OpParam("data_axis", "str", default="data"),
-        "aux_loss": OpParam("aux_loss", "bool", default=False),
+        "aux_loss": OpParam("aux_loss", "bool", default=False,
+                            doc="emit the Switch load-balance auxiliary "
+                                "loss as a second (scalar) output"),
     },
     infer_shape=_moe_ffn_shape,
-    doc="Top-k mixture-of-experts feed-forward (not ported: raises).",
+    doc="Top-k mixture-of-experts feed-forward (top_k=1: Switch, 2: "
+        "GShard).  When the active default mesh has an ``expert_axis`` "
+        "of size > 1, the explicit-all-to-all expert-parallel program "
+        "(parallel/moe.py:moe_ffn_ep); otherwise dense dispatch/combine "
+        "einsums.",
 ))
 
 

@@ -102,8 +102,8 @@ class OpContext:
     """Per-invocation state handed to op forward functions: the training
     flag, the random source (a ``torch.Generator`` or None), the node's
     current aux states and the aux updates it writes, and ``sync``: None,
-    or the mesh member's handle for this node (``parallel.trainer.
-    _NodeSync``) when one step runs over several members: its
+    or the mesh member's handle for this node (``parallel.members.
+    NodeSync``) when one step runs over several members: its
     ``allreduce``/``host_sum`` give the global batch's statistics over
     the data axis, ``reduces_rows`` says whether the node's reduction is
     over the global batch, and ``parts``/``psum_local``/``span``/

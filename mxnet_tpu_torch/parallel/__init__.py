@@ -5,28 +5,36 @@ Counterpart of ``mxnet_tpu/parallel/__init__.py``, with the same names:
 * :mod:`.mesh` / :mod:`.collectives` -- named meshes of contexts and the
   bucketed, optionally compressed reductions over their members (NCCL
   between distinct cards);
-* :mod:`.trainer` -- :class:`ShardedTrainer`: data and tensor
-  parallelism over a mesh in one process (implicit and compressed modes,
-  error feedback, ZeRO, :class:`ShardingRules` and :func:`megatron_rules`
-  over a ``model`` axis, computed by the plans of
-  :mod:`.tensor_parallel`), the fused update (K2) and flash attention
-  (K3, K4).
+* :mod:`.members` -- where the members of a mesh meet inside a step
+  (one thread a member);
+* :mod:`.ring_attention` -- attention on one shard and ring attention
+  over a ``seq`` axis (kernels K3/K4 as the ring's per-step body);
+* :mod:`.moe` -- the mixture-of-experts programs, dense and expert
+  parallel over an ``expert`` axis;
+* :mod:`.trainer` -- :class:`ShardedTrainer`: data, tensor, sequence and
+  expert parallelism over a mesh in one process (implicit and compressed
+  modes, error feedback, ZeRO, :class:`ShardingRules` and
+  :func:`megatron_rules` over a ``model`` axis, computed by the plans of
+  :mod:`.tensor_parallel`; rules over an ``expert`` axis), the fused
+  update (K2) and flash attention (K3, K4).
 
-The ring functions, MoE, pipelines and the multi-process tier
-(``ElasticTrainer`` and its helpers) are not ported yet: those names
-raise when called (ROADMAP.md).
+Pipelines and the multi-process tier (``ElasticTrainer`` and its
+helpers) are not ported yet: those names raise when called
+(ROADMAP.md).  As in the JAX package, ``parallel.ring_attention`` is the
+function (the import below shadows the submodule, which
+``sys.modules["mxnet_tpu_torch.parallel.ring_attention"]`` still holds).
 """
 from ..base import not_ported
-from . import (collectives, flash_attention, mesh, ring_attention,
-               tensor_parallel, trainer)
+from . import (collectives, flash_attention, members, mesh, moe,
+               ring_attention, tensor_parallel, trainer)
 from .collectives import allreduce_mean, allreduce_sum
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
                    Mesh, NamedSharding, PartitionSpec, batch_sharding,
                    current_mesh, data_parallel_mesh, default_mesh,
                    make_mesh, param_sharding, replicated)
-# ``parallel.ring_attention`` stays the module (its ring functions raise)
+from .moe import load_balance_loss, moe_ffn, moe_ffn_ep, switch_ffn
 from .ring_attention import (blockwise_attention, local_attention,
-                             ring_self_attention)
+                             ring_attention, ring_self_attention)
 from .trainer import ShardedTrainer, ShardingRules, megatron_rules
 
 
@@ -40,10 +48,6 @@ def _unported(name: str, what: str):
 
 _MODEL = "model parallelism"
 _MULTIPROC = "the multi-process tier"
-switch_ffn = _unported("switch_ffn", _MODEL)
-moe_ffn = _unported("moe_ffn", _MODEL)
-moe_ffn_ep = _unported("moe_ffn_ep", _MODEL)
-load_balance_loss = _unported("load_balance_loss", _MODEL)
 pipeline_apply = _unported("pipeline_apply", _MODEL)
 PipelineTrainer = _unported("PipelineTrainer", _MODEL)
 SpmdPipelineTrainer = _unported("SpmdPipelineTrainer", _MODEL)
@@ -63,7 +67,7 @@ __all__ = [
     "ring_attention", "ring_self_attention", "local_attention",
     "switch_ffn", "moe_ffn", "moe_ffn_ep", "load_balance_loss",
     "pipeline_apply", "PipelineTrainer", "SpmdPipelineTrainer",
-    "collectives", "flash_attention", "mesh", "ring_attention", "trainer",
-    "tensor_parallel",
+    "collectives", "flash_attention", "mesh", "trainer",
+    "tensor_parallel", "members", "moe",
     "blockwise_attention",
 ]

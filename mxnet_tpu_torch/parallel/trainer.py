@@ -1,4 +1,4 @@
-"""ShardedTrainer on one device: eager autograd plus the fused update (K2).
+"""ShardedTrainer: eager autograd over a mesh plus the fused update (K2).
 
 Counterpart of ``mxnet_tpu/parallel/trainer.py`` for one device.  The JAX
 trainer compiles one program per step; here each step runs eagerly:
@@ -114,7 +114,7 @@ parameters and aux states:
 
 * **Implicit mode** (no ``grad_compression``): the JAX trainer's one
   program over the global batch.  Members run in threads that meet at
-  every cross-row statistic (``OpContext.sync``, :class:`_NodeSync`):
+  every cross-row statistic (``OpContext.sync``, ``members.NodeSync``):
   BatchNorm's batch moments and SoftmaxOutput's ``batch``/``valid``
   denominators count every member's rows, through a differentiable sum,
   so one backward over all members' heads gives the global batch's
@@ -156,10 +156,29 @@ pieces (gather or split, :mod:`.tensor_parallel`) is recorded in
 reason, recorded too), ``grad_compression`` refuses it, and ZeRO cuts
 only the replicated parameters' state.
 
+Sequence and expert parallelism (a mesh with a ``seq`` or an ``expert``
+axis beside ``data``): the batch is split over the data axis and the
+members of a seq or expert group get the same rows.  The step scopes
+the mesh (``default_mesh``), so ``RingAttention`` runs ring attention
+over the seq group (each member its shard of the sequence) and
+``MoEFFN`` the expert-parallel program over the expert group (each
+member its token block and its experts), each gathering the group's
+output; the rest of the step is the same on every member of the group.
+Heads are differentiated on the group's member 0 only, and the gathered
+outputs carry the gradient to the other members' parts, so a replicated
+parameter's gradient is the sum over every member; rules may cut
+parameters over the expert axis (``P("expert", ...)``: each member holds
+its experts, which meet along their data group).  The dense ``MoEFFN``
+over several data members routes the global batch (:func:`_batch_layout`
+marks it as a reduction over the rows).  A mesh with more than one of
+the model, seq and expert axes, a pipe axis, and ``grad_compression``
+beside a seq or expert axis are refused.
+
 Inference forwards run on the lead member over the whole batch (no
-statistic crosses rows at inference).  One step path serves every
-member count and mode; :meth:`ShardedTrainer.compile` captures it for
-one member and runs it eagerly, with its reason, over several.  Over
+statistic crosses rows at inference), under the mesh.  One step path
+serves every member count and mode; :meth:`ShardedTrainer.compile`
+captures it for one member and runs it eagerly, with its reason, over
+several.  Over
 several members the implicit mode refuses an op that moves rows of the
 batch (:func:`_batch_layout`).
 """
@@ -190,8 +209,10 @@ from . import collectives
 from . import tensor_parallel as tp_mod
 from .collectives import (DEFAULT_BUCKET_BYTES, check_compression,
                           plan_buckets, psum, psum_compressed)
-from .mesh import (DATA_AXIS, MODEL_AXIS, Mesh, NamedSharding, PartitionSpec,
-                   axis_groups, data_parallel_mesh, make_mesh)
+from .members import run_synced
+from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh,
+                   NamedSharding, PartitionSpec, axis_groups,
+                   data_parallel_mesh, default_mesh, make_mesh)
 
 __all__ = ["ShardingRules", "ShardedTrainer", "megatron_rules",
            "matmul_precision_scope"]
@@ -296,11 +317,12 @@ class ShardedTrainer:
     mesh : parallel.Mesh, optional
         Default: a data mesh over every local device of ``device``'s
         platform (one member on the CPU), or ``device`` alone when it
-        names an index.  Only the data and model axes may have more than
-        one member.
+        names an index.  Beside the data axis, one of the model, seq and
+        expert axes may have more than one member.
     rules : ShardingRules, optional
         Parameter placement over the mesh's model axis (tensor
-        parallelism); default replicated.
+        parallelism) or expert axis (each member holds its experts);
+        default replicated.
     data_axis : str, optional
         The mesh axis the batch is split over (default ``"data"`` when
         the mesh has it).
@@ -382,6 +404,11 @@ class ShardedTrainer:
         if grad_compression is not None and self.data_axis is None:
             raise MXNetError("grad_compression needs a data axis to "
                              "reduce over; this mesh has none")
+        if grad_compression is not None and self._dup_axes:
+            raise not_ported(
+                f"grad_compression over a mesh with a {self._dup_axes[0]!r} "
+                "axis (the explicit mode's members do not meet inside the "
+                "step; use the implicit mode)")
         # error feedback: one residual a bucket a member, on by default
         # for the lossy formats; grad_accum > 1 reduces once a
         # microbatch, where a step's residual has no home
@@ -477,27 +504,48 @@ class ShardedTrainer:
                 raise MXNetError(f"mesh has no axis {data_axis!r}; "
                                  f"axes: {mesh.axis_names}")
             self.data_axis = data_axis
-        others = [a for a in mesh.axis_names
-                  if a != self.data_axis and mesh.shape[a] > 1]
-        if any(a != MODEL_AXIS for a in others):
-            raise not_ported("ShardedTrainer over mesh axes other than the "
-                             "data and model axes (sequence, pipeline and "
-                             "expert parallelism)")
+        others = sorted(a for a in mesh.axis_names
+                        if a != self.data_axis and mesh.shape[a] > 1)
+        if len(others) > 1 or any(a not in (MODEL_AXIS, SEQ_AXIS,
+                                            EXPERT_AXIS) for a in others):
+            raise not_ported(
+                f"ShardedTrainer over mesh axes {others} beside the data "
+                "axis: one of model, seq and expert may have more than one "
+                "member (pipelines, and model parallelism combined with "
+                "sequence or expert parallelism, are not ported)")
         self.model_axis = (MODEL_AXIS if MODEL_AXIS in mesh.axis_names
                            and MODEL_AXIS != self.data_axis else None)
+        # the axis the rules may cut parameters over: model (tensor
+        # parallelism) or expert (each member holds its experts)
+        self._piece_axis = self.model_axis or (
+            EXPERT_AXIS if EXPERT_AXIS in mesh.axis_names
+            and EXPERT_AXIS != self.data_axis else None)
+        # axes whose members hold the same rows and split one op's work
+        # (ring attention, expert parallelism); the rest of their step is
+        # the same on every member of the group
+        self._dup_axes = [a for a in others if a in (SEQ_AXIS, EXPERT_AXIS)]
         self._ndata = mesh.shape[self.data_axis] if self.data_axis else 1
-        self._ntp = mesh.shape[self.model_axis] if self.model_axis else 1
-        # the members that meet along each axis: a data group shares the
-        # model coordinate (and splits the batch), a model group shares
-        # the rows
-        self._groups = {DATA_AXIS: axis_groups(mesh, self.data_axis),
-                        MODEL_AXIS: axis_groups(mesh, self.model_axis)}
+        self._ntp = (mesh.shape[self._piece_axis] if self._piece_axis
+                     else 1)
+        # the members that meet along each axis: a data group shares every
+        # other coordinate (and splits the batch); the members of a model,
+        # seq or expert group share the rows
+        self._groups = {ax: axis_groups(mesh, axis) for ax, axis in (
+            (DATA_AXIS, self.data_axis), (MODEL_AXIS, self.model_axis),
+            (SEQ_AXIS, SEQ_AXIS if SEQ_AXIS in self._dup_axes else None),
+            (EXPERT_AXIS, EXPERT_AXIS if EXPERT_AXIS in mesh.axis_names
+             and EXPERT_AXIS != self.data_axis else None))}
         rank = {ax: {i: g.index(i) for g in gs for i in g}
                 for ax, gs in self._groups.items()}
         self._dcoord = [rank[DATA_AXIS][i] for i in range(mesh.size)]
-        self._mcoord = [rank[MODEL_AXIS][i] for i in range(mesh.size)]
-        group_of = {i: g for g in self._groups[MODEL_AXIS] for i in g}
-        # model coordinate t's data-lead, and each model coordinate's
+        piece = self._piece_axis if self._piece_axis else MODEL_AXIS
+        self._mcoord = [rank[piece][i] for i in range(mesh.size)]
+        # each member's coordinate along the axes that duplicate rows: a
+        # head is differentiated on the members at 0 only
+        self._dupcoord = [sum(rank[a][i] for a in self._dup_axes)
+                          for i in range(mesh.size)]
+        group_of = {i: g for g in self._groups[piece] for i in g}
+        # piece coordinate t's data-lead, and each piece coordinate's
         # data group (column 0 is the lead's)
         self._col_lead = list(group_of[0])
         data_of = {i: g for g in self._groups[DATA_AXIS] for i in g}
@@ -568,7 +616,8 @@ class ShardedTrainer:
         self._setup_tp(shape_of, {n: (s[0] // self.grad_accum,) + tuple(s[1:])
                                   for n, s in input_shapes.items()})
         self._threaded = (self._sync_nodes or bool(self._row_reductions)
-                          or (self._ntp > 1 and bool(self._tp_dims)))
+                          or (self._ntp > 1 and bool(self._tp_dims))
+                          or bool(self._dup_axes))
 
         def host_value(name, shape, given):
             nd = nd_zeros(shape, ctx=cpu())
@@ -648,28 +697,33 @@ class ShardedTrainer:
 
     def _setup_tp(self, shape_of, micro_shapes) -> None:
         """The rule-sharded parameters (``_tp_dims``: the dimension each
-        is cut along over the model axis) and the plan that computes them
-        (``_tp_plan``: split where the graph has Megatron's partition,
-        else gather), recorded in ``compile_info``.  The JAX package's
-        gates: ``grad_compression`` refuses sharded parameters."""
+        is cut along over the piece axis) and, over a model axis, the plan
+        that computes them (``_tp_plan``: split where the graph has
+        Megatron's partition, else gather), recorded in ``compile_info``.
+        Over an expert axis each member holds its experts and the MoE op
+        reads its pieces as they are (no plan).  The JAX package's gates:
+        ``grad_compression`` refuses sharded parameters."""
         self._tp_dims: Dict[str, int] = {}
         self._tp_plan: Optional[tp_mod.TPPlan] = None
+        axis = self._piece_axis
         specs = {}
         for n in self._param_names:
             spec = self.rules.spec_for(n)
             named = [ax for ax in spec if ax is not None]
             if not named:
                 continue
-            if any(ax != MODEL_AXIS for ax in named) or len(named) > 1:
+            if any(ax not in (MODEL_AXIS, EXPERT_AXIS) for ax in named) \
+                    or len(named) > 1:
                 raise not_ported(f"ShardedTrainer: spec {spec} for {n} (a "
                                  "parameter cut other than over one "
-                                 "dimension by the model axis)")
-            if self.model_axis is None:
-                raise MXNetError(f"rules shard {n} over {MODEL_AXIS!r}, "
-                                 f"which the mesh {self.mesh.shape} lacks")
+                                 "dimension by the model or expert axis)")
+            if axis is None or named[0] != axis:
+                raise MXNetError(f"rules shard {n} over {named[0]!r}, which "
+                                 f"the mesh {self.mesh.shape} lacks"
+                                 + (f" beside {axis!r}" if axis else ""))
             NamedSharding(self.mesh, spec).shard_shape(shape_of[n])
             specs[n] = spec
-            self._tp_dims[n] = tp_mod.sharded_dim(spec, MODEL_AXIS)
+            self._tp_dims[n] = tp_mod.sharded_dim(spec, axis)
         if not self._tp_dims:
             return
         if self.grad_compression is not None:
@@ -678,6 +732,11 @@ class ShardedTrainer:
                 "grad_compression runs the backward in a manual region with "
                 f"replicated params; tensor-parallel rules shard "
                 f"{sharded[:3]}... — use the implicit path for TP models")
+        if axis == EXPERT_AXIS:
+            self.logger.info("expert parallelism over %d: %d params cut "
+                             "over the expert axis", self._ntp,
+                             len(self._tp_dims))
+            return
         rewrites, why = tp_mod.split_pass(self.symbol, self._topo,
                                           self._tp_dims, specs, MODEL_AXIS,
                                           self._ntp, micro_shapes)
@@ -1017,7 +1076,9 @@ class ShardedTrainer:
         """The device work of one training step (a program's body):
         forward, backward and update for the update number and rate
         already in ``_t_dev``/``_lr_dev``; returns the heads."""
-        with matmul_precision_scope(self.matmul_precision):
+        # mesh-aware ops (RingAttention, MoEFFN) see the trainer's mesh
+        with matmul_precision_scope(self.matmul_precision), \
+                default_mesh(self.mesh):
             heads, grads, auxu, sq, new_ef = self._forward_backward(placed)
             self._finish_step(grads, auxu, sq, new_ef)
         return heads
@@ -1307,16 +1368,20 @@ class ShardedTrainer:
     def _reduce_implicit(self, member_grads):
         """The members' gradients summed over the data axis: a replicated
         parameter's over the lead's model coordinate (every model
-        coordinate computed the same sum), a rule-sharded parameter's
-        piece by piece, each on its model coordinate's data-lead."""
+        coordinate computed the same sum) or, over a seq or expert axis,
+        over every member (each member of such a group holds a part of
+        the gradient: its share of the op's work, and member 0 the rest);
+        a rule-sharded parameter's piece by piece, each on its piece
+        coordinate's data-lead."""
         red: Dict[str, Any] = {}
+        everyone = (range(len(member_grads)) if self._dup_axes
+                    else self._col0)
         for nm in self._param_names:
             if nm in self._tp_dims:
                 red[nm] = [psum([member_grads[i][nm] for i in grp])[0]
                            for grp in self._col_groups]
             else:
-                red[nm] = psum([member_grads[i][nm]
-                                for i in self._col0])[0]
+                red[nm] = psum([member_grads[i][nm] for i in everyone])[0]
         return red
 
     def _bucket_out(self) -> bool:
@@ -1376,11 +1441,16 @@ class ShardedTrainer:
         if local or n == 1 or not self._threaded:
             outs = [forward(i, None) for i in range(n)]
         else:
-            outs = _run_synced(forward, self._devices, self._groups,
+            outs = run_synced(forward, self._devices, self._groups,
                                self._row_reductions)
         live, cots = [], []
         for i, (heads, _) in enumerate(outs):
             sc = None if scale is None else scale.to(self._devices[i])
+            if self._dupcoord[i] != 0:
+                # a seq or expert group's members compute the same heads:
+                # member 0's are differentiated, and the gradient reaches
+                # the others through the op's gathered output
+                continue
             for q, h in enumerate(heads):
                 # a head of the global batch is differentiated once a
                 # data group: its value depends on every member's rows
@@ -1543,7 +1613,8 @@ class ShardedTrainer:
                  [{n: v.reshape((k, v.shape[0] // k) + v.shape[1:])[i]
                    for n, v in placed.items()} for i in range(k)])
         outs = []
-        with torch.no_grad(), matmul_precision_scope(self.matmul_precision):
+        with torch.no_grad(), matmul_precision_scope(self.matmul_precision), \
+                default_mesh(self.mesh):
             args = self._cast_params(self._whole_params())
             for mb in micro:
                 args.update(mb)
@@ -2406,10 +2477,13 @@ def _batch_layout(sym, topo, input_shapes):
     and its kin over axis 0), of a row-split value meets the other
     members (``reductions``: those nodes' names) and gives the global
     batch's value on every member; a head computed from such values only
-    is one of the ``global heads`` (indices).  An op that moves rows (a
-    transpose or reshape of them, a concat or slice along them, a product
-    contracting over them) or user code over them has no member-by-member
-    form: ``refusal`` describes the first, else it is None.  Tensors that
+    is one of the ``global heads`` (indices).  ``MoEFFN`` is such a node
+    too: its routing (capacity and arrival order) is the global batch's,
+    its output stays row-split and its aux loss (output 1) is a global
+    value.  An op that moves rows (a transpose or reshape of them, a
+    concat or slice along them, a product contracting over them) or user
+    code over them has no member-by-member form: ``refusal`` describes
+    the first, else it is None.  Tensors that
     do not depend on the batch (parameters) are the same on every
     member."""
     internals = sym.get_internals()
@@ -2417,7 +2491,15 @@ def _batch_layout(sym, topo, input_shapes):
     shape_of = {(id(n), i): s for (n, i), s in zip(internals._heads, outs)}
     rows = {id(n) for n in topo if n.is_variable and n.name in input_shapes}
     whole: set = set()
+    # single outputs of the global batch: (node id, output index)
+    whole_outs: set = set()
     reductions = set()
+
+    def row_split(src, i) -> bool:
+        return id(src) in rows and (id(src), i) not in whole_outs
+
+    def global_value(src, i) -> bool:
+        return id(src) in whole or (id(src), i) in whole_outs
 
     def leading(axes, node) -> bool:
         """Whether ``axes`` (an int or a tuple, negative from the end)
@@ -2431,9 +2513,9 @@ def _batch_layout(sym, topo, input_shapes):
     for node in topo:
         if node.is_variable:
             continue
-        deps = [id(src) in rows for src, _ in node.inputs]
+        deps = [row_split(src, i) for src, i in node.inputs]
         if not any(deps):
-            if any(id(src) in whole for src, _ in node.inputs):
+            if any(global_value(src, i) for src, i in node.inputs):
                 whole.add(id(node))
             continue
         name = node.op.name
@@ -2443,6 +2525,12 @@ def _batch_layout(sym, topo, input_shapes):
                                         and leading(p["axis"], node)):
             whole.add(id(node))
             reductions.add(node.name)
+            continue
+        if name == "MoEFFN":
+            reductions.add(node.name)
+            rows.add(id(node))
+            if p["aux_loss"]:
+                whole_outs.add((id(node), 1))
             continue
         if name in _OPAQUE_OPS:
             what = "is user code over the whole batch"
@@ -2467,8 +2555,8 @@ def _batch_layout(sym, topo, input_shapes):
         if what is not None:
             return f"op {name} ({node.name}) {what}", None, None
         rows.add(id(node))
-    heads = frozenset(q for q, (n, _) in enumerate(sym._heads)
-                      if id(n) in whole)
+    heads = frozenset(q for q, (n, i) in enumerate(sym._heads)
+                      if global_value(n, i))
     return None, frozenset(reductions), heads
 
 
@@ -2494,196 +2582,6 @@ def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         tree = list(tree.values())
     return [leaf for t in tree for leaf in _leaves(t)]
-
-
-class _MemberSync:
-    """Where the threads of one step's members meet: call number ``k``
-    along ``axis`` of each member waits for the values of that call from
-    every member of its group along the axis (the members that share
-    every other coordinate), and gets them in the group's order.  Once
-    the forward is done the meeting point closes: a recompute scope
-    replayed in the backward (one thread) reads the values its forward
-    exchanged instead (:class:`_NodeSync`)."""
-
-    def __init__(self, groups: Dict[str, List[Tuple[int, ...]]]):
-        self.group_of = {axis: {i: g for g in gs for i in g}
-                         for axis, gs in groups.items()}
-        self.closed = False
-        self._aborted = False
-        self._cond = threading.Condition()
-        self._slots: Dict[Tuple, Dict[int, Any]] = {}
-
-    def exchange(self, i: int, axis: str, k: int, value) -> list:
-        group = self.group_of[axis][i]
-        key = (axis, group, k)
-        with self._cond:
-            slot = self._slots.setdefault(key, {})
-            slot[i] = value
-            self._cond.notify_all()
-            while len(slot) < len(group) and not self._aborted:
-                self._cond.wait()
-            if self._aborted:
-                raise threading.BrokenBarrierError
-            return [slot[j] for j in group]
-
-    def abort(self) -> None:
-        with self._cond:
-            self._aborted = True
-            self._cond.notify_all()
-
-
-class _MemberHandle:
-    """One member's side of a :class:`_MemberSync`.  ``at(name)`` gives
-    the handle an op of that node sees as ``OpContext.sync``
-    (:class:`_NodeSync`); the handle numbers each member's calls along
-    each axis and keeps what every call exchanged, by node and call, for
-    a recompute's replay.  ``row_reductions`` names the nodes whose op
-    reduces over the rows of the batch (their result is the global
-    batch's, through the meeting)."""
-
-    def __init__(self, sync: _MemberSync, i: int, row_reductions=()):
-        self.sync, self.i = sync, i
-        self.row_reductions = frozenset(row_reductions)
-        self._calls: Dict[str, int] = {}
-        self._seen: Dict[Tuple[str, int], list] = {}
-
-    def at(self, name: str) -> "_NodeSync":
-        return _NodeSync(self, name)
-
-    def size(self, axis: str) -> int:
-        return len(self.sync.group_of[axis][self.i])
-
-    def rank(self, axis: str) -> int:
-        return self.sync.group_of[axis][self.i].index(self.i)
-
-    def meet(self, key: Tuple[str, int], axis: str, value) -> list:
-        """Every group member's ``value`` of this call, in group order.
-        After the forward, the values the call met with in the forward,
-        this member's own replaced by ``value`` (a recompute's)."""
-        if self.sync.closed:
-            if key not in self._seen:
-                raise MXNetError(
-                    f"node {key[0]!r} asked the mesh members for a value "
-                    "after the forward that it did not ask for in the "
-                    "forward")
-            parts = list(self._seen[key])
-            parts[self.rank(axis)] = value
-            return parts
-        k = self._calls.get(axis, 0)
-        self._calls[axis] = k + 1
-        parts = self.sync.exchange(self.i, axis, k, value)
-        self._seen[key] = parts
-        if self.rank(axis) == 0 and isinstance(value, torch.Tensor):
-            collectives.record_axis_call("meet", axis, value, len(parts))
-        return parts
-
-
-class _NodeSync:
-    """``OpContext.sync`` of one op call on a mesh member: the member's
-    meetings, keyed by node and call number.  ``axis`` defaults to the
-    data axis (the batch statistics); tensor parallelism meets along the
-    model axis.
-
-    * ``allreduce``: the sum in group order, differentiable into every
-      member's input (every member's output depends on every input);
-    * ``host_sum``: the sum of a host number;
-    * ``psum_local``: the sum whose gradient reaches only this member's
-      input (a row-parallel product's partial sums, whose consumers are
-      the same on every member);
-    * ``span``: this member's value, whose gradient collects the
-      gradients of every member's copy (the input of a column-parallel
-      product: identity forward, sum in the backward);
-    * ``gather``: the members' pieces end to end, this member's piece
-      differentiable and the others' not;
-    * ``parts``: the group's tensors (for an op that combines them)."""
-
-    __slots__ = ("handle", "name", "calls")
-
-    def __init__(self, handle: _MemberHandle, name: str):
-        self.handle, self.name, self.calls = handle, name, 0
-
-    @property
-    def reduces_rows(self) -> bool:
-        return self.name in self.handle.row_reductions
-
-    def size(self, axis: str = DATA_AXIS) -> int:
-        return self.handle.size(axis)
-
-    def rank(self, axis: str = DATA_AXIS) -> int:
-        return self.handle.rank(axis)
-
-    def parts(self, value, axis: str = DATA_AXIS) -> list:
-        key, self.calls = (self.name, self.calls), self.calls + 1
-        return self.handle.meet(key, axis, value)
-
-    def allreduce(self, t: torch.Tensor, axis: str = DATA_AXIS):
-        parts = self.parts(t, axis)
-        acc = parts[0].to(t.device)
-        for p in parts[1:]:
-            acc = acc + p.to(t.device)
-        return acc
-
-    def host_sum(self, x, axis: str = DATA_AXIS):
-        return sum(self.parts(x, axis))
-
-    def psum_local(self, t: torch.Tensor, axis: str):
-        parts = self.parts(t, axis)
-        me = self.rank(axis)
-        acc = None
-        for j, p in enumerate(parts):
-            p = t if j == me else p.detach().to(t.device)
-            acc = p if acc is None else acc + p
-        return acc
-
-    def span(self, t: torch.Tensor, axis: str):
-        parts = self.parts(t, axis)
-        me = self.rank(axis)
-        out = t
-        for j, p in enumerate(parts):
-            if j != me:
-                p = p.to(t.device)
-                out = out + (p - p.detach())
-        return out
-
-    def gather(self, t: torch.Tensor, dim: int, axis: str):
-        parts = self.parts(t, axis)
-        me = self.rank(axis)
-        return torch.cat([t if j == me else p.detach().to(t.device)
-                          for j, p in enumerate(parts)], dim)
-
-
-def _run_synced(forward, devices, groups, row_reductions=()) -> list:
-    """``forward(i, handle)`` for every member in its own thread (on its
-    CUDA device), the members meeting along the axes of ``groups``; the
-    first failure aborts the others and is raised."""
-    sync = _MemberSync(groups)
-    outs: list = [None] * len(devices)
-    errors: list = []
-
-    def run(i):
-        dev = devices[i]
-        try:
-            with (torch.cuda.device(dev) if dev.type == "cuda"
-                  else contextlib.nullcontext()):
-                outs[i] = forward(i, _MemberHandle(sync, i, row_reductions))
-        except BaseException as exc:
-            errors.append(exc)
-            sync.abort()
-
-    threads = [threading.Thread(target=run, args=(i,), daemon=True,
-                                name=f"mesh-member-{i}")
-               for i in range(len(devices))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    sync.closed = True
-    if errors:
-        first = next((e for e in errors
-                      if not isinstance(e, threading.BrokenBarrierError)),
-                     errors[0])
-        raise first
-    return outs
 
 
 def _tree_add(a, b):

@@ -52,7 +52,13 @@ gradient, ``WarpCTC``), and an artifact exported on the CPU served on
 the card; tensor and model parallelism: ``group2ctx`` across the host
 and the card against one card, the split plan of ``megatron_rules()`` at
 a model axis of 1 bitwise the trainer without rules, and (with two
-cards) the split plan and the implicit mode's ``sum`` over two cards.
+cards) the split plan and the implicit mode's ``sum`` over two cards;
+mixture of experts and ring attention: the ring over a one-card seq mesh
+bitwise the K3 call of ``flash_attention_stats`` (gradients within
+``chip_smoke.P21_RING_GRAD_TOL`` of ``flash_attention``'s), ``MoEFFN``
+through the trainer on the card routing every token as the CPU does
+(``chip_smoke.p21_compare``), and (with two cards) the LM over a seq
+mesh and ``MoEFFN`` over an expert mesh against one card.
 """
 import numpy as np
 import pytest
@@ -1799,3 +1805,119 @@ def test_tp_and_implicit_sum_over_two_cards(cuda):
     for k in out[0][1]:
         np.testing.assert_allclose(out[1][1][k], out[0][1][k], rtol=1e-4,
                                    atol=1e-5, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_over_one_card_is_the_k3_call(cuda, causal):
+    """``ring_self_attention`` over a ``{"seq": 1}`` mesh of the card
+    (bf16, B 2, H 2, L 1024, d 64): its forward is bitwise the K3 call of
+    ``flash_attention_stats`` (one ring step merges with an empty carry),
+    K3 and K4 launch once each in the hopper form, and its gradients are
+    within ``chip_smoke.P21_RING_GRAD_TOL`` of their largest magnitude of
+    ``flash_attention``'s."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import make_mesh, ring_self_attention
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(2, 2, 1024, 64, device=cuda, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    mesh = make_mesh({"seq": 1}, [mx.gpu(0)])
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    h3 = tfa.flash_fwd.launches_by_form["hopper"]
+    h4 = tfa.flash_bwd.launches_by_form["hopper"]
+    out = ring_self_attention(qs, ks, vs, mesh, causal=causal)
+    grads = torch.autograd.grad(out, (qs, ks, vs), do)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd.launches_by_form["hopper"] - h3 == 1
+    assert tfa.flash_bwd.launches_by_form["hopper"] - h4 == 1
+    assert torch.equal(out.detach(),
+                       tfa.flash_attention_stats(q, k, v, causal=causal)[0])
+    qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = torch.autograd.grad(tfa.flash_attention(qf, kf, vf, causal=causal),
+                              (qf, kf, vf), do)
+    for a, b in zip(grads, ref):
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= \
+            chip_smoke.P21_RING_GRAD_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_trainer_on_card_matches_cpu(cuda, top_k):
+    """``MoEFFN`` (8 experts of hidden 256, the aux head) over 512 tokens
+    at d 128 through ``ShardedTrainer`` on the card and on the CPU, 3 SGD
+    steps in f32 with TF32 off: the same experts for every token, heads
+    within ``chip_smoke.P21_HEAD_TOL`` and updates within
+    ``chip_smoke.P21_UPDATE_TOL`` of their largest magnitude."""
+    import mxnet_tpu_torch as mx
+    saved = (chip_smoke.P21_TOKENS, chip_smoke.P21_MOE, chip_smoke.DEVICE,
+             torch.backends.cuda.matmul.allow_tf32)
+    chip_smoke.P21_TOKENS = (2, 256, 128)
+    chip_smoke.P21_MOE = dict(chip_smoke.P21_MOE, hidden_size=256)
+    chip_smoke.DEVICE = "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with mx.name.NameManager():
+            sym = chip_smoke.p21_moe_symbol(mx, top_k)
+        args, batches = chip_smoke.p21_moe_args(np, sym, seed=2)
+        card = chip_smoke.p21_moe_run(torch, np, sym, args, batches,
+                                      device=mx.gpu(0))
+        host = chip_smoke.p21_moe_run(torch, np, sym, args, batches,
+                                      device="cpu")
+        chip_smoke.p21_compare(torch, card, host, args, f"top-{top_k}",
+                               top_k)
+    finally:
+        (chip_smoke.P21_TOKENS, chip_smoke.P21_MOE, chip_smoke.DEVICE,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+def test_seq_and_expert_meshes_over_two_cards(cuda):
+    """Where two cards exist: a small LM (seq 1024, the flash ring over
+    two shards of 512) over ``{"seq": 2}`` against one card (heads within
+    2e-2: bf16), and ``MoEFFN`` over ``{"expert": 2}`` (a capacity that
+    drops nothing) against one card (``chip_smoke.p21_compare``)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
+    b, l = 2, 1024
+    sym = models.get_symbol("transformer-lm", vocab_size=256, num_layers=2,
+                            d_model=128, heads=2, batch_size=b, seq_len=l,
+                            loss_head=True)
+    arg_shapes, _, _ = sym.infer_shape(data=(b, l), softmax_label=(b, l))
+    rng = np.random.RandomState(4)
+    args = {n: rng.uniform(-0.07, 0.07, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    toks = rng.randint(0, 256, (b, l + 1))
+    batch = {"data": toks[:, :-1].astype(np.float32),
+             "softmax_label": toks[:, 1:].astype(np.float32)}
+    heads = []
+    for mesh in (make_mesh({"data": 1}, [mx.gpu(0)]),
+                 make_mesh({"seq": 2}, [mx.gpu(0), mx.gpu(1)])):
+        tr = ShardedTrainer(sym, "sgd", {"learning_rate": 0.1},
+                            compute_dtype="bfloat16", mesh=mesh)
+        tr.bind({"data": (b, l)}, {"softmax_label": (b, l)},
+                arg_params=args)
+        heads.append(tr.step(batch)[0].float().cpu())
+    np.testing.assert_allclose(heads[1].numpy(), heads[0].numpy(),
+                               atol=2e-2)
+    saved = (chip_smoke.P21_TOKENS, chip_smoke.P21_MOE, chip_smoke.DEVICE)
+    chip_smoke.P21_TOKENS = (2, 256, 128)
+    chip_smoke.P21_MOE = dict(chip_smoke.P21_MOE, hidden_size=256)
+    chip_smoke.DEVICE = "cuda"
+    try:
+        with mx.name.NameManager():
+            msym = chip_smoke.p21_moe_symbol(mx, 2, cf=4.0)
+        margs, batches = chip_smoke.p21_moe_args(np, msym, seed=3)
+        one = chip_smoke.p21_moe_run(torch, np, msym, margs, batches,
+                                     mesh=make_mesh({"data": 1}, [mx.gpu(0)]))
+        two = chip_smoke.p21_moe_run(
+            torch, np, msym, margs, batches,
+            mesh=make_mesh({"expert": 2}, [mx.gpu(0), mx.gpu(1)]))
+        chip_smoke.p21_compare(torch, two, one, margs, "expert mesh", 2,
+                               routes=False)
+    finally:
+        chip_smoke.P21_TOKENS, chip_smoke.P21_MOE, chip_smoke.DEVICE = saved

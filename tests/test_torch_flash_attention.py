@@ -33,7 +33,9 @@ from mxnet_tpu.parallel import flash_attention as jfa
 import mxnet_tpu_torch as mxt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import flash_attention as tfa
-from mxnet_tpu_torch.parallel import ring_attention as tra
+# the port's `parallel.ring_attention` attribute is the function, as
+# the JAX package's is: the module comes from sys.modules
+tra = sys.modules["mxnet_tpu_torch.parallel.ring_attention"]
 
 # the JAX package's `parallel.ring_attention` attribute is the function
 jra = sys.modules["mxnet_tpu.parallel.ring_attention"]
@@ -383,16 +385,26 @@ def test_plain_versions_with_internal_delta_match_jax_kernels_bf16(causal):
 
 
 def test_mesh_is_not_ported():
-    """A sequence mesh can now be made and scoped (the data-parallel
-    slice); ring attention under it is model parallelism and still
-    raises."""
+    """A sequence mesh can be made and scoped, and ring attention over it
+    is ported (tests/test_torch_ring.py): ``ring_self_attention`` over
+    two CPU contexts equals the JAX ring over two devices (and dense
+    attention); ``ring_attention`` itself runs only inside a mesh
+    member's step."""
     from mxnet_tpu_torch.parallel import current_mesh, default_mesh, \
         make_mesh
     mesh = make_mesh({"seq": 2}, [mxt.cpu(0), mxt.cpu(1)])
     assert mesh.shape == {"seq": 2}
+    rng = np.random.RandomState(0)
+    q, k, v = (rng.randn(1, 2, 16, 4).astype(np.float32) for _ in range(3))
+    from mxnet_tpu.parallel import make_mesh as jmake_mesh
+    jmesh = jmake_mesh({"seq": 2}, jax.devices()[:2])
+    want = jra.ring_self_attention(*map(jnp.asarray, (q, k, v)), jmesh,
+                                   causal=True)
     with default_mesh(mesh):
         assert current_mesh() is mesh
-        with pytest.raises(MXNetError, match="not ported"):
-            tra.ring_self_attention(None, None, None, None)
-        with pytest.raises(MXNetError, match="not ported"):
-            tra.ring_attention(None, None, None, None)
+        got = tra.ring_self_attention(*map(torch.from_numpy, (q, k, v)),
+                                      mesh, causal=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+        with pytest.raises(MXNetError, match="inside a mesh member"):
+            tra.ring_attention(*map(torch.from_numpy, (q, k, v)))

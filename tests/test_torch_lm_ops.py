@@ -12,6 +12,8 @@ one bf16 unit in the last place (rtol 2^-7) and the loss head within 1e-5
 (its math is f32 in both packages; only the input is bf16).  Inputs are
 float32 or bfloat16 explicitly (importing mxnet_tpu enables x64).
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +28,9 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.registry import OpContext as TCtx
 from mxnet_tpu_torch.ops.registry import get_op as tget_op
 from mxnet_tpu_torch.parallel import flash_attention as tfa
-from mxnet_tpu_torch.parallel import ring_attention as tra
+# the port's `parallel.ring_attention` attribute is the function, as
+# the JAX package's is: the module comes from sys.modules
+tra = sys.modules["mxnet_tpu_torch.parallel.ring_attention"]
 
 BF16 = (jnp.bfloat16, torch.bfloat16)
 
@@ -213,8 +217,15 @@ def test_ring_attention_shape_and_moe_not_ported():
     jmoe = jget_op("MoEFFN")
     jmp = jmoe.parse_params({"num_experts": "4", "hidden_size": "8"})
     assert moe.infer_shape(mp, [(6, 5)]) == jmoe.infer_shape(jmp, [(6, 5)])
-    with pytest.raises(MXNetError, match="not ported"):
-        moe.forward(TCtx(), mp, *[torch.zeros(1)] * 6)
+    # the forward is ported (tests/test_torch_moe.py): the JAX op's output
+    # on the inferred shapes
+    shapes, _, _ = moe.infer_shape(mp, [(6, 5)])
+    rng = np.random.RandomState(1)
+    ins = [rng.randn(*s).astype(np.float32) for s in shapes]
+    tout = moe.forward(TCtx(), mp, *[torch.from_numpy(a) for a in ins])
+    jout = jmoe.forward(JCtx(), jmp, *[jnp.asarray(a) for a in ins])
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_flash_kernels_are_not_launched_on_cpu_tensors():

@@ -30,6 +30,8 @@ Tolerances:
   softmax, the port's kernels keep them in f32 and round ``p``, and the
   embedding's scatter-add accumulates in another order.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -47,7 +49,9 @@ from mxnet_tpu_torch import models as tmodels
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import ShardedTrainer
 from mxnet_tpu_torch.parallel import flash_attention as tfa
-from mxnet_tpu_torch.parallel import ring_attention as tra
+# the port's `parallel.ring_attention` attribute is the function, as
+# the JAX package's is: the module comes from sys.modules
+tra = sys.modules["mxnet_tpu_torch.parallel.ring_attention"]
 
 VOCAB, LAYERS, D, HEADS, BATCH = 61, 2, 32, 2, 2
 @pytest.fixture(autouse=True)

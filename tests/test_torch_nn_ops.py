@@ -280,11 +280,21 @@ def test_k1_form_refusals(ncols, form):
 
 def test_unported_options_raise():
     x = torch.randn(2, 3, requires_grad=True)
-    moe = tget_op("MoEFFN")
-    with pytest.raises(MXNetError, match="not ported"):
-        moe.forward(TCtx(), moe.parse_params({"num_experts": "2",
-                                              "hidden_size": "4"}),
-                    x, *[torch.zeros(1)] * 5)
+    # MoEFFN is ported (tests/test_torch_moe.py): its forward is the JAX
+    # op's on the same inputs
+    moe, jmoe = tget_op("MoEFFN"), jget_op("MoEFFN")
+    raw = {"num_experts": "2", "hidden_size": "4", "aux_loss": "True"}
+    rng = np.random.RandomState(0)
+    ins = [x.detach().numpy()] + [rng.randn(*s).astype(np.float32)
+                                  for s in ((3, 2), (2, 3, 4), (2, 4),
+                                            (2, 4, 3), (2, 3))]
+    tout = moe.forward(TCtx(), moe.parse_params(raw),
+                       *[torch.from_numpy(a) for a in ins])
+    jout = jmoe.forward(JCtx(), jmoe.parse_params(raw),
+                        *[jnp.asarray(a) for a in ins])
+    for t, j in zip(tout, jout):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-6)
     # FullyConnected(quant='fp8') is ported: the block-scaled fp8 product
     # (tests/test_torch_quant.py holds it against the JAX package)
     fc = tget_op("FullyConnected")

@@ -22,6 +22,7 @@ The tensor-parallel test of ``tests/test_parallel.py`` is in
 ``tests/test_torch_tensor_parallel.py``.
 """
 import logging
+import sys
 
 import numpy as np
 import pytest
@@ -561,11 +562,21 @@ def test_mesh_fingerprint_matches_jax(n):
 
 def test_unported_parts_still_raise():
     sym = _build(mxt.sym)
-    # tensor parallelism is ported (tests/test_torch_tensor_parallel.py);
-    # a sequence axis still raises
+    # tensor, sequence and expert parallelism are ported
+    # (tests/test_torch_{tensor_parallel,ring,moe}.py): a seq mesh takes
+    # the trainer and moe_ffn runs; a pipe axis still raises
+    tr = ShardedTrainer(sym, mesh=make_mesh({"data": 2, "seq": 2}, cpus(4)))
+    assert tr._dup_axes == ["seq"]
     with pytest.raises(MXNetError, match="not ported"):
-        ShardedTrainer(sym, mesh=make_mesh({"data": 2, "seq": 2}, cpus(4)))
-    for name in ("ElasticTrainer", "moe_ffn", "pipeline_apply",
+        ShardedTrainer(sym, mesh=make_mesh({"data": 2, "pipe": 2}, cpus(4)))
+    rng = np.random.RandomState(0)
+    ins = [rng.randn(*s).astype(np.float32)
+           for s in ((6, 3), (3, 2), (2, 3, 4), (2, 4), (2, 4, 3), (2, 3))]
+    y, _ = tpar.moe_ffn(*map(torch.from_numpy, ins))
+    jy, _ = mx.parallel.moe_ffn(*map(jnp.asarray, ins))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-6)
+    for name in ("ElasticTrainer", "pipeline_apply", "PipelineTrainer",
                  "SpmdPipelineTrainer"):
         with pytest.raises(MXNetError, match="not ported"):
             getattr(tpar, name)()
@@ -582,7 +593,7 @@ def test_lm_over_mesh_matches_jax():
     parameters rtol 1e-4 / atol 1e-6 after 3 SGD steps."""
     from mxnet_tpu import models as jmodels
     from mxnet_tpu_torch import models as tmodels
-    from mxnet_tpu_torch.parallel import ring_attention as tra
+    tra = sys.modules["mxnet_tpu_torch.parallel.ring_attention"]
     kw = dict(vocab_size=61, num_layers=2, d_model=32, heads=2,
               batch_size=2, seq_len=128, loss_head=True, attn_block_size=64)
     with mx.name.NameManager(), mxt.name.NameManager():

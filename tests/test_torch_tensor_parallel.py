@@ -21,6 +21,8 @@ Tolerances, as stated in each test:
 * the MLP rules test: the JAX test's rtol 2e-5 / atol 2e-6;
 * a restored trainer against the one it was saved from: bitwise.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -41,7 +43,9 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import (PartitionSpec as P, ShardedTrainer,
                                       ShardingRules, collectives,
                                       make_mesh, megatron_rules)
-from mxnet_tpu_torch.parallel import ring_attention as tra
+# the port's `parallel.ring_attention` attribute is the function, as
+# the JAX package's is: the module comes from sys.modules
+tra = sys.modules["mxnet_tpu_torch.parallel.ring_attention"]
 
 TP_HEAD = dict(rtol=2e-4, atol=2e-5)
 TP_PARAM = dict(rtol=5e-4, atol=5e-5)

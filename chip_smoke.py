@@ -380,6 +380,25 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     where two cards exist, phase 9's LM trainer over ``{"seq": 2}`` and
     (a)'s MoE over ``{"expert": 2}`` against one card; with one card it
     prints that (c) did not run and why; no kernel is built;
+22. runs pipelines (after phase 21, before 15), under deterministic
+    algorithms: (a) phase 9's LM through ``PipelineTrainer(num_stages=4,
+    devices=[card] * 4)`` (the automatic balance, Adam unfused, bf16),
+    2 steps from the same weights and batches as ``ShardedTrainer`` on
+    the card: at one microbatch heads and parameters bitwise the
+    trainer's; at 4 heads within 5e-2 and the first update within 2.5 lr;
+    each stage holds at most ``4 - s`` live microbatches (1F1B); K3
+    launches 2 M 6 times a step (forward and remat) and K4 M 6 times,
+    all in the hopper form, K2 never; prints ms a step and the step's
+    peak memory beside the trainer's; (b) ``dryrun_multichip``'s MLP
+    (24/16/12 -> 10, batch 8) through ``PipelineTrainer`` over 4 stages
+    on the card within 2e-5 of ``ShardedTrainer`` (K1 2 M times a step,
+    from the last stage's forward and remat), ``SpmdPipelineTrainer`` at
+    one pipe member (one member run a step, bitwise ``PipelineTrainer``)
+    and ``pipeline_apply`` over ``{"pipe": 1}`` (bitwise the stage); (c)
+    where two cards exist, the LM through ``PipelineTrainer`` over both,
+    ``SpmdPipelineTrainer`` and ``pipeline_apply`` over ``{"pipe": 2}``,
+    each against one card; with one card it prints that (c) did not run
+    and why; no kernel is built;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -8572,6 +8591,460 @@ def phase_moe_ring(torch, np, mx, fa, fu, _build):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: pipelines
+# ---------------------------------------------------------------------------
+
+# (a) phase 9's LM through PipelineTrainer: 4 stages on the card by the
+# automatic balance, Adam unfused, bf16 compute, deterministic algorithms
+P22_STAGES = 4
+P22_STEPS = 2               # compared against ShardedTrainer
+P22_TIMED = 3               # then timed
+# M = 4 against ShardedTrainer: each microbatch's bf16 products run at a
+# quarter of the rows (cuBLAS may pick another kernel) and the gradients
+# sum over microbatches in f32: heads within 5e-2 (per-token losses near
+# ln 32000 = 10.4), each parameter's first Adam update within 2.5 lr of
+# the trainer's (a gradient near zero whose sign flips moves a weight by
+# 2 lr), as phase 20 (c) holds its two cards
+P22_HEAD_TOL = 5e-2
+P22_UPDATE_LIMIT = 2.5 * LM_OPT["learning_rate"]
+# (b) dryrun_multichip's phase 4 MLP: widths 24/16/12 -> 10, tanh, batch 8
+# of 12 features, SGD at 0.1, 4 microbatches, against ShardedTrainer
+# within the dryrun's bound
+P22_MLP_WIDTHS = (24, 16, 12, 10)
+P22_MLP_BATCH, P22_MLP_IN, P22_MLP_MICRO = 8, 12, 4
+P22_MLP_OPT = {"learning_rate": 0.1}
+P22_MLP_TOL = 2e-5
+
+
+def p22_reset(fa, nn_ops, fu):
+    """Every launch count phase 22 reads, set to 0."""
+    for k in (fa.flash_fwd, fa.flash_bwd, nn_ops.softmax_rows,
+              fu.fused_update):
+        k.launches = 0
+        k.launches_by_form = dict.fromkeys(k.launches_by_form, 0)
+
+
+def p22_read(fa, nn_ops, fu):
+    return {"flash_attn_fwd": fa.flash_fwd.launches,
+            "flash_attn_bwd": fa.flash_bwd.launches,
+            "softmax_rows": nn_ops.softmax_rows.launches,
+            "fused_update": fu.fused_update.launches,
+            "k3_hopper": fa.flash_fwd.launches_by_form["hopper"],
+            "k4_hopper": fa.flash_bwd.launches_by_form["hopper"],
+            "k1_warp": nn_ops.softmax_rows.launches_by_form["warp"]}
+
+
+def p22_cap(pp):
+    """Wrap the trainer's per-stage forward and backward callables to
+    record each stage's peak of live microbatch environments."""
+    S = pp.num_stages
+    live, peak = [0] * S, [0] * S
+
+    def fwd(fn, s):
+        def run(*a):
+            live[s] += 1
+            peak[s] = max(peak[s], live[s])
+            return fn(*a)
+        return run
+
+    def bwd(fn, s):
+        def run(*a):
+            live[s] -= 1
+            return fn(*a)
+        return run
+
+    pp._fwd = [fwd(f, s) for s, f in enumerate(pp._fwd)]
+    pp._bwd = [bwd(f, s) for s, f in enumerate(pp._bwd)]
+    return peak
+
+
+def p22_host(torch, tr):
+    """The trainer's parameters as host numpy arrays."""
+    return {n: v.asnumpy() for n, v in tr.get_params()[0].items()}
+
+
+def p22_steps(torch, tr, batches):
+    """Step ``tr`` over ``batches``: the heads on the host, each step's
+    synced host ms, and the peak memory above what was resident."""
+    heads, ms = [], []
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        t0 = time.perf_counter()
+        h = tr.step(b)[0]
+        p20_sync(torch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        heads.append(h.float().cpu())
+    peak = ((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            if DEVICE == "cuda" else None)
+    return heads, ms, peak
+
+
+def p22_lm(torch, np, mx, fa, nn_ops, fu, launches):
+    """(a) phase 9's LM through ``PipelineTrainer(num_stages=4,
+    devices=[card] * 4)`` at M 1 and 4 against ``ShardedTrainer`` on the
+    card from the same weights and batches."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import PipelineTrainer, make_mesh
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    card = mx.gpu(0) if DEVICE == "cuda" else mx.cpu(0)
+    batches = [lm_batch(np, seed=220 + i)
+               for i in range(P22_STEPS + P22_TIMED)]
+    out = {}
+    det = torch.are_deterministic_algorithms_enabled()
+    try:
+        # the embedding's scatter-add on the card is deterministic only in
+        # this mode, and M = 1 is held bit for bit
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        ref = p20_trainer(torch, np, sym, args,
+                          make_mesh({"data": 1}, [card]))
+        ref_heads, ms, _ = p22_steps(torch, ref, batches[:1])
+        ref_p1 = p22_host(torch, ref)
+        h, ms2, _ = p22_steps(torch, ref, batches[1:P22_STEPS])
+        ref_heads += h
+        ref_p2 = p22_host(torch, ref)
+        _, ref_ms, ref_peak = p22_steps(torch, ref, batches[P22_STEPS:])
+        del ref
+        out["sharded_trainer"] = {"step_ms": ms + ms2 + ref_ms,
+                                  "timed_median_ms": float(np.median(ref_ms)),
+                                  "step_peak_gib": ref_peak}
+        for M in (1, 4):
+            pp = PipelineTrainer(sym, num_stages=P22_STAGES,
+                                 devices=[card] * P22_STAGES,
+                                 num_microbatches=M, optimizer="adam",
+                                 optimizer_params=dict(LM_OPT),
+                                 compute_dtype="bfloat16")
+            pp.bind({"data": shapes["data"]},
+                    {"softmax_label": shapes["softmax_label"]},
+                    arg_params=args)
+            stage_params = [len(p) for p in pp._params]
+            peak_live = p22_cap(pp)
+            p20_sync(torch)
+            # the main path's run: every count starts at 0 here
+            p22_reset(fa, nn_ops, fu)
+            heads, ms, _ = p22_steps(torch, pp, batches[:1])
+            p1 = p22_host(torch, pp)
+            h, ms2, _ = p22_steps(torch, pp, batches[1:P22_STEPS])
+            heads += h
+            p2 = p22_host(torch, pp)
+            _, pp_ms, pp_peak = p22_steps(torch, pp, batches[P22_STEPS:])
+            got = p22_read(fa, nn_ops, fu)
+            for k in ("flash_attn_fwd", "flash_attn_bwd", "softmax_rows"):
+                launches[k] += got[k]
+            del pp
+            steps = P22_STEPS + P22_TIMED
+            label = f"(a) M={M}"
+            for s, p in enumerate(peak_live):
+                check(p <= P22_STAGES - s, f"{label}: stage {s} held {p} "
+                      f"live microbatches, over the 1F1B cap "
+                      f"{P22_STAGES - s}")
+            if DEVICE == "cuda":
+                check(got["flash_attn_fwd"] == 2 * M * LAYERS * steps
+                      and got["k3_hopper"] == got["flash_attn_fwd"],
+                      f"{label}: K3 launched {got} in {steps} steps "
+                      f"(expected {2 * M * LAYERS} a step, hopper)")
+                check(got["flash_attn_bwd"] == M * LAYERS * steps
+                      and got["k4_hopper"] == got["flash_attn_bwd"],
+                      f"{label}: K4 launched {got} in {steps} steps "
+                      f"(expected {M * LAYERS} a step, hopper)")
+            check(got["fused_update"] == 0, f"{label}: K2 launched "
+                  f"{got['fused_update']} times")
+            for hd in heads:
+                check(tuple(hd.shape) == (LM_BATCH * LM_SEQ,)
+                      and bool(torch.isfinite(hd).all()),
+                      f"{label}: heads {tuple(hd.shape)}, not finite")
+            head_diff = max(float((a - b).abs().max())
+                            for a, b in zip(heads, ref_heads))
+            res = {"microbatches": M, "stage_params": stage_params,
+                   "peak_live": peak_live, "launches": got,
+                   "step_ms": ms + ms2 + pp_ms,
+                   "timed_median_ms": float(np.median(pp_ms)),
+                   "step_peak_gib": pp_peak,
+                   "heads_max_diff": head_diff}
+            if M == 1:
+                same = all(torch.equal(bits(torch, a), bits(torch, b))
+                           for a, b in zip(heads, ref_heads)) and all(
+                    np.array_equal(p2[n].view(np.int32),
+                                   ref_p2[n].view(np.int32)) for n in p2)
+                res["bitwise"] = same
+                if not same:
+                    worst = max((float(np.abs(p2[n] - ref_p2[n]).max()), n)
+                                for n in p2)
+                    res["params_max_diff"] = worst
+                check(same, f"{label}: heads or parameters differ from "
+                      f"ShardedTrainer's (heads {head_diff}, "
+                      f"{res.get('params_max_diff')})")
+            else:
+                step1 = max(float(np.abs((p1[n] - args[n])
+                                         - (ref_p1[n] - args[n])).max())
+                            for n in p1)
+                res["step1_max_update_diff"] = step1
+                check(head_diff <= P22_HEAD_TOL, f"{label}: heads {head_diff}"
+                      f" from ShardedTrainer's, over {P22_HEAD_TOL}")
+                check(step1 <= P22_UPDATE_LIMIT, f"{label}: first update "
+                      f"{step1} from ShardedTrainer's, over "
+                      f"{P22_UPDATE_LIMIT}")
+            log(f"  {label}: " + json.dumps(res))
+            out[f"m{M}"] = res
+    finally:
+        torch.use_deterministic_algorithms(det)
+    return out
+
+
+def p22_mlp_net(mx):
+    S = mx.symbol
+    with mx.name.NameManager():
+        net = S.Variable("data")
+        for i, w in enumerate(P22_MLP_WIDTHS[:-1]):
+            net = S.FullyConnected(data=net, num_hidden=w, name=f"pfc{i}")
+            net = S.Activation(data=net, act_type="tanh")
+        net = S.FullyConnected(data=net, num_hidden=P22_MLP_WIDTHS[-1],
+                               name="pfc_out")
+        return S.SoftmaxOutput(data=net, name="softmax")
+
+
+def p22_mlp_data(np, net):
+    shapes = {"data": (P22_MLP_BATCH, P22_MLP_IN),
+              "softmax_label": (P22_MLP_BATCH,)}
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    rng = np.random.RandomState(22)
+    args = {n: rng.uniform(-0.3, 0.3, s).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in shapes}
+    batches = [{"data": rng.rand(*shapes["data"]).astype(np.float32),
+                "softmax_label": rng.randint(0, P22_MLP_WIDTHS[-1],
+                                             shapes["softmax_label"])
+                .astype(np.float32)} for _ in range(P22_STEPS)]
+    return shapes, args, batches
+
+
+def p22_bind(tr, shapes, args):
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+    return tr
+
+
+def p22_stage_fn(torch):
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+    return stage_fn
+
+
+def p22_stacked(torch, np, S, seed=23):
+    rng = np.random.RandomState(seed)
+    return ({"w": torch.tensor(rng.randn(S, 8, 8).astype(np.float32) * 0.3,
+                               device=DEVICE),
+             "b": torch.tensor(rng.randn(S, 8).astype(np.float32) * 0.1,
+                               device=DEVICE)},
+            torch.tensor(rng.randn(8, 8).astype(np.float32), device=DEVICE))
+
+
+def p22_mlp(torch, np, mx, fa, nn_ops, fu, launches):
+    """(b) the dryrun's MLP through PipelineTrainer over 4 stages on the
+    card against ShardedTrainer; SpmdPipelineTrainer and pipeline_apply
+    at one pipe member, bitwise PipelineTrainer and the sequential
+    stage."""
+    from mxnet_tpu_torch.parallel import (PipelineTrainer, ShardedTrainer,
+                                          SpmdPipelineTrainer, make_mesh,
+                                          pipeline_apply)
+    net = p22_mlp_net(mx)
+    shapes, args, batches = p22_mlp_data(np, net)
+    card = mx.gpu(0) if DEVICE == "cuda" else mx.cpu(0)
+    kw = dict(num_microbatches=P22_MLP_MICRO, optimizer="sgd",
+              optimizer_params=dict(P22_MLP_OPT))
+    ref = p22_bind(ShardedTrainer(net, "sgd", dict(P22_MLP_OPT),
+                                  mesh=make_mesh({"data": 1}, [card])),
+                   shapes, args)
+    ref_heads, _, _ = p22_steps(torch, ref, batches)
+    ref_p = p22_host(torch, ref)
+    pp = p22_bind(PipelineTrainer(net, num_stages=P22_STAGES,
+                                  devices=[card] * P22_STAGES, **kw),
+                  shapes, args)
+    p20_sync(torch)
+    p22_reset(fa, nn_ops, fu)
+    heads, ms, _ = p22_steps(torch, pp, batches)
+    got = p22_read(fa, nn_ops, fu)
+    launches["softmax_rows"] += got["softmax_rows"]
+    pp_p = p22_host(torch, pp)
+    head_diff = max(float((a - b).abs().max())
+                    for a, b in zip(heads, ref_heads))
+    param_diff = max(float(np.abs(pp_p[n] - ref_p[n]).max()) for n in ref_p)
+    check(head_diff <= P22_MLP_TOL and param_diff <= P22_MLP_TOL,
+          f"(b) pipeline heads {head_diff}, parameters {param_diff} from "
+          f"ShardedTrainer's, over {P22_MLP_TOL}")
+    want_k1 = 2 * P22_MLP_MICRO * P22_STEPS
+    if DEVICE == "cuda":
+        check(got["softmax_rows"] == want_k1
+              and got["k1_warp"] == want_k1,
+              f"(b) K1 launched {got} in {P22_STEPS} steps (expected "
+              f"{2 * P22_MLP_MICRO} a step from the last stage, warp)")
+    check(got["fused_update"] == 0, f"(b) K2 launched {got['fused_update']}")
+    out = {"pipeline": {"heads_max_diff": head_diff,
+                        "params_max_diff": param_diff, "launches": got,
+                        "step_ms": ms}}
+    # one pipe member: the timetable's run against the host-driven path
+    spmd = p22_bind(SpmdPipelineTrainer(net, num_stages=1, devices=[card],
+                                        **kw), shapes, args)
+    host = p22_bind(PipelineTrainer(net, num_stages=1, devices=[card], **kw),
+                    shapes, args)
+    same = True
+    for b in batches:
+        same &= torch.equal(spmd.step(b)[0], host.step(b)[0])
+    sp, hp = p22_host(torch, spmd), p22_host(torch, host)
+    same &= all(np.array_equal(sp[n].view(np.int32), hp[n].view(np.int32))
+                for n in hp)
+    check(spmd.dispatch_count == P22_STEPS, f"(b) SpmdPipelineTrainer ran "
+          f"{spmd.dispatch_count} member runs in {P22_STEPS} steps")
+    check(same, "(b) SpmdPipelineTrainer at one pipe member is not bitwise "
+          "PipelineTrainer's")
+    four = max(float(np.abs(sp[n] - pp_p[n]).max()) for n in sp)
+    out["spmd_one_member"] = {"dispatch_count": spmd.dispatch_count,
+                              "bitwise_pipeline_trainer": True,
+                              "max_diff_vs_four_stages": four}
+    # pipeline_apply over {"pipe": 1} against the stage, microbatch by
+    # microbatch
+    stage_fn = p22_stage_fn(torch)
+    params, x = p22_stacked(torch, np, 1)
+    y = pipeline_apply(stage_fn, params, x, make_mesh({"pipe": 1}, [card]),
+                       num_microbatches=P22_MLP_MICRO)
+    mb = x.shape[0] // P22_MLP_MICRO
+    seq = torch.cat([stage_fn({k: v[0] for k, v in params.items()},
+                              x[j * mb:(j + 1) * mb])
+                     for j in range(P22_MLP_MICRO)])
+    check(torch.equal(y, seq), "(b) pipeline_apply at one pipe member is "
+          "not bitwise the sequential stage")
+    out["pipeline_apply_one_member"] = {"bitwise_sequential": True}
+    log("  (b) " + json.dumps(out))
+    return out
+
+
+def p22_two_cards(torch, np, mx, fa, nn_ops, fu, launches):
+    """(c) where two cards exist: the LM through PipelineTrainer over both
+    cards, SpmdPipelineTrainer (the MLP) and pipeline_apply over
+    ``{"pipe": 2}``, each against the same work on one card."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import (PipelineTrainer,
+                                          SpmdPipelineTrainer, make_mesh,
+                                          pipeline_apply)
+    if DEVICE == "cuda" and torch.cuda.device_count() < 2:
+        log(f"  (c) not run: {torch.cuda.device_count()} CUDA device(s); "
+            "pipelines over distinct cards need two")
+        return {"run": False, "devices": torch.cuda.device_count()}
+    ctx = mx.gpu if DEVICE == "cuda" else mx.cpu
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    batch = lm_batch(np, seed=320)
+    out = {"run": True}
+    runs = {}
+    for label, devices in (("one", [ctx(0), ctx(0)]),
+                           ("two", [ctx(0), ctx(1)])):
+        pp = p22_bind(PipelineTrainer(sym, num_stages=2, devices=devices,
+                                      num_microbatches=2, optimizer="adam",
+                                      optimizer_params=dict(LM_OPT),
+                                      compute_dtype="bfloat16"),
+                      shapes, args)
+        before = p22_read(fa, nn_ops, fu)
+        heads, ms, _ = p22_steps(torch, pp, [batch, batch])
+        after = p22_read(fa, nn_ops, fu)
+        if label == "two":
+            for k in ("flash_attn_fwd", "flash_attn_bwd"):
+                launches[k] += after[k] - before[k]
+        runs[label] = (heads, p22_host(torch, pp), ms)
+        del pp
+    (h1, p1, ms1), (h2, p2, ms2) = runs["one"], runs["two"]
+    head_diff = max(float((a - b).abs().max()) for a, b in zip(h1, h2))
+    param_diff = max(float(np.abs(p1[n] - p2[n]).max()) for n in p1)
+    check(head_diff <= P22_HEAD_TOL and param_diff <= P22_UPDATE_LIMIT * 2,
+          f"(c) the LM over two cards: heads {head_diff}, parameters "
+          f"{param_diff} from one card's")
+    out["lm"] = {"heads_max_diff": head_diff, "params_max_diff": param_diff,
+                 "step_ms_two": ms2, "step_ms_one": ms1}
+    net = p22_mlp_net(mx)
+    mshapes, margs, mbatches = p22_mlp_data(np, net)
+    kw = dict(num_stages=2, num_microbatches=P22_MLP_MICRO, optimizer="sgd",
+              optimizer_params=dict(P22_MLP_OPT))
+    spmd = p22_bind(SpmdPipelineTrainer(net, devices=[ctx(0), ctx(1)], **kw),
+                    mshapes, margs)
+    host = p22_bind(PipelineTrainer(net, devices=[ctx(0), ctx(0)], **kw),
+                    mshapes, margs)
+    diff = 0.0
+    for b in mbatches:
+        diff = max(diff, float((spmd.step(b)[0].cpu()
+                                - host.step(b)[0].cpu()).abs().max()))
+    sp, hp = p22_host(torch, spmd), p22_host(torch, host)
+    pdiff = max(float(np.abs(sp[n] - hp[n]).max()) for n in hp)
+    check(diff <= P22_MLP_TOL and pdiff <= P22_MLP_TOL,
+          f"(c) SpmdPipelineTrainer over two cards: heads {diff}, "
+          f"parameters {pdiff} from one card's")
+    out["spmd"] = {"heads_max_diff": diff, "params_max_diff": pdiff,
+                   "dispatch_count": spmd.dispatch_count}
+    stage_fn = p22_stage_fn(torch)
+    params, x = p22_stacked(torch, np, 2)
+    y = pipeline_apply(stage_fn, params, x,
+                       make_mesh({"pipe": 2}, [ctx(0), ctx(1)]),
+                       num_microbatches=P22_MLP_MICRO)
+    seq = x
+    for s in range(2):
+        seq = stage_fn({k: v[s] for k, v in params.items()}, seq)
+    adiff = float((y - seq).abs().max())
+    check(adiff <= P22_MLP_TOL, f"(c) pipeline_apply over two cards "
+          f"{adiff} from one card's stages")
+    out["pipeline_apply"] = {"max_diff": adiff,
+                             "bitwise": bool(torch.equal(y, seq))}
+    log(f"  (c) two cards: {json.dumps(out)}")
+    return out
+
+
+def phase_pipelines(torch, np, mx, fa, nn_ops, fu, _build):
+    """Phase 22: (a) the LM through PipelineTrainer (4 stages on the
+    card) against ShardedTrainer, (b) the dryrun's MLP through the three
+    pipelines, (c) pipelines over two cards where there are two; builds
+    no kernel.  Returns the K1/K3/K4 launches of its main runs and its
+    numbers."""
+    t_phase = time.perf_counter()
+    built, compile_ = [], _build._compile
+
+    def counting(jobs):
+        built.extend(n for n, (_, dst) in jobs.items() if not dst.exists())
+        return compile_(jobs)
+
+    _build._compile = counting
+    launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "softmax_rows": 0}
+    out = {"card": card_line()}
+    try:
+        t0 = time.perf_counter()
+        out["lm"] = p22_lm(torch, np, mx, fa, nn_ops, fu, launches)
+        out["lm"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["mlp"] = p22_mlp(torch, np, mx, fa, nn_ops, fu, launches)
+        out["mlp"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["two_cards"] = p22_two_cards(torch, np, mx, fa, nn_ops, fu,
+                                         launches)
+        out["two_cards"]["seconds"] = time.perf_counter() - t0
+    finally:
+        _build._compile = compile_
+    check(not built, f"phase 22 built kernels: {built}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log("  pipelines: " + json.dumps(out))
+    return launches, out
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -8630,14 +9103,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/21] device")
+    log("[1/22] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/21] build")
+    log("[2/22] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -8652,7 +9125,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/21] kernels against their plain versions")
+    log("[3/22] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -8661,22 +9134,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/21] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/22] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/21] serving the round-12 configuration: chunked prefill "
+    log(f"[5/22] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/21] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/22] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/21] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/22] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/21] kernel timing")
+    log("[8/22] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -8693,25 +9166,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/21] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/22] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/21] imperative + executor: NDArray on the card, the MLP "
+    log("[10/22] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/21] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/22] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/21] the serving control plane: crash failover, a hung and a "
+    log("[12/22] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -8719,7 +9192,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/21] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/22] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -8728,7 +9201,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/21] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/22] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -8736,7 +9209,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/21] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/22] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -8744,7 +9217,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/21] programs and the profiler: serve and train steps "
+    log("[17/22] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -8752,7 +9225,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/21] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/22] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -8761,7 +9234,7 @@ def main(argv) -> int:
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[19/21] input records, the deployment predictor and the last ops: "
+    log(f"[19/22] input records, the deployment predictor and the last ops: "
         f"{REC_IMAGES} packed images through ImageRecordIter into "
         f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
         f"served without the port, WarpCTC at the OCR example's sizes, the "
@@ -8770,7 +9243,7 @@ def main(argv) -> int:
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[20/21] tensor and model parallelism: the LM with its embedding "
+    log(f"[20/22] tensor and model parallelism: the LM with its embedding "
         f"on the host through group2ctx, the split rewrite of "
         f"megatron_rules() at a model axis of 1, two cards where there "
         f"are two")
@@ -8779,7 +9252,7 @@ def main(argv) -> int:
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[21/21] mixture of experts and ring attention: MoEFFN (8 experts "
+    log(f"[21/22] mixture of experts and ring attention: MoEFFN (8 experts "
         f"of {P21_MOE['hidden_size']}, top-2 then top-1, aux head) over "
         f"{P21_TOKENS[0] * P21_TOKENS[1]} tokens at d {D_MODEL} on the card "
         f"against the host, ring_self_attention over a one-card seq mesh at "
@@ -8787,8 +9260,17 @@ def main(argv) -> int:
     p21_launches, _ = phase_moe_ring(torch, np, mx, fa, fu, _build)
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 21
-    log("[15/21] result")
+    t0 = time.perf_counter()
+    log(f"[22/22] pipelines: the LM through PipelineTrainer over "
+        f"{P22_STAGES} stages on the card (1F1B, remat) against "
+        f"ShardedTrainer, the dryrun's MLP through PipelineTrainer, "
+        f"SpmdPipelineTrainer and pipeline_apply, two cards where there "
+        f"are two")
+    p22_launches, _ = phase_pipelines(torch, np, mx, fa, nn_ops, fu, _build)
+    log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 22
+    log("[15/22] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -8812,7 +9294,8 @@ def main(argv) -> int:
          "mxnet_tpu/ops/nn_ops.py:847",
          train_launches["softmax_rows"] + loop_launches["softmax_rows"]
          + zoo_launches["softmax_rows"] + p17_launches["softmax_rows"]
-         + p18_launches["softmax_rows"] + p19_launches["softmax_rows"],
+         + p18_launches["softmax_rows"] + p19_launches["softmax_rows"]
+         + p22_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
@@ -8831,13 +9314,15 @@ def main(argv) -> int:
          "mxnet_tpu/parallel/flash_attention.py:77",
          lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"]
          + long_launches["flash_attn_fwd"] + p17_launches["flash_attn_fwd"]
-         + p20_launches["flash_attn_fwd"] + p21_launches["flash_attn_fwd"],
+         + p20_launches["flash_attn_fwd"] + p21_launches["flash_attn_fwd"]
+         + p22_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
          lm_launches["flash_attn_bwd"] + loop_launches["flash_attn_bwd"]
          + long_launches["flash_attn_bwd"] + p17_launches["flash_attn_bwd"]
-         + p20_launches["flash_attn_bwd"] + p21_launches["flash_attn_bwd"],
+         + p20_launches["flash_attn_bwd"] + p21_launches["flash_attn_bwd"]
+         + p22_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

@@ -15,24 +15,39 @@ Counterpart of ``mxnet_tpu/parallel/__init__.py``, with the same names:
   expert parallelism over a mesh in one process (implicit and compressed
   modes, error feedback, ZeRO, :class:`ShardingRules` and
   :func:`megatron_rules` over a ``model`` axis, computed by the plans of
-  :mod:`.tensor_parallel`; rules over an ``expert`` axis), the fused
-  update (K2) and flash attention (K3, K4).
+  :mod:`.tensor_parallel`; rules over an ``expert`` axis; a ``pipe``
+  axis replicates the step), the fused update (K2) and flash attention
+  (K3, K4);
+* :mod:`.pipeline` -- :func:`pipeline_apply`: the GPipe schedule of a
+  stage function over a ``pipe`` axis (one member thread a stage);
+* :mod:`.pipeline_trainer` -- :class:`PipelineTrainer`: a Symbol cut
+  into stages on their own contexts (repeats allowed), the host-driven
+  1F1B step with rematerialized stage backwards, ``data_parallel``
+  columns;
+* :mod:`.pipeline_spmd` -- :class:`SpmdPipelineTrainer`: the same stages
+  over a ``(data, pipe)`` mesh of distinct contexts, the step one run of
+  the members over the static timetable :func:`~.pipeline_spmd.
+  schedule_1f1b`.
 
-Pipelines and the multi-process tier (``ElasticTrainer`` and its
-helpers) are not ported yet: those names raise when called
-(ROADMAP.md).  As in the JAX package, ``parallel.ring_attention`` is the
-function (the import below shadows the submodule, which
+The multi-process tier (``ElasticTrainer`` and its helpers) is not
+ported yet: those names raise when called (ROADMAP.md).  As in the JAX
+package, ``parallel.ring_attention`` is the function (the import below
+shadows the submodule, which
 ``sys.modules["mxnet_tpu_torch.parallel.ring_attention"]`` still holds).
 """
 from ..base import not_ported
 from . import (collectives, flash_attention, members, mesh, moe,
-               ring_attention, tensor_parallel, trainer)
+               pipeline, pipeline_spmd, pipeline_trainer, ring_attention,
+               tensor_parallel, trainer)
 from .collectives import allreduce_mean, allreduce_sum
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
                    Mesh, NamedSharding, PartitionSpec, batch_sharding,
                    current_mesh, data_parallel_mesh, default_mesh,
                    make_mesh, param_sharding, replicated)
 from .moe import load_balance_loss, moe_ffn, moe_ffn_ep, switch_ffn
+from .pipeline import pipeline_apply
+from .pipeline_spmd import SpmdPipelineTrainer
+from .pipeline_trainer import PipelineTrainer
 from .ring_attention import (blockwise_attention, local_attention,
                              ring_attention, ring_self_attention)
 from .trainer import ShardedTrainer, ShardingRules, megatron_rules
@@ -46,11 +61,7 @@ def _unported(name: str, what: str):
     return raiser
 
 
-_MODEL = "model parallelism"
 _MULTIPROC = "the multi-process tier"
-pipeline_apply = _unported("pipeline_apply", _MODEL)
-PipelineTrainer = _unported("PipelineTrainer", _MODEL)
-SpmdPipelineTrainer = _unported("SpmdPipelineTrainer", _MODEL)
 ElasticTrainer = _unported("ElasticTrainer", _MULTIPROC)
 default_mesh_size = _unported("default_mesh_size", _MULTIPROC)
 pow2_floor = _unported("pow2_floor", _MULTIPROC)
@@ -68,6 +79,7 @@ __all__ = [
     "switch_ffn", "moe_ffn", "moe_ffn_ep", "load_balance_loss",
     "pipeline_apply", "PipelineTrainer", "SpmdPipelineTrainer",
     "collectives", "flash_attention", "mesh", "trainer",
-    "tensor_parallel", "members", "moe",
+    "tensor_parallel", "members", "moe", "pipeline", "pipeline_trainer",
+    "pipeline_spmd",
     "blockwise_attention",
 ]

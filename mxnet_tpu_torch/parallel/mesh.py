@@ -17,10 +17,12 @@ Canonical axis names, as in the JAX package:
 * ``expert`` -- MoE expert parallelism
 
 The trainer splits the batch over the data axis and rule-sharded
-parameters over the model axis; the sequence, pipeline and expert axes
-carry no work in the port yet (ROADMAP.md).  :func:`axis_groups` lists
-the members that share every coordinate but one axis's: the groups a
-collective along that axis runs over.  :func:`replicated`, :func:`batch_sharding` and
+parameters over the model (or expert) axis; ring attention splits the
+sequence over the seq axis, the expert-parallel MoE program its experts
+over the expert axis, and ``pipeline_apply`` and ``SpmdPipelineTrainer``
+their stages over the pipe axis.  :func:`axis_groups` lists the members
+that share every coordinate but one axis's: the groups a collective
+along that axis runs over.  :func:`replicated`, :func:`batch_sharding` and
 :func:`param_sharding` return :class:`NamedSharding` placement records
 that the trainer and the checkpoint reader read: ``place(value)`` cuts a
 host value into each member's piece on the member's device.

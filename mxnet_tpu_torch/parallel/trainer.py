@@ -170,9 +170,15 @@ parameter's gradient is the sum over every member; rules may cut
 parameters over the expert axis (``P("expert", ...)``: each member holds
 its experts, which meet along their data group).  The dense ``MoEFFN``
 over several data members routes the global batch (:func:`_batch_layout`
-marks it as a reduction over the rows).  A mesh with more than one of
-the model, seq and expert axes, a pipe axis, and ``grad_compression``
-beside a seq or expert axis are refused.
+marks it as a reduction over the rows).  A ``pipe`` axis replicates
+the parameters and the step, as the JAX trainer runs such a mesh: its
+members hold the same rows and the same parameters, heads are
+differentiated on the pipe group's member 0 (the others' gradients are
+zero), and the implicit and explicit modes run as over the data axis
+alone; the stages themselves are :class:`~.pipeline_trainer.
+PipelineTrainer`'s.  A mesh with more than one of the model, seq,
+expert and pipe axes, and ``grad_compression`` beside a seq or expert
+axis are refused.
 
 Inference forwards run on the lead member over the whole batch (no
 statistic crosses rows at inference), under the mesh.  One step path
@@ -210,7 +216,8 @@ from . import tensor_parallel as tp_mod
 from .collectives import (DEFAULT_BUCKET_BYTES, check_compression,
                           plan_buckets, psum, psum_compressed)
 from .members import run_synced
-from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh,
+from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
+                   SEQ_AXIS, Mesh,
                    NamedSharding, PartitionSpec, axis_groups,
                    data_parallel_mesh, default_mesh, make_mesh)
 
@@ -317,8 +324,8 @@ class ShardedTrainer:
     mesh : parallel.Mesh, optional
         Default: a data mesh over every local device of ``device``'s
         platform (one member on the CPU), or ``device`` alone when it
-        names an index.  Beside the data axis, one of the model, seq and
-        expert axes may have more than one member.
+        names an index.  Beside the data axis, one of the model, seq,
+        expert and pipe axes may have more than one member.
     rules : ShardingRules, optional
         Parameter placement over the mesh's model axis (tensor
         parallelism) or expert axis (each member holds its experts);
@@ -404,9 +411,10 @@ class ShardedTrainer:
         if grad_compression is not None and self.data_axis is None:
             raise MXNetError("grad_compression needs a data axis to "
                              "reduce over; this mesh has none")
-        if grad_compression is not None and self._dup_axes:
+        split_axes = [a for a in self._dup_axes if a != PIPE_AXIS]
+        if grad_compression is not None and split_axes:
             raise not_ported(
-                f"grad_compression over a mesh with a {self._dup_axes[0]!r} "
+                f"grad_compression over a mesh with a {split_axes[0]!r} "
                 "axis (the explicit mode's members do not meet inside the "
                 "step; use the implicit mode)")
         # error feedback: one residual a bucket a member, on by default
@@ -507,12 +515,14 @@ class ShardedTrainer:
         others = sorted(a for a in mesh.axis_names
                         if a != self.data_axis and mesh.shape[a] > 1)
         if len(others) > 1 or any(a not in (MODEL_AXIS, SEQ_AXIS,
-                                            EXPERT_AXIS) for a in others):
+                                            EXPERT_AXIS, PIPE_AXIS)
+                                  for a in others):
             raise not_ported(
                 f"ShardedTrainer over mesh axes {others} beside the data "
-                "axis: one of model, seq and expert may have more than one "
-                "member (pipelines, and model parallelism combined with "
-                "sequence or expert parallelism, are not ported)")
+                "axis: one of model, seq, expert and pipe may have more "
+                "than one member (model parallelism combined with sequence "
+                "or expert parallelism, and a pipe axis beside any of "
+                "them, are not ported)")
         self.model_axis = (MODEL_AXIS if MODEL_AXIS in mesh.axis_names
                            and MODEL_AXIS != self.data_axis else None)
         # the axis the rules may cut parameters over: model (tensor
@@ -521,9 +531,11 @@ class ShardedTrainer:
             EXPERT_AXIS if EXPERT_AXIS in mesh.axis_names
             and EXPERT_AXIS != self.data_axis else None)
         # axes whose members hold the same rows and split one op's work
-        # (ring attention, expert parallelism); the rest of their step is
-        # the same on every member of the group
-        self._dup_axes = [a for a in others if a in (SEQ_AXIS, EXPERT_AXIS)]
+        # (ring attention, expert parallelism) or none of it (a pipe axis
+        # replicates the step, as the JAX trainer runs such a mesh); the
+        # rest of their step is the same on every member of the group
+        self._dup_axes = [a for a in others
+                          if a in (SEQ_AXIS, EXPERT_AXIS, PIPE_AXIS)]
         self._ndata = mesh.shape[self.data_axis] if self.data_axis else 1
         self._ntp = (mesh.shape[self._piece_axis] if self._piece_axis
                      else 1)
@@ -534,7 +546,8 @@ class ShardedTrainer:
             (DATA_AXIS, self.data_axis), (MODEL_AXIS, self.model_axis),
             (SEQ_AXIS, SEQ_AXIS if SEQ_AXIS in self._dup_axes else None),
             (EXPERT_AXIS, EXPERT_AXIS if EXPERT_AXIS in mesh.axis_names
-             and EXPERT_AXIS != self.data_axis else None))}
+             and EXPERT_AXIS != self.data_axis else None),
+            (PIPE_AXIS, PIPE_AXIS if PIPE_AXIS in self._dup_axes else None))}
         rank = {ax: {i: g.index(i) for g in gs for i in g}
                 for ax, gs in self._groups.items()}
         self._dcoord = [rank[DATA_AXIS][i] for i in range(mesh.size)]
@@ -605,7 +618,8 @@ class ShardedTrainer:
         self._row_reductions: frozenset = frozenset()
         self._global_heads: frozenset = frozenset()
         if ndata > 1 and self.grad_compression is None:
-            why, reds, glob = _batch_layout(sym, self._topo, input_shapes)
+            why, reds, glob, _ = _batch_layout(sym, self._topo,
+                                               input_shapes)
             if why is not None:
                 raise not_ported(
                     f"ShardedTrainer over {ndata} members in the implicit "
@@ -2471,7 +2485,9 @@ _OPAQUE_OPS = ("Custom", "_PythonOp")
 def _batch_layout(sym, topo, input_shapes):
     """How the implicit mode evaluates ``topo`` over members that split
     the batch's rows (axis 0 of the tensors that depend on the inputs,
-    shaped ``input_shapes``): ``(refusal, reductions, global heads)``.
+    shaped ``input_shapes``): ``(refusal, reductions, global heads,
+    row_split)``, ``row_split(node, i)`` telling whether output ``i`` of
+    a node is cut by rows.
 
     A whole-array reduction, or a reduction over the rows (``sum_axis``
     and its kin over axis 0), of a row-split value meets the other
@@ -2553,11 +2569,11 @@ def _batch_layout(sym, topo, input_shapes):
         elif name == "dot" and deps[1]:
             what = "contracts over a batch-dependent right operand"
         if what is not None:
-            return f"op {name} ({node.name}) {what}", None, None
+            return f"op {name} ({node.name}) {what}", None, None, None
         rows.add(id(node))
     heads = frozenset(q for q, (n, i) in enumerate(sym._heads)
                       if global_value(n, i))
-    return None, frozenset(reductions), heads
+    return None, frozenset(reductions), heads, row_split
 
 
 def _torch_dtype(name) -> Optional[torch.dtype]:

@@ -19,8 +19,10 @@ the input records, the last three ops and the deployment predictor
 (recordio, image_io, ops.ctc, ops.detection_ops, predictor's Predictor
 and export), tensor and model parallelism (parallel.tensor_parallel,
 ShardingRules, megatron_rules, the axis collectives, the executor's
-cross-device copy) and ``chip_smoke``; a source scan checks every file of the
-port and the script for such imports.
+cross-device copy), pipelines (parallel.pipeline, parallel.pipeline_trainer,
+parallel.pipeline_spmd; none of them touches the card at import) and
+``chip_smoke``; a source scan checks every file of the port and the script
+for such imports.
 """
 import os
 import re
@@ -91,6 +93,14 @@ from mxnet_tpu_torch.parallel.collectives import (all_gather, over_axis,
                                                   reduce_scatter)
 from mxnet_tpu_torch.parallel.mesh import axis_groups
 from mxnet_tpu_torch.ops.nn_ops import cross_device_copy
+import mxnet_tpu_torch.parallel.pipeline
+import mxnet_tpu_torch.parallel.pipeline_spmd
+import mxnet_tpu_torch.parallel.pipeline_trainer
+from mxnet_tpu_torch.parallel import (PipelineTrainer, SpmdPipelineTrainer,
+                                      pipeline_apply)
+from mxnet_tpu_torch.parallel.pipeline_spmd import schedule_1f1b
+import torch
+assert not torch.cuda.is_initialized()
 from mxnet_tpu_torch import AttrScope
 from mxnet_tpu_torch import image_io, recordio
 from mxnet_tpu_torch.ops import ctc, detection_ops

@@ -479,7 +479,11 @@ def test_aux_loss_head_trains_toward_balance():
 
 def test_refusals_name_what_is_missing():
     """Model parallelism beside an expert or seq axis, and compressed
-    gradients over an expert axis, still refuse."""
+    gradients over an expert axis, still refuse; a pipe axis beside the
+    data axis takes the dense MoE net as the JAX trainer does (the
+    parameters replicated along it, the global batch routed over the
+    data members): heads and parameters after 2 steps against the JAX
+    trainer on the same mesh."""
     from mxnet_tpu_torch.base import MXNetError
     with mxt.name.NameManager():
         net = _moe_net(mxt.symbol)
@@ -488,5 +492,15 @@ def test_refusals_name_what_is_missing():
     with pytest.raises(MXNetError, match="not ported"):
         ShardedTrainer(net, mesh=tmesh({"data": 2, "expert": 2}),
                        grad_compression="int8")
-    with pytest.raises(MXNetError, match="not ported"):
-        ShardedTrainer(net, mesh=tmesh({"data": 2, "pipe": 2}))
+    b = 16
+    args = _moe_args(5, b)
+    batches = _batches(2, b, 6)
+    axes = {"data": 2, "pipe": 2}
+    jh, jt = _train(axes, None, b, 1, 4.0, False, args, batches,
+                    jax_side=True)
+    th, tt = _train(axes, None, b, 1, 4.0, False, args, batches)
+    assert tt._dup_axes == ["pipe"]
+    np.testing.assert_allclose(th[0], jh[0], **JAX_HEAD)
+    tp, jp = _tparams(tt), _jparams(jt)
+    for n in jp:
+        np.testing.assert_allclose(tp[n], jp[n], **JAX_PARAM, err_msg=n)

@@ -562,13 +562,33 @@ def test_mesh_fingerprint_matches_jax(n):
 
 def test_unported_parts_still_raise():
     sym = _build(mxt.sym)
-    # tensor, sequence and expert parallelism are ported
-    # (tests/test_torch_{tensor_parallel,ring,moe}.py): a seq mesh takes
-    # the trainer and moe_ffn runs; a pipe axis still raises
+    # tensor, sequence, expert and pipeline parallelism are ported
+    # (tests/test_torch_{tensor_parallel,ring,moe,pipeline*}.py): a seq
+    # mesh takes the trainer, moe_ffn runs, and a pipe axis takes the
+    # trainer as the JAX trainer does (parameters replicated along it,
+    # the batch split over data): heads and parameters after 2 steps
     tr = ShardedTrainer(sym, mesh=make_mesh({"data": 2, "seq": 2}, cpus(4)))
     assert tr._dup_axes == ["seq"]
-    with pytest.raises(MXNetError, match="not ported"):
-        ShardedTrainer(sym, mesh=make_mesh({"data": 2, "pipe": 2}, cpus(4)))
+    bsym, jbsym = _build(mxt.sym, bn=True), _build(mx.sym, bn=True)
+    args, aux = _state(bsym, 16)
+    jt = JaxTrainer(jbsym, optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                    mesh=jmake_mesh({"data": 2, "pipe": 2},
+                                    jax.devices()[:4]))
+    jt.bind({"data": (16, 8)}, {"softmax_label": (16,)},
+            arg_params={k: jnp.asarray(v) for k, v in args.items()},
+            aux_params={k: jnp.asarray(v) for k, v in aux.items()})
+    tt = ShardedTrainer(bsym, "sgd", {"learning_rate": 0.1, "momentum": 0.9},
+                        mesh=make_mesh({"data": 2, "pipe": 2}, cpus(4)))
+    tt.bind({"data": (16, 8)}, {"softmax_label": (16,)}, arg_params=args,
+            aux_params=aux)
+    assert tt._dup_axes == ["pipe"]
+    for step in range(2):
+        x, y = _toy_batch(16, seed=30 + step)
+        jh = np.asarray(jt.step({"data": x, "softmax_label": y})[0])
+        th = tt.step({"data": x, "softmax_label": y})[0].numpy()
+        np.testing.assert_allclose(th, jh, atol=HEAD_ATOL)
+    _assert_pair(jt, tt, "data x pipe")
     rng = np.random.RandomState(0)
     ins = [rng.randn(*s).astype(np.float32)
            for s in ((6, 3), (3, 2), (2, 3, 4), (2, 4), (2, 4, 3), (2, 3))]
@@ -576,10 +596,8 @@ def test_unported_parts_still_raise():
     jy, _ = mx.parallel.moe_ffn(*map(jnp.asarray, ins))
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
                                atol=1e-6)
-    for name in ("ElasticTrainer", "pipeline_apply", "PipelineTrainer",
-                 "SpmdPipelineTrainer"):
-        with pytest.raises(MXNetError, match="not ported"):
-            getattr(tpar, name)()
+    with pytest.raises(MXNetError, match="not ported"):
+        tpar.ElasticTrainer()
     with pytest.raises(MXNetError, match="not ported"):
         mxt.kvstore.create("dist_sync")
     assert set(mx.parallel.__all__) <= set(tpar.__all__)

@@ -399,11 +399,50 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     ``SpmdPipelineTrainer`` and ``pipeline_apply`` over ``{"pipe": 2}``,
     each against one card; with one card it prints that (c) did not run
     and why; no kernel is built;
+23. runs the multi-process tier (after phase 22, before 15), each child
+    a fresh interpreter (``python3 chip_smoke.py --dist-worker JOB
+    DIR``: torch, numpy and the port only, ``PYTHONPATH`` set to this
+    script's directory, its output in a log in ``DIR`` that the phase
+    prints on a failure; every child under a time limit, past which all
+    of them are killed and the phase fails naming the role): (a)
+    ``launch_local`` starts 1 scheduler, 2 servers and 2 workers on the
+    card; the workers push integer values (a 3x3 key and a 2 MiB key,
+    above ``BIGARRAY_BOUND``, striped over both servers) through the
+    ``test`` optimizer on the servers and pull the closed form bitwise,
+    over ``dist_sync`` and then in a second cluster over ``dist_async``
+    (the closed form counts each push applied once); (b) in (a)'s sync
+    cluster, phase 7's ResNet-50 through ``FeedForward.fit`` (SGD on
+    the servers, 3 batches of 32 a worker, each worker its contiguous
+    half of one seeded data set, deterministic cuDNN): both workers'
+    parameters bitwise equal, and within 1e-5 (bitwise so far) of this
+    process's sum of the two halves' gradients under the same host SGD;
+    K1 once a batch a worker; prints ms a batch, the host share (the
+    training thread inside push and pull), bytes pushed and pulled a
+    batch; (c) phase 9's LM through ``ShardedTrainer`` over a data mesh
+    of 2 processes, one member each on the card, over gloo (asserted),
+    3 Adam steps on each process's rows of the global batch: the ranks'
+    parameters bitwise equal; each rank's loss within 2e-4 of this
+    process's one-card run on the global batch, at most 5 % of the
+    parameters beyond 1e-4; K3 and K4 6 times a step and K2 once a step
+    a rank, all hopper; then, in the same processes, a BatchNorm net
+    (f32, 64 x 1024 -> 1024 -> BatchNorm -> 1000, a softmax head and a
+    global sum head, 3 SGD steps; the first process's rows shifted):
+    the ranks' parameters and moving statistics bitwise equal, each
+    within 1e-3 of its one-card move from the one-card run, the heads
+    within 1e-4 relative, K1 and K2 once a step a rank (the limits sit
+    between the sound readings and planted faults',
+    ``tools/torch_collective_faults.py``); prints ms a step
+    beside the one-process step and the bytes reduced a step; where two
+    cards exist, again with one process on each card over NCCL; with
+    one it says so; the children's launches count in the kernel line;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
-port is not beside it, and on any failed check.
+port is not beside it, and on any failed check.  ``--dist-worker JOB
+DIR`` is phase 23's child program (``kv-sync``, ``kv-async`` in every
+role of a ``launch_local`` cluster, ``lm`` as a rank of a process group),
+which reads the sizes the parent wrote to ``DIR/plan.json``.
 
 ``python3 chip_smoke.py --serve-ab PARENT`` measures what a change to the
 port costs the serving loop: it runs phases 4 and 11 alone (after the
@@ -9045,6 +9084,787 @@ def phase_pipelines(torch, np, mx, fa, nn_ops, fu, _build):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the multi-process tier (parameter server, launch, a data mesh
+# that spans processes)
+# ---------------------------------------------------------------------------
+
+# (a) the reference nightly's integer pattern: init 1, every worker pushes
+# (rank + 1) * RATE REPEAT times a key; the big key (2 MiB) is above the
+# default BIGARRAY_BOUND (1 MiB), so it is striped over both servers
+P23_WORKERS, P23_SERVERS = 2, 2
+P23_AGG = dict(small=(3, 3), big=(1024, 512), rate=2, repeat=3)
+# (b) phase 7's ResNet-50 through FeedForward.fit: each worker takes its
+# contiguous half of one data set of 3 global batches of BATCH
+P23_BATCHES = 3
+# the workers' final parameters against the one-process sum of the two
+# halves' gradients under the same SGD, both under deterministic cuDNN
+# (the same calls on the same shapes): within f32 rounding, 1e-5
+P23_RESNET_ATOL = 1e-5
+# (c) phase 9's LM through ShardedTrainer over a data mesh of 2 processes
+# against one process on the global batch (bf16 compute, Adam lr 1e-3):
+# the ranks' parameters bitwise equal; each rank's loss over its rows
+# within P23_LM_LOSS_RTOL relative at every step; at most the share
+# P23_LM_SHARE[1] of the parameters more than P23_LM_SHARE[0] from the
+# one-process run (two members' bf16 products round otherwise than one
+# member's, and an element whose gradient is that noise flips its Adam
+# step).  Adam's step does not see the gradient's scale, so the
+# reduction's scale is held by the BatchNorm net below, under SGD
+P23_LM_STEPS = 3
+P23_LM_LOSS_RTOL = 2e-4
+P23_LM_SHARE = (1e-4, 0.05)
+# (c) then, in the same processes, a BatchNorm net with a softmax head
+# and a global head (a sum over the global batch): the batch moments,
+# the normalization's count and the global head meet across the
+# processes, the global head's gradient crosses back.  f32, SGD at
+# rate LR, the first process's rows shifted by 2 (its moments differ).
+# Against one process on the global batch: each parameter's and moving
+# statistic's largest difference over the largest move of the
+# one-process run from the initial value within P23_BN_RTOL, the heads
+# within P23_BN_HEAD_RTOL relative
+P23_BN = dict(batch=64, inp=1024, hidden=1024, classes=1000, steps=3,
+              lr=0.1)
+P23_BN_RTOL = 1e-3
+P23_BN_HEAD_RTOL = 1e-4
+# each child program's time limit (seconds)
+P23_TIMEOUT = {"kv-sync": 300, "kv-async": 120, "lm": 300}
+
+
+def p23_plan(device):
+    """What every child program of phase 23 runs: the device and the
+    sizes (the parent's constants, so that a rehearsal that shrinks them
+    shrinks the children too)."""
+    return {"device": device, "agg": P23_AGG, "depth": DEPTH,
+            "classes": CLASSES, "image": list(IMAGE), "batch": BATCH,
+            "batches": P23_BATCHES, "train_opt": TRAIN_OPT,
+            "lm": dict(vocab=VOCAB, layers=LAYERS, d_model=D_MODEL,
+                       heads=HEADS, batch=LM_BATCH, seq=LM_SEQ,
+                       opt=LM_OPT, steps=P23_LM_STEPS),
+            "bn": P23_BN,
+            "lm_cards": [0, 0]}
+
+
+def p23_images(np, plan, rows):
+    """Rows ``rows`` of phase 23's synthetic data set: sample k drawn
+    from its own seed, so a worker can make its half alone."""
+    shape = tuple(plan["image"])
+    x = np.empty((len(rows),) + shape, np.float32)
+    y = np.empty(len(rows), np.float32)
+    for i, k in enumerate(rows):
+        rng = np.random.RandomState(23000 + k)
+        x[i] = rng.uniform(-1.0, 1.0, shape)
+        y[i] = rng.randint(0, plan["classes"])
+    return x, y
+
+
+def p23_resnet(plan):
+    """Phase 7's ResNet-50 under a fresh name manager: a child and this
+    process (which built other symbols before) name its nodes alike."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.name import NameManager
+    with NameManager():
+        return models.get_symbol("resnet", num_classes=plan["classes"],
+                                 depth=plan["depth"])
+
+
+def p23_lm_symbol(plan):
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.name import NameManager
+    lm = plan["lm"]
+    with NameManager():
+        return models.get_symbol(
+            "transformer-lm", vocab_size=lm["vocab"],
+            num_layers=lm["layers"], d_model=lm["d_model"],
+            heads=lm["heads"], batch_size=lm["batch"], seq_len=lm["seq"],
+            loss_head=True)
+
+
+def p23_lm_state(np, plan, sym):
+    lm = plan["lm"]
+    shapes = dict(data=(lm["batch"], lm["seq"]),
+                  softmax_label=(lm["batch"], lm["seq"]))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    toks = np.random.RandomState(0).randint(0, lm["vocab"],
+                                            (lm["batch"], lm["seq"] + 1))
+    batch = {"data": toks[:, :-1].astype(np.float32),
+             "softmax_label": toks[:, 1:].astype(np.float32)}
+    return shapes, args, batch
+
+
+def p23_bn_symbol(plan):
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.name import NameManager
+    bn = plan["bn"]
+    with NameManager():
+        h = S.FullyConnected(data=S.Variable("data"),
+                             num_hidden=bn["hidden"], no_bias=True,
+                             name="fc1")
+        h = S.BatchNorm(data=h, fix_gamma=False, name="bn1")
+        h = S.Activation(data=h, act_type="relu", name="relu1")
+        h = S.FullyConnected(data=h, num_hidden=bn["classes"], name="fc2")
+        soft = S.SoftmaxOutput(data=h, normalization="batch",
+                               name="softmax")
+        total = S.MakeLoss(S.sum(S.square(h), name="sq_sum")
+                           * (1.0 / (bn["batch"] * bn["classes"])),
+                           name="glob")
+        return S.Group([soft, total])
+
+
+def p23_bn_state(np, plan, sym):
+    """(shapes, initial parameters and aux states, the global batches)."""
+    bn = plan["bn"]
+    shapes = dict(data=(bn["batch"], bn["inp"]),
+                  softmax_label=(bn["batch"],))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=23)
+    rng = np.random.RandomState(23)
+    batches = []
+    for _ in range(bn["steps"]):
+        x = rng.randn(bn["batch"], bn["inp"]).astype(np.float32)
+        x[:bn["batch"] // 2] += 2.0
+        batches.append({"data": x, "softmax_label": rng.randint(
+            0, bn["classes"], bn["batch"]).astype(np.float32)})
+    return shapes, args, aux, batches
+
+
+def p23_bn_train(torch, np, mx, plan, rows, **where):
+    """The BatchNorm net's SGD steps through a ShardedTrainer placed by
+    ``where`` (``mesh=`` or ``device=``) on rows ``rows`` of each global
+    batch.  Returns (its parameters and aux states on the host, each
+    step's heads on the host)."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    sym = p23_bn_symbol(plan)
+    shapes, args, aux, batches = p23_bn_state(np, plan, sym)
+    tr = ShardedTrainer(sym, optimizer="sgd",
+                        optimizer_params={"learning_rate":
+                                          plan["bn"]["lr"]}, **where)
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]},
+            arg_params=args, aux_params=aux)
+    heads = []
+    for b in batches:
+        heads.append([h.float().cpu() for h in tr.step(
+            {k: v[rows] for k, v in b.items()})])
+    arg, auxp = tr.get_params()
+    state = {k: v.data.cpu() for k, v in list(arg.items())
+             + list(auxp.items())}
+    del tr
+    return state, heads
+
+
+def p23_counts():
+    """The K1-K4 launch counts of this process."""
+    from mxnet_tpu_torch.ops import fused_update as fu
+    from mxnet_tpu_torch.ops import nn_ops
+    from mxnet_tpu_torch.parallel import flash_attention as fa
+    return {"softmax_rows": nn_ops.softmax_rows.launches,
+            "fused_update": fu.fused_update.launches,
+            "flash_attn_fwd": fa.flash_fwd.launches,
+            "flash_attn_bwd": fa.flash_bwd.launches,
+            "forms": {"softmax_rows": dict(
+                nn_ops.softmax_rows.launches_by_form),
+                "fused_update": dict(fu.fused_update.launches_by_form),
+                "flash_attn_fwd": dict(fa.flash_fwd.launches_by_form),
+                "flash_attn_bwd": dict(fa.flash_bwd.launches_by_form)}}
+
+
+def p23_sync(torch, plan):
+    if plan["device"] == "cuda":
+        torch.cuda.synchronize()
+
+
+# -- the child programs (python3 chip_smoke.py --dist-worker JOB DIR) --
+
+def p23_aggregate(np, mx, kv, plan, ctx):
+    """(a): integer pushes on the card through the ``test`` optimizer on
+    the servers (``w += g``); every pulled value bitwise the closed
+    form, which counts each push applied once."""
+    agg = plan["agg"]
+    kv.set_optimizer(mx.optimizer.create("test"))
+    kv.init("agg_small", mx.nd.ones(tuple(agg["small"]), ctx=ctx))
+    kv.init("agg_big", mx.nd.ones(tuple(agg["big"]), ctx=ctx))
+    rank, n = kv.rank, kv.num_workers
+    for _ in range(agg["repeat"]):
+        for key in ("agg_small", "agg_big"):
+            kv.push(key, mx.nd.ones(tuple(agg[key[4:]]), ctx=ctx)
+                    * ((rank + 1) * agg["rate"]))
+    if kv.type == "dist_async":
+        kv.barrier()    # every worker's pushes were applied
+    # each push applied once: init 1 + rate * repeat * sum(rank + 1)
+    want = n * (n + 1) / 2 * agg["rate"] * agg["repeat"] + 1
+    for key in ("agg_small", "agg_big"):
+        out = mx.nd.zeros(tuple(agg[key[4:]]), ctx=ctx)
+        kv.pull(key, out=out)
+        got = out.asnumpy()
+        check(out.context == ctx and got.dtype == np.float32
+              and bool((got == want).all()),
+              f"(a) {kv.type}: {key} pulled {np.unique(got)[:4]}, the "
+              f"closed form is {want}")
+    return {"closed_form": want, "pushes_a_key": n * agg["repeat"]}
+
+
+def p23_fit(torch, np, mx, kv, plan, ctx, out):
+    """(b): ResNet-50 through FeedForward.fit over the dist_sync store,
+    SGD on the servers; this worker's contiguous half of the data set.
+    Returns its numbers; writes its final parameters."""
+    from mxnet_tpu_torch import telemetry
+    sym = p23_resnet(plan)
+    half = plan["batch"] // kv.num_workers
+    nrows = half * plan["batches"]
+    x, y = p23_images(np, plan, range(kv.rank * nrows,
+                                       (kv.rank + 1) * nrows))
+    shapes = dict(data=(half,) + tuple(plan["image"]),
+                  softmax_label=(half,))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    cpu = mx.cpu()
+    model = mx.FeedForward(
+        sym, ctx=ctx, num_epoch=1, optimizer="sgd", numpy_batch_size=half,
+        arg_params={k: mx.nd.array(v, ctx=cpu) for k, v in args.items()},
+        aux_params={k: mx.nd.array(v, ctx=cpu) for k, v in aux.items()},
+        **plan["train_opt"])
+    # the training thread's time inside the store (push enqueues, pull
+    # waits on the wire and the servers: the card idles)
+    in_store = [0.0]
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                in_store[0] += time.perf_counter() - t0
+        return run
+
+    kv.push, kv.pull = timed(kv.push), timed(kv.pull)
+    marks = []
+
+    def batch_end(_):
+        p23_sync(torch, plan)
+        marks.append((time.perf_counter(), in_store[0],
+                      telemetry.counter("dist.push_bytes").value(),
+                      telemetry.counter("dist.pull_bytes").value()))
+
+    it = mx.io.NDArrayIter(x, y, batch_size=half)
+    p23_sync(torch, plan)
+    marks.append((time.perf_counter(), in_store[0],
+                  telemetry.counter("dist.push_bytes").value(),
+                  telemetry.counter("dist.pull_bytes").value()))
+    model.fit(X=it, kvstore=kv, batch_end_callback=batch_end)
+    torch.save({k: v.data.cpu() for k, v in model.arg_params.items()},
+               os.path.join(out, f"resnet_rank{kv.rank}.pt"))
+    rows = []
+    for (t0, s0, pu0, pl0), (t1, s1, pu1, pl1) in zip(marks, marks[1:]):
+        rows.append({"ms": (t1 - t0) * 1e3,
+                     "host_share": (s1 - s0) / (t1 - t0),
+                     "pushed_bytes": pu1 - pu0, "pulled_bytes": pl1 - pl0})
+    return {"batches": rows, "images": len(x)}
+
+
+def p23_kv_job(torch, np, mx, plan, out, kind):
+    ctx = mx.gpu(0) if plan["device"] == "cuda" else mx.cpu()
+    kv = mx.kvstore.create(kind)    # a server or the scheduler exits here
+    res = {"rank": kv.rank, "aggregate": p23_aggregate(np, mx, kv, plan,
+                                                       ctx)}
+    if kind == "dist_sync":
+        # held to the parent's run of the same convolutions: cuDNN's
+        # default backward is not deterministic
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        res["fit"] = p23_fit(torch, np, mx, kv, plan, ctx, out)
+    kv.close()
+    res["counts"] = p23_counts()
+    return res
+
+
+def p23_lm_job(torch, np, mx, plan, out):
+    """(c): the LM through ShardedTrainer over a data mesh of every
+    process's member; this process's rows of the global batch."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer, dist, make_mesh
+    from mxnet_tpu_torch.parallel.collectives import count_collectives
+    rank = int(os.environ["MXTPU_PROC_ID"])
+    dev = (mx.gpu(plan["lm_cards"][rank]) if plan["device"] == "cuda"
+           else mx.cpu())
+    dist.init_distributed(device=dev)
+    mesh = make_mesh({"data": -1})
+    sym = p23_lm_symbol(plan)
+    shapes, args, batch = p23_lm_state(np, plan, sym)
+    tr = ShardedTrainer(sym, optimizer="adam",
+                        optimizer_params=dict(plan["lm"]["opt"]),
+                        compute_dtype="bfloat16", mesh=mesh)
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+    n = plan["lm"]["batch"] // dist.process_count()
+    mine = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    step_ms, losses, reduced = [], [], []
+    for _ in range(plan["lm"]["steps"]):
+        p23_sync(torch, plan)
+        t0 = time.perf_counter()
+        with count_collectives() as st:
+            heads = tr.step(mine)
+        p23_sync(torch, plan)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(heads[0].float().sum()))
+        reduced.append(sum(r["nbytes"] for r in st.records
+                           if r["kind"] == "process"))
+    torch.save({k: v.data.cpu() for k, v in tr.get_params()[0].items()},
+               os.path.join(out, f"lm_rank{rank}.pt"))
+    del tr
+    counts = p23_counts()
+    res = {"rank": rank, "backend": dist.backend(), "step_ms": step_ms,
+           "loss_sums": losses, "rows": n * plan["lm"]["seq"],
+           "reduced_bytes": reduced, "counts": counts}
+    half = plan["bn"]["batch"] // dist.process_count()
+    state, heads = p23_bn_train(torch, np, mx, plan,
+                                slice(rank * half, (rank + 1) * half),
+                                mesh=mesh)
+    torch.save({"state": state, "heads": heads},
+               os.path.join(out, f"bn_rank{rank}.pt"))
+    after = p23_counts()
+    res["bn_counts"] = {k: after[k] - counts[k] for k in after
+                        if k != "forms"}
+    dist.shutdown()
+    return res
+
+
+def dist_worker(job, out):
+    """``--dist-worker JOB DIR``: one child program of phase 23
+    (``kv-sync``, ``kv-async`` under ``launch_local`` in every role,
+    ``lm`` as a rank of a process group).  Its output goes to a log in ``DIR``, ending
+    with its exit code; a worker's result is its ``P23 {json}`` line."""
+    role = os.environ.get("MXTPU_ROLE") or (
+        "rank" + os.environ.get("MXTPU_PROC_ID", "?"))
+    tag = f"{job}-{role}-{os.environ.get('MXTPU_WORKER_ID', os.getpid())}"
+    fd = os.open(os.path.join(out, tag + ".log"),
+                 os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    code = 1
+    try:
+        import numpy as np
+        import torch
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import mxnet_tpu_torch as mx
+        # float32 products stay full float32, as in the parent
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(os.path.join(out, "plan.json")) as f:
+            plan = json.load(f)
+        if job == "lm":
+            res = p23_lm_job(torch, np, mx, plan, out)
+        else:
+            res = p23_kv_job(torch, np, mx, plan, out,
+                             "dist_" + job.split("-")[1])
+        res["foreign"] = sorted(m for m in sys.modules if m.split(".")[0]
+                                in ("jax", "jaxlib", "mxnet_tpu"))
+        print("P23 " + json.dumps(res), flush=True)
+        code = 0
+    except SystemExit as exc:   # a server or the scheduler left its loop
+        code = exc.code or 0
+    except BaseException:       # reported in the log the parent prints
+        import traceback
+        traceback.print_exc()
+    finally:
+        print(f"exit code {code}", flush=True)
+    return code
+
+
+# -- the parent --
+
+def p23_logs(out, job):
+    """Every child log of ``job`` in ``out``: {name: text}."""
+    return {n: open(os.path.join(out, n)).read()
+            for n in sorted(os.listdir(out))
+            if n.startswith(job + "-") and n.endswith(".log")}
+
+
+def p23_fail(out, job, why):
+    for name, text in p23_logs(out, job).items():
+        log(f"  --- {name} ---")
+        log(text[-6000:])
+    raise SmokeFailure(f"phase 23 {job}: {why}")
+
+
+def p23_results(out, job, n):
+    res = []
+    for name, text in p23_logs(out, job).items():
+        lines = [ln for ln in text.splitlines() if ln.startswith("P23 ")]
+        if lines:
+            res.append(json.loads(lines[-1][4:]))
+    res.sort(key=lambda r: r["rank"])
+    if [r["rank"] for r in res] != list(range(n)):
+        p23_fail(out, job, f"results from ranks {[r['rank'] for r in res]}")
+    for r in res:
+        if r["foreign"]:
+            p23_fail(out, job, f"a child imported {r['foreign']}")
+    return res
+
+
+def p23_launch(out, job, env):
+    """``launch_local`` of ``job`` (1 scheduler, the servers and the
+    workers) under its time limit; a child's failure fails the phase."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.parallel.launch import launch_local
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        codes = launch_local(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker", job,
+             out], num_workers=P23_WORKERS, num_servers=P23_SERVERS,
+            root_port=p23_free_port(), timeout=P23_TIMEOUT[job],
+            return_codes=True)
+    except MXNetError as exc:
+        p23_fail(out, job, str(exc))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if codes != [0] * P23_WORKERS:
+        p23_fail(out, job, f"worker exit codes {codes}")
+    return p23_results(out, job, P23_WORKERS)
+
+
+def p23_free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def p23_spawn_ranks(out, job, env, n=2):
+    """``n`` ranks of ``job`` as fresh interpreters with the rendezvous
+    environment; each under the time limit, all killed past it."""
+    port = p23_free_port()
+    procs = []
+    for rank in range(n):
+        e = dict(env, MXTPU_COORDINATOR=f"127.0.0.1:{port}",
+                 MXTPU_NUM_PROC=str(n), MXTPU_PROC_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker", job,
+             out], env=e, stdin=subprocess.DEVNULL))
+    deadline = time.monotonic() + P23_TIMEOUT[job]
+    codes = []
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                codes.append(p.wait(timeout=max(0.0, deadline
+                                                - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                p23_fail(out, job, f"rank {rank} did not finish within "
+                         f"{P23_TIMEOUT[job]} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0] * n:
+        p23_fail(out, job, f"rank exit codes {codes}")
+    return p23_results(out, job, n)
+
+
+def p23_child_env():
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    return {"PYTHONPATH": here if not path else here + os.pathsep + path}
+
+
+def p23_resnet_reference(torch, np, mx, plan, ctx):
+    """(b)'s one-process run: the same initial weights; a step's
+    gradients of the two workers' batches, each through an executor on
+    the card, summed on the host as the server sums them (``a + b``
+    commutes), and the servers' SGD applied on the host."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+    sym = p23_resnet(plan)
+    half, steps = plan["batch"] // P23_WORKERS, plan["batches"]
+    shapes = dict(data=(half,) + tuple(plan["image"]),
+                  softmax_label=(half,))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    ex = sym.simple_bind(ctx, **shapes)
+    for k, v in aux.items():
+        ex.aux_dict[k][:] = v
+    names = [n for n in sym.list_arguments() if n in args]
+    opt = opt_mod.create("sgd", rescale_grad=1.0 / (half * P23_WORKERS),
+                         param_idx2name=dict(enumerate(names)),
+                         **plan["train_opt"])
+    update = opt_mod.get_updater(opt)
+    cpu = mx.cpu()
+    weights = {n: mx.nd.array(args[n], ctx=cpu) for n in names}
+    for j in range(steps):
+        grads = None
+        for w in range(P23_WORKERS):
+            base = w * half * steps + j * half
+            x, y = p23_images(np, plan, range(base, base + half))
+            for n in names:
+                ex.arg_dict[n][:] = weights[n].asnumpy()
+            ex.forward(is_train=True, data=x, softmax_label=y)
+            ex.backward()
+            g = {n: ex.grad_dict[n].asnumpy() for n in names}
+            grads = g if grads is None else {n: grads[n] + g[n]
+                                             for n in names}
+        for i, n in enumerate(names):
+            update(i, mx.nd.array(grads[n], ctx=cpu), weights[n])
+    return {n: weights[n].data for n in names}
+
+
+def p23_lm_reference(torch, np, mx, plan):
+    """(c)'s one-process run: ShardedTrainer on the global batch, on
+    one card (a device without an index would take every card)."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    sym = p23_lm_symbol(plan)
+    shapes, args, batch = p23_lm_state(np, plan, sym)
+    tr = ShardedTrainer(sym, optimizer="adam",
+                        optimizer_params=dict(plan["lm"]["opt"]),
+                        compute_dtype="bfloat16",
+                        device="cuda:0" if DEVICE == "cuda" else DEVICE)
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+    placed = tr.place_batch(batch)
+    step_ms, heads = [], []
+    for _ in range(plan["lm"]["steps"]):
+        p23_sync(torch, plan)
+        t0 = time.perf_counter()
+        h = tr.step(placed)[0]
+        p23_sync(torch, plan)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        heads.append(h.float().cpu())
+    params = {k: v.data.cpu() for k, v in tr.get_params()[0].items()}
+    del tr
+    return params, heads, step_ms
+
+
+def p23_lm_compare(torch, plan, ranks, ref, heads, out, label):
+    """The ranks agree bitwise; each rank's loss over its rows and its
+    parameters against the one-process run (P23_LM_* tolerances)."""
+    loaded = [torch.load(os.path.join(out, f"lm_rank{r['rank']}.pt"))
+              for r in ranks]
+    for n in loaded[0]:
+        check(torch.equal(loaded[0][n], loaded[1][n]),
+              f"(c) {label}: the ranks' {n} differ")
+    far, total, worst = 0, 0, 0.0
+    for n, want in ref.items():
+        d = (loaded[0][n].float() - want.float()).abs()
+        far += int((d > P23_LM_SHARE[0]).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    share = far / total
+    check(share <= P23_LM_SHARE[1],
+          f"(c) {label}: {share:.4%} of the parameters are more than "
+          f"{P23_LM_SHARE[0]} from the one-process run")
+    rel = []
+    for r in ranks:
+        rows = r["rows"]
+        for s, h in enumerate(heads):
+            want = float(h[r["rank"] * rows:(r["rank"] + 1) * rows].sum())
+            rel.append(abs(r["loss_sums"][s] - want) / abs(want))
+    check(max(rel) <= P23_LM_LOSS_RTOL,
+          f"(c) {label}: a rank's step loss is {max(rel)} from the "
+          "one-process run's")
+    return {"max_param_diff": worst, "share_beyond_1e-4": share,
+            "max_loss_rel": max(rel)}
+
+
+def p23_bn_compare(torch, plan, ranks, ref, out, label):
+    """The ranks' BatchNorm net bitwise equal; its parameters, moving
+    statistics and heads against the one-process run (P23_BN_*)."""
+    got = [torch.load(os.path.join(out, f"bn_rank{r['rank']}.pt"))
+           for r in ranks]
+    for n in got[0]["state"]:
+        check(torch.equal(got[0]["state"][n], got[1]["state"][n]),
+              f"(c) {label}, BatchNorm net: the ranks' {n} differ")
+    (state, heads), init = ref
+    worst = {}
+    for n, want in state.items():
+        moved = float((want - init[n]).abs().max())
+        check(moved > 0, f"(c) {label}, BatchNorm net: {n} did not move")
+        worst[n] = float((got[0]["state"][n] - want).abs().max()) / moved
+    name = max(worst, key=worst.get)
+    check(worst[name] <= P23_BN_RTOL,
+          f"(c) {label}, BatchNorm net: {name} is {worst[name]} of its "
+          f"move from the one-process run")
+    half = plan["bn"]["batch"] // len(ranks)
+    head_rel = 0.0
+    for r, g in zip(ranks, got):
+        rows = slice(r["rank"] * half, (r["rank"] + 1) * half)
+        for mine, want in zip(g["heads"], heads):
+            pairs = [(mine[0], want[0][rows]), (mine[1], want[1])]
+            for a, b in pairs:
+                check(a.shape == b.shape,
+                      f"(c) {label}, BatchNorm net: a head of shape "
+                      f"{tuple(a.shape)}, the one-process run's "
+                      f"{tuple(b.shape)}")
+                head_rel = max(head_rel, float((a - b).abs().max())
+                               / float(b.abs().max()))
+    check(head_rel <= P23_BN_HEAD_RTOL,
+          f"(c) {label}, BatchNorm net: a head is {head_rel} (relative) "
+          "from the one-process run's")
+    return {"bn_worst_over_move": worst[name], "bn_worst": name,
+            "bn_head_rel": head_rel}
+
+
+def p23_add(launches, counts):
+    for k in launches:
+        launches[k] += counts[k]
+
+
+def p23_parameter_server(torch, np, mx, plan, out, env, launches, stats):
+    """(a) and (b) in one dist_sync cluster, then (a) over dist_async."""
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    t0 = time.perf_counter()
+    kv = p23_launch(out, "kv-sync", env)
+    stats["kv_seconds"] = time.perf_counter() - t0
+    for r in kv:
+        p23_add(launches, r["counts"])
+        check(r["counts"]["softmax_rows"] == plan["batches"]
+              or DEVICE != "cuda",
+              f"(b) worker {r['rank']}: K1 launched "
+              f"{r['counts']['softmax_rows']} times in "
+              f"{plan['batches']} batches")
+    stats["aggregate"] = kv[0]["aggregate"]
+    fits = [r["fit"]["batches"] for r in kv]
+    later = [b for rows in fits for b in rows[1:]]
+    stats["fit"] = {
+        "first_batch_ms": [rows[0]["ms"] for rows in fits],
+        "ms_a_batch": float(np.median([b["ms"] for b in later])),
+        "host_share": float(np.median([b["host_share"] for b in later])),
+        "pushed_bytes_a_batch": float(np.median(
+            [b["pushed_bytes"] for b in later])),
+        "pulled_bytes_a_batch": float(np.median(
+            [b["pulled_bytes"] for b in later]))}
+    got = [torch.load(os.path.join(out, f"resnet_rank{r}.pt"))
+           for r in range(P23_WORKERS)]
+    for n in got[0]:
+        check(torch.equal(got[0][n], got[1][n]),
+              f"(b) the workers' {n} differ")
+    before = p23_counts()
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ref = p23_resnet_reference(torch, np, mx, plan, ctx)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    after = p23_counts()
+    p23_add(launches, {k: after[k] - before[k] for k in launches})
+    diffs = sorted(((float((got[0][n] - ref[n]).abs().max()), n)
+                    for n in ref), reverse=True)
+    diff = diffs[0][0]
+    bitwise = all(torch.equal(got[0][n], ref[n]) for n in ref)
+    check(diff <= P23_RESNET_ATOL,
+          f"(b) the workers' parameters are {diff} from the one-process "
+          f"run (largest: {diffs[:3]})")
+    stats["fit"].update(max_param_diff=diff, bitwise=bitwise)
+    t0 = time.perf_counter()
+    kva = p23_launch(out, "kv-async", env)
+    stats["async"] = dict(kva[0]["aggregate"],
+                          seconds=time.perf_counter() - t0)
+
+
+def p23_collective(torch, np, mx, plan, out, env, launches, stats,
+                   layouts):
+    """(c): the one-process run, then the ranks in each layout (label,
+    each rank's card, the backend it must take)."""
+    before = p23_counts()
+    ref, heads, ref_ms = p23_lm_reference(torch, np, mx, plan)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    sym = p23_bn_symbol(plan)
+    _, args, aux, _ = p23_bn_state(np, plan, sym)
+    init = {k: torch.from_numpy(v) for k, v in {**args, **aux}.items()}
+    bn_ref = (p23_bn_train(torch, np, mx, plan, slice(None),
+                           device="cuda:0" if DEVICE == "cuda"
+                           else DEVICE), init)
+    after = p23_counts()
+    p23_add(launches, {k: after[k] - before[k] for k in launches})
+    stats["lm"] = {"one_process_step_ms": ref_ms}
+    for label, cards, backend in layouts:
+        plan["lm_cards"] = cards
+        with open(os.path.join(out, "plan.json"), "w") as f:
+            json.dump(plan, f)
+        t0 = time.perf_counter()
+        ranks = p23_spawn_ranks(out, "lm", env)
+        for r in ranks:
+            check(r["backend"] == backend,
+                  f"(c) {label}: rank {r['rank']} ran {r['backend']}, "
+                  f"expected {backend}")
+            c, steps = r["counts"], plan["lm"]["steps"]
+            if DEVICE == "cuda":
+                check(c["flash_attn_fwd"] == c["flash_attn_bwd"]
+                      == plan["lm"]["layers"] * steps
+                      and c["fused_update"] == steps,
+                      f"(c) {label}: rank {r['rank']} launched {c}")
+                check(c["forms"]["flash_attn_fwd"]["hopper"]
+                      == c["flash_attn_fwd"]
+                      and c["forms"]["fused_update"]["hopper"] == steps,
+                      f"(c) {label}: forms {c['forms']}")
+            p23_add(launches, c)
+            b = r["bn_counts"]
+            check(DEVICE != "cuda"
+                  or b["softmax_rows"] == b["fused_update"]
+                  == plan["bn"]["steps"],
+                  f"(c) {label}: rank {r['rank']}'s BatchNorm net "
+                  f"launched {b}")
+            p23_add(launches, b)
+        row = p23_lm_compare(torch, plan, ranks, ref, heads, out, label)
+        row.update(p23_bn_compare(torch, plan, ranks, bn_ref, out, label))
+        row.update(
+            backend=backend, seconds=time.perf_counter() - t0,
+            step_ms=[r["step_ms"] for r in ranks],
+            ms_a_step=float(np.median([ms for r in ranks
+                                       for ms in r["step_ms"][1:]])),
+            reduced_bytes_a_step=ranks[0]["reduced_bytes"][-1])
+        stats["lm"][label] = row
+
+
+def phase_multiprocess(torch, np, mx, nn_ops, fu, fa, parts=("ps", "lm")):
+    """Phase 23: (a) exact aggregation over the parameter server
+    (``launch_local``: 1 scheduler, 2 servers, 2 workers on the card;
+    dist_sync, then dist_async), (b) ResNet-50 through FeedForward.fit
+    over dist_sync (in (a)'s cluster) against the one-process sum of the
+    halves' gradients, (c) the LM through ShardedTrainer over a data mesh
+    of 2 processes (gloo on one card; NCCL over two cards where there
+    are two) against one process.  ``parts`` picks (a)-(b) ("ps"), (c)
+    ("lm") or (c) over two cards alone ("lm-two-cards").  Returns the
+    K1-K4 launches of the children's main paths and of this process's
+    reference runs, and its numbers."""
+    import tempfile
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(("softmax_rows", "fused_update",
+                              "flash_attn_fwd", "flash_attn_bwd"), 0)
+    stats = {"card": card_line() if DEVICE == "cuda" else "cpu"}
+    plan = p23_plan(DEVICE)
+    env = p23_child_env()
+    two = DEVICE == "cuda" and torch.cuda.device_count() > 1
+    layouts = ([] if "lm-two-cards" in parts
+               else [("one card", [0, 0], "gloo")])
+    if two:
+        layouts.append(("two cards", [0, 1], "nccl"))
+    with tempfile.TemporaryDirectory(prefix="p23-") as out:
+        with open(os.path.join(out, "plan.json"), "w") as f:
+            json.dump(plan, f)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        if "ps" in parts:
+            p23_parameter_server(torch, np, mx, plan, out, env, launches,
+                                 stats)
+        if layouts:
+            p23_collective(torch, np, mx, plan, out, env, launches, stats,
+                           layouts)
+        if not two:
+            stats.setdefault("lm", {})["two cards"] = "not run: one card"
+    stats["launches"] = launches
+    stats["seconds"] = time.perf_counter() - t_phase
+    log("  multi-process tier: " + json.dumps(stats))
+    return launches, stats
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -9075,6 +9895,8 @@ def ptxas_summary(text):
 
 
 def main(argv) -> int:
+    if argv[:1] == ["--dist-worker"] and len(argv) == 3:
+        return dist_worker(argv[1], argv[2])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -9103,14 +9925,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/22] device")
+    log("[1/23] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/22] build")
+    log("[2/23] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -9125,7 +9947,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/22] kernels against their plain versions")
+    log("[3/23] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -9134,22 +9956,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/22] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/23] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/22] serving the round-12 configuration: chunked prefill "
+    log(f"[5/23] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/22] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/23] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/22] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/23] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/22] kernel timing")
+    log("[8/23] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -9166,25 +9988,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/22] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/23] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/22] imperative + executor: NDArray on the card, the MLP "
+    log("[10/23] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/22] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/23] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/22] the serving control plane: crash failover, a hung and a "
+    log("[12/23] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -9192,7 +10014,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/22] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/23] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -9201,7 +10023,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/22] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/23] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -9209,7 +10031,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/22] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/23] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -9217,7 +10039,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/22] programs and the profiler: serve and train steps "
+    log("[17/23] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -9225,7 +10047,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/22] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/23] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -9234,7 +10056,7 @@ def main(argv) -> int:
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[19/22] input records, the deployment predictor and the last ops: "
+    log(f"[19/23] input records, the deployment predictor and the last ops: "
         f"{REC_IMAGES} packed images through ImageRecordIter into "
         f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
         f"served without the port, WarpCTC at the OCR example's sizes, the "
@@ -9243,7 +10065,7 @@ def main(argv) -> int:
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[20/22] tensor and model parallelism: the LM with its embedding "
+    log(f"[20/23] tensor and model parallelism: the LM with its embedding "
         f"on the host through group2ctx, the split rewrite of "
         f"megatron_rules() at a model axis of 1, two cards where there "
         f"are two")
@@ -9252,7 +10074,7 @@ def main(argv) -> int:
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[21/22] mixture of experts and ring attention: MoEFFN (8 experts "
+    log(f"[21/23] mixture of experts and ring attention: MoEFFN (8 experts "
         f"of {P21_MOE['hidden_size']}, top-2 then top-1, aux head) over "
         f"{P21_TOKENS[0] * P21_TOKENS[1]} tokens at d {D_MODEL} on the card "
         f"against the host, ring_self_attention over a one-card seq mesh at "
@@ -9261,7 +10083,7 @@ def main(argv) -> int:
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[22/22] pipelines: the LM through PipelineTrainer over "
+    log(f"[22/23] pipelines: the LM through PipelineTrainer over "
         f"{P22_STAGES} stages on the card (1F1B, remat) against "
         f"ShardedTrainer, the dryrun's MLP through PipelineTrainer, "
         f"SpmdPipelineTrainer and pipeline_apply, two cards where there "
@@ -9269,8 +10091,18 @@ def main(argv) -> int:
     p22_launches, _ = phase_pipelines(torch, np, mx, fa, nn_ops, fu, _build)
     log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 22
-    log("[15/22] result")
+    t0 = time.perf_counter()
+    log(f"[23/23] the multi-process tier: launch_local with 1 scheduler, "
+        f"{P23_SERVERS} servers and {P23_WORKERS} workers on the card "
+        f"(dist_sync exact aggregation and ResNet-{DEPTH} through "
+        f"FeedForward.fit, then dist_async), the LM through ShardedTrainer "
+        f"over a data mesh of 2 processes (gloo on one card; NCCL over two "
+        f"cards where there are two)")
+    p23_launches, _ = phase_multiprocess(torch, np, mx, nn_ops, fu, fa)
+    log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 23
+    log("[15/23] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -9295,34 +10127,35 @@ def main(argv) -> int:
          train_launches["softmax_rows"] + loop_launches["softmax_rows"]
          + zoo_launches["softmax_rows"] + p17_launches["softmax_rows"]
          + p18_launches["softmax_rows"] + p19_launches["softmax_rows"]
-         + p22_launches["softmax_rows"],
+         + p22_launches["softmax_rows"] + p23_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
         # (Adam), stepped bare (phases 7, 9) and through fit (phases 13,
-        # 19), the four ImageNet nets (phase 14), the OCR net (19) and
-        # the MoE trainers (21)
+        # 19), the four ImageNet nets (phase 14), the OCR net (19), the
+        # MoE trainers (21) and the LM's ranks and its one-process run
+        # (23)
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
          "mxnet_tpu/ops/fused_update.py:216",
          train_launches["fused_update"] + lm_launches["fused_update"]
          + loop_launches["fused_update"] + zoo_launches["fused_update"]
          + long_launches["fused_update"] + p17_launches["fused_update"]
          + p18_launches["fused_update"] + p19_launches["fused_update"]
-         + p21_launches["fused_update"],
+         + p21_launches["fused_update"] + p23_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
          lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"]
          + long_launches["flash_attn_fwd"] + p17_launches["flash_attn_fwd"]
          + p20_launches["flash_attn_fwd"] + p21_launches["flash_attn_fwd"]
-         + p22_launches["flash_attn_fwd"],
+         + p22_launches["flash_attn_fwd"] + p23_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
          lm_launches["flash_attn_bwd"] + loop_launches["flash_attn_bwd"]
          + long_launches["flash_attn_bwd"] + p17_launches["flash_attn_bwd"]
          + p20_launches["flash_attn_bwd"] + p21_launches["flash_attn_bwd"]
-         + p22_launches["flash_attn_bwd"],
+         + p22_launches["flash_attn_bwd"] + p23_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

@@ -32,22 +32,27 @@ __all__ = ["Context", "cpu", "gpu", "resolve_device", "current_context",
 class Context:
     """Device context ``(device_type, device_id)``; ``device_type`` is
     ``"cpu"`` or ``"gpu"``.  Usable as a ``with`` block that makes it the
-    thread's current context."""
+    thread's current context.  ``process`` tags a member of a mesh that
+    spans processes (``parallel.dist``) as another process's: such a
+    context names no device of this process."""
 
     _default_ctx = threading.local()
 
     devtype2mask = {"cpu": 1, "gpu": 2}
     devmask2type = {1: "cpu", 2: "gpu"}
+    process: Optional[int] = None
 
     def __init__(self, device_type: Union[str, "Context"] = "gpu",
-                 device_id: int = 0):
+                 device_id: int = 0, process: Optional[int] = None):
         if isinstance(device_type, Context):
-            device_type, device_id = (device_type.device_type,
-                                      device_type.device_id)
+            device_type, device_id, process = (
+                device_type.device_type, device_type.device_id,
+                device_type.process)
         if device_type not in ("cpu", "gpu"):
             raise MXNetError(f"unknown device type {device_type!r}")
         self.device_type = device_type
         self.device_id = int(device_id)
+        self.process = None if process is None else int(process)
         self._old_ctx: Optional[Context] = None
 
     @property
@@ -56,6 +61,9 @@ class Context:
 
     @property
     def torch_device(self) -> torch.device:
+        if self.process is not None:
+            raise MXNetError(f"{self} is a member of process "
+                             f"{self.process}, not of this process")
         if self.device_type == "cpu":
             return torch.device("cpu")
         return torch.device("cuda", self.device_id)
@@ -63,13 +71,15 @@ class Context:
     def __eq__(self, other) -> bool:
         return (isinstance(other, Context)
                 and self.device_type == other.device_type
-                and self.device_id == other.device_id)
+                and self.device_id == other.device_id
+                and self.process == other.process)
 
     def __hash__(self):
-        return hash((self.device_type, self.device_id))
+        return hash((self.device_type, self.device_id, self.process))
 
     def __repr__(self):
-        return f"{self.device_type}({self.device_id})"
+        where = "" if self.process is None else f"@{self.process}"
+        return f"{self.device_type}({self.device_id}){where}"
 
     __str__ = __repr__
 

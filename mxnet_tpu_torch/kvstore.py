@@ -9,8 +9,8 @@ through the bucketed collectives of :mod:`.parallel.collectives` (values
 on distinct contexts: buckets in priority order, optionally compressed;
 co-resident values: the tree sum), then handed to the updater in push
 order, or kept in a merge buffer that ``pull`` returns when there is no
-updater.  The ``dist*`` kinds (the multi-process tier) raise until that
-slice is ported.
+updater.  ``create("dist" | "dist_sync" | "dist_async")`` gives the
+parameter server's worker store (:mod:`.parallel.dist_kvstore`).
 
 ``save_optimizer_states`` writes the JAX package's file: a pickle of
 ``{"optimizer": <pickled optimizer>, "states": <host states>}``, the
@@ -22,9 +22,10 @@ from __future__ import annotations
 
 import io
 import pickle
+import sys
 from typing import Any, Callable, Dict, List, Optional
 
-from .base import MXNetError, not_ported
+from .base import MXNetError
 from .ndarray import NDArray
 
 __all__ = ["KVStore", "create", "dumps_optimizer", "loads_optimizer"]
@@ -266,13 +267,29 @@ def create(name: str = "local", compression: Optional[str] = None,
            bucket_bytes: Optional[int] = None) -> KVStore:
     """A store by kind.  ``compression``/``bucket_bytes`` configure the
     reduction (quantized wire, bucket size); both default off / ~4 MiB.
-    The ``dist*`` kinds raise until the multi-process tier is ported."""
+
+    For the ``dist*`` kinds (:mod:`.parallel.dist_kvstore`), a process
+    launched in the ``scheduler`` or ``server`` role
+    (:mod:`.parallel.launch`) runs its blocking loop and exits, as the
+    reference's ``kvstore_server._init_kvstore_server_module`` does; a
+    worker gets a ``DistKVStore``, which raises without a launched
+    cluster."""
     if not isinstance(name, str):
         raise MXNetError("name must be a string")
     if name in _LOCAL_KINDS:
         return KVStore(name, compression=compression,
                        bucket_bytes=bucket_bytes)
     if name.startswith("dist"):
-        raise not_ported(f"kvstore {name!r} (the multi-process tier)")
+        from .parallel import dist_kvstore as dkv
+        cfg = dkv.role_from_env()
+        role = cfg.get("role", "worker")
+        if role == "scheduler":
+            dkv.run_scheduler(cfg)
+            sys.exit(0)
+        if role == "server":
+            dkv.run_server(cfg)
+            sys.exit(0)
+        return dkv.DistKVStore(name, compression=compression,
+                               bucket_bytes=bucket_bytes)
     raise MXNetError(f"unknown kvstore type {name}; known: "
                      f"{_LOCAL_KINDS + ('dist', 'dist_sync', 'dist_async')}")

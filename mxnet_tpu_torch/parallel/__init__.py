@@ -29,16 +29,26 @@ Counterpart of ``mxnet_tpu/parallel/__init__.py``, with the same names:
   the members over the static timetable :func:`~.pipeline_spmd.
   schedule_1f1b`.
 
-The multi-process tier (``ElasticTrainer`` and its helpers) is not
+* :mod:`.dist` -- :func:`~.dist.init_distributed`: the process group
+  (NCCL or gloo by layout) after which meshes span every process's
+  contexts, the trainer running this process's members;
+* :mod:`.dist_kvstore` -- the parameter server (``dist_sync``,
+  ``dist_async``): scheduler, servers, the worker store and the
+  scheduler's membership views (:class:`~.dist_kvstore.
+  MembershipClient`);
+* :mod:`.launch` -- ``launch_local``, ``launch_ssh`` and ``submit``.
+
+The rest of the multi-process tier (``ElasticTrainer``,
+``default_mesh_size``, ``pow2_floor`` and ``wire_watchdog``) is not
 ported yet: those names raise when called (ROADMAP.md).  As in the JAX
 package, ``parallel.ring_attention`` is the function (the import below
 shadows the submodule, which
 ``sys.modules["mxnet_tpu_torch.parallel.ring_attention"]`` still holds).
 """
 from ..base import not_ported
-from . import (collectives, flash_attention, members, mesh, moe,
-               pipeline, pipeline_spmd, pipeline_trainer, ring_attention,
-               tensor_parallel, trainer)
+from . import (collectives, dist, dist_kvstore, flash_attention, launch,
+               members, mesh, moe, pipeline, pipeline_spmd,
+               pipeline_trainer, ring_attention, tensor_parallel, trainer)
 from .collectives import allreduce_mean, allreduce_sum
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
                    Mesh, NamedSharding, PartitionSpec, batch_sharding,
@@ -80,6 +90,6 @@ __all__ = [
     "pipeline_apply", "PipelineTrainer", "SpmdPipelineTrainer",
     "collectives", "flash_attention", "mesh", "trainer",
     "tensor_parallel", "members", "moe", "pipeline", "pipeline_trainer",
-    "pipeline_spmd",
+    "pipeline_spmd", "dist", "dist_kvstore", "launch",
     "blockwise_attention",
 ]

@@ -25,6 +25,8 @@ coordinate: ``mesh.axis_groups``), :func:`psum`, :func:`pmax`,
 :func:`count_collectives` under that axis (``CollectiveStats.by_axis``).
 Between distinct cards each group reduces through NCCL on a communicator
 of its own devices (``torch.cuda.nccl`` keeps one per device set).
+Across processes (``dist.init_distributed``), :func:`allreduce_processes`
+sums through the process group.
 
 Gradient fusion: :func:`allreduce_sum`/:func:`allreduce_mean` take a list
 of gradient groups (one tensor a member each), lay them end to end in
@@ -60,7 +62,7 @@ __all__ = ["allreduce_sum", "allreduce_mean", "distinct_devices",
            "psum_compressed", "count_collectives", "CollectiveStats",
            "DEFAULT_BUCKET_BYTES", "COMPRESSIONS", "plan_buckets",
            "check_compression", "member_of", "psum", "pmax", "all_gather",
-           "reduce_scatter", "over_axis"]
+           "reduce_scatter", "over_axis", "allreduce_processes"]
 
 DEFAULT_BUCKET_BYTES = 4 << 20  # ~4 MiB, the classic DDP default
 COMPRESSIONS = (None, "int8", "bf16", "fp8")
@@ -292,6 +294,45 @@ def reduce_scatter(parts: Sequence[torch.Tensor], dim: int = 0,
     total = psum(parts)[0]
     return [piece.to(p.device) for piece, p in
             zip(total.chunk(n, dim), parts)]
+
+
+def allreduce_processes(tensors: Sequence[torch.Tensor],
+                        bucket_bytes: Optional[int] = None,
+                        axis: Optional[str] = None) -> List[torch.Tensor]:
+    """Each tensor summed over every process of the process group
+    (``dist.init_distributed``): the tensors of one dtype laid end to end
+    in order, cut into ~``bucket_bytes`` flat buckets, one
+    ``torch.distributed.all_reduce`` a bucket (NCCL or gloo, as the group
+    was made); counted by :func:`count_collectives` (kind ``"process"``,
+    along ``axis``).  Returns one result a tensor, on its device."""
+    import torch.distributed as tdist
+    bucket_bytes = bucket_bytes or DEFAULT_BUCKET_BYTES
+    tensors = list(tensors)
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault((t.dtype, t.device), []).append(i)
+    for (dtype, _), idxs in by_dtype.items():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
+        itemsize = flat.element_size()
+        plan = plan_buckets([tensors[i].numel() for i in idxs], itemsize,
+                            bucket_bytes)
+        start = 0
+        for bucket in plan:
+            n = sum(stop - lo for _, lo, stop in bucket)
+            tdist.all_reduce(flat[start:start + n])
+            _emit({"nbytes": n * itemsize, "wire_nbytes": n * itemsize,
+                   "num_pieces": len(bucket),
+                   "tensor_indices": [idxs[pi] for pi, _, _ in bucket],
+                   "dtype": _dtype_name(dtype), "compression": None,
+                   "mean": False, "kind": "process", "axis": axis})
+            start += n
+        off = 0
+        for i in idxs:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view(tensors[i].shape)
+            off += n
+    return out  # type: ignore[return-value]
 
 
 def over_axis(groups: Sequence[Sequence[int]], fn, parts, axis: str,

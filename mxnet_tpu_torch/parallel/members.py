@@ -18,6 +18,18 @@ context), and the members meet wherever a value crosses between them:
 Meetings are keyed by node and call number, so a recompute scope
 replayed in the backward (one thread, after the meeting point closed)
 reads the values its forward exchanged.
+
+Over a data axis that spans processes (``dist.init_distributed``), a
+:class:`ProcessBridge` extends each data-axis meeting to the other
+processes: once this process's members have met, the group's first
+member exchanges their values with the other processes through the
+process group (``dist.all_gather_object``), and every member gets the
+values of the whole global group in its order.  The other processes'
+tensors come out of a link (:class:`_Link`) whose backward sends each
+of them its gradient and returns this process's: one exchange a link,
+the links chained by a token so that every process runs their
+backwards in the same order (the trainer differentiates the last token
+with a zero cotangent beside its heads).
 """
 from __future__ import annotations
 
@@ -31,10 +43,113 @@ from ..base import MXNetError
 from . import collectives
 from .mesh import DATA_AXIS
 
-__all__ = ["MemberSync", "MemberHandle", "NodeSync", "run_synced",
-           "current_sync", "mesh_groups"]
+__all__ = ["MemberSync", "MemberHandle", "NodeSync", "ProcessBridge",
+           "run_synced", "current_sync", "mesh_groups"]
 
 _local = threading.local()
+
+
+def _flatten(obj):
+    """The leaves of a value made of lists and tuples, and a function that
+    rebuilds the same structure from other leaves."""
+    leaves: list = []
+
+    def walk(o):
+        if isinstance(o, (list, tuple)):
+            return type(o), [walk(x) for x in o]
+        leaves.append(o)
+        return None
+
+    shape = walk(obj)
+
+    def rebuild(new_leaves):
+        it = iter(new_leaves)
+
+        def back(t):
+            if t is None:
+                return next(it)
+            kind, kids = t
+            return kind(back(k) for k in kids)
+        return back(shape)
+    return leaves, rebuild
+
+
+def _host(x):
+    return x.detach().to("cpu") if isinstance(x, torch.Tensor) else x
+
+
+class _Link(torch.autograd.Function):
+    """The other processes' tensors of one cross-process meeting, tied
+    to this process's.  Forward: the received tensors (and the next
+    token).  Backward: each received tensor's gradient goes to its
+    owner, this process's tensors get the sum of what the other
+    processes send them, in process order."""
+
+    @staticmethod
+    def forward(ctx, owners, local_devices, token, *tensors):
+        nlocal = len(local_devices)
+        ctx.owners, ctx.local_devices = owners, local_devices
+        remote = tensors[nlocal:]
+        return (token.clone(),) + tuple(t.clone() for t in remote)
+
+    @staticmethod
+    def backward(ctx, gtoken, *grads):
+        from . import dist
+        me = dist.process_index()
+        send: Dict[int, list] = {}
+        for q, g in zip(ctx.owners, grads):
+            send.setdefault(q, []).append(_host(g))
+        mine: list = [None] * len(ctx.local_devices)
+        for q, got in enumerate(dist.all_gather_object(send)):
+            if q == me:
+                continue
+            for j, g in enumerate(got[me]):
+                mine[j] = g if mine[j] is None else mine[j] + g
+        mine = [None if g is None else g.to(d)
+                for g, d in zip(mine, ctx.local_devices)]
+        return (None, None, gtoken) + tuple(mine) + (None,) * len(grads)
+
+
+class ProcessBridge:
+    """Data-axis meetings across processes: this process's members hold
+    the global data coordinates ``offset`` ... ``offset + n - 1`` of
+    ``size``, and the processes' members lie along the axis in process
+    order.  ``token`` is the last link's token (a leaf until a tensor
+    that needs a gradient crossed)."""
+
+    def __init__(self, axis: str, offset: int, size: int):
+        self.axis, self.offset, self.size = axis, offset, size
+        self.token = torch.zeros((), requires_grad=True)
+
+    def exchange(self, values: list) -> list:
+        """Every process's ``values`` (one a local member, in order) end
+        to end in process order; this process's are returned as they
+        are, the others' are differentiable through a link."""
+        from . import dist
+        leaves, rebuild = _flatten(list(values))
+        got = dist.all_gather_object([_host(x) for x in leaves])
+        me = dist.process_index()
+        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+        dev = tensors[0].device if tensors else None
+        remote = {q: [x.to(dev) if isinstance(x, torch.Tensor) else x
+                      for x in ls] for q, ls in enumerate(got) if q != me}
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors):
+            owners, flat = [], []
+            for q, ls in remote.items():
+                for x in ls:
+                    if isinstance(x, torch.Tensor):
+                        owners.append(q)
+                        flat.append(x)
+            outs = _Link.apply(owners, [t.device for t in tensors],
+                               self.token, *tensors, *flat)
+            self.token, linked = outs[0], iter(outs[1:])
+            remote = {q: [next(linked) if isinstance(x, torch.Tensor)
+                          else x for x in ls] for q, ls in remote.items()}
+        out: list = []
+        for q in range(len(got)):
+            out.extend(values if q == me else rebuild(remote[q]))
+        return out
 
 
 class MemberSync:
@@ -46,17 +161,21 @@ class MemberSync:
     replayed in the backward (one thread) reads the values its forward
     exchanged instead (:class:`NodeSync`)."""
 
-    def __init__(self, groups: Dict[str, List[Tuple[int, ...]]]):
+    def __init__(self, groups: Dict[str, List[Tuple[int, ...]]],
+                 bridge: Optional[ProcessBridge] = None):
         self.group_of = {axis: {i: g for g in gs for i in g}
                          for axis, gs in groups.items()}
+        self.bridge = bridge
         self.closed = False
         self._aborted = False
         self._cond = threading.Condition()
         self._slots: Dict[Tuple, Dict[int, Any]] = {}
+        self._met: Dict[Tuple, list] = {}
 
     def exchange(self, i: int, axis: str, k: int, value) -> list:
         group = self.group_of[axis][i]
         key = (axis, group, k)
+        bridged = self.bridge is not None and axis == self.bridge.axis
         with self._cond:
             slot = self._slots.setdefault(key, {})
             slot[i] = value
@@ -65,7 +184,24 @@ class MemberSync:
                 self._cond.wait()
             if self._aborted:
                 raise threading.BrokenBarrierError
-            return [slot[j] for j in group]
+            if not bridged:
+                return [slot[j] for j in group]
+            if i != group[0]:
+                while key not in self._met and not self._aborted:
+                    self._cond.wait()
+                if self._aborted:
+                    raise threading.BrokenBarrierError
+                return self._met[key]
+        # the group's first member meets the other processes
+        try:
+            full = self.bridge.exchange([slot[j] for j in group])
+        except BaseException:
+            self.abort()
+            raise
+        with self._cond:
+            self._met[key] = full
+            self._cond.notify_all()
+        return full
 
     def abort(self) -> None:
         with self._cond:
@@ -91,13 +227,24 @@ class MemberHandle:
     def at(self, name: str) -> "NodeSync":
         return NodeSync(self, name)
 
+    def _bridged(self, axis: str) -> bool:
+        return self.sync.bridge is not None and axis == self.sync.bridge.axis
+
     def size(self, axis: str) -> int:
+        if self._bridged(axis):
+            return self.sync.bridge.size
         group = self.sync.group_of.get(axis)
         return 1 if group is None else len(group[self.i])
 
-    def rank(self, axis: str) -> int:
+    def _local_rank(self, axis: str) -> int:
         group = self.sync.group_of.get(axis)
         return 0 if group is None else group[self.i].index(self.i)
+
+    def rank(self, axis: str) -> int:
+        """This member's place in its group along ``axis`` (over a data
+        axis that spans processes, its global data coordinate)."""
+        offset = self.sync.bridge.offset if self._bridged(axis) else 0
+        return offset + self._local_rank(axis)
 
     def meet(self, key: Tuple[str, int], axis: str, value) -> list:
         """Every group member's ``value`` of this call, in group order.
@@ -116,7 +263,7 @@ class MemberHandle:
         self._calls[axis] = k + 1
         parts = self.sync.exchange(self.i, axis, k, value)
         self._seen[key] = parts
-        if self.rank(axis) == 0 and isinstance(value, torch.Tensor):
+        if self._local_rank(axis) == 0 and isinstance(value, torch.Tensor):
             collectives.record_axis_call("meet", axis, value, len(parts))
         return parts
 
@@ -238,12 +385,13 @@ def current_sync(name: str) -> NodeSync:
 
 def run_synced(fn, devices: Sequence[torch.device],
                groups: Dict[str, List[Tuple[int, ...]]],
-               row_reductions=()) -> list:
+               row_reductions=(), bridge: Optional[ProcessBridge] = None
+               ) -> list:
     """``fn(i, handle)`` for every member in its own thread (on its CUDA
     device, under the caller's grad mode), the members meeting along the
-    axes of ``groups``; the first failure aborts the others and is
-    raised."""
-    sync = MemberSync(groups)
+    axes of ``groups`` (and along ``bridge``'s axis with the other
+    processes); the first failure aborts the others and is raised."""
+    sync = MemberSync(groups, bridge)
     outs: list = [None] * len(devices)
     errors: list = []
     grad = torch.is_grad_enabled()

@@ -2,7 +2,9 @@
 
 Counterpart of ``mxnet_tpu/parallel/mesh.py``.  A port :class:`Mesh` is a
 named grid of the port's :class:`~mxnet_tpu_torch.context.Context`\\ s,
-owned by one process, as a JAX ``Mesh`` is a grid of local devices.  Its
+as a JAX ``Mesh`` is a grid of devices.  After ``dist.init_distributed``
+a mesh may span processes: the other processes' members carry their
+process (``Context.process``), and each process runs its own.  Its
 members are distinct contexts of one device type: ``gpu(0)`` ...
 ``gpu(n-1)`` (distinct CUDA devices, reduced through NCCL) or ``cpu(0)``
 ... ``cpu(n-1)`` (distinct contexts of the one host device: the CPU tests'
@@ -100,6 +102,20 @@ class Mesh:
     @property
     def device_type(self) -> str:
         return self.members[0].device_type
+
+    @property
+    def processes(self) -> List[int]:
+        """Each member's process in row-major order (this process's index
+        for a member that carries no process tag)."""
+        from . import dist
+        me = dist.process_index()
+        return [me if m.process is None else m.process
+                for m in self.members]
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether another process holds some of the members."""
+        return any(m.process is not None for m in self.members)
 
     def __eq__(self, other):
         return (isinstance(other, Mesh) and other.axis_names == self.axis_names
@@ -224,7 +240,11 @@ def make_mesh(axes: Union[Dict[str, int], Sequence[Tuple[str, int]]],
     strings; default: every CUDA device).  ``axes`` maps axis name to
     size; one size may be ``-1``, meaning everything left."""
     items = list(axes.items()) if isinstance(axes, dict) else list(axes)
-    devices = list(local_contexts() if devices is None else devices)
+    if devices is None:
+        from . import dist
+        devices = (dist.global_contexts() if dist.is_initialized()
+                   else local_contexts())
+    devices = list(devices)
     n = len(devices)
     known = 1
     wild = None
@@ -255,7 +275,16 @@ def data_parallel_mesh(num_devices: Optional[int] = None,
                        device_type: Optional[str] = None) -> Mesh:
     """1-D mesh over the first ``num_devices`` local contexts of
     ``device_type`` (:func:`local_contexts`): the counterpart of the
-    reference's ``ctx=[gpu(i) for i in range(N)]``."""
+    reference's ``ctx=[gpu(i) for i in range(N)]``.  After
+    ``dist.init_distributed`` (and without a ``device_type`` other than
+    the processes'), over every process's contexts."""
+    from . import dist
+    if dist.is_initialized():
+        devices = dist.global_contexts()
+        if device_type in (None, devices[0].device_type):
+            if num_devices is not None:
+                devices = devices[:num_devices]
+            return make_mesh({axis: len(devices)}, devices)
     if device_type == "cpu":
         devices = local_contexts("cpu", num_devices)
     else:

@@ -215,7 +215,7 @@ from . import collectives
 from . import tensor_parallel as tp_mod
 from .collectives import (DEFAULT_BUCKET_BYTES, check_compression,
                           plan_buckets, psum, psum_compressed)
-from .members import run_synced
+from .members import ProcessBridge, run_synced
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
                    SEQ_AXIS, Mesh,
                    NamedSharding, PartitionSpec, axis_groups,
@@ -417,6 +417,13 @@ class ShardedTrainer:
                 f"grad_compression over a mesh with a {split_axes[0]!r} "
                 "axis (the explicit mode's members do not meet inside the "
                 "step; use the implicit mode)")
+        if self._bridge_spec is not None:
+            what = ("grad_compression" if self.grad_compression is not None
+                    else "shard_optimizer (ZeRO)" if self.shard_optimizer
+                    else "sharding rules" if self.rules._rules else None)
+            if what is not None:
+                raise not_ported(f"ShardedTrainer with {what} over a mesh "
+                                 "that spans processes")
         # error feedback: one residual a bucket a member, on by default
         # for the lossy formats; grad_accum > 1 reduces once a
         # microbatch, where a step's residual has no home
@@ -503,6 +510,12 @@ class ShardedTrainer:
             raise MXNetError(f"mesh must be a parallel.Mesh, got "
                              f"{type(mesh).__name__}")
         self.mesh = mesh
+        # over a mesh that spans processes the members below are this
+        # process's (its piece of the data axis); _bridge_spec says where
+        # that piece lies in the global axis
+        self._bridge_spec: Optional[Tuple[str, int, int]] = None
+        if mesh.spans_processes:
+            mesh = self._process_mesh(mesh, data_axis or DATA_AXIS)
         if data_axis is None:
             # a mesh without a data axis replicates the batch
             self.data_axis = (DATA_AXIS if DATA_AXIS in mesh.axis_names
@@ -564,6 +577,12 @@ class ShardedTrainer:
         data_of = {i: g for g in self._groups[DATA_AXIS] for i in g}
         self._col_groups = [data_of[j] for j in self._col_lead]
         self._col0 = self._col_groups[0]
+        # the members' rows of a placed batch: the local data group's
+        self._shard_n, self._shard_coord = self._ndata, list(self._dcoord)
+        if self._bridge_spec is not None:
+            # keys and the global heads follow the global coordinates
+            _, offset, self._ndata = self._bridge_spec
+            self._dcoord = [offset + c for c in self._dcoord]
         self._members = mesh.members
         # resolve_device raises for a CUDA member without CUDA: a member
         # never falls back to the CPU
@@ -573,6 +592,36 @@ class ShardedTrainer:
         if device is not None and resolve_device(device) != self.device:
             raise MXNetError(f"device {device} is not the mesh's first "
                              f"member {self._members[0]}")
+
+    def _process_mesh(self, mesh: Mesh, data_axis: str) -> Mesh:
+        """This process's members of a mesh that spans processes, as a
+        mesh of the same axes: only the data axis may span processes
+        (every other axis of one member), and the processes' members lie
+        along it in process order.  Sets ``_bridge_spec``."""
+        if data_axis not in mesh.axis_names:
+            raise MXNetError(f"mesh has no axis {data_axis!r}; axes: "
+                             f"{mesh.axis_names}")
+        others = [a for a in mesh.axis_names
+                  if a != data_axis and mesh.shape[a] > 1]
+        if others:
+            raise not_ported(
+                f"ShardedTrainer over a mesh that spans processes with a "
+                f"{others[0]!r} axis of {mesh.shape[others[0]]} (only the "
+                "data axis may span processes)")
+        procs = mesh.processes
+        if procs != sorted(procs):
+            raise MXNetError(f"mesh {mesh}: the processes' members must lie "
+                             "along the data axis in process order")
+        mine = [i for i, m in enumerate(mesh.members) if m.process is None]
+        if not mine:
+            raise MXNetError(f"mesh {mesh} holds no member of this process")
+        shape = [len(mine) if a == data_axis else 1
+                 for a in mesh.axis_names]
+        local = np.empty(len(mine), dtype=object)
+        local[:] = [mesh.members[i] for i in mine]
+        # the members meet along DATA_AXIS (the trainer's groups' key)
+        self._bridge_spec = (DATA_AXIS, mine[0], mesh.size)
+        return Mesh(local.reshape(shape), mesh.axis_names)
 
     # ------------------------------------------------------------------
     # Bind: infer shapes, initialize and place params, lay out the state
@@ -604,10 +653,19 @@ class ShardedTrainer:
         self._aux_names = sym.list_auxiliary_states()
         # the graph runs a microbatch at a time: a symbol that bakes the
         # batch into its Reshapes is built for the microbatch
-        arg_shapes, _, aux_shapes = sym.infer_shape(**{
+        arg_shapes, out_shapes, aux_shapes = sym.infer_shape(**{
             n: (s[0] // self.grad_accum,) + tuple(s[1:])
             for n, s in input_shapes.items()})
         shape_of = dict(zip(arg_names, arg_shapes))
+        scalars = [n for n, s in zip(sym.list_outputs(), out_shapes)
+                   if s is not None and len(s) == 0]
+        if scalars and self.grad_compression is not None:
+            # the JAX explicit mode's shard_map cannot return a rank-0
+            # head over the data axis either
+            raise MXNetError(
+                f"grad_compression with the 0-d head {scalars[0]!r}: the "
+                "explicit mode returns each head cut over the data axis; "
+                "use the implicit mode")
         self._input_shapes = {n: tuple(input_shapes[n])
                               for n in self._input_names}
         self._topo = sym._topo()
@@ -1055,7 +1113,7 @@ class ShardedTrainer:
         taking ``[:, d]`` for its data coordinate ``d``, so that every
         microbatch is split over the data axis as the JAX trainer splits
         it and the members of a model group hold the same rows."""
-        n, k = self._ndata, self.grad_accum
+        n, k = self._shard_n, self.grad_accum
         if len(self._devices) == 1:
             return [dict(batch)]
         shards: List[Dict[str, torch.Tensor]] = [{} for _ in self._devices]
@@ -1064,7 +1122,8 @@ class ShardedTrainer:
             b = v.shape[0] // (k * n)
             parts = v.reshape((k, n, b) + rest)
             for i, dev in enumerate(self._devices):
-                piece = parts[:, self._dcoord[i]].reshape((k * b,) + rest)
+                piece = parts[:, self._shard_coord[i]].reshape(
+                    (k * b,) + rest)
                 shards[i][name] = (piece.to(dev, copy=True)
                                    if dev.type == "cpu"
                                    else piece.to(dev, non_blocking=True))
@@ -1370,13 +1429,17 @@ class ShardedTrainer:
                                 for nm, v in aux_j.items()})
         heads = []
         for q in range(len(heads_k[0][0])):
-            # a head of the global batch (a reduction over its rows) is
-            # the same on every data member: the lead's
-            rows = ([self._col0[0]] if q in self._global_heads and not explicit
-                    else self._col0)
+            # a head of the global batch (a reduction over its rows, or a
+            # 0-d value) is the same on every data member: the lead's
+            scalar = heads_k[0][self._col0[0]][q].dim() == 0
+            rows = ([self._col0[0]] if (q in self._global_heads or scalar)
+                    and not explicit else self._col0)
             pieces = [hs[i][q] for hs in heads_k for i in rows]
+            # microbatches' 0-d values stack into one a microbatch, as
+            # the JAX trainer's scan stacks them
+            join = torch.stack if scalar else torch.cat
             heads.append(pieces[0] if len(pieces) == 1 else
-                         torch.cat([p.to(self.device) for p in pieces]))
+                         join([p.to(self.device) for p in pieces]))
         return tuple(heads), grads, auxu, sq, new_ef
 
     def _reduce_implicit(self, member_grads):
@@ -1396,6 +1459,14 @@ class ShardedTrainer:
                            for grp in self._col_groups]
             else:
                 red[nm] = psum([member_grads[i][nm] for i in everyone])[0]
+        if self._bridge_spec is not None:
+            # the other processes' data members: summed through the
+            # process group
+            names = list(red)
+            summed = collectives.allreduce_processes(
+                [red[nm] for nm in names], self.grad_bucket_bytes,
+                axis=self.data_axis)
+            red = dict(zip(names, summed))
         return red
 
     def _bucket_out(self) -> bool:
@@ -1452,12 +1523,21 @@ class ShardedTrainer:
                 sync=sync, local=(plan if plan is not None
                                   and plan.plan == "split" else None))
 
-        if local or n == 1 or not self._threaded:
+        bridge = None
+        if local or not self._threaded or (n == 1 and
+                                           self._bridge_spec is None):
             outs = [forward(i, None) for i in range(n)]
         else:
+            if self._bridge_spec is not None:
+                bridge = ProcessBridge(*self._bridge_spec)
             outs = run_synced(forward, self._devices, self._groups,
-                               self._row_reductions)
+                              self._row_reductions, bridge)
         live, cots = [], []
+        if bridge is not None and bridge.token.grad_fn is not None:
+            # every process runs the backward of every cross-process
+            # link, in the links' order (members.ProcessBridge)
+            live.append(bridge.token)
+            cots.append(torch.zeros_like(bridge.token))
         for i, (heads, _) in enumerate(outs):
             sc = None if scale is None else scale.to(self._devices[i])
             if self._dupcoord[i] != 0:
@@ -1693,6 +1773,9 @@ class ShardedTrainer:
         return ts + [self._lr_dev, self._t_dev]
 
     def _uncapturable(self) -> Optional[str]:
+        if self._bridge_spec is not None:
+            return ("a mesh that spans processes runs eagerly (its "
+                    "reductions go through the process group on the host)")
         if len(self._devices) > 1:
             return ("a mesh path over several members runs eagerly (a CUDA "
                     "graph holds one device's work; the members' threads "
@@ -2084,6 +2167,11 @@ class ShardedTrainer:
         between any two bytecodes), it saves nothing yet: the update
         count has moved and the weights may be half updated.  The save
         runs when the step ends, at the same update count."""
+        if self._bridge_spec is not None:
+            # every process holds the whole state: the writers' layout by
+            # process is not wired
+            raise not_ported("save_state of a trainer over a mesh that "
+                             "spans processes")
         if self._in_step:
             self._deferred_save = (manager, step, blocking, extra_meta)
             defer = getattr(manager, "defer_save", None)

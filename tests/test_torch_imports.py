@@ -20,12 +20,18 @@ the input records, the last three ops and the deployment predictor
 and export), tensor and model parallelism (parallel.tensor_parallel,
 ShardingRules, megatron_rules, the axis collectives, the executor's
 cross-device copy), pipelines (parallel.pipeline, parallel.pipeline_trainer,
-parallel.pipeline_spmd; none of them touches the card at import) and
+parallel.pipeline_spmd; none of them touches the card at import), the
+multi-process tier (parallel.dist, parallel.dist_kvstore,
+parallel.launch, the process bridge of the member meetings) and
 ``chip_smoke``; a source scan checks every file of the port and the script
-for such imports.
+for such imports.  ``chip_smoke.py --dist-worker`` (phase 23's child
+program) runs a ``dist_async`` cluster on the CPU with ``jax``,
+``jaxlib`` and ``mxnet_tpu`` unimportable in every child.
 """
+import json
 import os
 import re
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -99,6 +105,16 @@ import mxnet_tpu_torch.parallel.pipeline_trainer
 from mxnet_tpu_torch.parallel import (PipelineTrainer, SpmdPipelineTrainer,
                                       pipeline_apply)
 from mxnet_tpu_torch.parallel.pipeline_spmd import schedule_1f1b
+import mxnet_tpu_torch.parallel.dist
+import mxnet_tpu_torch.parallel.dist_kvstore
+import mxnet_tpu_torch.parallel.launch
+from mxnet_tpu_torch.parallel import dist, dist_kvstore, launch
+from mxnet_tpu_torch.parallel.dist_kvstore import (DistKVStore,
+                                                   MembershipClient,
+                                                   run_scheduler, run_server)
+from mxnet_tpu_torch.parallel.launch import launch_local, launch_ssh, submit
+from mxnet_tpu_torch.parallel.members import ProcessBridge
+from mxnet_tpu_torch.parallel.collectives import allreduce_processes
 import torch
 assert not torch.cuda.is_initialized()
 from mxnet_tpu_torch import AttrScope
@@ -152,3 +168,46 @@ def test_no_jax_or_reference_package_in_port_sources():
                  for f in files for m in _imported_modules(f.read_text())
                  if m in ("jax", "jaxlib", "mxnet_tpu")]
     assert offenders == []
+
+
+def test_smoke_dist_worker_runs_without_jax(tmp_path, monkeypatch):
+    """Phase 23's child program, ``chip_smoke.py --dist-worker kv-async``,
+    as every role of a ``launch_local`` cluster (1 scheduler, 2 servers,
+    2 workers) on the CPU, with a path entry that makes ``jax``,
+    ``jaxlib`` and ``mxnet_tpu`` raise on import: both workers pull the
+    closed form and report no such module loaded."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        from mxnet_tpu_torch.parallel.launch import launch_local
+    finally:
+        sys.path.remove(str(ROOT))
+    block = tmp_path / "block"
+    block.mkdir()
+    for name in ("jax", "jaxlib", "mxnet_tpu"):
+        (block / f"{name}.py").write_text(
+            "raise ImportError('blocked for this test')\n")
+    out = tmp_path / "out"
+    out.mkdir()
+    plan = {"device": "cpu", "agg": {"small": [3, 3], "big": [40, 40],
+                                     "rate": 2, "repeat": 3}}
+    (out / "plan.json").write_text(json.dumps(plan))
+    monkeypatch.setenv("PYTHONPATH", f"{block}{os.pathsep}{ROOT}")
+    monkeypatch.setenv("MXNET_KVSTORE_BIGARRAY_BOUND", "4096")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    codes = launch_local([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--dist-worker", "kv-async", str(out)],
+                         num_workers=2, num_servers=2, root_port=port,
+                         timeout=120, return_codes=True)
+    logs = {p.name: p.read_text() for p in out.glob("*.log")}
+    assert codes == [0, 0], logs
+    results = [json.loads(line[4:]) for text in logs.values()
+               for line in text.splitlines() if line.startswith("P23 ")]
+    assert sorted(r["rank"] for r in results) == [0, 1], logs
+    for r in results:
+        assert r["foreign"] == []
+        assert r["aggregate"] == {"closed_form": 19.0, "pushes_a_key": 6}
+    assert len(logs) == 5 and all(t.rstrip().endswith("exit code 0")
+                                  for t in logs.values()), logs

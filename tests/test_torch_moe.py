@@ -253,11 +253,12 @@ def test_op_through_simple_bind_matches_jax(top_k, aux):
                                    err_msg=n)
 
 
-def _train(axes, rules, b, top_k, cf, aux, args, batches, jax_side=False):
+def _train(axes, rules, b, top_k, cf, aux, args, batches, jax_side=False,
+           grad_accum=1):
     """The JAX (``jax_side``) or the port trainer over a mesh of
     ``axes``, bound with ``args`` and stepped over ``batches`` with SGD
-    at rate 0.1; returns the last step's heads (numpy) and the
-    trainer."""
+    at rate 0.1 (``grad_accum`` microbatches a step); returns the last
+    step's heads (numpy) and the trainer."""
     pkg = mx if jax_side else mxt
     with pkg.name.NameManager():
         net = _moe_net(pkg.symbol, top_k, cf, aux)
@@ -265,12 +266,14 @@ def _train(axes, rules, b, top_k, cf, aux, args, batches, jax_side=False):
     if jax_side:
         tr = JaxTrainer(net, optimizer="sgd",
                         optimizer_params={"learning_rate": 0.1},
-                        mesh=jmesh(axes), rules=rules)
+                        mesh=jmesh(axes), rules=rules,
+                        grad_accum=grad_accum)
         tr.bind(*shapes, arg_params={k: jnp.asarray(v)
                                      for k, v in args.items()})
     else:
         tr = ShardedTrainer(net, "sgd", {"learning_rate": 0.1},
-                            mesh=tmesh(axes), rules=rules)
+                            mesh=tmesh(axes), rules=rules,
+                            grad_accum=grad_accum)
         tr.bind(*shapes, arg_params=args)
     heads = None
     for bt in batches:
@@ -455,6 +458,43 @@ def test_trainer_over_an_expert_mesh(rules, tmp_path):
     hd = dp.step(batches[steps])[0].numpy()
     he = tt.step(batches[steps])[0].numpy()
     np.testing.assert_allclose(hd, he, **ONE_DEVICE)
+
+
+@pytest.mark.parametrize("axes", [{"data": 1}, {"data": 2},
+                                  {"data": 2, "expert": 2}],
+                         ids=["data1", "data2", "data2-expert2"])
+def test_grad_accum_stacks_the_aux_head_as_jax(axes):
+    """The top-2 net with its 0-d aux head at ``grad_accum`` 2 (batch
+    16): the head comes back as one value a microbatch, shape ``(2,)``,
+    as the JAX trainer's scan stacks it; heads and parameters after 2
+    steps against the JAX trainer on the same mesh.  At ``grad_accum`` 1
+    the head stays 0-d in both.  Compressed gradients refuse the 0-d
+    head at ``bind`` and name it (the JAX explicit mode cannot return
+    it)."""
+    from mxnet_tpu_torch.base import MXNetError
+    b, steps = 16, 2
+    args = _moe_args(11, b)
+    batches = _batches(steps, b, 12)
+    jh, jt = _train(axes, None, b, 2, 4.0, True, args, batches,
+                    jax_side=True, grad_accum=2)
+    th, tt = _train(axes, None, b, 2, 4.0, True, args, batches,
+                    grad_accum=2)
+    assert jh[1].shape == (2,)
+    assert th[1].shape == (2,)
+    for t, j in zip(th, jh):
+        np.testing.assert_allclose(t, j, **JAX_HEAD)
+    jp, tp = _jparams(jt), _tparams(tt)
+    for n in jp:
+        np.testing.assert_allclose(tp[n], jp[n], **JAX_PARAM, err_msg=n)
+    th1, _ = _train(axes, None, b, 2, 4.0, True, args, batches[:1])
+    assert th1[1].shape == ()
+    if axes == {"data": 2}:
+        with mxt.name.NameManager():
+            net = _moe_net(mxt.symbol, 2, 4.0, True)
+        tr = ShardedTrainer(net, "sgd", {"learning_rate": 0.1},
+                            mesh=tmesh(axes), grad_compression="int8")
+        with pytest.raises(MXNetError, match="moe_aux_loss"):
+            tr.bind({"data": (b, D)}, {"lro_label": (b, D)})
 
 
 def test_aux_loss_head_trains_toward_balance():

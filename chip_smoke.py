@@ -435,14 +435,49 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     beside the one-process step and the bytes reduced a step; where two
     cards exist, again with one process on each card over NCCL; with
     one it says so; the children's launches count in the kernel line;
+24. runs the multi-process tier, part two (after phase 23, before 15),
+    children as in phase 23, under deterministic algorithms: (a) three
+    ranks over gloo on the card, each ``init_distributed(watchdog=...)``
+    with ``MXTPU_WATCHDOG`` at a probed port, a beat every 0.5 s and 2.5
+    s of silence to a verdict, the default ``on_failure``: a hung rank
+    (phase 9's LM over a data mesh of the three processes, batch 6;
+    rank 2 freezes itself with SIGSTOP after 2 steps and the others
+    block in step 3's all-reduce), a dead rank (rank 2 exits while the
+    ranks idle) and a dead monitor (rank 0 exits): every survivor exits
+    70 within 2.5 + 4 s of the fault, its log naming the dead rank (its
+    ``on_death`` line too, but for the monitor's death), the monitor's
+    flight dump names it; prints each case's seconds from the fault to
+    each survivor's exit; (b) ``tools/torch_launch.py -n 4 -s 0
+    --launcher local`` starts a membership cluster: worker 0 binds
+    ``ElasticTrainer`` (ZeRO) on the card and takes 8 steps of phase 9's
+    LM; worker 1 kills itself at step 3 (``MXNET_TPU_CHAOS=
+    worker_kill:3``) and the trainer waits for that in the view: the
+    epoch bumps, every update completes, the mesh stays at one member
+    (generation 1, no resize), the heads and final parameters are
+    bitwise a plain ``ShardedTrainer`` (ZeRO) on the same weights and
+    batches, and no kernel library is built after step 1; prints ms a
+    step beside the plain trainer's; (c) a child with
+    ``install_preemption_hook(et.save_now, exit_after=True)`` gets
+    SIGTERM inside update 4 (the point it reports): the save lands at
+    the step's end, the child exits 143, and a fresh ``ShardedTrainer``
+    here restored from it takes 2 steps bitwise the uninterrupted
+    run's; (d) where two cards exist, the LM with ZeRO through
+    ``ElasticTrainer`` over both, resized 2 -> 1 -> 2, 2 steps a
+    segment, each segment bitwise a fresh trainer restored from the
+    resize's snapshot, no step lost, no kernel built, with drain,
+    restore and pause ms; with one card it prints why (d) did not run;
+    the children's launches count in the kernel line;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
 port is not beside it, and on any failed check.  ``--dist-worker JOB
-DIR`` is phase 23's child program (``kv-sync``, ``kv-async`` in every
-role of a ``launch_local`` cluster, ``lm`` as a rank of a process group),
-which reads the sizes the parent wrote to ``DIR/plan.json``.
+DIR`` is the child program of phases 23 and 24 (``kv-sync``,
+``kv-async`` in every role of a ``launch_local`` cluster, ``lm`` as a
+rank of a process group; ``wd-hung``, ``wd-dead``, ``wd-monitor`` as a
+rank with the watchdog on, ``el-chaos`` in every role of a
+``tools/torch_launch.py`` cluster, ``el-sigterm`` alone), which reads
+the sizes the parent wrote to ``DIR/plan.json``.
 
 ``python3 chip_smoke.py --serve-ab PARENT`` measures what a change to the
 port costs the serving loop: it runs phases 4 and 11 alone (after the
@@ -9431,8 +9466,13 @@ def p23_lm_job(torch, np, mx, plan, out):
 def dist_worker(job, out):
     """``--dist-worker JOB DIR``: one child program of phase 23
     (``kv-sync``, ``kv-async`` under ``launch_local`` in every role,
-    ``lm`` as a rank of a process group).  Its output goes to a log in ``DIR``, ending
-    with its exit code; a worker's result is its ``P23 {json}`` line."""
+    ``lm`` as a rank of a process group) or of phase 24 (``wd-hung``,
+    ``wd-dead``, ``wd-monitor`` as a rank of a process group with the
+    watchdog on, ``el-chaos`` in every role of a ``tools/torch_launch.py``
+    cluster, ``el-sigterm`` alone).  Its output goes to a log in ``DIR``,
+    ending with its exit code unless the process ends itself (the
+    watchdog's ``os._exit(70)``, a planted death); a result is its ``P23
+    {json}`` or ``P24 {json}`` line."""
     role = os.environ.get("MXTPU_ROLE") or (
         "rank" + os.environ.get("MXTPU_PROC_ID", "?"))
     tag = f"{job}-{role}-{os.environ.get('MXTPU_WORKER_ID', os.getpid())}"
@@ -9451,14 +9491,21 @@ def dist_worker(job, out):
         torch.backends.cudnn.allow_tf32 = False
         with open(os.path.join(out, "plan.json")) as f:
             plan = json.load(f)
-        if job == "lm":
+        if job.startswith("wd-"):
+            res = p24_wd_job(torch, np, mx, plan, out, job[3:])
+        elif job == "el-chaos":
+            res = p24_chaos_job(torch, np, mx, plan, out)
+        elif job == "el-sigterm":
+            res = p24_sigterm_job(torch, np, mx, plan, out)
+        elif job == "lm":
             res = p23_lm_job(torch, np, mx, plan, out)
         else:
             res = p23_kv_job(torch, np, mx, plan, out,
                              "dist_" + job.split("-")[1])
-        res["foreign"] = sorted(m for m in sys.modules if m.split(".")[0]
-                                in ("jax", "jaxlib", "mxnet_tpu"))
-        print("P23 " + json.dumps(res), flush=True)
+        if res is not None:
+            res["foreign"] = p24_foreign()
+            tag = "P23 " if job in ("lm", "kv-sync", "kv-async") else "P24 "
+            print(tag + json.dumps(res), flush=True)
         code = 0
     except SystemExit as exc:   # a server or the scheduler left its loop
         code = exc.code or 0
@@ -9865,6 +9912,732 @@ def phase_multiprocess(torch, np, mx, nn_ops, fu, fa, parts=("ps", "lm")):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the multi-process tier, part two -- the collective tier's
+# watchdog on the card, ElasticTrainer under membership chaos, SIGTERM
+# inside a step, and a live resize where two cards exist
+# ---------------------------------------------------------------------------
+# (a) three ranks over gloo on the card (phase 23 (c)'s layout), the
+# watchdog at a probed port with a short beat: a beat every 0.5 s, a peer
+# silent for 2.5 s is dead.  A survivor exits 70 within P24_WD["timeout"]
+# + P24_WD_GRACE of the fault: the grace holds the stale check's period
+# (0.5 s), the default on_failure's 0.5 s wait and the process's exit
+P24_WD = {"interval": 0.5, "timeout": 2.5}
+P24_WD_GRACE = 4.0
+# (a)1 trains phase 9's LM over the three processes: its global batch is
+# cut to a multiple of 3 (2 rows a rank); rank 2 freezes after 2 steps
+P24_HUNG_BATCH, P24_HUNG_STEPS = 6, 2
+# how long an idle rank of (a)2/(a)3 waits for the watchdog to end it
+P24_IDLE = 60.0
+# (b) 4 members of capacity 1 started through tools/torch_launch.py;
+# the trainer takes 8 steps, member 1 kills itself at the trainer's step 3
+# (MXNET_TPU_CHAOS=worker_kill:3); the trainer waits at most
+# P24_VIEW_WAIT s for the kill to show in the membership view
+P24_CHAOS = dict(workers=4, capacity=1, steps=8, kill_at=3, kill_worker=1)
+P24_VIEW_WAIT = 60.0
+# (c) SIGTERM lands inside update 4; the fresh trainer takes 2 more steps
+P24_SIGTERM = dict(at=4, more=2)
+# (d) resized 2 -> 1 -> 2 over two cards, 2 steps a segment
+P24_RESIZE_STEPS = 2
+P24_TIMEOUT = {"wd-hung": 240, "wd-dead": 120, "wd-monitor": 120,
+               "el-chaos": 300, "el-sigterm": 240}
+
+
+def p24_plan(device):
+    """Phase 23's plan with phase 24's knobs (children read both)."""
+    plan = p23_plan(device)
+    plan["p24"] = {"wd": P24_WD, "hung_batch": P24_HUNG_BATCH,
+                   "hung_steps": P24_HUNG_STEPS, "idle": P24_IDLE,
+                   "chaos": P24_CHAOS, "view_wait": P24_VIEW_WAIT,
+                   "sigterm": P24_SIGTERM}
+    return plan
+
+
+def p24_batch(np, plan, i):
+    """Step i's batch of the LM (its own seed), ``plan``'s batch rows."""
+    lm = plan["lm"]
+    toks = np.random.RandomState(2400 + i).randint(
+        0, lm["vocab"], (lm["batch"], lm["seq"] + 1))
+    return {"data": toks[:, :-1].astype(np.float32),
+            "softmax_label": toks[:, 1:].astype(np.float32)}
+
+
+def p24_card(mx, plan):
+    return mx.gpu(0) if plan["device"] == "cuda" else mx.cpu(0)
+
+
+def p24_foreign():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+
+
+def p24_say(tag, obj):
+    """A line the parent reads from the child's log, flushed at once."""
+    print(f"{tag} {json.dumps(obj)}", flush=True)
+
+
+def p24_write(out, name, obj):
+    tmp = os.path.join(out, f"{name}.tmp{os.getpid()}")
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, os.path.join(out, name))
+
+
+def p24_wait_file(path, seconds, proc=None):
+    """Wait for ``path``; False past ``seconds`` or once ``proc`` ended."""
+    deadline = time.monotonic() + seconds
+    while not os.path.exists(path):
+        if time.monotonic() > deadline or (proc is not None
+                                           and proc.poll() is not None):
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def p24_lm_trainer(torch, mx, plan, sym, mesh, **kw):
+    """Phase 9's trainer (Adam, bf16 compute) over ``mesh``."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    return ShardedTrainer(sym, optimizer="adam",
+                          optimizer_params=dict(plan["lm"]["opt"]),
+                          compute_dtype="bfloat16", mesh=mesh, **kw)
+
+
+def p24_host(tr):
+    """A trainer's parameters on the host."""
+    return {k: v.data.cpu() for k, v in tr.get_params()[0].items()}
+
+
+def p24_steps(torch, np, plan, tr, lo, hi):
+    """Steps lo..hi-1 of ``tr`` on their batches: the first head of each
+    on the host, and each step's ms."""
+    heads, ms = [], []
+    for i in range(lo, hi):
+        batch = p24_batch(np, plan, i)
+        p23_sync(torch, plan)
+        t0 = time.perf_counter()
+        h = tr.step(batch)[0]
+        p23_sync(torch, plan)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        heads.append(h.detach().float().cpu())
+    return heads, ms
+
+
+def p24_same(torch, a, b):
+    """Two lists of tensors (or dicts of them) bitwise equal."""
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                              for k in a)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# -- the child programs --
+
+def p24_wd_job(torch, np, mx, plan, out, case):
+    """(a): a rank of three over gloo on the card, the watchdog on
+    (``MXTPU_WATCHDOG``, phase 24's beat, the default ``on_failure``; an
+    ``on_death`` observer prints who died).  ``hung``: the ranks train
+    the LM over a data mesh of the three processes and rank 2 freezes
+    itself (SIGSTOP) after step 2; ``dead``/``monitor``: the ranks meet
+    once, then idle outside any collective while rank 2, or rank 0 (the
+    monitor), exits silently."""
+    import logging
+    import signal
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+    logging.basicConfig(level=logging.WARNING)
+    p24 = plan["p24"]
+    rank = int(os.environ["MXTPU_PROC_ID"])
+    dist.init_distributed(device=p24_card(mx, plan), watchdog=dict(
+        p24["wd"], on_death=lambda r: p24_say("P24-DEATH",
+                                             {"rank": rank, "dead": r})))
+    p24_say("P24-UP", {"rank": rank, "backend": dist.backend(),
+                       "watchdog": list(dist._watchdog.monitor_addr),
+                       "foreign": p24_foreign()})
+    victim = 0 if case == "monitor" else 2
+    if case == "hung":
+        lm = dict(plan, lm=dict(plan["lm"], batch=p24["hung_batch"]))
+        sym = p23_lm_symbol(lm)
+        shapes, args, _ = p23_lm_state(np, lm, sym)
+        tr = p24_lm_trainer(torch, mx, lm, sym, make_mesh({"data": -1}))
+        tr.bind({"data": shapes["data"]},
+                {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+        n = p24["hung_batch"] // dist.process_count()
+        for i in range(p24["hung_steps"] + 1):
+            if i == p24["hung_steps"]:
+                # every rank's launches so far: a survivor never returns
+                p24_say("P24-COUNTS", {"rank": rank,
+                                       "counts": p23_counts()})
+                if rank == victim:
+                    p24_write(out, "fault-hung", {"time": time.time()})
+                    os.kill(os.getpid(), signal.SIGSTOP)
+            batch = p24_batch(np, lm, i)
+            tr.step({k: v[rank * n:(rank + 1) * n]
+                     for k, v in batch.items()})
+            p23_sync(torch, plan)
+        return {"rank": rank, "survived": True}
+    import torch.distributed as tdist
+    tdist.barrier()
+    p24_write(out, f"idle-{case}-{rank}", {})
+    if rank == victim:
+        for r in range(dist.process_count()):
+            if not p24_wait_file(os.path.join(out, f"idle-{case}-{r}"),
+                                 p24["idle"]):
+                raise SmokeFailure(f"rank {r} never went idle")
+        p24_write(out, f"fault-{case}", {"time": time.time()})
+        os._exit(1)     # silent death, no goodbye
+    deadline = time.monotonic() + p24["idle"]
+    while time.monotonic() < deadline:
+        time.sleep(0.05)
+    return {"rank": rank, "survived": True}
+
+
+def p24_member(plan, wid):
+    """(b): a capacity member: joins, beats, kills itself when the chaos
+    spec targets it and the trainer's published step reaches the point,
+    leaves when the view closes."""
+    import signal
+    from mxnet_tpu_torch import chaos
+    from mxnet_tpu_torch.parallel.dist_kvstore import MembershipClient
+    spec = chaos.elastic_from_env()
+    kill_at = (min(spec.points["worker_kill"])
+               if spec is not None and chaos.chaos_worker() == int(wid)
+               and "worker_kill" in spec.points else None)
+    client = MembershipClient(member_id=wid,
+                              capacity=plan["p24"]["chaos"]["capacity"])
+    client.start()
+    deadline = time.monotonic() + P24_TIMEOUT["el-chaos"]
+    while time.monotonic() < deadline:
+        view = client.view
+        if view is not None:
+            step = max([m["progress"] for m in view["members"].values()]
+                       or [0])
+            if kill_at is not None and step >= kill_at:
+                print(f"worker {wid}: chaos worker_kill at trainer step "
+                      f"{step}", flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)
+            if view["closing"]:
+                client.leave()
+                client.close()
+                return {"rank": int(wid), "foreign": p24_foreign()}
+        time.sleep(0.02)
+    raise SmokeFailure(f"member {wid}: the view never closed")
+
+
+def p24_chaos_trainer(torch, np, mx, plan, out):
+    """(b): the trainer: an ElasticTrainer on the card (ZeRO, phase 9's
+    LM) over the membership view; after the chaos step it waits until the
+    kill shows in the view.  Then a plain ShardedTrainer (ZeRO) on the
+    same weights and batches, in this process."""
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.parallel import ElasticTrainer, make_mesh
+    from mxnet_tpu_torch.parallel.dist_kvstore import MembershipClient
+    c, wait = plan["p24"]["chaos"], plan["p24"]["view_wait"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    client = MembershipClient(member_id="0", capacity=c["capacity"]).start()
+    if client.wait_for(lambda v: len(v["members"]) >= c["workers"],
+                       timeout=wait) is None:
+        raise SmokeFailure("the members never assembled")
+    epoch0 = client.epoch
+    sym = p23_lm_symbol(plan)
+    shapes, args, _ = p23_lm_state(np, plan, sym)
+    card = p24_card(mx, plan)
+    mgr = CheckpointManager(os.path.join(out, "chaos-ckpt"))
+    et = ElasticTrainer(sym, optimizer="adam",
+                        optimizer_params=dict(plan["lm"]["opt"]),
+                        manager=mgr, membership=client, devices=[card],
+                        trainer_kwargs={"shard_optimizer": True,
+                                        "compute_dtype": "bfloat16"})
+    et.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]})
+    et.trainer.set_params(args)
+    heads, ms, members, builds = [], [], None, None
+    for i in range(c["steps"]):
+        h, t = p24_steps(torch, np, plan, et, i, i + 1)
+        heads += h
+        ms += t
+        if i == 0:
+            builds = _build.build_count()
+        client.set_progress(i + 1)
+        client.beat_now()   # the step clock reaches the members at once
+        if i + 1 == c["kill_at"]:
+            view = client.wait_for(
+                lambda v: len(v["members"]) < c["workers"], timeout=wait)
+            if view is None:
+                raise SmokeFailure(f"the kill never showed in the view "
+                                   f"within {wait} s")
+            members = len(view["members"])
+    params = p24_host(et.trainer)
+    res = {"rank": 0, "num_update": et.num_update, "epoch_initial": epoch0,
+           "epoch_final": client.epoch, "members_after_kill": members,
+           "generation": et.generation, "resizes": et.resizes,
+           "size": et.size, "step_ms": ms}
+    et.shutdown(final=True)
+    mgr.close()
+    client.close()
+    plain = p24_lm_trainer(torch, mx, plan, sym,
+                           make_mesh({"data": 1}, [card]),
+                           shard_optimizer=True)
+    plain.bind({"data": shapes["data"]},
+               {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+    plain.compile()
+    p_heads, p_ms = p24_steps(torch, np, plan, plain, 0, c["steps"])
+    res.update(plain_step_ms=p_ms,
+               heads_bitwise=p24_same(torch, heads, p_heads),
+               params_bitwise=p24_same(torch, params, p24_host(plain)),
+               builds_after_step1=_build.build_count() - builds,
+               counts=p23_counts(), foreign=p24_foreign())
+    return res
+
+
+def p24_chaos_job(torch, np, mx, plan, out):
+    """(b) in every role of the cluster: the scheduler's membership
+    views, the trainer (worker 0), the capacity members."""
+    from mxnet_tpu_torch.parallel.dist_kvstore import (role_from_env,
+                                                       run_scheduler)
+    cfg = role_from_env()
+    if cfg.get("role") == "scheduler":
+        run_scheduler(cfg)
+        return None
+    wid = os.environ["MXTPU_WORKER_ID"]
+    if wid == "0":
+        return p24_chaos_trainer(torch, np, mx, plan, out)
+    return p24_member(plan, wid)
+
+
+def p24_sigterm_job(torch, np, mx, plan, out):
+    """(c): an ElasticTrainer on the card with the preemption hook
+    (``install_preemption_hook(et.save_now, exit_after=True)``); inside
+    update 4 it reports the point (a file) and goes on once the SIGTERM
+    was handled, which defers the save to the step's end and exits."""
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.parallel import ElasticTrainer
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    s = plan["p24"]["sigterm"]
+    sym = p23_lm_symbol(plan)
+    shapes, args, _ = p23_lm_state(np, plan, sym)
+    mgr = CheckpointManager(os.path.join(out, "sigterm-ckpt"))
+    et = ElasticTrainer(sym, optimizer="adam",
+                        optimizer_params=dict(plan["lm"]["opt"]),
+                        manager=mgr, devices=[p24_card(mx, plan)],
+                        trainer_kwargs={"compute_dtype": "bfloat16"})
+    mgr.install_preemption_hook(et.save_now, exit_after=True)
+    et.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]})
+    et.trainer.set_params(args)
+    tr = et.trainer
+    fill = tr._fill_step_scalars
+
+    def fill_and_report():
+        fill()
+        if tr._num_update == s["at"]:
+            p24_write(out, "sigterm-inside", {"update": tr._num_update})
+            deadline = time.monotonic() + P24_TIMEOUT["el-sigterm"]
+            while not mgr.preempted and time.monotonic() < deadline:
+                time.sleep(0.005)   # the handler runs between these
+
+    tr._fill_step_scalars = fill_and_report
+    try:
+        p24_steps(torch, np, plan, et, 0, s["at"] + s["more"])
+    except SystemExit:
+        p24_say("P24", {"rank": 0, "update": tr._num_update,
+                        "counts": p23_counts(), "foreign": p24_foreign()})
+        raise
+    p24_say("P24-SURVIVED", {"update": tr._num_update})
+    return None
+
+
+# -- the parent --
+
+def p24_lines(out, job, tag):
+    """Every ``tag {json}`` line of ``job``'s child logs, by log name."""
+    got = {}
+    for name, text in p23_logs(out, job).items():
+        got[name] = [json.loads(ln[len(tag) + 1:])
+                     for ln in text.splitlines()
+                     if ln.startswith(tag + " ")]
+    return got
+
+
+def p24_fail(out, job, why):
+    for name, text in p23_logs(out, job).items():
+        log(f"  --- {name} ---")
+        log(text[-6000:])
+    raise SmokeFailure(f"phase 24 {job}: {why}")
+
+
+def p24_wd_spawn(out, env, case):
+    """(a) one case: three ranks with the watchdog at a probed port, the
+    monitor's flight dumps in their own directory."""
+    job = "wd-" + case
+    victim = 0 if case == "monitor" else 2
+    port = p23_free_port()
+    wd_port = p23_free_port()
+    while wd_port == port:
+        wd_port = p23_free_port()
+    run = {"case": case, "job": job, "victim": victim,
+           "survivors": [r for r in range(3) if r != victim],
+           "flight": os.path.join(out, "flight-" + job), "procs": [],
+           "exit_at": {}, "t0": time.perf_counter()}
+    for rank in range(3):
+        e = dict(os.environ, **env, MXTPU_COORDINATOR=f"127.0.0.1:{port}",
+                 MXTPU_NUM_PROC="3", MXTPU_PROC_ID=str(rank),
+                 MXTPU_WATCHDOG=f"127.0.0.1:{wd_port}",
+                 MXNET_TPU_FLIGHTREC=run["flight"])
+        run["procs"].append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker", job,
+             out], env=e, stdin=subprocess.DEVNULL))
+    return run
+
+
+def p24_wd_wait(out, runs):
+    """Poll every rank of ``runs`` (each rank's exit time on this host's
+    clock) until each run's survivors have exited; past a run's time
+    limit the phase fails naming the ranks still running.  Every rank
+    still alive at the end is killed (the frozen rank of (a)1 too)."""
+    deadline = {id(r): time.monotonic() + P24_TIMEOUT[r["job"]]
+                for r in runs}
+    try:
+        while not all(all(i in r["exit_at"] for i in r["survivors"])
+                      for r in runs):
+            for r in runs:
+                for i, p in enumerate(r["procs"]):
+                    if i not in r["exit_at"] and p.poll() is not None:
+                        r["exit_at"][i] = time.time()
+                left = [i for i in r["survivors"] if i not in r["exit_at"]]
+                if left and time.monotonic() > deadline[id(r)]:
+                    p24_fail(out, r["job"], f"ranks {left} still ran after "
+                             f"{P24_TIMEOUT[r['job']]} s")
+            time.sleep(0.01)
+    finally:
+        for r in runs:
+            for p in r["procs"]:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            r["seconds"] = time.perf_counter() - r["t0"]
+
+
+def p24_wd_check(out, run, launches):
+    """(a) one case's verdict: each survivor exited 70 within the
+    watchdog's timeout plus the grace of the fault, its log naming the
+    dead rank; the monitor's flight dump exists where the monitor lives.
+    Returns the case's numbers."""
+    import glob
+    job, case, victim = run["job"], run["case"], run["victim"]
+    survivors, exit_at = run["survivors"], run["exit_at"]
+    codes = [p.returncode for p in run["procs"]]
+    fault = os.path.join(out, "fault-" + case)
+    if not os.path.exists(fault):
+        p24_fail(out, job, f"no fault was planted (exit codes {codes})")
+    with open(fault) as f:
+        t_fault = json.load(f)["time"]
+    secs = {r: exit_at[r] - t_fault for r in survivors}
+    limit = P24_WD["timeout"] + P24_WD_GRACE
+    for r in survivors:
+        if codes[r] != 70 or not 0 < secs[r] <= limit:
+            p24_fail(out, job, f"rank {r} exited {codes[r]} {secs[r]:.3f} s "
+                     f"after the fault (70 within {limit} s expected)")
+    logs = p23_logs(out, job)
+    ups = p24_lines(out, job, "P24-UP")
+    deaths = p24_lines(out, job, "P24-DEATH")
+    for r in range(3):
+        name = [n for n in logs if n.startswith(f"{job}-rank{r}-")]
+        if len(name) != 1:
+            p24_fail(out, job, f"rank {r} left logs {name}")
+        up = ups[name[0]]
+        if not up or up[0]["foreign"] or up[0]["backend"] != "gloo":
+            p24_fail(out, job, f"rank {r} started as {up}")
+        if r not in survivors:
+            continue
+        text = logs[name[0]]
+        if f"peer rank {victim} declared DEAD" not in text:
+            p24_fail(out, job, f"rank {r}'s log does not name rank {victim}")
+        # the monitor's verdict and an abort frame reach on_death; the
+        # monitor's own death reaches on_failure alone
+        if case != "monitor" and [d["dead"] for d in deaths[name[0]]] \
+                != [victim]:
+            p24_fail(out, job, f"rank {r}'s on_death saw "
+                     f"{deaths[name[0]]}")
+    dumps = sorted(glob.glob(os.path.join(
+        run["flight"], "flightrec-watchdog-peer-death-*.json")))
+    if case != "monitor":
+        if len(dumps) != 1:
+            p24_fail(out, job, f"the monitor's flight dumps: {dumps}")
+        with open(dumps[0]) as f:
+            extra = json.load(f)["extra"]
+        if extra["dead_rank"] != victim or extra["rank"] != 0:
+            p24_fail(out, job, f"the flight dump says {extra}")
+    if case == "hung":
+        counts = p24_lines(out, job, "P24-COUNTS")
+        for name, lines in counts.items():
+            if len(lines) != 1:
+                p24_fail(out, job, f"{name} reported counts {lines}")
+            p23_add(launches, lines[0]["counts"])
+    return {"exit_codes": codes, "fault_to_exit_s": secs,
+            "fault_to_last_exit_s": max(secs.values()),
+            "flight_dumps": [os.path.basename(d) for d in dumps],
+            "seconds": run["seconds"]}
+
+
+def p24_chaos(torch, out, env, launches):
+    """(b) the cluster through tools/torch_launch.py under its time
+    limit (past it the launcher's process group is killed)."""
+    import signal
+    job = "el-chaos"
+    c = P24_CHAOS
+    here = os.path.dirname(os.path.abspath(__file__))
+    e = dict(os.environ, **env, MXNET_TPU_CHAOS=f"worker_kill:{c['kill_at']}",
+             MXNET_TPU_CHAOS_WORKER=str(c["kill_worker"]),
+             MXNET_TPU_ELASTIC_HEARTBEAT_MS="100")
+    cmd = [sys.executable, os.path.join(here, "tools", "torch_launch.py"),
+           "-n", str(c["workers"]), "-s", "0", "--launcher", "local",
+           "--root-port", str(p23_free_port()), sys.executable,
+           os.path.abspath(__file__), "--dist-worker", job, out]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=e, stdin=subprocess.DEVNULL,
+                            start_new_session=True)
+    try:
+        code = proc.wait(timeout=P24_TIMEOUT[job])
+    except subprocess.TimeoutExpired:
+        code = None
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)     # stragglers included
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    if code is None:
+        p24_fail(out, job, f"the cluster did not finish within "
+                 f"{P24_TIMEOUT[job]} s")
+    if code != 0:
+        p24_fail(out, job, f"tools/torch_launch.py exited {code}")
+    res = {}
+    for name, lines in p24_lines(out, job, "P24").items():
+        for r in lines:
+            res[r["rank"]] = r
+    killed = c["kill_worker"]
+    want = [r for r in range(c["workers"]) if r != killed]
+    if sorted(res) != want:
+        p24_fail(out, job, f"results from members {sorted(res)}")
+    logs = p23_logs(out, job)
+    kill_log = [t for n, t in logs.items()
+                if n.startswith(f"{job}-worker-{killed}")]
+    if len(kill_log) != 1 or "chaos worker_kill" not in kill_log[0] \
+            or "exit code" in kill_log[0]:
+        p24_fail(out, job, f"member {killed} did not kill itself")
+    tr = res[0]
+    for r in res.values():
+        if r["foreign"]:
+            p24_fail(out, job, f"member {r['rank']} imported {r['foreign']}")
+    ok = (tr["num_update"] == c["steps"]
+          and tr["epoch_final"] > tr["epoch_initial"]
+          and tr["members_after_kill"] == c["workers"] - 1
+          and tr["generation"] == 1 and tr["resizes"] == []
+          and tr["size"] == 1)
+    if not ok:
+        p24_fail(out, job, f"the trainer ended as {tr}")
+    if not (tr["heads_bitwise"] and tr["params_bitwise"]):
+        p24_fail(out, job, "the elastic run is not bitwise the plain "
+                 f"trainer's: heads {tr['heads_bitwise']}, parameters "
+                 f"{tr['params_bitwise']}")
+    if tr["builds_after_step1"]:
+        p24_fail(out, job, f"{tr['builds_after_step1']} kernel libraries "
+                 "built after step 1")
+    p23_add(launches, tr["counts"])
+    return {"seconds": time.perf_counter() - t0,
+            "epoch": [tr["epoch_initial"], tr["epoch_final"]],
+            "ms_a_step": float(sorted(tr["step_ms"][1:])[
+                len(tr["step_ms"][1:]) // 2]),
+            "plain_ms_a_step": float(sorted(tr["plain_step_ms"][1:])[
+                len(tr["plain_step_ms"][1:]) // 2]),
+            "step_ms": tr["step_ms"], "plain_step_ms": tr["plain_step_ms"]}
+
+
+def p24_sigterm(torch, np, mx, plan, out, env, launches):
+    """(c) the child under SIGTERM inside update 4, then a fresh
+    ShardedTrainer here restored from its save against the uninterrupted
+    run (this process, the same settings, run while the child starts)."""
+    import signal
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.parallel import make_mesh
+    job = "el-sigterm"
+    s = P24_SIGTERM
+    before = p23_counts()
+    sym = p23_lm_symbol(plan)
+    shapes, args, _ = p23_lm_state(np, plan, sym)
+    mesh = make_mesh({"data": 1}, [p24_card(mx, plan)])
+    bind = ({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]})
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", job,
+         out], env=dict(os.environ, **env), stdin=subprocess.DEVNULL)
+    try:
+        # the uninterrupted run and the trainer that resumes, while the
+        # child starts and steps (it waits inside update 4 for the signal)
+        straight = p24_lm_trainer(torch, mx, plan, sym, mesh)
+        straight.bind(*bind, arg_params=args)
+        straight.compile()
+        want, _ = p24_steps(torch, np, plan, straight, 0,
+                            s["at"] + s["more"])
+        want_params = p24_host(straight)
+        del straight
+        fresh = p24_lm_trainer(torch, mx, plan, sym, mesh, seed=11)
+        fresh.bind(*bind)
+        fresh.compile()
+        if not p24_wait_file(os.path.join(out, "sigterm-inside"),
+                             P24_TIMEOUT[job], proc):
+            p24_fail(out, job, "the child never reported update "
+                     f"{s['at']} (exit {proc.poll()})")
+        proc.send_signal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        code = proc.wait(timeout=P24_TIMEOUT[job])
+        exit_s = time.perf_counter() - t0
+    except subprocess.TimeoutExpired:
+        p24_fail(out, job, f"the child outlived {P24_TIMEOUT[job]} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(p23_logs(out, job).values())
+    if code != 128 + signal.SIGTERM or "P24-SURVIVED" in text:
+        p24_fail(out, job, f"the child exited {code}")
+    if f"asked for inside update {s['at']}; deferred" not in text:
+        p24_fail(out, job, "the save was not deferred to the step's end")
+    mgr = CheckpointManager(os.path.join(out, "sigterm-ckpt"))
+    if mgr.all_steps() != [s["at"]]:
+        p24_fail(out, job, f"committed steps {mgr.all_steps()}")
+    child = [r for lines in p24_lines(out, job, "P24").values()
+             for r in lines]
+    if len(child) != 1 or child[0]["foreign"] \
+            or child[0]["update"] != s["at"]:
+        p24_fail(out, job, f"the child reported {child}")
+    p23_add(launches, child[0]["counts"])
+    _, step = fresh.restore_state(mgr)
+    mgr.close()
+    got, ms = p24_steps(torch, np, plan, fresh, s["at"],
+                        s["at"] + s["more"])
+    check(step == s["at"], f"(c) restored update {step}")
+    check(p24_same(torch, got, want[s["at"]:])
+          and p24_same(torch, p24_host(fresh), want_params),
+          "(c) the resumed steps are not bitwise the uninterrupted run's")
+    after = p23_counts()
+    p23_add(launches, {k: after[k] - before[k] for k in launches})
+    return {"exit_code": code, "sigterm_to_exit_s": exit_s,
+            "saved_update": step, "resumed_step_ms": ms}
+
+
+def p24_resize(torch, np, mx, plan, out, cards, launches):
+    """(d) the LM with ZeRO through ElasticTrainer over two cards,
+    resized 2 -> 1 -> 2: each post-resize segment bitwise a fresh
+    ShardedTrainer on that mesh restored from the resize's snapshot."""
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.parallel import ElasticTrainer, make_mesh
+    before = p23_counts()
+    k = P24_RESIZE_STEPS
+    sym = p23_lm_symbol(plan)
+    shapes, args, _ = p23_lm_state(np, plan, sym)
+    bind = ({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]})
+    kw = {"shard_optimizer": True, "compute_dtype": "bfloat16"}
+    mgr = CheckpointManager(os.path.join(out, "resize-ckpt"))
+    et = ElasticTrainer(sym, optimizer="adam",
+                        optimizer_params=dict(plan["lm"]["opt"]),
+                        manager=mgr, devices=cards, trainer_kwargs=kw)
+    et.bind(*bind)
+    et.trainer.set_params(args)
+    p24_steps(torch, np, plan, et, 0, k)
+    segs = []
+    for n in (1, 2):
+        rec = et.resize(n)
+        heads, ms = p24_steps(torch, np, plan, et, len(segs) * k + k,
+                              len(segs) * k + 2 * k)
+        segs.append((n, rec, heads, ms))
+    rows = []
+    for i, (n, rec, heads, ms) in enumerate(segs):
+        lo = (i + 1) * k
+        check(rec["steps_lost"] == 0 and rec["retraces"] == 0
+              and rec["num_update"] == lo,
+              f"(d) the resize to {n} card(s) recorded {rec}")
+        fresh = p24_lm_trainer(torch, mx, plan, sym,
+                               make_mesh({"data": n}, cards[:n]),
+                               shard_optimizer=True, seed=7 + n)
+        fresh.bind(*bind)
+        _, step = fresh.restore_state(mgr, step=lo)
+        ref, _ = p24_steps(torch, np, plan, fresh, lo, lo + k)
+        check(step == lo and p24_same(torch, heads, ref),
+              f"(d) the segment on {n} card(s) is not bitwise a fresh "
+              "trainer restored from the resize's snapshot")
+        rows.append({k2: rec[k2] for k2 in ("direction", "from_devices",
+                                            "to_devices", "drain_ms",
+                                            "restore_ms", "pause_ms",
+                                            "steps_lost", "retraces")})
+        rows[-1]["step_ms"] = ms
+    mgr.close()
+    after = p23_counts()
+    p23_add(launches, {k2: after[k2] - before[k2] for k2 in launches})
+    return rows
+
+
+def phase_elastic(torch, np, mx, parts=("a", "b", "c", "d")):
+    """Phase 24: (a) the watchdog on the card (a hung, a dead and a
+    monitor rank), (b) ElasticTrainer under membership chaos through
+    tools/torch_launch.py, (c) SIGTERM inside a step, (d) a live resize
+    2 -> 1 -> 2 where two cards exist.  Returns the K1-K4 launches of the
+    children's main paths and of this process's runs, and its numbers."""
+    import tempfile
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(("softmax_rows", "fused_update",
+                              "flash_attn_fwd", "flash_attn_bwd"), 0)
+    stats = {"card": card_line() if DEVICE == "cuda" else "cpu",
+             "watchdog": dict(P24_WD, grace=P24_WD_GRACE)}
+    plan = p24_plan(DEVICE)
+    env = p23_child_env()
+    det = torch.are_deterministic_algorithms_enabled()
+    # the embedding's scatter-add on the card is deterministic only in
+    # this mode, and (b)-(d) are held bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="p24-") as out:
+            with open(os.path.join(out, "plan.json"), "w") as f:
+                json.dump(plan, f)
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+            if "a" in parts:
+                # the hung case trains alone; the two idle cases at once
+                for cases in (("hung",), ("dead", "monitor")):
+                    runs = [p24_wd_spawn(out, env, c) for c in cases]
+                    p24_wd_wait(out, runs)
+                    for r in runs:
+                        stats[f"(a) {r['case']}"] = p24_wd_check(
+                            out, r, launches)
+            if "b" in parts:
+                stats["(b)"] = p24_chaos(torch, out, env, launches)
+            if "c" in parts:
+                t0 = time.perf_counter()
+                stats["(c)"] = p24_sigterm(torch, np, mx, plan, out, env,
+                                           launches)
+                stats["(c)"]["seconds"] = time.perf_counter() - t0
+            cards = ([mx.gpu(0), mx.gpu(1)]
+                     if DEVICE == "cuda" and torch.cuda.device_count() > 1
+                     else [mx.cpu(0), mx.cpu(1)] if DEVICE == "cpu"
+                     else None)
+            if "d" in parts and cards is not None:
+                t0 = time.perf_counter()
+                stats["(d)"] = p24_resize(torch, np, mx, plan, out, cards,
+                                          launches)
+                stats["(d) seconds"] = time.perf_counter() - t0
+            elif "d" in parts:
+                stats["(d)"] = ("not run: one card (a mesh's members are "
+                                "distinct cards, so the largest mesh here "
+                                "has one member and no resize can happen)")
+    finally:
+        torch.use_deterministic_algorithms(det)
+    stats["launches"] = launches
+    stats["seconds"] = time.perf_counter() - t_phase
+    log("  multi-process tier, part two: " + json.dumps(stats))
+    return launches, stats
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -9925,14 +10698,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/23] device")
+    log("[1/24] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/23] build")
+    log("[2/24] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -9947,7 +10720,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/23] kernels against their plain versions")
+    log("[3/24] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -9956,22 +10729,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/23] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/24] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/23] serving the round-12 configuration: chunked prefill "
+    log(f"[5/24] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/23] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/24] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/23] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/24] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/23] kernel timing")
+    log("[8/24] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -9988,25 +10761,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/23] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/24] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/23] imperative + executor: NDArray on the card, the MLP "
+    log("[10/24] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/23] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/24] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/23] the serving control plane: crash failover, a hung and a "
+    log("[12/24] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -10014,7 +10787,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/23] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/24] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -10023,7 +10796,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/23] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/24] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -10031,7 +10804,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/23] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/24] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -10039,7 +10812,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/23] programs and the profiler: serve and train steps "
+    log("[17/24] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -10047,7 +10820,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/23] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/24] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -10056,7 +10829,7 @@ def main(argv) -> int:
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[19/23] input records, the deployment predictor and the last ops: "
+    log(f"[19/24] input records, the deployment predictor and the last ops: "
         f"{REC_IMAGES} packed images through ImageRecordIter into "
         f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
         f"served without the port, WarpCTC at the OCR example's sizes, the "
@@ -10065,7 +10838,7 @@ def main(argv) -> int:
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[20/23] tensor and model parallelism: the LM with its embedding "
+    log(f"[20/24] tensor and model parallelism: the LM with its embedding "
         f"on the host through group2ctx, the split rewrite of "
         f"megatron_rules() at a model axis of 1, two cards where there "
         f"are two")
@@ -10074,7 +10847,7 @@ def main(argv) -> int:
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[21/23] mixture of experts and ring attention: MoEFFN (8 experts "
+    log(f"[21/24] mixture of experts and ring attention: MoEFFN (8 experts "
         f"of {P21_MOE['hidden_size']}, top-2 then top-1, aux head) over "
         f"{P21_TOKENS[0] * P21_TOKENS[1]} tokens at d {D_MODEL} on the card "
         f"against the host, ring_self_attention over a one-card seq mesh at "
@@ -10083,7 +10856,7 @@ def main(argv) -> int:
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[22/23] pipelines: the LM through PipelineTrainer over "
+    log(f"[22/24] pipelines: the LM through PipelineTrainer over "
         f"{P22_STAGES} stages on the card (1F1B, remat) against "
         f"ShardedTrainer, the dryrun's MLP through PipelineTrainer, "
         f"SpmdPipelineTrainer and pipeline_apply, two cards where there "
@@ -10092,7 +10865,7 @@ def main(argv) -> int:
     log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[23/23] the multi-process tier: launch_local with 1 scheduler, "
+    log(f"[23/24] the multi-process tier: launch_local with 1 scheduler, "
         f"{P23_SERVERS} servers and {P23_WORKERS} workers on the card "
         f"(dist_sync exact aggregation and ResNet-{DEPTH} through "
         f"FeedForward.fit, then dist_async), the LM through ShardedTrainer "
@@ -10101,8 +10874,17 @@ def main(argv) -> int:
     p23_launches, _ = phase_multiprocess(torch, np, mx, nn_ops, fu, fa)
     log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 23
-    log("[15/23] result")
+    t0 = time.perf_counter()
+    log("[24/24] the multi-process tier, part two: the watchdog on the card "
+        "(a hung, a dead and a dead monitor rank of three over gloo), "
+        "ElasticTrainer under membership chaos through "
+        "tools/torch_launch.py, SIGTERM inside a step, a live resize where "
+        "two cards exist")
+    p24_launches, _ = phase_elastic(torch, np, mx)
+    log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 24
+    log("[15/24] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -10127,35 +10909,40 @@ def main(argv) -> int:
          train_launches["softmax_rows"] + loop_launches["softmax_rows"]
          + zoo_launches["softmax_rows"] + p17_launches["softmax_rows"]
          + p18_launches["softmax_rows"] + p19_launches["softmax_rows"]
-         + p22_launches["softmax_rows"] + p23_launches["softmax_rows"],
+         + p22_launches["softmax_rows"] + p23_launches["softmax_rows"]
+         + p24_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
         # (Adam), stepped bare (phases 7, 9) and through fit (phases 13,
         # 19), the four ImageNet nets (phase 14), the OCR net (19), the
-        # MoE trainers (21) and the LM's ranks and its one-process run
-        # (23)
+        # MoE trainers (21), the LM's ranks and its one-process run
+        # (23), and the watchdog's training ranks and the SIGTERM run
+        # (24; ZeRO's update is unfused, as in the JAX trainer)
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
          "mxnet_tpu/ops/fused_update.py:216",
          train_launches["fused_update"] + lm_launches["fused_update"]
          + loop_launches["fused_update"] + zoo_launches["fused_update"]
          + long_launches["fused_update"] + p17_launches["fused_update"]
          + p18_launches["fused_update"] + p19_launches["fused_update"]
-         + p21_launches["fused_update"] + p23_launches["fused_update"],
+         + p21_launches["fused_update"] + p23_launches["fused_update"]
+         + p24_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
          lm_launches["flash_attn_fwd"] + loop_launches["flash_attn_fwd"]
          + long_launches["flash_attn_fwd"] + p17_launches["flash_attn_fwd"]
          + p20_launches["flash_attn_fwd"] + p21_launches["flash_attn_fwd"]
-         + p22_launches["flash_attn_fwd"] + p23_launches["flash_attn_fwd"],
+         + p22_launches["flash_attn_fwd"] + p23_launches["flash_attn_fwd"]
+         + p24_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
          lm_launches["flash_attn_bwd"] + loop_launches["flash_attn_bwd"]
          + long_launches["flash_attn_bwd"] + p17_launches["flash_attn_bwd"]
          + p20_launches["flash_attn_bwd"] + p21_launches["flash_attn_bwd"]
-         + p22_launches["flash_attn_bwd"] + p23_launches["flash_attn_bwd"],
+         + p22_launches["flash_attn_bwd"] + p23_launches["flash_attn_bwd"]
+         + p24_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

@@ -30,7 +30,7 @@ from .base import MXNetError
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
            "build_source", "build_sources", "load", "build_dir",
-           "set_build_dir"]
+           "set_build_dir", "build_count"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
@@ -43,6 +43,16 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 _dir_override: Optional[Path] = None
 # libraries this process built or already counted as loaded from disk
 _known: set = set()
+# nvcc builds this process ran plus libraries it loaded for the first time
+_builds = 0
+_count_lock = threading.Lock()
+
+
+def build_count() -> int:
+    """Kernel libraries this process has built with nvcc or loaded for
+    the first time (``ElasticTrainer``'s ``retraces`` reads its change
+    across a resize)."""
+    return _builds
 
 
 def set_build_dir(path) -> None:
@@ -127,6 +137,7 @@ def _compile(jobs: Dict[str, tuple]) -> Dict[str, dict]:
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         _known.add(out)
+        _count_build()
         info[n] = {"path": out, "seconds": time.perf_counter() - t0,
                    "cached": False, "log": log}
     if failed:
@@ -182,4 +193,11 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build_all([name])[name]["path"]
             lib = _loaded[name] = ctypes.CDLL(str(path))
+            _count_build()
         return lib
+
+
+def _count_build() -> None:
+    global _builds
+    with _count_lock:
+        _builds += 1

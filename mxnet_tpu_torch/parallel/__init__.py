@@ -36,20 +36,27 @@ Counterpart of ``mxnet_tpu/parallel/__init__.py``, with the same names:
   ``dist_async``): scheduler, servers, the worker store and the
   scheduler's membership views (:class:`~.dist_kvstore.
   MembershipClient`);
-* :mod:`.launch` -- ``launch_local``, ``launch_ssh`` and ``submit``.
+* :mod:`.launch` -- ``launch_local``, ``launch_ssh`` and ``submit``;
+* :mod:`.watchdog` -- :class:`~.watchdog.Watchdog`: the collective
+  tier's heartbeat failure detector (``init_distributed(watchdog=True)``
+  or ``MXTPU_WATCHDOG``), which aborts every survivor of a lost peer;
+* :mod:`.elastic` -- :class:`ElasticTrainer`: a ``ShardedTrainer`` that
+  resizes its data mesh when the membership view changes (drain,
+  snapshot, reshard restore, warm restart), with
+  :func:`default_mesh_size`, :func:`pow2_floor` and
+  :func:`wire_watchdog`.
 
-The rest of the multi-process tier (``ElasticTrainer``,
-``default_mesh_size``, ``pow2_floor`` and ``wire_watchdog``) is not
-ported yet: those names raise when called (ROADMAP.md).  As in the JAX
-package, ``parallel.ring_attention`` is the function (the import below
-shadows the submodule, which
+As in the JAX package, ``parallel.ring_attention`` is the function (the
+import below shadows the submodule, which
 ``sys.modules["mxnet_tpu_torch.parallel.ring_attention"]`` still holds).
 """
-from ..base import not_ported
-from . import (collectives, dist, dist_kvstore, flash_attention, launch,
-               members, mesh, moe, pipeline, pipeline_spmd,
-               pipeline_trainer, ring_attention, tensor_parallel, trainer)
+from . import (collectives, dist, dist_kvstore, elastic, flash_attention,
+               launch, members, mesh, moe, pipeline, pipeline_spmd,
+               pipeline_trainer, ring_attention, tensor_parallel, trainer,
+               watchdog)
 from .collectives import allreduce_mean, allreduce_sum
+from .elastic import (ElasticTrainer, default_mesh_size, pow2_floor,
+                      wire_watchdog)
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
                    Mesh, NamedSharding, PartitionSpec, batch_sharding,
                    current_mesh, data_parallel_mesh, default_mesh,
@@ -62,20 +69,6 @@ from .ring_attention import (blockwise_attention, local_attention,
                              ring_attention, ring_self_attention)
 from .trainer import ShardedTrainer, ShardingRules, megatron_rules
 
-
-def _unported(name: str, what: str):
-    def raiser(*args, **kwargs):
-        raise not_ported(f"parallel.{name} ({what})")
-    raiser.__name__ = name
-    raiser.__qualname__ = name
-    return raiser
-
-
-_MULTIPROC = "the multi-process tier"
-ElasticTrainer = _unported("ElasticTrainer", _MULTIPROC)
-default_mesh_size = _unported("default_mesh_size", _MULTIPROC)
-pow2_floor = _unported("pow2_floor", _MULTIPROC)
-wire_watchdog = _unported("wire_watchdog", _MULTIPROC)
 
 __all__ = [
     "Mesh", "NamedSharding", "PartitionSpec",
@@ -90,6 +83,6 @@ __all__ = [
     "pipeline_apply", "PipelineTrainer", "SpmdPipelineTrainer",
     "collectives", "flash_attention", "mesh", "trainer",
     "tensor_parallel", "members", "moe", "pipeline", "pipeline_trainer",
-    "pipeline_spmd", "dist", "dist_kvstore", "launch",
-    "blockwise_attention",
+    "pipeline_spmd", "dist", "dist_kvstore", "launch", "elastic",
+    "watchdog", "blockwise_attention",
 ]

@@ -23,7 +23,9 @@ share one; gloo on the CPU, where a process holds several members, and
 where processes share a card (NCCL refuses that layout with "Duplicate
 GPU detected").  :func:`backend` says which ran.  On a loopback
 coordinator gloo is pinned to the loopback device
-(``GLOO_SOCKET_IFNAME=lo`` unless set).
+(``GLOO_SOCKET_IFNAME=lo`` unless set).  ``watchdog=True`` or
+``MXTPU_WATCHDOG`` starts the heartbeat watchdog (:mod:`.watchdog`) once
+the group is up; it is kept in ``_watchdog``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import pickle
 import socket
 from typing import Any, List, Optional, Sequence
 
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from ..context import Context, as_context, gpu, num_devices
 
 __all__ = ["init_distributed", "is_initialized", "process_index",
@@ -55,6 +57,8 @@ class _World:
 
 
 _world: Optional[_World] = None
+# the collective-tier watchdog init_distributed started, if any
+_watchdog = None
 
 
 # how long the rendezvous and each collective wait for the other processes
@@ -87,24 +91,33 @@ def choose_backend(layout: Sequence[Sequence[tuple]]) -> str:
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     watchdog: Optional[bool] = None,
-                     device=None) -> None:
+                     watchdog=None, device=None) -> None:
     """Join the process group from the arguments or the environment
     (``MXTPU_COORDINATOR`` = host:port, ``MXTPU_NUM_PROC``,
     ``MXTPU_PROC_ID``).  ``device``: this process's members (a context,
     a device string or a list; default the card ``gpu(process_id %
-    card count)``, ``"cpu"`` for ``cpu(0)``).  The collective-tier
-    watchdog (``watchdog=True`` or ``MXTPU_WATCHDOG``) is not ported
-    yet and raises."""
-    global _world
+    card count)``, ``"cpu"`` for ``cpu(0)``).
+
+    ``watchdog=True`` (or env ``MXTPU_WATCHDOG=host:port``) starts the
+    collective-tier heartbeat failure detector
+    (:class:`~mxnet_tpu_torch.parallel.watchdog.Watchdog`) once the
+    process group is up: a lost peer is declared dead after missed
+    heartbeats and every surviving process aborts instead of hanging in
+    its next collective.  The watchdog address defaults to the
+    coordinator host with port+1.  ``watchdog`` may also be a dict of
+    :class:`~mxnet_tpu_torch.parallel.watchdog.Watchdog` keyword
+    arguments (``interval``, ``timeout``, ``on_failure``, ``on_death``)."""
+    global _world, _watchdog
     if _world is not None:
         return
-    if watchdog or (watchdog is None and os.environ.get("MXTPU_WATCHDOG")):
-        raise not_ported("the collective-tier watchdog "
-                         "(init_distributed(watchdog=True), MXTPU_WATCHDOG)")
     import torch.distributed as tdist
     coordinator_address = (coordinator_address
                            or os.environ.get("MXTPU_COORDINATOR"))
+    wd_env = os.environ.get("MXTPU_WATCHDOG")
+    want_watchdog = bool(watchdog or (watchdog is None and wd_env))
+    if want_watchdog and not wd_env and not coordinator_address:
+        raise MXNetError("watchdog requires MXTPU_WATCHDOG or a "
+                         "coordinator address")
     if num_processes is None and "MXTPU_NUM_PROC" in os.environ:
         num_processes = int(os.environ["MXTPU_NUM_PROC"])
     if process_id is None and "MXTPU_PROC_ID" in os.environ:
@@ -151,6 +164,16 @@ def init_distributed(coordinator_address: Optional[str] = None,
                          f"{coordinator_address}): {e}") from e
     _world = _World(rank, size, chosen, store,
                     [[(t, i) for _, t, i in m] for m in layout])
+    if want_watchdog:
+        from .watchdog import Watchdog
+        if wd_env:
+            wd_host, wd_port = wd_env.rsplit(":", 1)
+        else:
+            wd_host, wd_port = host, int(port) + 1
+        kw = dict(watchdog) if isinstance(watchdog, dict) else {}
+        _watchdog = Watchdog(rank=rank, world=size,
+                             monitor_addr=(wd_host, int(wd_port)),
+                             **kw).start()
 
 
 def is_initialized() -> bool:
@@ -195,10 +218,16 @@ def all_gather_object(obj: Any) -> List[Any]:
 
 
 def shutdown() -> None:
-    """Leave the process group (the store closes with it)."""
-    global _world
+    """Leave the process group (the store closes with it).  A running
+    watchdog stops first, after a barrier, so that no rank's monitor
+    reads another's orderly exit as a death."""
+    global _world, _watchdog
     if _world is None:
         return
     import torch.distributed as tdist
+    if _watchdog is not None:
+        tdist.barrier()
+        _watchdog.stop()
+        _watchdog = None
     tdist.destroy_process_group()
     _world = None

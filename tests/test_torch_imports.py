@@ -22,11 +22,13 @@ ShardingRules, megatron_rules, the axis collectives, the executor's
 cross-device copy), pipelines (parallel.pipeline, parallel.pipeline_trainer,
 parallel.pipeline_spmd; none of them touches the card at import), the
 multi-process tier (parallel.dist, parallel.dist_kvstore,
-parallel.launch, the process bridge of the member meetings) and
-``chip_smoke``; a source scan checks every file of the port and the script
+parallel.launch, the process bridge of the member meetings,
+parallel.watchdog, parallel.elastic) and ``chip_smoke``; a source scan
+checks every file of the port, the script and ``tools/torch_launch.py``
 for such imports.  ``chip_smoke.py --dist-worker`` (phase 23's child
 program) runs a ``dist_async`` cluster on the CPU with ``jax``,
-``jaxlib`` and ``mxnet_tpu`` unimportable in every child.
+``jaxlib`` and ``mxnet_tpu`` unimportable in every child, and
+``tools/torch_launch.py`` parses its arguments with them unimportable.
 """
 import json
 import os
@@ -115,6 +117,12 @@ from mxnet_tpu_torch.parallel.dist_kvstore import (DistKVStore,
 from mxnet_tpu_torch.parallel.launch import launch_local, launch_ssh, submit
 from mxnet_tpu_torch.parallel.members import ProcessBridge
 from mxnet_tpu_torch.parallel.collectives import allreduce_processes
+import mxnet_tpu_torch.parallel.watchdog
+import mxnet_tpu_torch.parallel.elastic
+from mxnet_tpu_torch.parallel import (ElasticTrainer, default_mesh_size,
+                                      elastic, pow2_floor, watchdog,
+                                      wire_watchdog)
+from mxnet_tpu_torch.parallel.watchdog import Watchdog
 import torch
 assert not torch.cuda.is_initialized()
 from mxnet_tpu_torch import AttrScope
@@ -162,7 +170,7 @@ def _imported_modules(text):
 
 def test_no_jax_or_reference_package_in_port_sources():
     files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_launch.py"]
     assert len(files) > 10
     offenders = [(f.relative_to(ROOT).as_posix(), m)
                  for f in files for m in _imported_modules(f.read_text())
@@ -211,3 +219,19 @@ def test_smoke_dist_worker_runs_without_jax(tmp_path, monkeypatch):
         assert r["aggregate"] == {"closed_form": 19.0, "pushes_a_key": 6}
     assert len(logs) == 5 and all(t.rstrip().endswith("exit code 0")
                                   for t in logs.values()), logs
+
+
+def test_launcher_cli_imports_the_port_only(tmp_path):
+    """``tools/torch_launch.py --help`` with ``jax``, ``jaxlib`` and
+    ``mxnet_tpu`` made unimportable: it imports the port and exits 0."""
+    block = tmp_path / "block"
+    block.mkdir()
+    for name in ("jax", "jaxlib", "mxnet_tpu"):
+        (block / f"{name}.py").write_text(
+            "raise ImportError('blocked for this test')\n")
+    env = dict(os.environ, PYTHONPATH=str(block))
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "torch_launch.py"), "--help"],
+        capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "--num-workers" in proc.stdout

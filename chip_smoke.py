@@ -467,6 +467,22 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     resize's snapshot, no step lost, no kernel built, with drain,
     restore and pause ms; with one card it prints why (d) did not run;
     the children's launches count in the kernel line;
+25. runs the analysis tooling on the card (after phase 24, before 15):
+    (a) phase 9's LM at full width and batch, cut to 2 layers, compiled
+    (its step a captured CUDA graph, captured inside the window) and
+    stepped 4 times from a ``DevicePrefetchIter``, an async
+    ``CheckpointManager`` saving its CUDA parameters after every step and
+    the flight recorder recording, all under
+    ``analysis.audit_threads(instrument_framework=True)``: the report is
+    clean with events and at least 2 threads, every checkpoint restores
+    byte-identical to the tensors at its ``save()`` (the next step's K2
+    writes them in place), K2, K3 and K4 launched; (b)
+    ``analysis.run_schedules(device="cuda")`` over the six scenarios, 2
+    seeds each: the routers capture their programs and replay decode
+    steps with K5, every stream byte-identical to the single-threaded
+    reference on the card, no failure; prints runs, preemptions and
+    seconds a scenario; (c) ``tools/torch_staticcheck.py gate --json`` as
+    a child process: exit 0, ``ok``; prints the K2-K5 launches it adds;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -10638,6 +10654,233 @@ def phase_elastic(torch, np, mx, parts=("a", "b", "c", "d")):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the analysis tooling on the card -- the concurrency sanitizer
+# over the framework's threads, the schedule fuzzer, the static gate
+# ---------------------------------------------------------------------------
+
+# (a): phase 9's LM at full width and batch, depth cut to 2 layers, its
+# step captured; P25_STEPS steps fed by the prefetcher, each followed by
+# an async save of the CUDA parameters
+P25_LAYERS = 2
+P25_STEPS = 4
+# (b): seeded interleavings a scenario on the card
+P25_SEEDS = 2
+# (c): the gate's child process
+P25_GATE_TIMEOUT = 300
+
+
+def p25_counts(fa, fu, fd):
+    return {"fused_update": fu.fused_update.launches,
+            "flash_attn_fwd": fa.flash_fwd.launches,
+            "flash_attn_bwd": fa.flash_bwd.launches,
+            "flash_decode": fd.flash_decode_attention.launches}
+
+
+def p25_reset(fa, fu, fd):
+    reset_train_counts(fu.fused_update, fa.flash_fwd, fa.flash_bwd)
+    reset_decode_counts(fd)
+
+
+def p25_patched():
+    """What an audit window patches: the threading primitives, the queue,
+    ``time.sleep``, ``open``, and the framework singletons' locks and
+    shared containers that ``instrument_framework`` wraps."""
+    import builtins
+    import queue
+    from mxnet_tpu_torch import compile_cache, telemetry
+    fr, reg = telemetry.flight_recorder(), telemetry.registry()
+    cache = compile_cache.get_cache()
+    return [threading.Lock, threading.RLock, threading.Condition,
+            threading.Event, threading.Thread, queue.Queue, time.sleep,
+            builtins.open, fr._lock, fr._ring, reg._lock, reg._metrics,
+            cache._lock, cache._mem]
+
+
+def p25_restored(before, what):
+    after = p25_patched()
+    check(len(after) == len(before)
+          and all(a is b for a, b in zip(after, before)),
+          f"{what}: the audit window left patches behind: "
+          f"{[str(a) for a, b in zip(after, before) if a is not b]}")
+
+
+def p25_framework(torch, np, mx, analysis, tmp):
+    """(a): the LM's captured step with an async CheckpointManager saving
+    its CUDA parameters after every step, a DevicePrefetchIter feeding it
+    and the flight recorder recording, under ``audit_threads`` with the
+    framework instrumented; every restored checkpoint byte-identical to
+    the tensors at its ``save()``.  Returns the report and its numbers."""
+    from mxnet_tpu_torch import models, telemetry
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.io import DevicePrefetchIter, NDArrayIter
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=P25_LAYERS, d_model=D_MODEL,
+                            heads=HEADS, batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    tr = ShardedTrainer(sym, optimizer="adam",
+                        optimizer_params=dict(LM_OPT),
+                        compute_dtype="bfloat16", fused_update=True,
+                        device=DEVICE)
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+    rows = [lm_batch(np, seed=i) for i in range(P25_STEPS)]
+    data = np.concatenate([r["data"] for r in rows])
+    label = np.concatenate([r["softmax_label"] for r in rows])
+    flight = telemetry.flight_recorder()
+    want, losses, save_ms = {}, [], []
+    t0 = time.perf_counter()
+    with analysis.audit_threads(instrument_framework=True) as audit:
+        # the capture runs inside the window: the patched primitives must
+        # not break it
+        info = tr.compile(programs=("train",))[0]
+        check(info["source"] == "capture",
+              f"(a) the LM's step resolved {info}, not a capture")
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"),
+                                keep_last=P25_STEPS + 1, async_write=True)
+        it = DevicePrefetchIter(NDArrayIter(data, label,
+                                            batch_size=LM_BATCH),
+                                place_fn=tr.place_batch, device=DEVICE)
+        for step, batch in enumerate(it):
+            heads = tr.step(batch)
+            ts = time.perf_counter()
+            mgr.save(step, dict(tr._params))
+            save_ms.append((time.perf_counter() - ts) * 1e3)
+            # the saved tensors as they were at save(): the next step's
+            # replay (K2) writes them in place
+            want[step] = {n: v.detach().cpu().numpy().tobytes()
+                          for n, v in tr._params.items()}
+            losses.append(float(heads[0].float().mean()))
+            telemetry.record_step({"step": step, "loss": losses[-1]})
+        it.close()
+        mgr.wait_until_finished()
+    seconds = time.perf_counter() - t0
+    check(len(want) == P25_STEPS, f"(a) {len(want)} steps, expected "
+          f"{P25_STEPS}")
+    check(all(np.isfinite(losses)), f"(a) non-finite loss {losses}")
+    check(tr.aot_stats["hits"] == P25_STEPS,
+          f"(a) {tr.aot_stats}: not every step replayed the capture")
+    for step, tensors in want.items():
+        got, _meta, s = mgr.restore(step)
+        check(s == step and set(got) == set(tensors),
+              f"(a) checkpoint {step} restored {s} with {sorted(got)[:3]}")
+        for n, raw in tensors.items():
+            check(np.ascontiguousarray(got[n]).tobytes() == raw,
+                  f"(a) checkpoint {step}: {n} is not byte-identical to "
+                  "the tensor at its save()")
+    mgr.close()
+    recorded = [r for r in flight.records() if "loss" in r]
+    check(len(recorded) == P25_STEPS,
+          f"(a) the flight ring holds {len(recorded)} step records")
+    rep = audit.report
+    m = rep.metrics.get("races", {})
+    check(rep.clean, "(a) the framework's threads report findings:\n"
+          + rep.format_text())
+    check(m.get("events", 0) > 0 and m.get("threads", 0) >= 2,
+          f"(a) the audit saw {m}: expected events and at least 2 threads")
+    n_bytes = sum(len(b) for b in want[0].values())
+    stats = {"seconds": seconds, "losses": losses, "save_ms": save_ms,
+             "checkpoint_bytes": n_bytes, "capture_s":
+             tr._aot["train"][0].capture_seconds, "races": m,
+             "suppressed": [f.format() for f in rep.findings
+                            if f.suppressed]}
+    log(f"  (a) the LM ({P25_LAYERS} layers at phase 9's width) captured, "
+        f"{P25_STEPS} steps from the prefetcher, an async save of "
+        f"{n_bytes} bytes after each: every checkpoint byte-identical; "
+        f"report clean, {m['events']} events, {m['threads']} threads, "
+        f"{m['locations']} tracked locations, {m['races_found']} race(s) "
+        f"(at info only), in {seconds:.1f} s")
+    return stats
+
+
+def p25_schedules(analysis):
+    """(b): every scenario of the fuzzer on the card, P25_SEEDS seeds
+    each; the serve scenarios' routers capture and replay their decode
+    steps (K5) and every stream equals the single-threaded reference."""
+    res = analysis.run_schedules(n=P25_SEEDS, seed=0, device=DEVICE,
+                                 log=lambda s: log("  (b) " + s))
+    check(res["ok"], f"(b) schedule failures on the card: "
+          f"{json.dumps(res['failures'])}")
+    check(len(res["scenarios"]) == 6
+          and all(v["runs"] == P25_SEEDS
+                  for v in res["scenarios"].values()),
+          f"(b) ran {res['scenarios']}")
+    return res
+
+
+def p25_gate():
+    """(c): ``tools/torch_staticcheck.py gate --json`` as a child process
+    on the shipped tree: exit 0, ``ok``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "torch_staticcheck.py"),
+         "gate", "--json"], capture_output=True, text=True, cwd=root,
+        timeout=P25_GATE_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(c) the gate exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout)
+    check(out["ok"] and out["corpus"]["failures"] == [],
+          f"(c) the gate's report: ok {out['ok']}, "
+          f"{out['corpus']['failures']}")
+    log(f"  (c) torch_staticcheck gate: exit 0, ok, "
+        f"{out['metrics']['lint']['files']} files linted, "
+        f"{len(out['corpus']['cases'])} thread cases, in {seconds:.1f} s")
+    return {"seconds": seconds, "counts": out["counts"]}
+
+
+def phase_analysis(torch, np, mx, fa, fu, fd):
+    """Phase 25: (a) the framework's threads around the LM's captured
+    step under the sanitizer, (b) the schedule fuzzer's six scenarios on
+    the card, (c) the static gate.  Returns the K2-K5 launches it adds
+    and its numbers."""
+    import tempfile
+    from mxnet_tpu_torch import analysis
+    t_phase = time.perf_counter()
+    stats = {"card": card_line() if DEVICE == "cuda" else "cpu"}
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="p25-") as tmp:
+        p25_reset(fa, fu, fd)
+        from mxnet_tpu_torch import telemetry
+        telemetry.reset_for_tests()
+        before = p25_patched()
+        stats["(a)"] = p25_framework(torch, np, mx, analysis, tmp)
+        p25_restored(before, "(a)")
+        stats["(a)"]["launches"] = p25_counts(fa, fu, fd)
+        for name, n in stats["(a)"]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        la = stats["(a)"]["launches"]
+        check(la["fused_update"] >= P25_STEPS
+              and la["flash_attn_fwd"] >= P25_LAYERS * P25_STEPS
+              and la["flash_attn_bwd"] >= P25_LAYERS * P25_STEPS,
+              f"(a) launches {la}: the steps did not run K2, K3 and K4")
+    p25_reset(fa, fu, fd)
+    t0 = time.perf_counter()
+    res = p25_schedules(analysis)
+    p25_restored(before, "(b)")
+    log("  every patch of the audit windows restored after (a) and (b)")
+    stats["(b)"] = {"seconds": time.perf_counter() - t0,
+                    "scenarios": res["scenarios"],
+                    "launches": p25_counts(fa, fu, fd)}
+    check(stats["(b)"]["launches"]["flash_decode"] > 0,
+          "(b) the serve scenarios' decode steps launched no K5")
+    for name, n in stats["(b)"]["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    stats["(c)"] = p25_gate()
+    stats["launches"] = launches
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"  launches added by phase 25: K2 {launches['fused_update']}, K3 "
+        f"{launches['flash_attn_fwd']}, K4 {launches['flash_attn_bwd']}, "
+        f"K5 {launches['flash_decode']}")
+    log("  analysis tooling: " + json.dumps(stats))
+    return launches, stats
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -10698,14 +10941,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/24] device")
+    log("[1/25] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/24] build")
+    log("[2/25] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -10720,7 +10963,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/24] kernels against their plain versions")
+    log("[3/25] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -10729,22 +10972,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/24] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/25] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/24] serving the round-12 configuration: chunked prefill "
+    log(f"[5/25] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/24] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/25] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/24] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/25] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/24] kernel timing")
+    log("[8/25] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -10761,25 +11004,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/24] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/25] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/24] imperative + executor: NDArray on the card, the MLP "
+    log("[10/25] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/24] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/25] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/24] the serving control plane: crash failover, a hung and a "
+    log("[12/25] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -10787,7 +11030,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/24] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/25] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -10796,7 +11039,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/24] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/25] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -10804,7 +11047,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/24] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/25] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -10812,7 +11055,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/24] programs and the profiler: serve and train steps "
+    log("[17/25] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -10820,7 +11063,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/24] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/25] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -10829,7 +11072,7 @@ def main(argv) -> int:
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[19/24] input records, the deployment predictor and the last ops: "
+    log(f"[19/25] input records, the deployment predictor and the last ops: "
         f"{REC_IMAGES} packed images through ImageRecordIter into "
         f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
         f"served without the port, WarpCTC at the OCR example's sizes, the "
@@ -10838,7 +11081,7 @@ def main(argv) -> int:
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[20/24] tensor and model parallelism: the LM with its embedding "
+    log(f"[20/25] tensor and model parallelism: the LM with its embedding "
         f"on the host through group2ctx, the split rewrite of "
         f"megatron_rules() at a model axis of 1, two cards where there "
         f"are two")
@@ -10847,7 +11090,7 @@ def main(argv) -> int:
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[21/24] mixture of experts and ring attention: MoEFFN (8 experts "
+    log(f"[21/25] mixture of experts and ring attention: MoEFFN (8 experts "
         f"of {P21_MOE['hidden_size']}, top-2 then top-1, aux head) over "
         f"{P21_TOKENS[0] * P21_TOKENS[1]} tokens at d {D_MODEL} on the card "
         f"against the host, ring_self_attention over a one-card seq mesh at "
@@ -10856,7 +11099,7 @@ def main(argv) -> int:
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[22/24] pipelines: the LM through PipelineTrainer over "
+    log(f"[22/25] pipelines: the LM through PipelineTrainer over "
         f"{P22_STAGES} stages on the card (1F1B, remat) against "
         f"ShardedTrainer, the dryrun's MLP through PipelineTrainer, "
         f"SpmdPipelineTrainer and pipeline_apply, two cards where there "
@@ -10865,7 +11108,7 @@ def main(argv) -> int:
     log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[23/24] the multi-process tier: launch_local with 1 scheduler, "
+    log(f"[23/25] the multi-process tier: launch_local with 1 scheduler, "
         f"{P23_SERVERS} servers and {P23_WORKERS} workers on the card "
         f"(dist_sync exact aggregation and ResNet-{DEPTH} through "
         f"FeedForward.fit, then dist_async), the LM through ShardedTrainer "
@@ -10875,7 +11118,7 @@ def main(argv) -> int:
     log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[24/24] the multi-process tier, part two: the watchdog on the card "
+    log("[24/25] the multi-process tier, part two: the watchdog on the card "
         "(a hung, a dead and a dead monitor rank of three over gloo), "
         "ElasticTrainer under membership chaos through "
         "tools/torch_launch.py, SIGTERM inside a step, a live resize where "
@@ -10883,8 +11126,17 @@ def main(argv) -> int:
     p24_launches, _ = phase_elastic(torch, np, mx)
     log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 24
-    log("[15/24] result")
+    t0 = time.perf_counter()
+    log(f"[25/25] the analysis tooling on the card: the LM's captured step "
+        f"({P25_LAYERS} layers) with async CUDA checkpoints and the "
+        f"prefetcher under the concurrency sanitizer, the schedule fuzzer's "
+        f"six scenarios ({P25_SEEDS} seeds each, routers replaying K5), the "
+        f"static gate")
+    p25_launches, _ = phase_analysis(torch, np, mx, fa, fu, fd)
+    log(f"  phase 25 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 25
+    log("[15/25] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -10896,7 +11148,7 @@ def main(argv) -> int:
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
          "mxnet_tpu/serve/flash_decode.py:60",
          k5_launches + spec_k5 + cp_k5 + long_launches["flash_decode"]
-         + p17_launches["flash_decode"],
+         + p17_launches["flash_decode"] + p25_launches["flash_decode"],
          max(v for (k, f), v in errs.items()
              if "bf16" not in k and f == "hopper")),
         ("flash_decode_fp8", "mxnet_tpu_torch/csrc/flash_decode.cu",
@@ -10926,7 +11178,7 @@ def main(argv) -> int:
          + long_launches["fused_update"] + p17_launches["fused_update"]
          + p18_launches["fused_update"] + p19_launches["fused_update"]
          + p21_launches["fused_update"] + p23_launches["fused_update"]
-         + p24_launches["fused_update"],
+         + p24_launches["fused_update"] + p25_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
@@ -10934,7 +11186,7 @@ def main(argv) -> int:
          + long_launches["flash_attn_fwd"] + p17_launches["flash_attn_fwd"]
          + p20_launches["flash_attn_fwd"] + p21_launches["flash_attn_fwd"]
          + p22_launches["flash_attn_fwd"] + p23_launches["flash_attn_fwd"]
-         + p24_launches["flash_attn_fwd"],
+         + p24_launches["flash_attn_fwd"] + p25_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
@@ -10942,7 +11194,7 @@ def main(argv) -> int:
          + long_launches["flash_attn_bwd"] + p17_launches["flash_attn_bwd"]
          + p20_launches["flash_attn_bwd"] + p21_launches["flash_attn_bwd"]
          + p22_launches["flash_attn_bwd"] + p23_launches["flash_attn_bwd"]
-         + p24_launches["flash_attn_bwd"],
+         + p24_launches["flash_attn_bwd"] + p25_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

@@ -24,16 +24,19 @@ data parallelism in one process (``parallel`` meshes and collectives,
 ``kvstore``, ``ShardedTrainer`` over a mesh, the legacy API over several
 contexts), input records (``recordio``, ``image_io``'s
 ``ImageRecordIter``) and the deployment predictor (``predictor.create``,
-``Predictor``, ``export_model``).  Entry
+``Predictor``, ``export_model``), and the analysis tooling (``analysis``:
+the source linter, the concurrency sanitizer and the schedule fuzzer;
+``visualization``, also ``viz``).  Entry
 points run on the card unless the caller passes ``device="cpu"`` (or
 works under ``with mx.cpu():``).
 """
-from . import (attribute, base, callback, chaos, checkpoint, compile_cache,
-               context, executor, executor_manager, graph_eval, image_io,
-               initializer, io, kvstore, lr_scheduler, metric, model, models,
-               module, monitor, name, ndarray, online, operator, ops,
-               optimizer, parallel, predictor, profiler, quant, random,
-               recordio, resilience, rtc, serve, stream, symbol, telemetry)
+from . import (analysis, attribute, base, callback, chaos, checkpoint,
+               compile_cache, context, executor, executor_manager,
+               graph_eval, image_io, initializer, io, kvstore, lr_scheduler,
+               metric, model, models, module, monitor, name, ndarray, online,
+               operator, ops, optimizer, parallel, predictor, profiler, quant,
+               random, recordio, resilience, rtc, serve, stream, symbol,
+               telemetry, visualization)
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
@@ -48,11 +51,13 @@ from .symbol import Group
 sym = symbol
 nd = ndarray
 mod = module
+viz = visualization
 
 __all__ = ["AttrScope", "MXNetError", "Context", "cpu", "gpu", "current_context",
            "resolve_device", "Engine", "EngineConfig", "Executor",
            "FeedForward", "Group", "ImageRecordIter", "Monitor", "ServeError",
-           "ShardedTrainer", "kvcache", "attribute", "base", "callback",
+           "ShardedTrainer", "kvcache", "analysis", "attribute", "base",
+           "callback",
            "chaos", "compile_cache", "context", "executor",
            "executor_manager", "graph_eval", "image_io", "initializer", "io",
            "kvstore", "load_checkpoint", "lr_scheduler", "metric", "mod",
@@ -60,4 +65,4 @@ __all__ = ["AttrScope", "MXNetError", "Context", "cpu", "gpu", "current_context"
            "online", "operator", "ops", "optimizer", "parallel", "predictor",
            "profiler", "quant", "random", "recordio", "resilience", "rtc",
            "save_checkpoint", "serve", "stream", "sym", "symbol",
-           "telemetry"]
+           "telemetry", "visualization", "viz"]

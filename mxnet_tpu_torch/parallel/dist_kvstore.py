@@ -138,17 +138,22 @@ def _unpack_wire(t: tuple) -> np.ndarray:
 def role_from_env() -> Dict[str, Any]:
     """Cluster config from env (launcher-provided; DMLC_* names accepted
     for reference-launcher compatibility)."""
-    def get(name, dmlc, default=None):
+    # named for the env linter, which reads calls whose name says "env"
+    def env_get(name, dmlc, default=None):
         return os.environ.get(name, os.environ.get(dmlc, default))
-    role = get("MXTPU_ROLE", "DMLC_ROLE")
+    role = env_get("MXTPU_ROLE", "DMLC_ROLE")
     if role is None:
         return {}
     return {
         "role": role,
-        "root_host": get("MXTPU_PS_ROOT_URI", "DMLC_PS_ROOT_URI", "127.0.0.1"),
-        "root_port": int(get("MXTPU_PS_ROOT_PORT", "DMLC_PS_ROOT_PORT", "9091")),
-        "num_workers": int(get("MXTPU_NUM_WORKER", "DMLC_NUM_WORKER", "1")),
-        "num_servers": int(get("MXTPU_NUM_SERVER", "DMLC_NUM_SERVER", "1")),
+        "root_host": env_get("MXTPU_PS_ROOT_URI", "DMLC_PS_ROOT_URI",
+                             "127.0.0.1"),
+        "root_port": int(env_get("MXTPU_PS_ROOT_PORT", "DMLC_PS_ROOT_PORT",
+                                 "9091")),
+        "num_workers": int(env_get("MXTPU_NUM_WORKER", "DMLC_NUM_WORKER",
+                                   "1")),
+        "num_servers": int(env_get("MXTPU_NUM_SERVER", "DMLC_NUM_SERVER",
+                                   "1")),
     }
 
 

@@ -410,6 +410,9 @@ def run_synced(fn, devices: Sequence[torch.device],
         finally:
             _local.handle = None
 
+    # `sync.closed = True` below stores an attribute after the joins: `sync`
+    # itself is never rebound
+    # staticcheck: disable=source.daemon-capture -- attribute store, no rebind
     threads = [threading.Thread(target=run, args=(i,), daemon=True,
                                 name=f"mesh-member-{i}")
                for i in range(len(devices))]

@@ -297,6 +297,7 @@ class JsonlEmitter:
         with self._lock:
             # the lock is the line serializer: one short append per row,
             # and writers must not interleave
+            # staticcheck: disable=conc.blocking-under-lock -- the lock IS the line serializer
             with open(self.path, "a") as f:
                 f.write(line + "\n")
 

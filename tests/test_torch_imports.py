@@ -23,12 +23,16 @@ cross-device copy), pipelines (parallel.pipeline, parallel.pipeline_trainer,
 parallel.pipeline_spmd; none of them touches the card at import), the
 multi-process tier (parallel.dist, parallel.dist_kvstore,
 parallel.launch, the process bridge of the member meetings,
-parallel.watchdog, parallel.elastic) and ``chip_smoke``; a source scan
-checks every file of the port, the script and ``tools/torch_launch.py``
-for such imports.  ``chip_smoke.py --dist-worker`` (phase 23's child
+parallel.watchdog, parallel.elastic), the analysis tooling (analysis and
+its findings, concurrency, schedules and source modules, visualization,
+also as ``viz``) and ``chip_smoke``; a source scan checks every file of
+the port, the script, ``tools/torch_launch.py``,
+``tools/torch_staticcheck.py`` and its lint corpus for such imports.  ``chip_smoke.py --dist-worker`` (phase 23's child
 program) runs a ``dist_async`` cluster on the CPU with ``jax``,
 ``jaxlib`` and ``mxnet_tpu`` unimportable in every child, and
-``tools/torch_launch.py`` parses its arguments with them unimportable.
+``tools/torch_launch.py`` parses its arguments, and
+``tools/torch_staticcheck.py lint`` lints the port clean, with them
+unimportable.
 """
 import json
 import os
@@ -134,6 +138,16 @@ from mxnet_tpu_torch.predictor import (ExportedPredictor, Predictor, create,
 assert mxnet_tpu_torch.recordio is recordio
 assert mxnet_tpu_torch.ImageRecordIter is image_io.ImageRecordIter
 from mxnet_tpu_torch.compile_cache import CapturedProgram, ProgramCache
+from mxnet_tpu_torch import analysis, visualization
+from mxnet_tpu_torch.analysis import (concurrency, findings, schedules,
+                                      source)
+from mxnet_tpu_torch.analysis import (Finding, Report, RULES,
+                                      ScheduleFuzzer, audit_threads,
+                                      lint_paths, run_schedules)
+from mxnet_tpu_torch.visualization import plot_network, print_summary
+assert mxnet_tpu_torch.viz is visualization
+assert mxnet_tpu_torch.visualization is visualization
+assert mxnet_tpu_torch.analysis is analysis
 assert mxnet_tpu_torch.profiler is profiler
 assert mxnet_tpu_torch.io is io and mxnet_tpu_torch.metric is metric
 assert mxnet_tpu_torch.lr_scheduler is lr_scheduler
@@ -170,7 +184,10 @@ def _imported_modules(text):
 
 def test_no_jax_or_reference_package_in_port_sources():
     files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_launch.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_launch.py",
+              ROOT / "tools" / "torch_staticcheck.py"]
+    files += sorted((ROOT / "tools" / "torch_staticcheck_corpus")
+                    .glob("*.py"))
     assert len(files) > 10
     offenders = [(f.relative_to(ROOT).as_posix(), m)
                  for f in files for m in _imported_modules(f.read_text())
@@ -235,3 +252,22 @@ def test_launcher_cli_imports_the_port_only(tmp_path):
         capture_output=True, text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr
     assert "--num-workers" in proc.stdout
+
+
+def test_staticcheck_cli_imports_the_port_only(tmp_path):
+    """``tools/torch_staticcheck.py lint --json`` with ``jax``, ``jaxlib``
+    and ``mxnet_tpu`` made unimportable: it lints the port clean and
+    exits 0."""
+    block = tmp_path / "block"
+    block.mkdir()
+    for name in ("jax", "jaxlib", "mxnet_tpu"):
+        (block / f"{name}.py").write_text(
+            "raise ImportError('blocked for this test')\n")
+    env = dict(os.environ, PYTHONPATH=str(block))
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "torch_staticcheck.py"),
+         "lint", "--json"],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr
+    out = json.loads(proc.stdout)
+    assert out["ok"] and out["command"] == "lint"

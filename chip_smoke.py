@@ -483,6 +483,29 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     reference on the card, no failure; prints runs, preemptions and
     seconds a scenario; (c) ``tools/torch_staticcheck.py gate --json`` as
     a child process: exit 0, ``ok``; prints the K2-K5 launches it adds;
+26. runs the program auditor on the card (after phase 25, before 15):
+    (a) phase 9's LM at full width (Adam, bf16 compute) compiled under
+    ``analysis.audit_on_compile()``: both captured programs (``train``,
+    ``train_acc``) audit with no error, every fused bucket at 1 read and
+    1 write, the K2-K4 notes of each recorded (captured) iteration equal
+    to the launches its capture counted, backward ops and K4 notes in the
+    trace (the recorder reaches autograd's thread); then
+    ``analysis.audit_trainer``: no error, 1 read / 1 write, its notes
+    equal to the launches of its eager runs; 2 replayed steps bitwise an
+    unaudited twin's heads and state (deterministic algorithms on); (b)
+    phase 7's ResNet-50 step (batch 64, SGD with momentum, guard, clip)
+    the same, with one K1 and one K2 note; (c) the serving engine
+    (``ENGINE_KW``) on fp8 and on plain pools warmed up under the
+    observers: every program clean, each decode program's KV reads 1
+    byte (fp8) or 4 (plain) an element, audited at
+    ``expect_kv_itemsize=1`` clean on fp8 and firing
+    ``program.hbm-bytes`` on plain pools (the positive control), K5 and
+    K5-fp8 notes equal to the captures' launches; the compressed wire
+    audit needs two distinct cards and is logged as not run; (d)
+    ``tools/torch_staticcheck.py audit --json`` on the card and ``gate
+    --json`` on the host as child processes: exit 0, 1 read / 1 write;
+    ``compile_cache.observer_errors`` stays 0 and no observer stays
+    registered; prints each part's seconds and the launches it adds;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -10881,6 +10904,386 @@ def phase_analysis(torch, np, mx, fa, fu, fd):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the program auditor on the card
+# ---------------------------------------------------------------------------
+
+P26_AUDIT_TIMEOUT = 300
+
+
+def p26_names(nn_ops, fa, fu, fd):
+    """Kernel wrapper -> the name its kernel notes carry."""
+    return {nn_ops.softmax_rows: "softmax_rows",
+            fu.fused_update: "fused_update", fa.flash_fwd: "flash_fwd",
+            fa.flash_bwd: "flash_bwd", fd.flash_decode_attention:
+            "flash_decode"}
+
+
+def p26_counts(nn_ops, fa, fu, fd):
+    """The launch counters, by note name (K5 and K5-fp8 together, as one
+    note name with a ``quantized`` attribute)."""
+    f = fd.flash_decode_attention
+    return {"softmax_rows": nn_ops.softmax_rows.launches,
+            "fused_update": fu.fused_update.launches,
+            "flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd": fa.flash_bwd.launches,
+            "flash_decode": f.launches + f.launches_fp8}
+
+
+def p26_diff(after, before):
+    return {k: after[k] - before[k] for k in after if after[k] - before[k]}
+
+
+def p26_capture_counts(prog, names):
+    """The launches a captured program's capture counted (and took back),
+    by note name: its kernel notes must equal these."""
+    out = {}
+    for fn, attr, key, d in prog._delta:
+        if key is None and attr in ("launches", "launches_fp8") \
+                and fn in names:
+            out[names[fn]] = out.get(names[fn], 0) + d
+    return out
+
+
+def p26_notes_check(rep, label, want, what):
+    got = rep.metrics[label]["kernel_notes"]
+    check(got == want or DEVICE != "cuda",
+          f"{what}: {label}'s kernel notes {got} are not the launches "
+          f"{want} of its recorded iteration")
+
+
+def p26_clean(rep, what):
+    errors = rep.unsuppressed("error")
+    check(not errors, f"{what}: the audit found errors:\n"
+          + rep.format_text())
+    return [f.format() for f in rep.unsuppressed("warn")]
+
+
+def p26_fused_one_pass(rep, label, n_buckets, what):
+    per = rep.metrics[label]["hbm_passes"]["per_grad"]
+    want = {f"gradbucket:{i}": {"reads": 1, "writes": 1}
+            for i in range(n_buckets)}
+    check(per == want, f"{what}: {label}'s bucket passes {per}, expected "
+          f"1 read / 1 write over each of {n_buckets} buckets")
+
+
+def p26_lm(torch, np, analysis, cc, names, nn_ops, fa, fu, fd):
+    """(a): phase 9's LM at full width, captured under ``audit_on_compile``
+    and audited through ``audit_trainer``; two replayed steps bitwise an
+    unaudited twin's."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+
+    def trainer():
+        tr = ShardedTrainer(sym, optimizer="adam",
+                            optimizer_params=dict(LM_OPT),
+                            compute_dtype="bfloat16", fused_update=True,
+                            device=DEVICE)
+        return tr.bind({"data": shapes["data"]},
+                       {"softmax_label": shapes["softmax_label"]},
+                       arg_params=args)
+
+    out = {}
+    tr, twin = trainer(), trainer()
+    n_buckets = len(tr._fused_plan.buckets)
+    t0 = time.perf_counter()
+    with analysis.audit_on_compile() as rep:
+        infos = tr.compile(programs=("train", "train_acc"))
+    out["compile_s"] = time.perf_counter() - t0
+    check(all(i["source"] == ("capture" if DEVICE == "cuda" else "eager")
+              for i in infos), f"(a) the LM's programs resolved {infos}")
+    check(sorted(rep.metrics) == ["trainer.train", "trainer.train_acc"],
+          f"(a) the observers saw {sorted(rep.metrics)}")
+    out["compile_warns"] = p26_clean(rep, "(a) audit_on_compile")
+    for kind in ("train", "train_acc"):
+        label = f"trainer.{kind}"
+        p26_fused_one_pass(rep, label, n_buckets, "(a)")
+        m = rep.metrics[label]
+        p26_notes_check(rep, label, p26_capture_counts(tr._aot[kind][0],
+                                                       names), "(a)")
+        check(m["backward_ops"] > 0
+              and m["kernel_notes"].get("flash_bwd", 0) == LAYERS,
+              f"(a) {label}: {m['backward_ops']} backward ops and "
+              f"{m['kernel_notes']} notes: the recorder did not reach "
+              "autograd's thread")
+        out[label] = {k: m[k] for k in ("eqns", "consts_bytes",
+                                        "kernel_notes", "backward_ops")}
+    before = p26_counts(nn_ops, fa, fu, fd)
+    t0 = time.perf_counter()
+    rep = analysis.audit_trainer(tr)
+    torch.cuda.synchronize()
+    out["audit_trainer_s"] = time.perf_counter() - t0
+    launched = p26_diff(p26_counts(nn_ops, fa, fu, fd), before)
+    out["audit_warns"] = p26_clean(rep, "(a) audit_trainer")
+    notes = {}
+    for kind in ("train", "train_acc"):
+        label = f"trainer.{kind}"
+        hbm = rep.metrics[label]["hbm_passes"]
+        check(hbm["max_reads"] == hbm["max_writes"] == 1
+              and len(hbm["buckets"]) == n_buckets,
+              f"(a) audit_trainer {label}: {hbm['max_reads']} reads / "
+              f"{hbm['max_writes']} writes over {len(hbm['buckets'])} "
+              "buckets")
+        for k, v in rep.metrics[label]["kernel_notes"].items():
+            notes[k] = notes.get(k, 0) + v
+    check(notes == launched or DEVICE != "cuda",
+          f"(a) audit_trainer's notes {notes} != its launches {launched}")
+    out["audit_launches"] = launched
+    # auditing changed nothing: two replayed steps against the twin's
+    twin.compile(programs=("train",))
+    batch = lm_batch(np, seed=5)
+    heads = [tr.step(batch) for _ in range(2)]
+    twin_heads = [twin.step(batch) for _ in range(2)]
+    same = all(torch.equal(a, b) for h, g in zip(heads, twin_heads)
+               for a, b in zip(h, g))
+    same_w = all(torch.equal(a, b) for a, b in zip(
+        tr._written_tensors(), twin._written_tensors()))
+    check(same and same_w, f"(a) after the audit, 2 replayed steps are not "
+          f"bitwise the unaudited twin's (heads {same}, state {same_w})")
+    check(tr.aot_stats["hits"] == twin.aot_stats["hits"] == 2
+          or DEVICE != "cuda", f"(a) replays {tr.aot_stats}")
+    log(f"  (a) LM {LAYERS}L d{D_MODEL}: captured under the observers in "
+        f"{out['compile_s']:.1f} s, both programs clean, {n_buckets} "
+        f"buckets at 1 read / 1 write, notes = capture launches "
+        f"{out['trainer.train']['kernel_notes']}, "
+        f"{out['trainer.train']['backward_ops']} backward ops; "
+        f"audit_trainer {out['audit_trainer_s']:.1f} s (launched "
+        f"{launched}); 2 replays bitwise the twin's")
+    del tr, twin
+    return out
+
+
+def p26_resnet(torch, np, analysis, names, nn_ops, fa, fu, fd):
+    """(b): phase 7's ResNet-50 step (SGD with momentum, guard, clip)
+    captured under the observers, then ``audit_trainer``."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    sym = models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH)
+    shapes = dict(data=(BATCH,) + IMAGE, softmax_label=(BATCH,))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    tr = ShardedTrainer(sym, optimizer="sgd", optimizer_params=dict(TRAIN_OPT),
+                        guard=True, clip_global_norm=CLIP, fused_update=True,
+                        device=DEVICE)
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]},
+            arg_params=args, aux_params=aux)
+    n_buckets = len(tr._fused_plan.buckets)
+    out = {}
+    t0 = time.perf_counter()
+    with analysis.audit_on_compile() as rep:
+        tr.compile(programs=("train",))
+    out["compile_s"] = time.perf_counter() - t0
+    out["compile_warns"] = p26_clean(rep, "(b) audit_on_compile")
+    p26_fused_one_pass(rep, "trainer.train", n_buckets, "(b)")
+    p26_notes_check(rep, "trainer.train", p26_capture_counts(
+        tr._aot["train"][0], names), "(b)")
+    before = p26_counts(nn_ops, fa, fu, fd)
+    t0 = time.perf_counter()
+    rep = analysis.audit_trainer(tr, programs=("train",))
+    torch.cuda.synchronize()
+    out["audit_trainer_s"] = time.perf_counter() - t0
+    launched = p26_diff(p26_counts(nn_ops, fa, fu, fd), before)
+    out["audit_warns"] = p26_clean(rep, "(b) audit_trainer")
+    m = rep.metrics["trainer.train"]
+    hbm = m["hbm_passes"]
+    check(hbm["max_reads"] == hbm["max_writes"] == 1
+          and len(hbm["buckets"]) == n_buckets,
+          f"(b) {hbm['max_reads']} reads / {hbm['max_writes']} writes over "
+          f"{len(hbm['buckets'])} buckets")
+    check(m["kernel_notes"] == launched or DEVICE != "cuda",
+          f"(b) notes {m['kernel_notes']} != launches {launched}")
+    check(m["kernel_notes"].get("softmax_rows") == 1
+          and m["kernel_notes"].get("fused_update") == 1,
+          f"(b) notes {m['kernel_notes']}: expected one K1 and one K2")
+    out.update(eqns=m["eqns"], notes=m["kernel_notes"],
+               backward_ops=m["backward_ops"], audit_launches=launched)
+    log(f"  (b) ResNet-{DEPTH} batch {BATCH}: clean, {n_buckets} buckets at "
+        f"1 read / 1 write, {m['eqns']} ops and notes ({m['kernel_notes']}), "
+        f"audit_trainer {out['audit_trainer_s']:.1f} s")
+    return out
+
+
+def p26_engine(torch, analysis, cc, quant_kind, params):
+    """(c): an engine at ``ENGINE_KW`` warmed up under the observers; the
+    recorded traces of its decode programs, and their captures' launch
+    counts."""
+    from mxnet_tpu_torch.serve import Engine, EngineConfig
+    traces = {}
+
+    def keep(label, trace):
+        traces[label] = trace
+
+    eng = Engine(params, EngineConfig(**ENGINE_KW, kv_quant=quant_kind),
+                 device=DEVICE)
+    cc.add_lowering_observer(keep)
+    try:
+        with analysis.audit_on_compile() as rep:
+            eng.warmup()
+    finally:
+        cc.remove_lowering_observer(keep)
+    return eng, rep, traces
+
+
+def p26_decode(torch, analysis, cc, names):
+    """(c): the fp8 engine's decode programs read 1-byte KV and audit
+    clean at ``expect_kv_itemsize=1``; the plain-pool engine's fire
+    ``program.hbm-bytes`` there (the positive control); K5 and K5-fp8
+    notes equal the captures' launches."""
+    from mxnet_tpu_torch.models import transformer
+    params = transformer.init_params(VOCAB, LAYERS, D_MODEL, seed=0)
+    out = {}
+    for quant_kind in ("fp8", None):
+        t0 = time.perf_counter()
+        eng, rep, traces = p26_engine(torch, analysis, cc, quant_kind,
+                                      params)
+        tag = quant_kind or "f32"
+        warns = p26_clean(rep, f"(c) {tag} engine warmup")
+        decode = sorted(k for k in traces if k.startswith("serve.decode."))
+        check(decode and len(traces) == len(eng._programs),
+              f"(c) {tag}: observed {sorted(traces)}")
+        fired = {}
+        for label in decode:
+            trace = traces[label]
+            reads = rep.metrics[label]["kv_reads"]["reads"]
+            check({r["itemsize"] for r in reads}
+                  == {1 if quant_kind else 4} and len(reads) == 2 * LAYERS,
+                  f"(c) {tag} {label}: KV reads {reads}")
+            check_rep = analysis.audit_traced(trace, label,
+                                              expect_kv_itemsize=1)
+            fired[label] = sorted({f.rule for f in check_rep.findings})
+            prog = eng._programs[tuple(label.split(".")[1:2])
+                                 + (int(label.rsplit(".", 1)[1]),)]
+            quantized = [n.attrs["quantized"] for n in trace.notes
+                         if n.kernel == "flash_decode"]
+            check(set(quantized) == {bool(quant_kind)},
+                  f"(c) {tag} {label}: notes' pools {quantized}")
+            p26_notes_check(rep, label, p26_capture_counts(prog, names),
+                            f"(c) {tag}")
+        if quant_kind:
+            check(all(v == [] for v in fired.values()),
+                  f"(c) fp8 decode programs at expect_kv_itemsize=1: {fired}")
+        else:
+            check(all(v == ["program.hbm-bytes"] for v in fired.values()),
+                  f"(c) the positive control did not fire: {fired}")
+        out[tag] = {"seconds": time.perf_counter() - t0,
+                    "programs": sorted(traces), "warns": warns,
+                    "expect_kv_itemsize_1": fired,
+                    "kv_read_bytes": {k: rep.metrics[k]["kv_reads"]
+                                      ["read_bytes"] for k in decode}}
+        log(f"  (c) {tag} engine: {len(traces)} programs clean, decode "
+            f"KV reads {1 if quant_kind else 4} byte(s)/elem, "
+            f"expect_kv_itemsize=1 {'clean' if quant_kind else 'fires'} "
+            f"{fired}, in {out[tag]['seconds']:.1f} s")
+        del eng
+    return out
+
+
+def p26_cli():
+    """(d): ``torch_staticcheck.py audit --json`` on the card and ``gate
+    --json`` on the host, as child processes: both exit 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(root, "tools", "torch_staticcheck.py")
+    out = {}
+    for cmd in (["audit", "--json"] + (["--device", "cpu"]
+                                       if DEVICE != "cuda" else []),
+                ["gate", "--json"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, tool] + cmd,
+                              capture_output=True, text=True, cwd=root,
+                              timeout=P26_AUDIT_TIMEOUT)
+        check(proc.returncode == 0, f"(d) torch_staticcheck {cmd[0]} exited "
+              f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+        rep = json.loads(proc.stdout)
+        check(rep["ok"], f"(d) {cmd[0]}: not ok")
+        out[cmd[0]] = {"seconds": time.perf_counter() - t0,
+                       "counts": rep["counts"]}
+        if cmd[0] == "audit":
+            out["audit"]["passes"] = {
+                k: (m["hbm_passes"]["max_reads"],
+                    m["hbm_passes"]["max_writes"])
+                for k, m in rep["metrics"].items()}
+            check(all(v == (1, 1) for v in out["audit"]["passes"].values()),
+                  f"(d) audit passes {out['audit']['passes']}")
+        else:
+            check(rep["corpus"]["failures"] == []
+                  and "corpus.hbm_bytes_quantized:program.hbm-bytes"
+                  not in rep["corpus"]["programs"],
+                  f"(d) the gate's program corpus: {rep['corpus']}")
+    log(f"  (d) torch_staticcheck audit on {DEVICE}: exit 0 "
+        f"({out['audit']['seconds']:.1f} s, passes "
+        f"{out['audit']['passes']}); gate on the host: exit 0 "
+        f"({out['gate']['seconds']:.1f} s)")
+    return out
+
+
+def phase_program_audit(torch, np, mx, nn_ops, fa, fu, fd,
+                        parts=("a", "b", "c", "d")):
+    """Phase 26: the program auditor over the port's captured programs
+    on the card: (a) phase 9's LM, (b) phase 7's ResNet-50 step, (c) the
+    serving engine's decode programs over fp8 and plain pools, (d) the
+    CLI's audit on the card and the gate.  Returns the launches it adds
+    (by result-line name) and its numbers."""
+    from mxnet_tpu_torch import analysis, telemetry
+    from mxnet_tpu_torch import compile_cache as cc
+    t_phase = time.perf_counter()
+    names = p26_names(nn_ops, fa, fu, fd)
+    reset_train_counts(nn_ops.softmax_rows, fu.fused_update, fa.flash_fwd,
+                       fa.flash_bwd)
+    reset_decode_counts(fd)
+    telemetry.counter("compile_cache.observer_errors")
+    errors0 = telemetry.registry().get_value(
+        "compile_cache.observer_errors") or 0
+    stats = {"card": card_line() if DEVICE == "cuda" else "cpu"}
+    det = torch.are_deterministic_algorithms_enabled()
+    # bitwise replays against the twin: the embedding's scatter-add
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        if "a" in parts:
+            stats["(a)"] = p26_lm(torch, np, analysis, cc, names, nn_ops, fa,
+                                  fu, fd)
+    finally:
+        torch.use_deterministic_algorithms(det)
+    if "b" in parts:
+        stats["(b)"] = p26_resnet(torch, np, analysis, names, nn_ops, fa,
+                                  fu, fd)
+    if "c" in parts:
+        stats["(c)"] = p26_decode(torch, analysis, cc, names)
+        log("  (c) the compressed wire audit (int8 over two distinct "
+            "cards) is not run: it needs two cards and this run has "
+            f"{torch.cuda.device_count() if DEVICE == 'cuda' else 0}; the "
+            "CPU tests hold it over two CPU members")
+    f = fd.flash_decode_attention
+    launches = {"softmax_rows": nn_ops.softmax_rows.launches,
+                "fused_update": fu.fused_update.launches,
+                "flash_attn_fwd": fa.flash_fwd.launches,
+                "flash_attn_bwd": fa.flash_bwd.launches,
+                "flash_decode": f.launches,
+                "flash_decode_fp8": f.launches_fp8}
+    if "d" in parts:
+        stats["(d)"] = p26_cli()
+    errors = (telemetry.registry().get_value(
+        "compile_cache.observer_errors") or 0) - errors0
+    check(errors == 0, f"{errors} capture observer error(s)")
+    check(cc.lowering_observers() == [],
+          f"observers left registered: {cc.lowering_observers()}")
+    stats["observer_errors"] = errors
+    stats["launches"] = launches
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"  compile_cache.observer_errors 0, no observer registered; "
+        f"launches added by phase 26: {launches}")
+    log("  program auditor: " + json.dumps(stats))
+    return launches, stats
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -10941,14 +11344,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/25] device")
+    log("[1/26] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/25] build")
+    log("[2/26] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -10963,7 +11366,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/25] kernels against their plain versions")
+    log("[3/26] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -10972,22 +11375,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/25] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/26] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/25] serving the round-12 configuration: chunked prefill "
+    log(f"[5/26] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/25] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/26] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/25] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/26] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/25] kernel timing")
+    log("[8/26] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -11004,25 +11407,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/25] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/26] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/25] imperative + executor: NDArray on the card, the MLP "
+    log("[10/26] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/25] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/26] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/25] the serving control plane: crash failover, a hung and a "
+    log("[12/26] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -11030,7 +11433,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/25] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/26] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -11039,7 +11442,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/25] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/26] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -11047,7 +11450,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/25] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/26] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -11055,7 +11458,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/25] programs and the profiler: serve and train steps "
+    log("[17/26] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -11063,7 +11466,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/25] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/26] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -11072,7 +11475,7 @@ def main(argv) -> int:
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[19/25] input records, the deployment predictor and the last ops: "
+    log(f"[19/26] input records, the deployment predictor and the last ops: "
         f"{REC_IMAGES} packed images through ImageRecordIter into "
         f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
         f"served without the port, WarpCTC at the OCR example's sizes, the "
@@ -11081,7 +11484,7 @@ def main(argv) -> int:
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[20/25] tensor and model parallelism: the LM with its embedding "
+    log(f"[20/26] tensor and model parallelism: the LM with its embedding "
         f"on the host through group2ctx, the split rewrite of "
         f"megatron_rules() at a model axis of 1, two cards where there "
         f"are two")
@@ -11090,7 +11493,7 @@ def main(argv) -> int:
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[21/25] mixture of experts and ring attention: MoEFFN (8 experts "
+    log(f"[21/26] mixture of experts and ring attention: MoEFFN (8 experts "
         f"of {P21_MOE['hidden_size']}, top-2 then top-1, aux head) over "
         f"{P21_TOKENS[0] * P21_TOKENS[1]} tokens at d {D_MODEL} on the card "
         f"against the host, ring_self_attention over a one-card seq mesh at "
@@ -11099,7 +11502,7 @@ def main(argv) -> int:
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[22/25] pipelines: the LM through PipelineTrainer over "
+    log(f"[22/26] pipelines: the LM through PipelineTrainer over "
         f"{P22_STAGES} stages on the card (1F1B, remat) against "
         f"ShardedTrainer, the dryrun's MLP through PipelineTrainer, "
         f"SpmdPipelineTrainer and pipeline_apply, two cards where there "
@@ -11108,7 +11511,7 @@ def main(argv) -> int:
     log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[23/25] the multi-process tier: launch_local with 1 scheduler, "
+    log(f"[23/26] the multi-process tier: launch_local with 1 scheduler, "
         f"{P23_SERVERS} servers and {P23_WORKERS} workers on the card "
         f"(dist_sync exact aggregation and ResNet-{DEPTH} through "
         f"FeedForward.fit, then dist_async), the LM through ShardedTrainer "
@@ -11118,7 +11521,7 @@ def main(argv) -> int:
     log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[24/25] the multi-process tier, part two: the watchdog on the card "
+    log("[24/26] the multi-process tier, part two: the watchdog on the card "
         "(a hung, a dead and a dead monitor rank of three over gloo), "
         "ElasticTrainer under membership chaos through "
         "tools/torch_launch.py, SIGTERM inside a step, a live resize where "
@@ -11127,7 +11530,7 @@ def main(argv) -> int:
     log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[25/25] the analysis tooling on the card: the LM's captured step "
+    log(f"[25/26] the analysis tooling on the card: the LM's captured step "
         f"({P25_LAYERS} layers) with async CUDA checkpoints and the "
         f"prefetcher under the concurrency sanitizer, the schedule fuzzer's "
         f"six scenarios ({P25_SEEDS} seeds each, routers replaying K5), the "
@@ -11135,8 +11538,17 @@ def main(argv) -> int:
     p25_launches, _ = phase_analysis(torch, np, mx, fa, fu, fd)
     log(f"  phase 25 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 25
-    log("[15/25] result")
+    t0 = time.perf_counter()
+    log(f"[26/26] the program auditor on the card: the LM ({LAYERS}L "
+        f"d{D_MODEL}, batch {LM_BATCH} x {LM_SEQ}) and ResNet-{DEPTH} "
+        f"(batch {BATCH}) captured under audit_on_compile and audited by "
+        f"audit_trainer, the engine's decode programs over fp8 and plain "
+        f"pools, torch_staticcheck audit and gate")
+    p26_launches, _ = phase_program_audit(torch, np, mx, nn_ops, fa, fu, fd)
+    log(f"  phase 26 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 26
+    log("[15/26] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -11148,12 +11560,14 @@ def main(argv) -> int:
         ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
          "mxnet_tpu/serve/flash_decode.py:60",
          k5_launches + spec_k5 + cp_k5 + long_launches["flash_decode"]
-         + p17_launches["flash_decode"] + p25_launches["flash_decode"],
+         + p17_launches["flash_decode"] + p25_launches["flash_decode"]
+         + p26_launches["flash_decode"],
          max(v for (k, f), v in errs.items()
              if "bf16" not in k and f == "hopper")),
         ("flash_decode_fp8", "mxnet_tpu_torch/csrc/flash_decode.cu",
          "mxnet_tpu/serve/flash_decode.py:60",
-         fp8_launches + spec_k5_fp8 + p17_launches["flash_decode_fp8"],
+         fp8_launches + spec_k5_fp8 + p17_launches["flash_decode_fp8"]
+         + p26_launches["flash_decode_fp8"],
          max(v for k, v in fp8_errs.items()
              if k.endswith("float32 q, hopper"))),
         ("softmax_rows", "mxnet_tpu_torch/csrc/softmax_rows.cu",
@@ -11162,7 +11576,7 @@ def main(argv) -> int:
          + zoo_launches["softmax_rows"] + p17_launches["softmax_rows"]
          + p18_launches["softmax_rows"] + p19_launches["softmax_rows"]
          + p22_launches["softmax_rows"] + p23_launches["softmax_rows"]
-         + p24_launches["softmax_rows"],
+         + p24_launches["softmax_rows"] + p26_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
@@ -11178,7 +11592,8 @@ def main(argv) -> int:
          + long_launches["fused_update"] + p17_launches["fused_update"]
          + p18_launches["fused_update"] + p19_launches["fused_update"]
          + p21_launches["fused_update"] + p23_launches["fused_update"]
-         + p24_launches["fused_update"] + p25_launches["fused_update"],
+         + p24_launches["fused_update"] + p25_launches["fused_update"]
+         + p26_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
@@ -11186,7 +11601,8 @@ def main(argv) -> int:
          + long_launches["flash_attn_fwd"] + p17_launches["flash_attn_fwd"]
          + p20_launches["flash_attn_fwd"] + p21_launches["flash_attn_fwd"]
          + p22_launches["flash_attn_fwd"] + p23_launches["flash_attn_fwd"]
-         + p24_launches["flash_attn_fwd"] + p25_launches["flash_attn_fwd"],
+         + p24_launches["flash_attn_fwd"] + p25_launches["flash_attn_fwd"]
+         + p26_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
@@ -11194,7 +11610,8 @@ def main(argv) -> int:
          + long_launches["flash_attn_bwd"] + p17_launches["flash_attn_bwd"]
          + p20_launches["flash_attn_bwd"] + p21_launches["flash_attn_bwd"]
          + p22_launches["flash_attn_bwd"] + p23_launches["flash_attn_bwd"]
-         + p24_launches["flash_attn_bwd"] + p25_launches["flash_attn_bwd"],
+         + p24_launches["flash_attn_bwd"] + p25_launches["flash_attn_bwd"]
+         + p26_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

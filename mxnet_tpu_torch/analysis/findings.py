@@ -1,5 +1,6 @@
 """Typed findings, the rule catalogue, and suppression plumbing shared by
-the port's analysis tools: the source linter
+the port's analysis tools: the program auditor
+(:mod:`mxnet_tpu_torch.analysis.program`), the source linter
 (:mod:`mxnet_tpu_torch.analysis.source`) and the concurrency sanitizer
 (:mod:`mxnet_tpu_torch.analysis.concurrency`).
 
@@ -12,16 +13,21 @@ baselines survive refactors.
 
 Two kinds of entries differ from the JAX catalogue by design:
 
-* the ``program.*`` ids are data only, reserved for the port's program
-  auditor (:data:`RESERVED_RULES`), which is not written yet: nothing in
-  the port emits them today;
-* the rules with a port meaning (``source.host-sync``,
-  ``source.nondet``, ``source.donated-mutation`` and the two env rules)
-  say what they mean here: "traced" code is code that runs inside a CUDA-graph
-  capture, "donated" a position of ``compile_cache.program_key``'s
-  ``donate=`` set, and the environment catalogue is
-  ``mxnet_tpu_torch/ENV_VARS.md``.  Their ids and severities are the
-  JAX package's.
+* three ``program.*`` ids have no meaning here and are data only
+  (:data:`RESERVED_RULES`): ``program.donation-miss`` and
+  ``program.donation-alias`` (a captured graph donates no buffer: its
+  state is written in place) and ``program.carry-sharding`` (a mesh
+  member holds whole tensors, never a sharding that could change);
+  nothing in the port emits them;
+* the rules with a port meaning say what they mean here: the program
+  rules check the aten ops and kernel notes of one recorded run of a
+  program's body (a captured constant is a tensor the body closes over,
+  a host transfer an aten op, a reduce collective a ``psum`` note, a KV
+  read a decode-kernel note or a gather over a pool); of the source
+  rules, "traced" code is code that runs inside a CUDA-graph capture,
+  "donated" a position of ``compile_cache.program_key``'s ``donate=``
+  set, and the environment catalogue is ``mxnet_tpu_torch/ENV_VARS.md``.
+  Their ids and severities are the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,18 +43,21 @@ SCHEMA_VERSION = 1
 # rule id -> (default severity, one-line description)
 RULES: Dict[str, Tuple[str, str]] = {
     "program.widen": (
-        "error", "64-bit value introduced from non-64-bit inputs inside a "
-        "lowered program (unintended f64/int64 widening)"),
+        "error", "an aten op of a program's body outputs a 64-bit float or "
+        "int from narrower inputs (torch's int64 defaults, an unpinned "
+        "widening) and the value reaches an output or state"),
     "program.carry-widen": (
-        "error", "a carried value (params/aux/opt/metric carry/guard "
-        "state) leaves the program with a different dtype than it "
-        "entered — every call re-traces"),
+        "error", "a carried value (fit's metric carry, an executor's aux "
+        "states) leaves the program with another dtype or shape than it "
+        "entered"),
     "program.captured-const": (
-        "warn", "large trace-time constant baked into the program; a new "
-        "value means a new trace and the bytes live in the executable"),
+        "warn", "large tensor the body closes over that is none of its "
+        "inputs or state: a captured graph bakes in its address, so a "
+        "rebinding leaves the replay reading stale memory"),
     "program.host-transfer": (
-        "error", "host round-trip (callback/infeed/outfeed/device_put "
-        "eqn) inside the step program"),
+        "error", "aten op inside the step program that reads back to the "
+        "host (.item(), a data-dependent output size) or, on the card, "
+        "copies between the host and the card"),
     "program.donation-miss": (
         "warn", "argument was donated but XLA could not alias it to any "
         "output (the buffer is freed + reallocated every step)"),
@@ -62,14 +71,14 @@ RULES: Dict[str, Tuple[str, str]] = {
         "re-traces"),
     "program.fused-update": (
         "error", "a fused-update program breaks the single-pass HBM "
-        "contract: a grad bucket is traversed more than once "
-        "(reads/writes > 1) or the fused primitive/tags are missing"),
+        "contract: an aten op outside the fused kernel touches a tagged "
+        "gradient bucket (reads/writes > 1), or no bucket is tagged"),
     "program.hbm-bytes": (
-        "error", "a quantized-collective program breaks the wire-bytes "
-        "contract: a bucket-scale floating reduce collective puts a "
-        "wider payload on the wire than the configured compression "
-        "allows (the quantize was silently dropped), or no quantized "
-        "reduction is in the trace at all"),
+        "error", "a quantized program breaks its bytes contract: a "
+        "bucket-scale reduce collective (psum note) puts a wider payload "
+        "on the wire than the configured compression allows, a paged KV "
+        "read is wider than the pool's quantized width, or the "
+        "quantized reduction or read is not in the trace at all"),
     "source.host-sync": (
         "error", ".item()/.cpu()/.numpy()/.tolist()/.asnumpy()/float()/"
         "np.* applied to a captured value, or a synchronize, inside code "
@@ -114,10 +123,12 @@ RULES: Dict[str, Tuple[str, str]] = {
         "behind the I/O"),
 }
 
-#: the program auditor's ids: kept as data so reports and suppressions
-#: read the same in both packages; the port's auditor, which will emit
-#: them, is not written yet
-RESERVED_RULES = frozenset(r for r in RULES if r.startswith("program."))
+#: the JAX auditor's ids with no meaning in the port (a graph donates
+#: nothing; a mesh member holds whole tensors): kept as data so reports
+#: and suppressions read the same in both packages, never emitted
+RESERVED_RULES = frozenset({"program.donation-miss",
+                            "program.donation-alias",
+                            "program.carry-sharding"})
 
 SEVERITIES = ("error", "warn", "info")
 

@@ -60,9 +60,15 @@ Env knobs, read as the JAX package reads them:
 * ``MXNET_TPU_CACHE_MAX_ENTRIES`` — the LRU's capacity (default 64).
 * ``MXNET_TPU_MAX_BUCKETS`` — the bucketing module's runaway threshold.
 
-The JAX package's lowering observers (``add_lowering_observer``,
-``notify_lowering``) feed its jaxpr auditor, which has no counterpart
-here yet.
+Capture observers (:func:`add_lowering_observer`,
+:func:`notify_lowering`), the JAX package's lowering observers: with an
+observer registered, :meth:`CapturedProgram.build` records the captured
+iteration (on the CPU, or for a program with a ``reason``, one eager run
+of the body with the owner's state and the random state restored) as a
+:class:`~mxnet_tpu_torch.analysis.program.ProgramTrace` and offers it to
+every observer (``analysis.audit_on_compile``).  With none, nothing is
+recorded.  An observer's error is logged, counted in
+``compile_cache.observer_errors`` and never raised.
 """
 from __future__ import annotations
 
@@ -86,7 +92,8 @@ from .base import MXNetError
 __all__ = ["ProgramCache", "CacheKey", "CapturedProgram", "program_key",
            "describe_avals", "mesh_fingerprint", "backend_of",
            "owner_token", "graph_uncapturable", "snapshot_state",
-           "get_cache", "configure",
+           "get_cache", "configure", "add_lowering_observer",
+           "remove_lowering_observer", "notify_lowering",
            "enable_persistent_cache", "BucketPolicy", "bucket_for",
            "pad_to_bucket"]
 
@@ -296,6 +303,63 @@ def _apply_delta(delta, sign: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Capture observers
+# ---------------------------------------------------------------------------
+#
+# The program auditor (mxnet_tpu_torch.analysis) taps the build path
+# here: every program built on its way INTO the cache is offered to the
+# registered observers as a ProgramTrace of the iteration that was
+# captured, so ``analysis.audit_on_compile()`` inspects the ops the graph
+# holds.  Observers see cache misses only (a hit builds nothing).
+
+_lowering_observers: List[Callable[[str, Any], None]] = []
+_observer_lock = threading.Lock()
+
+
+def add_lowering_observer(fn: Callable[[str, Any], None]) -> None:
+    """Register ``fn(label, trace)`` to be called for every program built
+    while registered."""
+    with _observer_lock:
+        if fn not in _lowering_observers:
+            _lowering_observers.append(fn)
+
+
+def remove_lowering_observer(fn: Callable[[str, Any], None]) -> None:
+    with _observer_lock:
+        if fn in _lowering_observers:
+            _lowering_observers.remove(fn)
+
+
+def lowering_observers() -> List[Callable[[str, Any], None]]:
+    """The registered observers (a snapshot)."""
+    with _observer_lock:
+        return list(_lowering_observers)
+
+
+def _observer_failed(what: str, label: str) -> None:
+    from . import telemetry
+    telemetry.counter("compile_cache.observer_errors").inc()
+    _log.exception("%s failed on %r", what, label)
+
+
+def notify_lowering(label: str, trace: Any) -> None:
+    """Offer a freshly recorded program to the observers.  An observer's
+    error is logged and counted (``compile_cache.observer_errors``),
+    never raised: an analysis bug must not break a build."""
+    observers = lowering_observers()
+    if not observers:
+        return
+    from . import telemetry
+    with telemetry.span("compile.lowering", label=label,
+                        observers=len(observers)):
+        for fn in observers:
+            try:
+                fn(label, trace)
+            except Exception:
+                _observer_failed(f"capture observer {fn!r}", label)
+
+
+# ---------------------------------------------------------------------------
 # Captured programs
 # ---------------------------------------------------------------------------
 
@@ -367,7 +431,11 @@ class CapturedProgram:
 
     On the CPU, or with a ``reason`` (a program that cannot be captured),
     calling the program runs ``body()``.  ``inputs`` names the static
-    input buffers the body reads (:meth:`stage` copies values in).
+    input buffers the body reads (:meth:`stage` copies values in);
+    ``state()`` returns the owner's tensors the body reads or writes
+    (weights, optimizer state, pools): with the inputs, what a capture
+    observer's trace declares, so only tensors no one declared count as
+    captured constants.
     """
 
     #: eager iterations before the capture (side stream, undone)
@@ -376,10 +444,13 @@ class CapturedProgram:
     def __init__(self, label: str, body: Callable[[], Any], device,
                  preserve: Optional[Callable[[], Callable[[], None]]] = None,
                  pool=None, reason: Optional[str] = None,
-                 inputs: Optional[Dict[str, torch.Tensor]] = None):
+                 inputs: Optional[Dict[str, torch.Tensor]] = None,
+                 state: Optional[Callable[[], Sequence[torch.Tensor]]]
+                 = None):
         self.label = label
         self.body = body
         self.inputs = dict(inputs or {})
+        self.state = state
         self.device = torch.device(device)
         self.preserve = preserve
         self.pool = pool
@@ -403,7 +474,10 @@ class CapturedProgram:
             from . import telemetry
             telemetry.counter("compile_cache.uncaptured").inc()
             _log.info("program %s runs eagerly: %s", self.label, self.reason)
+        observing = bool(lowering_observers())
         if self.device.type != "cuda" or self.reason is not None:
+            if observing:
+                self._observe_eager()
             return self
         t0 = time.perf_counter()
         dev = self.device
@@ -437,7 +511,15 @@ class CapturedProgram:
             # touch; this thread's unsafe calls still fail it
             with torch.cuda.graph(graph, pool=self.pool, stream=side,
                                   capture_error_mode="thread_local"):
-                out = self.body()
+                if observing:
+                    # metadata only: reading a value would end the capture
+                    from .analysis import program
+                    with program.recording(self.label, dev, self.inputs,
+                                           self._declared_state()) as rec:
+                        out = self.body()
+                        rec.set_outputs(out)
+                else:
+                    out = self.body()
         except Exception as exc:
             raise MXNetError(f"capture of program {self.label!r} failed: "
                              f"{type(exc).__name__}: {exc}") from exc
@@ -450,7 +532,27 @@ class CapturedProgram:
         # bytes the capture reserved (0 when it reused a shared pool's)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_seconds = time.perf_counter() - t0
+        if observing:
+            notify_lowering(self.label, rec.trace)
         return self
+
+    def _declared_state(self) -> Sequence[torch.Tensor]:
+        return list(self.state()) if self.state is not None else []
+
+    def _observe_eager(self) -> None:
+        """For the observers of a program that is not captured: record one
+        run of the body with the owner's state (``preserve``) and the
+        random state restored."""
+        from .analysis import program
+        try:
+            trace = program.record_program(
+                self.label, self.body, self.device, inputs=self.inputs,
+                state=self._declared_state(), preserve=self.preserve)
+        except Exception:
+            _observer_failed("recording for the capture observers",
+                             self.label)
+            return
+        notify_lowering(self.label, trace)
 
     def stage(self, values: Dict[str, torch.Tensor]) -> None:
         """Copy ``values`` into the static input buffers of their names."""

@@ -337,9 +337,12 @@ class Executor:
             self._graph_fp = graph_fingerprint(self._symbol, topo=self._topo)
         return self._graph_fp
 
-    def _body_fwd(self, is_train: bool):
+    def _body_fwd(self, is_train: bool, with_aux: bool = False):
         """The forward's device work: save the aux states it sees, run
-        the graph, write the aux updates (training) in place."""
+        the graph, write the aux updates (training) in place.  With
+        ``with_aux`` the body returns ``(heads, aux updates)``: the
+        program auditor's view, whose aux outputs pair with the aux
+        states by name."""
         frozen = self._frozen_static
 
         def body():
@@ -354,6 +357,8 @@ class Executor:
                 if is_train:
                     for n, v in auxu.items():
                         self._aux_dict[n].data.copy_(v)
+            if with_aux:
+                return tuple(heads), (dict(auxu) if is_train else {})
             return tuple(heads)
         return body
 
@@ -427,27 +432,15 @@ class Executor:
             raise MXNetError("warmup(fb=True) on an executor bound without "
                              "gradient arrays")
         dev = resolve_device(self._ctx)
-        if self._frozen_static is None:
-            self._frozen_static = {n: torch.empty_like(a.data)
-                                   for n, a in self._aux_dict.items()}
-        if want_fb and self._cot_static is None:
-            with torch.no_grad():
-                heads, _ = eval_symbol(
-                    self._symbol, {n: a.data for n, a in
-                                   self._arg_dict.items()},
-                    {n: a.data for n, a in self._aux_dict.items()}, None,
-                    False, topo=self._topo, placement=self._placement)
-            self._cot_static = [torch.ones_like(h) for h in heads]
+        self._ensure_statics(want_fb)
         if self._graph_pool is None and dev.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
         reason = cc.graph_uncapturable(self._topo)
         if reason is None and self._placement is not None:
             reason = ("a group2ctx placement runs eagerly (a CUDA graph "
                       "holds one device's work)")
-        arrays = {"args": {n: a.data for n, a in self._arg_dict.items()},
-                  "aux": {n: a.data for n, a in self._aux_dict.items()}}
-        written = ([a.data for a in self._aux_dict.values()]
-                   + [self._grad_dict[n].data for n in self._grad_names])
+        arrays = self._program_inputs()
+        written = self._written()
         infos: List[Dict[str, Any]] = []
 
         def warm(name: str, body, extra):
@@ -458,7 +451,8 @@ class Executor:
                 key, lambda: cc.CapturedProgram(
                     f"executor.{name}", body, dev,
                     preserve=lambda: cc.snapshot_state(written),
-                    pool=self._graph_pool, reason=reason).build(),
+                    pool=self._graph_pool, reason=reason,
+                    state=self._owned).build(),
                 label=f"executor.{name}")
             self._programs[(cc.owner_token(self), name)] = prog
             infos.append(dict(info, kind=name))
@@ -471,6 +465,60 @@ class Executor:
                  {"kind": "fb", "grads": grads,
                   "req": [self._req[n] for n in self._grad_names]})
         return infos
+
+    def _ensure_statics(self, want_fb: bool) -> None:
+        """The programs' static buffers: the aux states a forward saw and
+        (with ``want_fb``) the heads' cotangents."""
+        if self._frozen_static is None:
+            self._frozen_static = {n: torch.empty_like(a.data)
+                                   for n, a in self._aux_dict.items()}
+        if want_fb and self._cot_static is None:
+            with torch.no_grad():
+                heads, _ = eval_symbol(
+                    self._symbol, {n: a.data for n, a in
+                                   self._arg_dict.items()},
+                    {n: a.data for n, a in self._aux_dict.items()}, None,
+                    False, topo=self._topo, placement=self._placement)
+            self._cot_static = [torch.ones_like(h) for h in heads]
+
+    def _program_inputs(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {"args": {n: a.data for n, a in self._arg_dict.items()},
+                "aux": {n: a.data for n, a in self._aux_dict.items()}}
+
+    def _written(self) -> List[torch.Tensor]:
+        """What a program writes: the aux states and the gradients."""
+        return ([a.data for a in self._aux_dict.values()]
+                + [self._grad_dict[n].data for n in self._grad_names])
+
+    def _owned(self) -> List[torch.Tensor]:
+        """Every tensor of this executor a program reads or writes: the
+        bound arrays and the programs' static buffers."""
+        return (self._written()
+                + [a.data for a in self._arg_dict.values()]
+                + list((self._frozen_static or {}).values())
+                + list(self._cot_static or []))
+
+    def _audit_programs(self, train: Optional[bool] = None):
+        """``(kind, body, inputs, state, preserve)`` of each program the
+        program auditor records (:func:`mxnet_tpu_torch.analysis.
+        audit_executor`): ``fwd_False``, and with gradients bound (or
+        ``train=True``) ``fwd_True`` and ``fb``; the forwards return
+        their aux updates beside the heads."""
+        want_fb = bool(train or (train is None and self._grad_names))
+        if want_fb and not self._grad_names:
+            raise MXNetError("audit of a training program on an executor "
+                             "bound without gradient arrays")
+        self._ensure_statics(want_fb)
+        inputs = self._program_inputs()
+        written = self._written()
+        preserve = lambda: cc.snapshot_state(  # noqa: E731
+            written + list(self._frozen_static.values()))
+        work = [("fwd_False", self._body_fwd(False, with_aux=True))]
+        if want_fb:
+            work += [("fwd_True", self._body_fwd(True, with_aux=True)),
+                     ("fb", self._body_fb())]
+        return [(kind, body, inputs, self._owned(), preserve)
+                for kind, body in work]
 
     # ------------------------------------------------------------------
     # Accessors

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..analysis import program as _program
 from ..base import MXNetError
 from ..optimizer import sqrt_rn
 
@@ -238,6 +239,7 @@ def _resolve_form(form, *tensors) -> str:
     return form
 
 
+@_program.kernel_region
 def fused_update(g, w, state=(), scalars=(), *, kind, mult=None, ok=None,
                  wd_vec=None, momentum=0.0, beta1=0.0, beta2=0.0,
                  epsilon=0.0, wd=0.0, rescale_grad=1.0, clip_gradient=None,
@@ -266,6 +268,7 @@ def fused_update(g, w, state=(), scalars=(), *, kind, mult=None, ok=None,
                  epsilon=epsilon, wd=wd, rescale_grad=rescale_grad,
                  clip_gradient=clip_gradient)
     if g.device.type == "cpu":
+        _program.note_kernel("fused_update", reads=(g,), writes=(w,) + state)
         res = reference_update(g, w, state, scalars, kind=kind, mult=mult,
                                ok=ok, wd_vec=wd_vec, **hyper)
         with torch.no_grad():
@@ -296,6 +299,7 @@ def fused_update(g, w, state=(), scalars=(), *, kind, mult=None, ok=None,
                          torch.cuda.current_stream(g.device).cuda_stream))
     if rc != 0:
         _raise_launch(lib, rc, form)
+    _program.note_kernel("fused_update", reads=(g,), writes=(w,) + state)
     fused_update.launches += 1
     fused_update.launches_by_form[form] += 1
     return (w, *state)
@@ -412,6 +416,7 @@ def _check_grads(grads, plan: ChunkPlan, w_flat) -> None:
                          f"{w_flat.numel()}")
 
 
+@_program.kernel_region
 def fused_update_params(grads, w_flat, state_flat=(), offsets=(),
                         scalars=(), *, kind, mult=None, ok=None,
                         wd_vec=None, momentum=0.0, beta1=0.0, beta2=0.0,
@@ -445,6 +450,9 @@ def fused_update_params(grads, w_flat, state_flat=(), offsets=(),
                  clip_gradient=clip_gradient)
     dev = w_flat.device
     if dev.type == "cpu":
+        for t0, t1, _, _ in plan.tables:     # the launches the card makes
+            _program.note_kernel("fused_update", reads=grads[t0:t1],
+                                 writes=(w_flat,) + state)
         with torch.no_grad():
             for g, o, n in zip(grads, plan.offsets, plan.sizes):
                 sl = slice(o, o + n)
@@ -480,6 +488,8 @@ def fused_update_params(grads, w_flat, state_flat=(), offsets=(),
                 *tail)
             if rc != 0:
                 _raise_launch(lib, rc, "hopper")
+            _program.note_kernel("fused_update", reads=grads[t0:t1],
+                                 writes=(w_flat,) + state)
             fused_update.launches += 1
             fused_update.launches_by_form["hopper"] += 1
     return (w_flat, *state)

@@ -62,6 +62,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import _build
+from ..analysis import program as _program
 from ..base import MXNetError
 from .registry import OpDef, OpParam, elemwise_shape, register_op
 
@@ -582,6 +583,7 @@ def softmax_rows_form(ncols: int) -> str:
     return "warp" if ncols <= SOFTMAX_WARP_MAX_COLS else "block"
 
 
+@_program.kernel_region
 def softmax_rows(x, form: Optional[str] = None):
     """Row softmax of a 2-D float32/bfloat16 ``x`` with at most
     :data:`SOFTMAX_MAX_COLS` columns; the result has ``x.dtype``.
@@ -611,6 +613,7 @@ def softmax_rows(x, form: Optional[str] = None):
         raise MXNetError(f"softmax_rows: form {form!r} cannot take {c} "
                          f"columns (allowed: "
                          f"{sorted({'block', softmax_rows_form(c)})})")
+    _program.note_kernel("softmax_rows", reads=(x,))
     if x.device.type == "cpu":
         return softmax_rows_ref(x)
     if x.device.type != "cuda":

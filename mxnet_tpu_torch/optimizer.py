@@ -68,7 +68,7 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     is correct for float32 inputs (53 >= 2 * 24 + 2 bits)."""
     if x.device.type == "cuda":
         return torch.sqrt(x)
-    return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x.double()).to(x.dtype)  # staticcheck: disable=program.widen -- the CPU's correctly rounded root: float64 for one op, rounded once
 
 
 def _as_f32(v, like: torch.Tensor) -> torch.Tensor:

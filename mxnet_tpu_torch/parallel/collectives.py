@@ -36,6 +36,11 @@ split them into ~``bucket_bytes`` flat buckets per dtype class
 ``ceil(total_bytes / bucket_bytes)`` reductions per dtype class, each
 recorded by :func:`count_collectives` with the JAX package's record keys.
 
+Each reduction of :func:`psum` over several members and each bucket of
+:func:`allreduce_processes` leaves a ``reduce`` collective note for the
+program auditor (``analysis.program.note_kernel``; nothing when no
+recording is active), whose wire rows read the payload's width.
+
 :func:`psum_compressed` is the JAX function's reduction over the members'
 tensors: ``"int8"`` (one f32 scale a 128-element block shared by every
 member: the max of the members' block absmax; round half to even of
@@ -54,6 +59,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis import program as _program
 from ..base import MXNetError
 from ..context import Context, as_context
 from .. import quant
@@ -211,6 +217,9 @@ def psum(parts: Sequence[torch.Tensor],
         record_axis_call("psum", axis, parts[0], len(parts))
     if len(parts) == 1:
         return parts
+    # the program auditor's reduce collective: its wire rows (both
+    # branches, NCCL and the summing loop)
+    _program.note_kernel("psum", reads=parts, collective="reduce")
     if _on_distinct_cards(parts):
         return _nccl(parts, 0)
     # half-width floats accumulate in float32 and round once, as XLA's
@@ -320,7 +329,10 @@ def allreduce_processes(tensors: Sequence[torch.Tensor],
         start = 0
         for bucket in plan:
             n = sum(stop - lo for _, lo, stop in bucket)
-            tdist.all_reduce(flat[start:start + n])
+            piece = flat[start:start + n]
+            _program.note_kernel("all_reduce", reads=(piece,),
+                                 collective="reduce")
+            tdist.all_reduce(piece)
             _emit({"nbytes": n * itemsize, "wire_nbytes": n * itemsize,
                    "num_pieces": len(bucket),
                    "tensor_indices": [idxs[pi] for pi, _, _ in bucket],

@@ -63,6 +63,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from ..analysis import program as _program
 from ..base import MXNetError
 
 __all__ = ["NEG_INF", "AUTO_SWITCH_LEN", "flash_attention",
@@ -308,6 +309,7 @@ def _launch(lib, fn, what, ptrs, dtype, dims, blhd, causal, form, extra,
                          f"error {rc} ({lib.mxt_error_string(rc).decode()})")
 
 
+@_program.kernel_region
 def flash_fwd(q, k, v, *, causal: bool, scale: float,
               layout: str = "bhld",
               form: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -322,6 +324,7 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float,
     if causal and dims[2] != dims[3]:
         raise MXNetError("flash_fwd: causal attention needs Lq == Lk")
     form = _resolve_form("flash_fwd", form, q.dtype, dims[4], (q, k, v))
+    _program.note_kernel("flash_fwd", reads=(q, k, v))
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal=causal, scale=scale,
                              layout=layout)
@@ -341,6 +344,7 @@ flash_fwd.launches = 0
 flash_fwd.launches_by_form = dict.fromkeys(_FORM_CODES, 0)
 
 
+@_program.kernel_region
 def flash_bwd(q, k, v, out, lse, do, *, causal: bool, scale: float,
               layout: str = "bhld", delta=None, form: Optional[str] = None):
     """Attention backward ``(dq, dk, dv)`` (K4) from ``lse`` and
@@ -364,6 +368,7 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool, scale: float,
         raise MXNetError("flash_bwd: causal attention needs Lq == Lk")
     form = _resolve_form("flash_bwd", form, q.dtype, dims[4],
                          (q, k, v, out, do))
+    _program.note_kernel("flash_bwd", reads=(q, k, v, out, lse, do))
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, out, lse, do, causal=causal,
                              scale=scale, layout=layout, delta=delta)

@@ -204,6 +204,7 @@ from .. import compile_cache as cc
 from .. import optimizer as opt_mod
 from .. import quant as quant_mod
 from .. import resilience, telemetry
+from ..analysis.program import mark_grads, record_program, tag
 from ..random import GraphKey, mix
 from ..base import MXNetError, not_ported
 from ..context import Context, as_context, cpu, resolve_device
@@ -905,6 +906,15 @@ class ShardedTrainer:
         self._chunk_plan = fu.plan_chunks(
             [offs[n] for n in plan.order],
             [int(np.prod(plan.shapes[n])) for n in plan.order])
+        # the hopper form's work list on the device now, not at a step's
+        # first launch (a host copy inside the step)
+        self._chunk_plan.device_chunks(self.device)
+        # the plan buckets each gradient lies in: the auditor's tags
+        self._bucket_labels: Dict[str, List[str]] = {}
+        for i, segs in enumerate(plan.buckets):
+            for n, _, _ in segs:
+                self._bucket_labels.setdefault(n, []).append(
+                    f"gradbucket:{i}")
         self._flat_state = [torch.zeros(total, **f32)
                             for _ in range(fu._N_STATE[self._fused_kind])]
         self._opt_state = {}
@@ -1224,6 +1234,9 @@ class ShardedTrainer:
         (``grads`` None).  Returns the guard's verdict (None without
         the guard)."""
         resil = self._resil
+        if not self._fused and grads is not None:
+            # the program auditor's anchors (identity; no op)
+            grads = mark_grads(grads)
         with torch.no_grad():
             ok = mult = eff_norm = None
             if resil is not None:
@@ -1294,6 +1307,11 @@ class ShardedTrainer:
             clip_gradient=opt._hyper().get("clip_gradient"))
         order = self._fused_plan.order
         if buckets is None and self._fused_route == "hopper":
+            # the program auditor's anchors: each gradient tagged with
+            # the plan buckets it lies in (identity; no op)
+            for n in order:
+                for label in self._bucket_labels[n]:
+                    tag(grads[n], label)
             fu.fused_update_params([grads[n] for n in order], self._flat_w,
                                    self._flat_state, self._chunk_plan,
                                    scalars, wd_vec=self._flat_wd, **common)
@@ -1301,7 +1319,9 @@ class ShardedTrainer:
         if buckets is None:
             g_flat = torch.cat([grads[n].reshape(-1) for n in order])
             buckets = [g_flat[b0:b1_] for b0, b1_ in self._bucket_bounds]
-        for g, (b0, b1_) in zip(buckets, self._bucket_bounds):
+        for i, (g, (b0, b1_)) in enumerate(zip(buckets,
+                                               self._bucket_bounds)):
+            tag(g, f"gradbucket:{i}")
             fu.fused_update(
                 g, self._flat_w[b0:b1_],
                 tuple(s[b0:b1_] for s in self._flat_state), scalars,
@@ -1772,6 +1792,31 @@ class ShardedTrainer:
             ts += list(self._guard_state.values())
         return ts + [self._lr_dev, self._t_dev]
 
+    def _written_tensors(self) -> List[torch.Tensor]:
+        """What a step body writes: :meth:`_state_tensors` and the other
+        members' replicas (which the step broadcasts into)."""
+        ts = self._state_tensors()
+        for rep in self._replicas:
+            ts += ([rep["flat_w"]] if self._fused else
+                   [p.detach() for p in rep["params"].values()])
+            ts += list(rep["aux"].values())
+        return ts
+
+    def _owned_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of this trainer a step body reads or writes: what
+        a program's trace declares as its state (the rest it reads are
+        captured constants)."""
+        ts = self._written_tensors()
+        ts += [p.detach() for p in self._params.values()]
+        ts += [self._c_one, self._c_tiny]
+        if self._resil is not None and self._c_clip is not None:
+            ts.append(self._c_clip)
+        if self._fused:
+            if self._flat_wd is not None:
+                ts.append(self._flat_wd)
+            ts.append(self._chunk_plan.device_chunks(self.device))
+        return ts
+
     def _uncapturable(self) -> Optional[str]:
         if self._bridge_spec is not None:
             return ("a mesh that spans processes runs eagerly (its "
@@ -1846,6 +1891,58 @@ class ShardedTrainer:
             out[n] = (shape, dtype)
         return out
 
+    def _program_body(self, kind: str, b_spec):
+        """The static input buffers (zeros of ``b_spec``'s shapes; and
+        ``train_acc``'s int32 carry) and the body of a ``kind`` program:
+        the device work of one step (``train``), the step and the
+        accuracy fold (``train_acc``) or the inference forward
+        (``eval``)."""
+        dev = self.device
+        static = {n: torch.zeros(s, dtype=dt, device=dev)
+                  for n, (s, dt) in b_spec.items()}
+        batch = dict(static)
+        if kind == "train":
+            def body():
+                return self._device_step(batch)
+        elif kind == "train_acc":
+            static["_carry"] = torch.zeros((), dtype=torch.int32, device=dev)
+
+            def body():
+                heads = self._device_step(batch)
+                return heads, _acc_fold(
+                    static["_carry"], heads,
+                    [batch[ln] for ln in self._label_names])
+        elif kind == "eval":
+            def body():
+                return tuple(self._eval_forward(batch))
+        else:
+            raise MXNetError(f"unknown program kind {kind!r} "
+                             "(train/train_acc/eval)")
+        return static, body
+
+    def trace_program(self, kind: str = "train", batch_spec=None):
+        """Record one run of a step program's body for the program
+        auditor (:func:`mxnet_tpu_torch.analysis.audit_trainer`): the body
+        :meth:`compile` captures, run once on the trainer's device over
+        zero batches of ``batch_spec``'s shapes (default: the bound
+        ones) under the step lock.  Every tensor the body writes and the
+        random state are restored afterwards, so the trainer is left
+        bitwise as it was; the kernels it launches are counted.  Returns
+        ``(trace, batch spec)``: the
+        :class:`~mxnet_tpu_torch.analysis.program.ProgramTrace` and the
+        normalized ``{input: (shape, dtype)}``."""
+        if not self._bound:
+            raise MXNetError("call bind() before trace_program()")
+        spec = batch_spec if batch_spec is not None else self._input_shapes
+        b_spec = self._norm_batch_spec(spec)
+        static, body = self._program_body(kind, b_spec)
+        with self._step_lock:
+            trace = record_program(
+                f"trainer.{kind}", body, self.device, inputs=static,
+                state=self._owned_tensors(),
+                preserve=lambda: cc.snapshot_state(self._written_tensors()))
+        return trace, b_spec
+
     def compile(self, batch_spec=None, programs=("train",),
                 background: bool = False):
         """Capture the step programs for known batch shapes, each resolved
@@ -1884,32 +1981,15 @@ class ShardedTrainer:
                 for n, (s, dt) in b_spec.items()})
 
             def build():
-                static = {n: torch.zeros(s, dtype=dt, device=dev)
-                          for n, (s, dt) in b_spec.items()}
-                batch = dict(static)
-                if kind == "train":
-                    def body():
-                        return self._device_step(batch)
-                elif kind == "train_acc":
-                    static["_carry"] = torch.zeros((), dtype=torch.int32,
-                                                   device=dev)
-
-                    def body():
-                        heads = self._device_step(batch)
-                        return heads, _acc_fold(
-                            static["_carry"], heads,
-                            [batch[ln] for ln in self._label_names])
-                else:
-                    def body():
-                        return tuple(self._eval_forward(batch))
+                static, body = self._program_body(kind, b_spec)
                 if self._graph_pool is None and dev.type == "cuda":
                     self._graph_pool = torch.cuda.graph_pool_handle()
                 prog = cc.CapturedProgram(
                     f"trainer.{kind}", body, dev,
                     preserve=lambda: cc.snapshot_state(
-                        self._state_tensors()),
+                        self._written_tensors()),
                     pool=self._graph_pool, reason=self._uncapturable(),
-                    inputs=static)
+                    inputs=static, state=self._owned_tensors)
                 with self._step_lock:
                     return prog.build()
 

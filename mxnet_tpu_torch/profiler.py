@@ -165,6 +165,39 @@ def format_compile_report(title: str = "compile") -> str:
 
 
 # ---------------------------------------------------------------------------
+# Program-audit events (mxnet_tpu_torch.analysis)
+# ---------------------------------------------------------------------------
+#
+# Each program the auditor walks lands here (label, finding count, wall
+# seconds), beside the compile events.
+
+_audit_events: List[Dict[str, object]] = []
+
+
+def record_audit(program: str, findings: int, seconds: float) -> None:
+    """Record one audited program (called by ``analysis.audit_traced``)."""
+    with _compile_lock:
+        _audit_events.append({"program": str(program),
+                              "findings": int(findings),
+                              "seconds": float(seconds)})
+    from . import telemetry
+    telemetry.counter("audit.programs").inc()
+    if findings:
+        telemetry.counter("audit.findings").inc(int(findings))
+
+
+def audit_events() -> List[Dict[str, object]]:
+    """Snapshot of recorded audit events (oldest first)."""
+    with _compile_lock:
+        return [dict(e) for e in _audit_events]
+
+
+def reset_audit_events() -> None:
+    with _compile_lock:
+        _audit_events.clear()
+
+
+# ---------------------------------------------------------------------------
 # Event counters: a shim over the telemetry registry
 # ---------------------------------------------------------------------------
 

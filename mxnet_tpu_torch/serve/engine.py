@@ -286,10 +286,11 @@ def _spec_accept(logits, tokens, live, keys: Sequence[int],
 
 def _first_token(last):
     """A prefill's device result from the logits row of the prompt's
-    last token ([1, V]): the row, and ``[argmax, finite]``."""
+    last token ([1, V]): the row, and ``[argmax, finite]`` as int32 (a
+    program's outputs stay 32-bit, as the JAX engine's)."""
     lf = last.float()
-    return last, torch.stack([lf.argmax(dim=-1)[0],
-                              torch.isfinite(lf).all().long()])
+    return last, torch.stack([lf.argmax(dim=-1)[0].to(torch.int32),
+                              torch.isfinite(lf).all().to(torch.int32)])
 
 
 def _first_token_host(last, res, temp: float, topk: int, key: int,
@@ -755,8 +756,9 @@ class Engine:
         logits = transformer_lm_decode(self._step_params(), tokens,
                                        heads=self.heads, attend=attend)
         lf = logits.float()
-        return logits, torch.stack([lf.argmax(dim=-1),
-                                    torch.isfinite(lf).all(dim=-1).long()])
+        return logits, torch.stack([
+            lf.argmax(dim=-1).to(torch.int32),
+            torch.isfinite(lf).all(dim=-1).to(torch.int32)])
 
     @torch.no_grad()
     def _run_decode(self, rows: Sequence[Request], bb: int):
@@ -823,7 +825,7 @@ class Engine:
         logits = transformer_lm_verify(self._step_params(), tokens_t,
                                        heads=self.heads, attend=attend)
         out, n_emit = _spec_accept_row_greedy(logits, tokens_t, live_t)
-        return logits, out, n_emit
+        return logits, out.to(torch.int32), n_emit.to(torch.int32)
 
     @torch.no_grad()
     def _run_verify(self, rows: Sequence[Request], bb: int, drafts):
@@ -936,6 +938,15 @@ class Engine:
         if self.spec is not None and self.spec.kind == "model":
             self.spec.own_params()
 
+    def _owned_tensors(self) -> List[torch.Tensor]:
+        """The weights (a model drafter's too) and the pools: what a
+        program's trace declares as its state."""
+        ts = list(self._params.values())
+        if self.spec is not None and self.spec.kind == "model":
+            ts += list(self.spec.params.values())
+        return (ts + list(kvcache._leaves(self.kpool))
+                + list(kvcache._leaves(self.vpool)))
+
     def _ensure_program(self, kind: str, bucket: int) -> Dict[str, Any]:
         """Resolve the program of ``(kind, bucket)`` through the program
         cache and install it; returns its info (``source``, ``seconds``,
@@ -967,7 +978,8 @@ class Engine:
                     return body(static, bucket)
             return cc.CapturedProgram(
                 f"serve.{kind}.{bucket}", run, self.device,
-                pool=self._graph_pool, inputs={"buf": static}).build()
+                pool=self._graph_pool, inputs={"buf": static},
+                state=self._owned_tensors).build()
 
         prog, info = cc.get_cache().get_or_compile(
             ckey, build, label=f"serve.{kind}.{bucket}")

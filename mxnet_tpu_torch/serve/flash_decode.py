@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..analysis import program as _program
 from ..base import MXNetError
 from ..parallel.ring_attention import NEG_INF
 from .kvcache import _gather_blocks, is_quantized
@@ -266,6 +267,20 @@ def flash_decode_attention_ref(q, k_pool, v_pool, tables, lengths, *,
     return _combine(acc, m, p.sum(dim=-1)).to(q.dtype)
 
 
+def _note_decode(q, k_pool, v_pool, tables, lengths, quantized) -> None:
+    """The program auditor's note of one launch: the pools' payloads (the
+    paged KV read, ``kv_elems`` elements each: batch x table width x
+    block size x heads x head_dim, from shapes alone) and the scales."""
+    kp = k_pool.payload if quantized else k_pool
+    vp = v_pool.payload if quantized else v_pool
+    b, h, hd = q.shape
+    reads = [q, kp, vp, tables, lengths]
+    if quantized:
+        reads += [k_pool.scale, v_pool.scale]
+    _program.note_kernel("flash_decode", reads=reads, quantized=quantized,
+                         kv_elems=b * tables.shape[1] * kp.shape[1] * h * hd)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     if not getattr(lib, "_mxt_typed", False):
@@ -281,6 +296,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@_program.kernel_region
 def flash_decode_attention(q, k_pool, v_pool, tables, lengths, *,
                            scale: Optional[float] = None,
                            split_k: Optional[int] = None,
@@ -299,6 +315,7 @@ def flash_decode_attention(q, k_pool, v_pool, tables, lengths, *,
     """
     quantized = _check(q, k_pool, v_pool, tables, lengths)
     form = _resolve_form(form, k_pool, v_pool)
+    _note_decode(q, k_pool, v_pool, tables, lengths, quantized)
     if q.device.type == "cpu":
         return flash_decode_attention_ref(q, k_pool, v_pool, tables, lengths,
                                           scale=scale, split_k=split_k)

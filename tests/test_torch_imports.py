@@ -24,10 +24,12 @@ parallel.pipeline_spmd; none of them touches the card at import), the
 multi-process tier (parallel.dist, parallel.dist_kvstore,
 parallel.launch, the process bridge of the member meetings,
 parallel.watchdog, parallel.elastic), the analysis tooling (analysis and
-its findings, concurrency, schedules and source modules, visualization,
-also as ``viz``) and ``chip_smoke``; a source scan checks every file of
-the port, the script, ``tools/torch_launch.py``,
-``tools/torch_staticcheck.py`` and its lint corpus for such imports.  ``chip_smoke.py --dist-worker`` (phase 23's child
+its findings, program, concurrency, schedules and source modules,
+visualization, also as ``viz``) and ``chip_smoke``; a source scan checks
+every file of the port, the script, ``tools/torch_launch.py``,
+``tools/torch_staticcheck.py`` and its corpus (the program corpus
+``bad_programs.py`` included) and ``tools/torch_compile_cache_inspect.py``
+for such imports.  ``chip_smoke.py --dist-worker`` (phase 23's child
 program) runs a ``dist_async`` cluster on the CPU with ``jax``,
 ``jaxlib`` and ``mxnet_tpu`` unimportable in every child, and
 ``tools/torch_launch.py`` parses its arguments, and
@@ -139,8 +141,10 @@ assert mxnet_tpu_torch.recordio is recordio
 assert mxnet_tpu_torch.ImageRecordIter is image_io.ImageRecordIter
 from mxnet_tpu_torch.compile_cache import CapturedProgram, ProgramCache
 from mxnet_tpu_torch import analysis, visualization
-from mxnet_tpu_torch.analysis import (concurrency, findings, schedules,
-                                      source)
+from mxnet_tpu_torch.analysis import (concurrency, findings, program,
+                                      schedules, source)
+from mxnet_tpu_torch.analysis.program import (ProgramTrace, audit_trainer,
+                                              note_kernel, record_program)
 from mxnet_tpu_torch.analysis import (Finding, Report, RULES,
                                       ScheduleFuzzer, audit_threads,
                                       lint_paths, run_schedules)
@@ -185,9 +189,12 @@ def _imported_modules(text):
 def test_no_jax_or_reference_package_in_port_sources():
     files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_launch.py",
-              ROOT / "tools" / "torch_staticcheck.py"]
+              ROOT / "tools" / "torch_staticcheck.py",
+              ROOT / "tools" / "torch_compile_cache_inspect.py"]
     files += sorted((ROOT / "tools" / "torch_staticcheck_corpus")
                     .glob("*.py"))
+    assert ROOT / "tools" / "torch_staticcheck_corpus" / "bad_programs.py" \
+        in files
     assert len(files) > 10
     offenders = [(f.relative_to(ROOT).as_posix(), m)
                  for f in files for m in _imported_modules(f.read_text())

@@ -5,8 +5,9 @@ As the JAX CLI's tests (``tests/test_staticcheck.py``,
 ``tests/test_concurrency_check.py``): ``lint``, ``races`` and ``gate``
 exit 0 on the shipped tree with the JSON schema; a seeded tree exits 1
 and ``--suppress`` clears it (a location glob that does not match does
-not); an internal error exits 2, and so does ``audit``, which names the
-queued auditor; one host schedule scenario sweeps; and the port's lint
+not); an internal error exits 2; ``audit --device cpu`` exits 0 with the
+schema and the HBM-pass lines; one host schedule scenario sweeps; the
+gate holds the program corpus; and the port's lint
 corpus under ``tools/torch_staticcheck_corpus/`` fires every
 expectation while its negative control stays silent.  ``races`` and
 ``schedules`` run with ``--device cpu``: without it they go to the card.
@@ -55,6 +56,15 @@ def test_cli_gate_passes_on_shipped_tree():
     port = out["corpus"]["lint"]["tools/torch_staticcheck_corpus"]
     assert port["host_sync.py:source.host-sync"] >= 5
     assert not any(k.startswith("clean.py") for k in port)
+    progs = out["corpus"]["programs"]
+    assert progs["corpus.hbm_bytes_widened:program.hbm-bytes"] >= 1
+    assert not any(k.startswith(("corpus.clean:", "corpus.fused_clean:",
+                                 "corpus.hbm_bytes_quantized:",
+                                 "corpus.decode_kv_quantized:"))
+                   for k in progs)
+    assert set(out["metrics"]) == {"lint"} | {
+        f"{n}.trainer.{k}" for n in ("fc", "transformer-lm")
+        for k in ("train", "train_acc")}
 
 
 def test_cli_races_passes_on_the_cpu():
@@ -98,13 +108,35 @@ def test_cli_exit_codes_and_suppression_on_seeded_tree(tmp_path):
 
 
 def test_cli_internal_error_and_audit_exit_two():
+    """An internal error exits 2 (an unknown schedule scenario; an unknown
+    audit network, as the JAX CLI's); ``audit --json --device cpu`` exits
+    0 with the schema, and its text form prints the HBM-pass lines."""
     proc = _run_cli("schedules", "--scenarios", "no-such-scenario",
                     "--device", "cpu")
     assert proc.returncode == 2
     assert "internal error" in proc.stderr
-    proc = _run_cli("audit")
-    assert proc.returncode == 2
-    assert "auditor" in proc.stderr and "queued" in proc.stderr
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("torch_staticcheck", CLI)
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    with pytest.raises(ValueError, match="unknown audit network"):
+        cli.main(["audit", "--networks", "no-such-net", "--device", "cpu"])
+    proc = _run_cli("audit", "--json", "--device", "cpu")
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    out = json.loads(proc.stdout)
+    assert out["schema"] == F.SCHEMA_VERSION
+    assert out["command"] == "audit" and out["ok"] and out["clean"]
+    assert set(out["metrics"]) == {
+        f"{n}.trainer.{k}" for n in ("fc", "transformer-lm")
+        for k in ("train", "train_acc")}
+    for m in out["metrics"].values():
+        assert m["hbm_passes"]["max_reads"] == 1
+        assert m["hbm_passes"]["max_writes"] == 1
+    rep = analysis.Report(mode="audit")
+    rep.metrics.update(out["metrics"])
+    lines = cli._hbm_lines(rep)
+    assert "fc.trainer.train: hbm buckets=1 max_reads=1 max_writes=1" \
+        in lines
 
 
 def test_cli_schedules_single_scenario_exit_zero():

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Static and runtime analysis gate for mxnet_tpu_torch, the PyTorch port.
 
-The port's twin of ``tools/staticcheck.py``: the same subcommands but
-``audit``, the same exit codes, ``--json`` schema and ``--suppress``.
+The port's twin of ``tools/staticcheck.py``: the same subcommands,
+exit codes, ``--json`` schema and ``--suppress``.
 
 - ``lint``  — AST linter over ``mxnet_tpu_torch/`` (host syncs and
   nondeterminism in code that runs under a CUDA-graph capture, reads of
@@ -22,18 +22,24 @@ The port's twin of ``tools/staticcheck.py``: the same subcommands but
   asserting byte-identity invariants.  ``MXNET_TPU_CONC_SCHEDULES`` /
   ``MXNET_TPU_CONC_SEED`` (or ``--n`` / ``--seed``) set the sweep; a
   failure prints the replayable ``(scenario, seed)`` pair.
-- ``gate``  — CI entry, host only: ``lint`` must be clean, every
-  seeded violation must still be detected — the races corpus above, the
-  plain-Python lint rules over ``tests/golden/staticcheck/bad_source/``
-  and the three rules with a port meaning over
-  ``tools/torch_staticcheck_corpus/`` — and the negative controls stay
-  silent.
-- ``audit`` is not available: the port's program auditor (over the aten
-  ops a captured step dispatches) is queued and not written yet.
+- ``audit`` — record the framework's own step programs (the FC
+  classifier and the transformer-LM trainer of the JAX CLI, at its sizes;
+  ``--networks``, ``--programs``) on ``--device`` and run the program
+  rules over their aten ops and kernel notes
+  (``mxnet_tpu_torch/analysis/program.py``): dtype widening, the metric
+  carry, host transfers, captured constants, and the HBM-pass count per
+  gradient bucket — the fused update's measuring stick.
+- ``gate``  — CI entry, host only: ``lint`` and the ``audit`` on the CPU
+  must be clean, every seeded violation must still be detected — the
+  races corpus above, the plain-Python lint rules over
+  ``tests/golden/staticcheck/bad_source/``, the three lint rules with a
+  port meaning over ``tools/torch_staticcheck_corpus/`` and the program
+  corpus ``tools/torch_staticcheck_corpus/bad_programs.py`` — and the
+  negative controls stay silent.
 
-``--device`` (``races``, ``schedules``) is the card unless ``cpu`` is
-passed.  Exit codes: 0 clean, 1 findings / missed expectations, 2
-internal error.  ``--json`` emits the machine-readable report (schema
+``--device`` (``audit``, ``races``, ``schedules``) is the card unless
+``cpu`` is passed.  Exit codes: 0 clean, 1 findings / missed
+expectations, 2 internal error.  ``--json`` emits the machine-readable report (schema
 in ``mxnet_tpu_torch/analysis/findings.py``); ``--suppress
 RULE[:LOCATION]`` (repeatable, globs allowed) silences known findings
 with an audit trail.
@@ -48,6 +54,10 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS_DIR = os.path.join(REPO_ROOT, "tests", "golden", "staticcheck")
 PORT_CORPUS_DIR = os.path.join(REPO_ROOT, "tools",
                                "torch_staticcheck_corpus")
+
+# audited by `audit` and `gate`: the JAX CLI's acceptance programs, a
+# plain FC classifier and the transformer-LM, through ShardedTrainer
+AUDIT_NETWORKS = ("fc", "transformer-lm")
 
 # rules of the shared corpus that are plain Python: the port's linter
 # reads those files as they are
@@ -64,7 +74,80 @@ def _repo_import():
 
 
 # ----------------------------------------------------------------------
-# Lint corpora (gate)
+# Trainer builders and the audit (the JAX CLI's networks and sizes)
+# ----------------------------------------------------------------------
+
+def _build_trainer(network, device):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    mx.random.seed(7)
+    with mx.name.NameManager():
+        if network == "fc":
+            data = mx.symbol.Variable("data")
+            net = mx.symbol.FullyConnected(data=data, num_hidden=32,
+                                           name="fc1")
+            net = mx.symbol.Activation(data=net, act_type="relu")
+            net = mx.symbol.FullyConnected(data=net, num_hidden=10,
+                                           name="fc2")
+            sym = mx.symbol.SoftmaxOutput(data=net, name="softmax")
+            tr = ShardedTrainer(sym, optimizer="sgd",
+                                optimizer_params={"learning_rate": 0.1,
+                                                  "momentum": 0.9},
+                                device=device)
+            tr.bind(data_shapes={"data": (16, 8)},
+                    label_shapes={"softmax_label": (16,)})
+            return tr
+        if network == "transformer-lm":
+            from mxnet_tpu_torch import models
+            B, L, V = 8, 16, 128
+            sym = models.get_symbol("transformer-lm", vocab_size=V,
+                                    num_layers=2, d_model=64, heads=2,
+                                    batch_size=B, seq_len=L)
+            tr = ShardedTrainer(sym, optimizer="adam",
+                                optimizer_params={"learning_rate": 1e-3},
+                                device=device)
+            tr.bind(data_shapes={"data": (B, L)},
+                    label_shapes={"softmax_label": (B, L)})
+            return tr
+    raise ValueError(f"unknown audit network: {network!r} "
+                     f"(choose from {AUDIT_NETWORKS})")
+
+
+def _run_audit(analysis, networks, programs, device):
+    report = analysis.Report(mode="audit")
+    for network in networks:
+        tr = _build_trainer(network, device)
+        sub = analysis.audit_trainer(tr, programs=programs)
+        # prefix program labels/metrics with the network name so the two
+        # trainers' findings stay distinguishable in one report
+        for f in sub.findings:
+            if f.program:
+                f.program = f"{network}.{f.program}"
+        report.findings.extend(sub.findings)
+        for k, v in sub.metrics.items():
+            report.metrics[f"{network}.{k}"] = v
+    return report
+
+
+def _hbm_lines(report):
+    lines = []
+    for prog, m in sorted(report.metrics.items()):
+        hbm = (m or {}).get("hbm_passes")
+        if not hbm:
+            continue
+        lines.append(f"{prog}: hbm buckets={len(hbm.get('buckets', []))} "
+                     f"max_reads={hbm.get('max_reads')} "
+                     f"max_writes={hbm.get('max_writes')}")
+        for b in hbm.get("buckets", []):
+            lines.append(f"  bucket[{b['index']}] {b['dtype']} "
+                         f"{b['bytes']} B ({len(b['params'])} params): "
+                         f"{b['reads']} reads / {b['writes']} writes")
+    return lines
+
+
+# ----------------------------------------------------------------------
+# Corpora (gate)
 # ----------------------------------------------------------------------
 
 def _count_by_file_rule(report):
@@ -191,6 +274,45 @@ def _load_threads_corpus():
     return mod
 
 
+def _load_programs_corpus():
+    path = os.path.join(PORT_CORPUS_DIR, "bad_programs.py")
+    spec = importlib.util.spec_from_file_location(
+        "mxtpu_torch_staticcheck_programs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_programs_corpus(analysis):
+    """Record and audit every seeded program on the host: each must
+    still produce its rule, and the negative controls stay silent."""
+    with open(os.path.join(PORT_CORPUS_DIR, "expected.json")) as f:
+        expected = json.load(f)
+    mod = _load_programs_corpus()
+    report = analysis.Report(mode="audit")
+    for name, (builder, _rules) in mod.PROGRAMS.items():
+        trace, kwargs = builder()
+        analysis.audit_traced(trace, f"corpus.{name}", report=report,
+                              **kwargs)
+    by = {}
+    for f in report.findings:
+        by[(f.program, f.rule)] = by.get((f.program, f.rule), 0) + 1
+    failures = []
+    for e in expected["programs"]:
+        prog = e["program"]
+        if e.get("clean"):
+            hits = sorted(r for (p, r) in by if p == prog)
+            if hits:
+                failures.append(f"corpus: negative control {prog} "
+                                f"triggered {hits}")
+            continue
+        if by.get((prog, e["rule"]), 0) < e.get("min_count", 1):
+            failures.append(f"corpus: {e['rule']} did not fire on {prog}")
+    return not failures, failures, {
+        "programs": {f"{p}:{r}": n for (p, r), n in sorted(by.items())},
+        "failures": failures}
+
+
 def _check_threads_corpus(analysis):
     """Re-run every seeded concurrency violation: each case drives real
     threads under its own audit window and must still produce its rule
@@ -224,16 +346,12 @@ def _check_threads_corpus(analysis):
 # CLI
 # ----------------------------------------------------------------------
 
-AUDIT_MISSING = ("audit: the port's program auditor (aten ops of a "
-                 "captured step) is queued and not written yet; use "
-                 "lint, races, schedules or gate")
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="torch_staticcheck",
-        description="source linter + concurrency sanitizer of the "
-                    "PyTorch port")
+        description="program auditor, source linter and concurrency "
+                    "sanitizer of the PyTorch port")
     ap.add_argument("command",
                     choices=("lint", "audit", "gate", "races", "schedules"))
     ap.add_argument("--json", action="store_true",
@@ -245,8 +363,13 @@ def main(argv=None):
     ap.add_argument("--root", default=REPO_ROOT,
                     help="repo root to lint (default: this checkout)")
     ap.add_argument("--device", default=None,
-                    help="device of races and schedules (default: the "
-                         "card; 'cpu' runs on the host)")
+                    help="device of audit, races and schedules (default: "
+                         "the card; 'cpu' runs on the host)")
+    ap.add_argument("--networks", default=",".join(AUDIT_NETWORKS),
+                    help="comma-separated audit networks "
+                         f"(default {','.join(AUDIT_NETWORKS)})")
+    ap.add_argument("--programs", default="train,train_acc",
+                    help="trainer program kinds to audit")
     ap.add_argument("--scenarios", default="",
                     help="comma-separated schedule scenarios "
                          "(default: all; see analysis/schedules.py)")
@@ -256,17 +379,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=None,
                     help="base fuzzer seed (default MXNET_TPU_CONC_SEED=0)")
     args = ap.parse_args(argv)
-    if args.command == "audit":
-        print(f"torch_staticcheck: {AUDIT_MISSING}", file=sys.stderr)
-        return 2
 
     analysis = _repo_import()
+    networks = [n for n in args.networks.split(",") if n]
+    programs = tuple(p for p in args.programs.split(",") if p)
     out = {"schema": analysis.SCHEMA_VERSION, "command": args.command}
     extra_lines = []
     corpus_ok = True
     corpus_failures = []
     if args.command == "lint":
         report = analysis.lint_paths(args.root)
+    elif args.command == "audit":
+        report = _run_audit(analysis, networks, programs, args.device)
+        extra_lines = _hbm_lines(report)
     elif args.command == "races":
         report = _races_live(analysis, args.device)
         corpus_ok, corpus_failures, corpus_details = \
@@ -293,14 +418,20 @@ def main(argv=None):
     else:  # gate
         report = analysis.Report(mode="gate")
         report.merge(analysis.lint_paths(args.root))
+        audit = _run_audit(analysis, networks, programs, "cpu")
+        report.merge(audit)
+        extra_lines = _hbm_lines(audit)
         lint_ok, lint_failures, lint_details = \
             _check_lint_corpora(analysis)
         threads_ok, threads_failures, threads_details = \
             _check_threads_corpus(analysis)
-        corpus_ok = lint_ok and threads_ok
-        corpus_failures = lint_failures + threads_failures
+        progs_ok, progs_failures, progs_details = \
+            _check_programs_corpus(analysis)
+        corpus_ok = lint_ok and threads_ok and progs_ok
+        corpus_failures = lint_failures + threads_failures + progs_failures
         out["corpus"] = {"lint": lint_details["lint"],
                          "cases": threads_details["cases"],
+                         "programs": progs_details["programs"],
                          "failures": corpus_failures}
 
     analysis.apply_cli(report.findings, args.suppress)

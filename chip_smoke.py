@@ -279,7 +279,8 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     on inception-bn-28-small and ``BucketingModule.compile([8, 16])``
     over phase 14's LSTM, bitwise their eager twins; (a)-(c) build no
     kernel; (d) two processes with one fresh ``MXNET_TPU_CACHE_DIR``:
-    the second builds no kernel and lists the first one's program key;
+    the first builds the two kernels its FC trainer runs (K1, K2), the
+    second builds none and lists the first one's program key;
 18. runs data parallelism in one process (after phase 17, before 15),
     under deterministic cuDNN: (a) phase 7's ResNet-50 (batch 64,
     224x224, f32, SGD momentum 0.9, wd 1e-4, the guard, clip 5.0)
@@ -506,6 +507,25 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     --json`` on the host as child processes: exit 0, 1 read / 1 write;
     ``compile_cache.observer_errors`` stays 0 and no observer stays
     registered; prints each part's seconds and the launches it adds;
+27. runs the tuned conv backward, the C predict API and the last tools
+    (after phase 26, before 15): (a) ``ops.conv_backward._conv2d_bwd``
+    under ``MXNET_TPU_CONV_BWD=tuned`` against cuDNN's backward on one
+    ResNet-50 shape of each family (stem 7x7 s2, 1x1 s1, 1x1 s2, 3x3 s2,
+    3x3 s1) at batch 64 in bf16 and f32, within
+    ``tools/torch_conv_probe.py``'s bounds, and the probe's times of those
+    shapes; (b) phase 7's ResNet-50, one step under tuned and one under
+    the default from the same weights and batch (cuDNN deterministic):
+    parameters and moving statistics within rtol 1e-4, atol 1e-6, the
+    tuned backward run by exactly the restructured convolutions, one K1
+    and one K2 launch a step, then three timed steps of each; (c) the C
+    predict API built with g++ (``_build.build_c_predict``) and its pure-C
+    driver serving phase 19 (b)'s ResNet-50 artifact on the card (the
+    default device), within ``EXPORT_TOL`` of the Predictor, its forward
+    median beside phase 19's Python-served one; (d)
+    ``tools/torch_im2rec.py`` (list, then two workers) packs a folder of
+    24 PNGs that ``ImageRecordIter`` reads back (labels and pixel sums),
+    and ``tools/torch_ckpt_inspect.py`` shows, verifies and diffs a
+    checkpoint written from CUDA tensors; no kernel is built in the phase;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
@@ -528,9 +548,12 @@ two card lines.  (``--serve-only ROOT`` is one such turn.)
 with every call into the telemetry plane timed, and prints the host
 seconds inside those calls against the seconds inside ``Engine.step``.
 """
+import atexit
+import contextlib
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -5929,7 +5952,7 @@ import numpy as np
 import torch
 from mxnet_tpu_torch import _build, compile_cache as cc, symbol as S
 from mxnet_tpu_torch.parallel import ShardedTrainer
-built = _build.build_all()
+built = _build.build_all(["softmax_rows", "fused_update"])
 net = S.FullyConnected(data=S.Variable("data"), num_hidden=64, name="fc1")
 sym = S.SoftmaxOutput(data=net, name="softmax")
 tr = ShardedTrainer(sym, "sgd", {"learning_rate": 0.1}, device="cuda")
@@ -6480,8 +6503,9 @@ def p17_legacy(torch, np, nn_ops, counts):
 
 def p17_persistent(tmp):
     """(d) two processes with one fresh ``MXNET_TPU_CACHE_DIR``: the first
-    builds every kernel, the second builds none (its libraries come from
-    the directory) and lists the first one's program sidecars."""
+    builds the kernels its FC trainer runs (K1, K2), the second builds
+    none (its libraries come from the directory) and lists the first
+    one's program sidecars."""
     import tempfile
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, MXNET_TPU_CACHE_DIR=tempfile.mkdtemp(dir=tmp))
@@ -7424,6 +7448,8 @@ def p19_predictor(torch, np, nn_ops, _build, tr, sym, x, tmp, launches):
     """(b) the trained weights through ``predictor.create`` (legacy prefix
     and manifest directory), an executor, and an exported artifact served
     by a process without the port."""
+    import tempfile
+
     from mxnet_tpu_torch import checkpoint, model, predictor
     from mxnet_tpu_torch.context import cpu, gpu
 
@@ -7502,8 +7528,11 @@ def p19_predictor(torch, np, nn_ops, _build, tr, sym, x, tmp, launches):
         f"{out['executor_forward_ms']:.3f} ms (executor, eager)")
 
     # the exported artifact, served by a process that cannot import the
-    # port
-    art = os.path.join(tmp, "r50.mxtpt")
+    # port; it, its input and the Predictor's output stay for phase 27's
+    # C process (P19_EXPORT)
+    keep = tempfile.mkdtemp(prefix="p19-export-")
+    atexit.register(shutil.rmtree, keep, True)
+    art = os.path.join(keep, "r50.mxtpt")
     t0 = time.perf_counter()
     predictor.export_model(sym, arg, aux, shapes, art)
     out["export_s"] = time.perf_counter() - t0
@@ -7526,6 +7555,9 @@ def p19_predictor(torch, np, nn_ops, _build, tr, sym, x, tmp, launches):
           f"the exported program's outputs differ from the Predictor's by "
           f"{err}")
     out["exported_max_abs_err"] = err
+    batch.tofile(os.path.join(keep, "x.bin"))
+    P19_EXPORT.update(artifact=art, x=os.path.join(keep, "x.bin"), ref=ref,
+                      python_ms=out["exported"]["median_ms"])
     log(f"  (b) export_model: {out['artifact_bytes']} bytes in "
         f"{out['export_s']:.2f} s (traced on the CPU); served by a process "
         f"without the port on {out['exported']['device']}: forward median "
@@ -7533,6 +7565,11 @@ def p19_predictor(torch, np, nn_ops, _build, tr, sym, x, tmp, launches):
         f"from the Predictor; tensors held {out['exported']['tensor_bytes']}")
     return out
 
+
+# phase 19 (b)'s exported ResNet-50 for phase 27 (c): the artifact's and
+# the input's paths (float32 bytes), the Predictor's output and the
+# Python-served median forward ms
+P19_EXPORT = {}
 
 # a process that imports torch and not the port serves the artifact on
 # the card, with the script's numerics settings (no TF32, deterministic
@@ -11284,6 +11321,421 @@ def phase_program_audit(torch, np, mx, nn_ops, fa, fu, fd,
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the tuned conv backward, the C predict API and the last tools
+# (after phase 26, before the result)
+# ---------------------------------------------------------------------------
+
+# (a) one shape of each family the tuned policy treats, named as in
+# tools/torch_conv_probe.py's table: the stem 7x7 s2, 1x1 s1, 1x1 s2, 3x3
+# s2 and 3x3 s1 (the backend's on both sides); held to cuDNN's backward
+# within the probe's bounds (1e-2 x max(1, max |cuDNN|) in bf16, 1e-4 in
+# f32), then timed by the probe (CUDA events, median of P27_REPS, L2
+# flushed)
+P27_SHAPES = ("stem_7x7_s2", "s1_1x1_64_256", "s2_1x1_sc_s2",
+              "s2_3x3_128_s2", "s1_3x3_64")
+P27_BATCH, P27_REPS = 64, 20
+# (b) phase 7's ResNet-50, one step under tuned against one under the
+# default from the same weights and batch (cuDNN deterministic): the
+# parameters and moving statistics after it within the trainer tests'
+# bounds (f32 summation order of the two backward forms, through one
+# clipped SGD step), then P27_TIMED more steps of each, timed
+P27_STEP_TOL = (1e-4, 1e-6)
+P27_TIMED = 3
+# (c) phase 19 (b)'s artifact served by the C driver: forwards, the first
+# left out of the median as phase 19 leaves it out
+P27_C_REPS = 11
+# (d) a synthetic image folder: 2 classes of 12 PNGs, landscape and
+# portrait, packed at 32x32 (resize, center crop) by two workers
+P27_IMAGES, P27_SIDE = 12, 32
+
+
+@contextlib.contextmanager
+def p27_policy(value):
+    """``MXNET_TPU_CONV_BWD`` set to ``value`` (``None``: unset, the
+    default) inside the block, restored after it."""
+    saved = os.environ.pop("MXNET_TPU_CONV_BWD", None)
+    if value is not None:
+        os.environ["MXNET_TPU_CONV_BWD"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("MXNET_TPU_CONV_BWD", None)
+        if saved is not None:
+            os.environ["MXNET_TPU_CONV_BWD"] = saved
+
+
+def p27_tuned_kinds(cb, sym):
+    """The tuned policy's kinds of every Convolution of ``sym`` whose
+    backward it restructures (stride, pad and kernel decide them)."""
+    kinds = []
+    for node in json.loads(sym.tojson())["nodes"]:
+        if node["op"] != "Convolution":
+            continue
+        attrs = node.get("attrs") or node.get("param") or {}
+
+        def pair(key, default):
+            v = attrs.get(key)
+            return tuple(int(t) for t in v.strip("()").split(",")
+                         if t.strip()) if v else default
+
+        k = pair("kernel", None)
+        got = cb._policy((1, 1, 8, 8), (1, 1) + k, pair("stride", (1, 1)),
+                         pair("pad", (0, 0)))
+        if got != ("xla", "xla"):
+            kinds.append(got)
+    return kinds
+
+
+def p27_conv(torch, np, probe):
+    """(a) ``_conv2d_bwd`` under tuned against cuDNN's backward, and the
+    probe's times, at batch ``P27_BATCH`` in bf16 and f32."""
+    from mxnet_tpu_torch.ops import conv_backward as cb
+    shapes = [s for s in probe.RESNET50_SHAPES if s[0] in P27_SHAPES]
+    check(len(shapes) == len(P27_SHAPES), f"probe shapes {shapes}")
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    flush = torch.empty(probe.FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    out = {"held": [], "rows": []}
+    for dtype in ("bfloat16", "float32"):
+        for shape in shapes:
+            name, cin, hw, cout, k, s, p, _ = shape
+            (x, w, dy), _ = probe.forms(torch, cin, hw, cout, k, s, p,
+                                        P27_BATCH, dtype, gen)
+            with p27_policy("tuned"):
+                kinds = cb._policy(x.shape, w.shape, (s, s), (p, p))
+            check(kinds != ("xla", "xla") or k == 3 and s == 1,
+                  f"(a) {name}: the tuned policy picked {kinds}")
+            got = cb._conv2d_bwd((s, s), (p, p), (x, w), dy, kinds)
+            ref = cb._backend_grads(dy, x, w, (s, s), (p, p), (True, True))
+            for side, g, r in zip(("dx", "dw"), got, ref):
+                err, bound = probe.check_error(torch, g, r, dtype)
+                check(g.dtype == r.dtype and g.shape == r.shape
+                      and err <= bound,
+                      f"(a) {name} {dtype} {side} ({kinds}): max abs error "
+                      f"{err} above {bound} or {g.dtype}/{tuple(g.shape)} "
+                      f"against {r.dtype}/{tuple(r.shape)}")
+                out["held"].append({"shape": name, "dtype": dtype,
+                                    "side": side, "kinds": list(kinds),
+                                    "max_abs_err": err, "bound": bound})
+            del x, w, dy, got, ref
+            out["rows"] += probe.probe_shape(torch, shape, P27_BATCH, dtype,
+                                             P27_REPS, False, flush, gen)
+    for dtype in ("bfloat16", "float32"):
+        for name in P27_SHAPES:
+            rows = {r["form"]: r for r in out["rows"]
+                    if r["shape"] == name and r["dtype"] == dtype}
+            log(f"  (a) {name} {dtype} batch {P27_BATCH}: "
+                + ", ".join(f"{f} {r['ms']:.4f} ms ({r['tflops']:.1f} "
+                            "TFLOP/s)" for f, r in rows.items()))
+    log(f"  (a) tuned backward held to cuDNN's: "
+        f"{len(out['held'])} gradients, largest error share "
+        f"{max(h['max_abs_err'] / h['bound'] for h in out['held']):.3g} "
+        "of its bound")
+    return out
+
+
+def p27_steps(torch, np, nn_ops, fu, sym, shapes, args, aux, host, launches,
+              state, policy):
+    """One bound trainer's first step (its parameters and moving
+    statistics kept in ``state[policy]``) and ``P27_TIMED`` more, under
+    whatever policy is set; returns the step times."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    tr = ShardedTrainer(sym, optimizer="sgd",
+                        optimizer_params=dict(TRAIN_OPT), guard=True,
+                        clip_global_norm=CLIP, device=DEVICE)
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]},
+            arg_params=args, aux_params=aux)
+    batch = tr.place_batch(host)
+    torch.cuda.synchronize()
+    reset_train_counts(nn_ops.softmax_rows, fu.fused_update)
+    ms = []
+    for i in range(1 + P27_TIMED):
+        t0 = time.perf_counter()
+        tr.step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            arg_now, aux_now = tr.get_params()
+            state[policy] = ({n: v.asnumpy() for n, v in arg_now.items()},
+                             {n: v.asnumpy() for n, v in aux_now.items()})
+    steps = 1 + P27_TIMED
+    k1, k2 = nn_ops.softmax_rows.launches, fu.fused_update.launches
+    check(k1 == steps and k2 == steps
+          and fu.fused_update.launches_by_form["hopper"] == steps,
+          f"(b) {policy}: K1 {k1}, K2 {k2} "
+          f"({fu.fused_update.launches_by_form}) in {steps} steps")
+    launches["softmax_rows"] += k1
+    launches["fused_update"] += k2
+    return {"first_step_ms": ms[0], "step_ms": ms[1:],
+            "median_step_ms": float(np.median(ms[1:]))}
+
+
+def p27_resnet(torch, np, nn_ops, fu, cb, launches):
+    """(b) one ResNet-50 step under ``MXNET_TPU_CONV_BWD=tuned`` and one
+    under the default, from the same weights and batch; then
+    ``P27_TIMED`` steps of each."""
+    from mxnet_tpu_torch import models
+
+    sym = models.get_symbol("resnet", num_classes=CLASSES, depth=DEPTH)
+    shapes = dict(data=(BATCH,) + IMAGE, softmax_label=(BATCH,))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, aux = init_numpy(np, sym, arg_shapes, aux_shapes, seed=27)
+    rng = np.random.RandomState(27)
+    host = {"data": rng.rand(*shapes["data"]).astype(np.float32),
+            "softmax_label": rng.randint(0, CLASSES, BATCH)
+            .astype(np.float32)}
+    with p27_policy("tuned"):
+        per_step = p27_tuned_kinds(cb, sym)
+    calls = []
+    real = cb._conv2d_bwd
+
+    def counting(*a):
+        calls.append(a[4])
+        return real(*a)
+
+    out, state = {}, {}
+    cb._conv2d_bwd = counting
+    try:
+        for policy in ("default", "tuned"):
+            with p27_policy(None if policy == "default" else policy):
+                out[policy] = p27_steps(torch, np, nn_ops, fu, sym, shapes,
+                                        args, aux, host, launches, state,
+                                        policy)
+            want = per_step * (1 + P27_TIMED) if policy == "tuned" else []
+            check(sorted(calls) == sorted(want),
+                  f"(b) {policy}: the tuned backward ran {len(calls)} times "
+                  f"({sorted(set(calls))}), expected {len(want)}")
+            out[policy]["tuned_backwards_a_step"] = \
+                len(calls) // (1 + P27_TIMED)
+            del calls[:]
+    finally:
+        cb._conv2d_bwd = real
+    worst = {}
+    for i, what in enumerate(("parameters", "moving statistics")):
+        a, b = state["default"][i], state["tuned"][i]
+        for n in a:
+            d = float(np.abs(a[n] - b[n]).max())
+            worst[n] = d
+            check(np.allclose(b[n], a[n], rtol=P27_STEP_TOL[0],
+                              atol=P27_STEP_TOL[1]),
+                  f"(b) {what} {n} after one step: tuned differs from the "
+                  f"default by {d}")
+    out["max_abs_diff"] = max(worst.values())
+    out["bitwise"] = sum(1 for d in worst.values() if d == 0)
+    out["arrays"] = len(worst)
+    out["kinds_a_step"] = {"/".join(k): per_step.count(k)
+                           for k in sorted(set(per_step))}
+    log(f"  (b) ResNet-{DEPTH} step, batch {BATCH}: default "
+        f"{out['default']['median_step_ms']:.2f} ms (first "
+        f"{out['default']['first_step_ms']:.2f}), tuned "
+        f"{out['tuned']['median_step_ms']:.2f} ms (first "
+        f"{out['tuned']['first_step_ms']:.2f}); {len(per_step)} tuned "
+        f"backwards a step {out['kinds_a_step']}; after one step "
+        f"{out['bitwise']} of {out['arrays']} arrays bitwise, max abs diff "
+        f"{out['max_abs_diff']:.3g}")
+    return out
+
+
+def p27_c_predict(torch, np, _build):
+    """(c) phase 19 (b)'s ResNet-50 artifact served by the port's C
+    driver on the card, against the Predictor's output."""
+    check(P19_EXPORT, "(c) phase 19 (b) exported no artifact")
+    t0 = time.perf_counter()
+    info = _build.build_c_predict()
+    out = {"build_s": time.perf_counter() - t0, "cached": info["cached"]}
+    ref = P19_EXPORT["ref"]
+    got_path = os.path.join(os.path.dirname(P19_EXPORT["artifact"]),
+                            "c_out.bin")
+    base = {k: v for k, v in os.environ.items()
+            if k != "MXNET_TPU_PREDICT_DEVICE"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [str(info["driver"]), P19_EXPORT["artifact"], P19_EXPORT["x"],
+         got_path, str(P27_C_REPS)], capture_output=True, text=True,
+        timeout=300, env=_build.c_predict_env(base=base))
+    out["process_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"(c) the C driver exited {proc.returncode}: {proc.stdout} "
+          f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    check(lines[-1] == "served 1 outputs ok", f"(c) {proc.stdout}")
+    ms = [float(v) for v in next(line for line in lines
+                                 if line.startswith("forward_ms")).split()[1:]]
+    got = np.fromfile(got_path, np.float32).reshape(ref.shape)
+    err = float(np.abs(got - ref).max())
+    check(np.allclose(got, ref, rtol=EXPORT_TOL[0], atol=EXPORT_TOL[1]),
+          f"(c) the C-served outputs differ from the Predictor's by {err}")
+    out.update(forward_ms=ms, median_forward_ms=float(np.median(ms[1:])),
+               python_median_ms=P19_EXPORT["python_ms"], max_abs_err=err)
+    log(f"  (c) C predict API (built in {out['build_s']:.2f} s): the pure-C "
+        f"driver served phase 19's ResNet-{DEPTH} artifact on the card "
+        f"(default device), forward median {out['median_forward_ms']:.3f} "
+        f"ms (host clock around MXTPUPredForward, the output copied back) "
+        f"against phase 19's Python-served {out['python_median_ms']:.3f} ms "
+        f"(CUDA events around the module); max abs diff {err:.3g} from the "
+        f"Predictor (limit {EXPORT_TOL}); the process took "
+        f"{out['process_s']:.1f} s")
+    return out
+
+
+def p27_tools(torch, np, tmp):
+    """(d) ``tools/torch_im2rec.py`` packs an image folder that the port's
+    ``ImageRecordIter`` reads back; ``tools/torch_ckpt_inspect.py`` shows,
+    verifies and diffs a checkpoint written from CUDA tensors."""
+    import io as pyio
+
+    import cv2
+
+    from mxnet_tpu_torch import image_io, recordio
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    root = os.path.join(tmp, "imgs")
+    rng = np.random.RandomState(27)
+    for label, cls in enumerate(("a", "b")):
+        os.makedirs(os.path.join(root, cls))
+        for i in range(P27_IMAGES):
+            h, w = (48, 40) if i % 2 else (40, 48)
+            cv2.imwrite(os.path.join(root, cls, f"{i:02d}.png"),
+                        rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+    prefix = os.path.join(tmp, "packed")
+    tool = os.path.join(here, "tools", "torch_im2rec.py")
+    t0 = time.perf_counter()
+    for argv in (["--make-list"],
+                 ["--lst", prefix + ".lst", "--encoding", ".png",
+                  "--resize", str(P27_SIDE), "--center-crop",
+                  "--num-thread", "2"]):
+        proc = subprocess.run([sys.executable, tool, prefix, root, *argv],
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0,
+              f"(d) torch_im2rec {argv[0]} exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+    out["im2rec_s"] = time.perf_counter() - t0
+    n = 2 * P27_IMAGES
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "r")
+    pixels, labels = 0, []
+    for i in range(n):
+        header, img = recordio.unpack_img(rec.read_idx(i))
+        check(img.shape == (P27_SIDE, P27_SIDE, 3),
+              f"(d) record {i} holds {img.shape}")
+        pixels += int(img.astype(np.int64).sum())
+        labels.append(header.label)
+    rec.close()
+    it = image_io.ImageRecordIter(prefix + ".rec", (3, P27_SIDE, P27_SIDE),
+                                  8, path_imgidx=prefix + ".idx")
+    seen, total, got_labels = 0, 0.0, []
+    for b in it:
+        k = b.data[0].shape[0] - b.pad
+        seen += k
+        total += float(b.data[0].asnumpy()[:k].astype(np.float64).sum())
+        got_labels += b.label[0].asnumpy()[:k].tolist()
+    check(seen == n and got_labels == labels
+          and labels == [0.0] * P27_IMAGES + [1.0] * P27_IMAGES
+          and total == pixels,
+          f"(d) ImageRecordIter read {seen} of {n} images, labels "
+          f"{got_labels}, pixel sum {total} against the records' {pixels}")
+    out["records"] = n
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_ckpt_inspect", os.path.join(here, "tools",
+                                           "torch_ckpt_inspect.py"))
+    inspect = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(inspect)
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    arrays = {"fc_weight": torch.randn(1000, 2048, generator=gen,
+                                       device=DEVICE),
+              "fc_bias": torch.zeros(1000, device=DEVICE),
+              "bn_moving_var": torch.rand(64, generator=gen, device=DEVICE),
+              "num_update": torch.arange(4, dtype=torch.int32,
+                                         device=DEVICE)}
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+    first = mgr.save(1, arrays, meta={"num_update": 1}, blocking=True)
+    arrays["fc_bias"] += 1
+    second = mgr.save(2, arrays, meta={"num_update": 2}, blocking=True)
+    mgr.close()
+
+    def run(*argv):
+        buf = pyio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = inspect.main(list(argv))
+        return rc, buf.getvalue()
+
+    rc, text = run("show", first, "--verify")
+    check(rc == 0 and text.count("[OK]") == len(arrays),
+          f"(d) torch_ckpt_inspect show --verify exited {rc}: {text}")
+    rc, text = run("diff", first, second)
+    check(rc == 1 and [line.split()[1] for line in text.splitlines()
+                       if line.startswith("~")] == ["fc_bias"],
+          f"(d) torch_ckpt_inspect diff exited {rc}: {text}")
+    rc, text = run("diff", first, first)
+    check(rc == 0 and "identical" in text,
+          f"(d) torch_ckpt_inspect diff of one checkpoint exited {rc}: "
+          f"{text}")
+    log(f"  (d) torch_im2rec packed {n} PNGs at {P27_SIDE}x{P27_SIDE} (list, "
+        f"then 2 workers) in {out['im2rec_s']:.1f} s, read back by "
+        "ImageRecordIter: labels and pixel sums equal the records'; "
+        f"torch_ckpt_inspect on a checkpoint of {len(arrays)} CUDA "
+        "tensors: show --verify all OK (exit 0), diff names fc_bias (exit "
+        "1), diff of one step with itself identical (exit 0)")
+    return out
+
+
+def phase_conv_tools(torch, np, nn_ops, fu, _build):
+    """Phase 27: (a) the tuned conv backward against cuDNN's and the
+    probe's times, (b) ResNet-50 steps under tuned and the default, (c)
+    the C predict API serving phase 19's artifact, (d) the im2rec and
+    ckpt_inspect twins.  Returns the launches it adds and its numbers."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops import conv_backward as cb
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_conv_probe", os.path.join(here, "tools",
+                                         "torch_conv_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    launches = {"softmax_rows": 0, "fused_update": 0}
+    stats = {"card": card_line()}
+    builds = _build.build_count()
+    # (a) times cuDNN as the probe does (its default algorithms); (b)
+    # compares two trainers, so cuDNN is deterministic there
+    t0 = time.perf_counter()
+    stats["(a)"] = p27_conv(torch, np, probe)
+    stats["(a)"]["seconds"] = time.perf_counter() - t0
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    try:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        t0 = time.perf_counter()
+        stats["(b)"] = p27_resnet(torch, np, nn_ops, fu, cb, launches)
+        stats["(b)"]["seconds"] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    t0 = time.perf_counter()
+    stats["(c)"] = p27_c_predict(torch, np, _build)
+    stats["(c)"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        stats["(d)"] = p27_tools(torch, np, tmp)
+    stats["(d)"]["seconds"] = time.perf_counter() - t0
+    check(_build.build_count() == builds,
+          f"phase 27 built or first loaded {_build.build_count() - builds} "
+          "kernel libraries after warmup")
+    stats["launches"] = launches
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"  launches added by phase 27: {launches}; no kernel built")
+    # (a)'s rows and held gradients are on the lines above
+    log("  conv backward, C predict API, tools: " + json.dumps(
+        dict(stats, **{"(a)": {"seconds": stats["(a)"]["seconds"]}})))
+    return launches, stats
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -11344,14 +11796,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/26] device")
+    log("[1/27] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/26] build")
+    log("[2/27] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -11366,7 +11818,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/26] kernels against their plain versions")
+    log("[3/27] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -11375,22 +11827,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/26] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/27] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/26] serving the round-12 configuration: chunked prefill "
+    log(f"[5/27] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/26] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/27] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/26] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/27] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/26] kernel timing")
+    log("[8/27] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -11407,25 +11859,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/26] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/27] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/26] imperative + executor: NDArray on the card, the MLP "
+    log("[10/27] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/26] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/27] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/26] the serving control plane: crash failover, a hung and a "
+    log("[12/27] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -11433,7 +11885,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/26] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/27] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -11442,7 +11894,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/26] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/27] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -11450,7 +11902,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/26] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/27] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -11458,7 +11910,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/26] programs and the profiler: serve and train steps "
+    log("[17/27] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -11466,7 +11918,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/26] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/27] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -11475,7 +11927,7 @@ def main(argv) -> int:
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[19/26] input records, the deployment predictor and the last ops: "
+    log(f"[19/27] input records, the deployment predictor and the last ops: "
         f"{REC_IMAGES} packed images through ImageRecordIter into "
         f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
         f"served without the port, WarpCTC at the OCR example's sizes, the "
@@ -11484,7 +11936,7 @@ def main(argv) -> int:
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[20/26] tensor and model parallelism: the LM with its embedding "
+    log(f"[20/27] tensor and model parallelism: the LM with its embedding "
         f"on the host through group2ctx, the split rewrite of "
         f"megatron_rules() at a model axis of 1, two cards where there "
         f"are two")
@@ -11493,7 +11945,7 @@ def main(argv) -> int:
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[21/26] mixture of experts and ring attention: MoEFFN (8 experts "
+    log(f"[21/27] mixture of experts and ring attention: MoEFFN (8 experts "
         f"of {P21_MOE['hidden_size']}, top-2 then top-1, aux head) over "
         f"{P21_TOKENS[0] * P21_TOKENS[1]} tokens at d {D_MODEL} on the card "
         f"against the host, ring_self_attention over a one-card seq mesh at "
@@ -11502,7 +11954,7 @@ def main(argv) -> int:
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[22/26] pipelines: the LM through PipelineTrainer over "
+    log(f"[22/27] pipelines: the LM through PipelineTrainer over "
         f"{P22_STAGES} stages on the card (1F1B, remat) against "
         f"ShardedTrainer, the dryrun's MLP through PipelineTrainer, "
         f"SpmdPipelineTrainer and pipeline_apply, two cards where there "
@@ -11511,7 +11963,7 @@ def main(argv) -> int:
     log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[23/26] the multi-process tier: launch_local with 1 scheduler, "
+    log(f"[23/27] the multi-process tier: launch_local with 1 scheduler, "
         f"{P23_SERVERS} servers and {P23_WORKERS} workers on the card "
         f"(dist_sync exact aggregation and ResNet-{DEPTH} through "
         f"FeedForward.fit, then dist_async), the LM through ShardedTrainer "
@@ -11521,7 +11973,7 @@ def main(argv) -> int:
     log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[24/26] the multi-process tier, part two: the watchdog on the card "
+    log("[24/27] the multi-process tier, part two: the watchdog on the card "
         "(a hung, a dead and a dead monitor rank of three over gloo), "
         "ElasticTrainer under membership chaos through "
         "tools/torch_launch.py, SIGTERM inside a step, a live resize where "
@@ -11530,7 +11982,7 @@ def main(argv) -> int:
     log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[25/26] the analysis tooling on the card: the LM's captured step "
+    log(f"[25/27] the analysis tooling on the card: the LM's captured step "
         f"({P25_LAYERS} layers) with async CUDA checkpoints and the "
         f"prefetcher under the concurrency sanitizer, the schedule fuzzer's "
         f"six scenarios ({P25_SEEDS} seeds each, routers replaying K5), the "
@@ -11539,7 +11991,7 @@ def main(argv) -> int:
     log(f"  phase 25 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[26/26] the program auditor on the card: the LM ({LAYERS}L "
+    log(f"[26/27] the program auditor on the card: the LM ({LAYERS}L "
         f"d{D_MODEL}, batch {LM_BATCH} x {LM_SEQ}) and ResNet-{DEPTH} "
         f"(batch {BATCH}) captured under audit_on_compile and audited by "
         f"audit_trainer, the engine's decode programs over fp8 and plain "
@@ -11547,8 +11999,17 @@ def main(argv) -> int:
     p26_launches, _ = phase_program_audit(torch, np, mx, nn_ops, fa, fu, fd)
     log(f"  phase 26 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 26
-    log("[15/26] result")
+    t0 = time.perf_counter()
+    log(f"[27/27] the tuned conv backward, the C predict API and the last "
+        f"tools: _conv2d_bwd under tuned against cuDNN's at batch "
+        f"{P27_BATCH} (bf16, f32) with torch_conv_probe's times, "
+        f"ResNet-{DEPTH} steps under tuned and the default, phase 19's "
+        f"artifact served from C, torch_im2rec and torch_ckpt_inspect")
+    p27_launches, _ = phase_conv_tools(torch, np, nn_ops, fu, _build)
+    log(f"  phase 27 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 27
+    log("[15/27] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -11576,7 +12037,8 @@ def main(argv) -> int:
          + zoo_launches["softmax_rows"] + p17_launches["softmax_rows"]
          + p18_launches["softmax_rows"] + p19_launches["softmax_rows"]
          + p22_launches["softmax_rows"] + p23_launches["softmax_rows"]
-         + p24_launches["softmax_rows"] + p26_launches["softmax_rows"],
+         + p24_launches["softmax_rows"] + p26_launches["softmax_rows"]
+         + p27_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
@@ -11584,7 +12046,8 @@ def main(argv) -> int:
         # 19), the four ImageNet nets (phase 14), the OCR net (19), the
         # MoE trainers (21), the LM's ranks and its one-process run
         # (23), and the watchdog's training ranks and the SIGTERM run
-        # (24; ZeRO's update is unfused, as in the JAX trainer)
+        # (24; ZeRO's update is unfused, as in the JAX trainer), and the
+        # ResNet-50 steps under both conv backward policies (27)
         ("fused_update", "mxnet_tpu_torch/csrc/fused_update.cu",
          "mxnet_tpu/ops/fused_update.py:216",
          train_launches["fused_update"] + lm_launches["fused_update"]
@@ -11593,7 +12056,7 @@ def main(argv) -> int:
          + p18_launches["fused_update"] + p19_launches["fused_update"]
          + p21_launches["fused_update"] + p23_launches["fused_update"]
          + p24_launches["fused_update"] + p25_launches["fused_update"]
-         + p26_launches["fused_update"],
+         + p26_launches["fused_update"] + p27_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",

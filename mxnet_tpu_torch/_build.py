@@ -13,6 +13,12 @@ waits for them; :func:`load` builds what is missing and returns the
 ``ctypes.CDLL``.  :func:`build_sources` builds sources given as text (the
 runtime kernels of :mod:`mxnet_tpu_torch.rtc`) into ``rtc/`` there,
 with the same nvcc flags.
+
+One host build sits beside them: :func:`build_c_predict` compiles the C
+predict API (``csrc/c_predict_api.cc``, which embeds this interpreter,
+and its pure-C driver ``csrc/predict_driver.c``) with ``g++``/``gcc``
+into ``c_predict/<hash>/`` there; :func:`sources` stays the ``.cu``
+files that nvcc builds.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
 from pathlib import Path
@@ -30,7 +38,8 @@ from .base import MXNetError
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
            "build_source", "build_sources", "load", "build_dir",
-           "set_build_dir", "build_count"]
+           "set_build_dir", "build_count", "build_c_predict",
+           "c_predict_env"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
@@ -201,3 +210,107 @@ def _count_build() -> None:
     global _builds
     with _count_lock:
         _builds += 1
+
+
+# ---------------------------------------------------------------------------
+# the C predict API (a host build: g++ against this interpreter)
+# ---------------------------------------------------------------------------
+
+C_PREDICT_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
+_C_PREDICT_FILES = ("c_predict_api.cc", "c_predict_api.h",
+                    "c_predict_serve.py", "predict_driver.c")
+
+
+def _python_embed_flags():
+    """``(compile, link)`` flags that embed this interpreter, from its own
+    ``sysconfig`` (as ``native/Makefile`` derives them), so the linked
+    libpython matches the site-packages the library serves from."""
+    include = sysconfig.get_paths()["include"]
+    version = sysconfig.get_config_var("LDVERSION")
+    if sysconfig.get_config_var("Py_ENABLE_SHARED"):
+        libdir = sysconfig.get_config_var("LIBDIR")
+        link = [f"-L{libdir}", f"-lpython{version}", f"-Wl,-rpath,{libdir}"]
+    else:
+        # an interpreter built without a shared libpython ships only the
+        # static archive (LIBPL); the library links that one instead
+        link = [f"-L{sysconfig.get_config_var('LIBPL')}",
+                f"-lpython{version}"]
+    return [f"-I{include}"], link + ["-ldl", "-lm"]
+
+
+def build_c_predict() -> dict:
+    """Build the C predict API and its driver, unless built already.
+
+    ``csrc/c_predict_serve.py`` becomes one raw string literal
+    (``c_predict_serve.inc``) that ``csrc/c_predict_api.cc`` includes;
+    ``g++`` builds ``libc_predict_api.so``, ``gcc`` the pure-C
+    ``predict_driver`` against it (rpath set), into
+    ``<build_dir()>/c_predict/<hash>/``.  The hash covers the four source
+    files, this Python's version and the flags.  Returns ``{"dir", "lib",
+    "driver", "include", "seconds", "cached"}``; ``include`` is the
+    directory of ``c_predict_api.h``, and ``-L<dir> -lc_predict_api``
+    links another C program against the library.  Raises
+    :class:`MXNetError` with the compiler's output if a build fails."""
+    cflags, link = _python_embed_flags()
+    h = hashlib.sha256()
+    for name in _C_PREDICT_FILES:
+        h.update((CSRC_DIR / name).read_bytes())
+    h.update(" ".join([sys.version, *C_PREDICT_FLAGS, *cflags,
+                       *link]).encode())
+    out = build_dir() / "c_predict" / h.hexdigest()[:16]
+    info = {"dir": out, "lib": out / "libc_predict_api.so",
+            "driver": out / "predict_driver", "include": CSRC_DIR,
+            "seconds": 0.0, "cached": True}
+    if info["driver"].exists():
+        return info
+    t0 = time.perf_counter()
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    serve = (CSRC_DIR / "c_predict_serve.py").read_text()
+    if ')PY"' in serve:
+        raise MXNetError("c_predict_serve.py holds the raw string's "
+                         "delimiter )PY\"")
+    (tmp / "c_predict_serve.inc").write_text(f'R"PY({serve})PY"\n')
+    steps = [
+        ["g++", *C_PREDICT_FLAGS, *cflags, f"-I{tmp}", "-o",
+         str(tmp / "libc_predict_api.so"),
+         str(CSRC_DIR / "c_predict_api.cc"), *link],
+        ["gcc", "-O2", "-Wall", f"-I{CSRC_DIR}", "-o",
+         str(tmp / "predict_driver"), str(CSRC_DIR / "predict_driver.c"),
+         f"-L{tmp}", "-lc_predict_api", f"-Wl,-rpath,{out}"],
+    ]
+    try:
+        for cmd in steps:
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise MXNetError(
+                    f"C predict API build failed ({cmd[0]} exited "
+                    f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
+        try:
+            os.replace(tmp, out)
+        except OSError:
+            if not info["driver"].exists():   # not another process's build
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    info.update(seconds=time.perf_counter() - t0, cached=False)
+    return info
+
+
+def c_predict_env(device=None, base=None) -> Dict[str, str]:
+    """The environment of a C process that serves through the library:
+    ``base`` (default ``os.environ``) with ``PYTHONPATH`` naming this
+    interpreter's site-packages (where torch is) and ``PYTHONHOME`` unset
+    (a virtualenv has no standard library of its own; the embedded
+    interpreter finds libpython's), and ``MXNET_TPU_PREDICT_DEVICE`` set
+    to ``device`` when one is given."""
+    env = dict(os.environ if base is None else base)
+    paths = sysconfig.get_paths()
+    env["PYTHONPATH"] = os.pathsep.join(
+        dict.fromkeys([paths["purelib"], paths["platlib"]]))
+    env.pop("PYTHONHOME", None)
+    if device is not None:
+        env["MXNET_TPU_PREDICT_DEVICE"] = str(device)
+    return env

@@ -13,7 +13,8 @@ model-parallel graph (identity in a graph, as in the JAX package; the
 executor moves the values with :func:`cross_device_copy`).
 
 Layouts stay NCHW/OIHW as in the JAX package.  Convolutions go to cuDNN
-through ``F.conv2d`` and matrix products to cuBLAS through ``matmul``, as
+through ``F.conv2d`` (``conv_backward.conv2d``, whose backward
+``MXNET_TPU_CONV_BWD=tuned`` restructures per shape) and matrix products to cuBLAS through ``matmul``, as
 the JAX package leaves them to XLA; ``FullyConnected(quant="fp8")`` takes
 the block-scaled fp8 product of ``quant.fp8_linear`` (cuBLAS's fp8 GEMM).  Where torch's own ops would
 compute something else than the reference, the reference's expression is
@@ -64,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import _build
 from ..analysis import program as _program
 from ..base import MXNetError
+from .conv_backward import conv2d
 from .registry import OpDef, OpParam, elemwise_shape, register_op
 
 __all__ = ["softmax_rows", "softmax_rows_ref", "softmax_rows_form",
@@ -170,10 +172,10 @@ register_op(OpDef(
 def _conv_fwd(ctx, params, data, weight, bias=None):
     if data.dtype != weight.dtype:
         data = data.to(weight.dtype)
-    out = F.conv2d(data, weight, stride=_pair(params["stride"]),
-                   padding=_pair(params["pad"]),
-                   dilation=_pair(params["dilate"]),
-                   groups=params["num_group"])
+    # conv2d carries the per-shape tuned backward paths (conv_backward.py)
+    out = conv2d(data, weight, stride=_pair(params["stride"]),
+                 pad=_pair(params["pad"]), dilate=_pair(params["dilate"]),
+                 groups=params["num_group"])
     if bias is not None:
         out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
     return out

@@ -28,8 +28,10 @@ its findings, program, concurrency, schedules and source modules,
 visualization, also as ``viz``) and ``chip_smoke``; a source scan checks
 every file of the port, the script, ``tools/torch_launch.py``,
 ``tools/torch_staticcheck.py`` and its corpus (the program corpus
-``bad_programs.py`` included) and ``tools/torch_compile_cache_inspect.py``
-for such imports.  ``chip_smoke.py --dist-worker`` (phase 23's child
+``bad_programs.py`` included), ``tools/torch_compile_cache_inspect.py``,
+``tools/torch_conv_probe.py``, ``tools/torch_im2rec.py``,
+``tools/torch_ckpt_inspect.py`` and the serving code that the C predict
+API embeds (``csrc/c_predict_serve.py``) for such imports.  ``chip_smoke.py --dist-worker`` (phase 23's child
 program) runs a ``dist_async`` cluster on the CPU with ``jax``,
 ``jaxlib`` and ``mxnet_tpu`` unimportable in every child, and
 ``tools/torch_launch.py`` parses its arguments, and
@@ -68,6 +70,7 @@ import mxnet_tpu_torch.symbol
 import mxnet_tpu_torch.models.resnet
 import mxnet_tpu_torch.ops.fused_update
 import mxnet_tpu_torch.ops.nn_ops
+import mxnet_tpu_torch.ops.conv_backward
 import mxnet_tpu_torch.parallel.trainer
 import mxnet_tpu_torch.parallel.flash_attention
 import mxnet_tpu_torch.parallel.ring_attention
@@ -190,11 +193,16 @@ def test_no_jax_or_reference_package_in_port_sources():
     files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_launch.py",
               ROOT / "tools" / "torch_staticcheck.py",
-              ROOT / "tools" / "torch_compile_cache_inspect.py"]
+              ROOT / "tools" / "torch_compile_cache_inspect.py",
+              ROOT / "tools" / "torch_conv_probe.py",
+              ROOT / "tools" / "torch_im2rec.py",
+              ROOT / "tools" / "torch_ckpt_inspect.py"]
     files += sorted((ROOT / "tools" / "torch_staticcheck_corpus")
                     .glob("*.py"))
     assert ROOT / "tools" / "torch_staticcheck_corpus" / "bad_programs.py" \
         in files
+    # the serving code the C predict API embeds
+    assert ROOT / "mxnet_tpu_torch" / "csrc" / "c_predict_serve.py" in files
     assert len(files) > 10
     offenders = [(f.relative_to(ROOT).as_posix(), m)
                  for f in files for m in _imported_modules(f.read_text())

@@ -309,7 +309,13 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     (after phase 18, before 15), under deterministic cuDNN; it first
     prints whether cv2 imports (without it the ``.jpg`` runs are left
     out and it says so): (a) packs 512 seeded 256x256 images with an
-    ``.idx`` as ``.raw`` and ``.jpg`` and at 224x224 as ``.raw``; times
+    ``.idx`` as ``.raw`` and ``.jpg`` and at 224x224 as ``.raw``,
+    through the native record engine (``csrc/recordio.cc``, built with
+    g++; a failed build fails the phase with the compiler's output),
+    writes the same records again and reads every file back through both
+    engines, in turns (the files byte for byte equal, the records
+    equal), and prints both engines' write and read seconds with the
+    card's name and power limit; times
     ``ImageRecordIter`` alone (shuffle, random crop, mirror, 8 decode
     threads) over each 256 form; runs phase 7's ResNet-50 trainer's
     ``fit`` over the 224 ``.raw`` records (8 batches through
@@ -399,6 +405,13 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     where two cards exist, the LM through ``PipelineTrainer`` over both,
     ``SpmdPipelineTrainer`` and ``pipeline_apply`` over ``{"pipe": 2}``,
     each against one card; with one card it prints that (c) did not run
+    and why; (d) where four cards exist, phase 9's LM trainer over
+    ``{"model": 2, "seq": 2}`` with ``megatron_rules()`` (the split plan,
+    each model coordinate's seq group running the ring over its 4 heads)
+    for 3 steps from the same weights and batches as one card: the first
+    heads within 5e-2 and the first update within 2.5 lr, as phase 20
+    (c) holds two cards, K3 and K4 launched; prints each step's heads'
+    distance and ms; with fewer cards it prints that (d) did not run
     and why; no kernel is built;
 23. runs the multi-process tier (after phase 22, before 15), each child
     a fresh interpreter (``python3 chip_smoke.py --dist-worker JOB
@@ -7244,6 +7257,88 @@ def p19_pack(np, recordio, root, imgs, labels, forms):
     return out
 
 
+def p19_engines(recordio, root, packed):
+    """(a)'s record engines on the records packed above (through the
+    native engine): each engine writes every file's records again (the
+    files must be byte for byte equal to the packed ones) and reads every
+    file back (the same records), in turns, twice; returns the faster
+    turn's seconds of each (a record of the engines' cost, not a claim:
+    the phase's time is decoding)."""
+    saved = recordio._native
+    out = {"write_s": {}, "read_s": {}, "records": 0,
+           "bytes": sum(v[3] for v in packed.values())}
+    records = {}
+    for name, (rec, _, _, _) in packed.items():
+        r = recordio.MXRecordIO(rec, "r")
+        records[name] = []
+        while True:
+            item = r.read()
+            if item is None:
+                break
+            records[name].append(item)
+        r.close()
+    out["records"] = sum(len(v) for v in records.values())
+    for _ in range(2):
+        for engine in ("native", "python"):
+            try:
+                if engine == "python":
+                    recordio._native = False
+                t0 = time.perf_counter()
+                for name, items in records.items():
+                    w = recordio.MXRecordIO(
+                        os.path.join(root, f"{name}.{engine}.rec"), "w")
+                    check(w.engine == engine, f"(a) {w.engine} engine "
+                          f"opened a file ({engine} asked)")
+                    for item in items:
+                        w.write(item)
+                    w.close()
+                wrote = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                for name, (rec, _, _, _) in packed.items():
+                    r = recordio.MXRecordIO(rec, "r")
+                    got = []
+                    while True:
+                        item = r.read()
+                        if item is None:
+                            break
+                        got.append(item)
+                    r.close()
+                    check(got == records[name], f"(a) the {engine} engine "
+                          f"read other records from {name}")
+                read = time.perf_counter() - t0
+            finally:
+                recordio._native = saved
+            out["write_s"][engine] = min(out["write_s"].get(engine, wrote),
+                                         wrote)
+            out["read_s"][engine] = min(out["read_s"].get(engine, read),
+                                        read)
+            for name, (rec, _, _, _) in packed.items():
+                again = os.path.join(root, f"{name}.{engine}.rec")
+                with open(rec, "rb") as a, open(again, "rb") as b:
+                    check(a.read() == b.read(), f"(a) the {engine} engine "
+                          f"wrote {name} otherwise than the packing")
+                os.unlink(again)
+    return out
+
+
+def p19_native_engine(recordio, _build, root):
+    """The native record engine, or the phase fails with the compiler's
+    output; with the seconds of one more g++ build of its source and
+    flags (the engine itself was built at its first use, maybe earlier
+    in the run)."""
+    if recordio.engine() != "native":
+        info = _build.build_recordio()    # raises with g++'s output
+        check(False, f"the native record engine built ({info['lib']}) "
+              "but did not load")
+    info = _build.build_recordio()
+    t0 = time.perf_counter()
+    subprocess.run(["g++", *_build.RECORDIO_FLAGS, "-o",
+                    os.path.join(root, "librecordio.so"),
+                    str(_build.CSRC_DIR / "recordio.cc")],
+                   check=True, capture_output=True, timeout=300)
+    return dict(info, gxx_s=time.perf_counter() - t0)
+
+
 def p19_iter_rate(image_io, rec, idx):
     """Images/s of ``ImageRecordIter`` alone over one epoch: shuffle, a
     random 224 crop, mirror, ``REC_THREADS`` decode threads."""
@@ -7321,14 +7416,31 @@ def p19_records(torch, np, nn_ops, fu, tmp, cv2_ok, launches):
     from mxnet_tpu_torch.parallel import ShardedTrainer
     from mxnet_tpu_torch.parallel.trainer import _AsyncMetric
 
+    from mxnet_tpu_torch import _build
     out = {"cv2": cv2_ok}
     imgs, labels = p19_images(np)
     forms = {"raw": (".raw", 0), "raw224": (".raw", 16)}
     if cv2_ok:
         forms["jpg"] = (".jpg", 0)
+    built = p19_native_engine(recordio, _build, tmp)
     packed = p19_pack(np, recordio, tmp, imgs, labels, forms)
     out["packed"] = {k: {"seconds": v[2], "bytes": v[3]}
                      for k, v in packed.items()}
+    out["engines"] = p19_engines(recordio, tmp, packed)
+    out["engines"].update(engine=recordio.engine(), library=str(
+        built["lib"]), build_s=built["seconds"], cached=built["cached"],
+        gxx_s=built["gxx_s"])
+    eng = out["engines"]
+    log(f"  (a) record engines on {card_line()}: packed through the "
+        f"{eng['engine']} engine ({eng['library']}, "
+        + ("built at its first use before this phase"
+           if eng["cached"] else f"built in {eng['build_s']:.2f} s")
+        + f"; g++ on its source {eng['gxx_s']:.2f} s); "
+        f"{eng['records']} records, {eng['bytes']} bytes (page cache "
+        f"warm): write native {eng['write_s']['native']:.4f} s / python "
+        f"{eng['write_s']['python']:.4f} s, read native "
+        f"{eng['read_s']['native']:.4f} s / python "
+        f"{eng['read_s']['python']:.4f} s")
     out["iterator_images_per_s"] = {
         k: p19_iter_rate(image_io, *packed[k][:2])
         for k in ("raw", "jpg") if k in packed}
@@ -8765,6 +8877,14 @@ P22_MLP_WIDTHS = (24, 16, 12, 10)
 P22_MLP_BATCH, P22_MLP_IN, P22_MLP_MICRO = 8, 12, 4
 P22_MLP_OPT = {"learning_rate": 0.1}
 P22_MLP_TOL = 2e-5
+# (d) phase 9's LM over {"model": 2, "seq": 2} (four cards) against one
+# card: bf16 products cut over two cards and the ring's shards sum in
+# another order, so the first step is held as phase 20 (c) holds two
+# cards (heads within P20_TP_HEAD_TOL, the first Adam update within
+# P20_TP_STEP1_LIMIT); the later steps are timed and their heads'
+# distance recorded (Adam turns a flipped near-zero gradient into a 2 lr
+# step, which the next heads carry)
+P22_COMBINED_STEPS = 3
 
 
 def p22_reset(fa, nn_ops, fu):
@@ -9159,12 +9279,75 @@ def p22_two_cards(torch, np, mx, fa, nn_ops, fu, launches):
     return out
 
 
+def p22_combined_mesh(torch, np, mx, fa, launches):
+    """(d) where four cards exist: phase 9's LM trainer over ``{"model":
+    2, "seq": 2}`` with ``megatron_rules`` (each model coordinate's seq
+    group runs the ring over its local heads, K3/K4 on each visiting
+    block) for ``P22_COMBINED_STEPS`` steps against the same trainer on
+    one card, the first step held as phase 20 (c) holds two cards.  A
+    mesh's members are distinct contexts, so one card cannot hold it."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import make_mesh, megatron_rules
+    if DEVICE == "cuda" and torch.cuda.device_count() < 4:
+        log(f"  (d) not run: {torch.cuda.device_count()} CUDA device(s); "
+            "a {\"model\": 2, \"seq\": 2} mesh needs four distinct cards")
+        return {"run": False, "devices": torch.cuda.device_count()}
+    ctx = mx.gpu if DEVICE == "cuda" else mx.cpu
+    sym = models.get_symbol("transformer-lm", vocab_size=VOCAB,
+                            num_layers=LAYERS, d_model=D_MODEL, heads=HEADS,
+                            batch_size=LM_BATCH, seq_len=LM_SEQ,
+                            loss_head=True)
+    shapes = dict(data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH, LM_SEQ))
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args, _ = init_numpy(np, sym, arg_shapes, aux_shapes, seed=0)
+    batches = [lm_batch(np, seed=330 + i) for i in range(P22_COMBINED_STEPS)]
+
+    def run(tr):
+        heads, ms, _ = p22_steps(torch, tr, batches[:1])
+        first = p22_host(torch, tr)
+        more, ms_more, _ = p22_steps(torch, tr, batches[1:])
+        return heads + more, first, ms + ms_more
+
+    h1, p1, ms1 = run(p20_trainer(torch, np, sym, args,
+                                  make_mesh({"data": 1}, [ctx(0)])))
+    four = p20_trainer(torch, np, sym, args,
+                       make_mesh({"model": 2, "seq": 2},
+                                 [ctx(i) for i in range(4)]),
+                       rules=megatron_rules())
+    check(four._tp_plan.plan == "split", f"(d) plan {four._tp_plan.plan}: "
+          f"{four._tp_plan.reason}")
+    before = p20_kernel_counts(fa)
+    h4, p4, ms4 = run(four)
+    p20_sync(torch)
+    ran = {k: v - before[k] for k, v in p20_kernel_counts(fa).items()}
+    p20_add(launches, fa, before)
+    del four
+    check(all(v > 0 for v in ran.values()), f"(d) the ring's kernels did "
+          f"not launch: {ran}")
+    heads = [float((a - b).abs().max()) for a, b in zip(h1, h4)]
+    step1 = max(float(np.abs(p1[n] - p4[n]).max()) for n in p1)
+    check(heads[0] <= P20_TP_HEAD_TOL, f"(d) the LM over {{model: 2, seq: "
+          f"2}}: first heads {heads[0]} from one card's, over "
+          f"{P20_TP_HEAD_TOL}")
+    check(step1 <= P20_TP_STEP1_LIMIT, f"(d) the LM over {{model: 2, seq: "
+          f"2}}: first update {step1} from one card's, over "
+          f"{P20_TP_STEP1_LIMIT}")
+    check(all(bool(torch.isfinite(h).all()) for h in h4),
+          "(d) non-finite heads over four cards")
+    out = {"run": True, "heads_max_diff_by_step": heads,
+           "step1_max_param_diff": step1, "launches": ran,
+           "step_ms_four": ms4, "step_ms_one": ms1}
+    log(f"  (d) four cards: {json.dumps(out)}")
+    return out
+
+
 def phase_pipelines(torch, np, mx, fa, nn_ops, fu, _build):
     """Phase 22: (a) the LM through PipelineTrainer (4 stages on the
     card) against ShardedTrainer, (b) the dryrun's MLP through the three
-    pipelines, (c) pipelines over two cards where there are two; builds
-    no kernel.  Returns the K1/K3/K4 launches of its main runs and its
-    numbers."""
+    pipelines, (c) pipelines over two cards where there are two, (d) the
+    LM over a ``{"model": 2, "seq": 2}`` mesh where there are four cards;
+    builds no kernel.  Returns the K1/K3/K4 launches of its main runs and
+    its numbers."""
     t_phase = time.perf_counter()
     built, compile_ = [], _build._compile
 
@@ -9186,6 +9369,10 @@ def phase_pipelines(torch, np, mx, fa, nn_ops, fu, _build):
         out["two_cards"] = p22_two_cards(torch, np, mx, fa, nn_ops, fu,
                                          launches)
         out["two_cards"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["combined_mesh"] = p22_combined_mesh(torch, np, mx, fa,
+                                                 launches)
+        out["combined_mesh"]["seconds"] = time.perf_counter() - t0
     finally:
         _build._compile = compile_
     check(not built, f"phase 22 built kernels: {built}")
@@ -11958,7 +12145,7 @@ def main(argv) -> int:
         f"{P22_STAGES} stages on the card (1F1B, remat) against "
         f"ShardedTrainer, the dryrun's MLP through PipelineTrainer, "
         f"SpmdPipelineTrainer and pipeline_apply, two cards where there "
-        f"are two")
+        f"are two, the LM over {{model: 2, seq: 2}} where there are four")
     p22_launches, _ = phase_pipelines(torch, np, mx, fa, nn_ops, fu, _build)
     log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 

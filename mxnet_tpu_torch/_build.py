@@ -14,11 +14,12 @@ waits for them; :func:`load` builds what is missing and returns the
 runtime kernels of :mod:`mxnet_tpu_torch.rtc`) into ``rtc/`` there,
 with the same nvcc flags.
 
-One host build sits beside them: :func:`build_c_predict` compiles the C
+Two host builds sit beside them: :func:`build_c_predict` compiles the C
 predict API (``csrc/c_predict_api.cc``, which embeds this interpreter,
 and its pure-C driver ``csrc/predict_driver.c``) with ``g++``/``gcc``
-into ``c_predict/<hash>/`` there; :func:`sources` stays the ``.cu``
-files that nvcc builds.
+into ``c_predict/<hash>/`` there, and :func:`build_recordio` the record
+engine (``csrc/recordio.cc``) with ``g++`` into ``recordio/<hash>/``;
+:func:`sources` stays the ``.cu`` files that nvcc builds.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from .base import MXNetError
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
            "build_source", "build_sources", "load", "build_dir",
            "set_build_dir", "build_count", "build_c_predict",
-           "c_predict_env"]
+           "c_predict_env", "build_recordio"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
@@ -314,3 +315,56 @@ def c_predict_env(device=None, base=None) -> Dict[str, str]:
     if device is not None:
         env["MXNET_TPU_PREDICT_DEVICE"] = str(device)
     return env
+
+
+# ---------------------------------------------------------------------------
+# the record engine (a host build: g++, a plain C interface)
+# ---------------------------------------------------------------------------
+
+RECORDIO_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
+
+
+def build_recordio() -> dict:
+    """Build the record engine of :mod:`mxnet_tpu_torch.recordio` from
+    ``csrc/recordio.cc`` with ``g++``, unless built already, into
+    ``<build_dir()>/recordio/<hash>/librecordio.so``; the hash covers the
+    source and the flags.  The build goes to a directory of its own and
+    is renamed into place, so processes that start together (spawned
+    workers, a launcher's ranks) never load a half-written library: the
+    first rename wins and the others load it.  Returns ``{"dir", "lib",
+    "seconds", "cached"}``.  Raises :class:`MXNetError` with the
+    compiler's output if the build fails (or ``g++`` is missing)."""
+    src = CSRC_DIR / "recordio.cc"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(RECORDIO_FLAGS).encode())
+    out = build_dir() / "recordio" / h.hexdigest()[:16]
+    info = {"dir": out, "lib": out / "librecordio.so", "seconds": 0.0,
+            "cached": True}
+    if info["lib"].exists():
+        return info
+    t0 = time.perf_counter()
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    cmd = ["g++", *RECORDIO_FLAGS, "-o", str(tmp / "librecordio.so"),
+           str(src)]
+    try:
+        try:
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+        except OSError as err:
+            raise MXNetError(f"record engine build failed ({err}):\n"
+                             f"{' '.join(cmd)}") from err
+        if proc.returncode != 0:
+            raise MXNetError(
+                f"record engine build failed (g++ exited "
+                f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
+        try:
+            os.replace(tmp, out)
+        except OSError:
+            if not info["lib"].exists():   # not another process's build
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    info.update(seconds=time.perf_counter() - t0, cached=False)
+    return info

@@ -1,9 +1,9 @@
 """The Module API: ``Module``, ``BucketingModule``, ``SequentialModule``,
 ``PythonModule`` and ``PythonLossModule`` over executor groups on one
-device.
+context or several (one executor a context, the batch split over them).
 
-Counterpart of ``mxnet_tpu/module/``; paths through ``checkpoint/`` and
-more than one context raise until their slices (ROADMAP.md).
+Counterpart of ``mxnet_tpu/module/``; ``Module.save_checkpoint`` and
+``Module.load`` write and read the legacy prefix files.
 """
 from .base_module import BaseModule
 from .bucketing_module import BucketingModule

@@ -29,7 +29,11 @@ thread; a *plan* says how the pieces meet:
   the pass's reason is recorded.
 
 At ``T = 1`` every meeting is the identity and the split graph runs the
-ops of the unsharded one.
+ops of the unsharded one.  Beside a seq, expert or pipe axis the plan
+runs in each of their coordinates: the meetings along ``model`` join
+the members that share every other coordinate.  A parameter cut over
+another axis as well (or instead) is put together by
+:func:`gather_params` before the graph reads it.
 """
 from __future__ import annotations
 
@@ -118,15 +122,24 @@ def _gather(sync, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
     return sync.gather(t, dim % t.dim(), axis)
 
 
-def gather_params(args: Dict[str, torch.Tensor], dims: Dict[str, int],
-                  handle, axis: str) -> None:
-    """The gather plan: every sharded parameter of ``args`` replaced, in
-    place, by the model group's pieces end to end (this member's piece
-    differentiable).  ``handle`` is the member's meeting handle."""
+def gather_params(args: Dict[str, torch.Tensor],
+                  gathers: Dict[str, Any], handle) -> None:
+    """The values a member's graph reads of rule-sharded parameters:
+    every parameter of ``gathers`` (``{name: [(dim, axis, to_owner),
+    ...]}``) replaced in ``args``, in place, by its group's pieces end to
+    end along ``dim``, one step after the other; with ``to_owner`` each
+    piece is differentiable into its owner (``all_gather``), else only
+    this member's piece (``gather``: the gather plan over the model
+    axis).  ``handle`` is the member's meeting handle (None for a lone
+    member: nothing to gather)."""
     if handle is None:
         return
-    for n, d in dims.items():
-        args[n] = handle.at(n).gather(args[n], d, axis)
+    for n, steps in gathers.items():
+        sync, t = handle.at(n), args[n]
+        for dim, axis, to_owner in steps:
+            t = (sync.all_gather(t, dim, axis) if to_owner
+                 else sync.gather(t, dim, axis))
+        args[n] = t
 
 
 def _vocab_embed(sync, axis, data, weight, params):

@@ -147,14 +147,18 @@ Tensor parallelism (``rules=`` a :class:`ShardingRules`, e.g.
 :func:`megatron_rules`, over a mesh with a ``model`` axis beside
 ``data``): the batch is split over the data axis and every member of a
 model group (the members that share a data coordinate) gets the same
-rows.  Each member holds only its piece of every rule-sharded parameter;
-the data-lead of each model coordinate holds that piece's optimizer
-state and updates it (``_tp_apply``), and the pieces are gathered for
-``get_params``, checkpoints and inference.  The plan that computes the
-pieces (gather or split, :mod:`.tensor_parallel`) is recorded in
-``compile_info``; the fused update is off under it (the JAX trainer's
-reason, recorded too), ``grad_compression`` refuses it, and ZeRO cuts
-only the replicated parameters' state.
+rows.  Each member holds only its piece of every rule-sharded parameter
+(:class:`_PieceLayout`); the first member that holds a piece holds its
+optimizer state and updates it (``_tp_apply``), and the pieces are put
+together for ``get_params``, checkpoints and inference.  The plan that
+computes the model axis's pieces (gather or split,
+:mod:`.tensor_parallel`) is recorded in ``compile_info``; the fused
+update is off under it (the JAX trainer's reason, recorded too),
+``grad_compression`` refuses it, and ZeRO cuts only the replicated
+parameters' state.  A rule may cut a parameter over any axis of the
+mesh, and over several (``P("expert", None, "model")``,
+``P(("data", "model"), None)``): a cut that no op reads in pieces is
+gathered where the graph reads it.
 
 Sequence and expert parallelism (a mesh with a ``seq`` or an ``expert``
 axis beside ``data``): the batch is split over the data axis and the
@@ -176,9 +180,15 @@ members hold the same rows and the same parameters, heads are
 differentiated on the pipe group's member 0 (the others' gradients are
 zero), and the implicit and explicit modes run as over the data axis
 alone; the stages themselves are :class:`~.pipeline_trainer.
-PipelineTrainer`'s.  A mesh with more than one of the model, seq,
-expert and pipe axes, and ``grad_compression`` beside a seq or expert
-axis are refused.
+PipelineTrainer`'s; so does any other axis.  These axes combine:
+over ``{"data": 2, "model": 2, "seq": 2}`` each model coordinate's seq
+group runs the ring over its local heads, over ``{"expert": 2,
+"model": 2}`` each model coordinate's expert group the expert program;
+a replicated parameter's gradient is summed over the members of model
+coordinate 0, a piece's over the members that hold it.
+``grad_compression`` beside a seq or expert axis is refused (the
+explicit mode's members do not meet inside the step; the JAX trainer's
+manual region fails there too).
 
 Inference forwards run on the lead member over the whole batch (no
 statistic crosses rows at inference), under the mesh.  One step path
@@ -217,8 +227,7 @@ from . import tensor_parallel as tp_mod
 from .collectives import (DEFAULT_BUCKET_BYTES, check_compression,
                           plan_buckets, psum, psum_compressed)
 from .members import ProcessBridge, run_synced
-from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
-                   SEQ_AXIS, Mesh,
+from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh,
                    NamedSharding, PartitionSpec, axis_groups,
                    data_parallel_mesh, default_mesh, make_mesh)
 
@@ -325,12 +334,13 @@ class ShardedTrainer:
     mesh : parallel.Mesh, optional
         Default: a data mesh over every local device of ``device``'s
         platform (one member on the CPU), or ``device`` alone when it
-        names an index.  Beside the data axis, one of the model, seq,
+        names an index.  Beside the data axis, any of the model, seq,
         expert and pipe axes may have more than one member.
     rules : ShardingRules, optional
-        Parameter placement over the mesh's model axis (tensor
-        parallelism) or expert axis (each member holds its experts);
-        default replicated.
+        Parameter placement over the mesh's axes: the model axis (tensor
+        parallelism), the expert axis (each member holds its experts),
+        or any other (gathered where the graph reads it); default
+        replicated.
     data_axis : str, optional
         The mesh axis the batch is split over (default ``"data"`` when
         the mesh has it).
@@ -412,12 +422,18 @@ class ShardedTrainer:
         if grad_compression is not None and self.data_axis is None:
             raise MXNetError("grad_compression needs a data axis to "
                              "reduce over; this mesh has none")
-        split_axes = [a for a in self._dup_axes if a != PIPE_AXIS]
+        split_axes = [a for a in self._dup_axes
+                      if a in (SEQ_AXIS, EXPERT_AXIS)]
         if grad_compression is not None and split_axes:
-            raise not_ported(
+            # the JAX trainer fails here too: its manual region cannot
+            # hold the ring's or the expert program's shard_map
+            raise MXNetError(
                 f"grad_compression over a mesh with a {split_axes[0]!r} "
-                "axis (the explicit mode's members do not meet inside the "
-                "step; use the implicit mode)")
+                "axis: the explicit mode runs each member's backward on "
+                "its own, and ring attention and expert parallelism meet "
+                "along that axis inside the step (the JAX trainer's manual "
+                "region refuses their shard_map as well); use the implicit "
+                "mode")
         if self._bridge_spec is not None:
             what = ("grad_compression" if self.grad_compression is not None
                     else "shard_optimizer (ZeRO)" if self.shard_optimizer
@@ -528,56 +544,41 @@ class ShardedTrainer:
             self.data_axis = data_axis
         others = sorted(a for a in mesh.axis_names
                         if a != self.data_axis and mesh.shape[a] > 1)
-        if len(others) > 1 or any(a not in (MODEL_AXIS, SEQ_AXIS,
-                                            EXPERT_AXIS, PIPE_AXIS)
-                                  for a in others):
-            raise not_ported(
-                f"ShardedTrainer over mesh axes {others} beside the data "
-                "axis: one of model, seq, expert and pipe may have more "
-                "than one member (model parallelism combined with sequence "
-                "or expert parallelism, and a pipe axis beside any of "
-                "them, are not ported)")
         self.model_axis = (MODEL_AXIS if MODEL_AXIS in mesh.axis_names
                            and MODEL_AXIS != self.data_axis else None)
-        # the axis the rules may cut parameters over: model (tensor
-        # parallelism) or expert (each member holds its experts)
-        self._piece_axis = self.model_axis or (
-            EXPERT_AXIS if EXPERT_AXIS in mesh.axis_names
-            and EXPERT_AXIS != self.data_axis else None)
         # axes whose members hold the same rows and split one op's work
-        # (ring attention, expert parallelism) or none of it (a pipe axis
-        # replicates the step, as the JAX trainer runs such a mesh); the
-        # rest of their step is the same on every member of the group
-        self._dup_axes = [a for a in others
-                          if a in (SEQ_AXIS, EXPERT_AXIS, PIPE_AXIS)]
+        # (ring attention over seq, expert parallelism) or none of it (a
+        # pipe axis, or any other, replicates the step, as the JAX trainer
+        # runs such a mesh); the rest of their step is the same on every
+        # member of the group.  The model axis is not one of them: its
+        # members compute the same function, each on its pieces
+        self._dup_axes = [a for a in others if a != MODEL_AXIS]
         self._ndata = mesh.shape[self.data_axis] if self.data_axis else 1
-        self._ntp = (mesh.shape[self._piece_axis] if self._piece_axis
-                     else 1)
         # the members that meet along each axis: a data group shares every
         # other coordinate (and splits the batch); the members of a model,
-        # seq or expert group share the rows
-        self._groups = {ax: axis_groups(mesh, axis) for ax, axis in (
-            (DATA_AXIS, self.data_axis), (MODEL_AXIS, self.model_axis),
-            (SEQ_AXIS, SEQ_AXIS if SEQ_AXIS in self._dup_axes else None),
-            (EXPERT_AXIS, EXPERT_AXIS if EXPERT_AXIS in mesh.axis_names
-             and EXPERT_AXIS != self.data_axis else None),
-            (PIPE_AXIS, PIPE_AXIS if PIPE_AXIS in self._dup_axes else None))}
-        rank = {ax: {i: g.index(i) for g in gs for i in g}
-                for ax, gs in self._groups.items()}
-        self._dcoord = [rank[DATA_AXIS][i] for i in range(mesh.size)]
-        piece = self._piece_axis if self._piece_axis else MODEL_AXIS
-        self._mcoord = [rank[piece][i] for i in range(mesh.size)]
+        # seq, expert or pipe group share the rows
+        self._groups = {DATA_AXIS: axis_groups(mesh, self.data_axis)}
+        self._groups.update({a: axis_groups(mesh, a) for a in mesh.axis_names
+                             if a not in (self.data_axis, DATA_AXIS)})
+        # each member's coordinate along each axis (the data axis's under
+        # DATA_AXIS)
+        self._coord = {ax: [0] * mesh.size for ax in self._groups}
+        for ax, gs in self._groups.items():
+            for g in gs:
+                for r, i in enumerate(g):
+                    self._coord[ax][i] = r
+        self._dcoord = list(self._coord[DATA_AXIS])
         # each member's coordinate along the axes that duplicate rows: a
         # head is differentiated on the members at 0 only
-        self._dupcoord = [sum(rank[a][i] for a in self._dup_axes)
+        self._dupcoord = [sum(self._coord[a][i] for a in self._dup_axes)
                           for i in range(mesh.size)]
-        group_of = {i: g for g in self._groups[piece] for i in g}
-        # piece coordinate t's data-lead, and each piece coordinate's
-        # data group (column 0 is the lead's)
-        self._col_lead = list(group_of[0])
-        data_of = {i: g for g in self._groups[DATA_AXIS] for i in g}
-        self._col_groups = [data_of[j] for j in self._col_lead]
-        self._col0 = self._col_groups[0]
+        # the members whose gradients of a replicated parameter are summed:
+        # every member of model coordinate 0 (each model coordinate
+        # computes the whole gradient; a data, seq, expert or pipe
+        # coordinate a part of it)
+        mcoord = self._coord.get(MODEL_AXIS, [0] * mesh.size)
+        self._rep_members = [i for i in range(mesh.size) if mcoord[i] == 0]
+        self._col0 = self._groups[DATA_AXIS][0]
         # the members' rows of a placed batch: the local data group's
         self._shard_n, self._shard_coord = self._ndata, list(self._dcoord)
         if self._bridge_spec is not None:
@@ -689,7 +690,10 @@ class ShardedTrainer:
         self._setup_tp(shape_of, {n: (s[0] // self.grad_accum,) + tuple(s[1:])
                                   for n, s in input_shapes.items()})
         self._threaded = (self._sync_nodes or bool(self._row_reductions)
-                          or (self._ntp > 1 and bool(self._tp_dims))
+                          or any(lay.gathers
+                                 for lay in self._pieces.values())
+                          or (self._tp_plan is not None
+                              and self._tp_plan.tp > 1)
                           or bool(self._dup_axes))
 
         def host_value(name, shape, given):
@@ -735,8 +739,8 @@ class ShardedTrainer:
             self.logger.info(
                 "ZeRO: %d params dim-sharded, %d flatten-pad-sharded, "
                 "%d TP-rule-sharded, 0 replicated",
-                len(self._param_names) - len(flat) - len(self._tp_dims),
-                len(flat), len(self._tp_dims))
+                len(self._param_names) - len(flat) - len(self._pieces),
+                len(flat), len(self._pieces))
         self._setup_fused(shape_of)
         if self._fused:
             self._layout_fused(host)
@@ -745,7 +749,7 @@ class ShardedTrainer:
                             .requires_grad_(True) for n in self._param_names}
             self._opt_state = ({} if self.shard_optimizer else {
                 n: opt.state_zeros_like(self._params[n].detach())
-                for n in self._param_names if n not in self._tp_dims})
+                for n in self._param_names if n not in self._pieces})
         self._layout_members(host)
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
@@ -769,65 +773,73 @@ class ShardedTrainer:
         return self
 
     def _setup_tp(self, shape_of, micro_shapes) -> None:
-        """The rule-sharded parameters (``_tp_dims``: the dimension each
-        is cut along over the piece axis) and, over a model axis, the plan
-        that computes them (``_tp_plan``: split where the graph has
-        Megatron's partition, else gather), recorded in ``compile_info``.
-        Over an expert axis each member holds its experts and the MoE op
-        reads its pieces as they are (no plan).  The JAX package's gates:
-        ``grad_compression`` refuses sharded parameters."""
-        self._tp_dims: Dict[str, int] = {}
+        """The rule-sharded parameters (``_pieces``: how the members hold
+        each, :class:`_PieceLayout`) and, where the rules cut parameters
+        over a model axis, the plan that computes them (``_tp_plan``:
+        split where the graph has Megatron's partition, else gather),
+        recorded in ``compile_info``.  Over an expert axis each member
+        holds its experts and the MoE op reads its pieces as they are; a
+        cut over any other axis is gathered where the graph reads it.
+        The JAX package's gate: ``grad_compression`` refuses sharded
+        parameters."""
+        self._pieces: Dict[str, _PieceLayout] = {}
         self._tp_plan: Optional[tp_mod.TPPlan] = None
-        axis = self._piece_axis
         specs = {}
         for n in self._param_names:
             spec = self.rules.spec_for(n)
-            named = [ax for ax in spec if ax is not None]
+            named = _spec_axes(spec)
             if not named:
                 continue
-            if any(ax not in (MODEL_AXIS, EXPERT_AXIS) for ax in named) \
-                    or len(named) > 1:
-                raise not_ported(f"ShardedTrainer: spec {spec} for {n} (a "
-                                 "parameter cut other than over one "
-                                 "dimension by the model or expert axis)")
-            if axis is None or named[0] != axis:
-                raise MXNetError(f"rules shard {n} over {named[0]!r}, which "
-                                 f"the mesh {self.mesh.shape} lacks"
-                                 + (f" beside {axis!r}" if axis else ""))
+            for ax in named:
+                if ax not in self.mesh.axis_names:
+                    raise MXNetError(f"rules shard {n} over {ax!r}, which "
+                                     f"the mesh {self.mesh.shape} lacks")
+            if len(set(named)) < len(named):
+                raise MXNetError(f"spec {spec} for {n} names an axis twice")
             NamedSharding(self.mesh, spec).shard_shape(shape_of[n])
             specs[n] = spec
-            self._tp_dims[n] = tp_mod.sharded_dim(spec, axis)
-        if not self._tp_dims:
+        if not specs:
             return
         if self.grad_compression is not None:
-            sharded = list(self._tp_dims)
+            sharded = list(specs)
             raise MXNetError(
                 "grad_compression runs the backward in a manual region with "
                 f"replicated params; tensor-parallel rules shard "
                 f"{sharded[:3]}... — use the implicit path for TP models")
-        if axis == EXPERT_AXIS:
-            self.logger.info("expert parallelism over %d: %d params cut "
-                             "over the expert axis", self._ntp,
-                             len(self._tp_dims))
-            return
-        rewrites, why = tp_mod.split_pass(self.symbol, self._topo,
-                                          self._tp_dims, specs, MODEL_AXIS,
-                                          self._ntp, micro_shapes)
-        self._tp_plan = tp_mod.TPPlan(
-            "split" if rewrites is not None else "gather", MODEL_AXIS,
-            self._ntp, dict(self._tp_dims), rewrites, why)
-        self.compile_info.append(self._tp_plan.info())
-        self.logger.info("tensor parallelism over %d: %s plan for %d "
-                         "params%s", self._ntp, self._tp_plan.plan,
-                         len(self._tp_dims), f" ({why})" if why else "")
+        model_cut = {n: tp_mod.sharded_dim(spec, MODEL_AXIS)
+                     for n, spec in specs.items()
+                     if self.model_axis is not None
+                     and MODEL_AXIS in _spec_axes(spec)}
+        if model_cut:
+            ntp = self.mesh.shape[MODEL_AXIS]
+            rewrites, why = tp_mod.split_pass(
+                self.symbol, self._topo, model_cut,
+                {n: specs[n] for n in model_cut}, MODEL_AXIS, ntp,
+                micro_shapes)
+            self._tp_plan = tp_mod.TPPlan(
+                "split" if rewrites is not None else "gather", MODEL_AXIS,
+                ntp, model_cut, rewrites, why)
+            self.compile_info.append(self._tp_plan.info())
+            self.logger.info("tensor parallelism over %d: %s plan for %d "
+                             "params%s", ntp, self._tp_plan.plan,
+                             len(model_cut), f" ({why})" if why else "")
+        split = self._tp_plan is not None and self._tp_plan.plan == "split"
+        experts = _moe_expert_params(self._topo)
+        for n, spec in specs.items():
+            self._pieces[n] = _PieceLayout(
+                self, spec, shape_of[n], split, experts.get(n))
+        held = [n for n in specs if experts.get(n) in _spec_axes(specs[n])]
+        if held:
+            self.logger.info("expert parallelism: %d params cut over the "
+                             "expert axis", len(held))
 
     def _piece(self, value: torch.Tensor, name: str, member: int):
         """Member ``member``'s piece of parameter ``name``'s full value:
         the value itself unless the rules shard it."""
-        if name not in self._tp_dims:
+        lay = self._pieces.get(name)
+        if lay is None:
             return value
-        sh = NamedSharding(self.mesh, self.rules.spec_for(name))
-        return value[sh.index(member, tuple(value.shape))]
+        return value[lay.sharding.index(member, tuple(value.shape))]
 
     def _setup_fused(self, shape_of) -> None:
         """The JAX trainer's eligibility gate: any configuration the
@@ -848,7 +860,7 @@ class ShardedTrainer:
                        "fused twin")
         if self.shard_optimizer:
             why.append("shard_optimizer (ZeRO state layout)")
-        if self._tp_dims:
+        if self._pieces:
             why.append("tensor-parallel param sharding")
         if any(int(np.prod(shape_of[n], dtype=np.int64)) == 0
                for n in self._param_names):
@@ -873,7 +885,7 @@ class ShardedTrainer:
                 raise MXNetError("fused_update=True but this configuration "
                                  "cannot fuse: " + "; ".join(why))
             self.logger.debug("fused update off: %s", "; ".join(why))
-            if self._tp_dims:
+            if self._pieces:
                 self.compile_info.append({"kind": "fused_update",
                                           "fused": False,
                                           "reason": "; ".join(why)})
@@ -936,14 +948,18 @@ class ShardedTrainer:
         """The JAX trainer's ZeRO placement of one parameter's optimizer
         state: ``(spec, flat_padded_len)``.  Without ZeRO, the rule's
         spec.  With it, a rule-sharded parameter keeps its rule's spec
-        (its state is already cut over the model axis); for the others
+        (its state is already cut over the rule's axes); for the others
         the first dimension the data-axis size divides is cut over the
         data axis, and a parameter with none (biases, BN scales) keeps its
         state flattened and padded to a multiple of that size."""
-        if name in self._tp_dims:
+        if name in self._pieces:
             return self.rules.spec_for(name), None
-        if not self.shard_optimizer or self.data_axis is None:
+        if not self.shard_optimizer:
             return PartitionSpec(), None
+        if self.data_axis is None:
+            # one data member holds the whole state (the JAX trainer
+            # replicates it); a 0-d parameter's is kept flat
+            return PartitionSpec(), (None if len(shape) else 1)
         n = self._ndata
         for dim, size in enumerate(shape):
             if size % n == 0 and size > 0:
@@ -957,8 +973,9 @@ class ShardedTrainer:
         """The dimension a parameter's ZeRO state is cut along (0 for
         the flattened layout)."""
         spec = self._zero_specs[name]
-        return 0 if self._zero_flat[name] is not None \
-            else list(spec).index(self.data_axis)
+        if self._zero_flat[name] is not None or self.data_axis not in spec:
+            return 0
+        return list(spec).index(self.data_axis)
 
     def _zero_view(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """``t`` (parameter-shaped) in the layout its ZeRO state is cut
@@ -991,18 +1008,18 @@ class ShardedTrainer:
                                  for n in self._param_names}
             self._replicas.append(rep)
         opt = self.optimizer
-        # each model coordinate's data-lead holds the optimizer state of
-        # its piece of every rule-sharded parameter
+        # each piece's lead holds the optimizer state of that piece of a
+        # rule-sharded parameter
         self._piece_state: Dict[str, List[Any]] = {
             n: [opt.state_zeros_like(self._member_params(j)[n].detach())
-                for j in self._col_lead] for n in self._tp_dims}
+                for j in lay.leads] for n, lay in self._pieces.items()}
         self._zero_state: List[Dict[str, Any]] = []
         if self.shard_optimizer:
             ndata = len(self._data_devices)
             for i, dev in enumerate(self._data_devices):
                 states = {}
                 for n in self._param_names:
-                    if n in self._tp_dims:
+                    if n in self._pieces:
                         continue
                     full = self._zero_view(n, host[n].detach())
                     piece = full.chunk(ndata, self._zero_dim(n))[i]
@@ -1034,20 +1051,21 @@ class ShardedTrainer:
 
     def _broadcast(self) -> None:
         """The lead's parameters and aux states into every other member's
-        replica, in place; a rule-sharded parameter's piece from its
-        model coordinate's data-lead."""
-        leads = set(self._col_lead)
+        replica, in place; a rule-sharded parameter's piece from that
+        piece's lead."""
         with torch.no_grad():
             for i, rep in enumerate(self._replicas, 1):
                 if self._fused:
                     rep["flat_w"].copy_(self._flat_w)
                 else:
                     for n, p in rep["params"].items():
-                        if n not in self._tp_dims:
+                        lay = self._pieces.get(n)
+                        if lay is None:
                             p.copy_(self._params[n])
-                        elif i not in leads:
-                            p.copy_(self._member_params(
-                                self._col_lead[self._mcoord[i]])[n])
+                            continue
+                        lead = lay.leads[lay.of[i]]
+                        if lead != i:
+                            p.copy_(self._member_params(lead)[n])
                 for n, v in rep["aux"].items():
                     v.copy_(self._aux[n])
 
@@ -1337,23 +1355,26 @@ class ShardedTrainer:
                 for n, g in grads.items()}
 
     def _tp_apply(self, grads, ok) -> None:
-        """The rule-sharded parameters' update: each model coordinate's
-        data-lead runs ``optimizer._functional_step`` on its piece with
-        its piece of the state (elementwise: the pieces of the whole
-        update), gated by ``ok``."""
-        if not self._tp_dims:
+        """The rule-sharded parameters' update: each piece's lead runs
+        ``optimizer._functional_step`` on its piece with its piece of
+        the state (elementwise: the pieces of the whole update), gated
+        by ``ok``."""
+        if not self._pieces:
             return
         opt = self.optimizer
         hyper = opt._hyper()
         hyper["rescale_grad"] = self._rescale_grad
         step_fn = type(opt)._functional_step
-        for t, j in enumerate(self._col_lead):
-            dev = self._devices[j]
-            lr, tt = self._lr_dev.to(dev), self._t_dev.to(dev)
-            okd = None if ok is None else ok.to(dev)
-            params = self._member_params(j)
-            for n in self._tp_dims:
-                p, state = params[n], self._piece_state[n][t]
+        scalars: Dict[torch.device, Tuple] = {}
+        for n, lay in self._pieces.items():
+            for t, j in enumerate(lay.leads):
+                dev = self._devices[j]
+                if dev not in scalars:
+                    scalars[dev] = (self._lr_dev.to(dev),
+                                    self._t_dev.to(dev),
+                                    None if ok is None else ok.to(dev))
+                lr, tt, okd = scalars[dev]
+                p, state = self._member_params(j)[n], self._piece_state[n][t]
                 w2, s2 = step_fn(hyper, p, grads[n][t].to(dev), state,
                                  lr * float(self._lr_mult[n]),
                                  opt.wd * self._wd_mult[n], tt,
@@ -1374,7 +1395,7 @@ class ShardedTrainer:
         lrs: Dict[float, torch.Tensor] = {}
         self._tp_apply(grads, ok)
         for n in self._param_names:
-            if n in self._tp_dims:
+            if n in self._pieces:
                 continue
             p = self._params[n]
             m = float(self._lr_mult[n])
@@ -1463,22 +1484,22 @@ class ShardedTrainer:
         return tuple(heads), grads, auxu, sq, new_ef
 
     def _reduce_implicit(self, member_grads):
-        """The members' gradients summed over the data axis: a replicated
-        parameter's over the lead's model coordinate (every model
-        coordinate computed the same sum) or, over a seq or expert axis,
-        over every member (each member of such a group holds a part of
-        the gradient: its share of the op's work, and member 0 the rest);
-        a rule-sharded parameter's piece by piece, each on its piece
-        coordinate's data-lead."""
+        """The members' gradients summed: a replicated parameter's over
+        every member of model coordinate 0 (each model coordinate computes
+        the whole sum; each data member the part of its rows, and each
+        member of a seq, expert or pipe group a part of its group's: its
+        share of the op's work, and member 0 the rest); a rule-sharded
+        parameter's piece by piece, each over the members its
+        :class:`_PieceLayout` names, on the piece's lead."""
         red: Dict[str, Any] = {}
-        everyone = (range(len(member_grads)) if self._dup_axes
-                    else self._col0)
         for nm in self._param_names:
-            if nm in self._tp_dims:
+            lay = self._pieces.get(nm)
+            if lay is not None:
                 red[nm] = [psum([member_grads[i][nm] for i in grp])[0]
-                           for grp in self._col_groups]
+                           for grp in lay.contrib]
             else:
-                red[nm] = psum([member_grads[i][nm] for i in everyone])[0]
+                red[nm] = psum([member_grads[i][nm]
+                                for i in self._rep_members])[0]
         if self._bridge_spec is not None:
             # the other processes' data members: summed through the
             # process group
@@ -1532,11 +1553,12 @@ class ShardedTrainer:
                          self._member_generators(i))
                 for i, dev in enumerate(self._devices)]
         plan = self._tp_plan
+        gathers = {nm: lay.gathers for nm, lay in self._pieces.items()
+                   if lay.gathers}
 
         def forward(i, sync):
             args = self._cast_params(self._member_params(i))
-            if plan is not None and plan.plan == "gather":
-                tp_mod.gather_params(args, self._tp_dims, sync, MODEL_AXIS)
+            tp_mod.gather_params(args, gathers, sync)
             args.update(mbs[i])
             return eval_symbol(
                 self.symbol, args, auxs[i], keys[i], True, topo=self._topo,
@@ -1679,7 +1701,7 @@ class ShardedTrainer:
                    for d in self._data_devices]
         self._tp_apply(grads, ok)
         for nm in self._param_names:
-            if nm in self._tp_dims:
+            if nm in self._pieces:
                 continue
             p = self._params[nm]
             dim = self._zero_dim(nm)
@@ -2022,18 +2044,23 @@ class ShardedTrainer:
 
     def _whole(self, name: str, pieces) -> torch.Tensor:
         """A rule-sharded parameter's (or state leaf's) pieces, one a
-        model coordinate, end to end on the lead's device."""
+        piece in piece order, put together on the lead's device."""
         if len(pieces) == 1:
             return pieces[0]
-        return torch.cat([p.to(self.device) for p in pieces],
-                         self._tp_dims[name])
+        lay = self._pieces[name]
+        shape = self._shapes[name]
+        whole = pieces[0].new_empty(shape, device=self.device)
+        for j, piece in zip(lay.leads, pieces):
+            whole[lay.sharding.index(j, shape)] = piece.detach().to(
+                self.device)
+        return whole
 
     def _whole_params(self) -> Dict[str, torch.Tensor]:
         """The lead's parameters with every rule-sharded one whole."""
         out = dict(self._params)
-        for n in self._tp_dims:
+        for n, lay in self._pieces.items():
             out[n] = self._whole(n, [self._member_params(j)[n]
-                                     for j in self._col_lead])
+                                     for j in lay.leads])
         return out
 
     def get_params(self) -> Tuple[Dict[str, NDArray], Dict[str, NDArray]]:
@@ -2049,7 +2076,7 @@ class ShardedTrainer:
         and aux states of the same names, in place."""
         with torch.no_grad():
             for n, v in (arg_params or {}).items():
-                if n in self._tp_dims:
+                if n in self._pieces:
                     full = torch.from_numpy(np.ascontiguousarray(
                         v.asnumpy() if isinstance(v, NDArray)
                         else np.asarray(v)))
@@ -2071,7 +2098,7 @@ class ShardedTrainer:
         if self.shard_optimizer:
             out.update({n: tuple(self._zero_gather(n, li) for li in range(
                 len(_leaves(self._zero_state[0][n]))))
-                for n in self._param_names if n not in self._tp_dims})
+                for n in self._param_names if n not in self._pieces})
             return {n: out[n] for n in self._param_names}
         if not self._fused:
             for n, s in self._opt_state.items():
@@ -2112,11 +2139,11 @@ class ShardedTrainer:
         if self.shard_optimizer:
             # the JAX package's global arrays: the slices end to end
             out = {f"opt:{n}:{i}": self._zero_gather(n, i, padded=True)
-                   for n in self._param_names if n not in self._tp_dims
+                   for n in self._param_names if n not in self._pieces
                    for i in range(len(_leaves(self._zero_state[0][n])))}
             out.update({f"opt:{n}:{i}": leaf
                         for n, leaves in self.opt_state_by_param().items()
-                        if n in self._tp_dims
+                        if n in self._pieces
                         for i, leaf in enumerate(leaves)})
         elif not self._fused:
             out = {f"opt:{n}:{i}": leaf
@@ -2137,17 +2164,17 @@ class ShardedTrainer:
         members (the other optimizer arrays are views of live state)."""
         n = len(self._data_devices)
         with torch.no_grad():
-            for name in self._tp_dims:
+            for name in self._pieces:
                 self._scatter_param(name, torch.from_numpy(
                     np.ascontiguousarray(arrays[f"param:{name}"])))
                 for li in range(len(_leaves(self._piece_state[name][0]))):
                     full = torch.from_numpy(np.ascontiguousarray(
                         arrays[f"opt:{name}:{li}"]))
-                    for t, st in enumerate(self._piece_state[name]):
-                        _leaves(st)[li].copy_(self._piece(
-                            full, name, self._col_lead[t]))
+                    leads = self._pieces[name].leads
+                    for j, st in zip(leads, self._piece_state[name]):
+                        _leaves(st)[li].copy_(self._piece(full, name, j))
             for name in self._param_names if self.shard_optimizer else ():
-                if name in self._tp_dims:
+                if name in self._pieces:
                     continue
                 dim = self._zero_dim(name)
                 for li in range(len(_leaves(self._zero_state[0][name]))):
@@ -2165,9 +2192,9 @@ class ShardedTrainer:
                     res[b].copy_(piece)
 
     def _scatter_param(self, name: str, full: torch.Tensor) -> None:
-        """Write a rule-sharded parameter's whole value into the pieces
-        of its model coordinates' data-leads."""
-        for j in self._col_lead:
+        """Write a rule-sharded parameter's whole value into its pieces'
+        leads (:meth:`_broadcast` copies them on)."""
+        for j in self._pieces[name].leads:
             self._member_params(j)[name].detach().copy_(
                 self._piece(full, name, j))
 
@@ -2627,6 +2654,86 @@ class ShardedTrainer:
             # an abandoned epoch must not leave the prefetch thread alive
             # holding staged device buffers
             prefetch.close()
+
+
+def _spec_axes(spec) -> List[str]:
+    """The mesh axes a PartitionSpec names, in order."""
+    return [a for ax in spec if ax is not None
+            for a in ((ax,) if isinstance(ax, str) else tuple(ax))]
+
+
+def _moe_expert_params(topo) -> Dict[str, str]:
+    """``{parameter name: expert axis}`` for the expert weights and
+    biases of every ``MoEFFN`` node, which the op reads as each member's
+    own experts when they are cut over that axis."""
+    out: Dict[str, str] = {}
+    for node in topo:
+        if node.is_variable or node.op.name != "MoEFFN":
+            continue
+        axis = node.parsed_params()["expert_axis"]
+        for src, _ in node.inputs[2:6]:
+            if src.is_variable:
+                out[src.name] = axis
+    return out
+
+
+class _PieceLayout:
+    """How the members of a trainer's mesh hold one rule-sharded
+    parameter (its ``spec``, a :class:`NamedSharding` over the mesh):
+
+    * ``of[i]``: the number of member ``i``'s piece; pieces are numbered
+      by the first member that holds each;
+    * ``contrib[p]``: the members whose gradients of piece ``p`` are
+      summed: every member that holds it, of model coordinate 0 when the
+      spec does not cut over the model axis (each model coordinate
+      computes the same function, so the same gradient; a data, seq,
+      expert or pipe coordinate computes a part of it);
+    * ``leads[p]``: the member that holds piece ``p``'s optimizer state
+      and updates it (the first of ``contrib[p]``: every other
+      coordinate 0);
+    * ``gathers``: ``(dim, axis, to_owner)`` steps that give a member the
+      value the graph reads, minor axis first within a dimension: a cut
+      over the model axis is gathered with the others' pieces detached
+      (the model group computes alike), a cut over any other axis with
+      each piece differentiable into its owner (the group's members
+      compute parts, so every part's gradient reaches the owner).  A cut
+      the graph reads in pieces stays: the model axis under the split
+      plan, and the expert axis on an ``MoEFFN`` expert weight's first
+      dimension (the op runs each member's experts)."""
+
+    __slots__ = ("spec", "sharding", "of", "contrib", "leads", "gathers")
+
+    def __init__(self, trainer, spec, shape, split: bool,
+                 expert_axis: Optional[str]):
+        mesh = trainer.mesh
+        self.spec = spec
+        self.sharding = NamedSharding(mesh, spec)
+        keys = [tuple((sl.start, sl.stop)
+                      for sl in self.sharding.index(i, tuple(shape)))
+                for i in range(mesh.size)]
+        number = {k: p for p, k in enumerate(dict.fromkeys(keys))}
+        self.of = [number[k] for k in keys]
+        named = _spec_axes(spec)
+        mcoord = trainer._coord.get(MODEL_AXIS, [0] * mesh.size)
+        copies = trainer.model_axis is not None \
+            and MODEL_AXIS not in named
+        self.contrib = [[i for i in range(mesh.size) if self.of[i] == p
+                         and not (copies and mcoord[i] != 0)]
+                        for p in range(len(number))]
+        self.leads = [c[0] for c in self.contrib]
+        self.gathers: List[Tuple[int, str, bool]] = []
+        for d, ax in enumerate(spec):
+            axes = () if ax is None else ((ax,) if isinstance(ax, str)
+                                          else tuple(ax))
+            for j in reversed(range(len(axes))):
+                a = axes[j]
+                if j == 0 and ((d == 0 and a == expert_axis)
+                               or (split and a == MODEL_AXIS)):
+                    break
+                if mesh.shape[a] > 1:
+                    self.gathers.append(
+                        (d, DATA_AXIS if a == trainer.data_axis else a,
+                         a != MODEL_AXIS))
 
 
 def _synced_statistic(node) -> bool:

@@ -9,15 +9,23 @@ record longer than 2^29 - 1 bytes spans frames flagged 1 (first), 2
 (middle) and 3 (last).  Files written by either package read in the
 other, byte for byte.
 
-The engine is the pure-Python one, :class:`_PyRecordFile`.  The JAX
-package also loads a native engine built from ``native/recordio.cc``, an
-optional speed path with the same framing; the port has none.
+Two engines frame and join records the same way, byte for byte: the
+native one, :class:`_NativeRecordFile`, a ctypes shim over the port's
+``csrc/recordio.cc``, which ``_build.build_recordio`` compiles with g++
+at first use (into the build directory, never into the source tree),
+and the pure-Python :class:`_PyRecordFile`.  :class:`MXRecordIO` opens
+the native engine whenever its library loaded; a failed build logs a
+warning with the compiler's output and the Python engine serves.
+:func:`engine` names the engine new files open with, and
+``MXRecordIO.engine`` the one an open file uses.
 """
 from __future__ import annotations
 
+import ctypes
 import logging
 import os
 import struct
+import threading
 from collections import namedtuple
 
 import numpy as np
@@ -25,14 +33,74 @@ import numpy as np
 from .base import MXNetError
 
 __all__ = ["MXRecordIO", "MXIndexedRecordIO", "IRHeader",
-           "pack", "unpack", "pack_img", "unpack_img"]
+           "pack", "unpack", "pack_img", "unpack_img", "engine"]
 
 _MAGIC = 0xced7230a
 _LEN_MASK = (1 << 29) - 1
 
+# the native engine's library: None before the first use, False after a
+# failed build or load (the Python engine serves), else the CDLL
+_native = None
+_native_lock = threading.Lock()
+
+
+def _log_build_failure(err) -> None:
+    logging.getLogger(__name__).warning(
+        "native recordio engine unavailable; using the pure-Python "
+        "engine:\n%s", str(err)[-2000:])
+
+
+def _load_native():
+    """The native engine's library, built and loaded at the first call;
+    None where it does not build or load."""
+    global _native
+    if _native is None:
+        with _native_lock:
+            if _native is None:
+                from . import _build
+                try:
+                    lib = ctypes.CDLL(str(_build.build_recordio()["lib"]))
+                except (MXNetError, OSError) as err:
+                    _log_build_failure(err)
+                    _native = False
+                else:
+                    _bind_native(lib)
+                    _native = lib
+    return _native or None
+
+
+def _bind_native(lib) -> None:
+    c_void_p, c_char_p, c_long, c_int = (ctypes.c_void_p, ctypes.c_char_p,
+                                         ctypes.c_long, ctypes.c_int)
+    for fn, restype, argtypes in (
+            ("MXTRecordIOWriterCreate", c_void_p, [c_char_p]),
+            ("MXTRecordIOWriterWriteRecord", c_int,
+             [c_void_p, c_char_p, ctypes.c_size_t]),
+            ("MXTRecordIOWriterTell", c_long, [c_void_p]),
+            ("MXTRecordIOWriterFree", None, [c_void_p]),
+            ("MXTRecordIOReaderCreate", c_void_p, [c_char_p]),
+            ("MXTRecordIOReaderReadRecord", c_int,
+             [c_void_p, ctypes.POINTER(c_char_p),
+              ctypes.POINTER(ctypes.c_size_t)]),
+            ("MXTRecordIOReaderSeek", c_int, [c_void_p, c_long]),
+            ("MXTRecordIOReaderTell", c_long, [c_void_p]),
+            ("MXTRecordIOReaderFree", None, [c_void_p])):
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+
+
+def engine() -> str:
+    """``"native"`` when the native engine's library loaded (building it
+    at the first call), else ``"python"``: the engine that
+    :class:`MXRecordIO` opens files with."""
+    return "native" if _load_native() is not None else "python"
+
 
 class _PyRecordFile:
-    """The record engine: frames records on write, joins frames on read."""
+    """The pure-Python record engine: frames records on write, joins
+    frames on read."""
+
+    name = "python"
 
     def __init__(self, uri, flag):
         self._fp = open(uri, "wb" if flag == "w" else "rb")
@@ -99,6 +167,55 @@ class _PyRecordFile:
         self._fp.close()
 
 
+class _NativeRecordFile:
+    """The native record engine: a ctypes shim over ``csrc/recordio.cc``
+    with :class:`_PyRecordFile`'s interface."""
+
+    name = "native"
+
+    def __init__(self, uri, flag):
+        self._lib = _load_native()
+        self._writable = flag == "w"
+        path = os.fsencode(uri)
+        self._h = (self._lib.MXTRecordIOWriterCreate(path) if self._writable
+                   else self._lib.MXTRecordIOReaderCreate(path))
+        if not self._h:
+            raise MXNetError(f"cannot open record file {uri!r}")
+
+    def write(self, buf):
+        buf = bytes(buf)
+        if self._lib.MXTRecordIOWriterWriteRecord(self._h, buf,
+                                                  len(buf)) != 0:
+            raise MXNetError("record write failed")
+
+    def read(self):
+        out = ctypes.c_char_p()
+        size = ctypes.c_size_t()
+        rc = self._lib.MXTRecordIOReaderReadRecord(
+            self._h, ctypes.byref(out), ctypes.byref(size))
+        if rc == 1:
+            return None
+        if rc != 0:
+            raise MXNetError("corrupt record file")
+        return ctypes.string_at(out, size.value)
+
+    def tell(self):
+        return (self._lib.MXTRecordIOWriterTell(self._h) if self._writable
+                else self._lib.MXTRecordIOReaderTell(self._h))
+
+    def seek(self, pos):
+        if self._lib.MXTRecordIOReaderSeek(self._h, pos) != 0:
+            raise MXNetError("record seek failed")
+
+    def close(self):
+        if self._h:
+            if self._writable:
+                self._lib.MXTRecordIOWriterFree(self._h)
+            else:
+                self._lib.MXTRecordIOReaderFree(self._h)
+            self._h = None
+
+
 class MXRecordIO:
     """Sequential record reader/writer (reference ``recordio.py:MXRecordIO``).
 
@@ -132,9 +249,17 @@ class MXRecordIO:
         self.open()
 
     def open(self):
-        self._rec = _PyRecordFile(self.uri, self.flag)
+        cls = (_NativeRecordFile if _load_native() is not None
+               else _PyRecordFile)
+        self._rec = cls(self.uri, self.flag)
         self.writable = self.flag == "w"
         self.is_open = True
+
+    @property
+    def engine(self) -> str:
+        """The engine this file reads or writes through: ``"native"`` or
+        ``"python"``."""
+        return self._rec.name
 
     def close(self):
         if self.is_open:
@@ -216,6 +341,13 @@ class MXRecordIO:
         return None
 
     def _adopt(self, py):
+        """Go on from where the resynchronizing engine ``py`` stopped, in
+        the engine the file was opened with."""
+        if isinstance(self._rec, _NativeRecordFile):
+            native = _NativeRecordFile(self.uri, "r")
+            native.seek(py.tell())
+            py.close()
+            py = native
         self._rec.close()
         self._rec = py
 

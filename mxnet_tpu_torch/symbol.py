@@ -11,8 +11,9 @@ package.  Op constructors (``Convolution``, ``BatchNorm``, ...) are
 generated from the port's op registry.
 
 Graphs run through :func:`mxnet_tpu_torch.graph_eval.eval_symbol`, in
-the trainer or in an executor from ``bind``/``simple_bind``.  File
-``save``/``load`` of symbols is not ported yet (ROADMAP.md).
+the trainer or in an executor from ``bind``/``simple_bind``.
+:meth:`Symbol.save` and :func:`load` write and read the same JSON files
+as the JAX package's.
 """
 from __future__ import annotations
 

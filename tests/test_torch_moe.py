@@ -431,7 +431,7 @@ def test_trainer_over_an_expert_mesh(rules, tmp_path):
                     jax_side=True)
     th, tt = _train(axes, trules, b, 1, 4.0, False, args, batches[:steps])
     if spec is not None:
-        assert tt._tp_dims and tt._tp_plan is None
+        assert tt._pieces and tt._tp_plan is None
         w1 = tt._member_params(5)["moe_expert1_weight"]
         assert tuple(w1.shape) == (1, D, H)
     oh, ot = _train({"data": 1}, None, b, 1, 4.0, False, args,
@@ -518,8 +518,10 @@ def test_aux_loss_head_trains_toward_balance():
 
 
 def test_refusals_name_what_is_missing():
-    """Model parallelism beside an expert or seq axis, and compressed
-    gradients over an expert axis, still refuse; a pipe axis beside the
+    """A model axis beside the expert axis takes the trainer (parity:
+    ``tests/test_torch_combined_meshes.py``); compressed gradients over
+    an expert axis refuse and say why (the JAX trainer's manual region
+    fails there too), not as a missing port; a pipe axis beside the
     data axis takes the dense MoE net as the JAX trainer does (the
     parameters replicated along it, the global batch routed over the
     data members): heads and parameters after 2 steps against the JAX
@@ -527,11 +529,13 @@ def test_refusals_name_what_is_missing():
     from mxnet_tpu_torch.base import MXNetError
     with mxt.name.NameManager():
         net = _moe_net(mxt.symbol)
-    with pytest.raises(MXNetError, match="not ported"):
-        ShardedTrainer(net, mesh=tmesh({"model": 2, "expert": 2}))
-    with pytest.raises(MXNetError, match="not ported"):
+    tr = ShardedTrainer(net, mesh=tmesh({"model": 2, "expert": 2}))
+    assert tr._dup_axes == ["expert"] and tr.model_axis == "model"
+    with pytest.raises(MXNetError, match="implicit mode") as err:
         ShardedTrainer(net, mesh=tmesh({"data": 2, "expert": 2}),
                        grad_compression="int8")
+    assert "'expert' axis" in str(err.value)
+    assert "not ported" not in str(err.value)
     b = 16
     args = _moe_args(5, b)
     batches = _batches(2, b, 6)

@@ -249,12 +249,52 @@ def test_sharded_trainer_over_a_pipe_axis_matches_jax(axes, bn, compression):
                                   {"pipe": 2, "seq": 2},
                                   {"pipe": 2, "expert": 2}])
 def test_pipe_beside_another_split_axis_refuses_by_name(axes):
-    """A pipe axis beside the model, seq or expert axis is not ported:
-    the trainer refuses the mesh and names its axes."""
-    with mxt.name.NameManager():
-        sym = _mlp(mxt.sym)
-    with pytest.raises(MXNetError, match="not ported") as err:
-        ShardedTrainer(sym, mesh=make_mesh(axes, cpus(4)))
-    assert "pipe" in str(err.value) and sorted(axes)[0] in str(err.value)
+    """A pipe axis beside the model, seq or expert axis takes the trainer
+    as the JAX trainer takes it: the pipe axis replicates the step, the
+    other axis is what it is alone (fc1 cut over the model axis by a
+    rule; no op of this net meets along seq or expert, so their members
+    replicate the step too).  Heads and parameters (and BatchNorm's
+    moving statistics) after 2 SGD steps against the JAX trainer on the
+    same mesh."""
+    from jax.sharding import PartitionSpec as JP
+    from mxnet_tpu.parallel import ShardingRules as JRules
+    from mxnet_tpu_torch.parallel import PartitionSpec, ShardingRules
+    with mx.name.NameManager(), mxt.name.NameManager():
+        jsym, tsym = _mlp(mx.sym, True), _mlp(mxt.sym, True)
+    args, aux = _state(tsym, 16)
+    opt = {"learning_rate": 0.1, "momentum": 0.9}
+    rules = [("fc1_weight", ("model", None)), ("fc1_bias", ("model",))]
+    model = "model" in axes
+    jt = JaxTrainer(jsym, optimizer="sgd", optimizer_params=opt,
+                    mesh=jmake_mesh(axes, jax.devices()[:4]),
+                    rules=JRules([(p, JP(*s)) for p, s in rules])
+                    if model else None)
+    jt.bind({"data": (16, 8)}, {"softmax_label": (16,)},
+            arg_params={k: jnp.asarray(v) for k, v in args.items()},
+            aux_params={k: jnp.asarray(v) for k, v in aux.items()})
+    tt = ShardedTrainer(tsym, "sgd", opt, mesh=make_mesh(axes, cpus(4)),
+                        rules=ShardingRules([(p, PartitionSpec(*s))
+                                             for p, s in rules])
+                        if model else None)
+    tt.bind({"data": (16, 8)}, {"softmax_label": (16,)}, arg_params=args,
+            aux_params=aux)
+    assert tt._dup_axes == sorted(a for a in axes if a != "model")
+    if model:
+        assert tuple(tt._member_params(3)["fc1_weight"].shape) == (8, 8)
+    for step in range(2):
+        b = _toy_batch(16, 50 + step)
+        jh = np.asarray(jt.step(b)[0])
+        th = tt.step(b)[0].numpy()
+        np.testing.assert_allclose(th, jh, atol=HEAD_ATOL)
+    jarg, jaux = jt.get_params()
+    targ, taux = tt.get_params()
+    for name in jarg:
+        np.testing.assert_allclose(targ[name].asnumpy(),
+                                   jarg[name].asnumpy(), **PARAM,
+                                   err_msg=name)
+    for name in jaux:
+        np.testing.assert_allclose(taux[name].asnumpy(),
+                                   jaux[name].asnumpy(), **PARAM,
+                                   err_msg=name)
     assert {"pipeline_apply", "PipelineTrainer",
             "SpmdPipelineTrainer"} <= set(tpar.__all__)

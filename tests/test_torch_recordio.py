@@ -4,11 +4,17 @@ package's, on the CPU.
 
 The same payloads go through both packages' writers: the files must be
 byte for byte equal, and a file written by either package must read in
-the other, record for record.  The JAX package reads with its native
-engine (``native/libmxtpu.so``, where it loads) and with its pure-Python
-one; the port has the pure-Python engine only.  Records longer than one
-frame are made by shrinking both packages' frame length limit to 7 bytes
-(the native engine reads them with its own 29-bit mask).  ``pack``/
+the other, record for record.  Each package has two engines: the JAX
+package its native one (``native/libmxtpu.so``, where it loads) and its
+pure-Python one, the port its native one (``csrc/recordio.cc``, built
+with g++ at first use by ``_build.build_recordio``) and its pure-Python
+one; every pair of engines is crossed.  Records longer than one frame
+are made by shrinking the Python writers' frame length limit to 7 bytes
+(the native engines read them with their own 29-bit mask; a 2^29-byte
+payload is too large for a test).  The native engine's ``tell``/``seek``
+and its indexed reads match the Python engine's, and the tolerant reader
+resynchronizes over either engine; two processes that start together on
+a clean build directory both load the library one of them built.  ``pack``/
 ``unpack`` headers (scalar and vector labels) and ``pack_img`` bytes
 (``.raw``, ``.jpg``, ``.png``, with the same cv2) are equal, and
 ``unpack_img`` gives the same pixels.  The tolerant reader skips a
@@ -21,6 +27,10 @@ exact.
 """
 import json
 import logging
+import os
+import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -38,6 +48,20 @@ from mxnet_tpu_torch.base import MXNetError
 PAYLOADS = [b"", b"a", b"abc", b"abcd", b"abcde",
             bytes(range(256)) * 4 + b"xyz"]
 ENGINES = ["native", "python"]
+
+
+@pytest.fixture(params=ENGINES)
+def port_engine(request, monkeypatch):
+    """The port's record engine for the test: its native library (built
+    here with g++) or its pure-Python engine."""
+    if request.param == "native":
+        if shutil.which("g++") is None:
+            pytest.skip("no g++ to build the native engine")
+        assert trec.engine() == "native"
+    else:
+        monkeypatch.setattr(trec, "_native", False)
+        assert trec.engine() == "python"
+    return request.param
 
 
 @pytest.fixture(params=ENGINES)
@@ -76,23 +100,84 @@ def _read(mod, path, **kw):
         r.close()
 
 
-def test_written_bytes_equal_jax(tmp_path, jax_engine):
+def test_written_bytes_equal_jax(tmp_path, jax_engine, port_engine):
     _write(jrec, str(tmp_path / "j.rec"), PAYLOADS)
-    _write(trec, str(tmp_path / "t.rec"), PAYLOADS)
-    assert ((tmp_path / "t.rec").read_bytes()
-            == (tmp_path / "j.rec").read_bytes())
+    w = trec.MXRecordIO(str(tmp_path / "t.rec"), "w")
+    assert w.engine == port_engine
+    offsets = []
+    for p in PAYLOADS:
+        offsets.append(w.tell())
+        w.write(p)
+    w.close()
+    raw = (tmp_path / "t.rec").read_bytes()
+    assert raw == (tmp_path / "j.rec").read_bytes()
+    assert offsets == tchaos.record_offsets(str(tmp_path / "t.rec"))
 
 
-def test_files_cross_packages(tmp_path, jax_engine):
+def test_files_cross_packages(tmp_path, jax_engine, port_engine):
     _write(jrec, str(tmp_path / "j.rec"), PAYLOADS)
     _write(trec, str(tmp_path / "t.rec"), PAYLOADS)
+    r = trec.MXRecordIO(str(tmp_path / "j.rec"), "r")
+    assert r.engine == port_engine
+    r.close()
     assert _read(trec, str(tmp_path / "j.rec")) == PAYLOADS
     assert _read(jrec, str(tmp_path / "t.rec")) == PAYLOADS
 
 
-def test_multi_frame_records_cross(tmp_path, jax_engine, monkeypatch):
+@pytest.mark.parametrize("writer", ENGINES)
+def test_port_engines_read_each_other(tmp_path, writer, port_engine,
+                                      monkeypatch):
+    """A file the port's native (python) engine wrote reads in its
+    python (native) engine, and both engines' files are equal."""
+    with monkeypatch.context() as m:
+        if writer == "python":
+            m.setattr(trec, "_native", False)
+        else:
+            m.setattr(trec, "_native", None)
+        _write(trec, str(tmp_path / "w.rec"), PAYLOADS)
+        assert trec.engine() == writer or shutil.which("g++") is None
+    assert _read(trec, str(tmp_path / "w.rec")) == PAYLOADS
+
+
+def test_tell_and_seek_match_the_python_engine(tmp_path, monkeypatch):
+    """The native reader's ``tell`` after each record and its ``seek``
+    back to any record's offset give the Python engine's offsets and
+    records; a seek to the end reads nothing."""
+    if trec.engine() != "native":
+        pytest.skip("the native engine did not build here")
+    path = str(tmp_path / "s.rec")
+    payloads = [bytes([i]) * (i * 5 + 1) for i in range(20)]
+    _write(trec, path, payloads)
+
+    def walk(r):
+        seen = [r.tell()]
+        while r.read() is not None:
+            seen.append(r.tell())
+        return seen
+
+    native = trec.MXRecordIO(path, "r")
+    got = walk(native)
+    monkeypatch.setattr(trec, "_native", False)
+    python = trec.MXRecordIO(path, "r")
+    assert python.engine == "python"
+    assert got == walk(python) == tchaos.record_offsets(path) + [
+        os.path.getsize(path)]
+    for i in (13, 0, 19, 7):
+        native._rec.seek(got[i])
+        assert native.read() == payloads[i]
+        assert native.tell() == got[i + 1]
+    native._rec.seek(got[-1])
+    assert native.read() is None
+    native.close()
+    python.close()
+
+
+def test_multi_frame_records_cross(tmp_path, jax_engine, port_engine,
+                                   monkeypatch):
     """A record past the frame limit spans frames flagged 1, 2, 3: the
-    port writes the JAX Python writer's bytes and both read them."""
+    port's Python writer writes the JAX Python writer's bytes and every
+    engine of both packages reads them (the native ones join the frames
+    with their own 29-bit mask)."""
     payloads = [bytes(range(20)), b"short", bytes(range(7)),
                 bytes(range(15))]
     monkeypatch.setattr(trec, "_LEN_MASK", 7)
@@ -100,7 +185,8 @@ def test_multi_frame_records_cross(tmp_path, jax_engine, monkeypatch):
         m.setattr(jrec, "_LEN_MASK", 7)
         m.setattr(jrec, "_LIB", None)
         _write(jrec, str(tmp_path / "j.rec"), payloads)
-    _write(trec, str(tmp_path / "t.rec"), payloads)
+        m.setattr(trec, "_native", False)
+        _write(trec, str(tmp_path / "t.rec"), payloads)
     raw = (tmp_path / "t.rec").read_bytes()
     assert raw == (tmp_path / "j.rec").read_bytes()
     assert tchaos.record_offsets(str(tmp_path / "t.rec")) == \
@@ -113,7 +199,8 @@ def test_multi_frame_records_cross(tmp_path, jax_engine, monkeypatch):
 
 
 @pytest.mark.parametrize("key_type", [int, str])
-def test_indexed_random_access_cross(tmp_path, jax_engine, key_type):
+def test_indexed_random_access_cross(tmp_path, jax_engine, port_engine,
+                                     key_type):
     def write(mod, stem):
         w = mod.MXIndexedRecordIO(str(tmp_path / f"{stem}.idx"),
                                   str(tmp_path / f"{stem}.rec"), "w",
@@ -179,7 +266,7 @@ def _plain_rec(tmp_path, n):
 
 
 def test_bitflip_skipped_counted_once_warned(tmp_path, caplog,
-                                             monkeypatch):
+                                             monkeypatch, port_engine):
     path, payloads = _plain_rec(tmp_path, 30)
     offsets = tchaos.record_offsets(path)
     assert offsets == jchaos.record_offsets(path)
@@ -193,6 +280,8 @@ def test_bitflip_skipped_counted_once_warned(tmp_path, caplog,
         with caplog.at_level(logging.WARNING,
                              logger="mxnet_tpu_torch.recordio"):
             got = _read_all(r)
+        # the reader goes on in the engine it opened with
+        assert r.engine == port_engine
         r.close()
         assert got == payloads[:7] + payloads[8:23] + payloads[24:]
         assert r.corrupt_count == 2
@@ -213,7 +302,8 @@ def test_bitflip_skipped_counted_once_warned(tmp_path, caplog,
     assert _read(jrec, path) == got
 
 
-def test_strict_raises_and_env_flips_default(tmp_path, monkeypatch):
+def test_strict_raises_and_env_flips_default(tmp_path, monkeypatch,
+                                             port_engine):
     path, payloads = _plain_rec(tmp_path, 10)
     before = tchaos.record_offsets(path)
     assert tchaos.corrupt_record(path, 4) == before[4]
@@ -235,7 +325,7 @@ def test_strict_raises_and_env_flips_default(tmp_path, monkeypatch):
     assert _read(trec, path) == payloads[:4] + payloads[5:]
 
 
-def test_corruption_through_eof(tmp_path):
+def test_corruption_through_eof(tmp_path, port_engine):
     path, payloads = _plain_rec(tmp_path, 12)
     jpath = str(tmp_path / "copy.rec")
     with open(jpath, "wb") as f:
@@ -250,3 +340,74 @@ def test_corruption_through_eof(tmp_path):
     # bytes where its last failed candidate stopped)
     assert r.read() is None and r.read() is None
     r.close()
+    assert r.engine == port_engine
+
+
+_BUILD_CHILD = """
+import sys
+from mxnet_tpu_torch import _build, recordio
+path = sys.argv[1]
+w = recordio.MXRecordIO(path, "w")
+for i in range(50):
+    w.write(bytes([i]) * (3 * i + 1))
+w.close()
+r = recordio.MXRecordIO(path, "r")
+n = 0
+while r.read() is not None:
+    n += 1
+print(recordio.engine(), r.engine, n, _build.build_recordio()["lib"])
+"""
+
+
+def test_clean_build_in_two_processes_at_once(tmp_path):
+    """Two processes that start together on an empty build directory
+    both build or load the native engine, both read and write through
+    it, and one library is left in place (no half-written file, no
+    temporary directory)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the native engine")
+    cache = tmp_path / "cache"
+    env = dict(os.environ, MXNET_TPU_CACHE_DIR=str(cache),
+               MXNET_TPU_CACHE="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_CHILD,
+                               str(tmp_path / f"c{i}.rec")], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for i in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+    lines = [o.split() for o, _ in outs]
+    assert [ln[:3] for ln in lines] == [["native", "native", "50"]] * 2
+    assert lines[0][3] == lines[1][3]
+    built = sorted(os.listdir(cache / "cuda" / "recordio"))
+    assert len(built) == 1 and ".tmp" not in built[0]
+    assert os.listdir(cache / "cuda" / "recordio" / built[0]) == \
+        ["librecordio.so"]
+    assert ((tmp_path / "c0.rec").read_bytes()
+            == (tmp_path / "c1.rec").read_bytes())
+
+
+def test_failed_build_warns_and_the_python_engine_serves(tmp_path, caplog,
+                                                         monkeypatch):
+    """A build that fails logs one warning with the compiler's output;
+    the Python engine then reads and writes."""
+    from mxnet_tpu_torch import _build
+
+    def broken():
+        raise MXNetError("record engine build failed (g++ exited 1):\n"
+                         "recordio.cc:1:1: error: planted")
+    monkeypatch.setattr(_build, "build_recordio", broken)
+    monkeypatch.setattr(trec, "_native", None)
+    with caplog.at_level(logging.WARNING,
+                         logger="mxnet_tpu_torch.recordio"):
+        assert trec.engine() == "python"
+        path = str(tmp_path / "f.rec")
+        _write(trec, path, PAYLOADS)
+        assert _read(trec, path) == PAYLOADS
+    warns = [rec.getMessage() for rec in caplog.records
+             if "native recordio engine" in rec.getMessage()]
+    assert len(warns) == 1 and "error: planted" in warns[0]

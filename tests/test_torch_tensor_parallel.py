@@ -348,7 +348,9 @@ def test_tp_gates_match_jax():
     """Compression refuses rule-sharded parameters (as JAX's trainer
     does), the fused update is off with JAX's reason in
     ``compile_info`` (``fused_update=True`` raises), a spec over another
-    axis is refused, and the rules go into the program key."""
+    axis is taken (each data member holds its half of the embedding;
+    parity: ``tests/test_torch_combined_meshes.py``), a spec over an axis
+    the mesh lacks is refused, and the rules go into the program key."""
     _, tsym = _lms(layers=1, b=4)
     shapes = ({"data": (4, L)}, {"softmax_label": (4, L)})
     mesh = tmesh({"data": 2, "model": 2})
@@ -360,9 +362,15 @@ def test_tp_gates_match_jax():
                        fused_update=True).bind(*shapes)
     with pytest.raises(MXNetError, match="rules must be"):
         ShardedTrainer(tsym, "sgd", mesh=mesh, rules=object())
-    with pytest.raises(MXNetError, match="not ported"):
+    over_data = ShardedTrainer(tsym, "sgd", mesh=mesh, rules=ShardingRules(
+        [("embed_weight", P("data", None))]))
+    over_data.bind(*shapes)
+    assert over_data._tp_plan is None
+    assert [tuple(over_data._member_params(i)["embed_weight"].shape)
+            for i in range(4)] == [(VOCAB // 2, D_MODEL)] * 4
+    with pytest.raises(MXNetError, match="lacks"):
         ShardedTrainer(tsym, "sgd", mesh=mesh, rules=ShardingRules(
-            [("embed_weight", P("data", None))])).bind(*shapes)
+            [("embed_weight", P("seq", None))])).bind(*shapes)
     tr = ShardedTrainer(tsym, "sgd", mesh=mesh, rules=megatron_rules())
     tr.bind(*shapes)
     assert not tr._fused

@@ -265,8 +265,9 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     phase 4's requests give the same greedy streams, every step of the
     captured engine replays a program and none is captured after
     warmup, K5 launches ``num_layers`` times a decode step in the hopper
-    form, and a ``profiler.trace`` around two replayed decode steps lists
-    K5's kernel ``num_layers`` times a step; a hot swap keeps the
+    form, and a ``profiler.trace`` around two replayed decode steps
+    (after one traced and discarded) lists K5's kernel ``num_layers``
+    times a step; a hot swap keeps the
     programs and gives an engine's streams built from the new weights; a
     poisoned step runs eagerly and is caught; then phase 5's fp8 pools
     and phase 11's n-gram speculation the same way; (b) phase 9's LM and
@@ -539,17 +540,33 @@ It imports torch and the port, never jax nor ``mxnet_tpu``, and:
     24 PNGs that ``ImageRecordIter`` reads back (labels and pixel sums),
     and ``tools/torch_ckpt_inspect.py`` shows, verifies and diffs a
     checkpoint written from CUDA tensors; no kernel is built in the phase;
+28. runs ``ShardedTrainer`` over meshes that span processes (after phase
+    27, before 15): two ranks on the card over gloo (two processes are
+    distinct members even on one card), children as in phase 23: (a)
+    phase 9's LM (bf16, Adam, unfused) under ``megatron_rules()`` over
+    ``{"model": 2}`` across the ranks for 2 steps: the split plan for
+    every Megatron parameter, 4 heads a member, K3 and K4 once a layer a
+    step on each rank in the hopper form, the ranks' replicated
+    parameters bitwise equal, the first heads within 5e-2 and the first
+    update within 2.5 lr of the one-card run (phase 20 (c)'s limits);
+    ms a step beside one card's and the bytes that cross processes a
+    step by axis; (b) the LM with ZeRO over ``{"data": 2}`` across the
+    ranks for 2 steps, then ``save_state`` (each rank its slices, rank 0
+    the manifest), restored here into a one-card ZeRO trainer bitwise
+    (parameters, Adam moments, update count, seed), verified by
+    ``tools/torch_ckpt_inspect.py``; the write ms;
 15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
     "device": {...}}`` line.
 
 It exits non-zero, printing no result, when CUDA is not available or the
 port is not beside it, and on any failed check.  ``--dist-worker JOB
-DIR`` is the child program of phases 23 and 24 (``kv-sync``,
+DIR`` is the child program of phases 23, 24 and 28 (``kv-sync``,
 ``kv-async`` in every role of a ``launch_local`` cluster, ``lm`` as a
 rank of a process group; ``wd-hung``, ``wd-dead``, ``wd-monitor`` as a
 rank with the watchdog on, ``el-chaos`` in every role of a
-``tools/torch_launch.py`` cluster, ``el-sigterm`` alone), which reads
-the sizes the parent wrote to ``DIR/plan.json``.
+``tools/torch_launch.py`` cluster, ``el-sigterm`` alone) and of phase 28
+(``pm`` as a rank of a process group), which reads the sizes the parent
+wrote to ``DIR/plan.json``.
 
 ``python3 chip_smoke.py --serve-ab PARENT`` measures what a change to the
 port costs the serving loop: it runs phases 4 and 11 alone (after the
@@ -6082,13 +6099,17 @@ def p17_serve(torch, np, fd, label, eager, eng, reqs, counts, fp8=False):
 
 
 def p17_trace_decode(torch, eng, reqs, tmp):
-    """A full batch admitted and prefilled, then ``P17_TRACE_STEPS``
-    replayed decode steps under ``profiler.trace``: K5's kernel appears
-    ``num_layers`` times a step."""
+    """A full batch admitted and prefilled, one replayed decode step
+    traced under ``profiler.trace`` and its trace discarded (a tracer's
+    first session has dropped records: K5 listed 11 times of 12), then
+    ``P17_TRACE_STEPS`` replayed decode steps under
+    ``profiler.trace``: K5's kernel appears ``num_layers`` times a
+    step."""
     ids = [eng.submit(p, **kw) for p, kw in reqs[:eng.config.max_batch]]
     while any(r.prefilled < r.prefill_target or not r.tokens
               for r in eng.sched.running) or eng.sched.queue:
         eng.step()
+    p17_trace_kernels(torch, eng.step, tmp, P17_DECODE_KERNEL)
     before = eng.counters["decode_steps"]
     n, total = p17_trace_kernels(
         torch, lambda: [eng.step() for _ in range(P17_TRACE_STEPS)], tmp,
@@ -9425,7 +9446,7 @@ P23_BN = dict(batch=64, inp=1024, hidden=1024, classes=1000, steps=3,
 P23_BN_RTOL = 1e-3
 P23_BN_HEAD_RTOL = 1e-4
 # each child program's time limit (seconds)
-P23_TIMEOUT = {"kv-sync": 300, "kv-async": 120, "lm": 300}
+P23_TIMEOUT = {"kv-sync": 300, "kv-async": 120, "lm": 300, "pm": 300}
 
 
 def p23_plan(device):
@@ -9732,10 +9753,11 @@ def dist_worker(job, out):
     ``lm`` as a rank of a process group) or of phase 24 (``wd-hung``,
     ``wd-dead``, ``wd-monitor`` as a rank of a process group with the
     watchdog on, ``el-chaos`` in every role of a ``tools/torch_launch.py``
-    cluster, ``el-sigterm`` alone).  Its output goes to a log in ``DIR``,
-    ending with its exit code unless the process ends itself (the
-    watchdog's ``os._exit(70)``, a planted death); a result is its ``P23
-    {json}`` or ``P24 {json}`` line."""
+    cluster, ``el-sigterm`` alone) or of phase 28 (``pm`` as a rank of a
+    process group).  Its output goes to a log in ``DIR``, ending with its
+    exit code unless the process ends itself (the watchdog's
+    ``os._exit(70)``, a planted death); a result is its ``P23 {json}`` or
+    ``P24 {json}`` line."""
     role = os.environ.get("MXTPU_ROLE") or (
         "rank" + os.environ.get("MXTPU_PROC_ID", "?"))
     tag = f"{job}-{role}-{os.environ.get('MXTPU_WORKER_ID', os.getpid())}"
@@ -9762,12 +9784,15 @@ def dist_worker(job, out):
             res = p24_sigterm_job(torch, np, mx, plan, out)
         elif job == "lm":
             res = p23_lm_job(torch, np, mx, plan, out)
+        elif job == "pm":
+            res = p28_job(torch, np, mx, plan, out)
         else:
             res = p23_kv_job(torch, np, mx, plan, out,
                              "dist_" + job.split("-")[1])
         if res is not None:
             res["foreign"] = p24_foreign()
-            tag = "P23 " if job in ("lm", "kv-sync", "kv-async") else "P24 "
+            tag = ("P23 " if job in ("lm", "kv-sync", "kv-async", "pm")
+                   else "P24 ")
             print(tag + json.dumps(res), flush=True)
         code = 0
     except SystemExit as exc:   # a server or the scheduler left its loop
@@ -9789,14 +9814,14 @@ def p23_logs(out, job):
             if n.startswith(job + "-") and n.endswith(".log")}
 
 
-def p23_fail(out, job, why):
+def p23_fail(out, job, why, phase=23):
     for name, text in p23_logs(out, job).items():
         log(f"  --- {name} ---")
         log(text[-6000:])
-    raise SmokeFailure(f"phase 23 {job}: {why}")
+    raise SmokeFailure(f"phase {phase} {job}: {why}")
 
 
-def p23_results(out, job, n):
+def p23_results(out, job, n, phase=23):
     res = []
     for name, text in p23_logs(out, job).items():
         lines = [ln for ln in text.splitlines() if ln.startswith("P23 ")]
@@ -9804,10 +9829,11 @@ def p23_results(out, job, n):
             res.append(json.loads(lines[-1][4:]))
     res.sort(key=lambda r: r["rank"])
     if [r["rank"] for r in res] != list(range(n)):
-        p23_fail(out, job, f"results from ranks {[r['rank'] for r in res]}")
+        p23_fail(out, job, f"results from ranks {[r['rank'] for r in res]}",
+                 phase)
     for r in res:
         if r["foreign"]:
-            p23_fail(out, job, f"a child imported {r['foreign']}")
+            p23_fail(out, job, f"a child imported {r['foreign']}", phase)
     return res
 
 
@@ -9846,9 +9872,11 @@ def p23_free_port():
     return port
 
 
-def p23_spawn_ranks(out, job, env, n=2):
+def p23_spawn_ranks(out, job, env, n=2, phase=23):
     """``n`` ranks of ``job`` as fresh interpreters with the rendezvous
-    environment; each under the time limit, all killed past it."""
+    environment; each under ``P23_TIMEOUT[job]``, all killed past it; a
+    failure names ``phase``."""
+    timeout = P23_TIMEOUT[job]
     port = p23_free_port()
     procs = []
     for rank in range(n):
@@ -9857,7 +9885,7 @@ def p23_spawn_ranks(out, job, env, n=2):
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--dist-worker", job,
              out], env=e, stdin=subprocess.DEVNULL))
-    deadline = time.monotonic() + P23_TIMEOUT[job]
+    deadline = time.monotonic() + timeout
     codes = []
     try:
         for rank, p in enumerate(procs):
@@ -9866,15 +9894,15 @@ def p23_spawn_ranks(out, job, env, n=2):
                                                 - time.monotonic())))
             except subprocess.TimeoutExpired:
                 p23_fail(out, job, f"rank {rank} did not finish within "
-                         f"{P23_TIMEOUT[job]} s")
+                         f"{timeout} s", phase)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     if codes != [0] * n:
-        p23_fail(out, job, f"rank exit codes {codes}")
-    return p23_results(out, job, n)
+        p23_fail(out, job, f"rank exit codes {codes}", phase)
+    return p23_results(out, job, n, phase)
 
 
 def p23_child_env():
@@ -11923,6 +11951,426 @@ def phase_conv_tools(torch, np, nn_ops, fu, _build):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: ShardedTrainer over meshes that span processes, on one card
+# ---------------------------------------------------------------------------
+# Two ranks on the card over gloo: two processes are distinct members of a
+# mesh even on one card, so a split axis laid across them runs here.
+# (a) phase 9's LM (bf16, Adam, unfused) under megatron_rules() over
+# {"model": 2} across the ranks (4 heads a member), P28_STEPS steps: the
+# plan split for every Megatron parameter; K3 and K4 once a layer a step on
+# each rank, in the hopper form; the ranks' replicated parameters bitwise
+# equal; rank 0's first heads within P20_TP_HEAD_TOL and its first update
+# within P20_TP_STEP1_LIMIT of this process's one-card run (phase 20 (c)'s
+# limits for the same plan over two cards).  (b) the LM with ZeRO over
+# {"data": 2} across the ranks, P28_STEPS steps, then save_state (each
+# rank its slices, rank 0 the manifest); restored here into a one-card
+# ZeRO trainer: parameters, Adam moments, the update count and the seed
+# bitwise what the ranks dumped; tools/torch_ckpt_inspect.py verifies it.
+# The bf16 Adam run's limits pass any first update within 2 lr of one
+# card's, so (a) also takes one float32 SGD step (rate P28_F32_LR, depth
+# cut to P28_F32_LAYERS, full width) on both sides: rank 0's heads within
+# P28_F32_HEAD_TOL of one card's, and each parameter's update within
+# P28_F32_STEP_RTOL of the one-card update, as root mean squares (the
+# update's at least P28_F32_FLOOR of the largest parameter's).  Read on an
+# H100 (PR 27): heads 4.8e-6, updates 8.0e-4 (layer1_ffn1_weight: ReLU
+# gates that flip on rounding differences); a doubled cross-process
+# gradient reads above 1
+P28_STEPS = 2
+P28_F32_LAYERS = 2
+P28_F32_LR = 1.0
+P28_F32_HEAD_TOL = 5e-5
+P28_F32_STEP_RTOL = 5e-3
+P28_F32_FLOOR = 1e-3
+P28_KERNELS = ("softmax_rows", "fused_update", "flash_attn_fwd",
+               "flash_attn_bwd")
+
+
+def p28_steps(torch, plan, tr, feed, after_first=None):
+    """``P28_STEPS`` steps of ``tr`` on ``feed``: each step's ms, K1-K4
+    launches (and K3/K4's hopper-form launches), and the bytes that
+    crossed processes by axis (``count_collectives``' ``process``
+    records); ``after_first(heads)`` runs after the first step."""
+    from mxnet_tpu_torch.parallel.collectives import count_collectives
+    rows = []
+    for s in range(plan["p28"]["steps"]):
+        before = p23_counts()
+        p23_sync(torch, plan)
+        t0 = time.perf_counter()
+        with count_collectives() as st:
+            heads = tr.step(feed)
+        p23_sync(torch, plan)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = p23_counts()
+        crossed = {}
+        for r in st.records:
+            if r["kind"] == "process":
+                crossed[r["axis"]] = (crossed.get(r["axis"], 0)
+                                      + r["wire_nbytes"])
+        rows.append({
+            "ms": ms, "crossed": crossed,
+            "counts": {k: after[k] - before[k] for k in P28_KERNELS},
+            "hopper": {k: after["forms"][k].get("hopper", 0)
+                       - before["forms"][k].get("hopper", 0)
+                       for k in ("flash_attn_fwd", "flash_attn_bwd")}})
+        if s == 0 and after_first is not None:
+            after_first(heads)
+    return rows
+
+
+def p28_f32(plan):
+    """(a)'s float32 SGD plan: the LM cut to its depth."""
+    return dict(plan, lm=dict(plan["lm"], layers=plan["p28"]["f32_layers"],
+                              opt={"learning_rate": plan["p28"]["f32_lr"]}))
+
+
+def p28_f32_trainer(np, plan, **kw):
+    """(a)'s float32 SGD trainer, bound to its initial values, with its
+    batch and those values."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    f32 = p28_f32(plan)
+    sym = p23_lm_symbol(f32)
+    shapes, args, batch = p23_lm_state(np, f32, sym)
+    tr = ShardedTrainer(sym, optimizer="sgd",
+                        optimizer_params=dict(f32["lm"]["opt"]), **kw)
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+    return tr, batch, args
+
+
+def p28_job(torch, np, mx, plan, out):
+    """A rank of phase 28: (a) the LM under Megatron's rules over the
+    model axis across the ranks, (b) the LM with ZeRO over the data axis
+    across them, then its checkpoint."""
+    from mxnet_tpu_torch import checkpoint
+    from mxnet_tpu_torch.parallel import (ShardedTrainer, dist, make_mesh,
+                                          megatron_rules)
+    rank = int(os.environ["MXTPU_PROC_ID"])
+    dist.init_distributed(device=mx.gpu(0) if plan["device"] == "cuda"
+                          else mx.cpu())
+    sym = p23_lm_symbol(plan)
+    shapes, args, batch = p23_lm_state(np, plan, sym)
+    opt = dict(plan["lm"]["opt"])
+    res = {"rank": rank, "backend": dist.backend()}
+
+    tr = ShardedTrainer(sym, optimizer="adam", optimizer_params=opt,
+                        compute_dtype="bfloat16", fused_update=False,
+                        rules=megatron_rules(), mesh=make_mesh({"model": 2}))
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+    info = tr._tp_plan.info()
+    q = tr._params["layer0_q_weight"]
+    res["a"] = {"plan": info["plan"], "reason": info["reason"],
+                "split": sorted(info["params"]),
+                "pieces": len(tr._pieces),
+                "q_piece": list(q.shape),
+                "heads_per_member": plan["lm"]["heads"] * q.shape[0]
+                // plan["lm"]["d_model"]}
+
+    def first(heads):
+        # every rank gathers the pieces; rank 0 keeps the first step
+        params = {k: v.data.cpu() for k, v in tr.get_params()[0].items()}
+        if rank == 0:
+            torch.save({"heads": heads[0].float().cpu(), "params": params},
+                       os.path.join(out, "p28a_first.pt"))
+
+    res["a"]["steps"] = p28_steps(torch, plan, tr, batch, first)
+    torch.save({n: tr._params[n].detach().cpu() for n in tr._param_names
+                if n not in tr._pieces},
+               os.path.join(out, f"p28a_rank{rank}.pt"))
+    del tr
+    if plan["device"] == "cuda":
+        torch.cuda.empty_cache()
+
+    tr, batch32, _ = p28_f32_trainer(np, plan, rules=megatron_rules(),
+                                     mesh=make_mesh({"model": 2}))
+    res["a"]["f32_plan"] = tr._tp_plan.info()["plan"]
+
+    def first32(heads):
+        params = {k: v.data.cpu() for k, v in tr.get_params()[0].items()}
+        if rank == 0:
+            torch.save({"heads": heads[0].float().cpu(), "params": params},
+                       os.path.join(out, "p28a_f32.pt"))
+
+    res["a"]["f32_steps"] = p28_steps(
+        torch, dict(plan, p28=dict(plan["p28"], steps=1)), tr, batch32,
+        first32)
+    del tr
+    if plan["device"] == "cuda":
+        torch.cuda.empty_cache()
+
+    tr = ShardedTrainer(sym, optimizer="adam", optimizer_params=opt,
+                        compute_dtype="bfloat16", shard_optimizer=True,
+                        mesh=make_mesh({"data": 2}))
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+    n = plan["lm"]["batch"] // 2
+    res["b"] = {"steps": p28_steps(
+        torch, plan, tr, {k: v[rank * n:(rank + 1) * n]
+                          for k, v in batch.items()}),
+        "zero_state_bytes": tr.optimizer_state_bytes_per_device()}
+    mgr = checkpoint.CheckpointManager(os.path.join(out, "p28-ckpt"))
+    p23_sync(torch, plan)
+    t0 = time.perf_counter()
+    res["b"]["path"] = tr.save_state(mgr)
+    res["b"]["write_ms"] = (time.perf_counter() - t0) * 1e3
+    mgr.close()
+    torch.save({"params": {k: v.data.cpu()
+                           for k, v in tr.get_params()[0].items()},
+                "opt": {k: [leaf.cpu() for leaf in leaves]
+                        for k, leaves in tr.opt_state_by_param().items()},
+                "num_update": tr._num_update, "seed": tr._seed},
+               os.path.join(out, f"p28b_rank{rank}.pt"))
+    del tr
+    dist.shutdown()
+    return res
+
+
+def p28_reference(torch, np, mx, plan):
+    """The one-card run of (a): phase 9's trainer on the whole batch,
+    its first heads and parameters, and each step's ms."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    sym = p23_lm_symbol(plan)
+    shapes, args, batch = p23_lm_state(np, plan, sym)
+    tr = ShardedTrainer(sym, optimizer="adam",
+                        optimizer_params=dict(plan["lm"]["opt"]),
+                        compute_dtype="bfloat16", fused_update=False,
+                        device="cuda:0" if DEVICE == "cuda" else DEVICE)
+    tr.bind({"data": shapes["data"]},
+            {"softmax_label": shapes["softmax_label"]}, arg_params=args)
+    got = {}
+
+    def first(heads):
+        got["heads"] = heads[0].float().cpu()
+        got["params"] = {k: v.data.cpu()
+                         for k, v in tr.get_params()[0].items()}
+
+    rows = p28_steps(torch, plan, tr, tr.place_batch(batch), first)
+    del tr
+    tr, batch, args = p28_f32_trainer(
+        np, plan, device="cuda:0" if DEVICE == "cuda" else DEVICE)
+
+    def first32(heads):
+        got["f32"] = {"heads": heads[0].float().cpu(), "args": args,
+                      "params": {k: v.data.cpu() for k, v in
+                                 tr.get_params()[0].items()}}
+
+    rows += p28_steps(torch, dict(plan, p28=dict(plan["p28"], steps=1)), tr,
+                      tr.place_batch(batch), first32)
+    del tr
+    return got, rows
+
+
+def p28_f32_diffs(np, ref, got):
+    """(a)'s float32 step against one card: the heads' largest
+    difference; for each parameter, the root mean square of the update's
+    difference over that of the one-card update (at least P28_F32_FLOOR
+    of the largest over all parameters: a key bias's gradient is zero up
+    to rounding), largest first; and the same with largest elements in
+    place of root mean squares (a ReLU gate that flips on a rounding
+    difference moves one of ~B*L terms of a sum)."""
+    heads = float((got["heads"] - ref["heads"]).abs().max())
+    moves = {}
+    for k, a in ref["args"].items():
+        a = np.asarray(a, np.float64)
+        moves[k] = (a - ref["params"][k].double().numpy(),
+                    a - got["params"][k].double().numpy())
+
+    def worst(norm):
+        floor = P28_F32_FLOOR * max(norm(d1) for d1, _ in moves.values())
+        return sorted(((norm(d2 - d1) / max(norm(d1), floor), k)
+                       for k, (d1, d2) in moves.items()), reverse=True)[:3]
+    return (heads, worst(lambda x: float(np.sqrt(np.mean(np.square(x))))),
+            worst(lambda x: float(np.abs(x).max())))
+
+
+def p28_restore(torch, mx, plan, path, ranks_state):
+    """(b): the ranks' checkpoint into a one-card ZeRO trainer, against
+    what the ranks dumped: bitwise, and the restore's ms."""
+    from mxnet_tpu_torch import checkpoint
+    from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
+    a, b = ranks_state
+    for k in a["params"]:
+        check(torch.equal(a["params"][k], b["params"][k]),
+              f"(b) the ranks' {k} differ")
+    sym = p23_lm_symbol(plan)
+    lm = plan["lm"]
+    card = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    tr = ShardedTrainer(sym, optimizer="adam",
+                        optimizer_params=dict(lm["opt"]),
+                        compute_dtype="bfloat16", shard_optimizer=True,
+                        mesh=make_mesh({"data": 1}, [card]), seed=28)
+    tr.bind({"data": (lm["batch"], lm["seq"])},
+            {"softmax_label": (lm["batch"], lm["seq"])})
+    mgr = checkpoint.CheckpointManager(os.path.dirname(path))
+    t0 = time.perf_counter()
+    _, step = tr.restore_state(mgr)
+    ms = (time.perf_counter() - t0) * 1e3
+    mgr.close()
+    check(step == a["num_update"] == tr._num_update == plan["p28"]["steps"]
+          and tr._seed == a["seed"],
+          f"(b) restored update {tr._num_update} (step {step}), seed "
+          f"{tr._seed}; the ranks held {a['num_update']}, {a['seed']}")
+    for k, v in tr.get_params()[0].items():
+        check(torch.equal(v.data.cpu(), a["params"][k]),
+              f"(b) restored {k} differs from the ranks'")
+    moments = 0
+    for k, leaves in tr.opt_state_by_param().items():
+        for i, leaf in enumerate(leaves):
+            check(torch.equal(leaf.cpu(), a["opt"][k][i])
+                  and torch.equal(a["opt"][k][i], b["opt"][k][i]),
+                  f"(b) restored Adam state {k}:{i} differs")
+            moments += 1
+    del tr
+    return {"restore_ms": ms, "moments": moments}
+
+
+def p28_inspect(path):
+    """``tools/torch_ckpt_inspect.py show --verify`` on the ranks'
+    checkpoint: exit 0, every array OK."""
+    import io as pyio
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_ckpt_inspect", os.path.join(here, "tools",
+                                           "torch_ckpt_inspect.py"))
+    inspect = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(inspect)
+    from mxnet_tpu_torch.checkpoint import layout
+    manifest = layout.read_manifest(path)
+    buf = pyio.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = inspect.main(["show", path, "--verify"])
+    text = buf.getvalue()
+    check(rc == 0 and text.count("[OK]") == len(manifest["arrays"])
+          and manifest["process_count"] == 2,
+          f"(b) torch_ckpt_inspect show --verify exited {rc} over "
+          f"{len(manifest['arrays'])} arrays, process_count "
+          f"{manifest['process_count']}: {text[-2000:]}")
+    files = [sh["file"] for e in manifest["arrays"].values()
+             for sh in e["shards"]]
+    return {"arrays": len(manifest["arrays"]), "shards": len(files),
+            "rank1_shards": sum(f.endswith(".p1.bin") for f in files)}
+
+
+def phase_process_meshes(torch, np, mx, _build):
+    """Phase 28: (a) Megatron's split plan over a model axis across two
+    processes on the card, (b) ZeRO over a data axis across them and its
+    checkpoint, restored in this process.  Returns the K1-K4 launches of
+    the ranks and of this process's one-card run, and its numbers."""
+    import tempfile
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(P28_KERNELS, 0)
+    stats = {"card": card_line() if DEVICE == "cuda" else "cpu"}
+    plan = p23_plan(DEVICE)
+    plan["p28"] = {"steps": P28_STEPS, "f32_layers": P28_F32_LAYERS,
+                   "f32_lr": P28_F32_LR}
+    steps, layers = P28_STEPS, plan["lm"]["layers"]
+    builds = _build.build_count()
+    with tempfile.TemporaryDirectory(prefix="p28-") as out:
+        with open(os.path.join(out, "plan.json"), "w") as f:
+            json.dump(plan, f)
+        t0 = time.perf_counter()
+        ref, ref_rows = p28_reference(torch, np, mx, plan)
+        stats["one_card_s"] = time.perf_counter() - t0
+        for row in ref_rows:
+            p23_add(launches, row["counts"])
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = p23_spawn_ranks(out, "pm", p23_child_env(), phase=28)
+        stats["ranks_s"] = time.perf_counter() - t0
+        for r in ranks:
+            check(r["backend"] == "gloo", f"rank {r['rank']} ran "
+                  f"{r['backend']}, expected gloo (two processes, one card)")
+            for part in ("a", "b"):
+                for s, row in enumerate(r[part]["steps"]):
+                    c, h = row["counts"], row["hopper"]
+                    check(DEVICE != "cuda" or (
+                        c["flash_attn_fwd"] == c["flash_attn_bwd"] == layers
+                        and h["flash_attn_fwd"] == h["flash_attn_bwd"]
+                        == layers and c["fused_update"] == 0),
+                          f"({part}) rank {r['rank']} step {s} launched "
+                          f"{c}, hopper {h}")
+                    p23_add(launches, c)
+            for row in r["a"]["f32_steps"]:
+                p23_add(launches, row["counts"])
+        a = ranks[0]["a"]
+        from mxnet_tpu_torch.parallel import megatron_rules
+        rules = megatron_rules()
+        megatron = sorted(n for n in ref["params"] if rules.spec_for(n))
+        check(a["plan"] == "split" and megatron == a["split"]
+              and a["heads_per_member"] == plan["lm"]["heads"] // 2,
+              f"(a) plan {a['plan']} ({a['reason']}), split "
+              f"{len(a['split'])} params, {a['heads_per_member']} heads a "
+              "member")
+        reps = [torch.load(os.path.join(out, f"p28a_rank{i}.pt"))
+                for i in range(2)]
+        for k in reps[0]:
+            check(torch.equal(reps[0][k], reps[1][k]),
+                  f"(a) the ranks' replicated {k} differ")
+        got = torch.load(os.path.join(out, "p28a_first.pt"))
+        head_diff = float((got["heads"] - ref["heads"]).abs().max())
+        step1 = max(float((got["params"][k].float()
+                           - ref["params"][k].float()).abs().max())
+                    for k in ref["params"])
+        check(head_diff <= P20_TP_HEAD_TOL, f"(a) first heads {head_diff} "
+              f"from one card's, over {P20_TP_HEAD_TOL}")
+        check(step1 <= P20_TP_STEP1_LIMIT, f"(a) first update {step1} from "
+              f"one card's, over {P20_TP_STEP1_LIMIT}")
+        f32_heads, f32_rms, f32_max = p28_f32_diffs(
+            np, ref["f32"], torch.load(os.path.join(out, "p28a_f32.pt")))
+        f32_step = f32_rms[0][0]
+        check(a["f32_plan"] == "split" and f32_heads <= P28_F32_HEAD_TOL,
+              f"(a) float32 plan {a['f32_plan']}, heads {f32_heads} from "
+              f"one card's, over {P28_F32_HEAD_TOL}")
+        check(f32_step <= P28_F32_STEP_RTOL, f"(a) float32 SGD update "
+              f"of {f32_rms[0][1]} {f32_step} from one card's (relative "
+              f"root mean square), over {P28_F32_STEP_RTOL}")
+        stats["a"] = {
+            "plan": a["plan"], "split_params": len(a["split"]),
+            "heads_per_member": a["heads_per_member"],
+            "q_piece": a["q_piece"], "first_heads_max_diff": head_diff,
+            "step1_max_param_diff": step1,
+            "f32_sgd": {"layers": plan["p28"]["f32_layers"],
+                        "heads_max_diff": f32_heads,
+                        "update_rms_rel_diff": f32_rms,
+                        "update_max_rel_diff": f32_max,
+                        "ms": [r["a"]["f32_steps"][0]["ms"] for r in ranks],
+                        "one_card_ms": ref_rows[-1]["ms"]},
+            "ms_a_step": [[row["ms"] for row in r["a"]["steps"]]
+                          for r in ranks],
+            "one_card_ms_a_step": [row["ms"] for row in ref_rows[:-1]],
+            "crossed_bytes_a_step": [r["a"]["steps"][-1]["crossed"]
+                                     for r in ranks],
+            "replicated_bitwise": len(reps[0])}
+        b = ranks[0]["b"]
+        state = [torch.load(os.path.join(out, f"p28b_rank{i}.pt"))
+                 for i in range(2)]
+        stats["b"] = {
+            "ms_a_step": [[row["ms"] for row in r["b"]["steps"]]
+                          for r in ranks],
+            "crossed_bytes_a_step": [r["b"]["steps"][-1]["crossed"]
+                                     for r in ranks],
+            "zero_state_bytes": [r["b"]["zero_state_bytes"] for r in ranks],
+            "write_ms": [r["b"]["write_ms"] for r in ranks]}
+        t0 = time.perf_counter()
+        stats["b"].update(p28_restore(torch, mx, plan, b["path"], state))
+        stats["b"].update(p28_inspect(b["path"]))
+        stats["restore_s"] = time.perf_counter() - t0
+    check(_build.build_count() == builds,
+          f"phase 28 built or first loaded {_build.build_count() - builds} "
+          "kernel libraries")
+    stats["launches"] = launches
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"  (a) Megatron over {{model: 2}} across 2 processes on one card: "
+        f"{json.dumps(stats['a'])}")
+    log(f"  (b) ZeRO over {{data: 2}} across 2 processes, save_state, "
+        f"restored on one card: {json.dumps(stats['b'])}")
+    log("  process meshes: " + json.dumps(
+        {k: v for k, v in stats.items() if k not in ("a", "b")}))
+    return launches, stats
+
+
 def ptxas_summary(text):
     """``(kernel, registers, spills)`` per entry function of a ``ptxas
     -v`` log: the kernel's name (the lower-case identifier ending in
@@ -11983,14 +12431,14 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[1/27] device")
+    log("[1/28] device")
     smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2/27] build")
+    log("[2/28] build")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -12005,7 +12453,7 @@ def main(argv) -> int:
         log(smi)
         return 0
 
-    log("[3/27] kernels against their plain versions")
+    log("[3/28] kernels against their plain versions")
     errs = phase_kernel_vs_plain(torch, np, fd)
     fp8_errs, _ = phase_fp8_vs_plain(torch, np, fd, quant, kv)
     k1_errs = phase_k1_vs_plain(torch, np, nn_ops)
@@ -12014,22 +12462,22 @@ def main(argv) -> int:
     kern = rtc_kernels(torch, rtc)
     rtc_errs, _ = phase_rtc_vs_plain(torch, np, rtc, kern)
 
-    log("[4/27] serving transformer-LM 6L d512 8 heads, 32k vocab")
+    log("[4/28] serving transformer-LM 6L d512 8 heads, 32k vocab")
     k5_launches, _ = phase_serve(torch, np, fd)
 
-    log(f"[5/27] serving the round-12 configuration: chunked prefill "
+    log(f"[5/28] serving the round-12 configuration: chunked prefill "
         f"({R12_CHUNK}), f32 pools, then fp8 pools")
     fp8_launches, _ = phase_serve_r12(torch, np, fd, kv)
 
-    log(f"[6/27] prefix cache: {PREFIX_REQUESTS} requests sharing a "
+    log(f"[6/28] prefix cache: {PREFIX_REQUESTS} requests sharing a "
         f"{PREFIX_LEN}-token prefix, fp8 pools, defrag")
     phase_prefix_cache(torch, np, fd)
 
-    log(f"[7/27] training ResNet-{DEPTH}, batch {BATCH}, "
+    log(f"[7/28] training ResNet-{DEPTH}, batch {BATCH}, "
         f"{'x'.join(map(str, IMAGE))}, {CLASSES} classes, f32")
     train_launches, train_stats = phase_train(torch, np, nn_ops, fu)
 
-    log("[8/27] kernel timing")
+    log("[8/28] kernel timing")
     floor = phase_launch_floor(torch)
     timing = {"flash_decode": phase_timing_decode(torch, np, fd, quant, kv,
                                                   False),
@@ -12046,25 +12494,25 @@ def main(argv) -> int:
     timing.update(k34_timing["bf16"])
     timing.update(phase_timing_rtc(torch, np, kern))
 
-    log(f"[9/27] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
+    log(f"[9/28] training transformer-LM {LAYERS}L d{D_MODEL} {HEADS} heads, "
         f"{VOCAB} vocab, batch {LM_BATCH}, seq {LM_SEQ}, bf16 compute, "
         "Adam")
     lm_launches, lm_stats = phase_train_lm(torch, np, fa, fu)
 
-    log("[10/27] imperative + executor: NDArray on the card, the MLP "
+    log("[10/28] imperative + executor: NDArray on the card, the MLP "
         f"{MLP_IN}-128-64-{MLP_CLASSES} with a K6 softmax head, batch "
         f"{MLP_BATCH}")
     phase_imperative(torch, np)
     rtc_launches, _ = phase_rtc_mlp(torch, np, mx, kern, nn_ops)
 
-    log(f"[11/27] speculative decoding: {SPEC_REQUESTS} requests x "
+    log(f"[11/28] speculative decoding: {SPEC_REQUESTS} requests x "
         f"{SPEC_NEW} new tokens, k {SPEC_K}, chunks of "
         f"{SPEC_KW['prefill_chunk']}")
     t0 = time.perf_counter()
     spec_k5, spec_k5_fp8, _ = phase_speculate(torch, np, fd)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log("[12/27] the serving control plane: crash failover, a hung and a "
+    log("[12/28] the serving control plane: crash failover, a hung and a "
         "poisoned replica, rolling swaps, the diurnal gameday with "
         "autoscaling, speculation under the router")
     t0 = time.perf_counter()
@@ -12072,7 +12520,7 @@ def main(argv) -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[13/27] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
+    log(f"[13/28] the training loop: ShardedTrainer.fit on ResNet-{DEPTH} "
         f"({LOOP_EPOCHS} epochs of {LOOP_BATCHES} batches, then under chaos) "
         f"and on the LM ({LM_LOOP_BATCHES} batches)")
     loop_launches, _ = phase_train_loop(
@@ -12081,7 +12529,7 @@ def main(argv) -> int:
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[14/27] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
+    log(f"[14/28] the zoo and the legacy API: {', '.join(ZOO_NETS)} through "
         f"ShardedTrainer ({ZOO_STEPS} steps, batch {BATCH}, bf16), "
         "FeedForward and Module on inception-bn-28-small, BucketingModule "
         "over the LSTM, the new ops on the card")
@@ -12089,7 +12537,7 @@ def main(argv) -> int:
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[16/27] long training runs: the LM with fp8 linears, recompute "
+    log(f"[16/28] long training runs: the LM with fp8 linears, recompute "
         f"scopes, {LONG_ACCUM} microbatches and dynamic loss scaling; fit "
         "with checkpoints, resume, SIGTERM, rollback; serving and the "
         "online loop from the checkpoint")
@@ -12097,7 +12545,7 @@ def main(argv) -> int:
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[17/27] programs and the profiler: serve and train steps "
+    log("[17/28] programs and the profiler: serve and train steps "
         "captured as CUDA graphs (the engine's warmup, ShardedTrainer."
         "compile, Module and BucketingModule compile), replays against "
         "eager, profiler.trace and profile_step, the persistent cache")
@@ -12105,7 +12553,7 @@ def main(argv) -> int:
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[18/27] data parallelism in one process: ResNet-{DEPTH} through "
+    log(f"[18/28] data parallelism in one process: ResNet-{DEPTH} through "
         "ShardedTrainer over the data mesh (implicit, int8 with error "
         "feedback fused and unfused, ZeRO), FeedForward and Module over two "
         "contexts of one card with the device kvstore, the kvstore over "
@@ -12114,7 +12562,7 @@ def main(argv) -> int:
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[19/27] input records, the deployment predictor and the last ops: "
+    log(f"[19/28] input records, the deployment predictor and the last ops: "
         f"{REC_IMAGES} packed images through ImageRecordIter into "
         f"ResNet-{DEPTH}'s fit, predictor.create and an exported artifact "
         f"served without the port, WarpCTC at the OCR example's sizes, the "
@@ -12123,7 +12571,7 @@ def main(argv) -> int:
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[20/27] tensor and model parallelism: the LM with its embedding "
+    log(f"[20/28] tensor and model parallelism: the LM with its embedding "
         f"on the host through group2ctx, the split rewrite of "
         f"megatron_rules() at a model axis of 1, two cards where there "
         f"are two")
@@ -12132,7 +12580,7 @@ def main(argv) -> int:
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[21/27] mixture of experts and ring attention: MoEFFN (8 experts "
+    log(f"[21/28] mixture of experts and ring attention: MoEFFN (8 experts "
         f"of {P21_MOE['hidden_size']}, top-2 then top-1, aux head) over "
         f"{P21_TOKENS[0] * P21_TOKENS[1]} tokens at d {D_MODEL} on the card "
         f"against the host, ring_self_attention over a one-card seq mesh at "
@@ -12141,7 +12589,7 @@ def main(argv) -> int:
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[22/27] pipelines: the LM through PipelineTrainer over "
+    log(f"[22/28] pipelines: the LM through PipelineTrainer over "
         f"{P22_STAGES} stages on the card (1F1B, remat) against "
         f"ShardedTrainer, the dryrun's MLP through PipelineTrainer, "
         f"SpmdPipelineTrainer and pipeline_apply, two cards where there "
@@ -12150,7 +12598,7 @@ def main(argv) -> int:
     log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[23/27] the multi-process tier: launch_local with 1 scheduler, "
+    log(f"[23/28] the multi-process tier: launch_local with 1 scheduler, "
         f"{P23_SERVERS} servers and {P23_WORKERS} workers on the card "
         f"(dist_sync exact aggregation and ResNet-{DEPTH} through "
         f"FeedForward.fit, then dist_async), the LM through ShardedTrainer "
@@ -12160,7 +12608,7 @@ def main(argv) -> int:
     log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[24/27] the multi-process tier, part two: the watchdog on the card "
+    log("[24/28] the multi-process tier, part two: the watchdog on the card "
         "(a hung, a dead and a dead monitor rank of three over gloo), "
         "ElasticTrainer under membership chaos through "
         "tools/torch_launch.py, SIGTERM inside a step, a live resize where "
@@ -12169,7 +12617,7 @@ def main(argv) -> int:
     log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[25/27] the analysis tooling on the card: the LM's captured step "
+    log(f"[25/28] the analysis tooling on the card: the LM's captured step "
         f"({P25_LAYERS} layers) with async CUDA checkpoints and the "
         f"prefetcher under the concurrency sanitizer, the schedule fuzzer's "
         f"six scenarios ({P25_SEEDS} seeds each, routers replaying K5), the "
@@ -12178,7 +12626,7 @@ def main(argv) -> int:
     log(f"  phase 25 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[26/27] the program auditor on the card: the LM ({LAYERS}L "
+    log(f"[26/28] the program auditor on the card: the LM ({LAYERS}L "
         f"d{D_MODEL}, batch {LM_BATCH} x {LM_SEQ}) and ResNet-{DEPTH} "
         f"(batch {BATCH}) captured under audit_on_compile and audited by "
         f"audit_trainer, the engine's decode programs over fp8 and plain "
@@ -12187,7 +12635,7 @@ def main(argv) -> int:
     log(f"  phase 26 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[27/27] the tuned conv backward, the C predict API and the last "
+    log(f"[27/28] the tuned conv backward, the C predict API and the last "
         f"tools: _conv2d_bwd under tuned against cuDNN's at batch "
         f"{P27_BATCH} (bf16, f32) with torch_conv_probe's times, "
         f"ResNet-{DEPTH} steps under tuned and the default, phase 19's "
@@ -12195,8 +12643,17 @@ def main(argv) -> int:
     p27_launches, _ = phase_conv_tools(torch, np, nn_ops, fu, _build)
     log(f"  phase 27 took {time.perf_counter() - t0:.1f} s")
 
-    # the result comes last, after phase 27
-    log("[15/27] result")
+    t0 = time.perf_counter()
+    log(f"[28/28] meshes that span processes, two ranks on the card over "
+        f"gloo: the LM ({LAYERS}L d{D_MODEL}, batch {LM_BATCH} x {LM_SEQ}, "
+        f"bf16, Adam) under megatron_rules() over {{model: 2}} across the "
+        f"ranks against one card, then with ZeRO over {{data: 2}} across "
+        f"them, save_state by both and a restore on one card")
+    p28_launches, _ = phase_process_meshes(torch, np, mx, _build)
+    log(f"  phase 28 took {time.perf_counter() - t0:.1f} s")
+
+    # the result comes last, after phase 28
+    log("[15/28] result")
     # K3/K4 run the hopper form on the main path: their max abs error is
     # that form's, over its cases
     hopper_errs = [v for v in k34_errs.values() if v[4] == "hopper"]
@@ -12225,7 +12682,7 @@ def main(argv) -> int:
          + p18_launches["softmax_rows"] + p19_launches["softmax_rows"]
          + p22_launches["softmax_rows"] + p23_launches["softmax_rows"]
          + p24_launches["softmax_rows"] + p26_launches["softmax_rows"]
-         + p27_launches["softmax_rows"],
+         + p27_launches["softmax_rows"] + p28_launches["softmax_rows"],
          max(v for k, v in k1_errs.items()
              if "float32" in k and k.endswith("warp"))),
         # K2 runs on the training paths: ResNet-50 (SGD) and the LM
@@ -12243,7 +12700,8 @@ def main(argv) -> int:
          + p18_launches["fused_update"] + p19_launches["fused_update"]
          + p21_launches["fused_update"] + p23_launches["fused_update"]
          + p24_launches["fused_update"] + p25_launches["fused_update"]
-         + p26_launches["fused_update"] + p27_launches["fused_update"],
+         + p26_launches["fused_update"] + p27_launches["fused_update"]
+         + p28_launches["fused_update"],
          k2_err),
         ("flash_attn_fwd", "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:77",
@@ -12252,7 +12710,7 @@ def main(argv) -> int:
          + p20_launches["flash_attn_fwd"] + p21_launches["flash_attn_fwd"]
          + p22_launches["flash_attn_fwd"] + p23_launches["flash_attn_fwd"]
          + p24_launches["flash_attn_fwd"] + p25_launches["flash_attn_fwd"]
-         + p26_launches["flash_attn_fwd"],
+         + p26_launches["flash_attn_fwd"] + p28_launches["flash_attn_fwd"],
          max(e[2] for e in hopper_errs)),
         ("flash_attn_bwd", "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "mxnet_tpu/parallel/flash_attention.py:264",
@@ -12261,7 +12719,7 @@ def main(argv) -> int:
          + p20_launches["flash_attn_bwd"] + p21_launches["flash_attn_bwd"]
          + p22_launches["flash_attn_bwd"] + p23_launches["flash_attn_bwd"]
          + p24_launches["flash_attn_bwd"] + p25_launches["flash_attn_bwd"]
-         + p26_launches["flash_attn_bwd"],
+         + p26_launches["flash_attn_bwd"] + p28_launches["flash_attn_bwd"],
          max(e[3] for e in hopper_errs)),
         # K6: the runtime (mxnet_tpu_torch/rtc.py) compiles these user
         # sources, which live in this script

@@ -142,6 +142,42 @@ class CheckpointManager:
             self._writer.submit(commit)
         return self.step_path(step)
 
+    def save_shards(self, step: int,
+                    shards: Dict[str, Tuple[Sequence[int], list]],
+                    meta: Optional[Dict[str, Any]] = None, exchange=None,
+                    process_index: int = 0, process_count: int = 1) -> str:
+        """Checkpoint ``step`` written by several processes at once, each
+        calling with its ``shards`` (``{name: (global shape, [(index,
+        array)])}``, the pieces it writes: ``writer.
+        write_process_checkpoint``) and ``exchange`` (an all-gather of
+        objects over the processes).  Runs on the calling thread, where
+        the processes meet, and returns the committed path; earlier
+        saves of this manager commit first.  ``meta`` may be a
+        zero-argument callable, called after the snapshot (the trainer's
+        reads scalars it queued for the host before it)."""
+        step = int(step)
+        self.wait_until_finished()
+        flat = {(name, k): arr for name, (_, pieces) in shards.items()
+                for k, (_, arr) in enumerate(pieces)}
+        snap = writer.snapshot(flat)
+        host = {name: (shape, [(index, snap[(name, k)][0][1])
+                               for k, (index, _) in enumerate(pieces)])
+                for name, (shape, pieces) in shards.items()}
+        if callable(meta):
+            meta = meta()
+        self._last_save_step = step
+        self._last_save_time = time.monotonic()
+        path = writer.write_process_checkpoint(
+            self.directory, step, host, meta, exchange, process_index,
+            process_count)
+        if process_index == 0:
+            writer.gc_checkpoints(self.directory, self.keep_last,
+                                  self.keep_every, logger=self.logger)
+        self.logger.info("checkpoint: committed step %d -> %s (%d "
+                         "processes)", step, layout.step_dir_name(step),
+                         process_count)
+        return path
+
     def maybe_save(self, step: int, state_fn: Callable[[], Tuple],
                    blocking: Optional[bool] = None) -> bool:
         """Policy-gated save: when :meth:`should_save` fires, call

@@ -24,6 +24,13 @@ A process killed mid-write leaves only a staging dir, which discovery
 (:func:`layout.committed_steps`) ignores and the next writer sweeps.
 One device holds every array whole, so each array is one shard
 (``<array>.00.bin``), as the JAX package writes an unsharded one.
+
+Over a mesh that spans processes (:func:`write_process_checkpoint`) each
+process writes the pieces it is the first to hold, named
+``<array>.<shard>.p<process>.bin`` (``layout.shard_file_name``), into
+one staging directory that process 0 makes; after every process has
+written, process 0 writes the manifest of all their pieces, with
+``process_count``, and commits the directory.
 """
 from __future__ import annotations
 
@@ -40,8 +47,8 @@ from .. import telemetry
 from ..base import MXNetError
 from . import layout
 
-__all__ = ["snapshot", "write_checkpoint", "AsyncCheckpointWriter",
-           "gc_checkpoints", "sweep_staging"]
+__all__ = ["snapshot", "write_checkpoint", "write_process_checkpoint",
+           "AsyncCheckpointWriter", "gc_checkpoints", "sweep_staging"]
 
 
 def snapshot(arrays: Dict[str, Any]) -> Dict[str, List[Tuple]]:
@@ -83,6 +90,17 @@ def snapshot(arrays: Dict[str, Any]) -> Dict[str, List[Tuple]]:
                         else v)] for name, v in staged.items()}
 
 
+def _write_shard(staging: str, fname: str, host: np.ndarray) -> Tuple:
+    """One shard's raw C-contiguous bytes into ``staging/fname``,
+    fsynced: ``(nbytes, checksum)``."""
+    payload = np.ascontiguousarray(host).tobytes()
+    with open(os.path.join(staging, fname), "wb") as f:
+        f.write(payload)
+        f.flush()
+        os.fsync(f.fileno())
+    return len(payload), layout.checksum_bytes(payload)
+
+
 def write_checkpoint(root: str, step: int, snap: Dict[str, List[Tuple]],
                      meta: Optional[Dict[str, Any]] = None,
                      process_index: int = 0, process_count: int = 1) -> str:
@@ -101,21 +119,16 @@ def write_checkpoint(root: str, step: int, snap: Dict[str, List[Tuple]],
                 shards = []
                 shape = dtype_str = None
                 for si, (index, host) in enumerate(leaves):
-                    host = np.ascontiguousarray(host)
                     if index is None:
                         index = [[0, int(d)] for d in host.shape]
                         shape, dtype_str = list(host.shape), host.dtype.str
-                    payload = host.tobytes()
-                    written += len(payload)
                     fname = layout.shard_file_name(ai, si, process_index)
-                    with open(os.path.join(staging, fname), "wb") as f:
-                        f.write(payload)
-                        f.flush()
-                        os.fsync(f.fileno())
+                    nbytes, crc = _write_shard(staging, fname, host)
+                    written += nbytes
                     shards.append({"file": fname,
                                    "index": index,
-                                   "nbytes": len(payload),
-                                   "checksum": layout.checksum_bytes(payload)})
+                                   "nbytes": nbytes,
+                                   "checksum": crc})
                 if shape is None:
                     # sharded leaves: global shape = max stop per dim
                     shape = [max(s["index"][d][1] for s in shards)
@@ -139,6 +152,87 @@ def write_checkpoint(root: str, step: int, snap: Dict[str, List[Tuple]],
             os.fsync(dirfd)
         finally:
             os.close(dirfd)
+    telemetry.counter("ckpt.saves").inc()
+    telemetry.counter("ckpt.bytes").inc(written)
+    return final
+
+
+def write_process_checkpoint(root: str, step: int,
+                             shards: Dict[str, Tuple[Sequence[int], list]],
+                             meta: Optional[Dict[str, Any]], exchange,
+                             process_index: int, process_count: int) -> str:
+    """One process's part of a checkpoint that several processes write,
+    every process calling at once.  ``shards`` maps every array name to
+    ``(global shape, [(index, host array)])``: the pieces this process
+    writes (``index`` ``[[start, stop], ...]``, None for the whole
+    array; an empty list where other processes write it).
+    ``exchange(obj)`` gathers an object from every process, in process
+    order.  Process 0 makes the staging directory, writes the manifest of
+    every process's pieces and commits it; every process returns the
+    committed path once the commit is done, or raises if any part
+    failed."""
+    final = layout.step_path(root, step)
+    staging = None
+    # every process is here, its manager made (which sweeps the staging
+    # directories of other writers), before process 0 makes its own
+    exchange(None)
+    if process_index == 0:
+        staging = layout.staging_path(root, step)
+        if os.path.exists(staging):
+            shutil.rmtree(staging)
+        os.makedirs(staging)
+    staging = exchange(staging)[0]
+    entries: Dict[str, Any] = {}
+    error = None
+    written = 0
+    with telemetry.span("ckpt.write", step=step, arrays=len(shards)):
+        try:
+            for ai, name in enumerate(sorted(shards)):
+                shape, pieces = shards[name]
+                out = []
+                for si, (index, host) in enumerate(pieces):
+                    if index is None:
+                        index = [[0, int(d)] for d in shape]
+                    fname = layout.shard_file_name(ai, si, process_index)
+                    nbytes, crc = _write_shard(staging, fname, host)
+                    written += nbytes
+                    out.append({"file": fname, "index": index,
+                                "nbytes": nbytes, "checksum": crc,
+                                "dtype": np.dtype(host.dtype).str})
+                entries[name] = out
+        except Exception as exc:    # the others must hear of it
+            error = f"process {process_index}: {exc!r}"
+        parts = exchange((entries, error))
+        errors = [e for _, e in parts if e is not None]
+        if process_index == 0 and not errors:
+            try:
+                arrays = {}
+                for name in sorted(shards):
+                    got = [sh for ent, _ in parts for sh in ent[name]]
+                    dtype = got[0].pop("dtype")
+                    for sh in got[1:]:
+                        sh.pop("dtype")
+                    arrays[name] = layout.make_array_entry(
+                        shards[name][0], dtype, got)
+                layout.write_manifest(staging, step, arrays, meta=meta,
+                                      process_count=process_count)
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.replace(staging, final)
+                dirfd = os.open(root, os.O_RDONLY)
+                try:
+                    os.fsync(dirfd)
+                finally:
+                    os.close(dirfd)
+            except Exception as exc:
+                errors.append(f"process 0's commit: {exc!r}")
+        if process_index == 0 and errors:
+            shutil.rmtree(staging, ignore_errors=True)
+        committed = exchange(errors if process_index == 0 else None)[0]
+    if committed:
+        telemetry.counter("ckpt.write_errors").inc()
+        raise MXNetError(f"checkpoint step {step} over {process_count} "
+                         f"processes failed: {committed}")
     telemetry.counter("ckpt.saves").inc()
     telemetry.counter("ckpt.bytes").inc(written)
     return final

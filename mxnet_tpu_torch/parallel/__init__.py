@@ -12,8 +12,8 @@ Counterpart of ``mxnet_tpu/parallel/__init__.py``, with the same names:
 * :mod:`.moe` -- the mixture-of-experts programs, dense and expert
   parallel over an ``expert`` axis;
 * :mod:`.trainer` -- :class:`ShardedTrainer`: data, tensor, sequence and
-  expert parallelism over a mesh in one process (implicit and compressed
-  modes, error feedback, ZeRO, :class:`ShardingRules` and
+  expert parallelism over a mesh of one process or several (implicit
+  and compressed modes, error feedback, ZeRO, :class:`ShardingRules` and
   :func:`megatron_rules` over a ``model`` axis, computed by the plans of
   :mod:`.tensor_parallel`; rules over an ``expert`` axis; a ``pipe``
   axis replicates the step), the fused update (K2) and flash attention
@@ -31,7 +31,11 @@ Counterpart of ``mxnet_tpu/parallel/__init__.py``, with the same names:
 
 * :mod:`.dist` -- :func:`~.dist.init_distributed`: the process group
   (NCCL or gloo by layout) after which meshes span every process's
-  contexts, the trainer running this process's members;
+  contexts, the trainer running this process's members, and the groups
+  of some of the processes (:func:`~.dist.subgroup`);
+* :mod:`.process_mesh` -- :class:`~.process_mesh.ProcessLayout`: a mesh
+  that spans processes seen from one of them (its box, the lines along
+  each axis, who holds a coordinate);
 * :mod:`.dist_kvstore` -- the parameter server (``dist_sync``,
   ``dist_async``): scheduler, servers, the worker store and the
   scheduler's membership views (:class:`~.dist_kvstore.
@@ -52,8 +56,8 @@ import below shadows the submodule, which
 """
 from . import (collectives, dist, dist_kvstore, elastic, flash_attention,
                launch, members, mesh, moe, pipeline, pipeline_spmd,
-               pipeline_trainer, ring_attention, tensor_parallel, trainer,
-               watchdog)
+               pipeline_trainer, process_mesh, ring_attention,
+               tensor_parallel, trainer, watchdog)
 from .collectives import allreduce_mean, allreduce_sum
 from .elastic import (ElasticTrainer, default_mesh_size, pow2_floor,
                       wire_watchdog)

@@ -26,7 +26,10 @@ coordinate: ``mesh.axis_groups``), :func:`psum`, :func:`pmax`,
 Between distinct cards each group reduces through NCCL on a communicator
 of its own devices (``torch.cuda.nccl`` keeps one per device set).
 Across processes (``dist.init_distributed``), :func:`allreduce_processes`
-sums through the process group.
+sums through the process group, or the group of some of the processes;
+every value that crosses processes is counted by :func:`count_collectives`
+as kind ``"process"`` along the axis it crosses
+(:func:`record_process_call`).
 
 Gradient fusion: :func:`allreduce_sum`/:func:`allreduce_mean` take a list
 of gradient groups (one tensor a member each), lay them end to end in
@@ -48,7 +51,10 @@ member: the max of the members' block absmax; round half to even of
 payload pinned to 448 at the block absmax, summed on f32 lanes) and
 ``"bf16"``, with an optional error-feedback residual a member that
 returns the quantization error each member just committed.  Non-float
-inputs take the plain sum.
+inputs take the plain sum.  Over members of several processes
+(``gather=``) each process sends its members' payloads in the wire
+format, and every process sums every member's in member order: the
+result is bitwise the one-process sum.
 """
 from __future__ import annotations
 
@@ -68,7 +74,8 @@ __all__ = ["allreduce_sum", "allreduce_mean", "distinct_devices",
            "psum_compressed", "count_collectives", "CollectiveStats",
            "DEFAULT_BUCKET_BYTES", "COMPRESSIONS", "plan_buckets",
            "check_compression", "member_of", "psum", "pmax", "all_gather",
-           "reduce_scatter", "over_axis", "allreduce_processes"]
+           "reduce_scatter", "over_axis", "allreduce_processes",
+           "record_process_call"]
 
 DEFAULT_BUCKET_BYTES = 4 << 20  # ~4 MiB, the classic DDP default
 COMPRESSIONS = (None, "int8", "bf16", "fp8")
@@ -205,6 +212,23 @@ def record_axis_call(kind: str, axis: str, t: torch.Tensor,
            "compression": None, "mean": False, "kind": kind, "axis": axis})
 
 
+def record_process_call(axis: Optional[str], what,
+                        processes: int) -> None:
+    """Count one exchange between ``processes`` processes along mesh
+    ``axis`` (kind ``"process"`` in :func:`count_collectives`' records):
+    ``what`` is the tensor sent in its wire format, or its byte
+    count."""
+    if isinstance(what, torch.Tensor):
+        dtype = _dtype_name(what.dtype)
+        what = what.numel() * what.element_size()
+    else:
+        dtype = None
+    _emit({"nbytes": int(what), "wire_nbytes": int(what),
+           "num_pieces": processes, "tensor_indices": [], "dtype": dtype,
+           "compression": None, "mean": False, "kind": "process",
+           "axis": axis})
+
+
 def psum(parts: Sequence[torch.Tensor],
          axis: Optional[str] = None) -> List[torch.Tensor]:
     """The sum of one tensor a member, one result a member on its
@@ -307,14 +331,18 @@ def reduce_scatter(parts: Sequence[torch.Tensor], dim: int = 0,
 
 def allreduce_processes(tensors: Sequence[torch.Tensor],
                         bucket_bytes: Optional[int] = None,
-                        axis: Optional[str] = None) -> List[torch.Tensor]:
-    """Each tensor summed over every process of the process group
-    (``dist.init_distributed``): the tensors of one dtype laid end to end
-    in order, cut into ~``bucket_bytes`` flat buckets, one
-    ``torch.distributed.all_reduce`` a bucket (NCCL or gloo, as the group
-    was made); counted by :func:`count_collectives` (kind ``"process"``,
-    along ``axis``).  Returns one result a tensor, on its device."""
+                        axis: Optional[str] = None,
+                        ranks: Optional[Sequence[int]] = None
+                        ) -> List[torch.Tensor]:
+    """Each tensor summed over every process of the process group, or
+    over the processes ``ranks`` (``dist.init_distributed``): the tensors
+    of one dtype laid end to end in order, cut into ~``bucket_bytes``
+    flat buckets, one ``torch.distributed.all_reduce`` a bucket (NCCL or
+    gloo, as the group was made); counted by :func:`count_collectives`
+    (kind ``"process"``, along ``axis``).  Returns one result a tensor,
+    on its device, the same bits on every process."""
     import torch.distributed as tdist
+    from . import dist
     bucket_bytes = bucket_bytes or DEFAULT_BUCKET_BYTES
     tensors = list(tensors)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
@@ -332,7 +360,8 @@ def allreduce_processes(tensors: Sequence[torch.Tensor],
             piece = flat[start:start + n]
             _program.note_kernel("all_reduce", reads=(piece,),
                                  collective="reduce")
-            tdist.all_reduce(piece)
+            tdist.all_reduce(piece, group=(None if ranks is None
+                                           else dist.subgroup(ranks)))
             _emit({"nbytes": n * itemsize, "wire_nbytes": n * itemsize,
                    "num_pieces": len(bucket),
                    "tensor_indices": [idxs[pi] for pi, _, _ in bucket],
@@ -383,7 +412,8 @@ def _block_view(flat: torch.Tensor, block: int) -> torch.Tensor:
 def psum_compressed(xs: Sequence[torch.Tensor],
                     compression: Optional[str] = None, *,
                     block: Optional[int] = None,
-                    residuals: Optional[Sequence[torch.Tensor]] = None):
+                    residuals: Optional[Sequence[torch.Tensor]] = None,
+                    gather: Optional[Callable] = None):
     """All-reduce-sum one tensor a member (each on its member's device),
     optionally through a quantized wire format; returns one result a
     member, and with ``residuals`` (one flat f32 a member, ``x.numel()``
@@ -401,15 +431,33 @@ def psum_compressed(xs: Sequence[torch.Tensor],
     ``compression`` and take the plain sum.  The block scale is the
     absmax times the float32 reciprocal of 127 (or 448) and the residual
     ``y - q * scale`` is rounded once: XLA compiles the JAX function so,
-    and the results here are bitwise its."""
+    and the results here are bitwise its.
+
+    ``gather``: when the members span processes, a function that maps
+    this process's members' tensors (one a member, one shape) to every
+    member's in member order, on the first tensor's device; the wire
+    payloads, the block maxima and the plain values go through it, and
+    each process sums every member's."""
     check_compression(compression)
     xs = list(xs)
+
+    def over(fn, parts, lanes=None):
+        # ``fn`` (psum or pmax) over every member's part, on lanes of
+        # ``lanes`` once the payloads have crossed
+        widen = (lambda ps: ps) if lanes is None else (
+            lambda ps: [p.to(lanes) for p in ps])
+        if gather is None:
+            return fn(widen(parts))
+        total = fn(widen(gather(parts)))[0]
+        return [total if total.device == p.device else total.to(p.device)
+                for p in parts]
+
     if compression is None or not xs[0].is_floating_point():
-        red = psum(xs)
+        red = over(psum, xs)
         return red if residuals is None else (red, list(residuals))
     if compression == "bf16" and residuals is None:
         return [r.to(x.dtype) for r, x in
-                zip(psum([x.to(torch.bfloat16) for x in xs]), xs)]
+                zip(over(psum, [x.to(torch.bfloat16) for x in xs]), xs)]
 
     ys = []
     for i, x in enumerate(xs):
@@ -419,13 +467,14 @@ def psum_compressed(xs: Sequence[torch.Tensor],
         ys.append(y)
     if compression == "bf16":
         qs = [y.to(torch.bfloat16) for y in ys]
-        reds = [r.to(torch.float32) for r in psum(qs)]
+        reds = [r.to(torch.float32) for r in over(psum, qs)]
         new_res = [y - q.to(torch.float32) for y, q in zip(ys, qs)]
     else:
         if block is None:
             block = quant.default_block_size()
         ybs = [_block_view(y, block) for y in ys]
-        absmax = pmax([yb.abs().amax(dim=1, keepdim=True) for yb in ybs])
+        absmax = over(pmax, [yb.abs().amax(dim=1, keepdim=True)
+                             for yb in ybs])
         qs, scales = [], []
         for yb, am in zip(ybs, absmax):
             # the block scale times the format's f32 reciprocal: XLA
@@ -441,7 +490,7 @@ def psum_compressed(xs: Sequence[torch.Tensor],
             qs.append(q)
             scales.append(scale)
         lanes = torch.int32 if compression == "int8" else torch.float32
-        sums = psum([q.to(lanes) for q in qs])
+        sums = over(psum, qs, lanes)
         n = ys[0].numel()
         reds = [(sm.to(torch.float32) * s).reshape(-1)[:n]
                 for sm, s in zip(sums, scales)]

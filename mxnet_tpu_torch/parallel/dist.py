@@ -13,7 +13,18 @@ process's contexts::
     trainer = ShardedTrainer(sym, mesh=mesh, ...)
 
 ``ShardedTrainer`` over such a mesh runs only this process's members and
-takes this process's rows of the global batch (``parallel/trainer.py``).
+takes the rows of the data coordinates they hold (``parallel/trainer.py``).
+
+A meeting of only some of the processes goes through their own group:
+:func:`subgroup` makes the ``torch.distributed`` group of a set of
+processes once (``new_group`` is itself a collective of every process,
+so every process asks for the same groups in the same order), and
+:func:`all_gather_object` and :func:`gather_tensors` take the set of
+processes they run over.  :func:`gather_tensors` sends tensors as tensors
+(their shapes are known to every process) and counts what it sends;
+:func:`all_gather_object` pickles values whose shapes are not.  A sum
+over some of the processes is ``collectives.allreduce_processes(...,
+ranks=)``.
 
 Rendezvous: a ``TCPStore`` at ``MXTPU_COORDINATOR`` (``host:port``; process
 0 hosts it), with ``MXTPU_NUM_PROC`` and ``MXTPU_PROC_ID``, as the JAX
@@ -33,14 +44,15 @@ import datetime
 import os
 import pickle
 import socket
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..base import MXNetError
 from ..context import Context, as_context, gpu, num_devices
 
 __all__ = ["init_distributed", "is_initialized", "process_index",
            "process_count", "backend", "global_contexts", "shutdown",
-           "all_gather_object", "choose_backend"]
+           "all_gather_object", "gather_tensors", "subgroup",
+           "transport", "choose_backend"]
 
 _LOOPBACK = ("127.0.0.1", "localhost", "::1")
 
@@ -54,6 +66,8 @@ class _World:
                  layout: List[List[tuple]]):
         self.rank, self.size, self.backend = rank, size, backend
         self.store, self.layout = store, layout
+        # the process groups of sets of processes, by their sorted ranks
+        self.groups: Dict[Tuple[int, ...], Any] = {}
 
 
 _world: Optional[_World] = None
@@ -208,12 +222,107 @@ def global_contexts() -> List[Context]:
     return out
 
 
-def all_gather_object(obj: Any) -> List[Any]:
-    """Every process's ``obj`` in process order, through the process
-    group (tensors travel as host tensors)."""
+def _ranks(ranks: Optional[Sequence[int]]) -> Tuple[int, ...]:
+    return (tuple(range(_world.size)) if ranks is None
+            else tuple(sorted({int(r) for r in ranks})))
+
+
+def subgroup(ranks: Sequence[int]):
+    """The ``torch.distributed`` group of the processes ``ranks`` (None,
+    the default group, when they are every process), made at the first
+    call.  ``new_group`` is a collective of every process: each process
+    asks for the same sets in the same order, including the sets it is
+    not part of."""
     import torch.distributed as tdist
-    out: List[Any] = [None] * _world.size
-    tdist.all_gather_object(out, obj)
+    ranks = _ranks(ranks)
+    if len(ranks) == _world.size:
+        return None
+    if ranks not in _world.groups:
+        _world.groups[ranks] = tdist.new_group(list(ranks))
+    return _world.groups[ranks]
+
+
+def transport(t):
+    """``t`` where the backend moves it: on the host for gloo, on this
+    process's card for NCCL."""
+    import torch
+    if _world.backend == "nccl":
+        return t.to(torch.device("cuda", torch.cuda.current_device()))
+    return t.detach().to("cpu")
+
+
+def all_gather_object(obj: Any, ranks: Optional[Sequence[int]] = None
+                      ) -> List[Any]:
+    """Every process's ``obj`` in process order, through the process
+    group of ``ranks`` (default every process; a process outside
+    ``ranks`` must not call).  Values are pickled: tensors travel as
+    host tensors."""
+    import torch.distributed as tdist
+    ranks = _ranks(ranks)
+    out: List[Any] = [None] * len(ranks)
+    tdist.all_gather_object(out, obj, group=subgroup(ranks))
+    return out
+
+
+# types gloo does not carry: sent as their bytes
+_AS_BYTES = ("bool", "float8_e4m3fn", "float8_e5m2")
+
+
+def gather_tensors(tensors: Sequence, specs: Dict[int, Sequence],
+                   ranks: Optional[Sequence[int]] = None,
+                   axis: Optional[str] = None, device=None
+                   ) -> Dict[int, list]:
+    """Every process's tensors over ``ranks`` (default every process), as
+    tensors: ``specs[q]`` lists process ``q``'s ``(shape, dtype)`` in
+    order, known to every process, and ``tensors`` are this process's.
+    One all-gather a type, each process's tensors of that type end to end
+    and padded to the largest (bool and fp8 as their bytes, which gloo
+    does not carry), each counted by ``count_collectives`` as kind
+    ``"process"`` along ``axis``.  Returns ``{q: [tensor, ...]}``: the
+    others' on ``device`` (default where they arrive), this process's own
+    as given."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from .collectives import record_process_call
+    ranks = _ranks(ranks)
+    me = _world.rank
+    out: Dict[int, list] = {q: [None] * len(specs[q]) for q in ranks}
+    out[me] = list(tensors)
+    dtypes = sorted({dt for q in ranks for _, dt in specs[q]}, key=str)
+    for dtype in dtypes:
+        raw = str(dtype).split(".")[-1] in _AS_BYTES
+        wire = torch.uint8 if raw else dtype
+        size = torch.empty((), dtype=dtype).element_size() if raw else 1
+        mine = [t.reshape(-1) for t in tensors if t.dtype == dtype]
+        mine = [t.to(torch.uint8) if dtype == torch.bool
+                else t.view(torch.uint8) if raw else t for t in mine]
+        flat = (torch.cat([transport(t) for t in mine]) if mine
+                else transport(torch.empty(0, dtype=wire)))
+        counts = [sum(int(np.prod(shape, dtype=np.int64)) * size
+                      for shape, dt in specs[q] if dt == dtype)
+                  for q in ranks]
+        if flat.numel() < max(counts):
+            flat = torch.nn.functional.pad(flat,
+                                           (0, max(counts) - flat.numel()))
+        bufs = [torch.empty_like(flat) for _ in ranks]
+        tdist.all_gather(bufs, flat.contiguous(), group=subgroup(ranks))
+        record_process_call(axis, counts[ranks.index(me)]
+                            * flat.element_size(), len(ranks))
+        for q, buf in zip(ranks, bufs):
+            if q == me:
+                continue
+            off = 0
+            for j, (shape, dt) in enumerate(specs[q]):
+                if dt != dtype:
+                    continue
+                n = int(np.prod(shape, dtype=np.int64)) * size
+                piece = buf[off:off + n]
+                piece = (piece.to(torch.bool) if dtype == torch.bool
+                         else piece.view(dtype) if raw else piece)
+                piece = piece.reshape(shape)
+                out[q][j] = piece if device is None else piece.to(device)
+                off += n
     return out
 
 

@@ -19,17 +19,20 @@ Meetings are keyed by node and call number, so a recompute scope
 replayed in the backward (one thread, after the meeting point closed)
 reads the values its forward exchanged.
 
-Over a data axis that spans processes (``dist.init_distributed``), a
-:class:`ProcessBridge` extends each data-axis meeting to the other
-processes: once this process's members have met, the group's first
-member exchanges their values with the other processes through the
-process group (``dist.all_gather_object``), and every member gets the
-values of the whole global group in its order.  The other processes'
-tensors come out of a link (:class:`_Link`) whose backward sends each
-of them its gradient and returns this process's: one exchange a link,
-the links chained by a token so that every process runs their
-backwards in the same order (the trainer differentiates the last token
-with a zero cotangent beside its heads).
+Over a mesh that spans processes (``dist.init_distributed``), each axis
+whose groups cross processes has a :class:`ProcessBridge`.  Once every
+member of this process has reached its call ``k`` along such an axis,
+the first member exchanges all of them, group by group, with the other
+processes of its line along the axis (``parallel/process_mesh.py``),
+through that line's process group; every member then gets the values of
+its whole global group in its order.  One exchange a call, issued in the
+same order on every process, so the processes' collectives pair up.  The
+other processes' tensors come out of a link (:class:`_Link`) whose
+backward sends each of them its gradient over the same group and
+returns this process's.  The links of every axis hang on one token chain
+(:class:`TokenChain`), so every process runs their backwards in the same
+order (the trainer differentiates the last token with a zero cotangent
+beside its heads).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from . import collectives
 from .mesh import DATA_AXIS
 
 __all__ = ["MemberSync", "MemberHandle", "NodeSync", "ProcessBridge",
-           "run_synced", "current_sync", "mesh_groups"]
+           "TokenChain", "run_synced", "current_sync", "mesh_groups"]
 
 _local = threading.local()
 
@@ -74,82 +77,138 @@ def _flatten(obj):
     return leaves, rebuild
 
 
-def _host(x):
-    return x.detach().to("cpu") if isinstance(x, torch.Tensor) else x
+def _floating(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
+
+
+class TokenChain:
+    """The token the links of one step hang on: a leaf until a tensor
+    that needs a gradient crossed, then the last link's token."""
+
+    def __init__(self):
+        self.token = torch.zeros((), requires_grad=True)
 
 
 class _Link(torch.autograd.Function):
-    """The other processes' tensors of one cross-process meeting, tied
-    to this process's.  Forward: the received tensors (and the next
-    token).  Backward: each received tensor's gradient goes to its
-    owner, this process's tensors get the sum of what the other
-    processes send them, in process order."""
+    """The other processes' floating tensors of one cross-process
+    meeting, tied to this process's.  Forward: the received tensors (and
+    the next token).  Backward: the processes first say which received
+    tensors got a gradient (a meeting that detaches the others' values,
+    a gather, sends none back), then sum over the line's process group a
+    vector with a slot for each such tensor, each process writing the
+    gradients of the others' tensors into their slots and zeros into its
+    own; each process's slots then hold what the others send its
+    tensors."""
 
     @staticmethod
-    def forward(ctx, owners, local_devices, token, *tensors):
-        nlocal = len(local_devices)
-        ctx.owners, ctx.local_devices = owners, local_devices
-        remote = tensors[nlocal:]
-        return (token.clone(),) + tuple(t.clone() for t in remote)
+    def forward(ctx, meta, token, *tensors):
+        ctx.meta = meta
+        ctx.set_materialize_grads(False)
+        return (token.clone(),) + tuple(t.clone()
+                                        for t in tensors[meta["nlocal"]:])
 
     @staticmethod
     def backward(ctx, gtoken, *grads):
         from . import dist
-        me = dist.process_index()
-        send: Dict[int, list] = {}
-        for q, g in zip(ctx.owners, grads):
-            send.setdefault(q, []).append(_host(g))
-        mine: list = [None] * len(ctx.local_devices)
-        for q, got in enumerate(dist.all_gather_object(send)):
-            if q == me:
-                continue
-            for j, g in enumerate(got[me]):
-                mine[j] = g if mine[j] is None else mine[j] + g
-        mine = [None if g is None else g.to(d)
-                for g, d in zip(mine, ctx.local_devices)]
-        return (None, None, gtoken) + tuple(mine) + (None,) * len(grads)
+        meta = ctx.meta
+        specs, me, line = meta["specs"], meta["me"], meta["line"]
+        used = dist.all_gather_object([g is not None for g in grads], line)
+        # slot (q, j): process q's tensor j, sent back when any other
+        # process's copy of it got a gradient
+        wanted = set()
+        for p, flags in zip(sorted(line), used):
+            slots = [(q, j) for q in line if q != p
+                     for j in range(len(specs[q]))]
+            wanted.update(sl for sl, f in zip(slots, flags) if f)
+        mine: list = [None] * meta["nlocal"]
+        it = iter(grads)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for q in line:
+            for j, (shape, dtype) in enumerate(specs[q]):
+                g = None if q == me else next(it)
+                if (q, j) not in wanted:
+                    continue
+                if g is None:
+                    g = torch.zeros(shape, dtype=dtype)
+                by_dtype.setdefault(dtype, []).append(((q, j), g))
+        for parts in by_dtype.values():
+            flat = torch.cat([dist.transport(g).reshape(-1)
+                              for _, g in parts])
+            total = collectives.allreduce_processes(
+                [flat], axis=meta["axis"], ranks=line)[0]
+            off = 0
+            for (q, j), g in parts:
+                n = g.numel()
+                if q == me:
+                    mine[j] = total[off:off + n].view(g.shape)
+                off += n
+        outs = [None if g is None else g.to(d)
+                for g, d in zip(mine, meta["devices"])]
+        return (None, gtoken) + tuple(outs) + (None,) * len(grads)
 
 
 class ProcessBridge:
-    """Data-axis meetings across processes: this process's members hold
-    the global data coordinates ``offset`` ... ``offset + n - 1`` of
-    ``size``, and the processes' members lie along the axis in process
-    order.  ``token`` is the last link's token (a leaf until a tensor
-    that needs a gradient crossed)."""
+    """Meetings along ``axis`` across processes: this process's members
+    hold the global coordinates ``offset`` ... ``offset + n - 1`` of
+    ``size`` along it, and ``line`` lists the processes whose members
+    share every other coordinate with them, in the order of their
+    offsets along the axis.  ``chain`` is the step's token chain, shared
+    by every axis's bridge."""
 
-    def __init__(self, axis: str, offset: int, size: int):
+    def __init__(self, axis: str, offset: int, size: int,
+                 line: Sequence[int], chain: TokenChain):
         self.axis, self.offset, self.size = axis, offset, size
-        self.token = torch.zeros((), requires_grad=True)
+        self.line, self.chain = list(line), chain
 
-    def exchange(self, values: list) -> list:
-        """Every process's ``values`` (one a local member, in order) end
-        to end in process order; this process's are returned as they
-        are, the others' are differentiable through a link."""
+    def exchange(self, groups: list) -> list:
+        """``groups`` holds this process's values of each of its groups
+        along the axis (a list a group, one value a member, in order);
+        every group's values over the whole line come back end to end in
+        the line's order.  This process's are returned as they are, the
+        others' are differentiable through a link.  A small pickled
+        header carries the values' structure, the tensors' shapes and
+        types and every other value; the tensors then go as tensors, one
+        all-gather a type."""
         from . import dist
-        leaves, rebuild = _flatten(list(values))
-        got = dist.all_gather_object([_host(x) for x in leaves])
         me = dist.process_index()
+        leaves, rebuild = _flatten(list(groups))
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        dev = tensors[0].device if tensors else None
-        remote = {q: [x.to(dev) if isinstance(x, torch.Tensor) else x
-                      for x in ls] for q, ls in enumerate(got) if q != me}
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in tensors):
-            owners, flat = [], []
+        want = torch.is_grad_enabled() and any(t.requires_grad
+                                              for t in tensors)
+        header = ([None if isinstance(x, torch.Tensor) else x
+                   for x in leaves],
+                  [(tuple(x.shape), x.dtype) for x in tensors], want)
+        ranks = sorted(self.line)
+        heads = dict(zip(ranks, dist.all_gather_object(header, ranks)))
+        got = dist.gather_tensors(
+            tensors, {q: h[1] for q, h in heads.items()}, ranks,
+            axis=self.axis,
+            device=tensors[0].device if tensors else None)
+        remote = {}
+        for q in self.line:
+            if q == me:
+                continue
+            it = iter(got[q])
+            remote[q] = [next(it) if x is None else x for x in heads[q][0]]
+        if any(h[2] for h in heads.values()):
+            local = [x for x in leaves if _floating(x)]
+            specs = {me: [(tuple(x.shape), x.dtype) for x in local]}
+            flat = []
             for q, ls in remote.items():
-                for x in ls:
-                    if isinstance(x, torch.Tensor):
-                        owners.append(q)
-                        flat.append(x)
-            outs = _Link.apply(owners, [t.device for t in tensors],
-                               self.token, *tensors, *flat)
-            self.token, linked = outs[0], iter(outs[1:])
-            remote = {q: [next(linked) if isinstance(x, torch.Tensor)
-                          else x for x in ls] for q, ls in remote.items()}
-        out: list = []
-        for q in range(len(got)):
-            out.extend(values if q == me else rebuild(remote[q]))
-        return out
+                fl = [x for x in ls if _floating(x)]
+                specs[q] = [(tuple(x.shape), x.dtype) for x in fl]
+                flat.extend(fl)
+            meta = {"nlocal": len(local), "line": self.line, "me": me,
+                    "axis": self.axis, "specs": specs,
+                    "devices": [x.device for x in local]}
+            outs = _Link.apply(meta, self.chain.token, *local, *flat)
+            self.chain.token, linked = outs[0], iter(outs[1:])
+            remote = {q: [next(linked) if _floating(x) else x for x in ls]
+                      for q, ls in remote.items()}
+        parts = {q: rebuild(remote[q]) for q in remote}
+        parts[me] = list(groups)
+        return [[v for q in self.line for v in parts[q][t]]
+                for t in range(len(groups))]
 
 
 class MemberSync:
@@ -162,46 +221,58 @@ class MemberSync:
     exchanged instead (:class:`NodeSync`)."""
 
     def __init__(self, groups: Dict[str, List[Tuple[int, ...]]],
-                 bridge: Optional[ProcessBridge] = None):
+                 bridges: Optional[Dict[str, ProcessBridge]] = None):
+        self.groups = {axis: list(gs) for axis, gs in groups.items()}
         self.group_of = {axis: {i: g for g in gs for i in g}
                          for axis, gs in groups.items()}
-        self.bridge = bridge
+        self.bridges = dict(bridges or {})
+        self.nmembers = 1 + max((i for gs in groups.values() for g in gs
+                                 for i in g), default=0)
         self.closed = False
         self._aborted = False
         self._cond = threading.Condition()
         self._slots: Dict[Tuple, Dict[int, Any]] = {}
-        self._met: Dict[Tuple, list] = {}
+        self._met: Dict[Tuple, Any] = {}
+
+    def _wait(self, done) -> None:
+        while not done() and not self._aborted:
+            self._cond.wait()
+        if self._aborted:
+            raise threading.BrokenBarrierError
 
     def exchange(self, i: int, axis: str, k: int, value) -> list:
-        group = self.group_of[axis][i]
-        key = (axis, group, k)
-        bridged = self.bridge is not None and axis == self.bridge.axis
+        bridge = self.bridges.get(axis)
+        if bridge is None:
+            group = self.group_of[axis][i]
+            key = (axis, group, k)
+            with self._cond:
+                slot = self._slots.setdefault(key, {})
+                slot[i] = value
+                self._cond.notify_all()
+                self._wait(lambda: len(slot) == len(group))
+                return [slot[j] for j in group]
+        # a bridged axis: every member of this process meets at call k,
+        # and the first one meets the other processes for all of them
+        key = (axis, k)
         with self._cond:
             slot = self._slots.setdefault(key, {})
             slot[i] = value
             self._cond.notify_all()
-            while len(slot) < len(group) and not self._aborted:
-                self._cond.wait()
-            if self._aborted:
-                raise threading.BrokenBarrierError
-            if not bridged:
-                return [slot[j] for j in group]
-            if i != group[0]:
-                while key not in self._met and not self._aborted:
-                    self._cond.wait()
-                if self._aborted:
-                    raise threading.BrokenBarrierError
-                return self._met[key]
-        # the group's first member meets the other processes
+            self._wait(lambda: len(slot) == self.nmembers)
+            if i != 0:
+                self._wait(lambda: key in self._met)
+                return self._met[key][i]
+        groups = self.groups[axis]
         try:
-            full = self.bridge.exchange([slot[j] for j in group])
+            full = bridge.exchange([[slot[j] for j in g] for g in groups])
         except BaseException:
             self.abort()
             raise
+        met = {j: vals for g, vals in zip(groups, full) for j in g}
         with self._cond:
-            self._met[key] = full
+            self._met[key] = met
             self._cond.notify_all()
-        return full
+        return met[i]
 
     def abort(self) -> None:
         with self._cond:
@@ -227,12 +298,10 @@ class MemberHandle:
     def at(self, name: str) -> "NodeSync":
         return NodeSync(self, name)
 
-    def _bridged(self, axis: str) -> bool:
-        return self.sync.bridge is not None and axis == self.sync.bridge.axis
-
     def size(self, axis: str) -> int:
-        if self._bridged(axis):
-            return self.sync.bridge.size
+        bridge = self.sync.bridges.get(axis)
+        if bridge is not None:
+            return bridge.size
         group = self.sync.group_of.get(axis)
         return 1 if group is None else len(group[self.i])
 
@@ -241,9 +310,10 @@ class MemberHandle:
         return 0 if group is None else group[self.i].index(self.i)
 
     def rank(self, axis: str) -> int:
-        """This member's place in its group along ``axis`` (over a data
-        axis that spans processes, its global data coordinate)."""
-        offset = self.sync.bridge.offset if self._bridged(axis) else 0
+        """This member's place in its group along ``axis`` (along an axis
+        that spans processes, its global coordinate)."""
+        bridge = self.sync.bridges.get(axis)
+        offset = 0 if bridge is None else bridge.offset
         return offset + self._local_rank(axis)
 
     def meet(self, key: Tuple[str, int], axis: str, value) -> list:
@@ -385,13 +455,13 @@ def current_sync(name: str) -> NodeSync:
 
 def run_synced(fn, devices: Sequence[torch.device],
                groups: Dict[str, List[Tuple[int, ...]]],
-               row_reductions=(), bridge: Optional[ProcessBridge] = None
-               ) -> list:
+               row_reductions=(),
+               bridges: Optional[Dict[str, ProcessBridge]] = None) -> list:
     """``fn(i, handle)`` for every member in its own thread (on its CUDA
     device, under the caller's grad mode), the members meeting along the
-    axes of ``groups`` (and along ``bridge``'s axis with the other
+    axes of ``groups`` (and along each bridged axis with the other
     processes); the first failure aborts the others and is raised."""
-    sync = MemberSync(groups, bridge)
+    sync = MemberSync(groups, bridges)
     outs: list = [None] * len(devices)
     errors: list = []
     grad = torch.is_grad_enabled()

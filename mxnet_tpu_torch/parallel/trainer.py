@@ -190,6 +190,26 @@ coordinate 0, a piece's over the members that hold it.
 explicit mode's members do not meet inside the step; the JAX trainer's
 manual region fails there too).
 
+Meshes that span processes (``dist.init_distributed``; the JAX
+trainer's multi-host mesh): each process runs the members of its box of
+the global mesh (:class:`~.process_mesh.ProcessLayout`; members of one
+process that form no box are refused), on any axis, and feeds the rows
+of the data coordinates its members hold (the batch viewed as
+``[grad_accum, data, rows]``, as one process splits it): its own rows
+when the data axis spans processes, the whole batch when it lies inside
+each.  Meetings along an axis that crosses processes go over that axis's
+line of processes (``members.ProcessBridge``); every coordinate, key and
+global head follows the global mesh.  A value several processes hold
+(a replicated parameter, a piece, a data coordinate's ZeRO slice) is
+updated by each of them alike from the same reduced gradient: a
+replicated gradient is summed over every process, a piece's over its
+holders, ZeRO slices are collected from the first process that holds
+their coordinate, and the explicit mode gathers every data member's wire
+payload over the data line and sums them in member order.
+:meth:`ShardedTrainer.save_state` writes each value once, from the
+first process that holds it, and process 0 commits the manifest;
+``compile()`` runs such a trainer eagerly.
+
 Inference forwards run on the lead member over the whole batch (no
 statistic crosses rows at inference), under the mesh.  One step path
 serves every member count and mode; :meth:`ShardedTrainer.compile`
@@ -226,10 +246,11 @@ from . import collectives
 from . import tensor_parallel as tp_mod
 from .collectives import (DEFAULT_BUCKET_BYTES, check_compression,
                           plan_buckets, psum, psum_compressed)
-from .members import ProcessBridge, run_synced
+from .members import ProcessBridge, TokenChain, run_synced
 from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh,
                    NamedSharding, PartitionSpec, axis_groups,
                    data_parallel_mesh, default_mesh, make_mesh)
+from .process_mesh import ProcessLayout
 
 __all__ = ["ShardingRules", "ShardedTrainer", "megatron_rules",
            "matmul_precision_scope"]
@@ -335,7 +356,9 @@ class ShardedTrainer:
         Default: a data mesh over every local device of ``device``'s
         platform (one member on the CPU), or ``device`` alone when it
         names an index.  Beside the data axis, any of the model, seq,
-        expert and pipe axes may have more than one member.
+        expert and pipe axes may have more than one member.  After
+        ``dist.init_distributed`` the mesh may span processes, on any
+        axis: this process runs its members.
     rules : ShardingRules, optional
         Parameter placement over the mesh's axes: the model axis (tensor
         parallelism), the expert axis (each member holds its experts),
@@ -434,13 +457,6 @@ class ShardedTrainer:
                 "along that axis inside the step (the JAX trainer's manual "
                 "region refuses their shard_map as well); use the implicit "
                 "mode")
-        if self._bridge_spec is not None:
-            what = ("grad_compression" if self.grad_compression is not None
-                    else "shard_optimizer (ZeRO)" if self.shard_optimizer
-                    else "sharding rules" if self.rules._rules else None)
-            if what is not None:
-                raise not_ported(f"ShardedTrainer with {what} over a mesh "
-                                 "that spans processes")
         # error feedback: one residual a bucket a member, on by default
         # for the lossy formats; grad_accum > 1 reduces once a
         # microbatch, where a step's residual has no home
@@ -527,12 +543,6 @@ class ShardedTrainer:
             raise MXNetError(f"mesh must be a parallel.Mesh, got "
                              f"{type(mesh).__name__}")
         self.mesh = mesh
-        # over a mesh that spans processes the members below are this
-        # process's (its piece of the data axis); _bridge_spec says where
-        # that piece lies in the global axis
-        self._bridge_spec: Optional[Tuple[str, int, int]] = None
-        if mesh.spans_processes:
-            mesh = self._process_mesh(mesh, data_axis or DATA_AXIS)
         if data_axis is None:
             # a mesh without a data axis replicates the batch
             self.data_axis = (DATA_AXIS if DATA_AXIS in mesh.axis_names
@@ -542,8 +552,21 @@ class ShardedTrainer:
                 raise MXNetError(f"mesh has no axis {data_axis!r}; "
                                  f"axes: {mesh.axis_names}")
             self.data_axis = data_axis
+        gshape = mesh.shape
+        # over a mesh that spans processes the members below are this
+        # process's box of it (``_procs``, process_mesh.ProcessLayout);
+        # every coordinate below is the global mesh's
+        self._procs: Optional[ProcessLayout] = None
+        if mesh.spans_processes:
+            from . import dist
+            self._procs = ProcessLayout(mesh, dist.process_index())
+            local = self._procs.local_mesh(mesh)
+            gidx = self._procs.gidx
+        else:
+            local, gidx = mesh, list(range(mesh.size))
+        self._gidx = gidx
         others = sorted(a for a in mesh.axis_names
-                        if a != self.data_axis and mesh.shape[a] > 1)
+                        if a != self.data_axis and gshape[a] > 1)
         self.model_axis = (MODEL_AXIS if MODEL_AXIS in mesh.axis_names
                            and MODEL_AXIS != self.data_axis else None)
         # axes whose members hold the same rows and split one op's work
@@ -553,39 +576,57 @@ class ShardedTrainer:
         # member of the group.  The model axis is not one of them: its
         # members compute the same function, each on its pieces
         self._dup_axes = [a for a in others if a != MODEL_AXIS]
-        self._ndata = mesh.shape[self.data_axis] if self.data_axis else 1
+        self._ndata = gshape[self.data_axis] if self.data_axis else 1
         # the members that meet along each axis: a data group shares every
         # other coordinate (and splits the batch); the members of a model,
-        # seq, expert or pipe group share the rows
-        self._groups = {DATA_AXIS: axis_groups(mesh, self.data_axis)}
-        self._groups.update({a: axis_groups(mesh, a) for a in mesh.axis_names
+        # seq, expert or pipe group share the rows.  ``_axis_of`` names
+        # the mesh axis of each key
+        self._groups = {DATA_AXIS: axis_groups(local, self.data_axis)}
+        self._groups.update({a: axis_groups(local, a)
+                             for a in local.axis_names
                              if a not in (self.data_axis, DATA_AXIS)})
-        # each member's coordinate along each axis (the data axis's under
-        # DATA_AXIS)
-        self._coord = {ax: [0] * mesh.size for ax in self._groups}
+        self._axis_of = {k: (self.data_axis if k == DATA_AXIS else k)
+                         for k in self._groups}
+        # each member's global coordinate along each axis (the data
+        # axis's under DATA_AXIS)
+        self._coord = {ax: [0] * local.size for ax in self._groups}
         for ax, gs in self._groups.items():
+            base = (self._procs.offset(self._axis_of[ax])
+                    if self._procs is not None and self._axis_of[ax]
+                    else 0)
             for g in gs:
                 for r, i in enumerate(g):
-                    self._coord[ax][i] = r
+                    self._coord[ax][i] = base + r
         self._dcoord = list(self._coord[DATA_AXIS])
         # each member's coordinate along the axes that duplicate rows: a
         # head is differentiated on the members at 0 only
         self._dupcoord = [sum(self._coord[a][i] for a in self._dup_axes)
-                          for i in range(mesh.size)]
+                          for i in range(local.size)]
         # the members whose gradients of a replicated parameter are summed:
         # every member of model coordinate 0 (each model coordinate
         # computes the whole gradient; a data, seq, expert or pipe
         # coordinate a part of it)
-        mcoord = self._coord.get(MODEL_AXIS, [0] * mesh.size)
-        self._rep_members = [i for i in range(mesh.size) if mcoord[i] == 0]
+        mcoord = self._coord.get(MODEL_AXIS, [0] * local.size)
+        self._rep_members = [i for i in range(local.size) if mcoord[i] == 0]
         self._col0 = self._groups[DATA_AXIS][0]
-        # the members' rows of a placed batch: the local data group's
-        self._shard_n, self._shard_coord = self._ndata, list(self._dcoord)
-        if self._bridge_spec is not None:
-            # keys and the global heads follow the global coordinates
-            _, offset, self._ndata = self._bridge_spec
-            self._dcoord = [offset + c for c in self._dcoord]
-        self._members = mesh.members
+        # the members' rows of a placed batch: those of the data
+        # coordinates this process holds, each member's the ones of its
+        # place among them
+        self._shard_n = len(self._col0)
+        self._shard_coord = [0] * local.size
+        for g in self._groups[DATA_AXIS]:
+            for r, i in enumerate(g):
+                self._shard_coord[i] = r
+        # the bridges' specs: each axis that crosses processes, with this
+        # process's line along it (bind makes the lines' process groups)
+        self._bridges: Dict[str, Tuple[int, int, List[int]]] = {}
+        if self._procs is not None:
+            for key, ax in self._axis_of.items():
+                if ax is not None and self._procs.spans(ax):
+                    self._bridges[key] = (self._procs.offset(ax),
+                                          self._procs.size(ax),
+                                          self._procs.line(ax))
+        self._members = local.members
         # resolve_device raises for a CUDA member without CUDA: a member
         # never falls back to the CPU
         self._devices = [resolve_device(m) for m in self._members]
@@ -594,36 +635,6 @@ class ShardedTrainer:
         if device is not None and resolve_device(device) != self.device:
             raise MXNetError(f"device {device} is not the mesh's first "
                              f"member {self._members[0]}")
-
-    def _process_mesh(self, mesh: Mesh, data_axis: str) -> Mesh:
-        """This process's members of a mesh that spans processes, as a
-        mesh of the same axes: only the data axis may span processes
-        (every other axis of one member), and the processes' members lie
-        along it in process order.  Sets ``_bridge_spec``."""
-        if data_axis not in mesh.axis_names:
-            raise MXNetError(f"mesh has no axis {data_axis!r}; axes: "
-                             f"{mesh.axis_names}")
-        others = [a for a in mesh.axis_names
-                  if a != data_axis and mesh.shape[a] > 1]
-        if others:
-            raise not_ported(
-                f"ShardedTrainer over a mesh that spans processes with a "
-                f"{others[0]!r} axis of {mesh.shape[others[0]]} (only the "
-                "data axis may span processes)")
-        procs = mesh.processes
-        if procs != sorted(procs):
-            raise MXNetError(f"mesh {mesh}: the processes' members must lie "
-                             "along the data axis in process order")
-        mine = [i for i, m in enumerate(mesh.members) if m.process is None]
-        if not mine:
-            raise MXNetError(f"mesh {mesh} holds no member of this process")
-        shape = [len(mine) if a == data_axis else 1
-                 for a in mesh.axis_names]
-        local = np.empty(len(mine), dtype=object)
-        local[:] = [mesh.members[i] for i in mine]
-        # the members meet along DATA_AXIS (the trainer's groups' key)
-        self._bridge_spec = (DATA_AXIS, mine[0], mesh.size)
-        return Mesh(local.reshape(shape), mesh.axis_names)
 
     # ------------------------------------------------------------------
     # Bind: infer shapes, initialize and place params, lay out the state
@@ -689,6 +700,7 @@ class ShardedTrainer:
             self._row_reductions, self._global_heads = reds, glob
         self._setup_tp(shape_of, {n: (s[0] // self.grad_accum,) + tuple(s[1:])
                                   for n, s in input_shapes.items()})
+        self._make_groups()
         self._threaded = (self._sync_nodes or bool(self._row_reductions)
                           or any(lay.gathers
                                  for lay in self._pieces.values())
@@ -833,13 +845,30 @@ class ShardedTrainer:
             self.logger.info("expert parallelism: %d params cut over the "
                              "expert axis", len(held))
 
+    def _make_groups(self) -> None:
+        """Over processes, the process groups the step meets in: every
+        line along every axis, and every set of processes that holds a
+        piece of a rule-sharded parameter together.  ``new_group`` is a
+        collective of every process, so each makes every group, its own
+        or not, in the same order."""
+        if self._procs is None:
+            return
+        from . import dist
+        sets = {tuple(sorted(line)) for ax in self._axis_of.values()
+                if ax is not None for line in self._procs.lines(ax)}
+        sets.update(r for lay in self._pieces.values() for r in lay.gholders)
+        for ranks in sorted(sets):
+            if len(ranks) > 1:
+                dist.subgroup(ranks)
+
     def _piece(self, value: torch.Tensor, name: str, member: int):
         """Member ``member``'s piece of parameter ``name``'s full value:
         the value itself unless the rules shard it."""
         lay = self._pieces.get(name)
         if lay is None:
             return value
-        return value[lay.sharding.index(member, tuple(value.shape))]
+        return value[lay.sharding.index(self._gidx[member],
+                                        tuple(value.shape))]
 
     def _setup_fused(self, shape_of) -> None:
         """The JAX trainer's eligibility gate: any configuration the
@@ -1015,14 +1044,16 @@ class ShardedTrainer:
                 for j in lay.leads] for n, lay in self._pieces.items()}
         self._zero_state: List[Dict[str, Any]] = []
         if self.shard_optimizer:
-            ndata = len(self._data_devices)
-            for i, dev in enumerate(self._data_devices):
+            # each data member of this process holds the slice of its
+            # global data coordinate
+            for i, dev in zip(self._col0, self._data_devices):
                 states = {}
                 for n in self._param_names:
                     if n in self._pieces:
                         continue
                     full = self._zero_view(n, host[n].detach())
-                    piece = full.chunk(ndata, self._zero_dim(n))[i]
+                    piece = full.chunk(self._ndata,
+                                       self._zero_dim(n))[self._dcoord[i]]
                     states[n] = opt.state_zeros_like(
                         torch.zeros(piece.shape, dtype=piece.dtype,
                                     device=dev))
@@ -1100,7 +1131,13 @@ class ShardedTrainer:
         go to the card from pinned memory with ``non_blocking=True``, on
         the caller's current stream (``fit``'s prefetcher: its side
         stream).  Over several members the result also holds each
-        member's rows on its device (``shards``, :meth:`_shard_batch`)."""
+        member's rows on its device (``shards``, :meth:`_shard_batch`).
+        Over a mesh that spans processes the batch is this process's
+        rows: those of the data coordinates its members hold (the global
+        batch viewed as ``[grad_accum, data, rows]``, this process's
+        range of the data axis), as ``jax.make_array_from_process_local_
+        data`` takes them; the whole batch when the data axis lies
+        inside each process."""
         return self._place(batch, split=len(self._devices) > 1)
 
     def _place(self, batch, split: bool) -> Dict[str, torch.Tensor]:
@@ -1351,8 +1388,10 @@ class ShardedTrainer:
         """``grads`` with each rule-sharded parameter's pieces end to end
         on the lead's device (the guard's square sum is the whole
         gradient's)."""
-        return {n: g if isinstance(g, torch.Tensor) else self._whole(n, g)
-                for n, g in grads.items()}
+        out = dict(grads)
+        out.update(self._wholes({n: g for n, g in grads.items()
+                                 if not isinstance(g, torch.Tensor)}))
+        return out
 
     def _tp_apply(self, grads, ok) -> None:
         """The rule-sharded parameters' update: each piece's lead runs
@@ -1490,25 +1529,57 @@ class ShardedTrainer:
         member of a seq, expert or pipe group a part of its group's: its
         share of the op's work, and member 0 the rest); a rule-sharded
         parameter's piece by piece, each over the members its
-        :class:`_PieceLayout` names, on the piece's lead."""
+        :class:`_PieceLayout` names, on the piece's lead.  Over processes
+        each process sums its own members (zeros where it has none) and
+        the sums meet over the processes that hold the value: every
+        process for a replicated parameter, a piece's holders for a
+        piece (one all-reduce a set of processes, the sets in the same
+        order everywhere)."""
         red: Dict[str, Any] = {}
         for nm in self._param_names:
             lay = self._pieces.get(nm)
             if lay is not None:
-                red[nm] = [psum([member_grads[i][nm] for i in grp])[0]
-                           for grp in lay.contrib]
+                red[nm] = [_sum_or_zeros([member_grads[i][nm] for i in grp],
+                                         member_grads[lead][nm])
+                           for grp, lead in zip(lay.contrib, lay.leads)]
             else:
-                red[nm] = psum([member_grads[i][nm]
-                                for i in self._rep_members])[0]
-        if self._bridge_spec is not None:
-            # the other processes' data members: summed through the
-            # process group
-            names = list(red)
+                red[nm] = _sum_or_zeros([member_grads[i][nm]
+                                         for i in self._rep_members],
+                                        member_grads[0][nm])
+        if self._procs is None:
+            return red
+        from . import dist
+        jobs: Dict[Tuple[int, ...], list] = {}
+        every = tuple(range(dist.process_count()))
+        for nm in self._param_names:
+            lay = self._pieces.get(nm)
+            if lay is None:
+                jobs.setdefault(every, []).append((nm, None))
+            else:
+                for t, holders in enumerate(lay.holders):
+                    jobs.setdefault(holders, []).append((nm, t))
+        for ranks in sorted(jobs):
+            if len(ranks) < 2:
+                continue
+            keys = jobs[ranks]
+            vals = [red[nm] if t is None else red[nm][t] for nm, t in keys]
             summed = collectives.allreduce_processes(
-                [red[nm] for nm in names], self.grad_bucket_bytes,
-                axis=self.data_axis)
-            red = dict(zip(names, summed))
+                vals, self.grad_bucket_bytes, axis=self._across(ranks),
+                ranks=None if ranks == every else ranks)
+            for (nm, t), v in zip(keys, summed):
+                if t is None:
+                    red[nm] = v
+                else:
+                    red[nm][t] = v
         return red
+
+    def _across(self, ranks: Sequence[int]) -> str:
+        """The mesh axes along which the boxes of processes ``ranks``
+        differ, joined by ``+``: the axis a reduction over them crosses
+        (``count_collectives``' ``axis``)."""
+        boxes = [self._procs.boxes[q] for q in ranks]
+        return "+".join(ax for k, ax in enumerate(self._procs.axes)
+                        if len({b[k] for b in boxes}) > 1)
 
     def _bucket_out(self) -> bool:
         """Whether the explicit reduction hands its flat buckets straight
@@ -1565,21 +1636,23 @@ class ShardedTrainer:
                 sync=sync, local=(plan if plan is not None
                                   and plan.plan == "split" else None))
 
-        bridge = None
-        if local or not self._threaded or (n == 1 and
-                                           self._bridge_spec is None):
+        chain = None
+        if local or not self._threaded or (n == 1 and not self._bridges):
             outs = [forward(i, None) for i in range(n)]
         else:
-            if self._bridge_spec is not None:
-                bridge = ProcessBridge(*self._bridge_spec)
+            # one token chain for every axis's cross-process meetings
+            chain = TokenChain()
+            bridges = {key: ProcessBridge(key, offset, size, line, chain)
+                       for key, (offset, size, line)
+                       in self._bridges.items()}
             outs = run_synced(forward, self._devices, self._groups,
-                              self._row_reductions, bridge)
+                              self._row_reductions, bridges)
         live, cots = [], []
-        if bridge is not None and bridge.token.grad_fn is not None:
+        if chain is not None and chain.token.grad_fn is not None:
             # every process runs the backward of every cross-process
             # link, in the links' order (members.ProcessBridge)
-            live.append(bridge.token)
-            cots.append(torch.zeros_like(bridge.token))
+            live.append(chain.token)
+            cots.append(torch.zeros_like(chain.token))
         for i, (heads, _) in enumerate(outs):
             sc = None if scale is None else scale.to(self._devices[i])
             if self._dupcoord[i] != 0:
@@ -1597,7 +1670,10 @@ class ShardedTrainer:
                     live.append(h)
                     cots.append(torch.ones_like(h) if sc is None
                                 else sc.to(h.dtype).expand(h.shape))
-        torch.autograd.backward(live, cots)
+        if live:
+            # a process whose members differentiate no head (the seq or
+            # expert coordinates past 0) still runs its links' backward
+            torch.autograd.backward(live, cots)
         member_grads = []
         for i in range(n):
             g = {}
@@ -1607,11 +1683,13 @@ class ShardedTrainer:
                 p.grad = None
             member_grads.append(g)
         heads = [tuple(h.detach() for h in o[0]) for o in outs]
-        if local and n > 1:
+        gather = self._data_gather() if local else None
+        if local and (n > 1 or gather is not None):
             # pmean of the aux updates over the data members, in order
             col = [outs[i] for i in self._col0]
-            auxu = {nm: psum([o[1][nm].detach() for o in col])[0] / len(col)
-                    for nm in outs[0][1]}
+            every = gather or (lambda parts: parts)
+            auxu = {nm: psum(every([o[1][nm].detach() for o in col]))[0]
+                    / self._ndata for nm in outs[0][1]}
         else:
             auxu = {nm: v.detach() for nm, v in outs[0][1].items()}
         return heads, auxu, member_grads
@@ -1634,6 +1712,7 @@ class ShardedTrainer:
         bucket_out, the reduced flat buckets in plan order, square sum,
         new residuals per member)``."""
         comp = self.grad_compression
+        gather = self._data_gather()
         grads0 = member_grads[0]
         order = [nm for nm in reversed(self._param_names) if nm in grads0]
         by_dtype: Dict[Any, List[str]] = {}
@@ -1661,11 +1740,12 @@ class ShardedTrainer:
                                  else torch.cat(segs))
                 if ef_res is not None:
                     reds, nres = psum_compressed(
-                        flats, comp, residuals=[r[bidx] for r in ef_res])
+                        flats, comp, residuals=[r[bidx] for r in ef_res],
+                        gather=gather)
                     for i, r in enumerate(nres):
                         new_ef[i].append(r)
                 else:
-                    reds = psum_compressed(flats, comp)
+                    reds = psum_compressed(flats, comp, gather=gather)
                 bidx += 1
                 red = reds[0]
                 if self._resil is not None:
@@ -1686,6 +1766,31 @@ class ShardedTrainer:
         return (flat_buckets if bucket_out else out), \
             (sq if self._resil is not None else None), new_ef
 
+    def _data_gather(self):
+        """Over a data axis that spans processes, the explicit mode's
+        meeting with the other processes of this process's data line: a
+        function from this process's data members' tensors (one a member,
+        one shape) to every data member's in data order, on the first
+        tensor's device.  Each process sends its members' tensors in the
+        wire format they come in (int8 payloads, fp8 as bytes, bf16).
+        None when the data axis lies inside this process."""
+        spec = self._bridges.get(DATA_AXIS)
+        if spec is None:
+            return None
+        from . import dist
+        line = spec[2]
+        k = self._procs.axes.index(self.data_axis)
+        extent = {q: self._procs.boxes[q][k][1] - self._procs.boxes[q][k][0]
+                  for q in line}
+
+        def gather(parts):
+            one = (tuple(parts[0].shape), parts[0].dtype)
+            got = dist.gather_tensors(
+                parts, {q: [one] * extent[q] for q in line}, line,
+                axis=self.data_axis, device=parts[0].device)
+            return [t for q in line for t in got[q]]
+        return gather
+
     def _zero_apply(self, grads, ok) -> None:
         """ZeRO: each member runs ``optimizer._functional_step`` on its
         slice of every parameter (flattened and padded where no dimension
@@ -1695,11 +1800,12 @@ class ShardedTrainer:
         hyper = opt._hyper()
         hyper["rescale_grad"] = self._rescale_grad
         step_fn = type(opt)._functional_step
-        n = len(self._data_devices)
+        n = self._ndata
         per_dev = [(self._lr_dev.to(d), self._t_dev.to(d),
                     None if ok is None else ok.to(d))
                    for d in self._data_devices]
         self._tp_apply(grads, ok)
+        new: Dict[Tuple[str, int], torch.Tensor] = {}
         for nm in self._param_names:
             if nm in self._pieces:
                 continue
@@ -1707,11 +1813,12 @@ class ShardedTrainer:
             dim = self._zero_dim(nm)
             ws = self._zero_view(nm, p.detach()).chunk(n, dim)
             gs = self._zero_view(nm, grads[nm]).chunk(n, dim)
-            new = []
-            for i, dev in enumerate(self._data_devices):
-                lr, t, okd = per_dev[i]
-                w, g = ws[i].to(dev), gs[i].to(dev)
-                state = self._zero_state[i][nm]
+            for j, (i, dev) in enumerate(zip(self._col0,
+                                             self._data_devices)):
+                d = self._dcoord[i]
+                lr, t, okd = per_dev[j]
+                w, g = ws[d].to(dev), gs[d].to(dev)
+                state = self._zero_state[j][nm]
                 w2, s2 = step_fn(hyper, w, g, state,
                                  lr * float(self._lr_mult[nm]),
                                  opt.wd * self._wd_mult[nm], t,
@@ -1720,11 +1827,42 @@ class ShardedTrainer:
                     w2 = torch.where(okd, w2, w)
                     s2 = _gate(okd, s2, state)
                 _copy_tree(state, s2)
-                new.append(w2.to(self.device))
-            full = torch.cat(new, dim)
+                new[(nm, d)] = w2.to(self.device)
+        # the other processes' slices: each from the first process that
+        # holds its data coordinate
+        new = self._collect(self._zero_items(
+            lambda nm, d: new.get((nm, d)),
+            lambda nm: self._zero_view(nm, self._params[nm].detach())),
+            self.data_axis)
+        for nm in self._param_names:
+            if nm in self._pieces:
+                continue
+            p = self._params[nm]
+            full = torch.cat([new[(nm, d)] for d in range(n)],
+                             self._zero_dim(nm))
             if self._zero_flat[nm] is not None:
                 full = full[:p.numel()].reshape(p.shape)
             p.copy_(full)
+
+    def _zero_items(self, value, like, names=None) -> list:
+        """:meth:`_collect`'s items for the slices of every ZeRO
+        parameter (or of ``names``): ``(name, d)`` for data coordinate
+        ``d``, held by the processes that hold that coordinate;
+        ``value(name, d)`` is this process's slice (None where it holds
+        none), ``like(name)`` a tensor of the cut layout's shape and
+        type."""
+        items = []
+        for nm in (self._param_names if names is None else names):
+            if nm in self._pieces:
+                continue
+            ref = like(nm)
+            dim = self._zero_dim(nm)
+            for d, piece in enumerate(ref.chunk(self._ndata, dim)):
+                holders = (self._procs.holders(self.data_axis, d)
+                           if self._procs is not None else (0,))
+                items.append(((nm, d), holders, tuple(piece.shape),
+                              ref.dtype, value(nm, d)))
+        return items
 
     def forward(self, batch) -> List[torch.Tensor]:
         """Inference forward (moving statistics, no aux update)."""
@@ -1840,9 +1978,12 @@ class ShardedTrainer:
         return ts
 
     def _uncapturable(self) -> Optional[str]:
-        if self._bridge_spec is not None:
-            return ("a mesh that spans processes runs eagerly (its "
-                    "reductions go through the process group on the host)")
+        if self._procs is not None:
+            return ("a mesh that spans processes runs eagerly: over gloo "
+                    "its meetings and reductions run on the host, which a "
+                    "CUDA graph cannot hold; over NCCL (one card a "
+                    "process) a graph could hold them, which is not "
+                    "ported (it needs two cards)")
         if len(self._devices) > 1:
             return ("a mesh path over several members runs eagerly (a CUDA "
                     "graph holds one device's work; the members' threads "
@@ -2042,25 +2183,77 @@ class ShardedTrainer:
     # Param access
     # ------------------------------------------------------------------
 
+    def _collect(self, items, axis: Optional[str] = None
+                 ) -> Dict[Any, torch.Tensor]:
+        """Values that some processes hold, on every process.  ``items``
+        lists ``(key, holders, shape, dtype, tensor)`` in the same order
+        on every process (``tensor`` this process's copy, None where it
+        holds none); a value every process holds stays as it is, any
+        other is sent by the first of its holders, as a tensor (every
+        process knows every size: one all-gather a dtype), and comes
+        back on this trainer's device.  ``axis`` labels the records
+        (``count_collectives``; default the axes the processes' boxes
+        differ along)."""
+        out = {it[0]: it[4] for it in items}
+        if self._procs is None:
+            return out
+        from . import dist
+        me, nproc = self._procs.me, dist.process_count()
+        axis = axis or self._across(range(nproc))
+        by_dtype: Dict[torch.dtype, list] = {}
+        for it in items:
+            if len(it[1]) < nproc:
+                by_dtype.setdefault(it[3], []).append(it)
+        for its in by_dtype.values():
+            specs = {q: [(tuple(it[2]), it[3]) for it in its
+                         if it[1][0] == q] for q in range(nproc)}
+            got = dist.gather_tensors(
+                [it[4].detach().to(self.device, copy=True) for it in its
+                 if it[1][0] == me], specs, axis=axis, device=self.device)
+            for q, vals in got.items():
+                for it, v in zip([it for it in its if it[1][0] == q], vals):
+                    out[it[0]] = v
+        return out
+
+    def _wholes(self, named: Dict[str, list]) -> Dict[str, torch.Tensor]:
+        """Rule-sharded parameters (or state leaves), each given as this
+        process's pieces (one a slot), put together on the lead's device;
+        pieces held by other processes come through :meth:`_collect`."""
+        items = []
+        for name, pieces in named.items():
+            lay = self._pieces[name]
+            for p, holders in enumerate(lay.gholders):
+                t = (pieces[lay.number.index(p)] if p in lay.number
+                     else None)
+                shape = lay.sharding.shard_shape(self._shapes[name])
+                items.append(((name, p), holders, shape,
+                              pieces[0].dtype, t))
+        got = self._collect(items)
+        out = {}
+        for name, pieces in named.items():
+            lay = self._pieces[name]
+            shape = self._shapes[name]
+            if len(lay.gholders) == 1:
+                out[name] = pieces[0]
+                continue
+            whole = pieces[0].new_empty(shape, device=self.device)
+            for p, g in enumerate(lay.gfirst):
+                whole[lay.sharding.index(g, shape)] = \
+                    got[(name, p)].detach().to(self.device)
+            out[name] = whole
+        return out
+
     def _whole(self, name: str, pieces) -> torch.Tensor:
         """A rule-sharded parameter's (or state leaf's) pieces, one a
-        piece in piece order, put together on the lead's device."""
-        if len(pieces) == 1:
-            return pieces[0]
-        lay = self._pieces[name]
-        shape = self._shapes[name]
-        whole = pieces[0].new_empty(shape, device=self.device)
-        for j, piece in zip(lay.leads, pieces):
-            whole[lay.sharding.index(j, shape)] = piece.detach().to(
-                self.device)
-        return whole
+        slot, put together on the lead's device."""
+        return self._wholes({name: pieces})[name]
 
     def _whole_params(self) -> Dict[str, torch.Tensor]:
         """The lead's parameters with every rule-sharded one whole."""
         out = dict(self._params)
-        for n, lay in self._pieces.items():
-            out[n] = self._whole(n, [self._member_params(j)[n]
-                                     for j in lay.leads])
+        out.update(self._wholes({
+            n: [self._member_params(j)[n] for j in lay.leads]
+            for n, lay in self._pieces.items()}))
         return out
 
     def get_params(self) -> Tuple[Dict[str, NDArray], Dict[str, NDArray]]:
@@ -2117,11 +2310,18 @@ class ShardedTrainer:
 
     def _zero_gather(self, name: str, leaf: int,
                      padded: bool = False) -> torch.Tensor:
-        """Leaf ``leaf`` of a parameter's ZeRO state, the members' slices
-        end to end on the lead's device: parameter-shaped, or with
-        ``padded`` in its cut layout (flat and padded where it is)."""
-        full = torch.cat([_leaves(st[name])[leaf].to(self.device)
-                          for st in self._zero_state], self._zero_dim(name))
+        """Leaf ``leaf`` of a parameter's ZeRO state, the data members'
+        slices end to end on the lead's device (the other processes'
+        through :meth:`_collect`): parameter-shaped, or with ``padded``
+        in its cut layout (flat and padded where it is)."""
+        mine = {self._dcoord[i]: _leaves(st[name])[leaf]
+                for i, st in zip(self._col0, self._zero_state)}
+        ref = self._zero_view(name, self._params[name].detach())
+        got = self._collect(self._zero_items(
+            lambda nm, d: mine.get(d), lambda nm: ref, [name]),
+            self.data_axis)
+        full = torch.cat([got[(name, d)].to(self.device)
+                          for d in range(self._ndata)], self._zero_dim(name))
         if padded or self._zero_flat[name] is None:
             return full
         shape = self._params[name].shape
@@ -2153,16 +2353,30 @@ class ShardedTrainer:
             out = {f"opt:fused:{b}:{i}": flat[b0:b1]
                    for b, (b0, b1) in enumerate(self._bucket_bounds)
                    for i, flat in enumerate(self._flat_state)}
-        # each member's error-feedback residual of bucket b, end to end
+        # each data member's error-feedback residual of bucket b, end to
+        # end (the other processes' through _collect)
         for b in range(len(self._ef_res[0]) if self._ef_res else 0):
+            got = self._collect(self._efres_items(b), self.data_axis)
             out[f"opt:efres:{b}:0"] = torch.cat(
-                [r[b].to(self.device) for r in self._ef_res])
+                [got[(b, d)].to(self.device) for d in range(self._ndata)])
         return out
+
+    def _efres_items(self, b: int) -> list:
+        """:meth:`_collect`'s items for bucket ``b``'s error-feedback
+        residuals: ``(b, d)`` for data coordinate ``d``."""
+        mine = {self._dcoord[i]: r[b] for i, r in zip(self._col0,
+                                                      self._ef_res)}
+        ref = self._ef_res[0][b]
+        return [((b, d), (self._procs.holders(self.data_axis, d)
+                          if self._procs is not None else (0,)),
+                 tuple(ref.shape), ref.dtype, mine.get(d))
+                for d in range(self._ndata)]
 
     def _scatter_opt_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
         """Write restored ZeRO slices and residuals back to their
         members (the other optimizer arrays are views of live state)."""
-        n = len(self._data_devices)
+        n = self._ndata
+        dcoords = [self._dcoord[i] for i in self._col0]
         with torch.no_grad():
             for name in self._pieces:
                 self._scatter_param(name, torch.from_numpy(
@@ -2180,16 +2394,17 @@ class ShardedTrainer:
                 for li in range(len(_leaves(self._zero_state[0][name]))):
                     full = torch.from_numpy(np.ascontiguousarray(
                         arrays[f"opt:{name}:{li}"]))
-                    for st, piece in zip(self._zero_state,
-                                         full.chunk(n, dim)):
-                        _leaves(st[name])[li].copy_(piece)
+                    pieces = full.chunk(n, dim)
+                    for st, d in zip(self._zero_state, dcoords):
+                        _leaves(st[name])[li].copy_(pieces[d])
             for b in range(len(self._ef_res[0]) if self._ef_res else 0):
                 key = f"opt:efres:{b}:0"
                 if key not in arrays:
                     continue
-                full = torch.from_numpy(np.ascontiguousarray(arrays[key]))
-                for res, piece in zip(self._ef_res, full.chunk(n)):
-                    res[b].copy_(piece)
+                pieces = torch.from_numpy(
+                    np.ascontiguousarray(arrays[key])).chunk(n)
+                for res, d in zip(self._ef_res, dcoords):
+                    res[b].copy_(pieces[d])
 
     def _scatter_param(self, name: str, full: torch.Tensor) -> None:
         """Write a rule-sharded parameter's whole value into its pieces'
@@ -2273,12 +2488,21 @@ class ShardedTrainer:
         Called mid-step (from a preemption hook: a signal handler runs
         between any two bytecodes), it saves nothing yet: the update
         count has moved and the weights may be half updated.  The save
-        runs when the step ends, at the same update count."""
-        if self._bridge_spec is not None:
-            # every process holds the whole state: the writers' layout by
-            # process is not wired
-            raise not_ported("save_state of a trainer over a mesh that "
-                             "spans processes")
+        runs when the step ends, at the same update count.
+
+        Over a mesh that spans processes every process calls it at the
+        same update: each writes the values it is the first to hold and
+        process 0 commits the manifest, on this thread, before it
+        returns (:meth:`_save_processes`).  A preemption hook's call
+        under :meth:`fit` with the same manager leaves the save to the
+        next batch boundary, where the processes agree to save together
+        (a signal reaches each process on its own)."""
+        if self._procs is not None and manager is self._fit_manager \
+                and manager.preempted:
+            defer = getattr(manager, "defer_save", None)
+            if defer is not None:
+                defer()
+            return manager.step_path(self._num_update)
         if self._in_step:
             self._deferred_save = (manager, step, blocking, extra_meta)
             defer = getattr(manager, "defer_save", None)
@@ -2290,9 +2514,97 @@ class ShardedTrainer:
             return manager.step_path(self._num_update if step is None
                                      else int(step))
         step = self._num_update if step is None else int(step)
+        if self._procs is not None:
+            return self._save_processes(manager, step,
+                                        self._state_meta(extra_meta))
         return manager.save(step, self._state_arrays(),
                             meta=self._state_meta(extra_meta),
                             blocking=blocking)
+
+    def _save_processes(self, manager, step: int, meta) -> str:
+        """:meth:`save_state` over a mesh that spans processes: every
+        process writes the pieces of the state that it is the first to
+        hold, and process 0 commits the manifest of them all
+        (``CheckpointManager.save_shards``); on the calling thread, every
+        process at once."""
+        from . import dist
+        return manager.save_shards(
+            step, self._state_shards(), meta=meta,
+            exchange=dist.all_gather_object,
+            process_index=self._procs.me,
+            process_count=dist.process_count())
+
+    def _state_shards(self) -> Dict[str, Tuple[Tuple[int, ...], list]]:
+        """This process's share of the checkpoint over processes:
+        ``{name: (global shape, [(index, tensor)])}`` for every array of
+        :meth:`_state_arrays`, ``index`` the region (``[[start, stop],
+        ...]``, None for all of it).  A value several processes hold is
+        written by the first of them: a replicated array by process 0, a
+        piece by the first of its holders, a ZeRO slice or a residual of
+        data coordinate ``d`` by the first process that holds ``d``."""
+        from ..checkpoint.layout import normalize_index
+        me = self._procs.me
+        out: Dict[str, Tuple[Tuple[int, ...], list]] = {}
+
+        def whole(name, t):
+            out[name] = (tuple(t.shape), [(None, t.detach())] if me == 0
+                         else [])
+
+        def pieces(name, pname, values):
+            lay, shape = self._pieces[pname], self._shapes[pname]
+            out[name] = (shape, [
+                (normalize_index(lay.sharding.index(self._gidx[j], shape),
+                                 shape), values[t].detach())
+                for t, j in enumerate(lay.leads) if lay.holders[t][0] == me])
+
+        def by_data(name, shape, dim, values):
+            # values: {data coordinate: this process's slice}
+            parts = []
+            for d, t in sorted(values.items()):
+                if self._procs.holders(self.data_axis, d)[0] != me:
+                    continue
+                index = [[0, int(x)] for x in shape]
+                n = shape[dim] // self._ndata
+                index[dim] = [d * n, (d + 1) * n]
+                parts.append((index, t.detach()))
+            out[name] = (tuple(shape), parts)
+
+        for n in self._param_names:
+            if n in self._pieces:
+                pieces(f"param:{n}", n, [self._member_params(j)[n]
+                                          for j in self._pieces[n].leads])
+            else:
+                whole(f"param:{n}", self._params[n])
+        for n in self._aux_names:
+            whole(f"aux:{n}", self._aux[n])
+        for n, states in self._piece_state.items():
+            for li in range(len(_leaves(states[0]))):
+                pieces(f"opt:{n}:{li}", n, [_leaves(st)[li]
+                                            for st in states])
+        dcoords = [self._dcoord[i] for i in self._col0]
+        if self.shard_optimizer:
+            for n in self._param_names:
+                if n in self._pieces:
+                    continue
+                shape = tuple(self._zero_view(
+                    n, self._params[n].detach()).shape)
+                for li in range(len(_leaves(self._zero_state[0][n]))):
+                    by_data(f"opt:{n}:{li}", shape, self._zero_dim(n),
+                            {d: _leaves(st[n])[li] for d, st in
+                             zip(dcoords, self._zero_state)})
+        elif self._fused:
+            for b, (b0, b1) in enumerate(self._bucket_bounds):
+                for i, flat in enumerate(self._flat_state):
+                    whole(f"opt:fused:{b}:{i}", flat[b0:b1])
+        else:
+            for n, st in self._opt_state.items():
+                for li, leaf in enumerate(_leaves(st)):
+                    whole(f"opt:{n}:{li}", leaf)
+        for b in range(len(self._ef_res[0]) if self._ef_res else 0):
+            ln = self._ef_res[0][b].numel()
+            by_data(f"opt:efres:{b}:0", (ln * self._ndata,), 0,
+                    {d: r[b] for d, r in zip(dcoords, self._ef_res)})
+        return out
 
     def restore_state(self, manager, step: Optional[int] = None
                       ) -> Tuple[Dict[str, Any], int]:
@@ -2305,7 +2617,11 @@ class ShardedTrainer:
         if not self._bound:
             raise MXNetError("call bind() before restore_state")
         from ..checkpoint import layout
-        mine = self._state_arrays()
+        # over processes: the arrays' shapes (every process reads every
+        # array it holds a part of and keeps its part)
+        mine = (self._state_arrays() if self._procs is None
+                else {n: torch.empty(shape) for n, (shape, _)
+                      in self._state_shards().items()})
         manager.wait_until_finished()
         if step is None:
             step = manager.latest_step()
@@ -2331,9 +2647,13 @@ class ShardedTrainer:
         arrays, meta, step = manager.restore(
             step=step, names=list(mine),
             target_shapes={n: tuple(v.shape) for n, v in mine.items()})
-        with torch.no_grad():
-            for n, dst in mine.items():
-                dst.copy_(torch.from_numpy(np.ascontiguousarray(arrays[n])))
+        if self._procs is None:
+            with torch.no_grad():
+                for n, dst in mine.items():
+                    dst.copy_(torch.from_numpy(
+                        np.ascontiguousarray(arrays[n])))
+        else:
+            self._restore_replicated(arrays)
         self._scatter_opt_arrays(arrays)
         self._broadcast()
         self._num_update = int(meta.get("num_update", step))
@@ -2363,6 +2683,30 @@ class ShardedTrainer:
         self.logger.info("restore_state: resumed at update %d from %s",
                          self._num_update, manager.step_path(step))
         return meta, step
+
+    def _restore_replicated(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Over processes: the restored arrays every process holds whole
+        (replicated parameters, aux states, the unsharded optimizer
+        state) into this process's copies; :meth:`_scatter_opt_arrays`
+        writes the pieces and slices."""
+        def put(dst, name):
+            if name in arrays:
+                dst.copy_(torch.from_numpy(
+                    np.ascontiguousarray(arrays[name])))
+        with torch.no_grad():
+            for n in self._param_names:
+                if n not in self._pieces:
+                    put(self._params[n].detach(), f"param:{n}")
+            for n in self._aux_names:
+                put(self._aux[n], f"aux:{n}")
+            if self._fused:
+                for b, (b0, b1) in enumerate(self._bucket_bounds):
+                    for i, flat in enumerate(self._flat_state):
+                        put(flat[b0:b1], f"opt:fused:{b}:{i}")
+            elif not self.shard_optimizer:
+                for n, st in self._opt_state.items():
+                    for li, leaf in enumerate(_leaves(st)):
+                        put(leaf, f"opt:{n}:{li}")
 
     def restore_or_initialize(self, manager) -> Optional[int]:
         """Restore the manager's newest checkpoint if it has one (returning
@@ -2496,16 +2840,33 @@ class ShardedTrainer:
         carry in the meta so a resumed epoch's running metric is not
         zero."""
 
-        def state_fn():
+        def meta_fn():
             extra = {"epoch": epoch, "nbatch": nbatch}
             carry = None
             if am._dev_sum is not None:
                 # the carry rides the guard counters' copy to the host
                 extra["metric_num"] = int(am._dev_num)
                 carry = {"metric_sum": am._dev_sum}
-            return self._state_arrays(), self._state_meta(extra, carry)
+            return self._state_meta(extra, carry)
 
-        manager.maybe_save(self._num_update, state_fn)
+        if self._procs is not None:
+            # every process writes its share at the same update, or none
+            # does: a clock policy and a preemption signal are each
+            # process's own, so one process's yes is every process's, and
+            # a preemption stops them all at this batch
+            from . import dist
+            flags = dist.transport(torch.tensor(
+                [manager.should_save(self._num_update), manager.preempted],
+                dtype=torch.int32))
+            save, preempted = (bool(v) for v in
+                               collectives.allreduce_processes([flags])[0]
+                               .tolist())
+            manager.preempted = preempted
+            if save:
+                self._save_processes(manager, self._num_update, meta_fn())
+        else:
+            manager.maybe_save(self._num_update,
+                               lambda: (self._state_arrays(), meta_fn()))
         if manager.preempted:
             manager.deferred_save_done()
 
@@ -2681,16 +3042,21 @@ class _PieceLayout:
     """How the members of a trainer's mesh hold one rule-sharded
     parameter (its ``spec``, a :class:`NamedSharding` over the mesh):
 
-    * ``of[i]``: the number of member ``i``'s piece; pieces are numbered
-      by the first member that holds each;
-    * ``contrib[p]``: the members whose gradients of piece ``p`` are
-      summed: every member that holds it, of model coordinate 0 when the
-      spec does not cut over the model axis (each model coordinate
-      computes the same function, so the same gradient; a data, seq,
-      expert or pipe coordinate computes a part of it);
-    * ``leads[p]``: the member that holds piece ``p``'s optimizer state
-      and updates it (the first of ``contrib[p]``: every other
-      coordinate 0);
+    * ``of[i]``: the slot of member ``i``'s piece among this process's
+      pieces; pieces are numbered over the whole mesh by the first member
+      that holds each (``number[t]`` is slot ``t``'s);
+    * ``contrib[t]``: this process's members whose gradients of piece
+      ``t`` are summed: every member that holds it, of model coordinate 0
+      when the spec does not cut over the model axis (each model
+      coordinate computes the same function, so the same gradient; a
+      data, seq, expert or pipe coordinate computes a part of it);
+    * ``leads[t]``: the member that holds piece ``t``'s optimizer state
+      and updates it (the first of this process's members that hold it:
+      in one process the first of the contributors);
+    * ``holders[t]``: the processes that hold piece ``t`` (each updates
+      it alike from the sum over every process's contributors);
+      ``gholders[p]`` and ``gfirst[p]`` are piece number ``p``'s holders
+      and first member over the whole mesh;
     * ``gathers``: ``(dim, axis, to_owner)`` steps that give a member the
       value the graph reads, minor axis first within a dimension: a cut
       over the model axis is gathered with the others' pieces detached
@@ -2701,7 +3067,8 @@ class _PieceLayout:
       plan, and the expert axis on an ``MoEFFN`` expert weight's first
       dimension (the op runs each member's experts)."""
 
-    __slots__ = ("spec", "sharding", "of", "contrib", "leads", "gathers")
+    __slots__ = ("spec", "sharding", "of", "number", "contrib", "leads",
+                 "holders", "gholders", "gfirst", "gathers")
 
     def __init__(self, trainer, spec, shape, split: bool,
                  expert_axis: Optional[str]):
@@ -2709,18 +3076,30 @@ class _PieceLayout:
         self.spec = spec
         self.sharding = NamedSharding(mesh, spec)
         keys = [tuple((sl.start, sl.stop)
-                      for sl in self.sharding.index(i, tuple(shape)))
-                for i in range(mesh.size)]
+                      for sl in self.sharding.index(g, tuple(shape)))
+                for g in range(mesh.size)]
         number = {k: p for p, k in enumerate(dict.fromkeys(keys))}
-        self.of = [number[k] for k in keys]
+        gof = [number[k] for k in keys]
         named = _spec_axes(spec)
-        mcoord = trainer._coord.get(MODEL_AXIS, [0] * mesh.size)
         copies = trainer.model_axis is not None \
             and MODEL_AXIS not in named
-        self.contrib = [[i for i in range(mesh.size) if self.of[i] == p
-                         and not (copies and mcoord[i] != 0)]
-                        for p in range(len(number))]
-        self.leads = [c[0] for c in self.contrib]
+        gm = (np.unravel_index(np.arange(mesh.size), mesh.devices.shape)
+              [mesh.axis_names.index(MODEL_AXIS)]
+              if MODEL_AXIS in mesh.axis_names else np.zeros(mesh.size))
+        gproc = (trainer._procs.gproc if trainer._procs is not None
+                 else [0] * mesh.size)
+        local = trainer._gidx
+        self.number = sorted({gof[g] for g in local})
+        self.of = [self.number.index(gof[g]) for g in local]
+        self.contrib = [[i for i, g in enumerate(local) if gof[g] == p
+                         and not (copies and gm[g] != 0)]
+                        for p in self.number]
+        self.leads = [self.of.index(t) for t in range(len(self.number))]
+        self.gholders = [tuple(sorted({gproc[g] for g in range(mesh.size)
+                                       if gof[g] == p}))
+                         for p in range(len(number))]
+        self.gfirst = [gof.index(p) for p in range(len(number))]
+        self.holders = [self.gholders[p] for p in self.number]
         self.gathers: List[Tuple[int, str, bool]] = []
         for d, ax in enumerate(spec):
             axes = () if ax is None else ((ax,) if isinstance(ax, str)
@@ -2849,6 +3228,15 @@ def _batch_layout(sym, topo, input_shapes):
     heads = frozenset(q for q, (n, i) in enumerate(sym._heads)
                       if global_value(n, i))
     return None, frozenset(reductions), heads, row_split
+
+
+def _sum_or_zeros(parts: List[torch.Tensor], like: torch.Tensor):
+    """:func:`~.collectives.psum` of ``parts`` (on the first part's
+    device), or zeros like ``like`` when there are none (a process that
+    holds no member of the group contributes zeros)."""
+    if not parts:
+        return torch.zeros_like(like)
+    return psum(parts)[0]
 
 
 def _torch_dtype(name) -> Optional[torch.dtype]:

@@ -190,15 +190,17 @@ def test_init_distributed_needs_its_environment(monkeypatch):
 
 
 def test_refusals_over_processes_name_what_is_missing():
-    """Over a mesh whose other members belong to another process: another
-    split axis, compressed gradients, ZeRO, sharding rules and
-    ``save_state`` refuse by name; a mesh whose processes do not lie in
-    order along the data axis refuses too."""
+    """Over a mesh whose other members belong to another process, what
+    is still refused says why: members of one process that do not form a
+    box of the mesh, ``grad_compression`` beside a seq axis across the
+    processes, and ``compile()``, which runs such a trainer eagerly.
+    (Another split axis, compressed gradients, ZeRO, sharding rules and
+    ``save_state`` over processes train in
+    ``tests/test_torch_process_meshes.py``.)"""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.context import Context
-    from mxnet_tpu_torch.parallel import (PartitionSpec, ShardedTrainer,
-                                          ShardingRules, make_mesh)
+    from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
     here = [mx.cpu(0), mx.cpu(1)]
     there = [Context("cpu", 0, process=1), Context("cpu", 1, process=1)]
     net = _linear_net(mx.symbol)
@@ -209,21 +211,19 @@ def test_refusals_over_processes_name_what_is_missing():
     tr = ShardedTrainer(net, mesh=mesh)
     assert tr._devices == [here[0].torch_device] * 2
     assert (tr._ndata, tr._dcoord, tr._shard_n) == (4, [0, 1], 2)
-    with pytest.raises(MXNetError, match="not ported"):
-        tr.save_state(None)
-    cases = [(dict(mesh=make_mesh({"data": 2, "model": 2}, here + there)),
-              "'model' axis"),
-             (dict(mesh=mesh, grad_compression="int8"), "grad_compression"),
-             (dict(mesh=mesh, shard_optimizer=True), "ZeRO"),
-             (dict(mesh=mesh, rules=ShardingRules(
-                 [("fc_weight", PartitionSpec("model", None))])),
-              "sharding rules")]
-    for kw, what in cases:
-        with pytest.raises(MXNetError, match="not ported") as err:
-            ShardedTrainer(net, **kw)
-        assert what in str(err.value)
-    with pytest.raises(MXNetError, match="process order"):
-        ShardedTrainer(net, mesh=make_mesh({"data": 4}, there + here))
+    why = tr._uncapturable()
+    assert "runs eagerly" in why and "gloo" in why and "NCCL" in why
+    # the model axis across the processes: this process's box holds
+    # model coordinate 0 of both data coordinates
+    tr = ShardedTrainer(net, mesh=make_mesh(
+        {"data": 2, "model": 2}, [here[0], there[0], here[1], there[1]]))
+    assert (tr._ndata, tr._dcoord, tr._rep_members) == (2, [0, 1], [0, 1])
+    with pytest.raises(MXNetError, match="do not form a box"):
+        ShardedTrainer(net, mesh=make_mesh(
+            {"data": 2, "model": 2}, [here[0], there[0], there[1], here[1]]))
+    with pytest.raises(MXNetError, match="'seq' axis"):
+        ShardedTrainer(net, grad_compression="int8", mesh=make_mesh(
+            {"data": 2, "seq": 2}, [here[0], there[0], here[1], there[1]]))
 
 
 # ---------------------------------------------------------------------------

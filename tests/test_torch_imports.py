@@ -124,7 +124,8 @@ from mxnet_tpu_torch.parallel.dist_kvstore import (DistKVStore,
                                                    MembershipClient,
                                                    run_scheduler, run_server)
 from mxnet_tpu_torch.parallel.launch import launch_local, launch_ssh, submit
-from mxnet_tpu_torch.parallel.members import ProcessBridge
+from mxnet_tpu_torch.parallel.members import ProcessBridge, TokenChain
+from mxnet_tpu_torch.parallel.process_mesh import ProcessLayout
 from mxnet_tpu_torch.parallel.collectives import allreduce_processes
 import mxnet_tpu_torch.parallel.watchdog
 import mxnet_tpu_torch.parallel.elastic

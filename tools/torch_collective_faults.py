@@ -30,15 +30,16 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_REDUCE = "tdist.all_reduce(flat[start:start + n])"
-_GATHER = "got = dist.all_gather_object([_host(x) for x in leaves])"
+_REDUCE = ("tdist.all_reduce(piece, group=(None if ranks is None\n"
+           "                                           else "
+           "dist.subgroup(ranks)))")
+_GATHER = "tdist.all_gather(bufs, flat.contiguous(), group=subgroup(ranks))"
 FAULTS = {
     "scale": ("mxnet_tpu_torch/parallel/collectives.py", _REDUCE,
-              _REDUCE + "\n            flat[start:start + n].mul_(2)"),
+              _REDUCE + "\n            piece.mul_(2)"),
     "skip": ("mxnet_tpu_torch/parallel/collectives.py", _REDUCE, "pass"),
-    "local": ("mxnet_tpu_torch/parallel/members.py", _GATHER,
-              _GATHER + "\n        got = [got[dist.process_index()]] "
-              "* len(got)"),
+    "local": ("mxnet_tpu_torch/parallel/dist.py", _GATHER,
+              _GATHER + "\n        bufs = [flat.clone() for _ in ranks]"),
 }
 
 # the phase itself, in a fresh interpreter over the tree at argv[1]
